@@ -1,0 +1,60 @@
+// Poisson RHS div(u)/dt_rk, one pass.
+//
+// Replaces: cales_tpu/ops/pallas_kernels.py fused_fillps (body
+// _fillps_kernel), the plain variant (no x/y transform fusion, no wall
+// bundles).  Formula: cales_torch/ops/stencil.fillps (reference
+// fillps.f90:14-48).  The prediction fill's w wall-face rewrite enters
+// through the edge stack's row 1.
+//
+// Bound on the H100: memory.  About 5 field streams per call (read u, v,
+// w at their backward neighbours; write the RHS): 0.67 GB at 512x256x256
+// f32, a 0.2 ms floor at the data sheet's 3.35 TB/s.  Measured 0.284 ms
+// per call there (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py phase 2b).
+// Neighbour reuse is left to L1/L2.
+#include "common.cuh"
+
+namespace cales {
+
+template <typename T>
+__global__ void __launch_bounds__(CALES_THREADS) fillps_kernel(
+    const T* __restrict__ u, const T* __restrict__ v, const T* __restrict__ w,
+    const T* __restrict__ ue, const T* __restrict__ ve,
+    const T* __restrict__ we, const T* __restrict__ dzfi,
+    T* __restrict__ rhs, int nz, int ny, int nx, T dti, T cy, T cx) {
+  const int k = blockIdx.y;
+  const int64_t idx =
+      static_cast<int64_t>(blockIdx.x) * CALES_THREADS + threadIdx.x;
+  const int64_t plane = static_cast<int64_t>(ny) * nx;
+  if (idx >= plane) return;
+  const Cell c(k, idx, nz, ny, nx);
+  rhs[static_cast<int64_t>(k) * plane + idx] =
+      (at(w, we, c, 0, 0, 0) - at(w, we, c, -1, 0, 0)) * dti * dzfi[k + 1] +
+      (at(v, ve, c, 0, 0, 0) - at(v, ve, c, 0, -1, 0)) * cy +
+      (at(u, ue, c, 0, 0, 0) - at(u, ue, c, 0, 0, -1)) * cx;
+}
+
+template <typename T>
+int launch_fillps(const T* u, const T* v, const T* w, const T* ue,
+                  const T* ve, const T* we, const T* dzfi, T* rhs, int nz,
+                  int ny, int nx, double dti, double dxi, double dyi,
+                  void* stream) {
+  fillps_kernel<T><<<plane_grid(nz, ny, nx), CALES_THREADS, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      u, v, w, ue, ve, we, dzfi, rhs, nz, ny, nx, T(dti), T(dti * dyi),
+      T(dti * dxi));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace cales
+
+#define CALES_FILLPS_ENTRY(NAME, T)                                          \
+  extern "C" int NAME(const T* u, const T* v, const T* w, const T* ue,       \
+                      const T* ve, const T* we, const T* dzfi, T* rhs,       \
+                      int nz, int ny, int nx, double dti, double dxi,        \
+                      double dyi, void* stream) {                            \
+    return cales::launch_fillps<T>(u, v, w, ue, ve, we, dzfi, rhs, nz, ny,   \
+                                   nx, dti, dxi, dyi, stream);               \
+  }
+
+CALES_FILLPS_ENTRY(cales_fillps_f32, float)
+CALES_FILLPS_ENTRY(cales_fillps_f64, double)

@@ -1,0 +1,243 @@
+"""Ghost-cell layer, periodic/Dirichlet/Neumann subset.
+
+Counterpart of cales_tpu/ops/boundary.py (set_bc semantics of the
+reference's bound.f90:202-399): fields are stored interior-only with shape
+(nz, ny, nx); a padded (nz+2, ny+2, nx+2) view is assembled with one
+``torch.cat`` per axis, axes in x, y, z order so each ghost plane spans the
+earlier axes' ghosts (the corner semantics of the sequential halo sweep).
+
+Kernel input contract (kept from the JAX package): interior arrays plus
+(3, ny, nx) z-edge stacks [padded row 0, padded row nz, padded row nz+1].
+Padded row nz carries the wall-face rewrite of the z-staggered component
+(w), so a kernel never reads the interior's last z row directly.
+
+BC values are python floats or padded 2-D planes (x-faces (nz+2, ny+2),
+y-faces (nz+2, nx+2), z-faces (ny+2, nx+2)).
+"""
+from __future__ import annotations
+
+import torch
+
+AX = {'x': 2, 'y': 1, 'z': 0}  # logical direction -> array axis of (z, y, x)
+
+
+def bc_plane_shapes(ng):
+    nx, ny, nz = ng
+    return {'x': (nz + 2, ny + 2), 'y': (nz + 2, nx + 2), 'z': (ny + 2, nx + 2)}
+
+
+def make_bc_values(ng, vals, dtype, device=None):
+    """Per-face BC values from namelist scalars (initbc, bound.f90:764-795).
+    Scalars stay python floats; a 2-D entry is a plane-valued BC kept as a
+    padded tensor on `device`."""
+    shapes = bc_plane_shapes(ng)
+    axes = ('x', 'y', 'z')
+    out = []
+    for idir in range(3):
+        pair = []
+        for ib in range(2):
+            v = vals[idir][ib]
+            if getattr(v, 'ndim', 0) == 2:
+                want = shapes[axes[idir]]
+                if tuple(v.shape) != want:
+                    raise ValueError(
+                        f'plane-valued BC for direction {axes[idir]} must '
+                        f'have padded shape {want}, got {tuple(v.shape)}')
+                pair.append(torch.as_tensor(v, dtype=dtype, device=device))
+            else:
+                pair.append(float(v))
+        out.append(tuple(pair))
+    return tuple(out)
+
+
+def _fi(axis, i):
+    idx = [slice(None)] * 3
+    idx[axis] = i
+    return tuple(idx)
+
+
+def _ex(plane, axis):
+    return plane.unsqueeze(axis)
+
+
+def crop_plane(plane, q_shape, axis):
+    """Crop a full padded-transverse plane to the ghost-plane shape of a
+    (possibly partially padded) array (axes are attached x, y, z)."""
+    dims = [d for d in range(3) if d != axis]
+    sl = []
+    for d_plane, d_arr in enumerate(dims):
+        cur, full = q_shape[d_arr], plane.shape[d_plane]
+        if cur == full:
+            sl.append(slice(None))
+        elif cur == full - 2:
+            sl.append(slice(1, -1))
+        else:
+            raise ValueError(f'BC plane shape {tuple(plane.shape)} vs field '
+                             f'{tuple(q_shape)}')
+    return plane[tuple(sl)]
+
+
+def _bc_plane(val, like, axis):
+    """Broadcast or crop a scalar/2-D BC value to the ghost-plane shape of
+    `like`."""
+    if getattr(val, 'ndim', 0) == 2:
+        return crop_plane(val, like.shape, axis).to(like.dtype)
+    shape = list(like.shape)
+    del shape[axis]
+    return torch.full(shape, float(val), dtype=like.dtype, device=like.device)
+
+
+def _set_centered(q, axis, letters, bcvals, dr):
+    """Both ghost faces along `axis` of a cell-centered variable (set_bc
+    centered=.true., bound.f90:232-352)."""
+    first = q[_fi(axis, 0)]
+    last = q[_fi(axis, -1)]
+    if letters[0] == 'P':
+        lo, hi = last, first
+    else:
+        b0 = _bc_plane(bcvals[0], q, axis)
+        b1 = _bc_plane(bcvals[1], q, axis)
+        lo = 2.0 * b0 - first if letters[0] == 'D' else -dr[0] * b0 + first
+        hi = 2.0 * b1 - last if letters[1] == 'D' else dr[1] * b1 + last
+    return torch.cat([_ex(lo, axis), q, _ex(hi, axis)], dim=axis)
+
+
+def _set_face(q, axis, letters, bcvals, dr, lo_keep=None, keep=False):
+    """Ghost faces plus the wall-face rewrite along `axis` for the
+    face-staggered normal component (set_bc centered=.false.,
+    bound.f90:283-318 'D', 354-396 'N').  keep=True (the corrector fill,
+    impose_norm_bc=.false.): the lower wall face comes from `lo_keep` and
+    the interior wall-face entry keeps its corrected value."""
+    first = q[_fi(axis, 0)]
+    second_last = q[_fi(axis, -2)]
+    last = q[_fi(axis, -1)]
+    if letters[0] == 'P':
+        return torch.cat([_ex(last, axis), q, _ex(first, axis)], dim=axis)
+    if keep:
+        hi = second_last if letters[1] == 'D' else last
+        lo = crop_plane(lo_keep, q.shape, axis).to(q.dtype)
+        return torch.cat([_ex(lo, axis), q, _ex(hi, axis)], dim=axis)
+    b0 = _bc_plane(bcvals[0], q, axis)
+    b1 = _bc_plane(bcvals[1], q, axis)
+    lo = b0 if letters[0] == 'D' else -dr[0] * b0 + first
+    trunk = q.narrow(axis, 0, q.shape[axis] - 1)
+    if letters[1] == 'D':
+        # u(n) = bc; u(n+1) = u(n-1) (unused)   bound.f90:292-293
+        newlast, hi = b1, second_last
+    else:
+        # u(n+1) = old u(n) (unused); u(n) = dr*bc + u(n-1)  bound.f90:365-366
+        newlast, hi = dr[1] * b1 + second_last, last
+    return torch.cat([_ex(lo, axis), trunk, _ex(newlast, axis),
+                      _ex(hi, axis)], dim=axis)
+
+
+def pad_scalar(p, cbc, bcvals, dl, dzc):
+    """Ghost fill for a cell-centered scalar (boundp, bound.f90:156-200)."""
+    nz = p.shape[0]
+    q = p
+    drs = {'x': (dl[0], dl[0]), 'y': (dl[1], dl[1]),
+           'z': (float(dzc[0]), float(dzc[nz]))}
+    for key, idir in (('x', 0), ('y', 1), ('z', 2)):
+        q = _set_centered(q, AX[key], cbc[idir], bcvals[idir], drs[key])
+    return q
+
+
+def _zedge_centered(q, letters, bcvals, dr):
+    """(3, ny, nx) z-edge stack [ghost_lo, padded-row-nz, ghost_hi] of a
+    z-centered variable; padded row nz is the interior last row."""
+    first, last = q[0], q[-1]
+    if letters[0] == 'P':
+        lo, hi = last, first
+    else:
+        b0 = _bc_plane(bcvals[0], q, 0)
+        b1 = _bc_plane(bcvals[1], q, 0)
+        lo = 2.0 * b0 - first if letters[0] == 'D' else -dr[0] * b0 + first
+        hi = 2.0 * b1 - last if letters[1] == 'D' else dr[1] * b1 + last
+    return torch.stack([lo, last, hi])
+
+
+def _zedge_face(q, letters, bcvals, dr, lo_keep=None, keep=False):
+    """z-edge stack of the z-face-staggered component (w): padded row nz is
+    the (possibly rewritten) wall face, so it travels in the stack instead
+    of mutating the interior array."""
+    first, second_last, last = q[0], q[-2], q[-1]
+    if letters[0] == 'P':
+        return torch.stack([last, last, first])
+    if keep:
+        hi = second_last if letters[1] == 'D' else last
+        lo = crop_plane(lo_keep, q.shape, 0).to(q.dtype)
+        return torch.stack([lo, last, hi])
+    b0 = _bc_plane(bcvals[0], q, 0)
+    b1 = _bc_plane(bcvals[1], q, 0)
+    lo = b0 if letters[0] == 'D' else -dr[0] * b0 + first
+    if letters[1] == 'D':
+        newlast, hi = b1, second_last
+    else:
+        newlast, hi = dr[1] * b1 + second_last, last
+    return torch.stack([lo, newlast, hi])
+
+
+def zedge_scalar(p, cbc_z, bcvals_z, dzc):
+    """(3, ny, nx) z-edge stack of a cell-centered scalar."""
+    nz = p.shape[0]
+    dr = (float(dzc[0]), float(dzc[nz]))
+    return _zedge_centered(p, cbc_z, bcvals_z, dr)
+
+
+def zedge_velocity(u, v, w, cbcvel, bcu, bcv, bcw, dzc, dzf,
+                   vlo=None, is_correc=False):
+    """z-edge stacks (3, ny, nx) of (u, v, w) with pad_velocity's z
+    semantics: rows [padded row 0, padded row nz (w: the wall-face
+    rewrite), padded row nz+1]."""
+    nz = u.shape[0]
+    dr_par = (float(dzc[0]), float(dzc[nz]))
+    dr_nrm = (float(dzf[0]), float(dzf[nz]))
+
+    def lts(ivel):
+        return (cbcvel[0][2][ivel], cbcvel[1][2][ivel])
+    ue = _zedge_centered(u, lts(0), bcu[2], dr_par)
+    ve = _zedge_centered(v, lts(1), bcv[2], dr_par)
+    lw = lts(2)
+    keep = is_correc and lw[0] != 'P' and vlo is not None
+    we = _zedge_face(w, lw, bcw[2], dr_nrm,
+                     lo_keep=vlo[2] if keep else None, keep=keep)
+    return ue, ve, we
+
+
+def pad_velocity(u, v, w, cbcvel, bcu, bcv, bcw, dl, dzc, dzf,
+                 vlo=None, is_correc=False):
+    """Ghost fill of the staggered velocity (bounduvw, bound.f90:18-154).
+
+    vlo: (u_lo, v_lo, w_lo) lower-wall normal-face planes from the state,
+    consumed when is_correc.  Returns (up, vp, wp, vlo_new), vlo_new being
+    the planes actually placed in the ghost layer."""
+    nz = u.shape[0]
+    dr_par = {'x': (dl[0], dl[0]), 'y': (dl[1], dl[1]),
+              'z': (float(dzc[0]), float(dzc[nz]))}
+    dr_nrm = {'x': (dl[0], dl[0]), 'y': (dl[1], dl[1]),
+              'z': (float(dzf[0]), float(dzf[nz]))}
+    fields = {'u': u, 'v': v, 'w': w}
+    bcs = {'u': bcu, 'v': bcv, 'w': bcw}
+    face_of = {'u': 'x', 'v': 'y', 'w': 'z'}
+    vlo_in = {'u': None, 'v': None, 'w': None}
+    if vlo is not None:
+        vlo_in = {'u': vlo[0], 'v': vlo[1], 'w': vlo[2]}
+
+    out = {}
+    for name, ivel in (('u', 0), ('v', 1), ('w', 2)):
+        q = fields[name]
+        for key, idir in (('x', 0), ('y', 1), ('z', 2)):
+            axis = AX[key]
+            lts = (cbcvel[0][idir][ivel], cbcvel[1][idir][ivel])
+            bv = bcs[name][idir]
+            if key == face_of[name]:
+                keep = is_correc and lts[0] != 'P' and vlo_in[name] is not None
+                q = _set_face(q, axis, lts, bv, dr_nrm[key],
+                              lo_keep=vlo_in[name] if keep else None,
+                              keep=keep)
+            else:
+                q = _set_centered(q, axis, lts, bv, dr_par[key])
+        out[name] = q
+
+    vlo_new = (out['u'][:, :, 0], out['v'][:, 0, :], out['w'][0, :, :])
+    return out['u'], out['v'], out['w'], vlo_new

@@ -1,0 +1,115 @@
+"""Build and load the CUDA kernels of cales_torch/csrc.
+
+All ``*.cu`` sources compile with nvcc into one shared library with a plain
+C interface, loaded through ctypes (no PyTorch headers, so a build takes
+seconds).  The library lands in ``cales_torch/_build/<hash>/``, keyed by a
+hash of the sources and the compiler flags, at first use: a fresh checkout
+builds everything on the first launch, later processes reuse the build.
+
+Each C entry launches on the stream it is given and returns
+``cudaGetLastError()``; the wrappers in ops/kernels.py raise on non-zero.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / 'csrc'
+BUILD_ROOT = Path(__file__).resolve().parents[1] / '_build'
+LIBNAME = 'libcales_kernels.so'
+ARCH = 'sm_90a'
+NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
+              '-O3', '-shared', '-Xcompiler', '-fPIC', '-lineinfo')
+# threads per block of every kernel (csrc/common.cuh CALES_THREADS)
+THREADS = 256
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_D = ctypes.c_double
+_SIGNATURES = {
+    'cales_mom_rk': [_P] * 23 + [_I] * 3 + [_D] * 8 + [_P],
+    'cales_fillps': [_P] * 8 + [_I] * 3 + [_D] * 3 + [_P],
+    'cales_correc_smag': ([_P] * 22 + [_I] * 4 + [_I, _D, _D] * 4
+                          + [_D] * 4 + [_P]),
+}
+
+
+def sources():
+    return sorted(CSRC.glob('*.cu')) + sorted(CSRC.glob('*.cuh'))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+    for f in sources():
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def nvcc_path() -> str:
+    found = shutil.which('nvcc')
+    if found:
+        return found
+    home = os.environ.get('CUDA_HOME', '/usr/local/cuda')
+    cand = Path(home) / 'bin' / 'nvcc'
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError('nvcc not found (PATH or CUDA_HOME/bin): the CUDA '
+                       'kernels of cales_torch build on a machine with the '
+                       'CUDA toolkit')
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile the library if this source hash has no build yet; returns
+    its path.  verbose prints nvcc's register/spill report."""
+    out_dir = BUILD_ROOT / source_hash()
+    lib = out_dir / LIBNAME
+    if lib.exists():
+        return lib
+    out_dir.mkdir(parents=True, exist_ok=True)
+    cu = [str(f) for f in sorted(CSRC.glob('*.cu'))]
+    fd, tmp = tempfile.mkstemp(suffix='.so', dir=out_dir)
+    os.close(fd)
+    cmd = [nvcc_path(), *NVCC_FLAGS, f'-I{CSRC}', '-o', tmp, *cu]
+    if verbose:
+        cmd[1:1] = ['-Xptxas', '-v']
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f'nvcc failed ({res.returncode}):\n'
+                           f'{" ".join(cmd)}\n{res.stdout}\n{res.stderr}')
+    if verbose:
+        print(res.stdout + res.stderr, flush=True)
+        print(f'nvcc build: {time.perf_counter() - t0:.1f} s', flush=True)
+    os.replace(tmp, lib)    # atomic: a concurrent build never sees a partial file
+    return lib
+
+
+@functools.cache
+def load() -> ctypes.CDLL:
+    """The loaded kernel library (built at first use), with argtypes set."""
+    lib = ctypes.CDLL(str(build()))
+    for base, argtypes in _SIGNATURES.items():
+        for suffix in ('f32', 'f64'):
+            fn = getattr(lib, f'{base}_{suffix}')
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    lib.cales_threads_per_block.restype = ctypes.c_int
+    lib.cales_threads_per_block.argtypes = []
+    lib.cales_error_string.restype = ctypes.c_char_p
+    lib.cales_error_string.argtypes = [ctypes.c_int]
+    if lib.cales_threads_per_block() != THREADS:
+        raise RuntimeError('csrc CALES_THREADS and build.THREADS disagree')
+    return lib
+
+
+def error_string(rc: int) -> str:
+    return load().cales_error_string(rc).decode()

@@ -1,0 +1,287 @@
+"""The slice's three stencil kernels: one wrapper each, with its plain
+PyTorch twin and a launch counter.
+
+  kernel        CUDA source                     replaces (cales_tpu)
+  mom_rk        csrc/mom_rk.cu        ops/pallas_kernels.py fused_mom_rk
+  fillps        csrc/fillps.cu        ops/pallas_kernels.py fused_fillps
+  correc_smag   csrc/correc_smag.cu   ops/pallas_kernels.py
+                                      fused_correc_updatep_smag
+
+Input contract (the JAX kernels'): interior (nz, ny, nx) fields plus
+(3, ny, nx) z-edge stacks [padded row 0, padded row nz, padded row nz+1];
+x and y are periodic and wrap inside the kernel.  z metrics are (nz+2,)
+tensors with ghost entries, in the fields' dtype and on their device.
+
+Dispatch: a wrapper takes the twin only for tensors on the CPU.  For CUDA
+tensors it launches its kernel or raises; nothing falls back.  LAUNCHES
+counts kernel launches only; the twins never touch it.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import stencil as st
+
+LAUNCHES = {'mom_rk': 0, 'fillps': 0, 'correc_smag': 0}
+
+# z-ghost recipe letters understood by the correction kernel
+_LETTER_CODE = {'D': 0, 'N': 1}
+
+
+def reset_launches():
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch twins, built from the stencil functions on z-padded,
+# periodic-wrapped tensors
+# ---------------------------------------------------------------------------
+
+def zpad(q, e):
+    """(nz+2, ny, nx) z-padded field from an interior and its edge stack:
+    rows [e0, q[0..nz-2], e1, e2]."""
+    return torch.cat([e[0:1], q[:-1], e[1:3]], dim=0)
+
+
+def wrap_xy(a):
+    """Periodic x/y ghosts around a (n, ny, nx) array."""
+    a = torch.cat([a[:, -1:, :], a, a[:, :1, :]], dim=1)
+    return torch.cat([a[:, :, -1:], a, a[:, :, :1]], dim=2)
+
+
+def padded(q, e):
+    return wrap_xy(zpad(q, e))
+
+
+def ghost_row(rec, side, q1):
+    """Scalar-BC z-ghost plane from the first (side 0) or last (side 1)
+    interior plane; rec = (lt_lo, b_lo, dr_lo, lt_hi, b_hi, dr_hi)."""
+    lt, b, dr = rec[3 * side:3 * side + 3]
+    if lt == 'D':
+        return 2.0 * b - q1
+    return (-dr * b + q1) if side == 0 else (dr * b + q1)
+
+
+def mom_rk_plain(u, v, w, s, p, ue, ve, we, se, pe, ruo, rvo, rwo,
+                 dzci, dzfi, f1, f2, visc, dxi, dyi, bforce,
+                 sums=(False, False)):
+    nz = u.shape[0]
+    up, vp, wp, sp, ppad = (padded(q, e) for q, e in
+                            ((u, ue), (v, ve), (w, we), (s, se), (p, pe)))
+    (eu, exyu, ezu), (ev, exyv, ezv), (ew, exyw, ezw) = st.momentum_rhs(
+        up, vp, wp, sp, visc, dxi, dyi, dzci, dzfi)
+    ru, rv, rw = eu + exyu + ezu, ev + exyv + ezv, ew + exyw + ezw
+    dzci_c = torch.as_tensor(dzci[1:nz + 1], dtype=u.dtype,
+                             device=u.device)[:, None, None]
+    pc = ppad[1:-1, 1:-1, 1:-1]
+    gpx = dxi * (ppad[1:-1, 1:-1, 2:] - pc)
+    gpy = dyi * (ppad[1:-1, 2:, 1:-1] - pc)
+    gpz = dzci_c * (ppad[2:, 1:-1, 1:-1] - pc)
+    f12 = f1 + f2
+    un = up[1:-1, 1:-1, 1:-1] + f1 * ru + f12 * (bforce[0] - gpx)
+    vn = vp[1:-1, 1:-1, 1:-1] + f1 * rv + f12 * (bforce[1] - gpy)
+    wn = wp[1:-1, 1:-1, 1:-1] + f1 * rw + f12 * (bforce[2] - gpz)
+    if ruo is not None:
+        un = un + f2 * ruo
+        vn = vn + f2 * rvo
+        wn = wn + f2 * rwo
+    usum = un.sum(dim=(1, 2))[:, None] if sums[0] else None
+    vsum = vn.sum(dim=(1, 2))[:, None] if sums[1] else None
+    return un, vn, wn, ru, rv, rw, usum, vsum
+
+
+def fillps_plain(u, v, w, ue, ve, we, dzfi, dti, dxi, dyi):
+    return st.fillps(padded(u, ue), padded(v, ve), padded(w, we),
+                     dti, dxi, dyi, dzfi)
+
+
+def correc_smag_plain(u, v, w, pp, p, ue, ve, we, ppe, dtrk, dxi, dyi,
+                      dzci, dzfi, visc, csd2, zrec, fuv, dw, nearlo,
+                      tauw_lo, tauw_hi, have_zwalls=True):
+    up = padded(u, ue) + fuv[0]
+    vp = padded(v, ve) + fuv[1]
+    wp = padded(w, we)
+    ppad = padded(pp, ppe)
+    uc, vc, wc, vlo = st.correc(up, vp, wp, ppad, dtrk, dxi, dyi, dzci)
+    pn = st.updatep(ppad, p, None, False, False, dxi, dyi, dzci, dzfi)
+    # post-correction fill for the strain: u, v z ghosts by the BC recipes
+    # of the corrected boundary planes; w's lower wall face is the
+    # corrected ghost-range entry (impose_norm_bc=.false.)
+    ug = wrap_xy(torch.cat([ghost_row(zrec[0], 0, uc[0])[None], uc,
+                            ghost_row(zrec[0], 1, uc[-1])[None]]))
+    vg = wrap_xy(torch.cat([ghost_row(zrec[1], 0, vc[0])[None], vc,
+                            ghost_row(zrec[1], 1, vc[-1])[None]]))
+    wcw = wrap_xy(wc)
+    wg = torch.cat([vlo[2][None], wcw, wcw[-1:]])   # top row never read
+    s0 = st.strain_rate(ug, vg, wg, dzci, dzfi, dxi, dyi)
+    c3 = csd2[:, None, None]
+    if have_zwalls:
+        tauw = torch.where(nearlo[:, None, None] > 0.5, tauw_lo[None],
+                           tauw_hi[None])
+        tauw_s = 0.5 * visc * tauw
+        dw_plus = dw[:, None, None] * torch.sqrt(tauw_s) / visc
+        fd = 1.0 - torch.exp(-dw_plus / 25.0)
+        visct = c3 * fd * fd * s0
+    else:
+        visct = c3 * s0
+    return uc, vc, wc, pn, visct
+
+
+# ---------------------------------------------------------------------------
+# launch plumbing
+# ---------------------------------------------------------------------------
+
+def _on_cpu(ref):
+    """The dispatch rule: the plain twin serves tensors on the CPU only."""
+    return ref.device.type == 'cpu'
+
+
+def _check(name, ref, fields, planes=(), edges=(), profiles=()):
+    """Validate what the kernel takes: one CUDA device, float32/float64,
+    contiguous, shapes of the interior (nz, ny, nx)."""
+    if ref.device.type != 'cuda':
+        raise ValueError(f'{name}: tensors must be on the CPU (plain twin) '
+                         f'or a CUDA device, got {ref.device}')
+    if ref.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f'{name}: dtype {ref.dtype} (float32 or float64)')
+    nz, ny, nx = ref.shape
+    want = {'field': (nz, ny, nx), 'plane': (ny, nx), 'edge': (3, ny, nx)}
+    for kind, group in (('field', fields), ('plane', planes),
+                        ('edge', edges)):
+        for t in group:
+            if t is None:
+                continue
+            if tuple(t.shape) != want[kind]:
+                raise ValueError(f'{name}: {kind} shape {tuple(t.shape)}, '
+                                 f'want {want[kind]}')
+    for t, n in profiles:
+        if t.ndim != 1 or t.shape[0] != n:
+            raise ValueError(f'{name}: profile shape {tuple(t.shape)}, '
+                             f'want ({n},)')
+    for t in (*fields, *planes, *edges, *(q for q, _ in profiles)):
+        if t is None:
+            continue
+        if t.device != ref.device or t.dtype != ref.dtype:
+            raise ValueError(f'{name}: mixed devices or dtypes '
+                             f'({t.device}, {t.dtype})')
+        if not t.is_contiguous():
+            raise ValueError(f'{name}: tensors must be contiguous')
+
+
+def _ptr(t):
+    return None if t is None else ctypes.c_void_p(t.data_ptr())
+
+
+def _suffix(t):
+    return 'f32' if t.dtype == torch.float32 else 'f64'
+
+
+def _launch(name, entry, *args):
+    from . import build
+    lib = build.load()
+    fn = getattr(lib, entry)
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    rc = fn(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f'{entry}: CUDA error {rc} '
+                           f'({build.error_string(rc)})')
+    LAUNCHES[name] += 1
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
+
+def mom_rk(u, v, w, s, p, ue, ve, we, se, pe, ruo, rvo, rwo, dzci, dzfi,
+           f1, f2, visc, dxi, dyi, bforce, sums=(False, False)):
+    """Momentum RHS (mom.f90:17-309) + low-storage RK3 update with -grad p
+    and bforce (rk.f90:77-94) in one pass.  ruo..rwo = None skips the
+    previous-RHS reads (first substep, f2 == 0).  sums: per-(z, block)
+    partial sums of the new u / v for the deferred bulk forcing.
+    Returns (u, v, w, ru, rv, rw, usum, vsum); usum/vsum are (nz, nblk)
+    or None."""
+    if _on_cpu(u):
+        return mom_rk_plain(u, v, w, s, p, ue, ve, we, se, pe, ruo, rvo, rwo,
+                            dzci, dzfi, f1, f2, visc, dxi, dyi, bforce,
+                            sums=sums)
+    nz, ny, nx = u.shape
+    if (ruo is None) != (rvo is None) or (ruo is None) != (rwo is None):
+        raise ValueError('mom_rk: pass all or none of ruo, rvo, rwo')
+    if s is None or se is None:
+        raise ValueError('mom_rk: the kernel needs visct and its edge stack')
+    _check('mom_rk', u, (u, v, w, s, p, ruo, rvo, rwo),
+           edges=(ue, ve, we, se, pe),
+           profiles=((dzci, nz + 2), (dzfi, nz + 2)))
+    outs = [torch.empty_like(u) for _ in range(6)]
+    from . import build
+    nb = -(-(ny * nx) // build.THREADS)     # blocks per z plane
+    usum = u.new_empty((nz, nb)) if sums[0] else None
+    vsum = u.new_empty((nz, nb)) if sums[1] else None
+    d = ctypes.c_double
+    _launch('mom_rk', f'cales_mom_rk_{_suffix(u)}',
+            *map(_ptr, (u, v, w, s, p, ue, ve, we, se, pe, ruo, rvo, rwo,
+                        dzci, dzfi, *outs, usum, vsum)),
+            ctypes.c_int(nz), ctypes.c_int(ny), ctypes.c_int(nx),
+            d(f1), d(f2), d(visc), d(dxi), d(dyi),
+            d(bforce[0]), d(bforce[1]), d(bforce[2]))
+    return (*outs, usum, vsum)
+
+
+def fillps(u, v, w, ue, ve, we, dzfi, dti, dxi, dyi):
+    """Poisson RHS div(u)/dt_rk (fillps.f90:14-48) in one pass."""
+    if _on_cpu(u):
+        return fillps_plain(u, v, w, ue, ve, we, dzfi, dti, dxi, dyi)
+    nz, ny, nx = u.shape
+    _check('fillps', u, (u, v, w), edges=(ue, ve, we),
+           profiles=((dzfi, nz + 2),))
+    rhs = torch.empty_like(u)
+    d = ctypes.c_double
+    _launch('fillps', f'cales_fillps_{_suffix(u)}',
+            *map(_ptr, (u, v, w, ue, ve, we, dzfi, rhs)),
+            ctypes.c_int(nz), ctypes.c_int(ny), ctypes.c_int(nx),
+            d(dti), d(dxi), d(dyi))
+    return rhs
+
+
+def correc_smag(u, v, w, pp, p, ue, ve, we, ppe, dtrk, dxi, dyi, dzci, dzfi,
+                visc, csd2, zrec, fuv, dw, nearlo, tauw_lo, tauw_hi,
+                have_zwalls=True):
+    """Projection u -= dt grad pp (+ the deferred forcing fuv = (fu, fv)),
+    p += pp, and the van Driest static Smagorinsky nu_t of the corrected
+    field, in one pass (correc.f90 + updatep.f90 + sgs.f90:69-152).
+
+    ue/ve/we: the PREDICTION fill's edge stacks; zrec: (u, v) z-ghost
+    recipes of the post-correction fill; csd2, dw, nearlo: (nz,) profiles
+    (Cs Delta)^2, nearest-wall distance, 1 where the lower wall is nearer;
+    tauw_lo/hi: (ny, nx) wall-shear planes.  Returns (u, v, w, p, visct)."""
+    if _on_cpu(u):
+        return correc_smag_plain(u, v, w, pp, p, ue, ve, we, ppe, dtrk, dxi,
+                                 dyi, dzci, dzfi, visc, csd2, zrec, fuv, dw,
+                                 nearlo, tauw_lo, tauw_hi,
+                                 have_zwalls=have_zwalls)
+    nz, ny, nx = u.shape
+    _check('correc_smag', u, (u, v, w, pp, p), planes=(tauw_lo, tauw_hi),
+           edges=(ue, ve, we, ppe),
+           profiles=((dzci, nz + 2), (dzfi, nz + 2), (csd2, nz), (dw, nz),
+                     (nearlo, nz), (fuv, 2)))
+    recs = []
+    for rec in zrec:
+        for side in range(2):
+            lt, b, dr = rec[3 * side:3 * side + 3]
+            if lt not in _LETTER_CODE:
+                raise ValueError(f'correc_smag: z-ghost letter {lt!r} '
+                                 '(D or N)')
+            recs += [ctypes.c_int(_LETTER_CODE[lt]), ctypes.c_double(b),
+                     ctypes.c_double(dr)]
+    outs = [torch.empty_like(u) for _ in range(5)]
+    d = ctypes.c_double
+    _launch('correc_smag', f'cales_correc_smag_{_suffix(u)}',
+            *map(_ptr, (u, v, w, pp, p, ue, ve, we, ppe, dzci, dzfi, csd2,
+                        dw, nearlo, tauw_lo, tauw_hi, fuv, *outs)),
+            ctypes.c_int(nz), ctypes.c_int(ny), ctypes.c_int(nx),
+            ctypes.c_int(int(bool(have_zwalls))), *recs,
+            d(dtrk), d(dxi), d(dyi), d(visc))
+    return tuple(outs)

@@ -1,0 +1,114 @@
+"""Where the time of one RK3 step goes on the card.
+
+    python -m cales_torch.profile_step [--ng 512x256x256] [--steps 3]
+
+Steps the channel-LES headline configuration (bench.py's, with
+ptransform='fft') under torch.profiler and prints the device time per
+kernel and per stage: the three CUDA kernels, the Poisson solve (cuFFT and
+the z eigen-matmuls), and the torch glue (edge stacks, wall-shear planes,
+forcing).  The device's idle share is 1 - (device busy time / wall time of
+the profiled window).  Needs a CUDA device.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+STAGES = (
+    ('mom_rk', ('mom_rk_kernel',)),
+    ('fillps', ('fillps_kernel',)),
+    ('correc_smag', ('correc_smag_kernel',)),
+    ('solve: fft', ('fft', 'FFT', 'regular_fft', 'vector_fft', 'radix')),
+    ('solve: z matmul', ('gemm', 'Gemm', 'sm90_', 'cutlass', 'ampere_sgemm',
+                         'sgemm')),
+)
+
+
+def stage_of(name: str) -> str:
+    for stage, keys in STAGES:
+        if any(k in name for k in keys):
+            return stage
+    return 'glue (torch elementwise, copies, reductions)'
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(prog='cales_torch.profile_step')
+    ap.add_argument('--ng', default='512x256x256', help='nx x ny x nz')
+    ap.add_argument('--steps', type=int, default=3)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print('profile_step needs a CUDA device', file=sys.stderr)
+        return 2
+    from torch.profiler import ProfilerActivity, profile
+
+    from cales_tpu.config import Config
+    from cales_tpu.grid import make_grid_from_config
+    from cales_tpu.initflow import initflow
+    from .timeloop import Simulation
+
+    card = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                           '--format=csv,noheader'], capture_output=True,
+                          text=True, check=True).stdout.strip()
+    ng = tuple(int(x) for x in args.ng.lower().split('x'))
+    cfg = Config(ng=ng, l=(2 * np.pi, np.pi, 2.0), gtype=1, gr=1.0,
+                 visci=20_000.0, inivel='log', is_wallturb=True,
+                 is_forced=(True, False, False), velf=(1.0, 0.0, 0.0),
+                 sgstype='smag', dtype='float32', ptransform='fft')
+    grid = make_grid_from_config(cfg)
+    sim = Simulation(cfg, grid, device='cuda')
+    state = sim.initial_state(*initflow(cfg, grid))
+    dt = sim.pick_dt(sim.check(state)[0])
+    for _ in range(2):
+        state, _ = sim.step(state, dt)
+    torch.cuda.synchronize()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    for _ in range(args.steps):
+        state, _ = sim.step(state, dt)
+    b.record()
+    torch.cuda.synchronize()
+    step_ms = a.elapsed_time(b) / args.steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(args.steps):
+            state, _ = sim.step(state, dt)
+        torch.cuda.synchronize()
+    from torch.autograd import DeviceType
+    per_kernel = {}
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue    # host-side ops; their kernels are listed themselves
+        dev_us = getattr(ev, 'self_device_time_total',
+                         getattr(ev, 'self_cuda_time_total', 0.0))
+        if dev_us > 0:
+            per_kernel[ev.key] = (dev_us / 1e3 / args.steps, ev.count
+                                  // args.steps)
+    busy = sum(ms for ms, _ in per_kernel.values())
+    by_stage = {}
+    for name, (ms, _) in per_kernel.items():
+        s = stage_of(name)
+        by_stage[s] = by_stage.get(s, 0.0) + ms
+    print(f'{card}; ng={ng} float32; {args.steps} profiled steps')
+    print(f'{step_ms:.3f} ms/step (CUDA events, profiler off), device busy '
+          f'{busy:.3f} ms/step (profiler), idle share {1 - busy / step_ms:.3f}')
+    for s, ms in sorted(by_stage.items(), key=lambda kv: -kv[1]):
+        print(f'  {ms:8.3f} ms/step  {100 * ms / busy:5.1f}%  {s}')
+    print('top kernels (device ms/step, launches/step):')
+    for name, (ms, n) in sorted(per_kernel.items(),
+                                key=lambda kv: -kv[1][0])[:20]:
+        print(f'  {ms:8.3f}  {n:4d}  {name[:110]}')
+    print(json.dumps({'profile': dict(
+        card=card, ng=ng, step_ms=step_ms, busy_ms=busy,
+        idle_share=1 - busy / step_ms,
+        stages={k: round(v, 4) for k, v in by_stage.items()},
+        launches_per_step=sum(n for _, n in per_kernel.values()))}))
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())

@@ -1,0 +1,180 @@
+"""SGS eddy viscosity, static Smagorinsky with van Driest damping.
+
+Counterpart of the smag branch of cales_tpu/sgs.py (reference
+sgs.f90:69-152, extrapolate 682-767).  ``SGSSetup`` is the JAX package's
+numpy setup (filter width, wall-distance profiles, wall flags), copied
+because that module imports jax.  ``smag_visct`` on padded fields serves
+the initial fill; each substep's nu_t comes out of the fused
+correction kernel (ops/kernels.correc_smag).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from cales_tpu.config import Config, C_SMAG
+from cales_tpu.grid import Grid
+
+from .ops import stencil as st
+
+
+def extrapolate(p, iface, flags, factors):
+    """Linear extrapolation of ghost planes at flagged walls
+    (sgs.f90:682-767).  p: padded field; iface: 0 (cell-centered) or 1/2/3
+    (the component's own face direction, skipped); flags[(ib, idir)]: bool;
+    factors: (f_lo_z, f_hi_z) z stretching factors."""
+    f0, f1 = factors
+
+    def replace(q, axis, lo, do_lo, hi, do_hi):
+        n = q.shape[axis]
+        start = 1 if do_lo else 0
+        stop = n - 1 if do_hi else n
+        parts = []
+        if do_lo:
+            parts.append(lo.unsqueeze(axis))
+        parts.append(q.narrow(axis, start, stop - start))
+        if do_hi:
+            parts.append(hi.unsqueeze(axis))
+        return torch.cat(parts, dim=axis) if len(parts) > 1 else q
+
+    if iface != 1 and (flags.get((0, 0)) or flags.get((1, 0))):
+        p = replace(p, 2,
+                    2.0 * p[:, :, 1] - p[:, :, 2], bool(flags.get((0, 0))),
+                    2.0 * p[:, :, -2] - p[:, :, -3], bool(flags.get((1, 0))))
+    if iface != 2 and (flags.get((0, 1)) or flags.get((1, 1))):
+        p = replace(p, 1,
+                    2.0 * p[:, 1, :] - p[:, 2, :], bool(flags.get((0, 1))),
+                    2.0 * p[:, -2, :] - p[:, -3, :], bool(flags.get((1, 1))))
+    if iface != 3 and (flags.get((0, 2)) or flags.get((1, 2))):
+        p = replace(p, 0,
+                    (1.0 + f0) * p[1] - f0 * p[2], bool(flags.get((0, 2))),
+                    (1.0 + f1) * p[-2] - f1 * p[-3], bool(flags.get((1, 2))))
+    return p
+
+
+class SGSSetup:
+    """Static SGS data derived from config + grid (numpy)."""
+
+    def __init__(self, cfg: Config, grid: Grid, cbcvel_eff):
+        nx, ny, nz = cfg.ng
+        self.cfg = cfg
+        self.cbcvel = cbcvel_eff
+        # wall flags: Dirichlet normal-component faces (sgs.f90:76-81)
+        self.wall_flags = {}
+        self.lwm_flags = {}
+        for idir in range(3):
+            for ib in range(2):
+                self.wall_flags[(ib, idir)] = cbcvel_eff[ib][idir][idir] == 'D'
+                self.lwm_flags[(ib, idir)] = cfg.lwm[ib][idir] != 0
+        dzci = grid.dzci
+        dzc = grid.dzc
+        # z extrapolation factors (sgs.f90:705-717)
+        self.fac_cbc = (1.0, 1.0)
+        self.fac_lwm = (dzc[0] * dzci[1], dzc[nz] * dzci[nz - 1])
+        # filter width Delta = (dx dy dzf)^(1/3) (sgs.f90:148)
+        self.delta = (cfg.dl[0] * cfg.dl[1] * grid.dzf[1:nz + 1]) ** (1.0 / 3.0)
+        # van Driest wall-distance profiles, 1D per wall
+        dl = cfg.dl
+        i = np.arange(1, nx + 1)
+        j = np.arange(1, ny + 1)
+        zc = grid.zc[1:nz + 1]
+        self.dw1d = [
+            (dl[0] * (i - 0.5), 2),          # x-low:  varies along axis 2
+            (dl[0] * (nx - i + 0.5), 2),     # x-high
+            (dl[1] * (j - 0.5), 1),          # y-low:  varies along axis 1
+            (dl[1] * (ny - j + 0.5), 1),     # y-high
+            (zc.copy(), 0),                  # z-low:  varies along axis 0
+            (cfg.l[2] - zc, 0),              # z-high
+        ]
+        self.is_wall6 = [self.wall_flags[(ib, idir)]
+                         for idir in range(3) for ib in range(2)]
+        self.any_wall = any(self.is_wall6)
+
+
+def _wall_tauw_planes(setup, up, vp, wp, dxi, dyi, dzci, visc):
+    """|tau_w| estimate at each of the 6 walls from one-sided gradients
+    (sgs.f90:117-143), shaped to broadcast against (nz, ny, nx)."""
+    nz = up.shape[0] - 2
+    out = []
+    # x-low / x-high: gradients of v, w across the first/last x faces
+    t1 = vp[1:-1, 1:-1, 1] - vp[1:-1, 1:-1, 0] + vp[1:-1, 0:-2, 1] - vp[1:-1, 0:-2, 0]
+    t2 = wp[1:-1, 1:-1, 1] - wp[1:-1, 1:-1, 0] + wp[0:-2, 1:-1, 1] - wp[0:-2, 1:-1, 0]
+    out.append(torch.sqrt(t1 ** 2 + t2 ** 2)[:, :, None] * dxi)
+    t1 = vp[1:-1, 1:-1, -2] - vp[1:-1, 1:-1, -1] + vp[1:-1, 0:-2, -2] - vp[1:-1, 0:-2, -1]
+    t2 = wp[1:-1, 1:-1, -2] - wp[1:-1, 1:-1, -1] + wp[0:-2, 1:-1, -2] - wp[0:-2, 1:-1, -1]
+    out.append(torch.sqrt(t1 ** 2 + t2 ** 2)[:, :, None] * dxi)
+    # y-low / y-high: gradients of u, w
+    t1 = up[1:-1, 1, 1:-1] - up[1:-1, 0, 1:-1] + up[1:-1, 1, 0:-2] - up[1:-1, 0, 0:-2]
+    t2 = wp[1:-1, 1, 1:-1] - wp[1:-1, 0, 1:-1] + wp[0:-2, 1, 1:-1] - wp[0:-2, 0, 1:-1]
+    out.append(torch.sqrt(t1 ** 2 + t2 ** 2)[:, None, :] * dyi)
+    t1 = up[1:-1, -2, 1:-1] - up[1:-1, -1, 1:-1] + up[1:-1, -2, 0:-2] - up[1:-1, -1, 0:-2]
+    t2 = wp[1:-1, -2, 1:-1] - wp[1:-1, -1, 1:-1] + wp[0:-2, -2, 1:-1] - wp[0:-2, -1, 1:-1]
+    out.append(torch.sqrt(t1 ** 2 + t2 ** 2)[:, None, :] * dyi)
+    # z-low / z-high: gradients of u, v, metric dzci(0) / dzci(nz)
+    t1 = up[1, 1:-1, 1:-1] - up[0, 1:-1, 1:-1] + up[1, 1:-1, 0:-2] - up[0, 1:-1, 0:-2]
+    t2 = vp[1, 1:-1, 1:-1] - vp[0, 1:-1, 1:-1] + vp[1, 0:-2, 1:-1] - vp[0, 0:-2, 1:-1]
+    out.append((torch.sqrt(t1 ** 2 + t2 ** 2) * float(dzci[0]))[None, :, :])
+    t1 = up[-2, 1:-1, 1:-1] - up[-1, 1:-1, 1:-1] + up[-2, 1:-1, 0:-2] - up[-1, 1:-1, 0:-2]
+    t2 = vp[-2, 1:-1, 1:-1] - vp[-1, 1:-1, 1:-1] + vp[-2, 0:-2, 1:-1] - vp[-1, 0:-2, 1:-1]
+    out.append((torch.sqrt(t1 ** 2 + t2 ** 2) * float(dzci[nz]))[None, :, :])
+    return out
+
+
+def smag_visct(setup: SGSSetup, cfg, grid, up, vp, wp):
+    """Static Smagorinsky with van Driest damping (sgs.f90:69-152) on
+    padded fields; returns the interior (nz, ny, nx) nu_t."""
+    dxi, dyi = cfg.dli[0], cfg.dli[1]
+    visc = cfg.visc
+    like = up
+    ue = extrapolate(up, 1, setup.lwm_flags, setup.fac_lwm)
+    ve = extrapolate(vp, 2, setup.lwm_flags, setup.fac_lwm)
+    we = extrapolate(wp, 3, setup.lwm_flags, setup.fac_lwm)
+    s0 = st.strain_rate(ue, ve, we, grid.dzci, grid.dzfi, dxi, dyi)
+
+    def prof(a, shape):
+        return torch.as_tensor(a, dtype=like.dtype,
+                               device=like.device).reshape(shape)
+    delta = prof(setup.delta, (-1, 1, 1))
+    if not setup.any_wall:
+        fd = 1.0
+    else:
+        tauw6 = _wall_tauw_planes(setup, up, vp, wp, dxi, dyi, grid.dzci, visc)
+        active = [m for m in range(6) if setup.is_wall6[m]]
+        axes = {setup.dw1d[m][1] for m in active}
+        if len(axes) == 1:
+            # walls along one direction (channel class): the nearest wall
+            # is a static 1D choice along that axis
+            ax = axes.pop()
+            profs = np.stack([setup.dw1d[m][0] for m in active])
+            near = np.argmin(profs, axis=0)
+            dw_1d = profs[near, np.arange(profs.shape[1])]
+            shape1 = [1, 1, 1]
+            shape1[ax] = len(dw_1d)
+            dw_min = prof(dw_1d, shape1)
+            if len(active) == 1:
+                tauw_s = torch.broadcast_to(tauw6[active[0]], s0.shape)
+            else:
+                mask = torch.as_tensor(near == 0,
+                                       device=like.device).reshape(shape1)
+                tauw_s = torch.where(mask,
+                                     torch.broadcast_to(tauw6[active[0]], s0.shape),
+                                     torch.broadcast_to(tauw6[active[1]], s0.shape))
+        else:
+            # general case (duct/cavity): running minimum over the walls,
+            # first minimum wins ties (sgs.f90:104-146)
+            dw_min = torch.full_like(s0, 1e30)
+            tauw_s = torch.zeros_like(s0)
+            for m in active:
+                p1, ax = setup.dw1d[m]
+                shape1 = [1, 1, 1]
+                shape1[ax] = len(p1)
+                dw_m = torch.broadcast_to(prof(p1, shape1), s0.shape)
+                closer = dw_m < dw_min
+                tauw_s = torch.where(closer,
+                                     torch.broadcast_to(tauw6[m], s0.shape),
+                                     tauw_s)
+                dw_min = torch.minimum(dw_min, dw_m)
+        tauw_s = 0.5 * visc * tauw_s
+        dw_plus = dw_min * torch.sqrt(tauw_s) / visc
+        fd = 1.0 - torch.exp(-dw_plus / 25.0)
+    return (C_SMAG * delta * fd) ** 2 * s0

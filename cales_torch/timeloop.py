@@ -1,0 +1,402 @@
+"""Time integration: RK3 + pressure projection on one torch device.
+
+Counterpart of cales_tpu/timeloop.py on its single-device kernel path for
+the channel-LES class (reference rk.f90:17-121, main.f90:417-507).  One RK
+substep runs:
+  1. kernels.mom_rk       momentum RHS + RK3 update (+ forcing partial sums)
+  2. deferred bulk forcing from the partial sums (rk.f90:197-222 reordered)
+  3. kernels.fillps       div(u)/dt_rk of the prediction
+  4. poisson.solve        rfft/fft in x, y (cuFFT) + z eigen-matmuls
+  5. kernels.correc_smag  projection, p += pp and nu_t in one pass
+with the z-edge stacks (ops/boundary.zedge_*) as the glue.  On a CUDA device
+the three kernels are the hand-written ones of cales_torch/csrc; on the CPU
+their plain PyTorch twins.
+
+The port and the JAX package carry the same state (State below), so a
+JAX state can be carried across (params.py).  Configurations outside this
+slice raise NotImplementedError naming the missing piece.
+"""
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import numpy as np
+import torch
+
+from cales_tpu.config import Config, RK_COEFF, C_SMAG, effective_cbcvel
+from cales_tpu.grid import Grid
+
+from . import device as devmod
+from . import poisson
+from . import sgs as sgsmod
+from .ops import boundary as bnd
+from .ops import kernels
+from .ops import stencil as st
+
+
+class State(NamedTuple):
+    u: Any
+    v: Any
+    w: Any
+    p: Any
+    visct: Any
+    vlo: Any          # (u_lo, v_lo, w_lo) lower-wall normal-face planes
+    rhs_old: Any      # (du, dv, dw) previous-substep explicit RHS
+    time: float
+    istep: int
+    zq: Any = None    # (ue, ve, we) z-edge stacks of the post-correction
+                      # fill, carried to the next substep's momentum kernel
+
+
+def unsupported(cfg: Config) -> list[str]:
+    """What of `cfg` this slice does not run yet, each with the ROADMAP
+    item that brings it; empty when the config is in the slice."""
+    out = []
+    cbc = effective_cbcvel(cfg)
+    if cfg.impdiff:
+        out.append('implicit diffusion (impdiff): ROADMAP queue 1, implicit CN')
+    if any(cfg.lwm[ib][d] != 0 for ib in range(2) for d in range(3)):
+        out.append('wall model (lwm): ROADMAP queue 1, WMLES')
+    if cfg.sgstype == 'dsmag':
+        out.append('dynamic Smagorinsky (dsmag): ROADMAP queue 1, dsmag classes')
+    elif cfg.sgstype != 'smag':
+        out.append(f"sgstype {cfg.sgstype!r} needs the fused_correc_updatep "
+                   'kernel: ROADMAP queue 2')
+    for d, name in ((0, 'x'), (1, 'y')):
+        if not (all(cfg.cbc_vel(d, iv) == 'PP' for iv in range(3))
+                and cfg.cbc_pre(d) == 'PP'
+                and cfg.cbcsgs[0][d] + cfg.cbcsgs[1][d] == 'PP'):
+            out.append(f'non-periodic {name} ({name} walls): ROADMAP queue 1, '
+                       'BC topologies')
+    if cbc[0][2][0] == 'P':
+        out.append('periodic z (triperiodic): ROADMAP queue 1, triperiodic')
+    if cfg.scalar:
+        out.append('passive scalar: ROADMAP queue 1, scalar')
+    if cfg.dims[0] * cfg.dims[1] > 1:
+        out.append(f'a device mesh (dims={tuple(cfg.dims)}): ROADMAP queue 1, '
+                   'multi-device')
+    if cfg.ptransform == 'mat':
+        out.append("ptransform='mat': ROADMAP queue 1, the Poisson kernels "
+                   'and the mat-vs-fft decision')
+    if cfg.zsolver != 'eig':
+        out.append(f"zsolver={cfg.zsolver!r}: ROADMAP queue 2, apply_thomas_z")
+    vals = ([cfg.bcvel[ib][d][iv] for ib in range(2) for d in range(3)
+             for iv in range(3)]
+            + [b[ib][d] for b in (cfg.bcpre, cfg.bcsgs) for ib in range(2)
+               for d in range(3)])
+    if any(np.ndim(x) != 0 for x in vals):
+        out.append('plane-valued BC values: ROADMAP queue 1, BC topologies')
+    return out
+
+
+class Simulation:
+    """Static solver setup + the step function on one torch device."""
+
+    def __init__(self, cfg: Config, grid: Grid, device='cuda'):
+        missing = unsupported(cfg)
+        if missing:
+            raise NotImplementedError(
+                'configuration outside the ported slice: ' + '; '.join(missing))
+        self.cfg = cfg
+        self.grid = grid
+        self.device = devmod.resolve(device)
+        self.dtype = devmod.torch_dtype(cfg.dtype)
+        self.cbcvel = effective_cbcvel(cfg)
+        self.cbcpre = tuple((cfg.cbcpre[0][d], cfg.cbcpre[1][d])
+                            for d in range(3))
+        nx, ny, nz = cfg.ng
+
+        self.solver_p = poisson.make_solver(
+            cfg, grid, tuple(cfg.cbc_pre(d) for d in range(3)),
+            ('c', 'c', 'c'), zsolver=cfg.zsolver)
+
+        def by_dir(vals):
+            return tuple(tuple(vals[ib][idir] for ib in range(2))
+                         for idir in range(3))
+
+        def bcvel_by_dir(ivel):
+            return tuple(tuple(cfg.bcvel[ib][idir][ivel] for ib in range(2))
+                         for idir in range(3))
+        mk = lambda vals: bnd.make_bc_values(cfg.ng, vals, self.dtype,  # noqa: E731
+                                             self.device)
+        self.bcp_vals = mk(by_dir(cfg.bcpre))
+        self.bcs_vals = mk(by_dir(cfg.bcsgs))
+        self.bcu_vals = mk(bcvel_by_dir(0))
+        self.bcv_vals = mk(bcvel_by_dir(1))
+        self.bcw_vals = mk(bcvel_by_dir(2))
+        self.rhsb_p = poisson.rhs_bound_planes(
+            cfg, grid, self.cbcpre, ('c', 'c', 'c'), by_dir(cfg.bcpre))
+        self.sgs_setup = sgsmod.SGSSetup(cfg, grid, self.cbcvel)
+        vol = cfg.l[0] * cfg.l[1] * cfg.l[2]
+        self.gvr_c = cfg.dl[0] * cfg.dl[1] * grid.dzc[1:nz + 1] / vol
+        self.gvr_f = cfg.dl[0] * cfg.dl[1] * grid.dzf[1:nz + 1] / vol
+
+        # post-correction z-ghost recipes of u and v (scalar BC letters)
+        dz01 = (float(grid.dzc[0]), float(grid.dzc[nz]))
+
+        def rec_for(iv, bvals):
+            out = []
+            for ib in range(2):
+                out += [self.cbcvel[ib][2][iv], float(bvals[2][ib]), dz01[ib]]
+            return tuple(out)
+        self.zrec_uv = (rec_for(0, self.bcu_vals), rec_for(1, self.bcv_vals))
+
+        # device-resident metrics and profiles
+        t = lambda a: torch.as_tensor(np.asarray(a), dtype=self.dtype,  # noqa: E731
+                                      device=self.device)
+        self.dzci_t = t(grid.dzci)
+        self.dzfi_t = t(grid.dzfi)
+        self.gvr_f_t = t(self.gvr_f)
+        setup = self.sgs_setup
+        self.csd2_t = t((C_SMAG * setup.delta) ** 2)
+        self.lo_wall, self.hi_wall = setup.is_wall6[4], setup.is_wall6[5]
+        zc = grid.zc[1:nz + 1]
+        dw_lo = zc if self.lo_wall else np.full(nz, np.inf)
+        dw_hi = (cfg.l[2] - zc) if self.hi_wall else np.full(nz, np.inf)
+        self.have_zwalls = bool(self.lo_wall or self.hi_wall)
+        self.nearlo_t = t((dw_lo <= dw_hi).astype(np.float64))
+        self.dw_t = t(np.minimum(dw_lo, dw_hi) if self.have_zwalls
+                      else np.zeros(nz))
+        # deferred bulk forcing along the periodic x / y
+        self.sum_flags = (bool(cfg.is_forced[0]), bool(cfg.is_forced[1]))
+
+    # ------------------------------------------------------------------
+    def exec_path(self) -> str:
+        """One-line description of the execution path (logged at start)."""
+        names = '+'.join(kernels.LAUNCHES)
+        if self.device.type == 'cuda':
+            where = (f'{self.device} ({torch.cuda.get_device_name(self.device)})'
+                     f', kernels: {names} (CUDA, cales_torch/csrc)')
+        else:
+            where = f'cpu, kernels: {names} (plain PyTorch twins)'
+        return (f'{where}; poisson: torch.fft x/y + z eigen-matmul '
+                f'({self.cfg.dtype}); sgs: smag fused in correc_smag')
+
+    # ------------------------------------------------------------------
+    def _t(self, a):
+        return torch.as_tensor(np.asarray(a), dtype=self.dtype,
+                               device=self.device)
+
+    def initial_state(self, u, v, w, p) -> State:
+        """State from (nz, ny, nx) initial fields (numpy or tensors)."""
+        u, v, w, p = (self._t(a) for a in (u, v, w, p))
+        zeros = torch.zeros_like(u)
+        nx, ny, nz = self.cfg.ng
+        z2 = lambda a, b: torch.zeros((a, b), dtype=self.dtype,  # noqa: E731
+                                      device=self.device)
+        vlo = (z2(nz + 2, ny + 2), z2(nz + 2, nx + 2), z2(ny + 2, nx + 2))
+        st0 = State(u=u, v=v, w=w, p=p, visct=zeros, vlo=vlo,
+                    rhs_old=(zeros, zeros, zeros), time=0.0, istep=0)
+        return self._init_impl(st0)
+
+    def _init_impl(self, st0: State) -> State:
+        """Initial BC fill + SGS (main.f90:370-375)."""
+        u, v, w = st0.u, st0.v, st0.w
+        bcu, bcv, bcw = self._dynamic_bcs(u, v, w)
+        up, vp, wp, vlo = self._pad_vel(u, v, w, bcu, bcv, bcw)
+        visct = sgsmod.smag_visct(self.sgs_setup, self.cfg, self.grid,
+                                  up, vp, wp).to(self.dtype)
+        u_i, v_i, w_i = (up[1:-1, 1:-1, 1:-1], vp[1:-1, 1:-1, 1:-1],
+                         wp[1:-1, 1:-1, 1:-1])
+        zq = self._zedge_vel(u_i, v_i, w_i, bcu, bcv, bcw, is_correc=False)
+        return st0._replace(u=u_i.contiguous(), v=v_i.contiguous(),
+                            w=w_i.contiguous(), vlo=vlo, visct=visct, zq=zq)
+
+    # ------------------------------------------------------------------
+    def _dynamic_bcs(self, u, v, w):
+        """Velocity BC values (no wall model in this slice: the static
+        ones)."""
+        return self.bcu_vals, self.bcv_vals, self.bcw_vals
+
+    def _pad_vel(self, u, v, w, bcu, bcv, bcw, vlo=None, is_correc=False):
+        return bnd.pad_velocity(u, v, w, self.cbcvel, bcu, bcv, bcw,
+                                self.cfg.dl, self.grid.dzc, self.grid.dzf,
+                                vlo=vlo, is_correc=is_correc)
+
+    def _pad_p(self, p):
+        return bnd.pad_scalar(p, self.cbcpre, self.bcp_vals, self.cfg.dl,
+                              self.grid.dzc)
+
+    def _pad_s(self, s):
+        cbcs = tuple((self.cfg.cbcsgs[0][d], self.cfg.cbcsgs[1][d])
+                     for d in range(3))
+        return bnd.pad_scalar(s, cbcs, self.bcs_vals, self.cfg.dl,
+                              self.grid.dzc)
+
+    def _zedge_vel(self, u, v, w, bcu, bcv, bcw, vlo=None, is_correc=False):
+        return tuple(e.contiguous() for e in bnd.zedge_velocity(
+            u, v, w, self.cbcvel, bcu, bcv, bcw, self.grid.dzc, self.grid.dzf,
+            vlo=vlo, is_correc=is_correc))
+
+    def _zedge_p(self, p):
+        return bnd.zedge_scalar(p, self.cbcpre[2], self.bcp_vals[2],
+                                self.grid.dzc).contiguous()
+
+    def _zedge_s(self, s):
+        cbc_z = (self.cfg.cbcsgs[0][2], self.cfg.cbcsgs[1][2])
+        return bnd.zedge_scalar(s, cbc_z, self.bcs_vals[2],
+                                self.grid.dzc).contiguous()
+
+    # ------------------------------------------------------------------
+    def _bulk_forcing(self, sums):
+        """Bulk-velocity forcing (rk.f90:197-222, mom.f90:311-335), deferred:
+        the means come from the momentum kernel's partial sums, and the
+        constants are folded into the correction kernel (forcing along a
+        periodic direction cancels in the divergence).  Returns the (3,)
+        forcing tensor and the (2,) (fu, fv) the corrector adds."""
+        cfg = self.cfg
+        f = torch.zeros(3, dtype=self.dtype, device=self.device)
+        for d, s in enumerate(sums):
+            if s is not None:
+                f[d] = cfg.velf[d] - torch.dot(s.sum(dim=1), self.gvr_f_t)
+        return f, f[:2].contiguous()
+
+    def _correc_smag_fused(self, u, v, w, pp, p, ue2, ve2, we2, ppe, dtrk,
+                           fuv):
+        """Projection + pressure update + smag nu_t in one kernel.  The
+        van Driest wall-shear planes come from the corrected wall-adjacent
+        planes, computed here as (ny, nx) expressions."""
+        cfg, grid = self.cfg, self.grid
+        nz = cfg.ng[2]
+        dxi, dyi = cfg.dli[0], cfg.dli[1]
+        fu, fv = fuv[0], fuv[1]
+
+        def tauw_face(side):
+            krow = 0 if side == 0 else nz - 1
+            ppq = pp[krow]
+            u_c = fu + u[krow] - dtrk * dxi * (torch.roll(ppq, -1, 1) - ppq)
+            v_c = fv + v[krow] - dtrk * dyi * (torch.roll(ppq, -1, 0) - ppq)
+            A = u_c - kernels.ghost_row(self.zrec_uv[0], side, u_c)
+            B = v_c - kernels.ghost_row(self.zrec_uv[1], side, v_c)
+            t1 = A + torch.roll(A, 1, 1)
+            t2 = B + torch.roll(B, 1, 0)
+            dzi = float(grid.dzci[0] if side == 0 else grid.dzci[nz])
+            return (torch.sqrt(t1 ** 2 + t2 ** 2) * dzi).contiguous()
+
+        if self.have_zwalls:
+            tauw_lo, tauw_hi = tauw_face(0), tauw_face(1)
+            if not self.lo_wall:
+                tauw_lo = tauw_hi
+            if not self.hi_wall:
+                tauw_hi = tauw_lo
+        else:
+            tauw_lo = tauw_hi = torch.zeros_like(u[0])
+        return kernels.correc_smag(
+            u, v, w, pp, p, ue2, ve2, we2, ppe, dtrk, dxi, dyi, self.dzci_t,
+            self.dzfi_t, cfg.visc, self.csd2_t, self.zrec_uv, fuv, self.dw_t,
+            self.nearlo_t, tauw_lo, tauw_hi, have_zwalls=self.have_zwalls)
+
+    def _advance_wall_planes(self, state, pp, ppe, we2, dtrk):
+        """The lower-wall w face through the padded correc sweep
+        (correc.f90:45-67); the x/y planes are unused under periodic x/y."""
+        wlo = we2[0] - dtrk * float(self.grid.dzci[0]) * (pp[0] - ppe[0])
+        wlo = torch.cat([wlo[-1:], wlo, wlo[:1]], dim=0)
+        wlo = torch.cat([wlo[:, -1:], wlo, wlo[:, :1]], dim=1)
+        return (state.vlo[0], state.vlo[1], wlo)
+
+    def _substep(self, state: State, f1, f2, first=False):
+        """One RK3 substep.  first=True: f2 == 0 exactly (RK_COEFF[0][1]),
+        so the previous-RHS fields are not read."""
+        cfg, grid = self.cfg, self.grid
+        dxi, dyi = cfg.dli[0], cfg.dli[1]
+        dtrk = f1 + f2
+        u, v, w, p, visct = state.u, state.v, state.w, state.p, state.visct
+        ru_o, rv_o, rw_o = state.rhs_old
+
+        # momentum + RK: the z-edge cache of the previous post-correction
+        # fill is the kernel input (rebuilt from vlo for a carried state)
+        if state.zq is not None:
+            ue, ve, we = state.zq
+        else:
+            bcu0, bcv0, bcw0 = self._dynamic_bcs(u, v, w)
+            ue, ve, we = self._zedge_vel(u, v, w, bcu0, bcv0, bcw0,
+                                         vlo=state.vlo, is_correc=True)
+        pe = self._zedge_p(p)
+        se = self._zedge_s(visct)
+        u, v, w, ru, rv, rw, usum, vsum = kernels.mom_rk(
+            u, v, w, visct, p, ue, ve, we, se, pe,
+            None if first else ru_o, None if first else rv_o,
+            None if first else rw_o, self.dzci_t, self.dzfi_t, f1, f2,
+            cfg.visc, dxi, dyi, cfg.bforce, sums=self.sum_flags)
+        f, fuv = self._bulk_forcing((usum, vsum))
+
+        # projection: prediction fill as edge stacks (w's wall-face rewrite
+        # in row 1 of we2), fillps, solve, fused correction
+        bcu, bcv, bcw = self._dynamic_bcs(u, v, w)
+        ue2, ve2, we2 = self._zedge_vel(u, v, w, bcu, bcv, bcw,
+                                        is_correc=False)
+        rhs = kernels.fillps(u, v, w, ue2, ve2, we2, self.dzfi_t, 1.0 / dtrk,
+                             dxi, dyi)
+        rhs = poisson.add_rhs_bound(cfg, ('c', 'c', 'c'), self.cbcpre, rhs,
+                                    self.rhsb_p)
+        pp = poisson.solve(self.solver_p, rhs)
+        ppe = self._zedge_p(pp)
+        u, v, w, p, visct = self._correc_smag_fused(
+            u, v, w, pp, p, ue2, ve2, we2, ppe, dtrk, fuv)
+        vlo = self._advance_wall_planes(state, pp, ppe, we2, dtrk)
+        # post-correction fill (main.f90:500-501, is_correc=.true.)
+        bcu, bcv, bcw = self._dynamic_bcs(u, v, w)
+        zq = self._zedge_vel(u, v, w, bcu, bcv, bcw, vlo=vlo, is_correc=True)
+        return state._replace(u=u, v=v, w=w, p=p, visct=visct, vlo=vlo,
+                              rhs_old=(ru, rv, rw), zq=zq), f
+
+    def _step_impl(self, state: State, dt: float):
+        """One time step = 3 RK substeps (main.f90:417-507)."""
+        dpdl = torch.zeros(3, dtype=self.dtype, device=self.device)
+        for irk in range(3):
+            f1 = RK_COEFF[irk][0] * dt
+            f2 = RK_COEFF[irk][1] * dt
+            state, f = self._substep(state, f1, f2,
+                                     first=(RK_COEFF[irk][1] == 0.0))
+            dpdl = dpdl + f
+        state = state._replace(time=state.time + dt, istep=state.istep + 1)
+        return state, -dpdl / dt
+
+    def step(self, state: State, dt):
+        """Advance one step; returns (state, dpdl).  Queues device work and
+        returns without waiting for it."""
+        return self._step_impl(state, float(dt))
+
+    def multi_step(self, state: State, dt, nsteps: int) -> State:
+        """Advance `nsteps` steps."""
+        for _ in range(nsteps):
+            state, _ = self._step_impl(state, float(dt))
+        return state
+
+    # ------------------------------------------------------------------
+    def _chk_impl(self, state: State):
+        """dt limit + divergence diagnostics (chkdt.f90, chkdiv.f90)."""
+        cfg = self.cfg
+        bcu, bcv, bcw = self._dynamic_bcs(state.u, state.v, state.w)
+        up, vp, wp, _ = self._pad_vel(state.u, state.v, state.w, bcu, bcv,
+                                      bcw, vlo=state.vlo, is_correc=True)
+        sp = self._pad_s(state.visct)
+        eps = float(torch.finfo(self.dtype).eps)
+        dt_cfl = st.cfl_dt(up, vp, wp, sp, cfg.visc, cfg.dl, self.grid.dzci,
+                           self.grid.dzfi, cfg.impdiff, cfg.impdiff_1d, eps)
+        mask = (False,) * 3
+        if cfg.mask_divergence_check:
+            mask = tuple(cfg.cbc_pre(d) != 'PP' for d in range(3))
+        divtot, divmax = st.divergence(up, vp, wp, cfg.dli[0], cfg.dli[1],
+                                       self.grid.dzfi, mask=mask)
+        return dt_cfl, divtot, divmax
+
+    def check(self, state: State):
+        """(dt_cfl, divtot, divmax) as python floats."""
+        return tuple(float(x) for x in self._chk_impl(state))
+
+    def padded_state(self, state: State):
+        """Ghost-filled (up, vp, wp, ppad, sppad) numpy arrays with the
+        solver's BC semantics, for the statistics layer (io/stats.py)."""
+        bcu, bcv, bcw = self._dynamic_bcs(state.u, state.v, state.w)
+        up, vp, wp, _ = self._pad_vel(state.u, state.v, state.w, bcu, bcv,
+                                      bcw, vlo=state.vlo, is_correc=True)
+        return tuple(a.cpu().numpy() for a in
+                     (up, vp, wp, self._pad_p(state.p),
+                      self._pad_s(state.visct)))
+
+    def pick_dt(self, dt_cfl: float) -> float:
+        cfg = self.cfg
+        if cfg.dt_f > 0:
+            return cfg.dt_f
+        return min(cfg.cfl * dt_cfl, cfg.dtmax)

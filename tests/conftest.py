@@ -46,6 +46,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: interpret-mode / multi-process tests (minutes "
         "each); deselect with -m 'not slow' for the fast core pass")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (the cales_torch CUDA "
+        "kernels); skips where torch.cuda.is_available() is False")
 
 
 def pytest_collection_modifyitems(config, items):
