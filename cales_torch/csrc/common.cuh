@@ -1,4 +1,4 @@
-// Shared device helpers of the cales_torch stencil kernels.
+// Shared device helpers of the cales_torch kernels.
 //
 // Layout: fields are (nz, ny, nx) row-major, x fastest.  Each kernel
 // thread owns one output cell; a block of CALES_THREADS threads covers a
@@ -67,6 +67,14 @@ __device__ __forceinline__ float cexp(float x) { return expf(x); }
 __device__ __forceinline__ double cexp(double x) { return exp(x); }
 __device__ __forceinline__ float csqrt(float x) { return sqrtf(x); }
 __device__ __forceinline__ double csqrt(double x) { return sqrt(x); }
+__device__ __forceinline__ float cabs(float x) { return fabsf(x); }
+__device__ __forceinline__ double cabs(double x) { return fabs(x); }
+__device__ __forceinline__ float cfma(float a, float b, float c) {
+  return fmaf(a, b, c);
+}
+__device__ __forceinline__ double cfma(double a, double b, double c) {
+  return fma(a, b, c);
+}
 
 // Sum of v over the block; the result is valid in thread 0.  Every thread
 // of the block must call it.

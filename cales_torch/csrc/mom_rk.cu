@@ -1,26 +1,33 @@
 // Momentum RHS + low-storage RK3 update, one pass.
 //
-// Replaces: cales_tpu/ops/pallas_kernels.py fused_mom_rk (body _mom_kernel),
-// the plain variant of the explicit channel path: full eddy-stress
-// diffusion (with_sgs), previous-RHS reads skipped on the first substep
-// (ruo == nullptr, f2 == 0), per-(z, block) partial sums of the new u and
-// v for the deferred bulk forcing.  The formulas are
-// cales_torch/ops/stencil.momentum_rhs_core term by term
+// Replaces: cales_tpu/ops/pallas_kernels.py fused_mom_rk (body _mom_kernel)
+// on the single-device periodic-x/y path: previous-RHS reads skipped on the
+// first substep (ruo == nullptr, f2 == 0), per-(z, block) partial sums of
+// the new u and v for the bulk forcing, and two template switches:
+//   SGS    eddy-stress terms from visct (with_sgs); false for sgstype
+//          'none', where s and se are null and never read;
+//   SPLIT  implicit z diffusion (split='1d' with fold_cn): ru = advection +
+//          xy diffusion is the stored explicit RHS, rud = the z diffusion,
+//          and the kernel emits the Crank-Nicolson RHS u + 1/2 f12 rud
+//          directly, while the forcing sums measure the full prediction
+//          u + f12 rud (pallas_kernels.py:671-684).
+// The formulas are cales_torch/ops/stencil.momentum_rhs_core term by term
 // (reference mom.f90:17-309, rk.f90:77-94).
 //
 // Bound on the H100: memory.  About 14 field streams per call (read u, v,
 // w, visct, p and ru_o, rv_o, rw_o; write u, v, w, ru, rv, rw): 1.9 GB at
-// 512x256x256 f32, a 0.56 ms floor at the data sheet's 3.35 TB/s.
-// Measured 1.449 ms per call there (NVIDIA H100 80GB HBM3, 700 W;
-// chip_smoke.py phase 2b).  The stencil reads each field at up to 13
-// neighbours; this simple design takes them straight from global memory
-// (read-only path, __ldg) and relies on L1/L2 to turn the neighbour reuse
-// into hits.  Tiling the z-march through shared memory is later work.
+// 512x256x256 f32, a 0.56 ms floor at the data sheet's 3.35 TB/s; 13
+// without visct.  Measured 1.449 ms per call there with visct (NVIDIA H100
+// 80GB HBM3, 700 W; chip_smoke.py phase 2b).  The stencil reads each field
+// at up to 13 neighbours; this simple design takes them straight from
+// global memory (read-only path, __ldg) and relies on L1/L2 to turn the
+// neighbour reuse into hits.  Tiling the z-march through shared memory is
+// later work.
 #include "common.cuh"
 
 namespace cales {
 
-template <typename T>
+template <typename T, bool SGS, bool SPLIT>
 __global__ void __launch_bounds__(CALES_THREADS) mom_rk_kernel(
     const T* __restrict__ u, const T* __restrict__ v, const T* __restrict__ w,
     const T* __restrict__ s, const T* __restrict__ p,
@@ -56,13 +63,18 @@ __global__ void __launch_bounds__(CALES_THREADS) mom_rk_kernel(
     const T v_cpc = V(0, 1, 0), v_ccp = V(1, 0, 0);
     const T w_pcc = W(0, 0, 1), w_ccm = W(-1, 0, 0);
     const T w_cpc = W(0, 1, 0);
-    const T s_ccc = S(0, 0, 0), s_pcc = S(0, 0, 1);
-    const T s_cpc = S(0, 1, 0), s_ppc = S(0, 1, 1);
-    const T s_ccp = S(1, 0, 0), s_pcp = S(1, 0, 1);
-    const T s_cpp = S(1, 1, 0);
-    const T visc_e_xy = q * (s_ccc + s_pcc + s_cpc + s_ppc);
-    const T visc_e_xz = q * (s_ccc + s_pcc + s_ccp + s_pcp);
-    const T visc_e_yz = q * (s_ccc + s_cpc + s_ccp + s_cpp);
+    T s_ccc = T(0), s_pcc = T(0), s_cpc = T(0), s_ccp = T(0);
+    T visc_e_xy = T(0), visc_e_xz = T(0), visc_e_yz = T(0);
+    if (SGS) {
+      s_ccc = S(0, 0, 0);
+      s_pcc = S(0, 0, 1);
+      s_cpc = S(0, 1, 0);
+      s_ccp = S(1, 0, 0);
+      const T s_ppc = S(0, 1, 1), s_pcp = S(1, 0, 1), s_cpp = S(1, 1, 0);
+      visc_e_xy = q * (s_ccc + s_pcc + s_cpc + s_ppc);
+      visc_e_xz = q * (s_ccc + s_pcc + s_ccp + s_pcp);
+      visc_e_yz = q * (s_ccc + s_cpc + s_ccp + s_cpp);
+    }
 
     const T dudy_e = (u_cpc - u_ccc) * dyi;
     const T dudz_e = (u_ccp - u_ccc) * dzci_c;
@@ -72,7 +84,7 @@ __global__ void __launch_bounds__(CALES_THREADS) mom_rk_kernel(
     const T dwdy_e = (w_cpc - w_ccc) * dyi;
 
     // ---- u momentum ----
-    T ru;
+    T ru, rud_u;
     {
       const T u_cmc = U(0, -1, 0), u_ccm = U(-1, 0, 0);
       const T v_pmc = V(0, -1, 1), w_pcm = W(-1, 0, 1);
@@ -93,6 +105,7 @@ __global__ void __launch_bounds__(CALES_THREADS) mom_rk_kernel(
       const T dudtd_z = visc * (dudz_kp - dudz_km) * dzfi_c;
       T dudt = (-(uu_ip - uu_im) * dxi - (vu_jp - vu_jm) * dyi -
                 (wu_kp - wu_km) * dzfi_c);
+      if (SGS) {
       const T s_cmc = S(0, -1, 0), s_pmc = S(0, -1, 1);
       const T s_ccm = S(-1, 0, 0), s_pcm = S(-1, 0, 1);
       const T visc_ip = s_pcc, visc_im = s_ccc;
@@ -110,11 +123,13 @@ __global__ void __launch_bounds__(CALES_THREADS) mom_rk_kernel(
                   dyi +
               (visc_kp * (dudz_kp + dwdx_kp) - visc_km * (dudz_km + dwdx_km)) *
                   dzfi_c);
-      ru = dudt + dudtd_xy + dudtd_z;
+      }
+      rud_u = dudtd_z;
+      ru = SPLIT ? dudt + dudtd_xy : dudt + dudtd_xy + dudtd_z;
     }
 
     // ---- v momentum ----
-    T rv;
+    T rv, rud_v;
     {
       const T v_mcc = V(0, 0, -1), v_ccm = V(-1, 0, 0);
       const T u_mpc = U(0, 1, -1), w_cpm = W(-1, 1, 0);
@@ -135,6 +150,7 @@ __global__ void __launch_bounds__(CALES_THREADS) mom_rk_kernel(
       const T dvdtd_z = visc * (dvdz_kp - dvdz_km) * dzfi_c;
       T dvdt = (-(uv_ip - uv_im) * dxi - (vv_jp - vv_jm) * dyi -
                 (wv_kp - wv_km) * dzfi_c);
+      if (SGS) {
       const T s_mcc = S(0, 0, -1), s_mpc = S(0, 1, -1);
       const T s_cpm = S(-1, 1, 0), s_ccm_v = S(-1, 0, 0);
       const T visc_ip = visc_e_xy;
@@ -152,11 +168,13 @@ __global__ void __launch_bounds__(CALES_THREADS) mom_rk_kernel(
               (visc_jp * two * dvdy_jp - visc_jm * two * dvdy_jm) * dyi +
               (visc_kp * (dvdz_kp + dwdy_kp) - visc_km * (dvdz_km + dwdy_km)) *
                   dzfi_c);
-      rv = dvdt + dvdtd_xy + dvdtd_z;
+      }
+      rud_v = dvdtd_z;
+      rv = SPLIT ? dvdt + dvdtd_xy : dvdt + dvdtd_xy + dvdtd_z;
     }
 
     // ---- w momentum ----
-    T rw;
+    T rw, rud_w;
     {
       const T w_mcc = W(0, 0, -1), w_cmc = W(0, -1, 0), w_ccp = W(1, 0, 0);
       const T u_mcp = U(1, 0, -1), v_cmp = V(1, -1, 0);
@@ -177,6 +195,7 @@ __global__ void __launch_bounds__(CALES_THREADS) mom_rk_kernel(
       const T dwdtd_z = visc * (dwdz_kp - dwdz_km) * dzci_c;
       T dwdt = (-(uw_ip - uw_im) * dxi - (vw_jp - vw_jm) * dyi -
                 (ww_kp - ww_km) * dzci_c);
+      if (SGS) {
       const T s_mcc_w = S(0, 0, -1), s_mcp = S(1, 0, -1);
       const T s_cmp = S(1, -1, 0), s_cmc2 = S(0, -1, 0);
       const T visc_ip = visc_e_xz;
@@ -194,7 +213,9 @@ __global__ void __launch_bounds__(CALES_THREADS) mom_rk_kernel(
               (visc_jp * (dwdy_jp + dvdz_jp) - visc_jm * (dwdy_jm + dvdz_jm)) *
                   dyi +
               (visc_kp * two * dwdz_kp - visc_km * two * dwdz_km) * dzci_c);
-      rw = dwdt + dwdtd_xy + dwdtd_z;
+      }
+      rud_w = dwdtd_z;
+      rw = SPLIT ? dwdt + dwdtd_xy : dwdt + dwdtd_xy + dwdtd_z;
     }
 
     // ---- RK3 update with -grad p and the body force (rk.f90:77-94) ----
@@ -217,9 +238,20 @@ __global__ void __launch_bounds__(CALES_THREADS) mom_rk_kernel(
       vn = vn + f2 * rvo[o];
       wn = wn + f2 * rwo[o];
     }
-    uo[o] = un;
-    vo[o] = vn;
-    wo[o] = wn;
+    if (SPLIT) {
+      // the CN fold: store the Crank-Nicolson RHS; the sums (un, vn from
+      // here on) see the full prediction
+      const T h = T(0.5) * f12;
+      uo[o] = un + h * rud_u;
+      vo[o] = vn + h * rud_v;
+      wo[o] = wn + h * rud_w;
+      un = un + f12 * rud_u;
+      vn = vn + f12 * rud_v;
+    } else {
+      uo[o] = un;
+      vo[o] = vn;
+      wo[o] = wn;
+    }
     ruo_new[o] = ru;
     rvo_new[o] = rv;
     rwo_new[o] = rw;
@@ -243,10 +275,21 @@ int launch_mom_rk(const T* u, const T* v, const T* w, const T* s, const T* p,
                   const T* pe, const T* ruo, const T* rvo, const T* rwo,
                   const T* dzci, const T* dzfi, T* uo, T* vo, T* wo, T* ru,
                   T* rv, T* rw, T* usum, T* vsum, int nz, int ny, int nx,
-                  double f1, double f2, double visc, double dxi, double dyi,
-                  double bfx, double bfy, double bfz, void* stream) {
-  mom_rk_kernel<T><<<plane_grid(nz, ny, nx), CALES_THREADS, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
+                  int split, double f1, double f2, double visc, double dxi,
+                  double dyi, double bfx, double bfy, double bfz,
+                  void* stream) {
+  const bool sgs = s != nullptr;
+  if (sgs != (se != nullptr)) return static_cast<int>(cudaErrorInvalidValue);
+  void (*kern)(const T*, const T*, const T*, const T*, const T*, const T*,
+               const T*, const T*, const T*, const T*, const T*, const T*,
+               const T*, const T*, const T*, T*, T*, T*, T*, T*, T*, T*, T*,
+               int, int, int, T, T, T, T, T, T, T, T) =
+      sgs ? (split ? &mom_rk_kernel<T, true, true>
+                   : &mom_rk_kernel<T, true, false>)
+          : (split ? &mom_rk_kernel<T, false, true>
+                   : &mom_rk_kernel<T, false, false>);
+  kern<<<plane_grid(nz, ny, nx), CALES_THREADS, 0,
+         static_cast<cudaStream_t>(stream)>>>(
       u, v, w, s, p, ue, ve, we, se, pe, ruo, rvo, rwo, dzci, dzfi, uo, vo,
       wo, ru, rv, rw, usum, vsum, nz, ny, nx, T(f1), T(f2), T(visc), T(dxi),
       T(dyi), T(bfx), T(bfy), T(bfz));
@@ -261,13 +304,13 @@ int launch_mom_rk(const T* u, const T* v, const T* w, const T* s, const T* p,
       const T* ue, const T* ve, const T* we, const T* se, const T* pe,        \
       const T* ruo, const T* rvo, const T* rwo, const T* dzci,                \
       const T* dzfi, T* uo, T* vo, T* wo, T* ru, T* rv, T* rw, T* usum,       \
-      T* vsum, int nz, int ny, int nx, double f1, double f2, double visc,     \
-      double dxi, double dyi, double bfx, double bfy, double bfz,             \
-      void* stream) {                                                         \
+      T* vsum, int nz, int ny, int nx, int split, double f1, double f2,       \
+      double visc, double dxi, double dyi, double bfx, double bfy,            \
+      double bfz, void* stream) {                                             \
     return cales::launch_mom_rk<T>(u, v, w, s, p, ue, ve, we, se, pe, ruo,    \
                                    rvo, rwo, dzci, dzfi, uo, vo, wo, ru, rv,  \
-                                   rw, usum, vsum, nz, ny, nx, f1, f2, visc,  \
-                                   dxi, dyi, bfx, bfy, bfz, stream);          \
+                                   rw, usum, vsum, nz, ny, nx, split, f1, f2, \
+                                   visc, dxi, dyi, bfx, bfy, bfz, stream);    \
   }
 
 CALES_MOM_RK_ENTRY(cales_mom_rk_f32, float)

@@ -1,7 +1,8 @@
 """Build and load the CUDA kernels of cales_torch/csrc.
 
-All ``*.cu`` sources compile with nvcc into one shared library with a plain
-C interface, loaded through ctypes (no PyTorch headers, so a build takes
+Each ``*.cu`` source compiles with its own nvcc process, all started
+together, and the objects link into one shared library with a plain C
+interface, loaded through ctypes (no PyTorch headers, so a build takes
 seconds).  The library lands in ``cales_torch/_build/<hash>/``, keyed by a
 hash of the sources and the compiler flags, at first use: a fresh checkout
 builds everything on the first launch, later processes reuse the build.
@@ -26,7 +27,7 @@ BUILD_ROOT = Path(__file__).resolve().parents[1] / '_build'
 LIBNAME = 'libcales_kernels.so'
 ARCH = 'sm_90a'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '-shared', '-Xcompiler', '-fPIC', '-lineinfo')
+              '-O3', '-Xcompiler', '-fPIC', '-lineinfo')
 # threads per block of every kernel (csrc/common.cuh CALES_THREADS)
 THREADS = 256
 
@@ -34,10 +35,14 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
 _SIGNATURES = {
-    'cales_mom_rk': [_P] * 23 + [_I] * 3 + [_D] * 8 + [_P],
+    'cales_mom_rk': [_P] * 23 + [_I] * 4 + [_D] * 8 + [_P],
     'cales_fillps': [_P] * 8 + [_I] * 3 + [_D] * 3 + [_P],
     'cales_correc_smag': ([_P] * 22 + [_I] * 4 + [_I, _D, _D] * 4
                           + [_D] * 4 + [_P]),
+    'cales_correc': [_P] * 14 + [_I] * 5 + [_D] * 4 + [_P],
+    'cales_apply_y': [_P] * 5 + [_I] * 3 + [_P],
+    'cales_z_eig': [_P] * 7 + [_I] * 3 + [_D] + [_P],
+    'cales_thomas_z': [_P] * 11 + [_I] * 5 + [_D, _I, _D] + [_P],
 }
 
 
@@ -74,22 +79,45 @@ def build(verbose: bool = False) -> Path:
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    cu = [str(f) for f in sorted(CSRC.glob('*.cu'))]
-    fd, tmp = tempfile.mkstemp(suffix='.so', dir=out_dir)
-    os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, f'-I{CSRC}', '-o', tmp, *cu]
-    if verbose:
-        cmd[1:1] = ['-Xptxas', '-v']
+    nvcc = nvcc_path()
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f'nvcc failed ({res.returncode}):\n'
-                           f'{" ".join(cmd)}\n{res.stdout}\n{res.stderr}')
-    if verbose:
-        print(res.stdout + res.stderr, flush=True)
-        print(f'nvcc build: {time.perf_counter() - t0:.1f} s', flush=True)
-    os.replace(tmp, lib)    # atomic: a concurrent build never sees a partial file
+    work = Path(tempfile.mkdtemp(dir=out_dir))
+    try:
+        # one nvcc per source, all running at once
+        jobs = []
+        for src in sorted(CSRC.glob('*.cu')):
+            obj = work / (src.stem + '.o')
+            cmd = [nvcc, *NVCC_FLAGS, f'-I{CSRC}', '-c', str(src), '-o',
+                   str(obj)]
+            if verbose:
+                cmd[1:1] = ['-Xptxas', '-v']
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        logs, failed = [], []
+        for cmd, _, proc in jobs:
+            out, _ = proc.communicate()
+            logs.append(out)
+            if proc.returncode != 0:
+                failed.append(f'nvcc failed ({proc.returncode}):\n'
+                              f'{" ".join(cmd)}\n{out}')
+        if failed:
+            raise RuntimeError('\n'.join(failed))
+        tmp = work / LIBNAME
+        cmd = [nvcc, *NVCC_FLAGS, '-shared', '-o', str(tmp),
+               *(str(obj) for _, obj, _ in jobs)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f'nvcc link failed ({res.returncode}):\n'
+                               f'{" ".join(cmd)}\n{res.stdout}\n'
+                               f'{res.stderr}')
+        if verbose:
+            print(''.join(logs) + res.stdout + res.stderr, flush=True)
+            print(f'nvcc build ({len(jobs)} sources in parallel): '
+                  f'{time.perf_counter() - t0:.1f} s', flush=True)
+        os.replace(tmp, lib)    # atomic: a concurrent build never sees a
+    finally:                    # partial file
+        shutil.rmtree(work, ignore_errors=True)
     return lib
 
 

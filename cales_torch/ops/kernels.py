@@ -1,11 +1,13 @@
-"""The slice's three stencil kernels: one wrapper each, with its plain
-PyTorch twin and a launch counter.
+"""The stencil kernels: one wrapper each, with its plain PyTorch twin and
+a launch counter.
 
-  kernel        CUDA source                     replaces (cales_tpu)
-  mom_rk        csrc/mom_rk.cu        ops/pallas_kernels.py fused_mom_rk
-  fillps        csrc/fillps.cu        ops/pallas_kernels.py fused_fillps
-  correc_smag   csrc/correc_smag.cu   ops/pallas_kernels.py
-                                      fused_correc_updatep_smag
+  kernel          CUDA source           replaces (cales_tpu)
+  mom_rk          csrc/mom_rk.cu        ops/pallas_kernels.py fused_mom_rk
+  fillps          csrc/fillps.cu        ops/pallas_kernels.py fused_fillps
+  correc_smag     csrc/correc_smag.cu   ops/pallas_kernels.py
+                                        fused_correc_updatep_smag
+  correc_updatep  csrc/correc.cu        ops/pallas_kernels.py
+                                        fused_correc_updatep
 
 Input contract (the JAX kernels'): interior (nz, ny, nx) fields plus
 (3, ny, nx) z-edge stacks [padded row 0, padded row nz, padded row nz+1];
@@ -24,7 +26,7 @@ import torch
 
 from . import stencil as st
 
-LAUNCHES = {'mom_rk': 0, 'fillps': 0, 'correc_smag': 0}
+LAUNCHES = {'mom_rk': 0, 'fillps': 0, 'correc_smag': 0, 'correc_updatep': 0}
 
 # z-ghost recipe letters understood by the correction kernel
 _LETTER_CODE = {'D': 0, 'N': 1}
@@ -67,13 +69,17 @@ def ghost_row(rec, side, q1):
 
 def mom_rk_plain(u, v, w, s, p, ue, ve, we, se, pe, ruo, rvo, rwo,
                  dzci, dzfi, f1, f2, visc, dxi, dyi, bforce,
-                 sums=(False, False)):
+                 sums=(False, False), split=None):
     nz = u.shape[0]
-    up, vp, wp, sp, ppad = (padded(q, e) for q, e in
-                            ((u, ue), (v, ve), (w, we), (s, se), (p, pe)))
+    up, vp, wp, ppad = (padded(q, e) for q, e in
+                        ((u, ue), (v, ve), (w, we), (p, pe)))
+    sp = None if s is None else padded(s, se)
     (eu, exyu, ezu), (ev, exyv, ezv), (ew, exyw, ezw) = st.momentum_rhs(
-        up, vp, wp, sp, visc, dxi, dyi, dzci, dzfi)
-    ru, rv, rw = eu + exyu + ezu, ev + exyv + ezv, ew + exyw + ezw
+        up, vp, wp, sp, visc, dxi, dyi, dzci, dzfi, with_sgs=s is not None)
+    if split is None:
+        ru, rv, rw = eu + exyu + ezu, ev + exyv + ezv, ew + exyw + ezw
+    else:
+        ru, rv, rw = eu + exyu, ev + exyv, ew + exyw
     dzci_c = torch.as_tensor(dzci[1:nz + 1], dtype=u.dtype,
                              device=u.device)[:, None, None]
     pc = ppad[1:-1, 1:-1, 1:-1]
@@ -88,8 +94,15 @@ def mom_rk_plain(u, v, w, s, p, ue, ve, we, se, pe, ruo, rvo, rwo,
         un = un + f2 * ruo
         vn = vn + f2 * rvo
         wn = wn + f2 * rwo
-    usum = un.sum(dim=(1, 2))[:, None] if sums[0] else None
-    vsum = vn.sum(dim=(1, 2))[:, None] if sums[1] else None
+    su, sv = un, vn
+    if split is not None:
+        # CN fold: emit the Crank-Nicolson RHS; the sums see the full
+        # prediction
+        h = 0.5 * f12
+        su, sv = un + f12 * ezu, vn + f12 * ezv
+        un, vn, wn = un + h * ezu, vn + h * ezv, wn + h * ezw
+    usum = su.sum(dim=(1, 2))[:, None] if sums[0] else None
+    vsum = sv.sum(dim=(1, 2))[:, None] if sums[1] else None
     return un, vn, wn, ru, rv, rw, usum, vsum
 
 
@@ -128,6 +141,23 @@ def correc_smag_plain(u, v, w, pp, p, ue, ve, we, ppe, dtrk, dxi, dyi,
     else:
         visct = c3 * s0
     return uc, vc, wc, pn, visct
+
+
+def correc_updatep_plain(u, v, w, pp, p, we, ppe, dtrk, dxi, dyi, dzci,
+                         dzfi, fuv=None, alpha=0.0, impdiff=False,
+                         impdiff_1d=False):
+    ppad = padded(pp, ppe)
+    ppc = ppad[1:-1, 1:-1, 1:-1]
+    nz = u.shape[0]
+    dzci_c = torch.as_tensor(dzci[1:nz + 1], dtype=u.dtype,
+                             device=u.device)[:, None, None]
+    fu, fv = (0.0, 0.0) if fuv is None else (fuv[0], fuv[1])
+    uc = fu + u - dtrk * dxi * (ppad[1:-1, 1:-1, 2:] - ppc)
+    vc = fv + v - dtrk * dyi * (ppad[1:-1, 2:, 1:-1] - ppc)
+    wc = zpad(w, we)[1:-1] - dtrk * dzci_c * (ppad[2:, 1:-1, 1:-1] - ppc)
+    pn = st.updatep(ppad, p, alpha, impdiff, impdiff_1d, dxi, dyi, dzci,
+                    dzfi)
+    return uc, vc, wc, pn
 
 
 # ---------------------------------------------------------------------------
@@ -179,7 +209,9 @@ def _suffix(t):
     return 'f32' if t.dtype == torch.float32 else 'f64'
 
 
-def _launch(name, entry, *args):
+def _launch(name, entry, *args, counts=None):
+    """Call C entry `entry` on the current stream, raise on its CUDA error,
+    then count one launch of `name` in `counts` (LAUNCHES by default)."""
     from . import build
     lib = build.load()
     fn = getattr(lib, entry)
@@ -188,7 +220,7 @@ def _launch(name, entry, *args):
     if rc != 0:
         raise RuntimeError(f'{entry}: CUDA error {rc} '
                            f'({build.error_string(rc)})')
-    LAUNCHES[name] += 1
+    (LAUNCHES if counts is None else counts)[name] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -196,22 +228,28 @@ def _launch(name, entry, *args):
 # ---------------------------------------------------------------------------
 
 def mom_rk(u, v, w, s, p, ue, ve, we, se, pe, ruo, rvo, rwo, dzci, dzfi,
-           f1, f2, visc, dxi, dyi, bforce, sums=(False, False)):
+           f1, f2, visc, dxi, dyi, bforce, sums=(False, False), split=None):
     """Momentum RHS (mom.f90:17-309) + low-storage RK3 update with -grad p
     and bforce (rk.f90:77-94) in one pass.  ruo..rwo = None skips the
-    previous-RHS reads (first substep, f2 == 0).  sums: per-(z, block)
-    partial sums of the new u / v for the deferred bulk forcing.
-    Returns (u, v, w, ru, rv, rw, usum, vsum); usum/vsum are (nz, nblk)
-    or None."""
+    previous-RHS reads (first substep, f2 == 0).  s = se = None: no eddy
+    viscosity (sgstype 'none'), its streams are not read.  split='1d':
+    implicit z diffusion with the CN fold: ru..rw are the explicit RHS
+    (advection + xy diffusion) and u..w the Crank-Nicolson RHS u_RK -
+    1/2 f12 rud (pallas_kernels fused_mom_rk fold_cn).  sums: per-(z,
+    block) partial sums of the new (full-prediction) u / v for the bulk
+    forcing.  Returns (u, v, w, ru, rv, rw, usum, vsum); usum/vsum are
+    (nz, nblk) or None."""
+    if split not in (None, '1d'):
+        raise ValueError(f"mom_rk: split {split!r} (None or '1d')")
     if _on_cpu(u):
         return mom_rk_plain(u, v, w, s, p, ue, ve, we, se, pe, ruo, rvo, rwo,
                             dzci, dzfi, f1, f2, visc, dxi, dyi, bforce,
-                            sums=sums)
+                            sums=sums, split=split)
     nz, ny, nx = u.shape
     if (ruo is None) != (rvo is None) or (ruo is None) != (rwo is None):
         raise ValueError('mom_rk: pass all or none of ruo, rvo, rwo')
-    if s is None or se is None:
-        raise ValueError('mom_rk: the kernel needs visct and its edge stack')
+    if (s is None) != (se is None):
+        raise ValueError('mom_rk: pass visct with its edge stack, or neither')
     _check('mom_rk', u, (u, v, w, s, p, ruo, rvo, rwo),
            edges=(ue, ve, we, se, pe),
            profiles=((dzci, nz + 2), (dzfi, nz + 2)))
@@ -225,6 +263,7 @@ def mom_rk(u, v, w, s, p, ue, ve, we, se, pe, ruo, rvo, rwo, dzci, dzfi,
             *map(_ptr, (u, v, w, s, p, ue, ve, we, se, pe, ruo, rvo, rwo,
                         dzci, dzfi, *outs, usum, vsum)),
             ctypes.c_int(nz), ctypes.c_int(ny), ctypes.c_int(nx),
+            ctypes.c_int(int(split is not None)),
             d(f1), d(f2), d(visc), d(dxi), d(dyi),
             d(bforce[0]), d(bforce[1]), d(bforce[2]))
     return (*outs, usum, vsum)
@@ -284,4 +323,31 @@ def correc_smag(u, v, w, pp, p, ue, ve, we, ppe, dtrk, dxi, dyi, dzci, dzfi,
             ctypes.c_int(nz), ctypes.c_int(ny), ctypes.c_int(nx),
             ctypes.c_int(int(bool(have_zwalls))), *recs,
             d(dtrk), d(dxi), d(dyi), d(visc))
+    return tuple(outs)
+
+
+def correc_updatep(u, v, w, pp, p, we, ppe, dtrk, dxi, dyi, dzci, dzfi,
+                   fuv=None, alpha=0.0, impdiff=False, impdiff_1d=False):
+    """Projection u -= dt grad pp (+ the deferred forcing fuv = (fu, fv) when
+    given) and p += pp (+ alpha L(pp) under implicit diffusion, L the z
+    second difference under impdiff_1d) in one pass (correc.f90:14-68,
+    updatep.f90:14-50).  we: the PREDICTION fill's w edge stack (row 1 is
+    the wall-face rewrite); u, v, p are read from their interiors.
+    Returns (u, v, w, p)."""
+    if _on_cpu(u):
+        return correc_updatep_plain(u, v, w, pp, p, we, ppe, dtrk, dxi, dyi,
+                                    dzci, dzfi, fuv, alpha, impdiff,
+                                    impdiff_1d)
+    nz, ny, nx = u.shape
+    _check('correc_updatep', u, (u, v, w, pp, p), edges=(we, ppe),
+           profiles=((dzci, nz + 2), (dzfi, nz + 2))
+           + (((fuv, 2),) if fuv is not None else ()))
+    outs = [torch.empty_like(u) for _ in range(4)]
+    d = ctypes.c_double
+    _launch('correc_updatep', f'cales_correc_{_suffix(u)}',
+            *map(_ptr, (u, v, w, pp, p, we, ppe, dzci, dzfi, fuv, *outs)),
+            ctypes.c_int(nz), ctypes.c_int(ny), ctypes.c_int(nx),
+            ctypes.c_int(int(bool(impdiff))),
+            ctypes.c_int(int(bool(impdiff_1d))),
+            d(dtrk), d(dxi), d(dyi), d(alpha))
     return tuple(outs)

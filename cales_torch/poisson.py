@@ -1,17 +1,28 @@
-"""FFT eigenfunction-expansion direct Poisson solver.
+"""Eigenfunction-expansion direct Poisson and Helmholtz solvers.
 
 Counterpart of cales_tpu/poisson.py (reference initsolver.f90:17-169,
 solver.f90:20-233, bound.f90:447-617).  The setup (tridmatrix, the z
 eigendecomposition, rhs_bound_planes) is numpy, copied from the JAX module,
-which imports jax.  The solve is the JAX package's non-Pallas branch with
-periodic x and y: rfft along x, fft along y (cuFFT on the card), then the
-z stage as two real (nz, nz) matmuls against the eigenvectors of the z
-operator, acting on the real and imaginary parts at once, with the
-singular constant mode projected out, then the inverse transforms.
+which imports jax.  Periodic x and y take one of two transform routes:
+
+  'fft'  rfft along x, fft along y (cuFFT on the card), then the z stage
+         on the complex spectrum: two real (nz, nz) matmuls against the z
+         eigenvectors (zsolver 'eig'), or the Thomas kernel on its real
+         and imaginary parts (zsolver 'thomas');
+  'mat'  the JAX kernel path's unfused solve (poisson.solve(pallas=True,
+         pre_xformed_x=False)): apply_y with the x operator fused
+         (forward), the z stage (z_eig, or thomas_z from nz >= 384 or with
+         zsolver 'thomas'), apply_y (backward), all hand-written kernels
+         (ops/solve_kernels.py).
+
+solve_z_only is the z-only Crank-Nicolson Helmholtz solve of the
+implicit-diffusion path (impdiff_1d) through the Thomas kernel, with the
+bulk-forcing shift, the boundary planes and the face-staggered tail row
+inside the kernel.
 
 Not in this slice (each raises NotImplementedError naming its ROADMAP
-item): operator-matrix ('mat') transforms, the Thomas z solver, and the
-Helmholtz (alpha) variant of the implicit-diffusion solves.
+item): the full-3D Helmholtz solve (impdiff without impdiff_1d), periodic
+z with the Thomas z stage, and transforms with excluded rows (walled x/y).
 """
 from __future__ import annotations
 
@@ -23,6 +34,7 @@ import torch
 from cales_tpu.config import Config
 from cales_tpu.grid import Grid
 
+from .ops import solve_kernels as sk
 from .ops import transforms as tr
 
 
@@ -141,27 +153,51 @@ def make_solver(cfg: Config, grid: Grid, cbc, c_or_f,
                         zsolver=zsolver)
 
 
+def _dev(sv: DirectSolver, name: str, dtype, device, build):
+    """Device operand `name` of solver sv in dtype on device, built once."""
+    key = (name, dtype, device)
+    if key not in sv._ops:
+        sv._ops[key] = build()
+    return sv._ops[key]
+
+
+def _t(a, dtype, device):
+    return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                           device=device)
+
+
+def uses_thomas(sv: DirectSolver) -> bool:
+    """The z stage of the Poisson solve: the Thomas kernel, or the
+    eigendecomposition.  The JAX package's rule: 'mat' transforms take
+    Thomas from nz >= 384 (poisson.py:369-393, measured on the TPU) and
+    with zsolver 'thomas'; 'fft' transforms take it with zsolver 'thomas'
+    only."""
+    if sv.zsolver == 'thomas':
+        return True
+    return sv.trx.kind == 'mat' and sv.ng[2] >= 384
+
+
 def _check_in_slice(sv: DirectSolver, alpha):
     if alpha is not None:
         raise NotImplementedError(
-            'Helmholtz solve (implicit diffusion) is not ported yet: '
-            'ROADMAP queue 1, implicit CN')
-    if sv.zsolver != 'eig':
+            'full-3D Helmholtz solve (implicit diffusion without impdiff_1d) '
+            'is not ported yet: ROADMAP queue 1, full-3D implicit CN')
+    nx, ny, _ = sv.ng
+    if sv.trx.kind != sv.try_.kind or sv.trx.nsolve != nx \
+            or sv.try_.nsolve != ny or sv.qz:
         raise NotImplementedError(
-            "zsolver='thomas' is not ported yet: ROADMAP queue 2, "
-            'apply_thomas_z')
-    if sv.trx.kind != 'fft' or sv.try_.kind != 'fft':
+            'transforms with excluded rows or mixed kinds (non-periodic '
+            'x/y) are not ported yet: ROADMAP queue 1, BC topologies')
+    if uses_thomas(sv) and sv.bcz == 'PP':
         raise NotImplementedError(
-            "operator-matrix ('mat') transforms are not ported yet: ROADMAP "
-            'queue 1, the Poisson kernels and the mat-vs-fft decision '
-            '(non-periodic x/y or ptransform=mat)')
+            'periodic z with the Thomas z stage needs the rank-1 periodic '
+            'kernel: ROADMAP queue 2, apply_thomas_periodic_z')
 
 
 def _eig_ops(sv: DirectSolver, rdt: torch.dtype, device: torch.device):
     """(Vl, Vr, inv) on the device in the real dtype rdt: inv = 1/lam over
     the (nz, ny, nx//2+1) spectral grid, zero for the singular mode."""
-    key = (rdt, device)
-    if key not in sv._ops:
+    def build():
         nx = sv.ng[0]
         lamx_np = sv.lamx[: nx // 2 + 1]
         lamy_np = sv.lamy
@@ -176,10 +212,9 @@ def _eig_ops(sv: DirectSolver, rdt: torch.dtype, device: torch.device):
         tol = torch.finfo(rdt).eps * scale * 4.0
         inv = torch.where(lam3.abs() > tol, 1.0 / lam3,
                           torch.zeros_like(lam3))
-        sv._ops[key] = (torch.as_tensor(sv.zVl, dtype=rdt, device=device),
-                        torch.as_tensor(sv.zVr, dtype=rdt, device=device),
-                        inv)
-    return sv._ops[key]
+        return (torch.as_tensor(sv.zVl, dtype=rdt, device=device),
+                torch.as_tensor(sv.zVr, dtype=rdt, device=device), inv)
+    return _dev(sv, 'eig_fft', rdt, device, build)
 
 
 def _zmatmul(mat, zc):
@@ -190,23 +225,104 @@ def _zmatmul(mat, zc):
     return out.reshape(zr.shape)
 
 
-def solve(sv: DirectSolver, p, alpha=None):
-    """Solve L p_new = p for the (nz, ny, nx) RHS p; returns the solution
-    in p's dtype."""
-    _check_in_slice(sv, alpha)
+def _abc(sv: DirectSolver, device):
+    """The z tridiagonal rows as float64 tensors on device."""
+    return _dev(sv, 'abc', torch.float64, device,
+                lambda: tuple(_t(q, torch.float64, device)
+                              for q in (sv.a, sv.b, sv.c)))
+
+
+def _thomas_tol(lamx, lamy, dtype) -> float:
+    """Singular-lane tolerance of the pinned Thomas z stage
+    (poisson.py:375-376)."""
+    scale = float(np.abs(lamx).max() + np.abs(lamy).max())
+    return float(torch.finfo(dtype).eps * scale * 4.0)
+
+
+def _z_thomas(sv: DirectSolver, body, lamx_np):
+    """Pinned Thomas z stage on a real (nz, ny, n) spectrum whose x lanes
+    carry the eigenvalues lamx_np (n,)."""
+    dt, dev = body.dtype, body.device
+    lamy = _dev(sv, 'lamy', dt, dev, lambda: _t(sv.lamy, dt, dev))
+    lamx = _dev(sv, ('lamx', len(lamx_np)), dt, dev,
+                lambda: _t(lamx_np, dt, dev))
+    a, b, c = _abc(sv, dev)
+    return sk.thomas_z(body, a, b, c, lamy=lamy, lamx=lamx,
+                       pin=sv.bcz == 'NN',
+                       tol=_thomas_tol(lamx_np, sv.lamy, dt))
+
+
+def _solve_fft(sv: DirectSolver, p):
     nz, ny, nx = p.shape
-    rdt = p.dtype
-    Vl, Vr, inv = _eig_ops(sv, rdt, p.device)
     body = tr.fwd(sv.trx, p, axis=-1)        # rfft along x
     body = tr.fwd(sv.try_, body, axis=-2)    # fft along y (complex input)
-    qz = sv.qz
-    zbody = body[: nz - qz]
-    hat = _zmatmul(Vl, zbody) * inv[..., None]
-    zsol = torch.view_as_complex(_zmatmul(Vr, torch.view_as_complex(hat)))
-    body = torch.cat([zsol, body[nz - qz:]], dim=0) if qz else zsol
+    if uses_thomas(sv):
+        # the real and imaginary parts as x lanes of one real field, each
+        # with its wavenumber's eigenvalue
+        nxh = nx // 2 + 1
+        re = torch.view_as_real(body).reshape(nz, ny, 2 * nxh)
+        lamx2 = np.repeat(sv.lamx[:nxh], 2)
+        body = torch.view_as_complex(
+            _z_thomas(sv, re, lamx2).reshape(nz, ny, nxh, 2))
+    else:
+        Vl, Vr, inv = _eig_ops(sv, p.dtype, p.device)
+        hat = _zmatmul(Vl, body) * inv[..., None]
+        body = torch.view_as_complex(_zmatmul(Vr, torch.view_as_complex(hat)))
     body = tr.bwd(sv.try_, body, axis=-2, n=ny, real_out=False)
     body = tr.bwd(sv.trx, body, axis=-1, n=nx, real_out=True)
     return body.to(p.dtype)
+
+
+def _solve_mat(sv: DirectSolver, p):
+    dt, dev = p.dtype, p.device
+    ops = _dev(sv, 'mat', dt, dev, lambda: tuple(_t(m, dt, dev) for m in (
+        sv.try_.fwd_mat, sv.trx.fwd_mat.T, sv.try_.bwd_mat,
+        sv.trx.bwd_mat.T)))
+    fy, fxT, by, bxT = ops
+    body = sk.apply_y(p, fy, MxT=fxT)
+    if uses_thomas(sv):
+        body = _z_thomas(sv, body, sv.lamx)
+    else:
+        Vl, Vr, lamz, lamy, lamx = _dev(sv, 'eig_mat', dt, dev, lambda: tuple(
+            _t(q, dt, dev) for q in (sv.zVl, sv.zVr, sv.lamz, sv.lamy,
+                                     sv.lamx)))
+        scale = float(np.abs(sv.lamz).max() + np.abs(sv.lamx).max()
+                      + np.abs(sv.lamy).max())
+        tol = float(torch.finfo(dt).eps * scale * 4.0)
+        body = sk.z_eig(body, Vl, Vr, lamz, lamy, lamx, tol)
+    return sk.apply_y(body, by, MxT=bxT)
+
+
+def solve(sv: DirectSolver, p, alpha=None):
+    """Solve L p_new = p for the (nz, ny, nx) RHS p; returns the solution
+    in p's dtype.  The singular constant mode (all-Neumann/periodic) is
+    projected out (eig) or pinned (Thomas), so the solution is defined up
+    to that gauge."""
+    _check_in_slice(sv, alpha)
+    if sv.trx.kind == 'mat':
+        return _solve_mat(sv, p)
+    return _solve_fft(sv, p)
+
+
+def solve_z_only(sv: DirectSolver, p, alpha, shift=None, bc_planes=None):
+    """z-implicit-only Helmholtz solve (I + alpha*Lz) p_new = p
+    (solver_gaussel_z, solver.f90:182-233; the impdiff_1d path) through
+    the Thomas kernel, as cales_tpu's solve_z_only(pallas=True) runs it.
+
+    shift: (1,) tensor added to every RHS row, the pass-through tail
+    included (the folded bulk-forcing add); bc_planes: ((ny, nx) lo, hi)
+    z-face RHS planes added to rows 0 and nz - qz - 1.  The face-staggered
+    Dirichlet row (qz = 1) passes through."""
+    if sv.bcz == 'PP':
+        raise NotImplementedError(
+            'z-only Helmholtz solve with periodic z needs the rank-1 '
+            'periodic kernel: ROADMAP queue 2, apply_thomas_periodic_z')
+    nz = p.shape[0]
+    a, b, c = _abc(sv, p.device)
+    lo, hi = (None, None) if bc_planes is None else bc_planes
+    return sk.thomas_z(p, a, b, c, alpha=float(alpha), shift=shift,
+                       bc_lo=lo, bc_hi=hi,
+                       n_solve=nz - sv.qz if sv.qz else None)
 
 
 # ---------------------------------------------------------------------------
@@ -244,6 +360,52 @@ def rhs_bound_planes(cfg: Config, grid: Grid, cbc, c_or_f, bcvals):
                 fac = 2.0 if cf == 'c' else 1.0
                 plane = -fac * bcv / (dlc[ib] * dlf[ib])
             else:  # 'N'
+                sgn = 1.0 if ib == 0 else -1.0
+                div = dlf[ib] if cf == 'c' else dlc[ib]
+                plane = sgn * bcv / div
+            out[(key, ib)] = plane
+    return out
+
+
+def rhs_bound_planes_dyn(cfg: Config, grid: Grid, cbc, c_or_f, bc_planes,
+                         dtype, device):
+    """Tensor variant of rhs_bound_planes for BC values given per substep
+    (cales_tpu poisson.rhs_bound_planes_dyn, bound.f90:447-560):
+    bc_planes[idir][ibound] is a scalar or a padded-transverse plane
+    (cropped to the interior here).  Returns {('x'|'y'|'z', 0|1): plane
+    tensor} with x planes (nz, ny), y planes (nz, nx), z planes (ny, nx)."""
+    nx, ny, nz = cfg.ng
+    dl = cfg.dl
+    dzc, dzf = grid.dzc, grid.dzf
+    if c_or_f[2] == 'c':
+        dzc01 = (dzc[0], dzc[nz])
+        dzf01 = (dzf[1], dzf[nz])
+    else:
+        dzc01 = (dzc[1], dzc[nz - 1])
+        dzf01 = (dzf[1], dzf[nz])
+    metr = {0: ((dl[0], dl[0]), (dl[0], dl[0])),
+            1: ((dl[1], dl[1]), (dl[1], dl[1])),
+            2: (dzc01, dzf01)}
+    ishape = {0: (nz, ny), 1: (nz, nx), 2: (ny, nx)}
+    out = {}
+    for idir, key in ((0, 'x'), (1, 'y'), (2, 'z')):
+        dlc, dlf = metr[idir]
+        for ib in range(2):
+            val = bc_planes[idir][ib]
+            if getattr(val, 'ndim', 0) == 2:
+                bcv = torch.as_tensor(val, dtype=dtype,
+                                      device=device)[1:-1, 1:-1]
+            else:
+                bcv = torch.full(ishape[idir], float(val), dtype=dtype,
+                                 device=device)
+            letter = cbc[idir][ib]
+            cf = c_or_f[idir]
+            if letter == 'P':
+                plane = torch.zeros_like(bcv)
+            elif letter == 'D':
+                fac = 2.0 if cf == 'c' else 1.0
+                plane = -fac * bcv / (dlc[ib] * dlf[ib])
+            else:
                 sgn = 1.0 if ib == 0 else -1.0
                 div = dlf[ib] if cf == 'c' else dlc[ib]
                 plane = sgn * bcv / div

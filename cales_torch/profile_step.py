@@ -1,13 +1,17 @@
 """Where the time of one RK3 step goes on the card.
 
-    python -m cales_torch.profile_step [--ng 512x256x256] [--steps 3]
+    python -m cales_torch.profile_step [--case les|les-mat|dns]
+                                       [--ng 512x256x256] [--steps 3]
 
-Steps the channel-LES headline configuration (bench.py's, with
-ptransform='fft') under torch.profiler and prints the device time per
-kernel and per stage: the three CUDA kernels, the Poisson solve (cuFFT and
-the z eigen-matmuls), and the torch glue (edge stacks, wall-shear planes,
-forcing).  The device's idle share is 1 - (device busy time / wall time of
-the profiled window).  Needs a CUDA device.
+Steps one of bench.py's channel configurations under torch.profiler and
+prints the device time per kernel and per stage: the CUDA kernels, the
+Poisson solve, and the torch glue (edge stacks, wall-shear planes,
+forcing).  Cases: 'les' the channel-LES headline with ptransform='fft'
+(cuFFT and z eigen-matmuls); 'les-mat' the same with bench.py's own
+ptransform='mat' (apply_y + z_eig); 'dns' the implicit-CN channel DNS
+(channel_dns_impdiff: apply_y + z_eig, thomas_z CN solves).  The device's
+idle share is 1 - (device busy time / wall time of the profiled window).
+Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -23,10 +27,25 @@ STAGES = (
     ('mom_rk', ('mom_rk_kernel',)),
     ('fillps', ('fillps_kernel',)),
     ('correc_smag', ('correc_smag_kernel',)),
+    ('correc_updatep', ('cales::correc_kernel',)),
+    ('solve: apply_y', ('cales::gemm_kernel',)),
+    ('solve: z_eig', ('z_eig_kernel',)),
+    ('thomas_z', ('thomas_z_kernel',)),
     ('solve: fft', ('fft', 'FFT', 'regular_fft', 'vector_fft', 'radix')),
     ('solve: z matmul', ('gemm', 'Gemm', 'sm90_', 'cutlass', 'ampere_sgemm',
                          'sgemm')),
 )
+CHAN_BCS = dict(
+    cbcvel=((('P', 'P', 'P'), ('P', 'P', 'P'), ('D', 'D', 'D')),) * 2,
+    cbcpre=(('P', 'P', 'N'), ('P', 'P', 'N')),
+    cbcsgs=(('P', 'P', 'D'), ('P', 'P', 'D')))
+# bench.py _matrix_configs: the channel-LES headline and channel_dns_impdiff
+CASES = {
+    'les': dict(visci=20_000.0, sgstype='smag', ptransform='fft'),
+    'les-mat': dict(visci=20_000.0, sgstype='smag', ptransform='mat'),
+    'dns': dict(visci=5640.0, sgstype='none', impdiff=True, impdiff_1d=True,
+                ptransform='mat', **CHAN_BCS),
+}
 
 
 def stage_of(name: str) -> str:
@@ -38,6 +57,7 @@ def stage_of(name: str) -> str:
 
 def main(argv=None):
     ap = argparse.ArgumentParser(prog='cales_torch.profile_step')
+    ap.add_argument('--case', default='les', choices=sorted(CASES))
     ap.add_argument('--ng', default='512x256x256', help='nx x ny x nz')
     ap.add_argument('--steps', type=int, default=3)
     args = ap.parse_args(argv)
@@ -56,9 +76,9 @@ def main(argv=None):
                           text=True, check=True).stdout.strip()
     ng = tuple(int(x) for x in args.ng.lower().split('x'))
     cfg = Config(ng=ng, l=(2 * np.pi, np.pi, 2.0), gtype=1, gr=1.0,
-                 visci=20_000.0, inivel='log', is_wallturb=True,
+                 inivel='log', is_wallturb=True,
                  is_forced=(True, False, False), velf=(1.0, 0.0, 0.0),
-                 sgstype='smag', dtype='float32', ptransform='fft')
+                 dtype='float32', **CASES[args.case])
     grid = make_grid_from_config(cfg)
     sim = Simulation(cfg, grid, device='cuda')
     state = sim.initial_state(*initflow(cfg, grid))
@@ -93,7 +113,8 @@ def main(argv=None):
     for name, (ms, _) in per_kernel.items():
         s = stage_of(name)
         by_stage[s] = by_stage.get(s, 0.0) + ms
-    print(f'{card}; ng={ng} float32; {args.steps} profiled steps')
+    print(f'{card}; case {args.case}, ng={ng} float32; {args.steps} '
+          f'profiled steps')
     print(f'{step_ms:.3f} ms/step (CUDA events, profiler off), device busy '
           f'{busy:.3f} ms/step (profiler), idle share {1 - busy / step_ms:.3f}')
     for s, ms in sorted(by_stage.items(), key=lambda kv: -kv[1]):
@@ -103,7 +124,7 @@ def main(argv=None):
                                 key=lambda kv: -kv[1][0])[:20]:
         print(f'  {ms:8.3f}  {n:4d}  {name[:110]}')
     print(json.dumps({'profile': dict(
-        card=card, ng=ng, step_ms=step_ms, busy_ms=busy,
+        card=card, case=args.case, ng=ng, step_ms=step_ms, busy_ms=busy,
         idle_share=1 - busy / step_ms,
         stages={k: round(v, 4) for k, v in by_stage.items()},
         launches_per_step=sum(n for _, n in per_kernel.values()))}))

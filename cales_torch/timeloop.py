@@ -1,16 +1,24 @@
 """Time integration: RK3 + pressure projection on one torch device.
 
 Counterpart of cales_tpu/timeloop.py on its single-device kernel path for
-the channel-LES class (reference rk.f90:17-121, main.f90:417-507).  One RK
-substep runs:
-  1. kernels.mom_rk       momentum RHS + RK3 update (+ forcing partial sums)
-  2. deferred bulk forcing from the partial sums (rk.f90:197-222 reordered)
-  3. kernels.fillps       div(u)/dt_rk of the prediction
-  4. poisson.solve        rfft/fft in x, y (cuFFT) + z eigen-matmuls
-  5. kernels.correc_smag  projection, p += pp and nu_t in one pass
+the channel classes with periodic x/y and z walls (reference
+rk.f90:17-121, main.f90:417-507): the LES with static Smagorinsky, and
+the DNS (sgstype 'none') with explicit or z-implicit (impdiff_1d)
+diffusion.  One RK substep runs:
+  1. kernels.mom_rk          momentum RHS + RK3 update (+ forcing partial
+                             sums; with impdiff_1d the explicit/implicit
+                             split and the Crank-Nicolson fold)
+  2. bulk forcing from the partial sums (rk.f90:197-222 reordered)
+  3. impdiff_1d: poisson.solve_z_only per velocity component (the Thomas
+     kernel; the forcing enters as its RHS shift)
+  4. kernels.fillps          div(u)/dt_rk of the prediction
+  5. poisson.solve           'fft': cuFFT x/y + z stage; 'mat': apply_y,
+                             z_eig or thomas_z, apply_y
+  6. kernels.correc_smag     projection, p += pp and nu_t (smag), or
+     kernels.correc_updatep  projection, p += pp (+ alpha Lz(pp))
 with the z-edge stacks (ops/boundary.zedge_*) as the glue.  On a CUDA device
-the three kernels are the hand-written ones of cales_torch/csrc; on the CPU
-their plain PyTorch twins.
+the kernels are the hand-written ones of cales_torch/csrc; on the CPU their
+plain PyTorch twins.
 
 The port and the JAX package carry the same state (State below), so a
 JAX state can be carried across (params.py).  Configurations outside this
@@ -53,15 +61,16 @@ def unsupported(cfg: Config) -> list[str]:
     item that brings it; empty when the config is in the slice."""
     out = []
     cbc = effective_cbcvel(cfg)
-    if cfg.impdiff:
-        out.append('implicit diffusion (impdiff): ROADMAP queue 1, implicit CN')
+    if cfg.impdiff and not cfg.impdiff_1d:
+        out.append('full-3D implicit diffusion (impdiff without impdiff_1d): '
+                   'ROADMAP queue 1, full-3D implicit CN')
+    if cfg.impdiff and cfg.sgstype == 'smag':
+        out.append("implicit diffusion with sgstype 'smag' needs the "
+                   'fused_smag kernel: ROADMAP queue 2')
     if any(cfg.lwm[ib][d] != 0 for ib in range(2) for d in range(3)):
         out.append('wall model (lwm): ROADMAP queue 1, WMLES')
     if cfg.sgstype == 'dsmag':
         out.append('dynamic Smagorinsky (dsmag): ROADMAP queue 1, dsmag classes')
-    elif cfg.sgstype != 'smag':
-        out.append(f"sgstype {cfg.sgstype!r} needs the fused_correc_updatep "
-                   'kernel: ROADMAP queue 2')
     for d, name in ((0, 'x'), (1, 'y')):
         if not (all(cfg.cbc_vel(d, iv) == 'PP' for iv in range(3))
                 and cfg.cbc_pre(d) == 'PP'
@@ -75,11 +84,6 @@ def unsupported(cfg: Config) -> list[str]:
     if cfg.dims[0] * cfg.dims[1] > 1:
         out.append(f'a device mesh (dims={tuple(cfg.dims)}): ROADMAP queue 1, '
                    'multi-device')
-    if cfg.ptransform == 'mat':
-        out.append("ptransform='mat': ROADMAP queue 1, the Poisson kernels "
-                   'and the mat-vs-fft decision')
-    if cfg.zsolver != 'eig':
-        out.append(f"zsolver={cfg.zsolver!r}: ROADMAP queue 2, apply_thomas_z")
     vals = ([cfg.bcvel[ib][d][iv] for ib in range(2) for d in range(3)
              for iv in range(3)]
             + [b[ib][d] for b in (cfg.bcpre, cfg.bcsgs) for ib in range(2)
@@ -109,6 +113,10 @@ class Simulation:
         self.solver_p = poisson.make_solver(
             cfg, grid, tuple(cfg.cbc_pre(d) for d in range(3)),
             ('c', 'c', 'c'), zsolver=cfg.zsolver)
+        self.has_sgs = cfg.sgstype != 'none'
+        # impdiff_1d: the momentum kernel's split + CN fold (rd streams
+        # elided, timeloop.py:295-306 of the JAX package)
+        self.split = '1d' if cfg.impdiff else None
 
         def by_dir(vals):
             return tuple(tuple(vals[ib][idir] for ib in range(2))
@@ -141,6 +149,26 @@ class Simulation:
             return tuple(out)
         self.zrec_uv = (rec_for(0, self.bcu_vals), rec_for(1, self.bcv_vals))
 
+        # z-only Crank-Nicolson Helmholtz solvers per velocity component
+        # (main.f90:318-334; w is face-staggered in z, qz = 1) and their
+        # z-face RHS planes, which are static here: None when zero
+        self.solver_vel, self.cn_planes = [], []
+        if cfg.impdiff:
+            c_or_f = (('f', 'c', 'c'), ('c', 'f', 'c'), ('c', 'c', 'f'))
+            bvals = (self.bcu_vals, self.bcv_vals, self.bcw_vals)
+            for ivel in range(3):
+                cbc = tuple((self.cbcvel[0][d][ivel], self.cbcvel[1][d][ivel])
+                            for d in range(3))
+                self.solver_vel.append(poisson.make_solver(
+                    cfg, grid, tuple(a + b for a, b in cbc), c_or_f[ivel],
+                    zsolver=cfg.zsolver))
+                planes = poisson.rhs_bound_planes_dyn(
+                    cfg, grid, cbc, c_or_f[ivel], bvals[ivel], self.dtype,
+                    self.device)
+                zp = (planes[('z', 0)], planes[('z', 1)])
+                self.cn_planes.append(
+                    None if all(bool((q == 0).all()) for q in zp) else zp)
+
         # device-resident metrics and profiles
         t = lambda a: torch.as_tensor(np.asarray(a), dtype=self.dtype,  # noqa: E731
                                       device=self.device)
@@ -161,16 +189,38 @@ class Simulation:
         self.sum_flags = (bool(cfg.is_forced[0]), bool(cfg.is_forced[1]))
 
     # ------------------------------------------------------------------
+    def kernel_names(self) -> list[str]:
+        """The kernels one step of this configuration launches."""
+        mat = self.solver_p.trx.kind == 'mat'
+        thomas = poisson.uses_thomas(self.solver_p)
+        names = ['mom_rk', 'fillps',
+                 'correc_smag' if self.has_sgs else 'correc_updatep']
+        if mat:
+            names.append('apply_y')
+        if mat and not thomas:
+            names.append('z_eig')
+        if thomas or self.cfg.impdiff:
+            names.append('thomas_z')
+        return names
+
     def exec_path(self) -> str:
         """One-line description of the execution path (logged at start)."""
-        names = '+'.join(kernels.LAUNCHES)
+        names = '+'.join(self.kernel_names())
         if self.device.type == 'cuda':
             where = (f'{self.device} ({torch.cuda.get_device_name(self.device)})'
                      f', kernels: {names} (CUDA, cales_torch/csrc)')
         else:
             where = f'cpu, kernels: {names} (plain PyTorch twins)'
-        return (f'{where}; poisson: torch.fft x/y + z eigen-matmul '
-                f'({self.cfg.dtype}); sgs: smag fused in correc_smag')
+        zstage = ('thomas_z' if poisson.uses_thomas(self.solver_p)
+                  else 'z eigen-matmul' if self.solver_p.trx.kind == 'fft'
+                  else 'z_eig')
+        xy = ('torch.fft x/y' if self.solver_p.trx.kind == 'fft'
+              else 'apply_y x/y operator matmuls')
+        diff = ('z-implicit Crank-Nicolson (thomas_z per component)'
+                if self.cfg.impdiff else 'explicit')
+        sgs = 'smag fused in correc_smag' if self.has_sgs else 'none'
+        return (f'{where}; poisson: {xy} + {zstage} ({self.cfg.dtype}); '
+                f'diffusion: {diff}; sgs: {sgs}')
 
     # ------------------------------------------------------------------
     def _t(self, a):
@@ -194,8 +244,11 @@ class Simulation:
         u, v, w = st0.u, st0.v, st0.w
         bcu, bcv, bcw = self._dynamic_bcs(u, v, w)
         up, vp, wp, vlo = self._pad_vel(u, v, w, bcu, bcv, bcw)
-        visct = sgsmod.smag_visct(self.sgs_setup, self.cfg, self.grid,
-                                  up, vp, wp).to(self.dtype)
+        if self.has_sgs:
+            visct = sgsmod.smag_visct(self.sgs_setup, self.cfg, self.grid,
+                                      up, vp, wp).to(self.dtype)
+        else:
+            visct = torch.zeros_like(u)
         u_i, v_i, w_i = (up[1:-1, 1:-1, 1:-1], vp[1:-1, 1:-1, 1:-1],
                          wp[1:-1, 1:-1, 1:-1])
         zq = self._zedge_vel(u_i, v_i, w_i, bcu, bcv, bcw, is_correc=False)
@@ -239,11 +292,12 @@ class Simulation:
 
     # ------------------------------------------------------------------
     def _bulk_forcing(self, sums):
-        """Bulk-velocity forcing (rk.f90:197-222, mom.f90:311-335), deferred:
-        the means come from the momentum kernel's partial sums, and the
-        constants are folded into the correction kernel (forcing along a
-        periodic direction cancels in the divergence).  Returns the (3,)
-        forcing tensor and the (2,) (fu, fv) the corrector adds."""
+        """Bulk-velocity forcing (rk.f90:197-222, mom.f90:311-335) from the
+        momentum kernel's partial sums.  Explicit diffusion defers the
+        constants into the correction kernel (forcing along a periodic
+        direction cancels in the divergence); impdiff_1d adds them as the
+        CN solves' RHS shift.  Returns the (3,) forcing tensor and the (2,)
+        (fu, fv) the corrector adds."""
         cfg = self.cfg
         f = torch.zeros(3, dtype=self.dtype, device=self.device)
         for d, s in enumerate(sums):
@@ -286,6 +340,20 @@ class Simulation:
             self.dzfi_t, cfg.visc, self.csd2_t, self.zrec_uv, fuv, self.dw_t,
             self.nearlo_t, tauw_lo, tauw_hi, have_zwalls=self.have_zwalls)
 
+    def _cn_stage(self, u, v, w, f, alpha):
+        """Crank-Nicolson z-only Helmholtz solves (main.f90:423-491, the
+        impdiff_1d path): the momentum kernel already emitted u_RK - 1/2
+        f12 rd, the forcing rides the Thomas pass as its RHS shift, and the
+        z-face planes (scaled by alpha) enter rows 0 / n_solve - 1."""
+        out = []
+        for ivel, fld in enumerate((u, v, w)):
+            shift = f[ivel:ivel + 1] if self.cfg.is_forced[ivel] else None
+            zp = self.cn_planes[ivel]
+            bc = None if zp is None else (alpha * zp[0], alpha * zp[1])
+            out.append(poisson.solve_z_only(self.solver_vel[ivel], fld, alpha,
+                                            shift=shift, bc_planes=bc))
+        return out
+
     def _advance_wall_planes(self, state, pp, ppe, we2, dtrk):
         """The lower-wall w face through the padded correc sweep
         (correc.f90:45-67); the x/y planes are unused under periodic x/y."""
@@ -312,13 +380,19 @@ class Simulation:
             ue, ve, we = self._zedge_vel(u, v, w, bcu0, bcv0, bcw0,
                                          vlo=state.vlo, is_correc=True)
         pe = self._zedge_p(p)
-        se = self._zedge_s(visct)
+        s, se = (visct, self._zedge_s(visct)) if self.has_sgs else (None, None)
         u, v, w, ru, rv, rw, usum, vsum = kernels.mom_rk(
-            u, v, w, visct, p, ue, ve, we, se, pe,
+            u, v, w, s, p, ue, ve, we, se, pe,
             None if first else ru_o, None if first else rv_o,
             None if first else rw_o, self.dzci_t, self.dzfi_t, f1, f2,
-            cfg.visc, dxi, dyi, cfg.bforce, sums=self.sum_flags)
+            cfg.visc, dxi, dyi, cfg.bforce, sums=self.sum_flags,
+            split=self.split)
         f, fuv = self._bulk_forcing((usum, vsum))
+        alpha = 0.0
+        if cfg.impdiff:
+            alpha = -0.5 * cfg.visc * dtrk
+            u, v, w = self._cn_stage(u, v, w, f, alpha)
+            fuv = None      # the forcing went into the CN solves
 
         # projection: prediction fill as edge stacks (w's wall-face rewrite
         # in row 1 of we2), fillps, solve, fused correction
@@ -331,8 +405,14 @@ class Simulation:
                                     self.rhsb_p)
         pp = poisson.solve(self.solver_p, rhs)
         ppe = self._zedge_p(pp)
-        u, v, w, p, visct = self._correc_smag_fused(
-            u, v, w, pp, p, ue2, ve2, we2, ppe, dtrk, fuv)
+        if self.has_sgs:
+            u, v, w, p, visct = self._correc_smag_fused(
+                u, v, w, pp, p, ue2, ve2, we2, ppe, dtrk, fuv)
+        else:
+            u, v, w, p = kernels.correc_updatep(
+                u, v, w, pp, p, we2, ppe, dtrk, dxi, dyi, self.dzci_t,
+                self.dzfi_t, fuv, alpha=alpha, impdiff=cfg.impdiff,
+                impdiff_1d=cfg.impdiff_1d)
         vlo = self._advance_wall_planes(state, pp, ppe, we2, dtrk)
         # post-correction fill (main.f90:500-501, is_correc=.true.)
         bcu, bcv, bcw = self._dynamic_bcs(u, v, w)

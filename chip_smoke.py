@@ -1,7 +1,9 @@
 """Smoke run of cales_torch on one NVIDIA GPU: build the CUDA kernels,
 hold each against its plain PyTorch twin, drive the channel-LES slice
-through the CLI and through cales_torch.driver.run at 512x256x256, and
-compare the card with the CPU step for step.
+through the CLI and through cales_torch.driver.run at 512x256x256 (with
+the cuFFT and the operator-matrix Poisson solve), drive the implicit-CN
+channel DNS through driver.run at 512x256x256, and compare the card with
+the CPU step for step.
 
     python3 chip_smoke.py            # all phases, one card
 
@@ -31,8 +33,32 @@ KERNELS = {
                'cales_tpu/ops/pallas_kernels.py:1182'),
     'correc_smag': ('cales_torch/csrc/correc_smag.cu',
                     'cales_tpu/ops/pallas_kernels.py:1406'),
+    'correc_updatep': ('cales_torch/csrc/correc.cu',
+                       'cales_tpu/ops/pallas_kernels.py:1586'),
+    'apply_y': ('cales_torch/csrc/apply_y.cu',
+                'cales_tpu/ops/pallas_solve.py:87'),
+    'z_eig': ('cales_torch/csrc/z_eig.cu',
+              'cales_tpu/ops/pallas_solve.py:168'),
+    'thomas_z': ('cales_torch/csrc/thomas_z.cu',
+                 'cales_tpu/ops/pallas_solve.py:367'),
 }
+LES_KERNELS = ('mom_rk', 'fillps', 'correc_smag')
 HEADLINE_NG = (512, 256, 256)
+CHAN_BCS = dict(
+    cbcvel=((('P', 'P', 'P'), ('P', 'P', 'P'), ('D', 'D', 'D')),) * 2,
+    cbcpre=(('P', 'P', 'N'), ('P', 'P', 'N')),
+    cbcsgs=(('P', 'P', 'D'), ('P', 'P', 'D')))
+# bench.py _matrix_configs((512, 256, 256))['channel_dns_impdiff'] and
+# ['channel_les_smag'], written out
+DNS_CFG = dict(ng=HEADLINE_NG, l=(2 * np.pi, np.pi, 2.0), gtype=1, gr=1.0,
+               inivel='log', is_wallturb=True, is_forced=(True, False, False),
+               velf=(1.0, 0.0, 0.0), dtype='float32', ptransform='mat',
+               visci=5640.0, sgstype='none', impdiff=True, impdiff_1d=True,
+               **CHAN_BCS)
+LES_CFG = dict(ng=HEADLINE_NG, l=(2 * np.pi, np.pi, 2.0), gtype=1, gr=1.0,
+               visci=20_000.0, inivel='log', is_wallturb=True,
+               is_forced=(True, False, False), velf=(1.0, 0.0, 0.0),
+               sgstype='smag', dtype='float32', ptransform='fft')
 
 
 def card_line():
@@ -60,17 +86,20 @@ def require(cond, msg):
 # ---------------------------------------------------------------------------
 
 def kernel_inputs(ng, dtype, dev, seed, big=False):
-    """Random interiors, edges and profiles for the three kernels at
-    (nx, ny, nz) = ng, on a stretched channel grid.  Small shapes draw from
-    numpy; the headline shape from a seeded torch generator on the card
-    (numpy would spend most of the phase making 30 fields on the host)."""
+    """Random interiors, edges and profiles for the stencil kernels, and
+    the channel's Poisson and w Helmholtz operators for the solve kernels,
+    at (nx, ny, nz) = ng on a stretched channel grid.  Small shapes draw
+    from numpy; the headline shape from a seeded torch generator on the
+    card (numpy would spend most of the phase making 30 fields on the
+    host)."""
     from cales_tpu.config import Config, C_SMAG
     from cales_tpu.grid import make_grid_from_config
+    from cales_torch import poisson
     from cales_torch import sgs as sgsmod
     from cales_tpu.config import effective_cbcvel
     nx, ny, nz = ng
     cfg = Config(ng=ng, l=(2 * np.pi, np.pi, 2.0), gtype=1, gr=1.0,
-                 visci=1000.0)
+                 visci=1000.0, ptransform='mat')
     grid = make_grid_from_config(cfg)
     if big:
         gen = torch.Generator(device=dev).manual_seed(seed)
@@ -86,10 +115,13 @@ def kernel_inputs(ng, dtype, dev, seed, big=False):
                                    dtype=dtype, device=dev)
     f = lambda: rnd(nz, ny, nx)          # noqa: E731
     e = lambda: rnd(3, ny, nx)           # noqa: E731
-    t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype,  # noqa: E731
-                                  device=dev)
+    t = lambda a, dt=dtype: torch.as_tensor(  # noqa: E731
+        np.ascontiguousarray(a), dtype=dt, device=dev)
     setup = sgsmod.SGSSetup(cfg, grid, effective_cbcvel(cfg))
     zc = grid.zc[1:nz + 1]
+    svp = poisson.make_solver(cfg, grid, ('PP', 'PP', 'NN'), ('c', 'c', 'c'))
+    svw = poisson.make_solver(cfg, grid, ('PP', 'PP', 'DD'), ('c', 'c', 'f'))
+    eps = float(torch.finfo(dtype).eps)
     d = dict(u=f(), v=f(), w=f(), s=f().abs(), p=f(), ue=e(), ve=e(),
              we=e(), se=e().abs(), pe=e(), ruo=f(), rvo=f(), rwo=f(),
              pp=f(), ppe=e(), tauw_lo=rnd(ny, nx).abs(),
@@ -99,21 +131,38 @@ def kernel_inputs(ng, dtype, dev, seed, big=False):
              dw=t(np.minimum(zc, cfg.l[2] - zc)),
              nearlo=t((zc <= cfg.l[2] - zc).astype(np.float64)),
              fuv=t([0.05, -0.02]), dxi=cfg.dli[0], dyi=cfg.dli[1],
-             visc=cfg.visc, dz01=(float(grid.dzc[0]), float(grid.dzc[nz])))
+             visc=cfg.visc, dz01=(float(grid.dzc[0]), float(grid.dzc[nz])),
+             # solve operators: channel pressure (mat) and the w CN system
+             fy=t(svp.try_.fwd_mat), fxT=t(svp.trx.fwd_mat.T),
+             Vl=t(svp.zVl), Vr=t(svp.zVr), lamz=t(svp.lamz),
+             lamy=t(svp.lamy), lamx=t(svp.lamx),
+             eig_tol=eps * 4.0 * float(np.abs(svp.lamz).max()
+                                       + np.abs(svp.lamx).max()
+                                       + np.abs(svp.lamy).max()),
+             th_tol=eps * 4.0 * float(np.abs(svp.lamx).max()
+                                      + np.abs(svp.lamy).max()),
+             abc_p=tuple(t(q, torch.float64) for q in (svp.a, svp.b, svp.c)),
+             abc_w=tuple(t(q, torch.float64) for q in (svw.a, svw.b, svw.c)),
+             shift=t([0.0173]), bc_lo=rnd(ny, nx), bc_hi=rnd(ny, nx))
     return d
 
 
-def call(name, d, twin=False, has_ruo=True, zrec=None):
+def call(name, d, twin=False, variant=None, has_ruo=True, zrec=None):
     """One kernel's wrapper (twin=False) or its plain twin (twin=True) on
     the inputs d; returns {output name: tensor}."""
     from cales_torch.ops import kernels as K
-    fn = getattr(K, f'{name}_plain' if twin else name)
+    from cales_torch.ops import solve_kernels as SK
+    mod = SK if name in SK.LAUNCHES else K
+    fn = getattr(mod, f'{name}_plain' if twin else name)
     if name == 'mom_rk':
         r = (d['ruo'], d['rvo'], d['rwo']) if has_ruo else (None,) * 3
-        out = list(fn(d['u'], d['v'], d['w'], d['s'], d['p'], d['ue'],
-                      d['ve'], d['we'], d['se'], d['pe'], *r, d['dzci'],
-                      d['dzfi'], 2.1e-3, -1.1e-3, d['visc'], d['dxi'],
-                      d['dyi'], (0.3, 0.0, 0.0), sums=(True, True)))
+        dns = variant == 'dns'      # no visct, split '1d' + CN fold
+        out = list(fn(d['u'], d['v'], d['w'], None if dns else d['s'],
+                      d['p'], d['ue'], d['ve'], d['we'],
+                      None if dns else d['se'], d['pe'], *r, d['dzci'],
+                      d['dzfi'], 2.1e-3, -1.1e-3 if has_ruo else 0.0,
+                      d['visc'], d['dxi'], d['dyi'], (0.3, 0.0, 0.0),
+                      sums=(True, True), split='1d' if dns else None))
         # partial sums: compare the per-plane totals
         out[6], out[7] = out[6].sum(dim=1), out[7].sum(dim=1)
         return dict(zip(('u', 'v', 'w', 'ru', 'rv', 'rw', 'usum', 'vsum'),
@@ -121,6 +170,28 @@ def call(name, d, twin=False, has_ruo=True, zrec=None):
     if name == 'fillps':
         return {'rhs': fn(d['u'], d['v'], d['w'], d['ue'], d['ve'], d['we'],
                           d['dzfi'], 1.0, d['dxi'], d['dyi'])}
+    if name == 'correc_updatep':
+        imp = variant != 'explicit'
+        out = fn(d['u'], d['v'], d['w'], d['pp'], d['p'], d['we'], d['ppe'],
+                 0.01, d['dxi'], d['dyi'], d['dzci'], d['dzfi'],
+                 None if imp else d['fuv'], alpha=-0.013 if imp else 0.0,
+                 impdiff=imp, impdiff_1d=imp)
+        return dict(zip(('u', 'v', 'w', 'p'), out))
+    if name == 'apply_y':
+        return {'out': fn(d['u'], d['fy'],
+                          None if variant == 'y_only' else d['fxT'])}
+    if name == 'z_eig':
+        return {'out': fn(d['u'], d['Vl'], d['Vr'], d['lamz'], d['lamy'],
+                          d['lamx'], d['eig_tol'])}
+    if name == 'thomas_z':
+        nz = d['u'].shape[0]
+        if variant == 'poisson':    # lam on the diagonal, singular lane pinned
+            out = fn(d['u'], *d['abc_p'], lamy=d['lamy'], lamx=d['lamx'],
+                     pin=True, tol=d['th_tol'])
+        else:                       # the w CN solve of the DNS step
+            out = fn(d['u'], *d['abc_w'], alpha=-0.021, shift=d['shift'],
+                     bc_lo=d['bc_lo'], bc_hi=d['bc_hi'], n_solve=nz - 1)
+        return {'out': out}
     zrec = zrec or (('D', 0.0, d['dz01'][0], 'D', 0.0, d['dz01'][1]),) * 2
     out = fn(d['u'], d['v'], d['w'], d['pp'], d['p'], d['ue'], d['ve'],
              d['we'], d['ppe'], 0.01, d['dxi'], d['dyi'], d['dzci'],
@@ -136,15 +207,16 @@ def compare(name, d, tol_abs=None, tol_rel=None, **kw):
     ref = call(name, d, twin=True, **kw)
     torch.cuda.synchronize()
     worst = 0.0
+    tag = f'{name}[{kw["variant"]}]' if kw.get('variant') else name
     for key in got:
         err = float((got[key] - ref[key]).abs().max())
         scale = float(ref[key].abs().max())
         worst = max(worst, err)
         bound = tol_abs if tol_abs is not None else tol_rel * scale
-        say(f'  {name:<12s} {key:<5s} max|err| {err:.3e}  '
+        say(f'  {tag:<24s} {key:<5s} max|err| {err:.3e}  '
             f'(max|ref| {scale:.3e}, bound {bound:.1e})')
         require(np.isfinite(err) and err <= bound,
-                f'{name}.{key}: error {err:.3e} above {bound:.1e}')
+                f'{tag}.{key}: error {err:.3e} above {bound:.1e}')
     return worst
 
 
@@ -165,36 +237,68 @@ def time_ms(fn, n=10):
 # phases
 # ---------------------------------------------------------------------------
 
+# per-kernel variants held against the twins in phase 2; the first is the
+# one timed for the report in phase 2b
+VARIANTS = {
+    'mom_rk': ('les', 'dns'), 'fillps': (None,), 'correc_smag': (None,),
+    'correc_updatep': ('impdiff_1d', 'explicit'),
+    'apply_y': ('x_and_y', 'y_only'), 'z_eig': (None,),
+    'thomas_z': ('helmholtz', 'poisson'),
+}
+SOLVE_KERNELS = ('apply_y', 'z_eig', 'thomas_z')
+
+
 def phase_kernels(dev, card):
     """Kernel vs twin: small non-aligned shape in f64 and f32 (indexing
     to round-off), then the headline shape in f32 on the card with the
-    kernel's and the twin's times."""
-    from cales_torch.ops import kernels as K
+    kernel's and the twin's times.  Solve kernels are bounded relative to
+    the output's maximum (sums over up to nx terms)."""
     small = (72, 40, 48)
-    for dtype, tol_abs, tol_rel in ((torch.float64, 1e-12, None),
+    for dtype, tol_abs, tol_rel in ((torch.float64, 1e-12, 1e-12),
                                     (torch.float32, None, 1e-5)):
         d = kernel_inputs(small, dtype, dev, SEED)
         say(f'phase 2: kernels vs twins, (nx, ny, nz) = {small}, {dtype}')
-        for has_ruo in (False, True):
-            compare('mom_rk', d, tol_abs, tol_rel, has_ruo=has_ruo)
-        compare('fillps', d, tol_abs, tol_rel)
-        compare('correc_smag', d, tol_abs, tol_rel)
+        for name, variants in VARIANTS.items():
+            ta = None if name in SOLVE_KERNELS else tol_abs
+            for variant in variants:
+                rounds = (False, True) if name == 'mom_rk' else (True,)
+                for has_ruo in rounds:
+                    compare(name, d, ta, tol_rel, variant=variant,
+                            has_ruo=has_ruo)
         zn = (('N', 0.3, d['dz01'][0], 'N', -0.2, d['dz01'][1]),
               ('D', 0.1, d['dz01'][0], 'N', 0.05, d['dz01'][1]))
         compare('correc_smag', d, tol_abs, tol_rel, zrec=zn)
+        del d
     say(f'phase 2b: kernels vs twins on the card at (nx, ny, nz) = '
         f'{HEADLINE_NG}, float32  [{card}]')
     d = kernel_inputs(HEADLINE_NG, torch.float32, dev, SEED + 1, big=True)
     rows = {}
-    for name in K.LAUNCHES:
-        worst = compare(name, d, tol_rel=1e-5)
-        ms = time_ms(lambda: call(name, d))
-        plain_ms = time_ms(lambda: call(name, d, twin=True))
-        say(f'  {name:<12s} kernel {ms:.3f} ms, plain twin {plain_ms:.3f} ms '
-            f'per call  [{card}]')
-        rows[name] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms)
-        torch.cuda.empty_cache()
+    for name, variants in VARIANTS.items():
+        for i, variant in enumerate(variants):
+            worst = compare(name, d, tol_rel=1e-5, variant=variant)
+            ms = time_ms(lambda: call(name, d, variant=variant))
+            plain_ms = time_ms(lambda: call(name, d, twin=True,
+                                            variant=variant))
+            tag = f'{name}[{variant}]' if variant else name
+            say(f'  {tag:<24s} kernel {ms:.3f} ms, plain twin {plain_ms:.3f} '
+                f'ms per call  [{card}]')
+            if i == 0:
+                rows[name] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms)
+            torch.cuda.empty_cache()
     return rows
+
+
+def reset_counts():
+    from cales_torch.ops import kernels as K
+    from cales_torch.ops import solve_kernels as SK
+    K.reset_launches()
+    SK.reset_launches()
+
+
+def counts():
+    from cales_torch.ops import kernels as K
+    from cales_torch.ops import solve_kernels as SK
+    return {**K.LAUNCHES, **SK.LAUNCHES}
 
 
 def phase_cli(card):
@@ -213,83 +317,108 @@ def phase_cli(card):
             say(f'  | {line}')
         require(res.returncode == 0, f'CLI failed:\n{res.stderr[-3000:]}')
         path = [ln for ln in lines if 'Execution path' in ln]
-        require(path and all(k in path[0] for k in KERNELS),
-                'the Execution path line does not name the three kernels')
+        require(path and all(k in path[0] for k in LES_KERNELS),
+                'the Execution path line does not name the LES kernels')
         require((Path(tmp) / 'fld.bin').exists(), 'no fld.bin written')
 
 
-def phase_headline(dev, card):
-    """The slice at 512x256x256 f32 through cales_torch.driver.run, then a
-    timed loop of steps."""
-    from cales_tpu.config import Config
+def drive(tag, cfg, dev, card, nsteps, per_step, ntime=30):
+    """driver.run on cfg for nsteps steps with every launch count set to 0
+    just before and read just after (each kernel of per_step must have
+    launched exactly per_step[name] times a step, every other kernel
+    never), then a timed loop of ntime steps.  Returns (launches, result
+    dict)."""
     from cales_torch import driver
-    from cales_torch.ops import kernels as K
     from cales_torch.ops.stencil import bulk_mean
-    cfg = Config(ng=HEADLINE_NG, l=(2 * np.pi, np.pi, 2.0), gtype=1, gr=1.0,
-                 visci=20_000.0, inivel='log', is_wallturb=True,
-                 is_forced=(True, False, False), velf=(1.0, 0.0, 0.0),
-                 sgstype='smag', dtype='float32', ptransform='fft')
-    nsteps = 31     # one warm-up step + 30
-    nx, ny, nz = HEADLINE_NG
-    say(f'phase 4: driver.run, {HEADLINE_NG} float32, {nsteps} steps  '
-        f'[{card}]')
+    nx, ny, nz = cfg.ng
+    say(f'{tag}: driver.run, {cfg.ng} {cfg.dtype}, {nsteps} steps  [{card}]')
     torch.cuda.reset_peak_memory_stats(dev)
     with tempfile.TemporaryDirectory() as tmp:
-        K.reset_launches()
+        reset_counts()
         t0 = time.perf_counter()
         sim, state = driver.run(cfg, datadir=tmp, device=dev,
                                 max_steps=nsteps, verbose=False)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = dict(K.LAUNCHES)
+        launches = counts()
     say(f'  driver.run: {wall:.1f} s host wall (setup, checks and I/O '
         f'included); launches {launches}')
-    for name in KERNELS:
-        require(launches[name] == 3 * nsteps,
-                f'{name}: {launches[name]} launches, want {3 * nsteps}')
+    say(f'  path: {sim.exec_path()}')
+    for name, n in launches.items():
+        want = per_step.get(name, 0) * nsteps
+        require(n == want, f'{tag}: {name} launched {n} times, want {want}')
     dt_cfl, divtot, divmax = sim.check(state)
     dt = sim.pick_dt(dt_cfl)
-    n = 30
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
         enable_timing=True)
     torch.cuda.synchronize()
     a.record()
-    for _ in range(n):
+    for _ in range(ntime):
         state, _ = sim.step(state, dt)
     b.record()
     torch.cuda.synchronize()
-    ms = a.elapsed_time(b) / n
+    ms = a.elapsed_time(b) / ntime
     ns = ms * 1e6 / (nx * ny * nz * 3)
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     dt_cfl, divtot, divmax = sim.check(state)
     ub = float(bulk_mean(state.u, sim.gvr_f))
     small = float(np.sqrt(np.finfo(np.float32).eps) * 10)
-    say(f'  {ms:.3f} ms/step, {ns:.4f} ns/cell/RK3-substep over {n} steps '
-        f'(CUDA events)  [{card}]')
+    say(f'  {ms:.3f} ms/step, {ns:.4f} ns/cell/RK3-substep over {ntime} '
+        f'steps (CUDA events)  [{card}]')
     say(f'  peak memory {peak:.2f} GiB (max_memory_allocated)  [{card}]')
-    say(f'  after {nsteps + n} steps: divmax {divmax:.3e} (abort bound '
-        f'{small:.3e}), bulk u {ub:.6f}, dt {dt:.4e}')
+    say(f'  after {nsteps + ntime} steps: divmax {divmax:.3e} (abort bound '
+        f'{small:.3e}), bulk u {ub:.7f}, dt {dt:.4e}')
     fields = [state.u, state.v, state.w, state.p, state.visct]
     require(all(bool(torch.isfinite(f).all()) for f in fields),
-            'non-finite field after the headline run')
-    require(divmax <= small, f'divmax {divmax:.3e} above {small:.3e}')
-    print(json.dumps({'headline': dict(
-        ng=HEADLINE_NG, ms_per_step=ms, ns_per_cell_substep=ns,
-        peak_gib=peak, divmax=divmax, bulk_u=ub, card=card)}), flush=True)
+            f'{tag}: non-finite field')
+    require(divmax <= small, f'{tag}: divmax {divmax:.3e} above {small:.3e}')
+    require(abs(ub - 1.0) <= 1e-4, f'{tag}: bulk u {ub:.7f}, want 1')
+    return sim, launches, dict(ng=cfg.ng, ms_per_step=ms,
+                               ns_per_cell_substep=ns, peak_gib=peak,
+                               divmax=divmax, bulk_u=ub, card=card)
+
+
+def phase_les(dev, card):
+    """The channel-LES headline at 512x256x256 f32 by both transform routes:
+    'fft' (cuFFT + z eigen-matmuls) and 'mat' (bench.py's own setting:
+    apply_y + z_eig), then the Poisson solve alone by both routes."""
+    from cales_tpu.config import Config
+    from cales_torch import poisson
+    les = dict(mom_rk=3, fillps=3, correc_smag=3)
+    sim_f, launches, res_f = drive('phase 4: LES, fft', Config(**LES_CFG),
+                                   dev, card, 31, les)
+    print(json.dumps({'headline': res_f}), flush=True)
+    sim_m, _, res_m = drive(
+        'phase 4m: LES, mat', Config(**{**LES_CFG, 'ptransform': 'mat'}),
+        dev, card, 11, {**les, 'apply_y': 6, 'z_eig': 3})
+    print(json.dumps({'headline_mat': res_m}), flush=True)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    rhs = torch.randn(tuple(HEADLINE_NG[::-1]), generator=gen, device=dev)
+    rhs = rhs - rhs.mean()
+    times = {}
+    for route, sim in (('fft', sim_f), ('mat', sim_m)):
+        times[route] = time_ms(lambda: poisson.solve(sim.solver_p, rhs),
+                               n=20)
+    say(f'  Poisson solve at {HEADLINE_NG} float32: fft {times["fft"]:.3f} '
+        f'ms, mat {times["mat"]:.3f} ms per solve (CUDA events)  [{card}]')
     return launches
 
 
-def phase_card_vs_cpu(dev):
-    """3 steps of a small f64 channel on the card (kernels) and on the CPU
-    (twins), then the same in f32 on the card."""
+def phase_dns(dev, card):
+    """The implicit-CN channel DNS at 512x256x256 f32 through driver.run."""
     from cales_tpu.config import Config
+    per_step = dict(mom_rk=3, fillps=3, correc_updatep=3, apply_y=6,
+                    z_eig=3, thomas_z=9)
+    _, launches, res = drive('phase 5: implicit-CN channel DNS',
+                             Config(**DNS_CFG), dev, card, 11, per_step)
+    print(json.dumps({'dns': res}), flush=True)
+    return launches
+
+
+def _card_vs_cpu(tag, cfg, dev, names):
     from cales_tpu.grid import make_grid_from_config
     from cales_tpu.initflow import initflow
     from cales_torch.timeloop import Simulation
-    cfg = Config(ng=(64, 32, 32), l=(2 * np.pi, np.pi, 2.0), gtype=1, gr=1.0,
-                 visci=20_000.0, inivel='log', is_wallturb=True,
-                 is_forced=(True, False, False), velf=(1.0, 0.0, 0.0),
-                 sgstype='smag', dtype='float64', ptransform='fft')
     grid = make_grid_from_config(cfg)
     u, v, w, p = initflow(cfg, grid)
     sims = [Simulation(cfg, grid, device=dv) for dv in (dev, 'cpu')]
@@ -297,10 +426,9 @@ def phase_card_vs_cpu(dev):
     dt = sims[1].pick_dt(sims[1].check(states[1])[0])
     for _ in range(3):
         states = [s.step(st, dt)[0] for s, st in zip(sims, states)]
-    say('phase 5: card vs CPU, (64, 32, 32) float64, 3 steps')
+    say(f'{tag}: card vs CPU, {cfg.ng} float64, 3 steps')
     g, c = states
-    for name, tol in (('u', 1e-11), ('v', 1e-11), ('w', 1e-11),
-                      ('p', 1e-10), ('visct', 1e-12)):
+    for name, tol in names:
         a = getattr(g, name).cpu()
         b = getattr(c, name)
         if name == 'p':
@@ -314,7 +442,7 @@ def phase_card_vs_cpu(dev):
     st32 = s32.initial_state(u, v, w, p)
     for _ in range(3):
         st32, _ = s32.step(st32, dt)
-    for name in ('u', 'v', 'w', 'p', 'visct'):
+    for name, _ in names:
         a = getattr(st32, name).double().cpu()
         b = getattr(c, name)
         if name == 'p':
@@ -323,6 +451,18 @@ def phase_card_vs_cpu(dev):
         say(f'  {name:<5s} max|card f32 - cpu f64| / max|cpu| {rel:.3e} '
             '(bound 1e-4)')
         require(rel <= 1e-4, f'f32 card vs f64 CPU {name}: {rel:.3e}')
+
+
+def phase_card_vs_cpu(dev):
+    """3 steps of a small f64 channel on the card (kernels) and on the CPU
+    (twins), then the same in f32 on the card: the LES and the DNS."""
+    from cales_tpu.config import Config
+    small = dict(ng=(64, 32, 32), dtype='float64')
+    _card_vs_cpu('phase 6', Config(**{**LES_CFG, **small}), dev,
+                 (('u', 1e-11), ('v', 1e-11), ('w', 1e-11), ('p', 1e-10),
+                  ('visct', 1e-12)))
+    _card_vs_cpu('phase 6b', Config(**{**DNS_CFG, **small}), dev,
+                 (('u', 1e-11), ('v', 1e-11), ('w', 1e-11), ('p', 1e-10)))
 
 
 def main():
@@ -345,11 +485,13 @@ def main():
         f'({build.BUILD_ROOT / build.source_hash()})')
     rows = phase_kernels(dev, card)
     phase_cli(card)
-    launches = phase_headline(dev, card)
+    les = phase_les(dev, card)
+    dns = phase_dns(dev, card)
     phase_card_vs_cpu(dev)
     report = {'kernels': [
         dict(name=name, route='cuda', source=KERNELS[name][0],
-             replaces=KERNELS[name][1], launches=launches[name], **rows[name])
+             replaces=KERNELS[name][1],
+             launches=(dns if dns[name] else les)[name], **rows[name])
         for name in KERNELS]}
     print(json.dumps(report), flush=True)
     print(card_line(), flush=True)

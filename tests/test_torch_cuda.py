@@ -1,5 +1,6 @@
 """cales_torch's CUDA kernels on the card: each against its plain twin, and
-the slice on the card against the slice on the CPU, step for step, fp64.
+the slices (channel LES, implicit-CN channel DNS) on the card against the
+same slices on the CPU, step for step, fp64.
 
 These tests need an NVIDIA GPU and skip without one.  The file imports no
 jax, so it runs on a machine that has torch and the CUDA toolkit only:
@@ -7,8 +8,9 @@ jax, so it runs on a machine that has torch and the CUDA toolkit only:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 Tolerances: kernel vs twin 1e-12 (the same formulas; FMA contraction and
-the order of a few sums differ); card vs CPU after 3 steps u, v, w 1e-11,
-p 1e-10 after removing its mean, nu_t 1e-12."""
+the order of a few sums differ), relative to the output's maximum for the
+solve kernels (sums of up to nx terms); card vs CPU after 3 steps u, v, w
+1e-11, p 1e-10 after removing its mean, nu_t 1e-12."""
 import numpy as np
 import pytest
 import torch
@@ -18,6 +20,7 @@ from cales_tpu.grid import make_grid_from_config
 from cales_tpu.initflow import initflow
 
 from cales_torch.ops import kernels as K
+from cales_torch.ops import solve_kernels as SK
 from cales_torch.timeloop import Simulation
 
 torch.set_num_threads(1)
@@ -77,7 +80,8 @@ def test_cuda_kernels_match_twins_on_card(dev):
         for g, r in zip(K.correc_smag(*cs), K.correc_smag_plain(*cs)):
             torch.testing.assert_close(g, r, rtol=0, atol=1e-12)
     torch.cuda.synchronize()
-    assert K.LAUNCHES == {'mom_rk': 1, 'fillps': 1, 'correc_smag': 2}
+    assert K.LAUNCHES == {'mom_rk': 1, 'fillps': 1, 'correc_smag': 2,
+                          'correc_updatep': 0}
 
 
 @pytest.mark.cuda
@@ -94,10 +98,124 @@ def test_card_matches_cpu_step_for_step(dev):
     K.reset_launches()
     for _ in range(3):
         states = [s.step(st, dt)[0] for s, st in zip(sims, states)]
-    assert K.LAUNCHES == {'mom_rk': 9, 'fillps': 9, 'correc_smag': 9}
+    assert K.LAUNCHES == {'mom_rk': 9, 'fillps': 9, 'correc_smag': 9,
+                          'correc_updatep': 0}
     g, c = states
     for name, tol in (('u', 1e-11), ('v', 1e-11), ('w', 1e-11), ('p', 1e-10),
                       ('visct', 1e-12)):
+        a, b = getattr(g, name).cpu(), getattr(c, name)
+        if name == 'p':
+            a, b = a - a.mean(), b - b.mean()
+        assert float((a - b).abs().max()) <= tol, name
+
+
+def _rel_close(got, ref, rtol):
+    scale = float(ref.abs().max())
+    err = float((got - ref).abs().max())
+    assert err <= rtol * max(scale, 1e-300), (err, scale)
+
+
+@pytest.mark.cuda
+def test_cuda_dns_kernels_match_twins_on_card(dev):
+    """mom_rk with split '1d' + fold and without visct, and
+    correc_updatep with and without alpha L(pp), against their twins."""
+    ng = (72, 40, 24)
+    nx, ny, nz = ng
+    cfg = Config(ng=ng, l=(2 * np.pi, np.pi, 2.0), gtype=1, gr=1.0,
+                 visci=1000.0, dtype='float64')
+    grid = make_grid_from_config(cfg)
+    rng = np.random.default_rng(9)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, dtype=np.float64), device=dev)
+    F = lambda: t(0.05 * rng.standard_normal((nz, ny, nx)))   # noqa: E731
+    E = lambda: t(0.05 * rng.standard_normal((3, ny, nx)))    # noqa: E731
+    u, v, w, p, pp, ruo, rvo, rwo = (F() for _ in range(8))
+    ue, ve, we, pe, ppe = (E() for _ in range(5))
+    dxi, dyi = cfg.dli[0], cfg.dli[1]
+    dzci, dzfi = t(grid.dzci), t(grid.dzfi)
+    K.reset_launches()
+    for r in ((ruo, rvo, rwo), (None,) * 3):
+        mom = (u, v, w, None, p, ue, ve, we, None, pe, *r, dzci, dzfi,
+               5e-4, -2e-4 if r[0] is not None else 0.0, cfg.visc, dxi, dyi,
+               (0.1, 0.0, 0.0))
+        got = K.mom_rk(*mom, sums=(True, True), split='1d')
+        ref = K.mom_rk_plain(*mom, sums=(True, True), split='1d')
+        for g, q in zip(got[:6], ref[:6]):
+            torch.testing.assert_close(g, q, rtol=0, atol=1e-12)
+        for g, q in zip(got[6:], ref[6:]):
+            torch.testing.assert_close(g.sum(1), q[:, 0], rtol=0, atol=1e-11)
+    for imp in ((False, False), (True, True), (True, False)):
+        cu = (u, v, w, pp, p, we, ppe, 3.7e-3, dxi, dyi, dzci, dzfi,
+              t([0.05, -0.02]), -0.013, *imp)
+        for g, q in zip(K.correc_updatep(*cu), K.correc_updatep_plain(*cu)):
+            _rel_close(g, q, 1e-13)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == {'mom_rk': 2, 'fillps': 0, 'correc_smag': 0,
+                          'correc_updatep': 3}
+
+
+@pytest.mark.cuda
+def test_cuda_solve_kernels_match_twins_on_card(dev):
+    """apply_y with and without MxT, z_eig, and both Thomas variants, on a
+    shape that fits no tile (nx, ny, nz) = (72, 40, 24)."""
+    from cales_torch import poisson
+    ng = (72, 40, 24)
+    nx, ny, nz = ng
+    cfg = Config(ng=ng, l=(2 * np.pi, np.pi, 2.0), gtype=1, gr=1.0,
+                 dtype='float64', ptransform='mat')
+    grid = make_grid_from_config(cfg)
+    rng = np.random.default_rng(10)
+
+    def t(a, dt=torch.float64):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=dev)
+    x = t(rng.standard_normal((nz, ny, nx)))
+    sv = poisson.make_solver(cfg, grid, ('PP', 'PP', 'NN'), ('c', 'c', 'c'))
+    SK.reset_launches()
+    for mxt in (None, t(sv.trx.fwd_mat.T)):
+        _rel_close(SK.apply_y(x, t(sv.try_.fwd_mat), MxT=mxt),
+                   SK.apply_y_plain(x, t(sv.try_.fwd_mat), MxT=mxt), 1e-13)
+    eig = (t(sv.zVl), t(sv.zVr), t(sv.lamz), t(sv.lamy), t(sv.lamx), 1e-9)
+    _rel_close(SK.z_eig(x, *eig), SK.z_eig_plain(x, *eig), 1e-12)
+    abc = (t(sv.a), t(sv.b), t(sv.c))
+    pois = dict(lamy=t(sv.lamy), lamx=t(sv.lamx), pin=True, tol=1e-9)
+    _rel_close(SK.thomas_z(x, *abc, **pois),
+               SK.thomas_z_plain(x, *abc, **pois), 1e-12)
+    svw = poisson.make_solver(cfg, grid, ('PP', 'PP', 'DD'), ('c', 'c', 'f'))
+    abcw = (t(svw.a), t(svw.b), t(svw.c))
+    helm = dict(alpha=-0.043, shift=t([0.017]), n_solve=nz - 1,
+                bc_lo=t(rng.standard_normal((ny, nx))),
+                bc_hi=t(rng.standard_normal((ny, nx))))
+    _rel_close(SK.thomas_z(x, *abcw, **helm),
+               SK.thomas_z_plain(x, *abcw, **helm), 1e-12)
+    torch.cuda.synchronize()
+    assert SK.LAUNCHES == {'apply_y': 2, 'z_eig': 1, 'thomas_z': 2}
+
+
+@pytest.mark.cuda
+def test_card_matches_cpu_dns_step_for_step(dev):
+    """The implicit-CN channel DNS (bench.py's channel_dns_impdiff) at
+    (32, 16, 16), f64, 3 steps: card against CPU."""
+    cfg = Config(ng=(32, 16, 16), l=(2 * np.pi, np.pi, 2.0), gtype=1,
+                 gr=1.0, visci=5640.0, inivel='log', is_wallturb=True,
+                 is_forced=(True, False, False), velf=(1.0, 0.0, 0.0),
+                 sgstype='none', impdiff=True, impdiff_1d=True,
+                 dtype='float64', ptransform='mat',
+                 cbcsgs=(('P', 'P', 'D'), ('P', 'P', 'D')))
+    grid = make_grid_from_config(cfg)
+    fields = initflow(cfg, grid)
+    sims = [Simulation(cfg, grid, device=d) for d in (dev, 'cpu')]
+    states = [s.initial_state(*fields) for s in sims]
+    dt = sims[1].pick_dt(sims[1].check(states[1])[0])
+    K.reset_launches()
+    SK.reset_launches()
+    for _ in range(3):
+        states = [s.step(st, dt)[0] for s, st in zip(sims, states)]
+    assert K.LAUNCHES == {'mom_rk': 9, 'fillps': 9, 'correc_smag': 0,
+                          'correc_updatep': 9}
+    assert SK.LAUNCHES == {'apply_y': 18, 'z_eig': 9, 'thomas_z': 27}
+    g, c = states
+    for name, tol in (('u', 1e-11), ('v', 1e-11), ('w', 1e-11), ('p', 1e-10)):
         a, b = getattr(g, name).cpu(), getattr(c, name)
         if name == 'p':
             a, b = a - a.mean(), b - b.mean()

@@ -1,4 +1,4 @@
-"""The three kernel twins of cales_torch/ops/kernels.py against the JAX
+"""The stencil kernel twins of cales_torch/ops/kernels.py against the JAX
 Pallas kernels they port, run in interpret mode on the CPU as
 tests/test_pallas_kernels.py runs them, fp64, at (nx, ny, nz) =
 (128, 32, 16) with random interiors and z-edge stacks.
@@ -6,7 +6,9 @@ tests/test_pallas_kernels.py runs them, fp64, at (nx, ny, nz) =
 Tolerances (the formulas and their order are the same; only the
 libraries' rounding differs): u, v, w, p 1e-13; the momentum RHS ru, rv,
 rw 1e-11 (terms of size dzci^2 ~ 1e3 cancel); nu_t 1e-12 relative to its
-maximum (1 - exp(-x) near the wall amplifies an ulp of exp).
+maximum (1 - exp(-x) near the wall amplifies an ulp of exp); the pressure
+with alpha L(pp) 1e-13 relative to its maximum (the Laplacian's terms are
+of size dzci^2 pp).
 
 The CUDA kernels themselves run only on a card: tests/test_torch_cuda.py
 holds each against its twin there (and so does chip_smoke.py)."""
@@ -81,6 +83,59 @@ def test_mom_rk_twin_matches_pallas(has_ruo):
         _close(g.sum(dim=1), np.asarray(r_)[:, ::8, 0].sum(axis=1), 1e-11)
 
 
+@pytest.mark.parametrize('has_ruo', [False, True])
+def test_mom_rk_twin_matches_pallas_cn_fold_without_sgs(has_ruo):
+    """split '1d' with the CN fold and no eddy viscosity (the implicit-CN
+    DNS's momentum pass, pallas_kernels.py:640-684)."""
+    cfg, grid, d = _setup(1)
+    J, T = _J(d), _T(d)
+    f1, f2, visc = 0.5e-3, (-0.2e-3 if has_ruo else 0.0), cfg.visc
+    dxi, dyi = cfg.dli[:2]
+    bforce = (0.1, 0.0, 0.02)
+    ref = pk.fused_mom_rk(J['u'], J['v'], J['w'], None, J['p'], J['ue'],
+                          J['ve'], J['we'], None, J['pe'], J['ruo'],
+                          J['rvo'], J['rwo'], grid.dzci, grid.dzfi, f1, f2,
+                          visc, dxi, dyi, bforce, interpret=True,
+                          has_ruo=has_ruo, sum_flags=(True, True),
+                          split='1d', fold_cn=True, has_sgs=False)
+    r = (T['ruo'], T['rvo'], T['rwo']) if has_ruo else (None,) * 3
+    got = K.mom_rk_plain(T['u'], T['v'], T['w'], None, T['p'], T['ue'],
+                         T['ve'], T['we'], None, T['pe'], *r,
+                         torch.as_tensor(grid.dzci), torch.as_tensor(grid.dzfi),
+                         f1, f2, visc, dxi, dyi, bforce, sums=(True, True),
+                         split='1d')
+    for i in range(3):
+        _close(got[i], ref[i], 1e-13)
+    for i in range(3, 6):
+        _close(got[i], ref[i], 1e-11)
+    for g, r_ in zip(got[6:], ref[6:]):
+        _close(g.sum(dim=1), np.asarray(r_)[:, ::8, 0].sum(axis=1), 1e-11)
+
+
+@pytest.mark.parametrize('imp', ['explicit', 'impdiff_1d', 'impdiff'])
+def test_correc_updatep_twin_matches_pallas(imp):
+    """fused_correc_updatep with the deferred forcing fu/fv, and the
+    alpha L(pp) pressure term (z-only or 3-D)."""
+    cfg, grid, d = _setup(2)
+    J, T = _J(d), _T(d)
+    dxi, dyi = cfg.dli[:2]
+    dtrk, fu, fv, alpha = 3.7e-3, 0.05, -0.02, -0.013
+    impdiff, imp1d = imp != 'explicit', imp == 'impdiff_1d'
+    ref = pk.fused_correc_updatep(
+        J['u'], J['v'], J['w'], J['pp'], J['p'], J['we'], J['ppe'], dtrk,
+        dxi, dyi, grid.dzci, interpret=True, alpha=alpha, impdiff=impdiff,
+        impdiff_1d=imp1d, dzfi=grid.dzfi, fu=fu, fv=fv)
+    t = lambda a: torch.as_tensor(np.asarray(a, dtype=np.float64))  # noqa: E731
+    got = K.correc_updatep_plain(
+        T['u'], T['v'], T['w'], T['pp'], T['p'], T['we'], T['ppe'], dtrk,
+        dxi, dyi, t(grid.dzci), t(grid.dzfi), t([fu, fv]), alpha=alpha,
+        impdiff=impdiff, impdiff_1d=imp1d)
+    for i in range(3):
+        _close(got[i], ref[i], 1e-13)
+    p_ref = np.asarray(ref[3])
+    _close(got[3], p_ref, 1e-13 * np.abs(p_ref).max())
+
+
 def test_fillps_twin_matches_pallas():
     cfg, grid, d = _setup(3)
     J, T = _J(d), _T(d)
@@ -140,7 +195,8 @@ def test_wrappers_take_the_twin_on_cpu_without_launching():
             t(grid.dzfi), 20.0, *cfg.dli[:2])
     torch.testing.assert_close(K.fillps(*args), K.fillps_plain(*args),
                                rtol=0, atol=0)
-    assert K.LAUNCHES == {'mom_rk': 0, 'fillps': 0, 'correc_smag': 0}
+    assert K.LAUNCHES == {'mom_rk': 0, 'fillps': 0, 'correc_smag': 0,
+                          'correc_updatep': 0}
 
 
 def test_wrapper_rejects_other_devices():

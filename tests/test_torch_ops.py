@@ -280,16 +280,16 @@ def test_poisson_solve_matches_jax_and_residual():
 
 
 def test_poisson_outside_slice_raises():
-    cfg = _cfg(ptransform='mat')
-    grid = make_grid_from_config(cfg)
-    cbc = tuple(cfg.cbc_pre(d) for d in range(3))
-    sv = tpoisson.make_solver(cfg, grid, cbc, ('c', 'c', 'c'))
-    with pytest.raises(NotImplementedError, match='mat'):
-        tpoisson.solve(sv, torch.zeros(NG[::-1], dtype=torch.float64))
-    sv = tpoisson.make_solver(_cfg(), grid, cbc, ('c', 'c', 'c'))
-    with pytest.raises(NotImplementedError, match='Helmholtz'):
-        tpoisson.solve(sv, torch.zeros(NG[::-1], dtype=torch.float64),
-                       alpha=-0.1)
+    """The full-3D Helmholtz solve (implicit diffusion without impdiff_1d)
+    is outside the slice, by either transform route."""
+    grid = make_grid_from_config(_cfg())
+    cbc = tuple(_cfg().cbc_pre(d) for d in range(3))
+    for ptransform in ('mat', 'fft'):
+        sv = tpoisson.make_solver(_cfg(ptransform=ptransform), grid, cbc,
+                                  ('c', 'c', 'c'))
+        with pytest.raises(NotImplementedError, match='full-3D Helmholtz'):
+            tpoisson.solve(sv, torch.zeros(NG[::-1], dtype=torch.float64),
+                           alpha=-0.1)
 
 
 def test_add_rhs_bound_matches_jax():

@@ -1,0 +1,224 @@
+"""The solve kernels' plain versions (cales_torch/ops/solve_kernels.py,
+ops/tridiag.py) against the JAX Pallas kernels they port, run in interpret
+mode on the CPU as tests/test_poisson.py runs them, and the port's solves
+(poisson.solve with ptransform 'mat', solve_z_only) against cales_tpu's,
+fp64 at (nx, ny, nz) = (128, 16, 24) with numpy-seeded inputs.
+
+Tolerances, relative to the reference's maximum (the same sums in another
+order): apply_y and z_eig 1e-13 (sums over up to 128 terms); the Thomas
+sweeps 1e-12 (nz sequential steps); the solves 1e-11, after removing the
+mean where the solution is defined up to a constant (the singular mode is
+projected out by eig, pinned by the port's Thomas and regularized by the
+JAX XLA Thomas)."""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from cales_tpu import poisson as jpoisson
+from cales_tpu.config import Config
+from cales_tpu.grid import make_grid_from_config
+from cales_tpu.ops import pallas_solve as ps
+from cales_tpu.ops import tridiag as jtri
+
+from cales_torch import poisson as tpoisson
+from cales_torch.ops import solve_kernels as SK
+from cales_torch.ops import tridiag as ttri
+
+torch.set_num_threads(1)
+
+NG = (128, 16, 24)
+CHAN_P = ('PP', 'PP', 'NN')
+
+
+def _cfg(**kw):
+    base = dict(ng=NG, l=(1.3, 0.9, 2.0), gtype=1, gr=0.8, dtype='float64',
+                ptransform='mat')
+    base.update(kw)
+    return Config(**base)
+
+
+def _rhs(seed):
+    nx, ny, nz = NG
+    return np.random.default_rng(seed).standard_normal((nz, ny, nx))
+
+
+def _t(a):
+    return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float64)
+
+
+def _close(got, ref, rtol, gauge=False):
+    got = got.numpy() if torch.is_tensor(got) else np.asarray(got)
+    ref = np.asarray(ref)
+    if gauge:
+        got, ref = got - got.mean(), ref - ref.mean()
+    scale = np.abs(ref).max()
+    np.testing.assert_allclose(got, ref, rtol=0, atol=rtol * scale)
+
+
+@pytest.fixture(scope='module')
+def chan():
+    cfg = _cfg()
+    grid = make_grid_from_config(cfg)
+    js = jpoisson.make_solver(cfg, grid, CHAN_P, ('c', 'c', 'c'))
+    ts = tpoisson.make_solver(cfg, grid, CHAN_P, ('c', 'c', 'c'))
+    return cfg, grid, js, ts
+
+
+# ------------------------------------------------------------- kernels
+
+@pytest.mark.parametrize('with_x', [False, True])
+def test_apply_y_plain_matches_pallas(chan, with_x):
+    _, _, js, _ = chan
+    x = _rhs(1)
+    mxt = js.trx.fwd_mat.T.copy() if with_x else None
+    ref = ps.apply_y(jnp.asarray(x), js.try_.fwd_mat, MxT=mxt,
+                     interpret=True)
+    got = SK.apply_y_plain(_t(x), _t(js.try_.fwd_mat),
+                           None if mxt is None else _t(mxt))
+    _close(got, ref, 1e-13)
+
+
+def test_z_eig_plain_matches_pallas(chan):
+    """The NN channel pressure system, singular mode included."""
+    _, _, js, _ = chan
+    x = _rhs(2)
+    scale = (np.abs(js.lamz).max() + np.abs(js.lamx).max()
+             + np.abs(js.lamy).max())
+    tol = float(np.finfo(np.float64).eps * scale * 4.0)
+    ref = ps.apply_z_eig(jnp.asarray(x), js.zVl, js.zVr, js.lamz, js.lamy,
+                         js.lamx, tol, interpret=True)
+    got = SK.z_eig_plain(_t(x), *(_t(q) for q in (js.zVl, js.zVr, js.lamz,
+                                                   js.lamy, js.lamx)), tol)
+    _close(got, ref, 1e-13)
+
+
+def test_thomas_plain_matches_pallas_poisson_pinned(chan):
+    """lam = lamy + lamx on the diagonal, the singular lane pinned."""
+    _, _, js, _ = chan
+    x = _rhs(3)
+    tol = float(np.finfo(np.float64).eps * 4.0
+                * (np.abs(js.lamx).max() + np.abs(js.lamy).max()))
+    ref = ps.apply_thomas_z(jnp.asarray(x), js.a, js.b, js.c, js.lamy,
+                            js.lamx, pin_singular=True, tol=tol,
+                            interpret=True)
+    got = SK.thomas_z_plain(_t(x), _t(js.a), _t(js.b), _t(js.c),
+                            lamy=_t(js.lamy), lamx=_t(js.lamx), pin=True,
+                            tol=tol)
+    _close(got, ref, 1e-12)
+    assert float(got[0, 0, 0]) == 0.0     # the pinned gauge
+
+
+def test_thomas_plain_matches_pallas_helmholtz():
+    """The CN form: scaled rows, a shift, n_solve < nz (the w tail row)
+    and boundary planes on rows 0 and n_solve - 1."""
+    cfg = _cfg()
+    grid = make_grid_from_config(cfg)
+    sv = jpoisson.make_solver(cfg, grid, ('PP', 'PP', 'DD'), ('c', 'c', 'f'))
+    nx, ny, nz = NG
+    rng = np.random.default_rng(4)
+    x = _rhs(4)
+    lo, hi = rng.standard_normal((2, ny, nx))
+    alpha, f, n = -0.043, 0.0173, nz - 1
+    ref = ps.apply_thomas_helmholtz_z(
+        jnp.asarray(x), sv.a[:n] * alpha, sv.b[:n] * alpha + 1.0,
+        sv.c[:n] * alpha, interpret=True, shift=f, n_solve=n,
+        bc_lo=jnp.asarray(lo), bc_hi=jnp.asarray(hi))
+    got = SK.thomas_z_plain(_t(x), _t(sv.a), _t(sv.b), _t(sv.c), alpha=alpha,
+                            shift=_t([f]), bc_lo=_t(lo), bc_hi=_t(hi),
+                            n_solve=n)
+    _close(got, ref, 1e-12)
+
+
+def test_tridiag_thomas_matches_jax():
+    rng = np.random.default_rng(5)
+    n = 12
+    a, c = rng.uniform(0.5, 1.0, (2, n))
+    b = -(a + c) - rng.uniform(0.1, 0.5, n)
+    rhs = rng.standard_normal((n, 5, 7))
+    lam = -rng.uniform(0.0, 2.0, (5, 7))
+    ref = jtri.thomas(a, b, c, jnp.asarray(rhs), lam=jnp.asarray(lam),
+                      regularize=False)
+    got = ttri.thomas(_t(a), _t(b), _t(c), _t(rhs), lam=_t(lam))
+    _close(got, ref, 1e-13)
+
+
+# -------------------------------------------------------------- solves
+
+def _compatible(rhs, grid):
+    """Zero dzf-weighted mean: the singular Poisson system is solvable."""
+    nx, ny, nz = NG
+    w = grid.dzf[1:nz + 1][:, None, None]
+    return rhs - (rhs * w).sum() / (w.sum() * nx * ny)
+
+
+@pytest.mark.parametrize('ptransform,zsolver', [
+    ('mat', 'eig'), ('mat', 'thomas'), ('fft', 'thomas')])
+def test_poisson_solve_matches_jax(ptransform, zsolver):
+    cfg = _cfg(ptransform=ptransform, zsolver=zsolver)
+    grid = make_grid_from_config(cfg)
+    rhs = _compatible(_rhs(6), grid)
+    js = jpoisson.make_solver(cfg, grid, CHAN_P, ('c', 'c', 'c'),
+                              zsolver=zsolver)
+    ts = tpoisson.make_solver(cfg, grid, CHAN_P, ('c', 'c', 'c'),
+                              zsolver=zsolver)
+    assert tpoisson.uses_thomas(ts) == (zsolver == 'thomas')
+    ref = jpoisson.solve(js, jnp.asarray(rhs))
+    _close(tpoisson.solve(ts, _t(rhs)), ref, 1e-11, gauge=True)
+
+
+def test_poisson_solve_mat_matches_jax_kernel_path(chan):
+    """The JAX package's aliased 3-pass Pallas solve (interpret mode), the
+    branch its kernel path runs without the x fusion."""
+    _, grid, js, ts = chan
+    rhs = _compatible(_rhs(7), grid)
+    ref = jpoisson.solve(js, jnp.asarray(rhs), pallas=True,
+                         pallas_interpret=True)
+    _close(tpoisson.solve(ts, _t(rhs)), ref, 1e-11, gauge=True)
+
+
+@pytest.mark.parametrize('ivel', [0, 1, 2])
+def test_solve_z_only_matches_jax(ivel):
+    """The z-only CN Helmholtz solve of each velocity component (w: the
+    face-staggered qz = 1 system) with the forcing shift and z planes,
+    against the JAX XLA branch and its Pallas Thomas pass."""
+    cfg = _cfg()
+    grid = make_grid_from_config(cfg)
+    cf = (('f', 'c', 'c'), ('c', 'f', 'c'), ('c', 'c', 'f'))[ivel]
+    cbc = ('PP', 'PP', 'DD')
+    js = jpoisson.make_solver(cfg, grid, cbc, cf)
+    ts = tpoisson.make_solver(cfg, grid, cbc, cf)
+    assert ts.qz == (1 if ivel == 2 else 0)
+    nx, ny, nz = NG
+    rng = np.random.default_rng(8 + ivel)
+    x = _rhs(8 + ivel)
+    lo, hi = rng.standard_normal((2, ny, nx))
+    alpha, f = -0.031, 0.0211
+    kw = dict(shift=f, bc_planes=(jnp.asarray(lo), jnp.asarray(hi)))
+    got = tpoisson.solve_z_only(ts, _t(x), alpha, shift=_t([f]),
+                                bc_planes=(_t(lo), _t(hi)))
+    for pallas in (False, True):
+        ref = jpoisson.solve_z_only(js, jnp.asarray(x), alpha, pallas=pallas,
+                                    pallas_interpret=True, **kw)
+        _close(got, ref, 1e-12)
+
+
+@pytest.mark.parametrize('c_or_f', [('c', 'c', 'c'), ('c', 'c', 'f')])
+def test_rhs_bound_planes_dyn_matches_jax(c_or_f):
+    cfg = _cfg()
+    grid = make_grid_from_config(cfg)
+    nx, ny, nz = NG
+    rng = np.random.default_rng(11)
+    zlo = rng.standard_normal((ny + 2, nx + 2))
+    cbc = (('P', 'P'), ('P', 'P'), ('D', 'N'))
+    vals = ((0.0, 0.0), (0.0, 0.0), (zlo, 0.37))
+    ref = jpoisson.rhs_bound_planes_dyn(
+        cfg, grid, cbc, c_or_f,
+        ((0.0, 0.0), (0.0, 0.0), (jnp.asarray(zlo), 0.37)))
+    got = tpoisson.rhs_bound_planes_dyn(cfg, grid, cbc, c_or_f, vals,
+                                        torch.float64, 'cpu')
+    assert set(got) == set(ref)
+    for key in ref:
+        np.testing.assert_allclose(got[key].numpy(), np.asarray(ref[key]),
+                                   rtol=0, atol=1e-15, err_msg=str(key))

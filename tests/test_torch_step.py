@@ -1,11 +1,17 @@
-"""The slice end to end: cales_torch's Simulation on the CPU (the kernels'
+"""The slices end to end: cales_torch's Simulation on the CPU (the kernels'
 plain twins) against cales_tpu's Simulation on its XLA expression path
-(use_pallas=False), fp64, for the headline channel-LES physics (static
-Smagorinsky + van Driest, periodic x/y, no-slip z walls on a stretched
-grid, bulk forcing along x) at (nx, ny, nz) = (32, 16, 16).
+(use_pallas=False), fp64, at (nx, ny, nz) = (32, 16, 16), for
+  * the headline channel-LES physics (static Smagorinsky + van Driest,
+    periodic x/y, no-slip z walls on a stretched grid, bulk forcing
+    along x), and
+  * the implicit-CN channel DNS (bench.py's channel_dns_impdiff: sgstype
+    'none', z diffusion implicit, ptransform 'mat'), and its explicit
+    twin;
+and the DNS against cales_tpu's Pallas kernel path in interpret mode.
 
 Tolerances: u, v, w 1e-11; p 1e-10 after removing its mean (the solve
 projects out the constant mode, so p is defined up to a gauge); nu_t
+1e-12; against the kernel path (the same kernel formulas on both sides)
 1e-12.  The dead vlo planes along periodic x/y are not compared."""
 import numpy as np
 import pytest
@@ -19,7 +25,6 @@ from cales_tpu.initflow import initflow
 from cales_tpu.timeloop import Simulation as JaxSimulation
 
 from cales_torch import params
-from cales_torch.ops import kernels as K
 from cales_torch.timeloop import Simulation, unsupported
 
 torch.set_num_threads(1)
@@ -29,6 +34,15 @@ HEADLINE = dict(ng=(32, 16, 16), l=(2 * np.pi, np.pi, 2.0), gtype=1, gr=1.0,
                 is_forced=(True, False, False), velf=(1.0, 0.0, 0.0),
                 sgstype='smag', dtype='float64', ptransform='fft')
 TOL = {'u': 1e-11, 'v': 1e-11, 'w': 1e-11, 'p': 1e-10, 'visct': 1e-12}
+# bench.py _matrix_configs 'channel_dns_impdiff' at a test size
+DNS = dict(ng=(32, 16, 16), l=(2 * np.pi, np.pi, 2.0), gtype=1, gr=1.0,
+           visci=5640.0, inivel='log', is_wallturb=True,
+           is_forced=(True, False, False), velf=(1.0, 0.0, 0.0),
+           sgstype='none', impdiff=True, impdiff_1d=True, dtype='float64',
+           ptransform='mat',
+           cbcvel=((('P', 'P', 'P'), ('P', 'P', 'P'), ('D', 'D', 'D')),) * 2,
+           cbcpre=(('P', 'P', 'N'), ('P', 'P', 'N')),
+           cbcsgs=(('P', 'P', 'D'), ('P', 'P', 'D')))
 
 
 @pytest.fixture(scope='module')
@@ -43,8 +57,9 @@ def pair():
     return jsim, tsim, (u, v, w, p), dt
 
 
-def _compare(jstate, tstate):
+def _compare(jstate, tstate, tol_all=None):
     for name, tol in TOL.items():
+        tol = tol if tol_all is None else tol_all
         a = np.asarray(getattr(jstate, name))
         b = getattr(tstate, name).numpy()
         if name == 'p':
@@ -53,7 +68,8 @@ def _compare(jstate, tstate):
         assert err <= tol, f'{name}: {err:.3e} > {tol:.0e}'
     # the one live wall-face plane: w at the lower z wall
     np.testing.assert_allclose(tstate.vlo[2].numpy(),
-                               np.asarray(jstate.vlo[2]), rtol=0, atol=1e-11)
+                               np.asarray(jstate.vlo[2]), rtol=0,
+                               atol=tol_all or 1e-11)
 
 
 def test_slice_matches_jax_for_three_steps(pair):
@@ -99,22 +115,19 @@ def test_exec_path_names_device_kernels_and_solve(pair):
     _, tsim, _, _ = pair
     path = tsim.exec_path()
     assert path.startswith('cpu')
-    for name in K.LAUNCHES:
+    for name in ('mom_rk', 'fillps', 'correc_smag'):
         assert name in path
     assert 'torch.fft' in path
 
 
 @pytest.mark.parametrize('change,missing', [
-    (dict(impdiff=True), 'impdiff'),
+    (dict(impdiff=True), 'full-3D implicit diffusion'),
     (dict(lwm=((0, 0, 1), (0, 0, 1)), hwm=0.1), 'wall model'),
     (dict(sgstype='dsmag'), 'dsmag'),
-    (dict(sgstype='none'), 'fused_correc_updatep'),
     (dict(cbcvel=((('P', 'P', 'P'), ('D', 'D', 'D'), ('D', 'D', 'D')),) * 2,
           cbcpre=(('P', 'N', 'N'),) * 2), 'non-periodic y'),
     (dict(scalar=True), 'scalar'),
     (dict(dims=(2, 1)), 'mesh'),
-    (dict(ptransform='mat'), "ptransform='mat'"),
-    (dict(zsolver='thomas'), 'thomas'),
     (dict(cbcvel=(((('P',) * 3,) * 3),) * 2, cbcpre=(('P',) * 3,) * 2,
           cbcsgs=(('P',) * 3,) * 2, gr=0.0), 'triperiodic'),
 ])
@@ -128,3 +141,114 @@ def test_configs_outside_the_slice_raise(change, missing):
 
 def test_headline_config_is_in_the_slice():
     assert unsupported(Config(**HEADLINE)) == []
+
+
+@pytest.mark.parametrize('change', [
+    dict(sgstype='none'), dict(ptransform='mat'), dict(zsolver='thomas'),
+    dict(impdiff=True, impdiff_1d=True, sgstype='none')])
+def test_configs_inside_the_slice_build(change):
+    """Configurations the implicit-CN slice brought in: no refusal, and
+    the Simulation builds."""
+    cfg = Config(**{**HEADLINE, **change})
+    assert unsupported(cfg) == []
+    Simulation(cfg, make_grid_from_config(cfg), device='cpu')
+
+
+# ------------------------------------------------------- the channel DNS
+
+@pytest.mark.parametrize('case', ['impdiff_1d', 'explicit'])
+def test_dns_matches_jax_for_three_steps(case):
+    change = {} if case == 'impdiff_1d' else dict(impdiff=False,
+                                                  impdiff_1d=False)
+    cfg = Config(**{**DNS, **change}, use_pallas=False)
+    grid = make_grid_from_config(cfg)
+    fields = initflow(cfg, grid)
+    jsim, tsim = JaxSimulation(cfg, grid), Simulation(cfg, grid,
+                                                      device='cpu')
+    jst, tst = jsim.initial_state(*fields), tsim.initial_state(*fields)
+    dt = jsim.pick_dt(jsim.check(jst)[0])
+    for _ in range(3):
+        jst, jd = jsim.step(jst, dt)
+        tst, td = tsim.step(tst, dt)
+        _compare(jst, tst)
+        np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=0,
+                                   atol=1e-12)
+    for a, b in zip(tsim.check(tst), jsim.check(jst)):
+        assert abs(a - b) <= 1e-12 * max(1.0, abs(b))
+    path = tsim.exec_path()
+    assert 'correc_updatep' in path and 'apply_y' in path
+    assert ('thomas_z' in path) == (case == 'impdiff_1d')
+
+
+def test_dns_matches_jax_kernel_path(monkeypatch):
+    """cales_tpu's Pallas kernel path (interpret mode) with the x-transform
+    fusion off, the branch the port takes: apply_y with MxT, apply_z_eig,
+    the Thomas Helmholtz pass with the forcing shift, and
+    fused_correc_updatep with alpha Lz(pp)."""
+    monkeypatch.setenv('CALES_PALLAS_INTERPRET', '1')
+    monkeypatch.setenv('CALES_NO_FUSE_XOP', '1')
+    cfg = Config(**{**DNS, 'ng': (128, 16, 16)})
+    grid = make_grid_from_config(cfg)
+    fields = initflow(cfg, grid)
+    jsim, tsim = JaxSimulation(cfg, grid), Simulation(cfg, grid,
+                                                      device='cpu')
+    assert jsim.use_pallas_mom and jsim.use_pallas_solve
+    assert jsim.use_pallas_cn and jsim._cn_fold and jsim._cn_shift_forcing
+    assert not jsim._fuse_xop
+    jst, tst = jsim.initial_state(*fields), tsim.initial_state(*fields)
+    dt = jsim.pick_dt(jsim.check(jst)[0])
+    for _ in range(3):
+        jst, _ = jsim.step(jst, dt)
+        tst, _ = tsim.step(tst, dt)
+    _compare(jst, tst, tol_all=1e-12)
+
+
+def test_dns_state_carried_across_from_jax():
+    cfg = Config(**DNS, use_pallas=False)
+    grid = make_grid_from_config(cfg)
+    jsim, tsim = JaxSimulation(cfg, grid), Simulation(cfg, grid,
+                                                      device='cpu')
+    jst = jsim.initial_state(*initflow(cfg, grid))
+    dt = jsim.pick_dt(jsim.check(jst)[0])
+    for _ in range(2):
+        jst, _ = jsim.step(jst, dt)
+    leaves = dict(u=jst.u, v=jst.v, w=jst.w, p=jst.p, visct=jst.visct,
+                  vlo=jst.vlo, rhs_old=jst.rhs_old, zq=jst.zq,
+                  time=jst.time, istep=jst.istep)
+    tst = params.state_from_jax_numpy(
+        jax.tree_util.tree_map(np.asarray, leaves), 'cpu', torch.float64)
+    for _ in range(2):
+        jst, _ = jsim.step(jst, dt)
+        tst, _ = tsim.step(tst, dt)
+    _compare(jst, tst)
+
+
+@pytest.mark.parametrize('name,impdiff', [
+    ('couette', True), ('half_channel', True), ('periodic_channel', False),
+    ('temporal_boundary_layer', False),
+    ('turbulent_channel_constant_pressure_gradient', True),
+    ('turbulent_channel_convective_reference_frame', False)])
+def test_example_namelists_in_the_slice_match_jax(name, impdiff):
+    """The shipped examples the slice now runs (sgstype 'none': moving
+    walls, Neumann tops, constant pressure gradient, a moving frame), at
+    (32, 16, 16) with and without z-implicit diffusion, 2 steps against
+    cales_tpu's XLA path."""
+    from pathlib import Path
+    from cales_tpu.nml import config_from_nml
+    nml = Path(__file__).resolve().parents[1] / 'examples' / name / 'input.nml'
+    cfg = config_from_nml(nml, dtype='float64').replace(
+        ng=(32, 16, 16), use_pallas=False, impdiff=impdiff,
+        impdiff_1d=impdiff)
+    assert unsupported(cfg) == []
+    grid = make_grid_from_config(cfg)
+    fields = initflow(cfg, grid)
+    jsim, tsim = JaxSimulation(cfg, grid), Simulation(cfg, grid,
+                                                      device='cpu')
+    jst, tst = jsim.initial_state(*fields), tsim.initial_state(*fields)
+    dt = jsim.pick_dt(jsim.check(jst)[0])
+    for _ in range(2):
+        jst, jd = jsim.step(jst, dt)
+        tst, td = tsim.step(tst, dt)
+    _compare(jst, tst)
+    np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=0,
+                               atol=1e-11)
