@@ -1,6 +1,7 @@
 """cales_torch: the PyTorch + CUDA port of cales_tpu for one NVIDIA GPU.
 
-Imports torch and never jax.  The numpy-only modules of cales_tpu (config,
-nml, grid, initflow, io) are reused as they are; the modules here keep the
-JAX package's names so each counterpart is easy to find.
+Imports torch and never jax, and nothing of cales_tpu.  It keeps its own
+copies of the JAX package's numpy-only modules (config, nml, grid,
+initflow and io), under the same names, so each counterpart is easy to
+find; the tests hold the copies to the originals.
 """

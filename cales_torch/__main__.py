@@ -26,7 +26,7 @@ def main(argv=None):
                          "'cuda:N', or 'cpu' (the plain twins)")
     args = ap.parse_args(argv)
 
-    from cales_tpu.nml import config_from_nml
+    from .nml import config_from_nml
     from .driver import run
 
     overrides = {}

@@ -76,6 +76,72 @@ __device__ __forceinline__ double cfma(double a, double b, double c) {
   return fma(a, b, c);
 }
 
+// Strain rate of the staggered velocity at one cell centre
+// (cales_torch/ops/stencil.strain_rate_core term by term, reference
+// sgs.f90:1019-1110): diagonal terms exact at the centre, off-diagonal ones
+// averaged over the four surrounding edges.  U, V, W(dk, dj, di) return the
+// velocity at the offset cell (offsets in {-1, 0, 1}); dzci_c = dzci(k),
+// dzci_m = dzci(k-1), dzfi_c = dzfi(k) in the ghost-inclusive metric
+// arrays.  Returns |S| = sqrt(2 S_ij S_ij); sij, when given, receives
+// (S11, S22, S33, S12, S13, S23).  Shared by correc_smag.cu, smag.cu and
+// dsmag.cu.
+template <typename T, class FU, class FV, class FW>
+__device__ __forceinline__ T strain_rate(const FU& U, const FV& V,
+                                         const FW& W, T dxi, T dyi,
+                                         T dzci_c, T dzci_m, T dzfi_c,
+                                         T* sij = nullptr) {
+  const T u000 = U(0, 0, 0), u00m = U(0, 0, -1), u0p0 = U(0, 1, 0);
+  const T u0m0 = U(0, -1, 0), u0pm = U(0, 1, -1), u0mm = U(0, -1, -1);
+  const T up00 = U(1, 0, 0), um00 = U(-1, 0, 0), up0m = U(1, 0, -1);
+  const T um0m = U(-1, 0, -1);
+  const T v000 = V(0, 0, 0), v0m0 = V(0, -1, 0), v00p = V(0, 0, 1);
+  const T v0mp = V(0, -1, 1), v00m = V(0, 0, -1), v0mm = V(0, -1, -1);
+  const T vp00 = V(1, 0, 0), vm00 = V(-1, 0, 0), vpm0 = V(1, -1, 0);
+  const T vmm0 = V(-1, -1, 0);
+  const T w000 = W(0, 0, 0), wm00 = W(-1, 0, 0), w00p = W(0, 0, 1);
+  const T wm0p = W(-1, 0, 1), w00m = W(0, 0, -1), wm0m = W(-1, 0, -1);
+  const T w0p0 = W(0, 1, 0), wmp0 = W(-1, 1, 0), w0m0 = W(0, -1, 0);
+  const T wmm0 = W(-1, -1, 0);
+  const T e = T(0.125), two = T(2);
+  const T s11 = (u000 - u00m) * dxi;
+  const T s22 = (v000 - v0m0) * dyi;
+  const T s33 = (w000 - wm00) * dzfi_c;
+  const T s12 = e * ((u0p0 - u000) * dyi + (v00p - v000) * dxi +
+                     (u000 - u0m0) * dyi + (v0mp - v0m0) * dxi +
+                     (u0pm - u00m) * dyi + (v000 - v00m) * dxi +
+                     (u00m - u0mm) * dyi + (v0m0 - v0mm) * dxi);
+  const T s13 = e * ((up00 - u000) * dzci_c + (w00p - w000) * dxi +
+                     (u000 - um00) * dzci_m + (wm0p - wm00) * dxi +
+                     (up0m - u00m) * dzci_c + (w000 - w00m) * dxi +
+                     (u00m - um0m) * dzci_m + (wm00 - wm0m) * dxi);
+  const T s23 = e * ((vp00 - v000) * dzci_c + (w0p0 - w000) * dyi +
+                     (v000 - vm00) * dzci_m + (wmp0 - wm00) * dyi +
+                     (vpm0 - v0m0) * dzci_c + (w000 - w0m0) * dyi +
+                     (v0m0 - vmm0) * dzci_m + (wm00 - wmm0) * dyi);
+  if (sij != nullptr) {
+    sij[0] = s11;
+    sij[1] = s22;
+    sij[2] = s33;
+    sij[3] = s12;
+    sij[4] = s13;
+    sij[5] = s23;
+  }
+  return csqrt(two * (s11 * s11 + s22 * s22 + s33 * s33 +
+                      two * (s12 * s12 + s13 * s13 + s23 * s23)));
+}
+
+// Static Smagorinsky with van Driest damping (sgs.f90:104-152):
+// (Cs Delta)^2 fd^2 |S|, fd = 1 - exp(-dw+ / 25), dw+ = dw sqrt(tau_w) /
+// visc with tau_w = visc tauw / 2 from the nearer wall's shear plane.
+template <typename T>
+__device__ __forceinline__ T van_driest_nut(T s0, T csd2, T dw, T tauw,
+                                            T visc) {
+  const T tauw_s = T(0.5) * visc * tauw;
+  const T dw_plus = dw * csqrt(tauw_s) / visc;
+  const T fd = T(1) - cexp(-dw_plus / T(25));
+  return csd2 * fd * fd * s0;
+}
+
 // Sum of v over the block; the result is valid in thread 0.  Every thread
 // of the block must call it.
 template <typename T>

@@ -103,52 +103,19 @@ __global__ void __launch_bounds__(CALES_THREADS) correc_smag_kernel(
     return __ldg(wr + o) - dtrk * dzci[kz + 1] * (pk1 - pk);
   };
 
-  const T u000 = CU(0, 0, 0), u00m = CU(0, 0, -1), u0p0 = CU(0, 1, 0);
-  const T u0m0 = CU(0, -1, 0), u0pm = CU(0, 1, -1), u0mm = CU(0, -1, -1);
-  const T up00 = CU(1, 0, 0), um00 = CU(-1, 0, 0), up0m = CU(1, 0, -1);
-  const T um0m = CU(-1, 0, -1);
-  const T v000 = CV(0, 0, 0), v0m0 = CV(0, -1, 0), v00p = CV(0, 0, 1);
-  const T v0mp = CV(0, -1, 1), v00m = CV(0, 0, -1), v0mm = CV(0, -1, -1);
-  const T vp00 = CV(1, 0, 0), vm00 = CV(-1, 0, 0), vpm0 = CV(1, -1, 0);
-  const T vmm0 = CV(-1, -1, 0);
-  const T w000 = CW(0, 0, 0), wm00 = CW(-1, 0, 0), w00p = CW(0, 0, 1);
-  const T wm0p = CW(-1, 0, 1), w00m = CW(0, 0, -1), wm0m = CW(-1, 0, -1);
-  const T w0p0 = CW(0, 1, 0), wmp0 = CW(-1, 1, 0), w0m0 = CW(0, -1, 0);
-  const T wmm0 = CW(-1, -1, 0);
-
   const int64_t o = static_cast<int64_t>(k) * plane + idx;
-  uo[o] = u000;
-  vo[o] = v000;
-  wo[o] = w000;
+  uo[o] = CU(0, 0, 0);
+  vo[o] = CV(0, 0, 0);
+  wo[o] = CW(0, 0, 0);
   po[o] = p[o] + at(pp, ppe, c, 0, 0, 0);  // row nz-1 from the edge stack
 
-  // strain rate of the corrected field (stencil.strain_rate_core)
-  const T dzci_c = dzci[k + 1], dzci_m = dzci[k], dzfi_c = dzfi[k + 1];
-  const T e = T(0.125), two = T(2);
-  const T s11 = (u000 - u00m) * dxi;
-  const T s22 = (v000 - v0m0) * dyi;
-  const T s33 = (w000 - wm00) * dzfi_c;
-  const T s12 = e * ((u0p0 - u000) * dyi + (v00p - v000) * dxi +
-                     (u000 - u0m0) * dyi + (v0mp - v0m0) * dxi +
-                     (u0pm - u00m) * dyi + (v000 - v00m) * dxi +
-                     (u00m - u0mm) * dyi + (v0m0 - v0mm) * dxi);
-  const T s13 = e * ((up00 - u000) * dzci_c + (w00p - w000) * dxi +
-                     (u000 - um00) * dzci_m + (wm0p - wm00) * dxi +
-                     (up0m - u00m) * dzci_c + (w000 - w00m) * dxi +
-                     (u00m - um0m) * dzci_m + (wm00 - wm0m) * dxi);
-  const T s23 = e * ((vp00 - v000) * dzci_c + (w0p0 - w000) * dyi +
-                     (v000 - vm00) * dzci_m + (wmp0 - wm00) * dyi +
-                     (vpm0 - v0m0) * dzci_c + (w000 - w0m0) * dyi +
-                     (v0m0 - vmm0) * dzci_m + (wm00 - wmm0) * dyi);
-  const T s0 = csqrt(two * (s11 * s11 + s22 * s22 + s33 * s33 +
-                            two * (s12 * s12 + s13 * s13 + s23 * s23)));
+  // strain rate of the corrected field (common.cuh strain_rate)
+  const T s0 = strain_rate<T>(CU, CV, CW, dxi, dyi, dzci[k + 1], dzci[k],
+                              dzfi[k + 1]);
   if (have_zwalls) {
     // van Driest damping with the nearer z wall's shear (sgs.f90:104-149)
     const T tauw = nearlo[k] > T(0.5) ? tauw_lo[idx] : tauw_hi[idx];
-    const T tauw_s = T(0.5) * visc * tauw;
-    const T dw_plus = dw[k] * csqrt(tauw_s) / visc;
-    const T fd = T(1) - cexp(-dw_plus / T(25));
-    so[o] = csd2[k] * fd * fd * s0;
+    so[o] = van_driest_nut(s0, csd2[k], dw[k], tauw, visc);
   } else {
     so[o] = csd2[k] * s0;
   }

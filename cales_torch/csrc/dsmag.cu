@@ -1,0 +1,302 @@
+// Dynamic Smagorinsky (Germano-Lilly) with channel averaging, one z-march.
+//
+// Replaces: cales_tpu/ops/pallas_dsmag.py fused_dsmag_onepass (body
+// _ds_onepass_kernel) with avg='channel' on the single-device path.  From
+// the post-correction fill (interiors + z-edge stacks) it returns the
+// grid-level |S| and, per (z row, block), the partial sums of
+// num = M_ij L_ij and den = M_ij M_ij (off-diagonal pairs twice); the
+// caller sums each row and forms nu_t = max(|S| num/den, 0)
+// (reference sgs.f90:153-370, ave1d_channel 433-538).  The model and its
+// ghost recipes are cales_torch/ops/kernels.dsmag_plain's:
+//   A  source quantities at a cell centre: |S| S_ij (6), the centred
+//      velocity (3) and its products (6), and |S|;
+//   B  the 27-point test filter (sgs.f90:616-680, separable (1,2,1)/4 in
+//      x, then y, then z) of the velocity and of the A quantities; A's z
+//      ghosts extrapolate linearly at a wall (2 q_0 - q_1), and so do the
+//      wall-parallel velocity's for its filter;
+//   C  the test-level strain of the filtered velocity, whose fill is
+//      -+1 times the first plane plus 2b (the 'D' value b) for u and v, and
+//      0 for w on both z faces (its lower face and the padded-row-nz
+//      rewrite); M_ij = 2 (filt(|S| S_ij) - alpha^2 |S~| S~_ij), the
+//      Leonard term L_ij = filt(uc_i uc_j) - filt(uc_i) filt(uc_j).
+//
+// Design.  A block owns an 8 x 32 (y, x) tile and marches z through three
+// rings of planes in shared memory, one plane entering per step:
+//   V  the velocity (3) on the tile + a halo of 2, planes t-1 .. t+1;
+//   A  the 16 source quantities on the tile + a halo of 1, planes t-2 .. t;
+//   F  the filtered velocity (3) on the tile + a halo of 1, planes t-2 .. t.
+// At step t the block loads velocity plane t+1, forms A and F at plane t,
+// then finishes plane t-1 at the tile's centre: the 15 filtered A
+// quantities, the test-level strain from F, M_ij, L_ij and the contraction
+// in registers, a block reduction for the row sums, and |S|.  Nothing but
+// |S| and the partial sums goes to global memory.  x and y are periodic
+// and wrap when a plane is loaded; a ragged tile's outside cells are
+// computed on wrapped data and left out of the output and the sums.
+//
+// Shared memory: (9 * 12 * 36 + 48 * 10 * 34 + 9 * 10 * 34) words =
+// 93,072 bytes in f32 (two blocks on an SM), 186,144 in f64, within the
+// card's 227 KB a block.
+//
+// Bound on the H100: operations.  It reads u, v, w once and writes |S| (4
+// field streams, 0.54 GB at 512x256x256 f32: 0.16 ms at 3.35 TB/s).  The
+// function needs about 473 floating-point operations a cell: A 110 (the
+// strain rate's 92 + 18), 18 filtered quantities at 12 each when the
+// separable passes are shared across the plane (3 passes of 4), and C 147
+// (the test-level strain's 92 + M_ij, L_ij and the contraction), 15.9
+// GFLOP a call: 0.24 ms at the data sheet's 67 TFLOP/s f32 outside the
+// tensor cores.  This first kernel does about 1,200 a cell: it filters
+// each quantity with 27 shared-memory reads per centre cell (52
+// operations, nothing shared between neighbours) and recomputes A and F on
+// the halo of every tile; sharing the x and y passes is later work.
+#include "common.cuh"
+
+namespace cales {
+
+constexpr int DS_TY = 8, DS_TX = 32;           // the centre tile (y, x)
+constexpr int DS_NT = DS_TY * DS_TX;           // one thread per centre cell
+constexpr int DS_VY = DS_TY + 4, DS_VX = DS_TX + 4;   // velocity, halo 2
+constexpr int DS_AY = DS_TY + 2, DS_AX = DS_TX + 2;   // A and F, halo 1
+constexpr int DS_VPL = DS_VY * DS_VX, DS_APL = DS_AY * DS_AX;
+constexpr int DS_NA = 16;                      // A quantities
+static_assert(DS_NT == CALES_THREADS, "block_sum assumes CALES_THREADS");
+
+template <typename T>
+constexpr size_t dsmag_smem_bytes() {
+  return sizeof(T) * (9 * DS_VPL + 3 * DS_NA * DS_APL + 9 * DS_APL);
+}
+
+__device__ __forceinline__ int ring(int kz) { return (kz + 3) % 3; }
+
+__device__ __forceinline__ int wrap(int q, int n) {
+  q %= n;
+  return q < 0 ? q + n : q;
+}
+
+// The separable 27-point filter of f(dk, dj, di) in the order of
+// stencil.filter3d: x passes, then y, then z.
+template <typename T, class F>
+__device__ __forceinline__ T filter27(const F& f) {
+  const T q = T(0.25), two = T(2);
+  T zq[3];
+#pragma unroll
+  for (int dk = -1; dk <= 1; ++dk) {
+    T yq[3];
+#pragma unroll
+    for (int dj = -1; dj <= 1; ++dj)
+      yq[dj + 1] = q * (f(dk, dj, -1) + two * f(dk, dj, 0) + f(dk, dj, 1));
+    zq[dk + 1] = q * (yq[0] + two * yq[1] + yq[2]);
+  }
+  return q * (zq[0] + two * zq[1] + zq[2]);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(DS_NT) dsmag_kernel(
+    const T* __restrict__ u, const T* __restrict__ v, const T* __restrict__ w,
+    const T* __restrict__ ue, const T* __restrict__ ve,
+    const T* __restrict__ we, const T* __restrict__ alph2,
+    const T* __restrict__ dzci, const T* __restrict__ dzfi,
+    T* __restrict__ s0o, T* __restrict__ numo, T* __restrict__ deno, int nz,
+    int ny, int nx, int wall_lo, int wall_hi, T dxi, T dyi, T zoff_lo_u,
+    T zoff_hi_u, T zoff_lo_v, T zoff_hi_v) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const Vs = reinterpret_cast<T*>(smem_raw);   // [3 planes][3][VPL]
+  T* const As = Vs + 9 * DS_VPL;                   // [3 planes][16][APL]
+  T* const Fs = As + 3 * DS_NA * DS_APL;           // [3 planes][3][APL]
+  const int gx = (nx + DS_TX - 1) / DS_TX;
+  const int x0 = (blockIdx.x % gx) * DS_TX;
+  const int y0 = (blockIdx.x / gx) * DS_TY;
+  const int tid = threadIdx.x;
+  const int64_t plane = static_cast<int64_t>(ny) * nx;
+  const T* const fld[3] = {u, v, w};
+  const T* const edg[3] = {ue, ve, we};
+  const T two = T(2), half = T(0.5);
+  const T szlo = wall_lo ? T(-1) : T(1), szhi = wall_hi ? T(-1) : T(1);
+  const T zofflo[2] = {zoff_lo_u, zoff_lo_v};
+  const T zoffhi[2] = {zoff_hi_u, zoff_hi_v};
+
+  auto vel = [&](int kz, int c) { return Vs + (ring(kz) * 3 + c) * DS_VPL; };
+  auto src = [&](int kz, int q) {
+    return As + (ring(kz) * DS_NA + q) * DS_APL;
+  };
+  auto fvel = [&](int kz, int c) { return Fs + (ring(kz) * 3 + c) * DS_APL; };
+
+  // velocity plane kz (-1 .. nz, ghost rows from the edge stacks) on the
+  // tile + halo 2, x and y wrapped
+  auto load = [&](int kz) {
+    for (int c = 0; c < 3; ++c) {
+      const T* row = zrow(fld[c], edg[c], kz, nz, plane);
+      T* dst = vel(kz, c);
+      for (int e = tid; e < DS_VPL; e += DS_NT) {
+        const int ly = e / DS_VX, lx = e - ly * DS_VX;
+        const int y = wrap(y0 - 2 + ly, ny), x = wrap(x0 - 2 + lx, nx);
+        dst[e] = __ldg(row + static_cast<int64_t>(y) * nx + x);
+      }
+    }
+  };
+
+  // stage A and the filtered velocity at plane t on the tile + halo 1
+  auto stage_a = [&](int t) {
+    const T dzci_c = dzci[t + 1], dzci_m = dzci[t], dzfi_c = dzfi[t + 1];
+    // the wall-parallel velocity's extrapolated ghost planes for its filter
+    const bool ext_lo = wall_lo && t == 0, ext_hi = wall_hi && t == nz - 1;
+    for (int e = tid; e < DS_APL; e += DS_NT) {
+      const int ay = e / DS_AX, ax = e - ay * DS_AX;
+      const int vo = (ay + 1) * DS_VX + ax + 1;
+      auto U = [&](int dk, int dj, int di) {
+        return vel(t + dk, 0)[vo + dj * DS_VX + di];
+      };
+      auto V = [&](int dk, int dj, int di) {
+        return vel(t + dk, 1)[vo + dj * DS_VX + di];
+      };
+      auto W = [&](int dk, int dj, int di) {
+        return vel(t + dk, 2)[vo + dj * DS_VX + di];
+      };
+      T sij[6];
+      const T s0 = strain_rate<T>(U, V, W, dxi, dyi, dzci_c, dzci_m, dzfi_c,
+                                  sij);
+      const T uc = half * (U(0, 0, 0) + U(0, 0, -1));
+      const T vc = half * (V(0, 0, 0) + V(0, -1, 0));
+      const T wc = half * (W(0, 0, 0) + W(-1, 0, 0));
+      const T a[DS_NA] = {s0 * sij[0], s0 * sij[1], s0 * sij[2],
+                          s0 * sij[3], s0 * sij[4], s0 * sij[5],
+                          uc,          vc,          wc,
+                          uc * uc,     vc * vc,     wc * wc,
+                          uc * vc,     uc * wc,     vc * wc,
+                          s0};
+#pragma unroll
+      for (int q = 0; q < DS_NA; ++q) src(t, q)[e] = a[q];
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const T* pm = vel(t - 1, c);
+        const T* pc = vel(t, c);
+        const T* pp = vel(t + 1, c);
+        const bool lo = c < 2 && ext_lo, hi = c < 2 && ext_hi;
+        fvel(t, c)[e] = filter27<T>([&](int dk, int dj, int di) -> T {
+          const int o = vo + dj * DS_VX + di;
+          if (dk < 0) return lo ? two * pc[o] - pp[o] : pm[o];
+          if (dk > 0) return hi ? two * pc[o] - pm[o] : pp[o];
+          return pc[o];
+        });
+      }
+    }
+  };
+
+  // stage C at the centre of plane kc; every thread calls it (block sums)
+  const int cy = tid / DS_TX, cx = tid - cy * DS_TX;
+  const int ao = (cy + 1) * DS_AX + cx + 1;
+  const bool inside = y0 + cy < ny && x0 + cx < nx;
+  auto stage_c = [&](int kc) {
+    // A quantity q at row kz in kc-1 .. kc+1, ghosts extrapolated at walls
+    auto a_at = [&](int q, int kz, int o) -> T {
+      if (kz < 0) {
+        const T a0 = src(0, q)[o];
+        return wall_lo ? two * a0 - src(1, q)[o] : a0;
+      }
+      if (kz >= nz) {
+        const T a0 = src(nz - 1, q)[o];
+        return wall_hi ? two * a0 - src(nz - 2, q)[o] : a0;
+      }
+      return src(kz, q)[o];
+    };
+    T fq[15];
+#pragma unroll 1
+    for (int q = 0; q < 15; ++q)
+      fq[q] = filter27<T>([&](int dk, int dj, int di) {
+        return a_at(q, kc + dk, ao + dj * DS_AX + di);
+      });
+    // the filtered velocity with its BC fill (bounduvw, static planes)
+    auto FU = [&](int c, int dk, int dj, int di) -> T {
+      const int kz = kc + dk, o = ao + dj * DS_AX + di;
+      if (c == 2) return (kz < 0 || kz == nz - 1) ? T(0) : fvel(kz, 2)[o];
+      if (kz < 0) return szlo * fvel(0, c)[o] + zofflo[c];
+      if (kz >= nz) return szhi * fvel(nz - 1, c)[o] + zoffhi[c];
+      return fvel(kz, c)[o];
+    };
+    T sf[6];
+    const T s0f = strain_rate<T>(
+        [&](int dk, int dj, int di) { return FU(0, dk, dj, di); },
+        [&](int dk, int dj, int di) { return FU(1, dk, dj, di); },
+        [&](int dk, int dj, int di) { return FU(2, dk, dj, di); }, dxi, dyi,
+        dzci[kc + 1], dzci[kc], dzfi[kc + 1], sf);
+    const T a2 = alph2[kc];
+    T m[6], l[6];
+    const int pa[6] = {6, 7, 8, 6, 6, 7}, pb[6] = {6, 7, 8, 7, 8, 8};
+#pragma unroll
+    for (int q = 0; q < 6; ++q) {
+      m[q] = two * (fq[q] - a2 * s0f * sf[q]);
+      l[q] = fq[9 + q] - fq[pa[q]] * fq[pb[q]];
+    }
+    T num = m[0] * l[0] + m[1] * l[1] + m[2] * l[2] +
+            two * (m[3] * l[3] + m[4] * l[4] + m[5] * l[5]);
+    T den = m[0] * m[0] + m[1] * m[1] + m[2] * m[2] +
+            two * (m[3] * m[3] + m[4] * m[4] + m[5] * m[5]);
+    if (inside) {
+      s0o[kc * plane + static_cast<int64_t>(y0 + cy) * nx + x0 + cx] =
+          src(kc, 15)[ao];
+    } else {
+      num = T(0);
+      den = T(0);
+    }
+    const T ns = block_sum(num);
+    const T ds = block_sum(den);
+    if (tid == 0) {
+      numo[static_cast<int64_t>(kc) * gridDim.x + blockIdx.x] = ns;
+      deno[static_cast<int64_t>(kc) * gridDim.x + blockIdx.x] = ds;
+    }
+  };
+
+  load(-1);
+  load(0);
+  for (int t = 0; t <= nz; ++t) {
+    __syncthreads();            // the previous step's readers are done
+    if (t + 1 <= nz) load(t + 1);
+    __syncthreads();
+    if (t < nz) stage_a(t);
+    __syncthreads();
+    if (t >= 1) stage_c(t - 1);
+  }
+}
+
+template <typename T>
+int launch_dsmag(const T* u, const T* v, const T* w, const T* ue,
+                 const T* ve, const T* we, const T* alph2, const T* dzci,
+                 const T* dzfi, T* s0o, T* numo, T* deno, int nz, int ny,
+                 int nx, int wall_lo, int wall_hi, double dxi, double dyi,
+                 double zlo_u, double zhi_u, double zlo_v, double zhi_v,
+                 void* stream) {
+  if (nz < 2) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = dsmag_smem_bytes<T>();
+  cudaError_t err = cudaFuncSetAttribute(
+      dsmag_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int nblk = ((ny + DS_TY - 1) / DS_TY) * ((nx + DS_TX - 1) / DS_TX);
+  // the filtered-velocity fill's 'D' offsets 2b, on wall faces only
+  const T olu = wall_lo ? T(2 * zlo_u) : T(0);
+  const T olv = wall_lo ? T(2 * zlo_v) : T(0);
+  const T ohu = wall_hi ? T(2 * zhi_u) : T(0);
+  const T ohv = wall_hi ? T(2 * zhi_v) : T(0);
+  dsmag_kernel<T><<<nblk, DS_NT, smem, static_cast<cudaStream_t>(stream)>>>(
+      u, v, w, ue, ve, we, alph2, dzci, dzfi, s0o, numo, deno, nz, ny, nx,
+      wall_lo, wall_hi, T(dxi), T(dyi), olu, ohu, olv, ohv);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace cales
+
+#define CALES_DSMAG_ENTRY(NAME, T)                                            \
+  extern "C" int NAME(const T* u, const T* v, const T* w, const T* ue,        \
+                      const T* ve, const T* we, const T* alph2,               \
+                      const T* dzci, const T* dzfi, T* s0o, T* numo,          \
+                      T* deno, int nz, int ny, int nx, int wall_lo,           \
+                      int wall_hi, double dxi, double dyi, double zlo_u,      \
+                      double zhi_u, double zlo_v, double zhi_v,               \
+                      void* stream) {                                         \
+    return cales::launch_dsmag<T>(u, v, w, ue, ve, we, alph2, dzci, dzfi,     \
+                                  s0o, numo, deno, nz, ny, nx, wall_lo,       \
+                                  wall_hi, dxi, dyi, zlo_u, zhi_u, zlo_v,     \
+                                  zhi_v, stream);                             \
+  }
+
+CALES_DSMAG_ENTRY(cales_dsmag_f32, float)
+CALES_DSMAG_ENTRY(cales_dsmag_f64, double)

@@ -6,7 +6,8 @@ Config validation -> grid -> solver setup -> initial condition or restart
 stability and divergence checks with hard aborts (main.f90:523-544),
 scalar logs (time.out, forcing.out), channel statistics, plane/volume
 outputs, checkpoint rotation and per-step wall time (main.f90:613-618).
-Output formats are the JAX package's (cales_tpu.io), fed numpy arrays.
+Output formats are the JAX package's (the copies in cales_torch/io), fed
+numpy arrays.
 """
 from __future__ import annotations
 
@@ -18,11 +19,11 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from cales_tpu.config import Config, validate
-from cales_tpu.grid import make_grid_from_config
-from cales_tpu.initflow import initflow
-from cales_tpu.io import checkpoint as ckpt
-from cales_tpu.io import output as out
+from .config import Config, validate
+from .grid import make_grid_from_config
+from .initflow import initflow
+from .io import checkpoint as ckpt
+from .io import output as out
 
 from .ops.stencil import bulk_mean
 from .timeloop import Simulation
@@ -75,7 +76,7 @@ def run(cfg: Config, datadir='data', device='cuda', verbose=True,
     hooks = hooks or {}
     averager = None
     if cfg.stats_avg:
-        from cales_tpu.io.averaging import RunningMean
+        from .io.averaging import RunningMean
         averager = RunningMean()
 
     # advance between host-side events in one multi_step call: chunk = gcd
@@ -151,7 +152,7 @@ def run(cfg: Config, datadir='data', device='cuda', verbose=True,
             else:
                 # the reference's out1d.h90 channel statistics; the padded
                 # fields come from the solver, so io.stats never needs jax
-                from cales_tpu.io import stats as st_io
+                from .io import stats as st_io
                 padded = sim.padded_state(state)
                 u_, v_, w_, p_, s_ = (_np(a) for a in (state.u, state.v,
                                                        state.w, state.p,
@@ -163,7 +164,7 @@ def run(cfg: Config, datadir='data', device='cuda', verbose=True,
                     datadir / f'stats_{istep:07d}', cfg, grid, u_, v_, w_,
                     p_, padded=padded)
                 if averager is not None:
-                    from cales_tpu.io import averaging as avg_io
+                    from .io import averaging as avg_io
                     averager.add('sp', sp)
                     averager.add('budget', bu)
                     averager.tick()

@@ -43,6 +43,8 @@ _SIGNATURES = {
     'cales_apply_y': [_P] * 5 + [_I] * 3 + [_P],
     'cales_z_eig': [_P] * 7 + [_I] * 3 + [_D] + [_P],
     'cales_thomas_z': [_P] * 11 + [_I] * 5 + [_D, _I, _D] + [_P],
+    'cales_smag': [_P] * 14 + [_I] * 4 + [_D] * 3 + [_P],
+    'cales_dsmag': [_P] * 12 + [_I] * 5 + [_D] * 6 + [_P],
 }
 
 

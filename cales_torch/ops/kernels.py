@@ -8,6 +8,9 @@ a launch counter.
                                         fused_correc_updatep_smag
   correc_updatep  csrc/correc.cu        ops/pallas_kernels.py
                                         fused_correc_updatep
+  smag            csrc/smag.cu          ops/pallas_kernels.py fused_smag
+  dsmag           csrc/dsmag.cu         ops/pallas_dsmag.py
+                                        fused_dsmag_onepass ('channel')
 
 Input contract (the JAX kernels'): interior (nz, ny, nx) fields plus
 (3, ny, nx) z-edge stacks [padded row 0, padded row nz, padded row nz+1];
@@ -26,7 +29,8 @@ import torch
 
 from . import stencil as st
 
-LAUNCHES = {'mom_rk': 0, 'fillps': 0, 'correc_smag': 0, 'correc_updatep': 0}
+LAUNCHES = {'mom_rk': 0, 'fillps': 0, 'correc_smag': 0, 'correc_updatep': 0,
+            'smag': 0, 'dsmag': 0}
 
 # z-ghost recipe letters understood by the correction kernel
 _LETTER_CODE = {'D': 0, 'N': 1}
@@ -130,17 +134,98 @@ def correc_smag_plain(u, v, w, pp, p, ue, ve, we, ppe, dtrk, dxi, dyi,
     wcw = wrap_xy(wc)
     wg = torch.cat([vlo[2][None], wcw, wcw[-1:]])   # top row never read
     s0 = st.strain_rate(ug, vg, wg, dzci, dzfi, dxi, dyi)
-    c3 = csd2[:, None, None]
-    if have_zwalls:
-        tauw = torch.where(nearlo[:, None, None] > 0.5, tauw_lo[None],
-                           tauw_hi[None])
-        tauw_s = 0.5 * visc * tauw
-        dw_plus = dw[:, None, None] * torch.sqrt(tauw_s) / visc
-        fd = 1.0 - torch.exp(-dw_plus / 25.0)
-        visct = c3 * fd * fd * s0
-    else:
-        visct = c3 * s0
+    visct = _van_driest(s0, visc, csd2, dw, nearlo, tauw_lo, tauw_hi,
+                        have_zwalls)
     return uc, vc, wc, pn, visct
+
+
+def _van_driest(s0, visc, csd2, dw, nearlo, tauw_lo, tauw_hi, have_zwalls):
+    """nu_t = (Cs Delta)^2 fd^2 |S| with the nearer z wall's van Driest
+    damping fd (sgs.f90:104-152); fd = 1 without z walls."""
+    c3 = csd2[:, None, None]
+    if not have_zwalls:
+        return c3 * s0
+    tauw = torch.where(nearlo[:, None, None] > 0.5, tauw_lo[None],
+                       tauw_hi[None])
+    tauw_s = 0.5 * visc * tauw
+    dw_plus = dw[:, None, None] * torch.sqrt(tauw_s) / visc
+    fd = 1.0 - torch.exp(-dw_plus / 25.0)
+    return c3 * fd * fd * s0
+
+
+def smag_plain(u, v, w, ue, ve, we, dzci, dzfi, dxi, dyi, visc, csd2, dw,
+               nearlo, tauw_lo, tauw_hi, have_zwalls=True):
+    s0 = st.strain_rate(padded(u, ue), padded(v, ve), padded(w, we), dzci,
+                        dzfi, dxi, dyi)
+    return _van_driest(s0, visc, csd2, dw, nearlo, tauw_lo, tauw_hi,
+                       have_zwalls)
+
+
+def _zext(q, wall_lo, wall_hi):
+    """z ghost planes of a cell-centred quantity by the dynamic model's
+    recipe: linear extrapolation at a wall (extrapolate, fac_cbc = 1),
+    the first interior plane elsewhere (a homogeneous-Neumann fill)."""
+    lo = 2.0 * q[0] - q[1] if wall_lo else q[0]
+    hi = 2.0 * q[-1] - q[-2] if wall_hi else q[-1]
+    return torch.cat([lo[None], q, hi[None]])
+
+
+def dsmag_plain(u, v, w, ue, ve, we, alph2, dzci, dzfi, dxi, dyi, wall_lo,
+                wall_hi, zvals=(0.0, 0.0, 0.0, 0.0)):
+    """The Germano-Lilly model of sgs.dsmag_visct on interiors + the
+    post-correction fill's edge stacks, with every ghost recipe written out
+    for the class pallas_dsmag.eligible admits: the filtered products and
+    the wall-parallel velocity extrapolate linearly at a wall; the filtered
+    velocity's fill is -+1 times the first plane plus 2b (zvals = (u_lo,
+    u_hi, v_lo, v_hi), the 'D' values b), and w is 0 on both z faces (its
+    lower face and the padded-row-nz rewrite).  Returns (s0, num, den):
+    |S| and the per-z-row sums of num = M_ij L_ij and den = M_ij M_ij
+    (off-diagonal pairs twice) as (nz, 1) tensors."""
+    up, vp, wp = padded(u, ue), padded(v, ve), padded(w, we)
+    s0, sij = st.strain_rate(up, vp, wp, dzci, dzfi, dxi, dyi, with_sij=True)
+
+    def filt(q):
+        return st.filter3d(wrap_xy(_zext(q, wall_lo, wall_hi)))
+    fm = [filt(s0 * q) for q in sij]
+
+    # filtered velocity: u, v extrapolated at the walls, w's own fill
+    def vel_ext(qp):
+        q = qp[1:-1]
+        lo = 2.0 * q[0] - q[1] if wall_lo else qp[0]
+        hi = 2.0 * q[-1] - q[-2] if wall_hi else qp[-1]
+        return torch.cat([lo[None], q, hi[None]])
+    ufi = st.filter3d(vel_ext(up))
+    vfi = st.filter3d(vel_ext(vp))
+    wfi = st.filter3d(wp)
+    szlo = -1.0 if wall_lo else 1.0
+    szhi = -1.0 if wall_hi else 1.0
+    offlo = (2.0 * zvals[0] if wall_lo else 0.0,
+             2.0 * zvals[2] if wall_lo else 0.0)
+    offhi = (2.0 * zvals[1] if wall_hi else 0.0,
+             2.0 * zvals[3] if wall_hi else 0.0)
+    ufp, vfp = (wrap_xy(torch.cat([(szlo * q[0] + offlo[c])[None], q,
+                                   (szhi * q[-1] + offhi[c])[None]]))
+                for c, q in enumerate((ufi, vfi)))
+    zero = torch.zeros_like(wfi[:1])
+    # rows [lower face, w_0 .. w_(nz-2), top-face rewrite, never read]
+    wfp = wrap_xy(torch.cat([zero, wfi[:-1], zero, zero]))
+    s0f, sijf = st.strain_rate(ufp, vfp, wfp, dzci, dzfi, dxi, dyi,
+                               with_sij=True)
+    a2 = alph2[:, None, None]
+    mij = [2.0 * (m - a2 * s0f * sf) for m, sf in zip(fm, sijf)]
+
+    uc, vc, wc = st.interp_center(up, vp, wp)
+    pairs = [(uc, uc), (vc, vc), (wc, wc), (uc, vc), (uc, wc), (vc, wc)]
+    lij = [filt(a * b) for a, b in pairs]
+    ucf, vcf, wcf = filt(uc), filt(vc), filt(wc)
+    fpairs = [(ucf, ucf), (vcf, vcf), (wcf, wcf), (ucf, vcf), (ucf, wcf),
+              (vcf, wcf)]
+    lij = [q - a * b for q, (a, b) in zip(lij, fpairs)]
+    num = (mij[0] * lij[0] + mij[1] * lij[1] + mij[2] * lij[2]
+           + 2.0 * (mij[3] * lij[3] + mij[4] * lij[4] + mij[5] * lij[5]))
+    den = (mij[0] * mij[0] + mij[1] * mij[1] + mij[2] * mij[2]
+           + 2.0 * (mij[3] * mij[3] + mij[4] * mij[4] + mij[5] * mij[5]))
+    return (s0, num.sum(dim=(1, 2))[:, None], den.sum(dim=(1, 2))[:, None])
 
 
 def correc_updatep_plain(u, v, w, pp, p, we, ppe, dtrk, dxi, dyi, dzci,
@@ -351,3 +436,67 @@ def correc_updatep(u, v, w, pp, p, we, ppe, dtrk, dxi, dyi, dzci, dzfi,
             ctypes.c_int(int(bool(impdiff_1d))),
             d(dtrk), d(dxi), d(dyi), d(alpha))
     return tuple(outs)
+
+
+def smag(u, v, w, ue, ve, we, dzci, dzfi, dxi, dyi, visc, csd2, dw, nearlo,
+         tauw_lo, tauw_hi, have_zwalls=True):
+    """Static Smagorinsky nu_t with the nearer z wall's van Driest damping
+    (sgs.f90:69-152) from the post-correction fill (interiors + edge
+    stacks) in one pass.  csd2, dw, nearlo: (nz,) profiles (Cs Delta)^2,
+    nearest-wall distance, 1 where the lower wall is nearer; tauw_lo/hi:
+    (ny, nx) wall-shear planes."""
+    if _on_cpu(u):
+        return smag_plain(u, v, w, ue, ve, we, dzci, dzfi, dxi, dyi, visc,
+                          csd2, dw, nearlo, tauw_lo, tauw_hi,
+                          have_zwalls=have_zwalls)
+    nz, ny, nx = u.shape
+    _check('smag', u, (u, v, w), planes=(tauw_lo, tauw_hi),
+           edges=(ue, ve, we),
+           profiles=((dzci, nz + 2), (dzfi, nz + 2), (csd2, nz), (dw, nz),
+                     (nearlo, nz)))
+    out = torch.empty_like(u)
+    d = ctypes.c_double
+    _launch('smag', f'cales_smag_{_suffix(u)}',
+            *map(_ptr, (u, v, w, ue, ve, we, dzci, dzfi, csd2, dw, nearlo,
+                        tauw_lo, tauw_hi, out)),
+            ctypes.c_int(nz), ctypes.c_int(ny), ctypes.c_int(nx),
+            ctypes.c_int(int(bool(have_zwalls))), d(dxi), d(dyi), d(visc))
+    return out
+
+
+# (y, x) tile of one dsmag block (csrc/dsmag.cu DS_TY, DS_TX)
+DSMAG_TILE = (8, 32)
+
+
+def dsmag(u, v, w, ue, ve, we, alph2, dzci, dzfi, dxi, dyi, wall_lo, wall_hi,
+          zvals=(0.0, 0.0, 0.0, 0.0)):
+    """Dynamic Smagorinsky with channel averaging: the grid-level |S|, and
+    per-(z, block) partial sums of num = M_ij L_ij and den = M_ij M_ij
+    (the Germano-Lilly model, sgs.f90:153-370) in one z-march; no
+    intermediate field goes to device memory.  Inputs: the post-correction
+    fill (interiors + edge stacks), alph2 the (nz,) filter-ratio profile,
+    wall_lo/hi the z wall flags, zvals the filtered-velocity fill's
+    wall-parallel 'D' values (see dsmag_plain).  Returns (s0, num, den);
+    num and den are (nz, nblk), summed over dim 1 by the caller.  The
+    twin returns the row sums as (nz, 1)."""
+    if _on_cpu(u):
+        return dsmag_plain(u, v, w, ue, ve, we, alph2, dzci, dzfi, dxi, dyi,
+                           wall_lo, wall_hi, zvals)
+    nz, ny, nx = u.shape
+    if nz < 2:
+        raise ValueError(f'dsmag: nz = {nz} (at least 2)')
+    _check('dsmag', u, (u, v, w), edges=(ue, ve, we),
+           profiles=((alph2, nz), (dzci, nz + 2), (dzfi, nz + 2)))
+    ty, tx = DSMAG_TILE
+    nblk = -(-ny // ty) * -(-nx // tx)
+    s0 = torch.empty_like(u)
+    num = u.new_empty((nz, nblk))
+    den = u.new_empty((nz, nblk))
+    d = ctypes.c_double
+    _launch('dsmag', f'cales_dsmag_{_suffix(u)}',
+            *map(_ptr, (u, v, w, ue, ve, we, alph2, dzci, dzfi, s0, num,
+                        den)),
+            ctypes.c_int(nz), ctypes.c_int(ny), ctypes.c_int(nx),
+            ctypes.c_int(int(bool(wall_lo))), ctypes.c_int(int(bool(wall_hi))),
+            d(dxi), d(dyi), *(d(float(q)) for q in zvals))
+    return s0, num, den

@@ -10,6 +10,7 @@ order so the two packages agree to round-off:
   * divergence    <- chkdiv       (chkdiv.f90:16-52)
   * cfl_dt        <- chkdt        (chkdt.f90:17-99)
   * strain_rate   <- strain_rate  (sgs.f90:1019-1110)
+  * filter3d, filter2d, interp_center (sgs.f90:616-680, 824-870)
   * bulk_mean     <- bulk_mean    (utils.f90:16-47)
 
 The CUDA kernels in cales_torch/csrc transcribe momentum_rhs_core and
@@ -334,9 +335,10 @@ def cfl_dt(up, vp, wp, sp, visc, dl, dzci, dzfi, impdiff, impdiff_1d, eps):
     return torch.minimum(0.4125 / dtid, 1.732 / dti)
 
 
-def strain_rate(up, vp, wp, dzci, dzfi, dxi, dyi):
+def strain_rate(up, vp, wp, dzci, dzfi, dxi, dyi, with_sij=False):
     """Cell-centered |S| = sqrt(2 S_ij S_ij) (sgs.f90:1019-1110): diagonal
-    terms exact at centers, off-diagonals edge-averaged (.125)."""
+    terms exact at centers, off-diagonals edge-averaged (.125).  with_sij:
+    returns (|S|, (S11, S22, S33, S12, S13, S23))."""
     nz = up.shape[0] - 2
     metrics = {
         'dzci_c': _zb(dzci, 1, nz + 1, up),
@@ -347,10 +349,11 @@ def strain_rate(up, vp, wp, dzci, dzfi, dxi, dyi):
     def V(P, k=0, j=0, i=0):
         return _sh(P, k, j, i)
 
-    return strain_rate_core(V, metrics.__getitem__, up, vp, wp, dxi, dyi)
+    return strain_rate_core(V, metrics.__getitem__, up, vp, wp, dxi, dyi,
+                            with_sij=with_sij)
 
 
-def strain_rate_core(V, M, up, vp, wp, dxi, dyi):
+def strain_rate_core(V, M, up, vp, wp, dxi, dyi, with_sij=False):
     """strain_rate discretization against the (V, M) accessor interface."""
     dzci_c = M('dzci_c')
     dzci_m = M('dzci_m')
@@ -374,8 +377,36 @@ def strain_rate_core(V, M, up, vp, wp, dxi, dyi):
                    + (V(vp, k=1, j=-1) - V(vp, j=-1)) * dzci_c + (V(wp) - V(wp, j=-1)) * dyi
                    + (V(vp, j=-1) - V(vp, k=-1, j=-1)) * dzci_m
                    + (V(wp, k=-1) - V(wp, k=-1, j=-1)) * dyi)
-    return torch.sqrt(2.0 * (s11 ** 2 + s22 ** 2 + s33 ** 2
-                             + 2.0 * (s12 ** 2 + s13 ** 2 + s23 ** 2)))
+    s0 = torch.sqrt(2.0 * (s11 ** 2 + s22 ** 2 + s33 ** 2
+                           + 2.0 * (s12 ** 2 + s13 ** 2 + s23 ** 2)))
+    if with_sij:
+        return s0, (s11, s22, s33, s12, s13, s23)
+    return s0
+
+
+def filter3d(ppad):
+    """27-point top-hat test filter of a padded field = separable (1,2,1)/4
+    passes along each axis (sgs.f90:616-680; the (8,4,2,1)/64 weights
+    factor exactly); returns the interior."""
+    q = 0.25 * (ppad[:, :, :-2] + 2.0 * ppad[:, :, 1:-1] + ppad[:, :, 2:])
+    q = 0.25 * (q[:, :-2, :] + 2.0 * q[:, 1:-1, :] + q[:, 2:, :])
+    q = 0.25 * (q[:-2, :, :] + 2.0 * q[1:-1, :, :] + q[2:, :, :])
+    return q
+
+
+def filter2d(ppad):
+    """9-point wall-parallel (x, y) top-hat filter (sgs.f90:824-848)."""
+    q = 0.25 * (ppad[:, :, :-2] + 2.0 * ppad[:, :, 1:-1] + ppad[:, :, 2:])
+    q = 0.25 * (q[:, :-2, :] + 2.0 * q[:, 1:-1, :] + q[:, 2:, :])
+    return q[1:-1]
+
+
+def interp_center(up, vp, wp):
+    """Velocity interpolated to cell centers (sgs.f90:850-870)."""
+    uc = 0.5 * (_sh(up, 0, 0, 0) + _sh(up, 0, 0, -1))
+    vc = 0.5 * (_sh(vp, 0, 0, 0) + _sh(vp, 0, -1, 0))
+    wc = 0.5 * (_sh(wp, 0, 0, 0) + _sh(wp, -1, 0, 0))
+    return uc, vc, wc
 
 
 def bulk_mean(f, grid_vol_ratio):

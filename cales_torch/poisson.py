@@ -31,8 +31,8 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from cales_tpu.config import Config
-from cales_tpu.grid import Grid
+from .config import Config
+from .grid import Grid
 
 from .ops import solve_kernels as sk
 from .ops import transforms as tr
@@ -194,6 +194,20 @@ def _check_in_slice(sv: DirectSolver, alpha):
             'kernel: ROADMAP queue 2, apply_thomas_periodic_z')
 
 
+def _eig_tol(sv: DirectSolver, lamx_np) -> float:
+    """Below this |lamz + lamy + lamx| the eigen z stage takes a mode for
+    the singular one and zeroes it.  The eigenvalues come from the float64
+    setup, so the bound is float64's rounding of the spectrum's scale,
+    whatever the working precision.  (The JAX package scales it by the
+    working precision's eps, poisson.py:387-389: in float32 on a strongly
+    stretched z grid, where the largest lamz is ~1e7, that bound reaches
+    ~5 and zeroes dozens of the largest-scale pressure modes, and the
+    corrected field keeps a divergence of ~1e-2.)"""
+    scale = float(np.abs(sv.lamz).max() + np.abs(lamx_np).max()
+                  + np.abs(sv.lamy).max())
+    return float(np.finfo(np.float64).eps * scale * 4.0)
+
+
 def _eig_ops(sv: DirectSolver, rdt: torch.dtype, device: torch.device):
     """(Vl, Vr, inv) on the device in the real dtype rdt: inv = 1/lam over
     the (nz, ny, nx//2+1) spectral grid, zero for the singular mode."""
@@ -207,9 +221,7 @@ def _eig_ops(sv: DirectSolver, rdt: torch.dtype, device: torch.device):
         lam3 = lamz[:, None, None] + lamxy[None, :, :]
         # project out the (exactly) singular constant mode instead of the
         # reference's eps-regularized pivot (solver.f90:165-169)
-        scale = float(np.abs(sv.lamz).max() + np.abs(lamx_np).max()
-                      + np.abs(lamy_np).max())
-        tol = torch.finfo(rdt).eps * scale * 4.0
+        tol = _eig_tol(sv, lamx_np)
         inv = torch.where(lam3.abs() > tol, 1.0 / lam3,
                           torch.zeros_like(lam3))
         return (torch.as_tensor(sv.zVl, dtype=rdt, device=device),
@@ -286,10 +298,8 @@ def _solve_mat(sv: DirectSolver, p):
         Vl, Vr, lamz, lamy, lamx = _dev(sv, 'eig_mat', dt, dev, lambda: tuple(
             _t(q, dt, dev) for q in (sv.zVl, sv.zVr, sv.lamz, sv.lamy,
                                      sv.lamx)))
-        scale = float(np.abs(sv.lamz).max() + np.abs(sv.lamx).max()
-                      + np.abs(sv.lamy).max())
-        tol = float(torch.finfo(dt).eps * scale * 4.0)
-        body = sk.z_eig(body, Vl, Vr, lamz, lamy, lamx, tol)
+        body = sk.z_eig(body, Vl, Vr, lamz, lamy, lamx,
+                        _eig_tol(sv, sv.lamx))
     return sk.apply_y(body, by, MxT=bxT)
 
 

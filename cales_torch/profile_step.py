@@ -1,16 +1,20 @@
 """Where the time of one RK3 step goes on the card.
 
-    python -m cales_torch.profile_step [--case les|les-mat|dns]
-                                       [--ng 512x256x256] [--steps 3]
+    python -m cales_torch.profile_step
+        [--case les|les-mat|les-imp|dns|dsmag] [--ng 512x256x256] [--steps 3]
 
-Steps one of bench.py's channel configurations under torch.profiler and
-prints the device time per kernel and per stage: the CUDA kernels, the
-Poisson solve, and the torch glue (edge stacks, wall-shear planes,
-forcing).  Cases: 'les' the channel-LES headline with ptransform='fft'
-(cuFFT and z eigen-matmuls); 'les-mat' the same with bench.py's own
-ptransform='mat' (apply_y + z_eig); 'dns' the implicit-CN channel DNS
-(channel_dns_impdiff: apply_y + z_eig, thomas_z CN solves).  The device's
-idle share is 1 - (device busy time / wall time of the profiled window).
+Steps one of the channel configurations under torch.profiler and prints
+the device time per kernel and per stage: the CUDA kernels, the Poisson
+solve, and the torch glue (edge stacks, wall-shear planes, forcing).
+Cases: 'les' bench.py's channel-LES headline with ptransform='fft' (cuFFT
+and z eigen-matmuls); 'les-mat' the same with bench.py's own
+ptransform='mat' (apply_y + z_eig); 'les-imp' the same with z-implicit
+diffusion (impdiff_1d: thomas_z CN solves, nu_t from the smag kernel);
+'dns' the implicit-CN channel DNS (channel_dns_impdiff: apply_y + z_eig,
+thomas_z CN solves); 'dsmag' the dynamic-Smagorinsky channel of
+validation/dsmag_channel.py (impdiff_1d, 'mat', the dsmag kernel).  The
+device's idle share is 1 - (device busy time / wall time of the profiled
+window).
 Needs a CUDA device.
 """
 from __future__ import annotations
@@ -31,6 +35,8 @@ STAGES = (
     ('solve: apply_y', ('cales::gemm_kernel',)),
     ('solve: z_eig', ('z_eig_kernel',)),
     ('thomas_z', ('thomas_z_kernel',)),
+    ('smag', ('cales::smag_kernel',)),
+    ('dsmag', ('dsmag_kernel',)),
     ('solve: fft', ('fft', 'FFT', 'regular_fft', 'vector_fft', 'radix')),
     ('solve: z matmul', ('gemm', 'Gemm', 'sm90_', 'cutlass', 'ampere_sgemm',
                          'sgemm')),
@@ -39,12 +45,18 @@ CHAN_BCS = dict(
     cbcvel=((('P', 'P', 'P'), ('P', 'P', 'P'), ('D', 'D', 'D')),) * 2,
     cbcpre=(('P', 'P', 'N'), ('P', 'P', 'N')),
     cbcsgs=(('P', 'P', 'D'), ('P', 'P', 'D')))
-# bench.py _matrix_configs: the channel-LES headline and channel_dns_impdiff
+# bench.py _matrix_configs: the channel-LES headline and channel_dns_impdiff;
+# validation/dsmag_channel.py:77-89 for the dynamic model
 CASES = {
     'les': dict(visci=20_000.0, sgstype='smag', ptransform='fft'),
     'les-mat': dict(visci=20_000.0, sgstype='smag', ptransform='mat'),
+    'les-imp': dict(visci=20_000.0, sgstype='smag', ptransform='mat',
+                    impdiff=True, impdiff_1d=True, **CHAN_BCS),
     'dns': dict(visci=5640.0, sgstype='none', impdiff=True, impdiff_1d=True,
                 ptransform='mat', **CHAN_BCS),
+    'dsmag': dict(l=(12.8, 4.8, 2.0), gr=5.0, visci=10_000.0, inivel='poi',
+                  sgstype='dsmag', dsmag_avg='channel', ptransform='mat',
+                  impdiff=True, impdiff_1d=True, **CHAN_BCS),
 }
 
 
@@ -66,19 +78,20 @@ def main(argv=None):
         return 2
     from torch.profiler import ProfilerActivity, profile
 
-    from cales_tpu.config import Config
-    from cales_tpu.grid import make_grid_from_config
-    from cales_tpu.initflow import initflow
+    from .config import Config
+    from .grid import make_grid_from_config
+    from .initflow import initflow
     from .timeloop import Simulation
 
     card = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                            '--format=csv,noheader'], capture_output=True,
                           text=True, check=True).stdout.strip()
     ng = tuple(int(x) for x in args.ng.lower().split('x'))
-    cfg = Config(ng=ng, l=(2 * np.pi, np.pi, 2.0), gtype=1, gr=1.0,
-                 inivel='log', is_wallturb=True,
-                 is_forced=(True, False, False), velf=(1.0, 0.0, 0.0),
-                 dtype='float32', **CASES[args.case])
+    base = dict(ng=ng, l=(2 * np.pi, np.pi, 2.0), gtype=1, gr=1.0,
+                inivel='log', is_wallturb=True,
+                is_forced=(True, False, False), velf=(1.0, 0.0, 0.0),
+                dtype='float32')
+    cfg = Config(**{**base, **CASES[args.case]})
     grid = make_grid_from_config(cfg)
     sim = Simulation(cfg, grid, device='cuda')
     state = sim.initial_state(*initflow(cfg, grid))

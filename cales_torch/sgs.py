@@ -1,20 +1,23 @@
-"""SGS eddy viscosity, static Smagorinsky with van Driest damping.
+"""SGS eddy viscosity: static Smagorinsky with van Driest damping, and
+dynamic Smagorinsky (Germano-Lilly) with channel averaging.
 
-Counterpart of the smag branch of cales_tpu/sgs.py (reference
-sgs.f90:69-152, extrapolate 682-767).  ``SGSSetup`` is the JAX package's
-numpy setup (filter width, wall-distance profiles, wall flags), copied
-because that module imports jax.  ``smag_visct`` on padded fields serves
-the initial fill; each substep's nu_t comes out of the fused
-correction kernel (ops/kernels.correc_smag).
+Counterpart of cales_tpu/sgs.py (reference sgs.f90:69-380, extrapolate
+682-767, cmpt_alph2 769-822).  ``SGSSetup`` is the JAX package's numpy
+setup (filter width, wall-distance profiles, wall flags), copied because
+that module imports jax.  ``smag_visct`` and ``dsmag_visct`` on padded
+fields serve the initial fill; each substep's nu_t comes out of a kernel
+(ops/kernels.correc_smag, smag or dsmag), and ``dsmag_visct`` is the model
+the dsmag kernel's plain twin is held to.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from cales_tpu.config import Config, C_SMAG
-from cales_tpu.grid import Grid
+from .config import Config, C_SMAG
+from .grid import Grid
 
+from .ops import boundary as bnd
 from .ops import stencil as st
 
 
@@ -89,6 +92,16 @@ class SGSSetup:
         self.is_wall6 = [self.wall_flags[(ib, idir)]
                          for idir in range(3) for ib in range(2)]
         self.any_wall = any(self.is_wall6)
+
+    def alph2_field(self, shape, dtype, device=None):
+        """alpha^2 filter-ratio field of the 3D test filter (sgs.f90:769-822):
+        4.0 inside, 2.52 on the first off-wall layer."""
+        a = torch.full(shape, 4.0, dtype=dtype, device=device)
+        for (ib, idir), axis in (((0, 0), 2), ((1, 0), 2), ((0, 1), 1),
+                                 ((1, 1), 1), ((0, 2), 0), ((1, 2), 0)):
+            if self.wall_flags[(ib, idir)]:
+                a.select(axis, 0 if ib == 0 else -1).fill_(2.52)
+        return a
 
 
 def _wall_tauw_planes(setup, up, vp, wp, dxi, dyi, dzci, visc):
@@ -178,3 +191,82 @@ def smag_visct(setup: SGSSetup, cfg, grid, up, vp, wp):
         dw_plus = dw_min * torch.sqrt(tauw_s) / visc
         fd = 1.0 - torch.exp(-dw_plus / 25.0)
     return (C_SMAG * delta * fd) ** 2 * s0
+
+
+def dsmag_unsupported(cfg):
+    """The dynamic-model variants this port does not run yet, each with the
+    ROADMAP item that brings it."""
+    out = []
+    if cfg.dsmag_avg in ('duct', 'cavity'):
+        out.append(f"dsmag_avg {cfg.dsmag_avg!r} needs the y-wall bundles: "
+                   'ROADMAP queue 1, duct/cavity classes')
+    if cfg.dsmag_avg == 'dit':
+        out.append("dsmag_avg 'dit' needs periodic z: ROADMAP queue 1, "
+                   'triperiodic')
+    if cfg.filter_2d:
+        out.append('the 2D test filter (filter_2d): ROADMAP queue 1, dsmag '
+                   'classes')
+    return out
+
+
+def dsmag_visct(setup: SGSSetup, cfg, grid, up, vp, wp, bcs_vals,
+                pad_vel_fn):
+    """Dynamic Smagorinsky (Germano-Lilly, sgs.f90:153-380) with 'channel'
+    averaging, on padded fields; the term order is cales_tpu/sgs.py's.
+
+    bcs_vals: the SGS scalar's BC values (boundp of the products);
+    pad_vel_fn(u, v, w) applies the filtered-velocity BC fill (bounduvw
+    with the static planes, sgs.f90:256-257).  Returns the interior
+    (nz, ny, nx) eddy viscosity, clipped at 0."""
+    missing = dsmag_unsupported(cfg)
+    if missing:
+        raise NotImplementedError('; '.join(missing))
+    dxi, dyi = cfg.dli[0], cfg.dli[1]
+    dzci, dzfi = grid.dzci, grid.dzfi
+    dl, dzc = cfg.dl[:2], grid.dzc
+    cbcs = tuple((cfg.cbcsgs[0][d], cfg.cbcsgs[1][d]) for d in range(3))
+    walls, fac = setup.wall_flags, setup.fac_cbc
+
+    def boundp(f):
+        return bnd.pad_scalar(f, cbcs, bcs_vals, dl, dzc)
+
+    def ext(q):
+        return extrapolate(q, 0, walls, fac)
+
+    # grid-level strain rate (the wall-model extrapolation is the identity
+    # without a wall model, which unsupported() refuses with dsmag)
+    s0, sij = st.strain_rate(up, vp, wp, dzci, dzfi, dxi, dyi, with_sij=True)
+
+    # filtered |S| Sij (sgs.f90:189-223)
+    s0p = boundp(s0)
+    mij = [st.filter3d(ext(s0p * boundp(q))) for q in sij]
+
+    # filtered velocity, its BC fill and the test-level strain
+    # (sgs.f90:225-272)
+    ufi = st.filter3d(extrapolate(up, 1, walls, fac))
+    vfi = st.filter3d(extrapolate(vp, 2, walls, fac))
+    wfi = st.filter3d(extrapolate(wp, 3, walls, fac))
+    ufp, vfp, wfp = pad_vel_fn(ufi, vfi, wfi)
+    s0f, sijf = st.strain_rate(ufp, vfp, wfp, dzci, dzfi, dxi, dyi,
+                               with_sij=True)
+    alph2 = setup.alph2_field(s0.shape, s0.dtype, s0.device)
+    mij = [2.0 * (m - alph2 * s0f * sf) for m, sf in zip(mij, sijf)]
+
+    # Leonard term Lij (sgs.f90:274-327)
+    uc, vc, wc = st.interp_center(up, vp, wp)
+    ucp, vcp, wcp = boundp(uc), boundp(vc), boundp(wc)
+    pairs = [(ucp, ucp), (vcp, vcp), (wcp, wcp), (ucp, vcp), (ucp, wcp),
+             (vcp, wcp)]
+    lij = [st.filter3d(ext(a * b)) for a, b in pairs]
+    ucf, vcf, wcf = (st.filter3d(ext(q)) for q in (ucp, vcp, wcp))
+    fpairs = [(ucf, ucf), (vcf, vcf), (wcf, wcf), (ucf, vcf), (ucf, wcf),
+              (vcf, wcf)]
+    lij = [q - a * b for q, (a, b) in zip(lij, fpairs)]
+
+    # contraction + the plane average of ave1d_channel (sgs.f90:328-370)
+    num = sum(m * q for m, q in zip(mij[:3], lij[:3])) \
+        + 2.0 * sum(m * q for m, q in zip(mij[3:], lij[3:]))
+    den = sum(m * m for m in mij[:3]) + 2.0 * sum(m * m for m in mij[3:])
+    num = torch.mean(num, dim=(1, 2), keepdim=True)
+    den = torch.mean(den, dim=(1, 2), keepdim=True)
+    return torch.clamp_min(s0 * num / den, 0.0)

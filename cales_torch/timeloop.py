@@ -2,9 +2,9 @@
 
 Counterpart of cales_tpu/timeloop.py on its single-device kernel path for
 the channel classes with periodic x/y and z walls (reference
-rk.f90:17-121, main.f90:417-507): the LES with static Smagorinsky, and
-the DNS (sgstype 'none') with explicit or z-implicit (impdiff_1d)
-diffusion.  One RK substep runs:
+rk.f90:17-121, main.f90:417-507): the LES with static or dynamic
+Smagorinsky, and the DNS (sgstype 'none'), each with explicit or
+z-implicit (impdiff_1d) diffusion.  One RK substep runs:
   1. kernels.mom_rk          momentum RHS + RK3 update (+ forcing partial
                              sums; with impdiff_1d the explicit/implicit
                              split and the Crank-Nicolson fold)
@@ -14,8 +14,13 @@ diffusion.  One RK substep runs:
   4. kernels.fillps          div(u)/dt_rk of the prediction
   5. poisson.solve           'fft': cuFFT x/y + z stage; 'mat': apply_y,
                              z_eig or thomas_z, apply_y
-  6. kernels.correc_smag     projection, p += pp and nu_t (smag), or
+  6. kernels.correc_smag     projection, p += pp and nu_t (smag, explicit
+                             diffusion), or
      kernels.correc_updatep  projection, p += pp (+ alpha Lz(pp))
+  7. the SGS stage on the post-correction fill, where 6 did not make nu_t:
+     kernels.smag (smag with impdiff_1d), or kernels.dsmag (dsmag: |S|
+     and per-block num/den sums, then nu_t = max(|S| num/den, 0) per z
+     row, the channel average)
 with the z-edge stacks (ops/boundary.zedge_*) as the glue.  On a CUDA device
 the kernels are the hand-written ones of cales_torch/csrc; on the CPU their
 plain PyTorch twins.
@@ -31,8 +36,8 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
-from cales_tpu.config import Config, RK_COEFF, C_SMAG, effective_cbcvel
-from cales_tpu.grid import Grid
+from .config import Config, RK_COEFF, C_SMAG, effective_cbcvel
+from .grid import Grid
 
 from . import device as devmod
 from . import poisson
@@ -64,13 +69,11 @@ def unsupported(cfg: Config) -> list[str]:
     if cfg.impdiff and not cfg.impdiff_1d:
         out.append('full-3D implicit diffusion (impdiff without impdiff_1d): '
                    'ROADMAP queue 1, full-3D implicit CN')
-    if cfg.impdiff and cfg.sgstype == 'smag':
-        out.append("implicit diffusion with sgstype 'smag' needs the "
-                   'fused_smag kernel: ROADMAP queue 2')
     if any(cfg.lwm[ib][d] != 0 for ib in range(2) for d in range(3)):
         out.append('wall model (lwm): ROADMAP queue 1, WMLES')
     if cfg.sgstype == 'dsmag':
-        out.append('dynamic Smagorinsky (dsmag): ROADMAP queue 1, dsmag classes')
+        out += sgsmod.dsmag_unsupported(cfg)
+        out += _dsmag_kernel_refuses(cfg, cbc)
     for d, name in ((0, 'x'), (1, 'y')):
         if not (all(cfg.cbc_vel(d, iv) == 'PP' for iv in range(3))
                 and cfg.cbc_pre(d) == 'PP'
@@ -90,6 +93,28 @@ def unsupported(cfg: Config) -> list[str]:
                for d in range(3)])
     if any(np.ndim(x) != 0 for x in vals):
         out.append('plane-valued BC values: ROADMAP queue 1, BC topologies')
+    return out
+
+
+def _dsmag_kernel_refuses(cfg: Config, cbc) -> list[str]:
+    """The limits of the dsmag kernel's ghost recipes, which are those of
+    cales_tpu's one-pass kernel (pallas_dsmag.eligible and
+    Simulation._dsmag_onepass_vals_ok): each z face a wall (Dirichlet w)
+    or a homogeneous-Neumann fill, and a zero w on the z faces."""
+    out = []
+    for ib in range(2):
+        if cbc[ib][2][2] != 'D':
+            ok = (cfg.cbcsgs[ib][2] == 'N' and float(cfg.bcsgs[ib][2]) == 0.0
+                  and all(cfg.cbcvel[ib][2][iv] == ('D' if iv == 2 else 'N')
+                          and float(cfg.bcvel[ib][2][iv]) == 0.0
+                          for iv in range(3)))
+            if not ok:
+                out.append('dsmag with a z face that is neither a wall nor '
+                           'a homogeneous-Neumann fill: ROADMAP queue 1, '
+                           'dsmag classes')
+        if np.ndim(cfg.bcvel[ib][2][2]) == 0 and float(cfg.bcvel[ib][2][2]):
+            out.append('dsmag with a non-zero w on a z face: ROADMAP '
+                       'queue 1, dsmag classes')
     return out
 
 
@@ -114,6 +139,12 @@ class Simulation:
             cfg, grid, tuple(cfg.cbc_pre(d) for d in range(3)),
             ('c', 'c', 'c'), zsolver=cfg.zsolver)
         self.has_sgs = cfg.sgstype != 'none'
+        # where nu_t comes from: the fused correction (smag, explicit
+        # diffusion; cales_tpu's _fuse_correc_smag), or a separate SGS
+        # kernel on the post-correction fill
+        self.fused_smag = cfg.sgstype == 'smag' and not cfg.impdiff
+        self.sgs_kernel = ({'smag': 'smag', 'dsmag': 'dsmag'}
+                           .get(cfg.sgstype) if not self.fused_smag else None)
         # impdiff_1d: the momentum kernel's split + CN fold (rd streams
         # elided, timeloop.py:295-306 of the JAX package)
         self.split = '1d' if cfg.impdiff else None
@@ -185,6 +216,13 @@ class Simulation:
         self.nearlo_t = t((dw_lo <= dw_hi).astype(np.float64))
         self.dw_t = t(np.minimum(dw_lo, dw_hi) if self.have_zwalls
                       else np.zeros(nz))
+        # dsmag: the filter-ratio profile alpha^2 (x and y are periodic, so
+        # it varies along z only) and the filtered-velocity fill's
+        # wall-parallel z values
+        self.alph2_t = setup.alph2_field((nz, 1, 1), self.dtype,
+                                         self.device).reshape(nz)
+        self.dsmag_zvals = (self.bcu_vals[2][0], self.bcu_vals[2][1],
+                            self.bcv_vals[2][0], self.bcv_vals[2][1])
         # deferred bulk forcing along the periodic x / y
         self.sum_flags = (bool(cfg.is_forced[0]), bool(cfg.is_forced[1]))
 
@@ -194,7 +232,9 @@ class Simulation:
         mat = self.solver_p.trx.kind == 'mat'
         thomas = poisson.uses_thomas(self.solver_p)
         names = ['mom_rk', 'fillps',
-                 'correc_smag' if self.has_sgs else 'correc_updatep']
+                 'correc_smag' if self.fused_smag else 'correc_updatep']
+        if self.sgs_kernel:
+            names.append(self.sgs_kernel)
         if mat:
             names.append('apply_y')
         if mat and not thomas:
@@ -218,7 +258,11 @@ class Simulation:
               else 'apply_y x/y operator matmuls')
         diff = ('z-implicit Crank-Nicolson (thomas_z per component)'
                 if self.cfg.impdiff else 'explicit')
-        sgs = 'smag fused in correc_smag' if self.has_sgs else 'none'
+        sgs = ('smag fused in correc_smag' if self.fused_smag
+               else 'smag kernel on the post-correction fill'
+               if self.sgs_kernel == 'smag'
+               else "dsmag kernel + channel average ('channel')"
+               if self.sgs_kernel == 'dsmag' else 'none')
         return (f'{where}; poisson: {xy} + {zstage} ({self.cfg.dtype}); '
                 f'diffusion: {diff}; sgs: {sgs}')
 
@@ -244,9 +288,18 @@ class Simulation:
         u, v, w = st0.u, st0.v, st0.w
         bcu, bcv, bcw = self._dynamic_bcs(u, v, w)
         up, vp, wp, vlo = self._pad_vel(u, v, w, bcu, bcv, bcw)
-        if self.has_sgs:
+        if self.cfg.sgstype == 'smag':
             visct = sgsmod.smag_visct(self.sgs_setup, self.cfg, self.grid,
                                       up, vp, wp).to(self.dtype)
+        elif self.cfg.sgstype == 'dsmag':
+            # the filtered velocity's fill: the static planes, not the
+            # corrector's (sgs.f90:256-257)
+            def pad_filtered(uf, vf, wf):
+                return self._pad_vel(uf, vf, wf, self.bcu_vals,
+                                     self.bcv_vals, self.bcw_vals)[:3]
+            visct = sgsmod.dsmag_visct(self.sgs_setup, self.cfg, self.grid,
+                                       up, vp, wp, self.bcs_vals,
+                                       pad_filtered).to(self.dtype)
         else:
             visct = torch.zeros_like(u)
         u_i, v_i, w_i = (up[1:-1, 1:-1, 1:-1], vp[1:-1, 1:-1, 1:-1],
@@ -310,35 +363,70 @@ class Simulation:
         """Projection + pressure update + smag nu_t in one kernel.  The
         van Driest wall-shear planes come from the corrected wall-adjacent
         planes, computed here as (ny, nx) expressions."""
-        cfg, grid = self.cfg, self.grid
+        cfg = self.cfg
         nz = cfg.ng[2]
         dxi, dyi = cfg.dli[0], cfg.dli[1]
         fu, fv = fuv[0], fuv[1]
 
-        def tauw_face(side):
+        def face(side):
             krow = 0 if side == 0 else nz - 1
             ppq = pp[krow]
             u_c = fu + u[krow] - dtrk * dxi * (torch.roll(ppq, -1, 1) - ppq)
             v_c = fv + v[krow] - dtrk * dyi * (torch.roll(ppq, -1, 0) - ppq)
-            A = u_c - kernels.ghost_row(self.zrec_uv[0], side, u_c)
-            B = v_c - kernels.ghost_row(self.zrec_uv[1], side, v_c)
-            t1 = A + torch.roll(A, 1, 1)
-            t2 = B + torch.roll(B, 1, 0)
-            dzi = float(grid.dzci[0] if side == 0 else grid.dzci[nz])
-            return (torch.sqrt(t1 ** 2 + t2 ** 2) * dzi).contiguous()
+            return (u_c - kernels.ghost_row(self.zrec_uv[0], side, u_c),
+                    v_c - kernels.ghost_row(self.zrec_uv[1], side, v_c))
 
-        if self.have_zwalls:
-            tauw_lo, tauw_hi = tauw_face(0), tauw_face(1)
-            if not self.lo_wall:
-                tauw_lo = tauw_hi
-            if not self.hi_wall:
-                tauw_hi = tauw_lo
-        else:
-            tauw_lo = tauw_hi = torch.zeros_like(u[0])
+        tauw_lo, tauw_hi = self._wall_shear_planes(face, u)
         return kernels.correc_smag(
             u, v, w, pp, p, ue2, ve2, we2, ppe, dtrk, dxi, dyi, self.dzci_t,
             self.dzfi_t, cfg.visc, self.csd2_t, self.zrec_uv, fuv, self.dw_t,
             self.nearlo_t, tauw_lo, tauw_hi, have_zwalls=self.have_zwalls)
+
+    def _wall_shear_planes(self, face, like):
+        """The van Driest wall-shear planes (tauw_lo, tauw_hi), (ny, nx):
+        |grad u_par| at each z wall (sgs.f90:117-143 z rows) from
+        face(side) -> (A, B), the jumps of u and v across the wall face
+        (interior row minus ghost row).  A face that is no wall takes the
+        other wall's plane; without z walls both are zero, shaped `like`."""
+        if not self.have_zwalls:
+            z = torch.zeros_like(like[0])
+            return z, z
+        nz = self.cfg.ng[2]
+
+        def plane(side):
+            A, B = face(side)
+            t1 = A + torch.roll(A, 1, 1)
+            t2 = B + torch.roll(B, 1, 0)
+            dzi = float(self.grid.dzci[0 if side == 0 else nz])
+            return (torch.sqrt(t1 ** 2 + t2 ** 2) * dzi).contiguous()
+        lo = plane(0) if self.lo_wall else None
+        hi = plane(1) if self.hi_wall else None
+        return (hi if lo is None else lo), (lo if hi is None else hi)
+
+    def _sgs_stage(self, u, v, w, zq):
+        """nu_t of the post-correction fill (main.f90:504-506) by the smag
+        or dsmag kernel."""
+        cfg = self.cfg
+        ue, ve, we = zq
+        dxi, dyi = cfg.dli[0], cfg.dli[1]
+        if self.sgs_kernel == 'smag':
+            # the post-correction fill's ghost rows (cales_tpu
+            # _compute_sgs_kernel)
+            tauw_lo, tauw_hi = self._wall_shear_planes(
+                lambda side: ((u[0] - ue[0], v[0] - ve[0]) if side == 0
+                              else (u[-1] - ue[2], v[-1] - ve[2])), u)
+            return kernels.smag(u, v, w, ue, ve, we, self.dzci_t,
+                                self.dzfi_t, dxi, dyi, cfg.visc,
+                                self.csd2_t, self.dw_t, self.nearlo_t,
+                                tauw_lo, tauw_hi,
+                                have_zwalls=self.have_zwalls)
+        s0, num, den = kernels.dsmag(u, v, w, ue, ve, we, self.alph2_t,
+                                     self.dzci_t, self.dzfi_t, dxi, dyi,
+                                     self.lo_wall, self.hi_wall,
+                                     self.dsmag_zvals)
+        # ave1d_channel: one ratio per z row (sgs.f90:433-538)
+        ratio = num.sum(dim=1) / den.sum(dim=1)
+        return torch.clamp_min(s0 * ratio[:, None, None], 0.0)
 
     def _cn_stage(self, u, v, w, f, alpha):
         """Crank-Nicolson z-only Helmholtz solves (main.f90:423-491, the
@@ -405,7 +493,7 @@ class Simulation:
                                     self.rhsb_p)
         pp = poisson.solve(self.solver_p, rhs)
         ppe = self._zedge_p(pp)
-        if self.has_sgs:
+        if self.fused_smag:
             u, v, w, p, visct = self._correc_smag_fused(
                 u, v, w, pp, p, ue2, ve2, we2, ppe, dtrk, fuv)
         else:
@@ -417,6 +505,8 @@ class Simulation:
         # post-correction fill (main.f90:500-501, is_correc=.true.)
         bcu, bcv, bcw = self._dynamic_bcs(u, v, w)
         zq = self._zedge_vel(u, v, w, bcu, bcv, bcw, vlo=vlo, is_correc=True)
+        if self.sgs_kernel:
+            visct = self._sgs_stage(u, v, w, zq)
         return state._replace(u=u, v=v, w=w, p=p, visct=visct, vlo=vlo,
                               rhs_old=(ru, rv, rw), zq=zq), f
 

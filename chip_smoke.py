@@ -2,8 +2,9 @@
 hold each against its plain PyTorch twin, drive the channel-LES slice
 through the CLI and through cales_torch.driver.run at 512x256x256 (with
 the cuFFT and the operator-matrix Poisson solve), drive the implicit-CN
-channel DNS through driver.run at 512x256x256, and compare the card with
-the CPU step for step.
+channel DNS, the dynamic-Smagorinsky channel LES and the static-
+Smagorinsky LES with z-implicit diffusion through driver.run at
+512x256x256, and compare the card with the CPU step for step.
 
     python3 chip_smoke.py            # all phases, one card
 
@@ -41,8 +42,16 @@ KERNELS = {
               'cales_tpu/ops/pallas_solve.py:168'),
     'thomas_z': ('cales_torch/csrc/thomas_z.cu',
                  'cales_tpu/ops/pallas_solve.py:367'),
+    'smag': ('cales_torch/csrc/smag.cu',
+             'cales_tpu/ops/pallas_kernels.py:1016'),
+    'dsmag': ('cales_torch/csrc/dsmag.cu',
+              'cales_tpu/ops/pallas_dsmag.py:1168'),
 }
 LES_KERNELS = ('mom_rk', 'fillps', 'correc_smag')
+# H100 SXM data-sheet rates: HBM
+# bytes/s and float32 / float64 FLOP/s outside the tensor cores
+PEAK_BPS = 3.35e12
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 HEADLINE_NG = (512, 256, 256)
 CHAN_BCS = dict(
     cbcvel=((('P', 'P', 'P'), ('P', 'P', 'P'), ('D', 'D', 'D')),) * 2,
@@ -59,6 +68,17 @@ LES_CFG = dict(ng=HEADLINE_NG, l=(2 * np.pi, np.pi, 2.0), gtype=1, gr=1.0,
                visci=20_000.0, inivel='log', is_wallturb=True,
                is_forced=(True, False, False), velf=(1.0, 0.0, 0.0),
                sgstype='smag', dtype='float32', ptransform='fft')
+# validation/dsmag_channel.py:77-89 (the dynamic-Smagorinsky channel on the
+# manuscript's domain, impdiff_1d), written out at the headline grid
+DSMAG_CFG = dict(ng=HEADLINE_NG, l=(12.8, 4.8, 2.0), gtype=1, gr=5.0,
+                 visci=10_000.0, inivel='poi', is_wallturb=True,
+                 is_forced=(True, False, False), velf=(1.0, 0.0, 0.0),
+                 dtype='float32', sgstype='dsmag', dsmag_avg='channel',
+                 ptransform='mat', impdiff=True, impdiff_1d=True, **CHAN_BCS)
+# bench.py's channel_les_smag ('mat') with z-implicit diffusion (the
+# reference's -D_IMPDIFF_1D wall-resolved LES build)
+LES_IMP_CFG = dict(LES_CFG, ptransform='mat', impdiff=True, impdiff_1d=True,
+                   **CHAN_BCS)
 
 
 def card_line():
@@ -92,14 +112,15 @@ def kernel_inputs(ng, dtype, dev, seed, big=False):
     from numpy; the headline shape from a seeded torch generator on the
     card (numpy would spend most of the phase making 30 fields on the
     host)."""
-    from cales_tpu.config import Config, C_SMAG
-    from cales_tpu.grid import make_grid_from_config
+    from cales_torch.config import Config, C_SMAG
+    from cales_torch.grid import make_grid_from_config
     from cales_torch import poisson
     from cales_torch import sgs as sgsmod
-    from cales_tpu.config import effective_cbcvel
+    from cales_torch.config import effective_cbcvel
+    from cales_torch.ops import boundary as bnd
     nx, ny, nz = ng
     cfg = Config(ng=ng, l=(2 * np.pi, np.pi, 2.0), gtype=1, gr=1.0,
-                 visci=1000.0, ptransform='mat')
+                 visci=1000.0, ptransform='mat', **CHAN_BCS)
     grid = make_grid_from_config(cfg)
     if big:
         gen = torch.Generator(device=dev).manual_seed(seed)
@@ -144,6 +165,22 @@ def kernel_inputs(ng, dtype, dev, seed, big=False):
              abc_p=tuple(t(q, torch.float64) for q in (svp.a, svp.b, svp.c)),
              abc_w=tuple(t(q, torch.float64) for q in (svw.a, svw.b, svw.c)),
              shift=t([0.0173]), bc_lo=rnd(ny, nx), bc_hi=rnd(ny, nx))
+    # dsmag: the post-correction fill's edge stacks of the interiors (the
+    # kernel's ghost recipes assume the channel's walls), a periodic lower
+    # w face, and moving-wall values for the filtered fill
+    wlo = rnd(ny, nx, scale=1e-3)
+    wlo = torch.cat([wlo[-1:], wlo, wlo[:1]])
+    wlo = torch.cat([wlo[:, -1:], wlo, wlo[:, :1]], dim=1)
+    z3 = ((0.0,) * 3,) * 3
+    bc = bnd.make_bc_values(ng, z3, dtype, dev)
+    d['ue_c'], d['ve_c'], d['we_c'] = (e.contiguous() for e in
+                                       bnd.zedge_velocity(
+        d['u'], d['v'], d['w'], effective_cbcvel(cfg), bc, bc, bc, grid.dzc,
+        grid.dzf, vlo=(None, None, wlo), is_correc=True))
+    a2 = np.full(nz, 4.0)
+    a2[0] = a2[-1] = 2.52
+    d['alph2'] = t(a2)
+    d['zvals'] = (0.0, 0.02, 0.0, -0.01)
     return d
 
 
@@ -157,16 +194,28 @@ def call(name, d, twin=False, variant=None, has_ruo=True, zrec=None):
     if name == 'mom_rk':
         r = (d['ruo'], d['rvo'], d['rwo']) if has_ruo else (None,) * 3
         dns = variant == 'dns'      # no visct, split '1d' + CN fold
+        split = '1d' if variant in ('dns', 'les_split') else None
         out = list(fn(d['u'], d['v'], d['w'], None if dns else d['s'],
                       d['p'], d['ue'], d['ve'], d['we'],
                       None if dns else d['se'], d['pe'], *r, d['dzci'],
                       d['dzfi'], 2.1e-3, -1.1e-3 if has_ruo else 0.0,
                       d['visc'], d['dxi'], d['dyi'], (0.3, 0.0, 0.0),
-                      sums=(True, True), split='1d' if dns else None))
+                      sums=(True, True), split=split))
         # partial sums: compare the per-plane totals
         out[6], out[7] = out[6].sum(dim=1), out[7].sum(dim=1)
         return dict(zip(('u', 'v', 'w', 'ru', 'rv', 'rw', 'usum', 'vsum'),
                         out))
+    if name == 'smag':
+        return {'visct': fn(d['u'], d['v'], d['w'], d['ue'], d['ve'],
+                            d['we'], d['dzci'], d['dzfi'], d['dxi'],
+                            d['dyi'], d['visc'], d['csd2'], d['dw'],
+                            d['nearlo'], d['tauw_lo'], d['tauw_hi'])}
+    if name == 'dsmag':
+        s0, num, den = fn(d['u'], d['v'], d['w'], d['ue_c'], d['ve_c'],
+                          d['we_c'], d['alph2'], d['dzci'], d['dzfi'],
+                          d['dxi'], d['dyi'], True, True, d['zvals'])
+        # partial sums: compare the per-row totals
+        return {'s0': s0, 'num': num.sum(dim=1), 'den': den.sum(dim=1)}
     if name == 'fillps':
         return {'rhs': fn(d['u'], d['v'], d['w'], d['ue'], d['ve'], d['we'],
                           d['dzfi'], 1.0, d['dxi'], d['dyi'])}
@@ -240,12 +289,51 @@ def time_ms(fn, n=10):
 # per-kernel variants held against the twins in phase 2; the first is the
 # one timed for the report in phase 2b
 VARIANTS = {
-    'mom_rk': ('les', 'dns'), 'fillps': (None,), 'correc_smag': (None,),
-    'correc_updatep': ('impdiff_1d', 'explicit'),
+    'mom_rk': ('les', 'dns', 'les_split'), 'fillps': (None,),
+    'correc_smag': (None,), 'correc_updatep': ('impdiff_1d', 'explicit'),
     'apply_y': ('x_and_y', 'y_only'), 'z_eig': (None,),
-    'thomas_z': ('helmholtz', 'poisson'),
+    'thomas_z': ('helmholtz', 'poisson'), 'smag': (None,), 'dsmag': (None,),
 }
-SOLVE_KERNELS = ('apply_y', 'z_eig', 'thomas_z')
+# bounded relative to the output's maximum: sums over many terms
+RELATIVE = ('apply_y', 'z_eig', 'thomas_z', 'dsmag')
+# (interior fields read, fields written, floating-point operations a cell)
+# of each kernel's timed variant, counted from its source (the solve
+# kernels' matrix products are added in work()).  dsmag counts what the
+# function needs, not its kernel's halo recomputation: the source
+# quantities (the strain rate's 92 + 18), 18 separable (1,2,1)/4 filters
+# at 3 passes of 4 with each pass shared across the plane, and the test-
+# level strain (92) with M_ij, L_ij and the contraction (55)
+WORK = {'mom_rk': (8, 6, 230), 'fillps': (3, 1, 12),
+        'correc_smag': (5, 5, 115), 'correc_updatep': (5, 4, 20),
+        'apply_y': (1, 1, 0), 'z_eig': (1, 1, 3), 'thomas_z': (1, 1, 8),
+        'smag': (3, 1, 100), 'dsmag': (3, 1, 110 + 18 * 12 + 147)}
+# kernels whose plain twin is a single library product (cuBLAS), timed as
+# the yardstick library_ms
+LIBRARY_TWIN = ('apply_y', 'z_eig')
+
+
+def work(name, d):
+    """(bytes, flops) the kernel's timed variant must move and do on the
+    inputs d: each interior field read once and each output written once,
+    and its arithmetic (the operator products of the solve kernels at
+    2 n^2 per line)."""
+    nz, ny, nx = d['u'].shape
+    cells = nx * ny * nz
+    nin, nout, per_cell = WORK[name]
+    nbytes = (nin + nout) * cells * d['u'].element_size()
+    flops = per_cell * cells
+    if name == 'apply_y':
+        flops += 2 * ny * cells + 2 * nx * cells
+    if name == 'z_eig':
+        flops += 2 * 2 * nz * cells
+    return nbytes, flops
+
+
+def bound_ms(name, d):
+    nbytes, flops = work(name, d)
+    t_bytes = nbytes / PEAK_BPS * 1e3
+    t_ops = flops / PEAK_FLOPS[d['u'].dtype] * 1e3
+    return max(t_bytes, t_ops), 'bytes' if t_bytes >= t_ops else 'operations'
 
 
 def phase_kernels(dev, card):
@@ -259,7 +347,7 @@ def phase_kernels(dev, card):
         d = kernel_inputs(small, dtype, dev, SEED)
         say(f'phase 2: kernels vs twins, (nx, ny, nz) = {small}, {dtype}')
         for name, variants in VARIANTS.items():
-            ta = None if name in SOLVE_KERNELS else tol_abs
+            ta = None if name in RELATIVE else tol_abs
             for variant in variants:
                 rounds = (False, True) if name == 'mom_rk' else (True,)
                 for has_ruo in rounds:
@@ -283,7 +371,12 @@ def phase_kernels(dev, card):
             say(f'  {tag:<24s} kernel {ms:.3f} ms, plain twin {plain_ms:.3f} '
                 f'ms per call  [{card}]')
             if i == 0:
-                rows[name] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms)
+                bms, by = bound_ms(name, d)
+                rows[name] = dict(
+                    max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                    bound_ms=bms, bound_by=by,
+                    library_ms=plain_ms if name in LIBRARY_TWIN else None)
+                say(f'  {tag:<24s} bound {bms:.3f} ms ({by})')
             torch.cuda.empty_cache()
     return rows
 
@@ -326,7 +419,8 @@ def drive(tag, cfg, dev, card, nsteps, per_step, ntime=30):
     """driver.run on cfg for nsteps steps with every launch count set to 0
     just before and read just after (each kernel of per_step must have
     launched exactly per_step[name] times a step, every other kernel
-    never), then a timed loop of ntime steps.  Returns (launches, result
+    never), then a timed loop of ntime steps; nu_t must be >= 0 and not
+    zero everywhere where an SGS model runs.  Returns (launches, result
     dict)."""
     from cales_torch import driver
     from cales_torch.ops.stencil import bulk_mean
@@ -373,6 +467,12 @@ def drive(tag, cfg, dev, card, nsteps, per_step, ntime=30):
             f'{tag}: non-finite field')
     require(divmax <= small, f'{tag}: divmax {divmax:.3e} above {small:.3e}')
     require(abs(ub - 1.0) <= 1e-4, f'{tag}: bulk u {ub:.7f}, want 1')
+    if cfg.sgstype != 'none':
+        nmin, nmax = float(state.visct.min()), float(state.visct.max())
+        say(f'  nu_t in [{nmin:.4e}, {nmax:.4e}]')
+        require(nmin >= 0.0 and nmax > 0.0,
+                f'{tag}: nu_t in [{nmin:.3e}, {nmax:.3e}], want >= 0 and '
+                'not zero everywhere')
     return sim, launches, dict(ng=cfg.ng, ms_per_step=ms,
                                ns_per_cell_substep=ns, peak_gib=peak,
                                divmax=divmax, bulk_u=ub, card=card)
@@ -382,7 +482,7 @@ def phase_les(dev, card):
     """The channel-LES headline at 512x256x256 f32 by both transform routes:
     'fft' (cuFFT + z eigen-matmuls) and 'mat' (bench.py's own setting:
     apply_y + z_eig), then the Poisson solve alone by both routes."""
-    from cales_tpu.config import Config
+    from cales_torch.config import Config
     from cales_torch import poisson
     les = dict(mom_rk=3, fillps=3, correc_smag=3)
     sim_f, launches, res_f = drive('phase 4: LES, fft', Config(**LES_CFG),
@@ -406,7 +506,7 @@ def phase_les(dev, card):
 
 def phase_dns(dev, card):
     """The implicit-CN channel DNS at 512x256x256 f32 through driver.run."""
-    from cales_tpu.config import Config
+    from cales_torch.config import Config
     per_step = dict(mom_rk=3, fillps=3, correc_updatep=3, apply_y=6,
                     z_eig=3, thomas_z=9)
     _, launches, res = drive('phase 5: implicit-CN channel DNS',
@@ -415,9 +515,27 @@ def phase_dns(dev, card):
     return launches
 
 
-def _card_vs_cpu(tag, cfg, dev, names):
-    from cales_tpu.grid import make_grid_from_config
-    from cales_tpu.initflow import initflow
+def phase_dsmag(dev, card):
+    """The dynamic-Smagorinsky channel (validation/dsmag_channel.py) at
+    512x256x256 f32 through driver.run, then the static-Smagorinsky LES
+    with z-implicit diffusion."""
+    from cales_torch.config import Config
+    per_step = dict(mom_rk=3, fillps=3, thomas_z=9, apply_y=6, z_eig=3,
+                    correc_updatep=3, dsmag=3)
+    _, launches, res = drive('phase 7: dynamic-Smagorinsky channel',
+                             Config(**DSMAG_CFG), dev, card, 5, per_step)
+    print(json.dumps({'dsmag_channel': res}), flush=True)
+    per_step_imp = dict(per_step, dsmag=0, smag=3)
+    _, launches_imp, res = drive('phase 7b: static-Smagorinsky LES, '
+                                 'impdiff_1d', Config(**LES_IMP_CFG), dev,
+                                 card, 5, per_step_imp)
+    print(json.dumps({'les_impdiff': res}), flush=True)
+    return launches, launches_imp
+
+
+def _card_vs_cpu(tag, cfg, dev, names, rel=()):
+    from cales_torch.grid import make_grid_from_config
+    from cales_torch.initflow import initflow
     from cales_torch.timeloop import Simulation
     grid = make_grid_from_config(cfg)
     u, v, w, p = initflow(cfg, grid)
@@ -434,7 +552,10 @@ def _card_vs_cpu(tag, cfg, dev, names):
         if name == 'p':
             a, b = a - a.mean(), b - b.mean()
         err = float((a - b).abs().max())
-        say(f'  {name:<5s} max|card - cpu| {err:.3e} (bound {tol:.0e})')
+        if name in rel:
+            err /= float(b.abs().max())
+        say(f'  {name:<5s} max|card - cpu|{" / max|cpu|" if name in rel else ""}'
+            f' {err:.3e} (bound {tol:.0e})')
         require(err <= tol, f'card vs CPU {name}: {err:.3e} above {tol:.0e}')
     # the working precision: float32 on the card against the float64 CPU
     # run, relative to each field's maximum (f32 rounding over 9 substeps)
@@ -456,13 +577,20 @@ def _card_vs_cpu(tag, cfg, dev, names):
 def phase_card_vs_cpu(dev):
     """3 steps of a small f64 channel on the card (kernels) and on the CPU
     (twins), then the same in f32 on the card: the LES and the DNS."""
-    from cales_tpu.config import Config
+    from cales_torch.config import Config
     small = dict(ng=(64, 32, 32), dtype='float64')
     _card_vs_cpu('phase 6', Config(**{**LES_CFG, **small}), dev,
                  (('u', 1e-11), ('v', 1e-11), ('w', 1e-11), ('p', 1e-10),
                   ('visct', 1e-12)))
     _card_vs_cpu('phase 6b', Config(**{**DNS_CFG, **small}), dev,
                  (('u', 1e-11), ('v', 1e-11), ('w', 1e-11), ('p', 1e-10)))
+    # nu_t relative to its maximum: the dynamic model's plane ratio sums
+    # the rows in another order on the card
+    for tag, cfg in (('phase 6c (dsmag channel)', DSMAG_CFG),
+                     ('phase 6d (smag, impdiff_1d)', LES_IMP_CFG)):
+        _card_vs_cpu(tag, Config(**{**cfg, **small}), dev,
+                     (('u', 1e-11), ('v', 1e-11), ('w', 1e-11), ('p', 1e-10),
+                      ('visct', 1e-10)), rel=('visct',))
 
 
 def main():
@@ -486,13 +614,23 @@ def main():
     rows = phase_kernels(dev, card)
     phase_cli(card)
     les = phase_les(dev, card)
-    dns = phase_dns(dev, card)
+    phase_dns(dev, card)
+    dsm, les_imp = phase_dsmag(dev, card)
     phase_card_vs_cpu(dev)
+    # each kernel's launches on the main path that runs it: the dsmag
+    # channel (5 steps), or the LES (31 steps) for correc_smag, or the
+    # smag + impdiff_1d LES (5 steps) for smag
+    paths = {name: (dsm, 5) for name in KERNELS}
+    paths['correc_smag'] = (les, 31)
+    paths['smag'] = (les_imp, 5)
     report = {'kernels': [
         dict(name=name, route='cuda', source=KERNELS[name][0],
-             replaces=KERNELS[name][1],
-             launches=(dns if dns[name] else les)[name], **rows[name])
+             replaces=KERNELS[name][1], launches=paths[name][0][name],
+             launches_per_step=paths[name][0][name] / paths[name][1],
+             **rows[name])
         for name in KERNELS]}
+    for k in report['kernels']:
+        require(k['launches'] > 0, f'{k["name"]}: no launch on its main path')
     print(json.dumps(report), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({'ok': True, 'device': {

@@ -1,23 +1,27 @@
 """cales_torch's CUDA kernels on the card: each against its plain twin, and
-the slices (channel LES, implicit-CN channel DNS) on the card against the
+the slices (channel LES, implicit-CN channel DNS, dynamic-Smagorinsky
+channel, static-Smagorinsky LES with impdiff_1d) on the card against the
 same slices on the CPU, step for step, fp64.
 
-These tests need an NVIDIA GPU and skip without one.  The file imports no
-jax, so it runs on a machine that has torch and the CUDA toolkit only:
+These tests need an NVIDIA GPU and skip without one.  The file imports
+neither jax nor cales_tpu, so it runs on a machine that has torch and the
+CUDA toolkit only:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 Tolerances: kernel vs twin 1e-12 (the same formulas; FMA contraction and
 the order of a few sums differ), relative to the output's maximum for the
 solve kernels (sums of up to nx terms); card vs CPU after 3 steps u, v, w
-1e-11, p 1e-10 after removing its mean, nu_t 1e-12."""
+1e-11, p 1e-10 after removing its mean, nu_t 1e-12 (1e-10 relative to its
+maximum where the smag or dsmag stage makes it); dsmag's |S| 1e-12 and
+its per-row sums 1e-12 relative to their maximum."""
 import numpy as np
 import pytest
 import torch
 
-from cales_tpu.config import Config
-from cales_tpu.grid import make_grid_from_config
-from cales_tpu.initflow import initflow
+from cales_torch.config import Config
+from cales_torch.grid import make_grid_from_config
+from cales_torch.initflow import initflow
 
 from cales_torch.ops import kernels as K
 from cales_torch.ops import solve_kernels as SK
@@ -81,7 +85,8 @@ def test_cuda_kernels_match_twins_on_card(dev):
             torch.testing.assert_close(g, r, rtol=0, atol=1e-12)
     torch.cuda.synchronize()
     assert K.LAUNCHES == {'mom_rk': 1, 'fillps': 1, 'correc_smag': 2,
-                          'correc_updatep': 0}
+                          'correc_updatep': 0, 'smag': 0,
+                          'dsmag': 0}
 
 
 @pytest.mark.cuda
@@ -99,7 +104,8 @@ def test_card_matches_cpu_step_for_step(dev):
     for _ in range(3):
         states = [s.step(st, dt)[0] for s, st in zip(sims, states)]
     assert K.LAUNCHES == {'mom_rk': 9, 'fillps': 9, 'correc_smag': 9,
-                          'correc_updatep': 0}
+                          'correc_updatep': 0, 'smag': 0,
+                          'dsmag': 0}
     g, c = states
     for name, tol in (('u', 1e-11), ('v', 1e-11), ('w', 1e-11), ('p', 1e-10),
                       ('visct', 1e-12)):
@@ -152,7 +158,8 @@ def test_cuda_dns_kernels_match_twins_on_card(dev):
             _rel_close(g, q, 1e-13)
     torch.cuda.synchronize()
     assert K.LAUNCHES == {'mom_rk': 2, 'fillps': 0, 'correc_smag': 0,
-                          'correc_updatep': 3}
+                          'correc_updatep': 3, 'smag': 0,
+                          'dsmag': 0}
 
 
 @pytest.mark.cuda
@@ -212,7 +219,8 @@ def test_card_matches_cpu_dns_step_for_step(dev):
     for _ in range(3):
         states = [s.step(st, dt)[0] for s, st in zip(sims, states)]
     assert K.LAUNCHES == {'mom_rk': 9, 'fillps': 9, 'correc_smag': 0,
-                          'correc_updatep': 9}
+                          'correc_updatep': 9, 'smag': 0,
+                          'dsmag': 0}
     assert SK.LAUNCHES == {'apply_y': 18, 'z_eig': 9, 'thomas_z': 27}
     g, c = states
     for name, tol in (('u', 1e-11), ('v', 1e-11), ('w', 1e-11), ('p', 1e-10)):
@@ -220,3 +228,99 @@ def test_card_matches_cpu_dns_step_for_step(dev):
         if name == 'p':
             a, b = a - a.mean(), b - b.mean()
         assert float((a - b).abs().max()) <= tol, name
+
+
+def _sgs_inputs(dev, ng, seed):
+    """Random interiors on a stretched channel grid with the post-correction
+    fill's edge stacks (the dsmag kernel's ghost recipes assume the
+    channel's walls), and the smag profiles."""
+    from cales_torch import sgs as sgsmod
+    from cales_torch.config import C_SMAG, effective_cbcvel
+    from cales_torch.ops import boundary as bnd
+    nx, ny, nz = ng
+    cfg = Config(ng=ng, l=(2 * np.pi, np.pi, 2.0), gtype=1, gr=1.2,
+                 visci=1000.0, dtype='float64',
+                 cbcvel=((('P', 'P', 'P'), ('P', 'P', 'P'),
+                          ('D', 'D', 'D')),) * 2,
+                 cbcpre=(('P', 'P', 'N'),) * 2, cbcsgs=(('P', 'P', 'D'),) * 2)
+    grid = make_grid_from_config(cfg)
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, dtype=np.float64), device=dev)
+    u, v, w = (t(0.1 * rng.standard_normal((nz, ny, nx))) for _ in range(3))
+    wlo = t(np.pad(1e-3 * rng.standard_normal((ny, nx)), 1, mode='wrap'))
+    bc = bnd.make_bc_values(ng, ((0.0,) * 3,) * 3, torch.float64, dev)
+    edges = [e.contiguous() for e in bnd.zedge_velocity(
+        u, v, w, effective_cbcvel(cfg), bc, bc, bc, grid.dzc, grid.dzf,
+        vlo=(None, None, wlo), is_correc=True)]
+    setup = sgsmod.SGSSetup(cfg, grid, effective_cbcvel(cfg))
+    zc = grid.zc[1:nz + 1]
+    a2 = np.full(nz, 4.0)
+    a2[0] = a2[-1] = 2.52
+    return dict(
+        fields=(u, v, w), edges=edges, dzci=t(grid.dzci), dzfi=t(grid.dzfi),
+        dxi=cfg.dli[0], dyi=cfg.dli[1], visc=cfg.visc, alph2=t(a2),
+        csd2=t((C_SMAG * setup.delta) ** 2), dw=t(np.minimum(zc, 2.0 - zc)),
+        nearlo=t((zc <= 1.0).astype(float)),
+        tauw=[t(np.abs(rng.standard_normal((ny, nx)))) for _ in range(2)])
+
+
+@pytest.mark.cuda
+def test_cuda_sgs_kernels_match_twins_on_card(dev):
+    """smag and dsmag against their plain twins on a shape that fits no
+    tile; dsmag's per-block sums against the twin's per-row sums."""
+    d = _sgs_inputs(dev, (72, 40, 24), 11)
+    K.reset_launches()
+    sm = (*d['fields'], *d['edges'], d['dzci'], d['dzfi'], d['dxi'],
+          d['dyi'], d['visc'], d['csd2'], d['dw'], d['nearlo'], *d['tauw'])
+    torch.testing.assert_close(K.smag(*sm), K.smag_plain(*sm), rtol=0,
+                               atol=1e-12)
+    ds = (*d['fields'], *d['edges'], d['alph2'], d['dzci'], d['dzfi'],
+          d['dxi'], d['dyi'], True, True, (0.0, 0.3, 0.0, -0.2))
+    s0, num, den = K.dsmag(*ds)
+    s0r, numr, denr = K.dsmag_plain(*ds)
+    _rel_close(s0, s0r, 1e-12)
+    _rel_close(num.sum(1), numr[:, 0], 1e-12)
+    _rel_close(den.sum(1), denr[:, 0], 1e-12)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == {'mom_rk': 0, 'fillps': 0, 'correc_smag': 0,
+                          'correc_updatep': 0, 'smag': 1, 'dsmag': 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', ['dsmag', 'smag_impdiff_1d'])
+def test_card_matches_cpu_sgs_step_for_step(dev, case):
+    """The dynamic-Smagorinsky channel (validation/dsmag_channel.py) and
+    the static-Smagorinsky LES with impdiff_1d at (32, 16, 16), f64, 3
+    steps: card against CPU."""
+    base = dict(ng=(32, 16, 16), gtype=1, is_wallturb=True,
+                is_forced=(True, False, False), velf=(1.0, 0.0, 0.0),
+                impdiff=True, impdiff_1d=True, dtype='float64',
+                ptransform='mat', cbcsgs=(('P', 'P', 'D'), ('P', 'P', 'D')))
+    if case == 'dsmag':
+        kw = dict(l=(12.8, 4.8, 2.0), gr=5.0, visci=10_000.0, inivel='poi',
+                  sgstype='dsmag', dsmag_avg='channel')
+    else:
+        kw = dict(l=(2 * np.pi, np.pi, 2.0), gr=1.0, visci=20_000.0,
+                  inivel='log', sgstype='smag')
+    cfg = Config(**base, **kw)
+    grid = make_grid_from_config(cfg)
+    fields = initflow(cfg, grid)
+    sims = [Simulation(cfg, grid, device=d) for d in (dev, 'cpu')]
+    states = [s.initial_state(*fields) for s in sims]
+    dt = sims[1].pick_dt(sims[1].check(states[1])[0])
+    K.reset_launches()
+    for _ in range(3):
+        states = [s.step(st, dt)[0] for s, st in zip(sims, states)]
+    sgs = 'dsmag' if case == 'dsmag' else 'smag'
+    assert K.LAUNCHES == {'mom_rk': 9, 'fillps': 9, 'correc_smag': 0,
+                          'correc_updatep': 9, 'smag': 0, 'dsmag': 0,
+                          sgs: 9}
+    g, c = states
+    for name, tol in (('u', 1e-11), ('v', 1e-11), ('w', 1e-11), ('p', 1e-10)):
+        a, b = getattr(g, name).cpu(), getattr(c, name)
+        if name == 'p':
+            a, b = a - a.mean(), b - b.mean()
+        assert float((a - b).abs().max()) <= tol, name
+    _rel_close(g.visct.cpu(), c.visct, 1e-10)

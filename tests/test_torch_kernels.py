@@ -112,6 +112,37 @@ def test_mom_rk_twin_matches_pallas_cn_fold_without_sgs(has_ruo):
         _close(g.sum(dim=1), np.asarray(r_)[:, ::8, 0].sum(axis=1), 1e-11)
 
 
+@pytest.mark.parametrize('has_ruo', [False, True])
+def test_mom_rk_twin_matches_pallas_cn_fold_with_sgs(has_ruo):
+    """nu_t with split '1d' and the CN fold (the momentum pass of the LES
+    with z-implicit diffusion, dsmag or smag): the eddy-viscosity z terms
+    stay in the explicit RHS, as in the reference; only the molecular z
+    diffusion is implicit."""
+    cfg, grid, d = _setup(8)
+    J, T = _J(d), _T(d)
+    f1, f2, visc = 0.5e-3, (-0.2e-3 if has_ruo else 0.0), cfg.visc
+    dxi, dyi = cfg.dli[:2]
+    bforce = (0.1, 0.0, 0.02)
+    ref = pk.fused_mom_rk(J['u'], J['v'], J['w'], J['s'], J['p'], J['ue'],
+                          J['ve'], J['we'], J['se'], J['pe'], J['ruo'],
+                          J['rvo'], J['rwo'], grid.dzci, grid.dzfi, f1, f2,
+                          visc, dxi, dyi, bforce, interpret=True,
+                          has_ruo=has_ruo, sum_flags=(True, True),
+                          split='1d', fold_cn=True, has_sgs=True)
+    r = (T['ruo'], T['rvo'], T['rwo']) if has_ruo else (None,) * 3
+    got = K.mom_rk_plain(T['u'], T['v'], T['w'], T['s'], T['p'], T['ue'],
+                         T['ve'], T['we'], T['se'], T['pe'], *r,
+                         torch.as_tensor(grid.dzci), torch.as_tensor(grid.dzfi),
+                         f1, f2, visc, dxi, dyi, bforce, sums=(True, True),
+                         split='1d')
+    for i in range(3):
+        _close(got[i], ref[i], 1e-13)
+    for i in range(3, 6):
+        _close(got[i], ref[i], 1e-11)
+    for g, r_ in zip(got[6:], ref[6:]):
+        _close(g.sum(dim=1), np.asarray(r_)[:, ::8, 0].sum(axis=1), 1e-11)
+
+
 @pytest.mark.parametrize('imp', ['explicit', 'impdiff_1d', 'impdiff'])
 def test_correc_updatep_twin_matches_pallas(imp):
     """fused_correc_updatep with the deferred forcing fu/fv, and the
@@ -196,7 +227,7 @@ def test_wrappers_take_the_twin_on_cpu_without_launching():
     torch.testing.assert_close(K.fillps(*args), K.fillps_plain(*args),
                                rtol=0, atol=0)
     assert K.LAUNCHES == {'mom_rk': 0, 'fillps': 0, 'correc_smag': 0,
-                          'correc_updatep': 0}
+                          'correc_updatep': 0, 'smag': 0, 'dsmag': 0}
 
 
 def test_wrapper_rejects_other_devices():

@@ -168,6 +168,34 @@ def test_poisson_solve_matches_jax(ptransform, zsolver):
     _close(tpoisson.solve(ts, _t(rhs)), ref, 1e-11, gauge=True)
 
 
+@pytest.mark.parametrize('ptransform', ['mat', 'fft'])
+def test_float32_eig_solve_keeps_every_nonsingular_mode(ptransform):
+    """The eigen z stage in float32 on the dynamic-Smagorinsky channel's
+    stretched grid (gr = 5, validation/dsmag_channel.py) against the same
+    solve in float64: only the singular mode may be dropped.  A singular-
+    mode bound scaled by float32's eps (the JAX package's) zeroes 5 modes
+    here and misses by O(1); the port's float64-scaled bound keeps them,
+    leaving float32 rounding (bound 1e-4 relative)."""
+    ng = (32, 16, 128)
+    nx, ny, nz = ng
+    cfg = Config(ng=ng, l=(12.8, 4.8, 2.0), gtype=1, gr=5.0,
+                 dtype='float64', ptransform=ptransform)
+    grid = make_grid_from_config(cfg)
+    sv = tpoisson.make_solver(cfg, grid, CHAN_P, ('c', 'c', 'c'))
+    assert not tpoisson.uses_thomas(sv)
+    lam = (sv.lamz[:, None, None] + sv.lamy[None, :, None]
+           + sv.lamx[None, None, :])
+    scale = (np.abs(sv.lamz).max() + np.abs(sv.lamx).max()
+             + np.abs(sv.lamy).max())
+    assert (np.abs(lam) <= np.finfo(np.float32).eps * scale * 4).sum() > 1
+    w = grid.dzf[1:nz + 1][:, None, None]
+    rhs = np.random.default_rng(9).standard_normal((nz, ny, nx))
+    rhs -= (rhs * w).sum() / (w.sum() * nx * ny)
+    ref = tpoisson.solve(sv, _t(rhs))
+    got = tpoisson.solve(sv, _t(rhs).float()).double()
+    _close(got, ref, 1e-4, gauge=True)
+
+
 def test_poisson_solve_mat_matches_jax_kernel_path(chan):
     """The JAX package's aliased 3-pass Pallas solve (interpret mode), the
     branch its kernel path runs without the x fusion."""

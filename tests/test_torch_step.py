@@ -3,28 +3,37 @@ plain twins) against cales_tpu's Simulation on its XLA expression path
 (use_pallas=False), fp64, at (nx, ny, nz) = (32, 16, 16), for
   * the headline channel-LES physics (static Smagorinsky + van Driest,
     periodic x/y, no-slip z walls on a stretched grid, bulk forcing
-    along x), and
+    along x),
   * the implicit-CN channel DNS (bench.py's channel_dns_impdiff: sgstype
     'none', z diffusion implicit, ptransform 'mat'), and its explicit
-    twin;
+    twin,
+  * the dynamic-Smagorinsky channel (validation/dsmag_channel.py:
+    'channel' averaging, 'mat', impdiff_1d and explicit), and the static-
+    Smagorinsky LES with impdiff_1d (nu_t from the smag kernel);
 and the DNS against cales_tpu's Pallas kernel path in interpret mode.
+Each package gets its own Config, built from the same arguments.
 
 Tolerances: u, v, w 1e-11; p 1e-10 after removing its mean (the solve
 projects out the constant mode, so p is defined up to a gauge); nu_t
-1e-12; against the kernel path (the same kernel formulas on both sides)
-1e-12.  The dead vlo planes along periodic x/y are not compared."""
+1e-12 where the projection kernel makes it, 1e-10 relative to its
+maximum where the SGS stage does (the dynamic model's ratio of plane
+sums, the van Driest factor's exp); against the kernel path (the same
+kernel formulas on both sides) 1e-12.  The dead vlo planes along periodic
+x/y are not compared."""
 import numpy as np
 import pytest
 import torch
 
 import jax
 
-from cales_tpu.config import Config
-from cales_tpu.grid import make_grid_from_config
+from cales_tpu.config import Config as JaxConfig
+from cales_tpu.grid import make_grid_from_config as jax_grid
 from cales_tpu.initflow import initflow
 from cales_tpu.timeloop import Simulation as JaxSimulation
 
 from cales_torch import params
+from cales_torch.config import Config
+from cales_torch.grid import make_grid_from_config
 from cales_torch.timeloop import Simulation, unsupported
 
 torch.set_num_threads(1)
@@ -43,21 +52,31 @@ DNS = dict(ng=(32, 16, 16), l=(2 * np.pi, np.pi, 2.0), gtype=1, gr=1.0,
            cbcvel=((('P', 'P', 'P'), ('P', 'P', 'P'), ('D', 'D', 'D')),) * 2,
            cbcpre=(('P', 'P', 'N'), ('P', 'P', 'N')),
            cbcsgs=(('P', 'P', 'D'), ('P', 'P', 'D')))
+# validation/dsmag_channel.py:77-89 at a test size
+DSMAG = dict(DNS, l=(12.8, 4.8, 2.0), gr=5.0, visci=10_000.0, inivel='poi',
+             sgstype='dsmag', dsmag_avg='channel')
+
+
+def _sims(kw, use_pallas=False):
+    """The JAX and the port Simulation of one configuration, each from its
+    own package's Config, with the initial fields."""
+    jcfg = JaxConfig(**kw, use_pallas=use_pallas)
+    jgrid = jax_grid(jcfg)
+    tcfg = Config(**kw)
+    return (JaxSimulation(jcfg, jgrid),
+            Simulation(tcfg, make_grid_from_config(tcfg), device='cpu'),
+            initflow(jcfg, jgrid))
 
 
 @pytest.fixture(scope='module')
 def pair():
-    cfg = Config(**HEADLINE, use_pallas=False)
-    grid = make_grid_from_config(cfg)
-    u, v, w, p = initflow(cfg, grid)
-    jsim = JaxSimulation(cfg, grid)
-    tsim = Simulation(cfg, grid, device='cpu')
+    jsim, tsim, (u, v, w, p) = _sims(HEADLINE)
     jst = jsim.initial_state(u, v, w, p)
     dt = jsim.pick_dt(jsim.check(jst)[0])
     return jsim, tsim, (u, v, w, p), dt
 
 
-def _compare(jstate, tstate, tol_all=None):
+def _compare(jstate, tstate, tol_all=None, rel=()):
     for name, tol in TOL.items():
         tol = tol if tol_all is None else tol_all
         a = np.asarray(getattr(jstate, name))
@@ -65,6 +84,9 @@ def _compare(jstate, tstate, tol_all=None):
         if name == 'p':
             a, b = a - a.mean(), b - b.mean()
         err = np.abs(a - b).max()
+        if name in rel:
+            err /= np.abs(a).max()
+            tol = 1e-10 if tol_all is None else tol_all
         assert err <= tol, f'{name}: {err:.3e} > {tol:.0e}'
     # the one live wall-face plane: w at the lower z wall
     np.testing.assert_allclose(tstate.vlo[2].numpy(),
@@ -123,7 +145,14 @@ def test_exec_path_names_device_kernels_and_solve(pair):
 @pytest.mark.parametrize('change,missing', [
     (dict(impdiff=True), 'full-3D implicit diffusion'),
     (dict(lwm=((0, 0, 1), (0, 0, 1)), hwm=0.1), 'wall model'),
-    (dict(sgstype='dsmag'), 'dsmag'),
+    (dict(sgstype='dsmag', dsmag_avg='duct'), 'duct'),
+    (dict(sgstype='dsmag', dsmag_avg='cavity'), 'cavity'),
+    (dict(sgstype='dsmag', dsmag_avg='dit'), 'dit'),
+    (dict(sgstype='dsmag', filter_2d=True), 'filter_2d'),
+    (dict(sgstype='dsmag', lwm=((0, 0, 1), (0, 0, 1)), hwm=0.1),
+     'wall model'),
+    (dict(sgstype='dsmag', bcvel=(((0.,) * 3, (0.,) * 3, (0., 0., 0.1)),
+                                  ((0.,) * 3,) * 3)), 'non-zero w'),
     (dict(cbcvel=((('P', 'P', 'P'), ('D', 'D', 'D'), ('D', 'D', 'D')),) * 2,
           cbcpre=(('P', 'N', 'N'),) * 2), 'non-periodic y'),
     (dict(scalar=True), 'scalar'),
@@ -145,10 +174,13 @@ def test_headline_config_is_in_the_slice():
 
 @pytest.mark.parametrize('change', [
     dict(sgstype='none'), dict(ptransform='mat'), dict(zsolver='thomas'),
-    dict(impdiff=True, impdiff_1d=True, sgstype='none')])
+    dict(impdiff=True, impdiff_1d=True, sgstype='none'),
+    dict(sgstype='dsmag'), dict(sgstype='dsmag', impdiff=True,
+                                impdiff_1d=True),
+    dict(impdiff=True, impdiff_1d=True)])
 def test_configs_inside_the_slice_build(change):
-    """Configurations the implicit-CN slice brought in: no refusal, and
-    the Simulation builds."""
+    """Configurations the implicit-CN and the SGS slices brought in: no
+    refusal, and the Simulation builds."""
     cfg = Config(**{**HEADLINE, **change})
     assert unsupported(cfg) == []
     Simulation(cfg, make_grid_from_config(cfg), device='cpu')
@@ -160,11 +192,7 @@ def test_configs_inside_the_slice_build(change):
 def test_dns_matches_jax_for_three_steps(case):
     change = {} if case == 'impdiff_1d' else dict(impdiff=False,
                                                   impdiff_1d=False)
-    cfg = Config(**{**DNS, **change}, use_pallas=False)
-    grid = make_grid_from_config(cfg)
-    fields = initflow(cfg, grid)
-    jsim, tsim = JaxSimulation(cfg, grid), Simulation(cfg, grid,
-                                                      device='cpu')
+    jsim, tsim, fields = _sims({**DNS, **change})
     jst, tst = jsim.initial_state(*fields), tsim.initial_state(*fields)
     dt = jsim.pick_dt(jsim.check(jst)[0])
     for _ in range(3):
@@ -187,11 +215,8 @@ def test_dns_matches_jax_kernel_path(monkeypatch):
     fused_correc_updatep with alpha Lz(pp)."""
     monkeypatch.setenv('CALES_PALLAS_INTERPRET', '1')
     monkeypatch.setenv('CALES_NO_FUSE_XOP', '1')
-    cfg = Config(**{**DNS, 'ng': (128, 16, 16)})
-    grid = make_grid_from_config(cfg)
-    fields = initflow(cfg, grid)
-    jsim, tsim = JaxSimulation(cfg, grid), Simulation(cfg, grid,
-                                                      device='cpu')
+    jsim, tsim, fields = _sims({**DNS, 'ng': (128, 16, 16)},
+                               use_pallas=True)
     assert jsim.use_pallas_mom and jsim.use_pallas_solve
     assert jsim.use_pallas_cn and jsim._cn_fold and jsim._cn_shift_forcing
     assert not jsim._fuse_xop
@@ -204,11 +229,8 @@ def test_dns_matches_jax_kernel_path(monkeypatch):
 
 
 def test_dns_state_carried_across_from_jax():
-    cfg = Config(**DNS, use_pallas=False)
-    grid = make_grid_from_config(cfg)
-    jsim, tsim = JaxSimulation(cfg, grid), Simulation(cfg, grid,
-                                                      device='cpu')
-    jst = jsim.initial_state(*initflow(cfg, grid))
+    jsim, tsim, fields = _sims(DNS)
+    jst = jsim.initial_state(*fields)
     dt = jsim.pick_dt(jsim.check(jst)[0])
     for _ in range(2):
         jst, _ = jsim.step(jst, dt)
@@ -234,16 +256,17 @@ def test_example_namelists_in_the_slice_match_jax(name, impdiff):
     (32, 16, 16) with and without z-implicit diffusion, 2 steps against
     cales_tpu's XLA path."""
     from pathlib import Path
-    from cales_tpu.nml import config_from_nml
+    from cales_tpu.nml import config_from_nml as jax_nml
+    from cales_torch.nml import config_from_nml
     nml = Path(__file__).resolve().parents[1] / 'examples' / name / 'input.nml'
-    cfg = config_from_nml(nml, dtype='float64').replace(
-        ng=(32, 16, 16), use_pallas=False, impdiff=impdiff,
-        impdiff_1d=impdiff)
-    assert unsupported(cfg) == []
-    grid = make_grid_from_config(cfg)
-    fields = initflow(cfg, grid)
-    jsim, tsim = JaxSimulation(cfg, grid), Simulation(cfg, grid,
-                                                      device='cpu')
+    change = dict(ng=(32, 16, 16), impdiff=impdiff, impdiff_1d=impdiff)
+    jcfg = jax_nml(nml, dtype='float64').replace(use_pallas=False, **change)
+    tcfg = config_from_nml(nml, dtype='float64').replace(**change)
+    assert unsupported(tcfg) == []
+    jgrid = jax_grid(jcfg)
+    fields = initflow(jcfg, jgrid)
+    jsim = JaxSimulation(jcfg, jgrid)
+    tsim = Simulation(tcfg, make_grid_from_config(tcfg), device='cpu')
     jst, tst = jsim.initial_state(*fields), tsim.initial_state(*fields)
     dt = jsim.pick_dt(jsim.check(jst)[0])
     for _ in range(2):
@@ -252,3 +275,56 @@ def test_example_namelists_in_the_slice_match_jax(name, impdiff):
     _compare(jst, tst)
     np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=0,
                                atol=1e-11)
+
+
+# ------------------------------------------ the SGS slice: dsmag, smag + CN
+
+SGS_CASES = {
+    'dsmag_impdiff_1d': DSMAG,
+    'dsmag_explicit': dict(DSMAG, impdiff=False, impdiff_1d=False),
+    'smag_impdiff_1d': dict(HEADLINE, impdiff=True, impdiff_1d=True,
+                            ptransform='mat'),
+}
+
+
+@pytest.mark.parametrize('case', sorted(SGS_CASES))
+def test_sgs_slice_matches_jax_for_three_steps(case):
+    """nu_t from the SGS stage after the post-correction fill (the dsmag
+    or smag kernel's twin), the initial nu_t from sgs.dsmag_visct /
+    smag_visct."""
+    jsim, tsim, fields = _sims(SGS_CASES[case])
+    jst, tst = jsim.initial_state(*fields), tsim.initial_state(*fields)
+    _compare(jst, tst, rel=('visct',))
+    dt = jsim.pick_dt(jsim.check(jst)[0])
+    for _ in range(3):
+        jst, jd = jsim.step(jst, dt)
+        tst, td = tsim.step(tst, dt)
+        _compare(jst, tst, rel=('visct',))
+        np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=0,
+                                   atol=1e-11)
+    assert float(tst.visct.max()) > 0 and float(tst.visct.min()) >= 0
+    for a, b in zip(tsim.check(tst), jsim.check(jst)):
+        assert abs(a - b) <= 1e-10 * max(1.0, abs(b))
+    kernel = 'dsmag' if case.startswith('dsmag') else 'smag'
+    assert kernel in tsim.kernel_names()
+    assert 'correc_smag' not in tsim.kernel_names()
+
+
+def test_dsmag_state_carried_across_from_jax():
+    """A JAX dsmag state after 2 steps (with its nu_t), carried into the
+    port, steps on to the same state."""
+    jsim, tsim, fields = _sims(DSMAG)
+    jst = jsim.initial_state(*fields)
+    dt = jsim.pick_dt(jsim.check(jst)[0])
+    for _ in range(2):
+        jst, _ = jsim.step(jst, dt)
+    leaves = dict(u=jst.u, v=jst.v, w=jst.w, p=jst.p, visct=jst.visct,
+                  vlo=jst.vlo, rhs_old=jst.rhs_old, zq=jst.zq,
+                  time=jst.time, istep=jst.istep)
+    tst = params.state_from_jax_numpy(
+        jax.tree_util.tree_map(np.asarray, leaves), 'cpu', torch.float64)
+    np.testing.assert_array_equal(tst.visct.numpy(), np.asarray(jst.visct))
+    for _ in range(2):
+        jst, _ = jsim.step(jst, dt)
+        tst, _ = tsim.step(tst, dt)
+    _compare(jst, tst, rel=('visct',))
