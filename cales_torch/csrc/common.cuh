@@ -8,10 +8,14 @@
 // z ghosts come from (3, ny, nx) edge stacks (ops/boundary.zedge_*):
 // padded z row -1 is edge[0], row nz-1 is edge[1] (the wall-face rewrite
 // slot of the z-staggered w), row nz is edge[2].  The interior's last row
-// is never read.  x and y are periodic and wrap here.
+// is never read.  x is periodic and wraps here; so is y, unless the
+// y-walled accessor (at<true>, the duct and cavity classes) takes the y
+// rows -1, ny-1 and ny from the field's y-row stack (ops/boundary.yedge_*)
+// in the same way.
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 #define CALES_THREADS 256
@@ -61,6 +65,52 @@ template <typename T>
 __device__ __forceinline__ T at(const T* f, const T* e, const Cell& c,
                                 int dk, int dj, int di) {
   return __ldg(zrow(f, e, c.k + dk, c.nz, c.plane) + c.off(dj, di));
+}
+
+// The y-wall ghost rows of one field: rows (nz, 3, nx) = [padded y 0,
+// padded y ny, padded y ny+1] (padded y ny is v's set_bc rewrite slot, the
+// interior's last row for the others) and their z-edge stack, the corners
+// (3, 3, nx), ordered as the field's own z-edge stack.
+template <typename T>
+struct YRows {
+  const T* rows;
+  const T* corners;
+};
+
+// Padded row kz (-1 .. nz) of a y-row stack: r in {0, 1, 2}.
+template <typename T>
+__device__ __forceinline__ const T* yrow(const YRows<T>& y, int kz, int r,
+                                         int nz, int nx) {
+  const int64_t n3 = 3 * static_cast<int64_t>(nx);
+  const T* base = kz < 0 ? y.corners
+                  : kz >= nz - 1 ? y.corners + (kz - nz + 2) * n3
+                                 : y.rows + kz * n3;
+  return base + static_cast<int64_t>(r) * nx;
+}
+
+// Whether a cell of row j reads a y-wall row (-1, ny-1 or ny) at offsets
+// dj in {-1, 0, 1}.  The y-walled kernels send these rows, and only these,
+// through at<true>: its per-read branch would cost every other row the
+// memory-level parallelism of its plain reads.
+__device__ __forceinline__ bool y_edge(int j, int ny) {
+  return j == 0 || j >= ny - 2;
+}
+
+// at() with y walls when YW: the rows j+dj = -1, ny-1 and ny come from the
+// y-row stack (and its corners at a z ghost or the z rewrite row), every
+// other read from the interior and its z-edge stack.  This is the TPU
+// accessor's _fix_y (pallas_kernels.py:317-342) without the wrap.
+template <bool YW, typename T>
+__device__ __forceinline__ T at(const T* f, const T* e, const YRows<T>& y,
+                                const Cell& c, int dk, int dj, int di) {
+  if (YW) {
+    const int jy = c.j + dj;
+    if (jy < 0 || jy >= c.ny - 1) {
+      const int r = jy < 0 ? 0 : jy - c.ny + 2;
+      return __ldg(yrow(y, c.k + dk, r, c.nz, c.nx) + c.ii(di));
+    }
+  }
+  return at(f, e, c, dk, dj, di);
 }
 
 __device__ __forceinline__ float cexp(float x) { return expf(x); }

@@ -12,6 +12,10 @@
 // rewrite (edge row 1), and every pp read, the k+1 / k-1 neighbours of
 // L(pp) on the first and last rows included, takes the edge rows.
 // fuv (nullable): the deferred bulk-forcing constants (fu, fv).
+// The y-walled variant (YW, the duct and cavity classes) reads pp's y
+// ghost rows from its y-row stack and v's wall face (interior row ny-1)
+// from v's: the prediction fill's set_bc rewrite enters the correction
+// there, as in the reference's padded sweep (pallas_kernels.py:1557-1563).
 //
 // Bound on the H100: memory.  About 8 field streams per call (read u, v,
 // w, pp, p; write u, v, w, p): 1.07 GB at 512x256x256 f32, a 0.32 ms
@@ -21,16 +25,16 @@
 
 namespace cales {
 
-template <typename T>
+template <typename T, bool YW>
 __global__ void __launch_bounds__(CALES_THREADS) correc_kernel(
     const T* __restrict__ u, const T* __restrict__ v, const T* __restrict__ w,
     const T* __restrict__ pp, const T* __restrict__ p,
     const T* __restrict__ we, const T* __restrict__ ppe,
     const T* __restrict__ dzci, const T* __restrict__ dzfi,
     const T* __restrict__ fuv, T* __restrict__ uo, T* __restrict__ vo,
-    T* __restrict__ wo, T* __restrict__ po, int nz, int ny, int nx,
-    int impdiff, int impdiff_1d, T dtrk, T cx, T cy, T dxi, T dyi,
-    T alpha) {
+    T* __restrict__ wo, T* __restrict__ po, YRows<T> ypp,
+    const T* __restrict__ yvr, int nz, int ny, int nx, int impdiff,
+    int impdiff_1d, T dtrk, T cx, T cy, T dxi, T dyi, T alpha) {
   const int k = blockIdx.y;
   const int64_t idx =
       static_cast<int64_t>(blockIdx.x) * CALES_THREADS + threadIdx.x;
@@ -40,42 +44,62 @@ __global__ void __launch_bounds__(CALES_THREADS) correc_kernel(
   const int64_t o = static_cast<int64_t>(k) * plane + idx;
   const T fu = fuv != nullptr ? fuv[0] : T(0);
   const T fv = fuv != nullptr ? fuv[1] : T(0);
-  const T ppc = at(pp, ppe, c, 0, 0, 0);
-  const T ppk = at(pp, ppe, c, 1, 0, 0);
-  const T dzci_c = dzci[k + 1];
-  uo[o] = fu + u[o] - cx * (at(pp, ppe, c, 0, 0, 1) - ppc);
-  vo[o] = fv + v[o] - cy * (at(pp, ppe, c, 0, 1, 0) - ppc);
-  wo[o] = at(w, we, c, 0, 0, 0) - dtrk * dzci_c * (ppk - ppc);
-  T pn = p[o] + ppc;
-  if (impdiff) {
-    // p += alpha L(pp) (updatep.f90:26-50)
-    T lap = ((ppk - ppc) * dzci_c -
-             (ppc - at(pp, ppe, c, -1, 0, 0)) * dzci[k]) *
-            dzfi[k + 1];
-    if (!impdiff_1d) {
-      lap = lap +
-            (at(pp, ppe, c, 0, 0, 1) - T(2) * ppc + at(pp, ppe, c, 0, 0, -1)) *
-                dxi * dxi +
-            (at(pp, ppe, c, 0, 1, 0) - T(2) * ppc + at(pp, ppe, c, 0, -1, 0)) *
-                dyi * dyi;
+  // Y: the cell's row reads a y-wall row of pp or v (common.cuh y_edge)
+  auto update = [&](auto ytag) {
+    constexpr bool Y = decltype(ytag)::value;
+#define PP(dk, dj, di) at<Y>(pp, ppe, ypp, c, dk, dj, di)
+    const T ppc = PP(0, 0, 0);
+    const T ppk = PP(1, 0, 0);
+    const T dzci_c = dzci[k + 1];
+    const T vin = (Y && c.j == ny - 1)
+                      ? yvr[(static_cast<int64_t>(k) * 3 + 1) * nx + c.i]
+                      : v[o];
+    uo[o] = fu + u[o] - cx * (PP(0, 0, 1) - ppc);
+    vo[o] = fv + vin - cy * (PP(0, 1, 0) - ppc);
+    wo[o] = at(w, we, c, 0, 0, 0) - dtrk * dzci_c * (ppk - ppc);
+    T pn = p[o] + ppc;
+    if (impdiff) {
+      // p += alpha L(pp) (updatep.f90:26-50)
+      T lap = ((ppk - ppc) * dzci_c - (ppc - PP(-1, 0, 0)) * dzci[k]) *
+              dzfi[k + 1];
+      if (!impdiff_1d) {
+        lap = lap + (PP(0, 0, 1) - T(2) * ppc + PP(0, 0, -1)) * dxi * dxi +
+              (PP(0, 1, 0) - T(2) * ppc + PP(0, -1, 0)) * dyi * dyi;
+      }
+      pn = pn + alpha * lap;
     }
-    pn = pn + alpha * lap;
+    po[o] = pn;
+#undef PP
+  };
+  if constexpr (YW) {
+    if (y_edge(c.j, ny))
+      update(std::true_type{});
+    else
+      update(std::false_type{});
+  } else {
+    update(std::false_type{});
   }
-  po[o] = pn;
 }
 
+// yppr, yppc: pp's y-row stack and corners; yvr: v's y-row stack (its
+// row 1 is the wall face); all three null without y walls
 template <typename T>
 int launch_correc(const T* u, const T* v, const T* w, const T* pp,
                   const T* p, const T* we, const T* ppe, const T* dzci,
                   const T* dzfi, const T* fuv, T* uo, T* vo, T* wo, T* po,
-                  int nz, int ny, int nx, int impdiff, int impdiff_1d,
-                  double dtrk, double dxi, double dyi, double alpha,
-                  void* stream) {
-  correc_kernel<T><<<plane_grid(nz, ny, nx), CALES_THREADS, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      u, v, w, pp, p, we, ppe, dzci, dzfi, fuv, uo, vo, wo, po, nz, ny, nx,
-      impdiff, impdiff_1d, T(dtrk), T(dtrk * dxi), T(dtrk * dyi), T(dxi),
-      T(dyi), T(alpha));
+                  const T* yppr, const T* yppc, const T* yvr, int nz, int ny,
+                  int nx, int impdiff, int impdiff_1d, double dtrk,
+                  double dxi, double dyi, double alpha, void* stream) {
+  const bool yw = yppr != nullptr;
+  if (yw != (yppc != nullptr) || yw != (yvr != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const YRows<T> ypp{yppr, yppc};
+  auto kern = yw ? &correc_kernel<T, true> : &correc_kernel<T, false>;
+  kern<<<plane_grid(nz, ny, nx), CALES_THREADS, 0,
+         static_cast<cudaStream_t>(stream)>>>(
+      u, v, w, pp, p, we, ppe, dzci, dzfi, fuv, uo, vo, wo, po, ypp, yvr, nz,
+      ny, nx, impdiff, impdiff_1d, T(dtrk), T(dtrk * dxi), T(dtrk * dyi),
+      T(dxi), T(dyi), T(alpha));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -85,13 +109,14 @@ int launch_correc(const T* u, const T* v, const T* w, const T* pp,
   extern "C" int NAME(const T* u, const T* v, const T* w, const T* pp,       \
                       const T* p, const T* we, const T* ppe, const T* dzci,  \
                       const T* dzfi, const T* fuv, T* uo, T* vo, T* wo,      \
-                      T* po, int nz, int ny, int nx, int impdiff,            \
-                      int impdiff_1d, double dtrk, double dxi, double dyi,   \
-                      double alpha, void* stream) {                          \
+                      T* po, const T* yppr, const T* yppc, const T* yvr,     \
+                      int nz, int ny, int nx, int impdiff, int impdiff_1d,   \
+                      double dtrk, double dxi, double dyi, double alpha,     \
+                      void* stream) {                                        \
     return cales::launch_correc<T>(u, v, w, pp, p, we, ppe, dzci, dzfi, fuv, \
-                                   uo, vo, wo, po, nz, ny, nx, impdiff,      \
-                                   impdiff_1d, dtrk, dxi, dyi, alpha,        \
-                                   stream);                                  \
+                                   uo, vo, wo, po, yppr, yppc, yvr, nz, ny,  \
+                                   nx, impdiff, impdiff_1d, dtrk, dxi, dyi,  \
+                                   alpha, stream);                           \
   }
 
 CALES_CORREC_ENTRY(cales_correc_f32, float)

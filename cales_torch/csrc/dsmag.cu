@@ -1,13 +1,17 @@
-// Dynamic Smagorinsky (Germano-Lilly) with channel averaging, one z-march.
+// Dynamic Smagorinsky (Germano-Lilly), one z-march.
 //
 // Replaces: cales_tpu/ops/pallas_dsmag.py fused_dsmag_onepass (body
-// _ds_onepass_kernel) with avg='channel' on the single-device path.  From
-// the post-correction fill (interiors + z-edge stacks) it returns the
-// grid-level |S| and, per (z row, block), the partial sums of
-// num = M_ij L_ij and den = M_ij M_ij (off-diagonal pairs twice); the
-// caller sums each row and forms nu_t = max(|S| num/den, 0)
-// (reference sgs.f90:153-370, ave1d_channel 433-538).  The model and its
-// ghost recipes are cales_torch/ops/kernels.dsmag_plain's:
+// _ds_onepass_kernel) on the single-device path, with its three averages
+// (reference sgs.f90:153-370, ave1d_channel 433-538, ave2d_duct 540-614):
+//   'channel'  |S| and, per (z row, block), the partial sums of
+//              num = M_ij L_ij and den = M_ij M_ij (off-diagonal pairs
+//              twice); the caller sums each z row and forms
+//              nu_t = max(|S| num/den, 0);
+//   'duct'     |S| and the partial sums per (z, y) row and x block (a tile
+//              row is one warp, so a shuffle sums its 32 cells); the
+//              caller sums over the x blocks: one ratio per (z, y) row;
+//   'cavity'   nu_t = max(|S| num/den, 0) cell by cell, no averaging.
+// The model and its ghost recipes are cales_torch/ops/kernels.dsmag_plain's:
 //   A  source quantities at a cell centre: |S| S_ij (6), the centred
 //      velocity (3) and its products (6), and |S|;
 //   B  the 27-point test filter (sgs.f90:616-680, separable (1,2,1)/4 in
@@ -19,6 +23,14 @@
 //      0 for w on both z faces (its lower face and the padded-row-nz
 //      rewrite); M_ij = 2 (filt(|S| S_ij) - alpha^2 |S~| S~_ij), the
 //      Leonard term L_ij = filt(uc_i uc_j) - filt(uc_i) filt(uc_j).
+// With y walls (the duct and cavity classes, both y faces walls) the same
+// recipes hold along y (pallas_dsmag.py:905-1120): the velocity's y ghost
+// rows come from the post-correction fill's y-row stacks; A's y ghost rows
+// are the extrapolation 2 q_0 - q_1 of A itself (not A of the ghost
+// velocity), and so are u's and w's for their filter; the filtered u and w
+// take -F(first row) + 2b at a y wall (b the 'D' value), the filtered v is
+// 0 on its lower wall face and its padded-ny rewrite row; alpha^2 is 2.52
+// on the first and last y rows as on the first and last z rows.
 //
 // Design.  A block owns an 8 x 32 (y, x) tile and marches z through three
 // rings of planes in shared memory, one plane entering per step:
@@ -28,10 +40,16 @@
 // At step t the block loads velocity plane t+1, forms A and F at plane t,
 // then finishes plane t-1 at the tile's centre: the 15 filtered A
 // quantities, the test-level strain from F, M_ij, L_ij and the contraction
-// in registers, a block reduction for the row sums, and |S|.  Nothing but
-// |S| and the partial sums goes to global memory.  x and y are periodic
-// and wrap when a plane is loaded; a ragged tile's outside cells are
+// in registers, the sums or nu_t, and |S|.  With y walls (template switch
+// YW) the velocity's rows -1, ny-1 and ny load from the y-row stacks, and
+// one pass after stage A writes plane t's y ghost rows of A and F by
+// their recipes, so stage C reads the same code as without walls.
+// Nothing but |S| (or nu_t) and the partial sums goes to global memory.  x wraps when a plane is loaded,
+// and so does y without y walls; a ragged tile's outside cells are
 // computed on wrapped data and left out of the output and the sums.
+// 'duct' keeps this tile and leaves the last sum over x to the caller, a
+// (nz, ny, nx/32) reduction, rather than a tile spanning all of x (the TPU
+// kernel's fold_ratio), which would not fit shared memory at nx = 512.
 //
 // Shared memory: (9 * 12 * 36 + 48 * 10 * 34 + 9 * 10 * 34) words =
 // 93,072 bytes in f32 (two blocks on an SM), 186,144 in f64, within the
@@ -59,6 +77,8 @@ constexpr int DS_AY = DS_TY + 2, DS_AX = DS_TX + 2;   // A and F, halo 1
 constexpr int DS_VPL = DS_VY * DS_VX, DS_APL = DS_AY * DS_AX;
 constexpr int DS_NA = 16;                      // A quantities
 static_assert(DS_NT == CALES_THREADS, "block_sum assumes CALES_THREADS");
+static_assert(DS_TX == 32, "'duct' sums a tile row as one warp");
+enum { DS_CHANNEL = 0, DS_DUCT = 1, DS_CAVITY = 2 };
 
 template <typename T>
 constexpr size_t dsmag_smem_bytes() {
@@ -89,21 +109,31 @@ __device__ __forceinline__ T filter27(const F& f) {
   return q * (zq[0] + two * zq[1] + zq[2]);
 }
 
+// The y-wall inputs and recipes of one call: y-row stacks of the velocity
+// (null without y walls) and the filtered fill's 'D' offsets 2b of u and w
+// on the lower and upper y walls.
 template <typename T>
+struct DsYWalls {
+  YRows<T> vel[3];
+  T off_lo[3], off_hi[3];   // index 1 (v) unused: v's fill is 0
+};
+
+template <typename T, bool YW, int AVG>
 __global__ void __launch_bounds__(DS_NT) dsmag_kernel(
     const T* __restrict__ u, const T* __restrict__ v, const T* __restrict__ w,
     const T* __restrict__ ue, const T* __restrict__ ve,
     const T* __restrict__ we, const T* __restrict__ alph2,
     const T* __restrict__ dzci, const T* __restrict__ dzfi,
-    T* __restrict__ s0o, T* __restrict__ numo, T* __restrict__ deno, int nz,
-    int ny, int nx, int wall_lo, int wall_hi, T dxi, T dyi, T zoff_lo_u,
-    T zoff_hi_u, T zoff_lo_v, T zoff_hi_v) {
+    T* __restrict__ s0o, T* __restrict__ numo, T* __restrict__ deno,
+    DsYWalls<T> yw, int nz, int ny, int nx, int wall_lo, int wall_hi, T dxi,
+    T dyi, T zoff_lo_u, T zoff_hi_u, T zoff_lo_v, T zoff_hi_v) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* const Vs = reinterpret_cast<T*>(smem_raw);   // [3 planes][3][VPL]
   T* const As = Vs + 9 * DS_VPL;                   // [3 planes][16][APL]
   T* const Fs = As + 3 * DS_NA * DS_APL;           // [3 planes][3][APL]
   const int gx = (nx + DS_TX - 1) / DS_TX;
-  const int x0 = (blockIdx.x % gx) * DS_TX;
+  const int bx = blockIdx.x % gx;
+  const int x0 = bx * DS_TX;
   const int y0 = (blockIdx.x / gx) * DS_TY;
   const int tid = threadIdx.x;
   const int64_t plane = static_cast<int64_t>(ny) * nx;
@@ -121,15 +151,21 @@ __global__ void __launch_bounds__(DS_NT) dsmag_kernel(
   auto fvel = [&](int kz, int c) { return Fs + (ring(kz) * 3 + c) * DS_APL; };
 
   // velocity plane kz (-1 .. nz, ghost rows from the edge stacks) on the
-  // tile + halo 2, x and y wrapped
+  // tile + halo 2, x wrapped; y wrapped, or with y walls the rows -1, ny-1
+  // and ny from the y-row stacks
   auto load = [&](int kz) {
     for (int c = 0; c < 3; ++c) {
       const T* row = zrow(fld[c], edg[c], kz, nz, plane);
       T* dst = vel(kz, c);
       for (int e = tid; e < DS_VPL; e += DS_NT) {
         const int ly = e / DS_VX, lx = e - ly * DS_VX;
-        const int y = wrap(y0 - 2 + ly, ny), x = wrap(x0 - 2 + lx, nx);
-        dst[e] = __ldg(row + static_cast<int64_t>(y) * nx + x);
+        const int y = y0 - 2 + ly, x = wrap(x0 - 2 + lx, nx);
+        if (YW && (y == -1 || y == ny - 1 || y == ny)) {
+          dst[e] = __ldg(yrow(yw.vel[c], kz, y < 0 ? 0 : y - ny + 2, nz, nx) +
+                         x);
+        } else {
+          dst[e] = __ldg(row + static_cast<int64_t>(wrap(y, ny)) * nx + x);
+        }
       }
     }
   };
@@ -141,6 +177,7 @@ __global__ void __launch_bounds__(DS_NT) dsmag_kernel(
     const bool ext_lo = wall_lo && t == 0, ext_hi = wall_hi && t == nz - 1;
     for (int e = tid; e < DS_APL; e += DS_NT) {
       const int ay = e / DS_AX, ax = e - ay * DS_AX;
+      const int gy = y0 - 1 + ay;
       const int vo = (ay + 1) * DS_VX + ax + 1;
       auto U = [&](int dk, int dj, int di) {
         return vel(t + dk, 0)[vo + dj * DS_VX + di];
@@ -171,12 +208,61 @@ __global__ void __launch_bounds__(DS_NT) dsmag_kernel(
         const T* pc = vel(t, c);
         const T* pp = vel(t + 1, c);
         const bool lo = c < 2 && ext_lo, hi = c < 2 && ext_hi;
-        fvel(t, c)[e] = filter27<T>([&](int dk, int dj, int di) -> T {
-          const int o = vo + dj * DS_VX + di;
+        // the velocity at (t+dk, offset o), z ghosts extrapolated
+        auto zval = [&](int dk, int o) -> T {
           if (dk < 0) return lo ? two * pc[o] - pp[o] : pm[o];
           if (dk > 0) return hi ? two * pc[o] - pm[o] : pp[o];
           return pc[o];
-        });
+        };
+        if (YW && c != 1 && (gy <= 0 || gy >= ny - 1)) {
+          // u's and w's y ghost rows extrapolated at the y walls
+          fvel(t, c)[e] = filter27<T>([&](int dk, int dj, int di) -> T {
+            const int o = vo + dj * DS_VX + di, y = gy + dj;
+            if (y < 0)
+              return two * zval(dk, o + DS_VX) - zval(dk, o + 2 * DS_VX);
+            if (y >= ny)
+              return two * zval(dk, o - DS_VX) - zval(dk, o - 2 * DS_VX);
+            return zval(dk, o);
+          });
+        } else {
+          fvel(t, c)[e] = filter27<T>([&](int dk, int dj, int di) -> T {
+            return zval(dk, vo + dj * DS_VX + di);
+          });
+        }
+      }
+    }
+    if (YW && (y0 == 0 || y0 >= ny - DS_TY - 1)) {
+      // plane t's y ghost rows, y = -1 and ny (tile rows rlo and rhi,
+      // in the first and last tile rows only):
+      // A's are the extrapolation of A (pallas_dsmag.py:941-949); the
+      // filtered u's and w's the fill -F(first row) + 2b, the filtered v's
+      // 0, as is its rewrite row y = ny-1 (pallas_dsmag.py:1057-1071), so
+      // stage C reads the filled rows as they are
+      __syncthreads();
+      const int rlo = -y0, rhi = ny - y0 + 1;
+      constexpr int nfix = DS_NA - 1 + 3;    // A's 15 filtered + F's 3
+      for (int e = tid; e < 2 * nfix * DS_AX; e += DS_NT) {
+        const int side = e / (nfix * DS_AX);
+        const int rest = e - side * nfix * DS_AX;
+        const int q = rest / DS_AX, ax = rest - q * DS_AX;
+        const int ay = side == 0 ? rlo : rhi;
+        const int in = side == 0 ? DS_AX : -DS_AX;
+        if (q < DS_NA - 1) {
+          if (ay < 0 || ay >= DS_AY) continue;
+          T* a = src(t, q) + ay * DS_AX + ax;
+          a[0] = two * a[in] - a[2 * in];
+          continue;
+        }
+        const int c = q - (DS_NA - 1);
+        if (c == 1) {
+          // v: the lower wall face and the rewrite row (one row below rhi)
+          const int r = side == 0 ? rlo : rhi - 1;
+          if (r >= 0 && r < DS_AY) fvel(t, 1)[r * DS_AX + ax] = T(0);
+          continue;
+        }
+        if (ay < 0 || ay >= DS_AY) continue;
+        T* f = fvel(t, c) + ay * DS_AX + ax;
+        f[0] = -f[in] + (side == 0 ? yw.off_lo[c] : yw.off_hi[c]);
       }
     }
   };
@@ -184,9 +270,10 @@ __global__ void __launch_bounds__(DS_NT) dsmag_kernel(
   // stage C at the centre of plane kc; every thread calls it (block sums)
   const int cy = tid / DS_TX, cx = tid - cy * DS_TX;
   const int ao = (cy + 1) * DS_AX + cx + 1;
-  const bool inside = y0 + cy < ny && x0 + cx < nx;
+  const int yc = y0 + cy;
+  const bool inside = yc < ny && x0 + cx < nx;
   auto stage_c = [&](int kc) {
-    // A quantity q at row kz in kc-1 .. kc+1, ghosts extrapolated at walls
+    // A quantity q at row kz in kc-1 .. kc+1, z ghosts extrapolated at walls
     auto a_at = [&](int q, int kz, int o) -> T {
       if (kz < 0) {
         const T a0 = src(0, q)[o];
@@ -204,7 +291,8 @@ __global__ void __launch_bounds__(DS_NT) dsmag_kernel(
       fq[q] = filter27<T>([&](int dk, int dj, int di) {
         return a_at(q, kc + dk, ao + dj * DS_AX + di);
       });
-    // the filtered velocity with its BC fill (bounduvw, static planes)
+    // the filtered velocity with its z fill (bounduvw, static planes; the
+    // y fill is in the ring already)
     auto FU = [&](int c, int dk, int dj, int di) -> T {
       const int kz = kc + dk, o = ao + dj * DS_AX + di;
       if (c == 2) return (kz < 0 || kz == nz - 1) ? T(0) : fvel(kz, 2)[o];
@@ -218,7 +306,7 @@ __global__ void __launch_bounds__(DS_NT) dsmag_kernel(
         [&](int dk, int dj, int di) { return FU(1, dk, dj, di); },
         [&](int dk, int dj, int di) { return FU(2, dk, dj, di); }, dxi, dyi,
         dzci[kc + 1], dzci[kc], dzfi[kc + 1], sf);
-    const T a2 = alph2[kc];
+    const T a2 = (YW && (yc == 0 || yc == ny - 1)) ? T(2.52) : alph2[kc];
     T m[6], l[6];
     const int pa[6] = {6, 7, 8, 6, 6, 7}, pb[6] = {6, 7, 8, 7, 8, 8};
 #pragma unroll
@@ -230,12 +318,33 @@ __global__ void __launch_bounds__(DS_NT) dsmag_kernel(
             two * (m[3] * l[3] + m[4] * l[4] + m[5] * l[5]);
     T den = m[0] * m[0] + m[1] * m[1] + m[2] * m[2] +
             two * (m[3] * m[3] + m[4] * m[4] + m[5] * m[5]);
+    const int64_t oc = kc * plane + static_cast<int64_t>(yc) * nx + x0 + cx;
+    if constexpr (AVG == DS_CAVITY) {
+      // nu_t = max(|S| num / den, 0); a NaN passes, as in max(x, 0.0)
+      if (inside) {
+        const T r = src(kc, 15)[ao] * num / den;
+        s0o[oc] = r < T(0) ? T(0) : r;
+      }
+      return;
+    }
     if (inside) {
-      s0o[kc * plane + static_cast<int64_t>(y0 + cy) * nx + x0 + cx] =
-          src(kc, 15)[ao];
+      s0o[oc] = src(kc, 15)[ao];
     } else {
       num = T(0);
       den = T(0);
+    }
+    if constexpr (AVG == DS_DUCT) {
+      // the tile row's 32 cells are one warp
+      for (int off = 16; off > 0; off >>= 1) {
+        num += __shfl_down_sync(0xffffffffu, num, off);
+        den += __shfl_down_sync(0xffffffffu, den, off);
+      }
+      if (cx == 0 && yc < ny) {
+        const int64_t r = (static_cast<int64_t>(kc) * ny + yc) * gx + bx;
+        numo[r] = num;
+        deno[r] = den;
+      }
+      return;
     }
     const T ns = block_sum(num);
     const T ds = block_sum(den);
@@ -257,27 +366,51 @@ __global__ void __launch_bounds__(DS_NT) dsmag_kernel(
   }
 }
 
+template <typename T, bool YW>
+auto pick_dsmag(int avg) {
+  return avg == DS_DUCT     ? &dsmag_kernel<T, YW, DS_DUCT>
+         : avg == DS_CAVITY ? &dsmag_kernel<T, YW, DS_CAVITY>
+                            : &dsmag_kernel<T, YW, DS_CHANNEL>;
+}
+
+// y: the y-row stacks and corners of u, v, w (6 pointers), all null
+// without y walls; yvals: the filtered fill's 'D' values (u_lo, u_hi,
+// w_lo, w_hi) on the y walls; avg: DS_CHANNEL, DS_DUCT or DS_CAVITY.
 template <typename T>
 int launch_dsmag(const T* u, const T* v, const T* w, const T* ue,
                  const T* ve, const T* we, const T* alph2, const T* dzci,
-                 const T* dzfi, T* s0o, T* numo, T* deno, int nz, int ny,
-                 int nx, int wall_lo, int wall_hi, double dxi, double dyi,
-                 double zlo_u, double zhi_u, double zlo_v, double zhi_v,
-                 void* stream) {
-  if (nz < 2) return static_cast<int>(cudaErrorInvalidValue);
+                 const T* dzfi, T* s0o, T* numo, T* deno,
+                 const T* const* y, int nz, int ny, int nx, int wall_lo,
+                 int wall_hi, int avg, double dxi, double dyi,
+                 const double* zvals, const double* yvals, void* stream) {
+  const bool ywall = y[0] != nullptr;
+  if (nz < 2 || (ywall && ny < 4) || avg < DS_CHANNEL || avg > DS_CAVITY)
+    return static_cast<int>(cudaErrorInvalidValue);
+  for (int m = 0; m < 6; ++m)
+    if (ywall != (y[m] != nullptr))
+      return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = dsmag_smem_bytes<T>();
+  auto kern = ywall ? pick_dsmag<T, true>(avg) : pick_dsmag<T, false>(avg);
   cudaError_t err = cudaFuncSetAttribute(
-      dsmag_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int nblk = ((ny + DS_TY - 1) / DS_TY) * ((nx + DS_TX - 1) / DS_TX);
+  DsYWalls<T> yw{};
+  for (int c = 0; c < 3; ++c) yw.vel[c] = YRows<T>{y[2 * c], y[2 * c + 1]};
+  if (ywall) {
+    yw.off_lo[0] = T(2 * yvals[0]);
+    yw.off_hi[0] = T(2 * yvals[1]);
+    yw.off_lo[2] = T(2 * yvals[2]);
+    yw.off_hi[2] = T(2 * yvals[3]);
+  }
   // the filtered-velocity fill's 'D' offsets 2b, on wall faces only
-  const T olu = wall_lo ? T(2 * zlo_u) : T(0);
-  const T olv = wall_lo ? T(2 * zlo_v) : T(0);
-  const T ohu = wall_hi ? T(2 * zhi_u) : T(0);
-  const T ohv = wall_hi ? T(2 * zhi_v) : T(0);
-  dsmag_kernel<T><<<nblk, DS_NT, smem, static_cast<cudaStream_t>(stream)>>>(
-      u, v, w, ue, ve, we, alph2, dzci, dzfi, s0o, numo, deno, nz, ny, nx,
+  const T olu = wall_lo ? T(2 * zvals[0]) : T(0);
+  const T ohu = wall_hi ? T(2 * zvals[1]) : T(0);
+  const T olv = wall_lo ? T(2 * zvals[2]) : T(0);
+  const T ohv = wall_hi ? T(2 * zvals[3]) : T(0);
+  kern<<<nblk, DS_NT, smem, static_cast<cudaStream_t>(stream)>>>(
+      u, v, w, ue, ve, we, alph2, dzci, dzfi, s0o, numo, deno, yw, nz, ny, nx,
       wall_lo, wall_hi, T(dxi), T(dyi), olu, ohu, olv, ohv);
   return static_cast<int>(cudaGetLastError());
 }
@@ -288,14 +421,20 @@ int launch_dsmag(const T* u, const T* v, const T* w, const T* ue,
   extern "C" int NAME(const T* u, const T* v, const T* w, const T* ue,        \
                       const T* ve, const T* we, const T* alph2,               \
                       const T* dzci, const T* dzfi, T* s0o, T* numo,          \
-                      T* deno, int nz, int ny, int nx, int wall_lo,           \
-                      int wall_hi, double dxi, double dyi, double zlo_u,      \
-                      double zhi_u, double zlo_v, double zhi_v,               \
+                      T* deno, const T* yur, const T* yuc, const T* yvr,      \
+                      const T* yvc, const T* ywr, const T* ywc, int nz,       \
+                      int ny, int nx, int wall_lo, int wall_hi, int avg,      \
+                      double dxi, double dyi, double zlo_u, double zhi_u,     \
+                      double zlo_v, double zhi_v, double ylo_u,               \
+                      double yhi_u, double ylo_w, double yhi_w,               \
                       void* stream) {                                         \
+    const T* const y[6] = {yur, yuc, yvr, yvc, ywr, ywc};                     \
+    const double zvals[4] = {zlo_u, zhi_u, zlo_v, zhi_v};                     \
+    const double yvals[4] = {ylo_u, yhi_u, ylo_w, yhi_w};                     \
     return cales::launch_dsmag<T>(u, v, w, ue, ve, we, alph2, dzci, dzfi,     \
-                                  s0o, numo, deno, nz, ny, nx, wall_lo,       \
-                                  wall_hi, dxi, dyi, zlo_u, zhi_u, zlo_v,     \
-                                  zhi_v, stream);                             \
+                                  s0o, numo, deno, y, nz, ny, nx, wall_lo,    \
+                                  wall_hi, avg, dxi, dyi, zvals, yvals,       \
+                                  stream);                                    \
   }
 
 CALES_DSMAG_ENTRY(cales_dsmag_f32, float)

@@ -4,7 +4,10 @@
 // _fillps_kernel), the plain variant (no x/y transform fusion, no wall
 // bundles).  Formula: cales_torch/ops/stencil.fillps (reference
 // fillps.f90:14-48).  The prediction fill's w wall-face rewrite enters
-// through the edge stack's row 1.
+// through the edge stack's row 1.  The y-walled variant (YW, the duct and
+// cavity classes) reads v's lower wall face and its rewrite row from v's
+// y-row stack (pallas_kernels.py:1144-1155: v is the one field read at
+// j-1); u and w are read at their own row only.
 //
 // Bound on the H100: memory.  About 5 field streams per call (read u, v,
 // w at their backward neighbours; write the RHS): 0.67 GB at 512x256x256
@@ -15,32 +18,51 @@
 
 namespace cales {
 
-template <typename T>
+template <typename T, bool YW>
 __global__ void __launch_bounds__(CALES_THREADS) fillps_kernel(
     const T* __restrict__ u, const T* __restrict__ v, const T* __restrict__ w,
     const T* __restrict__ ue, const T* __restrict__ ve,
     const T* __restrict__ we, const T* __restrict__ dzfi,
-    T* __restrict__ rhs, int nz, int ny, int nx, T dti, T cy, T cx) {
+    T* __restrict__ rhs, YRows<T> yv, int nz, int ny, int nx, T dti, T cy,
+    T cx) {
   const int k = blockIdx.y;
   const int64_t idx =
       static_cast<int64_t>(blockIdx.x) * CALES_THREADS + threadIdx.x;
   const int64_t plane = static_cast<int64_t>(ny) * nx;
   if (idx >= plane) return;
   const Cell c(k, idx, nz, ny, nx);
-  rhs[static_cast<int64_t>(k) * plane + idx] =
-      (at(w, we, c, 0, 0, 0) - at(w, we, c, -1, 0, 0)) * dti * dzfi[k + 1] +
-      (at(v, ve, c, 0, 0, 0) - at(v, ve, c, 0, -1, 0)) * cy +
-      (at(u, ue, c, 0, 0, 0) - at(u, ue, c, 0, 0, -1)) * cx;
+  // Y: the cell's row reads a y-wall row of v (common.cuh y_edge)
+  auto div = [&](auto ytag) {
+    constexpr bool Y = decltype(ytag)::value;
+    return (at(w, we, c, 0, 0, 0) - at(w, we, c, -1, 0, 0)) * dti *
+               dzfi[k + 1] +
+           (at<Y>(v, ve, yv, c, 0, 0, 0) - at<Y>(v, ve, yv, c, 0, -1, 0)) *
+               cy +
+           (at(u, ue, c, 0, 0, 0) - at(u, ue, c, 0, 0, -1)) * cx;
+  };
+  T r;
+  if constexpr (YW) {
+    r = y_edge(c.j, ny) ? div(std::true_type{}) : div(std::false_type{});
+  } else {
+    r = div(std::false_type{});
+  }
+  rhs[static_cast<int64_t>(k) * plane + idx] = r;
 }
 
+// yvr, yvc: v's y-row stack and corners, both null without y walls
 template <typename T>
 int launch_fillps(const T* u, const T* v, const T* w, const T* ue,
-                  const T* ve, const T* we, const T* dzfi, T* rhs, int nz,
-                  int ny, int nx, double dti, double dxi, double dyi,
-                  void* stream) {
-  fillps_kernel<T><<<plane_grid(nz, ny, nx), CALES_THREADS, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      u, v, w, ue, ve, we, dzfi, rhs, nz, ny, nx, T(dti), T(dti * dyi),
+                  const T* ve, const T* we, const T* dzfi, T* rhs,
+                  const T* yvr, const T* yvc, int nz, int ny, int nx,
+                  double dti, double dxi, double dyi, void* stream) {
+  if ((yvr == nullptr) != (yvc == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const YRows<T> yv{yvr, yvc};
+  auto kern = yvr != nullptr ? &fillps_kernel<T, true>
+                             : &fillps_kernel<T, false>;
+  kern<<<plane_grid(nz, ny, nx), CALES_THREADS, 0,
+         static_cast<cudaStream_t>(stream)>>>(
+      u, v, w, ue, ve, we, dzfi, rhs, yv, nz, ny, nx, T(dti), T(dti * dyi),
       T(dti * dxi));
   return static_cast<int>(cudaGetLastError());
 }
@@ -50,10 +72,10 @@ int launch_fillps(const T* u, const T* v, const T* w, const T* ue,
 #define CALES_FILLPS_ENTRY(NAME, T)                                          \
   extern "C" int NAME(const T* u, const T* v, const T* w, const T* ue,       \
                       const T* ve, const T* we, const T* dzfi, T* rhs,       \
-                      int nz, int ny, int nx, double dti, double dxi,        \
-                      double dyi, void* stream) {                            \
-    return cales::launch_fillps<T>(u, v, w, ue, ve, we, dzfi, rhs, nz, ny,   \
-                                   nx, dti, dxi, dyi, stream);               \
+                      const T* yvr, const T* yvc, int nz, int ny, int nx,    \
+                      double dti, double dxi, double dyi, void* stream) {    \
+    return cales::launch_fillps<T>(u, v, w, ue, ve, we, dzfi, rhs, yvr, yvc, \
+                                   nz, ny, nx, dti, dxi, dyi, stream);       \
   }
 
 CALES_FILLPS_ENTRY(cales_fillps_f32, float)

@@ -3,9 +3,13 @@
 // Replaces: cales_tpu/ops/pallas_kernels.py fused_mom_rk (body _mom_kernel)
 // on the single-device periodic-x/y path: previous-RHS reads skipped on the
 // first substep (ruo == nullptr, f2 == 0), per-(z, block) partial sums of
-// the new u and v for the bulk forcing, and two template switches:
+// the new u and v for the bulk forcing, and three template switches:
 //   SGS    eddy-stress terms from visct (with_sgs); false for sgstype
 //          'none', where s and se are null and never read;
+//   YW     y walls (the duct and cavity classes, ywalls=(True, True)): the
+//          y ghost rows of u, v, w, visct and p and v's rewrite row come
+//          from their y-row stacks (common.cuh at<true>), as the TPU
+//          kernel's ye bundle fixes them (pallas_kernels.py:617-628);
 //   SPLIT  implicit z diffusion (split='1d' with fold_cn): ru = advection +
 //          xy diffusion is the stored explicit RHS, rud = the z diffusion,
 //          and the kernel emits the Crank-Nicolson RHS u + 1/2 f12 rud
@@ -22,24 +26,32 @@
 // at up to 13 neighbours; this simple design takes them straight from
 // global memory (read-only path, __ldg) and relies on L1/L2 to turn the
 // neighbour reuse into hits.  Tiling the z-march through shared memory is
-// later work.
+// later work.  The y-walled variant sends only the rows next to a wall
+// through the stacks (common.cuh y_edge); its time is in PERF.md §6.
 #include "common.cuh"
 
 namespace cales {
 
-template <typename T, bool SGS, bool SPLIT>
-__global__ void __launch_bounds__(CALES_THREADS) mom_rk_kernel(
-    const T* __restrict__ u, const T* __restrict__ v, const T* __restrict__ w,
-    const T* __restrict__ s, const T* __restrict__ p,
-    const T* __restrict__ ue, const T* __restrict__ ve,
-    const T* __restrict__ we, const T* __restrict__ se,
-    const T* __restrict__ pe, const T* __restrict__ ruo,
-    const T* __restrict__ rvo, const T* __restrict__ rwo,
-    const T* __restrict__ dzci, const T* __restrict__ dzfi,
-    T* __restrict__ uo, T* __restrict__ vo, T* __restrict__ wo,
-    T* __restrict__ ruo_new, T* __restrict__ rvo_new, T* __restrict__ rwo_new,
-    T* __restrict__ usum, T* __restrict__ vsum, int nz, int ny, int nx,
-    T f1, T f2, T visc, T dxi, T dyi, T bfx, T bfy, T bfz) {
+#define CALES_MOM_RK_PARAMS                                                   \
+    const T* __restrict__ u, const T* __restrict__ v, const T* __restrict__ w,\
+    const T* __restrict__ s, const T* __restrict__ p,                         \
+    const T* __restrict__ ue, const T* __restrict__ ve,                       \
+    const T* __restrict__ we, const T* __restrict__ se,                       \
+    const T* __restrict__ pe, const T* __restrict__ ruo,                      \
+    const T* __restrict__ rvo, const T* __restrict__ rwo,                     \
+    const T* __restrict__ dzci, const T* __restrict__ dzfi,                   \
+    T* __restrict__ uo, T* __restrict__ vo, T* __restrict__ wo,               \
+    T* __restrict__ ruo_new, T* __restrict__ rvo_new, T* __restrict__ rwo_new,\
+    T* __restrict__ usum, T* __restrict__ vsum, YRows<T> yu, YRows<T> yv,     \
+    YRows<T> yw, YRows<T> ys, YRows<T> yp, int nz, int ny, int nx, T f1,      \
+    T f2, T visc, T dxi, T dyi, T bfx, T bfy, T bfz
+#define CALES_MOM_RK_ARGS                                                     \
+  u, v, w, s, p, ue, ve, we, se, pe, ruo, rvo, rwo, dzci, dzfi, uo, vo, wo,  \
+      ruo_new, rvo_new, rwo_new, usum, vsum, yu, yv, yw, ys, yp, nz, ny, nx,  \
+      f1, f2, visc, dxi, dyi, bfx, bfy, bfz
+
+template <typename T, bool SGS, bool SPLIT, bool YW>
+__device__ __forceinline__ void mom_rk_body(CALES_MOM_RK_PARAMS) {
   const int k = blockIdx.y;
   const int64_t idx =
       static_cast<int64_t>(blockIdx.x) * CALES_THREADS + threadIdx.x;
@@ -48,213 +60,228 @@ __global__ void __launch_bounds__(CALES_THREADS) mom_rk_kernel(
   T un = T(0), vn = T(0);
   if (valid) {
     const Cell c(k, idx, nz, ny, nx);
-    const T q = T(0.25), two = T(2);
-    const T dzci_c = dzci[k + 1], dzci_m = dzci[k];
-    const T dzfi_c = dzfi[k + 1], dzfi_p = dzfi[k + 2];
-#define U(dk, dj, di) at(u, ue, c, dk, dj, di)
-#define V(dk, dj, di) at(v, ve, c, dk, dj, di)
-#define W(dk, dj, di) at(w, we, c, dk, dj, di)
-#define S(dk, dj, di) at(s, se, c, dk, dj, di)
-#define P(dk, dj, di) at(p, pe, c, dk, dj, di)
-    const T u_ccc = U(0, 0, 0), v_ccc = V(0, 0, 0), w_ccc = W(0, 0, 0);
-    const T u_pcc = U(0, 0, 1), u_cpc = U(0, 1, 0), u_ccp = U(1, 0, 0);
-    const T u_mcc = U(0, 0, -1);
-    const T v_pcc = V(0, 0, 1), v_cmc = V(0, -1, 0);
-    const T v_cpc = V(0, 1, 0), v_ccp = V(1, 0, 0);
-    const T w_pcc = W(0, 0, 1), w_ccm = W(-1, 0, 0);
-    const T w_cpc = W(0, 1, 0);
-    T s_ccc = T(0), s_pcc = T(0), s_cpc = T(0), s_ccp = T(0);
-    T visc_e_xy = T(0), visc_e_xz = T(0), visc_e_yz = T(0);
-    if (SGS) {
-      s_ccc = S(0, 0, 0);
-      s_pcc = S(0, 0, 1);
-      s_cpc = S(0, 1, 0);
-      s_ccp = S(1, 0, 0);
-      const T s_ppc = S(0, 1, 1), s_pcp = S(1, 0, 1), s_cpp = S(1, 1, 0);
-      visc_e_xy = q * (s_ccc + s_pcc + s_cpc + s_ppc);
-      visc_e_xz = q * (s_ccc + s_pcc + s_ccp + s_pcp);
-      visc_e_yz = q * (s_ccc + s_cpc + s_ccp + s_cpp);
-    }
-
-    const T dudy_e = (u_cpc - u_ccc) * dyi;
-    const T dudz_e = (u_ccp - u_ccc) * dzci_c;
-    const T dvdx_e = (v_pcc - v_ccc) * dxi;
-    const T dvdz_e = (v_ccp - v_ccc) * dzci_c;
-    const T dwdx_e = (w_pcc - w_ccc) * dxi;
-    const T dwdy_e = (w_cpc - w_ccc) * dyi;
-
-    // ---- u momentum ----
-    T ru, rud_u;
-    {
-      const T u_cmc = U(0, -1, 0), u_ccm = U(-1, 0, 0);
-      const T v_pmc = V(0, -1, 1), w_pcm = W(-1, 0, 1);
-      const T dudx_ip = (u_pcc - u_ccc) * dxi;
-      const T dudx_im = (u_ccc - u_mcc) * dxi;
-      const T dudy_jp = dudy_e;
-      const T dudy_jm = (u_ccc - u_cmc) * dyi;
-      const T dudz_kp = dudz_e;
-      const T dudz_km = (u_ccc - u_ccm) * dzci_m;
-      const T uu_ip = q * (u_pcc + u_ccc) * (u_ccc + u_pcc);
-      const T uu_im = q * (u_mcc + u_ccc) * (u_ccc + u_mcc);
-      const T vu_jp = q * (v_pcc + v_ccc) * (u_ccc + u_cpc);
-      const T vu_jm = q * (v_pmc + v_cmc) * (u_ccc + u_cmc);
-      const T wu_kp = q * (w_pcc + w_ccc) * (u_ccc + u_ccp);
-      const T wu_km = q * (w_pcm + w_ccm) * (u_ccc + u_ccm);
-      const T dudtd_xy =
-          visc * ((dudx_ip - dudx_im) * dxi + (dudy_jp - dudy_jm) * dyi);
-      const T dudtd_z = visc * (dudz_kp - dudz_km) * dzfi_c;
-      T dudt = (-(uu_ip - uu_im) * dxi - (vu_jp - vu_jm) * dyi -
-                (wu_kp - wu_km) * dzfi_c);
+    // the cell's update; Y: its stencil touches a y-wall row, whose reads
+    // go through the y-row stacks (a row at a time, so a warp takes one
+    // branch; the other rows keep the plain reads and their
+    // memory-level parallelism)
+    auto cell = [&](auto ytag) {
+      constexpr bool Y = decltype(ytag)::value;
+      const T q = T(0.25), two = T(2);
+      const T dzci_c = dzci[k + 1], dzci_m = dzci[k];
+      const T dzfi_c = dzfi[k + 1], dzfi_p = dzfi[k + 2];
+#define U(dk, dj, di) at<Y>(u, ue, yu, c, dk, dj, di)
+#define V(dk, dj, di) at<Y>(v, ve, yv, c, dk, dj, di)
+#define W(dk, dj, di) at<Y>(w, we, yw, c, dk, dj, di)
+#define S(dk, dj, di) at<Y>(s, se, ys, c, dk, dj, di)
+#define P(dk, dj, di) at<Y>(p, pe, yp, c, dk, dj, di)
+      const T u_ccc = U(0, 0, 0), v_ccc = V(0, 0, 0), w_ccc = W(0, 0, 0);
+      const T u_pcc = U(0, 0, 1), u_cpc = U(0, 1, 0), u_ccp = U(1, 0, 0);
+      const T u_mcc = U(0, 0, -1);
+      const T v_pcc = V(0, 0, 1), v_cmc = V(0, -1, 0);
+      const T v_cpc = V(0, 1, 0), v_ccp = V(1, 0, 0);
+      const T w_pcc = W(0, 0, 1), w_ccm = W(-1, 0, 0);
+      const T w_cpc = W(0, 1, 0);
+      T s_ccc = T(0), s_pcc = T(0), s_cpc = T(0), s_ccp = T(0);
+      T visc_e_xy = T(0), visc_e_xz = T(0), visc_e_yz = T(0);
       if (SGS) {
-      const T s_cmc = S(0, -1, 0), s_pmc = S(0, -1, 1);
-      const T s_ccm = S(-1, 0, 0), s_pcm = S(-1, 0, 1);
-      const T visc_ip = s_pcc, visc_im = s_ccc;
-      const T visc_jp = visc_e_xy;
-      const T visc_jm = q * (s_ccc + s_pcc + s_cmc + s_pmc);
-      const T visc_kp = visc_e_xz;
-      const T visc_km = q * (s_ccc + s_pcc + s_ccm + s_pcm);
-      const T dvdx_jp = dvdx_e;
-      const T dvdx_jm = (v_pmc - v_cmc) * dxi;
-      const T dwdx_kp = dwdx_e;
-      const T dwdx_km = (w_pcm - w_ccm) * dxi;
-      dudt = (dudt +
-              (visc_ip * two * dudx_ip - visc_im * two * dudx_im) * dxi +
-              (visc_jp * (dudy_jp + dvdx_jp) - visc_jm * (dudy_jm + dvdx_jm)) *
-                  dyi +
-              (visc_kp * (dudz_kp + dwdx_kp) - visc_km * (dudz_km + dwdx_km)) *
-                  dzfi_c);
+        s_ccc = S(0, 0, 0);
+        s_pcc = S(0, 0, 1);
+        s_cpc = S(0, 1, 0);
+        s_ccp = S(1, 0, 0);
+        const T s_ppc = S(0, 1, 1), s_pcp = S(1, 0, 1), s_cpp = S(1, 1, 0);
+        visc_e_xy = q * (s_ccc + s_pcc + s_cpc + s_ppc);
+        visc_e_xz = q * (s_ccc + s_pcc + s_ccp + s_pcp);
+        visc_e_yz = q * (s_ccc + s_cpc + s_ccp + s_cpp);
       }
-      rud_u = dudtd_z;
-      ru = SPLIT ? dudt + dudtd_xy : dudt + dudtd_xy + dudtd_z;
-    }
 
-    // ---- v momentum ----
-    T rv, rud_v;
-    {
-      const T v_mcc = V(0, 0, -1), v_ccm = V(-1, 0, 0);
-      const T u_mpc = U(0, 1, -1), w_cpm = W(-1, 1, 0);
-      const T dvdx_ip = dvdx_e;
-      const T dvdx_im = (v_ccc - v_mcc) * dxi;
-      const T dvdy_jp = (v_cpc - v_ccc) * dyi;
-      const T dvdy_jm = (v_ccc - v_cmc) * dyi;
-      const T dvdz_kp = dvdz_e;
-      const T dvdz_km = (v_ccc - v_ccm) * dzci_m;
-      const T uv_ip = q * (u_ccc + u_cpc) * (v_ccc + v_pcc);
-      const T uv_im = q * (u_mcc + u_mpc) * (v_ccc + v_mcc);
-      const T vv_jp = q * (v_ccc + v_cpc) * (v_ccc + v_cpc);
-      const T vv_jm = q * (v_ccc + v_cmc) * (v_ccc + v_cmc);
-      const T wv_kp = q * (w_ccc + w_cpc) * (v_ccc + v_ccp);
-      const T wv_km = q * (w_ccm + w_cpm) * (v_ccc + v_ccm);
-      const T dvdtd_xy =
-          visc * ((dvdx_ip - dvdx_im) * dxi + (dvdy_jp - dvdy_jm) * dyi);
-      const T dvdtd_z = visc * (dvdz_kp - dvdz_km) * dzfi_c;
-      T dvdt = (-(uv_ip - uv_im) * dxi - (vv_jp - vv_jm) * dyi -
-                (wv_kp - wv_km) * dzfi_c);
-      if (SGS) {
-      const T s_mcc = S(0, 0, -1), s_mpc = S(0, 1, -1);
-      const T s_cpm = S(-1, 1, 0), s_ccm_v = S(-1, 0, 0);
-      const T visc_ip = visc_e_xy;
-      const T visc_im = q * (s_ccc + s_cpc + s_mcc + s_mpc);
-      const T visc_jp = s_cpc, visc_jm = s_ccc;
-      const T visc_kp = visc_e_yz;
-      const T visc_km = q * (s_ccc + s_cpc + s_ccm_v + s_cpm);
-      const T dudy_ip = dudy_e;
-      const T dudy_im = (u_mpc - u_mcc) * dyi;
-      const T dwdy_kp = dwdy_e;
-      const T dwdy_km = (w_cpm - w_ccm) * dyi;
-      dvdt = (dvdt +
-              (visc_ip * (dvdx_ip + dudy_ip) - visc_im * (dvdx_im + dudy_im)) *
-                  dxi +
-              (visc_jp * two * dvdy_jp - visc_jm * two * dvdy_jm) * dyi +
-              (visc_kp * (dvdz_kp + dwdy_kp) - visc_km * (dvdz_km + dwdy_km)) *
-                  dzfi_c);
+      const T dudy_e = (u_cpc - u_ccc) * dyi;
+      const T dudz_e = (u_ccp - u_ccc) * dzci_c;
+      const T dvdx_e = (v_pcc - v_ccc) * dxi;
+      const T dvdz_e = (v_ccp - v_ccc) * dzci_c;
+      const T dwdx_e = (w_pcc - w_ccc) * dxi;
+      const T dwdy_e = (w_cpc - w_ccc) * dyi;
+
+      // ---- u momentum ----
+      T ru, rud_u;
+      {
+        const T u_cmc = U(0, -1, 0), u_ccm = U(-1, 0, 0);
+        const T v_pmc = V(0, -1, 1), w_pcm = W(-1, 0, 1);
+        const T dudx_ip = (u_pcc - u_ccc) * dxi;
+        const T dudx_im = (u_ccc - u_mcc) * dxi;
+        const T dudy_jp = dudy_e;
+        const T dudy_jm = (u_ccc - u_cmc) * dyi;
+        const T dudz_kp = dudz_e;
+        const T dudz_km = (u_ccc - u_ccm) * dzci_m;
+        const T uu_ip = q * (u_pcc + u_ccc) * (u_ccc + u_pcc);
+        const T uu_im = q * (u_mcc + u_ccc) * (u_ccc + u_mcc);
+        const T vu_jp = q * (v_pcc + v_ccc) * (u_ccc + u_cpc);
+        const T vu_jm = q * (v_pmc + v_cmc) * (u_ccc + u_cmc);
+        const T wu_kp = q * (w_pcc + w_ccc) * (u_ccc + u_ccp);
+        const T wu_km = q * (w_pcm + w_ccm) * (u_ccc + u_ccm);
+        const T dudtd_xy =
+            visc * ((dudx_ip - dudx_im) * dxi + (dudy_jp - dudy_jm) * dyi);
+        const T dudtd_z = visc * (dudz_kp - dudz_km) * dzfi_c;
+        T dudt = (-(uu_ip - uu_im) * dxi - (vu_jp - vu_jm) * dyi -
+                  (wu_kp - wu_km) * dzfi_c);
+        if (SGS) {
+        const T s_cmc = S(0, -1, 0), s_pmc = S(0, -1, 1);
+        const T s_ccm = S(-1, 0, 0), s_pcm = S(-1, 0, 1);
+        const T visc_ip = s_pcc, visc_im = s_ccc;
+        const T visc_jp = visc_e_xy;
+        const T visc_jm = q * (s_ccc + s_pcc + s_cmc + s_pmc);
+        const T visc_kp = visc_e_xz;
+        const T visc_km = q * (s_ccc + s_pcc + s_ccm + s_pcm);
+        const T dvdx_jp = dvdx_e;
+        const T dvdx_jm = (v_pmc - v_cmc) * dxi;
+        const T dwdx_kp = dwdx_e;
+        const T dwdx_km = (w_pcm - w_ccm) * dxi;
+        dudt = (dudt +
+                (visc_ip * two * dudx_ip - visc_im * two * dudx_im) * dxi +
+                (visc_jp * (dudy_jp + dvdx_jp) - visc_jm * (dudy_jm + dvdx_jm)) *
+                    dyi +
+                (visc_kp * (dudz_kp + dwdx_kp) - visc_km * (dudz_km + dwdx_km)) *
+                    dzfi_c);
+        }
+        rud_u = dudtd_z;
+        ru = SPLIT ? dudt + dudtd_xy : dudt + dudtd_xy + dudtd_z;
       }
-      rud_v = dvdtd_z;
-      rv = SPLIT ? dvdt + dvdtd_xy : dvdt + dvdtd_xy + dvdtd_z;
-    }
 
-    // ---- w momentum ----
-    T rw, rud_w;
-    {
-      const T w_mcc = W(0, 0, -1), w_cmc = W(0, -1, 0), w_ccp = W(1, 0, 0);
-      const T u_mcp = U(1, 0, -1), v_cmp = V(1, -1, 0);
-      const T dwdx_ip = dwdx_e;
-      const T dwdx_im = (w_ccc - w_mcc) * dxi;
-      const T dwdy_jp = dwdy_e;
-      const T dwdy_jm = (w_ccc - w_cmc) * dyi;
-      const T dwdz_kp = (w_ccp - w_ccc) * dzfi_p;
-      const T dwdz_km = (w_ccc - w_ccm) * dzfi_c;
-      const T uw_ip = q * (u_ccc + u_ccp) * (w_ccc + w_pcc);
-      const T uw_im = q * (u_mcc + u_mcp) * (w_ccc + w_mcc);
-      const T vw_jp = q * (v_ccc + v_ccp) * (w_ccc + w_cpc);
-      const T vw_jm = q * (v_cmc + v_cmp) * (w_ccc + w_cmc);
-      const T ww_kp = q * (w_ccc + w_ccp) * (w_ccc + w_ccp);
-      const T ww_km = q * (w_ccc + w_ccm) * (w_ccc + w_ccm);
-      const T dwdtd_xy =
-          visc * ((dwdx_ip - dwdx_im) * dxi + (dwdy_jp - dwdy_jm) * dyi);
-      const T dwdtd_z = visc * (dwdz_kp - dwdz_km) * dzci_c;
-      T dwdt = (-(uw_ip - uw_im) * dxi - (vw_jp - vw_jm) * dyi -
-                (ww_kp - ww_km) * dzci_c);
-      if (SGS) {
-      const T s_mcc_w = S(0, 0, -1), s_mcp = S(1, 0, -1);
-      const T s_cmp = S(1, -1, 0), s_cmc2 = S(0, -1, 0);
-      const T visc_ip = visc_e_xz;
-      const T visc_im = q * (s_ccc + s_ccp + s_mcc_w + s_mcp);
-      const T visc_jp = visc_e_yz;
-      const T visc_jm = q * (s_ccc + s_ccp + s_cmc2 + s_cmp);
-      const T visc_kp = s_ccp, visc_km = s_ccc;
-      const T dudz_ip = dudz_e;
-      const T dudz_im = (u_mcp - u_mcc) * dzci_c;
-      const T dvdz_jp = dvdz_e;
-      const T dvdz_jm = (v_cmp - v_cmc) * dzci_c;
-      dwdt = (dwdt +
-              (visc_ip * (dwdx_ip + dudz_ip) - visc_im * (dwdx_im + dudz_im)) *
-                  dxi +
-              (visc_jp * (dwdy_jp + dvdz_jp) - visc_jm * (dwdy_jm + dvdz_jm)) *
-                  dyi +
-              (visc_kp * two * dwdz_kp - visc_km * two * dwdz_km) * dzci_c);
+      // ---- v momentum ----
+      T rv, rud_v;
+      {
+        const T v_mcc = V(0, 0, -1), v_ccm = V(-1, 0, 0);
+        const T u_mpc = U(0, 1, -1), w_cpm = W(-1, 1, 0);
+        const T dvdx_ip = dvdx_e;
+        const T dvdx_im = (v_ccc - v_mcc) * dxi;
+        const T dvdy_jp = (v_cpc - v_ccc) * dyi;
+        const T dvdy_jm = (v_ccc - v_cmc) * dyi;
+        const T dvdz_kp = dvdz_e;
+        const T dvdz_km = (v_ccc - v_ccm) * dzci_m;
+        const T uv_ip = q * (u_ccc + u_cpc) * (v_ccc + v_pcc);
+        const T uv_im = q * (u_mcc + u_mpc) * (v_ccc + v_mcc);
+        const T vv_jp = q * (v_ccc + v_cpc) * (v_ccc + v_cpc);
+        const T vv_jm = q * (v_ccc + v_cmc) * (v_ccc + v_cmc);
+        const T wv_kp = q * (w_ccc + w_cpc) * (v_ccc + v_ccp);
+        const T wv_km = q * (w_ccm + w_cpm) * (v_ccc + v_ccm);
+        const T dvdtd_xy =
+            visc * ((dvdx_ip - dvdx_im) * dxi + (dvdy_jp - dvdy_jm) * dyi);
+        const T dvdtd_z = visc * (dvdz_kp - dvdz_km) * dzfi_c;
+        T dvdt = (-(uv_ip - uv_im) * dxi - (vv_jp - vv_jm) * dyi -
+                  (wv_kp - wv_km) * dzfi_c);
+        if (SGS) {
+        const T s_mcc = S(0, 0, -1), s_mpc = S(0, 1, -1);
+        const T s_cpm = S(-1, 1, 0), s_ccm_v = S(-1, 0, 0);
+        const T visc_ip = visc_e_xy;
+        const T visc_im = q * (s_ccc + s_cpc + s_mcc + s_mpc);
+        const T visc_jp = s_cpc, visc_jm = s_ccc;
+        const T visc_kp = visc_e_yz;
+        const T visc_km = q * (s_ccc + s_cpc + s_ccm_v + s_cpm);
+        const T dudy_ip = dudy_e;
+        const T dudy_im = (u_mpc - u_mcc) * dyi;
+        const T dwdy_kp = dwdy_e;
+        const T dwdy_km = (w_cpm - w_ccm) * dyi;
+        dvdt = (dvdt +
+                (visc_ip * (dvdx_ip + dudy_ip) - visc_im * (dvdx_im + dudy_im)) *
+                    dxi +
+                (visc_jp * two * dvdy_jp - visc_jm * two * dvdy_jm) * dyi +
+                (visc_kp * (dvdz_kp + dwdy_kp) - visc_km * (dvdz_km + dwdy_km)) *
+                    dzfi_c);
+        }
+        rud_v = dvdtd_z;
+        rv = SPLIT ? dvdt + dvdtd_xy : dvdt + dvdtd_xy + dvdtd_z;
       }
-      rud_w = dwdtd_z;
-      rw = SPLIT ? dwdt + dwdtd_xy : dwdt + dwdtd_xy + dwdtd_z;
-    }
 
-    // ---- RK3 update with -grad p and the body force (rk.f90:77-94) ----
-    const T pc = P(0, 0, 0);
-    const T gpx = dxi * (P(0, 0, 1) - pc);
-    const T gpy = dyi * (P(0, 1, 0) - pc);
-    const T gpz = dzci_c * (P(1, 0, 0) - pc);
+      // ---- w momentum ----
+      T rw, rud_w;
+      {
+        const T w_mcc = W(0, 0, -1), w_cmc = W(0, -1, 0), w_ccp = W(1, 0, 0);
+        const T u_mcp = U(1, 0, -1), v_cmp = V(1, -1, 0);
+        const T dwdx_ip = dwdx_e;
+        const T dwdx_im = (w_ccc - w_mcc) * dxi;
+        const T dwdy_jp = dwdy_e;
+        const T dwdy_jm = (w_ccc - w_cmc) * dyi;
+        const T dwdz_kp = (w_ccp - w_ccc) * dzfi_p;
+        const T dwdz_km = (w_ccc - w_ccm) * dzfi_c;
+        const T uw_ip = q * (u_ccc + u_ccp) * (w_ccc + w_pcc);
+        const T uw_im = q * (u_mcc + u_mcp) * (w_ccc + w_mcc);
+        const T vw_jp = q * (v_ccc + v_ccp) * (w_ccc + w_cpc);
+        const T vw_jm = q * (v_cmc + v_cmp) * (w_ccc + w_cmc);
+        const T ww_kp = q * (w_ccc + w_ccp) * (w_ccc + w_ccp);
+        const T ww_km = q * (w_ccc + w_ccm) * (w_ccc + w_ccm);
+        const T dwdtd_xy =
+            visc * ((dwdx_ip - dwdx_im) * dxi + (dwdy_jp - dwdy_jm) * dyi);
+        const T dwdtd_z = visc * (dwdz_kp - dwdz_km) * dzci_c;
+        T dwdt = (-(uw_ip - uw_im) * dxi - (vw_jp - vw_jm) * dyi -
+                  (ww_kp - ww_km) * dzci_c);
+        if (SGS) {
+        const T s_mcc_w = S(0, 0, -1), s_mcp = S(1, 0, -1);
+        const T s_cmp = S(1, -1, 0), s_cmc2 = S(0, -1, 0);
+        const T visc_ip = visc_e_xz;
+        const T visc_im = q * (s_ccc + s_ccp + s_mcc_w + s_mcp);
+        const T visc_jp = visc_e_yz;
+        const T visc_jm = q * (s_ccc + s_ccp + s_cmc2 + s_cmp);
+        const T visc_kp = s_ccp, visc_km = s_ccc;
+        const T dudz_ip = dudz_e;
+        const T dudz_im = (u_mcp - u_mcc) * dzci_c;
+        const T dvdz_jp = dvdz_e;
+        const T dvdz_jm = (v_cmp - v_cmc) * dzci_c;
+        dwdt = (dwdt +
+                (visc_ip * (dwdx_ip + dudz_ip) - visc_im * (dwdx_im + dudz_im)) *
+                    dxi +
+                (visc_jp * (dwdy_jp + dvdz_jp) - visc_jm * (dwdy_jm + dvdz_jm)) *
+                    dyi +
+                (visc_kp * two * dwdz_kp - visc_km * two * dwdz_km) * dzci_c);
+        }
+        rud_w = dwdtd_z;
+        rw = SPLIT ? dwdt + dwdtd_xy : dwdt + dwdtd_xy + dwdtd_z;
+      }
+
+      // ---- RK3 update with -grad p and the body force (rk.f90:77-94) ----
+      const T pc = P(0, 0, 0);
+      const T gpx = dxi * (P(0, 0, 1) - pc);
+      const T gpy = dyi * (P(0, 1, 0) - pc);
+      const T gpz = dzci_c * (P(1, 0, 0) - pc);
 #undef U
 #undef V
 #undef W
 #undef S
 #undef P
-    const T f12 = f1 + f2;
-    un = u_ccc + f1 * ru + f12 * (bfx - gpx);
-    vn = v_ccc + f1 * rv + f12 * (bfy - gpy);
-    T wn = w_ccc + f1 * rw + f12 * (bfz - gpz);
-    const int64_t o = static_cast<int64_t>(k) * plane + idx;
-    if (ruo != nullptr) {
-      un = un + f2 * ruo[o];
-      vn = vn + f2 * rvo[o];
-      wn = wn + f2 * rwo[o];
-    }
-    if (SPLIT) {
-      // the CN fold: store the Crank-Nicolson RHS; the sums (un, vn from
-      // here on) see the full prediction
-      const T h = T(0.5) * f12;
-      uo[o] = un + h * rud_u;
-      vo[o] = vn + h * rud_v;
-      wo[o] = wn + h * rud_w;
-      un = un + f12 * rud_u;
-      vn = vn + f12 * rud_v;
+      const T f12 = f1 + f2;
+      un = u_ccc + f1 * ru + f12 * (bfx - gpx);
+      vn = v_ccc + f1 * rv + f12 * (bfy - gpy);
+      T wn = w_ccc + f1 * rw + f12 * (bfz - gpz);
+      const int64_t o = static_cast<int64_t>(k) * plane + idx;
+      if (ruo != nullptr) {
+        un = un + f2 * ruo[o];
+        vn = vn + f2 * rvo[o];
+        wn = wn + f2 * rwo[o];
+      }
+      if (SPLIT) {
+        // the CN fold: store the Crank-Nicolson RHS; the sums (un, vn from
+        // here on) see the full prediction
+        const T h = T(0.5) * f12;
+        uo[o] = un + h * rud_u;
+        vo[o] = vn + h * rud_v;
+        wo[o] = wn + h * rud_w;
+        un = un + f12 * rud_u;
+        vn = vn + f12 * rud_v;
+      } else {
+        uo[o] = un;
+        vo[o] = vn;
+        wo[o] = wn;
+      }
+      ruo_new[o] = ru;
+      rvo_new[o] = rv;
+      rwo_new[o] = rw;
+    };
+    if constexpr (YW) {
+      if (y_edge(c.j, ny))
+        cell(std::true_type{});
+      else
+        cell(std::false_type{});
     } else {
-      uo[o] = un;
-      vo[o] = vn;
-      wo[o] = wn;
+      cell(std::false_type{});
     }
-    ruo_new[o] = ru;
-    rvo_new[o] = rv;
-    rwo_new[o] = rw;
   }
   // per-(z, block) partial sums for the bulk-forcing means
   if (usum != nullptr) {
@@ -269,30 +296,69 @@ __global__ void __launch_bounds__(CALES_THREADS) mom_rk_kernel(
   }
 }
 
+// The plain variants take no register bound; the y-walled f32 ones hold to
+// 3 blocks an SM (85 registers), as the plain ones reach by themselves:
+// their wall-row path would otherwise set the register count, and the
+// occupancy, of every row (it spills there instead).
+template <typename T, bool SGS, bool SPLIT>
+__global__ void __launch_bounds__(CALES_THREADS)
+    mom_rk_kernel(CALES_MOM_RK_PARAMS) {
+  mom_rk_body<T, SGS, SPLIT, false>(CALES_MOM_RK_ARGS);
+}
+
+template <typename T, bool SGS, bool SPLIT>
+__global__ void __launch_bounds__(CALES_THREADS, sizeof(T) == 4 ? 3 : 1)
+    mom_rk_yw_kernel(CALES_MOM_RK_PARAMS) {
+  mom_rk_body<T, SGS, SPLIT, true>(CALES_MOM_RK_ARGS);
+}
+#undef CALES_MOM_RK_PARAMS
+#undef CALES_MOM_RK_ARGS
+
+template <typename T>
+using MomKernel = void (*)(const T*, const T*, const T*, const T*, const T*,
+                           const T*, const T*, const T*, const T*, const T*,
+                           const T*, const T*, const T*, const T*, const T*,
+                           T*, T*, T*, T*, T*, T*, T*, T*, YRows<T>, YRows<T>,
+                           YRows<T>, YRows<T>, YRows<T>, int, int, int, T, T,
+                           T, T, T, T, T, T);
+
+template <typename T, bool SGS, bool SPLIT>
+MomKernel<T> pick_mom_rk(bool yw) {
+  return yw ? &mom_rk_yw_kernel<T, SGS, SPLIT>
+            : &mom_rk_kernel<T, SGS, SPLIT>;
+}
+
+// y: the y-row stacks and corners of u, v, w, visct, p, in that order (10
+// pointers, all null without y walls; visct's null without visct).
 template <typename T>
 int launch_mom_rk(const T* u, const T* v, const T* w, const T* s, const T* p,
                   const T* ue, const T* ve, const T* we, const T* se,
                   const T* pe, const T* ruo, const T* rvo, const T* rwo,
                   const T* dzci, const T* dzfi, T* uo, T* vo, T* wo, T* ru,
-                  T* rv, T* rw, T* usum, T* vsum, int nz, int ny, int nx,
-                  int split, double f1, double f2, double visc, double dxi,
-                  double dyi, double bfx, double bfy, double bfz,
-                  void* stream) {
+                  T* rv, T* rw, T* usum, T* vsum, const T* const* y, int nz,
+                  int ny, int nx, int split, double f1, double f2,
+                  double visc, double dxi, double dyi, double bfx,
+                  double bfy, double bfz, void* stream) {
   const bool sgs = s != nullptr;
+  const bool yw = y[0] != nullptr;
   if (sgs != (se != nullptr)) return static_cast<int>(cudaErrorInvalidValue);
-  void (*kern)(const T*, const T*, const T*, const T*, const T*, const T*,
-               const T*, const T*, const T*, const T*, const T*, const T*,
-               const T*, const T*, const T*, T*, T*, T*, T*, T*, T*, T*, T*,
-               int, int, int, T, T, T, T, T, T, T, T) =
-      sgs ? (split ? &mom_rk_kernel<T, true, true>
-                   : &mom_rk_kernel<T, true, false>)
-          : (split ? &mom_rk_kernel<T, false, true>
-                   : &mom_rk_kernel<T, false, false>);
+  for (int m = 0; m < 10; ++m) {
+    const bool want = yw && (sgs || m / 2 != 3);
+    if (want != (y[m] != nullptr))
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const YRows<T> yu{y[0], y[1]}, yv{y[2], y[3]}, yw_{y[4], y[5]},
+      ys{y[6], y[7]}, yp{y[8], y[9]};
+  const MomKernel<T> kern =
+      sgs ? (split ? pick_mom_rk<T, true, true>(yw)
+                   : pick_mom_rk<T, true, false>(yw))
+          : (split ? pick_mom_rk<T, false, true>(yw)
+                   : pick_mom_rk<T, false, false>(yw));
   kern<<<plane_grid(nz, ny, nx), CALES_THREADS, 0,
          static_cast<cudaStream_t>(stream)>>>(
       u, v, w, s, p, ue, ve, we, se, pe, ruo, rvo, rwo, dzci, dzfi, uo, vo,
-      wo, ru, rv, rw, usum, vsum, nz, ny, nx, T(f1), T(f2), T(visc), T(dxi),
-      T(dyi), T(bfx), T(bfy), T(bfz));
+      wo, ru, rv, rw, usum, vsum, yu, yv, yw_, ys, yp, nz, ny, nx, T(f1),
+      T(f2), T(visc), T(dxi), T(dyi), T(bfx), T(bfy), T(bfz));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -304,13 +370,18 @@ int launch_mom_rk(const T* u, const T* v, const T* w, const T* s, const T* p,
       const T* ue, const T* ve, const T* we, const T* se, const T* pe,        \
       const T* ruo, const T* rvo, const T* rwo, const T* dzci,                \
       const T* dzfi, T* uo, T* vo, T* wo, T* ru, T* rv, T* rw, T* usum,       \
-      T* vsum, int nz, int ny, int nx, int split, double f1, double f2,       \
-      double visc, double dxi, double dyi, double bfx, double bfy,            \
-      double bfz, void* stream) {                                             \
+      T* vsum, const T* yur, const T* yuc, const T* yvr, const T* yvc,        \
+      const T* ywr, const T* ywc, const T* ysr, const T* ysc,                 \
+      const T* ypr, const T* ypc, int nz, int ny, int nx, int split,          \
+      double f1, double f2, double visc, double dxi, double dyi, double bfx,  \
+      double bfy, double bfz, void* stream) {                                 \
+    const T* const y[10] = {yur, yuc, yvr, yvc, ywr, ywc, ysr, ysc, ypr,      \
+                            ypc};                                             \
     return cales::launch_mom_rk<T>(u, v, w, s, p, ue, ve, we, se, pe, ruo,    \
                                    rvo, rwo, dzci, dzfi, uo, vo, wo, ru, rv,  \
-                                   rw, usum, vsum, nz, ny, nx, split, f1, f2, \
-                                   visc, dxi, dyi, bfx, bfy, bfz, stream);    \
+                                   rw, usum, vsum, y, nz, ny, nx, split, f1,  \
+                                   f2, visc, dxi, dyi, bfx, bfy, bfz,         \
+                                   stream);                                   \
   }
 
 CALES_MOM_RK_ENTRY(cales_mom_rk_f32, float)

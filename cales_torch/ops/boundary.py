@@ -11,6 +11,18 @@ Kernel input contract (kept from the JAX package): interior arrays plus
 Padded row nz carries the wall-face rewrite of the z-staggered component
 (w), so a kernel never reads the interior's last z row directly.
 
+With y walls (the duct and cavity classes) each field also has a y-row
+stack (nz, 3, nx) [padded y 0, padded y ny, padded y ny+1], in the z-edge
+stack's order along y: padded y ny carries the set_bc rewrite of the
+y-staggered component (v) and is the interior's last y row for the
+others.  Its z-edge stack (3, 3, nx), the corners, holds the values the
+reference's sequential x->y->z fill puts at (z ghost, y ghost): the z
+recipe applied to the y rows (yedge_velocity, yedge_scalar).  The JAX
+package's stacks hold the same rows in the order [0, ny+1, ny], packed
+into 16-row bundles for the TPU's DMA alignment; the port keeps one stack
+per field.
+
+
 BC values are python floats or padded 2-D planes (x-faces (nz+2, ny+2),
 y-faces (nz+2, nx+2), z-faces (ny+2, nx+2)).
 """
@@ -202,6 +214,129 @@ def zedge_velocity(u, v, w, cbcvel, bcu, bcv, bcw, dzc, dzf,
     we = _zedge_face(w, lw, bcw[2], dr_nrm,
                      lo_keep=vlo[2] if keep else None, keep=keep)
     return ue, ve, we
+
+
+def _bc_row(val, like):
+    """BC value as an interior (nz, nx) y-face row of `like` (nz, ny, nx):
+    a scalar broadcast, a padded (nz+2, nx+2) plane cropped."""
+    if getattr(val, 'ndim', 0) == 2:
+        return val[1:-1, 1:-1].to(like.dtype)
+    return torch.full((like.shape[0], like.shape[2]), float(val),
+                      dtype=like.dtype, device=like.device)
+
+
+def _yrows_centered(q, letters, bcvals, dr):
+    """(nz, 3, nx) y-row stack [padded y 0, padded y ny, padded y ny+1] of
+    a y-centred field (set_bc along y, bound.f90:232-352); padded y ny is
+    the interior last row."""
+    first, last = q[:, 0], q[:, -1]
+    if letters[0] == 'P':
+        lo, hi = last, first
+    else:
+        b0, b1 = _bc_row(bcvals[0], q), _bc_row(bcvals[1], q)
+        lo = 2.0 * b0 - first if letters[0] == 'D' else -dr[0] * b0 + first
+        hi = 2.0 * b1 - last if letters[1] == 'D' else dr[1] * b1 + last
+    return torch.stack([lo, last, hi], dim=1)
+
+
+def _yrows_face(q, letters, bcvals, dr, lo_keep=None, keep=False):
+    """y-row stack of the y-face-staggered component (v): padded y ny is
+    the set_bc rewrite slot (bound.f90:292-293 'D', 365-366 'N'); keep=True
+    (the corrector fill) takes the lower wall face from the padded plane
+    `lo_keep` and leaves the interior wall face as it is."""
+    first, second_last, last = q[:, 0], q[:, -2], q[:, -1]
+    if letters[0] == 'P':
+        return torch.stack([last, last, first], dim=1)
+    if keep:
+        hi = second_last if letters[1] == 'D' else last
+        lo = lo_keep[1:-1, 1:-1].to(q.dtype)
+        return torch.stack([lo, last, hi], dim=1)
+    b0, b1 = _bc_row(bcvals[0], q), _bc_row(bcvals[1], q)
+    lo = b0 if letters[0] == 'D' else -dr[0] * b0 + first
+    if letters[1] == 'D':
+        newlast, hi = b1, second_last
+    else:
+        newlast, hi = dr[1] * b1 + second_last, last
+    return torch.stack([lo, newlast, hi], dim=1)
+
+
+def _corner_rows(val, like):
+    """z-direction BC value at the y-row stack's rows: a scalar as it is,
+    a padded (ny+2, nx+2) plane as its (3, nx) rows [0, ny, ny+1]."""
+    if getattr(val, 'ndim', 0) == 2:
+        return torch.stack([val[0], val[-2], val[-1]])[:, 1:-1].to(like.dtype)
+    return val
+
+
+def _zedge_of_yrows(rows, letters, bcvals, dr, face=False, vlo_plane=None,
+                    keep=False):
+    """(3, 3, nx) z-edge stack of a (nz, 3, nx) y-row stack: the z recipe
+    of _zedge_centered / _zedge_face applied to the y rows, which is what
+    the sequential x->y->z fill leaves in the (z ghost, y ghost) corners.
+    keep (w under the corrector fill): the lower face is the padded plane
+    vlo_plane's y-ghost rows."""
+    first, second_last, last = rows[0], rows[-2], rows[-1]
+    b0 = _corner_rows(bcvals[0], rows)
+    b1 = _corner_rows(bcvals[1], rows)
+    if not face:
+        if letters[0] == 'P':
+            lo, hi = last, first
+        else:
+            lo = 2.0 * b0 - first if letters[0] == 'D' else -dr[0] * b0 + first
+            hi = 2.0 * b1 - last if letters[1] == 'D' else dr[1] * b1 + last
+        return torch.stack([lo, last, hi])
+    if letters[0] == 'P':
+        return torch.stack([last, last, first])
+    if keep:
+        lo = torch.stack([vlo_plane[0, 1:-1], vlo_plane[-2, 1:-1],
+                          vlo_plane[-1, 1:-1]]).to(rows.dtype)
+        hi = second_last if letters[1] == 'D' else last
+        return torch.stack([lo, last, hi])
+    full = lambda b: torch.broadcast_to(  # noqa: E731
+        torch.as_tensor(b, dtype=rows.dtype, device=rows.device), first.shape)
+    lo = full(b0) if letters[0] == 'D' else -dr[0] * b0 + first
+    if letters[1] == 'D':
+        newlast, hi = full(b1), second_last
+    else:
+        newlast, hi = dr[1] * b1 + second_last, last
+    return torch.stack([lo, newlast, hi])
+
+
+def yedge_velocity(u, v, w, cbcvel, bcu, bcv, bcw, dl, dzc, dzf,
+                   vlo=None, is_correc=False):
+    """y-row stacks (nz, 3, nx) of (u, v, w) and their corner stacks
+    (3, 3, nx), with pad_velocity's y and z semantics.  Returns
+    ((yu, yv, yw), (zyu, zyv, zyw))."""
+    nz = u.shape[0]
+    dr_y = (dl[1], dl[1])
+    dr_z_par = (float(dzc[0]), float(dzc[nz]))
+    dr_z_nrm = (float(dzf[0]), float(dzf[nz]))
+
+    def ylts(ivel):
+        return (cbcvel[0][1][ivel], cbcvel[1][1][ivel])
+
+    def zlts(ivel):
+        return (cbcvel[0][2][ivel], cbcvel[1][2][ivel])
+    keep_v = is_correc and ylts(1)[0] != 'P' and vlo is not None
+    yu = _yrows_centered(u, ylts(0), bcu[1], dr_y)
+    yv = _yrows_face(v, ylts(1), bcv[1], dr_y,
+                     lo_keep=vlo[1] if keep_v else None, keep=keep_v)
+    yw = _yrows_centered(w, ylts(2), bcw[1], dr_y)
+    keep_w = is_correc and zlts(2)[0] != 'P' and vlo is not None
+    zyu = _zedge_of_yrows(yu, zlts(0), bcu[2], dr_z_par)
+    zyv = _zedge_of_yrows(yv, zlts(1), bcv[2], dr_z_par)
+    zyw = _zedge_of_yrows(yw, zlts(2), bcw[2], dr_z_nrm, face=True,
+                          vlo_plane=vlo[2] if keep_w else None, keep=keep_w)
+    return (yu, yv, yw), (zyu, zyv, zyw)
+
+
+def yedge_scalar(p, cbc, bcvals, dl, dzc):
+    """y-row stack and its corner stack of a cell-centred scalar (boundp's
+    y and z semantics)."""
+    nz = p.shape[0]
+    yp = _yrows_centered(p, cbc[1], bcvals[1], (dl[1], dl[1]))
+    return yp, _zedge_of_yrows(yp, cbc[2], bcvals[2],
+                               (float(dzc[0]), float(dzc[nz])))
 
 
 def pad_velocity(u, v, w, cbcvel, bcu, bcv, bcw, dl, dzc, dzf,

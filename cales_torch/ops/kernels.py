@@ -10,12 +10,17 @@ a launch counter.
                                         fused_correc_updatep
   smag            csrc/smag.cu          ops/pallas_kernels.py fused_smag
   dsmag           csrc/dsmag.cu         ops/pallas_dsmag.py
-                                        fused_dsmag_onepass ('channel')
+                                        fused_dsmag_onepass ('channel',
+                                        'duct', 'cavity')
 
 Input contract (the JAX kernels'): interior (nz, ny, nx) fields plus
 (3, ny, nx) z-edge stacks [padded row 0, padded row nz, padded row nz+1];
-x and y are periodic and wrap inside the kernel.  z metrics are (nz+2,)
-tensors with ghost entries, in the fields' dtype and on their device.
+x is periodic and wraps inside the kernel, and so is y unless the field
+comes with its y-row stack: a pair (rows (nz, 3, nx), corners (3, 3, nx))
+from ops/boundary.yedge_* (the y-walled variants of mom_rk, fillps,
+correc_updatep and dsmag, the duct and cavity classes).  z metrics are
+(nz+2,) tensors with ghost entries, in the fields' dtype and on their
+device.
 
 Dispatch: a wrapper takes the twin only for tensors on the CPU.  For CUDA
 tensors it launches its kernel or raises; nothing falls back.  LAUNCHES
@@ -52,14 +57,28 @@ def zpad(q, e):
     return torch.cat([e[0:1], q[:-1], e[1:3]], dim=0)
 
 
-def wrap_xy(a):
-    """Periodic x/y ghosts around a (n, ny, nx) array."""
-    a = torch.cat([a[:, -1:, :], a, a[:, :1, :]], dim=1)
+def ypad(a, rows):
+    """(n, ny+2, nx) y-padded array from a (n, ny, nx) one and its
+    (n, 3, nx) y-row stack: rows [r0, a[:, 0..ny-2], r1, r2], as zpad."""
+    return torch.cat([rows[:, 0:1], a[:, :-1], rows[:, 1:3]], dim=1)
+
+
+def wrap_x(a):
+    """Periodic x ghosts around a (n, m, nx) array."""
     return torch.cat([a[:, :, -1:], a, a[:, :, :1]], dim=2)
 
 
-def padded(q, e):
-    return wrap_xy(zpad(q, e))
+def wrap_xy(a):
+    """Periodic x/y ghosts around a (n, ny, nx) array."""
+    return wrap_x(torch.cat([a[:, -1:, :], a, a[:, :1, :]], dim=1))
+
+
+def padded(q, e, y=None):
+    """The (nz+2, ny+2, nx+2) ghost-filled field: z ghosts from the edge
+    stack e, y ghosts from y = (rows, corners) or periodic, x periodic."""
+    if y is None:
+        return wrap_xy(zpad(q, e))
+    return wrap_x(ypad(zpad(q, e), zpad(*y)))
 
 
 def ghost_row(rec, side, q1):
@@ -73,11 +92,12 @@ def ghost_row(rec, side, q1):
 
 def mom_rk_plain(u, v, w, s, p, ue, ve, we, se, pe, ruo, rvo, rwo,
                  dzci, dzfi, f1, f2, visc, dxi, dyi, bforce,
-                 sums=(False, False), split=None):
+                 sums=(False, False), split=None, ye=None):
     nz = u.shape[0]
-    up, vp, wp, ppad = (padded(q, e) for q, e in
-                        ((u, ue), (v, ve), (w, we), (p, pe)))
-    sp = None if s is None else padded(s, se)
+    yu, yv, yw, ys, yp = (None,) * 5 if ye is None else ye
+    up, vp, wp, ppad = (padded(q, e, y) for q, e, y in
+                        ((u, ue, yu), (v, ve, yv), (w, we, yw), (p, pe, yp)))
+    sp = None if s is None else padded(s, se, ys)
     (eu, exyu, ezu), (ev, exyv, ezv), (ew, exyw, ezw) = st.momentum_rhs(
         up, vp, wp, sp, visc, dxi, dyi, dzci, dzfi, with_sgs=s is not None)
     if split is None:
@@ -110,8 +130,8 @@ def mom_rk_plain(u, v, w, s, p, ue, ve, we, se, pe, ruo, rvo, rwo,
     return un, vn, wn, ru, rv, rw, usum, vsum
 
 
-def fillps_plain(u, v, w, ue, ve, we, dzfi, dti, dxi, dyi):
-    return st.fillps(padded(u, ue), padded(v, ve), padded(w, we),
+def fillps_plain(u, v, w, ue, ve, we, dzfi, dti, dxi, dyi, yv=None):
+    return st.fillps(padded(u, ue), padded(v, ve, yv), padded(w, we),
                      dti, dxi, dyi, dzfi)
 
 
@@ -170,48 +190,84 @@ def _zext(q, wall_lo, wall_hi):
     return torch.cat([lo[None], q, hi[None]])
 
 
+def _yext(a):
+    """y ghost rows of an (n, ny, m) array extrapolated at both y walls."""
+    return torch.cat([2.0 * a[:, :1] - a[:, 1:2], a,
+                      2.0 * a[:, -1:] - a[:, -2:-1]], dim=1)
+
+
 def dsmag_plain(u, v, w, ue, ve, we, alph2, dzci, dzfi, dxi, dyi, wall_lo,
-                wall_hi, zvals=(0.0, 0.0, 0.0, 0.0)):
+                wall_hi, zvals=(0.0, 0.0, 0.0, 0.0), ye=None,
+                yvals=(0.0, 0.0, 0.0, 0.0), avg='channel'):
     """The Germano-Lilly model of sgs.dsmag_visct on interiors + the
     post-correction fill's edge stacks, with every ghost recipe written out
     for the class pallas_dsmag.eligible admits: the filtered products and
     the wall-parallel velocity extrapolate linearly at a wall; the filtered
     velocity's fill is -+1 times the first plane plus 2b (zvals = (u_lo,
     u_hi, v_lo, v_hi), the 'D' values b), and w is 0 on both z faces (its
-    lower face and the padded-row-nz rewrite).  Returns (s0, num, den):
-    |S| and the per-z-row sums of num = M_ij L_ij and den = M_ij M_ij
-    (off-diagonal pairs twice) as (nz, 1) tensors."""
-    up, vp, wp = padded(u, ue), padded(v, ve), padded(w, we)
+    lower face and the padded-row-nz rewrite).  ye = (yu, yv, yw), the
+    fill's y-row stacks: both y faces are walls, with the same recipes
+    along y (yvals = (u_lo, u_hi, w_lo, w_hi); v is 0 on its lower face and
+    its padded-ny rewrite) and alpha^2 = 2.52 on the first and last y rows.
+    Returns (s0, num, den): |S| and the sums of num = M_ij L_ij and
+    den = M_ij M_ij (off-diagonal pairs twice) over each z row, (nz, 1),
+    for avg 'channel', over each (z, y) row, (nz, ny, 1), for 'duct'; for
+    'cavity' (nu_t, None, None), nu_t = max(|S| num / den, 0) by cell."""
+    ywall = ye is not None
+    yu, yv, yw = (None,) * 3 if ye is None else ye
+    up, vp, wp = padded(u, ue, yu), padded(v, ve, yv), padded(w, we, yw)
     s0, sij = st.strain_rate(up, vp, wp, dzci, dzfi, dxi, dyi, with_sij=True)
 
     def filt(q):
-        return st.filter3d(wrap_xy(_zext(q, wall_lo, wall_hi)))
+        q = _zext(q, wall_lo, wall_hi)
+        q = _yext(q) if ywall else torch.cat([q[:, -1:], q, q[:, :1]], 1)
+        return st.filter3d(wrap_x(q))
     fm = [filt(s0 * q) for q in sij]
 
-    # filtered velocity: u, v extrapolated at the walls, w's own fill
-    def vel_ext(qp):
-        q = qp[1:-1]
-        lo = 2.0 * q[0] - q[1] if wall_lo else qp[0]
-        hi = 2.0 * q[-1] - q[-2] if wall_hi else qp[-1]
-        return torch.cat([lo[None], q, hi[None]])
-    ufi = st.filter3d(vel_ext(up))
-    vfi = st.filter3d(vel_ext(vp))
-    wfi = st.filter3d(wp)
+    # filtered velocity: u, v extrapolated at the z walls, u, w at the y
+    # walls, each component's own fill elsewhere
+    def vel_ext(qp, along_z, along_y):
+        if along_z:
+            q = qp[1:-1]
+            lo = 2.0 * q[0] - q[1] if wall_lo else qp[0]
+            hi = 2.0 * q[-1] - q[-2] if wall_hi else qp[-1]
+            qp = torch.cat([lo[None], q, hi[None]])
+        if along_y and ywall:
+            qp = _yext(qp[:, 1:-1])
+        return qp
+    ufi = st.filter3d(vel_ext(up, True, True))
+    vfi = st.filter3d(vel_ext(vp, True, False))
+    wfi = st.filter3d(vel_ext(wp, False, True))
+
+    def yfill(q, c):
+        if not ywall:
+            return torch.cat([q[:, -1:], q, q[:, :1]], 1)
+        if c == 1:      # [lower face, v_0 .. v_(ny-2), rewrite, ny-2 copy]
+            zero = torch.zeros_like(q[:, :1])
+            return torch.cat([zero, q[:, :-1], zero, q[:, -2:-1]], 1)
+        lo, hi = (2.0 * yvals[0], 2.0 * yvals[1]) if c == 0 else \
+            (2.0 * yvals[2], 2.0 * yvals[3])
+        return torch.cat([-q[:, :1] + lo, q, -q[:, -1:] + hi], 1)
     szlo = -1.0 if wall_lo else 1.0
     szhi = -1.0 if wall_hi else 1.0
     offlo = (2.0 * zvals[0] if wall_lo else 0.0,
              2.0 * zvals[2] if wall_lo else 0.0)
     offhi = (2.0 * zvals[1] if wall_hi else 0.0,
              2.0 * zvals[3] if wall_hi else 0.0)
-    ufp, vfp = (wrap_xy(torch.cat([(szlo * q[0] + offlo[c])[None], q,
-                                   (szhi * q[-1] + offhi[c])[None]]))
-                for c, q in enumerate((ufi, vfi)))
-    zero = torch.zeros_like(wfi[:1])
+    ufp, vfp = (wrap_x(torch.cat([(szlo * q[0] + offlo[c])[None], q,
+                                  (szhi * q[-1] + offhi[c])[None]]))
+                for c, q in enumerate((yfill(ufi, 0), yfill(vfi, 1))))
+    wy = yfill(wfi, 2)
+    zero = torch.zeros_like(wy[:1])
     # rows [lower face, w_0 .. w_(nz-2), top-face rewrite, never read]
-    wfp = wrap_xy(torch.cat([zero, wfi[:-1], zero, zero]))
+    wfp = wrap_x(torch.cat([zero, wy[:-1], zero, zero]))
     s0f, sijf = st.strain_rate(ufp, vfp, wfp, dzci, dzfi, dxi, dyi,
                                with_sij=True)
-    a2 = alph2[:, None, None]
+    a2 = alph2[:, None, None].expand(s0.shape[0], s0.shape[1], 1)
+    if ywall:
+        a2 = a2.clone()
+        a2[:, 0] = 2.52
+        a2[:, -1] = 2.52
     mij = [2.0 * (m - a2 * s0f * sf) for m, sf in zip(fm, sijf)]
 
     uc, vc, wc = st.interp_center(up, vp, wp)
@@ -225,13 +281,20 @@ def dsmag_plain(u, v, w, ue, ve, we, alph2, dzci, dzfi, dxi, dyi, wall_lo,
            + 2.0 * (mij[3] * lij[3] + mij[4] * lij[4] + mij[5] * lij[5]))
     den = (mij[0] * mij[0] + mij[1] * mij[1] + mij[2] * mij[2]
            + 2.0 * (mij[3] * mij[3] + mij[4] * mij[4] + mij[5] * mij[5]))
+    if avg == 'cavity':
+        return torch.clamp_min(s0 * num / den, 0.0), None, None
+    if avg == 'duct':
+        return s0, num.sum(dim=2, keepdim=True), den.sum(dim=2, keepdim=True)
     return (s0, num.sum(dim=(1, 2))[:, None], den.sum(dim=(1, 2))[:, None])
 
 
 def correc_updatep_plain(u, v, w, pp, p, we, ppe, dtrk, dxi, dyi, dzci,
                          dzfi, fuv=None, alpha=0.0, impdiff=False,
-                         impdiff_1d=False):
-    ppad = padded(pp, ppe)
+                         impdiff_1d=False, ypp=None, yv=None):
+    ppad = padded(pp, ppe, ypp)
+    if yv is not None:
+        # v's wall face: the prediction fill's rewrite row (padded y ny)
+        v = torch.cat([v[:, :-1], yv[:, 1:2]], dim=1)
     ppc = ppad[1:-1, 1:-1, 1:-1]
     nz = u.shape[0]
     dzci_c = torch.as_tensor(dzci[1:nz + 1], dtype=u.dtype,
@@ -254,7 +317,8 @@ def _on_cpu(ref):
     return ref.device.type == 'cpu'
 
 
-def _check(name, ref, fields, planes=(), edges=(), profiles=()):
+def _check(name, ref, fields, planes=(), edges=(), profiles=(), yrows=(),
+           ycorners=()):
     """Validate what the kernel takes: one CUDA device, float32/float64,
     contiguous, shapes of the interior (nz, ny, nx)."""
     if ref.device.type != 'cuda':
@@ -263,9 +327,11 @@ def _check(name, ref, fields, planes=(), edges=(), profiles=()):
     if ref.dtype not in (torch.float32, torch.float64):
         raise TypeError(f'{name}: dtype {ref.dtype} (float32 or float64)')
     nz, ny, nx = ref.shape
-    want = {'field': (nz, ny, nx), 'plane': (ny, nx), 'edge': (3, ny, nx)}
+    want = {'field': (nz, ny, nx), 'plane': (ny, nx), 'edge': (3, ny, nx),
+            'y-row stack': (nz, 3, nx), 'corner stack': (3, 3, nx)}
     for kind, group in (('field', fields), ('plane', planes),
-                        ('edge', edges)):
+                        ('edge', edges), ('y-row stack', yrows),
+                        ('corner stack', ycorners)):
         for t in group:
             if t is None:
                 continue
@@ -276,7 +342,8 @@ def _check(name, ref, fields, planes=(), edges=(), profiles=()):
         if t.ndim != 1 or t.shape[0] != n:
             raise ValueError(f'{name}: profile shape {tuple(t.shape)}, '
                              f'want ({n},)')
-    for t in (*fields, *planes, *edges, *(q for q, _ in profiles)):
+    for t in (*fields, *planes, *edges, *yrows, *ycorners,
+              *(q for q, _ in profiles)):
         if t is None:
             continue
         if t.device != ref.device or t.dtype != ref.dtype:
@@ -288,6 +355,18 @@ def _check(name, ref, fields, planes=(), edges=(), profiles=()):
 
 def _ptr(t):
     return None if t is None else ctypes.c_void_p(t.data_ptr())
+
+
+def _ysplit(ys):
+    """_check's arguments for (rows, corners) y-row stack pairs."""
+    ys = [y for y in ys if y is not None]
+    return dict(yrows=[y[0] for y in ys], ycorners=[y[1] for y in ys])
+
+
+def _yptrs(ys):
+    """The (rows, corners) pointers of each y-row stack pair, nulls for a
+    missing pair."""
+    return [_ptr(q) for y in ys for q in ((None, None) if y is None else y)]
 
 
 def _suffix(t):
@@ -313,7 +392,8 @@ def _launch(name, entry, *args, counts=None):
 # ---------------------------------------------------------------------------
 
 def mom_rk(u, v, w, s, p, ue, ve, we, se, pe, ruo, rvo, rwo, dzci, dzfi,
-           f1, f2, visc, dxi, dyi, bforce, sums=(False, False), split=None):
+           f1, f2, visc, dxi, dyi, bforce, sums=(False, False), split=None,
+           ye=None):
     """Momentum RHS (mom.f90:17-309) + low-storage RK3 update with -grad p
     and bforce (rk.f90:77-94) in one pass.  ruo..rwo = None skips the
     previous-RHS reads (first substep, f2 == 0).  s = se = None: no eddy
@@ -322,22 +402,28 @@ def mom_rk(u, v, w, s, p, ue, ve, we, se, pe, ruo, rvo, rwo, dzci, dzfi,
     (advection + xy diffusion) and u..w the Crank-Nicolson RHS u_RK -
     1/2 f12 rud (pallas_kernels fused_mom_rk fold_cn).  sums: per-(z,
     block) partial sums of the new (full-prediction) u / v for the bulk
-    forcing.  Returns (u, v, w, ru, rv, rw, usum, vsum); usum/vsum are
-    (nz, nblk) or None."""
+    forcing.  ye: y walls, the (rows, corners) y-row stack pairs of (u, v,
+    w, visct, p), visct's None without visct.  Returns (u, v, w, ru, rv,
+    rw, usum, vsum); usum/vsum are (nz, nblk) or None."""
     if split not in (None, '1d'):
         raise ValueError(f"mom_rk: split {split!r} (None or '1d')")
     if _on_cpu(u):
         return mom_rk_plain(u, v, w, s, p, ue, ve, we, se, pe, ruo, rvo, rwo,
                             dzci, dzfi, f1, f2, visc, dxi, dyi, bforce,
-                            sums=sums, split=split)
+                            sums=sums, split=split, ye=ye)
     nz, ny, nx = u.shape
     if (ruo is None) != (rvo is None) or (ruo is None) != (rwo is None):
         raise ValueError('mom_rk: pass all or none of ruo, rvo, rwo')
     if (s is None) != (se is None):
         raise ValueError('mom_rk: pass visct with its edge stack, or neither')
+    ye = (None,) * 5 if ye is None else tuple(ye)
+    if ye[0] is not None and (any(ye[m] is None for m in (1, 2, 4))
+                              or (ye[3] is None) != (s is None)):
+        raise ValueError('mom_rk: y walls take the y-row stacks of u, v, w, '
+                         'p and of visct where it is given')
     _check('mom_rk', u, (u, v, w, s, p, ruo, rvo, rwo),
            edges=(ue, ve, we, se, pe),
-           profiles=((dzci, nz + 2), (dzfi, nz + 2)))
+           profiles=((dzci, nz + 2), (dzfi, nz + 2)), **_ysplit(ye))
     outs = [torch.empty_like(u) for _ in range(6)]
     from . import build
     nb = -(-(ny * nx) // build.THREADS)     # blocks per z plane
@@ -346,7 +432,7 @@ def mom_rk(u, v, w, s, p, ue, ve, we, se, pe, ruo, rvo, rwo, dzci, dzfi,
     d = ctypes.c_double
     _launch('mom_rk', f'cales_mom_rk_{_suffix(u)}',
             *map(_ptr, (u, v, w, s, p, ue, ve, we, se, pe, ruo, rvo, rwo,
-                        dzci, dzfi, *outs, usum, vsum)),
+                        dzci, dzfi, *outs, usum, vsum)), *_yptrs(ye),
             ctypes.c_int(nz), ctypes.c_int(ny), ctypes.c_int(nx),
             ctypes.c_int(int(split is not None)),
             d(f1), d(f2), d(visc), d(dxi), d(dyi),
@@ -354,17 +440,19 @@ def mom_rk(u, v, w, s, p, ue, ve, we, se, pe, ruo, rvo, rwo, dzci, dzfi,
     return (*outs, usum, vsum)
 
 
-def fillps(u, v, w, ue, ve, we, dzfi, dti, dxi, dyi):
-    """Poisson RHS div(u)/dt_rk (fillps.f90:14-48) in one pass."""
+def fillps(u, v, w, ue, ve, we, dzfi, dti, dxi, dyi, yv=None):
+    """Poisson RHS div(u)/dt_rk (fillps.f90:14-48) in one pass.  yv: y
+    walls, v's (rows, corners) y-row stack pair (its lower wall face and
+    rewrite row enter the divergence)."""
     if _on_cpu(u):
-        return fillps_plain(u, v, w, ue, ve, we, dzfi, dti, dxi, dyi)
+        return fillps_plain(u, v, w, ue, ve, we, dzfi, dti, dxi, dyi, yv=yv)
     nz, ny, nx = u.shape
     _check('fillps', u, (u, v, w), edges=(ue, ve, we),
-           profiles=((dzfi, nz + 2),))
+           profiles=((dzfi, nz + 2),), **_ysplit((yv,)))
     rhs = torch.empty_like(u)
     d = ctypes.c_double
     _launch('fillps', f'cales_fillps_{_suffix(u)}',
-            *map(_ptr, (u, v, w, ue, ve, we, dzfi, rhs)),
+            *map(_ptr, (u, v, w, ue, ve, we, dzfi, rhs)), *_yptrs((yv,)),
             ctypes.c_int(nz), ctypes.c_int(ny), ctypes.c_int(nx),
             d(dti), d(dxi), d(dyi))
     return rhs
@@ -412,25 +500,33 @@ def correc_smag(u, v, w, pp, p, ue, ve, we, ppe, dtrk, dxi, dyi, dzci, dzfi,
 
 
 def correc_updatep(u, v, w, pp, p, we, ppe, dtrk, dxi, dyi, dzci, dzfi,
-                   fuv=None, alpha=0.0, impdiff=False, impdiff_1d=False):
+                   fuv=None, alpha=0.0, impdiff=False, impdiff_1d=False,
+                   ypp=None, yv=None):
     """Projection u -= dt grad pp (+ the deferred forcing fuv = (fu, fv) when
     given) and p += pp (+ alpha L(pp) under implicit diffusion, L the z
     second difference under impdiff_1d) in one pass (correc.f90:14-68,
     updatep.f90:14-50).  we: the PREDICTION fill's w edge stack (row 1 is
-    the wall-face rewrite); u, v, p are read from their interiors.
-    Returns (u, v, w, p)."""
+    the wall-face rewrite); u, v, p are read from their interiors.  y
+    walls: ypp, pp's (rows, corners) y-row stack pair, and yv, v's
+    prediction-fill y-row stack (nz, 3, nx), whose row 1 (the set_bc
+    rewrite) stands in for v's interior last row.  Returns (u, v, w, p)."""
     if _on_cpu(u):
         return correc_updatep_plain(u, v, w, pp, p, we, ppe, dtrk, dxi, dyi,
                                     dzci, dzfi, fuv, alpha, impdiff,
-                                    impdiff_1d)
+                                    impdiff_1d, ypp=ypp, yv=yv)
     nz, ny, nx = u.shape
+    if (ypp is None) != (yv is None):
+        raise ValueError('correc_updatep: y walls take ypp and yv together')
     _check('correc_updatep', u, (u, v, w, pp, p), edges=(we, ppe),
            profiles=((dzci, nz + 2), (dzfi, nz + 2))
-           + (((fuv, 2),) if fuv is not None else ()))
+           + (((fuv, 2),) if fuv is not None else ()),
+           yrows=() if yv is None else (ypp[0], yv),
+           ycorners=() if yv is None else (ypp[1],))
     outs = [torch.empty_like(u) for _ in range(4)]
     d = ctypes.c_double
     _launch('correc_updatep', f'cales_correc_{_suffix(u)}',
             *map(_ptr, (u, v, w, pp, p, we, ppe, dzci, dzfi, fuv, *outs)),
+            *_yptrs((ypp,)), _ptr(yv),
             ctypes.c_int(nz), ctypes.c_int(ny), ctypes.c_int(nx),
             ctypes.c_int(int(bool(impdiff))),
             ctypes.c_int(int(bool(impdiff_1d))),
@@ -468,35 +564,51 @@ def smag(u, v, w, ue, ve, we, dzci, dzfi, dxi, dyi, visc, csd2, dw, nearlo,
 DSMAG_TILE = (8, 32)
 
 
+_DSMAG_AVG = {'channel': 0, 'duct': 1, 'cavity': 2}
+
+
 def dsmag(u, v, w, ue, ve, we, alph2, dzci, dzfi, dxi, dyi, wall_lo, wall_hi,
-          zvals=(0.0, 0.0, 0.0, 0.0)):
-    """Dynamic Smagorinsky with channel averaging: the grid-level |S|, and
-    per-(z, block) partial sums of num = M_ij L_ij and den = M_ij M_ij
-    (the Germano-Lilly model, sgs.f90:153-370) in one z-march; no
-    intermediate field goes to device memory.  Inputs: the post-correction
-    fill (interiors + edge stacks), alph2 the (nz,) filter-ratio profile,
-    wall_lo/hi the z wall flags, zvals the filtered-velocity fill's
-    wall-parallel 'D' values (see dsmag_plain).  Returns (s0, num, den);
-    num and den are (nz, nblk), summed over dim 1 by the caller.  The
-    twin returns the row sums as (nz, 1)."""
+          zvals=(0.0, 0.0, 0.0, 0.0), ye=None, yvals=(0.0, 0.0, 0.0, 0.0),
+          avg='channel'):
+    """Dynamic Smagorinsky (the Germano-Lilly model, sgs.f90:153-370) in
+    one z-march; no intermediate field goes to device memory.  Inputs: the
+    post-correction fill (interiors + edge stacks, and with y walls the
+    y-row stack pairs ye of (u, v, w)), alph2 the (nz,) filter-ratio
+    profile, wall_lo/hi the z wall flags, zvals and yvals the
+    filtered-velocity fill's wall-parallel 'D' values (see dsmag_plain).
+    Returns (s0, num, den): |S| and partial sums of num = M_ij L_ij and
+    den = M_ij M_ij, which the caller sums over their last dim: per
+    (z, block), (nz, nblk), for avg 'channel'; per (z, y, x block),
+    (nz, ny, nx/32), for 'duct'.  For 'cavity', (nu_t, None, None).  The
+    twin returns the sums whole, (nz, 1) or (nz, ny, 1)."""
+    if avg not in _DSMAG_AVG:
+        raise ValueError(f'dsmag: avg {avg!r} (channel, duct or cavity)')
     if _on_cpu(u):
         return dsmag_plain(u, v, w, ue, ve, we, alph2, dzci, dzfi, dxi, dyi,
-                           wall_lo, wall_hi, zvals)
+                           wall_lo, wall_hi, zvals, ye=ye, yvals=yvals,
+                           avg=avg)
     nz, ny, nx = u.shape
     if nz < 2:
         raise ValueError(f'dsmag: nz = {nz} (at least 2)')
+    if ye is not None and ny < 4:
+        raise ValueError(f'dsmag: ny = {ny} with y walls (at least 4)')
+    ye = (None,) * 3 if ye is None else tuple(ye)
     _check('dsmag', u, (u, v, w), edges=(ue, ve, we),
-           profiles=((alph2, nz), (dzci, nz + 2), (dzfi, nz + 2)))
+           profiles=((alph2, nz), (dzci, nz + 2), (dzfi, nz + 2)),
+           **_ysplit(ye))
     ty, tx = DSMAG_TILE
-    nblk = -(-ny // ty) * -(-nx // tx)
+    gx = -(-nx // tx)
     s0 = torch.empty_like(u)
-    num = u.new_empty((nz, nblk))
-    den = u.new_empty((nz, nblk))
+    shape = {'channel': (nz, -(-ny // ty) * gx), 'duct': (nz, ny, gx),
+             'cavity': None}[avg]
+    num = None if shape is None else u.new_empty(shape)
+    den = None if shape is None else u.new_empty(shape)
     d = ctypes.c_double
     _launch('dsmag', f'cales_dsmag_{_suffix(u)}',
             *map(_ptr, (u, v, w, ue, ve, we, alph2, dzci, dzfi, s0, num,
-                        den)),
+                        den)), *_yptrs(ye),
             ctypes.c_int(nz), ctypes.c_int(ny), ctypes.c_int(nx),
             ctypes.c_int(int(bool(wall_lo))), ctypes.c_int(int(bool(wall_hi))),
-            d(dxi), d(dyi), *(d(float(q)) for q in zvals))
+            ctypes.c_int(_DSMAG_AVG[avg]), d(dxi), d(dyi),
+            *(d(float(q)) for q in (*zvals, *yvals)))
     return s0, num, den

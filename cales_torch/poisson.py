@@ -20,9 +20,16 @@ implicit-diffusion path (impdiff_1d) through the Thomas kernel, with the
 bulk-forcing shift, the boundary planes and the face-staggered tail row
 inside the kernel.
 
+With y walls (homogeneous-Neumann pressure, the duct and cavity classes)
+the y operator is a DCT matrix and the route is 'mat': apply_y and z_eig
+take whatever operator and eigenvalues the transforms hold, so no kernel
+changes.
+
 Not in this slice (each raises NotImplementedError naming its ROADMAP
 item): the full-3D Helmholtz solve (impdiff without impdiff_1d), periodic
-z with the Thomas z stage, and transforms with excluded rows (walled x/y).
+z with the Thomas z stage, transforms with excluded rows (walled x, or a
+face-staggered field), and the mixed route (an FFT along x with a matrix
+along y).
 """
 from __future__ import annotations
 
@@ -131,10 +138,14 @@ def make_solver(cfg: Config, grid: Grid, cbc, c_or_f,
                 zsolver: str = 'eig') -> DirectSolver:
     """cbc: per-direction BC pairs [(lo,hi) x 3] as two-letter strings.
     ptransform 'auto' resolves to 'fft', as it does off a TPU in the JAX
-    package."""
+    package, except with y walls: there the y transform is a matrix
+    whatever 'auto' says, and 'auto' takes 'mat' along x too, the all-matrix
+    route of apply_y and z_eig, rather than the JAX package's mixed route
+    off a TPU (rfft along x and the y matrix, poisson.py:414-430)."""
     nx, ny, nz = cfg.ng
     dli = cfg.dli
-    pp_mat = getattr(cfg, 'ptransform', 'auto') == 'mat'
+    mode = getattr(cfg, 'ptransform', 'auto')
+    pp_mat = mode == 'mat' or (mode == 'auto' and cbc[1] != 'PP')
     trx = tr.make_transform(cbc[0], c_or_f[0], nx, pp_mat=pp_mat)
     try_ = tr.make_transform(cbc[1], c_or_f[1], ny, pp_mat=pp_mat)
     a, b, c = tridmatrix(cbc[2], nz, grid.dzci, grid.dzfi, c_or_f[2])
@@ -186,8 +197,9 @@ def _check_in_slice(sv: DirectSolver, alpha):
     if sv.trx.kind != sv.try_.kind or sv.trx.nsolve != nx \
             or sv.try_.nsolve != ny or sv.qz:
         raise NotImplementedError(
-            'transforms with excluded rows or mixed kinds (non-periodic '
-            'x/y) are not ported yet: ROADMAP queue 1, BC topologies')
+            'transforms with excluded rows or mixed kinds (an FFT along x '
+            "with y walls, ptransform='fft') are not ported yet: ROADMAP "
+            'queue 1, BC topologies')
     if uses_thomas(sv) and sv.bcz == 'PP':
         raise NotImplementedError(
             'periodic z with the Thomas z stage needs the rank-1 periodic '

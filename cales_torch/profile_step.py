@@ -1,7 +1,8 @@
 """Where the time of one RK3 step goes on the card.
 
     python -m cales_torch.profile_step
-        [--case les|les-mat|les-imp|dns|dsmag] [--ng 512x256x256] [--steps 3]
+        [--case les|les-mat|les-imp|dns|dsmag|duct|cavity] [--ng 512x256x256]
+        [--steps 3]
 
 Steps one of the channel configurations under torch.profiler and prints
 the device time per kernel and per stage: the CUDA kernels, the Poisson
@@ -12,9 +13,11 @@ ptransform='mat' (apply_y + z_eig); 'les-imp' the same with z-implicit
 diffusion (impdiff_1d: thomas_z CN solves, nu_t from the smag kernel);
 'dns' the implicit-CN channel DNS (channel_dns_impdiff: apply_y + z_eig,
 thomas_z CN solves); 'dsmag' the dynamic-Smagorinsky channel of
-validation/dsmag_channel.py (impdiff_1d, 'mat', the dsmag kernel).  The
-device's idle share is 1 - (device busy time / wall time of the profiled
-window).
+validation/dsmag_channel.py (impdiff_1d, 'mat', the dsmag kernel); 'duct'
+and 'cavity' bench.py's duct_les_dsmag and cavity_les_dsmag (y and z
+walls, explicit diffusion, 'mat', the y-walled kernel variants and the
+dsmag kernel's 'duct' and 'cavity' averages).  The device's idle share is
+1 - (device busy time / wall time of the profiled window).
 Needs a CUDA device.
 """
 from __future__ import annotations
@@ -28,7 +31,7 @@ import numpy as np
 import torch
 
 STAGES = (
-    ('mom_rk', ('mom_rk_kernel',)),
+    ('mom_rk', ('mom_rk_kernel', 'mom_rk_yw_kernel')),
     ('fillps', ('fillps_kernel',)),
     ('correc_smag', ('correc_smag_kernel',)),
     ('correc_updatep', ('cales::correc_kernel',)),
@@ -45,8 +48,13 @@ CHAN_BCS = dict(
     cbcvel=((('P', 'P', 'P'), ('P', 'P', 'P'), ('D', 'D', 'D')),) * 2,
     cbcpre=(('P', 'P', 'N'), ('P', 'P', 'N')),
     cbcsgs=(('P', 'P', 'D'), ('P', 'P', 'D')))
-# bench.py _matrix_configs: the channel-LES headline and channel_dns_impdiff;
-# validation/dsmag_channel.py:77-89 for the dynamic model
+DUCT_BCS = dict(
+    cbcvel=((('P', 'P', 'P'), ('D', 'D', 'D'), ('D', 'D', 'D')),) * 2,
+    cbcpre=(('P', 'N', 'N'), ('P', 'N', 'N')),
+    cbcsgs=(('P', 'D', 'D'), ('P', 'D', 'D')))
+# bench.py _matrix_configs: the channel-LES headline, channel_dns_impdiff,
+# duct_les_dsmag and cavity_les_dsmag; validation/dsmag_channel.py:77-89
+# for the dynamic model in the channel
 CASES = {
     'les': dict(visci=20_000.0, sgstype='smag', ptransform='fft'),
     'les-mat': dict(visci=20_000.0, sgstype='smag', ptransform='mat'),
@@ -57,6 +65,16 @@ CASES = {
     'dsmag': dict(l=(12.8, 4.8, 2.0), gr=5.0, visci=10_000.0, inivel='poi',
                   sgstype='dsmag', dsmag_avg='channel', ptransform='mat',
                   impdiff=True, impdiff_1d=True, **CHAN_BCS),
+    'duct': dict(l=(4 * np.pi, 2.0, 2.0), visci=10_000.0, inivel='duc',
+                 sgstype='dsmag', dsmag_avg='duct', ptransform='mat',
+                 **DUCT_BCS),
+    'cavity': dict(l=(1.0, 1.0, 1.0), gr=0.0, visci=5_000.0, inivel='tgv',
+                   is_wallturb=False, is_forced=(False, False, False),
+                   velf=(0.0, 0.0, 0.0), sgstype='dsmag', dsmag_avg='cavity',
+                   ptransform='mat',
+                   bcvel=(((0.0,) * 3,) * 3,
+                          ((0.0, 0.0, 0.0), (0.0, 0.0, 0.0),
+                           (0.0, 1.0, 0.0))), **DUCT_BCS),
 }
 
 

@@ -1,5 +1,6 @@
 """SGS eddy viscosity: static Smagorinsky with van Driest damping, and
-dynamic Smagorinsky (Germano-Lilly) with channel averaging.
+dynamic Smagorinsky (Germano-Lilly) with the 'channel', 'duct' and
+'cavity' averages.
 
 Counterpart of cales_tpu/sgs.py (reference sgs.f90:69-380, extrapolate
 682-767, cmpt_alph2 769-822).  ``SGSSetup`` is the JAX package's numpy
@@ -197,9 +198,6 @@ def dsmag_unsupported(cfg):
     """The dynamic-model variants this port does not run yet, each with the
     ROADMAP item that brings it."""
     out = []
-    if cfg.dsmag_avg in ('duct', 'cavity'):
-        out.append(f"dsmag_avg {cfg.dsmag_avg!r} needs the y-wall bundles: "
-                   'ROADMAP queue 1, duct/cavity classes')
     if cfg.dsmag_avg == 'dit':
         out.append("dsmag_avg 'dit' needs periodic z: ROADMAP queue 1, "
                    'triperiodic')
@@ -211,8 +209,10 @@ def dsmag_unsupported(cfg):
 
 def dsmag_visct(setup: SGSSetup, cfg, grid, up, vp, wp, bcs_vals,
                 pad_vel_fn):
-    """Dynamic Smagorinsky (Germano-Lilly, sgs.f90:153-380) with 'channel'
-    averaging, on padded fields; the term order is cales_tpu/sgs.py's.
+    """Dynamic Smagorinsky (Germano-Lilly, sgs.f90:153-380) on padded
+    fields, with the average of cfg.dsmag_avg: 'channel' over each z plane
+    (ave1d_channel), 'duct' over x for each (z, y) row (ave2d_duct,
+    sgs.f90:540-614), 'cavity' none; the term order is cales_tpu/sgs.py's.
 
     bcs_vals: the SGS scalar's BC values (boundp of the products);
     pad_vel_fn(u, v, w) applies the filtered-velocity BC fill (bounduvw
@@ -263,10 +263,12 @@ def dsmag_visct(setup: SGSSetup, cfg, grid, up, vp, wp, bcs_vals,
               (vcf, wcf)]
     lij = [q - a * b for q, (a, b) in zip(lij, fpairs)]
 
-    # contraction + the plane average of ave1d_channel (sgs.f90:328-370)
+    # contraction + the homogeneous-direction average (sgs.f90:328-370)
     num = sum(m * q for m, q in zip(mij[:3], lij[:3])) \
         + 2.0 * sum(m * q for m, q in zip(mij[3:], lij[3:]))
     den = sum(m * m for m in mij[:3]) + 2.0 * sum(m * m for m in mij[3:])
-    num = torch.mean(num, dim=(1, 2), keepdim=True)
-    den = torch.mean(den, dim=(1, 2), keepdim=True)
+    dims = {'channel': (1, 2), 'duct': (2,)}.get(cfg.dsmag_avg)
+    if dims is not None:
+        num = torch.mean(num, dim=dims, keepdim=True)
+        den = torch.mean(den, dim=dims, keepdim=True)
     return torch.clamp_min(s0 * num / den, 0.0)

@@ -4,7 +4,10 @@ Counterpart of cales_tpu/timeloop.py on its single-device kernel path for
 the channel classes with periodic x/y and z walls (reference
 rk.f90:17-121, main.f90:417-507): the LES with static or dynamic
 Smagorinsky, and the DNS (sgstype 'none'), each with explicit or
-z-implicit (impdiff_1d) diffusion.  One RK substep runs:
+z-implicit (impdiff_1d) diffusion; and for the y-walled classes, the
+square duct and the spanwise-periodic cavity, with dynamic Smagorinsky
+('duct', 'cavity' or 'channel' averaging) or none, explicit diffusion.
+One RK substep runs:
   1. kernels.mom_rk          momentum RHS + RK3 update (+ forcing partial
                              sums; with impdiff_1d the explicit/implicit
                              split and the Crank-Nicolson fold)
@@ -19,11 +22,15 @@ z-implicit (impdiff_1d) diffusion.  One RK substep runs:
      kernels.correc_updatep  projection, p += pp (+ alpha Lz(pp))
   7. the SGS stage on the post-correction fill, where 6 did not make nu_t:
      kernels.smag (smag with impdiff_1d), or kernels.dsmag (dsmag: |S|
-     and per-block num/den sums, then nu_t = max(|S| num/den, 0) per z
-     row, the channel average)
-with the z-edge stacks (ops/boundary.zedge_*) as the glue.  On a CUDA device
-the kernels are the hand-written ones of cales_torch/csrc; on the CPU their
-plain PyTorch twins.
+     and partial num/den sums, then nu_t = max(|S| num/den, 0) with one
+     ratio per z row ('channel') or per (z, y) row ('duct'); 'cavity'
+     makes nu_t cell by cell in the kernel)
+with the z-edge stacks (ops/boundary.zedge_*) as the glue, and with y walls
+the y-row stacks (ops/boundary.yedge_*) of the same three fills: the
+carried post-correction fill for mom_rk, the prediction fill for fillps
+and correc_updatep (with pp's after the solve), the new post-correction
+fill for dsmag.  On a CUDA device the kernels are the hand-written ones of
+cales_torch/csrc; on the CPU their plain PyTorch twins.
 
 The port and the JAX package carry the same state (State below), so a
 JAX state can be carried across (params.py).  Configurations outside this
@@ -61,6 +68,42 @@ class State(NamedTuple):
                       # fill, carried to the next substep's momentum kernel
 
 
+def _periodic(cfg: Config, d: int) -> bool:
+    return (all(cfg.cbc_vel(d, iv) == 'PP' for iv in range(3))
+            and cfg.cbc_pre(d) == 'PP'
+            and cfg.cbcsgs[0][d] + cfg.cbcsgs[1][d] == 'PP')
+
+
+def _ywalls_refuse(cfg: Config) -> list[str]:
+    """What this slice does not run with non-periodic y: y faces other than
+    walls (velocity 'D', pressure 'N', SGS 'D' or 'N'), a wall-normal
+    velocity through a y wall, and the models and routes with y walls
+    that the duct and cavity classes do not use."""
+    out = []
+    if not (all(cfg.cbc_vel(1, iv) == 'DD' for iv in range(3))
+            and cfg.cbc_pre(1) == 'NN'
+            and all(cfg.cbcsgs[ib][1] in ('D', 'N') for ib in range(2))):
+        out.append('non-periodic y other than walls (velocity D, pressure '
+                   'N, SGS D or N on both y faces): ROADMAP queue 1, BC '
+                   'topologies')
+    elif any(np.ndim(cfg.bcvel[ib][1][1]) == 0
+             and float(cfg.bcvel[ib][1][1]) != 0.0 for ib in range(2)):
+        out.append('a non-zero v through a y wall: ROADMAP queue 1, BC '
+                   'topologies')
+    if cfg.sgstype == 'smag':
+        out.append('static Smagorinsky with non-periodic y (y walls; the '
+                   'JAX package runs it through XLA, not a kernel): ROADMAP '
+                   'queue 1, smag with y walls')
+    if cfg.impdiff:
+        out.append('implicit diffusion with y walls (the duct and cavity '
+                   'classes run explicit): ROADMAP queue 1, impdiff with y '
+                   'walls')
+    if cfg.ptransform == 'fft':
+        out.append("ptransform 'fft' with y walls (the mixed FFT and matrix "
+                   'route): ROADMAP queue 1, BC topologies')
+    return out
+
+
 def unsupported(cfg: Config) -> list[str]:
     """What of `cfg` this slice does not run yet, each with the ROADMAP
     item that brings it; empty when the config is in the slice."""
@@ -74,12 +117,11 @@ def unsupported(cfg: Config) -> list[str]:
     if cfg.sgstype == 'dsmag':
         out += sgsmod.dsmag_unsupported(cfg)
         out += _dsmag_kernel_refuses(cfg, cbc)
-    for d, name in ((0, 'x'), (1, 'y')):
-        if not (all(cfg.cbc_vel(d, iv) == 'PP' for iv in range(3))
-                and cfg.cbc_pre(d) == 'PP'
-                and cfg.cbcsgs[0][d] + cfg.cbcsgs[1][d] == 'PP'):
-            out.append(f'non-periodic {name} ({name} walls): ROADMAP queue 1, '
-                       'BC topologies')
+    if not _periodic(cfg, 0):
+        out.append('non-periodic x (x walls, as in the enclosed cavity and '
+                   'the x+y-walled classes): ROADMAP queue 1, BC topologies')
+    if not _periodic(cfg, 1):
+        out += _ywalls_refuse(cfg)
     if cbc[0][2][0] == 'P':
         out.append('periodic z (triperiodic): ROADMAP queue 1, triperiodic')
     if cfg.scalar:
@@ -98,23 +140,29 @@ def unsupported(cfg: Config) -> list[str]:
 
 def _dsmag_kernel_refuses(cfg: Config, cbc) -> list[str]:
     """The limits of the dsmag kernel's ghost recipes, which are those of
-    cales_tpu's one-pass kernel (pallas_dsmag.eligible and
-    Simulation._dsmag_onepass_vals_ok): each z face a wall (Dirichlet w)
-    or a homogeneous-Neumann fill, and a zero w on the z faces."""
+    cales_tpu's one-pass kernel (pallas_dsmag.eligible face_ok and
+    Simulation._dsmag_onepass_vals_ok): each z face, and each y face with
+    y walls, a wall (Dirichlet normal velocity) or a homogeneous-Neumann
+    fill, with a zero normal velocity."""
     out = []
-    for ib in range(2):
-        if cbc[ib][2][2] != 'D':
-            ok = (cfg.cbcsgs[ib][2] == 'N' and float(cfg.bcsgs[ib][2]) == 0.0
-                  and all(cfg.cbcvel[ib][2][iv] == ('D' if iv == 2 else 'N')
-                          and float(cfg.bcvel[ib][2][iv]) == 0.0
-                          for iv in range(3)))
-            if not ok:
-                out.append('dsmag with a z face that is neither a wall nor '
-                           'a homogeneous-Neumann fill: ROADMAP queue 1, '
-                           'dsmag classes')
-        if np.ndim(cfg.bcvel[ib][2][2]) == 0 and float(cfg.bcvel[ib][2][2]):
-            out.append('dsmag with a non-zero w on a z face: ROADMAP '
-                       'queue 1, dsmag classes')
+    faces = ((2, 'z', 'w'),) + (() if _periodic(cfg, 1) else ((1, 'y', 'v'),))
+    for d, face, normal in faces:
+        for ib in range(2):
+            if cbc[ib][d][d] != 'D':
+                ok = (cfg.cbcsgs[ib][d] == 'N'
+                      and float(cfg.bcsgs[ib][d]) == 0.0
+                      and all(cfg.cbcvel[ib][d][iv] == ('D' if iv == d
+                                                        else 'N')
+                              and float(cfg.bcvel[ib][d][iv]) == 0.0
+                              for iv in range(3)))
+                if not ok:
+                    out.append(f'dsmag with a {face} face that is neither a '
+                               'wall nor a homogeneous-Neumann fill: ROADMAP '
+                               'queue 1, dsmag classes')
+            if (np.ndim(cfg.bcvel[ib][d][d]) == 0
+                    and float(cfg.bcvel[ib][d][d])):
+                out.append(f'dsmag with a non-zero {normal} on a {face} '
+                           'face: ROADMAP queue 1, dsmag classes')
     return out
 
 
@@ -133,6 +181,9 @@ class Simulation:
         self.cbcvel = effective_cbcvel(cfg)
         self.cbcpre = tuple((cfg.cbcpre[0][d], cfg.cbcpre[1][d])
                             for d in range(3))
+        # y walls on both faces (unsupported() admits no other non-periodic
+        # y): the kernels take the y-row stacks of their fills
+        self.ywalled = not _periodic(cfg, 1)
         nx, ny, nz = cfg.ng
 
         self.solver_p = poisson.make_solver(
@@ -216,19 +267,27 @@ class Simulation:
         self.nearlo_t = t((dw_lo <= dw_hi).astype(np.float64))
         self.dw_t = t(np.minimum(dw_lo, dw_hi) if self.have_zwalls
                       else np.zeros(nz))
-        # dsmag: the filter-ratio profile alpha^2 (x and y are periodic, so
-        # it varies along z only) and the filtered-velocity fill's
-        # wall-parallel z values
-        self.alph2_t = setup.alph2_field((nz, 1, 1), self.dtype,
-                                         self.device).reshape(nz)
+        # dsmag: the filter-ratio profile alpha^2 along z (2.52 on a z
+        # wall's first row; the kernel sets the y walls' rows itself) and
+        # the filtered-velocity fill's wall-parallel z and y values
+        alph2 = np.full(nz, 4.0)
+        if self.lo_wall:
+            alph2[0] = 2.52
+        if self.hi_wall:
+            alph2[-1] = 2.52
+        self.alph2_t = t(alph2)
         self.dsmag_zvals = (self.bcu_vals[2][0], self.bcu_vals[2][1],
                             self.bcv_vals[2][0], self.bcv_vals[2][1])
+        self.dsmag_yvals = (self.bcu_vals[1][0], self.bcu_vals[1][1],
+                            self.bcw_vals[1][0], self.bcw_vals[1][1])
         # deferred bulk forcing along the periodic x / y
         self.sum_flags = (bool(cfg.is_forced[0]), bool(cfg.is_forced[1]))
 
     # ------------------------------------------------------------------
     def kernel_names(self) -> list[str]:
-        """The kernels one step of this configuration launches."""
+        """The kernels one step of this configuration launches, by their
+        launch-count names (the y-walled variants count under their
+        kernel's name; exec_path says which variant runs)."""
         mat = self.solver_p.trx.kind == 'mat'
         thomas = poisson.uses_thomas(self.solver_p)
         names = ['mom_rk', 'fillps',
@@ -246,6 +305,8 @@ class Simulation:
     def exec_path(self) -> str:
         """One-line description of the execution path (logged at start)."""
         names = '+'.join(self.kernel_names())
+        if self.ywalled:
+            names += ' (y-walled variants)'
         if self.device.type == 'cuda':
             where = (f'{self.device} ({torch.cuda.get_device_name(self.device)})'
                      f', kernels: {names} (CUDA, cales_torch/csrc)')
@@ -261,8 +322,10 @@ class Simulation:
         sgs = ('smag fused in correc_smag' if self.fused_smag
                else 'smag kernel on the post-correction fill'
                if self.sgs_kernel == 'smag'
-               else "dsmag kernel + channel average ('channel')"
+               else f'dsmag kernel, {self.cfg.dsmag_avg!r} average'
                if self.sgs_kernel == 'dsmag' else 'none')
+        if self.ywalled:
+            sgs += '; y walls: y-row ghost stacks'
         return (f'{where}; poisson: {xy} + {zstage} ({self.cfg.dtype}); '
                 f'diffusion: {diff}; sgs: {sgs}')
 
@@ -343,6 +406,24 @@ class Simulation:
         return bnd.zedge_scalar(s, cbc_z, self.bcs_vals[2],
                                 self.grid.dzc).contiguous()
 
+    def _yedge_vel(self, u, v, w, vlo=None, is_correc=False):
+        """The (rows, corners) y-row stack pairs of u, v, w."""
+        rows, corners = bnd.yedge_velocity(
+            u, v, w, self.cbcvel, self.bcu_vals, self.bcv_vals,
+            self.bcw_vals, self.cfg.dl, self.grid.dzc, self.grid.dzf,
+            vlo=vlo, is_correc=is_correc)
+        return tuple(zip(rows, corners))
+
+    def _yedge_p(self, p):
+        return bnd.yedge_scalar(p, self.cbcpre, self.bcp_vals, self.cfg.dl,
+                                self.grid.dzc)
+
+    def _yedge_s(self, s):
+        cbcs = tuple((self.cfg.cbcsgs[0][d], self.cfg.cbcsgs[1][d])
+                     for d in range(3))
+        return bnd.yedge_scalar(s, cbcs, self.bcs_vals, self.cfg.dl,
+                                self.grid.dzc)
+
     # ------------------------------------------------------------------
     def _bulk_forcing(self, sums):
         """Bulk-velocity forcing (rk.f90:197-222, mom.f90:311-335) from the
@@ -403,7 +484,7 @@ class Simulation:
         hi = plane(1) if self.hi_wall else None
         return (hi if lo is None else lo), (lo if hi is None else hi)
 
-    def _sgs_stage(self, u, v, w, zq):
+    def _sgs_stage(self, u, v, w, zq, vlo):
         """nu_t of the post-correction fill (main.f90:504-506) by the smag
         or dsmag kernel."""
         cfg = self.cfg
@@ -420,10 +501,20 @@ class Simulation:
                                 self.csd2_t, self.dw_t, self.nearlo_t,
                                 tauw_lo, tauw_hi,
                                 have_zwalls=self.have_zwalls)
+        ye = (self._yedge_vel(u, v, w, vlo=vlo, is_correc=True)
+              if self.ywalled else None)
+        avg = cfg.dsmag_avg
         s0, num, den = kernels.dsmag(u, v, w, ue, ve, we, self.alph2_t,
                                      self.dzci_t, self.dzfi_t, dxi, dyi,
                                      self.lo_wall, self.hi_wall,
-                                     self.dsmag_zvals)
+                                     self.dsmag_zvals, ye=ye,
+                                     yvals=self.dsmag_yvals, avg=avg)
+        if avg == 'cavity':
+            return s0           # nu_t, cell by cell
+        if avg == 'duct':
+            # ave2d_duct: one ratio per (z, y) row (sgs.f90:540-614)
+            ratio = num.sum(dim=-1) / den.sum(dim=-1)
+            return torch.clamp_min(s0 * ratio[:, :, None], 0.0)
         # ave1d_channel: one ratio per z row (sgs.f90:433-538)
         ratio = num.sum(dim=1) / den.sum(dim=1)
         return torch.clamp_min(s0 * ratio[:, None, None], 0.0)
@@ -442,13 +533,37 @@ class Simulation:
                                             shift=shift, bc_planes=bc))
         return out
 
-    def _advance_wall_planes(self, state, pp, ppe, we2, dtrk):
-        """The lower-wall w face through the padded correc sweep
-        (correc.f90:45-67); the x/y planes are unused under periodic x/y."""
-        wlo = we2[0] - dtrk * float(self.grid.dzci[0]) * (pp[0] - ppe[0])
-        wlo = torch.cat([wlo[-1:], wlo, wlo[:1]], dim=0)
+    def _advance_wall_planes(self, state, pp, ppe, we2, dtrk, ypred=None,
+                             ypp=None):
+        """The kept wall-face planes through the padded correc sweep
+        (correc.f90:45-67): w's lower z face, and with y walls its y-ghost
+        entries and v's lower y face (cales_tpu timeloop.py:1773-1796).
+        ypred: the prediction fill's (rows, corners) pairs of (u, v, w);
+        ypp: pp's.  The x plane is unused under periodic x, and so is the
+        y plane under periodic y."""
+        dzci0 = float(self.grid.dzci[0])
+        wlo = we2[0] - dtrk * dzci0 * (pp[0] - ppe[0])
+        if not self.ywalled:
+            wlo = torch.cat([wlo[-1:], wlo, wlo[:1]], dim=0)
+            wlo = torch.cat([wlo[:, -1:], wlo, wlo[:, :1]], dim=1)
+            return (state.vlo[0], state.vlo[1], wlo)
+        (_, _), (yv, zyv), (_, zyw) = ypred
+        yp, zyp = ypp
+        dyi = self.cfg.dli[1]
+        # w's lower face at padded y 0 and ny+1: the corner stacks' rows
+        w_y = [zyw[0, r] - dtrk * dzci0 * (yp[0, r] - zyp[0, r])
+               for r in (0, 2)]
+        wlo = torch.cat([w_y[0][None], wlo, w_y[1][None]], dim=0)
         wlo = torch.cat([wlo[:, -1:], wlo, wlo[:, :1]], dim=1)
-        return (state.vlo[0], state.vlo[1], wlo)
+        # v's lower y face (padded y 0): the prediction's face minus
+        # dt dyi (pp's first row - its ghost row), its z ghosts from the
+        # corner stacks
+        vlo_i = yv[:, 0] - dtrk * dyi * (pp[:, 0, :] - yp[:, 0])
+        v_zlo = zyv[0, 0] - dtrk * dyi * (ppe[0][0] - zyp[0, 0])
+        v_zhi = zyv[2, 0] - dtrk * dyi * (ppe[2][0] - zyp[2, 0])
+        vlo_v = torch.cat([v_zlo[None], vlo_i, v_zhi[None]], dim=0)
+        vlo_v = torch.cat([vlo_v[:, -1:], vlo_v, vlo_v[:, :1]], dim=1)
+        return (state.vlo[0], vlo_v, wlo)
 
     def _substep(self, state: State, f1, f2, first=False):
         """One RK3 substep.  first=True: f2 == 0 exactly (RK_COEFF[0][1]),
@@ -469,12 +584,18 @@ class Simulation:
                                          vlo=state.vlo, is_correc=True)
         pe = self._zedge_p(p)
         s, se = (visct, self._zedge_s(visct)) if self.has_sgs else (None, None)
+        ye = None
+        if self.ywalled:
+            # the y rows of the same (post-correction) fill
+            ye = (*self._yedge_vel(u, v, w, vlo=state.vlo, is_correc=True),
+                  self._yedge_s(visct) if self.has_sgs else None,
+                  self._yedge_p(p))
         u, v, w, ru, rv, rw, usum, vsum = kernels.mom_rk(
             u, v, w, s, p, ue, ve, we, se, pe,
             None if first else ru_o, None if first else rv_o,
             None if first else rw_o, self.dzci_t, self.dzfi_t, f1, f2,
             cfg.visc, dxi, dyi, cfg.bforce, sums=self.sum_flags,
-            split=self.split)
+            split=self.split, ye=ye)
         f, fuv = self._bulk_forcing((usum, vsum))
         alpha = 0.0
         if cfg.impdiff:
@@ -483,16 +604,20 @@ class Simulation:
             fuv = None      # the forcing went into the CN solves
 
         # projection: prediction fill as edge stacks (w's wall-face rewrite
-        # in row 1 of we2), fillps, solve, fused correction
+        # in row 1 of we2; with y walls v's in row 1 of its y rows),
+        # fillps, solve, fused correction
         bcu, bcv, bcw = self._dynamic_bcs(u, v, w)
         ue2, ve2, we2 = self._zedge_vel(u, v, w, bcu, bcv, bcw,
                                         is_correc=False)
+        ypred = self._yedge_vel(u, v, w) if self.ywalled else None
+        yv2 = None if ypred is None else ypred[1]
         rhs = kernels.fillps(u, v, w, ue2, ve2, we2, self.dzfi_t, 1.0 / dtrk,
-                             dxi, dyi)
+                             dxi, dyi, yv=yv2)
         rhs = poisson.add_rhs_bound(cfg, ('c', 'c', 'c'), self.cbcpre, rhs,
                                     self.rhsb_p)
         pp = poisson.solve(self.solver_p, rhs)
         ppe = self._zedge_p(pp)
+        ypp = self._yedge_p(pp) if self.ywalled else None
         if self.fused_smag:
             u, v, w, p, visct = self._correc_smag_fused(
                 u, v, w, pp, p, ue2, ve2, we2, ppe, dtrk, fuv)
@@ -500,13 +625,15 @@ class Simulation:
             u, v, w, p = kernels.correc_updatep(
                 u, v, w, pp, p, we2, ppe, dtrk, dxi, dyi, self.dzci_t,
                 self.dzfi_t, fuv, alpha=alpha, impdiff=cfg.impdiff,
-                impdiff_1d=cfg.impdiff_1d)
-        vlo = self._advance_wall_planes(state, pp, ppe, we2, dtrk)
+                impdiff_1d=cfg.impdiff_1d, ypp=ypp,
+                yv=None if yv2 is None else yv2[0])
+        vlo = self._advance_wall_planes(state, pp, ppe, we2, dtrk,
+                                        ypred=ypred, ypp=ypp)
         # post-correction fill (main.f90:500-501, is_correc=.true.)
         bcu, bcv, bcw = self._dynamic_bcs(u, v, w)
         zq = self._zedge_vel(u, v, w, bcu, bcv, bcw, vlo=vlo, is_correc=True)
         if self.sgs_kernel:
-            visct = self._sgs_stage(u, v, w, zq)
+            visct = self._sgs_stage(u, v, w, zq, vlo)
         return state._replace(u=u, v=v, w=w, p=p, visct=visct, vlo=vlo,
                               rhs_old=(ru, rv, rw), zq=zq), f
 

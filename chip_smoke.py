@@ -1,10 +1,12 @@
 """Smoke run of cales_torch on one NVIDIA GPU: build the CUDA kernels,
-hold each against its plain PyTorch twin, drive the channel-LES slice
-through the CLI and through cales_torch.driver.run at 512x256x256 (with
-the cuFFT and the operator-matrix Poisson solve), drive the implicit-CN
-channel DNS, the dynamic-Smagorinsky channel LES and the static-
-Smagorinsky LES with z-implicit diffusion through driver.run at
-512x256x256, and compare the card with the CPU step for step.
+hold each against its plain PyTorch twin (the y-walled variants too),
+drive the channel-LES slice and the square duct through the CLI, the
+channel LES through cales_torch.driver.run at 512x256x256 (with the cuFFT
+and the operator-matrix Poisson solve), drive the implicit-CN channel
+DNS, the dynamic-Smagorinsky channel LES, the static-Smagorinsky LES with
+z-implicit diffusion, and the dynamic-Smagorinsky duct and cavity through
+driver.run at 512x256x256, and compare the card with the CPU step for
+step.
 
     python3 chip_smoke.py            # all phases, one card
 
@@ -47,6 +49,15 @@ KERNELS = {
     'dsmag': ('cales_torch/csrc/dsmag.cu',
               'cales_tpu/ops/pallas_dsmag.py:1168'),
 }
+# the y-walled variants, each reported as a kernel of its own: report name
+# -> (kernel, phase 2 variant)
+YWALL_ROWS = {
+    'mom_rk (y walls)': ('mom_rk', 'duct'),
+    'fillps (y walls)': ('fillps', 'duct'),
+    'correc_updatep (y walls)': ('correc_updatep', 'duct'),
+    'dsmag (y walls, duct)': ('dsmag', 'duct'),
+    'dsmag (y walls, cavity)': ('dsmag', 'cavity'),
+}
 LES_KERNELS = ('mom_rk', 'fillps', 'correc_smag')
 # H100 SXM data-sheet rates: HBM
 # bytes/s and float32 / float64 FLOP/s outside the tensor cores
@@ -79,6 +90,27 @@ DSMAG_CFG = dict(ng=HEADLINE_NG, l=(12.8, 4.8, 2.0), gtype=1, gr=5.0,
 # reference's -D_IMPDIFF_1D wall-resolved LES build)
 LES_IMP_CFG = dict(LES_CFG, ptransform='mat', impdiff=True, impdiff_1d=True,
                    **CHAN_BCS)
+# bench.py _matrix_configs((512, 256, 256))['duct_les_dsmag'] and
+# ['cavity_les_dsmag'], written out
+DUCT_BCS = dict(
+    cbcvel=((('P', 'P', 'P'), ('D', 'D', 'D'), ('D', 'D', 'D')),) * 2,
+    cbcpre=(('P', 'N', 'N'), ('P', 'N', 'N')),
+    cbcsgs=(('P', 'D', 'D'), ('P', 'D', 'D')))
+DUCT_CFG = dict(ng=HEADLINE_NG, l=(4 * np.pi, 2.0, 2.0), gtype=1, gr=1.0,
+                visci=10_000.0, inivel='duc', is_wallturb=True,
+                is_forced=(True, False, False), velf=(1.0, 0.0, 0.0),
+                sgstype='dsmag', dsmag_avg='duct', dtype='float32',
+                ptransform='mat', **DUCT_BCS)
+CAVITY_CFG = dict(ng=HEADLINE_NG, l=(1.0, 1.0, 1.0), gtype=1, gr=0.0,
+                  visci=5_000.0, inivel='tgv', sgstype='dsmag',
+                  dsmag_avg='cavity', dtype='float32', ptransform='mat',
+                  bcvel=(((0.0,) * 3,) * 3,
+                         ((0.0, 0.0, 0.0), (0.0, 0.0, 0.0), (0.0, 1.0, 0.0))),
+                  **DUCT_BCS)
+# moving wall-parallel values on some y and z faces for the y-walled
+# kernel inputs: (face, dir, comp)
+MOVING = (((0.0,) * 3, (0.2, 0.0, -0.1), (0.0, 0.0, 0.0)),
+          ((0.0,) * 3, (0.0, 0.0, 0.3), (0.4, -0.3, 0.0)))
 
 
 def card_line():
@@ -181,6 +213,33 @@ def kernel_inputs(ng, dtype, dev, seed, big=False):
     a2[0] = a2[-1] = 2.52
     d['alph2'] = t(a2)
     d['zvals'] = (0.0, 0.02, 0.0, -0.01)
+    # y walls: the duct's fills of the same interiors as (rows, corners)
+    # pairs, with moving wall-parallel values; the post-correction fill
+    # (mom_rk, dsmag) keeps random lower faces of v and w
+    dcfg = Config(ng=ng, l=(4 * np.pi, 2.0, 2.0), gtype=1, gr=1.0,
+                  visci=1000.0, bcvel=MOVING, **DUCT_BCS)
+    dgrid = make_grid_from_config(dcfg)
+    cbc = effective_cbcvel(dcfg)
+    by = lambda iv: tuple(tuple(MOVING[ib][d_][iv] for ib in range(2))  # noqa: E731
+                          for d_ in range(3))
+    bcv = [bnd.make_bc_values(ng, by(iv), dtype, dev) for iv in range(3)]
+    zero = bnd.make_bc_values(ng, ((0.0, 0.0),) * 3, dtype, dev)
+    wrapx = lambda a: torch.cat([a[:, -1:], a, a[:, :1]], dim=1)  # noqa: E731
+    vlo = (None, wrapx(rnd(nz + 2, nx, scale=1e-3)),
+           wrapx(rnd(ny + 2, nx, scale=1e-3)))
+
+    def yvel(is_correc):
+        rows, corners = bnd.yedge_velocity(
+            d['u'], d['v'], d['w'], cbc, *bcv, dcfg.dl, dgrid.dzc, dgrid.dzf,
+            vlo=vlo if is_correc else None, is_correc=is_correc)
+        return list(zip(rows, corners))
+    cbcp = (('P', 'P'), ('N', 'N'), ('N', 'N'))
+    cbcs = (('P', 'P'), ('D', 'D'), ('D', 'D'))
+    ysc = lambda q, c: bnd.yedge_scalar(q, c, zero, dcfg.dl, dgrid.dzc)  # noqa: E731
+    d['y_mom'] = (*yvel(True), ysc(d['s'], cbcs), ysc(d['p'], cbcp))
+    d['y_pred'] = yvel(False)
+    d['y_pp'] = ysc(d['pp'], cbcp)
+    d['yvals'] = (0.2, 0.0, -0.1, 0.3)
     return d
 
 
@@ -191,6 +250,7 @@ def call(name, d, twin=False, variant=None, has_ruo=True, zrec=None):
     from cales_torch.ops import solve_kernels as SK
     mod = SK if name in SK.LAUNCHES else K
     fn = getattr(mod, f'{name}_plain' if twin else name)
+    ywall = variant == 'duct'
     if name == 'mom_rk':
         r = (d['ruo'], d['rvo'], d['rwo']) if has_ruo else (None,) * 3
         dns = variant == 'dns'      # no visct, split '1d' + CN fold
@@ -200,7 +260,8 @@ def call(name, d, twin=False, variant=None, has_ruo=True, zrec=None):
                       None if dns else d['se'], d['pe'], *r, d['dzci'],
                       d['dzfi'], 2.1e-3, -1.1e-3 if has_ruo else 0.0,
                       d['visc'], d['dxi'], d['dyi'], (0.3, 0.0, 0.0),
-                      sums=(True, True), split=split))
+                      sums=(True, True), split=split,
+                      ye=d['y_mom'] if ywall else None))
         # partial sums: compare the per-plane totals
         out[6], out[7] = out[6].sum(dim=1), out[7].sum(dim=1)
         return dict(zip(('u', 'v', 'w', 'ru', 'rv', 'rw', 'usum', 'vsum'),
@@ -211,20 +272,28 @@ def call(name, d, twin=False, variant=None, has_ruo=True, zrec=None):
                             d['dyi'], d['visc'], d['csd2'], d['dw'],
                             d['nearlo'], d['tauw_lo'], d['tauw_hi'])}
     if name == 'dsmag':
+        yw = variant in ('duct', 'cavity')
         s0, num, den = fn(d['u'], d['v'], d['w'], d['ue_c'], d['ve_c'],
                           d['we_c'], d['alph2'], d['dzci'], d['dzfi'],
-                          d['dxi'], d['dyi'], True, True, d['zvals'])
+                          d['dxi'], d['dyi'], True, True, d['zvals'],
+                          ye=d['y_mom'][:3] if yw else None,
+                          yvals=d['yvals'], avg=variant or 'channel')
+        if variant == 'cavity':
+            return {'visct': s0}
         # partial sums: compare the per-row totals
-        return {'s0': s0, 'num': num.sum(dim=1), 'den': den.sum(dim=1)}
+        return {'s0': s0, 'num': num.sum(dim=-1), 'den': den.sum(dim=-1)}
     if name == 'fillps':
         return {'rhs': fn(d['u'], d['v'], d['w'], d['ue'], d['ve'], d['we'],
-                          d['dzfi'], 1.0, d['dxi'], d['dyi'])}
+                          d['dzfi'], 1.0, d['dxi'], d['dyi'],
+                          yv=d['y_pred'][1] if ywall else None)}
     if name == 'correc_updatep':
-        imp = variant != 'explicit'
+        imp = variant not in ('explicit', 'duct')
+        ykw = (dict(ypp=d['y_pp'], yv=d['y_pred'][1][0]) if ywall
+               else {})
         out = fn(d['u'], d['v'], d['w'], d['pp'], d['p'], d['we'], d['ppe'],
                  0.01, d['dxi'], d['dyi'], d['dzci'], d['dzfi'],
                  None if imp else d['fuv'], alpha=-0.013 if imp else 0.0,
-                 impdiff=imp, impdiff_1d=imp)
+                 impdiff=imp, impdiff_1d=imp, **ykw)
         return dict(zip(('u', 'v', 'w', 'p'), out))
     if name == 'apply_y':
         return {'out': fn(d['u'], d['fy'],
@@ -289,11 +358,15 @@ def time_ms(fn, n=10):
 # per-kernel variants held against the twins in phase 2; the first is the
 # one timed for the report in phase 2b
 VARIANTS = {
-    'mom_rk': ('les', 'dns', 'les_split'), 'fillps': (None,),
-    'correc_smag': (None,), 'correc_updatep': ('impdiff_1d', 'explicit'),
+    'mom_rk': ('les', 'dns', 'les_split', 'duct'), 'fillps': (None, 'duct'),
+    'correc_smag': (None,),
+    'correc_updatep': ('impdiff_1d', 'explicit', 'duct'),
     'apply_y': ('x_and_y', 'y_only'), 'z_eig': (None,),
-    'thomas_z': ('helmholtz', 'poisson'), 'smag': (None,), 'dsmag': (None,),
+    'thomas_z': ('helmholtz', 'poisson'), 'smag': (None,),
+    'dsmag': (None, 'duct', 'cavity'),
 }
+# the report rows of the y-walled variants, by (kernel, variant)
+YWALL_ROW_OF = {kv: row for row, kv in YWALL_ROWS.items()}
 # bounded relative to the output's maximum: sums over many terms
 RELATIVE = ('apply_y', 'z_eig', 'thomas_z', 'dsmag')
 # (interior fields read, fields written, floating-point operations a cell)
@@ -312,15 +385,27 @@ WORK = {'mom_rk': (8, 6, 230), 'fillps': (3, 1, 12),
 LIBRARY_TWIN = ('apply_y', 'z_eig')
 
 
-def work(name, d):
-    """(bytes, flops) the kernel's timed variant must move and do on the
-    inputs d: each interior field read once and each output written once,
-    and its arithmetic (the operator products of the solve kernels at
-    2 n^2 per line)."""
+def ystacks(name, d, variant):
+    """The y-row stacks a y-walled variant reads, as tensors."""
+    if variant not in ('duct', 'cavity'):
+        return []
+    pairs = {'mom_rk': d['y_mom'], 'fillps': [d['y_pred'][1]],
+             'correc_updatep': [d['y_pp'], (d['y_pred'][1][0],)],
+             'dsmag': d['y_mom'][:3]}[name]
+    return [q for pair in pairs for q in pair]
+
+
+def work(name, d, variant=None):
+    """(bytes, flops) the kernel's variant must move and do on the inputs
+    d: each interior field (and y-row stack) read once and each output
+    written once, and its arithmetic (the operator products of the solve
+    kernels at 2 n^2 per line)."""
     nz, ny, nx = d['u'].shape
     cells = nx * ny * nz
     nin, nout, per_cell = WORK[name]
     nbytes = (nin + nout) * cells * d['u'].element_size()
+    nbytes += sum(q.numel() * q.element_size()
+                  for q in ystacks(name, d, variant))
     flops = per_cell * cells
     if name == 'apply_y':
         flops += 2 * ny * cells + 2 * nx * cells
@@ -329,8 +414,8 @@ def work(name, d):
     return nbytes, flops
 
 
-def bound_ms(name, d):
-    nbytes, flops = work(name, d)
+def bound_ms(name, d, variant=None):
+    nbytes, flops = work(name, d, variant)
     t_bytes = nbytes / PEAK_BPS * 1e3
     t_ops = flops / PEAK_FLOPS[d['u'].dtype] * 1e3
     return max(t_bytes, t_ops), 'bytes' if t_bytes >= t_ops else 'operations'
@@ -370,9 +455,10 @@ def phase_kernels(dev, card):
             tag = f'{name}[{variant}]' if variant else name
             say(f'  {tag:<24s} kernel {ms:.3f} ms, plain twin {plain_ms:.3f} '
                 f'ms per call  [{card}]')
-            if i == 0:
-                bms, by = bound_ms(name, d)
-                rows[name] = dict(
+            row = name if i == 0 else YWALL_ROW_OF.get((name, variant))
+            if row is not None:
+                bms, by = bound_ms(name, d, variant)
+                rows[row] = dict(
                     max_abs_err=worst, ms=ms, plain_ms=plain_ms,
                     bound_ms=bms, bound_by=by,
                     library_ms=plain_ms if name in LIBRARY_TWIN else None)
@@ -394,13 +480,14 @@ def counts():
     return {**K.LAUNCHES, **SK.LAUNCHES}
 
 
-def phase_cli(card):
-    """The example case through the CLI, in a subprocess."""
-    nml = ROOT / 'examples' / 'turbulent_channel_les' / 'input.nml'
+def phase_cli(card, tag='phase 3', example='turbulent_channel_les',
+              steps=20, kernels=LES_KERNELS):
+    """An example case through the CLI, in a subprocess."""
+    nml = ROOT / 'examples' / example / 'input.nml'
     with tempfile.TemporaryDirectory() as tmp:
         cmd = [sys.executable, '-m', 'cales_torch', str(nml), '--max-steps',
-               '20', '--datadir', tmp]
-        say(f'phase 3: {" ".join(cmd[1:])}  [{card}]')
+               str(steps), '--datadir', tmp]
+        say(f'{tag}: {" ".join(cmd[1:])}  [{card}]')
         t0 = time.perf_counter()
         res = subprocess.run(cmd, capture_output=True, text=True, cwd=ROOT,
                              timeout=600)
@@ -410,8 +497,8 @@ def phase_cli(card):
             say(f'  | {line}')
         require(res.returncode == 0, f'CLI failed:\n{res.stderr[-3000:]}')
         path = [ln for ln in lines if 'Execution path' in ln]
-        require(path and all(k in path[0] for k in LES_KERNELS),
-                'the Execution path line does not name the LES kernels')
+        require(path and all(k in path[0] for k in kernels),
+                f'the Execution path line does not name {kernels}')
         require((Path(tmp) / 'fld.bin').exists(), 'no fld.bin written')
 
 
@@ -466,7 +553,25 @@ def drive(tag, cfg, dev, card, nsteps, per_step, ntime=30):
     require(all(bool(torch.isfinite(f).all()) for f in fields),
             f'{tag}: non-finite field')
     require(divmax <= small, f'{tag}: divmax {divmax:.3e} above {small:.3e}')
-    require(abs(ub - 1.0) <= 1e-4, f'{tag}: bulk u {ub:.7f}, want 1')
+    if cfg.is_forced[0]:
+        require(abs(ub - 1.0) <= 1e-4, f'{tag}: bulk u {ub:.7f}, want 1')
+    if sim.ywalled:
+        # no flow through the walls: v on both y walls (the kept lower
+        # face and the interior's last row) and w on both z walls
+        faces = {'v at y walls': (state.vlo[1][1:-1, 1:-1], state.v[:, -1]),
+                 'w at z walls': (state.vlo[2][1:-1, 1:-1], state.w[-1])}
+        for what, (lo, hi) in faces.items():
+            worst = max(float(lo.abs().max()), float(hi.abs().max()))
+            say(f'  max |{what}| {worst:.3e}')
+            require(worst <= 1e-6, f'{tag}: {what} {worst:.3e}, want 0')
+    lid = float(cfg.bcvel[1][2][1])
+    if lid:
+        # the lid's v on the z-top face: the mean of the last row and its
+        # ghost in the post-correction fill
+        face = 0.5 * (state.v[-1] + state.zq[1][2])
+        err = float((face - lid).abs().max())
+        say(f'  max |v - {lid}| on the lid {err:.3e}')
+        require(err <= 1e-5, f'{tag}: lid v off by {err:.3e}')
     if cfg.sgstype != 'none':
         nmin, nmax = float(state.visct.min()), float(state.visct.max())
         say(f'  nu_t in [{nmin:.4e}, {nmax:.4e}]')
@@ -533,6 +638,22 @@ def phase_dsmag(dev, card):
     return launches, launches_imp
 
 
+def phase_ywalls(dev, card):
+    """The dynamic-Smagorinsky square duct and spanwise-periodic cavity
+    (bench.py duct_les_dsmag, cavity_les_dsmag) at 512x256x256 f32 through
+    driver.run, the y-walled variants of the kernels."""
+    from cales_torch.config import Config
+    per_step = dict(mom_rk=3, fillps=3, apply_y=6, z_eig=3,
+                    correc_updatep=3, dsmag=3)
+    _, duct, res = drive('phase 8: dynamic-Smagorinsky duct',
+                         Config(**DUCT_CFG), dev, card, 5, per_step)
+    print(json.dumps({'duct': res}), flush=True)
+    _, cavity, res = drive('phase 8b: dynamic-Smagorinsky cavity',
+                           Config(**CAVITY_CFG), dev, card, 5, per_step)
+    print(json.dumps({'cavity': res}), flush=True)
+    return duct, cavity
+
+
 def _card_vs_cpu(tag, cfg, dev, names, rel=()):
     from cales_torch.grid import make_grid_from_config
     from cales_torch.initflow import initflow
@@ -547,8 +668,11 @@ def _card_vs_cpu(tag, cfg, dev, names, rel=()):
     say(f'{tag}: card vs CPU, {cfg.ng} float64, 3 steps')
     g, c = states
     for name, tol in names:
-        a = getattr(g, name).cpu()
+        a = getattr(g, name)
         b = getattr(c, name)
+        if name == 'vlo':    # the kept v and w wall planes
+            a, b = torch.cat([a[1], a[2]], 0), torch.cat([b[1], b[2]], 0)
+        a = a.cpu()
         if name == 'p':
             a, b = a - a.mean(), b - b.mean()
         err = float((a - b).abs().max())
@@ -564,6 +688,8 @@ def _card_vs_cpu(tag, cfg, dev, names, rel=()):
     for _ in range(3):
         st32, _ = s32.step(st32, dt)
     for name, _ in names:
+        if name == 'vlo':
+            continue        # zero under the homogeneous-Neumann pressure
         a = getattr(st32, name).double().cpu()
         b = getattr(c, name)
         if name == 'p':
@@ -591,6 +717,12 @@ def phase_card_vs_cpu(dev):
         _card_vs_cpu(tag, Config(**{**cfg, **small}), dev,
                      (('u', 1e-11), ('v', 1e-11), ('w', 1e-11), ('p', 1e-10),
                       ('visct', 1e-10)), rel=('visct',))
+    # the y-walled duct and cavity, their kept wall planes included
+    for tag, cfg in (('phase 6e (dsmag duct)', DUCT_CFG),
+                     ('phase 6f (dsmag cavity)', CAVITY_CFG)):
+        _card_vs_cpu(tag, Config(**{**cfg, **small}), dev,
+                     (('u', 1e-11), ('v', 1e-11), ('w', 1e-11), ('p', 1e-10),
+                      ('visct', 1e-10), ('vlo', 1e-11)), rel=('visct',))
 
 
 def main():
@@ -613,22 +745,30 @@ def main():
         f'({build.BUILD_ROOT / build.source_hash()})')
     rows = phase_kernels(dev, card)
     phase_cli(card)
+    phase_cli(card, tag='phase 3b', example='turbulent_duct_les', steps=10,
+              kernels=('mom_rk', 'fillps', 'correc_updatep', 'dsmag',
+                       'y-walled'))
     les = phase_les(dev, card)
     phase_dns(dev, card)
     dsm, les_imp = phase_dsmag(dev, card)
+    duct, cavity = phase_ywalls(dev, card)
     phase_card_vs_cpu(dev)
     # each kernel's launches on the main path that runs it: the dsmag
     # channel (5 steps), or the LES (31 steps) for correc_smag, or the
-    # smag + impdiff_1d LES (5 steps) for smag
-    paths = {name: (dsm, 5) for name in KERNELS}
-    paths['correc_smag'] = (les, 31)
-    paths['smag'] = (les_imp, 5)
+    # smag + impdiff_1d LES (5 steps) for smag; the y-walled variants' on
+    # the duct (5 steps), the cavity's dsmag on the cavity (5 steps)
+    paths = {name: (dsm, 5, name) for name in KERNELS}
+    paths['correc_smag'] = (les, 31, 'correc_smag')
+    paths['smag'] = (les_imp, 5, 'smag')
+    for row, (name, variant) in YWALL_ROWS.items():
+        paths[row] = (cavity if variant == 'cavity' else duct, 5, name)
+    sources = {**{n: KERNELS[n] for n in KERNELS},
+               **{row: KERNELS[n] for row, (n, _) in YWALL_ROWS.items()}}
     report = {'kernels': [
-        dict(name=name, route='cuda', source=KERNELS[name][0],
-             replaces=KERNELS[name][1], launches=paths[name][0][name],
-             launches_per_step=paths[name][0][name] / paths[name][1],
-             **rows[name])
-        for name in KERNELS]}
+        dict(name=row, route='cuda', source=sources[row][0],
+             replaces=sources[row][1], launches=run[name],
+             launches_per_step=run[name] / nsteps, **rows[row])
+        for row, (run, nsteps, name) in paths.items()]}
     for k in report['kernels']:
         require(k['launches'] > 0, f'{k["name"]}: no launch on its main path')
     print(json.dumps(report), flush=True)

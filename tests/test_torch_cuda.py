@@ -1,7 +1,8 @@
 """cales_torch's CUDA kernels on the card: each against its plain twin, and
 the slices (channel LES, implicit-CN channel DNS, dynamic-Smagorinsky
-channel, static-Smagorinsky LES with impdiff_1d) on the card against the
-same slices on the CPU, step for step, fp64.
+channel, static-Smagorinsky LES with impdiff_1d, and the y-walled duct and
+cavity) on the card against the same slices on the CPU, step for step,
+fp64.
 
 These tests need an NVIDIA GPU and skip without one.  The file imports
 neither jax nor cales_tpu, so it runs on a machine that has torch and the
@@ -324,3 +325,156 @@ def test_card_matches_cpu_sgs_step_for_step(dev, case):
             a, b = a - a.mean(), b - b.mean()
         assert float((a - b).abs().max()) <= tol, name
     _rel_close(g.visct.cpu(), c.visct, 1e-10)
+
+
+DUCT_BCS = dict(
+    cbcvel=((('P', 'P', 'P'), ('D', 'D', 'D'), ('D', 'D', 'D')),) * 2,
+    cbcpre=(('P', 'N', 'N'),) * 2, cbcsgs=(('P', 'D', 'D'),) * 2)
+# moving wall-parallel values on some y and z faces: (face, dir, comp)
+MOVING = (((0.0,) * 3, (0.2, 0.0, -0.1), (0.0, 0.0, 0.0)),
+          ((0.0,) * 3, (0.0, 0.0, 0.3), (0.4, -0.3, 0.0)))
+
+
+def _ywall_inputs(dev, ng, seed):
+    """Random interiors on a duct grid with the ghost stacks of each fill
+    the y-walled kernels take: the post-correction fill (kept lower faces
+    of v and w) and the prediction fill of the velocity, visct's and p's,
+    as (rows, corners) pairs."""
+    from cales_torch.config import effective_cbcvel
+    from cales_torch.ops import boundary as bnd
+    nx, ny, nz = ng
+    cfg = Config(ng=ng, l=(2 * np.pi, 2.0, 2.0), gtype=1, gr=1.0,
+                 visci=1000.0, dtype='float64', bcvel=MOVING,
+                 bcpre=((0.0, 0.1, 0.0), (0.0, -0.1, 0.0)), **DUCT_BCS)
+    grid = make_grid_from_config(cfg)
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, dtype=np.float64), device=dev)
+
+    def wrapx(a):
+        return torch.cat([a[:, -1:], a, a[:, :1]], dim=1)
+    F = lambda: t(0.05 * rng.standard_normal((nz, ny, nx)))   # noqa: E731
+    cbc = effective_cbcvel(cfg)
+    by = lambda iv: tuple(tuple(MOVING[ib][d][iv] for ib in range(2))  # noqa: E731
+                          for d in range(3))
+    bc = [bnd.make_bc_values(ng, by(iv), torch.float64, dev)
+          for iv in range(3)]
+    bcp = bnd.make_bc_values(ng, ((0.0, 0.0), (0.1, -0.1), (0.0, 0.0)),
+                             torch.float64, dev)
+    bcs = bnd.make_bc_values(ng, ((0.0, 0.0),) * 3, torch.float64, dev)
+    cbcp = tuple((cfg.cbcpre[0][d], cfg.cbcpre[1][d]) for d in range(3))
+    cbcs = tuple((cfg.cbcsgs[0][d], cfg.cbcsgs[1][d]) for d in range(3))
+    vlo = (None, wrapx(t(1e-2 * rng.standard_normal((nz + 2, nx)))),
+           wrapx(t(1e-2 * rng.standard_normal((ny + 2, nx)))))
+    u, v, w, p, pp = (F() for _ in range(5))
+    s = F().abs()
+
+    def fill(is_correc):
+        kw = dict(vlo=vlo if is_correc else None, is_correc=is_correc)
+        z = [e.contiguous() for e in bnd.zedge_velocity(
+            u, v, w, cbc, *bc, grid.dzc, grid.dzf, **kw)]
+        rows, corners = bnd.yedge_velocity(u, v, w, cbc, *bc, cfg.dl,
+                                           grid.dzc, grid.dzf, **kw)
+        return z, list(zip(rows, corners))
+
+    def scal(q, cbcq, bq):
+        return (bnd.zedge_scalar(q, cbcq[2], bq[2], grid.dzc).contiguous(),
+                bnd.yedge_scalar(q, cbcq, bq, cfg.dl, grid.dzc))
+    zc, yc = fill(True)
+    zp, yp = fill(False)
+    return dict(cfg=cfg, grid=grid, fields=(u, v, w), s=s, p=p, pp=pp,
+                zc=zc, yc=yc, zp=zp, yp=yp, sq=scal(s, cbcs, bcs),
+                pq=scal(p, cbcp, bcp), ppq=scal(pp, cbcp, bcp),
+                rk=[F() for _ in range(3)], dzci=t(grid.dzci),
+                dzfi=t(grid.dzfi), dxi=cfg.dli[0], dyi=cfg.dli[1])
+
+
+@pytest.mark.cuda
+def test_cuda_ywalled_kernels_match_twins_on_card(dev):
+    """The y-walled variants of mom_rk (with and without visct), fillps,
+    correc_updatep and dsmag ('duct', 'cavity', and 'channel' with y
+    walls) against their twins on a shape that fits no tile."""
+    d = _ywall_inputs(dev, (72, 40, 24), 12)
+    (u, v, w), dzci, dzfi, dxi, dyi = (d['fields'], d['dzci'], d['dzfi'],
+                                       d['dxi'], d['dyi'])
+    K.reset_launches()
+    for sgs in (True, False):
+        se, ys = d['sq'] if sgs else (None, None)
+        mom = (u, v, w, d['s'] if sgs else None, d['p'], *d['zc'], se,
+               d['pq'][0], *d['rk'], dzci, dzfi, 5e-4, -2e-4, 1e-3, dxi, dyi,
+               (0.1, 0.0, 0.0))
+        ye = (*d['yc'], ys, d['pq'][1])
+        got = K.mom_rk(*mom, sums=(True, False), ye=ye)
+        ref = K.mom_rk_plain(*mom, sums=(True, False), ye=ye)
+        for g, r in zip(got[:6], ref[:6]):
+            _rel_close(g, r, 1e-12)
+        torch.testing.assert_close(got[6].sum(1), ref[6][:, 0], rtol=0,
+                                   atol=1e-11)
+    fp = (u, v, w, *d['zp'], dzfi, 20.0, dxi, dyi)
+    _rel_close(K.fillps(*fp, yv=d['yp'][1]),
+               K.fillps_plain(*fp, yv=d['yp'][1]), 1e-13)
+    cu = (u, v, w, d['pp'], d['p'], d['zp'][2], d['ppq'][0], 3.7e-3, dxi,
+          dyi, dzci, dzfi, torch.tensor([0.05, -0.02], dtype=u.dtype,
+                                        device=dev))
+    ykw = dict(ypp=d['ppq'][1], yv=d['yp'][1][0])
+    for g, r in zip(K.correc_updatep(*cu, **ykw),
+                    K.correc_updatep_plain(*cu, **ykw)):
+        _rel_close(g, r, 1e-13)
+    a2 = np.full(24, 4.0)
+    a2[0] = a2[-1] = 2.52
+    ds = (u, v, w, *d['zc'], torch.as_tensor(a2, device=dev), dzci, dzfi,
+          dxi, dyi, True, True, (0.0, 0.4, 0.0, -0.3))
+    dkw = dict(ye=d['yc'], yvals=(0.2, 0.0, -0.1, 0.3))
+    for avg in ('duct', 'cavity', 'channel'):
+        s0, num, den = K.dsmag(*ds, avg=avg, **dkw)
+        s0r, numr, denr = K.dsmag_plain(*ds, avg=avg, **dkw)
+        _rel_close(s0, s0r, 1e-12)
+        if avg != 'cavity':
+            _rel_close(num.sum(-1), numr[..., 0], 1e-12)
+            _rel_close(den.sum(-1), denr[..., 0], 1e-12)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == {'mom_rk': 2, 'fillps': 1, 'correc_smag': 0,
+                          'correc_updatep': 1, 'smag': 0, 'dsmag': 3}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', ['duct_none', 'duct_dsmag', 'cavity_dsmag'])
+def test_card_matches_cpu_ywalled_step_for_step(dev, case):
+    """The duct (bench.py's duct_les_dsmag, and with sgstype 'none') and
+    the cavity (cavity_les_dsmag) at (32, 16, 16), f64, 3 steps: card
+    against CPU, the kept v and w wall planes included."""
+    if case.startswith('duct'):
+        kw = dict(l=(4 * np.pi, 2.0, 2.0), gr=1.0, visci=10_000.0,
+                  inivel='duc', is_wallturb=True,
+                  is_forced=(True, False, False), velf=(1.0, 0.0, 0.0),
+                  sgstype='none' if case == 'duct_none' else 'dsmag',
+                  dsmag_avg='duct')
+    else:
+        kw = dict(l=(1.0, 1.0, 1.0), gr=0.0, visci=5_000.0, inivel='tgv',
+                  sgstype='dsmag', dsmag_avg='cavity',
+                  bcvel=(((0.0,) * 3,) * 3,
+                         ((0.0, 0.0, 0.0), (0.0, 0.0, 0.0), (0.0, 1.0, 0.0))))
+    cfg = Config(ng=(32, 16, 16), gtype=1, dtype='float64', ptransform='mat',
+                 **DUCT_BCS, **kw)
+    grid = make_grid_from_config(cfg)
+    fields = initflow(cfg, grid)
+    sims = [Simulation(cfg, grid, device=d) for d in (dev, 'cpu')]
+    states = [s.initial_state(*fields) for s in sims]
+    dt = sims[1].pick_dt(sims[1].check(states[1])[0])
+    K.reset_launches()
+    for _ in range(3):
+        states = [s.step(st, dt)[0] for s, st in zip(sims, states)]
+    assert K.LAUNCHES == {'mom_rk': 9, 'fillps': 9, 'correc_smag': 0,
+                          'correc_updatep': 9, 'smag': 0,
+                          'dsmag': 0 if case == 'duct_none' else 9}
+    g, c = states
+    for name, tol in (('u', 1e-11), ('v', 1e-11), ('w', 1e-11), ('p', 1e-10)):
+        a, b = getattr(g, name).cpu(), getattr(c, name)
+        if name == 'p':
+            a, b = a - a.mean(), b - b.mean()
+        assert float((a - b).abs().max()) <= tol, name
+    for m in (1, 2):
+        assert float((g.vlo[m].cpu() - c.vlo[m]).abs().max()) <= 1e-11
+    if case != 'duct_none':
+        _rel_close(g.visct.cpu(), c.visct, 1e-10)

@@ -134,7 +134,6 @@ def test_smag_visct_matches_jax_on_a_channel():
 
 
 @pytest.mark.parametrize('avg,filter_2d,missing', [
-    ('duct', False, 'duct'), ('cavity', False, 'cavity'),
     ('dit', False, 'dit'), ('channel', True, 'filter_2d')])
 def test_dsmag_variants_outside_the_port_raise(avg, filter_2d, missing):
     _, tcfg = _cfgs((16, 12, 10), dsmag_avg=avg, filter_2d=filter_2d)

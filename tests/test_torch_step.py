@@ -145,8 +145,14 @@ def test_exec_path_names_device_kernels_and_solve(pair):
 @pytest.mark.parametrize('change,missing', [
     (dict(impdiff=True), 'full-3D implicit diffusion'),
     (dict(lwm=((0, 0, 1), (0, 0, 1)), hwm=0.1), 'wall model'),
-    (dict(sgstype='dsmag', dsmag_avg='duct'), 'duct'),
-    (dict(sgstype='dsmag', dsmag_avg='cavity'), 'cavity'),
+    (dict(sgstype='dsmag', dsmag_avg='duct', impdiff=True, impdiff_1d=True,
+          cbcvel=((('P', 'P', 'P'), ('D', 'D', 'D'), ('D', 'D', 'D')),) * 2,
+          cbcpre=(('P', 'N', 'N'),) * 2, cbcsgs=(('P', 'D', 'D'),) * 2),
+     'duct'),
+    (dict(sgstype='dsmag', dsmag_avg='cavity', is_forced=(False,) * 3,
+          cbcvel=((('D', 'D', 'D'),) * 3,) * 2,
+          cbcpre=(('N', 'N', 'N'),) * 2, cbcsgs=(('D', 'D', 'D'),) * 2),
+     'cavity'),
     (dict(sgstype='dsmag', dsmag_avg='dit'), 'dit'),
     (dict(sgstype='dsmag', filter_2d=True), 'filter_2d'),
     (dict(sgstype='dsmag', lwm=((0, 0, 1), (0, 0, 1)), hwm=0.1),
