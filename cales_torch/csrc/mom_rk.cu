@@ -10,11 +10,13 @@
 //          y ghost rows of u, v, w, visct and p and v's rewrite row come
 //          from their y-row stacks (common.cuh at<true>), as the TPU
 //          kernel's ye bundle fixes them (pallas_kernels.py:617-628);
-//   SPLIT  implicit z diffusion (split='1d' with fold_cn): ru = advection +
-//          xy diffusion is the stored explicit RHS, rud = the z diffusion,
-//          and the kernel emits the Crank-Nicolson RHS u + 1/2 f12 rud
-//          directly, while the forcing sums measure the full prediction
-//          u + f12 rud (pallas_kernels.py:671-684).
+//   SPLIT  implicit diffusion with fold_cn, 0 none, 1 z only (split='1d':
+//          ru = advection + xy diffusion is the stored explicit RHS, rud =
+//          the z diffusion), 2 full-3D (split='xy+z': ru = advection, rud =
+//          the xy and z diffusion, pallas_kernels.py:641-649); the kernel
+//          emits the Crank-Nicolson RHS u + 1/2 f12 rud directly, while the
+//          forcing sums measure the full prediction u + f12 rud
+//          (pallas_kernels.py:671-684).
 // The formulas are cales_torch/ops/stencil.momentum_rhs_core term by term
 // (reference mom.f90:17-309, rk.f90:77-94).
 //
@@ -45,12 +47,28 @@ namespace cales {
     T* __restrict__ usum, T* __restrict__ vsum, YRows<T> yu, YRows<T> yv,     \
     YRows<T> yw, YRows<T> ys, YRows<T> yp, int nz, int ny, int nx, T f1,      \
     T f2, T visc, T dxi, T dyi, T bfx, T bfy, T bfz
+// The explicit RHS r and the implicit part rd of one component from its
+// advection (+ eddy stress) adv and molecular diffusion dxy, dz.
+template <int SPLIT, typename T>
+__device__ __forceinline__ void split_rhs(T adv, T dxy, T dz, T& r, T& rd) {
+  if (SPLIT == 2) {
+    r = adv;
+    rd = dxy + dz;
+  } else if (SPLIT == 1) {
+    r = adv + dxy;
+    rd = dz;
+  } else {
+    r = adv + dxy + dz;
+    rd = dz;
+  }
+}
+
 #define CALES_MOM_RK_ARGS                                                     \
   u, v, w, s, p, ue, ve, we, se, pe, ruo, rvo, rwo, dzci, dzfi, uo, vo, wo,  \
       ruo_new, rvo_new, rwo_new, usum, vsum, yu, yv, yw, ys, yp, nz, ny, nx,  \
       f1, f2, visc, dxi, dyi, bfx, bfy, bfz
 
-template <typename T, bool SGS, bool SPLIT, bool YW>
+template <typename T, bool SGS, int SPLIT, bool YW>
 __device__ __forceinline__ void mom_rk_body(CALES_MOM_RK_PARAMS) {
   const int k = blockIdx.y;
   const int64_t idx =
@@ -142,8 +160,7 @@ __device__ __forceinline__ void mom_rk_body(CALES_MOM_RK_PARAMS) {
                 (visc_kp * (dudz_kp + dwdx_kp) - visc_km * (dudz_km + dwdx_km)) *
                     dzfi_c);
         }
-        rud_u = dudtd_z;
-        ru = SPLIT ? dudt + dudtd_xy : dudt + dudtd_xy + dudtd_z;
+        split_rhs<SPLIT>(dudt, dudtd_xy, dudtd_z, ru, rud_u);
       }
 
       // ---- v momentum ----
@@ -187,8 +204,7 @@ __device__ __forceinline__ void mom_rk_body(CALES_MOM_RK_PARAMS) {
                 (visc_kp * (dvdz_kp + dwdy_kp) - visc_km * (dvdz_km + dwdy_km)) *
                     dzfi_c);
         }
-        rud_v = dvdtd_z;
-        rv = SPLIT ? dvdt + dvdtd_xy : dvdt + dvdtd_xy + dvdtd_z;
+        split_rhs<SPLIT>(dvdt, dvdtd_xy, dvdtd_z, rv, rud_v);
       }
 
       // ---- w momentum ----
@@ -232,8 +248,7 @@ __device__ __forceinline__ void mom_rk_body(CALES_MOM_RK_PARAMS) {
                     dyi +
                 (visc_kp * two * dwdz_kp - visc_km * two * dwdz_km) * dzci_c);
         }
-        rud_w = dwdtd_z;
-        rw = SPLIT ? dwdt + dwdtd_xy : dwdt + dwdtd_xy + dwdtd_z;
+        split_rhs<SPLIT>(dwdt, dwdtd_xy, dwdtd_z, rw, rud_w);
       }
 
       // ---- RK3 update with -grad p and the body force (rk.f90:77-94) ----
@@ -256,7 +271,7 @@ __device__ __forceinline__ void mom_rk_body(CALES_MOM_RK_PARAMS) {
         vn = vn + f2 * rvo[o];
         wn = wn + f2 * rwo[o];
       }
-      if (SPLIT) {
+      if (SPLIT != 0) {
         // the CN fold: store the Crank-Nicolson RHS; the sums (un, vn from
         // here on) see the full prediction
         const T h = T(0.5) * f12;
@@ -300,13 +315,13 @@ __device__ __forceinline__ void mom_rk_body(CALES_MOM_RK_PARAMS) {
 // 3 blocks an SM (85 registers), as the plain ones reach by themselves:
 // their wall-row path would otherwise set the register count, and the
 // occupancy, of every row (it spills there instead).
-template <typename T, bool SGS, bool SPLIT>
+template <typename T, bool SGS, int SPLIT>
 __global__ void __launch_bounds__(CALES_THREADS)
     mom_rk_kernel(CALES_MOM_RK_PARAMS) {
   mom_rk_body<T, SGS, SPLIT, false>(CALES_MOM_RK_ARGS);
 }
 
-template <typename T, bool SGS, bool SPLIT>
+template <typename T, bool SGS, int SPLIT>
 __global__ void __launch_bounds__(CALES_THREADS, sizeof(T) == 4 ? 3 : 1)
     mom_rk_yw_kernel(CALES_MOM_RK_PARAMS) {
   mom_rk_body<T, SGS, SPLIT, true>(CALES_MOM_RK_ARGS);
@@ -322,7 +337,7 @@ using MomKernel = void (*)(const T*, const T*, const T*, const T*, const T*,
                            YRows<T>, YRows<T>, YRows<T>, int, int, int, T, T,
                            T, T, T, T, T, T);
 
-template <typename T, bool SGS, bool SPLIT>
+template <typename T, bool SGS, int SPLIT>
 MomKernel<T> pick_mom_rk(bool yw) {
   return yw ? &mom_rk_yw_kernel<T, SGS, SPLIT>
             : &mom_rk_kernel<T, SGS, SPLIT>;
@@ -349,11 +364,14 @@ int launch_mom_rk(const T* u, const T* v, const T* w, const T* s, const T* p,
   }
   const YRows<T> yu{y[0], y[1]}, yv{y[2], y[3]}, yw_{y[4], y[5]},
       ys{y[6], y[7]}, yp{y[8], y[9]};
+  if (split < 0 || split > 2) return static_cast<int>(cudaErrorInvalidValue);
   const MomKernel<T> kern =
-      sgs ? (split ? pick_mom_rk<T, true, true>(yw)
-                   : pick_mom_rk<T, true, false>(yw))
-          : (split ? pick_mom_rk<T, false, true>(yw)
-                   : pick_mom_rk<T, false, false>(yw));
+      sgs ? (split == 2   ? pick_mom_rk<T, true, 2>(yw)
+             : split == 1 ? pick_mom_rk<T, true, 1>(yw)
+                          : pick_mom_rk<T, true, 0>(yw))
+          : (split == 2   ? pick_mom_rk<T, false, 2>(yw)
+             : split == 1 ? pick_mom_rk<T, false, 1>(yw)
+                          : pick_mom_rk<T, false, 0>(yw));
   kern<<<plane_grid(nz, ny, nx), CALES_THREADS, 0,
          static_cast<cudaStream_t>(stream)>>>(
       u, v, w, s, p, ue, ve, we, se, pe, ruo, rvo, rwo, dzci, dzfi, uo, vo,

@@ -39,6 +39,8 @@ LAUNCHES = {'mom_rk': 0, 'fillps': 0, 'correc_smag': 0, 'correc_updatep': 0,
 
 # z-ghost recipe letters understood by the correction kernel
 _LETTER_CODE = {'D': 0, 'N': 1}
+# mom_rk's explicit/implicit diffusion split (csrc/mom_rk.cu SPLIT)
+_SPLIT_CODE = {None: 0, '1d': 1, 'xy+z': 2}
 
 
 def reset_launches():
@@ -102,8 +104,12 @@ def mom_rk_plain(u, v, w, s, p, ue, ve, we, se, pe, ruo, rvo, rwo,
         up, vp, wp, sp, visc, dxi, dyi, dzci, dzfi, with_sgs=s is not None)
     if split is None:
         ru, rv, rw = eu + exyu + ezu, ev + exyv + ezv, ew + exyw + ezw
-    else:
+    elif split == '1d':
         ru, rv, rw = eu + exyu, ev + exyv, ew + exyw
+        rdu, rdv, rdw = ezu, ezv, ezw
+    else:
+        ru, rv, rw = eu, ev, ew
+        rdu, rdv, rdw = exyu + ezu, exyv + ezv, exyw + ezw
     dzci_c = torch.as_tensor(dzci[1:nz + 1], dtype=u.dtype,
                              device=u.device)[:, None, None]
     pc = ppad[1:-1, 1:-1, 1:-1]
@@ -123,8 +129,8 @@ def mom_rk_plain(u, v, w, s, p, ue, ve, we, se, pe, ruo, rvo, rwo,
         # CN fold: emit the Crank-Nicolson RHS; the sums see the full
         # prediction
         h = 0.5 * f12
-        su, sv = un + f12 * ezu, vn + f12 * ezv
-        un, vn, wn = un + h * ezu, vn + h * ezv, wn + h * ezw
+        su, sv = un + f12 * rdu, vn + f12 * rdv
+        un, vn, wn = un + h * rdu, vn + h * rdv, wn + h * rdw
     usum = su.sum(dim=(1, 2))[:, None] if sums[0] else None
     vsum = sv.sum(dim=(1, 2))[:, None] if sums[1] else None
     return un, vn, wn, ru, rv, rw, usum, vsum
@@ -397,16 +403,17 @@ def mom_rk(u, v, w, s, p, ue, ve, we, se, pe, ruo, rvo, rwo, dzci, dzfi,
     """Momentum RHS (mom.f90:17-309) + low-storage RK3 update with -grad p
     and bforce (rk.f90:77-94) in one pass.  ruo..rwo = None skips the
     previous-RHS reads (first substep, f2 == 0).  s = se = None: no eddy
-    viscosity (sgstype 'none'), its streams are not read.  split='1d':
-    implicit z diffusion with the CN fold: ru..rw are the explicit RHS
-    (advection + xy diffusion) and u..w the Crank-Nicolson RHS u_RK -
-    1/2 f12 rud (pallas_kernels fused_mom_rk fold_cn).  sums: per-(z,
-    block) partial sums of the new (full-prediction) u / v for the bulk
-    forcing.  ye: y walls, the (rows, corners) y-row stack pairs of (u, v,
+    viscosity (sgstype 'none'), its streams are not read.  split: implicit
+    diffusion with the CN fold, '1d' (z only: ru..rw are the explicit RHS
+    advection + xy diffusion, rud the z diffusion) or 'xy+z' (full-3D: ru
+    .. rw the advection, rud all the molecular diffusion); u..w are then
+    the Crank-Nicolson RHS u_RK - 1/2 f12 rud (pallas_kernels fused_mom_rk
+    fold_cn).  sums: per-(z, block) partial sums of the new (full-
+    prediction) u / v for the bulk forcing.  ye: y walls, the (rows, corners) y-row stack pairs of (u, v,
     w, visct, p), visct's None without visct.  Returns (u, v, w, ru, rv,
     rw, usum, vsum); usum/vsum are (nz, nblk) or None."""
-    if split not in (None, '1d'):
-        raise ValueError(f"mom_rk: split {split!r} (None or '1d')")
+    if split not in _SPLIT_CODE:
+        raise ValueError(f"mom_rk: split {split!r} (None, '1d' or 'xy+z')")
     if _on_cpu(u):
         return mom_rk_plain(u, v, w, s, p, ue, ve, we, se, pe, ruo, rvo, rwo,
                             dzci, dzfi, f1, f2, visc, dxi, dyi, bforce,
@@ -434,7 +441,7 @@ def mom_rk(u, v, w, s, p, ue, ve, we, se, pe, ruo, rvo, rwo, dzci, dzfi,
             *map(_ptr, (u, v, w, s, p, ue, ve, we, se, pe, ruo, rvo, rwo,
                         dzci, dzfi, *outs, usum, vsum)), *_yptrs(ye),
             ctypes.c_int(nz), ctypes.c_int(ny), ctypes.c_int(nx),
-            ctypes.c_int(int(split is not None)),
+            ctypes.c_int(_SPLIT_CODE[split]),
             d(f1), d(f2), d(visc), d(dxi), d(dyi),
             d(bforce[0]), d(bforce[1]), d(bforce[2]))
     return (*outs, usum, vsum)

@@ -6,6 +6,8 @@ PyTorch version and a launch counter.
   z_eig      csrc/z_eig.cu        apply_z_eig
   thomas_z   csrc/thomas_z.cu     _apply_thomas_z: apply_thomas_z and
                                   apply_thomas_helmholtz_z
+  thomas_periodic                 apply_thomas_periodic_z
+             csrc/thomas_periodic.cu
 
 Fields are (nz, ny, nx), contiguous, float32 or float64, on one device;
 the operator matrices and eigenvalue rows are in the field's dtype; the
@@ -24,7 +26,7 @@ from .. import device as devmod
 from . import tridiag
 from .kernels import _launch, _ptr, _suffix
 
-LAUNCHES = {'apply_y': 0, 'z_eig': 0, 'thomas_z': 0}
+LAUNCHES = {'apply_y': 0, 'z_eig': 0, 'thomas_z': 0, 'thomas_periodic': 0}
 
 
 def reset_launches():
@@ -85,6 +87,17 @@ def thomas_z_plain(arr, a, b, c, lamy=None, lamx=None, pin=False, tol=0.0,
         return sol
     tail = arr[ns:] if shift is None else arr[ns:] + shift
     return torch.cat([sol, tail])
+
+
+def thomas_periodic_z_plain(arr, a, b, c, lamy=None, lamx=None, pin=False,
+                            tol=0.0, alpha=None):
+    """Periodic tridiag(a, b + lamy[j] + lamx[i], c) solve along z; see
+    thomas_periodic_z."""
+    a, b, c = _coefs(a, b, c, alpha, arr.dtype)
+    lam = None if lamy is None else lamx[None, :] + lamy[:, None]
+    return tridiag.thomas_periodic(
+        a, b, c, arr, lam=lam,
+        pin_tol=tol if (pin and lam is not None) else None)
 
 
 # ---------------------------------------------------------------------------
@@ -157,14 +170,18 @@ def z_eig(arr, Vl, Vr, lamz, lamy, lamx, tol):
 
 def thomas_z(arr, a, b, c, lamy=None, lamx=None, pin=False, tol=0.0,
              alpha=None, shift=None, bc_lo=None, bc_hi=None, n_solve=None):
-    """Tridiagonal solve along z (pallas_solve._apply_thomas_z), both
-    variants in one kernel:
-      Poisson:    lamy (ny,), lamx (nx,) shift the diagonal; pin zeroes the
-                  first pivot reciprocal where |lamy[j] + lamx[i]| <= tol;
-      Helmholtz:  alpha given: rows a*alpha, b*alpha + 1, c*alpha; shift
-                  (a (1,) tensor) is added to every RHS row, tail included;
-                  bc_lo / bc_hi (ny, nx) planes to rows 0 / n_solve - 1;
-                  rows n_solve .. nz-1 pass through.
+    """Tridiagonal solve along z (pallas_solve._apply_thomas_z).  Each
+    option stands alone and they combine:
+      lamy (ny,), lamx (nx,): added to the diagonal, b + lamy[j] + lamx[i];
+      pin: the first pivot reciprocal zeroed where |lamy[j] + lamx[i]| <=
+           tol (the Poisson system's singular lane);
+      alpha: the Helmholtz rows a*alpha, b*alpha + 1, c*alpha (the lam
+           rows are taken as given: the full-3D CN solve passes
+           lamy*alpha, lamx*alpha);
+      shift: a (1,) tensor added to every RHS row, tail included;
+      bc_lo / bc_hi: (ny, nx) planes added to rows 0 / n_solve - 1;
+      n_solve: rows n_solve .. nz-1 pass through (the face-staggered
+           Dirichlet tail).
     a, b, c: (nz,) float64 coefficient rows (rows from n_solve on are not
     read)."""
     if arr.device.type == 'cpu':
@@ -188,6 +205,43 @@ def thomas_z(arr, a, b, c, lamy=None, lamx=None, pin=False, tol=0.0,
                         bc_hi)),
             ctypes.c_int(nz), ctypes.c_int(ny), ctypes.c_int(nx),
             ctypes.c_int(ns), ctypes.c_int(int(alpha is not None)),
+            ctypes.c_double(0.0 if alpha is None else alpha),
+            ctypes.c_int(int(bool(pin))), ctypes.c_double(tol),
+            counts=LAUNCHES)
+    return out
+
+
+def thomas_periodic_z(arr, a, b, c, lamy=None, lamx=None, pin=False,
+                      tol=0.0, alpha=None):
+    """Periodic tridiagonal solve along z, the rank-1-corrected two-RHS
+    sweep (pallas_solve.apply_thomas_periodic_z), nz >= 3:
+      lamy (ny,), lamx (nx,): added to the diagonal, b + lamy[j] + lamx[i]
+           (None: no shift);
+      pin: the rank-1 coefficient (the last row) pinned to 0 where
+           |lamy[j] + lamx[i]| <= tol, the Poisson system's singular lane;
+      alpha: the Helmholtz rows a*alpha, b*alpha + 1, c*alpha (the lam
+           rows are taken as given, as in thomas_z).
+    a, b, c: (nz,) float64 coefficient rows, a[0] and c[nz-1] the periodic
+    corners."""
+    if arr.device.type == 'cpu':
+        return thomas_periodic_z_plain(arr, a, b, c, lamy, lamx, pin, tol,
+                                       alpha)
+    _check('thomas_periodic', arr, lamy, lamx, f64=(a, b, c))
+    nz, ny, nx = arr.shape
+    if nz < 3:
+        raise ValueError(f'thomas_periodic: nz = {nz} (at least 3)')
+    if (lamy is None) != (lamx is None):
+        raise ValueError('thomas_periodic: pass lamy with lamx')
+    for t, shape in ((a, (nz,)), (b, (nz,)), (c, (nz,)), (lamy, (ny,)),
+                     (lamx, (nx,))):
+        _shape('thomas_periodic', t, shape)
+    out = torch.empty_like(arr)
+    # the factors c zfac and the correction solution p2 of rows 0 .. nz-2
+    wscr, qscr = torch.empty_like(arr), torch.empty_like(arr)
+    _launch('thomas_periodic', f'cales_thomas_periodic_{_suffix(arr)}',
+            *map(_ptr, (arr, out, wscr, qscr, a, b, c, lamy, lamx)),
+            ctypes.c_int(nz), ctypes.c_int(ny), ctypes.c_int(nx),
+            ctypes.c_int(int(alpha is not None)),
             ctypes.c_double(0.0 if alpha is None else alpha),
             ctypes.c_int(int(bool(pin))), ctypes.c_double(tol),
             counts=LAUNCHES)

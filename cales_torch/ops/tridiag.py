@@ -1,12 +1,15 @@
-"""Batched tridiagonal solve along the leading (z) axis, in plain PyTorch.
+"""Batched tridiagonal solves along the leading (z) axis, in plain PyTorch.
 
-Counterpart of cales_tpu/ops/tridiag.thomas (reference dgtsv_homebrewed,
-solver.f90:153-179): the sweep the Thomas kernel (csrc/thomas_z.cu) runs,
-and its plain version's core.  The singular constant mode of a pure
-Poisson system is gauge-fixed the way the TPU kernel fixes it
-(pallas_solve._apply_thomas_z): lanes with |lam| <= tol get their first
-pivot reciprocal zeroed, so p[0] = 0 there, instead of the reference's
-eps-regularized pivots.
+Counterpart of cales_tpu/ops/tridiag.py: `thomas` (reference
+dgtsv_homebrewed, solver.f90:153-179) is the sweep the Thomas kernel
+(csrc/thomas_z.cu) runs, `thomas_periodic` (reference gaussel_periodic,
+solver.f90:109-151) the rank-1-corrected periodic solve of
+csrc/thomas_periodic.cu; each is its kernel's plain version's core.  The
+singular constant mode of a pure Poisson system is gauge-fixed the way the
+TPU kernels fix it instead of by the reference's eps-regularized pivots:
+lanes with |lam| <= tol get p[0] = 0 (thomas: the first pivot reciprocal
+zeroed, pallas_solve._apply_thomas_z) or p[n-1] = 0 (thomas_periodic: the
+rank-1 coefficient pinned, pallas_solve.apply_thomas_periodic_z).
 """
 from __future__ import annotations
 
@@ -39,3 +42,29 @@ def thomas(a, b, c, rhs, lam=None, pin_tol=None):
         p = ps[k] - ds[k] * p
         out[k] = p
     return out
+
+
+def thomas_periodic(a, b, c, rhs, lam=None, pin_tol=None):
+    """Solve the periodic tridiagonal system (rows a, b + lam, c, with the
+    corners a[0] and c[n-1]) along axis 0, n >= 3: the reduced (n-1)-row
+    system swept once for two right-hand sides, the data p1 and the
+    correction p2 (e[0] = -a[0], e[n-2] = -c[n-2]), then
+      pn = (r[n-1] - c[n-1] p1[0] - a[n-1] p1[n-2])
+           / ((b[n-1] + lam) + c[n-1] p2[0] + a[n-1] p2[n-2]),
+      x = p1 + p2 pn,  x[n-1] = pn.
+    pin_tol: None, or the tolerance under which a lane of lam is pinned
+    (pn = 0)."""
+    n = rhs.shape[0]
+    e = torch.zeros_like(rhs[:n - 1])
+    e[0] = -a[0]
+    e[n - 2] = -c[n - 2]
+    sol = thomas(a[:n - 1], b[:n - 1], c[:n - 1],
+                 torch.stack([rhs[:n - 1], e], dim=1),
+                 lam=None if lam is None else lam[None])
+    p1, p2 = sol[:, 0], sol[:, 1]
+    shift = 0.0 if lam is None else lam
+    den = (b[n - 1] + shift) + c[n - 1] * p2[0] + a[n - 1] * p2[n - 2]
+    pn = (rhs[n - 1] - c[n - 1] * p1[0] - a[n - 1] * p1[n - 2]) / den
+    if pin_tol is not None:
+        pn = torch.where(torch.abs(lam) <= pin_tol, torch.zeros_like(pn), pn)
+    return torch.cat([p1 + p2 * pn, pn[None]])

@@ -15,10 +15,19 @@ which imports jax.  Periodic x and y take one of two transform routes:
          zsolver 'thomas'), apply_y (backward), all hand-written kernels
          (ops/solve_kernels.py).
 
+With alpha, solve is the Helmholtz solve (I + alpha L) of full-3D
+implicit diffusion, one per velocity component: the same transforms
+around a z stage on the alpha-scaled rows, Thomas on the 'mat' route
+(thomas_z, or thomas_periodic with periodic z, never pinned), the eigen
+stage with 1/(1 + alpha lam) or Thomas on the 'fft' route; the
+face-staggered Dirichlet tail row (w with z walls) passes through.  With
+periodic z the Poisson solve's Thomas stage is the rank-1 periodic kernel
+(thomas_periodic, pinned on the constant mode).
+
 solve_z_only is the z-only Crank-Nicolson Helmholtz solve of the
 implicit-diffusion path (impdiff_1d) through the Thomas kernel, with the
 bulk-forcing shift, the boundary planes and the face-staggered tail row
-inside the kernel.
+inside the kernel (the periodic kernel with periodic z).
 
 With y walls (homogeneous-Neumann pressure, the duct and cavity classes)
 the y operator is a DCT matrix and the route is 'mat': apply_y and z_eig
@@ -26,10 +35,9 @@ take whatever operator and eigenvalues the transforms hold, so no kernel
 changes.
 
 Not in this slice (each raises NotImplementedError naming its ROADMAP
-item): the full-3D Helmholtz solve (impdiff without impdiff_1d), periodic
-z with the Thomas z stage, transforms with excluded rows (walled x, or a
-face-staggered field), and the mixed route (an FFT along x with a matrix
-along y).
+item): transforms with excluded x or y rows (walled x, or a field
+face-staggered across an x or y wall), and the mixed route (an FFT along
+x with a matrix along y).
 """
 from __future__ import annotations
 
@@ -189,21 +197,14 @@ def uses_thomas(sv: DirectSolver) -> bool:
 
 
 def _check_in_slice(sv: DirectSolver, alpha):
-    if alpha is not None:
-        raise NotImplementedError(
-            'full-3D Helmholtz solve (implicit diffusion without impdiff_1d) '
-            'is not ported yet: ROADMAP queue 1, full-3D implicit CN')
     nx, ny, _ = sv.ng
     if sv.trx.kind != sv.try_.kind or sv.trx.nsolve != nx \
-            or sv.try_.nsolve != ny or sv.qz:
+            or sv.try_.nsolve != ny or (sv.qz and alpha is None):
         raise NotImplementedError(
             'transforms with excluded rows or mixed kinds (an FFT along x '
-            "with y walls, ptransform='fft') are not ported yet: ROADMAP "
-            'queue 1, BC topologies')
-    if uses_thomas(sv) and sv.bcz == 'PP':
-        raise NotImplementedError(
-            'periodic z with the Thomas z stage needs the rank-1 periodic '
-            'kernel: ROADMAP queue 2, apply_thomas_periodic_z')
+            "with y walls, ptransform='fft'), or a Poisson solve of a "
+            'face-staggered field, are not ported yet: ROADMAP queue 1, BC '
+            'topologies')
 
 
 def _eig_tol(sv: DirectSolver, lamx_np) -> float:
@@ -221,8 +222,9 @@ def _eig_tol(sv: DirectSolver, lamx_np) -> float:
 
 
 def _eig_ops(sv: DirectSolver, rdt: torch.dtype, device: torch.device):
-    """(Vl, Vr, inv) on the device in the real dtype rdt: inv = 1/lam over
-    the (nz, ny, nx//2+1) spectral grid, zero for the singular mode."""
+    """(Vl, Vr, lam3, inv) on the device in the real dtype rdt over the
+    (nz - qz, ny, nx//2+1) spectral grid: lam3 = lamz + lamy + lamx, inv =
+    1/lam3 and zero for the singular mode (the Poisson solve)."""
     def build():
         nx = sv.ng[0]
         lamx_np = sv.lamx[: nx // 2 + 1]
@@ -237,7 +239,7 @@ def _eig_ops(sv: DirectSolver, rdt: torch.dtype, device: torch.device):
         inv = torch.where(lam3.abs() > tol, 1.0 / lam3,
                           torch.zeros_like(lam3))
         return (torch.as_tensor(sv.zVl, dtype=rdt, device=device),
-                torch.as_tensor(sv.zVr, dtype=rdt, device=device), inv)
+                torch.as_tensor(sv.zVr, dtype=rdt, device=device), lam3, inv)
     return _dev(sv, 'eig_fft', rdt, device, build)
 
 
@@ -263,20 +265,35 @@ def _thomas_tol(lamx, lamy, dtype) -> float:
     return float(torch.finfo(dtype).eps * scale * 4.0)
 
 
-def _z_thomas(sv: DirectSolver, body, lamx_np):
-    """Pinned Thomas z stage on a real (nz, ny, n) spectrum whose x lanes
-    carry the eigenvalues lamx_np (n,)."""
+def _z_thomas(sv: DirectSolver, body, lamx_np, alpha=None):
+    """Thomas z stage on a real (nz, ny, n) spectrum whose x lanes carry
+    the eigenvalues lamx_np (n,): the Poisson solve, its singular lane
+    pinned where z is periodic or all-Neumann, or with alpha the Helmholtz
+    solve (I + alpha L) on the alpha-scaled rows with the diagonal shift
+    (lamy + lamx) alpha (poisson.py:326-338), the face-staggered Dirichlet
+    tail row passed through."""
     dt, dev = body.dtype, body.device
-    lamy = _dev(sv, 'lamy', dt, dev, lambda: _t(sv.lamy, dt, dev))
-    lamx = _dev(sv, ('lamx', len(lamx_np)), dt, dev,
-                lambda: _t(lamx_np, dt, dev))
+    lamy = _dev(sv, 'lamy', torch.float64, dev,
+                lambda: _t(sv.lamy, torch.float64, dev))
+    lamx = _dev(sv, ('lamx', len(lamx_np)), torch.float64, dev,
+                lambda: _t(lamx_np, torch.float64, dev))
+    # the rows scaled in float64 and rounded once, as the JAX package's
+    # host-side numpy scaling rounds them
+    if alpha is not None:
+        lamy, lamx = lamy * alpha, lamx * alpha
+    lamy, lamx = lamy.to(dt), lamx.to(dt)
     a, b, c = _abc(sv, dev)
-    return sk.thomas_z(body, a, b, c, lamy=lamy, lamx=lamx,
-                       pin=sv.bcz == 'NN',
-                       tol=_thomas_tol(lamx_np, sv.lamy, dt))
+    pin = alpha is None and sv.bcz in ('PP', 'NN')
+    kw = dict(lamy=lamy, lamx=lamx, pin=pin, alpha=alpha,
+              tol=_thomas_tol(lamx_np, sv.lamy, dt) if pin else 0.0)
+    if sv.bcz == 'PP':
+        return sk.thomas_periodic_z(body, a, b, c, **kw)
+    nz = body.shape[0]
+    return sk.thomas_z(body, a, b, c, n_solve=nz - sv.qz if sv.qz else None,
+                       **kw)
 
 
-def _solve_fft(sv: DirectSolver, p):
+def _solve_fft(sv: DirectSolver, p, alpha=None):
     nz, ny, nx = p.shape
     body = tr.fwd(sv.trx, p, axis=-1)        # rfft along x
     body = tr.fwd(sv.try_, body, axis=-2)    # fft along y (complex input)
@@ -287,25 +304,33 @@ def _solve_fft(sv: DirectSolver, p):
         re = torch.view_as_real(body).reshape(nz, ny, 2 * nxh)
         lamx2 = np.repeat(sv.lamx[:nxh], 2)
         body = torch.view_as_complex(
-            _z_thomas(sv, re, lamx2).reshape(nz, ny, nxh, 2))
+            _z_thomas(sv, re, lamx2, alpha).reshape(nz, ny, nxh, 2))
     else:
-        Vl, Vr, inv = _eig_ops(sv, p.dtype, p.device)
-        hat = _zmatmul(Vl, body) * inv[..., None]
-        body = torch.view_as_complex(_zmatmul(Vr, torch.view_as_complex(hat)))
+        # the z eigen-matmuls on rows 0 .. nz-qz-1; the face-staggered
+        # Dirichlet tail row passes through (poisson.py:446-490)
+        nzs = nz - sv.qz
+        Vl, Vr, lam3, inv = _eig_ops(sv, p.dtype, p.device)
+        if alpha is not None:
+            inv = 1.0 / (lam3 * alpha + 1.0)
+        hat = _zmatmul(Vl, body[:nzs]) * inv[..., None]
+        zsol = torch.view_as_complex(_zmatmul(Vr, torch.view_as_complex(hat)))
+        body = torch.cat([zsol, body[nzs:]]) if sv.qz else zsol
     body = tr.bwd(sv.try_, body, axis=-2, n=ny, real_out=False)
     body = tr.bwd(sv.trx, body, axis=-1, n=nx, real_out=True)
     return body.to(p.dtype)
 
 
-def _solve_mat(sv: DirectSolver, p):
+def _solve_mat(sv: DirectSolver, p, alpha=None):
     dt, dev = p.dtype, p.device
     ops = _dev(sv, 'mat', dt, dev, lambda: tuple(_t(m, dt, dev) for m in (
         sv.try_.fwd_mat, sv.trx.fwd_mat.T, sv.try_.bwd_mat,
         sv.trx.bwd_mat.T)))
     fy, fxT, by, bxT = ops
     body = sk.apply_y(p, fy, MxT=fxT)
-    if uses_thomas(sv):
-        body = _z_thomas(sv, body, sv.lamx)
+    if alpha is not None or uses_thomas(sv):
+        # the Helmholtz solve takes the Thomas z stage at any nz, as the
+        # JAX package's aliased Helmholtz pipeline does (poisson.py:314-340)
+        body = _z_thomas(sv, body, sv.lamx, alpha)
     else:
         Vl, Vr, lamz, lamy, lamx = _dev(sv, 'eig_mat', dt, dev, lambda: tuple(
             _t(q, dt, dev) for q in (sv.zVl, sv.zVr, sv.lamz, sv.lamy,
@@ -316,32 +341,39 @@ def _solve_mat(sv: DirectSolver, p):
 
 
 def solve(sv: DirectSolver, p, alpha=None):
-    """Solve L p_new = p for the (nz, ny, nx) RHS p; returns the solution
-    in p's dtype.  The singular constant mode (all-Neumann/periodic) is
-    projected out (eig) or pinned (Thomas), so the solution is defined up
-    to that gauge."""
+    """Solve L p_new = p (Poisson) or, with alpha, (I + alpha L) p_new = p
+    (the full-3D Crank-Nicolson Helmholtz solve, main.f90:424-443, alpha =
+    -nu dt_rk / 2) for the (nz, ny, nx) RHS p; returns the solution in p's
+    dtype.  The singular constant mode of the Poisson solve (all-Neumann or
+    periodic) is projected out (eig) or pinned (Thomas), so the solution
+    is defined up to that gauge.  The face-staggered Dirichlet tail row of
+    a Helmholtz solve (qz = 1) passes through."""
     _check_in_slice(sv, alpha)
     if sv.trx.kind == 'mat':
-        return _solve_mat(sv, p)
-    return _solve_fft(sv, p)
+        return _solve_mat(sv, p, alpha)
+    return _solve_fft(sv, p, alpha)
 
 
 def solve_z_only(sv: DirectSolver, p, alpha, shift=None, bc_planes=None):
     """z-implicit-only Helmholtz solve (I + alpha*Lz) p_new = p
     (solver_gaussel_z, solver.f90:182-233; the impdiff_1d path) through
-    the Thomas kernel, as cales_tpu's solve_z_only(pallas=True) runs it.
+    the Thomas kernel, as cales_tpu's solve_z_only(pallas=True) runs it,
+    or with periodic z through the periodic Thomas kernel's unshifted
+    Helmholtz variant (the JAX package runs thomas_periodic there,
+    poisson.py:575-576).
 
     shift: (1,) tensor added to every RHS row, the pass-through tail
     included (the folded bulk-forcing add); bc_planes: ((ny, nx) lo, hi)
     z-face RHS planes added to rows 0 and nz - qz - 1.  The face-staggered
     Dirichlet row (qz = 1) passes through."""
-    if sv.bcz == 'PP':
-        raise NotImplementedError(
-            'z-only Helmholtz solve with periodic z needs the rank-1 '
-            'periodic kernel: ROADMAP queue 2, apply_thomas_periodic_z')
     nz = p.shape[0]
     a, b, c = _abc(sv, p.device)
     lo, hi = (None, None) if bc_planes is None else bc_planes
+    if sv.bcz == 'PP':
+        # no z face (qz = 0, the planes are zero); the shift is one add
+        if shift is not None:
+            p = p + shift
+        return sk.thomas_periodic_z(p, a, b, c, alpha=float(alpha))
     return sk.thomas_z(p, a, b, c, alpha=float(alpha), shift=shift,
                        bc_lo=lo, bc_hi=hi,
                        n_solve=nz - sv.qz if sv.qz else None)
@@ -437,9 +469,11 @@ def rhs_bound_planes_dyn(cfg: Config, grid: Grid, cbc, c_or_f, bc_planes,
 
 def add_rhs_bound(cfg: Config, c_or_f, cbc, rhs, planes):
     """Add the boundary planes onto the solver RHS (updt_rhs_b,
-    bound.f90:562-617).  All-zero planes (homogeneous BCs, the channel)
-    return rhs unchanged."""
-    if all(np.all(np.asarray(p) == 0.0) for p in planes.values()):
+    bound.f90:562-617).  planes: numpy arrays, or tensors (the CN solves'
+    rhs_bound_planes_dyn); all-zero numpy planes (homogeneous BCs, the
+    channel's pressure) return rhs unchanged."""
+    if all(not torch.is_tensor(p) and np.all(np.asarray(p) == 0.0)
+           for p in planes.values()):
         return rhs
     nx, ny, nz = cfg.ng
     q = [0, 0, 0]

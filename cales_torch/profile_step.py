@@ -1,8 +1,8 @@
 """Where the time of one RK3 step goes on the card.
 
     python -m cales_torch.profile_step
-        [--case les|les-mat|les-imp|dns|dsmag|duct|cavity] [--ng 512x256x256]
-        [--steps 3]
+        [--case les|les-mat|les-imp|dns|dns-imp3d|dsmag|duct|cavity|tgv|
+                tgv-fft|tri|tri-imp3d] [--ng NXxNYxNZ] [--steps 3]
 
 Steps one of the channel configurations under torch.profiler and prints
 the device time per kernel and per stage: the CUDA kernels, the Poisson
@@ -16,8 +16,16 @@ thomas_z CN solves); 'dsmag' the dynamic-Smagorinsky channel of
 validation/dsmag_channel.py (impdiff_1d, 'mat', the dsmag kernel); 'duct'
 and 'cavity' bench.py's duct_les_dsmag and cavity_les_dsmag (y and z
 walls, explicit diffusion, 'mat', the y-walled kernel variants and the
-dsmag kernel's 'duct' and 'cavity' averages).  The device's idle share is
-1 - (device busy time / wall time of the profiled window).
+dsmag kernel's 'duct' and 'cavity' averages); 'dns-imp3d' the channel DNS
+with full-3D implicit diffusion (a Helmholtz solve per component, thomas_z
+with the lam shift); 'tgv' the Taylor-Green vortex of
+examples/taylor_green_vortex_3d at 512^3 with ptransform='mat' (apply_y and
+the periodic Thomas kernel from nz >= 384), 'tgv-fft' the same by 'fft'
+(the example's 'auto'); 'tri' bench.py's triperiodic_dns ('mat', z_eig)
+and 'tri-imp3d' the same with full-3D implicit diffusion (thomas_periodic
+Helmholtz solves).  The grid is 512x256x256, 512^3 for the tgv cases,
+unless --ng says otherwise.  The device's idle share is 1 - (device busy
+time / wall time of the profiled window).
 Needs a CUDA device.
 """
 from __future__ import annotations
@@ -38,6 +46,7 @@ STAGES = (
     ('solve: apply_y', ('cales::gemm_kernel',)),
     ('solve: z_eig', ('z_eig_kernel',)),
     ('thomas_z', ('thomas_z_kernel',)),
+    ('thomas_periodic', ('thomas_periodic_kernel',)),
     ('smag', ('cales::smag_kernel',)),
     ('dsmag', ('dsmag_kernel',)),
     ('solve: fft', ('fft', 'FFT', 'regular_fft', 'vector_fft', 'radix')),
@@ -52,6 +61,14 @@ DUCT_BCS = dict(
     cbcvel=((('P', 'P', 'P'), ('D', 'D', 'D'), ('D', 'D', 'D')),) * 2,
     cbcpre=(('P', 'N', 'N'), ('P', 'N', 'N')),
     cbcsgs=(('P', 'D', 'D'), ('P', 'D', 'D')))
+PERIODIC_BCS = dict(cbcvel=((('P',) * 3,) * 3,) * 2,
+                    cbcpre=(('P',) * 3,) * 2, cbcsgs=(('P',) * 3,) * 2)
+# examples/taylor_green_vortex_3d/input.nml and bench.py's triperiodic_dns
+TGV = dict(ng=(512, 512, 512), l=(2 * np.pi,) * 3, gtype=1, gr=0.0,
+           visci=1600.0, inivel='tgv', is_wallturb=False,
+           is_forced=(False,) * 3, velf=(0.0,) * 3, sgstype='none',
+           **PERIODIC_BCS)
+TRI = dict(TGV, ng=(512, 256, 256), gtype=0)
 # bench.py _matrix_configs: the channel-LES headline, channel_dns_impdiff,
 # duct_les_dsmag and cavity_les_dsmag; validation/dsmag_channel.py:77-89
 # for the dynamic model in the channel
@@ -62,6 +79,12 @@ CASES = {
                     impdiff=True, impdiff_1d=True, **CHAN_BCS),
     'dns': dict(visci=5640.0, sgstype='none', impdiff=True, impdiff_1d=True,
                 ptransform='mat', **CHAN_BCS),
+    'dns-imp3d': dict(visci=5640.0, sgstype='none', impdiff=True,
+                      impdiff_1d=False, ptransform='mat', **CHAN_BCS),
+    'tgv': dict(TGV, ptransform='mat'),
+    'tgv-fft': dict(TGV, ptransform='fft'),
+    'tri': dict(TRI, ptransform='mat'),
+    'tri-imp3d': dict(TRI, ptransform='mat', impdiff=True),
     'dsmag': dict(l=(12.8, 4.8, 2.0), gr=5.0, visci=10_000.0, inivel='poi',
                   sgstype='dsmag', dsmag_avg='channel', ptransform='mat',
                   impdiff=True, impdiff_1d=True, **CHAN_BCS),
@@ -88,7 +111,8 @@ def stage_of(name: str) -> str:
 def main(argv=None):
     ap = argparse.ArgumentParser(prog='cales_torch.profile_step')
     ap.add_argument('--case', default='les', choices=sorted(CASES))
-    ap.add_argument('--ng', default='512x256x256', help='nx x ny x nz')
+    ap.add_argument('--ng', default=None,
+                    help='nx x ny x nz (default: the case\'s grid)')
     ap.add_argument('--steps', type=int, default=3)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -104,12 +128,15 @@ def main(argv=None):
     card = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                            '--format=csv,noheader'], capture_output=True,
                           text=True, check=True).stdout.strip()
-    ng = tuple(int(x) for x in args.ng.lower().split('x'))
-    base = dict(ng=ng, l=(2 * np.pi, np.pi, 2.0), gtype=1, gr=1.0,
-                inivel='log', is_wallturb=True,
+    base = dict(ng=(512, 256, 256), l=(2 * np.pi, np.pi, 2.0), gtype=1,
+                gr=1.0, inivel='log', is_wallturb=True,
                 is_forced=(True, False, False), velf=(1.0, 0.0, 0.0),
                 dtype='float32')
-    cfg = Config(**{**base, **CASES[args.case]})
+    kw = {**base, **CASES[args.case]}
+    if args.ng:
+        kw['ng'] = tuple(int(x) for x in args.ng.lower().split('x'))
+    cfg = Config(**kw)
+    ng = cfg.ng
     grid = make_grid_from_config(cfg)
     sim = Simulation(cfg, grid, device='cuda')
     state = sim.initial_state(*initflow(cfg, grid))

@@ -199,8 +199,8 @@ def dsmag_unsupported(cfg):
     ROADMAP item that brings it."""
     out = []
     if cfg.dsmag_avg == 'dit':
-        out.append("dsmag_avg 'dit' needs periodic z: ROADMAP queue 1, "
-                   'triperiodic')
+        out.append("dsmag_avg 'dit' (the triperiodic box's average): "
+                   'ROADMAP queue 1, triperiodic LES')
     if cfg.filter_2d:
         out.append('the 2D test filter (filter_2d): ROADMAP queue 1, dsmag '
                    'classes')

@@ -3,20 +3,24 @@
 Counterpart of cales_tpu/timeloop.py on its single-device kernel path for
 the channel classes with periodic x/y and z walls (reference
 rk.f90:17-121, main.f90:417-507): the LES with static or dynamic
-Smagorinsky, and the DNS (sgstype 'none'), each with explicit or
-z-implicit (impdiff_1d) diffusion; and for the y-walled classes, the
-square duct and the spanwise-periodic cavity, with dynamic Smagorinsky
-('duct', 'cavity' or 'channel' averaging) or none, explicit diffusion.
+Smagorinsky, and the DNS (sgstype 'none'), each with explicit, z-implicit
+(impdiff_1d) or full-3D implicit diffusion; the triperiodic DNS (the Taylor-Green vortex), explicit or
+implicit; and for the y-walled classes, the square duct and the
+spanwise-periodic cavity, with dynamic Smagorinsky ('duct', 'cavity' or
+'channel' averaging) or none, explicit diffusion.
 One RK substep runs:
   1. kernels.mom_rk          momentum RHS + RK3 update (+ forcing partial
-                             sums; with impdiff_1d the explicit/implicit
-                             split and the Crank-Nicolson fold)
+                             sums; with implicit diffusion the explicit/
+                             implicit split, '1d' or 'xy+z', and the
+                             Crank-Nicolson fold)
   2. bulk forcing from the partial sums (rk.f90:197-222 reordered)
-  3. impdiff_1d: poisson.solve_z_only per velocity component (the Thomas
-     kernel; the forcing enters as its RHS shift)
+  3. implicit diffusion, per velocity component: impdiff_1d
+     poisson.solve_z_only (the Thomas kernel; the forcing enters as its RHS
+     shift), full-3D poisson.solve with alpha (the forcing added first)
   4. kernels.fillps          div(u)/dt_rk of the prediction
   5. poisson.solve           'fft': cuFFT x/y + z stage; 'mat': apply_y,
-                             z_eig or thomas_z, apply_y
+                             z_eig, thomas_z or (periodic z)
+                             thomas_periodic, apply_y
   6. kernels.correc_smag     projection, p += pp and nu_t (smag, explicit
                              diffusion), or
      kernels.correc_updatep  projection, p += pp (+ alpha Lz(pp))
@@ -52,6 +56,10 @@ from . import sgs as sgsmod
 from .ops import boundary as bnd
 from .ops import kernels
 from .ops import stencil as st
+
+
+# the staggering of u, v, w along (x, y, z): face ('f') or centre ('c')
+_C_OR_F = (('f', 'c', 'c'), ('c', 'f', 'c'), ('c', 'c', 'f'))
 
 
 class State(NamedTuple):
@@ -95,9 +103,13 @@ def _ywalls_refuse(cfg: Config) -> list[str]:
                    'JAX package runs it through XLA, not a kernel): ROADMAP '
                    'queue 1, smag with y walls')
     if cfg.impdiff:
-        out.append('implicit diffusion with y walls (the duct and cavity '
-                   'classes run explicit): ROADMAP queue 1, impdiff with y '
-                   'walls')
+        kind = 'impdiff_1d' if cfg.impdiff_1d else \
+            'full-3D implicit diffusion'
+        out.append(f'{kind} with y walls (the duct and cavity classes run '
+                   'explicit): ROADMAP queue 1, impdiff with y walls')
+    if cfg.cbc_vel(2, 0)[0] == 'P':
+        out.append('periodic z with y walls: ROADMAP queue 1, BC '
+                   'topologies')
     if cfg.ptransform == 'fft':
         out.append("ptransform 'fft' with y walls (the mixed FFT and matrix "
                    'route): ROADMAP queue 1, BC topologies')
@@ -109,9 +121,6 @@ def unsupported(cfg: Config) -> list[str]:
     item that brings it; empty when the config is in the slice."""
     out = []
     cbc = effective_cbcvel(cfg)
-    if cfg.impdiff and not cfg.impdiff_1d:
-        out.append('full-3D implicit diffusion (impdiff without impdiff_1d): '
-                   'ROADMAP queue 1, full-3D implicit CN')
     if any(cfg.lwm[ib][d] != 0 for ib in range(2) for d in range(3)):
         out.append('wall model (lwm): ROADMAP queue 1, WMLES')
     if cfg.sgstype == 'dsmag':
@@ -122,8 +131,13 @@ def unsupported(cfg: Config) -> list[str]:
                    'the x+y-walled classes): ROADMAP queue 1, BC topologies')
     if not _periodic(cfg, 1):
         out += _ywalls_refuse(cfg)
-    if cbc[0][2][0] == 'P':
-        out.append('periodic z (triperiodic): ROADMAP queue 1, triperiodic')
+    if cbc[0][2][0] == 'P' and cfg.sgstype != 'none':
+        out.append(f"{'static' if cfg.sgstype == 'smag' else 'dynamic'} "
+                   'Smagorinsky on the triperiodic box (periodic z): ROADMAP '
+                   'queue 1, triperiodic LES')
+    if cfg.is_forced[2]:
+        out.append('bulk forcing along z (is_forced(3)): ROADMAP queue 1, '
+                   'triperiodic LES')
     if cfg.scalar:
         out.append('passive scalar: ROADMAP queue 1, scalar')
     if cfg.dims[0] * cfg.dims[1] > 1:
@@ -196,9 +210,11 @@ class Simulation:
         self.fused_smag = cfg.sgstype == 'smag' and not cfg.impdiff
         self.sgs_kernel = ({'smag': 'smag', 'dsmag': 'dsmag'}
                            .get(cfg.sgstype) if not self.fused_smag else None)
-        # impdiff_1d: the momentum kernel's split + CN fold (rd streams
-        # elided, timeloop.py:295-306 of the JAX package)
-        self.split = '1d' if cfg.impdiff else None
+        # implicit diffusion: the momentum kernel's split ('1d' z only,
+        # 'xy+z' full-3D) + CN fold (rd streams elided, timeloop.py:227-229
+        # and 295-306 of the JAX package)
+        self.split = (None if not cfg.impdiff
+                      else '1d' if cfg.impdiff_1d else 'xy+z')
 
         def by_dir(vals):
             return tuple(tuple(vals[ib][idir] for ib in range(2))
@@ -231,25 +247,27 @@ class Simulation:
             return tuple(out)
         self.zrec_uv = (rec_for(0, self.bcu_vals), rec_for(1, self.bcv_vals))
 
-        # z-only Crank-Nicolson Helmholtz solvers per velocity component
-        # (main.f90:318-334; w is face-staggered in z, qz = 1) and their
-        # z-face RHS planes, which are static here: None when zero
+        # Crank-Nicolson Helmholtz solvers per velocity component
+        # (main.f90:318-334; w is face-staggered in z, qz = 1 with z walls):
+        # z-only (impdiff_1d) or full-3D; and their RHS boundary planes,
+        # which are static here: the z-face planes for the z-only solves,
+        # all of them for the full-3D ones, None when zero
         self.solver_vel, self.cn_planes = [], []
         if cfg.impdiff:
-            c_or_f = (('f', 'c', 'c'), ('c', 'f', 'c'), ('c', 'c', 'f'))
             bvals = (self.bcu_vals, self.bcv_vals, self.bcw_vals)
             for ivel in range(3):
                 cbc = tuple((self.cbcvel[0][d][ivel], self.cbcvel[1][d][ivel])
                             for d in range(3))
                 self.solver_vel.append(poisson.make_solver(
-                    cfg, grid, tuple(a + b for a, b in cbc), c_or_f[ivel],
+                    cfg, grid, tuple(a + b for a, b in cbc), _C_OR_F[ivel],
                     zsolver=cfg.zsolver))
                 planes = poisson.rhs_bound_planes_dyn(
-                    cfg, grid, cbc, c_or_f[ivel], bvals[ivel], self.dtype,
+                    cfg, grid, cbc, _C_OR_F[ivel], bvals[ivel], self.dtype,
                     self.device)
-                zp = (planes[('z', 0)], planes[('z', 1)])
-                self.cn_planes.append(
-                    None if all(bool((q == 0).all()) for q in zp) else zp)
+                if cfg.impdiff_1d:
+                    planes = {k: q for k, q in planes.items() if k[0] == 'z'}
+                zero = all(bool((q == 0).all()) for q in planes.values())
+                self.cn_planes.append(None if zero else planes)
 
         # device-resident metrics and profiles
         t = lambda a: torch.as_tensor(np.asarray(a), dtype=self.dtype,  # noqa: E731
@@ -288,8 +306,11 @@ class Simulation:
         """The kernels one step of this configuration launches, by their
         launch-count names (the y-walled variants count under their
         kernel's name; exec_path says which variant runs)."""
+        cfg = self.cfg
         mat = self.solver_p.trx.kind == 'mat'
         thomas = poisson.uses_thomas(self.solver_p)
+        zthomas = ('thomas_periodic' if self.solver_p.bcz == 'PP'
+                   else 'thomas_z')
         names = ['mom_rk', 'fillps',
                  'correc_smag' if self.fused_smag else 'correc_updatep']
         if self.sgs_kernel:
@@ -298,8 +319,13 @@ class Simulation:
             names.append('apply_y')
         if mat and not thomas:
             names.append('z_eig')
-        if thomas or self.cfg.impdiff:
-            names.append('thomas_z')
+        # the Thomas kernel of the z stage: the Poisson solve's, and the
+        # CN solves' (all of impdiff_1d's; full-3D: on the 'mat' route or
+        # with zsolver 'thomas')
+        cn_thomas = cfg.impdiff and (cfg.impdiff_1d or mat
+                                     or cfg.zsolver == 'thomas')
+        if thomas or cn_thomas:
+            names.append(zthomas)
         return names
 
     def exec_path(self) -> str:
@@ -312,13 +338,21 @@ class Simulation:
                      f', kernels: {names} (CUDA, cales_torch/csrc)')
         else:
             where = f'cpu, kernels: {names} (plain PyTorch twins)'
-        zstage = ('thomas_z' if poisson.uses_thomas(self.solver_p)
+        periodic_z = self.solver_p.bcz == 'PP'
+        zthomas = 'thomas_periodic' if periodic_z else 'thomas_z'
+        zstage = (zthomas if poisson.uses_thomas(self.solver_p)
                   else 'z eigen-matmul' if self.solver_p.trx.kind == 'fft'
                   else 'z_eig')
         xy = ('torch.fft x/y' if self.solver_p.trx.kind == 'fft'
               else 'apply_y x/y operator matmuls')
-        diff = ('z-implicit Crank-Nicolson (thomas_z per component)'
-                if self.cfg.impdiff else 'explicit')
+        diff = ('explicit' if not self.cfg.impdiff
+                else f'z-implicit Crank-Nicolson ({zthomas} per component)'
+                if self.cfg.impdiff_1d
+                else 'full-3D implicit Crank-Nicolson (a Helmholtz solve per '
+                     'component, the Poisson route with the alpha-scaled '
+                     'Thomas or eigen z stage)')
+        if periodic_z:
+            diff += '; periodic z'
         sgs = ('smag fused in correc_smag' if self.fused_smag
                else 'smag kernel on the post-correction fill'
                if self.sgs_kernel == 'smag'
@@ -430,8 +464,9 @@ class Simulation:
         momentum kernel's partial sums.  Explicit diffusion defers the
         constants into the correction kernel (forcing along a periodic
         direction cancels in the divergence); impdiff_1d adds them as the
-        CN solves' RHS shift.  Returns the (3,) forcing tensor and the (2,)
-        (fu, fv) the corrector adds."""
+        CN solves' RHS shift, full-3D implicit diffusion to the CN RHS
+        before its solves (timeloop.py:2339-2345).  Returns the (3,)
+        forcing tensor and the (2,) (fu, fv) the corrector adds."""
         cfg = self.cfg
         f = torch.zeros(3, dtype=self.dtype, device=self.device)
         for d, s in enumerate(sums):
@@ -520,15 +555,35 @@ class Simulation:
         return torch.clamp_min(s0 * ratio[:, None, None], 0.0)
 
     def _cn_stage(self, u, v, w, f, alpha):
-        """Crank-Nicolson z-only Helmholtz solves (main.f90:423-491, the
-        impdiff_1d path): the momentum kernel already emitted u_RK - 1/2
-        f12 rd, the forcing rides the Thomas pass as its RHS shift, and the
-        z-face planes (scaled by alpha) enter rows 0 / n_solve - 1."""
+        """Crank-Nicolson Helmholtz solves (main.f90:423-491): the momentum
+        kernel already emitted u_RK - 1/2 f12 rd.  impdiff_1d: z-only
+        solves, the forcing rides the Thomas pass as its RHS shift and the
+        z-face planes (scaled by alpha) enter rows 0 / n_solve - 1.
+        Full-3D: the forcing is added to the CN RHS, then add_rhs_bound with
+        the alpha-scaled planes and poisson.solve with alpha per component
+        (cales_tpu timeloop.py:2339-2345, 2374-2413)."""
+        cfg = self.cfg
+        if not cfg.impdiff_1d:
+            out = []
+            for ivel, fld in enumerate((u, v, w)):
+                if cfg.is_forced[ivel]:
+                    fld = fld + f[ivel]
+                if self.cn_planes[ivel] is not None:
+                    cbc = tuple((self.cbcvel[0][d][ivel],
+                                 self.cbcvel[1][d][ivel]) for d in range(3))
+                    planes = {k: alpha * q
+                              for k, q in self.cn_planes[ivel].items()}
+                    fld = poisson.add_rhs_bound(cfg, _C_OR_F[ivel], cbc, fld,
+                                                planes)
+                out.append(poisson.solve(self.solver_vel[ivel], fld,
+                                         alpha=alpha))
+            return out
         out = []
         for ivel, fld in enumerate((u, v, w)):
             shift = f[ivel:ivel + 1] if self.cfg.is_forced[ivel] else None
             zp = self.cn_planes[ivel]
-            bc = None if zp is None else (alpha * zp[0], alpha * zp[1])
+            bc = None if zp is None else (alpha * zp[('z', 0)],
+                                          alpha * zp[('z', 1)])
             out.append(poisson.solve_z_only(self.solver_vel[ivel], fld, alpha,
                                             shift=shift, bc_planes=bc))
         return out
@@ -538,6 +593,8 @@ class Simulation:
         """The kept wall-face planes through the padded correc sweep
         (correc.f90:45-67): w's lower z face, and with y walls its y-ghost
         entries and v's lower y face (cales_tpu timeloop.py:1773-1796).
+        With periodic z the plane is the corrected periodic ghost row,
+        which no fill reads (the JAX package carries it the same way).
         ypred: the prediction fill's (rows, corners) pairs of (u, v, w);
         ypp: pp's.  The x plane is unused under periodic x, and so is the
         y plane under periodic y."""

@@ -1,12 +1,14 @@
 """Smoke run of cales_torch on one NVIDIA GPU: build the CUDA kernels,
-hold each against its plain PyTorch twin (the y-walled variants too),
-drive the channel-LES slice and the square duct through the CLI, the
-channel LES through cales_torch.driver.run at 512x256x256 (with the cuFFT
-and the operator-matrix Poisson solve), drive the implicit-CN channel
-DNS, the dynamic-Smagorinsky channel LES, the static-Smagorinsky LES with
-z-implicit diffusion, and the dynamic-Smagorinsky duct and cavity through
-driver.run at 512x256x256, and compare the card with the CPU step for
-step.
+hold each against its plain PyTorch twin (the y-walled, full-3D and
+periodic variants too), drive the channel-LES slice, the square duct and
+the Taylor-Green vortex through the CLI, the channel LES through
+cales_torch.driver.run at 512x256x256 (with the cuFFT and the
+operator-matrix Poisson solve), drive the implicit-CN channel DNS (z-only
+and full-3D), the dynamic-Smagorinsky channel LES, the static-Smagorinsky
+LES with z-implicit diffusion, the dynamic-Smagorinsky duct and cavity and
+the triperiodic DNS (explicit and full-3D implicit) through driver.run at
+512x256x256, the Taylor-Green vortex at 512^3 by both solve routes, and
+compare the card with the CPU step for step.
 
     python3 chip_smoke.py            # all phases, one card
 
@@ -44,19 +46,25 @@ KERNELS = {
               'cales_tpu/ops/pallas_solve.py:168'),
     'thomas_z': ('cales_torch/csrc/thomas_z.cu',
                  'cales_tpu/ops/pallas_solve.py:367'),
+    'thomas_periodic': ('cales_torch/csrc/thomas_periodic.cu',
+                        'cales_tpu/ops/pallas_solve.py:262'),
     'smag': ('cales_torch/csrc/smag.cu',
              'cales_tpu/ops/pallas_kernels.py:1016'),
     'dsmag': ('cales_torch/csrc/dsmag.cu',
               'cales_tpu/ops/pallas_dsmag.py:1168'),
 }
-# the y-walled variants, each reported as a kernel of its own: report name
-# -> (kernel, phase 2 variant)
-YWALL_ROWS = {
+# the y-walled, full-3D and Helmholtz variants, each reported as a kernel
+# of its own: report name -> (kernel, phase 2 variant)
+VARIANT_ROWS = {
     'mom_rk (y walls)': ('mom_rk', 'duct'),
     'fillps (y walls)': ('fillps', 'duct'),
     'correc_updatep (y walls)': ('correc_updatep', 'duct'),
     'dsmag (y walls, duct)': ('dsmag', 'duct'),
     'dsmag (y walls, cavity)': ('dsmag', 'cavity'),
+    'mom_rk (xy+z)': ('mom_rk', 'xyz'),
+    'correc_updatep (full-3D)': ('correc_updatep', 'impdiff'),
+    'thomas_z (Helmholtz, lam shift)': ('thomas_z', 'helmholtz3d'),
+    'thomas_periodic (Helmholtz)': ('thomas_periodic', 'helmholtz'),
 }
 LES_KERNELS = ('mom_rk', 'fillps', 'correc_smag')
 # H100 SXM data-sheet rates: HBM
@@ -107,6 +115,18 @@ CAVITY_CFG = dict(ng=HEADLINE_NG, l=(1.0, 1.0, 1.0), gtype=1, gr=0.0,
                   bcvel=(((0.0,) * 3,) * 3,
                          ((0.0, 0.0, 0.0), (0.0, 0.0, 0.0), (0.0, 1.0, 0.0))),
                   **DUCT_BCS)
+# examples/taylor_green_vortex_3d/input.nml (ptransform 'auto' is 'fft';
+# phase 9 takes 'mat') and bench.py _matrix_configs((512, 256, 256))
+# ['triperiodic_dns'], written out
+PERIODIC_BCS = dict(cbcvel=((('P',) * 3,) * 3,) * 2,
+                    cbcpre=(('P',) * 3,) * 2, cbcsgs=(('P',) * 3,) * 2)
+TGV_CFG = dict(ng=(512, 512, 512), l=(2 * np.pi,) * 3, gtype=1, gr=0.0,
+               cfl=0.95, dtmax=1e5, visci=1600.0, inivel='tgv',
+               is_wallturb=False, sgstype='none', dtype='float32',
+               ptransform='mat', **PERIODIC_BCS)
+TRI_CFG = dict(ng=HEADLINE_NG, l=(2 * np.pi,) * 3, gtype=0, gr=0.0,
+               visci=1600.0, inivel='tgv', sgstype='none', dtype='float32',
+               ptransform='mat', **PERIODIC_BCS)
 # moving wall-parallel values on some y and z faces for the y-walled
 # kernel inputs: (face, dir, comp)
 MOVING = (((0.0,) * 3, (0.2, 0.0, -0.1), (0.0, 0.0, 0.0)),
@@ -174,6 +194,10 @@ def kernel_inputs(ng, dtype, dev, seed, big=False):
     zc = grid.zc[1:nz + 1]
     svp = poisson.make_solver(cfg, grid, ('PP', 'PP', 'NN'), ('c', 'c', 'c'))
     svw = poisson.make_solver(cfg, grid, ('PP', 'PP', 'DD'), ('c', 'c', 'f'))
+    # the triperiodic box's pressure system (uniform periodic z)
+    tcfg = Config(**{**TRI_CFG, 'ng': ng})
+    svt = poisson.make_solver(tcfg, make_grid_from_config(tcfg),
+                              ('PP', 'PP', 'PP'), ('c', 'c', 'c'))
     eps = float(torch.finfo(dtype).eps)
     d = dict(u=f(), v=f(), w=f(), s=f().abs(), p=f(), ue=e(), ve=e(),
              we=e(), se=e().abs(), pe=e(), ruo=f(), rvo=f(), rwo=f(),
@@ -196,6 +220,12 @@ def kernel_inputs(ng, dtype, dev, seed, big=False):
                                       + np.abs(svp.lamy).max()),
              abc_p=tuple(t(q, torch.float64) for q in (svp.a, svp.b, svp.c)),
              abc_w=tuple(t(q, torch.float64) for q in (svw.a, svw.b, svw.c)),
+             lam_w3=(t(svw.lamy * ALPHA), t(svw.lamx * ALPHA)),
+             abc_t=tuple(t(q, torch.float64) for q in (svt.a, svt.b, svt.c)),
+             lam_t=(t(svt.lamy), t(svt.lamx)),
+             lam_t3=(t(svt.lamy * ALPHA), t(svt.lamx * ALPHA)),
+             th_tol_t=eps * 4.0 * float(np.abs(svt.lamx).max()
+                                        + np.abs(svt.lamy).max()),
              shift=t([0.0173]), bc_lo=rnd(ny, nx), bc_hi=rnd(ny, nx))
     # dsmag: the post-correction fill's edge stacks of the interiors (the
     # kernel's ghost recipes assume the channel's walls), a periodic lower
@@ -249,12 +279,18 @@ def call(name, d, twin=False, variant=None, has_ruo=True, zrec=None):
     from cales_torch.ops import kernels as K
     from cales_torch.ops import solve_kernels as SK
     mod = SK if name in SK.LAUNCHES else K
-    fn = getattr(mod, f'{name}_plain' if twin else name)
+    # the wrapper of each launch-count name
+    base = {'thomas_periodic': 'thomas_periodic_z'}.get(name, name)
+    fn = getattr(mod, f'{base}_plain' if twin else base)
     ywall = variant == 'duct'
     if name == 'mom_rk':
         r = (d['ruo'], d['rvo'], d['rwo']) if has_ruo else (None,) * 3
-        dns = variant == 'dns'      # no visct, split '1d' + CN fold
-        split = '1d' if variant in ('dns', 'les_split') else None
+        # dns: no visct, split '1d' + CN fold; les_split: visct, '1d';
+        # xyz: no visct, the full-3D split 'xy+z' (the triperiodic and
+        # channel DNS with full-3D implicit diffusion); les_xyz: visct, 'xy+z'
+        dns = variant in ('dns', 'xyz')
+        split = {'dns': '1d', 'les_split': '1d', 'xyz': 'xy+z',
+                 'les_xyz': 'xy+z'}.get(variant)
         out = list(fn(d['u'], d['v'], d['w'], None if dns else d['s'],
                       d['p'], d['ue'], d['ve'], d['we'],
                       None if dns else d['se'], d['pe'], *r, d['dzci'],
@@ -293,7 +329,8 @@ def call(name, d, twin=False, variant=None, has_ruo=True, zrec=None):
         out = fn(d['u'], d['v'], d['w'], d['pp'], d['p'], d['we'], d['ppe'],
                  0.01, d['dxi'], d['dyi'], d['dzci'], d['dzfi'],
                  None if imp else d['fuv'], alpha=-0.013 if imp else 0.0,
-                 impdiff=imp, impdiff_1d=imp, **ykw)
+                 impdiff=imp, impdiff_1d=imp and variant != 'impdiff',
+                 **ykw)
         return dict(zip(('u', 'v', 'w', 'p'), out))
     if name == 'apply_y':
         return {'out': fn(d['u'], d['fy'],
@@ -306,9 +343,21 @@ def call(name, d, twin=False, variant=None, has_ruo=True, zrec=None):
         if variant == 'poisson':    # lam on the diagonal, singular lane pinned
             out = fn(d['u'], *d['abc_p'], lamy=d['lamy'], lamx=d['lamx'],
                      pin=True, tol=d['th_tol'])
+        elif variant == 'helmholtz3d':
+            # the full-3D w CN solve: rows and lam alpha-scaled, the tail
+            out = fn(d['u'], *d['abc_w'], lamy=d['lam_w3'][0],
+                     lamx=d['lam_w3'][1], alpha=ALPHA, n_solve=nz - 1)
         else:                       # the w CN solve of the DNS step
             out = fn(d['u'], *d['abc_w'], alpha=-0.021, shift=d['shift'],
                      bc_lo=d['bc_lo'], bc_hi=d['bc_hi'], n_solve=nz - 1)
+        return {'out': out}
+    if name == 'thomas_periodic':
+        if variant == 'poisson':    # the TGV's pressure z stage, pinned
+            out = fn(d['u'], *d['abc_t'], lamy=d['lam_t'][0],
+                     lamx=d['lam_t'][1], pin=True, tol=d['th_tol_t'])
+        else:                       # a full-3D CN solve on the box
+            out = fn(d['u'], *d['abc_t'], lamy=d['lam_t3'][0],
+                     lamx=d['lam_t3'][1], alpha=ALPHA)
         return {'out': out}
     zrec = zrec or (('D', 0.0, d['dz01'][0], 'D', 0.0, d['dz01'][1]),) * 2
     out = fn(d['u'], d['v'], d['w'], d['pp'], d['p'], d['ue'], d['ve'],
@@ -358,17 +407,20 @@ def time_ms(fn, n=10):
 # per-kernel variants held against the twins in phase 2; the first is the
 # one timed for the report in phase 2b
 VARIANTS = {
-    'mom_rk': ('les', 'dns', 'les_split', 'duct'), 'fillps': (None, 'duct'),
-    'correc_smag': (None,),
-    'correc_updatep': ('impdiff_1d', 'explicit', 'duct'),
+    'mom_rk': ('les', 'dns', 'les_split', 'duct', 'xyz', 'les_xyz'),
+    'fillps': (None, 'duct'), 'correc_smag': (None,),
+    'correc_updatep': ('impdiff_1d', 'explicit', 'duct', 'impdiff'),
     'apply_y': ('x_and_y', 'y_only'), 'z_eig': (None,),
-    'thomas_z': ('helmholtz', 'poisson'), 'smag': (None,),
+    'thomas_z': ('helmholtz', 'poisson', 'helmholtz3d'), 'smag': (None,),
     'dsmag': (None, 'duct', 'cavity'),
+    'thomas_periodic': ('poisson', 'helmholtz'),
 }
-# the report rows of the y-walled variants, by (kernel, variant)
-YWALL_ROW_OF = {kv: row for row, kv in YWALL_ROWS.items()}
+# the report rows of the other variants, by (kernel, variant)
+VARIANT_ROW_OF = {kv: row for row, kv in VARIANT_ROWS.items()}
 # bounded relative to the output's maximum: sums over many terms
-RELATIVE = ('apply_y', 'z_eig', 'thomas_z', 'dsmag')
+RELATIVE = ('apply_y', 'z_eig', 'thomas_z', 'dsmag', 'thomas_periodic')
+# the full-3D CN solves' alpha in the kernel inputs
+ALPHA = -0.043
 # (interior fields read, fields written, floating-point operations a cell)
 # of each kernel's timed variant, counted from its source (the solve
 # kernels' matrix products are added in work()).  dsmag counts what the
@@ -379,7 +431,13 @@ RELATIVE = ('apply_y', 'z_eig', 'thomas_z', 'dsmag')
 WORK = {'mom_rk': (8, 6, 230), 'fillps': (3, 1, 12),
         'correc_smag': (5, 5, 115), 'correc_updatep': (5, 4, 20),
         'apply_y': (1, 1, 0), 'z_eig': (1, 1, 3), 'thomas_z': (1, 1, 8),
-        'smag': (3, 1, 100), 'dsmag': (3, 1, 110 + 18 * 12 + 147)}
+        'smag': (3, 1, 100), 'dsmag': (3, 1, 110 + 18 * 12 + 147),
+        # the forward sweep's two right-hand sides (9), both
+        # back-substitutions (4), the last row and the combine (2)
+        'thomas_periodic': (1, 1, 15)}
+# variants whose reads or arithmetic differ from their kernel's first
+WORK_VARIANT = {('mom_rk', 'xyz'): (7, 6, 200),
+                ('correc_updatep', 'impdiff'): (5, 4, 34)}
 # kernels whose plain twin is a single library product (cuBLAS), timed as
 # the yardstick library_ms
 LIBRARY_TWIN = ('apply_y', 'z_eig')
@@ -402,7 +460,7 @@ def work(name, d, variant=None):
     kernels at 2 n^2 per line)."""
     nz, ny, nx = d['u'].shape
     cells = nx * ny * nz
-    nin, nout, per_cell = WORK[name]
+    nin, nout, per_cell = WORK_VARIANT.get((name, variant), WORK[name])
     nbytes = (nin + nout) * cells * d['u'].element_size()
     nbytes += sum(q.numel() * q.element_size()
                   for q in ystacks(name, d, variant))
@@ -455,7 +513,7 @@ def phase_kernels(dev, card):
             tag = f'{name}[{variant}]' if variant else name
             say(f'  {tag:<24s} kernel {ms:.3f} ms, plain twin {plain_ms:.3f} '
                 f'ms per call  [{card}]')
-            row = name if i == 0 else YWALL_ROW_OF.get((name, variant))
+            row = name if i == 0 else VARIANT_ROW_OF.get((name, variant))
             if row is not None:
                 bms, by = bound_ms(name, d, variant)
                 rows[row] = dict(
@@ -463,6 +521,13 @@ def phase_kernels(dev, card):
                     bound_ms=bms, bound_by=by,
                     library_ms=plain_ms if name in LIBRARY_TWIN else None)
                 say(f'  {tag:<24s} bound {bms:.3f} ms ({by})')
+                if name == 'thomas_periodic':
+                    # with the two scratch fields (c zfac and p2) each
+                    # written and read once
+                    nb = work(name, d, variant)[0]
+                    nb += 4 * d['u'].numel() * d['u'].element_size()
+                    say(f'  {tag:<24s} bound with its scratch fields '
+                        f'{nb / PEAK_BPS * 1e3:.3f} ms (bytes)')
             torch.cuda.empty_cache()
     return rows
 
@@ -502,13 +567,13 @@ def phase_cli(card, tag='phase 3', example='turbulent_channel_les',
         require((Path(tmp) / 'fld.bin').exists(), 'no fld.bin written')
 
 
-def drive(tag, cfg, dev, card, nsteps, per_step, ntime=30):
+def drive(tag, cfg, dev, card, nsteps, per_step, ntime=30, hooks=None):
     """driver.run on cfg for nsteps steps with every launch count set to 0
     just before and read just after (each kernel of per_step must have
     launched exactly per_step[name] times a step, every other kernel
     never), then a timed loop of ntime steps; nu_t must be >= 0 and not
-    zero everywhere where an SGS model runs.  Returns (launches, result
-    dict)."""
+    zero everywhere where an SGS model runs, w 0 on z walls.  hooks: the
+    driver's output hooks.  Returns (sim, launches, result dict)."""
     from cales_torch import driver
     from cales_torch.ops.stencil import bulk_mean
     nx, ny, nz = cfg.ng
@@ -518,7 +583,7 @@ def drive(tag, cfg, dev, card, nsteps, per_step, ntime=30):
         reset_counts()
         t0 = time.perf_counter()
         sim, state = driver.run(cfg, datadir=tmp, device=dev,
-                                max_steps=nsteps, verbose=False)
+                                max_steps=nsteps, verbose=False, hooks=hooks)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = counts()
@@ -555,11 +620,15 @@ def drive(tag, cfg, dev, card, nsteps, per_step, ntime=30):
     require(divmax <= small, f'{tag}: divmax {divmax:.3e} above {small:.3e}')
     if cfg.is_forced[0]:
         require(abs(ub - 1.0) <= 1e-4, f'{tag}: bulk u {ub:.7f}, want 1')
+    faces = {}
     if sim.ywalled:
         # no flow through the walls: v on both y walls (the kept lower
-        # face and the interior's last row) and w on both z walls
-        faces = {'v at y walls': (state.vlo[1][1:-1, 1:-1], state.v[:, -1]),
-                 'w at z walls': (state.vlo[2][1:-1, 1:-1], state.w[-1])}
+        # face and the interior's last row)
+        faces['v at y walls'] = (state.vlo[1][1:-1, 1:-1], state.v[:, -1])
+    if sim.have_zwalls:
+        # and w on both z walls
+        faces['w at z walls'] = (state.vlo[2][1:-1, 1:-1], state.w[-1])
+    if faces:
         for what, (lo, hi) in faces.items():
             worst = max(float(lo.abs().max()), float(hi.abs().max()))
             say(f'  max |{what}| {worst:.3e}')
@@ -654,6 +723,164 @@ def phase_ywalls(dev, card):
     return duct, cavity
 
 
+def _kinetic_energy(state):
+    """1/2 the mean of u^2 + v^2 + w^2 over the cells, float64 sums."""
+    return 0.5 * sum(float((q.double() ** 2).mean())
+                     for q in (state.u, state.v, state.w))
+
+
+def phase_tgv(dev, card):
+    """The Taylor-Green vortex of examples/taylor_green_vortex_3d at 512^3
+    f32 through driver.run: 'mat' (apply_y and the periodic Thomas z stage,
+    nz >= 384; phase 9), then the example's 'auto' route 'fft' (cuFFT and
+    the z eigen-matmuls; phase 9f), then the Poisson solve alone by both.
+    The kinetic energy starts at 1/8 and falls at every step."""
+    from cales_torch import poisson
+    from cales_torch.config import Config
+    from cales_torch.grid import make_grid_from_config
+    from cales_torch.initflow import initflow
+    cfg = Config(**TGV_CFG)
+    t0 = time.perf_counter()
+    u, v, w, _ = initflow(cfg, make_grid_from_config(cfg))
+    t_init = time.perf_counter() - t0
+    ke0 = 0.5 * float(np.mean(u ** 2) + np.mean(v ** 2) + np.mean(w ** 2))
+    del u, v, w
+    say(f'phase 9: the Taylor-Green vortex at {cfg.ng}, initial kinetic '
+        f'energy {ke0:.9f}; the host-side numpy initial field took '
+        f'{t_init:.1f} s')
+    require(abs(ke0 - 0.125) <= 1e-6, f'TGV initial energy {ke0}, want 1/8')
+    sims, out = {}, {}
+    for route, tag, per_step in (
+            ('mat', 'phase 9: TGV, mat',
+             dict(mom_rk=3, fillps=3, apply_y=6, thomas_periodic=3,
+                  correc_updatep=3)),
+            ('fft', 'phase 9f: TGV, fft',
+             dict(mom_rk=3, fillps=3, correc_updatep=3))):
+        ke = []
+
+        def record(sim, state, istep, ke=ke):
+            ke.append(_kinetic_energy(state))
+        sim, launches, res = drive(
+            tag, cfg.replace(ptransform=route, iout1d=1), dev, card, 5,
+            per_step, ntime=10, hooks={'out1d': record})
+        say(f'  kinetic energy by step: {ke0:.9f} ' + ' '.join(
+            f'{e:.9f}' for e in ke))
+        require(len(ke) == 5 and all(b < a for a, b in zip([ke0] + ke, ke)),
+                f'{tag}: the kinetic energy does not fall at every step')
+        res['kinetic_energy'] = [ke0] + ke
+        sims[route], out[route] = sim, (launches, res)
+        print(json.dumps({f'tgv_{route}': res}), flush=True)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    rhs = torch.randn(tuple(cfg.ng[::-1]), generator=gen, device=dev)
+    rhs = rhs - rhs.mean()
+    times = {route: time_ms(lambda: poisson.solve(sim.solver_p, rhs), n=10)
+             for route, sim in sims.items()}
+    say(f'  Poisson solve at {cfg.ng} float32: mat {times["mat"]:.3f} ms, '
+        f'fft {times["fft"]:.3f} ms per solve (CUDA events)  [{card}]')
+    # each route's float32 solve against its own float64 solve (means
+    # removed): the periodic Thomas z stage against the z eigen-matmuls
+    for route, sim in sims.items():
+        p32 = poisson.solve(sim.solver_p, rhs).double()
+        p64 = poisson.solve(sim.solver_p, rhs.double())
+        p32, p64 = p32 - p32.mean(), p64 - p64.mean()
+        rel = float((p32 - p64).abs().max() / p64.abs().max())
+        say(f'  {route} solve, float32 against float64: max|err| / max|ref| '
+            f'{rel:.3e}  [{card}]')
+        del p32, p64
+    _tgv_solve_kernels(sims['mat'].solver_p, rhs, card)
+    return out['mat'][0]
+
+
+def _tgv_solve_kernels(sv, rhs, card):
+    """The 'mat' solve's kernels at the TGV's 512^3: apply_y at ny = nx =
+    512 against its twin; the pinned periodic Thomas z stage in float32
+    against its float64 twin on the same input (the singular lane's
+    tolerance must pin the (0, 0) lane and no other).  The bound 1e-3:
+    the sweep's float32 error grows with the reduced z system's condition
+    number, ~(2 nz / pi)^2 ~ 1e5 at nz = 512, on the lanes of small lam
+    (1.345e-4 measured here on an NVIDIA H100 80GB HBM3)."""
+    from cales_torch import poisson
+    from cales_torch.ops import solve_kernels as SK
+    t = lambda a, dt=torch.float32: torch.as_tensor(  # noqa: E731
+        np.ascontiguousarray(a), dtype=dt, device=rhs.device)
+    fy, fxT = t(sv.try_.fwd_mat), t(sv.trx.fwd_mat.T)
+    got = SK.apply_y(rhs, fy, MxT=fxT)
+    ref = SK.apply_y_plain(rhs, fy, MxT=fxT)
+    err = float((got - ref).abs().max() / ref.abs().max())
+    ms = time_ms(lambda: SK.apply_y(rhs, fy, MxT=fxT))
+    plain = time_ms(lambda: SK.apply_y_plain(rhs, fy, MxT=fxT))
+    say(f'  apply_y at {tuple(rhs.shape)}: kernel {ms:.3f} ms, plain '
+        f'(cuBLAS) {plain:.3f} ms; max|err| / max|ref| {err:.3e} (bound '
+        f'1e-5)  [{card}]')
+    require(err <= 1e-5, f'apply_y at 512^3: {err:.3e}')
+    lamy, lamx = t(sv.lamy), t(sv.lamx)
+    tol = poisson._thomas_tol(sv.lamx, sv.lamy, torch.float32)
+    pinned = int(((lamx[None, :] + lamy[:, None]).abs() <= tol).sum())
+    lone = float((lamx[0] + lamy[0]).abs()) <= tol
+    say(f'  thomas_periodic pin tolerance {tol:.3e}: {pinned} lane(s) '
+        f'pinned, lane (0, 0) {"among them" if lone else "not pinned"}')
+    require(pinned == 1 and lone, 'the pin must take lane (0, 0) alone')
+    abc = tuple(t(q, torch.float64) for q in (sv.a, sv.b, sv.c))
+    got = SK.thomas_periodic_z(got, *abc, lamy=lamy, lamx=lamx, pin=True,
+                               tol=tol)
+    ref = SK.thomas_periodic_z_plain(
+        ref.double(), *abc, lamy=lamy.double(), lamx=lamx.double(), pin=True,
+        tol=tol).float()
+    diff = (got - ref).abs()
+    err = float(diff.max() / ref.abs().max())
+    lane = float((diff.amax(0) / ref.abs().amax(0).clamp_min(1e-30)).max())
+    say(f'  thomas_periodic float32 kernel against its float64 twin at '
+        f'{tuple(got.shape)}: max|err| / max|ref| {err:.3e}, worst lane '
+        f'(max over z of |err| / |ref|) {lane:.3e}  [{card}]')
+    require(err <= 1e-3, f'thomas_periodic f32 against f64: {err:.3e}')
+
+
+def phase_triperiodic(dev, card):
+    """bench.py's triperiodic_dns at 512x256x256 f32 'mat' (z_eig with
+    periodic z; phase 9b), the same with full-3D implicit diffusion (a
+    Helmholtz solve per component by apply_y and thomas_periodic; phase
+    9i), and the implicit-CN channel DNS with full-3D implicit diffusion
+    (thomas_z with the lam shift and w's tail row; phase 5f)."""
+    from cales_torch.config import Config
+    base = dict(mom_rk=3, fillps=3, correc_updatep=3)
+    sim, _, res = drive('phase 9b: triperiodic DNS', Config(**TRI_CFG),
+                        dev, card, 5, dict(base, apply_y=6, z_eig=3))
+    print(json.dumps({'triperiodic_dns': res}), flush=True)
+    # the z stage at nz = 256: z_eig (the rule's choice below nz = 384)
+    # against the periodic Thomas kernel on the same right-hand side
+    from cales_torch import poisson
+    from cales_torch.grid import make_grid_from_config
+    cfg = Config(**TRI_CFG, zsolver='thomas')
+    svt = poisson.make_solver(cfg, make_grid_from_config(cfg),
+                              ('PP', 'PP', 'PP'), ('c', 'c', 'c'),
+                              zsolver='thomas')
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    rhs = torch.randn(tuple(cfg.ng[::-1]), generator=gen, device=dev)
+    rhs = rhs - rhs.mean()
+    sols, times = {}, {}
+    for zstage, sv in (('z_eig', sim.solver_p), ('thomas_periodic', svt)):
+        sols[zstage] = poisson.solve(sv, rhs)
+        sols[zstage] = sols[zstage] - sols[zstage].mean()
+        times[zstage] = time_ms(lambda: poisson.solve(sv, rhs), n=10)
+    rel = float((sols['z_eig'] - sols['thomas_periodic']).abs().max()
+                / sols['z_eig'].abs().max())
+    say(f'  Poisson solve at {cfg.ng} float32 by mat: z_eig '
+        f'{times["z_eig"]:.3f} ms, thomas_periodic '
+        f'{times["thomas_periodic"]:.3f} ms per solve; solutions apart by '
+        f'{rel:.3e} of their maximum (means removed)  [{card}]')
+    require(rel <= 1e-4, f'z_eig and thomas_periodic apart by {rel:.3e}')
+    _, tri3, res = drive('phase 9i: triperiodic DNS, full-3D implicit',
+                         Config(**TRI_CFG, impdiff=True), dev, card, 5,
+                         dict(base, apply_y=24, z_eig=3, thomas_periodic=9))
+    print(json.dumps({'triperiodic_dns_impdiff3d': res}), flush=True)
+    _, dns3, res = drive('phase 5f: channel DNS, full-3D implicit',
+                         Config(**{**DNS_CFG, 'impdiff_1d': False}), dev,
+                         card, 5, dict(base, apply_y=24, z_eig=3,
+                                       thomas_z=9))
+    print(json.dumps({'dns_impdiff3d': res}), flush=True)
+    return tri3, dns3
+
+
 def _card_vs_cpu(tag, cfg, dev, names, rel=()):
     from cales_torch.grid import make_grid_from_config
     from cales_torch.initflow import initflow
@@ -723,6 +950,18 @@ def phase_card_vs_cpu(dev):
         _card_vs_cpu(tag, Config(**{**cfg, **small}), dev,
                      (('u', 1e-11), ('v', 1e-11), ('w', 1e-11), ('p', 1e-10),
                       ('visct', 1e-10), ('vlo', 1e-11)), rel=('visct',))
+    # the Taylor-Green vortex by 'mat' with the periodic Thomas z stage and
+    # by 'fft', full-3D implicit diffusion on the box and the channel
+    uvwp = (('u', 1e-11), ('v', 1e-11), ('w', 1e-11), ('p', 1e-10))
+    tgv = dict(TGV_CFG, ng=(32, 16, 24), dtype='float64')
+    for tag, cfg in (('phase 6g (TGV, mat, thomas_periodic)',
+                      dict(tgv, zsolver='thomas')),
+                     ('phase 6h (TGV, fft)', dict(tgv, ptransform='fft')),
+                     ('phase 6i (triperiodic, full-3D implicit)',
+                      dict(tgv, impdiff=True)),
+                     ('phase 6j (channel DNS, full-3D implicit)',
+                      {**DNS_CFG, **small, 'impdiff_1d': False})):
+        _card_vs_cpu(tag, Config(**cfg), dev, uvwp)
 
 
 def main():
@@ -748,22 +987,31 @@ def main():
     phase_cli(card, tag='phase 3b', example='turbulent_duct_les', steps=10,
               kernels=('mom_rk', 'fillps', 'correc_updatep', 'dsmag',
                        'y-walled'))
+    phase_cli(card, tag='phase 3c', example='taylor_green_vortex_3d',
+              steps=3, kernels=('mom_rk', 'fillps', 'correc_updatep'))
     les = phase_les(dev, card)
     phase_dns(dev, card)
     dsm, les_imp = phase_dsmag(dev, card)
     duct, cavity = phase_ywalls(dev, card)
+    tgv = phase_tgv(dev, card)
+    tri3, dns3 = phase_triperiodic(dev, card)
     phase_card_vs_cpu(dev)
     # each kernel's launches on the main path that runs it: the dsmag
     # channel (5 steps), or the LES (31 steps) for correc_smag, or the
-    # smag + impdiff_1d LES (5 steps) for smag; the y-walled variants' on
-    # the duct (5 steps), the cavity's dsmag on the cavity (5 steps)
+    # smag + impdiff_1d LES (5 steps) for smag, or the TGV by 'mat' (5
+    # steps) for thomas_periodic; the y-walled variants' on the duct (5
+    # steps), the cavity's dsmag on the cavity (5 steps); the full-3D
+    # variants' on the triperiodic DNS with full-3D implicit diffusion (5
+    # steps), thomas_z's on the channel DNS with it (5 steps)
     paths = {name: (dsm, 5, name) for name in KERNELS}
     paths['correc_smag'] = (les, 31, 'correc_smag')
     paths['smag'] = (les_imp, 5, 'smag')
-    for row, (name, variant) in YWALL_ROWS.items():
-        paths[row] = (cavity if variant == 'cavity' else duct, 5, name)
+    paths['thomas_periodic'] = (tgv, 5, 'thomas_periodic')
+    variant_path = {'duct': duct, 'cavity': cavity, 'helmholtz3d': dns3}
+    for row, (name, variant) in VARIANT_ROWS.items():
+        paths[row] = (variant_path.get(variant, tri3), 5, name)
     sources = {**{n: KERNELS[n] for n in KERNELS},
-               **{row: KERNELS[n] for row, (n, _) in YWALL_ROWS.items()}}
+               **{row: KERNELS[n] for row, (n, _) in VARIANT_ROWS.items()}}
     report = {'kernels': [
         dict(name=row, route='cuda', source=sources[row][0],
              replaces=sources[row][1], launches=run[name],

@@ -1,8 +1,8 @@
 """cales_torch's CUDA kernels on the card: each against its plain twin, and
 the slices (channel LES, implicit-CN channel DNS, dynamic-Smagorinsky
-channel, static-Smagorinsky LES with impdiff_1d, and the y-walled duct and
-cavity) on the card against the same slices on the CPU, step for step,
-fp64.
+channel, static-Smagorinsky LES with impdiff_1d, the y-walled duct and
+cavity, the triperiodic Taylor-Green vortex and full-3D implicit diffusion)
+on the card against the same slices on the CPU, step for step, fp64.
 
 These tests need an NVIDIA GPU and skip without one.  The file imports
 neither jax nor cales_tpu, so it runs on a machine that has torch and the
@@ -197,7 +197,8 @@ def test_cuda_solve_kernels_match_twins_on_card(dev):
     _rel_close(SK.thomas_z(x, *abcw, **helm),
                SK.thomas_z_plain(x, *abcw, **helm), 1e-12)
     torch.cuda.synchronize()
-    assert SK.LAUNCHES == {'apply_y': 2, 'z_eig': 1, 'thomas_z': 2}
+    assert SK.LAUNCHES == {'apply_y': 2, 'z_eig': 1, 'thomas_z': 2,
+                           'thomas_periodic': 0}
 
 
 @pytest.mark.cuda
@@ -222,7 +223,8 @@ def test_card_matches_cpu_dns_step_for_step(dev):
     assert K.LAUNCHES == {'mom_rk': 9, 'fillps': 9, 'correc_smag': 0,
                           'correc_updatep': 9, 'smag': 0,
                           'dsmag': 0}
-    assert SK.LAUNCHES == {'apply_y': 18, 'z_eig': 9, 'thomas_z': 27}
+    assert SK.LAUNCHES == {'apply_y': 18, 'z_eig': 9, 'thomas_z': 27,
+                           'thomas_periodic': 0}
     g, c = states
     for name, tol in (('u', 1e-11), ('v', 1e-11), ('w', 1e-11), ('p', 1e-10)):
         a, b = getattr(g, name).cpu(), getattr(c, name)
@@ -478,3 +480,114 @@ def test_card_matches_cpu_ywalled_step_for_step(dev, case):
         assert float((g.vlo[m].cpu() - c.vlo[m]).abs().max()) <= 1e-11
     if case != 'duct_none':
         _rel_close(g.visct.cpu(), c.visct, 1e-10)
+
+
+@pytest.mark.cuda
+def test_cuda_triperiodic_kernels_match_twins_on_card(dev):
+    """thomas_periodic pinned (Poisson) and with the alpha-scaled rows and
+    shift (Helmholtz), mom_rk's 'xy+z' split with and without nu_t,
+    thomas_z's Helmholtz rows with the lam shift and the tail row, and
+    correc_updatep's full-3D alpha L(pp), at (nx, ny, nz) = (72, 40, 24)."""
+    from cales_torch import poisson
+    ng = (72, 40, 24)
+    nx, ny, nz = ng
+    cfg = Config(ng=ng, l=(2 * np.pi,) * 3, gtype=1, gr=0.0,
+                 dtype='float64', ptransform='mat')
+    grid = make_grid_from_config(cfg)
+    rng = np.random.default_rng(12)
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a, dtype=np.float64),
+                               device=dev)
+    F = lambda: t(0.05 * rng.standard_normal((nz, ny, nx)))   # noqa: E731
+    E = lambda: t(0.05 * rng.standard_normal((3, ny, nx)))    # noqa: E731
+    x = F()
+    SK.reset_launches()
+    K.reset_launches()
+    sv = poisson.make_solver(cfg, grid, ('PP', 'PP', 'PP'), ('c', 'c', 'c'))
+    abc = (t(sv.a), t(sv.b), t(sv.c))
+    alpha = -0.043
+    for kw in (dict(lamy=t(sv.lamy), lamx=t(sv.lamx), pin=True, tol=1e-9),
+               dict(lamy=t(sv.lamy * alpha), lamx=t(sv.lamx * alpha),
+                    alpha=alpha)):
+        got = SK.thomas_periodic_z(x, *abc, **kw)
+        _rel_close(got, SK.thomas_periodic_z_plain(x, *abc, **kw), 1e-12)
+    assert float(got.abs().max()) > 0
+    svw = poisson.make_solver(cfg.replace(gr=1.0), grid,
+                              ('PP', 'PP', 'DD'), ('c', 'c', 'f'))
+    abcw = (t(svw.a), t(svw.b), t(svw.c))
+    helm = dict(lamy=t(svw.lamy * alpha), lamx=t(svw.lamx * alpha),
+                alpha=alpha, n_solve=nz - 1)
+    _rel_close(SK.thomas_z(x, *abcw, **helm),
+               SK.thomas_z_plain(x, *abcw, **helm), 1e-12)
+    u, v, w, s, p, pp, ruo, rvo, rwo = (F() for _ in range(9))
+    s = s.abs()
+    ue, ve, we, se, pe, ppe = (E() for _ in range(6))
+    se = se.abs()
+    dxi, dyi = cfg.dli[0], cfg.dli[1]
+    dzci, dzfi = t(grid.dzci), t(grid.dzfi)
+    for visct in ((s, se), (None, None)):
+        mom = (u, v, w, visct[0], p, ue, ve, we, visct[1], pe, ruo, rvo,
+               rwo, dzci, dzfi, 5e-4, -2e-4, cfg.visc, dxi, dyi,
+               (0.1, 0.0, 0.0))
+        got = K.mom_rk(*mom, sums=(True, True), split='xy+z')
+        ref = K.mom_rk_plain(*mom, sums=(True, True), split='xy+z')
+        for g, q in zip(got[:6], ref[:6]):
+            torch.testing.assert_close(g, q, rtol=0, atol=1e-12)
+        for g, q in zip(got[6:], ref[6:]):
+            torch.testing.assert_close(g.sum(1), q[:, 0], rtol=0, atol=1e-11)
+    cu = (u, v, w, pp, p, we, ppe, 3.7e-3, dxi, dyi, dzci, dzfi, None,
+          -0.013, True, False)
+    for g, q in zip(K.correc_updatep(*cu), K.correc_updatep_plain(*cu)):
+        _rel_close(g, q, 1e-13)
+    torch.cuda.synchronize()
+    assert SK.LAUNCHES == {'apply_y': 0, 'z_eig': 0, 'thomas_z': 1,
+                           'thomas_periodic': 2}
+    assert K.LAUNCHES['mom_rk'] == 2 and K.LAUNCHES['correc_updatep'] == 1
+
+
+TRIPERIODIC = dict(l=(2 * np.pi,) * 3, gtype=1, gr=0.0, visci=1600.0,
+                   inivel='tgv', is_wallturb=False, sgstype='none',
+                   dtype='float64',
+                   cbcvel=((('P',) * 3,) * 3,) * 2, cbcpre=(('P',) * 3,) * 2,
+                   cbcsgs=(('P',) * 3,) * 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', ['tgv_mat_thomas', 'tgv_fft',
+                                  'tgv_impdiff', 'channel_impdiff'])
+def test_card_matches_cpu_triperiodic_step_for_step(dev, case):
+    """3 steps, fp64, card against CPU: the Taylor-Green vortex by 'mat'
+    with the periodic Thomas z stage and by 'fft'; full-3D implicit
+    diffusion on the triperiodic box ('mat') and on the channel DNS."""
+    cfg = Config(**{
+        'tgv_mat_thomas': dict(TRIPERIODIC, ng=(16, 16, 24), ptransform='mat',
+                               zsolver='thomas'),
+        'tgv_fft': dict(TRIPERIODIC, ng=(16, 16, 24), ptransform='fft'),
+        'tgv_impdiff': dict(TRIPERIODIC, ng=(16, 16, 24), ptransform='mat',
+                            impdiff=True),
+        'channel_impdiff': dict(
+            ng=(32, 16, 16), l=(2 * np.pi, np.pi, 2.0), gtype=1, gr=1.0,
+            visci=5640.0, inivel='log', is_wallturb=True,
+            is_forced=(True, False, False), velf=(1.0, 0.0, 0.0),
+            sgstype='none', impdiff=True, dtype='float64', ptransform='mat',
+            cbcsgs=(('P', 'P', 'D'), ('P', 'P', 'D')))}[case])
+    grid = make_grid_from_config(cfg)
+    fields = initflow(cfg, grid)
+    sims = [Simulation(cfg, grid, device=d) for d in (dev, 'cpu')]
+    states = [s.initial_state(*fields) for s in sims]
+    dt = sims[1].pick_dt(sims[1].check(states[1])[0])
+    SK.reset_launches()
+    for _ in range(3):
+        states = [s.step(st, dt)[0] for s, st in zip(sims, states)]
+    want = {'tgv_mat_thomas': dict(apply_y=18, thomas_periodic=9),
+            'tgv_fft': {},
+            'tgv_impdiff': dict(apply_y=72, z_eig=9, thomas_periodic=27),
+            'channel_impdiff': dict(apply_y=72, z_eig=9, thomas_z=27)}[case]
+    assert SK.LAUNCHES == {k: want.get(k, 0) for k in SK.LAUNCHES}
+    g, c = states
+    for name, tol in (('u', 1e-11), ('v', 1e-11), ('w', 1e-11), ('p', 1e-10)):
+        a, b = getattr(g, name).cpu(), getattr(c, name)
+        if name == 'p':
+            a, b = a - a.mean(), b - b.mean()
+        assert float((a - b).abs().max()) <= tol, name

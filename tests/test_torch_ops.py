@@ -280,16 +280,25 @@ def test_poisson_solve_matches_jax_and_residual():
 
 
 def test_poisson_outside_slice_raises():
-    """The full-3D Helmholtz solve (implicit diffusion without impdiff_1d)
-    is outside the slice, by either transform route."""
-    grid = make_grid_from_config(_cfg())
-    cbc = tuple(_cfg().cbc_pre(d) for d in range(3))
-    for ptransform in ('mat', 'fft'):
-        sv = tpoisson.make_solver(_cfg(ptransform=ptransform), grid, cbc,
-                                  ('c', 'c', 'c'))
-        with pytest.raises(NotImplementedError, match='full-3D Helmholtz'):
-            tpoisson.solve(sv, torch.zeros(NG[::-1], dtype=torch.float64),
-                           alpha=-0.1)
+    """Outside the slice, with or without alpha: the mixed route (an FFT
+    along x, the y-wall matrix along y) and transforms with an excluded
+    row (v face-staggered across y walls); the Poisson solve of a field
+    face-staggered across a z wall (qz = 1, only its Helmholtz solve
+    runs)."""
+    cfg = _cfg(ptransform='fft')
+    grid = make_grid_from_config(cfg)
+    zeros = torch.zeros(NG[::-1], dtype=torch.float64)
+    for cbc, c_or_f in ((('PP', 'NN', 'NN'), ('c', 'c', 'c')),
+                        (('PP', 'DD', 'DD'), ('c', 'f', 'c'))):
+        sv = tpoisson.make_solver(cfg, grid, cbc, c_or_f)
+        for alpha in (None, -0.1):
+            with pytest.raises(NotImplementedError, match='mixed kinds'):
+                tpoisson.solve(sv, zeros, alpha=alpha)
+    sv = tpoisson.make_solver(_cfg(ptransform='mat'), grid,
+                              ('PP', 'PP', 'DD'), ('c', 'c', 'f'))
+    with pytest.raises(NotImplementedError, match='face-staggered'):
+        tpoisson.solve(sv, zeros)
+    assert tpoisson.solve(sv, zeros, alpha=-0.1).shape == zeros.shape
 
 
 def test_add_rhs_bound_matches_jax():

@@ -55,6 +55,8 @@ DNS = dict(ng=(32, 16, 16), l=(2 * np.pi, np.pi, 2.0), gtype=1, gr=1.0,
 # validation/dsmag_channel.py:77-89 at a test size
 DSMAG = dict(DNS, l=(12.8, 4.8, 2.0), gr=5.0, visci=10_000.0, inivel='poi',
              sgstype='dsmag', dsmag_avg='channel')
+TRIPERIODIC = dict(cbcvel=((('P',) * 3,) * 3,) * 2, cbcpre=(('P',) * 3,) * 2,
+                   cbcsgs=(('P',) * 3,) * 2)
 
 
 def _sims(kw, use_pallas=False):
@@ -143,7 +145,10 @@ def test_exec_path_names_device_kernels_and_solve(pair):
 
 
 @pytest.mark.parametrize('change,missing', [
-    (dict(impdiff=True), 'full-3D implicit diffusion'),
+    (dict(impdiff=True, sgstype='none',
+          cbcvel=((('P', 'P', 'P'), ('D', 'D', 'D'), ('D', 'D', 'D')),) * 2,
+          cbcpre=(('P', 'N', 'N'),) * 2, cbcsgs=(('P', 'D', 'D'),) * 2),
+     'full-3D implicit diffusion'),
     (dict(lwm=((0, 0, 1), (0, 0, 1)), hwm=0.1), 'wall model'),
     (dict(sgstype='dsmag', dsmag_avg='duct', impdiff=True, impdiff_1d=True,
           cbcvel=((('P', 'P', 'P'), ('D', 'D', 'D'), ('D', 'D', 'D')),) * 2,
@@ -165,6 +170,13 @@ def test_exec_path_names_device_kernels_and_solve(pair):
     (dict(dims=(2, 1)), 'mesh'),
     (dict(cbcvel=(((('P',) * 3,) * 3),) * 2, cbcpre=(('P',) * 3,) * 2,
           cbcsgs=(('P',) * 3,) * 2, gr=0.0), 'triperiodic'),
+    (dict(sgstype='none', gr=0.0, is_forced=(False, False, True),
+          velf=(0.0, 0.0, 1.0), **TRIPERIODIC), 'along z'),
+    (dict(sgstype='dsmag', gr=0.0, **TRIPERIODIC), 'triperiodic'),
+    (dict(sgstype='none', cbcvel=((('P', 'P', 'P'), ('D', 'D', 'D'),
+                                   ('P', 'P', 'P')),) * 2,
+          cbcpre=(('P', 'N', 'P'),) * 2, cbcsgs=(('P', 'D', 'P'),) * 2),
+     'periodic z with y walls'),
 ])
 def test_configs_outside_the_slice_raise(change, missing):
     cfg = Config(**{**HEADLINE, **change})
@@ -183,10 +195,17 @@ def test_headline_config_is_in_the_slice():
     dict(impdiff=True, impdiff_1d=True, sgstype='none'),
     dict(sgstype='dsmag'), dict(sgstype='dsmag', impdiff=True,
                                 impdiff_1d=True),
-    dict(impdiff=True, impdiff_1d=True)])
+    dict(impdiff=True, impdiff_1d=True),
+    dict(impdiff=True), dict(impdiff=True, sgstype='none'),
+    dict(impdiff=True, sgstype='dsmag'),
+    dict(sgstype='none', gr=0.0, is_forced=(False,) * 3, **TRIPERIODIC),
+    dict(sgstype='none', gr=0.0, impdiff=True, **TRIPERIODIC),
+    dict(sgstype='none', gr=0.0, impdiff=True, impdiff_1d=True,
+         **TRIPERIODIC)])
 def test_configs_inside_the_slice_build(change):
-    """Configurations the implicit-CN and the SGS slices brought in: no
-    refusal, and the Simulation builds."""
+    """Configurations the implicit-CN, the SGS and the triperiodic slices
+    brought in (full-3D implicit diffusion on the channel, the triperiodic
+    DNS explicit or implicit): no refusal, and the Simulation builds."""
     cfg = Config(**{**HEADLINE, **change})
     assert unsupported(cfg) == []
     Simulation(cfg, make_grid_from_config(cfg), device='cpu')
