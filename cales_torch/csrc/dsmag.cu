@@ -44,6 +44,8 @@
 // YW) the velocity's rows -1, ny-1 and ny load from the y-row stacks, and
 // one pass after stage A writes plane t's y ghost rows of A and F by
 // their recipes, so stage C reads the same code as without walls.
+// The load, stage A, the filter and A's y fix are dsmag_common.cuh's,
+// shared with dsmag_level1.cu (the grid level of the two passes).
 // Nothing but |S| (or nu_t) and the partial sums goes to global memory.  x wraps when a plane is loaded,
 // and so does y without y walls; a ragged tile's outside cells are
 // computed on wrapped data and left out of the output and the sums.
@@ -66,17 +68,10 @@
 // each quantity with 27 shared-memory reads per centre cell (52
 // operations, nothing shared between neighbours) and recomputes A and F on
 // the halo of every tile; sharing the x and y passes is later work.
-#include "common.cuh"
+#include "dsmag_common.cuh"
 
 namespace cales {
 
-constexpr int DS_TY = 8, DS_TX = 32;           // the centre tile (y, x)
-constexpr int DS_NT = DS_TY * DS_TX;           // one thread per centre cell
-constexpr int DS_VY = DS_TY + 4, DS_VX = DS_TX + 4;   // velocity, halo 2
-constexpr int DS_AY = DS_TY + 2, DS_AX = DS_TX + 2;   // A and F, halo 1
-constexpr int DS_VPL = DS_VY * DS_VX, DS_APL = DS_AY * DS_AX;
-constexpr int DS_NA = 16;                      // A quantities
-static_assert(DS_NT == CALES_THREADS, "block_sum assumes CALES_THREADS");
 static_assert(DS_TX == 32, "'duct' sums a tile row as one warp");
 enum { DS_CHANNEL = 0, DS_DUCT = 1, DS_CAVITY = 2 };
 
@@ -84,39 +79,6 @@ template <typename T>
 constexpr size_t dsmag_smem_bytes() {
   return sizeof(T) * (9 * DS_VPL + 3 * DS_NA * DS_APL + 9 * DS_APL);
 }
-
-__device__ __forceinline__ int ring(int kz) { return (kz + 3) % 3; }
-
-__device__ __forceinline__ int wrap(int q, int n) {
-  q %= n;
-  return q < 0 ? q + n : q;
-}
-
-// The separable 27-point filter of f(dk, dj, di) in the order of
-// stencil.filter3d: x passes, then y, then z.
-template <typename T, class F>
-__device__ __forceinline__ T filter27(const F& f) {
-  const T q = T(0.25), two = T(2);
-  T zq[3];
-#pragma unroll
-  for (int dk = -1; dk <= 1; ++dk) {
-    T yq[3];
-#pragma unroll
-    for (int dj = -1; dj <= 1; ++dj)
-      yq[dj + 1] = q * (f(dk, dj, -1) + two * f(dk, dj, 0) + f(dk, dj, 1));
-    zq[dk + 1] = q * (yq[0] + two * yq[1] + yq[2]);
-  }
-  return q * (zq[0] + two * zq[1] + zq[2]);
-}
-
-// The y-wall inputs and recipes of one call: y-row stacks of the velocity
-// (null without y walls) and the filtered fill's 'D' offsets 2b of u and w
-// on the lower and upper y walls.
-template <typename T>
-struct DsYWalls {
-  YRows<T> vel[3];
-  T off_lo[3], off_hi[3];   // index 1 (v) unused: v's fill is 0
-};
 
 template <typename T, bool YW, int AVG>
 __global__ void __launch_bounds__(DS_NT) dsmag_kernel(
@@ -139,7 +101,7 @@ __global__ void __launch_bounds__(DS_NT) dsmag_kernel(
   const int64_t plane = static_cast<int64_t>(ny) * nx;
   const T* const fld[3] = {u, v, w};
   const T* const edg[3] = {ue, ve, we};
-  const T two = T(2), half = T(0.5);
+  const T two = T(2);
   const T szlo = wall_lo ? T(-1) : T(1), szhi = wall_hi ? T(-1) : T(1);
   const T zofflo[2] = {zoff_lo_u, zoff_lo_v};
   const T zoffhi[2] = {zoff_hi_u, zoff_hi_v};
@@ -150,25 +112,8 @@ __global__ void __launch_bounds__(DS_NT) dsmag_kernel(
   };
   auto fvel = [&](int kz, int c) { return Fs + (ring(kz) * 3 + c) * DS_APL; };
 
-  // velocity plane kz (-1 .. nz, ghost rows from the edge stacks) on the
-  // tile + halo 2, x wrapped; y wrapped, or with y walls the rows -1, ny-1
-  // and ny from the y-row stacks
-  auto load = [&](int kz) {
-    for (int c = 0; c < 3; ++c) {
-      const T* row = zrow(fld[c], edg[c], kz, nz, plane);
-      T* dst = vel(kz, c);
-      for (int e = tid; e < DS_VPL; e += DS_NT) {
-        const int ly = e / DS_VX, lx = e - ly * DS_VX;
-        const int y = y0 - 2 + ly, x = wrap(x0 - 2 + lx, nx);
-        if (YW && (y == -1 || y == ny - 1 || y == ny)) {
-          dst[e] = __ldg(yrow(yw.vel[c], kz, y < 0 ? 0 : y - ny + 2, nz, nx) +
-                         x);
-        } else {
-          dst[e] = __ldg(row + static_cast<int64_t>(wrap(y, ny)) * nx + x);
-        }
-      }
-    }
-  };
+  const DsTile g{x0, y0, nz, ny, nx, tid, plane};
+  auto load = [&](int kz) { ds_load<T, YW>(vel, fld, edg, yw, g, kz); };
 
   // stage A and the filtered velocity at plane t on the tile + halo 1
   auto stage_a = [&](int t) {
@@ -179,81 +124,26 @@ __global__ void __launch_bounds__(DS_NT) dsmag_kernel(
       const int ay = e / DS_AX, ax = e - ay * DS_AX;
       const int gy = y0 - 1 + ay;
       const int vo = (ay + 1) * DS_VX + ax + 1;
-      auto U = [&](int dk, int dj, int di) {
-        return vel(t + dk, 0)[vo + dj * DS_VX + di];
-      };
-      auto V = [&](int dk, int dj, int di) {
-        return vel(t + dk, 1)[vo + dj * DS_VX + di];
-      };
-      auto W = [&](int dk, int dj, int di) {
-        return vel(t + dk, 2)[vo + dj * DS_VX + di];
-      };
-      T sij[6];
-      const T s0 = strain_rate<T>(U, V, W, dxi, dyi, dzci_c, dzci_m, dzfi_c,
-                                  sij);
-      const T uc = half * (U(0, 0, 0) + U(0, 0, -1));
-      const T vc = half * (V(0, 0, 0) + V(0, -1, 0));
-      const T wc = half * (W(0, 0, 0) + W(-1, 0, 0));
-      const T a[DS_NA] = {s0 * sij[0], s0 * sij[1], s0 * sij[2],
-                          s0 * sij[3], s0 * sij[4], s0 * sij[5],
-                          uc,          vc,          wc,
-                          uc * uc,     vc * vc,     wc * wc,
-                          uc * vc,     uc * wc,     vc * wc,
-                          s0};
+      ds_source<T>(vel, src, t, e, vo, dxi, dyi, dzci_c, dzci_m, dzfi_c);
 #pragma unroll
-      for (int q = 0; q < DS_NA; ++q) src(t, q)[e] = a[q];
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        const T* pm = vel(t - 1, c);
-        const T* pc = vel(t, c);
-        const T* pp = vel(t + 1, c);
-        const bool lo = c < 2 && ext_lo, hi = c < 2 && ext_hi;
-        // the velocity at (t+dk, offset o), z ghosts extrapolated
-        auto zval = [&](int dk, int o) -> T {
-          if (dk < 0) return lo ? two * pc[o] - pp[o] : pm[o];
-          if (dk > 0) return hi ? two * pc[o] - pm[o] : pp[o];
-          return pc[o];
-        };
-        if (YW && c != 1 && (gy <= 0 || gy >= ny - 1)) {
-          // u's and w's y ghost rows extrapolated at the y walls
-          fvel(t, c)[e] = filter27<T>([&](int dk, int dj, int di) -> T {
-            const int o = vo + dj * DS_VX + di, y = gy + dj;
-            if (y < 0)
-              return two * zval(dk, o + DS_VX) - zval(dk, o + 2 * DS_VX);
-            if (y >= ny)
-              return two * zval(dk, o - DS_VX) - zval(dk, o - 2 * DS_VX);
-            return zval(dk, o);
-          });
-        } else {
-          fvel(t, c)[e] = filter27<T>([&](int dk, int dj, int di) -> T {
-            return zval(dk, vo + dj * DS_VX + di);
-          });
-        }
-      }
+      for (int c = 0; c < 3; ++c)
+        fvel(t, c)[e] = ds_fvel<T, YW>(vel, t, c, vo, gy, ny, ext_lo, ext_hi);
     }
     if (YW && (y0 == 0 || y0 >= ny - DS_TY - 1)) {
-      // plane t's y ghost rows, y = -1 and ny (tile rows rlo and rhi,
-      // in the first and last tile rows only):
-      // A's are the extrapolation of A (pallas_dsmag.py:941-949); the
+      // plane t's y ghost rows, y = -1 and ny (tile rows rlo and rhi, in
+      // the first and last tile rows only): A's by ds_fix_src_y; the
       // filtered u's and w's the fill -F(first row) + 2b, the filtered v's
       // 0, as is its rewrite row y = ny-1 (pallas_dsmag.py:1057-1071), so
       // stage C reads the filled rows as they are
       __syncthreads();
+      ds_fix_src_y<T>(src, t, y0, ny, tid);
       const int rlo = -y0, rhi = ny - y0 + 1;
-      constexpr int nfix = DS_NA - 1 + 3;    // A's 15 filtered + F's 3
-      for (int e = tid; e < 2 * nfix * DS_AX; e += DS_NT) {
-        const int side = e / (nfix * DS_AX);
-        const int rest = e - side * nfix * DS_AX;
-        const int q = rest / DS_AX, ax = rest - q * DS_AX;
+      for (int e = tid; e < 2 * 3 * DS_AX; e += DS_NT) {
+        const int side = e / (3 * DS_AX);
+        const int rest = e - side * 3 * DS_AX;
+        const int c = rest / DS_AX, ax = rest - c * DS_AX;
         const int ay = side == 0 ? rlo : rhi;
         const int in = side == 0 ? DS_AX : -DS_AX;
-        if (q < DS_NA - 1) {
-          if (ay < 0 || ay >= DS_AY) continue;
-          T* a = src(t, q) + ay * DS_AX + ax;
-          a[0] = two * a[in] - a[2 * in];
-          continue;
-        }
-        const int c = q - (DS_NA - 1);
         if (c == 1) {
           // v: the lower wall face and the rewrite row (one row below rhi)
           const int r = side == 0 ? rlo : rhi - 1;
@@ -273,24 +163,8 @@ __global__ void __launch_bounds__(DS_NT) dsmag_kernel(
   const int yc = y0 + cy;
   const bool inside = yc < ny && x0 + cx < nx;
   auto stage_c = [&](int kc) {
-    // A quantity q at row kz in kc-1 .. kc+1, z ghosts extrapolated at walls
-    auto a_at = [&](int q, int kz, int o) -> T {
-      if (kz < 0) {
-        const T a0 = src(0, q)[o];
-        return wall_lo ? two * a0 - src(1, q)[o] : a0;
-      }
-      if (kz >= nz) {
-        const T a0 = src(nz - 1, q)[o];
-        return wall_hi ? two * a0 - src(nz - 2, q)[o] : a0;
-      }
-      return src(kz, q)[o];
-    };
-    T fq[15];
-#pragma unroll 1
-    for (int q = 0; q < 15; ++q)
-      fq[q] = filter27<T>([&](int dk, int dj, int di) {
-        return a_at(q, kc + dk, ao + dj * DS_AX + di);
-      });
+    T fq[DS_NA - 1];
+    ds_filtered<T>(src, kc, ao, nz, wall_lo, wall_hi, fq);
     // the filtered velocity with its z fill (bounduvw, static planes; the
     // y fill is in the ring already)
     auto FU = [&](int c, int dk, int dj, int di) -> T {

@@ -1,0 +1,194 @@
+// Dynamic Smagorinsky, the test level of the two passes (DS2).
+//
+// Replaces: cales_tpu/ops/pallas_dsmag.py fused_dsmag_level2 (body
+// _ds2_kernel) on the single-device path, with its three averages
+// (sgs.f90:198-272, ave1d_channel 433-538, ave2d_duct 540-614).  Per cell:
+// the test-level strain S~_ij, |S~| of the filtered velocity fvel, read
+// with its BC fill (the static planes: z-edge stacks, with y walls the
+// y-row stacks, whose rows carry the wall-normal face values of
+// transpiring walls), then in registers
+//   M_ij = 2 (fm_ij - alpha^2 |S~| S~_ij), alpha^2 = alph2[k], 2.52 on the
+//          first and last y rows with y walls;
+//   num = M_ij L_ij, den = M_ij M_ij (off-diagonal pairs twice);
+// and the output by average:
+//   'channel'  per (z row, block) partial sums of num and den;
+//   'duct'     per (z, y) row and x block of 32 (one warp) partial sums;
+//   'cavity'   nu_t = max(|S| num / den, 0).
+// The caller sums the partials and forms nu_t = max(|S| ratio, 0).  Plain
+// twin: cales_torch/ops/kernels dsmag_level2_plain.
+//
+// Design: one thread per output cell, as smag.cu; the strain is
+// common.cuh's on the y-walled accessor at<YW> (rows that read a y-wall row
+// take the branch, common.cuh y_edge).  A block is 8 warps, each warp 32
+// consecutive x of one y row, so a warp's cells share their (z, y) row for
+// the 'duct' shuffle; blockIdx.y is the z plane.
+//
+// Bound on the H100: bytes.  It reads fvel (3), fm (6), lij (6) and s0: 16
+// field streams, 2.15 GB at 512x256x256 f32, 0.641 ms at 3.35 TB/s (17,
+// 0.681 ms, with 'cavity''s nu_t written).  About 147 operations a cell
+// (the strain's 92 + M_ij and the contraction), 0.074 ms at 67 TFLOP/s.
+// The stencil's neighbour reads go to L1/L2.
+#include "common.cuh"
+
+namespace cales {
+
+enum { DS2_CHANNEL = 0, DS2_DUCT = 1, DS2_CAVITY = 2 };
+
+// the 13 per-cell inputs of dsmag_level1: fm[6], lij[6], s0
+template <typename T>
+struct Ds2In {
+  const T* fm[6];
+  const T* lij[6];
+  const T* s0;
+};
+
+template <typename T, bool YW, int AVG>
+__global__ void __launch_bounds__(CALES_THREADS) dsmag_level2_kernel(
+    const T* __restrict__ fu, const T* __restrict__ fv,
+    const T* __restrict__ fw, const T* __restrict__ fue,
+    const T* __restrict__ fve, const T* __restrict__ fwe, Ds2In<T> in,
+    const T* __restrict__ alph2, const T* __restrict__ dzci,
+    const T* __restrict__ dzfi, T* __restrict__ numo, T* __restrict__ deno,
+    YRows<T> yu, YRows<T> yv, YRows<T> yw, int nz, int ny, int nx, T dxi,
+    T dyi) {
+  const int k = blockIdx.y;
+  const int gx = (nx + 31) / 32;
+  const int lane = threadIdx.x & 31;
+  const int64_t row =
+      (static_cast<int64_t>(blockIdx.x) * CALES_THREADS + threadIdx.x) >> 5;
+  const int j = static_cast<int>(row / gx);
+  const int xb = static_cast<int>(row - static_cast<int64_t>(j) * gx);
+  const int i = xb * 32 + lane;
+  const bool inside = j < ny && i < nx;
+  const T two = T(2);
+  T num = T(0), den = T(0);
+  if (inside) {
+    const int64_t plane = static_cast<int64_t>(ny) * nx;
+    const int64_t idx = static_cast<int64_t>(j) * nx + i;
+    const Cell c(k, idx, nz, ny, nx);
+    T sf[6];
+    auto strain = [&](auto ytag) {
+      constexpr bool Y = decltype(ytag)::value;
+      return strain_rate<T>(
+          [&](int dk, int dj, int di) {
+            return at<Y>(fu, fue, yu, c, dk, dj, di);
+          },
+          [&](int dk, int dj, int di) {
+            return at<Y>(fv, fve, yv, c, dk, dj, di);
+          },
+          [&](int dk, int dj, int di) {
+            return at<Y>(fw, fwe, yw, c, dk, dj, di);
+          },
+          dxi, dyi, dzci[k + 1], dzci[k], dzfi[k + 1], sf);
+    };
+    T s0f;
+    if constexpr (YW) {
+      s0f = y_edge(j, ny) ? strain(std::true_type{})
+                          : strain(std::false_type{});
+    } else {
+      s0f = strain(std::false_type{});
+    }
+    const T a2 = (YW && (j == 0 || j == ny - 1)) ? T(2.52) : alph2[k];
+    const int64_t o = static_cast<int64_t>(k) * plane + idx;
+    T m[6], l[6];
+#pragma unroll
+    for (int q = 0; q < 6; ++q) {
+      m[q] = two * (__ldg(in.fm[q] + o) - a2 * s0f * sf[q]);
+      l[q] = __ldg(in.lij[q] + o);
+    }
+    num = m[0] * l[0] + m[1] * l[1] + m[2] * l[2] +
+          two * (m[3] * l[3] + m[4] * l[4] + m[5] * l[5]);
+    den = m[0] * m[0] + m[1] * m[1] + m[2] * m[2] +
+          two * (m[3] * m[3] + m[4] * m[4] + m[5] * m[5]);
+    if constexpr (AVG == DS2_CAVITY) {
+      // nu_t = max(|S| num / den, 0); a NaN passes, as in max(x, 0.0)
+      const T r = __ldg(in.s0 + o) * num / den;
+      numo[o] = r < T(0) ? T(0) : r;
+    }
+  }
+  if constexpr (AVG == DS2_DUCT) {
+    // the warp is the (z, y) row's x block
+    for (int off = 16; off > 0; off >>= 1) {
+      num += __shfl_down_sync(0xffffffffu, num, off);
+      den += __shfl_down_sync(0xffffffffu, den, off);
+    }
+    if (lane == 0 && j < ny) {
+      const int64_t r = (static_cast<int64_t>(k) * ny + j) * gx + xb;
+      numo[r] = num;
+      deno[r] = den;
+    }
+  } else if constexpr (AVG == DS2_CHANNEL) {
+    const T ns = block_sum(num);
+    const T ds = block_sum(den);
+    if (threadIdx.x == 0) {
+      numo[static_cast<int64_t>(k) * gridDim.x + blockIdx.x] = ns;
+      deno[static_cast<int64_t>(k) * gridDim.x + blockIdx.x] = ds;
+    }
+  }
+}
+
+template <typename T, bool YW>
+auto pick_dsmag_level2(int avg) {
+  return avg == DS2_DUCT     ? &dsmag_level2_kernel<T, YW, DS2_DUCT>
+         : avg == DS2_CAVITY ? &dsmag_level2_kernel<T, YW, DS2_CAVITY>
+                             : &dsmag_level2_kernel<T, YW, DS2_CHANNEL>;
+}
+
+// q: fm[6], lij[6], s0; y: the y-row stacks and corners of the filtered
+// u, v, w (6 pointers), all null without y walls; avg: DS2_CHANNEL,
+// DS2_DUCT or DS2_CAVITY (nu_t into numo, deno unused).
+template <typename T>
+int launch_dsmag_level2(const T* fu, const T* fv, const T* fw, const T* fue,
+                        const T* fve, const T* fwe, const T* const* q,
+                        const T* alph2, const T* dzci, const T* dzfi,
+                        T* numo, T* deno, const T* const* y, int nz, int ny,
+                        int nx, int avg, double dxi, double dyi,
+                        void* stream) {
+  const bool ywall = y[0] != nullptr;
+  if (nz < 2 || (ywall && ny < 4) || avg < DS2_CHANNEL || avg > DS2_CAVITY)
+    return static_cast<int>(cudaErrorInvalidValue);
+  for (int m = 0; m < 6; ++m)
+    if (ywall != (y[m] != nullptr))
+      return static_cast<int>(cudaErrorInvalidValue);
+  Ds2In<T> in{};
+  for (int m = 0; m < 6; ++m) {
+    in.fm[m] = q[m];
+    in.lij[m] = q[6 + m];
+  }
+  in.s0 = q[12];
+  const int64_t slots = static_cast<int64_t>(ny) * ((nx + 31) / 32) * 32;
+  const dim3 grid(static_cast<unsigned>((slots + CALES_THREADS - 1) /
+                                        CALES_THREADS),
+                  static_cast<unsigned>(nz), 1);
+  auto kern = ywall ? pick_dsmag_level2<T, true>(avg)
+                    : pick_dsmag_level2<T, false>(avg);
+  kern<<<grid, CALES_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      fu, fv, fw, fue, fve, fwe, in, alph2, dzci, dzfi, numo, deno,
+      YRows<T>{y[0], y[1]}, YRows<T>{y[2], y[3]}, YRows<T>{y[4], y[5]}, nz,
+      ny, nx, T(dxi), T(dyi));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace cales
+
+#define CALES_DSMAG_LEVEL2_ENTRY(NAME, T)                                    \
+  extern "C" int NAME(const T* fu, const T* fv, const T* fw, const T* fue,   \
+                      const T* fve, const T* fwe, const T* fm0,              \
+                      const T* fm1, const T* fm2, const T* fm3,              \
+                      const T* fm4, const T* fm5, const T* l0, const T* l1,  \
+                      const T* l2, const T* l3, const T* l4, const T* l5,    \
+                      const T* s0, const T* alph2, const T* dzci,            \
+                      const T* dzfi, T* numo, T* deno, const T* yur,         \
+                      const T* yuc, const T* yvr, const T* yvc,              \
+                      const T* ywr, const T* ywc, int nz, int ny, int nx,    \
+                      int avg, double dxi, double dyi, void* stream) {       \
+    const T* const q[13] = {fm0, fm1, fm2, fm3, fm4, fm5, l0,                \
+                            l1,  l2,  l3,  l4,  l5,  s0};                    \
+    const T* const y[6] = {yur, yuc, yvr, yvc, ywr, ywc};                    \
+    return cales::launch_dsmag_level2<T>(fu, fv, fw, fue, fve, fwe, q,       \
+                                         alph2, dzci, dzfi, numo, deno, y,   \
+                                         nz, ny, nx, avg, dxi, dyi, stream); \
+  }
+
+CALES_DSMAG_LEVEL2_ENTRY(cales_dsmag_level2_f32, float)
+CALES_DSMAG_LEVEL2_ENTRY(cales_dsmag_level2_f64, double)

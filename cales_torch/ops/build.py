@@ -46,16 +46,18 @@ _SIGNATURES = {
     'cales_thomas_periodic': [_P] * 9 + [_I] * 4 + [_D, _I, _D] + [_P],
     'cales_smag': [_P] * 14 + [_I] * 4 + [_D] * 3 + [_P],
     'cales_dsmag': [_P] * 18 + [_I] * 6 + [_D] * 10 + [_P],
+    'cales_dsmag_level1': [_P] * 15 + [_I] * 5 + [_D] * 2 + [_P],
+    'cales_dsmag_level2': [_P] * 30 + [_I] * 4 + [_D] * 2 + [_P],
 }
 
 
-def sources():
-    return sorted(CSRC.glob('*.cu')) + sorted(CSRC.glob('*.cuh'))
+def sources(csrc=CSRC):
+    return sorted(csrc.glob('*.cu')) + sorted(csrc.glob('*.cuh'))
 
 
-def source_hash() -> str:
+def source_hash(csrc=CSRC) -> str:
     h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
-    for f in sources():
+    for f in sources(csrc):
         h.update(f.name.encode())
         h.update(f.read_bytes())
     return h.hexdigest()[:16]
@@ -74,10 +76,11 @@ def nvcc_path() -> str:
                        'CUDA toolkit')
 
 
-def build(verbose: bool = False) -> Path:
-    """Compile the library if this source hash has no build yet; returns
-    its path.  verbose prints nvcc's register/spill report."""
-    out_dir = BUILD_ROOT / source_hash()
+def build(verbose: bool = False, csrc=CSRC, root=BUILD_ROOT) -> Path:
+    """Compile the library of the sources in csrc if their hash has no
+    build under root yet; returns its path.  verbose prints nvcc's
+    register/spill report."""
+    out_dir = root / source_hash(csrc)
     lib = out_dir / LIBNAME
     if lib.exists():
         return lib
@@ -88,9 +91,9 @@ def build(verbose: bool = False) -> Path:
     try:
         # one nvcc per source, all running at once
         jobs = []
-        for src in sorted(CSRC.glob('*.cu')):
+        for src in sorted(csrc.glob('*.cu')):
             obj = work / (src.stem + '.o')
-            cmd = [nvcc, *NVCC_FLAGS, f'-I{CSRC}', '-c', str(src), '-o',
+            cmd = [nvcc, *NVCC_FLAGS, f'-I{csrc}', '-c', str(src), '-o',
                    str(obj)]
             if verbose:
                 cmd[1:1] = ['-Xptxas', '-v']
@@ -124,15 +127,23 @@ def build(verbose: bool = False) -> Path:
     return lib
 
 
+def open_library(path) -> ctypes.CDLL:
+    """A built kernel library with the argtypes of the entries it has (a
+    build of other sources may lack some)."""
+    lib = ctypes.CDLL(str(path))
+    for base, argtypes in _SIGNATURES.items():
+        for suffix in ('f32', 'f64'):
+            fn = getattr(lib, f'{base}_{suffix}', None)
+            if fn is not None:
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+    return lib
+
+
 @functools.cache
 def load() -> ctypes.CDLL:
     """The loaded kernel library (built at first use), with argtypes set."""
-    lib = ctypes.CDLL(str(build()))
-    for base, argtypes in _SIGNATURES.items():
-        for suffix in ('f32', 'f64'):
-            fn = getattr(lib, f'{base}_{suffix}')
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+    lib = open_library(build())
     lib.cales_threads_per_block.restype = ctypes.c_int
     lib.cales_threads_per_block.argtypes = []
     lib.cales_error_string.restype = ctypes.c_char_p

@@ -12,15 +12,20 @@ a launch counter.
   dsmag           csrc/dsmag.cu         ops/pallas_dsmag.py
                                         fused_dsmag_onepass ('channel',
                                         'duct', 'cavity')
+  dsmag_level1    csrc/dsmag_level1.cu  ops/pallas_dsmag.py
+                                        fused_dsmag_level1
+  dsmag_level2    csrc/dsmag_level2.cu  ops/pallas_dsmag.py
+                                        fused_dsmag_level2 ('channel',
+                                        'duct', 'cavity')
 
 Input contract (the JAX kernels'): interior (nz, ny, nx) fields plus
 (3, ny, nx) z-edge stacks [padded row 0, padded row nz, padded row nz+1];
 x is periodic and wraps inside the kernel, and so is y unless the field
 comes with its y-row stack: a pair (rows (nz, 3, nx), corners (3, 3, nx))
 from ops/boundary.yedge_* (the y-walled variants of mom_rk, fillps,
-correc_updatep and dsmag, the duct and cavity classes).  z metrics are
-(nz+2,) tensors with ghost entries, in the fields' dtype and on their
-device.
+correc_updatep and the three dsmag kernels, the duct and cavity classes).
+z metrics are (nz+2,) tensors with ghost entries, in the fields' dtype and
+on their device.
 
 Dispatch: a wrapper takes the twin only for tensors on the CPU.  For CUDA
 tensors it launches its kernel or raises; nothing falls back.  LAUNCHES
@@ -35,7 +40,7 @@ import torch
 from . import stencil as st
 
 LAUNCHES = {'mom_rk': 0, 'fillps': 0, 'correc_smag': 0, 'correc_updatep': 0,
-            'smag': 0, 'dsmag': 0}
+            'smag': 0, 'dsmag': 0, 'dsmag_level1': 0, 'dsmag_level2': 0}
 
 # z-ghost recipe letters understood by the correction kernel
 _LETTER_CODE = {'D': 0, 'N': 1}
@@ -202,36 +207,34 @@ def _yext(a):
                       2.0 * a[:, -1:] - a[:, -2:-1]], dim=1)
 
 
-def dsmag_plain(u, v, w, ue, ve, we, alph2, dzci, dzfi, dxi, dyi, wall_lo,
-                wall_hi, zvals=(0.0, 0.0, 0.0, 0.0), ye=None,
-                yvals=(0.0, 0.0, 0.0, 0.0), avg='channel'):
-    """The Germano-Lilly model of sgs.dsmag_visct on interiors + the
-    post-correction fill's edge stacks, with every ghost recipe written out
-    for the class pallas_dsmag.eligible admits: the filtered products and
-    the wall-parallel velocity extrapolate linearly at a wall; the filtered
-    velocity's fill is -+1 times the first plane plus 2b (zvals = (u_lo,
-    u_hi, v_lo, v_hi), the 'D' values b), and w is 0 on both z faces (its
-    lower face and the padded-row-nz rewrite).  ye = (yu, yv, yw), the
-    fill's y-row stacks: both y faces are walls, with the same recipes
-    along y (yvals = (u_lo, u_hi, w_lo, w_hi); v is 0 on its lower face and
-    its padded-ny rewrite) and alpha^2 = 2.52 on the first and last y rows.
-    Returns (s0, num, den): |S| and the sums of num = M_ij L_ij and
-    den = M_ij M_ij (off-diagonal pairs twice) over each z row, (nz, 1),
-    for avg 'channel', over each (z, y) row, (nz, ny, 1), for 'duct'; for
-    'cavity' (nu_t, None, None), nu_t = max(|S| num / den, 0) by cell."""
+def _filt(q, wall_lo, wall_hi, ywall):
+    """The 27-point test filter of a cell-centred quantity with the dynamic
+    model's ghost recipes: _zext along z, along y _yext with y walls or
+    the periodic wrap, x periodic."""
+    q = _zext(q, wall_lo, wall_hi)
+    q = _yext(q) if ywall else torch.cat([q[:, -1:], q, q[:, :1]], 1)
+    return st.filter3d(wrap_x(q))
+
+
+def dsmag_level1_plain(u, v, w, ue, ve, we, dzci, dzfi, dxi, dyi, wall_lo,
+                       wall_hi, ye=None):
+    """The grid level of the Germano-Lilly model (pallas_dsmag._ds1_kernel)
+    on interiors + the post-correction fill's edge stacks (and with y walls
+    its y-row stack pairs ye of (u, v, w)): the filtered products and the
+    wall-parallel velocity extrapolate linearly at a wall (u, v at the z
+    walls, u, w at the y walls), each component's own fill elsewhere.
+    Returns (fm, fvel, lij, s0): fm = filt(|S| S_ij) (6), fvel the
+    filtered velocity (3), lij = filt(uc_i uc_j) - filt(uc_i) filt(uc_j)
+    (6) with uc the centred velocity, s0 = |S|."""
     ywall = ye is not None
     yu, yv, yw = (None,) * 3 if ye is None else ye
     up, vp, wp = padded(u, ue, yu), padded(v, ve, yv), padded(w, we, yw)
     s0, sij = st.strain_rate(up, vp, wp, dzci, dzfi, dxi, dyi, with_sij=True)
 
     def filt(q):
-        q = _zext(q, wall_lo, wall_hi)
-        q = _yext(q) if ywall else torch.cat([q[:, -1:], q, q[:, :1]], 1)
-        return st.filter3d(wrap_x(q))
+        return _filt(q, wall_lo, wall_hi, ywall)
     fm = [filt(s0 * q) for q in sij]
 
-    # filtered velocity: u, v extrapolated at the z walls, u, w at the y
-    # walls, each component's own fill elsewhere
     def vel_ext(qp, along_z, along_y):
         if along_z:
             q = qp[1:-1]
@@ -241,9 +244,70 @@ def dsmag_plain(u, v, w, ue, ve, we, alph2, dzci, dzfi, dxi, dyi, wall_lo,
         if along_y and ywall:
             qp = _yext(qp[:, 1:-1])
         return qp
-    ufi = st.filter3d(vel_ext(up, True, True))
-    vfi = st.filter3d(vel_ext(vp, True, False))
-    wfi = st.filter3d(vel_ext(wp, False, True))
+    fvel = [st.filter3d(vel_ext(up, True, True)),
+            st.filter3d(vel_ext(vp, True, False)),
+            st.filter3d(vel_ext(wp, False, True))]
+
+    uc, vc, wc = st.interp_center(up, vp, wp)
+    pairs = [(uc, uc), (vc, vc), (wc, wc), (uc, vc), (uc, wc), (vc, wc)]
+    lij = [filt(a * b) for a, b in pairs]
+    ucf, vcf, wcf = filt(uc), filt(vc), filt(wc)
+    fpairs = [(ucf, ucf), (vcf, vcf), (wcf, wcf), (ucf, vcf), (ucf, wcf),
+              (vcf, wcf)]
+    lij = [q - a * b for q, (a, b) in zip(lij, fpairs)]
+    return fm, fvel, lij, s0
+
+
+def _contraction(fm, lij, ufp, vfp, wfp, alph2, dzci, dzfi, dxi, dyi, ywall):
+    """The test level on the filled filtered velocity (ufp, vfp, wfp):
+    M_ij = 2 (fm - alpha^2 |S~| S~_ij), alpha^2 = 2.52 on the first and
+    last y rows with y walls; returns num = M_ij L_ij and den = M_ij M_ij
+    (off-diagonal pairs twice) by cell."""
+    s0f, sijf = st.strain_rate(ufp, vfp, wfp, dzci, dzfi, dxi, dyi,
+                               with_sij=True)
+    a2 = alph2[:, None, None].expand(s0f.shape[0], s0f.shape[1], 1)
+    if ywall:
+        a2 = a2.clone()
+        a2[:, 0] = 2.52
+        a2[:, -1] = 2.52
+    mij = [2.0 * (m - a2 * s0f * sf) for m, sf in zip(fm, sijf)]
+    num = (mij[0] * lij[0] + mij[1] * lij[1] + mij[2] * lij[2]
+           + 2.0 * (mij[3] * lij[3] + mij[4] * lij[4] + mij[5] * lij[5]))
+    den = (mij[0] * mij[0] + mij[1] * mij[1] + mij[2] * mij[2]
+           + 2.0 * (mij[3] * mij[3] + mij[4] * mij[4] + mij[5] * mij[5]))
+    return num, den
+
+
+def _averaged(num, den, s0, avg):
+    """'cavity': nu_t = max(|S| num / den, 0) by cell; otherwise the sums
+    of num and den over each z row, (nz, 1), for 'channel', over each
+    (z, y) row, (nz, ny, 1), for 'duct'."""
+    if avg == 'cavity':
+        return torch.clamp_min(s0 * num / den, 0.0)
+    if avg == 'duct':
+        return num.sum(dim=2, keepdim=True), den.sum(dim=2, keepdim=True)
+    return num.sum(dim=(1, 2))[:, None], den.sum(dim=(1, 2))[:, None]
+
+
+def dsmag_plain(u, v, w, ue, ve, we, alph2, dzci, dzfi, dxi, dyi, wall_lo,
+                wall_hi, zvals=(0.0, 0.0, 0.0, 0.0), ye=None,
+                yvals=(0.0, 0.0, 0.0, 0.0), avg='channel'):
+    """The Germano-Lilly model of sgs.dsmag_visct on interiors + the
+    post-correction fill's edge stacks, with every ghost recipe written out
+    for the class pallas_dsmag.eligible admits: dsmag_level1_plain, then the
+    filtered velocity's fill -+1 times the first plane plus 2b (zvals =
+    (u_lo, u_hi, v_lo, v_hi), the 'D' values b), and w 0 on both z faces
+    (its lower face and the padded-row-nz rewrite).  ye = (yu, yv, yw), the
+    fill's y-row stacks: both y faces are walls, with the same recipes
+    along y (yvals = (u_lo, u_hi, w_lo, w_hi); v is 0 on its lower face and
+    its padded-ny rewrite) and alpha^2 = 2.52 on the first and last y rows.
+    Returns (s0, num, den): |S| and the sums of num = M_ij L_ij and
+    den = M_ij M_ij (off-diagonal pairs twice) over each z row, (nz, 1),
+    for avg 'channel', over each (z, y) row, (nz, ny, 1), for 'duct'; for
+    'cavity' (nu_t, None, None), nu_t = max(|S| num / den, 0) by cell."""
+    ywall = ye is not None
+    fm, (ufi, vfi, wfi), lij, s0 = dsmag_level1_plain(
+        u, v, w, ue, ve, we, dzci, dzfi, dxi, dyi, wall_lo, wall_hi, ye=ye)
 
     def yfill(q, c):
         if not ywall:
@@ -267,31 +331,27 @@ def dsmag_plain(u, v, w, ue, ve, we, alph2, dzci, dzfi, dxi, dyi, wall_lo,
     zero = torch.zeros_like(wy[:1])
     # rows [lower face, w_0 .. w_(nz-2), top-face rewrite, never read]
     wfp = wrap_x(torch.cat([zero, wy[:-1], zero, zero]))
-    s0f, sijf = st.strain_rate(ufp, vfp, wfp, dzci, dzfi, dxi, dyi,
-                               with_sij=True)
-    a2 = alph2[:, None, None].expand(s0.shape[0], s0.shape[1], 1)
-    if ywall:
-        a2 = a2.clone()
-        a2[:, 0] = 2.52
-        a2[:, -1] = 2.52
-    mij = [2.0 * (m - a2 * s0f * sf) for m, sf in zip(fm, sijf)]
+    num, den = _contraction(fm, lij, ufp, vfp, wfp, alph2, dzci, dzfi, dxi,
+                            dyi, ywall)
+    out = _averaged(num, den, s0, avg)
+    return (out, None, None) if avg == 'cavity' else (s0, *out)
 
-    uc, vc, wc = st.interp_center(up, vp, wp)
-    pairs = [(uc, uc), (vc, vc), (wc, wc), (uc, vc), (uc, wc), (vc, wc)]
-    lij = [filt(a * b) for a, b in pairs]
-    ucf, vcf, wcf = filt(uc), filt(vc), filt(wc)
-    fpairs = [(ucf, ucf), (vcf, vcf), (wcf, wcf), (ucf, vcf), (ucf, wcf),
-              (vcf, wcf)]
-    lij = [q - a * b for q, (a, b) in zip(lij, fpairs)]
-    num = (mij[0] * lij[0] + mij[1] * lij[1] + mij[2] * lij[2]
-           + 2.0 * (mij[3] * lij[3] + mij[4] * lij[4] + mij[5] * lij[5]))
-    den = (mij[0] * mij[0] + mij[1] * mij[1] + mij[2] * mij[2]
-           + 2.0 * (mij[3] * mij[3] + mij[4] * mij[4] + mij[5] * mij[5]))
-    if avg == 'cavity':
-        return torch.clamp_min(s0 * num / den, 0.0), None, None
-    if avg == 'duct':
-        return s0, num.sum(dim=2, keepdim=True), den.sum(dim=2, keepdim=True)
-    return (s0, num.sum(dim=(1, 2))[:, None], den.sum(dim=(1, 2))[:, None])
+
+def dsmag_level2_plain(fu, fv, fw, fue, fve, fwe, fm, lij, s0, alph2, dzci,
+                       dzfi, dxi, dyi, avg='channel', ye=None):
+    """The test level of the Germano-Lilly model (pallas_dsmag._ds2_kernel)
+    from dsmag_level1's outputs: the filtered velocity (fu, fv, fw) with the
+    edge stacks of its BC fill (the static planes, is_correc=False: w's
+    faces carry their values, the upper one in the rewrite row) and with y
+    walls the fill's y-row stack pairs ye; fm, lij (6 each) and s0.
+    Returns nu_t = max(|S| num / den, 0) for avg 'cavity', else (num, den)
+    summed over each z row, (nz, 1), for 'channel', over each (z, y) row,
+    (nz, ny, 1), for 'duct'."""
+    yu, yv, yw = (None,) * 3 if ye is None else ye
+    num, den = _contraction(fm, lij, padded(fu, fue, yu), padded(fv, fve, yv),
+                            padded(fw, fwe, yw), alph2, dzci, dzfi, dxi, dyi,
+                            ye is not None)
+    return _averaged(num, den, s0, avg)
 
 
 def correc_updatep_plain(u, v, w, pp, p, we, ppe, dtrk, dxi, dyi, dzci,
@@ -595,14 +655,9 @@ def dsmag(u, v, w, ue, ve, we, alph2, dzci, dzfi, dxi, dyi, wall_lo, wall_hi,
                            wall_lo, wall_hi, zvals, ye=ye, yvals=yvals,
                            avg=avg)
     nz, ny, nx = u.shape
-    if nz < 2:
-        raise ValueError(f'dsmag: nz = {nz} (at least 2)')
-    if ye is not None and ny < 4:
-        raise ValueError(f'dsmag: ny = {ny} with y walls (at least 4)')
-    ye = (None,) * 3 if ye is None else tuple(ye)
-    _check('dsmag', u, (u, v, w), edges=(ue, ve, we),
-           profiles=((alph2, nz), (dzci, nz + 2), (dzfi, nz + 2)),
-           **_ysplit(ye))
+    ye = _check_dsmag('dsmag', u, ue, ve, we,
+                       ((alph2, nz), (dzci, nz + 2), (dzfi, nz + 2)), ye,
+                       (u, v, w))
     ty, tx = DSMAG_TILE
     gx = -(-nx // tx)
     s0 = torch.empty_like(u)
@@ -619,3 +674,77 @@ def dsmag(u, v, w, ue, ve, we, alph2, dzci, dzfi, dxi, dyi, wall_lo, wall_hi,
             ctypes.c_int(_DSMAG_AVG[avg]), d(dxi), d(dyi),
             *(d(float(q)) for q in (*zvals, *yvals)))
     return s0, num, den
+
+
+def _check_dsmag(name, u, ue, ve, we, profiles, ye, fields):
+    """The dsmag kernels' shared checks; returns ye as three pairs or
+    Nones."""
+    nz, ny, _ = u.shape
+    if nz < 2:
+        raise ValueError(f'{name}: nz = {nz} (at least 2)')
+    if ye is not None and ny < 4:
+        raise ValueError(f'{name}: ny = {ny} with y walls (at least 4)')
+    ye = (None,) * 3 if ye is None else tuple(ye)
+    _check(name, u, fields, edges=(ue, ve, we), profiles=profiles,
+           **_ysplit(ye))
+    return ye
+
+
+def dsmag_level1(u, v, w, ue, ve, we, dzci, dzfi, dxi, dyi, wall_lo,
+                 wall_hi, ye=None):
+    """The grid level of the two-pass dynamic Smagorinsky model in one
+    z-march (see dsmag_level1_plain): from the post-correction fill
+    (interiors + edge stacks, with y walls the y-row stack pairs ye of
+    (u, v, w)) to (fm, fvel, lij, s0), 16 fields in the fields' dtype,
+    views of one (16, nz, ny, nx) block."""
+    if _on_cpu(u):
+        return dsmag_level1_plain(u, v, w, ue, ve, we, dzci, dzfi, dxi, dyi,
+                                  wall_lo, wall_hi, ye=ye)
+    nz, ny, nx = u.shape
+    ye = _check_dsmag('dsmag_level1', u, ue, ve, we,
+                       ((dzci, nz + 2), (dzfi, nz + 2)), ye, (u, v, w))
+    out = u.new_empty((16, nz, ny, nx))
+    d = ctypes.c_double
+    _launch('dsmag_level1', f'cales_dsmag_level1_{_suffix(u)}',
+            *map(_ptr, (u, v, w, ue, ve, we, dzci, dzfi, out)), *_yptrs(ye),
+            ctypes.c_int(nz), ctypes.c_int(ny), ctypes.c_int(nx),
+            ctypes.c_int(int(bool(wall_lo))), ctypes.c_int(int(bool(wall_hi))),
+            d(dxi), d(dyi))
+    return list(out[0:6]), list(out[6:9]), list(out[9:15]), out[15]
+
+
+def dsmag_level2(fu, fv, fw, fue, fve, fwe, fm, lij, s0, alph2, dzci, dzfi,
+                 dxi, dyi, avg='channel', ye=None):
+    """The test level of the two-pass dynamic Smagorinsky model (see
+    dsmag_level2_plain), one thread per cell: the filtered velocity with
+    its fill's edge stacks (and y-row stack pairs ye), dsmag_level1's fm,
+    lij and s0, alph2 the (nz,) filter-ratio profile.  Returns nu_t for
+    avg 'cavity'; otherwise partial sums (num, den) that the caller sums
+    over their last dim: per (z, block), (nz, nblk), for 'channel'; per
+    (z, y, x block of 32), (nz, ny, ceil(nx/32)), for 'duct'.  The twin
+    returns the sums whole, (nz, 1) or (nz, ny, 1)."""
+    if avg not in _DSMAG_AVG:
+        raise ValueError(f'dsmag_level2: avg {avg!r} (channel, duct or '
+                         'cavity)')
+    if _on_cpu(fu):
+        return dsmag_level2_plain(fu, fv, fw, fue, fve, fwe, fm, lij, s0,
+                                  alph2, dzci, dzfi, dxi, dyi, avg=avg, ye=ye)
+    nz, ny, nx = fu.shape
+    if len(fm) != 6 or len(lij) != 6:
+        raise ValueError('dsmag_level2: fm and lij take 6 fields each')
+    ye = _check_dsmag('dsmag_level2', fu, fue, fve, fwe,
+                       ((alph2, nz), (dzci, nz + 2), (dzfi, nz + 2)), ye,
+                       (fu, fv, fw, *fm, *lij, s0))
+    from . import build
+    gx = -(-nx // 32)
+    shape = {'channel': (nz, -(-(ny * gx * 32) // build.THREADS)),
+             'duct': (nz, ny, gx), 'cavity': (nz, ny, nx)}[avg]
+    num = fu.new_empty(shape)
+    den = None if avg == 'cavity' else fu.new_empty(shape)
+    d = ctypes.c_double
+    _launch('dsmag_level2', f'cales_dsmag_level2_{_suffix(fu)}',
+            *map(_ptr, (fu, fv, fw, fue, fve, fwe, *fm, *lij, s0, alph2,
+                        dzci, dzfi, num, den)), *_yptrs(ye),
+            ctypes.c_int(nz), ctypes.c_int(ny), ctypes.c_int(nx),
+            ctypes.c_int(_DSMAG_AVG[avg]), d(dxi), d(dyi))
+    return num if avg == 'cavity' else (num, den)

@@ -1,8 +1,8 @@
 """Where the time of one RK3 step goes on the card.
 
     python -m cales_torch.profile_step
-        [--case les|les-mat|les-imp|dns|dns-imp3d|dsmag|duct|cavity|tgv|
-                tgv-fft|tri|tri-imp3d] [--ng NXxNYxNZ] [--steps 3]
+        [--case les|les-mat|les-imp|dns|dns-imp3d|dsmag|dsmag-blow|duct|
+                cavity|tgv|tgv-fft|tri|tri-imp3d] [--ng NXxNYxNZ] [--steps 3]
 
 Steps one of the channel configurations under torch.profiler and prints
 the device time per kernel and per stage: the CUDA kernels, the Poisson
@@ -16,7 +16,11 @@ thomas_z CN solves); 'dsmag' the dynamic-Smagorinsky channel of
 validation/dsmag_channel.py (impdiff_1d, 'mat', the dsmag kernel); 'duct'
 and 'cavity' bench.py's duct_les_dsmag and cavity_les_dsmag (y and z
 walls, explicit diffusion, 'mat', the y-walled kernel variants and the
-dsmag kernel's 'duct' and 'cavity' averages); 'dns-imp3d' the channel DNS
+dsmag kernel's 'duct' and 'cavity' averages); 'dsmag-blow' the 'dsmag'
+channel with transpiring walls (w = 0.003 through both z walls, which
+only the two-pass dsmag carries: dsmag_level1, dsmag_level2); with
+CALES_DSMAG_TWOPASS=1 in the environment 'dsmag', 'duct' and 'cavity'
+take the two passes too; 'dns-imp3d' the channel DNS
 with full-3D implicit diffusion (a Helmholtz solve per component, thomas_z
 with the lam shift); 'tgv' the Taylor-Green vortex of
 examples/taylor_green_vortex_3d at 512^3 with ptransform='mat' (apply_y and
@@ -48,6 +52,8 @@ STAGES = (
     ('thomas_z', ('thomas_z_kernel',)),
     ('thomas_periodic', ('thomas_periodic_kernel',)),
     ('smag', ('cales::smag_kernel',)),
+    ('dsmag_level1', ('dsmag_level1_kernel',)),
+    ('dsmag_level2', ('dsmag_level2_kernel',)),
     ('dsmag', ('dsmag_kernel',)),
     ('solve: fft', ('fft', 'FFT', 'regular_fft', 'vector_fft', 'radix')),
     ('solve: z matmul', ('gemm', 'Gemm', 'sm90_', 'cutlass', 'ampere_sgemm',
@@ -61,6 +67,9 @@ DUCT_BCS = dict(
     cbcvel=((('P', 'P', 'P'), ('D', 'D', 'D'), ('D', 'D', 'D')),) * 2,
     cbcpre=(('P', 'N', 'N'), ('P', 'N', 'N')),
     cbcsgs=(('P', 'D', 'D'), ('P', 'D', 'D')))
+# w = 0.003 through a z wall: blowing through the lower, suction through the
+# upper one
+BLOW_FACE = ((0.0,) * 3, (0.0,) * 3, (0.0, 0.0, 0.003))
 PERIODIC_BCS = dict(cbcvel=((('P',) * 3,) * 3,) * 2,
                     cbcpre=(('P',) * 3,) * 2, cbcsgs=(('P',) * 3,) * 2)
 # examples/taylor_green_vortex_3d/input.nml and bench.py's triperiodic_dns
@@ -88,6 +97,10 @@ CASES = {
     'dsmag': dict(l=(12.8, 4.8, 2.0), gr=5.0, visci=10_000.0, inivel='poi',
                   sgstype='dsmag', dsmag_avg='channel', ptransform='mat',
                   impdiff=True, impdiff_1d=True, **CHAN_BCS),
+    'dsmag-blow': dict(l=(12.8, 4.8, 2.0), gr=5.0, visci=10_000.0,
+                       inivel='poi', sgstype='dsmag', dsmag_avg='channel',
+                       ptransform='mat', impdiff=True, impdiff_1d=True,
+                       bcvel=(BLOW_FACE, BLOW_FACE), **CHAN_BCS),
     'duct': dict(l=(4 * np.pi, 2.0, 2.0), visci=10_000.0, inivel='duc',
                  sgstype='dsmag', dsmag_avg='duct', ptransform='mat',
                  **DUCT_BCS),
@@ -171,7 +184,9 @@ def main(argv=None):
     for name, (ms, _) in per_kernel.items():
         s = stage_of(name)
         by_stage[s] = by_stage.get(s, 0.0) + ms
-    print(f'{card}; case {args.case}, ng={ng} float32; {args.steps} '
+    route = ('' if cfg.sgstype != 'dsmag' else
+             ', dsmag two-pass' if sim.dsmag_twopass else ', dsmag one-pass')
+    print(f'{card}; case {args.case}{route}, ng={ng} float32; {args.steps} '
           f'profiled steps')
     print(f'{step_ms:.3f} ms/step (CUDA events, profiler off), device busy '
           f'{busy:.3f} ms/step (profiler), idle share {1 - busy / step_ms:.3f}')
@@ -182,7 +197,8 @@ def main(argv=None):
                                 key=lambda kv: -kv[1][0])[:20]:
         print(f'  {ms:8.3f}  {n:4d}  {name[:110]}')
     print(json.dumps({'profile': dict(
-        card=card, case=args.case, ng=ng, step_ms=step_ms, busy_ms=busy,
+        card=card, case=args.case + route, ng=ng, step_ms=step_ms,
+        busy_ms=busy,
         idle_share=1 - busy / step_ms,
         stages={k: round(v, 4) for k, v in by_stage.items()},
         launches_per_step=sum(n for _, n in per_kernel.values()))}))

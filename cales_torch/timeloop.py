@@ -7,7 +7,8 @@ Smagorinsky, and the DNS (sgstype 'none'), each with explicit, z-implicit
 (impdiff_1d) or full-3D implicit diffusion; the triperiodic DNS (the Taylor-Green vortex), explicit or
 implicit; and for the y-walled classes, the square duct and the
 spanwise-periodic cavity, with dynamic Smagorinsky ('duct', 'cavity' or
-'channel' averaging) or none, explicit diffusion.
+'channel' averaging) or none, explicit diffusion.  z walls may transpire
+(a uniform w through them).
 One RK substep runs:
   1. kernels.mom_rk          momentum RHS + RK3 update (+ forcing partial
                              sums; with implicit diffusion the explicit/
@@ -28,12 +29,16 @@ One RK substep runs:
      kernels.smag (smag with impdiff_1d), or kernels.dsmag (dsmag: |S|
      and partial num/den sums, then nu_t = max(|S| num/den, 0) with one
      ratio per z row ('channel') or per (z, y) row ('duct'); 'cavity'
-     makes nu_t cell by cell in the kernel)
+     makes nu_t cell by cell in the kernel), or where the one pass cannot
+     carry the BC values (transpiring z walls) the two passes
+     kernels.dsmag_level1, the filtered velocity's fill, and
+     kernels.dsmag_level2, with the same finish
 with the z-edge stacks (ops/boundary.zedge_*) as the glue, and with y walls
 the y-row stacks (ops/boundary.yedge_*) of the same three fills: the
 carried post-correction fill for mom_rk, the prediction fill for fillps
 and correc_updatep (with pp's after the solve), the new post-correction
-fill for dsmag.  On a CUDA device the kernels are the hand-written ones of
+fill for dsmag (and the filtered velocity's static fill for
+dsmag_level2).  On a CUDA device the kernels are the hand-written ones of
 cales_torch/csrc; on the CPU their plain PyTorch twins.
 
 The port and the JAX package carry the same state (State below), so a
@@ -42,6 +47,7 @@ slice raise NotImplementedError naming the missing piece.
 """
 from __future__ import annotations
 
+import os
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -153,31 +159,58 @@ def unsupported(cfg: Config) -> list[str]:
 
 
 def _dsmag_kernel_refuses(cfg: Config, cbc) -> list[str]:
-    """The limits of the dsmag kernel's ghost recipes, which are those of
-    cales_tpu's one-pass kernel (pallas_dsmag.eligible face_ok and
-    Simulation._dsmag_onepass_vals_ok): each z face, and each y face with
-    y walls, a wall (Dirichlet normal velocity) or a homogeneous-Neumann
-    fill, with a zero normal velocity."""
+    """The limits of the dsmag kernels' ghost recipes, which are those of
+    cales_tpu's (pallas_dsmag.eligible face_ok): each z face, and each y
+    face with y walls, a wall (Dirichlet normal velocity) or a
+    homogeneous-Neumann fill with zero values."""
     out = []
-    faces = ((2, 'z', 'w'),) + (() if _periodic(cfg, 1) else ((1, 'y', 'v'),))
-    for d, face, normal in faces:
+    faces = ((2, 'z'),) + (() if _periodic(cfg, 1) else ((1, 'y'),))
+    for d, face in faces:
         for ib in range(2):
-            if cbc[ib][d][d] != 'D':
-                ok = (cfg.cbcsgs[ib][d] == 'N'
-                      and float(cfg.bcsgs[ib][d]) == 0.0
-                      and all(cfg.cbcvel[ib][d][iv] == ('D' if iv == d
-                                                        else 'N')
-                              and float(cfg.bcvel[ib][d][iv]) == 0.0
-                              for iv in range(3)))
-                if not ok:
-                    out.append(f'dsmag with a {face} face that is neither a '
-                               'wall nor a homogeneous-Neumann fill: ROADMAP '
-                               'queue 1, dsmag classes')
-            if (np.ndim(cfg.bcvel[ib][d][d]) == 0
-                    and float(cfg.bcvel[ib][d][d])):
-                out.append(f'dsmag with a non-zero {normal} on a {face} '
-                           'face: ROADMAP queue 1, dsmag classes')
+            if cbc[ib][d][d] == 'D':
+                continue
+            ok = (cfg.cbcsgs[ib][d] == 'N'
+                  and float(cfg.bcsgs[ib][d]) == 0.0
+                  and all(cfg.cbcvel[ib][d][iv] == ('D' if iv == d else 'N')
+                          and float(cfg.bcvel[ib][d][iv]) == 0.0
+                          for iv in range(3)))
+            if not ok:
+                out.append(f'dsmag with a {face} face that is neither a '
+                           'wall nor a homogeneous-Neumann fill: ROADMAP '
+                           'queue 1, dsmag classes')
     return out
+
+
+def dsmag_onepass_vals_ok(cfg: Config, ywalled: bool) -> bool:
+    """Whether the one-pass dsmag kernel can carry the BC values
+    (cales_tpu Simulation._dsmag_onepass_vals_ok): it makes the filtered
+    velocity's fill in registers from scalar recipes, with the wall-parallel
+    'D' values as 2b - q offsets, so each wall-normal face value (w on the
+    z faces, v on the y faces with y walls) must be 0 and every value a
+    scalar.  Otherwise the two passes run, whose fill is built as edge
+    stacks that carry the values (transpiring walls)."""
+    for ib in range(2):
+        checks = [(2, 2)] + ([(1, 1)] if ywalled else [])
+        for d, iv in checks:
+            if (not np.isscalar(cfg.bcvel[ib][d][iv])
+                    or float(cfg.bcvel[ib][d][iv]) != 0.0):
+                return False
+        for d, ivs in ((2, (0, 1)), (1, (0, 2))):
+            if any(not np.isscalar(cfg.bcvel[ib][d][iv]) for iv in ivs):
+                return False
+    return True
+
+
+def _dsmag_ratio(s0, num, den, avg):
+    """nu_t = max(|S| ratio, 0) from a dsmag kernel's partial sums of num
+    and den (summed over their last dim here): one ratio per z row
+    ('channel', ave1d_channel, sgs.f90:433-538) or per (z, y) row ('duct',
+    ave2d_duct, sgs.f90:540-614)."""
+    if avg == 'duct':
+        ratio = num.sum(dim=-1) / den.sum(dim=-1)
+        return torch.clamp_min(s0 * ratio[:, :, None], 0.0)
+    ratio = num.sum(dim=1) / den.sum(dim=1)
+    return torch.clamp_min(s0 * ratio[:, None, None], 0.0)
 
 
 class Simulation:
@@ -210,6 +243,12 @@ class Simulation:
         self.fused_smag = cfg.sgstype == 'smag' and not cfg.impdiff
         self.sgs_kernel = ({'smag': 'smag', 'dsmag': 'dsmag'}
                            .get(cfg.sgstype) if not self.fused_smag else None)
+        # dsmag: the one-pass kernel where it can carry the BC values, the
+        # two passes (dsmag_level1, the filtered fill, dsmag_level2)
+        # elsewhere or when CALES_DSMAG_TWOPASS=1 (cales_tpu's own switch)
+        self.dsmag_twopass = self.sgs_kernel == 'dsmag' and (
+            not dsmag_onepass_vals_ok(cfg, self.ywalled)
+            or os.environ.get('CALES_DSMAG_TWOPASS', '') == '1')
         # implicit diffusion: the momentum kernel's split ('1d' z only,
         # 'xy+z' full-3D) + CN fold (rd streams elided, timeloop.py:227-229
         # and 295-306 of the JAX package)
@@ -313,7 +352,9 @@ class Simulation:
                    else 'thomas_z')
         names = ['mom_rk', 'fillps',
                  'correc_smag' if self.fused_smag else 'correc_updatep']
-        if self.sgs_kernel:
+        if self.dsmag_twopass:
+            names += ['dsmag_level1', 'dsmag_level2']
+        elif self.sgs_kernel:
             names.append(self.sgs_kernel)
         if mat:
             names.append('apply_y')
@@ -356,7 +397,8 @@ class Simulation:
         sgs = ('smag fused in correc_smag' if self.fused_smag
                else 'smag kernel on the post-correction fill'
                if self.sgs_kernel == 'smag'
-               else f'dsmag kernel, {self.cfg.dsmag_avg!r} average'
+               else f'dsmag {"two-pass" if self.dsmag_twopass else "kernel"}'
+                    f', {self.cfg.dsmag_avg!r} average'
                if self.sgs_kernel == 'dsmag' else 'none')
         if self.ywalled:
             sgs += '; y walls: y-row ghost stacks'
@@ -521,7 +563,7 @@ class Simulation:
 
     def _sgs_stage(self, u, v, w, zq, vlo):
         """nu_t of the post-correction fill (main.f90:504-506) by the smag
-        or dsmag kernel."""
+        or dsmag kernel, or by dsmag's two passes."""
         cfg = self.cfg
         ue, ve, we = zq
         dxi, dyi = cfg.dli[0], cfg.dli[1]
@@ -538,21 +580,35 @@ class Simulation:
                                 have_zwalls=self.have_zwalls)
         ye = (self._yedge_vel(u, v, w, vlo=vlo, is_correc=True)
               if self.ywalled else None)
+        if self.dsmag_twopass:
+            return self._dsmag_twopass(u, v, w, zq, ye)
         avg = cfg.dsmag_avg
         s0, num, den = kernels.dsmag(u, v, w, ue, ve, we, self.alph2_t,
                                      self.dzci_t, self.dzfi_t, dxi, dyi,
                                      self.lo_wall, self.hi_wall,
                                      self.dsmag_zvals, ye=ye,
                                      yvals=self.dsmag_yvals, avg=avg)
-        if avg == 'cavity':
-            return s0           # nu_t, cell by cell
-        if avg == 'duct':
-            # ave2d_duct: one ratio per (z, y) row (sgs.f90:540-614)
-            ratio = num.sum(dim=-1) / den.sum(dim=-1)
-            return torch.clamp_min(s0 * ratio[:, :, None], 0.0)
-        # ave1d_channel: one ratio per z row (sgs.f90:433-538)
-        ratio = num.sum(dim=1) / den.sum(dim=1)
-        return torch.clamp_min(s0 * ratio[:, None, None], 0.0)
+        return s0 if avg == 'cavity' else _dsmag_ratio(s0, num, den, avg)
+
+    def _dsmag_twopass(self, u, v, w, zq, ye):
+        """The two-pass dynamic model (cales_tpu _compute_dsmag_kernel's
+        single-device route): dsmag_level1 on the post-correction fill,
+        the filtered velocity's BC fill with the static planes
+        (sgs.f90:256-257) as edge stacks, which carry the wall-normal face
+        values, then dsmag_level2."""
+        cfg = self.cfg
+        dxi, dyi = cfg.dli[0], cfg.dli[1]
+        fm, (fu, fv, fw), lij, s0 = kernels.dsmag_level1(
+            u, v, w, *zq, self.dzci_t, self.dzfi_t, dxi, dyi, self.lo_wall,
+            self.hi_wall, ye=ye)
+        fze = self._zedge_vel(fu, fv, fw, self.bcu_vals, self.bcv_vals,
+                              self.bcw_vals, is_correc=False)
+        fye = self._yedge_vel(fu, fv, fw) if self.ywalled else None
+        avg = cfg.dsmag_avg
+        out = kernels.dsmag_level2(fu, fv, fw, *fze, fm, lij, s0,
+                                   self.alph2_t, self.dzci_t, self.dzfi_t,
+                                   dxi, dyi, avg=avg, ye=fye)
+        return out if avg == 'cavity' else _dsmag_ratio(s0, *out, avg)
 
     def _cn_stage(self, u, v, w, f, alpha):
         """Crank-Nicolson Helmholtz solves (main.f90:423-491): the momentum

@@ -5,10 +5,12 @@ the Taylor-Green vortex through the CLI, the channel LES through
 cales_torch.driver.run at 512x256x256 (with the cuFFT and the
 operator-matrix Poisson solve), drive the implicit-CN channel DNS (z-only
 and full-3D), the dynamic-Smagorinsky channel LES, the static-Smagorinsky
-LES with z-implicit diffusion, the dynamic-Smagorinsky duct and cavity and
-the triperiodic DNS (explicit and full-3D implicit) through driver.run at
-512x256x256, the Taylor-Green vortex at 512^3 by both solve routes, and
-compare the card with the CPU step for step.
+LES with z-implicit diffusion, the dynamic-Smagorinsky duct and cavity, the
+two-pass dynamic Smagorinsky (the channel with transpiring walls, and the
+channel, duct and cavity by both routes) and the triperiodic DNS (explicit
+and full-3D implicit) through driver.run at 512x256x256, the Taylor-Green
+vortex at 512^3 by both solve routes, and compare the card with the CPU
+step for step.
 
     python3 chip_smoke.py            # all phases, one card
 
@@ -19,7 +21,9 @@ with each kernel's launches, error against its twin and times.
 """
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -52,6 +56,10 @@ KERNELS = {
              'cales_tpu/ops/pallas_kernels.py:1016'),
     'dsmag': ('cales_torch/csrc/dsmag.cu',
               'cales_tpu/ops/pallas_dsmag.py:1168'),
+    'dsmag_level1': ('cales_torch/csrc/dsmag_level1.cu',
+                     'cales_tpu/ops/pallas_dsmag.py:537'),
+    'dsmag_level2': ('cales_torch/csrc/dsmag_level2.cu',
+                     'cales_tpu/ops/pallas_dsmag.py:708'),
 }
 # the y-walled, full-3D and Helmholtz variants, each reported as a kernel
 # of its own: report name -> (kernel, phase 2 variant)
@@ -65,6 +73,9 @@ VARIANT_ROWS = {
     'correc_updatep (full-3D)': ('correc_updatep', 'impdiff'),
     'thomas_z (Helmholtz, lam shift)': ('thomas_z', 'helmholtz3d'),
     'thomas_periodic (Helmholtz)': ('thomas_periodic', 'helmholtz'),
+    'dsmag_level1 (y walls)': ('dsmag_level1', 'duct'),
+    'dsmag_level2 (y walls, duct)': ('dsmag_level2', 'duct'),
+    'dsmag_level2 (y walls, cavity)': ('dsmag_level2', 'cavity'),
 }
 LES_KERNELS = ('mom_rk', 'fillps', 'correc_smag')
 # H100 SXM data-sheet rates: HBM
@@ -94,6 +105,13 @@ DSMAG_CFG = dict(ng=HEADLINE_NG, l=(12.8, 4.8, 2.0), gtype=1, gr=5.0,
                  is_forced=(True, False, False), velf=(1.0, 0.0, 0.0),
                  dtype='float32', sgstype='dsmag', dsmag_avg='channel',
                  ptransform='mat', impdiff=True, impdiff_1d=True, **CHAN_BCS)
+# the same channel with transpiring walls: w = W blown through the lower
+# wall and sucked through the upper one (W ~ 0.05 u_tau at this Re_b, the
+# blowing and suction of Sumitani & Kasagi, AIAA J. 33, 1995), which only
+# the two-pass dsmag carries
+W_BLOW = 0.003
+BLOW_FACE = ((0.0,) * 3, (0.0,) * 3, (0.0, 0.0, W_BLOW))
+DSMAG_BLOW_CFG = dict(DSMAG_CFG, bcvel=(BLOW_FACE, BLOW_FACE))
 # bench.py's channel_les_smag ('mat') with z-implicit diffusion (the
 # reference's -D_IMPDIFF_1D wall-resolved LES build)
 LES_IMP_CFG = dict(LES_CFG, ptransform='mat', impdiff=True, impdiff_1d=True,
@@ -270,6 +288,9 @@ def kernel_inputs(ng, dtype, dev, seed, big=False):
     d['y_pred'] = yvel(False)
     d['y_pp'] = ysc(d['pp'], cbcp)
     d['yvals'] = (0.2, 0.0, -0.1, 0.3)
+    # dsmag_level2's inputs besides the filtered velocity (u, v, w here,
+    # with the prediction fill's stacks as its static fill): fm, lij, s0
+    d['ds2'] = [f() for _ in range(13)]
     return d
 
 
@@ -318,6 +339,25 @@ def call(name, d, twin=False, variant=None, has_ruo=True, zrec=None):
             return {'visct': s0}
         # partial sums: compare the per-row totals
         return {'s0': s0, 'num': num.sum(dim=-1), 'den': den.sum(dim=-1)}
+    if name == 'dsmag_level1':
+        fm, fvel, lij, s0 = fn(d['u'], d['v'], d['w'], d['ue_c'], d['ve_c'],
+                               d['we_c'], d['dzci'], d['dzfi'], d['dxi'],
+                               d['dyi'], True, True,
+                               ye=d['y_mom'][:3] if ywall else None)
+        keys = ([f'fm{q}' for q in range(6)] + ['fu', 'fv', 'fw']
+                + [f'l{q}' for q in range(6)] + ['s0'])
+        return dict(zip(keys, (*fm, *fvel, *lij, s0)))
+    if name == 'dsmag_level2':
+        yw = variant in ('duct', 'cavity')
+        q = d['ds2']
+        out = fn(d['u'], d['v'], d['w'], d['ue'], d['ve'], d['we'], q[0:6],
+                 q[6:12], q[12], d['alph2'], d['dzci'], d['dzfi'], d['dxi'],
+                 d['dyi'], avg=variant or 'channel',
+                 ye=d['y_pred'] if yw else None)
+        if variant == 'cavity':
+            return {'visct': out}
+        # partial sums: compare the per-row totals
+        return {'num': out[0].sum(dim=-1), 'den': out[1].sum(dim=-1)}
     if name == 'fillps':
         return {'rhs': fn(d['u'], d['v'], d['w'], d['ue'], d['ve'], d['we'],
                           d['dzfi'], 1.0, d['dxi'], d['dyi'],
@@ -414,11 +454,16 @@ VARIANTS = {
     'thomas_z': ('helmholtz', 'poisson', 'helmholtz3d'), 'smag': (None,),
     'dsmag': (None, 'duct', 'cavity'),
     'thomas_periodic': ('poisson', 'helmholtz'),
+    'dsmag_level1': (None, 'duct'), 'dsmag_level2': (None, 'duct', 'cavity'),
 }
 # the report rows of the other variants, by (kernel, variant)
 VARIANT_ROW_OF = {kv: row for row, kv in VARIANT_ROWS.items()}
 # bounded relative to the output's maximum: sums over many terms
-RELATIVE = ('apply_y', 'z_eig', 'thomas_z', 'dsmag', 'thomas_periodic')
+RELATIVE = ('apply_y', 'z_eig', 'thomas_z', 'dsmag', 'thomas_periodic',
+            'dsmag_level1', 'dsmag_level2')
+# the kernels whose float32 error is held against their float64 twin in
+# phase 2b
+F64_TWIN = ('dsmag_level1', 'dsmag_level2')
 # the full-3D CN solves' alpha in the kernel inputs
 ALPHA = -0.043
 # (interior fields read, fields written, floating-point operations a cell)
@@ -427,17 +472,21 @@ ALPHA = -0.043
 # function needs, not its kernel's halo recomputation: the source
 # quantities (the strain rate's 92 + 18), 18 separable (1,2,1)/4 filters
 # at 3 passes of 4 with each pass shared across the plane, and the test-
-# level strain (92) with M_ij, L_ij and the contraction (55)
+# level strain (92) with M_ij, L_ij and the contraction (55); dsmag_level1
+# the source quantities and the 18 filters, dsmag_level2 the test level
+# (it reads fvel, fm and lij; |S| too for 'cavity', which writes nu_t)
 WORK = {'mom_rk': (8, 6, 230), 'fillps': (3, 1, 12),
         'correc_smag': (5, 5, 115), 'correc_updatep': (5, 4, 20),
         'apply_y': (1, 1, 0), 'z_eig': (1, 1, 3), 'thomas_z': (1, 1, 8),
         'smag': (3, 1, 100), 'dsmag': (3, 1, 110 + 18 * 12 + 147),
         # the forward sweep's two right-hand sides (9), both
         # back-substitutions (4), the last row and the combine (2)
-        'thomas_periodic': (1, 1, 15)}
+        'thomas_periodic': (1, 1, 15),
+        'dsmag_level1': (3, 16, 110 + 18 * 12), 'dsmag_level2': (15, 0, 147)}
 # variants whose reads or arithmetic differ from their kernel's first
 WORK_VARIANT = {('mom_rk', 'xyz'): (7, 6, 200),
-                ('correc_updatep', 'impdiff'): (5, 4, 34)}
+                ('correc_updatep', 'impdiff'): (5, 4, 34),
+                ('dsmag_level2', 'cavity'): (16, 1, 147)}
 # kernels whose plain twin is a single library product (cuBLAS), timed as
 # the yardstick library_ms
 LIBRARY_TWIN = ('apply_y', 'z_eig')
@@ -449,7 +498,8 @@ def ystacks(name, d, variant):
         return []
     pairs = {'mom_rk': d['y_mom'], 'fillps': [d['y_pred'][1]],
              'correc_updatep': [d['y_pp'], (d['y_pred'][1][0],)],
-             'dsmag': d['y_mom'][:3]}[name]
+             'dsmag': d['y_mom'][:3], 'dsmag_level1': d['y_mom'][:3],
+             'dsmag_level2': d['y_pred']}[name]
     return [q for pair in pairs for q in pair]
 
 
@@ -503,6 +553,7 @@ def phase_kernels(dev, card):
     say(f'phase 2b: kernels vs twins on the card at (nx, ny, nz) = '
         f'{HEADLINE_NG}, float32  [{card}]')
     d = kernel_inputs(HEADLINE_NG, torch.float32, dev, SEED + 1, big=True)
+    d64 = None
     rows = {}
     for name, variants in VARIANTS.items():
         for i, variant in enumerate(variants):
@@ -521,6 +572,19 @@ def phase_kernels(dev, card):
                     bound_ms=bms, bound_by=by,
                     library_ms=plain_ms if name in LIBRARY_TWIN else None)
                 say(f'  {tag:<24s} bound {bms:.3f} ms ({by})')
+                if name in F64_TWIN:
+                    # the float32 kernel against the float64 twin on the
+                    # same inputs, relative to each output's maximum
+                    d64 = d64 or _as_double(d)
+                    got = call(name, d, variant=variant)
+                    ref = call(name, d64, twin=True, variant=variant)
+                    rel = max(float((got[k].double() - ref[k]).abs().max()
+                                    / ref[k].abs().max()) for k in got)
+                    rows[row]['f32_vs_f64_twin'] = rel
+                    say(f'  {tag:<24s} float32 kernel against its float64 '
+                        f'twin: max|err| / max|ref| {rel:.3e} (worst '
+                        f'output)  [{card}]')
+                    del got, ref
                 if name == 'thomas_periodic':
                     # with the two scratch fields (c zfac and p2) each
                     # written and read once
@@ -530,6 +594,17 @@ def phase_kernels(dev, card):
                         f'{nb / PEAK_BPS * 1e3:.3f} ms (bytes)')
             torch.cuda.empty_cache()
     return rows
+
+
+def _as_double(d):
+    """The kernel inputs d in float64."""
+    def cv(x):
+        if torch.is_tensor(x):
+            return x.double()
+        if isinstance(x, (list, tuple)):
+            return type(x)(cv(q) for q in x)
+        return x
+    return {k: cv(v) for k, v in d.items()}
 
 
 def reset_counts():
@@ -567,13 +642,16 @@ def phase_cli(card, tag='phase 3', example='turbulent_channel_les',
         require((Path(tmp) / 'fld.bin').exists(), 'no fld.bin written')
 
 
-def drive(tag, cfg, dev, card, nsteps, per_step, ntime=30, hooks=None):
+def drive(tag, cfg, dev, card, nsteps, per_step, ntime=30, hooks=None,
+          keep=None):
     """driver.run on cfg for nsteps steps with every launch count set to 0
     just before and read just after (each kernel of per_step must have
     launched exactly per_step[name] times a step, every other kernel
     never), then a timed loop of ntime steps; nu_t must be >= 0 and not
-    zero everywhere where an SGS model runs, w 0 on z walls.  hooks: the
-    driver's output hooks.  Returns (sim, launches, result dict)."""
+    zero everywhere where an SGS model runs, w on z walls their face
+    values with no net flux through the two.  hooks: the driver's output
+    hooks; keep: a dict that receives the final state.  Returns (sim,
+    launches, result dict)."""
     from cales_torch import driver
     from cales_torch.ops.stencil import bulk_mean
     nx, ny, nz = cfg.ng
@@ -626,13 +704,20 @@ def drive(tag, cfg, dev, card, nsteps, per_step, ntime=30, hooks=None):
         # face and the interior's last row)
         faces['v at y walls'] = (state.vlo[1][1:-1, 1:-1], state.v[:, -1])
     if sim.have_zwalls:
-        # and w on both z walls
-        faces['w at z walls'] = (state.vlo[2][1:-1, 1:-1], state.w[-1])
-    if faces:
-        for what, (lo, hi) in faces.items():
-            worst = max(float(lo.abs().max()), float(hi.abs().max()))
-            say(f'  max |{what}| {worst:.3e}')
-            require(worst <= 1e-6, f'{tag}: {what} {worst:.3e}, want 0')
+        # and w on both z walls: their face values (0, or W through
+        # transpiring walls)
+        faces['w at z walls'] = (
+            state.vlo[2][1:-1, 1:-1] - float(cfg.bcvel[0][2][2]),
+            state.w[-1] - float(cfg.bcvel[1][2][2]))
+        # the net flux through the two z walls (the grid is uniform in x, y)
+        flux = float(state.vlo[2][1:-1, 1:-1].double().mean()
+                     - state.w[-1].double().mean())
+        say(f'  net flux through the z walls {flux:.3e}')
+        require(abs(flux) <= 1e-6, f'{tag}: net z-wall flux {flux:.3e}')
+    for what, (lo, hi) in faces.items():
+        worst = max(float(lo.abs().max()), float(hi.abs().max()))
+        say(f'  max |{what} - its face value| {worst:.3e}')
+        require(worst <= 1e-6, f'{tag}: {what} off by {worst:.3e}')
     lid = float(cfg.bcvel[1][2][1])
     if lid:
         # the lid's v on the z-top face: the mean of the last row and its
@@ -647,6 +732,8 @@ def drive(tag, cfg, dev, card, nsteps, per_step, ntime=30, hooks=None):
         require(nmin >= 0.0 and nmax > 0.0,
                 f'{tag}: nu_t in [{nmin:.3e}, {nmax:.3e}], want >= 0 and '
                 'not zero everywhere')
+    if keep is not None:
+        keep['state'] = state
     return sim, launches, dict(ng=cfg.ng, ms_per_step=ms,
                                ns_per_cell_substep=ns, peak_gib=peak,
                                divmax=divmax, bulk_u=ub, card=card)
@@ -700,11 +787,11 @@ def phase_dsmag(dev, card):
                              Config(**DSMAG_CFG), dev, card, 5, per_step)
     print(json.dumps({'dsmag_channel': res}), flush=True)
     per_step_imp = dict(per_step, dsmag=0, smag=3)
-    _, launches_imp, res = drive('phase 7b: static-Smagorinsky LES, '
-                                 'impdiff_1d', Config(**LES_IMP_CFG), dev,
-                                 card, 5, per_step_imp)
-    print(json.dumps({'les_impdiff': res}), flush=True)
-    return launches, launches_imp
+    _, launches_imp, res_imp = drive('phase 7b: static-Smagorinsky LES, '
+                                     'impdiff_1d', Config(**LES_IMP_CFG), dev,
+                                     card, 5, per_step_imp)
+    print(json.dumps({'les_impdiff': res_imp}), flush=True)
+    return launches, launches_imp, res
 
 
 def phase_ywalls(dev, card):
@@ -714,13 +801,78 @@ def phase_ywalls(dev, card):
     from cales_torch.config import Config
     per_step = dict(mom_rk=3, fillps=3, apply_y=6, z_eig=3,
                     correc_updatep=3, dsmag=3)
-    _, duct, res = drive('phase 8: dynamic-Smagorinsky duct',
-                         Config(**DUCT_CFG), dev, card, 5, per_step)
-    print(json.dumps({'duct': res}), flush=True)
-    _, cavity, res = drive('phase 8b: dynamic-Smagorinsky cavity',
-                           Config(**CAVITY_CFG), dev, card, 5, per_step)
-    print(json.dumps({'cavity': res}), flush=True)
-    return duct, cavity
+    _, duct, res_d = drive('phase 8: dynamic-Smagorinsky duct',
+                           Config(**DUCT_CFG), dev, card, 5, per_step)
+    print(json.dumps({'duct': res_d}), flush=True)
+    _, cavity, res_c = drive('phase 8b: dynamic-Smagorinsky cavity',
+                             Config(**CAVITY_CFG), dev, card, 5, per_step)
+    print(json.dumps({'cavity': res_c}), flush=True)
+    return duct, cavity, res_d, res_c
+
+
+@contextlib.contextmanager
+def twopass():
+    """CALES_DSMAG_TWOPASS=1 for the Simulations made inside the block:
+    the two-pass dynamic Smagorinsky where the one pass would run."""
+    old = os.environ.get('CALES_DSMAG_TWOPASS')
+    os.environ['CALES_DSMAG_TWOPASS'] = '1'
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ['CALES_DSMAG_TWOPASS']
+        else:
+            os.environ['CALES_DSMAG_TWOPASS'] = old
+
+
+def phase_twopass(dev, card, onepass):
+    """The two-pass dynamic Smagorinsky (dsmag_level1, the filtered
+    velocity's fill, dsmag_level2) at 512x256x256 f32 through driver.run:
+    the transpiring channel dsmag_blow, which only the two passes carry
+    (phase 7c); then the dsmag channel, duct and cavity by two passes
+    (CALES_DSMAG_TWOPASS=1, phase 7d) beside their one-pass runs of phases
+    7, 8 and 8b in this call (onepass: their result dicts), with nu_t of
+    both routes on the same state.  The f32 bound on nu_t, 1e-4 of its
+    maximum: the routes differ only by the order of the sums and by FMA
+    contraction.  Returns the launches of the two-pass runs."""
+    from cales_torch.config import Config
+    from cales_torch.timeloop import Simulation
+    base = dict(mom_rk=3, fillps=3, apply_y=6, z_eig=3, correc_updatep=3,
+                dsmag_level1=3, dsmag_level2=3)
+    chan = dict(base, thomas_z=9)
+    sim, blow, res = drive('phase 7c: dsmag_blow, the transpiring dsmag '
+                           'channel', Config(**DSMAG_BLOW_CFG), dev, card, 5,
+                           chan)
+    require(sim.dsmag_twopass, 'phase 7c: not on the two-pass route')
+    print(json.dumps({'dsmag_blow': res}), flush=True)
+    out = {'blow': blow}
+    for key, kw, per_step in (('channel', DSMAG_CFG, chan),
+                              ('duct', DUCT_CFG, base),
+                              ('cavity', CAVITY_CFG, base)):
+        keep = {}
+        with twopass():
+            sim, launches, res = drive(f'phase 7d: dsmag {key}, two passes',
+                                       Config(**kw), dev, card, 5, per_step,
+                                       keep=keep)
+        require(sim.dsmag_twopass, f'phase 7d {key}: not on two passes')
+        one = Simulation(sim.cfg, sim.grid, device=dev)
+        require(not one.dsmag_twopass, f'phase 7d {key}: one pass expected')
+        st = keep.pop('state')
+        nu1, nu2 = (s_._sgs_stage(st.u, st.v, st.w, st.zq, st.vlo)
+                    for s_ in (one, sim))
+        rel = float((nu1 - nu2).abs().max() / nu1.abs().max())
+        one_res = onepass[key]
+        say(f'  {key}: one pass {one_res["ms_per_step"]:.3f} ms/step, '
+            f'{one_res["peak_gib"]:.2f} GiB; two passes '
+            f'{res["ms_per_step"]:.3f} ms/step, {res["peak_gib"]:.2f} GiB; '
+            f'nu_t of the two routes on one state apart by {rel:.3e} of '
+            f'its maximum (bound 1e-4)  [{card}]')
+        require(rel <= 1e-4, f'phase 7d {key}: nu_t apart by {rel:.3e}')
+        res['nu_t_one_vs_two_rel'] = rel
+        print(json.dumps({f'dsmag_twopass_{key}': res}), flush=True)
+        out[key] = launches
+        del sim, one, st, nu1, nu2
+    return out
 
 
 def _kinetic_energy(state):
@@ -881,13 +1033,18 @@ def phase_triperiodic(dev, card):
     return tri3, dns3
 
 
-def _card_vs_cpu(tag, cfg, dev, names, rel=()):
+def _card_vs_cpu(tag, cfg, dev, names, rel=(), two=False):
     from cales_torch.grid import make_grid_from_config
     from cales_torch.initflow import initflow
     from cales_torch.timeloop import Simulation
     grid = make_grid_from_config(cfg)
     u, v, w, p = initflow(cfg, grid)
-    sims = [Simulation(cfg, grid, device=dv) for dv in (dev, 'cpu')]
+    with twopass() if two else contextlib.nullcontext():
+        sims = [Simulation(cfg, grid, device=dv) for dv in (dev, 'cpu')]
+        s32 = Simulation(cfg.replace(dtype='float32'), grid, device=dev)
+    if two:
+        require(all(s.dsmag_twopass for s in (*sims, s32)),
+                f'{tag}: not on the two-pass route')
     states = [s.initial_state(u, v, w, p) for s in sims]
     dt = sims[1].pick_dt(sims[1].check(states[1])[0])
     for _ in range(3):
@@ -910,7 +1067,6 @@ def _card_vs_cpu(tag, cfg, dev, names, rel=()):
         require(err <= tol, f'card vs CPU {name}: {err:.3e} above {tol:.0e}')
     # the working precision: float32 on the card against the float64 CPU
     # run, relative to each field's maximum (f32 rounding over 9 substeps)
-    s32 = Simulation(cfg.replace(dtype='float32'), grid, device=dev)
     st32 = s32.initial_state(u, v, w, p)
     for _ in range(3):
         st32, _ = s32.step(st32, dt)
@@ -944,12 +1100,21 @@ def phase_card_vs_cpu(dev):
         _card_vs_cpu(tag, Config(**{**cfg, **small}), dev,
                      (('u', 1e-11), ('v', 1e-11), ('w', 1e-11), ('p', 1e-10),
                       ('visct', 1e-10)), rel=('visct',))
-    # the y-walled duct and cavity, their kept wall planes included
-    for tag, cfg in (('phase 6e (dsmag duct)', DUCT_CFG),
-                     ('phase 6f (dsmag cavity)', CAVITY_CFG)):
+    # the y-walled duct and cavity, their kept wall planes included; the
+    # duct by two passes too
+    for tag, cfg, two in (('phase 6e (dsmag duct)', DUCT_CFG, False),
+                          ('phase 6f (dsmag cavity)', CAVITY_CFG, False),
+                          ('phase 6k (dsmag duct, two passes)', DUCT_CFG,
+                           True)):
         _card_vs_cpu(tag, Config(**{**cfg, **small}), dev,
                      (('u', 1e-11), ('v', 1e-11), ('w', 1e-11), ('p', 1e-10),
-                      ('visct', 1e-10), ('vlo', 1e-11)), rel=('visct',))
+                      ('visct', 1e-10), ('vlo', 1e-11)), rel=('visct',),
+                     two=two)
+    # the transpiring channel (the two passes by the route rule)
+    _card_vs_cpu('phase 6l (dsmag_blow, two passes)',
+                 Config(**{**DSMAG_BLOW_CFG, **small}), dev,
+                 (('u', 1e-11), ('v', 1e-11), ('w', 1e-11), ('p', 1e-10),
+                  ('visct', 1e-10)), rel=('visct',))
     # the Taylor-Green vortex by 'mat' with the periodic Thomas z stage and
     # by 'fft', full-3D implicit diffusion on the box and the channel
     uvwp = (('u', 1e-11), ('v', 1e-11), ('w', 1e-11), ('p', 1e-10))
@@ -991,25 +1156,35 @@ def main():
               steps=3, kernels=('mom_rk', 'fillps', 'correc_updatep'))
     les = phase_les(dev, card)
     phase_dns(dev, card)
-    dsm, les_imp = phase_dsmag(dev, card)
-    duct, cavity = phase_ywalls(dev, card)
+    dsm, les_imp, res_dsm = phase_dsmag(dev, card)
+    duct, cavity, res_duct, res_cav = phase_ywalls(dev, card)
+    two = phase_twopass(dev, card, {'channel': res_dsm, 'duct': res_duct,
+                                    'cavity': res_cav})
     tgv = phase_tgv(dev, card)
     tri3, dns3 = phase_triperiodic(dev, card)
     phase_card_vs_cpu(dev)
     # each kernel's launches on the main path that runs it: the dsmag
     # channel (5 steps), or the LES (31 steps) for correc_smag, or the
     # smag + impdiff_1d LES (5 steps) for smag, or the TGV by 'mat' (5
-    # steps) for thomas_periodic; the y-walled variants' on the duct (5
-    # steps), the cavity's dsmag on the cavity (5 steps); the full-3D
+    # steps) for thomas_periodic, or dsmag_blow (5 steps) for the two-pass
+    # kernels; the y-walled variants' on the duct (5 steps), the cavity's
+    # dsmag on the cavity (5 steps), the two-pass ones' on the two-pass
+    # duct and cavity of phase 7d (5 steps each); the full-3D
     # variants' on the triperiodic DNS with full-3D implicit diffusion (5
     # steps), thomas_z's on the channel DNS with it (5 steps)
     paths = {name: (dsm, 5, name) for name in KERNELS}
     paths['correc_smag'] = (les, 31, 'correc_smag')
     paths['smag'] = (les_imp, 5, 'smag')
     paths['thomas_periodic'] = (tgv, 5, 'thomas_periodic')
+    paths['dsmag_level1'] = (two['blow'], 5, 'dsmag_level1')
+    paths['dsmag_level2'] = (two['blow'], 5, 'dsmag_level2')
     variant_path = {'duct': duct, 'cavity': cavity, 'helmholtz3d': dns3}
     for row, (name, variant) in VARIANT_ROWS.items():
-        paths[row] = (variant_path.get(variant, tri3), 5, name)
+        if name in ('dsmag_level1', 'dsmag_level2'):
+            # the two-pass duct and cavity of phase 7d
+            paths[row] = (two[variant], 5, name)
+        else:
+            paths[row] = (variant_path.get(variant, tri3), 5, name)
     sources = {**{n: KERNELS[n] for n in KERNELS},
                **{row: KERNELS[n] for row, (n, _) in VARIANT_ROWS.items()}}
     report = {'kernels': [

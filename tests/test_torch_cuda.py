@@ -1,7 +1,8 @@
 """cales_torch's CUDA kernels on the card: each against its plain twin, and
 the slices (channel LES, implicit-CN channel DNS, dynamic-Smagorinsky
 channel, static-Smagorinsky LES with impdiff_1d, the y-walled duct and
-cavity, the triperiodic Taylor-Green vortex and full-3D implicit diffusion)
+cavity, the two-pass dynamic Smagorinsky, the triperiodic Taylor-Green
+vortex and full-3D implicit diffusion)
 on the card against the same slices on the CPU, step for step, fp64.
 
 These tests need an NVIDIA GPU and skip without one.  The file imports
@@ -87,7 +88,8 @@ def test_cuda_kernels_match_twins_on_card(dev):
     torch.cuda.synchronize()
     assert K.LAUNCHES == {'mom_rk': 1, 'fillps': 1, 'correc_smag': 2,
                           'correc_updatep': 0, 'smag': 0,
-                          'dsmag': 0}
+                          'dsmag': 0,
+                          'dsmag_level1': 0, 'dsmag_level2': 0}
 
 
 @pytest.mark.cuda
@@ -106,7 +108,8 @@ def test_card_matches_cpu_step_for_step(dev):
         states = [s.step(st, dt)[0] for s, st in zip(sims, states)]
     assert K.LAUNCHES == {'mom_rk': 9, 'fillps': 9, 'correc_smag': 9,
                           'correc_updatep': 0, 'smag': 0,
-                          'dsmag': 0}
+                          'dsmag': 0,
+                          'dsmag_level1': 0, 'dsmag_level2': 0}
     g, c = states
     for name, tol in (('u', 1e-11), ('v', 1e-11), ('w', 1e-11), ('p', 1e-10),
                       ('visct', 1e-12)):
@@ -160,7 +163,8 @@ def test_cuda_dns_kernels_match_twins_on_card(dev):
     torch.cuda.synchronize()
     assert K.LAUNCHES == {'mom_rk': 2, 'fillps': 0, 'correc_smag': 0,
                           'correc_updatep': 3, 'smag': 0,
-                          'dsmag': 0}
+                          'dsmag': 0,
+                          'dsmag_level1': 0, 'dsmag_level2': 0}
 
 
 @pytest.mark.cuda
@@ -222,7 +226,8 @@ def test_card_matches_cpu_dns_step_for_step(dev):
         states = [s.step(st, dt)[0] for s, st in zip(sims, states)]
     assert K.LAUNCHES == {'mom_rk': 9, 'fillps': 9, 'correc_smag': 0,
                           'correc_updatep': 9, 'smag': 0,
-                          'dsmag': 0}
+                          'dsmag': 0,
+                          'dsmag_level1': 0, 'dsmag_level2': 0}
     assert SK.LAUNCHES == {'apply_y': 18, 'z_eig': 9, 'thomas_z': 27,
                            'thomas_periodic': 0}
     g, c = states
@@ -262,6 +267,7 @@ def _sgs_inputs(dev, ng, seed):
     a2 = np.full(nz, 4.0)
     a2[0] = a2[-1] = 2.52
     return dict(
+        cfg=cfg, grid=grid,
         fields=(u, v, w), edges=edges, dzci=t(grid.dzci), dzfi=t(grid.dzfi),
         dxi=cfg.dli[0], dyi=cfg.dli[1], visc=cfg.visc, alph2=t(a2),
         csd2=t((C_SMAG * setup.delta) ** 2), dw=t(np.minimum(zc, 2.0 - zc)),
@@ -288,7 +294,8 @@ def test_cuda_sgs_kernels_match_twins_on_card(dev):
     _rel_close(den.sum(1), denr[:, 0], 1e-12)
     torch.cuda.synchronize()
     assert K.LAUNCHES == {'mom_rk': 0, 'fillps': 0, 'correc_smag': 0,
-                          'correc_updatep': 0, 'smag': 1, 'dsmag': 1}
+                          'correc_updatep': 0, 'smag': 1, 'dsmag': 1,
+                          'dsmag_level1': 0, 'dsmag_level2': 0}
 
 
 @pytest.mark.cuda
@@ -319,7 +326,7 @@ def test_card_matches_cpu_sgs_step_for_step(dev, case):
     sgs = 'dsmag' if case == 'dsmag' else 'smag'
     assert K.LAUNCHES == {'mom_rk': 9, 'fillps': 9, 'correc_smag': 0,
                           'correc_updatep': 9, 'smag': 0, 'dsmag': 0,
-                          sgs: 9}
+                          'dsmag_level1': 0, 'dsmag_level2': 0, sgs: 9}
     g, c = states
     for name, tol in (('u', 1e-11), ('v', 1e-11), ('w', 1e-11), ('p', 1e-10)):
         a, b = getattr(g, name).cpu(), getattr(c, name)
@@ -437,7 +444,106 @@ def test_cuda_ywalled_kernels_match_twins_on_card(dev):
             _rel_close(den.sum(-1), denr[..., 0], 1e-12)
     torch.cuda.synchronize()
     assert K.LAUNCHES == {'mom_rk': 2, 'fillps': 1, 'correc_smag': 0,
-                          'correc_updatep': 1, 'smag': 0, 'dsmag': 3}
+                          'correc_updatep': 1, 'smag': 0, 'dsmag': 3,
+                          'dsmag_level1': 0, 'dsmag_level2': 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('ywall', [False, True])
+def test_cuda_twopass_dsmag_kernels_match_twins_on_card(dev, ywall):
+    """dsmag_level1 and dsmag_level2 ('channel', 'duct', 'cavity') against
+    their twins on a shape that fits no tile, without and with y walls:
+    the post-correction fill carries a non-zero lower w face, the filtered
+    velocity's static fill w = W on both z faces (transpiring walls)."""
+    from cales_torch.config import effective_cbcvel
+    from cales_torch.ops import boundary as bnd
+    ng = (72, 40, 24)
+    nz = ng[2]
+    if ywall:
+        d = _ywall_inputs(dev, ng, 13)
+        edges, ye = d['zc'], d['yc']
+    else:
+        d = _sgs_inputs(dev, ng, 14)
+        edges, ye = d['edges'], None
+    cfg, grid = d['cfg'], d['grid']
+    a2 = np.full(nz, 4.0)
+    a2[0] = a2[-1] = 2.52
+    alph2 = torch.as_tensor(a2, device=dev)
+    K.reset_launches()
+    l1 = (*d['fields'], *edges, d['dzci'], d['dzfi'], d['dxi'], d['dyi'],
+          True, True)
+    got = K.dsmag_level1(*l1, ye=ye)
+    ref = K.dsmag_level1_plain(*l1, ye=ye)
+    for g, r in zip((*got[0], *got[1], *got[2], got[3]),
+                    (*ref[0], *ref[1], *ref[2], ref[3])):
+        _rel_close(g, r, 1e-12)
+    fm, (fu, fv, fw), lij, s0 = ref
+    zero = bnd.make_bc_values(ng, ((0.0, 0.0),) * 3, torch.float64, dev)
+    bcw = bnd.make_bc_values(ng, ((0.0, 0.0), (0.0, 0.0), (3e-3, 3e-3)),
+                             torch.float64, dev)
+    cbc = effective_cbcvel(cfg)
+    fze = [e.contiguous() for e in bnd.zedge_velocity(
+        fu, fv, fw, cbc, zero, zero, bcw, grid.dzc, grid.dzf)]
+    fye = None
+    if ywall:
+        fye = list(zip(*bnd.yedge_velocity(fu, fv, fw, cbc, zero, zero, bcw,
+                                           cfg.dl, grid.dzc, grid.dzf)))
+    l2 = (fu, fv, fw, *fze, fm, lij, s0, alph2, d['dzci'], d['dzfi'],
+          d['dxi'], d['dyi'])
+    for avg in ('channel', 'duct', 'cavity'):
+        got2 = K.dsmag_level2(*l2, avg=avg, ye=fye)
+        ref2 = K.dsmag_level2_plain(*l2, avg=avg, ye=fye)
+        if avg == 'cavity':
+            _rel_close(got2, ref2, 1e-12)
+            continue
+        for g, r in zip(got2, ref2):
+            _rel_close(g.sum(-1), r[..., 0], 1e-12)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES['dsmag_level1'] == 1
+    assert K.LAUNCHES['dsmag_level2'] == 3 and K.LAUNCHES['dsmag'] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', ['blow_channel', 'duct_twopass'])
+def test_card_matches_cpu_twopass_step_for_step(dev, case, monkeypatch):
+    """The two-pass dynamic Smagorinsky at (32, 16, 16), f64, 3 steps: the
+    channel with transpiring walls (two passes by the route rule) and the
+    duct under CALES_DSMAG_TWOPASS=1, card against CPU."""
+    monkeypatch.setenv('CALES_DSMAG_TWOPASS', '1' if case == 'duct_twopass'
+                       else '')
+    if case == 'blow_channel':
+        face = ((0.0,) * 3, (0.0,) * 3, (0.0, 0.0, 3e-3))
+        kw = dict(l=(12.8, 4.8, 2.0), gr=5.0, visci=10_000.0, inivel='poi',
+                  dsmag_avg='channel', impdiff=True, impdiff_1d=True,
+                  bcvel=(face, face),
+                  cbcvel=((('P', 'P', 'P'), ('P', 'P', 'P'),
+                           ('D', 'D', 'D')),) * 2,
+                  cbcpre=(('P', 'P', 'N'),) * 2,
+                  cbcsgs=(('P', 'P', 'D'),) * 2)
+    else:
+        kw = dict(l=(4 * np.pi, 2.0, 2.0), gr=1.0, visci=10_000.0,
+                  inivel='duc', dsmag_avg='duct', **DUCT_BCS)
+    cfg = Config(ng=(32, 16, 16), gtype=1, is_wallturb=True,
+                 is_forced=(True, False, False), velf=(1.0, 0.0, 0.0),
+                 sgstype='dsmag', dtype='float64', ptransform='mat', **kw)
+    grid = make_grid_from_config(cfg)
+    fields = initflow(cfg, grid)
+    sims = [Simulation(cfg, grid, device=d) for d in (dev, 'cpu')]
+    assert all(s.dsmag_twopass for s in sims)
+    states = [s.initial_state(*fields) for s in sims]
+    dt = sims[1].pick_dt(sims[1].check(states[1])[0])
+    K.reset_launches()
+    for _ in range(3):
+        states = [s.step(st, dt)[0] for s, st in zip(sims, states)]
+    assert K.LAUNCHES['dsmag_level1'] == K.LAUNCHES['dsmag_level2'] == 9
+    assert K.LAUNCHES['dsmag'] == 0
+    g, c = states
+    for name, tol in (('u', 1e-11), ('v', 1e-11), ('w', 1e-11), ('p', 1e-10)):
+        a, b = getattr(g, name).cpu(), getattr(c, name)
+        if name == 'p':
+            a, b = a - a.mean(), b - b.mean()
+        assert float((a - b).abs().max()) <= tol, name
+    _rel_close(g.visct.cpu(), c.visct, 1e-10)
 
 
 @pytest.mark.cuda
@@ -469,7 +575,8 @@ def test_card_matches_cpu_ywalled_step_for_step(dev, case):
         states = [s.step(st, dt)[0] for s, st in zip(sims, states)]
     assert K.LAUNCHES == {'mom_rk': 9, 'fillps': 9, 'correc_smag': 0,
                           'correc_updatep': 9, 'smag': 0,
-                          'dsmag': 0 if case == 'duct_none' else 9}
+                          'dsmag': 0 if case == 'duct_none' else 9,
+                          'dsmag_level1': 0, 'dsmag_level2': 0}
     g, c = states
     for name, tol in (('u', 1e-11), ('v', 1e-11), ('w', 1e-11), ('p', 1e-10)):
         a, b = getattr(g, name).cpu(), getattr(c, name)

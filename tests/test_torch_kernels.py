@@ -227,7 +227,8 @@ def test_wrappers_take_the_twin_on_cpu_without_launching():
     torch.testing.assert_close(K.fillps(*args), K.fillps_plain(*args),
                                rtol=0, atol=0)
     assert K.LAUNCHES == {'mom_rk': 0, 'fillps': 0, 'correc_smag': 0,
-                          'correc_updatep': 0, 'smag': 0, 'dsmag': 0}
+                          'correc_updatep': 0, 'smag': 0, 'dsmag': 0,
+                          'dsmag_level1': 0, 'dsmag_level2': 0}
 
 
 def test_wrapper_rejects_other_devices():

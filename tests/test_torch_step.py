@@ -162,8 +162,11 @@ def test_exec_path_names_device_kernels_and_solve(pair):
     (dict(sgstype='dsmag', filter_2d=True), 'filter_2d'),
     (dict(sgstype='dsmag', lwm=((0, 0, 1), (0, 0, 1)), hwm=0.1),
      'wall model'),
-    (dict(sgstype='dsmag', bcvel=(((0.,) * 3, (0.,) * 3, (0., 0., 0.1)),
-                                  ((0.,) * 3,) * 3)), 'non-zero w'),
+    (dict(sgstype='dsmag',
+          cbcvel=((('P', 'P', 'P'), ('D', 'D', 'D'), ('D', 'D', 'D')),) * 2,
+          cbcpre=(('P', 'N', 'N'),) * 2, cbcsgs=(('P', 'D', 'D'),) * 2,
+          bcvel=(((0.,) * 3, (0., 0.1, 0.), (0.,) * 3), ((0.,) * 3,) * 3)),
+     'non-zero v'),
     (dict(cbcvel=((('P', 'P', 'P'), ('D', 'D', 'D'), ('D', 'D', 'D')),) * 2,
           cbcpre=(('P', 'N', 'N'),) * 2), 'non-periodic y'),
     (dict(scalar=True), 'scalar'),
