@@ -1,8 +1,19 @@
 """CLI entry point: ``python -m cales_torch [input.nml] [--datadir DIR]
-[--dtype float32|float64] [--max-steps N] [--device cuda|cpu]``.
+[--dtype float32|float64] [--max-steps N] [--device cuda|cpu]
+[--transport nccl|gloo]``.
 
 The default device is cuda; without a card the run stops with an error.
-``--device cpu`` runs the kernels' plain PyTorch twins instead."""
+``--device cpu`` runs the kernels' plain PyTorch twins instead.  A
+namelist with dims(1:2) = gy, 1 runs on a y-slab mesh of gy ranks, one
+process each:
+
+    python -m torch.distributed.run --nproc_per_node gy -m cales_torch \
+        input.nml [--transport gloo]
+
+over NCCL, a card a rank (the default on cuda), or gloo (the default on
+the CPU; with cuda it stages the tensors through the host, so that the
+ranks can share one card).  A world size that is not gy, or NCCL with
+fewer cards than ranks, stops the run with an error."""
 from __future__ import annotations
 
 import argparse
@@ -24,6 +35,10 @@ def main(argv=None):
     ap.add_argument('--device', default='cuda',
                     help="torch device: 'cuda' (default, the CUDA kernels), "
                          "'cuda:N', or 'cpu' (the plain twins)")
+    ap.add_argument('--transport', default=None, choices=['nccl', 'gloo'],
+                    help='collectives of a dims mesh: nccl (a card a rank; '
+                         'the default on cuda) or gloo (the default on the '
+                         'CPU; CUDA tensors staged through the host)')
     args = ap.parse_args(argv)
 
     from .nml import config_from_nml
@@ -34,7 +49,7 @@ def main(argv=None):
         overrides['dtype'] = args.dtype
     cfg = config_from_nml(args.input, **overrides)
     run(cfg, datadir=args.datadir, device=args.device,
-        max_steps=args.max_steps)
+        max_steps=args.max_steps, transport=args.transport)
     return 0
 
 

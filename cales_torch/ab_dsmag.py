@@ -1,24 +1,31 @@
-"""The one-pass dsmag kernel of another checkout against this one's, on the
-same card in one process: are their outputs bitwise equal, and how long
-does each take?
+"""Kernels of another checkout against this one's, on the same card in one
+process: are their outputs bitwise equal, and how long does each take?
+The kernels whose code moved: the one-pass dsmag (its z-march stages into
+dsmag_common.cuh), apply_y (its GEMM into gemm.cuh), and the periodic and
+y-walled variants of mom_rk, fillps, correc_updatep and smag (their y
+reads through common.cuh's y mode, beside the slab's halo mode).
 
     python -m cales_torch.ab_dsmag --baseline DIR [--ng 512x256x256]
                                    [--reps 10]
 
-DIR holds another checkout's cales_torch/csrc (for example the parent
-commit unpacked by git archive); its library builds under
-DIR/cales_torch/_build.  Both libraries run through this checkout's
-wrapper, kernels.dsmag, on the same seeded random inputs: the 'channel'
-average without y walls, 'duct' and 'cavity' with them.  Outputs are
-compared in float64 at (nx, ny, nz) = (72, 40, 48) and in float32 at --ng;
-times are float32 at --ng, the mean of --reps calls after a warm-up (CUDA
-events), taken in the order baseline, this, this, baseline.  Prints one
-JSON line.  Needs a CUDA device.
+DIR holds another checkout (for example the parent commit unpacked by git
+archive).  Its cales_torch is imported beside this one under another
+name, so each checkout's wrappers drive its own library (built under
+DIR/cales_torch/_build): the C interfaces may differ, the Python calls
+compared here do not.  Both run on the same seeded random inputs: dsmag's
+'channel' average without y walls, 'duct' and 'cavity' with them; apply_y
+with the x operator fused and y only; mom_rk (with nu_t, the previous RHS
+and the bulk sums), fillps and correc_updatep periodic and with y walls;
+smag.  Outputs are compared in float64 at (nx, ny, nz) = (72, 40, 48) and
+in float32 at --ng; times are float32 at --ng, the mean of --reps calls
+after a warm-up (CUDA events), taken in the order baseline, this, this,
+baseline.  Prints one JSON line.  Needs a CUDA device.
 """
 from __future__ import annotations
 
 import argparse
-import contextlib
+import importlib
+import importlib.util
 import json
 import subprocess
 import sys
@@ -26,19 +33,26 @@ from pathlib import Path
 
 import torch
 
-from .ops import build
 from .ops import kernels as K
+from .ops import solve_kernels as SK
+
+CASES = ('channel', 'duct', 'cavity', 'apply_y x+y', 'apply_y y', 'mom_rk',
+         'mom_rk y walls', 'fillps', 'fillps y walls', 'correc_updatep',
+         'correc_updatep y walls', 'smag')
 
 
-@contextlib.contextmanager
-def _library(lib):
-    """Launch the wrappers' kernels from `lib` inside the block."""
-    saved = build.load
-    build.load = lambda: lib
-    try:
-        yield
-    finally:
-        build.load = saved
+def _baseline(root: Path):
+    """(kernels, solve_kernels) of the checkout at root, imported as the
+    package cales_torch_baseline."""
+    name = 'cales_torch_baseline'
+    pkg = root / 'cales_torch'
+    spec = importlib.util.spec_from_file_location(
+        name, pkg / '__init__.py', submodule_search_locations=[str(pkg)])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return (importlib.import_module(f'{name}.ops.kernels'),
+            importlib.import_module(f'{name}.ops.solve_kernels'))
 
 
 def _inputs(ng, dtype, seed):
@@ -48,22 +62,50 @@ def _inputs(ng, dtype, seed):
     def rnd(*shape):
         return 0.02 * torch.randn(shape, generator=gen, device='cuda',
                                   dtype=dtype)
-    f = [rnd(nz, ny, nx) for _ in range(3)]
-    e = [rnd(3, ny, nx) for _ in range(3)]
-    ye = [(rnd(nz, 3, nx), rnd(3, 3, nx)) for _ in range(3)]
+    f = [rnd(nz, ny, nx) for _ in range(8)]
+    e = [rnd(3, ny, nx) for _ in range(5)]
+    ye = [(rnd(nz, 3, nx), rnd(3, 3, nx)) for _ in range(5)]
     alph2 = torch.full((nz,), 4.0, dtype=dtype, device='cuda')
     alph2[0] = alph2[-1] = 2.52
     dz = 1.0 + 0.1 * torch.rand(nz + 2, generator=gen, device='cuda',
                                 dtype=dtype)
-    return f, e, ye, alph2, dz
+    nx_op = 0.1 * torch.randn((nx, nx), generator=gen, device='cuda',
+                              dtype=dtype)
+    ny_op = 0.1 * torch.randn((ny, ny), generator=gen, device='cuda',
+                              dtype=dtype)
+    prof = 1e-3 * (1.0 + torch.rand(nz, generator=gen, device='cuda',
+                                    dtype=dtype))
+    nearlo = (torch.arange(nz, device='cuda') < nz // 2).to(dtype)
+    tauw = [1e-2 * (1.0 + rnd(ny, nx)) for _ in range(2)]
+    return dict(f=f, e=e, ye=ye, alph2=alph2, dz=dz, ny_op=ny_op,
+                nx_op=nx_op, prof=prof, nearlo=nearlo, tauw=tauw)
 
 
-def _call(d, avg):
-    f, e, ye, alph2, dz = d
-    return K.dsmag(*f, *e, alph2, dz, dz, 40.0, 20.0, True, True,
-                   (0.0, 0.02, 0.0, -0.01),
-                   ye=None if avg == 'channel' else ye,
-                   yvals=(0.2, 0.0, -0.1, 0.3), avg=avg)
+def _call(mods, d, case):
+    Km, SKm = mods
+    f, e, ye, dz = d['f'], d['e'], d['ye'], d['dz']
+    walls = case.endswith('y walls')
+    if case.startswith('apply_y'):
+        return (SKm.apply_y(f[0], d['ny_op'],
+                            d['nx_op'] if case == 'apply_y x+y' else None),)
+    if case.startswith('mom_rk'):
+        return Km.mom_rk(*f[:5], *e, *f[5:8], dz, dz, 0.01, -0.005, 5e-5,
+                         40.0, 20.0, (0.1, 0.0, 0.0), sums=(True, True),
+                         ye=ye if walls else None)
+    if case.startswith('fillps'):
+        return (Km.fillps(*f[:3], *e[:3], dz, 100.0, 40.0, 20.0,
+                          yv=ye[1] if walls else None),)
+    if case.startswith('correc_updatep'):
+        return Km.correc_updatep(*f[:5], e[2], e[4], 0.01, 40.0, 20.0, dz,
+                                 dz, ypp=ye[4] if walls else None,
+                                 yv=ye[1][0] if walls else None)
+    if case == 'smag':
+        return (Km.smag(*f[:3], *e[:3], dz, dz, 40.0, 20.0, 5e-5, d['prof'],
+                        d['prof'], d['nearlo'], *d['tauw']),)
+    return Km.dsmag(*f[:3], *e[:3], d['alph2'], dz, dz, 40.0, 20.0, True,
+                    True, (0.0, 0.02, 0.0, -0.01),
+                    ye=None if case == 'channel' else ye[:3],
+                    yvals=(0.2, 0.0, -0.1, 0.3), avg=case)
 
 
 def _time_ms(fn, reps):
@@ -90,31 +132,26 @@ def main(argv=None):
     card = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                            '--format=csv,noheader'], capture_output=True,
                           text=True, check=True).stdout.strip()
-    base_dir = args.baseline.resolve()
-    libs = {'baseline': build.open_library(build.build(
-                csrc=base_dir / 'cales_torch' / 'csrc',
-                root=base_dir / 'cales_torch' / '_build')),
-            'this': build.load()}
+    mods = {'baseline': _baseline(args.baseline.resolve()),
+            'this': (K, SK)}
     ng = tuple(int(x) for x in args.ng.lower().split('x'))
     out = dict(card=card, ng=ng, bitwise={}, ms={})
     for dtype, shape in ((torch.float64, (72, 40, 48)),
                          (torch.float32, ng)):
         d = _inputs(shape, dtype, 20261016)
-        for avg in ('channel', 'duct', 'cavity'):
-            res = {}
-            for name, lib in libs.items():
-                with _library(lib):
-                    res[name] = [q for q in _call(d, avg) if q is not None]
-            same = all(torch.equal(a, b)
-                       for a, b in zip(res['baseline'], res['this']))
-            out['bitwise'][f'{avg} {str(dtype)[6:]}'] = same
+        for case in CASES:
+            res = {name: [q for q in _call(m, d, case) if q is not None]
+                   for name, m in mods.items()}
+            same = len(res['baseline']) == len(res['this']) and all(
+                torch.equal(a, b)
+                for a, b in zip(res['baseline'], res['this']))
+            out['bitwise'][f'{case} {str(dtype)[6:]}'] = same
             if dtype == torch.float32:
-                times = {name: [] for name in libs}
+                times = {name: [] for name in mods}
                 for name in ('baseline', 'this', 'this', 'baseline'):
-                    with _library(libs[name]):
-                        times[name].append(_time_ms(
-                            lambda: _call(d, avg), args.reps))
-                out['ms'][avg] = times
+                    times[name].append(_time_ms(
+                        lambda: _call(mods[name], d, case), args.reps))
+                out['ms'][case] = times
             del res
         del d
         torch.cuda.empty_cache()

@@ -11,7 +11,9 @@
 // is never read.  x is periodic and wraps here; so is y, unless the
 // y-walled accessor (at<true>, the duct and cavity classes) takes the y
 // rows -1, ny-1 and ny from the field's y-row stack (ops/boundary.yedge_*)
-// in the same way.
+// in the same way, or the halo accessor (aty<Y_HALO>, a y slab of a
+// mesh) takes the rows -1 and ny from the neighbours' rows
+// (parallel/mesh.halo_y).
 #pragma once
 
 #include <cstdint>
@@ -109,6 +111,53 @@ __device__ __forceinline__ T at(const T* f, const T* e, const YRows<T>& y,
       const int r = jy < 0 ? 0 : jy - c.ny + 2;
       return __ldg(yrow(y, c.k + dk, r, c.nz, c.nx) + c.ii(di));
     }
+  }
+  return at(f, e, c, dk, dj, di);
+}
+
+// The y modes of a stencil kernel: y periodic on the whole field, y walls
+// (the y-row stacks above), or a slab of a y-sharded mesh whose rows -1 and
+// ny come from its neighbours.
+enum YMode { Y_PERIODIC = 0, Y_WALLS = 1, Y_HALO = 2 };
+
+// The y halo of one field on a slab: rows (nz, 2, nx) = [row -1 (the lower
+// neighbour's last row), row ny (the upper neighbour's first row)] and
+// their z-edge stack entries, the corners (3, 2, nx), ordered as the
+// field's own z-edge stack.  Row ny-1 is an interior row of the slab (with
+// y walls it is v's wall face; the halo mode never takes it over).  The
+// same struct as the y-row stack, two rows deep.
+template <typename T>
+__device__ __forceinline__ const T* hrow(const YRows<T>& h, int kz, int r,
+                                         int nz, int nx) {
+  const int64_t n2 = 2 * static_cast<int64_t>(nx);
+  const T* base = kz < 0 ? h.corners
+                  : kz >= nz - 1 ? h.corners + (kz - nz + 2) * n2
+                                 : h.rows + kz * n2;
+  return base + static_cast<int64_t>(r) * nx;
+}
+
+// Whether a cell of row j reads a row outside the plain accessor's at
+// offsets dj in {-1, 0, 1}: the wall rows (y_edge) with y walls, rows -1
+// and ny on a slab.  The kernels branch on it once a cell, so a warp (one
+// row's run) takes one path.
+template <int YM>
+__device__ __forceinline__ bool y_edge_of(int j, int ny) {
+  if (YM == Y_WALLS) return y_edge(j, ny);
+  if (YM == Y_HALO) return j == 0 || j == ny - 1;
+  return false;
+}
+
+// at() in y mode YM: Y_WALLS is at<true>; Y_HALO reads the rows j+dj = -1
+// and ny from the halo (and its corners at a z ghost or the z rewrite
+// row), every other read from the interior and its z-edge stack.
+template <int YM, typename T>
+__device__ __forceinline__ T aty(const T* f, const T* e, const YRows<T>& y,
+                                 const Cell& c, int dk, int dj, int di) {
+  if (YM == Y_WALLS) return at<true>(f, e, y, c, dk, dj, di);
+  if (YM == Y_HALO) {
+    const int jy = c.j + dj;
+    if (jy < 0 || jy >= c.ny)
+      return __ldg(hrow(y, c.k + dk, jy < 0 ? 0 : 1, c.nz, c.nx) + c.ii(di));
   }
   return at(f, e, c, dk, dj, di);
 }

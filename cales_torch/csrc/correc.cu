@@ -16,6 +16,8 @@
 // ghost rows from its y-row stack and v's wall face (interior row ny-1)
 // from v's: the prediction fill's set_bc rewrite enters the correction
 // there, as in the reference's padded sweep (pallas_kernels.py:1557-1563).
+// The halo variant (a slab of a y-sharded mesh, cales_tpu _correc_sharded)
+// reads pp's rows -1 and ny from its halo; v's last row is the slab's own.
 //
 // Bound on the H100: memory.  About 8 field streams per call (read u, v,
 // w, pp, p; write u, v, w, p): 1.07 GB at 512x256x256 f32, a 0.32 ms
@@ -25,8 +27,14 @@
 
 namespace cales {
 
-template <typename T, bool YW>
-__global__ void __launch_bounds__(CALES_THREADS) correc_kernel(
+// The f32 halo variant holds to the 8 blocks an SM that the plain one
+// reaches with its 32 registers (its edge-row path would take 46).  The
+// others take 0, no minimum, as a bare __launch_bounds__(CALES_THREADS): a
+// minimum of 1 makes ptxas spend registers (the f32 plain variant 32 -> 47).
+template <typename T, int YM>
+__global__ void __launch_bounds__(CALES_THREADS,
+                                  YM == Y_HALO && sizeof(T) == 4 ? 8 : 0)
+    correc_kernel(
     const T* __restrict__ u, const T* __restrict__ v, const T* __restrict__ w,
     const T* __restrict__ pp, const T* __restrict__ p,
     const T* __restrict__ we, const T* __restrict__ ppe,
@@ -44,14 +52,15 @@ __global__ void __launch_bounds__(CALES_THREADS) correc_kernel(
   const int64_t o = static_cast<int64_t>(k) * plane + idx;
   const T fu = fuv != nullptr ? fuv[0] : T(0);
   const T fv = fuv != nullptr ? fuv[1] : T(0);
-  // Y: the cell's row reads a y-wall row of pp or v (common.cuh y_edge)
+  // Y: the y mode of the reads, YM where the cell's row reads a y-wall row
+  // of pp or v, or a halo row of pp (common.cuh y_edge_of)
   auto update = [&](auto ytag) {
-    constexpr bool Y = decltype(ytag)::value;
-#define PP(dk, dj, di) at<Y>(pp, ppe, ypp, c, dk, dj, di)
+    constexpr int Y = decltype(ytag)::value;
+#define PP(dk, dj, di) aty<Y>(pp, ppe, ypp, c, dk, dj, di)
     const T ppc = PP(0, 0, 0);
     const T ppk = PP(1, 0, 0);
     const T dzci_c = dzci[k + 1];
-    const T vin = (Y && c.j == ny - 1)
+    const T vin = (Y == Y_WALLS && c.j == ny - 1)
                       ? yvr[(static_cast<int64_t>(k) * 3 + 1) * nx + c.i]
                       : v[o];
     uo[o] = fu + u[o] - cx * (PP(0, 0, 1) - ppc);
@@ -71,30 +80,35 @@ __global__ void __launch_bounds__(CALES_THREADS) correc_kernel(
     po[o] = pn;
 #undef PP
   };
-  if constexpr (YW) {
-    if (y_edge(c.j, ny))
-      update(std::true_type{});
+  using Plain = std::integral_constant<int, Y_PERIODIC>;
+  if constexpr (YM != Y_PERIODIC) {
+    if (y_edge_of<YM>(c.j, ny))
+      update(std::integral_constant<int, YM>{});
     else
-      update(std::false_type{});
+      update(Plain{});
   } else {
-    update(std::false_type{});
+    update(Plain{});
   }
 }
 
 // yppr, yppc: pp's y-row stack and corners; yvr: v's y-row stack (its
-// row 1 is the wall face); all three null without y walls
+// row 1 is the wall face); all three null with periodic y.  halo: yppr,
+// yppc are pp's halo rows and corners on a slab, and yvr is null.
 template <typename T>
 int launch_correc(const T* u, const T* v, const T* w, const T* pp,
                   const T* p, const T* we, const T* ppe, const T* dzci,
                   const T* dzfi, const T* fuv, T* uo, T* vo, T* wo, T* po,
                   const T* yppr, const T* yppc, const T* yvr, int nz, int ny,
-                  int nx, int impdiff, int impdiff_1d, double dtrk,
+                  int nx, int halo, int impdiff, int impdiff_1d, double dtrk,
                   double dxi, double dyi, double alpha, void* stream) {
-  const bool yw = yppr != nullptr;
-  if (yw != (yppc != nullptr) || yw != (yvr != nullptr))
+  const bool ys = yppr != nullptr;
+  if (ys != (yppc != nullptr) || (halo && !ys) ||
+      (yvr != nullptr) != (ys && !halo))
     return static_cast<int>(cudaErrorInvalidValue);
   const YRows<T> ypp{yppr, yppc};
-  auto kern = yw ? &correc_kernel<T, true> : &correc_kernel<T, false>;
+  auto kern = !ys    ? &correc_kernel<T, Y_PERIODIC>
+              : halo ? &correc_kernel<T, Y_HALO>
+                     : &correc_kernel<T, Y_WALLS>;
   kern<<<plane_grid(nz, ny, nx), CALES_THREADS, 0,
          static_cast<cudaStream_t>(stream)>>>(
       u, v, w, pp, p, we, ppe, dzci, dzfi, fuv, uo, vo, wo, po, ypp, yvr, nz,
@@ -110,13 +124,13 @@ int launch_correc(const T* u, const T* v, const T* w, const T* pp,
                       const T* p, const T* we, const T* ppe, const T* dzci,  \
                       const T* dzfi, const T* fuv, T* uo, T* vo, T* wo,      \
                       T* po, const T* yppr, const T* yppc, const T* yvr,     \
-                      int nz, int ny, int nx, int impdiff, int impdiff_1d,   \
-                      double dtrk, double dxi, double dyi, double alpha,     \
-                      void* stream) {                                        \
+                      int nz, int ny, int nx, int halo, int impdiff,         \
+                      int impdiff_1d, double dtrk, double dxi, double dyi,   \
+                      double alpha, void* stream) {                          \
     return cales::launch_correc<T>(u, v, w, pp, p, we, ppe, dzci, dzfi, fuv, \
                                    uo, vo, wo, po, yppr, yppc, yvr, nz, ny,  \
-                                   nx, impdiff, impdiff_1d, dtrk, dxi, dyi,  \
-                                   alpha, stream);                           \
+                                   nx, halo, impdiff, impdiff_1d, dtrk, dxi, \
+                                   dyi, alpha, stream);                      \
   }
 
 CALES_CORREC_ENTRY(cales_correc_f32, float)

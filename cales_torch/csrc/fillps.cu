@@ -7,7 +7,9 @@
 // through the edge stack's row 1.  The y-walled variant (YW, the duct and
 // cavity classes) reads v's lower wall face and its rewrite row from v's
 // y-row stack (pallas_kernels.py:1144-1155: v is the one field read at
-// j-1); u and w are read at their own row only.
+// j-1); u and w are read at their own row only.  The halo variant (a slab
+// of a y-sharded mesh, cales_tpu _fillps_sharded) reads v's row -1 from
+// its halo (common.cuh aty<Y_HALO>).
 //
 // Bound on the H100: memory.  About 5 field streams per call (read u, v,
 // w at their backward neighbours; write the RHS): 0.67 GB at 512x256x256
@@ -18,7 +20,7 @@
 
 namespace cales {
 
-template <typename T, bool YW>
+template <typename T, int YM>
 __global__ void __launch_bounds__(CALES_THREADS) fillps_kernel(
     const T* __restrict__ u, const T* __restrict__ v, const T* __restrict__ w,
     const T* __restrict__ ue, const T* __restrict__ ve,
@@ -31,35 +33,42 @@ __global__ void __launch_bounds__(CALES_THREADS) fillps_kernel(
   const int64_t plane = static_cast<int64_t>(ny) * nx;
   if (idx >= plane) return;
   const Cell c(k, idx, nz, ny, nx);
-  // Y: the cell's row reads a y-wall row of v (common.cuh y_edge)
+  // Y: the y mode of v's reads, YM where the cell's row reads a y-wall or
+  // halo row of v (common.cuh y_edge_of)
   auto div = [&](auto ytag) {
-    constexpr bool Y = decltype(ytag)::value;
+    constexpr int Y = decltype(ytag)::value;
     return (at(w, we, c, 0, 0, 0) - at(w, we, c, -1, 0, 0)) * dti *
                dzfi[k + 1] +
-           (at<Y>(v, ve, yv, c, 0, 0, 0) - at<Y>(v, ve, yv, c, 0, -1, 0)) *
+           (aty<Y>(v, ve, yv, c, 0, 0, 0) -
+            aty<Y>(v, ve, yv, c, 0, -1, 0)) *
                cy +
            (at(u, ue, c, 0, 0, 0) - at(u, ue, c, 0, 0, -1)) * cx;
   };
   T r;
-  if constexpr (YW) {
-    r = y_edge(c.j, ny) ? div(std::true_type{}) : div(std::false_type{});
+  using Plain = std::integral_constant<int, Y_PERIODIC>;
+  if constexpr (YM != Y_PERIODIC) {
+    r = y_edge_of<YM>(c.j, ny) ? div(std::integral_constant<int, YM>{})
+                               : div(Plain{});
   } else {
-    r = div(std::false_type{});
+    r = div(Plain{});
   }
   rhs[static_cast<int64_t>(k) * plane + idx] = r;
 }
 
-// yvr, yvc: v's y-row stack and corners, both null without y walls
+// yvr, yvc: v's y-row stack and corners, both null with periodic y; with
+// halo set, v's halo rows and corners on a slab
 template <typename T>
 int launch_fillps(const T* u, const T* v, const T* w, const T* ue,
                   const T* ve, const T* we, const T* dzfi, T* rhs,
                   const T* yvr, const T* yvc, int nz, int ny, int nx,
-                  double dti, double dxi, double dyi, void* stream) {
-  if ((yvr == nullptr) != (yvc == nullptr))
+                  int halo, double dti, double dxi, double dyi,
+                  void* stream) {
+  if ((yvr == nullptr) != (yvc == nullptr) || (halo && yvr == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const YRows<T> yv{yvr, yvc};
-  auto kern = yvr != nullptr ? &fillps_kernel<T, true>
-                             : &fillps_kernel<T, false>;
+  auto kern = yvr == nullptr ? &fillps_kernel<T, Y_PERIODIC>
+              : halo         ? &fillps_kernel<T, Y_HALO>
+                             : &fillps_kernel<T, Y_WALLS>;
   kern<<<plane_grid(nz, ny, nx), CALES_THREADS, 0,
          static_cast<cudaStream_t>(stream)>>>(
       u, v, w, ue, ve, we, dzfi, rhs, yv, nz, ny, nx, T(dti), T(dti * dyi),
@@ -73,9 +82,10 @@ int launch_fillps(const T* u, const T* v, const T* w, const T* ue,
   extern "C" int NAME(const T* u, const T* v, const T* w, const T* ue,       \
                       const T* ve, const T* we, const T* dzfi, T* rhs,       \
                       const T* yvr, const T* yvc, int nz, int ny, int nx,    \
-                      double dti, double dxi, double dyi, void* stream) {    \
+                      int halo, double dti, double dxi, double dyi,          \
+                      void* stream) {                                        \
     return cales::launch_fillps<T>(u, v, w, ue, ve, we, dzfi, rhs, yvr, yvc, \
-                                   nz, ny, nx, dti, dxi, dyi, stream);       \
+                                   nz, ny, nx, halo, dti, dxi, dyi, stream); \
   }
 
 CALES_FILLPS_ENTRY(cales_fillps_f32, float)

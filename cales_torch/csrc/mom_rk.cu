@@ -6,10 +6,14 @@
 // the new u and v for the bulk forcing, and three template switches:
 //   SGS    eddy-stress terms from visct (with_sgs); false for sgstype
 //          'none', where s and se are null and never read;
-//   YW     y walls (the duct and cavity classes, ywalls=(True, True)): the
-//          y ghost rows of u, v, w, visct and p and v's rewrite row come
-//          from their y-row stacks (common.cuh at<true>), as the TPU
-//          kernel's ye bundle fixes them (pallas_kernels.py:617-628);
+//   YM     the y mode (common.cuh YMode): periodic; y walls (the duct and
+//          cavity classes, ywalls=(True, True)), where the y ghost rows of
+//          u, v, w, visct and p and v's rewrite row come from their y-row
+//          stacks (common.cuh at<true>), as the TPU kernel's ye bundle
+//          fixes them (pallas_kernels.py:617-628); or a slab of a y-sharded
+//          mesh, where rows -1 and ny of the five fields come from their
+//          halos (parallel/mesh.halo_y), as the TPU kernel's y strips
+//          (_mom_kernel_sharded, cales_tpu/timeloop.py:1943-2078);
 //   SPLIT  implicit diffusion with fold_cn, 0 none, 1 z only (split='1d':
 //          ru = advection + xy diffusion is the stored explicit RHS, rud =
 //          the z diffusion), 2 full-3D (split='xy+z': ru = advection, rud =
@@ -28,8 +32,9 @@
 // at up to 13 neighbours; this simple design takes them straight from
 // global memory (read-only path, __ldg) and relies on L1/L2 to turn the
 // neighbour reuse into hits.  Tiling the z-march through shared memory is
-// later work.  The y-walled variant sends only the rows next to a wall
-// through the stacks (common.cuh y_edge); its time is in PERF.md §6.
+// later work.  The y-walled and halo variants send only the rows next to a
+// wall or a slab edge through the stacks (common.cuh y_edge_of); their
+// times are in PERF.md §6.
 #include "common.cuh"
 
 namespace cales {
@@ -68,7 +73,7 @@ __device__ __forceinline__ void split_rhs(T adv, T dxy, T dz, T& r, T& rd) {
       ruo_new, rvo_new, rwo_new, usum, vsum, yu, yv, yw, ys, yp, nz, ny, nx,  \
       f1, f2, visc, dxi, dyi, bfx, bfy, bfz
 
-template <typename T, bool SGS, int SPLIT, bool YW>
+template <typename T, bool SGS, int SPLIT, int YM>
 __device__ __forceinline__ void mom_rk_body(CALES_MOM_RK_PARAMS) {
   const int k = blockIdx.y;
   const int64_t idx =
@@ -78,20 +83,20 @@ __device__ __forceinline__ void mom_rk_body(CALES_MOM_RK_PARAMS) {
   T un = T(0), vn = T(0);
   if (valid) {
     const Cell c(k, idx, nz, ny, nx);
-    // the cell's update; Y: its stencil touches a y-wall row, whose reads
-    // go through the y-row stacks (a row at a time, so a warp takes one
-    // branch; the other rows keep the plain reads and their
-    // memory-level parallelism)
+    // the cell's update; Y: the y mode of its reads, YM where its stencil
+    // touches a y-wall or halo row, whose reads go through the stacks (a
+    // row at a time, so a warp takes one branch; the other rows keep the
+    // plain reads and their memory-level parallelism)
     auto cell = [&](auto ytag) {
-      constexpr bool Y = decltype(ytag)::value;
+      constexpr int Y = decltype(ytag)::value;
       const T q = T(0.25), two = T(2);
       const T dzci_c = dzci[k + 1], dzci_m = dzci[k];
       const T dzfi_c = dzfi[k + 1], dzfi_p = dzfi[k + 2];
-#define U(dk, dj, di) at<Y>(u, ue, yu, c, dk, dj, di)
-#define V(dk, dj, di) at<Y>(v, ve, yv, c, dk, dj, di)
-#define W(dk, dj, di) at<Y>(w, we, yw, c, dk, dj, di)
-#define S(dk, dj, di) at<Y>(s, se, ys, c, dk, dj, di)
-#define P(dk, dj, di) at<Y>(p, pe, yp, c, dk, dj, di)
+#define U(dk, dj, di) aty<Y>(u, ue, yu, c, dk, dj, di)
+#define V(dk, dj, di) aty<Y>(v, ve, yv, c, dk, dj, di)
+#define W(dk, dj, di) aty<Y>(w, we, yw, c, dk, dj, di)
+#define S(dk, dj, di) aty<Y>(s, se, ys, c, dk, dj, di)
+#define P(dk, dj, di) aty<Y>(p, pe, yp, c, dk, dj, di)
       const T u_ccc = U(0, 0, 0), v_ccc = V(0, 0, 0), w_ccc = W(0, 0, 0);
       const T u_pcc = U(0, 0, 1), u_cpc = U(0, 1, 0), u_ccp = U(1, 0, 0);
       const T u_mcc = U(0, 0, -1);
@@ -289,13 +294,14 @@ __device__ __forceinline__ void mom_rk_body(CALES_MOM_RK_PARAMS) {
       rvo_new[o] = rv;
       rwo_new[o] = rw;
     };
-    if constexpr (YW) {
-      if (y_edge(c.j, ny))
-        cell(std::true_type{});
+    using Plain = std::integral_constant<int, Y_PERIODIC>;
+    if constexpr (YM != Y_PERIODIC) {
+      if (y_edge_of<YM>(c.j, ny))
+        cell(std::integral_constant<int, YM>{});
       else
-        cell(std::false_type{});
+        cell(Plain{});
     } else {
-      cell(std::false_type{});
+      cell(Plain{});
     }
   }
   // per-(z, block) partial sums for the bulk-forcing means
@@ -311,20 +317,26 @@ __device__ __forceinline__ void mom_rk_body(CALES_MOM_RK_PARAMS) {
   }
 }
 
-// The plain variants take no register bound; the y-walled f32 ones hold to
-// 3 blocks an SM (85 registers), as the plain ones reach by themselves:
-// their wall-row path would otherwise set the register count, and the
-// occupancy, of every row (it spills there instead).
+// The plain variants take no register bound; the y-walled and halo f32
+// ones hold to 3 blocks an SM (85 registers), as the plain ones reach by
+// themselves: their edge-row path would otherwise set the register count,
+// and the occupancy, of every row (it spills there instead).
 template <typename T, bool SGS, int SPLIT>
 __global__ void __launch_bounds__(CALES_THREADS)
     mom_rk_kernel(CALES_MOM_RK_PARAMS) {
-  mom_rk_body<T, SGS, SPLIT, false>(CALES_MOM_RK_ARGS);
+  mom_rk_body<T, SGS, SPLIT, Y_PERIODIC>(CALES_MOM_RK_ARGS);
 }
 
 template <typename T, bool SGS, int SPLIT>
 __global__ void __launch_bounds__(CALES_THREADS, sizeof(T) == 4 ? 3 : 1)
     mom_rk_yw_kernel(CALES_MOM_RK_PARAMS) {
-  mom_rk_body<T, SGS, SPLIT, true>(CALES_MOM_RK_ARGS);
+  mom_rk_body<T, SGS, SPLIT, Y_WALLS>(CALES_MOM_RK_ARGS);
+}
+
+template <typename T, bool SGS, int SPLIT>
+__global__ void __launch_bounds__(CALES_THREADS, sizeof(T) == 4 ? 3 : 1)
+    mom_rk_halo_kernel(CALES_MOM_RK_PARAMS) {
+  mom_rk_body<T, SGS, SPLIT, Y_HALO>(CALES_MOM_RK_ARGS);
 }
 #undef CALES_MOM_RK_PARAMS
 #undef CALES_MOM_RK_ARGS
@@ -338,20 +350,23 @@ using MomKernel = void (*)(const T*, const T*, const T*, const T*, const T*,
                            T, T, T, T, T, T);
 
 template <typename T, bool SGS, int SPLIT>
-MomKernel<T> pick_mom_rk(bool yw) {
-  return yw ? &mom_rk_yw_kernel<T, SGS, SPLIT>
-            : &mom_rk_kernel<T, SGS, SPLIT>;
+MomKernel<T> pick_mom_rk(int ym) {
+  return ym == Y_HALO    ? &mom_rk_halo_kernel<T, SGS, SPLIT>
+         : ym == Y_WALLS ? &mom_rk_yw_kernel<T, SGS, SPLIT>
+                         : &mom_rk_kernel<T, SGS, SPLIT>;
 }
 
 // y: the y-row stacks and corners of u, v, w, visct, p, in that order (10
-// pointers, all null without y walls; visct's null without visct).
+// pointers, all null with periodic y; visct's null without visct); with
+// halo set they are the slab's halos (rows (nz, 2, nx), corners
+// (3, 2, nx)) instead.
 template <typename T>
 int launch_mom_rk(const T* u, const T* v, const T* w, const T* s, const T* p,
                   const T* ue, const T* ve, const T* we, const T* se,
                   const T* pe, const T* ruo, const T* rvo, const T* rwo,
                   const T* dzci, const T* dzfi, T* uo, T* vo, T* wo, T* ru,
                   T* rv, T* rw, T* usum, T* vsum, const T* const* y, int nz,
-                  int ny, int nx, int split, double f1, double f2,
+                  int ny, int nx, int split, int halo, double f1, double f2,
                   double visc, double dxi, double dyi, double bfx,
                   double bfy, double bfz, void* stream) {
   const bool sgs = s != nullptr;
@@ -364,14 +379,16 @@ int launch_mom_rk(const T* u, const T* v, const T* w, const T* s, const T* p,
   }
   const YRows<T> yu{y[0], y[1]}, yv{y[2], y[3]}, yw_{y[4], y[5]},
       ys{y[6], y[7]}, yp{y[8], y[9]};
-  if (split < 0 || split > 2) return static_cast<int>(cudaErrorInvalidValue);
+  if (split < 0 || split > 2 || (halo && !yw))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int ym = !yw ? Y_PERIODIC : halo ? Y_HALO : Y_WALLS;
   const MomKernel<T> kern =
-      sgs ? (split == 2   ? pick_mom_rk<T, true, 2>(yw)
-             : split == 1 ? pick_mom_rk<T, true, 1>(yw)
-                          : pick_mom_rk<T, true, 0>(yw))
-          : (split == 2   ? pick_mom_rk<T, false, 2>(yw)
-             : split == 1 ? pick_mom_rk<T, false, 1>(yw)
-                          : pick_mom_rk<T, false, 0>(yw));
+      sgs ? (split == 2   ? pick_mom_rk<T, true, 2>(ym)
+             : split == 1 ? pick_mom_rk<T, true, 1>(ym)
+                          : pick_mom_rk<T, true, 0>(ym))
+          : (split == 2   ? pick_mom_rk<T, false, 2>(ym)
+             : split == 1 ? pick_mom_rk<T, false, 1>(ym)
+                          : pick_mom_rk<T, false, 0>(ym));
   kern<<<plane_grid(nz, ny, nx), CALES_THREADS, 0,
          static_cast<cudaStream_t>(stream)>>>(
       u, v, w, s, p, ue, ve, we, se, pe, ruo, rvo, rwo, dzci, dzfi, uo, vo,
@@ -391,15 +408,15 @@ int launch_mom_rk(const T* u, const T* v, const T* w, const T* s, const T* p,
       T* vsum, const T* yur, const T* yuc, const T* yvr, const T* yvc,        \
       const T* ywr, const T* ywc, const T* ysr, const T* ysc,                 \
       const T* ypr, const T* ypc, int nz, int ny, int nx, int split,          \
-      double f1, double f2, double visc, double dxi, double dyi, double bfx,  \
-      double bfy, double bfz, void* stream) {                                 \
+      int halo, double f1, double f2, double visc, double dxi, double dyi,    \
+      double bfx, double bfy, double bfz, void* stream) {                     \
     const T* const y[10] = {yur, yuc, yvr, yvc, ywr, ywc, ysr, ysc, ypr,      \
                             ypc};                                             \
     return cales::launch_mom_rk<T>(u, v, w, s, p, ue, ve, we, se, pe, ruo,    \
                                    rvo, rwo, dzci, dzfi, uo, vo, wo, ru, rv,  \
-                                   rw, usum, vsum, y, nz, ny, nx, split, f1,  \
-                                   f2, visc, dxi, dyi, bfx, bfy, bfz,         \
-                                   stream);                                   \
+                                   rw, usum, vsum, y, nz, ny, nx, split,      \
+                                   halo, f1, f2, visc, dxi, dyi, bfx, bfy,    \
+                                   bfz, stream);                              \
   }
 
 CALES_MOM_RK_ENTRY(cales_mom_rk_f32, float)

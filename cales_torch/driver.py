@@ -1,5 +1,8 @@
 """Simulation driver: counterpart of cales_tpu/driver.py (reference
-main.f90:28-632) on one torch device.
+main.f90:28-632) on one torch device, or on a y-slab mesh when the
+namelist's dims asks for one (dims(1:2) = gy, 1: one process a rank,
+launched by ``python -m torch.distributed.run --nproc_per_node gy -m
+cales_torch input.nml``).
 
 Config validation -> grid -> solver setup -> initial condition or restart
 -> time loop with the stopping rules (nstep / time_max / tw_max), cadenced
@@ -7,7 +10,12 @@ stability and divergence checks with hard aborts (main.f90:523-544),
 scalar logs (time.out, forcing.out), channel statistics, plane/volume
 outputs, checkpoint rotation and per-step wall time (main.f90:613-618).
 Output formats are the JAX package's (the copies in cales_torch/io), fed
-numpy arrays.
+numpy arrays.  On a mesh every rank steps its slab; the checks, the bulk
+means and the statistics reduce over the ranks, the checkpoint is written
+slab by slab into one fld.bin (io/sharded.py), the plane and volume
+outputs gather the fields, and rank 0 alone logs and writes files.  A
+world size that is not gy, or a transport that cannot serve the ranks,
+raises: the driver never retries on one device.
 """
 from __future__ import annotations
 
@@ -25,7 +33,6 @@ from .initflow import initflow
 from .io import checkpoint as ckpt
 from .io import output as out
 
-from .ops.stencil import bulk_mean
 from .timeloop import Simulation
 
 
@@ -38,22 +45,52 @@ def _np(a):
 
 
 def run(cfg: Config, datadir='data', device='cuda', verbose=True,
-        max_steps=None, hooks=None):
+        max_steps=None, hooks=None, mesh=None, transport=None):
     """Run a full simulation on `device`.  Returns (sim, state).
 
     hooks: optional {'out1d' | 'out2d' | 'out3d': fn(sim, state, istep)}
-    replacing the default outputs at their cadences."""
+    replacing the default outputs at their cadences.  With dims > 1 the
+    run is one rank of a y-slab mesh: `mesh` (parallel/mesh.SlabMesh), or
+    one started here from the torch.distributed.run environment over
+    `transport` ('nccl': a card a rank, the default on cuda; 'gloo': the
+    CPU, or CUDA tensors staged through the host so that ranks can share
+    a card); the state is then this rank's slabs."""
     validate(cfg)
     datadir = Path(datadir)
+    own_mesh = False
+    if cfg.dims[0] * cfg.dims[1] > 1 and mesh is None:
+        from .parallel import mesh as meshmod
+        transport = transport or ('nccl' if torch.device(device).type ==
+                                  'cuda' else 'gloo')
+        mesh, device = meshmod.from_env(cfg.dims, cfg.ng, device, transport)
+        own_mesh = True
+    verbose = verbose and (mesh is None or mesh.rank == 0)
     datadir.mkdir(parents=True, exist_ok=True)
     grid = make_grid_from_config(cfg)
-    sim = Simulation(cfg, grid, device=device)
+    sim = Simulation(cfg, grid, device=device, mesh=mesh)
+    try:
+        return _run(sim, cfg, grid, datadir, verbose, max_steps, hooks or {})
+    finally:
+        if own_mesh:
+            torch.distributed.destroy_process_group()
+
+
+def _run(sim, cfg, grid, datadir, verbose, max_steps, hooks):
+    mesh = sim.mesh
+    rank0 = mesh is None or mesh.rank == 0
     log(verbose, f'*** Execution path: {sim.exec_path()} ***')
-    out.write_grid_files(datadir, cfg, grid)
+    if rank0:
+        out.write_grid_files(datadir, cfg, grid)
 
     if cfg.restart:
-        u, v, w, p, t0, istep0 = ckpt.load_checkpoint(
-            datadir / 'fld.bin', cfg.ng, cfg.np_dtype)
+        if mesh is not None:
+            # each rank reads its slabs (the MPI-IO subarray analogue)
+            from .io import sharded as shio
+            u, v, w, p, t0, istep0 = shio.load_checkpoint_sharded(
+                datadir / 'fld.bin', cfg.ng, cfg.np_dtype, mesh)
+        else:
+            u, v, w, p, t0, istep0 = ckpt.load_checkpoint(
+                datadir / 'fld.bin', cfg.ng, cfg.np_dtype)
         state = sim.initial_state(u, v, w, p)
         state = state._replace(time=state.time + t0,
                                istep=state.istep + istep0)
@@ -73,7 +110,6 @@ def run(cfg: Config, datadir='data', device='cuda', verbose=True,
     kill = False
     is_done = False
     nsteps_done = 0
-    hooks = hooks or {}
     averager = None
     if cfg.stats_avg:
         from .io.averaging import RunningMean
@@ -111,8 +147,15 @@ def run(cfg: Config, datadir='data', device='cuda', verbose=True,
             is_done = True
         if cfg.stop_type[1] and tnow >= cfg.time_max:
             is_done = True
-        if cfg.stop_type[2] and (_time.perf_counter() - twi) / 3600.0 >= cfg.tw_max:
-            is_done = True
+        if cfg.stop_type[2]:
+            hours = (_time.perf_counter() - twi) / 3600.0
+            if mesh is not None:
+                # the ranks' clocks differ: they stop together, on the
+                # slowest one (the reference's MPI_ALLREDUCE of the wall
+                # time with MAX), or their collectives fall out of step
+                hours = mesh.reduce_scalar(hours, 'max')
+            if hours >= cfg.tw_max:
+                is_done = True
         if max_steps is not None and nsteps_done >= max_steps:
             is_done = True
 
@@ -130,20 +173,23 @@ def run(cfg: Config, datadir='data', device='cuda', verbose=True,
 
         # scalar logs (main.f90:548-573)
         if cfg.iout0d > 0 and istep % max(cfg.iout0d, 1) == 0:
-            out.out0d(datadir / 'time.out', [istep, dt, tnow])
+            if rank0:
+                out.out0d(datadir / 'time.out', [istep, dt, tnow])
             if any(cfg.is_forced) or any(abs(b) > 0 for b in cfg.bforce):
                 mv = [0.0, 0.0, 0.0]
                 if cfg.is_forced[0] or abs(cfg.bforce[0]) > 0:
-                    mv[0] = float(bulk_mean(state.u, sim.gvr_f))
+                    mv[0] = sim.bulk_mean(state.u, sim.gvr_f)
                 if cfg.is_forced[1] or abs(cfg.bforce[1]) > 0:
-                    mv[1] = float(bulk_mean(state.v, sim.gvr_f))
+                    mv[1] = sim.bulk_mean(state.v, sim.gvr_f)
                 if cfg.is_forced[2] or abs(cfg.bforce[2]) > 0:
-                    mv[2] = float(bulk_mean(state.w, sim.gvr_c))
+                    mv[2] = sim.bulk_mean(state.w, sim.gvr_c)
                 dp = _np(dpdl)
                 if not any(cfg.is_forced):
                     dp = -np.asarray(cfg.bforce)
-                out.out0d(datadir / 'forcing.out',
-                          [tnow, dp[0], dp[1], dp[2], mv[0], mv[1], mv[2]])
+                if rank0:
+                    out.out0d(datadir / 'forcing.out',
+                              [tnow, dp[0], dp[1], dp[2], mv[0], mv[1],
+                               mv[2]])
 
         # profile / plane / volume outputs (main.f90:574-589)
         if cfg.iout1d > 0 and istep % max(cfg.iout1d, 1) == 0:
@@ -157,13 +203,16 @@ def run(cfg: Config, datadir='data', device='cuda', verbose=True,
                 u_, v_, w_, p_, s_ = (_np(a) for a in (state.u, state.v,
                                                        state.w, state.p,
                                                        state.visct))
+                # on a mesh: the slabs' plane means, averaged over the ranks
+                kw = dict(padded=padded, write=rank0,
+                          reduce=None if mesh is None else mesh.mean_of_ranks)
                 sp = st_io.single_point_chan(
                     datadir / f'stats_{istep:07d}', cfg, grid, u_, v_, w_,
-                    p_, s_, padded=padded)
+                    p_, s_, **kw)
                 bu = st_io.reystr_budget_chan(
                     datadir / f'stats_{istep:07d}', cfg, grid, u_, v_, w_,
-                    p_, padded=padded)
-                if averager is not None:
+                    p_, **kw)
+                if averager is not None and rank0:
                     from .io import averaging as avg_io
                     averager.add('sp', sp)
                     averager.add('budget', bu)
@@ -181,8 +230,11 @@ def run(cfg: Config, datadir='data', device='cuda', verbose=True,
                 ny = cfg.ng[1]
                 for name, f in (('u', state.u), ('v', state.v),
                                 ('w', state.w), ('p', state.p)):
+                    f = sim.global_numpy(f)
+                    if not rank0:
+                        continue
                     fn = datadir / f'{name}_2d_{istep:07d}.bin'
-                    out.out2d(fn, _np(f), 1, ny // 2)
+                    out.out2d(fn, f, 1, ny // 2)
                     out.write_log_output(datadir / 'log_visu_2d_slice_1.out',
                                          fn.name, name, (1, ny // 2, 1),
                                          (cfg.ng[0], ny // 2, cfg.ng[2]),
@@ -194,8 +246,11 @@ def run(cfg: Config, datadir='data', device='cuda', verbose=True,
                 nskip = tuple(cfg.nskip_out3d)
                 for name, f in (('u', state.u), ('v', state.v),
                                 ('w', state.w), ('p', state.p)):
+                    f = sim.global_numpy(f)
+                    if not rank0:
+                        continue
                     fn = datadir / f'{name}_{istep:07d}.bin'
-                    out.write_field_bin(fn, _np(f), nskip=nskip)
+                    out.write_field_bin(fn, f, nskip=nskip)
                     out.write_log_output(datadir / 'log_visu_3d.out', fn.name,
                                          name, (1, 1, 1), cfg.ng, nskip,
                                          tnow, istep)
@@ -211,14 +266,21 @@ def run(cfg: Config, datadir='data', device='cuda', verbose=True,
                         savecounter = 0
                     savecounter += 1
                     filename = f'fld_{savecounter:04d}.bin'
-                    out.out0d(datadir / 'log_checkpoints.out',
-                              [istep, tnow, savecounter])
+                    if rank0:
+                        out.out0d(datadir / 'log_checkpoints.out',
+                                  [istep, tnow, savecounter])
                 else:
                     filename = f'fld_{istep:07d}.bin'
-            ckpt.save_checkpoint(datadir / filename, _np(state.u),
-                                 _np(state.v), _np(state.w), _np(state.p),
-                                 tnow, istep)
-            if not cfg.is_overwrite_save:
+            if mesh is not None:
+                from .io import sharded as shio
+                shio.save_checkpoint_sharded(
+                    datadir / filename, (state.u, state.v, state.w, state.p),
+                    mesh, tnow, istep)
+            else:
+                ckpt.save_checkpoint(datadir / filename, _np(state.u),
+                                     _np(state.v), _np(state.w),
+                                     _np(state.p), tnow, istep)
+            if not cfg.is_overwrite_save and rank0:
                 ckpt.gen_alias(datadir, filename)
             log(verbose, f'*** Checkpoint saved at time = {tnow}, '
                          f'step = {istep} ***')

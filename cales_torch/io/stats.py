@@ -21,10 +21,14 @@ from __future__ import annotations
 import numpy as np
 
 
-def single_point_chan(fname, cfg, grid, u, v, w, p, visct, padded=None):
+def single_point_chan(fname, cfg, grid, u, v, w, p, visct, padded=None,
+                      reduce=None, write=True):
     """u, v, w, p, visct: interior (nz, ny, nx) numpy arrays.  padded:
     the (up, vp, wp, ppad, sppad) ghost-filled arrays of
-    Simulation.padded_state (the solver's BC semantics), required."""
+    Simulation.padded_state (the solver's BC semantics), required.  On a
+    y-slab mesh the arrays are this rank's slabs, reduce maps the slab's
+    plane means to the domain's (the mean over the ranks) and write is
+    rank 0's."""
     u, v, w, p, visct = map(np.asarray, (u, v, w, p, visct))
     nz, ny, nx = u.shape
     dl = cfg.dl
@@ -88,6 +92,10 @@ def single_point_chan(fname, cfg, grid, u, v, w, p, visct, padded=None):
     out[24] = mean(-0.25 * (s_ccc + s_pcc + s_ccp + s_pcp) * (dudz + dwdx))
     out[25] = mean(visct)
     out[26] = mean(dudz)
+    if reduce is not None:
+        out = reduce(out)
+    if not write:
+        return out
 
     with open(str(fname) + '.out', 'w') as f:
         for k in range(nz):
@@ -124,7 +132,8 @@ def duct_stats_2d(fname, cfg, grid, u, v, w):
     return arr
 
 
-def reystr_budget_chan(fname, cfg, grid, u, v, w, p, padded=None):
+def reystr_budget_chan(fname, cfg, grid, u, v, w, p, padded=None,
+                       reduce=None, write=True):
     """MKE and Reynolds-stress budget terms, 38 plane-averaged quantities per
     z level (out1d_single_point_chan second block, output.f90:703-1009):
     MKE work/transport terms, uu/vv/ww/uw transport, pressure-strain and
@@ -239,6 +248,10 @@ def reystr_budget_chan(fname, cfg, grid, u, v, w, p, padded=None):
     b[35] = mean(((C(wp, i=1) - wc) / dx) ** 2)
     b[36] = mean(((C(wp, j=1) - wc) / dy) ** 2)
     b[37] = mean(((wc - wcm1) / dzf_k) ** 2)
+    if reduce is not None:
+        b = reduce(b)
+    if not write:
+        return b
 
     zc, zf = grid.zc, grid.zf
     with open(str(fname) + '_reystr_budget.out', 'w') as f:

@@ -6,6 +6,9 @@ interface, loaded through ctypes (no PyTorch headers, so a build takes
 seconds).  The library lands in ``cales_torch/_build/<hash>/``, keyed by a
 hash of the sources and the compiler flags, at first use: a fresh checkout
 builds everything on the first launch, later processes reuse the build.
+Processes that start together (the ranks of a mesh) take a file lock on
+``_build/<hash>.lock``: the first builds, the others wait and load its
+library, so two nvcc runs never write one directory.
 
 Each C entry launches on the stream it is given and returns
 ``cudaGetLastError()``; the wrappers in ops/kernels.py raise on non-zero.
@@ -13,6 +16,7 @@ Each C entry launches on the stream it is given and returns
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -35,16 +39,17 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
 _SIGNATURES = {
-    'cales_mom_rk': [_P] * 33 + [_I] * 4 + [_D] * 8 + [_P],
-    'cales_fillps': [_P] * 10 + [_I] * 3 + [_D] * 3 + [_P],
+    'cales_mom_rk': [_P] * 33 + [_I] * 5 + [_D] * 8 + [_P],
+    'cales_fillps': [_P] * 10 + [_I] * 4 + [_D] * 3 + [_P],
     'cales_correc_smag': ([_P] * 22 + [_I] * 4 + [_I, _D, _D] * 4
                           + [_D] * 4 + [_P]),
-    'cales_correc': [_P] * 17 + [_I] * 5 + [_D] * 4 + [_P],
+    'cales_correc': [_P] * 17 + [_I] * 6 + [_D] * 4 + [_P],
     'cales_apply_y': [_P] * 5 + [_I] * 3 + [_P],
+    'cales_apply_x': [_P] * 3 + [_I] * 4 + [_P],
     'cales_z_eig': [_P] * 7 + [_I] * 3 + [_D] + [_P],
     'cales_thomas_z': [_P] * 11 + [_I] * 5 + [_D, _I, _D] + [_P],
     'cales_thomas_periodic': [_P] * 9 + [_I] * 4 + [_D, _I, _D] + [_P],
-    'cales_smag': [_P] * 14 + [_I] * 4 + [_D] * 3 + [_P],
+    'cales_smag': [_P] * 20 + [_I] * 4 + [_D] * 3 + [_P],
     'cales_dsmag': [_P] * 18 + [_I] * 6 + [_D] * 10 + [_P],
     'cales_dsmag_level1': [_P] * 15 + [_I] * 5 + [_D] * 2 + [_P],
     'cales_dsmag_level2': [_P] * 30 + [_I] * 4 + [_D] * 2 + [_P],
@@ -55,8 +60,8 @@ def sources(csrc=CSRC):
     return sorted(csrc.glob('*.cu')) + sorted(csrc.glob('*.cuh'))
 
 
-def source_hash(csrc=CSRC) -> str:
-    h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+def source_hash(csrc=CSRC, flags=()) -> str:
+    h = hashlib.sha256(' '.join((*NVCC_FLAGS, *flags)).encode())
     for f in sources(csrc):
         h.update(f.name.encode())
         h.update(f.read_bytes())
@@ -76,14 +81,26 @@ def nvcc_path() -> str:
                        'CUDA toolkit')
 
 
-def build(verbose: bool = False, csrc=CSRC, root=BUILD_ROOT) -> Path:
+def build(verbose: bool = False, csrc=CSRC, root=BUILD_ROOT,
+          flags=()) -> Path:
     """Compile the library of the sources in csrc if their hash has no
     build under root yet; returns its path.  verbose prints nvcc's
-    register/spill report."""
-    out_dir = root / source_hash(csrc)
+    register/spill report; flags are nvcc flags added to NVCC_FLAGS (a
+    probe's build, such as fma_probe's -fmad=false).  Concurrent callers
+    serialise on a file lock beside the build directory."""
+    out_dir = root / source_hash(csrc, flags)
     lib = out_dir / LIBNAME
     if lib.exists():
         return lib
+    root.mkdir(parents=True, exist_ok=True)
+    with open(out_dir.with_suffix('.lock'), 'w') as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not lib.exists():
+            _compile(csrc, out_dir, lib, verbose, flags)
+    return lib
+
+
+def _compile(csrc, out_dir, lib, verbose, flags):
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
     t0 = time.perf_counter()
@@ -93,8 +110,8 @@ def build(verbose: bool = False, csrc=CSRC, root=BUILD_ROOT) -> Path:
         jobs = []
         for src in sorted(csrc.glob('*.cu')):
             obj = work / (src.stem + '.o')
-            cmd = [nvcc, *NVCC_FLAGS, f'-I{csrc}', '-c', str(src), '-o',
-                   str(obj)]
+            cmd = [nvcc, *NVCC_FLAGS, *flags, f'-I{csrc}', '-c', str(src),
+                   '-o', str(obj)]
             if verbose:
                 cmd[1:1] = ['-Xptxas', '-v']
             jobs.append((cmd, obj, subprocess.Popen(
@@ -110,7 +127,7 @@ def build(verbose: bool = False, csrc=CSRC, root=BUILD_ROOT) -> Path:
         if failed:
             raise RuntimeError('\n'.join(failed))
         tmp = work / LIBNAME
-        cmd = [nvcc, *NVCC_FLAGS, '-shared', '-o', str(tmp),
+        cmd = [nvcc, *NVCC_FLAGS, *flags, '-shared', '-o', str(tmp),
                *(str(obj) for _, obj, _ in jobs)]
         res = subprocess.run(cmd, capture_output=True, text=True)
         if res.returncode != 0:
@@ -124,7 +141,6 @@ def build(verbose: bool = False, csrc=CSRC, root=BUILD_ROOT) -> Path:
         os.replace(tmp, lib)    # atomic: a concurrent build never sees a
     finally:                    # partial file
         shutil.rmtree(work, ignore_errors=True)
-    return lib
 
 
 def open_library(path) -> ctypes.CDLL:

@@ -24,6 +24,10 @@ x is periodic and wraps inside the kernel, and so is y unless the field
 comes with its y-row stack: a pair (rows (nz, 3, nx), corners (3, 3, nx))
 from ops/boundary.yedge_* (the y-walled variants of mom_rk, fillps,
 correc_updatep and the three dsmag kernels, the duct and cavity classes).
+On a slab of a y-sharded mesh (parallel/mesh.py) x wraps and y does not:
+mom_rk, fillps, correc_updatep and smag take yh, the halo pairs (rows
+(nz, 2, nx), corners (3, 2, nx)) of the fields they read across the slab's
+edges (mesh.halo_y), and read rows -1 and ny from them.
 z metrics are (nz+2,) tensors with ghost entries, in the fields' dtype and
 on their device.
 
@@ -80,9 +84,16 @@ def wrap_xy(a):
     return wrap_x(torch.cat([a[:, -1:, :], a, a[:, :1, :]], dim=1))
 
 
-def padded(q, e, y=None):
+def padded(q, e, y=None, h=None):
     """The (nz+2, ny+2, nx+2) ghost-filled field: z ghosts from the edge
-    stack e, y ghosts from y = (rows, corners) or periodic, x periodic."""
+    stack e, y ghosts from y = (rows, corners), from the halo pair h =
+    (rows (nz, 2, nx), corners (3, 2, nx)) of a slab, or periodic; x
+    periodic."""
+    if h is not None:
+        rows, corners = h
+        return wrap_x(torch.cat([zpad(rows[:, :1], corners[:, :1]),
+                                 zpad(q, e),
+                                 zpad(rows[:, 1:], corners[:, 1:])], dim=1))
     if y is None:
         return wrap_xy(zpad(q, e))
     return wrap_x(ypad(zpad(q, e), zpad(*y)))
@@ -99,12 +110,14 @@ def ghost_row(rec, side, q1):
 
 def mom_rk_plain(u, v, w, s, p, ue, ve, we, se, pe, ruo, rvo, rwo,
                  dzci, dzfi, f1, f2, visc, dxi, dyi, bforce,
-                 sums=(False, False), split=None, ye=None):
+                 sums=(False, False), split=None, ye=None, yh=None):
     nz = u.shape[0]
     yu, yv, yw, ys, yp = (None,) * 5 if ye is None else ye
-    up, vp, wp, ppad = (padded(q, e, y) for q, e, y in
-                        ((u, ue, yu), (v, ve, yv), (w, we, yw), (p, pe, yp)))
-    sp = None if s is None else padded(s, se, ys)
+    hu, hv, hw, hs, hp = (None,) * 5 if yh is None else yh
+    up, vp, wp, ppad = (padded(q, e, y, h) for q, e, y, h in
+                        ((u, ue, yu, hu), (v, ve, yv, hv), (w, we, yw, hw),
+                         (p, pe, yp, hp)))
+    sp = None if s is None else padded(s, se, ys, hs)
     (eu, exyu, ezu), (ev, exyv, ezv), (ew, exyw, ezw) = st.momentum_rhs(
         up, vp, wp, sp, visc, dxi, dyi, dzci, dzfi, with_sgs=s is not None)
     if split is None:
@@ -141,8 +154,9 @@ def mom_rk_plain(u, v, w, s, p, ue, ve, we, se, pe, ruo, rvo, rwo,
     return un, vn, wn, ru, rv, rw, usum, vsum
 
 
-def fillps_plain(u, v, w, ue, ve, we, dzfi, dti, dxi, dyi, yv=None):
-    return st.fillps(padded(u, ue), padded(v, ve, yv), padded(w, we),
+def fillps_plain(u, v, w, ue, ve, we, dzfi, dti, dxi, dyi, yv=None,
+                 yh=None):
+    return st.fillps(padded(u, ue), padded(v, ve, yv, yh), padded(w, we),
                      dti, dxi, dyi, dzfi)
 
 
@@ -185,9 +199,10 @@ def _van_driest(s0, visc, csd2, dw, nearlo, tauw_lo, tauw_hi, have_zwalls):
 
 
 def smag_plain(u, v, w, ue, ve, we, dzci, dzfi, dxi, dyi, visc, csd2, dw,
-               nearlo, tauw_lo, tauw_hi, have_zwalls=True):
-    s0 = st.strain_rate(padded(u, ue), padded(v, ve), padded(w, we), dzci,
-                        dzfi, dxi, dyi)
+               nearlo, tauw_lo, tauw_hi, have_zwalls=True, yh=None):
+    hu, hv, hw = (None,) * 3 if yh is None else yh
+    s0 = st.strain_rate(padded(u, ue, h=hu), padded(v, ve, h=hv),
+                        padded(w, we, h=hw), dzci, dzfi, dxi, dyi)
     return _van_driest(s0, visc, csd2, dw, nearlo, tauw_lo, tauw_hi,
                        have_zwalls)
 
@@ -356,8 +371,8 @@ def dsmag_level2_plain(fu, fv, fw, fue, fve, fwe, fm, lij, s0, alph2, dzci,
 
 def correc_updatep_plain(u, v, w, pp, p, we, ppe, dtrk, dxi, dyi, dzci,
                          dzfi, fuv=None, alpha=0.0, impdiff=False,
-                         impdiff_1d=False, ypp=None, yv=None):
-    ppad = padded(pp, ppe, ypp)
+                         impdiff_1d=False, ypp=None, yv=None, yh=None):
+    ppad = padded(pp, ppe, ypp, yh)
     if yv is not None:
         # v's wall face: the prediction fill's rewrite row (padded y ny)
         v = torch.cat([v[:, :-1], yv[:, 1:2]], dim=1)
@@ -384,7 +399,7 @@ def _on_cpu(ref):
 
 
 def _check(name, ref, fields, planes=(), edges=(), profiles=(), yrows=(),
-           ycorners=()):
+           ycorners=(), hrows=(), hcorners=()):
     """Validate what the kernel takes: one CUDA device, float32/float64,
     contiguous, shapes of the interior (nz, ny, nx)."""
     if ref.device.type != 'cuda':
@@ -394,10 +409,12 @@ def _check(name, ref, fields, planes=(), edges=(), profiles=(), yrows=(),
         raise TypeError(f'{name}: dtype {ref.dtype} (float32 or float64)')
     nz, ny, nx = ref.shape
     want = {'field': (nz, ny, nx), 'plane': (ny, nx), 'edge': (3, ny, nx),
-            'y-row stack': (nz, 3, nx), 'corner stack': (3, 3, nx)}
+            'y-row stack': (nz, 3, nx), 'corner stack': (3, 3, nx),
+            'halo rows': (nz, 2, nx), 'halo corners': (3, 2, nx)}
     for kind, group in (('field', fields), ('plane', planes),
                         ('edge', edges), ('y-row stack', yrows),
-                        ('corner stack', ycorners)):
+                        ('corner stack', ycorners), ('halo rows', hrows),
+                        ('halo corners', hcorners)):
         for t in group:
             if t is None:
                 continue
@@ -408,8 +425,8 @@ def _check(name, ref, fields, planes=(), edges=(), profiles=(), yrows=(),
         if t.ndim != 1 or t.shape[0] != n:
             raise ValueError(f'{name}: profile shape {tuple(t.shape)}, '
                              f'want ({n},)')
-    for t in (*fields, *planes, *edges, *yrows, *ycorners,
-              *(q for q, _ in profiles)):
+    for t in (*fields, *planes, *edges, *yrows, *ycorners, *hrows,
+              *hcorners, *(q for q, _ in profiles)):
         if t is None:
             continue
         if t.device != ref.device or t.dtype != ref.dtype:
@@ -423,10 +440,12 @@ def _ptr(t):
     return None if t is None else ctypes.c_void_p(t.data_ptr())
 
 
-def _ysplit(ys):
-    """_check's arguments for (rows, corners) y-row stack pairs."""
+def _ysplit(ys, halo=False):
+    """_check's arguments for (rows, corners) y-row stack pairs, or with
+    halo a slab's halo pairs."""
     ys = [y for y in ys if y is not None]
-    return dict(yrows=[y[0] for y in ys], ycorners=[y[1] for y in ys])
+    rows, corners = ('hrows', 'hcorners') if halo else ('yrows', 'ycorners')
+    return {rows: [y[0] for y in ys], corners: [y[1] for y in ys]}
 
 
 def _yptrs(ys):
@@ -459,7 +478,7 @@ def _launch(name, entry, *args, counts=None):
 
 def mom_rk(u, v, w, s, p, ue, ve, we, se, pe, ruo, rvo, rwo, dzci, dzfi,
            f1, f2, visc, dxi, dyi, bforce, sums=(False, False), split=None,
-           ye=None):
+           ye=None, yh=None):
     """Momentum RHS (mom.f90:17-309) + low-storage RK3 update with -grad p
     and bforce (rk.f90:77-94) in one pass.  ruo..rwo = None skips the
     previous-RHS reads (first substep, f2 == 0).  s = se = None: no eddy
@@ -469,28 +488,37 @@ def mom_rk(u, v, w, s, p, ue, ve, we, se, pe, ruo, rvo, rwo, dzci, dzfi,
     .. rw the advection, rud all the molecular diffusion); u..w are then
     the Crank-Nicolson RHS u_RK - 1/2 f12 rud (pallas_kernels fused_mom_rk
     fold_cn).  sums: per-(z, block) partial sums of the new (full-
-    prediction) u / v for the bulk forcing.  ye: y walls, the (rows, corners) y-row stack pairs of (u, v,
-    w, visct, p), visct's None without visct.  Returns (u, v, w, ru, rv,
-    rw, usum, vsum); usum/vsum are (nz, nblk) or None."""
+    prediction) u / v for the bulk forcing.  ye: y walls, the (rows,
+    corners) y-row stack pairs of (u, v, w, visct, p), visct's None without
+    visct; yh: a slab of a y-sharded mesh, the halo pairs of the same five
+    fields.  Returns (u, v, w, ru, rv, rw, usum, vsum); usum/vsum are
+    (nz, nblk) or None."""
     if split not in _SPLIT_CODE:
         raise ValueError(f"mom_rk: split {split!r} (None, '1d' or 'xy+z')")
     if _on_cpu(u):
         return mom_rk_plain(u, v, w, s, p, ue, ve, we, se, pe, ruo, rvo, rwo,
                             dzci, dzfi, f1, f2, visc, dxi, dyi, bforce,
-                            sums=sums, split=split, ye=ye)
+                            sums=sums, split=split, ye=ye, yh=yh)
     nz, ny, nx = u.shape
+    if ye is not None and yh is not None:
+        raise ValueError('mom_rk: y walls or a slab halo, not both')
     if (ruo is None) != (rvo is None) or (ruo is None) != (rwo is None):
         raise ValueError('mom_rk: pass all or none of ruo, rvo, rwo')
     if (s is None) != (se is None):
         raise ValueError('mom_rk: pass visct with its edge stack, or neither')
     ye = (None,) * 5 if ye is None else tuple(ye)
-    if ye[0] is not None and (any(ye[m] is None for m in (1, 2, 4))
-                              or (ye[3] is None) != (s is None)):
-        raise ValueError('mom_rk: y walls take the y-row stacks of u, v, w, '
-                         'p and of visct where it is given')
+    yh = (None,) * 5 if yh is None else tuple(yh)
+    for what, q in (('y walls take the y-row stacks', ye),
+                    ('a slab takes the halos', yh)):
+        if q[0] is not None and (any(q[m] is None for m in (1, 2, 4))
+                                 or (q[3] is None) != (s is None)):
+            raise ValueError(f'mom_rk: {what} of u, v, w, p and of visct '
+                             'where it is given')
     _check('mom_rk', u, (u, v, w, s, p, ruo, rvo, rwo),
            edges=(ue, ve, we, se, pe),
-           profiles=((dzci, nz + 2), (dzfi, nz + 2)), **_ysplit(ye))
+           profiles=((dzci, nz + 2), (dzfi, nz + 2)), **_ysplit(ye),
+           **_ysplit(yh, halo=True))
+    halo = yh[0] is not None
     outs = [torch.empty_like(u) for _ in range(6)]
     from . import build
     nb = -(-(ny * nx) // build.THREADS)     # blocks per z plane
@@ -499,29 +527,36 @@ def mom_rk(u, v, w, s, p, ue, ve, we, se, pe, ruo, rvo, rwo, dzci, dzfi,
     d = ctypes.c_double
     _launch('mom_rk', f'cales_mom_rk_{_suffix(u)}',
             *map(_ptr, (u, v, w, s, p, ue, ve, we, se, pe, ruo, rvo, rwo,
-                        dzci, dzfi, *outs, usum, vsum)), *_yptrs(ye),
+                        dzci, dzfi, *outs, usum, vsum)),
+            *_yptrs(yh if halo else ye),
             ctypes.c_int(nz), ctypes.c_int(ny), ctypes.c_int(nx),
-            ctypes.c_int(_SPLIT_CODE[split]),
+            ctypes.c_int(_SPLIT_CODE[split]), ctypes.c_int(int(halo)),
             d(f1), d(f2), d(visc), d(dxi), d(dyi),
             d(bforce[0]), d(bforce[1]), d(bforce[2]))
     return (*outs, usum, vsum)
 
 
-def fillps(u, v, w, ue, ve, we, dzfi, dti, dxi, dyi, yv=None):
+def fillps(u, v, w, ue, ve, we, dzfi, dti, dxi, dyi, yv=None, yh=None):
     """Poisson RHS div(u)/dt_rk (fillps.f90:14-48) in one pass.  yv: y
     walls, v's (rows, corners) y-row stack pair (its lower wall face and
-    rewrite row enter the divergence)."""
+    rewrite row enter the divergence); yh: a slab of a y-sharded mesh, v's
+    halo pair (its row -1 enters the divergence)."""
     if _on_cpu(u):
-        return fillps_plain(u, v, w, ue, ve, we, dzfi, dti, dxi, dyi, yv=yv)
+        return fillps_plain(u, v, w, ue, ve, we, dzfi, dti, dxi, dyi, yv=yv,
+                            yh=yh)
     nz, ny, nx = u.shape
+    if yv is not None and yh is not None:
+        raise ValueError('fillps: y walls or a slab halo, not both')
     _check('fillps', u, (u, v, w), edges=(ue, ve, we),
-           profiles=((dzfi, nz + 2),), **_ysplit((yv,)))
+           profiles=((dzfi, nz + 2),), **_ysplit((yv,)),
+           **_ysplit((yh,), halo=True))
     rhs = torch.empty_like(u)
     d = ctypes.c_double
     _launch('fillps', f'cales_fillps_{_suffix(u)}',
-            *map(_ptr, (u, v, w, ue, ve, we, dzfi, rhs)), *_yptrs((yv,)),
+            *map(_ptr, (u, v, w, ue, ve, we, dzfi, rhs)),
+            *_yptrs((yh if yh is not None else yv,)),
             ctypes.c_int(nz), ctypes.c_int(ny), ctypes.c_int(nx),
-            d(dti), d(dxi), d(dyi))
+            ctypes.c_int(int(yh is not None)), d(dti), d(dxi), d(dyi))
     return rhs
 
 
@@ -568,7 +603,7 @@ def correc_smag(u, v, w, pp, p, ue, ve, we, ppe, dtrk, dxi, dyi, dzci, dzfi,
 
 def correc_updatep(u, v, w, pp, p, we, ppe, dtrk, dxi, dyi, dzci, dzfi,
                    fuv=None, alpha=0.0, impdiff=False, impdiff_1d=False,
-                   ypp=None, yv=None):
+                   ypp=None, yv=None, yh=None):
     """Projection u -= dt grad pp (+ the deferred forcing fuv = (fu, fv) when
     given) and p += pp (+ alpha L(pp) under implicit diffusion, L the z
     second difference under impdiff_1d) in one pass (correc.f90:14-68,
@@ -576,25 +611,31 @@ def correc_updatep(u, v, w, pp, p, we, ppe, dtrk, dxi, dyi, dzci, dzfi,
     the wall-face rewrite); u, v, p are read from their interiors.  y
     walls: ypp, pp's (rows, corners) y-row stack pair, and yv, v's
     prediction-fill y-row stack (nz, 3, nx), whose row 1 (the set_bc
-    rewrite) stands in for v's interior last row.  Returns (u, v, w, p)."""
+    rewrite) stands in for v's interior last row.  yh: a slab of a
+    y-sharded mesh, pp's halo pair (v's last row is the slab's own).
+    Returns (u, v, w, p)."""
     if _on_cpu(u):
         return correc_updatep_plain(u, v, w, pp, p, we, ppe, dtrk, dxi, dyi,
                                     dzci, dzfi, fuv, alpha, impdiff,
-                                    impdiff_1d, ypp=ypp, yv=yv)
+                                    impdiff_1d, ypp=ypp, yv=yv, yh=yh)
     nz, ny, nx = u.shape
     if (ypp is None) != (yv is None):
         raise ValueError('correc_updatep: y walls take ypp and yv together')
+    if ypp is not None and yh is not None:
+        raise ValueError('correc_updatep: y walls or a slab halo, not both')
     _check('correc_updatep', u, (u, v, w, pp, p), edges=(we, ppe),
            profiles=((dzci, nz + 2), (dzfi, nz + 2))
            + (((fuv, 2),) if fuv is not None else ()),
            yrows=() if yv is None else (ypp[0], yv),
-           ycorners=() if yv is None else (ypp[1],))
+           ycorners=() if yv is None else (ypp[1],),
+           **_ysplit((yh,), halo=True))
     outs = [torch.empty_like(u) for _ in range(4)]
     d = ctypes.c_double
     _launch('correc_updatep', f'cales_correc_{_suffix(u)}',
             *map(_ptr, (u, v, w, pp, p, we, ppe, dzci, dzfi, fuv, *outs)),
-            *_yptrs((ypp,)), _ptr(yv),
+            *_yptrs((yh if yh is not None else ypp,)), _ptr(yv),
             ctypes.c_int(nz), ctypes.c_int(ny), ctypes.c_int(nx),
+            ctypes.c_int(int(yh is not None)),
             ctypes.c_int(int(bool(impdiff))),
             ctypes.c_int(int(bool(impdiff_1d))),
             d(dtrk), d(dxi), d(dyi), d(alpha))
@@ -602,26 +643,30 @@ def correc_updatep(u, v, w, pp, p, we, ppe, dtrk, dxi, dyi, dzci, dzfi,
 
 
 def smag(u, v, w, ue, ve, we, dzci, dzfi, dxi, dyi, visc, csd2, dw, nearlo,
-         tauw_lo, tauw_hi, have_zwalls=True):
+         tauw_lo, tauw_hi, have_zwalls=True, yh=None):
     """Static Smagorinsky nu_t with the nearer z wall's van Driest damping
     (sgs.f90:69-152) from the post-correction fill (interiors + edge
     stacks) in one pass.  csd2, dw, nearlo: (nz,) profiles (Cs Delta)^2,
     nearest-wall distance, 1 where the lower wall is nearer; tauw_lo/hi:
-    (ny, nx) wall-shear planes."""
+    (ny, nx) wall-shear planes.  yh: a slab of a y-sharded mesh, the halo
+    pairs of (u, v, w)."""
     if _on_cpu(u):
         return smag_plain(u, v, w, ue, ve, we, dzci, dzfi, dxi, dyi, visc,
                           csd2, dw, nearlo, tauw_lo, tauw_hi,
-                          have_zwalls=have_zwalls)
+                          have_zwalls=have_zwalls, yh=yh)
     nz, ny, nx = u.shape
+    yh = (None,) * 3 if yh is None else tuple(yh)
+    if len({q is None for q in yh}) > 1:
+        raise ValueError('smag: pass the halos of u, v and w, or none')
     _check('smag', u, (u, v, w), planes=(tauw_lo, tauw_hi),
            edges=(ue, ve, we),
            profiles=((dzci, nz + 2), (dzfi, nz + 2), (csd2, nz), (dw, nz),
-                     (nearlo, nz)))
+                     (nearlo, nz)), **_ysplit(yh, halo=True))
     out = torch.empty_like(u)
     d = ctypes.c_double
     _launch('smag', f'cales_smag_{_suffix(u)}',
             *map(_ptr, (u, v, w, ue, ve, we, dzci, dzfi, csd2, dw, nearlo,
-                        tauw_lo, tauw_hi, out)),
+                        tauw_lo, tauw_hi, out)), *_yptrs(yh),
             ctypes.c_int(nz), ctypes.c_int(ny), ctypes.c_int(nx),
             ctypes.c_int(int(bool(have_zwalls))), d(dxi), d(dyi), d(visc))
     return out

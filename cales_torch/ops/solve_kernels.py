@@ -3,6 +3,8 @@ PyTorch version and a launch counter.
 
   kernel     CUDA source          replaces (cales_tpu/ops/pallas_solve.py)
   apply_y    csrc/apply_y.cu      apply_y (with the x operator MxT fused)
+  apply_x    csrc/apply_x.cu      apply_x (the x operator alone, the
+                                  slab-sharded solve's, poisson.solve_sharded)
   z_eig      csrc/z_eig.cu        apply_z_eig
   thomas_z   csrc/thomas_z.cu     _apply_thomas_z: apply_thomas_z and
                                   apply_thomas_helmholtz_z
@@ -26,7 +28,8 @@ from .. import device as devmod
 from . import tridiag
 from .kernels import _launch, _ptr, _suffix
 
-LAUNCHES = {'apply_y': 0, 'z_eig': 0, 'thomas_z': 0, 'thomas_periodic': 0}
+LAUNCHES = {'apply_y': 0, 'apply_x': 0, 'z_eig': 0, 'thomas_z': 0,
+            'thomas_periodic': 0}
 
 
 def reset_launches():
@@ -44,6 +47,20 @@ def apply_y_plain(arr, M, MxT=None):
     if MxT is not None:
         arr = torch.matmul(arr, MxT)
     return torch.matmul(M, arr)
+
+
+def apply_x_plain(arr, MxT, split=1):
+    """out[z, y, :] = arr[z, y, :] @ MxT, one fp32/fp64 matmul (never TF32);
+    see apply_x for the chunked layouts."""
+    devmod.set_full_fp32()
+    if arr.ndim == 4:
+        arr = torch.cat(tuple(arr), dim=-1)
+    out = torch.matmul(arr, MxT)
+    if split > 1:
+        nz, ny, nx = out.shape
+        out = out.reshape(nz, ny, split, nx // split).permute(
+            2, 0, 1, 3).contiguous()
+    return out
 
 
 def z_eig_plain(arr, Vl, Vr, lamz, lamy, lamx, tol):
@@ -143,6 +160,42 @@ def apply_y(arr, M, MxT=None):
     _launch('apply_y', f'cales_apply_y_{_suffix(arr)}',
             *map(_ptr, (arr, M, MxT, tmp, out)),
             ctypes.c_int(nz), ctypes.c_int(ny), ctypes.c_int(nx),
+            counts=LAUNCHES)
+    return out
+
+
+def apply_x(arr, MxT, split=1):
+    """out[z, y, :] = arr[z, y, :] @ MxT for every (z, y) row: the x
+    operator matmul of the slab-sharded solve (pallas_solve.apply_x), out of
+    place.  arr is (nz, ny, nx), or (g, nz, ny, nx/g): the x columns in g
+    chunks, chunk q holding columns q nx/g .., as the all-to-all of the
+    backward transpose delivers them.  split = g > 1 returns the result in
+    that chunked layout, chunk q the block the forward all-to-all sends to
+    rank q; otherwise (nz, ny, nx)."""
+    if arr.device.type == 'cpu':
+        return apply_x_plain(arr, MxT, split)
+    if arr.ndim == 4:
+        g_in, nz, ny, nxi = arr.shape
+        nx = g_in * nxi
+    elif arr.ndim == 3:
+        g_in, (nz, ny, nx) = 1, arr.shape
+    else:
+        raise TypeError(f'apply_x: want (nz, ny, nx) or (g, nz, ny, nx/g), '
+                        f'got {tuple(arr.shape)}')
+    _check('apply_x', arr if arr.ndim == 3 else arr[0], MxT)
+    if not arr.is_contiguous():
+        raise ValueError('apply_x: tensors must be contiguous')
+    _shape('apply_x', MxT, (nx, nx))
+    split = int(split)
+    if split < 1 or nx % split:
+        raise ValueError(f'apply_x: split {split} does not divide nx = {nx}')
+    if nz * ny >= 2 ** 31:
+        raise ValueError(f'apply_x: {nz * ny} rows (at most 2^31 - 1)')
+    out = arr.new_empty((split, nz, ny, nx // split) if split > 1
+                        else (nz, ny, nx))
+    _launch('apply_x', f'cales_apply_x_{_suffix(arr)}',
+            *map(_ptr, (arr, MxT, out)), ctypes.c_int(nz * ny),
+            ctypes.c_int(nx), ctypes.c_int(g_in), ctypes.c_int(split),
             counts=LAUNCHES)
     return out
 

@@ -1,0 +1,172 @@
+"""The transport of the slab mesh: torch.distributed collectives over an
+explicit backend.
+
+  'nccl'  one card a rank, the collectives on the tensors where they lie;
+  'gloo'  CPU tensors as they are; CUDA tensors staged through pinned host
+          buffers (device -> host, the collective on the host, host ->
+          device).  This is how several ranks share one card, which NCCL
+          refuses ("Duplicate GPU detected").  It is slow, and it is chosen
+          by the caller, never switched on after a failure.
+
+The process group is started by init_process_group with its address, world
+size and rank given (a ``tcp://`` or ``file://`` init method, or the
+environment that ``python -m torch.distributed.run`` sets).
+"""
+from __future__ import annotations
+
+import os
+
+import torch
+import torch.distributed as dist
+
+TRANSPORTS = ('nccl', 'gloo')
+_OPS = {'sum': dist.ReduceOp.SUM, 'max': dist.ReduceOp.MAX,
+        'min': dist.ReduceOp.MIN}
+
+
+def init_process_group(transport: str, rank: int, world_size: int,
+                       init_method: str = 'env://'):
+    """Start the default process group on `transport`."""
+    if transport not in TRANSPORTS:
+        raise ValueError(f'transport {transport!r} (one of {TRANSPORTS})')
+    dist.init_process_group(backend=transport, init_method=init_method,
+                            rank=rank, world_size=world_size)
+
+
+def rank_device(device: str, transport: str, local_rank: int,
+                local_world: int) -> torch.device:
+    """The device of this rank, or a ValueError when `transport` cannot
+    serve the ranks on it: NCCL needs a card a rank on this host and CUDA
+    tensors; gloo serves CPU tensors, and CUDA ones staged through the host
+    (several ranks may share a card)."""
+    dev = torch.device(device)
+    if transport not in TRANSPORTS:
+        raise ValueError(f'transport {transport!r} (one of {TRANSPORTS})')
+    if dev.type == 'cpu':
+        if transport != 'gloo':
+            raise ValueError(f"transport {transport!r} with CPU tensors: "
+                             "use 'gloo'")
+        return dev
+    if dev.type != 'cuda':
+        raise ValueError(f'unsupported device {dev}')
+    if not torch.cuda.is_available():
+        raise RuntimeError('device cuda requested but torch.cuda.'
+                           'is_available() is False')
+    ncard = torch.cuda.device_count()
+    if transport == 'nccl':
+        if ncard < local_world:
+            raise ValueError(
+                f"transport 'nccl' puts one rank on a card: this host has "
+                f'{ncard} card(s) for {local_world} ranks (pass transport '
+                "'gloo' to share cards, staged through pinned host buffers)")
+        return torch.device('cuda', local_rank)
+    return torch.device('cuda', local_rank % ncard)
+
+
+class Comm:
+    """The collectives of one rank on `device` over the default process
+    group's transport."""
+
+    def __init__(self, transport: str, device: torch.device):
+        if not dist.is_initialized():
+            raise RuntimeError('torch.distributed is not initialised '
+                               '(comm.init_process_group)')
+        backend = dist.get_backend()
+        if backend != transport:
+            raise ValueError(f'process group on {backend!r}, transport '
+                             f'{transport!r}')
+        self.transport = transport
+        self.device = torch.device(device)
+        if transport == 'nccl' and self.device.type != 'cuda':
+            raise ValueError("transport 'nccl' carries CUDA tensors only")
+        self.rank = dist.get_rank()
+        self.size = dist.get_world_size()
+        # CUDA tensors over gloo go through pinned host buffers
+        self.staged = transport == 'gloo' and self.device.type == 'cuda'
+
+    def describe(self) -> str:
+        if self.staged:
+            return (f"gloo, CUDA tensors staged through pinned host buffers "
+                    f"({self.size} ranks)")
+        return f'{self.transport} ({self.size} ranks)'
+
+    # -- staging ---------------------------------------------------------
+    def _to_host(self, t):
+        if not self.staged:
+            return t.contiguous()
+        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        h.copy_(t)
+        return h
+
+    def _back(self, h, like):
+        if not self.staged:
+            return h
+        return h.to(like.device)
+
+    # -- collectives -----------------------------------------------------
+    def all_reduce(self, t, op: str = 'sum'):
+        """The reduction of t over the ranks ('sum', 'max' or 'min'), as a
+        new tensor on t's device."""
+        h = self._to_host(t) if self.staged else t.detach().clone()
+        dist.all_reduce(h, op=_OPS[op])
+        return self._back(h, t)
+
+    def all_to_all(self, send):
+        """all_to_all_single along dim 0: block q of `send` goes to rank q,
+        block q of the result came from rank q."""
+        if send.shape[0] != self.size:
+            raise ValueError(f'all_to_all: dim 0 is {send.shape[0]}, want '
+                             f'{self.size} blocks')
+        h = self._to_host(send)
+        out = torch.empty_like(h)
+        dist.all_to_all_single(out, h)
+        return self._back(out, send)
+
+    def exchange(self, to_lo, to_hi):
+        """Neighbour exchange on the periodic ring of ranks: to_lo goes to
+        rank - 1 and to_hi to rank + 1; returns (from_lo, from_hi), what
+        rank - 1 sent up and rank + 1 sent down."""
+        lo = (self.rank - 1) % self.size
+        hi = (self.rank + 1) % self.size
+        a, b = self._to_host(to_lo), self._to_host(to_hi)
+        from_lo, from_hi = torch.empty_like(b), torch.empty_like(a)
+        # the tags tell the two messages of a two-rank ring apart; NCCL
+        # matches them in the order issued, which is the same on both sides
+        reqs = dist.batch_isend_irecv([
+            dist.P2POp(dist.isend, b, hi, tag=0),
+            dist.P2POp(dist.irecv, from_lo, lo, tag=0),
+            dist.P2POp(dist.isend, a, lo, tag=1),
+            dist.P2POp(dist.irecv, from_hi, hi, tag=1)])
+        for r in reqs:
+            r.wait()
+        return self._back(from_lo, to_hi), self._back(from_hi, to_lo)
+
+    def all_gather(self, t):
+        """[t of rank 0, t of rank 1, ...] on the host."""
+        h = self._to_host(t)
+        parts = [torch.empty_like(h) for _ in range(self.size)]
+        dist.all_gather(parts, h)
+        return [p.cpu() for p in parts]
+
+    def barrier(self):
+        if self.transport == 'nccl':
+            dist.barrier(device_ids=[self.device.index])
+        else:
+            dist.barrier()
+
+
+def env_rank() -> tuple[int, int, int, int]:
+    """(rank, world_size, local_rank, local_world_size) from the environment
+    that torch.distributed.run sets; a RuntimeError when it is absent."""
+    try:
+        rank = int(os.environ['RANK'])
+        world = int(os.environ['WORLD_SIZE'])
+    except KeyError as e:
+        raise RuntimeError(
+            'a device mesh (dims) needs one process a rank: launch with '
+            '`python -m torch.distributed.run --nproc_per_node <gy> -m '
+            f'cales_torch ...` (missing {e.args[0]} in the environment)'
+        ) from None
+    local = int(os.environ.get('LOCAL_RANK', rank))
+    local_world = int(os.environ.get('LOCAL_WORLD_SIZE', world))
+    return rank, world, local, local_world

@@ -1,0 +1,144 @@
+"""The y-slab mesh: dims = (gy, 1), one rank a y slab.
+
+Counterpart of cales_tpu/parallel/mesh.py for the JAX package's
+kernel-sharded route with gx = 1 (cales_tpu/timeloop.py `_kernel_sharded`
+and `use_pallas_solve_sharded`).  Rank r holds the y rows [r ny/gy,
+(r+1) ny/gy) of every (nz, ny, nx) field; z and x stay whole on every
+rank, as the reference's pencils keep the tridiagonal direction local.
+
+  halo_y            the y rows the stencil kernels read across a slab edge:
+                    row -1 from the rank below and row ny/gy from the rank
+                    above, of each field and of its z-edge stack (the JAX
+                    package's _halo_strips packs both; its 8-row strips are
+                    Mosaic's granularity, the port moves one row a side);
+  transpose_y_to_x  the Poisson solve's forward pencil transpose: split x,
+  transpose_x_to_y  gather y, and back, on all_to_all_single;
+  all_reduce        sums and maxima over the whole domain.
+
+The transport (parallel/comm.py) is the caller's explicit choice.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import comm as commmod
+
+
+class SlabMesh:
+    """The mesh of one rank: `comm` its collectives, `ng` = (nx, ny, nz) the
+    global grid, dims = (gy, gx) as the namelist's dims(1:2).  Which dims
+    and grids run is timeloop.unsupported()'s to say (gx = 1, nx and ny
+    divisible by gy); the mesh checks the world size only."""
+
+    def __init__(self, comm: commmod.Comm, dims, ng):
+        gy, gx = int(dims[0]), int(dims[1])
+        if comm.size != gy * gx:
+            raise ValueError(f'dims = ({gy}, {gx}) needs {gy * gx} ranks, the '
+                             f'process group has {comm.size}')
+        nx, ny, nz = ng
+        if ny % gy or nx % gy:
+            raise ValueError(f'dims = ({gy}, {gx}): ny = {ny} and nx = {nx} '
+                             f'must divide by gy = {gy}')
+        self.comm = comm
+        self.gy = gy
+        self.rank = comm.rank
+        self.ng = tuple(ng)
+        self.nyl = ny // gy
+        self.nxl = nx // gy
+        self.y0 = self.rank * self.nyl
+
+    def describe(self) -> str:
+        return (f'y slabs dims = ({self.gy}, 1), rank {self.rank}: y rows '
+                f'[{self.y0}, {self.y0 + self.nyl}) of {self.ng[1]}; '
+                f'transport {self.comm.describe()}')
+
+    # -- placement -------------------------------------------------------
+    def local(self, a):
+        """This rank's slab (nz, ny/gy, nx) of a global (nz, ny, nx) array
+        (numpy or tensor); a slab-shaped one is returned as it is."""
+        if a.shape[1] == self.nyl and self.nyl != self.ng[1]:
+            return a
+        if a.shape[1] != self.ng[1]:
+            raise ValueError(f'field of y extent {a.shape[1]}: want '
+                             f'{self.ng[1]} (global) or {self.nyl} (slab)')
+        sl = a[:, self.y0:self.y0 + self.nyl]
+        return np.ascontiguousarray(sl) if isinstance(a, np.ndarray) \
+            else sl.contiguous()
+
+    def gather(self, t):
+        """The global (nz, ny, nx) numpy array of a slab-sharded field, on
+        every rank."""
+        parts = self.comm.all_gather(t)
+        return np.concatenate([p.numpy() for p in parts], axis=1)
+
+    # -- halos -------------------------------------------------------------
+    def halo_y(self, pairs):
+        """pairs: [(field (nz, nyl, nx), z-edge stack (3, nyl, nx)), ...].
+        Returns [(rows (nz, 2, nx), corners (3, 2, nx)), ...]: rows holds
+        row -1 (the lower neighbour's last row) and row nyl (the upper
+        neighbour's first row), corners their z-edge stack entries, in the
+        stack's order.  One neighbour exchange for all the pairs."""
+        nz = pairs[0][0].shape[0]
+        first = torch.stack([torch.cat([f[:, 0], e[:, 0]]) for f, e in pairs])
+        last = torch.stack([torch.cat([f[:, -1], e[:, -1]])
+                            for f, e in pairs])
+        from_lo, from_hi = self.comm.exchange(to_lo=first, to_hi=last)
+        both = torch.stack([from_lo, from_hi], dim=2)   # (nf, nz+3, 2, nx)
+        return [(both[m, :nz], both[m, nz:]) for m in range(len(pairs))]
+
+    # -- pencil transposes of the Poisson solve ----------------------------
+    def transpose_y_to_x(self, blocks):
+        """blocks (gy, nz, nyl, nxl), block q this slab's x columns
+        [q nxl, (q+1) nxl) (solve_kernels.apply_x(split=gy) writes them so)
+        -> (nz, ny, nxl): this rank's x columns over all y.  One all-to-all
+        and one copy."""
+        recv = self.comm.all_to_all(blocks)
+        g, nz, nyl, nxl = recv.shape
+        return recv.permute(1, 0, 2, 3).reshape(nz, g * nyl, nxl)
+
+    def transpose_x_to_y(self, a):
+        """a (nz, ny, nxl), this rank's x columns -> (gy, nz, nyl, nxl):
+        block q rank q's x columns on this slab's y rows, the chunked input
+        solve_kernels.apply_x takes.  One copy and one all-to-all."""
+        nz, ny, nxl = a.shape
+        send = a.reshape(nz, self.gy, ny // self.gy, nxl).permute(
+            1, 0, 2, 3).contiguous()
+        return self.comm.all_to_all(send)
+
+    # -- reductions ----------------------------------------------------------
+    def all_reduce(self, t, op: str = 'sum'):
+        return self.comm.all_reduce(t, op)
+
+    def reduce_scalar(self, x, op: str):
+        """A python float reduced over the ranks."""
+        t = torch.tensor([float(x)], dtype=torch.float64,
+                         device=self.comm.device)
+        return float(self.comm.all_reduce(t, op)[0])
+
+    def mean_of_ranks(self, a):
+        """The mean over the ranks of a numpy array (a slab's plane means
+        -> the domain's: the slabs are of one size)."""
+        t = torch.as_tensor(np.ascontiguousarray(a), device=self.comm.device)
+        return self.comm.all_reduce(t).cpu().numpy() / self.gy
+
+    def barrier(self):
+        self.comm.barrier()
+
+
+def from_env(dims, ng, device: str, transport: str):
+    """Start the process group from the environment of
+    `python -m torch.distributed.run` and build this rank's mesh; returns
+    (mesh, device).  Raises when the world size is not gy * gx or the
+    transport cannot serve the ranks: there is no single-device retry."""
+    rank, world, local, local_world = commmod.env_rank()
+    gy, gx = int(dims[0]), int(dims[1])
+    if world != gy * gx:
+        raise ValueError(f'dims = ({gy}, {gx}) needs {gy * gx} ranks, '
+                         f'WORLD_SIZE is {world}')
+    dev = commmod.rank_device(device, transport, local, local_world)
+    if dev.type == 'cuda':
+        torch.cuda.set_device(dev)
+    commmod.init_process_group(transport, rank, world)
+    comm = commmod.Comm(transport, dev)
+    return SlabMesh(comm, (gy, gx), ng), dev

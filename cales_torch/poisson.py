@@ -29,6 +29,12 @@ implicit-diffusion path (impdiff_1d) through the Thomas kernel, with the
 bulk-forcing shift, the boundary planes and the face-staggered tail row
 inside the kernel (the periodic kernel with periodic z).
 
+On a y-slab mesh (dims = (gy, 1), parallel/mesh.py) solve_sharded is the
+slab-sharded Poisson solve of the JAX package's kernel-sharded route
+(poisson.solve_sharded_pallas): apply_x while x is local, the pencil
+transpose (split x, gather y), apply_y along y only, thomas_z on this
+rank's x columns, apply_y back, the transpose back, apply_x back.
+
 With y walls (homogeneous-Neumann pressure, the duct and cavity classes)
 the y operator is a DCT matrix and the route is 'mat': apply_y and z_eig
 take whatever operator and eigenvalues the transforms hold, so no kernel
@@ -149,11 +155,14 @@ def make_solver(cfg: Config, grid: Grid, cbc, c_or_f,
     package, except with y walls: there the y transform is a matrix
     whatever 'auto' says, and 'auto' takes 'mat' along x too, the all-matrix
     route of apply_y and z_eig, rather than the JAX package's mixed route
-    off a TPU (rfft along x and the y matrix, poisson.py:414-430)."""
+    off a TPU (rfft along x and the y matrix, poisson.py:414-430); and on a
+    device mesh (dims), where the sharded solve is the all-matrix route, as
+    'auto' resolves on the TPU (poisson.py:138-141)."""
     nx, ny, nz = cfg.ng
     dli = cfg.dli
     mode = getattr(cfg, 'ptransform', 'auto')
-    pp_mat = mode == 'mat' or (mode == 'auto' and cbc[1] != 'PP')
+    meshed = cfg.dims[0] * cfg.dims[1] > 1
+    pp_mat = mode == 'mat' or (mode == 'auto' and (cbc[1] != 'PP' or meshed))
     trx = tr.make_transform(cbc[0], c_or_f[0], nx, pp_mat=pp_mat)
     try_ = tr.make_transform(cbc[1], c_or_f[1], ny, pp_mat=pp_mat)
     a, b, c = tridmatrix(cbc[2], nz, grid.dzci, grid.dzfi, c_or_f[2])
@@ -265,17 +274,19 @@ def _thomas_tol(lamx, lamy, dtype) -> float:
     return float(torch.finfo(dtype).eps * scale * 4.0)
 
 
-def _z_thomas(sv: DirectSolver, body, lamx_np, alpha=None):
+def _z_thomas(sv: DirectSolver, body, lamx_np, alpha=None, key='lamx'):
     """Thomas z stage on a real (nz, ny, n) spectrum whose x lanes carry
-    the eigenvalues lamx_np (n,): the Poisson solve, its singular lane
-    pinned where z is periodic or all-Neumann, or with alpha the Helmholtz
+    the eigenvalues lamx_np (n,) (key names them in the device cache): the
+    Poisson solve, its singular lane pinned where z is periodic or
+    all-Neumann by a tolerance from the whole spectrum sv.lamx (a slab's
+    lanes are a slice of it), or with alpha the Helmholtz
     solve (I + alpha L) on the alpha-scaled rows with the diagonal shift
     (lamy + lamx) alpha (poisson.py:326-338), the face-staggered Dirichlet
     tail row passed through."""
     dt, dev = body.dtype, body.device
     lamy = _dev(sv, 'lamy', torch.float64, dev,
                 lambda: _t(sv.lamy, torch.float64, dev))
-    lamx = _dev(sv, ('lamx', len(lamx_np)), torch.float64, dev,
+    lamx = _dev(sv, (key, len(lamx_np)), torch.float64, dev,
                 lambda: _t(lamx_np, torch.float64, dev))
     # the rows scaled in float64 and rounded once, as the JAX package's
     # host-side numpy scaling rounds them
@@ -285,7 +296,7 @@ def _z_thomas(sv: DirectSolver, body, lamx_np, alpha=None):
     a, b, c = _abc(sv, dev)
     pin = alpha is None and sv.bcz in ('PP', 'NN')
     kw = dict(lamy=lamy, lamx=lamx, pin=pin, alpha=alpha,
-              tol=_thomas_tol(lamx_np, sv.lamy, dt) if pin else 0.0)
+              tol=_thomas_tol(sv.lamx, sv.lamy, dt) if pin else 0.0)
     if sv.bcz == 'PP':
         return sk.thomas_periodic_z(body, a, b, c, **kw)
     nz = body.shape[0]
@@ -352,6 +363,42 @@ def solve(sv: DirectSolver, p, alpha=None):
     if sv.trx.kind == 'mat':
         return _solve_mat(sv, p, alpha)
     return _solve_fft(sv, p, alpha)
+
+
+def solve_sharded(sv: DirectSolver, p, mesh):
+    """The slab-sharded Poisson solve (poisson.solve_sharded_pallas) of this
+    rank's (nz, ny/gy, nx) RHS slab p on `mesh` (parallel/mesh.SlabMesh):
+
+      apply_x forward, written as gy x-column blocks      (nz, ny/gy, nx)
+      all-to-all: split x, gather y                       (nz, ny, nx/gy)
+      apply_y along y; thomas_z on this rank's lamx
+      lanes, the singular lane pinned when bcz is 'NN'
+      (it lies on rank 0); apply_y back
+      all-to-all back                                     (nz, ny/gy, nx)
+      apply_x backward, reading the blocks in place
+
+    The z stage is Thomas at every nz, as the JAX route takes it, so the
+    result matches the single-device solve (z_eig below nz = 384) to
+    rounding and up to the gauge of the constant mode.  Which
+    configurations come here is timeloop.unsupported()'s to say; the solver
+    must have what all of theirs have: square 'mat' x and y transforms, no
+    face-staggered tail row, z not periodic."""
+    nx, ny, _ = sv.ng
+    if not (sv.trx.kind == sv.try_.kind == 'mat' and sv.trx.nsolve == nx
+            and sv.try_.nsolve == ny and not sv.qz and sv.bcz != 'PP'):
+        raise ValueError("solve_sharded: the solver needs square 'mat' x "
+                         'and y transforms, no tail row and z not periodic')
+    dt, dev = p.dtype, p.device
+    fy, fxT, by, bxT = _dev(sv, 'mat', dt, dev, lambda: tuple(
+        _t(m, dt, dev) for m in (sv.try_.fwd_mat, sv.trx.fwd_mat.T,
+                                 sv.try_.bwd_mat, sv.trx.bwd_mat.T)))
+    nxl = mesh.nxl
+    lamx_l = sv.lamx[mesh.rank * nxl:(mesh.rank + 1) * nxl]
+    body = mesh.transpose_y_to_x(sk.apply_x(p, fxT, split=mesh.gy))
+    body = sk.apply_y(body, fy)
+    body = _z_thomas(sv, body, lamx_l, key=('lamx_slab', mesh.rank))
+    body = sk.apply_y(body, by)
+    return sk.apply_x(mesh.transpose_x_to_y(body), bxT)
 
 
 def solve_z_only(sv: DirectSolver, p, alpha, shift=None, bc_planes=None):

@@ -41,6 +41,17 @@ fill for dsmag (and the filtered velocity's static fill for
 dsmag_level2).  On a CUDA device the kernels are the hand-written ones of
 cales_torch/csrc; on the CPU their plain PyTorch twins.
 
+On a y-slab mesh (dims = (gy, 1), parallel/mesh.SlabMesh) each rank steps
+its slab, the counterpart of the JAX package's kernel-sharded route
+(Simulation with _kernel_sharded and use_pallas_solve_sharded): the halos
+of the fields each stencil kernel reads at +-1 in y come from the
+neighbours before it runs (mesh.halo_y), the Poisson solve is
+poisson.solve_sharded (apply_x, the pencil transposes, apply_y, thomas_z),
+the correction and nu_t run as correc_updatep and smag (the fused
+correc_smag is off, as under the JAX mesh), and the bulk forcing, the CFL
+dt and the divergence reduce over the ranks.  The van Driest wall-shear
+planes stay on their slab (z is never split) with the halo's row below.
+
 The port and the JAX package carry the same state (State below), so a
 JAX state can be carried across (params.py).  Configurations outside this
 slice raise NotImplementedError naming the missing piece.
@@ -147,14 +158,46 @@ def unsupported(cfg: Config) -> list[str]:
     if cfg.scalar:
         out.append('passive scalar: ROADMAP queue 1, scalar')
     if cfg.dims[0] * cfg.dims[1] > 1:
-        out.append(f'a device mesh (dims={tuple(cfg.dims)}): ROADMAP queue 1, '
-                   'multi-device')
+        out += _mesh_refuse(cfg)
     vals = ([cfg.bcvel[ib][d][iv] for ib in range(2) for d in range(3)
              for iv in range(3)]
             + [b[ib][d] for b in (cfg.bcpre, cfg.bcsgs) for ib in range(2)
                for d in range(3)])
     if any(np.ndim(x) != 0 for x in vals):
         out.append('plane-valued BC values: ROADMAP queue 1, BC topologies')
+    return out
+
+
+def _mesh_refuse(cfg: Config) -> list[str]:
+    """What this slice does not run on a device mesh (dims): the y-slab
+    mesh dims = (gy, 1) runs the channel classes with periodic x and y,
+    explicit diffusion, static Smagorinsky or none, and the all-matrix
+    Poisson route."""
+    gy, gx = int(cfg.dims[0]), int(cfg.dims[1])
+    nx, ny, _ = cfg.ng
+    out = []
+    item = 'ROADMAP queue 1, multi-device'
+    if gx > 1:
+        out.append(f'an x-split pencil mesh (dims = ({gy}, {gx}), gx > 1: the '
+                   f'xe column protocol): {item}')
+    if ny % gy or nx % gy:
+        out.append(f'dims = ({gy}, {gx}) with ny = {ny}, nx = {nx} not '
+                   f'divisible by gy')
+    if cfg.sgstype == 'dsmag':
+        out.append(f'dynamic Smagorinsky under a device mesh: {item}')
+    if cfg.impdiff:
+        out.append('implicit diffusion under a device mesh '
+                   "(solve_z_only_sharded, mom_rk's no-fold split): "
+                   f'{item}')
+    if not _periodic(cfg, 1):
+        out.append(f'y walls under a device mesh: {item}')
+    if not _periodic(cfg, 0):
+        out.append(f'x walls under a device mesh: {item}')
+    if cfg.cbc_vel(2, 0)[0] == 'P':
+        out.append('periodic z under a device mesh (the sharded periodic '
+                   f'Thomas stage): {item}')
+    if cfg.ptransform == 'fft':
+        out.append(f"ptransform 'fft' under a device mesh: {item}")
     return out
 
 
@@ -214,16 +257,32 @@ def _dsmag_ratio(s0, num, den, avg):
 
 
 class Simulation:
-    """Static solver setup + the step function on one torch device."""
+    """Static solver setup + the step function on one torch device, or on
+    one rank of a y-slab mesh (mesh: parallel/mesh.SlabMesh, which the
+    namelist's dims asks for), where every field is this rank's slab."""
 
-    def __init__(self, cfg: Config, grid: Grid, device='cuda'):
+    def __init__(self, cfg: Config, grid: Grid, device='cuda', mesh=None):
         missing = unsupported(cfg)
         if missing:
             raise NotImplementedError(
                 'configuration outside the ported slice: ' + '; '.join(missing))
+        meshed = cfg.dims[0] * cfg.dims[1] > 1
+        if meshed != (mesh is not None):
+            raise ValueError(
+                f'dims = {tuple(cfg.dims)} ' + (
+                    'needs a device mesh (parallel/mesh.from_env)' if meshed
+                    else 'runs on one device; a mesh was given'))
+        if mesh is not None and (mesh.gy != cfg.dims[0]
+                                 or tuple(mesh.ng) != tuple(cfg.ng)):
+            raise ValueError(f'mesh of {mesh.gy} slabs of {mesh.ng}, config '
+                             f'dims {tuple(cfg.dims)} ng {tuple(cfg.ng)}')
         self.cfg = cfg
         self.grid = grid
+        self.mesh = mesh
         self.device = devmod.resolve(device)
+        if mesh is not None and mesh.comm.device != self.device:
+            raise ValueError(f'mesh on {mesh.comm.device}, simulation on '
+                             f'{self.device}')
         self.dtype = devmod.torch_dtype(cfg.dtype)
         self.cbcvel = effective_cbcvel(cfg)
         self.cbcpre = tuple((cfg.cbcpre[0][d], cfg.cbcpre[1][d])
@@ -232,6 +291,11 @@ class Simulation:
         # y): the kernels take the y-row stacks of their fills
         self.ywalled = not _periodic(cfg, 1)
         nx, ny, nz = cfg.ng
+        # this rank's slab: the local shape the fields, the y-face planes
+        # and add_rhs_bound's row indices take
+        self.nyl = ny if mesh is None else mesh.nyl
+        self.cfg_local = cfg if mesh is None else cfg.replace(
+            ng=(nx, self.nyl, nz))
 
         self.solver_p = poisson.make_solver(
             cfg, grid, tuple(cfg.cbc_pre(d) for d in range(3)),
@@ -240,7 +304,8 @@ class Simulation:
         # where nu_t comes from: the fused correction (smag, explicit
         # diffusion; cales_tpu's _fuse_correc_smag), or a separate SGS
         # kernel on the post-correction fill
-        self.fused_smag = cfg.sgstype == 'smag' and not cfg.impdiff
+        self.fused_smag = (cfg.sgstype == 'smag' and not cfg.impdiff
+                           and mesh is None)
         self.sgs_kernel = ({'smag': 'smag', 'dsmag': 'dsmag'}
                            .get(cfg.sgstype) if not self.fused_smag else None)
         # dsmag: the one-pass kernel where it can carry the BC values, the
@@ -347,7 +412,8 @@ class Simulation:
         kernel's name; exec_path says which variant runs)."""
         cfg = self.cfg
         mat = self.solver_p.trx.kind == 'mat'
-        thomas = poisson.uses_thomas(self.solver_p)
+        # the sharded solve takes Thomas at every nz (poisson.solve_sharded)
+        thomas = poisson.uses_thomas(self.solver_p) or self.mesh is not None
         zthomas = ('thomas_periodic' if self.solver_p.bcz == 'PP'
                    else 'thomas_z')
         names = ['mom_rk', 'fillps',
@@ -358,6 +424,8 @@ class Simulation:
             names.append(self.sgs_kernel)
         if mat:
             names.append('apply_y')
+        if self.mesh is not None:
+            names.append('apply_x')
         if mat and not thomas:
             names.append('z_eig')
         # the Thomas kernel of the z stage: the Poisson solve's, and the
@@ -382,10 +450,12 @@ class Simulation:
         periodic_z = self.solver_p.bcz == 'PP'
         zthomas = 'thomas_periodic' if periodic_z else 'thomas_z'
         zstage = (zthomas if poisson.uses_thomas(self.solver_p)
+                  or self.mesh is not None
                   else 'z eigen-matmul' if self.solver_p.trx.kind == 'fft'
                   else 'z_eig')
         xy = ('torch.fft x/y' if self.solver_p.trx.kind == 'fft'
-              else 'apply_y x/y operator matmuls')
+              else 'apply_y x/y operator matmuls' if self.mesh is None
+              else 'apply_x, the y<->x all-to-all, apply_y (slab-sharded)')
         diff = ('explicit' if not self.cfg.impdiff
                 else f'z-implicit Crank-Nicolson ({zthomas} per component)'
                 if self.cfg.impdiff_1d
@@ -402,8 +472,10 @@ class Simulation:
                if self.sgs_kernel == 'dsmag' else 'none')
         if self.ywalled:
             sgs += '; y walls: y-row ghost stacks'
+        mesh = ('' if self.mesh is None
+                else f'; mesh: {self.mesh.describe()}, y halos')
         return (f'{where}; poisson: {xy} + {zstage} ({self.cfg.dtype}); '
-                f'diffusion: {diff}; sgs: {sgs}')
+                f'diffusion: {diff}; sgs: {sgs}{mesh}')
 
     # ------------------------------------------------------------------
     def _t(self, a):
@@ -411,10 +483,13 @@ class Simulation:
                                device=self.device)
 
     def initial_state(self, u, v, w, p) -> State:
-        """State from (nz, ny, nx) initial fields (numpy or tensors)."""
+        """State from (nz, ny, nx) initial fields (numpy or tensors); on a
+        mesh the global fields or this rank's slabs."""
+        if self.mesh is not None:
+            u, v, w, p = (self.mesh.local(a) for a in (u, v, w, p))
         u, v, w, p = (self._t(a) for a in (u, v, w, p))
         zeros = torch.zeros_like(u)
-        nx, ny, nz = self.cfg.ng
+        nx, ny, nz = self.cfg_local.ng
         z2 = lambda a, b: torch.zeros((a, b), dtype=self.dtype,  # noqa: E731
                                       device=self.device)
         vlo = (z2(nz + 2, ny + 2), z2(nz + 2, nx + 2), z2(ny + 2, nx + 2))
@@ -427,6 +502,11 @@ class Simulation:
         u, v, w = st0.u, st0.v, st0.w
         bcu, bcv, bcw = self._dynamic_bcs(u, v, w)
         up, vp, wp, vlo = self._pad_vel(u, v, w, bcu, bcv, bcw)
+        if self.mesh is not None:
+            # the y ghosts from the neighbours (vlo's y ghost rows, wrapped
+            # on the slab, are never read: every fill crops them)
+            up, vp, wp = self._halo_padded(
+                (u, v, w), self._zedge_vel(u, v, w, bcu, bcv, bcw))
         if self.cfg.sgstype == 'smag':
             visct = sgsmod.smag_visct(self.sgs_setup, self.cfg, self.grid,
                                       up, vp, wp).to(self.dtype)
@@ -482,6 +562,24 @@ class Simulation:
         return bnd.zedge_scalar(s, cbc_z, self.bcs_vals[2],
                                 self.grid.dzc).contiguous()
 
+    def _halo_padded(self, fields, edges):
+        """The (nz+2, nyl+2, nx+2) ghost-filled slabs of `fields` on a
+        mesh: z ghosts from their edge stacks, y ghosts from the
+        neighbours' rows (one exchange), x periodic."""
+        halos = self.mesh.halo_y(list(zip(fields, edges)))
+        return [kernels.padded(q, e, h=h)
+                for q, e, h in zip(fields, edges, halos)]
+
+    def bulk_mean(self, f, weights):
+        """Volume-weighted mean of a field (st.bulk_mean), over the whole
+        domain on a mesh."""
+        if self.mesh is None:
+            return float(st.bulk_mean(f, weights))
+        plane = torch.sum(f, dim=(1, 2))
+        plane = self.mesh.all_reduce(plane)
+        return float(torch.dot(plane, torch.as_tensor(
+            weights, dtype=f.dtype, device=f.device)))
+
     def _yedge_vel(self, u, v, w, vlo=None, is_correc=False):
         """The (rows, corners) y-row stack pairs of u, v, w."""
         rows, corners = bnd.yedge_velocity(
@@ -513,7 +611,10 @@ class Simulation:
         f = torch.zeros(3, dtype=self.dtype, device=self.device)
         for d, s in enumerate(sums):
             if s is not None:
-                f[d] = cfg.velf[d] - torch.dot(s.sum(dim=1), self.gvr_f_t)
+                tot = s.sum(dim=1)
+                if self.mesh is not None:
+                    tot = self.mesh.all_reduce(tot)
+                f[d] = cfg.velf[d] - torch.dot(tot, self.gvr_f_t)
         return f, f[:2].contiguous()
 
     def _correc_smag_fused(self, u, v, w, pp, p, ue2, ve2, we2, ppe, dtrk,
@@ -540,12 +641,14 @@ class Simulation:
             self.dzfi_t, cfg.visc, self.csd2_t, self.zrec_uv, fuv, self.dw_t,
             self.nearlo_t, tauw_lo, tauw_hi, have_zwalls=self.have_zwalls)
 
-    def _wall_shear_planes(self, face, like):
+    def _wall_shear_planes(self, face, like, bprev=None):
         """The van Driest wall-shear planes (tauw_lo, tauw_hi), (ny, nx):
         |grad u_par| at each z wall (sgs.f90:117-143 z rows) from
         face(side) -> (A, B), the jumps of u and v across the wall face
         (interior row minus ghost row).  A face that is no wall takes the
-        other wall's plane; without z walls both are zero, shaped `like`."""
+        other wall's plane; without z walls both are zero, shaped `like`.
+        bprev(side): on a slab, B's row -1 (nx,) from the halo, which the
+        periodic roll along y would take from the slab's own last row."""
         if not self.have_zwalls:
             z = torch.zeros_like(like[0])
             return z, z
@@ -554,7 +657,10 @@ class Simulation:
         def plane(side):
             A, B = face(side)
             t1 = A + torch.roll(A, 1, 1)
-            t2 = B + torch.roll(B, 1, 0)
+            if bprev is None:
+                t2 = B + torch.roll(B, 1, 0)
+            else:
+                t2 = B + torch.cat([bprev(side)[None], B[:-1]])
             dzi = float(self.grid.dzci[0 if side == 0 else nz])
             return (torch.sqrt(t1 ** 2 + t2 ** 2) * dzi).contiguous()
         lo = plane(0) if self.lo_wall else None
@@ -569,15 +675,25 @@ class Simulation:
         dxi, dyi = cfg.dli[0], cfg.dli[1]
         if self.sgs_kernel == 'smag':
             # the post-correction fill's ghost rows (cales_tpu
-            # _compute_sgs_kernel)
+            # _compute_sgs_kernel); on a slab the halos of u, v, w and v's
+            # wall jump on the row below
+            yh = bprev = None
+            if self.mesh is not None:
+                yh = self.mesh.halo_y([(u, ue), (v, ve), (w, we)])
+                hv_rows, hv_corners = yh[1]
+
+                def bprev(side):
+                    k, e = (0, 0) if side == 0 else (-1, 2)
+                    return hv_rows[k, 0] - hv_corners[e, 0]
             tauw_lo, tauw_hi = self._wall_shear_planes(
                 lambda side: ((u[0] - ue[0], v[0] - ve[0]) if side == 0
-                              else (u[-1] - ue[2], v[-1] - ve[2])), u)
+                              else (u[-1] - ue[2], v[-1] - ve[2])), u,
+                bprev=bprev)
             return kernels.smag(u, v, w, ue, ve, we, self.dzci_t,
                                 self.dzfi_t, dxi, dyi, cfg.visc,
                                 self.csd2_t, self.dw_t, self.nearlo_t,
                                 tauw_lo, tauw_hi,
-                                have_zwalls=self.have_zwalls)
+                                have_zwalls=self.have_zwalls, yh=yh)
         ye = (self._yedge_vel(u, v, w, vlo=vlo, is_correc=True)
               if self.ywalled else None)
         if self.dsmag_twopass:
@@ -697,18 +813,25 @@ class Simulation:
                                          vlo=state.vlo, is_correc=True)
         pe = self._zedge_p(p)
         s, se = (visct, self._zedge_s(visct)) if self.has_sgs else (None, None)
-        ye = None
+        ye = yh = None
         if self.ywalled:
             # the y rows of the same (post-correction) fill
             ye = (*self._yedge_vel(u, v, w, vlo=state.vlo, is_correc=True),
                   self._yedge_s(visct) if self.has_sgs else None,
                   self._yedge_p(p))
+        if self.mesh is not None:
+            # the neighbours' rows of the same fill, one exchange
+            pairs = [(u, ue), (v, ve), (w, we), (p, pe)]
+            if self.has_sgs:
+                pairs.insert(3, (s, se))
+            h = self.mesh.halo_y(pairs)
+            yh = (*h[:3], h[3] if self.has_sgs else None, h[-1])
         u, v, w, ru, rv, rw, usum, vsum = kernels.mom_rk(
             u, v, w, s, p, ue, ve, we, se, pe,
             None if first else ru_o, None if first else rv_o,
             None if first else rw_o, self.dzci_t, self.dzfi_t, f1, f2,
             cfg.visc, dxi, dyi, cfg.bforce, sums=self.sum_flags,
-            split=self.split, ye=ye)
+            split=self.split, ye=ye, yh=yh)
         f, fuv = self._bulk_forcing((usum, vsum))
         alpha = 0.0
         if cfg.impdiff:
@@ -724,13 +847,20 @@ class Simulation:
                                         is_correc=False)
         ypred = self._yedge_vel(u, v, w) if self.ywalled else None
         yv2 = None if ypred is None else ypred[1]
+        hv2 = (None if self.mesh is None
+               else self.mesh.halo_y([(v, ve2)])[0])
         rhs = kernels.fillps(u, v, w, ue2, ve2, we2, self.dzfi_t, 1.0 / dtrk,
-                             dxi, dyi, yv=yv2)
-        rhs = poisson.add_rhs_bound(cfg, ('c', 'c', 'c'), self.cbcpre, rhs,
-                                    self.rhsb_p)
-        pp = poisson.solve(self.solver_p, rhs)
+                             dxi, dyi, yv=yv2, yh=hv2)
+        rhs = poisson.add_rhs_bound(self.cfg_local, ('c', 'c', 'c'),
+                                    self.cbcpre, rhs, self.rhsb_p)
+        if self.mesh is None:
+            pp = poisson.solve(self.solver_p, rhs)
+        else:
+            pp = poisson.solve_sharded(self.solver_p, rhs, self.mesh)
         ppe = self._zedge_p(pp)
         ypp = self._yedge_p(pp) if self.ywalled else None
+        hpp = (None if self.mesh is None
+               else self.mesh.halo_y([(pp, ppe)])[0])
         if self.fused_smag:
             u, v, w, p, visct = self._correc_smag_fused(
                 u, v, w, pp, p, ue2, ve2, we2, ppe, dtrk, fuv)
@@ -739,7 +869,7 @@ class Simulation:
                 u, v, w, pp, p, we2, ppe, dtrk, dxi, dyi, self.dzci_t,
                 self.dzfi_t, fuv, alpha=alpha, impdiff=cfg.impdiff,
                 impdiff_1d=cfg.impdiff_1d, ypp=ypp,
-                yv=None if yv2 is None else yv2[0])
+                yv=None if yv2 is None else yv2[0], yh=hpp)
         vlo = self._advance_wall_planes(state, pp, ppe, we2, dtrk,
                                         ypred=ypred, ypp=ypp)
         # post-correction fill (main.f90:500-501, is_correc=.true.)
@@ -775,12 +905,10 @@ class Simulation:
 
     # ------------------------------------------------------------------
     def _chk_impl(self, state: State):
-        """dt limit + divergence diagnostics (chkdt.f90, chkdiv.f90)."""
+        """dt limit + divergence diagnostics (chkdt.f90, chkdiv.f90); on a
+        mesh each rank's slab with its halos, reduced over the ranks."""
         cfg = self.cfg
-        bcu, bcv, bcw = self._dynamic_bcs(state.u, state.v, state.w)
-        up, vp, wp, _ = self._pad_vel(state.u, state.v, state.w, bcu, bcv,
-                                      bcw, vlo=state.vlo, is_correc=True)
-        sp = self._pad_s(state.visct)
+        up, vp, wp, _, sp = self._padded(state, with_p=False)
         eps = float(torch.finfo(self.dtype).eps)
         dt_cfl = st.cfl_dt(up, vp, wp, sp, cfg.visc, cfg.dl, self.grid.dzci,
                            self.grid.dzfi, cfg.impdiff, cfg.impdiff_1d, eps)
@@ -789,21 +917,48 @@ class Simulation:
             mask = tuple(cfg.cbc_pre(d) != 'PP' for d in range(3))
         divtot, divmax = st.divergence(up, vp, wp, cfg.dli[0], cfg.dli[1],
                                        self.grid.dzfi, mask=mask)
+        if self.mesh is not None:
+            red = self.mesh.reduce_scalar
+            return (red(dt_cfl, 'min'), red(divtot, 'sum'),
+                    red(divmax, 'max'))
         return dt_cfl, divtot, divmax
+
+    def _padded(self, state: State, with_p=True):
+        """(up, vp, wp, ppad or None, sppad): the ghost-filled fields with
+        the solver's BC semantics (the post-correction fill); on a mesh
+        this rank's slabs, their y ghosts the neighbours' rows."""
+        bcu, bcv, bcw = self._dynamic_bcs(state.u, state.v, state.w)
+        if self.mesh is None:
+            up, vp, wp, _ = self._pad_vel(state.u, state.v, state.w, bcu,
+                                          bcv, bcw, vlo=state.vlo,
+                                          is_correc=True)
+            return (up, vp, wp, self._pad_p(state.p) if with_p else None,
+                    self._pad_s(state.visct))
+        fields = [state.u, state.v, state.w, state.visct]
+        edges = [*self._zedge_vel(state.u, state.v, state.w, bcu, bcv, bcw,
+                                  vlo=state.vlo, is_correc=True),
+                 self._zedge_s(state.visct)]
+        if with_p:
+            fields.append(state.p)
+            edges.append(self._zedge_p(state.p))
+        out = self._halo_padded(fields, edges)
+        return (*out[:3], out[4] if with_p else None, out[3])
 
     def check(self, state: State):
         """(dt_cfl, divtot, divmax) as python floats."""
         return tuple(float(x) for x in self._chk_impl(state))
 
+    def global_numpy(self, f):
+        """A field as a global (nz, ny, nx) numpy array: on a mesh gathered
+        from the ranks (every rank takes part)."""
+        if self.mesh is None:
+            return f.detach().cpu().numpy()
+        return self.mesh.gather(f)
+
     def padded_state(self, state: State):
         """Ghost-filled (up, vp, wp, ppad, sppad) numpy arrays with the
         solver's BC semantics, for the statistics layer (io/stats.py)."""
-        bcu, bcv, bcw = self._dynamic_bcs(state.u, state.v, state.w)
-        up, vp, wp, _ = self._pad_vel(state.u, state.v, state.w, bcu, bcv,
-                                      bcw, vlo=state.vlo, is_correc=True)
-        return tuple(a.cpu().numpy() for a in
-                     (up, vp, wp, self._pad_p(state.p),
-                      self._pad_s(state.visct)))
+        return tuple(a.cpu().numpy() for a in self._padded(state))
 
     def pick_dt(self, dt_cfl: float) -> float:
         cfg = self.cfg

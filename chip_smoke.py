@@ -1,7 +1,7 @@
 """Smoke run of cales_torch on one NVIDIA GPU: build the CUDA kernels,
-hold each against its plain PyTorch twin (the y-walled, full-3D and
-periodic variants too), drive the channel-LES slice, the square duct and
-the Taylor-Green vortex through the CLI, the channel LES through
+hold each against its plain PyTorch twin (the y-walled, full-3D,
+periodic and slab variants too), drive the channel-LES slice, the square
+duct and the Taylor-Green vortex through the CLI, the channel LES through
 cales_torch.driver.run at 512x256x256 (with the cuFFT and the
 operator-matrix Poisson solve), drive the implicit-CN channel DNS (z-only
 and full-3D), the dynamic-Smagorinsky channel LES, the static-Smagorinsky
@@ -9,10 +9,16 @@ LES with z-implicit diffusion, the dynamic-Smagorinsky duct and cavity, the
 two-pass dynamic Smagorinsky (the channel with transpiring walls, and the
 channel, duct and cavity by both routes) and the triperiodic DNS (explicit
 and full-3D implicit) through driver.run at 512x256x256, the Taylor-Green
-vortex at 512^3 by both solve routes, and compare the card with the CPU
-step for step.
+vortex at 512^3 by both solve routes, compare the card with the CPU
+step for step, and run the channel LES on a y-slab mesh of two ranks that
+share the card (torch.distributed over gloo, staged through the host):
+the headline at 512x256x256 through driver.run, a small f64 case against
+the single-device run, and the CLI under torch.distributed.run.
 
     python3 chip_smoke.py            # all phases, one card
+
+(``chip_smoke.py --sharded-rank DIR`` is one rank of the mesh phase, which
+the script starts itself under torch.distributed.run.)
 
 Exits non-zero without a CUDA device, or when any phase fails.  The last
 line of standard output is {"ok": true, "device": {...}}; the line before
@@ -60,6 +66,8 @@ KERNELS = {
                      'cales_tpu/ops/pallas_dsmag.py:537'),
     'dsmag_level2': ('cales_torch/csrc/dsmag_level2.cu',
                      'cales_tpu/ops/pallas_dsmag.py:708'),
+    'apply_x': ('cales_torch/csrc/apply_x.cu',
+                'cales_tpu/ops/pallas_solve.py:141'),
 }
 # the y-walled, full-3D and Helmholtz variants, each reported as a kernel
 # of its own: report name -> (kernel, phase 2 variant)
@@ -77,6 +85,11 @@ VARIANT_ROWS = {
     'dsmag_level2 (y walls, duct)': ('dsmag_level2', 'duct'),
     'dsmag_level2 (y walls, cavity)': ('dsmag_level2', 'cavity'),
 }
+# the slab variants of the stencil kernels on the y-slab mesh (phase 10),
+# each reported as a kernel of its own: report name -> kernel
+HALO_ROWS = {'mom_rk (y halo)': 'mom_rk', 'fillps (y halo)': 'fillps',
+             'correc_updatep (y halo)': 'correc_updatep',
+             'smag (y halo)': 'smag'}
 LES_KERNELS = ('mom_rk', 'fillps', 'correc_smag')
 # H100 SXM data-sheet rates: HBM
 # bytes/s and float32 / float64 FLOP/s outside the tensor cores
@@ -145,6 +158,11 @@ TGV_CFG = dict(ng=(512, 512, 512), l=(2 * np.pi,) * 3, gtype=1, gr=0.0,
 TRI_CFG = dict(ng=HEADLINE_NG, l=(2 * np.pi,) * 3, gtype=0, gr=0.0,
                visci=1600.0, inivel='tgv', sgstype='none', dtype='float32',
                ptransform='mat', **PERIODIC_BCS)
+# phase 4m's LES headline ('mat') on a y-slab mesh of two ranks (phase 10)
+MESH_CFG = dict(LES_CFG, ptransform='mat', dims=(2, 1), **CHAN_BCS)
+# its small f64 twin, held against the single-device 'mat' + Thomas run
+MESH_SMALL = dict(MESH_CFG, ng=(64, 32, 32), dtype='float64')
+MESH_STEPS = 5
 # moving wall-parallel values on some y and z faces for the y-walled
 # kernel inputs: (face, dir, comp)
 MOVING = (((0.0,) * 3, (0.2, 0.0, -0.1), (0.0, 0.0, 0.0)),
@@ -291,6 +309,12 @@ def kernel_inputs(ng, dtype, dev, seed, big=False):
     # dsmag_level2's inputs besides the filtered velocity (u, v, w here,
     # with the prediction fill's stacks as its static fill): fm, lij, s0
     d['ds2'] = [f() for _ in range(13)]
+    # apply_x: a slab of half the y rows (one of two ranks), and the same
+    # in the x-column blocks the backward transpose delivers
+    d['slab'] = d['u'][:, :max(ny // 2, 1)].contiguous()
+    nz_, nyl, _ = d['slab'].shape
+    d['slab_blocks'] = d['slab'].reshape(nz_, nyl, 2, nx // 2).permute(
+        2, 0, 1, 3).contiguous()
     return d
 
 
@@ -375,6 +399,12 @@ def call(name, d, twin=False, variant=None, has_ruo=True, zrec=None):
     if name == 'apply_y':
         return {'out': fn(d['u'], d['fy'],
                           None if variant == 'y_only' else d['fxT'])}
+    if name == 'apply_x':
+        # slab: the plain layout; split: the forward transpose's x-column
+        # blocks written out; chunked: the backward one's read in place
+        src = d['slab_blocks'] if variant == 'chunked' else d['slab']
+        return {'out': fn(src, d['fxT'],
+                          split=2 if variant == 'split' else 1)}
     if name == 'z_eig':
         return {'out': fn(d['u'], d['Vl'], d['Vr'], d['lamz'], d['lamy'],
                           d['lamx'], d['eig_tol'])}
@@ -455,12 +485,13 @@ VARIANTS = {
     'dsmag': (None, 'duct', 'cavity'),
     'thomas_periodic': ('poisson', 'helmholtz'),
     'dsmag_level1': (None, 'duct'), 'dsmag_level2': (None, 'duct', 'cavity'),
+    'apply_x': ('slab', 'split', 'chunked'),
 }
 # the report rows of the other variants, by (kernel, variant)
 VARIANT_ROW_OF = {kv: row for row, kv in VARIANT_ROWS.items()}
 # bounded relative to the output's maximum: sums over many terms
 RELATIVE = ('apply_y', 'z_eig', 'thomas_z', 'dsmag', 'thomas_periodic',
-            'dsmag_level1', 'dsmag_level2')
+            'dsmag_level1', 'dsmag_level2', 'apply_x')
 # the kernels whose float32 error is held against their float64 twin in
 # phase 2b
 F64_TWIN = ('dsmag_level1', 'dsmag_level2')
@@ -482,14 +513,15 @@ WORK = {'mom_rk': (8, 6, 230), 'fillps': (3, 1, 12),
         # the forward sweep's two right-hand sides (9), both
         # back-substitutions (4), the last row and the combine (2)
         'thomas_periodic': (1, 1, 15),
-        'dsmag_level1': (3, 16, 110 + 18 * 12), 'dsmag_level2': (15, 0, 147)}
+        'dsmag_level1': (3, 16, 110 + 18 * 12), 'dsmag_level2': (15, 0, 147),
+        'apply_x': (1, 1, 0)}
 # variants whose reads or arithmetic differ from their kernel's first
 WORK_VARIANT = {('mom_rk', 'xyz'): (7, 6, 200),
                 ('correc_updatep', 'impdiff'): (5, 4, 34),
                 ('dsmag_level2', 'cavity'): (16, 1, 147)}
 # kernels whose plain twin is a single library product (cuBLAS), timed as
 # the yardstick library_ms
-LIBRARY_TWIN = ('apply_y', 'z_eig')
+LIBRARY_TWIN = ('apply_y', 'z_eig', 'apply_x')
 
 
 def ystacks(name, d, variant):
@@ -508,7 +540,7 @@ def work(name, d, variant=None):
     d: each interior field (and y-row stack) read once and each output
     written once, and its arithmetic (the operator products of the solve
     kernels at 2 n^2 per line)."""
-    nz, ny, nx = d['u'].shape
+    nz, ny, nx = (d['slab'] if name == 'apply_x' else d['u']).shape
     cells = nx * ny * nz
     nin, nout, per_cell = WORK_VARIANT.get((name, variant), WORK[name])
     nbytes = (nin + nout) * cells * d['u'].element_size()
@@ -519,6 +551,9 @@ def work(name, d, variant=None):
         flops += 2 * ny * cells + 2 * nx * cells
     if name == 'z_eig':
         flops += 2 * 2 * nz * cells
+    if name == 'apply_x':
+        flops += 2 * nx * cells
+        nbytes += nx * nx * d['u'].element_size()
     return nbytes, flops
 
 
@@ -1129,7 +1164,385 @@ def phase_card_vs_cpu(dev):
         _card_vs_cpu(tag, Config(**cfg), dev, uvwp)
 
 
+def _perturbed_fields(cfg, seed):
+    """initflow plus a seeded perturbation that breaks the flow's y
+    symmetry (a symmetric start hides faults at the slab edges)."""
+    from cales_torch.grid import make_grid_from_config
+    from cales_torch.initflow import initflow
+    rng = np.random.default_rng(seed)
+    return [np.asarray(f) + (1e-2 * rng.standard_normal(np.shape(f))
+                             ).astype(np.asarray(f).dtype)
+            for f in initflow(cfg, make_grid_from_config(cfg))]
+
+
+def _timed(fn, mesh, n):
+    """Host-clock ms of fn on every rank of the mesh, synchronised."""
+    fn()
+    torch.cuda.synchronize()
+    mesh.barrier()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    mesh.barrier()
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def _flat(x):
+    """The tensors of a nest of tuples and lists."""
+    return [x] if torch.is_tensor(x) else [q for y in x for q in _flat(y)]
+
+
+def _halo_kernel_rows(sim, state, mesh, dt, card):
+    """Rank 0's check of the slab (halo) variants on the main path's own
+    state and halos, at the slab's shape: each kernel against its twin
+    and both timed (CUDA events), while the other ranks wait.  The f32
+    bound, 1e-4 of each output's maximum (phase 2b's random inputs hold
+    1e-5): on the developed field the momentum RHS is a difference of
+    fluxes far larger than itself, and FMA contraction alone moves it by
+    some 1e-5 of its maximum (python -m cales_torch.fma_probe: the halo
+    and periodic mom_rk err alike against the twin, and under -fmad=false
+    they equal each other and the twin's RHS bit for bit); a wrong halo
+    row moves it by O(1).  The witness on the mesh, printed and reported:
+    each output's error on the rows that read the halos (0 and nyl - 1)
+    and on the others, over the same maximum, and the y row of the
+    largest."""
+    from cales_torch.ops import kernels as K
+    cfg = sim.cfg
+    u, v, w, p, s = state.u, state.v, state.w, state.p, state.visct
+    ue, ve, we = state.zq
+    pe, se = sim._zedge_p(p), sim._zedge_s(s)
+    h = mesh.halo_y([(u, ue), (v, ve), (w, we), (s, se), (p, pe)])
+    rows = {}
+    if mesh.rank == 0:
+        dxi, dyi = cfg.dli[0], cfg.dli[1]
+        tauw = s[0].contiguous()
+        args = {
+            'mom_rk': ((u, v, w, s, p, ue, ve, we, se, pe, *state.rhs_old,
+                        sim.dzci_t, sim.dzfi_t, 0.5 * dt, -0.2 * dt,
+                        cfg.visc, dxi, dyi, cfg.bforce),
+                       dict(sums=(True, False), yh=h)),
+            # the components swapped (v's place taken by w, and so its
+            # halo): the divergence of the projected field is rounding
+            # noise, which would make the error bound meaningless
+            'fillps': ((u, w, v, ue, we, ve, sim.dzfi_t, 1.0 / dt, dxi,
+                        dyi), dict(yh=h[2])),
+            'correc_updatep': ((u, v, w, p, p, we, pe, dt, dxi, dyi,
+                                sim.dzci_t, sim.dzfi_t), dict(yh=h[4])),
+            'smag': ((u, v, w, ue, ve, we, sim.dzci_t, sim.dzfi_t, dxi, dyi,
+                      cfg.visc, sim.csd2_t, sim.dw_t, sim.nearlo_t, tauw,
+                      tauw), dict(yh=h[:3])),
+        }
+        cells = u.numel()
+
+        def outputs(res, name):
+            res = [q for q in (res if isinstance(res, tuple) else (res,))
+                   if q is not None]
+            if name == 'mom_rk':       # the partial sums: per-plane totals
+                res[-1] = res[-1].sum(dim=1)
+            return res
+
+        def errors(got, ref):
+            """Per output: (max abs error, it over max|ref|, its y row,
+            the same over max|ref| on the edge rows 0 and nyl - 1, and on
+            the others); the rows are None for an output without y."""
+            out = []
+            for g, r in zip(got, ref):
+                d = (g - r).abs()
+                err, scale = float(d.max()), float(r.abs().max())
+                if g.ndim != 3:
+                    out.append((err, err / scale, None, None, None))
+                    continue
+                yrow = (int(d.argmax()) // g.shape[-1]) % g.shape[1]
+                edge = float(d[:, [0, -1]].max()) / scale
+                inner = float(d[:, 1:-1].max()) / scale
+                out.append((err, err / scale, yrow, edge, inner))
+            return out
+
+        for row, name in HALO_ROWS.items():
+            a, kw = args[name]
+            fn, twin = getattr(K, name), getattr(K, f'{name}_plain')
+            errs = errors(outputs(fn(*a, **kw), name),
+                          outputs(twin(*a, **kw), name))
+            for err, rel, *_ in errs:
+                require(np.isfinite(err) and rel <= 1e-4,
+                        f'{row}: error {rel:.3e} of the output maximum, '
+                        'above 1e-4')
+            worst = max(e[0] for e in errs)
+            # the worst output (relative to its maximum) and its y row
+            _, worst_rel, worst_y, _, _ = max(errs, key=lambda e: e[1])
+            edge = max(e[3] for e in errs if e[3] is not None)
+            inner = max(e[4] for e in errs if e[4] is not None)
+            ms = time_ms(lambda: fn(*a, **kw))
+            plain_ms = time_ms(lambda: twin(*a, **kw))
+            # the kernel's periodic variant on the same slab: what the
+            # halo reads cost
+            periodic_ms = time_ms(lambda: fn(*a, **{
+                k: q for k, q in kw.items() if k != 'yh'}))
+            nin, nout, per_cell = WORK[name]
+            # the halo pairs this kernel reads, and no other
+            halo_bytes = sum(q.numel() * q.element_size()
+                             for q in _flat(kw['yh']))
+            nbytes = (nin + nout) * cells * u.element_size() + halo_bytes
+            t_b = nbytes / PEAK_BPS * 1e3
+            t_o = per_cell * cells / PEAK_FLOPS[u.dtype] * 1e3
+            rows[row] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                             bound_ms=max(t_b, t_o),
+                             bound_by='bytes' if t_b >= t_o else 'operations',
+                             library_ms=None, periodic_variant_ms=periodic_ms,
+                             max_rel_err=worst_rel, max_err_y_row=worst_y,
+                             max_rel_err_edge_rows=edge,
+                             max_rel_err_other_rows=inner)
+            say(f'  {row:<24s} at {tuple(u.shape)}: max|err| {worst:.3e} '
+                f'(per output / its max|ref|: '
+                + ' '.join(f'{e[1]:.1e}' for e in errs) + f'; the worst at '
+                f'y row {worst_y} of 0..{u.shape[1] - 1}; on the halo-reading '
+                f'rows 0 and {u.shape[1] - 1} {edge:.1e}, on the others '
+                f'{inner:.1e}), kernel {ms:.3f} ms (its periodic variant on '
+                f'the slab {periodic_ms:.3f}), plain twin {plain_ms:.3f} ms, '
+                f'bound {rows[row]["bound_ms"]:.3f} ms ({halo_bytes} halo '
+                f'bytes)  [{card}]')
+    mesh.barrier()
+    return rows
+
+
+def sharded_rank(out_dir):
+    """sharded_rank_body, with a failure's traceback written to
+    DIR/rank<r>.err for the parent to show."""
+    try:
+        return sharded_rank_body(out_dir)
+    except BaseException:
+        import traceback
+        rank = os.environ.get('RANK', '?')
+        (Path(out_dir) / f'rank{rank}.err').write_text(traceback.format_exc())
+        raise
+
+
+def sharded_rank_body(out_dir):
+    """One rank of phase 10 (started under torch.distributed.run, two ranks
+    on the one card over gloo, staged through pinned host buffers): the
+    headline on the y-slab mesh through driver.run with every launch count
+    set to 0 just before and read just after, the correctness gates, the
+    step and the collectives timed; the slab variants against their twins;
+    then the small f64 case, whose gathered fields rank 0 writes for the
+    parent to hold against the single-device run."""
+    from cales_torch import driver
+    from cales_torch.config import Config
+    from cales_torch.grid import make_grid_from_config
+    from cales_torch.parallel import mesh as meshmod
+    from cales_torch.timeloop import Simulation
+    out_dir = Path(out_dir)
+    cfg = Config(**MESH_CFG)
+    mesh, dev = meshmod.from_env(cfg.dims, cfg.ng, 'cuda', 'gloo')
+    card = card_line()
+    rank = mesh.rank
+    res = {'rank': rank, 'card': card}
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    # one datadir for the ranks: the checkpoint is one file, slab by slab
+    sim, state = driver.run(cfg, datadir=out_dir / 'data', device=dev,
+                            mesh=mesh, max_steps=MESH_STEPS, verbose=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    res['launches'] = counts()
+    if rank == 0:
+        say(f'  path: {sim.exec_path()}')
+        say(f'  driver.run, {MESH_STEPS} steps: {wall:.1f} s host wall '
+            f'(setup, checks and I/O included); rank 0 launches '
+            f'{res["launches"]}')
+    dt = sim.pick_dt(sim.check(state)[0])
+    ntime = 5
+    torch.cuda.synchronize()
+    mesh.barrier()
+    t0 = time.perf_counter()
+    for _ in range(ntime):
+        state, _ = sim.step(state, dt)
+    torch.cuda.synchronize()
+    mesh.barrier()
+    ms = (time.perf_counter() - t0) * 1e3 / ntime
+    dt_cfl, divtot, divmax = sim.check(state)
+    ub = sim.bulk_mean(state.u, sim.gvr_f)
+    fields = (state.u, state.v, state.w, state.p, state.visct)
+    finite = mesh.reduce_scalar(
+        float(all(bool(torch.isfinite(f).all()) for f in fields)), 'min')
+    numin = mesh.reduce_scalar(float(state.visct.min()), 'min')
+    numax = mesh.reduce_scalar(float(state.visct.max()), 'max')
+    wwall = mesh.reduce_scalar(max(
+        float(state.vlo[2][1:-1, 1:-1].abs().max()),
+        float(state.w[-1].abs().max())), 'max')
+    res.update(ms_per_step=ms, divmax=divmax, bulk_u=ub, finite=finite,
+               nu_t_min=numin, nu_t_max=numax, w_walls=wwall,
+               steps=MESH_STEPS + ntime,
+               peak_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+    # the collectives alone at the main path's shapes
+    nz, nyl, nx = state.u.shape
+    ue, ve, we = state.zq
+    pairs = [(state.u, ue), (state.v, ve), (state.w, we),
+             (state.visct, sim._zedge_s(state.visct)),
+             (state.p, sim._zedge_p(state.p))]
+    blocks = torch.randn((mesh.gy, nz, nyl, mesh.nxl), device=dev)
+    vec = torch.ones(nz, device=dev)
+    res['comm_ms'] = {
+        'halo_y (5 fields, mom_rk)': _timed(lambda: mesh.halo_y(pairs),
+                                            mesh, 5),
+        f'all_to_all {tuple(blocks.shape)} f32': _timed(
+            lambda: mesh.comm.all_to_all(blocks), mesh, 3),
+        f'all_reduce ({nz},) f32': _timed(lambda: mesh.all_reduce(vec),
+                                          mesh, 20)}
+    del blocks
+    res['halo_rows'] = _halo_kernel_rows(sim, state, mesh, dt, card)
+    del sim, state, fields, pairs
+    torch.cuda.empty_cache()
+    # the small f64 case on the slabs, 3 steps from the perturbed start
+    cfg64 = Config(**MESH_SMALL)
+    m64 = meshmod.SlabMesh(mesh.comm, cfg64.dims, cfg64.ng)
+    sim = Simulation(cfg64, make_grid_from_config(cfg64), device=dev,
+                     mesh=m64)
+    st = sim.initial_state(*_perturbed_fields(cfg64, SEED + 5))
+    dt = sim.pick_dt(sim.check(st)[0])
+    for _ in range(3):
+        st, _ = sim.step(st, dt)
+    small = {q: m64.gather(getattr(st, q))
+             for q in ('u', 'v', 'w', 'p', 'visct')}
+    if rank == 0:
+        np.savez(out_dir / 'small.npz', dt=dt, **small)
+    (out_dir / f'rank{rank}.json').write_text(json.dumps(res))
+    mesh.barrier()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def phase_sharded(dev, card):
+    """Phase 10: the channel LES on a y-slab mesh, dims = (2, 1), two ranks
+    sharing the one card through torch.distributed over gloo with the CUDA
+    tensors staged through pinned host buffers (NCCL refuses two ranks on
+    one card; its transport for one card a rank is not exercised here).
+    The headline at 512x256x256 f32 with phase 4's gates, its launches and
+    ms/step (a correctness run: the staging through the host and the two
+    ranks' time-sharing of the card make it no scaling figure); the slab
+    kernels against their twins; the small f64 case against the
+    single-device 'mat' + Thomas run on the card within 1e-11; then the
+    LES example through the CLI under torch.distributed.run.  Returns
+    (rank 0's launches, the halo variants' report rows)."""
+    from cales_torch.config import Config
+    from cales_torch.grid import make_grid_from_config
+    from cales_torch.timeloop import Simulation
+    torch.cuda.empty_cache()
+    env = dict(os.environ)
+    # gloo's pairs on the loopback interface: the ranks share one host
+    env.setdefault('GLOO_SOCKET_IFNAME', 'lo')
+    say(f'phase 10: the LES on a y-slab mesh, dims (2, 1), {MESH_CFG["ng"]} '
+        f'float32, two ranks on one card (gloo, staged through the host)  '
+        f'[{card}]')
+    with tempfile.TemporaryDirectory() as tmp:
+        cmd = [sys.executable, '-m', 'torch.distributed.run', '--standalone',
+               '--nproc_per_node', '2', str(ROOT / 'chip_smoke.py'),
+               '--sharded-rank', tmp]
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, capture_output=True, text=True, cwd=ROOT,
+                             timeout=900, env=env)
+        say(f'  torch.distributed.run exit {res.returncode} after '
+            f'{time.perf_counter() - t0:.1f} s')
+        for line in res.stdout.splitlines():
+            say(f'  | {line}')
+        errs = ''.join(f'rank {r}:\n{q.read_text()}' for r in range(2)
+                       for q in [Path(tmp) / f'rank{r}.err'] if q.exists())
+        require(res.returncode == 0,
+                f'a rank of phase 10 failed:\n{errs or res.stderr[-4000:]}')
+        ranks = [json.loads((Path(tmp) / f'rank{r}.json').read_text())
+                 for r in range(2)]
+        small = dict(np.load(Path(tmp) / 'small.npz'))
+    r0 = ranks[0]
+    per_step = dict(mom_rk=3, fillps=3, correc_updatep=3, smag=3, apply_x=6,
+                    apply_y=6, thomas_z=3)
+    for rk in ranks:
+        for name, n in rk['launches'].items():
+            want = per_step.get(name, 0) * MESH_STEPS
+            require(n == want, f'phase 10 rank {rk["rank"]}: {name} launched '
+                               f'{n} times, want {want}')
+    small_eps = float(np.sqrt(np.finfo(np.float32).eps) * 10)
+    say(f'  {r0["ms_per_step"]:.3f} ms/step over 5 steps (host clock; two '
+        f'ranks time-share the card and stage every collective through the '
+        f'host: a correctness run, not a scaling figure)  [{card}]')
+    say(f'  peak memory a rank: ' + ', '.join(
+        f'rank {rk["rank"]} {rk["peak_gib"]:.2f} GiB' for rk in ranks)
+        + f' (max_memory_allocated)  [{card}]')
+    say(f'  after {r0["steps"]} steps: divmax {r0["divmax"]:.3e} (abort '
+        f'bound {small_eps:.3e}), bulk u {r0["bulk_u"]:.7f}, nu_t in '
+        f'[{r0["nu_t_min"]:.4e}, {r0["nu_t_max"]:.4e}], max |w| on the z '
+        f'walls {r0["w_walls"]:.3e}')
+    for what, t in r0['comm_ms'].items():
+        say(f'  {what}: {t:.3f} ms (host clock, staged gloo)  [{card}]')
+    require(r0['finite'] == 1.0, 'phase 10: non-finite field')
+    require(r0['divmax'] <= small_eps, f'phase 10: divmax {r0["divmax"]:.3e}')
+    require(abs(r0['bulk_u'] - 1.0) <= 1e-4,
+            f'phase 10: bulk u {r0["bulk_u"]:.7f}, want 1')
+    require(r0['nu_t_min'] >= 0.0 and r0['nu_t_max'] > 0.0,
+            f'phase 10: nu_t in [{r0["nu_t_min"]}, {r0["nu_t_max"]}]')
+    require(r0['w_walls'] <= 1e-6, f'phase 10: w on the walls '
+                                   f'{r0["w_walls"]:.3e}')
+    print(json.dumps({'les_mesh_2x1': {
+        k: r0[k] for k in ('ms_per_step', 'divmax', 'bulk_u', 'comm_ms')}
+        | {'peak_gib_per_rank': [rk['peak_gib'] for rk in ranks],
+           'card': card}}), flush=True)
+    # the small f64 case against the single-device 'mat' + Thomas run
+    cfg1 = Config(**{**MESH_SMALL, 'dims': (1, 1), 'zsolver': 'thomas'})
+    sim = Simulation(cfg1, make_grid_from_config(cfg1), device=dev)
+    st = sim.initial_state(*_perturbed_fields(cfg1, SEED + 5))
+    for _ in range(3):
+        st, _ = sim.step(st, float(small['dt']))
+    say(f'  gy = 2 against one device, {cfg1.ng} float64, 3 steps, on the '
+        f'card:')
+    for name in ('u', 'v', 'w', 'p', 'visct'):
+        a, b = small[name], getattr(st, name).cpu().numpy()
+        if name == 'p':
+            a, b = a - a.mean(), b - b.mean()
+        err = float(np.abs(a - b).max())
+        say(f'    {name:<5s} max|err| {err:.3e} (bound 1e-11)')
+        require(err <= 1e-11, f'phase 10 f64 {name}: {err:.3e}')
+    phase_cli_mesh(card)
+    return r0['launches'], r0['halo_rows']
+
+
+def phase_cli_mesh(card):
+    """The LES example through the CLI under torch.distributed.run with
+    dims(1:2) = 2, 1 on a temporary copy of its namelist."""
+    nml = (ROOT / 'examples' / 'turbulent_channel_les' / 'input.nml'
+           ).read_text()
+    require('dims(1:2) = 0, 0' in nml, 'the LES example lost its dims line')
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / 'input.nml'
+        path.write_text(nml.replace('dims(1:2) = 0, 0', 'dims(1:2) = 2, 1'))
+        cmd = [sys.executable, '-m', 'torch.distributed.run', '--standalone',
+               '--nproc_per_node', '2', '-m', 'cales_torch', str(path),
+               '--transport', 'gloo', '--max-steps', '10', '--datadir',
+               str(Path(tmp) / 'data')]
+        say(f'phase 10c: {" ".join(cmd[1:])}  [{card}]')
+        env = dict(os.environ)
+        env.setdefault('GLOO_SOCKET_IFNAME', 'lo')
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, capture_output=True, text=True, cwd=ROOT,
+                             timeout=600, env=env)
+        say(f'  exit {res.returncode} after {time.perf_counter() - t0:.1f} s')
+        lines = res.stdout.splitlines()
+        for line in lines[:3] + lines[-3:]:
+            say(f'  | {line}')
+        require(res.returncode == 0, f'CLI on the mesh failed:\n'
+                                     f'{res.stderr[-3000:]}')
+        path_line = [ln for ln in lines if 'Execution path' in ln]
+        require(len(path_line) == 1 and all(
+            k in path_line[0] for k in ('apply_x', 'smag', 'dims = (2, 1)',
+                                        'staged')),
+                'the Execution path line (rank 0 alone) does not name the '
+                'mesh path')
+        require((Path(tmp) / 'data' / 'fld.bin').exists(), 'no fld.bin')
+
+
 def main():
+    if len(sys.argv) == 3 and sys.argv[1] == '--sharded-rank':
+        sys.path.insert(0, str(ROOT))
+        return sharded_rank(sys.argv[2])
     say(f'python {sys.version.split()[0]}, torch {torch.__version__}, '
         f'CUDA {torch.version.cuda}, cuda available: '
         f'{torch.cuda.is_available()}')
@@ -1163,6 +1576,8 @@ def main():
     tgv = phase_tgv(dev, card)
     tri3, dns3 = phase_triperiodic(dev, card)
     phase_card_vs_cpu(dev)
+    mesh_launches, halo_rows = phase_sharded(dev, card)
+    rows.update(halo_rows)
     # each kernel's launches on the main path that runs it: the dsmag
     # channel (5 steps), or the LES (31 steps) for correc_smag, or the
     # smag + impdiff_1d LES (5 steps) for smag, or the TGV by 'mat' (5
@@ -1178,6 +1593,10 @@ def main():
     paths['thomas_periodic'] = (tgv, 5, 'thomas_periodic')
     paths['dsmag_level1'] = (two['blow'], 5, 'dsmag_level1')
     paths['dsmag_level2'] = (two['blow'], 5, 'dsmag_level2')
+    # apply_x and the slab variants on the y-slab mesh (rank 0, 5 steps)
+    paths['apply_x'] = (mesh_launches, MESH_STEPS, 'apply_x')
+    for row, name in HALO_ROWS.items():
+        paths[row] = (mesh_launches, MESH_STEPS, name)
     variant_path = {'duct': duct, 'cavity': cavity, 'helmholtz3d': dns3}
     for row, (name, variant) in VARIANT_ROWS.items():
         if name in ('dsmag_level1', 'dsmag_level2'):
@@ -1186,7 +1605,8 @@ def main():
         else:
             paths[row] = (variant_path.get(variant, tri3), 5, name)
     sources = {**{n: KERNELS[n] for n in KERNELS},
-               **{row: KERNELS[n] for row, (n, _) in VARIANT_ROWS.items()}}
+               **{row: KERNELS[n] for row, (n, _) in VARIANT_ROWS.items()},
+               **{row: KERNELS[n] for row, n in HALO_ROWS.items()}}
     report = {'kernels': [
         dict(name=row, route='cuda', source=sources[row][0],
              replaces=sources[row][1], launches=run[name],

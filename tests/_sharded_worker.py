@@ -1,0 +1,157 @@
+"""One rank of the y-slab mesh checks of tests/test_torch_sharded.py.
+
+    python tests/_sharded_worker.py <workdir> <rank> <world_size>
+
+Starts a gloo process group on a ``file://`` store in <workdir>, reads the
+cases of <workdir>/cases.json with their inputs in <workdir>/in.npz, runs
+them on this rank's slabs on the CPU (the kernels' plain twins) and, on
+rank 0, writes what the test compares to <workdir>/out.npz.  It imports
+torch and cales_torch only: the JAX references stay in the test process.
+"""
+from __future__ import annotations
+
+import json
+import sys
+import types
+from pathlib import Path
+
+import numpy as np
+import torch
+
+torch.set_num_threads(1)
+
+
+def _mesh(work, rank, world):
+    from cales_torch.parallel import comm, mesh
+    comm.init_process_group('gloo', rank, world,
+                            init_method=f'file://{work}/store')
+    c = comm.Comm('gloo', torch.device('cpu'))
+    return lambda ng: mesh.SlabMesh(c, (world, 1), ng)
+
+
+def case_comm(m, inp, out, key):
+    """halo_y and both transposes of a global field, and the sums."""
+    g = torch.as_tensor(inp[f'{key}.field'])
+    e = torch.as_tensor(inp[f'{key}.edge'])
+    loc, eloc = m.local(g), m.local(e)
+    (rows, corners), = m.halo_y([(loc, eloc)])
+    blocks = loc.reshape(*loc.shape[:2], m.gy, m.nxl).permute(2, 0, 1, 3)
+    xcols = m.transpose_y_to_x(blocks.contiguous())
+    back = m.transpose_x_to_y(xcols)
+    total = m.all_reduce(loc.sum(dim=(1, 2)))
+    peak = m.reduce_scalar(float(loc.abs().max()), 'max')
+    parts = {'rows': rows, 'corners': corners, 'xcols': xcols,
+             'back': back.permute(1, 2, 0, 3).reshape(loc.shape),
+             'total': total,
+             'peak': torch.tensor(peak, dtype=torch.float64)}
+    for name, t in parts.items():
+        gathered = m.comm.all_gather(t.contiguous())
+        out[f'{key}.{name}'] = np.stack([q.numpy() for q in gathered])
+
+
+def _config(kw):
+    from cales_torch.config import Config
+    kw = dict(kw)
+    for name in ('l', 'ng', 'is_forced', 'velf', 'dims', 'stop_type'):
+        if name in kw:
+            kw[name] = tuple(kw[name])
+    for name in ('cbcvel', 'cbcpre', 'cbcsgs'):
+        if name in kw:
+            kw[name] = json_tuple(kw[name])
+    return Config(**kw)
+
+
+def json_tuple(x):
+    return tuple(json_tuple(q) for q in x) if isinstance(x, list) else x
+
+
+def case_solve(m, inp, out, key, kw):
+    """The slab-sharded Poisson solve of a global RHS."""
+    from cales_torch import poisson
+    from cales_torch.grid import make_grid_from_config
+    cfg = _config(kw)
+    grid = make_grid_from_config(cfg)
+    sv = poisson.make_solver(cfg, grid, tuple(cfg.cbc_pre(d) for d in
+                                             range(3)), ('c', 'c', 'c'))
+    rhs = torch.as_tensor(m.local(inp[f'{key}.rhs']))
+    out[f'{key}.p'] = m.gather(poisson.solve_sharded(sv, rhs, m))
+
+
+def case_steps(m, inp, out, key, kw, nsteps):
+    """nsteps steps of the Simulation on the slabs from global fields,
+    then the sharded checkpoint written and read back."""
+    from cales_torch.grid import make_grid_from_config
+    from cales_torch.io import sharded
+    from cales_torch.timeloop import Simulation
+    cfg = _config(kw)
+    sim = Simulation(cfg, make_grid_from_config(cfg), device='cpu', mesh=m)
+    st = sim.initial_state(*(inp[f'{key}.{q}'] for q in 'uvwp'))
+    dt = float(inp[f'{key}.dt'])
+    for _ in range(nsteps):
+        st, _ = sim.step(st, dt)
+    for name in ('u', 'v', 'w', 'p', 'visct'):
+        out[f'{key}.{name}'] = m.gather(getattr(st, name))
+    out[f'{key}.check'] = np.array(sim.check(st))
+    out[f'{key}.bulk'] = np.array(sim.bulk_mean(st.u, sim.gvr_f))
+    out[f'{key}.names'] = np.array(sim.kernel_names())
+    path = Path(inp['workdir'].item()) / f'{key}.fld.bin'
+    sharded.save_checkpoint_sharded(path, (st.u, st.v, st.w, st.p), m,
+                                    st.time, st.istep)
+    u, v, w, p, t, istep = sharded.load_checkpoint_sharded(
+        path, cfg.ng, cfg.np_dtype, m)
+    same = all(np.array_equal(a, b.numpy()) for a, b in
+               zip((u, v, w, p), (st.u, st.v, st.w, st.p)))
+    ok = m.reduce_scalar(float(same and t == st.time and istep == st.istep),
+                         'min')
+    out[f'{key}.readback'] = np.array(ok)
+
+
+def case_driver(m, out, key, kw, datadir):
+    """driver.run on the slabs under the wall-time stop rule, with rank 0's
+    clock two hours ahead of the others' after its first reading: the
+    ranks must agree to stop, at the same step, and write one fld.bin."""
+    from cales_torch import driver
+    real = driver._time
+    readings = []
+
+    def clock():
+        readings.append(None)
+        skew = 7200.0 if m.rank == 0 and len(readings) > 1 else 0.0
+        return real.perf_counter() + skew
+    driver._time = types.SimpleNamespace(perf_counter=clock)
+    try:
+        _, st = driver.run(_config(kw), datadir=datadir, device='cpu',
+                           verbose=False, mesh=m)
+    finally:
+        driver._time = real
+    out[f'{key}.istep'] = np.array(
+        [int(q) for q in m.comm.all_gather(torch.tensor([st.istep]))])
+
+
+def main(work, rank, world):
+    work = Path(work)
+    make = _mesh(work, rank, world)
+    cases = json.loads((work / 'cases.json').read_text())
+    inp = dict(np.load(work / 'in.npz'))
+    inp['workdir'] = np.array(str(work))
+    out = {}
+    for case in cases:
+        m = make(tuple(case['ng']))
+        kind = case['kind']
+        if kind == 'comm':
+            case_comm(m, inp, out, case['key'])
+        elif kind == 'solve':
+            case_solve(m, inp, out, case['key'], case['cfg'])
+        elif kind == 'driver':
+            case_driver(m, out, case['key'], case['cfg'],
+                        work / case['key'])
+        else:
+            case_steps(m, inp, out, case['key'], case['cfg'],
+                       case['nsteps'])
+    if rank == 0:
+        np.savez(work / 'out.npz', **out)
+    torch.distributed.destroy_process_group()
+
+
+if __name__ == '__main__':
+    main(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]))

@@ -1,7 +1,8 @@
-"""cales_torch's CUDA kernels on the card: each against its plain twin, and
-the slices (channel LES, implicit-CN channel DNS, dynamic-Smagorinsky
-channel, static-Smagorinsky LES with impdiff_1d, the y-walled duct and
-cavity, the two-pass dynamic Smagorinsky, the triperiodic Taylor-Green
+"""cales_torch's CUDA kernels on the card: each against its plain twin (the
+slab variants with y halos and apply_x too), and the slices (channel LES,
+implicit-CN channel DNS, dynamic-Smagorinsky channel, static-Smagorinsky
+LES with impdiff_1d, the y-walled duct and cavity, the two-pass dynamic
+Smagorinsky, the triperiodic Taylor-Green
 vortex and full-3D implicit diffusion)
 on the card against the same slices on the CPU, step for step, fp64.
 
@@ -201,8 +202,8 @@ def test_cuda_solve_kernels_match_twins_on_card(dev):
     _rel_close(SK.thomas_z(x, *abcw, **helm),
                SK.thomas_z_plain(x, *abcw, **helm), 1e-12)
     torch.cuda.synchronize()
-    assert SK.LAUNCHES == {'apply_y': 2, 'z_eig': 1, 'thomas_z': 2,
-                           'thomas_periodic': 0}
+    assert SK.LAUNCHES == {'apply_y': 2, 'apply_x': 0, 'z_eig': 1,
+                           'thomas_z': 2, 'thomas_periodic': 0}
 
 
 @pytest.mark.cuda
@@ -228,8 +229,8 @@ def test_card_matches_cpu_dns_step_for_step(dev):
                           'correc_updatep': 9, 'smag': 0,
                           'dsmag': 0,
                           'dsmag_level1': 0, 'dsmag_level2': 0}
-    assert SK.LAUNCHES == {'apply_y': 18, 'z_eig': 9, 'thomas_z': 27,
-                           'thomas_periodic': 0}
+    assert SK.LAUNCHES == {'apply_y': 18, 'apply_x': 0, 'z_eig': 9,
+                           'thomas_z': 27, 'thomas_periodic': 0}
     g, c = states
     for name, tol in (('u', 1e-11), ('v', 1e-11), ('w', 1e-11), ('p', 1e-10)):
         a, b = getattr(g, name).cpu(), getattr(c, name)
@@ -648,8 +649,8 @@ def test_cuda_triperiodic_kernels_match_twins_on_card(dev):
     for g, q in zip(K.correc_updatep(*cu), K.correc_updatep_plain(*cu)):
         _rel_close(g, q, 1e-13)
     torch.cuda.synchronize()
-    assert SK.LAUNCHES == {'apply_y': 0, 'z_eig': 0, 'thomas_z': 1,
-                           'thomas_periodic': 2}
+    assert SK.LAUNCHES == {'apply_y': 0, 'apply_x': 0, 'z_eig': 0,
+                           'thomas_z': 1, 'thomas_periodic': 2}
     assert K.LAUNCHES['mom_rk'] == 2 and K.LAUNCHES['correc_updatep'] == 1
 
 
@@ -698,3 +699,84 @@ def test_card_matches_cpu_triperiodic_step_for_step(dev, case):
         if name == 'p':
             a, b = a - a.mean(), b - b.mean()
         assert float((a - b).abs().max()) <= tol, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shape', [(256, 128, 512), (6, 10, 200)])
+def test_cuda_apply_x_matches_twin_on_card(dev, shape):
+    """apply_x against its twin at the slab shape of the 512x256x256
+    channel on two ranks and at an odd shape (nx not a multiple of 128),
+    f64 within 1e-12 and f32 within 1e-5 of the output's maximum, with the
+    chunked layouts of the sharded solve (split output, chunked input)."""
+    nz, ny, nx = shape
+    gen = torch.Generator(device=dev).manual_seed(17)
+    SK.reset_launches()
+    for dtype, rtol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        arr = torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+        mxt = torch.randn((nx, nx), generator=gen, device=dev, dtype=dtype)
+        ref = SK.apply_x_plain(arr, mxt)
+        _rel_close(SK.apply_x(arr, mxt), ref, rtol)
+        split = SK.apply_x(arr, mxt, split=2)
+        _rel_close(split, SK.apply_x_plain(arr, mxt, split=2), rtol)
+        _rel_close(SK.apply_x(split, mxt), SK.apply_x_plain(split, mxt),
+                   rtol)
+    torch.cuda.synchronize()
+    assert SK.LAUNCHES['apply_x'] == 6
+
+
+@pytest.mark.cuda
+def test_cuda_halo_kernels_match_twins_on_card(dev):
+    """The slab (halo) variants of mom_rk, fillps, correc_updatep and smag
+    against their twins on random halo rows and corners, f64 within
+    1e-12."""
+    ng = (72, 12, 24)     # (nx, ny, nz): a slab of 12 rows
+    nx, ny, nz = ng
+    cfg = Config(ng=ng, l=(2 * np.pi, np.pi, 2.0), gtype=1, gr=1.0,
+                 visci=1000.0, dtype='float64')
+    grid = make_grid_from_config(cfg)
+    rng = np.random.default_rng(21)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, dtype=np.float64), device=dev)
+    F = lambda: t(0.05 * rng.standard_normal((nz, ny, nx)))   # noqa: E731
+    E = lambda: t(0.05 * rng.standard_normal((3, ny, nx)))    # noqa: E731
+    H = lambda: (t(0.05 * rng.standard_normal((nz, 2, nx))),  # noqa: E731
+                 t(0.05 * rng.standard_normal((3, 2, nx))))
+    u, v, w, s, p, pp, ruo, rvo, rwo = (F() for _ in range(9))
+    s = s.abs()
+    ue, ve, we, se, pe, ppe = (E() for _ in range(6))
+    yh = tuple(H() for _ in range(5))
+    dxi, dyi = cfg.dli[0], cfg.dli[1]
+    dzci, dzfi = t(grid.dzci), t(grid.dzfi)
+    K.reset_launches()
+    for sgs in (True, False):
+        mom = (u, v, w, s if sgs else None, p, ue, ve, we,
+               se if sgs else None, pe, ruo, rvo, rwo, dzci, dzfi, 5e-4,
+               -2e-4, cfg.visc, dxi, dyi, (0.1, 0.0, 0.0))
+        h = yh if sgs else (*yh[:3], None, yh[4])
+        got = K.mom_rk(*mom, sums=(True, False), yh=h)
+        ref = K.mom_rk_plain(*mom, sums=(True, False), yh=h)
+        for g, r in zip(got[:6], ref[:6]):
+            torch.testing.assert_close(g, r, rtol=0, atol=1e-12)
+        torch.testing.assert_close(got[6].sum(1), ref[6][:, 0], rtol=0,
+                                   atol=1e-12)
+    fp = (u, v, w, ue, ve, we, dzfi, 20.0, dxi, dyi)
+    torch.testing.assert_close(K.fillps(*fp, yh=yh[1]),
+                               K.fillps_plain(*fp, yh=yh[1]), rtol=0,
+                               atol=1e-12)
+    cu = (u, v, w, pp, p, we, ppe, 3.7e-3, dxi, dyi, dzci, dzfi,
+          t([0.05, -0.02]))
+    for g, r in zip(K.correc_updatep(*cu, yh=yh[4]),
+                    K.correc_updatep_plain(*cu, yh=yh[4])):
+        torch.testing.assert_close(g, r, rtol=0, atol=1e-12)
+    zc = grid.zc[1:nz + 1]
+    sm = (u, v, w, ue, ve, we, dzci, dzfi, dxi, dyi, cfg.visc,
+          t(np.full(nz, 1e-4)), t(np.minimum(zc, 2.0 - zc)),
+          t((zc <= 1.0).astype(float)), s[0].contiguous(),
+          s[1].contiguous())
+    torch.testing.assert_close(K.smag(*sm, yh=yh[:3]),
+                               K.smag_plain(*sm, yh=yh[:3]), rtol=0,
+                               atol=1e-12)
+    torch.cuda.synchronize()
+    assert (K.LAUNCHES['mom_rk'], K.LAUNCHES['fillps'],
+            K.LAUNCHES['correc_updatep'], K.LAUNCHES['smag']) == (2, 1, 1, 1)

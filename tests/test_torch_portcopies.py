@@ -90,7 +90,9 @@ def test_namelist_gives_the_same_config_grid_and_fields(name):
 
 # a module that imports cales_torch by its entry points, as a user would
 ENTRY_POINTS = ['cales_torch', 'cales_torch.driver', 'cales_torch.__main__',
-                'cales_torch.profile_step', 'chip_smoke']
+                'cales_torch.profile_step', 'chip_smoke',
+                'cales_torch.parallel.mesh', 'cales_torch.parallel.comm',
+                'cales_torch.io.sharded']
 
 
 def _all_port_modules():
