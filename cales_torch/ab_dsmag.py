@@ -1,9 +1,11 @@
 """Kernels of another checkout against this one's, on the same card in one
-process: are their outputs bitwise equal, and how long does each take?
-The kernels whose code moved: the one-pass dsmag (its z-march stages into
-dsmag_common.cuh), apply_y (its GEMM into gemm.cuh), and the periodic and
-y-walled variants of mom_rk, fillps, correc_updatep and smag (their y
-reads through common.cuh's y mode, beside the slab's halo mode).
+process: are their outputs bitwise equal (or how far apart), and how long
+does each take?  The kernels whose code moved: the one-pass dsmag (its
+z-march stages into dsmag_common.cuh), apply_y and apply_x (their GEMM in
+gemm.cuh, float32 on the tensor cores as 3xTF32 since the SIMT body), and
+the periodic and y-walled variants of mom_rk, fillps, correc_updatep and
+smag (their y reads through common.cuh's y mode, beside the slab's halo
+mode).
 
     python -m cales_torch.ab_dsmag --baseline DIR [--ng 512x256x256]
                                    [--reps 10]
@@ -14,12 +16,16 @@ name, so each checkout's wrappers drive its own library (built under
 DIR/cales_torch/_build): the C interfaces may differ, the Python calls
 compared here do not.  Both run on the same seeded random inputs: dsmag's
 'channel' average without y walls, 'duct' and 'cavity' with them; apply_y
-with the x operator fused and y only; mom_rk (with nu_t, the previous RHS
-and the bulk sums), fillps and correc_updatep periodic and with y walls;
-smag.  Outputs are compared in float64 at (nx, ny, nz) = (72, 40, 48) and
-in float32 at --ng; times are float32 at --ng, the mean of --reps calls
-after a warm-up (CUDA events), taken in the order baseline, this, this,
-baseline.  Prints one JSON line.  Needs a CUDA device.
+with the x operator fused and y only; apply_x on a slab of half the y rows
+(plain, its output split in two x-column blocks, its input read from two
+such blocks); mom_rk (with nu_t, the previous RHS and the bulk sums),
+fillps and correc_updatep periodic and with y walls; smag; and, in float32
+only, apply_y with the x operator at ng = (512, 512, 512).  Outputs are
+compared in float64 at (nx, ny, nz) = (72, 40, 48) and in float32 at --ng
+(bitwise, and max|this - baseline| / max|baseline|, the worst output);
+times are float32 at --ng, the mean of --reps calls after a warm-up (CUDA
+events), taken in the order baseline, this, this, baseline.  Prints one
+JSON line.  Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -36,9 +42,12 @@ import torch
 from .ops import kernels as K
 from .ops import solve_kernels as SK
 
-CASES = ('channel', 'duct', 'cavity', 'apply_y x+y', 'apply_y y', 'mom_rk',
-         'mom_rk y walls', 'fillps', 'fillps y walls', 'correc_updatep',
-         'correc_updatep y walls', 'smag')
+CASES = ('channel', 'duct', 'cavity', 'apply_y x+y', 'apply_y y',
+         'apply_x', 'apply_x split', 'apply_x chunked', 'apply_y x+y 512^3',
+         'mom_rk', 'mom_rk y walls', 'fillps', 'fillps y walls',
+         'correc_updatep', 'correc_updatep y walls', 'smag')
+# the cases at their own shape, in float32 only
+BIG = {'apply_y x+y 512^3': (512, 512, 512)}
 
 
 def _baseline(root: Path):
@@ -77,17 +86,39 @@ def _inputs(ng, dtype, seed):
                                     dtype=dtype))
     nearlo = (torch.arange(nz, device='cuda') < nz // 2).to(dtype)
     tauw = [1e-2 * (1.0 + rnd(ny, nx)) for _ in range(2)]
+    # apply_x: a slab of half the y rows, and the same as two x-column
+    # blocks (the backward transpose's delivery)
+    slab = f[0][:, :max(ny // 2, 1)].contiguous()
+    blocks = slab.reshape(nz, slab.shape[1], 2, nx // 2).permute(
+        2, 0, 1, 3).contiguous()
     return dict(f=f, e=e, ye=ye, alph2=alph2, dz=dz, ny_op=ny_op,
-                nx_op=nx_op, prof=prof, nearlo=nearlo, tauw=tauw)
+                nx_op=nx_op, prof=prof, nearlo=nearlo, tauw=tauw, slab=slab,
+                blocks=blocks)
+
+
+def _big_inputs(ng, dtype, seed):
+    """apply_y's field and operators alone at ng."""
+    nx, ny, nz = ng
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    f = [0.02 * torch.randn((nz, ny, nx), generator=gen, device='cuda',
+                            dtype=dtype)]
+    return dict(f=f, ny_op=0.1 * torch.randn((ny, ny), generator=gen,
+                                             device='cuda', dtype=dtype),
+                nx_op=0.1 * torch.randn((nx, nx), generator=gen,
+                                        device='cuda', dtype=dtype))
 
 
 def _call(mods, d, case):
     Km, SKm = mods
+    if case.startswith('apply_y'):
+        return (SKm.apply_y(d['f'][0], d['ny_op'],
+                            d['nx_op'] if 'x+y' in case else None),)
+    if case.startswith('apply_x'):
+        src = d['blocks'] if case == 'apply_x chunked' else d['slab']
+        return (SKm.apply_x(src, d['nx_op'],
+                            split=2 if case == 'apply_x split' else 1),)
     f, e, ye, dz = d['f'], d['e'], d['ye'], d['dz']
     walls = case.endswith('y walls')
-    if case.startswith('apply_y'):
-        return (SKm.apply_y(f[0], d['ny_op'],
-                            d['nx_op'] if case == 'apply_y x+y' else None),)
     if case.startswith('mom_rk'):
         return Km.mom_rk(*f[:5], *e, *f[5:8], dz, dz, 0.01, -0.005, 5e-5,
                          40.0, 20.0, (0.1, 0.0, 0.0), sums=(True, True),
@@ -135,24 +166,32 @@ def main(argv=None):
     mods = {'baseline': _baseline(args.baseline.resolve()),
             'this': (K, SK)}
     ng = tuple(int(x) for x in args.ng.lower().split('x'))
-    out = dict(card=card, ng=ng, bitwise={}, ms={})
+    out = dict(card=card, ng=ng, bitwise={}, rel={}, ms={})
     for dtype, shape in ((torch.float64, (72, 40, 48)),
                          (torch.float32, ng)):
         d = _inputs(shape, dtype, 20261016)
         for case in CASES:
-            res = {name: [q for q in _call(m, d, case) if q is not None]
+            if case in BIG and dtype == torch.float64:
+                continue
+            dc = _big_inputs(BIG[case], dtype, 20261017) if case in BIG else d
+            res = {name: [q for q in _call(m, dc, case) if q is not None]
                    for name, m in mods.items()}
             same = len(res['baseline']) == len(res['this']) and all(
                 torch.equal(a, b)
                 for a, b in zip(res['baseline'], res['this']))
-            out['bitwise'][f'{case} {str(dtype)[6:]}'] = same
+            key = f'{case} {str(dtype)[6:]}'
+            out['bitwise'][key] = same
+            out['rel'][key] = max(
+                float((a.double() - b.double()).abs().max()
+                      / b.double().abs().max().clamp_min(1e-300))
+                for a, b in zip(res['this'], res['baseline']))
             if dtype == torch.float32:
                 times = {name: [] for name in mods}
                 for name in ('baseline', 'this', 'this', 'baseline'):
                     times[name].append(_time_ms(
-                        lambda: _call(mods[name], d, case), args.reps))
+                        lambda: _call(mods[name], dc, case), args.reps))
                 out['ms'][case] = times
-            del res
+            del res, dc
         del d
         torch.cuda.empty_cache()
     print(json.dumps({'ab_dsmag': out}))

@@ -7,8 +7,9 @@
 // MxT is the transposed (nx, nx) x transform matrix.
 //
 // Design.  The whole call is one flat GEMM, (rows, nx) x (nx, nx) with rows
-// = nz * ny_slab, through gemm.cuh (the same tiled fp32 FMA body as
-// apply_y.cu's pass 1, shared rather than copied).  Two layouts spare the
+// = nz * ny_slab, through gemm.cuh (the same body as apply_y.cu's pass 1,
+// shared rather than copied: 3xTF32 on the tensor cores in float32, the
+// SIMT FMA body in float64).  Two layouts spare the
 // all-to-all its copies:
 //   out_chunks = g > 1: out is (g, rows, nx / g), the x columns split into
 //     g chunks, chunk q the block the all-to-all sends to rank q: a batch of
@@ -19,10 +20,12 @@
 // The TPU kernel aliases its output onto its input; on the card the call
 // is out of place.
 //
-// Bound on the H100: fp32 arithmetic.  2 rows nx^2 flops, 17.2 GFLOP at the
-// (256, 128, 512) slab of the 512x256x256 channel on two ranks, 0.256 ms at
-// ~67 TFLOP/s of SIMT fp32 (no tensor cores: the sums stay in fp32 FMA,
-// never TF32); its bytes (in, out and MxT once) take 0.040 ms.
+// Bound on the H100: arithmetic.  2 rows nx^2 flops, 17.2 GFLOP at the
+// (256, 128, 512) slab of the 512x256x256 channel on two ranks: 0.104 ms
+// at the 3xTF32 rate of float32 (495 / 3 TFLOP/s; the SIMT fp32 FMA body
+// it replaced was bound at 0.256 ms by 67 TFLOP/s); its bytes (in, out
+// and MxT once) take 0.040 ms.  The chunked layouts change only the
+// addresses that the cp.async copies read and the stores write.
 #include "gemm.cuh"
 
 namespace cales {

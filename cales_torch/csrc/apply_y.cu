@@ -15,13 +15,15 @@
 // through a scratch field that the wrapper allocates.  Without MxT pass 2
 // reads `in` directly.  The GEMM is gemm.cuh's, shared with apply_x.cu.
 //
-// Bound on the H100: fp32 arithmetic.  2 nz ny nx (nx + ny) flops, 51.5
-// GFLOP a call at 512x256x256, against ~67 TFLOP/s of SIMT fp32 (no tensor
-// cores: the sums stay in fp32 FMA, never TF32).  Each block computes a
-// 128x128 tile of C with 256 threads, an 8x8 register tile each, from
-// 128x8 / 8x128 tiles of A and B staged in shared memory; the next tiles'
-// global loads are issued before the current tile's FMAs.  Tensor-core
-// 3xTF32 (mma.sync / wgmma) and TMA are later work.
+// Bound on the H100: arithmetic.  2 nz ny nx (nx + ny) flops, 51.5 GFLOP a
+// call at 512x256x256 (275 GFLOP at 512^3).  In float32 gemm.cuh runs them
+// as 3xTF32 on the tensor cores (three TF32 products a product, fp32
+// sums): 0.312 ms at 495 / 3 TFLOP/s (1.67 ms at 512^3), where the SIMT
+// fp32 FMA body it replaced was bound at 0.769 ms by 67 TFLOP/s; the
+// fields' bytes (in, tmp and out) take 0.08 ms more.  float64 keeps the
+// SIMT FMA body.  Both passes take B N-major as it lies (MxT; tmp[z]):
+// gemm.cuh's split of B into the K-major tiles that wgmma reads is its
+// transpose too, so neither pass needs a transposed copy.
 #include "gemm.cuh"
 
 namespace cales {

@@ -47,7 +47,8 @@ STAGES = (
     ('fillps', ('fillps_kernel',)),
     ('correc_smag', ('correc_smag_kernel',)),
     ('correc_updatep', ('cales::correc_kernel',)),
-    ('solve: apply_y', ('cales::gemm_kernel',)),
+    # gemm.cuh: the float32 tensor-core body and the float64 SIMT one
+    ('solve: apply_y', ('gemm_tf32x3_kernel<', 'gemm_kernel<')),
     ('solve: z_eig', ('z_eig_kernel',)),
     ('thomas_z', ('thomas_z_kernel',)),
     ('thomas_periodic', ('thomas_periodic_kernel',)),

@@ -95,6 +95,9 @@ LES_KERNELS = ('mom_rk', 'fillps', 'correc_smag')
 # bytes/s and float32 / float64 FLOP/s outside the tensor cores
 PEAK_BPS = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
+# the float32 matrix products at fp32 accuracy on the tensor cores: 3xTF32,
+# three TF32 products (495 TFLOP/s dense) a product
+PEAK_TF32X3 = 495e12 / 3
 HEADLINE_NG = (512, 256, 256)
 CHAN_BCS = dict(
     cbcvel=((('P', 'P', 'P'), ('P', 'P', 'P'), ('D', 'D', 'D')),) * 2,
@@ -493,8 +496,10 @@ VARIANT_ROW_OF = {kv: row for row, kv in VARIANT_ROWS.items()}
 RELATIVE = ('apply_y', 'z_eig', 'thomas_z', 'dsmag', 'thomas_periodic',
             'dsmag_level1', 'dsmag_level2', 'apply_x')
 # the kernels whose float32 error is held against their float64 twin in
-# phase 2b
-F64_TWIN = ('dsmag_level1', 'dsmag_level2')
+# phase 2b; for the GEMM kernels (3xTF32) it must stay within 4x the error
+# of their float32 twin, the library matmul, against the same float64 twin
+F64_TWIN = ('dsmag_level1', 'dsmag_level2', 'apply_y', 'apply_x')
+GEMM_KERNELS = ('apply_y', 'apply_x')
 # the full-3D CN solves' alpha in the kernel inputs
 ALPHA = -0.043
 # (interior fields read, fields written, floating-point operations a cell)
@@ -519,8 +524,9 @@ WORK = {'mom_rk': (8, 6, 230), 'fillps': (3, 1, 12),
 WORK_VARIANT = {('mom_rk', 'xyz'): (7, 6, 200),
                 ('correc_updatep', 'impdiff'): (5, 4, 34),
                 ('dsmag_level2', 'cavity'): (16, 1, 147)}
-# kernels whose plain twin is a single library product (cuBLAS), timed as
-# the yardstick library_ms
+# the matrix-product kernels: their plain twin is a single library product
+# (cuBLAS), timed as the yardstick library_ms, and their float32 bound is
+# reckoned at PEAK_TF32X3 (the SIMT figure at PEAK_FLOPS beside it)
 LIBRARY_TWIN = ('apply_y', 'z_eig', 'apply_x')
 
 
@@ -557,11 +563,28 @@ def work(name, d, variant=None):
     return nbytes, flops
 
 
-def bound_ms(name, d, variant=None):
+def bound_ms(name, d, variant=None, simt=False):
+    """The least time of the kernel's work: its bytes at PEAK_BPS or its
+    arithmetic, at the 3xTF32 rate for the float32 matrix products (or,
+    with simt, at the SIMT fp32 rate), else at PEAK_FLOPS."""
     nbytes, flops = work(name, d, variant)
+    dtype = d['u'].dtype
+    rate = (PEAK_TF32X3 if (name in LIBRARY_TWIN and dtype == torch.float32
+                            and not simt) else PEAK_FLOPS[dtype])
     t_bytes = nbytes / PEAK_BPS * 1e3
-    t_ops = flops / PEAK_FLOPS[d['u'].dtype] * 1e3
+    t_ops = flops / rate * 1e3
     return max(t_bytes, t_ops), 'bytes' if t_bytes >= t_ops else 'operations'
+
+
+def f32_vs_f64_twin(name, d, d64, variant):
+    """(the float32 kernel's, and its float32 twin's, max|err| / max|ref|
+    against the float64 twin on the same inputs, worst output)."""
+    got = call(name, d, variant=variant)
+    lib = call(name, d, twin=True, variant=variant)
+    ref = call(name, d64, twin=True, variant=variant)
+    rel = [max(float((a[k].double() - ref[k]).abs().max()
+                     / ref[k].abs().max()) for k in a) for a in (got, lib)]
+    return tuple(rel)
 
 
 def phase_kernels(dev, card):
@@ -600,6 +623,19 @@ def phase_kernels(dev, card):
             say(f'  {tag:<24s} kernel {ms:.3f} ms, plain twin {plain_ms:.3f} '
                 f'ms per call  [{card}]')
             row = name if i == 0 else VARIANT_ROW_OF.get((name, variant))
+            rel = None
+            if name in F64_TWIN:
+                # the float32 kernel (and its twin) against the float64
+                # twin on the same inputs, relative to each output's maximum
+                d64 = d64 or _as_double(d)
+                rel, lib_rel = f32_vs_f64_twin(name, d, d64, variant)
+                say(f'  {tag:<24s} float32 against the float64 twin: '
+                    f'max|err| / max|ref| kernel {rel:.3e}, float32 twin '
+                    f'{lib_rel:.3e} (worst output)  [{card}]')
+                if name in GEMM_KERNELS:
+                    require(rel <= 4.0 * lib_rel,
+                            f'{tag}: {rel:.3e} against the float64 twin, '
+                            f'above 4x the float32 twin\'s {lib_rel:.3e}')
             if row is not None:
                 bms, by = bound_ms(name, d, variant)
                 rows[row] = dict(
@@ -607,19 +643,14 @@ def phase_kernels(dev, card):
                     bound_ms=bms, bound_by=by,
                     library_ms=plain_ms if name in LIBRARY_TWIN else None)
                 say(f'  {tag:<24s} bound {bms:.3f} ms ({by})')
-                if name in F64_TWIN:
-                    # the float32 kernel against the float64 twin on the
-                    # same inputs, relative to each output's maximum
-                    d64 = d64 or _as_double(d)
-                    got = call(name, d, variant=variant)
-                    ref = call(name, d64, twin=True, variant=variant)
-                    rel = max(float((got[k].double() - ref[k]).abs().max()
-                                    / ref[k].abs().max()) for k in got)
+                if name in LIBRARY_TWIN:
+                    simt, _ = bound_ms(name, d, variant, simt=True)
+                    rows[row]['bound_simt_ms'] = simt
+                    say(f'  {tag:<24s} bound at the 3xTF32 rate '
+                        f'{bms:.3f} ms, at the SIMT fp32 rate {simt:.3f} ms')
+                if rel is not None:
                     rows[row]['f32_vs_f64_twin'] = rel
-                    say(f'  {tag:<24s} float32 kernel against its float64 '
-                        f'twin: max|err| / max|ref| {rel:.3e} (worst '
-                        f'output)  [{card}]')
-                    del got, ref
+                    rows[row]['f32_twin_vs_f64_twin'] = lib_rel
                 if name == 'thomas_periodic':
                     # with the two scratch fields (c zfac and p2) each
                     # written and read once
@@ -996,9 +1027,17 @@ def _tgv_solve_kernels(sv, rhs, card):
     err = float((got - ref).abs().max() / ref.abs().max())
     ms = time_ms(lambda: SK.apply_y(rhs, fy, MxT=fxT))
     plain = time_ms(lambda: SK.apply_y_plain(rhs, fy, MxT=fxT))
+    nz, ny, nx = rhs.shape
+    flops = 2.0 * nz * ny * nx * (nx + ny)
+    bound, simt = (flops / rate * 1e3 for rate in (PEAK_TF32X3,
+                                                   PEAK_FLOPS[rhs.dtype]))
     say(f'  apply_y at {tuple(rhs.shape)}: kernel {ms:.3f} ms, plain '
-        f'(cuBLAS) {plain:.3f} ms; max|err| / max|ref| {err:.3e} (bound '
-        f'1e-5)  [{card}]')
+        f'(cuBLAS) {plain:.3f} ms, bound {bound:.3f} ms at the 3xTF32 rate '
+        f'({simt:.3f} at the SIMT fp32 rate); max|err| / max|ref| '
+        f'{err:.3e} (bound 1e-5)  [{card}]')
+    print(json.dumps({'apply_y_512cubed': dict(
+        ms=ms, library_ms=plain, bound_ms=bound, bound_simt_ms=simt,
+        max_rel_err=err, card=card)}), flush=True)
     require(err <= 1e-5, f'apply_y at 512^3: {err:.3e}')
     lamy, lamx = t(sv.lamy), t(sv.lamx)
     tol = poisson._thomas_tol(sv.lamx, sv.lamy, torch.float32)

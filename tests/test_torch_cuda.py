@@ -724,6 +724,70 @@ def test_cuda_apply_x_matches_twin_on_card(dev, shape):
     assert SK.LAUNCHES['apply_x'] == 6
 
 
+def _gemm_calls(arr, M, mxt, twin):
+    """name -> the call of apply_y (with and without MxT) or apply_x
+    (plain, split output, chunked input) on arr (nz, ny, nx), by the
+    kernel's wrapper or (twin) by its plain version."""
+    g = 2
+    nz, ny, nx = arr.shape
+    blocks = arr.reshape(nz, ny, g, nx // g).permute(2, 0, 1, 3).contiguous()
+    ay = SK.apply_y_plain if twin else SK.apply_y
+    ax = SK.apply_x_plain if twin else SK.apply_x
+    return {'apply_y x+y': lambda: ay(arr, M, MxT=mxt),
+            'apply_y y': lambda: ay(arr, M),
+            'apply_x': lambda: ax(arr, mxt),
+            'apply_x split': lambda: ax(arr, mxt, split=g),
+            'apply_x chunked': lambda: ax(blocks, mxt)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shape', [(24, 40, 72), (6, 10, 200), (200, 10, 6),
+                                   (7, 13, 42), (256, 128, 512)])
+def test_cuda_f32_gemm_on_tensor_cores(dev, shape):
+    """The GEMM of apply_y and apply_x (csrc/gemm.cuh: 3xTF32 on the tensor
+    cores in float32, the SIMT FMA body in float64) on the channel's own
+    operators, at (nz, ny, nx) shapes that fit no tile, one whose nx is not
+    a multiple of 4 (no 16-byte copies: the same kernel copies 4 bytes at a
+    time; the chunks of 21 columns too), and the y slab (256, 128, 512) of
+    the 512x256x256 channel on two ranks.  float32: within 1e-5 of the
+    output's maximum of the float32 twin, and against the float64 twin on
+    the same float32 data no worse than 4x the float32 twin's own error
+    against it (the twin is the library matmul, cuBLAS in full fp32);
+    float64 within 1e-13 of its twin."""
+    from cales_torch import poisson
+    nz, ny, nx = shape
+    cfg = Config(ng=(nx, ny, nz), l=(2 * np.pi, np.pi, 2.0), gtype=1,
+                 gr=1.0, ptransform='mat')
+    sv = poisson.make_solver(cfg, make_grid_from_config(cfg),
+                             ('PP', 'PP', 'NN'), ('c', 'c', 'c'))
+    x = np.random.default_rng(23).standard_normal(shape)
+
+    def t(a, dtype):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                               device=dev)
+    SK.reset_launches()
+    data = {dt: (t(x, dt), t(sv.try_.fwd_mat, dt), t(sv.trx.fwd_mat.T, dt))
+            for dt in (torch.float64, torch.float32)}
+    kern64, twin64 = (_gemm_calls(*data[torch.float64], twin=w)
+                      for w in (False, True))
+    for name, call in kern64.items():
+        _rel_close(call(), twin64[name](), 1e-13)
+    kern32, twin32 = (_gemm_calls(*data[torch.float32], twin=w)
+                      for w in (False, True))
+    # the float64 twin on the float32 data
+    exact = _gemm_calls(*(q.double() for q in data[torch.float32]), twin=True)
+    for name, call in kern32.items():
+        got, ref, r64 = call(), twin32[name](), exact[name]()
+        _rel_close(got, ref, 1e-5)
+        scale = float(r64.abs().max())
+        err = float((got.double() - r64).abs().max()) / scale
+        lib = float((ref.double() - r64).abs().max()) / scale
+        assert err <= 4.0 * lib, (name, err, lib)
+    torch.cuda.synchronize()
+    assert SK.LAUNCHES == {'apply_y': 4, 'apply_x': 6, 'z_eig': 0,
+                           'thomas_z': 0, 'thomas_periodic': 0}
+
+
 @pytest.mark.cuda
 def test_cuda_halo_kernels_match_twins_on_card(dev):
     """The slab (halo) variants of mom_rk, fillps, correc_updatep and smag
