@@ -1,11 +1,13 @@
 """Kernels of another checkout against this one's, on the same card in one
 process: are their outputs bitwise equal (or how far apart), and how long
 does each take?  The kernels whose code moved: the one-pass dsmag (its
-z-march stages into dsmag_common.cuh), apply_y and apply_x (their GEMM in
-gemm.cuh, float32 on the tensor cores as 3xTF32 since the SIMT body), and
-the periodic and y-walled variants of mom_rk, fillps, correc_updatep and
-smag (their y reads through common.cuh's y mode, beside the slab's halo
-mode).
+test filter shared across the plane, dsmag_common.cuh's separable
+passes), z_eig (float32 through gemm.cuh's tensor-core GEMM with its
+epilogue), apply_y and apply_x (their GEMM in gemm.cuh, float32 on the
+tensor cores as 3xTF32), dsmag_level1 and dsmag_level2 (beside dsmag's
+shared stages), and the periodic and y-walled variants of mom_rk, fillps,
+correc_updatep and smag (their y reads through common.cuh's y mode,
+beside the slab's halo mode).
 
     python -m cales_torch.ab_dsmag --baseline DIR [--ng 512x256x256]
                                    [--reps 10]
@@ -15,8 +17,11 @@ archive).  Its cales_torch is imported beside this one under another
 name, so each checkout's wrappers drive its own library (built under
 DIR/cales_torch/_build): the C interfaces may differ, the Python calls
 compared here do not.  Both run on the same seeded random inputs: dsmag's
-'channel' average without y walls, 'duct' and 'cavity' with them; apply_y
-with the x operator fused and y only; apply_x on a slab of half the y rows
+'channel' average without y walls, 'duct' and 'cavity' with them; z_eig
+on random operators and eigenvalues with the singular lane (0, 0) at
+lamz[0]; dsmag_level1, and dsmag_level2 'channel', without y walls and
+with them ('duct' for dsmag_level2); apply_y with the x operator fused and
+y only; apply_x on a slab of half the y rows
 (plain, its output split in two x-column blocks, its input read from two
 such blocks); mom_rk (with nu_t, the previous RHS and the bulk sums),
 fillps and correc_updatep periodic and with y walls; smag; and, in float32
@@ -42,7 +47,9 @@ import torch
 from .ops import kernels as K
 from .ops import solve_kernels as SK
 
-CASES = ('channel', 'duct', 'cavity', 'apply_y x+y', 'apply_y y',
+CASES = ('channel', 'duct', 'cavity', 'z_eig', 'dsmag_level1',
+         'dsmag_level1 y walls', 'dsmag_level2', 'dsmag_level2 y walls',
+         'apply_y x+y', 'apply_y y',
          'apply_x', 'apply_x split', 'apply_x chunked', 'apply_y x+y 512^3',
          'mom_rk', 'mom_rk y walls', 'fillps', 'fillps y walls',
          'correc_updatep', 'correc_updatep y walls', 'smag')
@@ -85,6 +92,16 @@ def _inputs(ng, dtype, seed):
     prof = 1e-3 * (1.0 + torch.rand(nz, generator=gen, device='cuda',
                                     dtype=dtype))
     nearlo = (torch.arange(nz, device='cuda') < nz // 2).to(dtype)
+    # z_eig: operators, and eigenvalues in [-4.1, -0.1] but the singular
+    # lane lamz[0] + lamy[0] + lamx[0] = 0
+    vz = [0.1 * torch.randn((nz, nz), generator=gen, device='cuda',
+                            dtype=dtype) for _ in range(2)]
+    lam = []
+    for n in (nz, ny, nx):
+        q = -(0.1 + 4.0 * torch.rand(n, generator=gen, device='cuda',
+                                     dtype=dtype))
+        q[0] = 0.0
+        lam.append(q)
     tauw = [1e-2 * (1.0 + rnd(ny, nx)) for _ in range(2)]
     # apply_x: a slab of half the y rows, and the same as two x-column
     # blocks (the backward transpose's delivery)
@@ -93,7 +110,8 @@ def _inputs(ng, dtype, seed):
         2, 0, 1, 3).contiguous()
     return dict(f=f, e=e, ye=ye, alph2=alph2, dz=dz, ny_op=ny_op,
                 nx_op=nx_op, prof=prof, nearlo=nearlo, tauw=tauw, slab=slab,
-                blocks=blocks)
+                blocks=blocks, vz=vz, lam=lam,
+                ds2=rnd(13, nz, ny, nx))
 
 
 def _big_inputs(ng, dtype, seed):
@@ -117,8 +135,21 @@ def _call(mods, d, case):
         src = d['blocks'] if case == 'apply_x chunked' else d['slab']
         return (SKm.apply_x(src, d['nx_op'],
                             split=2 if case == 'apply_x split' else 1),)
+    if case == 'z_eig':
+        return (SKm.z_eig(d['f'][0], *d['vz'], *d['lam'], 1e-9),)
     f, e, ye, dz = d['f'], d['e'], d['ye'], d['dz']
     walls = case.endswith('y walls')
+    if case.startswith('dsmag_level1'):
+        fm, fvel, lij, s0 = Km.dsmag_level1(
+            *f[:3], *e[:3], dz, dz, 40.0, 20.0, True, True,
+            ye=ye[:3] if walls else None)
+        return (*fm, *fvel, *lij, s0)
+    if case.startswith('dsmag_level2'):
+        q = d['ds2']
+        return Km.dsmag_level2(*f[:3], *e[:3], q[0:6], q[6:12], q[12],
+                               d['alph2'], dz, dz, 40.0, 20.0,
+                               avg='duct' if walls else 'channel',
+                               ye=ye[:3] if walls else None)
     if case.startswith('mom_rk'):
         return Km.mom_rk(*f[:5], *e, *f[5:8], dz, dz, 0.01, -0.005, 5e-5,
                          40.0, 20.0, (0.1, 0.0, 0.0), sums=(True, True),

@@ -1,6 +1,6 @@
 // Dynamic Smagorinsky (Germano-Lilly), one z-march.
 //
-// Replaces: cales_tpu/ops/pallas_dsmag.py fused_dsmag_onepass (body
+// Replaces: cales_tpu/ops/pallas_dsmag.py:1168 fused_dsmag_onepass (body
 // _ds_onepass_kernel) on the single-device path, with its three averages
 // (reference sgs.f90:153-370, ave1d_channel 433-538, ave2d_duct 540-614):
 //   'channel'  |S| and, per (z row, block), the partial sums of
@@ -32,56 +32,93 @@
 // 0 on its lower wall face and its padded-ny rewrite row; alpha^2 is 2.52
 // on the first and last y rows as on the first and last z rows.
 //
-// Design.  A block owns an 8 x 32 (y, x) tile and marches z through three
-// rings of planes in shared memory, one plane entering per step:
-//   V  the velocity (3) on the tile + a halo of 2, planes t-1 .. t+1;
-//   A  the 16 source quantities on the tile + a halo of 1, planes t-2 .. t;
-//   F  the filtered velocity (3) on the tile + a halo of 1, planes t-2 .. t.
-// At step t the block loads velocity plane t+1, forms A and F at plane t,
-// then finishes plane t-1 at the tile's centre: the 15 filtered A
-// quantities, the test-level strain from F, M_ij, L_ij and the contraction
-// in registers, the sums or nu_t, and |S|.  With y walls (template switch
-// YW) the velocity's rows -1, ny-1 and ny load from the y-row stacks, and
-// one pass after stage A writes plane t's y ghost rows of A and F by
-// their recipes, so stage C reads the same code as without walls.
-// The load, stage A, the filter and A's y fix are dsmag_common.cuh's,
-// shared with dsmag_level1.cu (the grid level of the two passes).
-// Nothing but |S| (or nu_t) and the partial sums goes to global memory.  x wraps when a plane is loaded,
-// and so does y without y walls; a ragged tile's outside cells are
-// computed on wrapped data and left out of the output and the sums.
-// 'duct' keeps this tile and leaves the last sum over x to the caller, a
-// (nz, ny, nx/32) reduction, rather than a tile spanning all of x (the TPU
-// kernel's fold_ratio), which would not fit shared memory at nx = 512.
+// Design.  A block owns a TY x 32 (y, x) tile (TY = 16 in float32, 8 in
+// float64, whose planes are twice the bytes) and marches z, one plane a
+// step, with the test filter's x and y passes shared across the plane:
+//   V   the velocity (3) on the tile + a halo of 2, a ring of 4 planes:
+//       plane t+2 is copied in by cp.async while t-1 .. t+1 are read, and
+//       waited for only at the step's last barrier;
+//   A   the 15 filtered source quantities on the tile + a halo of 1, planes
+//       t-1 and t, and |S| on three planes;
+//   XS  their x pass, one plane; the y pass goes to registers, one centre
+//       cell a thread, and the z pass combines there: a thread keeps the
+//       xy-filtered value of plane t-1 and the partial sum q(t-2) +
+//       2 q(t-1) of each quantity;
+//   XV, YV, F  the velocity's x pass (one plane), its xy-filtered ring (3
+//       planes) and the filtered velocity on the tile + a halo of 1 (3
+//       planes, with F's z fill written as the planes -1 and nz), whose z
+//       pass is the last three YV planes.
+// At step t the block starts the copy of velocity plane t+2, forms A at
+// plane t and the velocity's x pass of plane t+1; then (one barrier) its y
+// pass and A's x pass; then (one barrier) F at plane t and A's y and z
+// passes; then (one barrier) finishes plane t-1 at the tile's centre as
+// before: the test-level strain from F, M_ij, L_ij and the contraction in
+// registers, the sums or nu_t, and |S|.  Three barriers a plane (the
+// 'channel' sum adds one), where the 27-read filter took three and its
+// block sums four.
+// Each output keeps filter27's arithmetic: x, then y, then z, each pass
+// q (a + 2 b + c), the z and y ghost planes and rows of A and of the
+// velocity formed before the x pass by the recipes above (a ghost plane
+// is one more x and y pass, at the first and last plane), and the z
+// pass's last product kept out of the FMAs of stage C (ds_mul_rn), so
+// |S|, nu_t and every summand are bitwise those of the 27-read filter.
+// 'channel' keeps its partial sums' grouping too: a float32 block writes
+// one sum per 8 tile rows (DS_SUM_TY), summed as block_sum sums a block
+// of 8 warps.
+// With y walls (template switch YW) the velocity's rows -1, ny-1 and ny
+// load from the y-row stacks; A's y ghost rows (ds_fix_src_y's recipe)
+// are formed in A's x pass and F's fill in F's z pass, row by row, so an
+// edge tile takes no pass or barrier of its own.
+// The load, stage A and the passes are dsmag_common.cuh's.
+// Nothing but |S| (or nu_t) and the partial sums goes to global memory.  x
+// wraps when a plane is loaded, and so does y without y walls; a ragged
+// tile's outside cells are computed on wrapped data and left out of the
+// output and the sums.  'duct' leaves the last sum over x to the caller,
+// a (nz, ny, nx/32) reduction, rather than a tile spanning all of x (the
+// TPU kernel's fold_ratio), which would not fit shared memory at nx = 512.
 //
-// Shared memory: (9 * 12 * 36 + 48 * 10 * 34 + 9 * 10 * 34) words =
-// 93,072 bytes in f32 (two blocks on an SM), 186,144 in f64, within the
-// card's 227 KB a block.
+// Shared memory: V 4 x 3 VY x 36, A (2 x 15 + 3) x AY x 34, XS 15 x AY x
+// 32, XV 3 x VY x 34, YV and F 9 x AY x 34 words: 202,128 bytes in f32
+// (TY 16), 228,384 in f64 (TY 8); one block (16 or 8 warps) an SM.
 //
 // Bound on the H100: operations.  It reads u, v, w once and writes |S| (4
 // field streams, 0.54 GB at 512x256x256 f32: 0.16 ms at 3.35 TB/s).  The
 // function needs about 473 floating-point operations a cell: A 110 (the
-// strain rate's 92 + 18), 18 filtered quantities at 12 each when the
-// separable passes are shared across the plane (3 passes of 4), and C 147
+// strain rate's 92 + 18), 18 filtered quantities at 12 each with the
+// separable passes shared across the plane (3 passes of 4), and C 147
 // (the test-level strain's 92 + M_ij, L_ij and the contraction), 15.9
-// GFLOP a call: 0.24 ms at the data sheet's 67 TFLOP/s f32 outside the
-// tensor cores.  This first kernel does about 1,200 a cell: it filters
-// each quantity with 27 shared-memory reads per centre cell (52
-// operations, nothing shared between neighbours) and recomputes A and F on
-// the halo of every tile; sharing the x and y passes is later work.
+// GFLOP a call: 0.237 ms at the data sheet's 67 TFLOP/s f32 outside the
+// tensor cores.  This kernel does about 510 a cell: the halo's share of A
+// (1.2 in float32) and of the filter's x passes.  Beyond that it spends
+// its shared-memory traffic (about 250 accesses a centre cell, 620 with
+// the 27-read filter), its copies of the velocity planes, and latency:
+// one block an SM (16 warps, 128 registers a thread).
 #include "dsmag_common.cuh"
 
 namespace cales {
 
 static_assert(DS_TX == 32, "'duct' sums a tile row as one warp");
 enum { DS_CHANNEL = 0, DS_DUCT = 1, DS_CAVITY = 2 };
+constexpr int DS_SUM_TY = 8;   // tile rows of one 'channel' partial sum
 
+// The tile rows of the one-pass kernel: 16 in float32, 8 in float64.
+template <typename T>
+struct DsTy {
+  static constexpr int TY = sizeof(T) == 4 ? 16 : 8;
+};
+
+// Shared memory, in words: V, A (15 quantities on two planes, |S| on
+// three), XS, XV, YV, F.
 template <typename T>
 constexpr size_t dsmag_smem_bytes() {
-  return sizeof(T) * (9 * DS_VPL + 3 * DS_NA * DS_APL + 9 * DS_APL);
+  using G = DsGeo<DsTy<T>::TY>;
+  return sizeof(T) *
+         (12 * G::VPL + (2 * (DS_NA - 1) + 3) * G::APL +
+          (DS_NA - 1) * G::AY * DS_TX + 3 * G::VY * DS_AX + 18 * G::APL);
 }
 
 template <typename T, bool YW, int AVG>
-__global__ void __launch_bounds__(DS_NT) dsmag_kernel(
+__global__ void __launch_bounds__(DsGeo<DsTy<T>::TY>::NT, 1) dsmag_kernel(
     const T* __restrict__ u, const T* __restrict__ v, const T* __restrict__ w,
     const T* __restrict__ ue, const T* __restrict__ ve,
     const T* __restrict__ we, const T* __restrict__ alph2,
@@ -89,90 +126,129 @@ __global__ void __launch_bounds__(DS_NT) dsmag_kernel(
     T* __restrict__ s0o, T* __restrict__ numo, T* __restrict__ deno,
     DsYWalls<T> yw, int nz, int ny, int nx, int wall_lo, int wall_hi, T dxi,
     T dyi, T zoff_lo_u, T zoff_hi_u, T zoff_lo_v, T zoff_hi_v) {
+  constexpr int TY = DsTy<T>::TY;
+  using G = DsGeo<TY>;
+  constexpr int NT = G::NT, AY = G::AY, APL = G::APL, NF = DS_NA - 1;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* const Vs = reinterpret_cast<T*>(smem_raw);   // [3 planes][3][VPL]
-  T* const As = Vs + 9 * DS_VPL;                   // [3 planes][16][APL]
-  T* const Fs = As + 3 * DS_NA * DS_APL;           // [3 planes][3][APL]
+  __shared__ T part[2][NT / 32];   // 'channel': the warps' sums
+  T* const Vs = reinterpret_cast<T*>(smem_raw);   // [4 planes][3][VPL]
+  T* const As = Vs + 12 * G::VPL;                  // [2 planes][15][APL]
+  T* const S0 = As + 2 * NF * APL;                 // [3 planes][APL]
+  T* const XS = S0 + 3 * APL;                      // [15][AY][TX]
+  T* const XV = XS + NF * AY * DS_TX;              // [3][VY][AX]
+  T* const YV = XV + 3 * G::VY * DS_AX;            // [3 planes][3][APL]
+  T* const Fs = YV + 9 * APL;                      // [3 planes][3][APL]
   const int gx = (nx + DS_TX - 1) / DS_TX;
   const int bx = blockIdx.x % gx;
   const int x0 = bx * DS_TX;
-  const int y0 = (blockIdx.x / gx) * DS_TY;
+  const int y0 = (blockIdx.x / gx) * TY;
   const int tid = threadIdx.x;
   const int64_t plane = static_cast<int64_t>(ny) * nx;
-  const T* const fld[3] = {u, v, w};
-  const T* const edg[3] = {ue, ve, we};
-  const T two = T(2);
+  // the fields' pointers and the y-wall inputs, read from shared memory
+  // where they are used rather than held in registers
+  __shared__ const T* fld[3];
+  __shared__ const T* edg[3];
+  __shared__ DsYWalls<T> ywall;
+  if (tid == 0) {
+    fld[0] = u, fld[1] = v, fld[2] = w;
+    edg[0] = ue, edg[1] = ve, edg[2] = we;
+    ywall = yw;
+  }
+  __syncthreads();
+  const T q4 = T(0.25), two = T(2);
   const T szlo = wall_lo ? T(-1) : T(1), szhi = wall_hi ? T(-1) : T(1);
   const T zofflo[2] = {zoff_lo_u, zoff_lo_v};
   const T zoffhi[2] = {zoff_hi_u, zoff_hi_v};
 
-  auto vel = [&](int kz, int c) { return Vs + (ring(kz) * 3 + c) * DS_VPL; };
-  auto src = [&](int kz, int q) {
-    return As + (ring(kz) * DS_NA + q) * DS_APL;
+  auto vel = [&](int kz, int c) {
+    return Vs + (((kz + 4) & 3) * 3 + c) * G::VPL;
   };
-  auto fvel = [&](int kz, int c) { return Fs + (ring(kz) * 3 + c) * DS_APL; };
+  auto src = [&](int kz, int q) {
+    return q < NF ? As + ((kz & 1) * NF + q) * APL : S0 + ring(kz) * APL;
+  };
+  auto yvel = [&](int kz, int c) { return YV + (ring(kz) * 3 + c) * APL; };
+  auto fvel = [&](int kz, int c) { return Fs + (ring(kz) * 3 + c) * APL; };
 
   const DsTile g{x0, y0, nz, ny, nx, tid, plane};
-  auto load = [&](int kz) { ds_load<T, YW>(vel, fld, edg, yw, g, kz); };
+  auto load = [&](int kz) {
+    ds_load<T, YW, TY, true>(vel, fld, edg, ywall, g, kz);
+  };
+  // the velocity's x and y passes of plane kz (a z ghost by mode)
+  auto vel_x = [&](int kz, int mode) {
+    if (mode == DS_GHOST_LO)
+      ds_vel_x<T, YW, TY, DS_GHOST_LO>(vel, XV, kz, y0, ny, nz, tid);
+    else if (mode == DS_GHOST_HI)
+      ds_vel_x<T, YW, TY, DS_GHOST_HI>(vel, XV, kz, y0, ny, nz, tid);
+    else
+      ds_vel_x<T, YW, TY, DS_PLANE>(vel, XV, kz, y0, ny, nz, tid);
+  };
+  auto vel_y = [&](int kz) { ds_vel_y<T, TY>(XV, yvel, kz, tid); };
 
-  // stage A and the filtered velocity at plane t on the tile + halo 1
+  // stage A at plane t on the tile + halo 1; the cells past the first NT
+  // go to the last warps, which load the fewest velocity cells
   auto stage_a = [&](int t) {
     const T dzci_c = dzci[t + 1], dzci_m = dzci[t], dzfi_c = dzfi[t + 1];
-    // the wall-parallel velocity's extrapolated ghost planes for its filter
-    const bool ext_lo = wall_lo && t == 0, ext_hi = wall_hi && t == nz - 1;
-    for (int e = tid; e < DS_APL; e += DS_NT) {
+    for (int e = NT - 1 - tid; e < APL; e += NT) {
       const int ay = e / DS_AX, ax = e - ay * DS_AX;
-      const int gy = y0 - 1 + ay;
       const int vo = (ay + 1) * DS_VX + ax + 1;
       ds_source<T>(vel, src, t, e, vo, dxi, dyi, dzci_c, dzci_m, dzfi_c);
-#pragma unroll
-      for (int c = 0; c < 3; ++c)
-        fvel(t, c)[e] = ds_fvel<T, YW>(vel, t, c, vo, gy, ny, ext_lo, ext_hi);
-    }
-    if (YW && (y0 == 0 || y0 >= ny - DS_TY - 1)) {
-      // plane t's y ghost rows, y = -1 and ny (tile rows rlo and rhi, in
-      // the first and last tile rows only): A's by ds_fix_src_y; the
-      // filtered u's and w's the fill -F(first row) + 2b, the filtered v's
-      // 0, as is its rewrite row y = ny-1 (pallas_dsmag.py:1057-1071), so
-      // stage C reads the filled rows as they are
-      __syncthreads();
-      ds_fix_src_y<T>(src, t, y0, ny, tid);
-      const int rlo = -y0, rhi = ny - y0 + 1;
-      for (int e = tid; e < 2 * 3 * DS_AX; e += DS_NT) {
-        const int side = e / (3 * DS_AX);
-        const int rest = e - side * 3 * DS_AX;
-        const int c = rest / DS_AX, ax = rest - c * DS_AX;
-        const int ay = side == 0 ? rlo : rhi;
-        const int in = side == 0 ? DS_AX : -DS_AX;
-        if (c == 1) {
-          // v: the lower wall face and the rewrite row (one row below rhi)
-          const int r = side == 0 ? rlo : rhi - 1;
-          if (r >= 0 && r < DS_AY) fvel(t, 1)[r * DS_AX + ax] = T(0);
-          continue;
-        }
-        if (ay < 0 || ay >= DS_AY) continue;
-        T* f = fvel(t, c) + ay * DS_AX + ax;
-        f[0] = -f[in] + (side == 0 ? yw.off_lo[c] : yw.off_hi[c]);
-      }
     }
   };
 
-  // stage C at the centre of plane kc; every thread calls it (block sums)
+  // F at plane t: the z pass of YV; with y walls its y ghost rows take
+  // the fill, the filtered u's and w's -F(first row) + 2b, the filtered
+  // v's 0, as does its rewrite row y = ny-1 (pallas_dsmag.py:1057-1071),
+  // so that stage C reads the filled rows as they are
+  auto stage_f = [&](int t) {
+    for (int e = tid; e < 3 * APL; e += NT) {
+      const int c = e / APL, o = e - c * APL;
+      auto pass = [&](int i) {
+        return ds_pass(yvel(t - 1, c)[i], yvel(t, c)[i], yvel(t + 1, c)[i]);
+      };
+      T f;
+      const int gy = y0 - 1 + o / DS_AX;
+      if (YW && c == 1 && (gy == -1 || gy == ny - 1))
+        f = T(0);
+      else if (YW && c != 1 && gy == -1)
+        f = -pass(o + DS_AX) + ywall.off_lo[c];
+      else if (YW && c != 1 && gy == ny)
+        f = -pass(o - DS_AX) + ywall.off_hi[c];
+      else
+        f = pass(o);
+      fvel(t, c)[o] = f;
+    }
+  };
+
+  // F's z fill (bounduvw, static planes) as planes of the ring, so that
+  // stage C reads every plane as it is: below the first plane (after t =
+  // 0's y fill) u, v -+F(0) + 2b and w 0; above the last u, v -+F(nz-1) +
+  // 2b, and w's wall face, plane nz-1, 0
+  auto fill_lo = [&]() {
+    for (int e = tid; e < 3 * APL; e += NT) {
+      const int c = e / APL, o = e - c * APL;
+      fvel(-1, c)[o] = c < 2 ? szlo * fvel(0, c)[o] + zofflo[c] : T(0);
+    }
+  };
+  auto fill_hi = [&]() {
+    for (int e = tid; e < 3 * APL; e += NT) {
+      const int c = e / APL, o = e - c * APL;
+      if (c < 2)
+        fvel(nz, c)[o] = szhi * fvel(nz - 1, c)[o] + zoffhi[c];
+      else
+        fvel(nz - 1, 2)[o] = T(0);
+    }
+  };
+
+  // stage C at the centre of plane kc from the filtered A quantities fq;
+  // every thread calls it (the 'channel' sum)
   const int cy = tid / DS_TX, cx = tid - cy * DS_TX;
   const int ao = (cy + 1) * DS_AX + cx + 1;
   const int yc = y0 + cy;
   const bool inside = yc < ny && x0 + cx < nx;
-  auto stage_c = [&](int kc) {
-    T fq[DS_NA - 1];
-    ds_filtered<T>(src, kc, ao, nz, wall_lo, wall_hi, fq);
-    // the filtered velocity with its z fill (bounduvw, static planes; the
-    // y fill is in the ring already)
+  auto stage_c = [&](int kc, const T (&fq)[NF]) {
+    // the filtered velocity, its y and z fills in the ring
     auto FU = [&](int c, int dk, int dj, int di) -> T {
-      const int kz = kc + dk, o = ao + dj * DS_AX + di;
-      if (c == 2) return (kz < 0 || kz == nz - 1) ? T(0) : fvel(kz, 2)[o];
-      if (kz < 0) return szlo * fvel(0, c)[o] + zofflo[c];
-      if (kz >= nz) return szhi * fvel(nz - 1, c)[o] + zoffhi[c];
-      return fvel(kz, c)[o];
+      return fvel(kc + dk, c)[ao + dj * DS_AX + di];
     };
     T sf[6];
     const T s0f = strain_rate<T>(
@@ -193,26 +269,27 @@ __global__ void __launch_bounds__(DS_NT) dsmag_kernel(
     T den = m[0] * m[0] + m[1] * m[1] + m[2] * m[2] +
             two * (m[3] * m[3] + m[4] * m[4] + m[5] * m[5]);
     const int64_t oc = kc * plane + static_cast<int64_t>(yc) * nx + x0 + cx;
+    const T s0 = src(kc, NF)[ao];
     if constexpr (AVG == DS_CAVITY) {
       // nu_t = max(|S| num / den, 0); a NaN passes, as in max(x, 0.0)
       if (inside) {
-        const T r = src(kc, 15)[ao] * num / den;
+        const T r = s0 * num / den;
         s0o[oc] = r < T(0) ? T(0) : r;
       }
       return;
     }
     if (inside) {
-      s0o[oc] = src(kc, 15)[ao];
+      s0o[oc] = s0;
     } else {
       num = T(0);
       den = T(0);
     }
+    // a tile row's 32 cells are one warp
+    for (int off = 16; off > 0; off >>= 1) {
+      num += __shfl_down_sync(0xffffffffu, num, off);
+      den += __shfl_down_sync(0xffffffffu, den, off);
+    }
     if constexpr (AVG == DS_DUCT) {
-      // the tile row's 32 cells are one warp
-      for (int off = 16; off > 0; off >>= 1) {
-        num += __shfl_down_sync(0xffffffffu, num, off);
-        den += __shfl_down_sync(0xffffffffu, den, off);
-      }
       if (cx == 0 && yc < ny) {
         const int64_t r = (static_cast<int64_t>(kc) * ny + yc) * gx + bx;
         numo[r] = num;
@@ -220,23 +297,96 @@ __global__ void __launch_bounds__(DS_NT) dsmag_kernel(
       }
       return;
     }
-    const T ns = block_sum(num);
-    const T ds = block_sum(den);
-    if (tid == 0) {
-      numo[static_cast<int64_t>(kc) * gridDim.x + blockIdx.x] = ns;
-      deno[static_cast<int64_t>(kc) * gridDim.x + blockIdx.x] = ds;
+    // 'channel': one sum per DS_SUM_TY rows, its warps in order from 0
+    // (block_sum's order), at (kc, 8-row group, x block)
+    const int warp = tid >> 5;
+    if (cx == 0) {
+      part[0][warp] = num;
+      part[1][warp] = den;
+    }
+    __syncthreads();
+    const int gy8 = y0 / DS_SUM_TY + warp / DS_SUM_TY;
+    const int ny8 = (ny + DS_SUM_TY - 1) / DS_SUM_TY;
+    if (tid % (DS_SUM_TY * 32) == 0 && gy8 < ny8) {
+      T ns = T(0), ds = T(0);
+      for (int k = 0; k < DS_SUM_TY; ++k) {
+        ns += part[0][warp + k];
+        ds += part[1][warp + k];
+      }
+      const int64_t r = (static_cast<int64_t>(kc) * ny8 + gy8) * gx + bx;
+      numo[r] = ns;
+      deno[r] = ds;
     }
   };
 
+  // the z pass in registers: zp the xy-filtered plane t-1, zs the partial
+  // sum q(t-2) + 2 q(t-1), of each of the 15 quantities
+  T zp[NF], zs[NF], fq[NF];
   load(-1);
   load(0);
+  load(1);
+  ds_cp_wait_all();
+  __syncthreads();
+  vel_x(-1, wall_lo ? DS_GHOST_LO : DS_PLANE);
+  __syncthreads();
+  vel_y(-1);
+  __syncthreads();
+  vel_x(0, DS_PLANE);
+  __syncthreads();
+  vel_y(0);
+  __syncthreads();
   for (int t = 0; t <= nz; ++t) {
-    __syncthreads();            // the previous step's readers are done
-    if (t + 1 <= nz) load(t + 1);
-    __syncthreads();
+    if (t + 2 <= nz) load(t + 2);
     if (t < nz) stage_a(t);
+    if (t + 1 <= nz)
+      vel_x(t + 1, wall_hi && t + 1 == nz ? DS_GHOST_HI : DS_PLANE);
     __syncthreads();
-    if (t >= 1) stage_c(t - 1);
+    if (t + 1 <= nz) vel_y(t + 1);
+    // A's x pass: plane t, at t = 1 the ghost below the first plane
+    // first, after the last plane the ghost above it
+    if (t == 1 && wall_lo) {
+      ds_src_x<T, YW, TY, DS_GHOST_LO>(src, XS, 0, y0, ny, nz, tid);
+    } else if (t < nz) {
+      ds_src_x<T, YW, TY, DS_PLANE>(src, XS, t, y0, ny, nz, tid);
+    } else if (wall_hi) {
+      ds_src_x<T, YW, TY, DS_GHOST_HI>(src, XS, nz, y0, ny, nz, tid);
+    }
+    __syncthreads();
+    if (t < nz) stage_f(t);
+    if (t == 0) {
+      __syncthreads();
+      fill_lo();
+    }
+    if (t == nz) fill_hi();
+    T y[NF];
+    if (t == 1 && wall_lo) {
+      // zs = ghost + 2 q(0), then plane 1's x pass
+      ds_src_y<T, TY>(XS, cy, cx, y);
+#pragma unroll
+      for (int q = 0; q < NF; ++q) zs[q] = y[q] + two * zp[q];
+      __syncthreads();
+      ds_src_x<T, YW, TY, DS_PLANE>(src, XS, 1, y0, ny, nz, tid);
+      __syncthreads();
+    }
+    if (t < nz || wall_hi) {
+      ds_src_y<T, TY>(XS, cy, cx, y);
+    } else {
+#pragma unroll
+      for (int q = 0; q < NF; ++q) y[q] = zp[q];   // the copied top plane
+    }
+#pragma unroll
+    for (int q = 0; q < NF; ++q) {
+      if (t == 0) {
+        if (!wall_lo) zs[q] = y[q] + two * y[q];   // the copied first plane
+      } else {
+        fq[q] = ds_mul_rn(q4, zs[q] + y[q]);
+        zs[q] = zp[q] + two * y[q];
+      }
+      zp[q] = y[q];
+    }
+    ds_cp_wait_all();   // plane t+2 has landed, for step t+1
+    __syncthreads();
+    if (t >= 1) stage_c(t - 1, fq);
   }
 }
 
@@ -269,7 +419,8 @@ int launch_dsmag(const T* u, const T* v, const T* w, const T* ue,
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int nblk = ((ny + DS_TY - 1) / DS_TY) * ((nx + DS_TX - 1) / DS_TX);
+  constexpr int TY = DsTy<T>::TY;
+  const int nblk = ((ny + TY - 1) / TY) * ((nx + DS_TX - 1) / DS_TX);
   DsYWalls<T> yw{};
   for (int c = 0; c < 3; ++c) yw.vel[c] = YRows<T>{y[2 * c], y[2 * c + 1]};
   if (ywall) {
@@ -283,7 +434,7 @@ int launch_dsmag(const T* u, const T* v, const T* w, const T* ue,
   const T ohu = wall_hi ? T(2 * zvals[1]) : T(0);
   const T olv = wall_lo ? T(2 * zvals[2]) : T(0);
   const T ohv = wall_hi ? T(2 * zvals[3]) : T(0);
-  kern<<<nblk, DS_NT, smem, static_cast<cudaStream_t>(stream)>>>(
+  kern<<<nblk, DsGeo<TY>::NT, smem, static_cast<cudaStream_t>(stream)>>>(
       u, v, w, ue, ve, we, alph2, dzci, dzfi, s0o, numo, deno, yw, nz, ny, nx,
       wall_lo, wall_hi, T(dxi), T(dyi), olu, ohu, olv, ohv);
   return static_cast<int>(cudaGetLastError());

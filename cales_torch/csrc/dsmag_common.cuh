@@ -2,7 +2,20 @@
 // through rings of planes: dsmag.cu (one pass) and dsmag_level1.cu (the
 // grid level of the two passes).  It holds the tile, the rings' helpers,
 // the 27-point test filter and the ghost recipes of stages A and B, so the
-// recipes exist once (dsmag.cu's header states them):
+// recipes exist once (dsmag.cu's header states them).  The tile is
+// DS_TY x DS_TX by default; DsGeo<TY> gives the sizes of a TY x DS_TX one
+// (dsmag.cu's float32 tile is 16 rows).
+//
+// The test filter comes in two forms with the same rounding: filter27, a
+// centre cell's 27 reads (dsmag_level1.cu), and the separable passes
+// shared across a plane (dsmag.cu), each ds_pass of filter27's
+// q (a + 2 b + c):
+//   ds_vel_x / ds_vel_y  the x and y passes of the velocity's plane, its z
+//               and y ghosts formed before the x pass by fvel's recipes;
+//   ds_src_x / ds_src_y  the x and y passes of the 15 filtered A
+//               quantities, z ghost planes formed before the x pass;
+//   the z pass combines the last three xy-filtered planes.
+// The helpers:
 //   load        the velocity plane kz on the tile + a halo of 2, x wrapped,
 //               y wrapped or with y walls (YW) the rows -1, ny-1 and ny
 //               from the post-correction fill's y-row stacks;
@@ -28,6 +41,14 @@ constexpr int DS_AY = DS_TY + 2, DS_AX = DS_TX + 2;   // A and F, halo 1
 constexpr int DS_VPL = DS_VY * DS_VX, DS_APL = DS_AY * DS_AX;
 constexpr int DS_NA = 16;                      // A quantities
 static_assert(DS_NT == CALES_THREADS, "block_sum assumes CALES_THREADS");
+
+// The sizes of a TY x DS_TX tile (DsGeo<DS_TY>: the constants above).
+template <int TY>
+struct DsGeo {
+  static constexpr int NT = TY * DS_TX;
+  static constexpr int VY = TY + 4, AY = TY + 2;
+  static constexpr int VPL = VY * DS_VX, APL = AY * DS_AX;
+};
 
 __device__ __forceinline__ int ring(int kz) { return (kz + 3) % 3; }
 
@@ -68,18 +89,75 @@ struct DsTile {
   int64_t plane;
 };
 
+// An asynchronous copy of one value from global to shared memory
+// (cp.async; a plain copy where the compiler targets no GPU), its group's
+// commit, and the wait for every group of this thread: the copies are
+// visible to the block after the wait and a barrier.
+template <typename T>
+__device__ __forceinline__ void ds_cp_async(T* dst, const T* src) {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src), "n"(sizeof(T)));
+#else
+  *dst = *src;
+#endif
+}
+__device__ __forceinline__ void ds_cp_commit() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+#endif
+}
+__device__ __forceinline__ void ds_cp_wait_all() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+#endif
+}
+
+// q mod n for q a few n from [0, n): the tile's halo
+__device__ __forceinline__ int wrap_near(int q, int n) {
+  while (q < 0) q += n;
+  while (q >= n) q -= n;
+  return q;
+}
+
 // velocity plane kz (-1 .. nz, ghost rows from the edge stacks) on the
 // tile + halo 2, x wrapped; y wrapped, or with y walls the rows -1, ny-1
-// and ny from the y-row stacks
-template <typename T, bool YW, class VEL>
+// and ny from the y-row stacks.  NEAR (dsmag.cu): a cell's index found
+// once for the three components, wrapped by wrap_near, and its three
+// values copied by ds_cp_async, one group a plane: the caller waits
+// (ds_cp_wait_all) and passes a barrier before the plane is read.
+template <typename T, bool YW, int TY = DS_TY, bool NEAR = false, class VEL>
 __device__ __forceinline__ void ds_load(const VEL& vel, const T* const fld[3],
                                         const T* const edg[3],
                                         const DsYWalls<T>& yw,
                                         const DsTile& g, int kz) {
+  if constexpr (NEAR) {
+    const T* row[3];
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+      row[c] = zrow(fld[c], edg[c], kz, g.nz, g.plane);
+    for (int e = g.tid; e < DsGeo<TY>::VPL; e += DsGeo<TY>::NT) {
+      const int ly = e / DS_VX, lx = e - ly * DS_VX;
+      const int y = g.y0 - 2 + ly, x = wrap_near(g.x0 - 2 + lx, g.nx);
+      if (YW && (y == -1 || y == g.ny - 1 || y == g.ny)) {
+        const int r = y < 0 ? 0 : y - g.ny + 2;
+#pragma unroll
+        for (int c = 0; c < 3; ++c)
+          ds_cp_async(vel(kz, c) + e, yrow(yw.vel[c], kz, r, g.nz, g.nx) + x);
+      } else {
+        const int64_t o = static_cast<int64_t>(wrap_near(y, g.ny)) * g.nx + x;
+#pragma unroll
+        for (int c = 0; c < 3; ++c) ds_cp_async(vel(kz, c) + e, row[c] + o);
+      }
+    }
+    ds_cp_commit();
+    return;
+  }
   for (int c = 0; c < 3; ++c) {
     const T* row = zrow(fld[c], edg[c], kz, g.nz, g.plane);
     T* dst = vel(kz, c);
-    for (int e = g.tid; e < DS_VPL; e += DS_NT) {
+    for (int e = g.tid; e < DsGeo<TY>::VPL; e += DsGeo<TY>::NT) {
       const int ly = e / DS_VX, lx = e - ly * DS_VX;
       const int y = g.y0 - 2 + ly, x = wrap(g.x0 - 2 + lx, g.nx);
       if (YW && (y == -1 || y == g.ny - 1 || y == g.ny)) {
@@ -204,6 +282,119 @@ __device__ __forceinline__ void ds_filtered(const SRC& src, int kc, int ao,
     fq[q] = filter27<T>([&](int dk, int dj, int di) {
       return a_at(q, kc + dk, ao + dj * DS_AX + di);
     });
+}
+
+// ---------------------------------------------------------------------------
+// The test filter shared across the plane (dsmag.cu)
+// ---------------------------------------------------------------------------
+
+// One pass of the separable filter: filter27's q (a + 2 b + c).
+template <typename T>
+__device__ __forceinline__ T ds_pass(T a, T b, T c) {
+  const T q = T(0.25), two = T(2);
+  return q * (a + two * b + c);
+}
+
+// a * b as a product of its own, never contracted into an FMA: the z
+// pass's last product, so that the stages after it fuse their own products
+// as they did with the 27-read filter's values (loads there).
+__device__ __forceinline__ float ds_mul_rn(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ double ds_mul_rn(double a, double b) {
+  return __dmul_rn(a, b);
+}
+
+// The z ghost planes of a pass's input: DS_PLANE the plane kz as it is,
+// DS_GHOST_LO / DS_GHOST_HI the extrapolated ghost 2 q(0) - q(1) below
+// the first plane / 2 q(nz-1) - q(nz-2) above the last.
+enum { DS_PLANE = 0, DS_GHOST_LO = 1, DS_GHOST_HI = 2 };
+
+// The velocity's x pass on plane kz of the velocity ring into xv
+// [3][VY][DS_AX] (rows of the velocity tile, columns of the A tile).  Its
+// input is fvel's: the ghost MODE (u and v only; w's z ghosts are loaded)
+// and, with y walls, u's and w's rows y < 0 and y >= ny extrapolated from
+// the two rows inside, 2 q(0) - q(1), after the z ghost.
+template <typename T, bool YW, int TY, int MODE, class VEL>
+__device__ __forceinline__ void ds_vel_x(const VEL& vel, T* xv, int kz,
+                                         int y0, int ny, int nz, int tid) {
+  using G = DsGeo<TY>;
+  const T two = T(2);
+  for (int e = tid; e < 3 * G::VY * DS_AX; e += G::NT) {
+    const int c = e / (G::VY * DS_AX);
+    const int r = e - c * G::VY * DS_AX;
+    const int vy = r / DS_AX, o = vy * DS_VX + (r - vy * DS_AX);
+    auto zv = [&](int i) -> T {
+      if (MODE == DS_GHOST_LO && c < 2)
+        return two * vel(0, c)[i] - vel(1, c)[i];
+      if (MODE == DS_GHOST_HI && c < 2)
+        return two * vel(nz - 1, c)[i] - vel(nz - 2, c)[i];
+      return vel(kz, c)[i];
+    };
+    // with y walls, u's and w's rows outside: the offset of the row in
+    const int gy = y0 - 2 + vy;
+    const int in = (YW && c != 1) ? (gy < 0 ? DS_VX : gy >= ny ? -DS_VX : 0)
+                                  : 0;
+    if (in == 0) {
+      xv[e] = ds_pass(zv(o), zv(o + 1), zv(o + 2));
+    } else {
+      auto ext = [&](int i) { return two * zv(i + in) - zv(i + 2 * in); };
+      xv[e] = ds_pass(ext(o), ext(o + 1), ext(o + 2));
+    }
+  }
+}
+
+// The velocity's y pass: xv -> plane kz of the xy-filtered ring yv(kz, c)
+// on the A tile.
+template <typename T, int TY, class YV>
+__device__ __forceinline__ void ds_vel_y(const T* xv, const YV& yv, int kz,
+                                         int tid) {
+  using G = DsGeo<TY>;
+  for (int e = tid; e < 3 * G::APL; e += G::NT) {
+    const int c = e / G::APL, o = e - c * G::APL;
+    const T* x = xv + c * G::VY * DS_AX + o;
+    yv(kz, c)[o] = ds_pass(x[0], x[DS_AX], x[2 * DS_AX]);
+  }
+}
+
+// The x pass of the 15 filtered A quantities of plane kz (or a ghost
+// plane, MODE, the a_at of ds_filtered) into xs [15][AY][DS_TX]: a warp a
+// row of 32.  With y walls A's y ghost rows y = -1 and ny are
+// ds_fix_src_y's 2 q(0) - q(1) of each plane, formed before the z ghost.
+template <typename T, bool YW, int TY, int MODE, class SRC>
+__device__ __forceinline__ void ds_src_x(const SRC& src, T* xs, int kz,
+                                         int y0, int ny, int nz, int tid) {
+  using G = DsGeo<TY>;
+  const T two = T(2);
+  const int lane = tid & 31;
+  for (int r = tid >> 5; r < (DS_NA - 1) * G::AY; r += G::NT / 32) {
+    const int q = r / G::AY, ay = r - q * G::AY, o = ay * DS_AX + lane;
+    const int gy = y0 - 1 + ay;
+    const int in = YW ? (gy == -1 ? DS_AX : gy == ny ? -DS_AX : 0) : 0;
+    // plane kp's value at offset i, its y ghost rows filled
+    auto at = [&](int kp, int i) -> T {
+      const T* a = src(kp, q);
+      return in == 0 ? a[i] : two * a[i + in] - a[i + 2 * in];
+    };
+    auto val = [&](int i) -> T {
+      if (MODE == DS_GHOST_LO) return two * at(0, i) - at(1, i);
+      if (MODE == DS_GHOST_HI) return two * at(nz - 1, i) - at(nz - 2, i);
+      return at(kz, i);
+    };
+    xs[r * DS_TX + lane] = ds_pass(val(o), val(o + 1), val(o + 2));
+  }
+}
+
+// The y pass of the 15 quantities at centre cell (cy, cx) from xs.
+template <typename T, int TY>
+__device__ __forceinline__ void ds_src_y(const T* xs, int cy, int cx,
+                                         T (&y)[DS_NA - 1]) {
+  using G = DsGeo<TY>;
+#pragma unroll
+  for (int q = 0; q < DS_NA - 1; ++q) {
+    const T* x = xs + (q * G::AY + cy) * DS_TX + cx;
+    y[q] = ds_pass(x[0], x[DS_TX], x[2 * DS_TX]);
+  }
 }
 
 }  // namespace cales

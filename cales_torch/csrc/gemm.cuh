@@ -1,4 +1,4 @@
-// The GEMM shared by apply_y.cu and apply_x.cu.
+// The GEMM shared by apply_y.cu, apply_x.cu and (float32) z_eig.cu.
 //
 // C[b] = A[b] (M x K) . B[b] (K x N), row-major, batch b = blockIdx.z with
 // element strides sA, sB, sC (0: a shared operand).  Every ragged edge of
@@ -43,6 +43,12 @@
 // place, float4 by float4; every shared-memory load and store of the
 // splits hits 32 distinct banks.  Dynamic shared memory: 225 KB, one block
 // an SM.
+//
+// The epilogue is a template parameter (Epi): EpiStore, the default, stores
+// C as the products left it (apply_y, apply_x); z_eig.cu's scales each
+// element by its row's and column's inverse eigenvalue on the way out.
+// Epi::col(n) does a column's share, Epi(col, m, x) gives the value stored
+// at (m, n); neither is called past an edge.
 //
 // float64: the SIMT FMA body (gemm_kernel): a 128x128 tile of C with 256
 // threads, an 8x8 register tile each, from 128x8 / 8x128 tiles of A and B
@@ -179,6 +185,20 @@ static_assert(TM == 128 && TN == 128 && TK == 32,
 // free), PROD (the producer warps alone); 0 is __syncthreads
 constexpr int BAR_RAW = 1, BAR_FULL = 3, BAR_EMPTY = 7, BAR_PROD = 9;
 
+// The default epilogue: C as the products left it.  by_column: the
+// epilogue walks C by columns, each column's share found once (an
+// epilogue whose col() costs more than a store).
+struct EpiStore {
+  static constexpr bool by_column = false;
+  static constexpr bool k_step_sums = false;   // see the consumers' loop
+  struct Col {};
+  __device__ __forceinline__ Col col(int) const { return {}; }
+  __device__ __forceinline__ float operator()(const Col&, int,
+                                              float x) const {
+    return x;
+  }
+};
+
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -276,13 +296,13 @@ __device__ __forceinline__ void fence_regs(float (&d)[64]) {
 // the tile and all 128 columns; lane (g, t) = (lane / 4, lane % 4) of its
 // warp q holds rows 16q + g and 16q + g + 8, columns 8j + 2t and 8j + 2t
 // + 1 (d[4j .. 4j+3]).  vecA / vecB: the operand takes 16-byte copies;
-// vecC: C takes 8-byte stores.
-template <bool KCH>
+// vecC: C takes 8-byte stores; epi: the epilogue (EpiStore above).
+template <bool KCH, class Epi = EpiStore>
 __global__ void __launch_bounds__(TCONS + TPROD, 1) gemm_tf32x3_kernel(
     const float* __restrict__ A, const float* __restrict__ B,
     float* __restrict__ C, int M, int N, int K, int lda, int ldb, int ldc,
     int64_t sA, int64_t sB, int64_t sC, int kch, int64_t sAk, int vecA,
-    int vecB, int vecC) {
+    int vecB, int vecC, Epi epi) {
   extern __shared__ __align__(16) float smem_raw[];
   float* const smem =
       smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023) / 4;
@@ -449,6 +469,31 @@ __global__ void __launch_bounds__(TCONS + TPROD, 1) gemm_tf32x3_kernel(
     const uint32_t set = smem_u32(smem + 4 * TTILE * b);
     const uint32_t abig = set + 64 * 128 * wg, asml = abig + 4 * TTILE;
     const uint32_t bbig = set + 8 * TTILE, bsml = bbig + 4 * TTILE;
+    if constexpr (Epi::k_step_sums) {
+      // each k step's three products (small.big, big.small, big.big) into
+      // part, zeroed by the first, and part into the sum by a
+      // round-to-nearest add: one truncated sum a step of 8, where a tile
+      // truncates four sums at the scale of its big products
+#pragma unroll
+      for (int kb = 0; kb < TKB; ++kb) {
+        fence_regs(part);
+        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+        wgmma_tf32(part, sw128_desc(asml + 32 * kb),
+                   sw128_desc(bbig + 32 * kb), 0);
+        wgmma_tf32(part, sw128_desc(abig + 32 * kb),
+                   sw128_desc(bsml + 32 * kb), 1);
+        wgmma_tf32(part, sw128_desc(abig + 32 * kb),
+                   sw128_desc(bbig + 32 * kb), 1);
+        asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+        if (kb == 0 && kt + 1 < ktiles) split_a(kt + 1);
+        asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+        fence_regs(part);
+#pragma unroll
+        for (int q = 0; q < 64; ++q) acc[q] += part[q];
+      }
+      if (kt + 2 < ktiles) bar_arrive(BAR_EMPTY + b, TCONS + TPROD);
+      continue;
+    }
     fence_regs(part);
     asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
@@ -474,30 +519,60 @@ __global__ void __launch_bounds__(TCONS + TPROD, 1) gemm_tf32x3_kernel(
   }
 
   const int wrow = 16 * warp;   // 64 wg + 16 (warp % 4)
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int m = m0 + wrow + g + 8 * h;
-    if (m >= M) continue;
-    float* crow = C + static_cast<int64_t>(m) * ldc;
+  if constexpr (Epi::by_column) {
+    // a column's share of the epilogue once for both its rows
 #pragma unroll
     for (int j = 0; j < 16; ++j) {
       const int n = n0 + 8 * j + 2 * t;
-      const float x = acc[4 * j + 2 * h], y = acc[4 * j + 2 * h + 1];
-      if (vecC && n + 1 < N) {
-        *reinterpret_cast<float2*>(crow + n) = make_float2(x, y);
-      } else {
-        if (n < N) crow[n] = x;
-        if (n + 1 < N) crow[n + 1] = y;
+      if (n >= N) continue;
+      const typename Epi::Col c0 = epi.col(n);
+      const typename Epi::Col c1 = n + 1 < N ? epi.col(n + 1) : c0;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + wrow + g + 8 * h;
+        if (m >= M) continue;
+        float* crow = C + static_cast<int64_t>(m) * ldc;
+        const float x = epi(c0, m, acc[4 * j + 2 * h]);
+        if (n + 1 < N) {
+          const float y = epi(c1, m, acc[4 * j + 2 * h + 1]);
+          if (vecC) {
+            *reinterpret_cast<float2*>(crow + n) = make_float2(x, y);
+          } else {
+            crow[n] = x;
+            crow[n + 1] = y;
+          }
+        } else {
+          crow[n] = x;
+        }
+      }
+    }
+  } else {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + wrow + g + 8 * h;
+      if (m >= M) continue;
+      float* crow = C + static_cast<int64_t>(m) * ldc;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int n = n0 + 8 * j + 2 * t;
+        const float x = acc[4 * j + 2 * h], y = acc[4 * j + 2 * h + 1];
+        if (vecC && n + 1 < N) {
+          *reinterpret_cast<float2*>(crow + n) = make_float2(
+              epi(epi.col(n), m, x), epi(epi.col(n + 1), m, y));
+        } else {
+          if (n < N) crow[n] = epi(epi.col(n), m, x);
+          if (n + 1 < N) crow[n + 1] = epi(epi.col(n + 1), m, y);
+        }
       }
     }
   }
 }
 
-template <bool KCH>
+template <bool KCH, class Epi = EpiStore>
 int launch_tf32x3(const float* A, const float* B, float* C, int M, int N,
                   int K, int lda, int ldb, int ldc, int64_t sA, int64_t sB,
                   int64_t sC, dim3 grid, cudaStream_t stream, int kch,
-                  int64_t sAk) {
+                  int64_t sAk, Epi epi = Epi()) {
   auto aligned = [](const void* p, uintptr_t bytes) {
     return reinterpret_cast<uintptr_t>(p) % bytes == 0;
   };
@@ -508,12 +583,12 @@ int launch_tf32x3(const float* A, const float* B, float* C, int M, int N,
   if (M < 1 || N < 1 || K < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t rc = cudaFuncSetAttribute(
-      gemm_tf32x3_kernel<KCH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      TSMEM);
+      gemm_tf32x3_kernel<KCH, Epi>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, TSMEM);
   if (rc != cudaSuccess) return static_cast<int>(rc);
-  gemm_tf32x3_kernel<KCH><<<grid, TCONS + TPROD, TSMEM, stream>>>(
+  gemm_tf32x3_kernel<KCH, Epi><<<grid, TCONS + TPROD, TSMEM, stream>>>(
       A, B, C, M, N, K, lda, ldb, ldc, sA, sB, sC, kch, sAk, vecA, vecB,
-      vecC);
+      vecC, epi);
   return static_cast<int>(cudaGetLastError());
 }
 

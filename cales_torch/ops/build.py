@@ -46,7 +46,7 @@ _SIGNATURES = {
     'cales_correc': [_P] * 17 + [_I] * 6 + [_D] * 4 + [_P],
     'cales_apply_y': [_P] * 5 + [_I] * 3 + [_P],
     'cales_apply_x': [_P] * 3 + [_I] * 4 + [_P],
-    'cales_z_eig': [_P] * 7 + [_I] * 3 + [_D] + [_P],
+    'cales_z_eig': [_P] * 8 + [_I] * 3 + [_D] + [_P],
     'cales_thomas_z': [_P] * 11 + [_I] * 5 + [_D, _I, _D] + [_P],
     'cales_thomas_periodic': [_P] * 9 + [_I] * 4 + [_D, _I, _D] + [_P],
     'cales_smag': [_P] * 20 + [_I] * 4 + [_D] * 3 + [_P],

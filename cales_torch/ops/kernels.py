@@ -672,7 +672,9 @@ def smag(u, v, w, ue, ve, we, dzci, dzfi, dxi, dyi, visc, csd2, dw, nearlo,
     return out
 
 
-# (y, x) tile of one dsmag block (csrc/dsmag.cu DS_TY, DS_TX)
+# (y, x) cells of one partial sum of dsmag's 'channel' and 'duct' outputs
+# (csrc/dsmag.cu DS_SUM_TY, DS_TX): a block of the kernel's taller float32
+# tile writes one per 8-row group, so the partial sums keep their layout
 DSMAG_TILE = (8, 32)
 
 

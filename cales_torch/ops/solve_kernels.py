@@ -214,8 +214,10 @@ def z_eig(arr, Vl, Vr, lamz, lamy, lamx, tol):
                      (lamy, (ny,)), (lamx, (nx,))):
         _shape('z_eig', t, shape)
     out = torch.empty_like(arr)
+    # float32: the scaled hat between the two tensor-core products
+    hat = torch.empty_like(arr) if arr.dtype == torch.float32 else None
     _launch('z_eig', f'cales_z_eig_{_suffix(arr)}',
-            *map(_ptr, (arr, out, Vl, Vr, lamz, lamy, lamx)),
+            *map(_ptr, (arr, out, hat, Vl, Vr, lamz, lamy, lamx)),
             ctypes.c_int(nz), ctypes.c_int(ny), ctypes.c_int(nx),
             ctypes.c_double(tol), counts=LAUNCHES)
     return out

@@ -47,9 +47,11 @@ STAGES = (
     ('fillps', ('fillps_kernel',)),
     ('correc_smag', ('correc_smag_kernel',)),
     ('correc_updatep', ('cales::correc_kernel',)),
+    # z_eig's float32 products are gemm.cuh's with its ZEig epilogues, so
+    # it is matched first
+    ('solve: z_eig', ('z_eig_kernel', 'ZEig')),
     # gemm.cuh: the float32 tensor-core body and the float64 SIMT one
     ('solve: apply_y', ('gemm_tf32x3_kernel<', 'gemm_kernel<')),
-    ('solve: z_eig', ('z_eig_kernel',)),
     ('thomas_z', ('thomas_z_kernel',)),
     ('thomas_periodic', ('thomas_periodic_kernel',)),
     ('smag', ('cales::smag_kernel',)),

@@ -498,8 +498,8 @@ RELATIVE = ('apply_y', 'z_eig', 'thomas_z', 'dsmag', 'thomas_periodic',
 # the kernels whose float32 error is held against their float64 twin in
 # phase 2b; for the GEMM kernels (3xTF32) it must stay within 4x the error
 # of their float32 twin, the library matmul, against the same float64 twin
-F64_TWIN = ('dsmag_level1', 'dsmag_level2', 'apply_y', 'apply_x')
-GEMM_KERNELS = ('apply_y', 'apply_x')
+F64_TWIN = ('dsmag_level1', 'dsmag_level2', 'apply_y', 'apply_x', 'z_eig')
+GEMM_KERNELS = ('apply_y', 'apply_x', 'z_eig')
 # the full-3D CN solves' alpha in the kernel inputs
 ALPHA = -0.043
 # (interior fields read, fields written, floating-point operations a cell)

@@ -789,6 +789,98 @@ def test_cuda_f32_gemm_on_tensor_cores(dev, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('shape', [(24, 13, 42), (40, 10, 37), (200, 11, 30)])
+def test_cuda_z_eig_on_tensor_cores(dev, shape):
+    """z_eig (csrc/z_eig.cu: float32 as two 3xTF32 products of gemm.cuh,
+    the first leaving through the inverse-eigenvalue epilogue; float64 the
+    SIMT body) on the channel's own z operators and spectra, at (nz, ny,
+    nx) shapes whose nz and ny nx fit no tile (37 x 10: no 16-byte copies
+    or 8-byte stores), the singular lane (0, 0) zeroed at the solver's own
+    bound.  float32: within 1e-5 of the output's maximum of the float32
+    twin, and against the float64 twin on the same float32 data no worse
+    than 4x the float32 twin's own error against it (the twin is two
+    library matmuls in full fp32); float64 within 1e-13 of its twin."""
+    from cales_torch import poisson
+    nz, ny, nx = shape
+    cfg = Config(ng=(nx, ny, nz), l=(2 * np.pi, np.pi, 2.0), gtype=1,
+                 gr=1.0, ptransform='mat')
+    sv = poisson.make_solver(cfg, make_grid_from_config(cfg),
+                             ('PP', 'PP', 'NN'), ('c', 'c', 'c'))
+    tol = poisson._eig_tol(sv, sv.lamx)
+    # one singular mode, in lane (0, 0)
+    lam = sv.lamz[:, None, None] + (sv.lamy[:, None] + sv.lamx[None, :])[None]
+    zeroed = np.argwhere(np.abs(lam) <= tol)
+    assert zeroed.shape[0] == 1 and tuple(zeroed[0, 1:]) == (0, 0), zeroed
+    x = np.random.default_rng(24).standard_normal(shape)
+
+    def args(dtype):
+        return tuple(torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                                     device=dev)
+                     for a in (x, sv.zVl, sv.zVr, sv.lamz, sv.lamy, sv.lamx))
+    SK.reset_launches()
+    a64 = args(torch.float64)
+    _rel_close(SK.z_eig(*a64, tol), SK.z_eig_plain(*a64, tol), 1e-13)
+    a32 = args(torch.float32)
+    got, ref = SK.z_eig(*a32, tol), SK.z_eig_plain(*a32, tol)
+    r64 = SK.z_eig_plain(*(q.double() for q in a32), tol)
+    _rel_close(got, ref, 1e-5)
+    scale = float(r64.abs().max())
+    err = float((got.double() - r64).abs().max()) / scale
+    lib = float((ref.double() - r64).abs().max()) / scale
+    assert err <= 4.0 * lib, (err, lib)
+    torch.cuda.synchronize()
+    assert SK.LAUNCHES == {'apply_y': 0, 'apply_x': 0, 'z_eig': 2,
+                           'thomas_z': 0, 'thomas_periodic': 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('ywall', [False, True])
+@pytest.mark.parametrize('dtype, shape', [
+    ('float64', (40, 25, 9)), ('float64', (36, 37, 6)),
+    ('float32', (40, 33, 9)), ('float32', (36, 37, 6))])
+def test_cuda_dsmag_ragged_tiles(dev, ywall, dtype, shape):
+    """The one-pass dsmag (its test filter shared across the plane, a
+    tile of 16 rows in float32 and 8 in float64) against its twin, all
+    three averages, on (nx, ny, nz) shapes whose nx is no multiple of 32
+    and whose ny is no multiple of the tile's rows, with a tile that holds
+    only the y rewrite row's neighbours (ny = 25 in float64, 33 in
+    float32), with y walls and without.  float64 in the tolerances of the
+    tests above (|S| or nu_t and the per-row sums 1e-12 of their maximum),
+    float32 within 1e-5 of the output's maximum, as chip_smoke.py holds
+    its kernels to their float32 twins."""
+    nx, ny, nz = shape
+    dt = getattr(torch, dtype)
+    tol = 1e-12 if dt == torch.float64 else 1e-5
+
+    def c(q):
+        return q.to(dt).contiguous()
+    if ywall:
+        d = _ywall_inputs(dev, shape, 13)
+        edges, dkw = d['zc'], dict(ye=[tuple(map(c, p)) for p in d['yc']],
+                                   yvals=(0.2, 0.0, -0.1, 0.3))
+    else:
+        d = _sgs_inputs(dev, shape, 14)
+        edges, dkw = d['edges'], {}
+    a2 = np.full(nz, 4.0)
+    a2[0] = a2[-1] = 2.52
+    ds = (*map(c, d['fields']), *map(c, edges),
+          c(torch.as_tensor(a2, device=dev)), c(d['dzci']), c(d['dzfi']),
+          d['dxi'], d['dyi'], True, True, (0.0, 0.4, 0.0, -0.3))
+    K.reset_launches()
+    for avg in ('channel', 'duct', 'cavity'):
+        s0, num, den = K.dsmag(*ds, avg=avg, **dkw)
+        s0r, numr, denr = K.dsmag_plain(*ds, avg=avg, **dkw)
+        _rel_close(s0, s0r, tol)
+        if avg != 'cavity':
+            _rel_close(num.sum(-1), numr[..., 0], tol)
+            _rel_close(den.sum(-1), denr[..., 0], tol)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == {'mom_rk': 0, 'fillps': 0, 'correc_smag': 0,
+                          'correc_updatep': 0, 'smag': 0, 'dsmag': 3,
+                          'dsmag_level1': 0, 'dsmag_level2': 0}
+
+
+@pytest.mark.cuda
 def test_cuda_halo_kernels_match_twins_on_card(dev):
     """The slab (halo) variants of mom_rk, fillps, correc_updatep and smag
     against their twins on random halo rows and corners, f64 within

@@ -18,7 +18,12 @@ Here:
     wide, the y operator 256), the emulated 3xTF32 product within 2x of the
     float32 matmul's error against float64, and one TF32 product at least
     100x worse: why the card's bound on the kernel against its float64 twin
-    is what it is, and why one TF32 product stays barred.
+    is what it is, and why one TF32 product stays barred;
+  * the z stage of the eigen solve (z_eig's float32 body: two such
+    products with the inverse eigenvalues between them, the singular mode
+    zeroed) on the port's own z operators, nz = 256, of the DNS channel's
+    grid and of the dynamic-Smagorinsky channel's (gr = 5): the same two
+    bounds.
 Errors are max |C - C64| / max |C64|, C64 the float64 product of the same
 float32 inputs."""
 import numpy as np
@@ -171,4 +176,68 @@ def test_tf32x3_product_keeps_fp32_accuracy(products, op):
 @pytest.mark.parametrize('op', ['x', 'y'])
 def test_one_tf32_product_is_far_worse(products, op):
     e = products[op]
+    assert e['tf32'] >= 100.0 * e['fp32'], e
+
+
+# the z grids of chip_smoke.py's DNS_CFG and DSMAG_CFG, at their full x and
+# y widths (the spectra lamx, lamy) and nz = 256
+Z_GRIDS = {'dns': dict(l=(2 * np.pi, np.pi, 2.0), gr=1.0),
+           'dsmag': dict(l=(12.8, 4.8, 2.0), gr=5.0)}
+
+
+def z_stage(vl, vr, lam, x, tol, matmul):
+    """Vr (inv * (Vl x)) with the products by matmul, inv = 1 / lam and 0
+    where |lam| <= tol, in lam's precision (z_eig's ZEigScale)."""
+    hat = matmul(vl, x)
+    inv = np.where(np.abs(lam) > tol, 1 / lam, 0).astype(lam.dtype)
+    return matmul(vr, (hat * inv).astype(hat.dtype))
+
+
+@pytest.fixture(scope='module')
+def z_products():
+    """The z stage by the float32 matmul, the emulated 3xTF32 and one TF32
+    product, each with its error against float64 on the same float32
+    inputs, on 1024 columns (y, x) of each grid, lane (0, 0) among them."""
+    out = {}
+    for name, kw in Z_GRIDS.items():
+        cfg = Config(ng=(512, 256, 256), gtype=1, ptransform='mat', **kw)
+        sv = poisson.make_solver(cfg, make_grid_from_config(cfg),
+                                 ('PP', 'PP', 'NN'), ('c', 'c', 'c'))
+        rng = np.random.default_rng(20261018)
+        j = np.concatenate([[0, 0, 1], rng.integers(0, 256, 1021)])
+        i = np.concatenate([[0, 1, 0], rng.integers(0, 512, 1021)])
+        f32 = np.float32
+        vl, vr = (np.ascontiguousarray(q, dtype=f32) for q in (sv.zVl, sv.zVr))
+        # inv as the kernel forms it: lamy[j] + lamx[i] first, in float32
+        lxy = sv.lamy.astype(f32)[j] + sv.lamx.astype(f32)[i]
+        lam = sv.lamz.astype(f32)[:, None] + lxy[None, :]
+        tol = f32(poisson._eig_tol(sv, sv.lamx))
+        x = rng.standard_normal((256, j.size)).astype(f32)
+        lam64 = (sv.lamz.astype(f32).astype(np.float64)[:, None]
+                 + (sv.lamy.astype(f32).astype(np.float64)[j]
+                    + sv.lamx.astype(f32).astype(np.float64)[i])[None, :])
+        ref = z_stage(vl.astype(np.float64), vr.astype(np.float64), lam64,
+                      x.astype(np.float64), tol, np.matmul)
+        # one mode zeroed, in lane (0, 0), in both precisions
+        for q in (lam, lam64):
+            zeroed = np.argwhere(np.abs(q) <= tol)
+            assert zeroed.shape[0] == 1 and zeroed[0, 1] == 0, zeroed
+        out[name] = dict(
+            fp32=rel_err(z_stage(vl, vr, lam, x, tol, np.matmul), ref),
+            tf32x3=rel_err(z_stage(vl, vr, lam, x, tol, tf32x3_matmul), ref),
+            tf32=rel_err(z_stage(vl, vr, lam, x, tol,
+                                 lambda a, b: tf32_rna(a) @ tf32_rna(b)),
+                         ref))
+    return out
+
+
+@pytest.mark.parametrize('grid', sorted(Z_GRIDS))
+def test_tf32x3_z_stage_keeps_fp32_accuracy(z_products, grid):
+    e = z_products[grid]
+    assert e['tf32x3'] <= 2.0 * e['fp32'], e
+
+
+@pytest.mark.parametrize('grid', sorted(Z_GRIDS))
+def test_one_tf32_product_z_stage_is_far_worse(z_products, grid):
+    e = z_products[grid]
     assert e['tf32'] >= 100.0 * e['fp32'], e
