@@ -1,11 +1,11 @@
 """Kernels of another checkout against this one's, on the same card in one
 process: are their outputs bitwise equal (or how far apart), and how long
-does each take?  The kernels whose code moved: the one-pass dsmag (its
-test filter shared across the plane, dsmag_common.cuh's separable
-passes), z_eig (float32 through gemm.cuh's tensor-core GEMM with its
-epilogue), apply_y and apply_x (their GEMM in gemm.cuh, float32 on the
-tensor cores as 3xTF32), dsmag_level1 and dsmag_level2 (beside dsmag's
-shared stages), and the periodic and y-walled variants of mom_rk, fillps,
+does each take?  The kernels whose code moved: dsmag_level1 (on the one-
+pass dsmag's test filter, shared across the plane: dsmag_common.cuh's
+separable passes), correc_smag (a z-march over corrected planes in shared
+memory), the one-pass dsmag and dsmag_level2 (beside those shared stages),
+z_eig, apply_y and apply_x (their float32 GEMM in gemm.cuh, 3xTF32 on the
+tensor cores), and the periodic and y-walled variants of mom_rk, fillps,
 correc_updatep and smag (their y reads through common.cuh's y mode,
 beside the slab's halo mode).
 
@@ -24,7 +24,9 @@ with them ('duct' for dsmag_level2); apply_y with the x operator fused and
 y only; apply_x on a slab of half the y rows
 (plain, its output split in two x-column blocks, its input read from two
 such blocks); mom_rk (with nu_t, the previous RHS and the bulk sums),
-fillps and correc_updatep periodic and with y walls; smag; and, in float32
+fillps and correc_updatep periodic and with y walls; smag; correc_smag
+with z walls and the deferred forcing, by the 'D' recipes on both faces
+and by mixed 'N' and 'D' ones ('correc_smag N'); and, in float32
 only, apply_y with the x operator at ng = (512, 512, 512).  Outputs are
 compared in float64 at (nx, ny, nz) = (72, 40, 48) and in float32 at --ng
 (bitwise, and max|this - baseline| / max|baseline|, the worst output);
@@ -52,7 +54,8 @@ CASES = ('channel', 'duct', 'cavity', 'z_eig', 'dsmag_level1',
          'apply_y x+y', 'apply_y y',
          'apply_x', 'apply_x split', 'apply_x chunked', 'apply_y x+y 512^3',
          'mom_rk', 'mom_rk y walls', 'fillps', 'fillps y walls',
-         'correc_updatep', 'correc_updatep y walls', 'smag')
+         'correc_updatep', 'correc_updatep y walls', 'smag', 'correc_smag',
+         'correc_smag N')
 # the cases at their own shape, in float32 only
 BIG = {'apply_y x+y 512^3': (512, 512, 512)}
 
@@ -108,8 +111,10 @@ def _inputs(ng, dtype, seed):
     slab = f[0][:, :max(ny // 2, 1)].contiguous()
     blocks = slab.reshape(nz, slab.shape[1], 2, nx // 2).permute(
         2, 0, 1, 3).contiguous()
+    fuv = torch.tensor([0.05, -0.02], dtype=dtype, device='cuda')
     return dict(f=f, e=e, ye=ye, alph2=alph2, dz=dz, ny_op=ny_op,
-                nx_op=nx_op, prof=prof, nearlo=nearlo, tauw=tauw, slab=slab,
+                nx_op=nx_op, prof=prof, nearlo=nearlo, tauw=tauw, fuv=fuv,
+                slab=slab,
                 blocks=blocks, vz=vz, lam=lam,
                 ds2=rnd(13, nz, ny, nx))
 
@@ -164,6 +169,15 @@ def _call(mods, d, case):
     if case == 'smag':
         return (Km.smag(*f[:3], *e[:3], dz, dz, 40.0, 20.0, 5e-5, d['prof'],
                         d['prof'], d['nearlo'], *d['tauw']),)
+    if case.startswith('correc_smag'):
+        # the z ghosts' recipes: 'D' on both faces of u and v (no-slip
+        # walls), or 'N' and 'D' mixed, with spacings dr that round
+        zrec = ((('D', 0.0, 0.07, 'D', 0.0, 0.09),) * 2 if case ==
+                'correc_smag' else (('N', 0.3, 0.07, 'N', -0.2, 0.09),
+                                    ('D', 0.1, 0.07, 'N', 0.05, 0.09)))
+        return Km.correc_smag(*f[:5], *e[:4], 0.01, 40.0, 20.0, dz, dz,
+                              5e-5, d['prof'], zrec, d['fuv'], d['prof'],
+                              d['nearlo'], *d['tauw'])
     return Km.dsmag(*f[:3], *e[:3], d['alph2'], dz, dz, 40.0, 20.0, True,
                     True, (0.0, 0.02, 0.0, -0.01),
                     ye=None if case == 'channel' else ye[:3],

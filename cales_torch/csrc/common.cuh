@@ -162,6 +162,39 @@ __device__ __forceinline__ T aty(const T* f, const T* e, const YRows<T>& y,
   return at(f, e, c, dk, dj, di);
 }
 
+// An asynchronous copy of one value from global to shared memory
+// (cp.async; a plain copy where the compiler targets no GPU), its group's
+// commit, and the wait until at most N of this thread's groups are in
+// flight: the copies are visible to the block after the wait and a barrier.
+template <typename T>
+__device__ __forceinline__ void cp_async(T* dst, const T* src) {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src), "n"(sizeof(T)));
+#else
+  *dst = *src;
+#endif
+}
+__device__ __forceinline__ void cp_async_commit() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+#endif
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+#endif
+}
+
+// q mod n for q a few n from [0, n): a tile's halo
+__device__ __forceinline__ int wrap_near(int q, int n) {
+  while (q < 0) q += n;
+  while (q >= n) q -= n;
+  return q;
+}
+
 __device__ __forceinline__ float cexp(float x) { return expf(x); }
 __device__ __forceinline__ double cexp(double x) { return exp(x); }
 __device__ __forceinline__ float csqrt(float x) { return sqrtf(x); }
@@ -183,7 +216,7 @@ __device__ __forceinline__ double cfma(double a, double b, double c) {
 // dzci_m = dzci(k-1), dzfi_c = dzfi(k) in the ghost-inclusive metric
 // arrays.  Returns |S| = sqrt(2 S_ij S_ij); sij, when given, receives
 // (S11, S22, S33, S12, S13, S23).  Shared by correc_smag.cu, smag.cu and
-// dsmag.cu.
+// the dsmag kernels.
 template <typename T, class FU, class FV, class FW>
 __device__ __forceinline__ T strain_rate(const FU& U, const FV& V,
                                          const FW& W, T dxi, T dyi,

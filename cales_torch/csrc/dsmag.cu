@@ -56,18 +56,18 @@
 // registers, the sums or nu_t, and |S|.  Three barriers a plane (the
 // 'channel' sum adds one), where the 27-read filter took three and its
 // block sums four.
-// Each output keeps filter27's arithmetic: x, then y, then z, each pass
-// q (a + 2 b + c), the z and y ghost planes and rows of A and of the
-// velocity formed before the x pass by the recipes above (a ghost plane
-// is one more x and y pass, at the first and last plane), and the z
+// Each output keeps the 27-read filter's arithmetic: x, then y, then z,
+// each pass q (a + 2 b + c), the z and y ghost planes and rows of A and
+// of the velocity formed before the x pass by the recipes above (a ghost
+// plane is one more x and y pass, at the first and last plane), and the z
 // pass's last product kept out of the FMAs of stage C (ds_mul_rn), so
 // |S|, nu_t and every summand are bitwise those of the 27-read filter.
 // 'channel' keeps its partial sums' grouping too: a float32 block writes
 // one sum per 8 tile rows (DS_SUM_TY), summed as block_sum sums a block
 // of 8 warps.
 // With y walls (template switch YW) the velocity's rows -1, ny-1 and ny
-// load from the y-row stacks; A's y ghost rows (ds_fix_src_y's recipe)
-// are formed in A's x pass and F's fill in F's z pass, row by row, so an
+// load from the y-row stacks; A's y ghost rows (2 q_0 - q_1 of A) are
+// formed in A's x pass and F's fill in F's z pass, row by row, so an
 // edge tile takes no pass or barrier of its own.
 // The load, stage A and the passes are dsmag_common.cuh's.
 // Nothing but |S| (or nu_t) and the partial sums goes to global memory.  x
@@ -100,12 +100,6 @@ namespace cales {
 static_assert(DS_TX == 32, "'duct' sums a tile row as one warp");
 enum { DS_CHANNEL = 0, DS_DUCT = 1, DS_CAVITY = 2 };
 constexpr int DS_SUM_TY = 8;   // tile rows of one 'channel' partial sum
-
-// The tile rows of the one-pass kernel: 16 in float32, 8 in float64.
-template <typename T>
-struct DsTy {
-  static constexpr int TY = sizeof(T) == 4 ? 16 : 8;
-};
 
 // Shared memory, in words: V, A (15 quantities on two planes, |S| on
 // three), XS, XV, YV, F.
@@ -171,7 +165,7 @@ __global__ void __launch_bounds__(DsGeo<DsTy<T>::TY>::NT, 1) dsmag_kernel(
 
   const DsTile g{x0, y0, nz, ny, nx, tid, plane};
   auto load = [&](int kz) {
-    ds_load<T, YW, TY, true>(vel, fld, edg, ywall, g, kz);
+    ds_load<T, YW, TY>(vel, fld, edg, ywall, g, kz);
   };
   // the velocity's x and y passes of plane kz (a z ghost by mode)
   auto vel_x = [&](int kz, int mode) {
@@ -325,7 +319,7 @@ __global__ void __launch_bounds__(DsGeo<DsTy<T>::TY>::NT, 1) dsmag_kernel(
   load(-1);
   load(0);
   load(1);
-  ds_cp_wait_all();
+  cp_async_wait<0>();
   __syncthreads();
   vel_x(-1, wall_lo ? DS_GHOST_LO : DS_PLANE);
   __syncthreads();
@@ -384,7 +378,7 @@ __global__ void __launch_bounds__(DsGeo<DsTy<T>::TY>::NT, 1) dsmag_kernel(
       }
       zp[q] = y[q];
     }
-    ds_cp_wait_all();   // plane t+2 has landed, for step t+1
+    cp_async_wait<0>();   // plane t+2 has landed, for step t+1
     __syncthreads();
     if (t >= 1) stage_c(t - 1, fq);
   }

@@ -1,6 +1,6 @@
 // Dynamic Smagorinsky, the grid level of the two passes (DS1).
 //
-// Replaces: cales_tpu/ops/pallas_dsmag.py fused_dsmag_level1 (body
+// Replaces: cales_tpu/ops/pallas_dsmag.py:537 fused_dsmag_level1 (body
 // _ds1_kernel) on the single-device path.  From the post-correction fill
 // (interiors + z-edge stacks, with y walls the y-row stacks) it writes 16
 // fields, the intermediates of the test level (dsmag_level2.cu):
@@ -15,114 +15,215 @@
 // dsmag_level1_plain.  The fields are stored in the compute dtype (the TPU
 // kernel's bf16 store of fm and lij is not carried over).
 //
-// Design: dsmag.cu's stages A and B on the same tile and rings
-// (dsmag_common.cuh): a block owns an 8 x 32 (y, x) tile and marches z; at
-// step t it loads velocity plane t+1, forms A at plane t on the tile + a
-// halo of 1 and the filtered velocity at plane t on the centre cells
-// (written out at once: no ring, nothing reads it again here), then at
-// plane t-1 filters the 15 A quantities and writes fm, lij and s0.  With y
+// Design: dsmag.cu's z-march without its stage C, on the same tile, rings
+// and stages (dsmag_common.cuh).  A block owns a TY x 32 (y, x) tile (TY =
+// 16 in float32, 8 in float64) and marches z, one plane a step, with the
+// test filter's x and y passes shared across the plane:
+//   V   the velocity (3) on the tile + a halo of 2, a ring of 4 planes:
+//       plane t+2 is copied in by cp.async while t-1 .. t+1 are read;
+//   A   the 16 source quantities on the tile + a halo of 1, planes t-1 and
+//       t (|S| is read at the centre, the 15 others are filtered);
+//   XS  their x pass, one plane; the y pass goes to registers, one centre
+//       cell a thread, and the z pass combines there: a thread keeps the
+//       xy-filtered value of plane t-1 and the partial sum q(t-2) +
+//       2 q(t-1) of each quantity;
+//   XV, YV  the velocity's x pass (one plane) and its xy-filtered ring (3
+//       planes), whose z pass at the centre is the filtered velocity.
+// At step t the block starts the copy of velocity plane t+2, forms A at
+// plane t and the velocity's x pass of plane t+1; then (one barrier) its y
+// pass and A's x pass of plane t; then (one barrier, the copy waited for)
+// each thread writes its centre cell's filtered velocity and |S| at plane
+// t, and A's y and z passes give fm and lij at plane t-1.  Two barriers a
+// plane; nothing is read after the second that the next step's first half
+// writes (A's ring alternates planes, XS and YV are written after the next
+// step's first barrier).
+// Each output keeps the arithmetic of the first kernel's 27-read filter:
+// x, then y, then z, each pass q (a + 2 b + c), the z and y ghost planes
+// and rows of A and of the velocity formed before the x pass, and the z
+// pass's last product kept out of the FMAs after it (ds_mul_rn), so that
+// lij's filt(uc_i) filt(uc_j) fuses into its difference as before.  With y
 // walls (template switch YW) the velocity's rows -1, ny-1 and ny load from
-// the y-row stacks and A's y ghost rows are extrapolated after stage A.
-// Shared memory: (9 * 12 * 36 + 48 * 10 * 34) words = 80,832 bytes in f32,
-// 161,664 in f64.
+// the y-row stacks, and A's and the filtered velocity's y ghost rows are
+// formed in the x passes, so an edge tile takes no pass or barrier of its
+// own.  x wraps when a plane is loaded, and so does y without y walls; a
+// ragged tile's outside cells are computed on wrapped data and not stored.
+// Shared memory: V 4 x 3 VY x 36, A 2 x 16 AY x 34, XS 15 AY x 32, XV
+// 3 VY x 34, YV 9 AY x 34 words: 177,648 bytes in f32 (TY 16), 201,184 in
+// f64 (TY 8); one block (16 or 8 warps) an SM.
 //
 // Bound on the H100: bytes.  It reads u, v, w and writes 16 fields: 19
 // field streams, 2.55 GB at 512x256x256 f32, 0.761 ms at 3.35 TB/s.  The
 // function needs about 326 operations a cell (the strain rate's 110 and 18
 // filtered quantities at 12 each with the separable passes shared across
-// the plane), 0.163 ms at 67 TFLOP/s f32.  This kernel filters each A
-// quantity with 27 shared-memory reads per centre cell, as dsmag.cu does,
-// and recomputes A on each tile's halo; that arithmetic, not the stores,
-// decides its time.
+// the plane), 0.163 ms at 67 TFLOP/s f32.  This kernel does stage A on the
+// halo too (1.2x the cells in f32) and spends shared-memory traffic and
+// latency with one block an SM, as dsmag.cu does.
 #include "dsmag_common.cuh"
 
 namespace cales {
 
+// Shared memory, in words: V, A, XS, XV, YV.
 template <typename T>
 constexpr size_t dsmag_level1_smem_bytes() {
-  return sizeof(T) * (9 * DS_VPL + 3 * DS_NA * DS_APL);
+  using G = DsGeo<DsTy<T>::TY>;
+  return sizeof(T) *
+         (12 * G::VPL + 2 * DS_NA * G::APL + (DS_NA - 1) * G::AY * DS_TX +
+          3 * G::VY * DS_AX + 9 * G::APL);
 }
 
 template <typename T, bool YW>
-__global__ void __launch_bounds__(DS_NT) dsmag_level1_kernel(
-    const T* __restrict__ u, const T* __restrict__ v, const T* __restrict__ w,
-    const T* __restrict__ ue, const T* __restrict__ ve,
-    const T* __restrict__ we, const T* __restrict__ dzci,
-    const T* __restrict__ dzfi, T* __restrict__ out, DsYWalls<T> yw, int nz,
-    int ny, int nx, int wall_lo, int wall_hi, T dxi, T dyi) {
+__global__ void __launch_bounds__(DsGeo<DsTy<T>::TY>::NT, 1)
+    dsmag_level1_kernel(const T* __restrict__ u, const T* __restrict__ v,
+                        const T* __restrict__ w, const T* __restrict__ ue,
+                        const T* __restrict__ ve, const T* __restrict__ we,
+                        const T* __restrict__ dzci,
+                        const T* __restrict__ dzfi, T* __restrict__ out,
+                        DsYWalls<T> yw, int nz, int ny, int nx, int wall_lo,
+                        int wall_hi, T dxi, T dyi) {
+  constexpr int TY = DsTy<T>::TY;
+  using G = DsGeo<TY>;
+  constexpr int NT = G::NT, APL = G::APL, NF = DS_NA - 1;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* const Vs = reinterpret_cast<T*>(smem_raw);   // [3 planes][3][VPL]
-  T* const As = Vs + 9 * DS_VPL;                   // [3 planes][16][APL]
+  T* const Vs = reinterpret_cast<T*>(smem_raw);   // [4 planes][3][VPL]
+  T* const As = Vs + 12 * G::VPL;                  // [2 planes][16][APL]
+  T* const XS = As + 2 * DS_NA * APL;              // [15][AY][TX]
+  T* const XV = XS + NF * G::AY * DS_TX;           // [3][VY][AX]
+  T* const YV = XV + 3 * G::VY * DS_AX;            // [3 planes][3][APL]
   const int gx = (nx + DS_TX - 1) / DS_TX;
   const int x0 = (blockIdx.x % gx) * DS_TX;
-  const int y0 = (blockIdx.x / gx) * DS_TY;
+  const int y0 = (blockIdx.x / gx) * TY;
   const int tid = threadIdx.x;
   const int64_t plane = static_cast<int64_t>(ny) * nx;
   const int64_t nall = nz * plane;     // one output field
-  const T* const fld[3] = {u, v, w};
-  const T* const edg[3] = {ue, ve, we};
+  // the fields' pointers and the y-wall inputs, read from shared memory
+  // where they are used rather than held in registers
+  __shared__ const T* fld[3];
+  __shared__ const T* edg[3];
+  __shared__ DsYWalls<T> ywall;
+  if (tid == 0) {
+    fld[0] = u, fld[1] = v, fld[2] = w;
+    edg[0] = ue, edg[1] = ve, edg[2] = we;
+    ywall = yw;
+  }
+  __syncthreads();
+  const T q4 = T(0.25), two = T(2);
 
-  auto vel = [&](int kz, int c) { return Vs + (ring(kz) * 3 + c) * DS_VPL; };
-  auto src = [&](int kz, int q) {
-    return As + (ring(kz) * DS_NA + q) * DS_APL;
+  auto vel = [&](int kz, int c) {
+    return Vs + (((kz + 4) & 3) * 3 + c) * G::VPL;
   };
+  auto src = [&](int kz, int q) { return As + ((kz & 1) * DS_NA + q) * APL; };
+  auto yvel = [&](int kz, int c) { return YV + (ring(kz) * 3 + c) * APL; };
+
   const DsTile g{x0, y0, nz, ny, nx, tid, plane};
+  auto load = [&](int kz) { ds_load<T, YW, TY>(vel, fld, edg, ywall, g, kz); };
+  // the velocity's x and y passes of plane kz (a z ghost by mode)
+  auto vel_x = [&](int kz, int mode) {
+    if (mode == DS_GHOST_LO)
+      ds_vel_x<T, YW, TY, DS_GHOST_LO>(vel, XV, kz, y0, ny, nz, tid);
+    else if (mode == DS_GHOST_HI)
+      ds_vel_x<T, YW, TY, DS_GHOST_HI>(vel, XV, kz, y0, ny, nz, tid);
+    else
+      ds_vel_x<T, YW, TY, DS_PLANE>(vel, XV, kz, y0, ny, nz, tid);
+  };
+  auto vel_y = [&](int kz) { ds_vel_y<T, TY>(XV, yvel, kz, tid); };
 
-  // this thread's centre cell
-  const int cy = tid / DS_TX, cx = tid - cy * DS_TX;
-  const int ao = (cy + 1) * DS_AX + cx + 1;
-  const int vc = (cy + 2) * DS_VX + cx + 2;
-  const int yc = y0 + cy;
-  const bool inside = yc < ny && x0 + cx < nx;
-  const int64_t cell = static_cast<int64_t>(yc) * nx + x0 + cx;
-
-  // stage A at plane t on the tile + halo 1, the filtered velocity at the
-  // centre
+  // stage A at plane t on the tile + halo 1; the cells past the first NT
+  // go to the last warps, which load the fewest velocity cells
   auto stage_a = [&](int t) {
     const T dzci_c = dzci[t + 1], dzci_m = dzci[t], dzfi_c = dzfi[t + 1];
-    for (int e = tid; e < DS_APL; e += DS_NT) {
+    for (int e = NT - 1 - tid; e < APL; e += NT) {
       const int ay = e / DS_AX, ax = e - ay * DS_AX;
       const int vo = (ay + 1) * DS_VX + ax + 1;
       ds_source<T>(vel, src, t, e, vo, dxi, dyi, dzci_c, dzci_m, dzfi_c);
     }
-    if (inside) {
-      const bool ext_lo = wall_lo && t == 0, ext_hi = wall_hi && t == nz - 1;
-#pragma unroll
-      for (int c = 0; c < 3; ++c)
-        out[(6 + c) * nall + t * plane + cell] =
-            ds_fvel<T, YW>(vel, t, c, vc, yc, ny, ext_lo, ext_hi);
-    }
-    if (YW && (y0 == 0 || y0 >= ny - DS_TY - 1)) {
-      __syncthreads();
-      ds_fix_src_y<T>(src, t, y0, ny, tid);
-    }
   };
 
-  // stage B at the centre of plane kc: fm, lij and s0
-  auto stage_b = [&](int kc) {
-    if (!inside) return;
-    T fq[DS_NA - 1];
-    ds_filtered<T>(src, kc, ao, nz, wall_lo, wall_hi, fq);
-    const int64_t oc = kc * plane + cell;
-    const int pa[6] = {6, 7, 8, 6, 6, 7}, pb[6] = {6, 7, 8, 7, 8, 8};
-#pragma unroll
-    for (int q = 0; q < 6; ++q) {
-      out[q * nall + oc] = fq[q];
-      out[(9 + q) * nall + oc] = fq[9 + q] - fq[pa[q]] * fq[pb[q]];
-    }
-    out[15 * nall + oc] = src(kc, 15)[ao];
-  };
+  // this thread's centre cell
+  const int cy = tid / DS_TX, cx = tid - cy * DS_TX;
+  const int ao = (cy + 1) * DS_AX + cx + 1;
+  const int yc = y0 + cy;
+  const bool inside = yc < ny && x0 + cx < nx;
+  const int64_t cell = static_cast<int64_t>(yc) * nx + x0 + cx;
 
-  auto load = [&](int kz) { ds_load<T, YW>(vel, fld, edg, yw, g, kz); };
+  // the z pass in registers: zp the xy-filtered plane t-1, zs the partial
+  // sum q(t-2) + 2 q(t-1), of each of the 15 quantities
+  T zp[NF], zs[NF], fq[NF];
   load(-1);
   load(0);
+  load(1);
+  cp_async_wait<0>();
+  __syncthreads();
+  vel_x(-1, wall_lo ? DS_GHOST_LO : DS_PLANE);
+  __syncthreads();
+  vel_y(-1);
+  __syncthreads();
+  vel_x(0, DS_PLANE);
+  __syncthreads();
+  vel_y(0);
+  __syncthreads();
   for (int t = 0; t <= nz; ++t) {
-    __syncthreads();            // the previous step's readers are done
-    if (t + 1 <= nz) load(t + 1);
-    __syncthreads();
+    if (t + 2 <= nz) load(t + 2);
     if (t < nz) stage_a(t);
+    if (t + 1 <= nz)
+      vel_x(t + 1, wall_hi && t + 1 == nz ? DS_GHOST_HI : DS_PLANE);
     __syncthreads();
-    if (t >= 1) stage_b(t - 1);
+    if (t + 1 <= nz) vel_y(t + 1);
+    // A's x pass: plane t, at t = 1 the ghost below the first plane
+    // first, after the last plane the ghost above it
+    if (t == 1 && wall_lo) {
+      ds_src_x<T, YW, TY, DS_GHOST_LO>(src, XS, 0, y0, ny, nz, tid);
+    } else if (t < nz) {
+      ds_src_x<T, YW, TY, DS_PLANE>(src, XS, t, y0, ny, nz, tid);
+    } else if (wall_hi) {
+      ds_src_x<T, YW, TY, DS_GHOST_HI>(src, XS, nz, y0, ny, nz, tid);
+    }
+    cp_async_wait<0>();   // plane t+2 has landed, for step t+1
+    __syncthreads();
+    // the filtered velocity (the z pass of YV) and |S| at plane t
+    if (t < nz && inside) {
+      const int64_t oc = t * plane + cell;
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+        out[(6 + c) * nall + oc] = ds_pass(
+            yvel(t - 1, c)[ao], yvel(t, c)[ao], yvel(t + 1, c)[ao]);
+      out[15 * nall + oc] = src(t, NF)[ao];
+    }
+    T y[NF];
+    if (t == 1 && wall_lo) {
+      // zs = ghost + 2 q(0), then plane 1's x pass
+      ds_src_y<T, TY>(XS, cy, cx, y);
+#pragma unroll
+      for (int q = 0; q < NF; ++q) zs[q] = y[q] + two * zp[q];
+      __syncthreads();
+      ds_src_x<T, YW, TY, DS_PLANE>(src, XS, 1, y0, ny, nz, tid);
+      __syncthreads();
+    }
+    if (t < nz || wall_hi) {
+      ds_src_y<T, TY>(XS, cy, cx, y);
+    } else {
+#pragma unroll
+      for (int q = 0; q < NF; ++q) y[q] = zp[q];   // the copied top plane
+    }
+#pragma unroll
+    for (int q = 0; q < NF; ++q) {
+      if (t == 0) {
+        if (!wall_lo) zs[q] = y[q] + two * y[q];   // the copied first plane
+      } else {
+        fq[q] = ds_mul_rn(q4, zs[q] + y[q]);
+        zs[q] = zp[q] + two * y[q];
+      }
+      zp[q] = y[q];
+    }
+    // fm and lij at plane t-1
+    if (t >= 1 && inside) {
+      const int64_t oc = (t - 1) * plane + cell;
+      const int pa[6] = {6, 7, 8, 6, 6, 7}, pb[6] = {6, 7, 8, 7, 8, 8};
+#pragma unroll
+      for (int q = 0; q < 6; ++q) {
+        out[q * nall + oc] = fq[q];
+        out[(9 + q) * nall + oc] = fq[9 + q] - fq[pa[q]] * fq[pb[q]];
+      }
+    }
   }
 }
 
@@ -148,10 +249,11 @@ int launch_dsmag_level1(const T* u, const T* v, const T* w, const T* ue,
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int nblk = ((ny + DS_TY - 1) / DS_TY) * ((nx + DS_TX - 1) / DS_TX);
+  constexpr int TY = DsTy<T>::TY;
+  const int nblk = ((ny + TY - 1) / TY) * ((nx + DS_TX - 1) / DS_TX);
   DsYWalls<T> yw{};
   for (int c = 0; c < 3; ++c) yw.vel[c] = YRows<T>{y[2 * c], y[2 * c + 1]};
-  kern<<<nblk, DS_NT, smem, static_cast<cudaStream_t>(stream)>>>(
+  kern<<<nblk, DsGeo<TY>::NT, smem, static_cast<cudaStream_t>(stream)>>>(
       u, v, w, ue, ve, we, dzci, dzfi, out, yw, nz, ny, nx, wall_lo, wall_hi,
       T(dxi), T(dyi));
   return static_cast<int>(cudaGetLastError());

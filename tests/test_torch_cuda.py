@@ -881,6 +881,102 @@ def test_cuda_dsmag_ragged_tiles(dev, ywall, dtype, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('dtype, shape', [
+    ('float64', (40, 25, 2)), ('float64', (36, 37, 3)),
+    ('float64', (33, 17, 17)), ('float32', (40, 33, 2)),
+    ('float32', (36, 37, 3)), ('float32', (33, 17, 17))])
+def test_cuda_correc_smag_ragged_tiles(dev, dtype, shape):
+    """correc_smag (a z-march over corrected planes in shared memory, a
+    tile of 16 rows in float32 and 8 in float64) against its twin on
+    (nx, ny, nz) shapes whose nx is no multiple of 32 and whose ny is no
+    multiple of the tile's rows, with nz = 2, 3 and 17: both z-ghost recipe
+    sets of the first test ('D' on both faces; 'N' and 'D' mixed), with and
+    without z walls.  float64 within 1e-12 as there, float32 within 1e-5
+    of each output's maximum, as chip_smoke.py holds its kernels to their
+    float32 twins."""
+    nx, ny, nz = shape
+    dt = getattr(torch, dtype)
+    cfg = Config(ng=shape, l=(2 * np.pi, np.pi, 2.0), gtype=1, gr=1.0,
+                 visci=1000.0, dtype='float64')
+    grid = make_grid_from_config(cfg)
+    rng = np.random.default_rng(10)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, dtype=np.float64),
+                               device=dev).to(dt)
+    F = lambda: t(0.05 * rng.standard_normal((nz, ny, nx)))   # noqa: E731
+    E = lambda: t(0.05 * rng.standard_normal((3, ny, nx)))    # noqa: E731
+    u, v, w, pp, p = (F() for _ in range(5))
+    ue, ve, we, ppe = (E() for _ in range(4))
+    tauw = [t(np.abs(rng.standard_normal((ny, nx)))) for _ in range(2)]
+    dz01 = (float(grid.dzc[0]), float(grid.dzc[nz]))
+    zc = grid.zc[1:nz + 1]
+    K.reset_launches()
+    for zrec in ((('D', 0.0, dz01[0], 'D', 0.0, dz01[1]),) * 2,
+                 (('N', 0.3, dz01[0], 'N', -0.2, dz01[1]),
+                  ('D', 0.1, dz01[0], 'N', 0.05, dz01[1]))):
+        cs = (u, v, w, pp, p, ue, ve, we, ppe, 3.7e-3, cfg.dli[0],
+              cfg.dli[1], t(grid.dzci), t(grid.dzfi), cfg.visc,
+              t(np.full(nz, 1e-4)), zrec, t([0.05, -0.02]),
+              t(np.minimum(zc, 2.0 - zc)), t((zc <= 1.0).astype(float)),
+              *tauw)
+        for zwalls in (True, False):
+            got = K.correc_smag(*cs, have_zwalls=zwalls)
+            ref = K.correc_smag_plain(*cs, have_zwalls=zwalls)
+            for g, r in zip(got, ref):
+                if dt == torch.float64:
+                    torch.testing.assert_close(g, r, rtol=0, atol=1e-12)
+                else:
+                    _rel_close(g, r, 1e-5)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == {'mom_rk': 0, 'fillps': 0, 'correc_smag': 4,
+                          'correc_updatep': 0, 'smag': 0, 'dsmag': 0,
+                          'dsmag_level1': 0, 'dsmag_level2': 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('ywall', [False, True])
+@pytest.mark.parametrize('dtype, shape', [
+    ('float64', (40, 25, 9)), ('float64', (36, 37, 2)),
+    ('float32', (40, 33, 9)), ('float32', (36, 37, 3))])
+def test_cuda_dsmag_level1_ragged_tiles(dev, ywall, dtype, shape):
+    """dsmag_level1 (dsmag's z-march and shared test filter, a tile of 16
+    rows in float32 and 8 in float64) against its twin on (nx, ny, nz)
+    shapes whose nx is no multiple of 32 and whose ny is no multiple of the
+    tile's rows, with a tile that holds only the y rewrite row's neighbours
+    (ny = 25 in float64, 33 in float32), nz down to 2, with y walls and
+    without, and with z walls on both faces, one or none (A's and the
+    filtered velocity's z ghosts extrapolated or copied).  All 16 fields,
+    float64 within 1e-12 of each field's maximum as the two-pass test
+    above, float32 within 1e-5."""
+    nx, ny, nz = shape
+    dt = getattr(torch, dtype)
+    tol = 1e-12 if dt == torch.float64 else 1e-5
+
+    def c(q):
+        return q.to(dt).contiguous()
+    if ywall:
+        d = _ywall_inputs(dev, shape, 13)
+        edges, ye = d['zc'], [tuple(map(c, q)) for q in d['yc']]
+    else:
+        d = _sgs_inputs(dev, shape, 14)
+        edges, ye = d['edges'], None
+    l1 = (*map(c, d['fields']), *map(c, edges), c(d['dzci']), c(d['dzfi']),
+          d['dxi'], d['dyi'])
+    K.reset_launches()
+    for walls in ((True, True), (True, False), (False, False)):
+        got = K.dsmag_level1(*l1, *walls, ye=ye)
+        ref = K.dsmag_level1_plain(*l1, *walls, ye=ye)
+        for g, r in zip((*got[0], *got[1], *got[2], got[3]),
+                        (*ref[0], *ref[1], *ref[2], ref[3])):
+            _rel_close(g, r, tol)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == {'mom_rk': 0, 'fillps': 0, 'correc_smag': 0,
+                          'correc_updatep': 0, 'smag': 0, 'dsmag': 0,
+                          'dsmag_level1': 3, 'dsmag_level2': 0}
+
+
+@pytest.mark.cuda
 def test_cuda_halo_kernels_match_twins_on_card(dev):
     """The slab (halo) variants of mom_rk, fillps, correc_updatep and smag
     against their twins on random halo rows and corners, f64 within
