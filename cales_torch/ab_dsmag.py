@@ -1,11 +1,13 @@
 """Kernels of another checkout against this one's, on the same card in one
 process: are their outputs bitwise equal (or how far apart), and how long
-does each take?  The kernels whose code moved: dsmag_level1 (on the one-
-pass dsmag's test filter, shared across the plane: dsmag_common.cuh's
+does each take?  The kernels whose code moved: mom_rk (a z-march through
+shared memory, its y modes filled as a plane is loaded) and
+thomas_periodic (a column a warp in shared memory), dsmag_level1 (on the
+one-pass dsmag's test filter, shared across the plane: dsmag_common.cuh's
 separable passes), correc_smag (a z-march over corrected planes in shared
 memory), the one-pass dsmag and dsmag_level2 (beside those shared stages),
 z_eig, apply_y and apply_x (their float32 GEMM in gemm.cuh, 3xTF32 on the
-tensor cores), and the periodic and y-walled variants of mom_rk, fillps,
+tensor cores), and the periodic and y-walled variants of fillps,
 correc_updatep and smag (their y reads through common.cuh's y mode,
 beside the slab's halo mode).
 
@@ -23,13 +25,20 @@ lamz[0]; dsmag_level1, and dsmag_level2 'channel', without y walls and
 with them ('duct' for dsmag_level2); apply_y with the x operator fused and
 y only; apply_x on a slab of half the y rows
 (plain, its output split in two x-column blocks, its input read from two
-such blocks); mom_rk (with nu_t, the previous RHS and the bulk sums),
-fillps and correc_updatep periodic and with y walls; smag; correc_smag
+such blocks); mom_rk (with nu_t, the previous RHS and the bulk sums)
+periodic, with y walls, on a slab with random halos, and with the
+splits '1d' and 'xy+z'; thomas_periodic on the uniform periodic
+second difference, pinned on the singular lane and with the alpha-scaled
+Helmholtz rows; fillps and correc_updatep periodic and with y walls;
+smag; correc_smag
 with z walls and the deferred forcing, by the 'D' recipes on both faces
 and by mixed 'N' and 'D' ones ('correc_smag N'); and, in float32
-only, apply_y with the x operator at ng = (512, 512, 512).  Outputs are
-compared in float64 at (nx, ny, nz) = (72, 40, 48) and in float32 at --ng
-(bitwise, and max|this - baseline| / max|baseline|, the worst output);
+only, at ng = (512, 512, 512): apply_y with the x operator, mom_rk
+without nu_t (the Taylor-Green vortex's) and thomas_periodic pinned.
+Outputs are compared in float64 at (nx, ny, nz) = (72, 40, 48) and in
+float32 at --ng (bitwise, and max|this - baseline| / max|baseline|, the
+worst output); mom_rk's partial sums, whose parts differ (blocks of 256
+cells, tiles of 8 x 32), as per-plane totals apart ('sums_rel');
 times are float32 at --ng, the mean of --reps calls after a warm-up (CUDA
 events), taken in the order baseline, this, this, baseline.  Prints one
 JSON line.  Needs a CUDA device.
@@ -53,11 +62,16 @@ CASES = ('channel', 'duct', 'cavity', 'z_eig', 'dsmag_level1',
          'dsmag_level1 y walls', 'dsmag_level2', 'dsmag_level2 y walls',
          'apply_y x+y', 'apply_y y',
          'apply_x', 'apply_x split', 'apply_x chunked', 'apply_y x+y 512^3',
-         'mom_rk', 'mom_rk y walls', 'fillps', 'fillps y walls',
-         'correc_updatep', 'correc_updatep y walls', 'smag', 'correc_smag',
-         'correc_smag N')
+         'mom_rk', 'mom_rk y walls', 'mom_rk halo', 'mom_rk 1d',
+         'mom_rk xy+z', 'mom_rk 512^3', 'thomas_periodic',
+         'thomas_periodic helmholtz', 'thomas_periodic 512^3', 'fillps',
+         'fillps y walls', 'correc_updatep', 'correc_updatep y walls',
+         'smag', 'correc_smag', 'correc_smag N')
 # the cases at their own shape, in float32 only
-BIG = {'apply_y x+y 512^3': (512, 512, 512)}
+BIG = {'apply_y x+y 512^3': (512, 512, 512), 'mom_rk 512^3': (512, 512, 512),
+       'thomas_periodic 512^3': (512, 512, 512)}
+# the cases whose last two outputs are partial sums, compared as totals
+SUMS = ('mom_rk',)
 
 
 def _baseline(root: Path):
@@ -112,23 +126,52 @@ def _inputs(ng, dtype, seed):
     blocks = slab.reshape(nz, slab.shape[1], 2, nx // 2).permute(
         2, 0, 1, 3).contiguous()
     fuv = torch.tensor([0.05, -0.02], dtype=dtype, device='cuda')
-    return dict(f=f, e=e, ye=ye, alph2=alph2, dz=dz, ny_op=ny_op,
+    yh = [(rnd(nz, 2, nx), rnd(3, 2, nx)) for _ in range(5)]
+    return dict(f=f, e=e, ye=ye, yh=yh, alph2=alph2, dz=dz, ny_op=ny_op,
                 nx_op=nx_op, prof=prof, nearlo=nearlo, tauw=tauw, fuv=fuv,
                 slab=slab,
-                blocks=blocks, vz=vz, lam=lam,
+                blocks=blocks, vz=vz, lam=lam, tri=_tri_inputs(ng, dtype),
                 ds2=rnd(13, nz, ny, nx))
 
 
-def _big_inputs(ng, dtype, seed):
-    """apply_y's field and operators alone at ng."""
+def _tri_inputs(ng, dtype):
+    """The periodic second difference on a uniform grid of 2 pi: rows a,
+    b, c (float64) along z, the eigenvalues along y and x (lane (0, 0)
+    singular) and the pin's tolerance."""
+    nx, ny, nz = ng
+    h = (2 * torch.pi / nz) ** -2
+    abc = tuple(torch.full((nz,), q * h, dtype=torch.float64, device='cuda')
+                for q in (1.0, -2.0, 1.0))
+
+    def eig(n):
+        k = torch.arange(n, dtype=torch.float64, device='cuda')
+        return -(2.0 - 2.0 * torch.cos(2 * torch.pi * k / n)) * (
+            n / (2 * torch.pi)) ** 2
+    lamy, lamx = eig(ny), eig(nx)
+    tol = float(torch.finfo(dtype).eps * 4.0 * float(lamx.abs().max()
+                                                     + lamy.abs().max()))
+    return dict(abc=abc, lamy=lamy.to(dtype), lamx=lamx.to(dtype), tol=tol)
+
+
+def _big_inputs(ng, dtype, seed, case):
+    """What the case takes at ng: apply_y's field and operators, mom_rk's
+    fields, edge stacks and spacings, or thomas_periodic's field and
+    rows."""
     nx, ny, nz = ng
     gen = torch.Generator(device='cuda').manual_seed(seed)
-    f = [0.02 * torch.randn((nz, ny, nx), generator=gen, device='cuda',
-                            dtype=dtype)]
-    return dict(f=f, ny_op=0.1 * torch.randn((ny, ny), generator=gen,
-                                             device='cuda', dtype=dtype),
-                nx_op=0.1 * torch.randn((nx, nx), generator=gen,
-                                        device='cuda', dtype=dtype))
+
+    def rnd(*shape, scale=0.02):
+        return scale * torch.randn(shape, generator=gen, device='cuda',
+                                   dtype=dtype)
+    if case.startswith('mom_rk'):
+        return dict(f=[rnd(nz, ny, nx) for _ in range(8)],
+                    e=[rnd(3, ny, nx) for _ in range(5)],
+                    dz=1.0 + 0.1 * torch.rand(nz + 2, generator=gen,
+                                              device='cuda', dtype=dtype))
+    if case.startswith('thomas_periodic'):
+        return dict(f=[rnd(nz, ny, nx)], tri=_tri_inputs(ng, dtype))
+    return dict(f=[rnd(nz, ny, nx)], ny_op=rnd(ny, ny, scale=0.1),
+                nx_op=rnd(nx, nx, scale=0.1))
 
 
 def _call(mods, d, case):
@@ -142,7 +185,16 @@ def _call(mods, d, case):
                             split=2 if case == 'apply_x split' else 1),)
     if case == 'z_eig':
         return (SKm.z_eig(d['f'][0], *d['vz'], *d['lam'], 1e-9),)
-    f, e, ye, dz = d['f'], d['e'], d['ye'], d['dz']
+    if case.startswith('thomas_periodic'):
+        t = d['tri']
+        if case == 'thomas_periodic helmholtz':
+            kw = dict(lamy=t['lamy'] * -0.043, lamx=t['lamx'] * -0.043,
+                      alpha=-0.043)
+        else:
+            kw = dict(lamy=t['lamy'], lamx=t['lamx'], pin=True,
+                      tol=t['tol'])
+        return (SKm.thomas_periodic_z(d['f'][0], *t['abc'], **kw),)
+    f, e, ye, dz = d['f'], d['e'], d.get('ye'), d['dz']
     walls = case.endswith('y walls')
     if case.startswith('dsmag_level1'):
         fm, fvel, lij, s0 = Km.dsmag_level1(
@@ -156,9 +208,17 @@ def _call(mods, d, case):
                                avg='duct' if walls else 'channel',
                                ye=ye[:3] if walls else None)
     if case.startswith('mom_rk'):
-        return Km.mom_rk(*f[:5], *e, *f[5:8], dz, dz, 0.01, -0.005, 5e-5,
-                         40.0, 20.0, (0.1, 0.0, 0.0), sums=(True, True),
-                         ye=ye if walls else None)
+        # 512^3: the Taylor-Green vortex's, no nu_t and explicit
+        big = case == 'mom_rk 512^3'
+        s, se = (None, None) if big else (f[3], e[3])
+        out = Km.mom_rk(f[0], f[1], f[2], s, f[4], e[0], e[1], e[2], se,
+                        e[4], *f[5:8], dz, dz, 0.01, -0.005, 5e-5, 40.0,
+                        20.0, (0.1, 0.0, 0.0), sums=(True, True),
+                        split={'mom_rk 1d': '1d',
+                               'mom_rk xy+z': 'xy+z'}.get(case),
+                        ye=ye if walls else None,
+                        yh=d['yh'] if case == 'mom_rk halo' else None)
+        return (*out[:6], out[6].sum(dim=1), out[7].sum(dim=1))
     if case.startswith('fillps'):
         return (Km.fillps(*f[:3], *e[:3], dz, 100.0, 40.0, 20.0,
                           yv=ye[1] if walls else None),)
@@ -182,6 +242,13 @@ def _call(mods, d, case):
                     True, (0.0, 0.02, 0.0, -0.01),
                     ye=None if case == 'channel' else ye[:3],
                     yvals=(0.2, 0.0, -0.1, 0.3), avg=case)
+
+
+def _rel(res):
+    """The worst max|this - baseline| / max|baseline| over the outputs."""
+    return max(float((a.double() - b.double()).abs().max()
+                     / b.double().abs().max().clamp_min(1e-300))
+               for a, b in zip(res['this'], res['baseline']))
 
 
 def _time_ms(fn, reps):
@@ -218,18 +285,20 @@ def main(argv=None):
         for case in CASES:
             if case in BIG and dtype == torch.float64:
                 continue
-            dc = _big_inputs(BIG[case], dtype, 20261017) if case in BIG else d
+            dc = (_big_inputs(BIG[case], dtype, 20261017, case)
+                  if case in BIG else d)
             res = {name: [q for q in _call(m, dc, case) if q is not None]
                    for name, m in mods.items()}
+            key = f'{case} {str(dtype)[6:]}'
+            if case.split()[0] in SUMS:
+                sums = {name: r[-2:] for name, r in res.items()}
+                res = {name: r[:-2] for name, r in res.items()}
+                out.setdefault('sums_rel', {})[key] = _rel(sums)
             same = len(res['baseline']) == len(res['this']) and all(
                 torch.equal(a, b)
                 for a, b in zip(res['baseline'], res['this']))
-            key = f'{case} {str(dtype)[6:]}'
             out['bitwise'][key] = same
-            out['rel'][key] = max(
-                float((a.double() - b.double()).abs().max()
-                      / b.double().abs().max().clamp_min(1e-300))
-                for a, b in zip(res['this'], res['baseline']))
+            out['rel'][key] = _rel(res)
             if dtype == torch.float32:
                 times = {name: [] for name in mods}
                 for name in ('baseline', 'this', 'this', 'baseline'):

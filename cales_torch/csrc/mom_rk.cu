@@ -2,7 +2,7 @@
 //
 // Replaces: cales_tpu/ops/pallas_kernels.py fused_mom_rk (body _mom_kernel)
 // on the single-device periodic-x/y path: previous-RHS reads skipped on the
-// first substep (ruo == nullptr, f2 == 0), per-(z, block) partial sums of
+// first substep (ruo == nullptr, f2 == 0), per-(z, tile) partial sums of
 // the new u and v for the bulk forcing, and three template switches:
 //   SGS    eddy-stress terms from visct (with_sgs); false for sgstype
 //          'none', where s and se are null and never read;
@@ -27,14 +27,37 @@
 // Bound on the H100: memory.  About 14 field streams per call (read u, v,
 // w, visct, p and ru_o, rv_o, rw_o; write u, v, w, ru, rv, rw): 1.9 GB at
 // 512x256x256 f32, a 0.56 ms floor at the data sheet's 3.35 TB/s; 13
-// without visct.  Measured 1.449 ms per call there with visct (NVIDIA H100
-// 80GB HBM3, 700 W; chip_smoke.py phase 2b).  The stencil reads each field
-// at up to 13 neighbours; this simple design takes them straight from
-// global memory (read-only path, __ldg) and relies on L1/L2 to turn the
-// neighbour reuse into hits.  Tiling the z-march through shared memory is
-// later work.  The y-walled and halo variants send only the rows next to a
-// wall or a slab edge through the stacks (common.cuh y_edge_of); their
-// times are in PERF.md §6.
+// without visct.  The stencil reads u, v, w and visct at up to 13
+// neighbours on three z planes and p on two.
+//
+// Design: a z-march through shared memory, as correc_smag.cu's.  A block
+// owns a TY x 32 (y, x) tile (TY = MomTy: 8 rows, 256 threads, in float32
+// and float64) and marches z, one plane a step, with a ring of 5 planes of
+// u, v, w, p (and visct) on the tile + a halo of 1 in shared memory,
+// filled by cp.async three planes ahead: at step k it copies plane k+3
+// into the slot of plane k-2, computes plane k from planes k-1, k and k+1
+// and waits for plane k+2; one barrier a plane.  A plane is loaded as
+// zrow reads it (z ghost planes -1 and nz and the rewrite row nz-1 from
+// the edge stacks), x and y wrapped; with y walls or on a slab the tile's
+// rows -1, ny-1 (walls) and ny come from the y-row stacks or the halos as
+// the plane is loaded (common.cuh at<true> and aty<Y_HALO>), so the
+// stencil has one code path for all three y modes.  A thread's cells of
+// the halo tile, their wrapped offsets and their source (the field or its
+// stack) are the same at every step: it finds them once.  The pointwise
+// streams (ru_o, rv_o, rw_o and the six outputs) go straight between the
+// thread and device memory, a warp a row of 32 cells.  The arithmetic of
+// a cell is the same expressions in the same order (ptxas may fuse other
+// mul/add pairs than in a thread-a-cell kernel).  The partial sums
+// are per (z, tile): each warp's sum (a shuffle tree) goes to shared
+// memory before the plane's barrier, and warp 0 (u) and warp 1 (v) add
+// the warps' sums of that plane after it, in warp order.
+// Shared memory: 5 planes x 5 fields x 10 x 34 values, 34,000 bytes in
+// float32 with visct (27,200 without), 68,000 in float64; 58-64
+// registers in float32 with visct (four blocks an SM), 40-58 without.
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (cales_torch.ab_dsmag,
+// f32): 0.88 ms at 512x256x256 with visct (1.43 for a thread a cell
+// reading device memory), 0.93 with y walls, 3.35 ms at 512^3 without
+// visct (bound 2.08).  A tile of 16 rows was no faster.
 #include "common.cuh"
 
 namespace cales {
@@ -68,35 +91,149 @@ __device__ __forceinline__ void split_rhs(T adv, T dxy, T dz, T& r, T& rd) {
   }
 }
 
-#define CALES_MOM_RK_ARGS                                                     \
-  u, v, w, s, p, ue, ve, we, se, pe, ruo, rvo, rwo, dzci, dzfi, uo, vo, wo,  \
-      ruo_new, rvo_new, rwo_new, usum, vsum, yu, yv, yw, ys, yp, nz, ny, nx,  \
-      f1, f2, visc, dxi, dyi, bfx, bfy, bfz
+
+// The tile rows: 8 in float32 and float64 (256 threads a block).
+template <typename T>
+struct MomTy {
+  static constexpr int TY = 8;
+};
+
+constexpr int MR_TX = 32;           // the tile's columns
+constexpr int MR_CX = MR_TX + 2;    // with a halo of 1
+constexpr int MR_RING = 5;          // planes in the ring
+
+template <int TY>
+struct MrGeo {
+  static constexpr int NT = TY * MR_TX;
+  static constexpr int NW = NT / 32;
+  static constexpr int CPL = (TY + 2) * MR_CX;   // one field, one plane
+};
+
+// the ring's words, and then the warps' partial sums of two planes
+template <typename T, int NF>
+constexpr size_t mr_smem() {
+  using G = MrGeo<MomTy<T>::TY>;
+  return sizeof(T) * (MR_RING * NF * G::CPL + 4 * G::NW);
+}
+
+inline int mr_blocks(int ny, int nx, int ty) {
+  return ((ny + ty - 1) / ty) * ((nx + MR_TX - 1) / MR_TX);
+}
+
+// Row r (0, 1, 2) of plane kz's y-row stack (walls) or row r (0, 1) of its
+// halo (a slab), at column 0.
+template <int YM, typename T>
+__device__ __forceinline__ const T* ystack(const YRows<T>& y, int kz,
+                                           int nz, int nx) {
+  return YM == Y_WALLS ? yrow(y, kz, 0, nz, nx) : hrow(y, kz, 0, nz, nx);
+}
 
 template <typename T, bool SGS, int SPLIT, int YM>
-__device__ __forceinline__ void mom_rk_body(CALES_MOM_RK_PARAMS) {
-  const int k = blockIdx.y;
-  const int64_t idx =
-      static_cast<int64_t>(blockIdx.x) * CALES_THREADS + threadIdx.x;
+__global__ void __launch_bounds__(MrGeo<MomTy<T>::TY>::NT)
+    mom_rk_kernel(CALES_MOM_RK_PARAMS) {
+  constexpr int TY = MomTy<T>::TY;
+  using G = MrGeo<TY>;
+  constexpr int NT = G::NT, NW = G::NW, CPL = G::CPL;
+  constexpr int NF = SGS ? 5 : 4;    // u, v, w, p (, visct)
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const R = reinterpret_cast<T*>(smem_raw);
+  T* const part = R + MR_RING * NF * CPL;   // [2 planes][u, v][NW]
+  const int gx = (nx + MR_TX - 1) / MR_TX;
+  const int x0 = (blockIdx.x % gx) * MR_TX;
+  const int y0 = (blockIdx.x / gx) * TY;
+  const int tid = threadIdx.x;
   const int64_t plane = static_cast<int64_t>(ny) * nx;
-  const bool valid = idx < plane;
-  T un = T(0), vn = T(0);
-  if (valid) {
-    const Cell c(k, idx, nz, ny, nx);
-    // the cell's update; Y: the y mode of its reads, YM where its stencil
-    // touches a y-wall or halo row, whose reads go through the stacks (a
-    // row at a time, so a warp takes one branch; the other rows keep the
-    // plain reads and their memory-level parallelism)
-    auto cell = [&](auto ytag) {
-      constexpr int Y = decltype(ytag)::value;
+
+  // ring plane kz (-1 .. nz): its fields NF x CPL
+  auto ring = [&](int kz) { return R + ((kz + MR_RING) % MR_RING) * NF * CPL; };
+
+  // this thread's cells of the halo tile (e = tid + i NT): the offset of
+  // each in its plane of the field (>= 0), or ~ its offset in the plane's
+  // y-row stack or halo (< 0); x and y wrapped
+  constexpr int NC = (CPL + NT - 1) / NT;
+  int oc[NC];
+#pragma unroll
+  for (int i = 0; i < NC; ++i) {
+    const int e = tid + i * NT, ly = e / MR_CX, lx = e - ly * MR_CX;
+    const int gy = y0 - 1 + ly, wx = wrap_near(x0 - 1 + lx, nx);
+    int r = -1;                      // the stack row, or the field's
+    if (YM == Y_WALLS)
+      r = gy < 0 ? 0 : gy == ny - 1 ? 1 : gy == ny ? 2 : -1;
+    else if (YM == Y_HALO)
+      r = gy < 0 ? 0 : gy == ny ? 1 : -1;
+    oc[i] = r >= 0 ? ~(r * nx + wx) : wrap_near(gy, ny) * nx + wx;
+  }
+
+  // the copy of plane kz (-1 .. nz, z-edge rows by zrow); one group a
+  // plane, empty past nz
+  auto load = [&](int kz) {
+    if (kz <= nz) {
+      const T* fb[5] = {zrow(u, ue, kz, nz, plane), zrow(v, ve, kz, nz, plane),
+                        zrow(w, we, kz, nz, plane), zrow(p, pe, kz, nz, plane),
+                        SGS ? zrow(s, se, kz, nz, plane) : nullptr};
+      const T* yb[5] = {nullptr, nullptr, nullptr, nullptr, nullptr};
+      if (YM != Y_PERIODIC) {
+        yb[0] = ystack<YM>(yu, kz, nz, nx);
+        yb[1] = ystack<YM>(yv, kz, nz, nx);
+        yb[2] = ystack<YM>(yw, kz, nz, nx);
+        yb[3] = ystack<YM>(yp, kz, nz, nx);
+        if (SGS) yb[4] = ystack<YM>(ys, kz, nz, nx);
+      }
+      T* const dst = ring(kz);
+#pragma unroll
+      for (int i = 0; i < NC; ++i) {
+        const int e = tid + i * NT;
+        if (e >= CPL) continue;
+        const int o = oc[i];
+#pragma unroll
+        for (int f = 0; f < NF; ++f)
+          cp_async(dst + f * CPL + e, o >= 0 ? fb[f] + o : yb[f] + ~o);
+      }
+    }
+    cp_async_commit();
+  };
+
+  // warp 0 (u) and warp 1 (v) add the warps' partial sums of plane kz
+  const int lane = tid & 31, warp = tid >> 5;
+  auto store_sums = [&](int kz) {
+    T* const sum = warp == 0 ? usum : vsum;
+    if (warp < 2 && sum != nullptr) {
+      T t = lane < NW ? part[((kz & 1) * 2 + warp) * NW + lane] : T(0);
+      for (int o = 16; o > 0; o >>= 1)
+        t += __shfl_down_sync(0xffffffffu, t, o);
+      if (lane == 0)
+        sum[static_cast<int64_t>(kz) * gridDim.x + blockIdx.x] = t;
+    }
+  };
+
+  // this thread's cell
+  const int ty = tid / MR_TX, tx = tid - ty * MR_TX;
+  const int co = (ty + 1) * MR_CX + tx + 1;
+  const bool inside = y0 + ty < ny && x0 + tx < nx;
+  const int64_t idx = static_cast<int64_t>(y0 + ty) * nx + x0 + tx;
+
+  load(-1);
+  load(0);
+  load(1);
+  load(2);
+  cp_async_wait<1>();   // planes -1, 0 and 1
+  __syncthreads();
+  for (int k = 0; k < nz; ++k) {
+    load(k + 3);
+    if (k > 0) store_sums(k - 1);
+    T un = T(0), vn = T(0);
+    if (inside) {
+      const T* const pl[3] = {ring(k - 1) + co, ring(k) + co,
+                              ring(k + 1) + co};
       const T q = T(0.25), two = T(2);
       const T dzci_c = dzci[k + 1], dzci_m = dzci[k];
       const T dzfi_c = dzfi[k + 1], dzfi_p = dzfi[k + 2];
-#define U(dk, dj, di) aty<Y>(u, ue, yu, c, dk, dj, di)
-#define V(dk, dj, di) aty<Y>(v, ve, yv, c, dk, dj, di)
-#define W(dk, dj, di) aty<Y>(w, we, yw, c, dk, dj, di)
-#define S(dk, dj, di) aty<Y>(s, se, ys, c, dk, dj, di)
-#define P(dk, dj, di) aty<Y>(p, pe, yp, c, dk, dj, di)
+#define MR_AT(f, dk, dj, di) pl[(dk) + 1][(f) * CPL + (dj) * MR_CX + (di)]
+#define U(dk, dj, di) MR_AT(0, dk, dj, di)
+#define V(dk, dj, di) MR_AT(1, dk, dj, di)
+#define W(dk, dj, di) MR_AT(2, dk, dj, di)
+#define P(dk, dj, di) MR_AT(3, dk, dj, di)
+#define S(dk, dj, di) MR_AT(4, dk, dj, di)
       const T u_ccc = U(0, 0, 0), v_ccc = V(0, 0, 0), w_ccc = W(0, 0, 0);
       const T u_pcc = U(0, 0, 1), u_cpc = U(0, 1, 0), u_ccp = U(1, 0, 0);
       const T u_mcc = U(0, 0, -1);
@@ -266,6 +403,7 @@ __device__ __forceinline__ void mom_rk_body(CALES_MOM_RK_PARAMS) {
 #undef W
 #undef S
 #undef P
+#undef MR_AT
       const T f12 = f1 + f2;
       un = u_ccc + f1 * ru + f12 * (bfx - gpx);
       vn = v_ccc + f1 * rv + f12 * (bfy - gpy);
@@ -293,53 +431,24 @@ __device__ __forceinline__ void mom_rk_body(CALES_MOM_RK_PARAMS) {
       ruo_new[o] = ru;
       rvo_new[o] = rv;
       rwo_new[o] = rw;
-    };
-    using Plain = std::integral_constant<int, Y_PERIODIC>;
-    if constexpr (YM != Y_PERIODIC) {
-      if (y_edge_of<YM>(c.j, ny))
-        cell(std::integral_constant<int, YM>{});
-      else
-        cell(Plain{});
-    } else {
-      cell(Plain{});
     }
+    // the warps' partial sums of the new (full-prediction) u and v
+    if (usum != nullptr || vsum != nullptr) {
+      for (int o = 16; o > 0; o >>= 1) {
+        un += __shfl_down_sync(0xffffffffu, un, o);
+        vn += __shfl_down_sync(0xffffffffu, vn, o);
+      }
+      if (lane == 0) {
+        part[((k & 1) * 2) * NW + warp] = un;
+        part[((k & 1) * 2 + 1) * NW + warp] = vn;
+      }
+    }
+    cp_async_wait<1>();   // plane k+2, for step k+1
+    __syncthreads();
   }
-  // per-(z, block) partial sums for the bulk-forcing means
-  if (usum != nullptr) {
-    const T t = block_sum(un);
-    if (threadIdx.x == 0)
-      usum[static_cast<int64_t>(k) * gridDim.x + blockIdx.x] = t;
-  }
-  if (vsum != nullptr) {
-    const T t = block_sum(vn);
-    if (threadIdx.x == 0)
-      vsum[static_cast<int64_t>(k) * gridDim.x + blockIdx.x] = t;
-  }
-}
-
-// The plain variants take no register bound; the y-walled and halo f32
-// ones hold to 3 blocks an SM (85 registers), as the plain ones reach by
-// themselves: their edge-row path would otherwise set the register count,
-// and the occupancy, of every row (it spills there instead).
-template <typename T, bool SGS, int SPLIT>
-__global__ void __launch_bounds__(CALES_THREADS)
-    mom_rk_kernel(CALES_MOM_RK_PARAMS) {
-  mom_rk_body<T, SGS, SPLIT, Y_PERIODIC>(CALES_MOM_RK_ARGS);
-}
-
-template <typename T, bool SGS, int SPLIT>
-__global__ void __launch_bounds__(CALES_THREADS, sizeof(T) == 4 ? 3 : 1)
-    mom_rk_yw_kernel(CALES_MOM_RK_PARAMS) {
-  mom_rk_body<T, SGS, SPLIT, Y_WALLS>(CALES_MOM_RK_ARGS);
-}
-
-template <typename T, bool SGS, int SPLIT>
-__global__ void __launch_bounds__(CALES_THREADS, sizeof(T) == 4 ? 3 : 1)
-    mom_rk_halo_kernel(CALES_MOM_RK_PARAMS) {
-  mom_rk_body<T, SGS, SPLIT, Y_HALO>(CALES_MOM_RK_ARGS);
+  store_sums(nz - 1);
 }
 #undef CALES_MOM_RK_PARAMS
-#undef CALES_MOM_RK_ARGS
 
 template <typename T>
 using MomKernel = void (*)(const T*, const T*, const T*, const T*, const T*,
@@ -351,9 +460,9 @@ using MomKernel = void (*)(const T*, const T*, const T*, const T*, const T*,
 
 template <typename T, bool SGS, int SPLIT>
 MomKernel<T> pick_mom_rk(int ym) {
-  return ym == Y_HALO    ? &mom_rk_halo_kernel<T, SGS, SPLIT>
-         : ym == Y_WALLS ? &mom_rk_yw_kernel<T, SGS, SPLIT>
-                         : &mom_rk_kernel<T, SGS, SPLIT>;
+  return ym == Y_HALO    ? &mom_rk_kernel<T, SGS, SPLIT, Y_HALO>
+         : ym == Y_WALLS ? &mom_rk_kernel<T, SGS, SPLIT, Y_WALLS>
+                         : &mom_rk_kernel<T, SGS, SPLIT, Y_PERIODIC>;
 }
 
 // y: the y-row stacks and corners of u, v, w, visct, p, in that order (10
@@ -389,7 +498,13 @@ int launch_mom_rk(const T* u, const T* v, const T* w, const T* s, const T* p,
           : (split == 2   ? pick_mom_rk<T, false, 2>(ym)
              : split == 1 ? pick_mom_rk<T, false, 1>(ym)
                           : pick_mom_rk<T, false, 0>(ym));
-  kern<<<plane_grid(nz, ny, nx), CALES_THREADS, 0,
+  constexpr int TY = MomTy<T>::TY;
+  const size_t smem = sgs ? mr_smem<T, 5>() : mr_smem<T, 4>();
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kern<<<mr_blocks(ny, nx, TY), MrGeo<TY>::NT, smem,
          static_cast<cudaStream_t>(stream)>>>(
       u, v, w, s, p, ue, ve, we, se, pe, ruo, rvo, rwo, dzci, dzfi, uo, vo,
       wo, ru, rv, rw, usum, vsum, yu, yv, yw_, ys, yp, nz, ny, nx, T(f1),
@@ -421,3 +536,10 @@ int launch_mom_rk(const T* u, const T* v, const T* w, const T* s, const T* p,
 
 CALES_MOM_RK_ENTRY(cales_mom_rk_f32, float)
 CALES_MOM_RK_ENTRY(cales_mom_rk_f64, double)
+
+// The length of a row of the partial sums usum and vsum: the tiles of a
+// plane.
+extern "C" int cales_mom_rk_blocks(int ny, int nx, int f64) {
+  return cales::mr_blocks(ny, nx, f64 ? cales::MomTy<double>::TY
+                                      : cales::MomTy<float>::TY);
+}

@@ -48,7 +48,7 @@ _SIGNATURES = {
     'cales_apply_x': [_P] * 3 + [_I] * 4 + [_P],
     'cales_z_eig': [_P] * 8 + [_I] * 3 + [_D] + [_P],
     'cales_thomas_z': [_P] * 11 + [_I] * 5 + [_D, _I, _D] + [_P],
-    'cales_thomas_periodic': [_P] * 9 + [_I] * 4 + [_D, _I, _D] + [_P],
+    'cales_thomas_periodic': [_P] * 7 + [_I] * 4 + [_D, _I, _D] + [_P],
     'cales_smag': [_P] * 20 + [_I] * 4 + [_D] * 3 + [_P],
     'cales_dsmag': [_P] * 18 + [_I] * 6 + [_D] * 10 + [_P],
     'cales_dsmag_level1': [_P] * 15 + [_I] * 5 + [_D] * 2 + [_P],
@@ -153,6 +153,10 @@ def open_library(path) -> ctypes.CDLL:
             if fn is not None:
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
+    fn = getattr(lib, 'cales_mom_rk_blocks', None)
+    if fn is not None:
+        fn.argtypes = [_I] * 3
+        fn.restype = ctypes.c_int
     return lib
 
 

@@ -487,12 +487,13 @@ def mom_rk(u, v, w, s, p, ue, ve, we, se, pe, ruo, rvo, rwo, dzci, dzfi,
     advection + xy diffusion, rud the z diffusion) or 'xy+z' (full-3D: ru
     .. rw the advection, rud all the molecular diffusion); u..w are then
     the Crank-Nicolson RHS u_RK - 1/2 f12 rud (pallas_kernels fused_mom_rk
-    fold_cn).  sums: per-(z, block) partial sums of the new (full-
+    fold_cn).  sums: per-(z, part) partial sums of the new (full-
     prediction) u / v for the bulk forcing.  ye: y walls, the (rows,
     corners) y-row stack pairs of (u, v, w, visct, p), visct's None without
     visct; yh: a slab of a y-sharded mesh, the halo pairs of the same five
     fields.  Returns (u, v, w, ru, rv, rw, usum, vsum); usum/vsum are
-    (nz, nblk) or None."""
+    None or per-(z, part) partial sums, (nz, parts): one part on the CPU,
+    one a (y, x) tile of the kernel on the card."""
     if split not in _SPLIT_CODE:
         raise ValueError(f"mom_rk: split {split!r} (None, '1d' or 'xy+z')")
     if _on_cpu(u):
@@ -521,7 +522,9 @@ def mom_rk(u, v, w, s, p, ue, ve, we, se, pe, ruo, rvo, rwo, dzci, dzfi,
     halo = yh[0] is not None
     outs = [torch.empty_like(u) for _ in range(6)]
     from . import build
-    nb = -(-(ny * nx) // build.THREADS)     # blocks per z plane
+    # the kernel's tiles of a plane
+    nb = build.load().cales_mom_rk_blocks(ny, nx,
+                                          int(u.dtype == torch.float64))
     usum = u.new_empty((nz, nb)) if sums[0] else None
     vsum = u.new_empty((nz, nb)) if sums[1] else None
     d = ctypes.c_double

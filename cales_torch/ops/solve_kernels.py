@@ -30,6 +30,9 @@ from .kernels import _launch, _ptr, _suffix
 
 LAUNCHES = {'apply_y': 0, 'apply_x': 0, 'z_eig': 0, 'thomas_z': 0,
             'thomas_periodic': 0}
+# the largest nz of csrc/thomas_periodic.cu: 32 lanes of at most 32 rows
+# in float32, the 227 KB of a block's shared memory in float64
+THOMAS_PERIODIC_MAX_NZ = {torch.float32: 1025, torch.float64: 808}
 
 
 def reset_launches():
@@ -277,24 +280,25 @@ def thomas_periodic_z(arr, a, b, c, lamy=None, lamx=None, pin=False,
       alpha: the Helmholtz rows a*alpha, b*alpha + 1, c*alpha (the lam
            rows are taken as given, as in thomas_z).
     a, b, c: (nz,) float64 coefficient rows, a[0] and c[nz-1] the periodic
-    corners."""
+    corners.  On the card a column lives in shared memory: nz up to
+    THOMAS_PERIODIC_MAX_NZ."""
     if arr.device.type == 'cpu':
         return thomas_periodic_z_plain(arr, a, b, c, lamy, lamx, pin, tol,
                                        alpha)
     _check('thomas_periodic', arr, lamy, lamx, f64=(a, b, c))
     nz, ny, nx = arr.shape
-    if nz < 3:
-        raise ValueError(f'thomas_periodic: nz = {nz} (at least 3)')
+    nz_max = THOMAS_PERIODIC_MAX_NZ[arr.dtype]
+    if not 3 <= nz <= nz_max:
+        raise ValueError(f'thomas_periodic: nz = {nz} (3 to {nz_max} in '
+                         f'{arr.dtype}: a column is solved in shared memory)')
     if (lamy is None) != (lamx is None):
         raise ValueError('thomas_periodic: pass lamy with lamx')
     for t, shape in ((a, (nz,)), (b, (nz,)), (c, (nz,)), (lamy, (ny,)),
                      (lamx, (nx,))):
         _shape('thomas_periodic', t, shape)
     out = torch.empty_like(arr)
-    # the factors c zfac and the correction solution p2 of rows 0 .. nz-2
-    wscr, qscr = torch.empty_like(arr), torch.empty_like(arr)
     _launch('thomas_periodic', f'cales_thomas_periodic_{_suffix(arr)}',
-            *map(_ptr, (arr, out, wscr, qscr, a, b, c, lamy, lamx)),
+            *map(_ptr, (arr, out, a, b, c, lamy, lamx)),
             ctypes.c_int(nz), ctypes.c_int(ny), ctypes.c_int(nx),
             ctypes.c_int(int(alpha is not None)),
             ctypes.c_double(0.0 if alpha is None else alpha),

@@ -68,3 +68,109 @@ def thomas_periodic(a, b, c, rhs, lam=None, pin_tol=None):
     if pin_tol is not None:
         pn = torch.where(torch.abs(lam) <= pin_tol, torch.zeros_like(pn), pn)
     return torch.cat([p1 + p2 * pn, pn[None]])
+
+
+def thomas_periodic_chunked(a, b, c, rhs, lam=None, pin_tol=None,
+                            lanes=32, min_rows=7):
+    """thomas_periodic by the steps of its kernel (csrc/thomas_periodic.cu),
+    each column split over `lanes` lanes (a warp).  The reduced (n-1)-row
+    system goes in chunks of at least `min_rows` (and 2) consecutive rows,
+    one a lane, on as many lanes as that leaves (at least one).  A chunk is
+    swept forward, each row in terms of the next and of P, the last
+    unknown of the chunk below, then backward, each row in terms of P and
+    Q, its own last unknown.  The chunks' last rows, with the first row of
+    the chunk above substituted, couple only the Q of neighbouring lanes: a
+    tridiagonal system of one row a lane, solved by parallel cyclic
+    reduction (lanes 1, 2, 4, .. away; identity rows past the chunks and
+    the warp).  Then pn, each chunk's rows from its P and Q, and the
+    combine.  The correction RHS e (e[0] = -a[0]) rides in the first
+    chunk's P coefficients, whose P does not exist (P = 0 for the data,
+    -1 for e).  The kernel's arithmetic in plain PyTorch, for the tests;
+    the main path never calls it."""
+    nz = rhs.shape[0]
+    n = nz - 1
+    nl = max(1, min(lanes, n // max(2, min_rows)))
+    base, extra = divmod(n, nl)
+    lam_ = torch.zeros_like(rhs[0]) if lam is None else lam + 0 * rhs[0]
+    zero, one = torch.zeros_like(rhs[0]), torch.ones_like(rhs[0])
+    ident = (zero, one, zero, zero, zero)
+    rows, chunks, first = [], [], []
+    for ln in range(nl):
+        m, s = base + (ln < extra), ln * base + min(ln, extra)
+        # the corners are out of the reduced system: row 0 carries e[0] =
+        # -a[0] in its P column, row n-1 has no c
+        ca = [zero + (a[s + k] if s + k > 0 else -a[0]) for k in range(m)]
+        cc = [zero + (c[s + k] if s + k < n - 1 else 0.0) for k in range(m)]
+        # forward: x_k + A_k P + C_k x_{k+1} = D_k
+        A, C, D = [None] * m, [None] * m, [None] * m
+        ap, cp, dp = -one, zero, zero
+        for k in range(m):
+            zf = 1.0 / (b[s + k] + lam_ - ca[k] * cp)
+            A[k] = -(ca[k] * ap) * zf
+            C[k] = cc[k] * zf
+            D[k] = (rhs[s + k] - ca[k] * dp) * zf
+            ap, cp, dp, zlast = A[k], C[k], D[k], zf
+        last = (A[m - 1], C[m - 1], D[m - 1])
+        # backward: x_k = D_k - A_k P - C_k Q, k = m-2 .. 0
+        ar, cr, dr = zero, -one, zero
+        for k in range(m - 2, -1, -1):
+            D[k] = D[k] - C[k] * dr
+            A[k] = A[k] - C[k] * ar
+            C[k] = -C[k] * cr
+            ar, cr, dr = A[k], C[k], D[k]
+        first.append((ar, cr, dr))
+        chunks.append((s, m, A, C, D))
+        e2 = -c[n - 1] * zlast if ln == nl - 1 else zero
+        rows.append((last, e2))
+    red = []
+    for ln in range(lanes):
+        if ln >= nl:
+            red.append(ident)
+            continue
+        (am, cm, dm), e2 = rows[ln]
+        an, cn_, dn = first[ln + 1] if ln + 1 < nl else (zero, zero, zero)
+        red.append((zero if ln == 0 else am, 1.0 - cm * an, -cm * cn_,
+                    dm - cm * dn, (am if ln == 0 else zero) + e2))
+
+    def at(q):
+        return red[q] if 0 <= q < lanes else ident
+    delta = 1
+    while delta < lanes:
+        inv = [1.0 / r[1] for r in red]
+
+        def nb(q):
+            r = at(q)
+            return (r[0], 1.0 / r[1] if q < 0 or q >= lanes else inv[q],
+                    r[2], r[3], r[4])
+        new = []
+        for q in range(lanes):
+            r, lo, hi = red[q], nb(q - delta), nb(q + delta)
+            k1, k2 = r[0] * lo[1], r[2] * hi[1]
+            new.append((-lo[0] * k1, r[1] - lo[2] * k1 - hi[0] * k2,
+                        -hi[2] * k2, r[3] - lo[3] * k1 - hi[3] * k2,
+                        r[4] - lo[4] * k1 - hi[4] * k2))
+        red = new
+        delta *= 2
+    q1, q2 = [], []
+    for r in red:
+        ib = 1.0 / r[1]
+        q1.append(r[3] * ib)
+        q2.append(r[4] * ib)
+    # the chunks' rows; lane 0's P: 0 for the data, -1 for e
+    x1s, x2s = [], []
+    for ln, (s, m, A, C, D) in enumerate(chunks):
+        p1, p2 = (zero, -one) if ln == 0 else (q1[ln - 1], q2[ln - 1])
+        x1s.append([D[k] - A[k] * p1 - C[k] * q1[ln] for k in range(m - 1)]
+                   + [q1[ln]])
+        x2s.append([-A[k] * p2 - C[k] * q2[ln] for k in range(m - 1)]
+                   + [q2[ln]])
+    den = (b[n] + lam_) + c[n] * x2s[0][0] + a[n] * q2[nl - 1]
+    pn = (rhs[n] - c[n] * x1s[0][0] - a[n] * q1[nl - 1]) / den
+    if pin_tol is not None:
+        pn = torch.where(torch.abs(lam) <= pin_tol, torch.zeros_like(pn), pn)
+    out = torch.empty_like(rhs)
+    for ln, (s, m, _, _, _) in enumerate(chunks):
+        for k in range(m):
+            out[s + k] = x1s[ln][k] + x2s[ln][k] * pn
+    out[n] = pn
+    return out

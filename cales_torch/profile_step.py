@@ -43,7 +43,7 @@ import numpy as np
 import torch
 
 STAGES = (
-    ('mom_rk', ('mom_rk_kernel', 'mom_rk_yw_kernel')),
+    ('mom_rk', ('mom_rk_kernel',)),
     ('fillps', ('fillps_kernel',)),
     ('correc_smag', ('correc_smag_kernel',)),
     ('correc_updatep', ('cales::correc_kernel',)),

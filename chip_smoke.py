@@ -85,6 +85,10 @@ VARIANT_ROWS = {
     'dsmag_level2 (y walls, duct)': ('dsmag_level2', 'duct'),
     'dsmag_level2 (y walls, cavity)': ('dsmag_level2', 'cavity'),
 }
+# the kernels timed at the Taylor-Green vortex's 512^3 in phase 2b, each
+# reported as a kernel of its own: report name -> (kernel, variant)
+BIG_ROWS = {'mom_rk (512^3, no nu_t)': ('mom_rk', 'tgv'),
+            'thomas_periodic (512^3)': ('thomas_periodic', 'poisson')}
 # the slab variants of the stencil kernels on the y-slab mesh (phase 10),
 # each reported as a kernel of its own: report name -> kernel
 HALO_ROWS = {'mom_rk (y halo)': 'mom_rk', 'fillps (y halo)': 'fillps',
@@ -335,8 +339,9 @@ def call(name, d, twin=False, variant=None, has_ruo=True, zrec=None):
         r = (d['ruo'], d['rvo'], d['rwo']) if has_ruo else (None,) * 3
         # dns: no visct, split '1d' + CN fold; les_split: visct, '1d';
         # xyz: no visct, the full-3D split 'xy+z' (the triperiodic and
-        # channel DNS with full-3D implicit diffusion); les_xyz: visct, 'xy+z'
-        dns = variant in ('dns', 'xyz')
+        # channel DNS with full-3D implicit diffusion); les_xyz: visct,
+        # 'xy+z'; tgv: no visct, explicit (the Taylor-Green vortex)
+        dns = variant in ('dns', 'xyz', 'tgv')
         split = {'dns': '1d', 'les_split': '1d', 'xyz': 'xy+z',
                  'les_xyz': 'xy+z'}.get(variant)
         out = list(fn(d['u'], d['v'], d['w'], None if dns else d['s'],
@@ -480,7 +485,7 @@ def time_ms(fn, n=10):
 # per-kernel variants held against the twins in phase 2; the first is the
 # one timed for the report in phase 2b
 VARIANTS = {
-    'mom_rk': ('les', 'dns', 'les_split', 'duct', 'xyz', 'les_xyz'),
+    'mom_rk': ('les', 'dns', 'les_split', 'duct', 'xyz', 'les_xyz', 'tgv'),
     'fillps': (None, 'duct'), 'correc_smag': (None,),
     'correc_updatep': ('impdiff_1d', 'explicit', 'duct', 'impdiff'),
     'apply_y': ('x_and_y', 'y_only'), 'z_eig': (None,),
@@ -496,10 +501,17 @@ VARIANT_ROW_OF = {kv: row for row, kv in VARIANT_ROWS.items()}
 RELATIVE = ('apply_y', 'z_eig', 'thomas_z', 'dsmag', 'thomas_periodic',
             'dsmag_level1', 'dsmag_level2', 'apply_x')
 # the kernels whose float32 error is held against their float64 twin in
-# phase 2b; for the GEMM kernels (3xTF32) it must stay within 4x the error
-# of their float32 twin, the library matmul, against the same float64 twin
-F64_TWIN = ('dsmag_level1', 'dsmag_level2', 'apply_y', 'apply_x', 'z_eig')
-GEMM_KERNELS = ('apply_y', 'apply_x', 'z_eig')
+# phase 2b; for the GEMM kernels (3xTF32) and the reordered periodic
+# Thomas (chunks and cyclic reduction) it must stay within 4x the error of
+# their float32 twin (the library matmul, the sweep) against the same
+# float64 twin
+F64_TWIN = ('dsmag_level1', 'dsmag_level2', 'apply_y', 'apply_x', 'z_eig',
+            'thomas_periodic')
+FOUR_X = ('apply_y', 'apply_x', 'z_eig', 'thomas_periodic')
+# their float32 error against their float32 twin is then held to what the
+# 4x rule leaves (their own and the twin's against the float64 twin), not
+# to 1e-5
+REORDERED = ('thomas_periodic',)
 # the full-3D CN solves' alpha in the kernel inputs
 ALPHA = -0.043
 # (interior fields read, fields written, floating-point operations a cell)
@@ -522,6 +534,7 @@ WORK = {'mom_rk': (8, 6, 230), 'fillps': (3, 1, 12),
         'apply_x': (1, 1, 0)}
 # variants whose reads or arithmetic differ from their kernel's first
 WORK_VARIANT = {('mom_rk', 'xyz'): (7, 6, 200),
+                ('mom_rk', 'tgv'): (7, 6, 200),
                 ('correc_updatep', 'impdiff'): (5, 4, 34),
                 ('dsmag_level2', 'cavity'): (16, 1, 147)}
 # the matrix-product kernels: their plain twin is a single library product
@@ -611,55 +624,69 @@ def phase_kernels(dev, card):
     say(f'phase 2b: kernels vs twins on the card at (nx, ny, nz) = '
         f'{HEADLINE_NG}, float32  [{card}]')
     d = kernel_inputs(HEADLINE_NG, torch.float32, dev, SEED + 1, big=True)
-    d64 = None
-    rows = {}
+    rows, cache = {}, {}
     for name, variants in VARIANTS.items():
         for i, variant in enumerate(variants):
-            worst = compare(name, d, tol_rel=1e-5, variant=variant)
-            ms = time_ms(lambda: call(name, d, variant=variant))
-            plain_ms = time_ms(lambda: call(name, d, twin=True,
-                                            variant=variant))
-            tag = f'{name}[{variant}]' if variant else name
-            say(f'  {tag:<24s} kernel {ms:.3f} ms, plain twin {plain_ms:.3f} '
-                f'ms per call  [{card}]')
             row = name if i == 0 else VARIANT_ROW_OF.get((name, variant))
-            rel = None
-            if name in F64_TWIN:
-                # the float32 kernel (and its twin) against the float64
-                # twin on the same inputs, relative to each output's maximum
-                d64 = d64 or _as_double(d)
-                rel, lib_rel = f32_vs_f64_twin(name, d, d64, variant)
-                say(f'  {tag:<24s} float32 against the float64 twin: '
-                    f'max|err| / max|ref| kernel {rel:.3e}, float32 twin '
-                    f'{lib_rel:.3e} (worst output)  [{card}]')
-                if name in GEMM_KERNELS:
-                    require(rel <= 4.0 * lib_rel,
-                            f'{tag}: {rel:.3e} against the float64 twin, '
-                            f'above 4x the float32 twin\'s {lib_rel:.3e}')
-            if row is not None:
-                bms, by = bound_ms(name, d, variant)
-                rows[row] = dict(
-                    max_abs_err=worst, ms=ms, plain_ms=plain_ms,
-                    bound_ms=bms, bound_by=by,
-                    library_ms=plain_ms if name in LIBRARY_TWIN else None)
-                say(f'  {tag:<24s} bound {bms:.3f} ms ({by})')
-                if name in LIBRARY_TWIN:
-                    simt, _ = bound_ms(name, d, variant, simt=True)
-                    rows[row]['bound_simt_ms'] = simt
-                    say(f'  {tag:<24s} bound at the 3xTF32 rate '
-                        f'{bms:.3f} ms, at the SIMT fp32 rate {simt:.3f} ms')
-                if rel is not None:
-                    rows[row]['f32_vs_f64_twin'] = rel
-                    rows[row]['f32_twin_vs_f64_twin'] = lib_rel
-                if name == 'thomas_periodic':
-                    # with the two scratch fields (c zfac and p2) each
-                    # written and read once
-                    nb = work(name, d, variant)[0]
-                    nb += 4 * d['u'].numel() * d['u'].element_size()
-                    say(f'  {tag:<24s} bound with its scratch fields '
-                        f'{nb / PEAK_BPS * 1e3:.3f} ms (bytes)')
+            _time_row(rows, row, name, d, variant, card, cache)
             torch.cuda.empty_cache()
+    del d, cache
+    torch.cuda.empty_cache()
+    ng = TGV_CFG['ng']
+    say(f'phase 2b: mom_rk without nu_t and thomas_periodic pinned at '
+        f'(nx, ny, nz) = {ng}, float32  [{card}]')
+    d = kernel_inputs(ng, torch.float32, dev, SEED + 2, big=True)
+    for key in ('ds2', 'slab', 'slab_blocks', 'y_mom', 'y_pred', 'y_pp'):
+        del d[key]
+    cache = {}
+    for row, (name, variant) in BIG_ROWS.items():
+        _time_row(rows, row, name, d, variant, card, cache)
+    del d, cache
+    torch.cuda.empty_cache()
     return rows
+
+
+def _time_row(rows, row, name, d, variant, card, cache):
+    """One kernel variant on the inputs d against its twin (and, for
+    F64_TWIN, its float32 error against the float64 twin, from d in
+    float64 made once into cache), its time and the twin's; with a report
+    row, its bound into rows[row]."""
+    tag = f'{name}[{variant}]' if variant else name
+    rel = lib_rel = None
+    if name in F64_TWIN:
+        # the float32 kernel (and its twin) against the float64 twin on the
+        # same inputs, relative to each output's maximum
+        if 'd64' not in cache:
+            cache['d64'] = _as_double(d)
+        rel, lib_rel = f32_vs_f64_twin(name, d, cache['d64'], variant)
+        say(f'  {tag:<24s} float32 against the float64 twin: '
+            f'max|err| / max|ref| kernel {rel:.3e}, float32 twin '
+            f'{lib_rel:.3e} (worst output)  [{card}]')
+        if name in FOUR_X:
+            require(rel <= 4.0 * lib_rel,
+                    f'{tag}: {rel:.3e} against the float64 twin, '
+                    f'above 4x the float32 twin\'s {lib_rel:.3e}')
+    worst = compare(name, d, tol_rel=(5.0 * lib_rel if name in REORDERED
+                                      else 1e-5), variant=variant)
+    ms = time_ms(lambda: call(name, d, variant=variant))
+    plain_ms = time_ms(lambda: call(name, d, twin=True, variant=variant))
+    say(f'  {tag:<24s} kernel {ms:.3f} ms, plain twin {plain_ms:.3f} '
+        f'ms per call  [{card}]')
+    if row is None:
+        return
+    bms, by = bound_ms(name, d, variant)
+    rows[row] = dict(
+        max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+        bound_by=by, library_ms=plain_ms if name in LIBRARY_TWIN else None)
+    say(f'  {tag:<24s} bound {bms:.3f} ms ({by})')
+    if name in LIBRARY_TWIN:
+        simt, _ = bound_ms(name, d, variant, simt=True)
+        rows[row]['bound_simt_ms'] = simt
+        say(f'  {tag:<24s} bound at the 3xTF32 rate '
+            f'{bms:.3f} ms, at the SIMT fp32 rate {simt:.3f} ms')
+    if rel is not None:
+        rows[row]['f32_vs_f64_twin'] = rel
+        rows[row]['f32_twin_vs_f64_twin'] = lib_rel
 
 
 def _as_double(d):
@@ -1015,8 +1042,8 @@ def _tgv_solve_kernels(sv, rhs, card):
     against its float64 twin on the same input (the singular lane's
     tolerance must pin the (0, 0) lane and no other).  The bound 1e-3:
     the sweep's float32 error grows with the reduced z system's condition
-    number, ~(2 nz / pi)^2 ~ 1e5 at nz = 512, on the lanes of small lam
-    (1.345e-4 measured here on an NVIDIA H100 80GB HBM3)."""
+    number, ~(2 nz / pi)^2 ~ 1e5 at nz = 512, on the lanes of small lam;
+    the float32 sweep (the twin) is held to it beside the kernel."""
     from cales_torch import poisson
     from cales_torch.ops import solve_kernels as SK
     t = lambda a, dt=torch.float32: torch.as_tensor(  # noqa: E731
@@ -1047,18 +1074,26 @@ def _tgv_solve_kernels(sv, rhs, card):
         f'pinned, lane (0, 0) {"among them" if lone else "not pinned"}')
     require(pinned == 1 and lone, 'the pin must take lane (0, 0) alone')
     abc = tuple(t(q, torch.float64) for q in (sv.a, sv.b, sv.c))
-    got = SK.thomas_periodic_z(got, *abc, lamy=lamy, lamx=lamx, pin=True,
+    x = got
+    got = SK.thomas_periodic_z(x, *abc, lamy=lamy, lamx=lamx, pin=True,
                                tol=tol)
+    require(float(got[-1, 0, 0]) == 0.0,
+            'thomas_periodic: the pinned lane\'s last row is not 0')
     ref = SK.thomas_periodic_z_plain(
-        ref.double(), *abc, lamy=lamy.double(), lamx=lamx.double(), pin=True,
+        x.double(), *abc, lamy=lamy.double(), lamx=lamx.double(), pin=True,
         tol=tol).float()
-    diff = (got - ref).abs()
-    err = float(diff.max() / ref.abs().max())
-    lane = float((diff.amax(0) / ref.abs().amax(0).clamp_min(1e-30)).max())
-    say(f'  thomas_periodic float32 kernel against its float64 twin at '
-        f'{tuple(got.shape)}: max|err| / max|ref| {err:.3e}, worst lane '
-        f'(max over z of |err| / |ref|) {lane:.3e}  [{card}]')
-    require(err <= 1e-3, f'thomas_periodic f32 against f64: {err:.3e}')
+    twin = SK.thomas_periodic_z_plain(x, *abc, lamy=lamy, lamx=lamx,
+                                      pin=True, tol=tol)
+    for what, q in (('kernel', got), ('twin (the sweep)', twin)):
+        diff = (q - ref).abs()
+        err = float(diff.max() / ref.abs().max())
+        lane = float((diff.amax(0) / ref.abs().amax(0).clamp_min(1e-30))
+                     .max())
+        say(f'  thomas_periodic float32 {what} against the float64 twin at '
+            f'{tuple(got.shape)}: max|err| / max|ref| {err:.3e}, worst '
+            f'lane (max over z of |err| / |ref|) {lane:.3e}  [{card}]')
+        require(err <= 1e-3, f'thomas_periodic f32 {what} against f64: '
+                f'{err:.3e}')
 
 
 def phase_triperiodic(dev, card):
@@ -1630,6 +1665,8 @@ def main():
     paths['correc_smag'] = (les, 31, 'correc_smag')
     paths['smag'] = (les_imp, 5, 'smag')
     paths['thomas_periodic'] = (tgv, 5, 'thomas_periodic')
+    for row, (name, _) in BIG_ROWS.items():
+        paths[row] = (tgv, 5, name)
     paths['dsmag_level1'] = (two['blow'], 5, 'dsmag_level1')
     paths['dsmag_level2'] = (two['blow'], 5, 'dsmag_level2')
     # apply_x and the slab variants on the y-slab mesh (rank 0, 5 steps)
@@ -1645,6 +1682,7 @@ def main():
             paths[row] = (variant_path.get(variant, tri3), 5, name)
     sources = {**{n: KERNELS[n] for n in KERNELS},
                **{row: KERNELS[n] for row, (n, _) in VARIANT_ROWS.items()},
+               **{row: KERNELS[n] for row, (n, _) in BIG_ROWS.items()},
                **{row: KERNELS[n] for row, n in HALO_ROWS.items()}}
     report = {'kernels': [
         dict(name=row, route='cuda', source=sources[row][0],

@@ -1032,3 +1032,130 @@ def test_cuda_halo_kernels_match_twins_on_card(dev):
     torch.cuda.synchronize()
     assert (K.LAUNCHES['mom_rk'], K.LAUNCHES['fillps'],
             K.LAUNCHES['correc_updatep'], K.LAUNCHES['smag']) == (2, 1, 1, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('ymode', ['periodic', 'walls', 'halo'])
+@pytest.mark.parametrize('dtype, shape', [
+    ('float64', (72, 40, 48)), ('float64', (33, 17, 5)),
+    ('float32', (72, 40, 48)), ('float32', (33, 17, 5))])
+def test_cuda_mom_rk_ragged_tiles(dev, ymode, dtype, shape):
+    """mom_rk (a z-march through shared memory, a tile of 8 x 32 cells)
+    against its twin on (nx, ny, nz) shapes whose nx is no multiple of 32
+    and whose ny is no multiple of the tile's rows, in each y mode (the
+    y-walled variant with its y-row stacks, the slab's with random halos),
+    with and without visct, with split None, '1d' and 'xy+z', with the
+    previous RHS and without it (the first substep): the six fields
+    float64 within 1e-12 of their maximum and float32 within 1e-5, as
+    chip_smoke.py holds its kernels to their float32 twins, and the
+    per-plane totals of the partial sums within 1e-11 in float64 (1e-5 of
+    their maximum in float32): the kernel sums per (z, tile), the twin per
+    plane."""
+    nx, ny, nz = shape
+    dt = getattr(torch, dtype)
+    tol = 1e-12 if dt == torch.float64 else 1e-5
+    d = _ywall_inputs(dev, shape, 15)
+    rng = np.random.default_rng(16)
+
+    def c(q):
+        return None if q is None else q.to(dt).contiguous()
+
+    def halo():
+        return tuple(c(torch.as_tensor(0.05 * rng.standard_normal(sh),
+                                       device=dev)) for sh in
+                     ((nz, 2, nx), (3, 2, nx)))
+    yh = [halo() for _ in range(5)]
+    K.reset_launches()
+    n = 0
+    for sgs in (True, False):
+        se, ys = d['sq'] if sgs else (None, None)
+        stacks = (*d['yc'], ys, d['pq'][1])
+        ykw = {'walls': dict(ye=[None if q is None else tuple(map(c, q))
+                                 for q in stacks]),
+               'halo': dict(yh=yh if sgs else [*yh[:3], None, yh[4]]),
+               'periodic': {}}[ymode]
+        for split in (None, '1d', 'xy+z'):
+            for rk in (d['rk'], (None,) * 3):
+                mom = (*map(c, d['fields']), c(d['s']) if sgs else None,
+                       c(d['p']), *map(c, d['zc']), c(se), c(d['pq'][0]),
+                       *map(c, rk), c(d['dzci']), c(d['dzfi']), 5e-4,
+                       -2e-4 if rk[0] is not None else 0.0, 1e-3, d['dxi'],
+                       d['dyi'], (0.1, 0.0, 0.0))
+                got = K.mom_rk(*mom, sums=(True, True), split=split, **ykw)
+                ref = K.mom_rk_plain(*mom, sums=(True, True), split=split,
+                                     **ykw)
+                n += 1
+                for g, r in zip(got[:6], ref[:6]):
+                    _rel_close(g, r, tol)
+                for g, r in zip(got[6:], ref[6:]):
+                    if dt == torch.float64:
+                        torch.testing.assert_close(g.sum(1), r[:, 0], rtol=0,
+                                                   atol=1e-11)
+                    else:
+                        _rel_close(g.sum(1), r[:, 0], 1e-5)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES['mom_rk'] == n == 12
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('variant', ['poisson', 'helmholtz'])
+@pytest.mark.parametrize('dtype', ['float64', 'float32'])
+@pytest.mark.parametrize('nz', [3, 4, 7, 256, 512])
+def test_cuda_thomas_periodic_columns(dev, nz, dtype, variant):
+    """thomas_periodic (a column a warp, solved in shared memory: chunks
+    of at least 7 rows a lane, the chunk ends by cyclic reduction) on
+    (nx, ny) = (40, 5) columns, pinned on the singular lane (its last row
+    exactly 0) or on the alpha-scaled Helmholtz rows, against both twins:
+    the sweep (solve_kernels.thomas_periodic_z_plain) and the kernel's
+    scheme step by step (tridiag.thomas_periodic_chunked).  float64 within
+    1e-12 of the maximum of each; float32 against the float64 sweep within
+    4x the larger error of the two float32 twins against it."""
+    from cales_torch import poisson
+    from cales_torch.ops import tridiag
+    nx, ny = 40, 5
+    dt = getattr(torch, dtype)
+    cfg = Config(ng=(nx, ny, nz), l=(2 * np.pi,) * 3, gtype=1, gr=0.0,
+                 dtype='float64', ptransform='mat')
+    sv = poisson.make_solver(cfg, make_grid_from_config(cfg),
+                             ('PP', 'PP', 'PP'), ('c', 'c', 'c'))
+    rng = np.random.default_rng(nz)
+
+    def t(a, to=dt):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=to,
+                               device=dev)
+    abc = tuple(t(q, torch.float64) for q in (sv.a, sv.b, sv.c))
+    alpha = -0.043
+
+    def args(to):
+        if variant == 'poisson':
+            tol = float(np.finfo(np.dtype(dtype)).eps * 4.0
+                        * (np.abs(sv.lamx).max() + np.abs(sv.lamy).max()))
+            return dict(lamy=t(sv.lamy, to), lamx=t(sv.lamx, to), pin=True,
+                        tol=tol)
+        return dict(lamy=t(sv.lamy * alpha, to), lamx=t(sv.lamx * alpha, to),
+                    alpha=alpha)
+
+    def chunked(x, kw):
+        a, b, c = SK._coefs(*abc, kw.get('alpha'), x.dtype)
+        lam = kw['lamx'][None, :] + kw['lamy'][:, None]
+        return tridiag.thomas_periodic_chunked(
+            a, b, c, x, lam=lam, pin_tol=kw['tol'] if kw.get('pin') else None)
+    x = t(rng.standard_normal((nz, ny, nx)))
+    kw = args(dt)
+    SK.reset_launches()
+    got = SK.thomas_periodic_z(x, *abc, **kw)
+    torch.cuda.synchronize()
+    assert SK.LAUNCHES['thomas_periodic'] == 1
+    if variant == 'poisson':
+        assert float(got[-1, 0, 0]) == 0.0       # the pinned gauge
+    if dt == torch.float64:
+        _rel_close(got, SK.thomas_periodic_z_plain(x, *abc, **kw), 1e-12)
+        _rel_close(got, chunked(x, kw), 1e-12)
+        return
+    kw64 = args(torch.float64)
+    ref = SK.thomas_periodic_z_plain(x.double(), *abc, **kw64)
+
+    def rel(q):
+        return float((q.double() - ref).abs().max() / ref.abs().max())
+    twins = rel(SK.thomas_periodic_z_plain(x, *abc, **kw)), rel(chunked(x, kw))
+    assert rel(got) <= 4.0 * max(twins), (rel(got), twins)

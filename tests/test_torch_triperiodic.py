@@ -4,7 +4,9 @@ cales_tpu on the CPU at fp64, with numpy-seeded inputs.
   * the periodic Thomas twin (ops/solve_kernels.thomas_periodic_z_plain,
     ops/tridiag.thomas_periodic) against pallas_solve.apply_thomas_periodic_z
     in interpret mode, pinned (Poisson) and unpinned (Helmholtz), and
-    against cales_tpu's ops/tridiag.thomas_periodic;
+    against cales_tpu's ops/tridiag.thomas_periodic; the card kernel's
+    scheme (ops/tridiag.thomas_periodic_chunked: chunks a lane, cyclic
+    reduction across them) against the same Pallas kernel;
   * mom_rk's 'xy+z' twin (full-3D split, CN fold) against fused_mom_rk in
     interpret mode, and the fold against the unfolded kernel's outputs;
   * correc_updatep's full-3D twin (p += pp + alpha L(pp)) on periodic-z
@@ -123,6 +125,46 @@ def test_thomas_periodic_plain_matches_pallas(variant):
         got = SK.thomas_periodic_z_plain(
             _t(x), _t(js.a), _t(js.b), _t(js.c), lamy=_t(js.lamy * alpha),
             lamx=_t(js.lamx * alpha), alpha=alpha)
+    _close(got, ref, 1e-12)
+
+
+@pytest.mark.parametrize('lanes, min_rows', [(32, 7), (32, 2), (3, 2)])
+@pytest.mark.parametrize('nz', [3, 7, 12, 40])
+@pytest.mark.parametrize('variant', ['poisson', 'helmholtz'])
+def test_thomas_periodic_chunked_matches_pallas(variant, nz, lanes,
+                                                min_rows):
+    """The card kernel's scheme step by step (tridiag.
+    thomas_periodic_chunked: chunks of rows a lane, the chunk-end rows by
+    cyclic reduction, pn and the combine) against the Pallas kernel,
+    pinned on the singular lane or on the alpha-scaled Helmholtz rows, with
+    the kernel's chunks of at least 7 rows on 32 lanes (one chunk up to
+    nz = 14, 5 chunks of 7 or 8 rows at nz = 40), and with chunks of 2
+    rows on 32 lanes (19 chunks of 2 or 3 rows at nz = 40: 38 rows of
+    cyclic reduction) and on 3 lanes (chunks of 3 and 4 rows at nz = 12,
+    13 at nz = 40)."""
+    from cales_torch.ops import tridiag as ttri
+    js, _, _ = _solver(('PP', 'PP', 'PP'), ('c', 'c', 'c'),
+                       ng=(128, 8, nz))
+    x = np.random.default_rng(nz).standard_normal((nz, 8, 128))
+    if variant == 'poisson':
+        tol = float(np.finfo(np.float64).eps * 4.0
+                    * (np.abs(js.lamx).max() + np.abs(js.lamy).max()))
+        rows, lam = (js.a, js.b, js.c), js.lamy[:, None] + js.lamx[None, :]
+        ref = ps.apply_thomas_periodic_z(jnp.asarray(x), *rows, js.lamy,
+                                         js.lamx, pin_singular=True, tol=tol,
+                                         interpret=True)
+    else:
+        alpha, tol = -0.037, None
+        rows = (js.a * alpha, js.b * alpha + 1.0, js.c * alpha)
+        lam = alpha * js.lamy[:, None] + alpha * js.lamx[None, :]
+        ref = ps.apply_thomas_periodic_z(
+            jnp.asarray(x), *rows, js.lamy * alpha, js.lamx * alpha,
+            pin_singular=False, tol=0.0, interpret=True)
+    got = ttri.thomas_periodic_chunked(*map(_t, rows), _t(x), lam=_t(lam),
+                                       pin_tol=tol, lanes=lanes,
+                                       min_rows=min_rows)
+    if variant == 'poisson':
+        assert float(got[-1, 0, 0]) == 0.0        # the pinned gauge
     _close(got, ref, 1e-12)
 
 
