@@ -1,6 +1,9 @@
 """Kernels of another checkout against this one's, on the same card in one
 process: are their outputs bitwise equal (or how far apart), and how long
-does each take?  The kernels whose code moved: mom_rk (a z-march through
+does each take?  The kernels whose code moved: thomas_z (a column a warp
+in shared memory) and smag (a z-march through shared memory, both y modes
+filled as a plane is loaded), beside thomas_periodic and correc_smag,
+whose column code and strain step they share; mom_rk (a z-march through
 shared memory, its y modes filled as a plane is loaded) and
 thomas_periodic (a column a warp in shared memory), dsmag_level1 (on the
 one-pass dsmag's test filter, shared across the plane: dsmag_common.cuh's
@@ -29,12 +32,17 @@ such blocks); mom_rk (with nu_t, the previous RHS and the bulk sums)
 periodic, with y walls, on a slab with random halos, and with the
 splits '1d' and 'xy+z'; thomas_periodic on the uniform periodic
 second difference, pinned on the singular lane and with the alpha-scaled
-Helmholtz rows; fillps and correc_updatep periodic and with y walls;
-smag; correc_smag
+Helmholtz rows; thomas_z on the uniform second difference with Neumann
+ends, pinned on the singular lane ('thomas_z poisson'), with the
+alpha-scaled rows, a shift, boundary planes and the tail row ('thomas_z
+helmholtz') and with the lam alpha shift and the tail row ('thomas_z lam
+alpha'); fillps and correc_updatep periodic and with y walls; smag
+periodic and on a slab with random halos ('smag halo'); correc_smag
 with z walls and the deferred forcing, by the 'D' recipes on both faces
 and by mixed 'N' and 'D' ones ('correc_smag N'); and, in float32
 only, at ng = (512, 512, 512): apply_y with the x operator, mom_rk
-without nu_t (the Taylor-Green vortex's) and thomas_periodic pinned.
+without nu_t (the Taylor-Green vortex's), thomas_periodic pinned and
+thomas_z pinned.
 Outputs are compared in float64 at (nx, ny, nz) = (72, 40, 48) and in
 float32 at --ng (bitwise, and max|this - baseline| / max|baseline|, the
 worst output); mom_rk's partial sums, whose parts differ (blocks of 256
@@ -64,12 +72,15 @@ CASES = ('channel', 'duct', 'cavity', 'z_eig', 'dsmag_level1',
          'apply_x', 'apply_x split', 'apply_x chunked', 'apply_y x+y 512^3',
          'mom_rk', 'mom_rk y walls', 'mom_rk halo', 'mom_rk 1d',
          'mom_rk xy+z', 'mom_rk 512^3', 'thomas_periodic',
-         'thomas_periodic helmholtz', 'thomas_periodic 512^3', 'fillps',
-         'fillps y walls', 'correc_updatep', 'correc_updatep y walls',
-         'smag', 'correc_smag', 'correc_smag N')
+         'thomas_periodic helmholtz', 'thomas_periodic 512^3',
+         'thomas_z helmholtz', 'thomas_z poisson', 'thomas_z lam alpha',
+         'thomas_z 512^3', 'fillps', 'fillps y walls', 'correc_updatep',
+         'correc_updatep y walls', 'smag', 'smag halo', 'correc_smag',
+         'correc_smag N')
 # the cases at their own shape, in float32 only
 BIG = {'apply_y x+y 512^3': (512, 512, 512), 'mom_rk 512^3': (512, 512, 512),
-       'thomas_periodic 512^3': (512, 512, 512)}
+       'thomas_periodic 512^3': (512, 512, 512),
+       'thomas_z 512^3': (512, 512, 512)}
 # the cases whose last two outputs are partial sums, compared as totals
 SUMS = ('mom_rk',)
 
@@ -136,12 +147,18 @@ def _inputs(ng, dtype, seed):
 
 def _tri_inputs(ng, dtype):
     """The periodic second difference on a uniform grid of 2 pi: rows a,
-    b, c (float64) along z, the eigenvalues along y and x (lane (0, 0)
-    singular) and the pin's tolerance."""
+    b, c (float64) along z, and the same with Neumann ends (abc_n), the
+    eigenvalues along y and x (lane (0, 0) singular) and the pin's
+    tolerance; thomas_z's shift and boundary planes."""
     nx, ny, nz = ng
     h = (2 * torch.pi / nz) ** -2
     abc = tuple(torch.full((nz,), q * h, dtype=torch.float64, device='cuda')
                 for q in (1.0, -2.0, 1.0))
+    bn = abc[1].clone()
+    bn[0] = bn[-1] = -h
+    gen = torch.Generator(device='cuda').manual_seed(nz)
+    bc = [torch.randn((ny, nx), generator=gen, device='cuda', dtype=dtype)
+          for _ in range(2)]
 
     def eig(n):
         k = torch.arange(n, dtype=torch.float64, device='cuda')
@@ -150,13 +167,15 @@ def _tri_inputs(ng, dtype):
     lamy, lamx = eig(ny), eig(nx)
     tol = float(torch.finfo(dtype).eps * 4.0 * float(lamx.abs().max()
                                                      + lamy.abs().max()))
-    return dict(abc=abc, lamy=lamy.to(dtype), lamx=lamx.to(dtype), tol=tol)
+    return dict(abc=abc, abc_n=(abc[0], bn, abc[2]), lamy=lamy.to(dtype),
+                lamx=lamx.to(dtype), tol=tol, bc=bc,
+                shift=torch.tensor([0.0173], dtype=dtype, device='cuda'))
 
 
 def _big_inputs(ng, dtype, seed, case):
     """What the case takes at ng: apply_y's field and operators, mom_rk's
-    fields, edge stacks and spacings, or thomas_periodic's field and
-    rows."""
+    fields, edge stacks and spacings, or thomas_periodic's and thomas_z's
+    field and rows."""
     nx, ny, nz = ng
     gen = torch.Generator(device='cuda').manual_seed(seed)
 
@@ -168,7 +187,7 @@ def _big_inputs(ng, dtype, seed, case):
                     e=[rnd(3, ny, nx) for _ in range(5)],
                     dz=1.0 + 0.1 * torch.rand(nz + 2, generator=gen,
                                               device='cuda', dtype=dtype))
-    if case.startswith('thomas_periodic'):
+    if case.startswith('thomas'):
         return dict(f=[rnd(nz, ny, nx)], tri=_tri_inputs(ng, dtype))
     return dict(f=[rnd(nz, ny, nx)], ny_op=rnd(ny, ny, scale=0.1),
                 nx_op=rnd(nx, nx, scale=0.1))
@@ -194,6 +213,18 @@ def _call(mods, d, case):
             kw = dict(lamy=t['lamy'], lamx=t['lamx'], pin=True,
                       tol=t['tol'])
         return (SKm.thomas_periodic_z(d['f'][0], *t['abc'], **kw),)
+    if case.startswith('thomas_z'):
+        t, x = d['tri'], d['f'][0]
+        if case == 'thomas_z helmholtz':
+            kw = dict(alpha=-0.043, shift=t['shift'], bc_lo=t['bc'][0],
+                      bc_hi=t['bc'][1], n_solve=x.shape[0] - 1)
+        elif case == 'thomas_z lam alpha':
+            kw = dict(lamy=t['lamy'] * -0.043, lamx=t['lamx'] * -0.043,
+                      alpha=-0.043, n_solve=x.shape[0] - 1)
+        else:
+            kw = dict(lamy=t['lamy'], lamx=t['lamx'], pin=True,
+                      tol=t['tol'])
+        return (SKm.thomas_z(x, *t['abc_n'], **kw),)
     f, e, ye, dz = d['f'], d['e'], d.get('ye'), d['dz']
     walls = case.endswith('y walls')
     if case.startswith('dsmag_level1'):
@@ -226,9 +257,10 @@ def _call(mods, d, case):
         return Km.correc_updatep(*f[:5], e[2], e[4], 0.01, 40.0, 20.0, dz,
                                  dz, ypp=ye[4] if walls else None,
                                  yv=ye[1][0] if walls else None)
-    if case == 'smag':
+    if case.startswith('smag'):
         return (Km.smag(*f[:3], *e[:3], dz, dz, 40.0, 20.0, 5e-5, d['prof'],
-                        d['prof'], d['nearlo'], *d['tauw']),)
+                        d['prof'], d['nearlo'], *d['tauw'],
+                        yh=d['yh'][:3] if case == 'smag halo' else None),)
     if case.startswith('correc_smag'):
         # the z ghosts' recipes: 'D' on both faces of u and v (no-slip
         # walls), or 'N' and 'D' mixed, with spacings dr that round

@@ -215,8 +215,8 @@ __device__ __forceinline__ double cfma(double a, double b, double c) {
 // velocity at the offset cell (offsets in {-1, 0, 1}); dzci_c = dzci(k),
 // dzci_m = dzci(k-1), dzfi_c = dzfi(k) in the ghost-inclusive metric
 // arrays.  Returns |S| = sqrt(2 S_ij S_ij); sij, when given, receives
-// (S11, S22, S33, S12, S13, S23).  Shared by correc_smag.cu, smag.cu and
-// the dsmag kernels.
+// (S11, S22, S33, S12, S13, S23).  Shared by correc_smag.cu, smag.cu
+// (through ring_strain) and the dsmag kernels.
 template <typename T, class FU, class FV, class FW>
 __device__ __forceinline__ T strain_rate(const FU& U, const FV& V,
                                          const FW& W, T dxi, T dyi,
@@ -260,6 +260,28 @@ __device__ __forceinline__ T strain_rate(const FU& U, const FV& V,
   }
   return csqrt(two * (s11 * s11 + s22 * s22 + s33 * s33 +
                       two * (s12 * s12 + s13 * s13 + s23 * s23)));
+}
+
+// strain_rate at the centre cell co of a z-march's planes in shared memory
+// (smag.cu, correc_smag.cu): u and v on the planes below, at and above the
+// cell (u[0], u[1], u[2]), w below and at it (w[0], w[1]), each plane a
+// tile with a halo of 1, CX values a row.
+template <typename T, int CX>
+__device__ __forceinline__ T ring_strain(const T* const (&u)[3],
+                                         const T* const (&v)[3],
+                                         const T* const (&w)[2], int co,
+                                         T dxi, T dyi, T dzci_c, T dzci_m,
+                                         T dzfi_c) {
+  auto U = [&](int dk, int dj, int di) {
+    return u[dk + 1][co + dj * CX + di];
+  };
+  auto V = [&](int dk, int dj, int di) {
+    return v[dk + 1][co + dj * CX + di];
+  };
+  auto W = [&](int dk, int dj, int di) {
+    return w[dk + 1][co + dj * CX + di];
+  };
+  return strain_rate<T>(U, V, W, dxi, dyi, dzci_c, dzci_m, dzfi_c);
 }
 
 // Static Smagorinsky with van Driest damping (sgs.f90:104-152):

@@ -255,22 +255,17 @@ __global__ void __launch_bounds__(CsGeo<CsTy<T>::TY>::NT, 2)
     cp_async_wait<1>();   // plane k+2, for step k+1
     __syncthreads();
     if (!inside) continue;
-    auto U = [&](int dk, int dj, int di) {
-      return cu(k + dk)[co + dj * CS_CX + di];
-    };
-    auto V = [&](int dk, int dj, int di) {
-      return cv(k + dk)[co + dj * CS_CX + di];
-    };
-    auto W = [&](int dk, int dj, int di) {
-      return cw(k + dk)[co + dj * CS_CX + di];
-    };
+    const T* const uk[3] = {cu(k - 1), cu(k), cu(k + 1)};
+    const T* const vk[3] = {cv(k - 1), cv(k), cv(k + 1)};
+    const T* const wk[2] = {cw(k - 1), cw(k)};
     const int64_t o = k * plane + idx;
-    uo[o] = U(0, 0, 0);
-    vo[o] = V(0, 0, 0);
-    wo[o] = W(0, 0, 0);
+    uo[o] = uk[1][co];
+    vo[o] = vk[1][co];
+    wo[o] = wk[1][co];
     po[o] = pk + ppk;
     // strain rate of the corrected field (common.cuh strain_rate)
-    const T s0 = strain_rate<T>(U, V, W, dxi, dyi, dzci_c, dzci_m, dzfi_c);
+    const T s0 = ring_strain<T, CS_CX>(uk, vk, wk, co, dxi, dyi, dzci_c,
+                                       dzci_m, dzfi_c);
     // van Driest damping with the nearer z wall's shear (sgs.f90:104-149)
     so[o] = have_zwalls ? van_driest_nut(s0, csd2_k, dw_k, tauw, visc)
                         : csd2_k * s0;

@@ -7,29 +7,86 @@
 //   nu_t = (Cs Delta)^2 fd^2 |S| (sgs.f90:69-152), |S| of the
 //   post-correction fill (interiors + z-edge stacks), fd from the nearer z
 //   wall's shear plane; fd = 1 without z walls.
-// One thread per cell, as the nu_t part of correc_smag.cu; the strain rate
-// and the damping are common.cuh's.  The halo variant (a slab of a
+// The strain rate and the damping are common.cuh's, in the same order as
+// the nu_t part of correc_smag.cu.  The halo variant (a slab of a
 // y-sharded mesh, the shard branch of cales_tpu _compute_sgs_kernel) reads
-// the rows -1 and ny of u, v, w from their halos (common.cuh aty<Y_HALO>).
+// the rows -1 and ny of u, v, w from their halos (common.cuh hrow).
+//
+// Design: a z-march through shared memory, as correc_smag.cu's without
+// the correction.  The strain rate at a cell reads 30 values around it: u
+// and v on three planes, w on two, +-1 in x and y.  A block owns a TY x 32
+// (y, x) tile (TY = 16 in float32, 8 in float64; a thread takes RPT = 2
+// rows of a column in float32, 1 in float64) and marches a chunk of z,
+// one plane a step.  The chunks are as many as give the launch about
+// SM_BLOCKS blocks, each of at least 16 planes: the tiles alone are too
+// few to fill the card (256 at 512x256x256 in float32, 128 on a slab of
+// half its rows), and a chunk reloads only the two planes beyond it.  The
+// march keeps a ring of 5 planes of u, v and w on the tile + a halo of 1
+// in shared memory, filled by cp.async three planes ahead: at step k it
+// copies plane k+3 into the slot of plane k-2, takes the strain at plane k
+// from planes k-1, k and k+1 and waits for plane k+2; one barrier a
+// plane, so a step's copies never meet the previous step's reads.  A
+// plane is loaded as zrow reads it (z ghost planes -1 and nz and the
+// rewrite row nz-1 from the edge stacks), x and y wrapped; on a slab the
+// tile's rows -1 and ny come from the halos as the plane is loaded, so
+// both y modes run one body.  A thread's cells of the halo tile and their
+// offsets are the same at every step: it finds them once.  The spacings
+// and profiles are read a step ahead, the wall-shear planes once at the
+// thread's own cells, and nu_t is written a warp a row of 32 cells.  A
+// ragged tile's outside cells are computed on wrapped data and not
+// stored.  The arithmetic of a cell is the parent's (the thread-a-cell
+// kernel reading device memory): its nu_t is bitwise the same.
+// Shared memory: 5 planes x 3 fields x (TY+2) x 34 values, 36,720 bytes in
+// float32 and 40,800 in float64; float32 held to 64 registers (four
+// blocks of 256 threads an SM), no spills.
 //
 // Bound on the H100: memory.  It reads u, v, w once and writes nu_t: 4
 // field streams, 0.54 GB at 512x256x256 f32, a 0.16 ms floor at the data
-// sheet's 3.35 TB/s (about 60 flops a cell, far from the 67 TFLOP/s f32
-// rate).  The stencil takes its 30 neighbour values straight from global
-// memory (__ldg) and relies on L1/L2 for their reuse.
+// sheet's 3.35 TB/s (about 100 flops a cell, far from the 67 TFLOP/s f32
+// rate); the halo of the tile adds 20% to the reads (18 x 34 cells loaded
+// for 16 x 32).  Measured on an NVIDIA H100 80GB HBM3 at 700 W
+// (cales_torch.ab_dsmag and cales_torch.tile_probe, f32): 0.359 ms at
+// 512x256x256 (0.570 for a thread a cell reading device memory; 0.428
+// with a tile marching all of z), 0.394 with halos (0.636); on a slab of
+// half the rows 0.187, with halos 0.205 (0.319 and 0.348 marching all of
+// z).  Its 30 shared-memory reads a cell, the strain's and van Driest's
+// arithmetic (two IEEE divisions, a square root, an exponential) and the
+// copies keep it at 2.2x its bound: one row a thread was 19-31% slower,
+// four 9-23%, tiles of 32 rows 3-9%; other block targets and five blocks
+// an SM were within 3%.
+#include <algorithm>
+
 #include "common.cuh"
 
 namespace cales {
 
-// The f32 halo variant holds to the 6 blocks an SM that the plain one
-// reaches with its 40 registers: its edge-row path would otherwise set the
-// register count (68), and halve the occupancy, of every row.  The others
-// take 0, no minimum, as a bare __launch_bounds__(CALES_THREADS): a
-// minimum of 1 makes ptxas spend registers (the f32 plain variant 40 ->
-// 56, 14% slower).
+// The tile rows (16 in float32, 8 in float64) and a thread's rows of it.
+template <typename T>
+struct SmTy {
+  static constexpr int TY = sizeof(T) == 4 ? 16 : 8;
+  static constexpr int RPT = sizeof(T) == 4 ? 2 : 1;
+};
+
+constexpr int SM_TX = 32;          // the tile's columns
+constexpr int SM_CX = SM_TX + 2;   // with a halo of 1
+constexpr int SM_RING = 5;         // planes in the ring
+// the blocks a launch aims at (about four waves of four blocks on each of
+// an H100's 132 SMs), in z chunks of at least SM_MIN_CHUNK planes: a tile
+// marches one chunk, and a chunk reloads two planes beyond it
+constexpr int SM_BLOCKS = 2048;
+constexpr int SM_MIN_CHUNK = 16;
+
+template <typename T>
+struct SmGeo {
+  static constexpr int TY = SmTy<T>::TY, RPT = SmTy<T>::RPT;
+  static constexpr int NT = TY / RPT * SM_TX;
+  static constexpr int CPL = (TY + 2) * SM_CX;   // one field, one plane
+  // blocks an SM: float32 held to 64 registers a thread
+  static constexpr int MINB = sizeof(T) == 4 ? 1024 / NT : 2;
+};
+
 template <typename T, int YM>
-__global__ void __launch_bounds__(CALES_THREADS,
-                                  YM == Y_HALO && sizeof(T) == 4 ? 6 : 0)
+__global__ void __launch_bounds__(SmGeo<T>::NT, SmGeo<T>::MINB)
     smag_kernel(
     const T* __restrict__ u, const T* __restrict__ v, const T* __restrict__ w,
     const T* __restrict__ ue, const T* __restrict__ ve,
@@ -38,42 +95,117 @@ __global__ void __launch_bounds__(CALES_THREADS,
     const T* __restrict__ dw, const T* __restrict__ nearlo,
     const T* __restrict__ tauw_lo, const T* __restrict__ tauw_hi,
     T* __restrict__ so, YRows<T> hu, YRows<T> hv, YRows<T> hw, int nz,
-    int ny, int nx, int have_zwalls, T dxi, T dyi, T visc) {
-  const int k = blockIdx.y;
-  const int64_t idx =
-      static_cast<int64_t>(blockIdx.x) * CALES_THREADS + threadIdx.x;
+    int ny, int nx, int kc, int have_zwalls, T dxi, T dyi, T visc) {
+  using G = SmGeo<T>;
+  constexpr int TY = G::TY, RPT = G::RPT, NT = G::NT, CPL = G::CPL;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const R = reinterpret_cast<T*>(smem_raw);   // [plane][u, v, w][CPL]
+  const int gx = (nx + SM_TX - 1) / SM_TX;
+  const int x0 = (blockIdx.x % gx) * SM_TX;
+  const int y0 = (blockIdx.x / gx) * TY;
+  const int tid = threadIdx.x;
   const int64_t plane = static_cast<int64_t>(ny) * nx;
-  if (idx >= plane) return;
-  const Cell c(k, idx, nz, ny, nx);
-  // Y: the y mode of the reads, YM on a row next to a slab edge
-  auto strain = [&](auto ytag) {
-    constexpr int Y = decltype(ytag)::value;
-    auto U = [&](int dk, int dj, int di) {
-      return aty<Y>(u, ue, hu, c, dk, dj, di);
-    };
-    auto V = [&](int dk, int dj, int di) {
-      return aty<Y>(v, ve, hv, c, dk, dj, di);
-    };
-    auto W = [&](int dk, int dj, int di) {
-      return aty<Y>(w, we, hw, c, dk, dj, di);
-    };
-    return strain_rate<T>(U, V, W, dxi, dyi, dzci[k + 1], dzci[k],
-                          dzfi[k + 1]);
-  };
-  using Plain = std::integral_constant<int, Y_PERIODIC>;
-  T s0;
-  if constexpr (YM != Y_PERIODIC) {
-    s0 = y_edge_of<YM>(c.j, ny) ? strain(std::integral_constant<int, YM>{})
-                                : strain(Plain{});
-  } else {
-    s0 = strain(Plain{});
+  // the block's planes k0 .. k1-1, a chunk of kc
+  const int k0 = blockIdx.y * kc, k1 = min(nz, k0 + kc);
+
+  // ring plane kz (-1 .. nz): its fields 3 x CPL
+  auto ring = [&](int kz) { return R + ((kz + SM_RING) % SM_RING) * 3 * CPL; };
+
+  // this thread's cells of the halo tile (e = tid + i NT): the offset of
+  // each in its plane of the field (>= 0), or ~ its offset in the plane's
+  // halo (< 0, on a slab); x and y wrapped
+  constexpr int NC = (CPL + NT - 1) / NT;
+  int oc[NC];
+#pragma unroll
+  for (int i = 0; i < NC; ++i) {
+    const int e = tid + i * NT, ly = e / SM_CX, lx = e - ly * SM_CX;
+    const int gy = y0 - 1 + ly, wx = wrap_near(x0 - 1 + lx, nx);
+    const int r = YM == Y_HALO ? (gy < 0 ? 0 : gy == ny ? 1 : -1) : -1;
+    oc[i] = r >= 0 ? ~(r * nx + wx) : wrap_near(gy, ny) * nx + wx;
   }
-  const int64_t o = static_cast<int64_t>(k) * plane + idx;
-  if (have_zwalls) {
-    const T tauw = nearlo[k] > T(0.5) ? tauw_lo[idx] : tauw_hi[idx];
-    so[o] = van_driest_nut(s0, csd2[k], dw[k], tauw, visc);
-  } else {
-    so[o] = csd2[k] * s0;
+
+  // the copy of plane kz (k0-1 .. k1, z-edge rows by zrow); one group a
+  // plane, empty past k1
+  auto load = [&](int kz) {
+    if (kz <= k1) {
+      const T* const fb[3] = {zrow(u, ue, kz, nz, plane),
+                              zrow(v, ve, kz, nz, plane),
+                              zrow(w, we, kz, nz, plane)};
+      const T* yb[3] = {nullptr, nullptr, nullptr};
+      if (YM == Y_HALO) {
+        yb[0] = hrow(hu, kz, 0, nz, nx);
+        yb[1] = hrow(hv, kz, 0, nz, nx);
+        yb[2] = hrow(hw, kz, 0, nz, nx);
+      }
+      T* const dst = ring(kz);
+#pragma unroll
+      for (int i = 0; i < NC; ++i) {
+        const int e = tid + i * NT;
+        if (e >= CPL) continue;
+        const int o = oc[i];
+#pragma unroll
+        for (int f = 0; f < 3; ++f)
+          cp_async(dst + f * CPL + e, o >= 0 ? fb[f] + o : yb[f] + ~o);
+      }
+    }
+    cp_async_commit();
+  };
+
+  // this thread's cells (RPT rows of one column), and the wall-shear
+  // planes of both z walls there
+  const int ty = tid / SM_TX * RPT, tx = tid - tid / SM_TX * SM_TX;
+  const int co = (ty + 1) * SM_CX + tx + 1;
+  const int64_t idx = static_cast<int64_t>(y0 + ty) * nx + x0 + tx;
+  bool inside[RPT];
+  T tlo[RPT], thi[RPT];
+#pragma unroll
+  for (int r = 0; r < RPT; ++r) {
+    inside[r] = y0 + ty + r < ny && x0 + tx < nx;
+    tlo[r] = thi[r] = T(0);
+    if (have_zwalls && inside[r]) {
+      tlo[r] = tauw_lo[idx + r * nx];
+      thi[r] = tauw_hi[idx + r * nx];
+    }
+  }
+  // plane k's spacings and profiles, read a step ahead
+  T dzci_c, dzci_m, dzfi_c, csd2_k, dw_k = T(0);
+  bool lo_k = false;
+  auto profiles = [&](int k) {
+    dzci_c = dzci[k + 1];
+    dzci_m = dzci[k];
+    dzfi_c = dzfi[k + 1];
+    csd2_k = csd2[k];
+    if (have_zwalls) {
+      dw_k = dw[k];
+      lo_k = nearlo[k] > T(0.5);
+    }
+  };
+
+  load(k0 - 1);
+  load(k0);
+  load(k0 + 1);
+  load(k0 + 2);
+  profiles(k0);
+  cp_async_wait<1>();   // planes k0-1, k0 and k0+1
+  __syncthreads();
+  for (int k = k0; k < k1; ++k) {
+    load(k + 3);
+    const T* const uk[3] = {ring(k - 1), ring(k), ring(k + 1)};
+    const T* const vk[3] = {uk[0] + CPL, uk[1] + CPL, uk[2] + CPL};
+    const T* const wk[2] = {uk[0] + 2 * CPL, uk[1] + 2 * CPL};
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) {
+      if (!inside[r]) continue;
+      const T s0 = ring_strain<T, SM_CX>(uk, vk, wk, co + r * SM_CX, dxi,
+                                         dyi, dzci_c, dzci_m, dzfi_c);
+      const T tauw = lo_k ? tlo[r] : thi[r];
+      so[k * plane + idx + r * nx] =
+          have_zwalls ? van_driest_nut(s0, csd2_k, dw_k, tauw, visc)
+                      : csd2_k * s0;
+    }
+    if (k + 1 < k1) profiles(k + 1);
+    cp_async_wait<1>();   // plane k+2, for step k+1
+    __syncthreads();
   }
 }
 
@@ -89,11 +221,24 @@ int launch_smag(const T* u, const T* v, const T* w, const T* ue, const T* ve,
     if ((h[m] != nullptr) != halo)
       return static_cast<int>(cudaErrorInvalidValue);
   const YRows<T> hu{h[0], h[1]}, hv{h[2], h[3]}, hw{h[4], h[5]};
+  using G = SmGeo<T>;
+  constexpr int TY = G::TY;
+  const size_t smem = sizeof(T) * SM_RING * 3 * G::CPL;
   auto kern = halo ? &smag_kernel<T, Y_HALO> : &smag_kernel<T, Y_PERIODIC>;
-  kern<<<plane_grid(nz, ny, nx), CALES_THREADS, 0,
-         static_cast<cudaStream_t>(stream)>>>(
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // z chunks of at least SM_MIN_CHUNK planes, enough for SM_BLOCKS blocks
+  const int tiles = ((ny + TY - 1) / TY) * ((nx + SM_TX - 1) / SM_TX);
+  const int nch = std::max(1, std::min((SM_BLOCKS + tiles - 1) / tiles,
+                                       nz / SM_MIN_CHUNK));
+  const int kc = (nz + nch - 1) / nch;
+  const dim3 grid(static_cast<unsigned>(tiles),
+                  static_cast<unsigned>((nz + kc - 1) / kc));
+  kern<<<grid, G::NT, smem, static_cast<cudaStream_t>(stream)>>>(
       u, v, w, ue, ve, we, dzci, dzfi, csd2, dw, nearlo, tauw_lo, tauw_hi,
-      so, hu, hv, hw, nz, ny, nx, have_zwalls, T(dxi), T(dyi), T(visc));
+      so, hu, hv, hw, nz, ny, nx, kc, have_zwalls, T(dxi), T(dyi), T(visc));
   return static_cast<int>(cudaGetLastError());
 }
 

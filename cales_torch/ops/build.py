@@ -47,7 +47,7 @@ _SIGNATURES = {
     'cales_apply_y': [_P] * 5 + [_I] * 3 + [_P],
     'cales_apply_x': [_P] * 3 + [_I] * 4 + [_P],
     'cales_z_eig': [_P] * 8 + [_I] * 3 + [_D] + [_P],
-    'cales_thomas_z': [_P] * 11 + [_I] * 5 + [_D, _I, _D] + [_P],
+    'cales_thomas_z': [_P] * 10 + [_I] * 5 + [_D, _I, _D] + [_P],
     'cales_thomas_periodic': [_P] * 7 + [_I] * 4 + [_D, _I, _D] + [_P],
     'cales_smag': [_P] * 20 + [_I] * 4 + [_D] * 3 + [_P],
     'cales_dsmag': [_P] * 18 + [_I] * 6 + [_D] * 10 + [_P],

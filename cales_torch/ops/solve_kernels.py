@@ -33,6 +33,9 @@ LAUNCHES = {'apply_y': 0, 'apply_x': 0, 'z_eig': 0, 'thomas_z': 0,
 # the largest nz of csrc/thomas_periodic.cu: 32 lanes of at most 32 rows
 # in float32, the 227 KB of a block's shared memory in float64
 THOMAS_PERIODIC_MAX_NZ = {torch.float32: 1025, torch.float64: 808}
+# and of csrc/thomas_z.cu: 32 lanes of at most 40 rows in float32, the 227
+# KB of a block in float64
+THOMAS_Z_MAX_NZ = {torch.float32: 1280, torch.float64: 808}
 
 
 def reset_launches():
@@ -241,7 +244,8 @@ def thomas_z(arr, a, b, c, lamy=None, lamx=None, pin=False, tol=0.0,
       n_solve: rows n_solve .. nz-1 pass through (the face-staggered
            Dirichlet tail).
     a, b, c: (nz,) float64 coefficient rows (rows from n_solve on are not
-    read)."""
+    read).  On the card a column lives in shared memory: nz up to
+    THOMAS_Z_MAX_NZ."""
     if arr.device.type == 'cpu':
         return thomas_z_plain(arr, a, b, c, lamy, lamx, pin, tol, alpha,
                               shift, bc_lo, bc_hi, n_solve)
@@ -250,6 +254,10 @@ def thomas_z(arr, a, b, c, lamy=None, lamx=None, pin=False, tol=0.0,
     ns = nz if n_solve is None else int(n_solve)
     if not 2 <= ns <= nz:
         raise ValueError(f'thomas_z: n_solve = {ns} outside [2, {nz}]')
+    nz_max = THOMAS_Z_MAX_NZ[arr.dtype]
+    if nz > nz_max:
+        raise ValueError(f'thomas_z: nz = {nz} (at most {nz_max} in '
+                         f'{arr.dtype}: a column is solved in shared memory)')
     if (lamy is None) != (lamx is None) or (bc_lo is None) != (bc_hi is None):
         raise ValueError('thomas_z: pass lamy with lamx, bc_lo with bc_hi')
     for t, shape in ((a, (nz,)), (b, (nz,)), (c, (nz,)), (lamy, (ny,)),
@@ -257,9 +265,8 @@ def thomas_z(arr, a, b, c, lamy=None, lamx=None, pin=False, tol=0.0,
                      (bc_hi, (ny, nx))):
         _shape('thomas_z', t, shape)
     out = torch.empty_like(arr)
-    wscr = torch.empty_like(arr) if lamy is not None else None
     _launch('thomas_z', f'cales_thomas_z_{_suffix(arr)}',
-            *map(_ptr, (arr, out, wscr, a, b, c, lamy, lamx, shift, bc_lo,
+            *map(_ptr, (arr, out, a, b, c, lamy, lamx, shift, bc_lo,
                         bc_hi)),
             ctypes.c_int(nz), ctypes.c_int(ny), ctypes.c_int(nx),
             ctypes.c_int(ns), ctypes.c_int(int(alpha is not None)),

@@ -1,10 +1,12 @@
 """Batched tridiagonal solves along the leading (z) axis, in plain PyTorch.
 
 Counterpart of cales_tpu/ops/tridiag.py: `thomas` (reference
-dgtsv_homebrewed, solver.f90:153-179) is the sweep the Thomas kernel
-(csrc/thomas_z.cu) runs, `thomas_periodic` (reference gaussel_periodic,
+dgtsv_homebrewed, solver.f90:153-179) is the solve of the Thomas kernel
+(csrc/thomas_z.cu), `thomas_periodic` (reference gaussel_periodic,
 solver.f90:109-151) the rank-1-corrected periodic solve of
-csrc/thomas_periodic.cu; each is its kernel's plain version's core.  The
+csrc/thomas_periodic.cu; each is its kernel's plain version's core, and
+`thomas_chunked` and `thomas_periodic_chunked` are the kernels' own
+scheme step by step (chunks a lane, cyclic reduction), for the tests.  The
 singular constant mode of a pure Poisson system is gauge-fixed the way the
 TPU kernels fix it instead of by the reference's eps-regularized pivots:
 lanes with |lam| <= tol get p[0] = 0 (thomas: the first pivot reciprocal
@@ -70,6 +72,114 @@ def thomas_periodic(a, b, c, rhs, lam=None, pin_tol=None):
     return torch.cat([p1 + p2 * pn, pn[None]])
 
 
+def _sweep(ca, bs, cc, rs, lam_, zero, one, pinned=None):
+    """A chunk's sweep, as the kernels' tp_sweep: forward, x_k + A_k P +
+    C_k x_{k+1} = D_k from the pseudo-row x_{-1} = P, then backward, x_k
+    = D_k - A_k P - C_k Q.  ca, bs, cc, rs: the chunk's rows a, b, c and
+    right-hand sides; pinned: where row 0's pivot reciprocal is zeroed.
+    Returns (A, C, D), the last forward row, the first backward row and
+    the last pivot reciprocal."""
+    m = len(rs)
+    A, C, D = [None] * m, [None] * m, [None] * m
+    ap, cp, dp = -one, zero, zero
+    for k in range(m):
+        zf = 1.0 / (bs[k] + lam_ - ca[k] * cp)
+        if k == 0 and pinned is not None:
+            zf = torch.where(pinned, zero, zf)
+        A[k] = -(ca[k] * ap) * zf
+        C[k] = cc[k] * zf
+        D[k] = (rs[k] - ca[k] * dp) * zf
+        ap, cp, dp, zlast = A[k], C[k], D[k], zf
+    last = (A[m - 1], C[m - 1], D[m - 1])
+    ar, cr, dr = zero, -one, zero
+    for k in range(m - 2, -1, -1):
+        D[k] = D[k] - C[k] * dr
+        A[k] = A[k] - C[k] * ar
+        C[k] = -C[k] * cr
+        ar, cr, dr = A[k], C[k], D[k]
+    return (A, C, D), last, (ar, cr, dr), zlast
+
+
+def _pcr(red, lanes, ident):
+    """Parallel cyclic reduction of the chunk ends' rows (a, b, c, d..),
+    one a lane, as the kernels' over shuffles: lanes 1, 2, 4, .. away,
+    identity rows past the warp.  Returns each lane's d / b."""
+    def at(q):
+        return red[q] if 0 <= q < lanes else ident
+    delta = 1
+    while delta < lanes:
+        inv = [1.0 / r[1] for r in red]
+
+        def nb(q):
+            r = at(q)
+            return (r[0], 1.0 / r[1] if q < 0 or q >= lanes else inv[q],
+                    r[2], *r[3:])
+        new = []
+        for q in range(lanes):
+            r, lo, hi = red[q], nb(q - delta), nb(q + delta)
+            k1, k2 = r[0] * lo[1], r[2] * hi[1]
+            new.append((-lo[0] * k1, r[1] - lo[2] * k1 - hi[0] * k2,
+                        -hi[2] * k2, *(d - dl * k1 - dh * k2 for d, dl, dh
+                                        in zip(r[3:], lo[3:], hi[3:]))))
+        red = new
+        delta *= 2
+    return [[d * (1.0 / r[1]) for d in r[3:]] for r in red]
+
+
+def thomas_chunked(a, b, c, rhs, lam=None, pin_tol=None, lanes=32,
+                   min_rows=7):
+    """thomas by the steps of its kernel (csrc/thomas_z.cu, the scheme of
+    csrc/thomas_common.cuh), each column split over `lanes` lanes (a
+    warp).  The n rows go in chunks of at least `min_rows` (and 2)
+    consecutive rows, one a lane, on as many lanes as that leaves (at
+    least one).  A chunk is swept forward, each row in terms of the next
+    and of P, the last unknown of the chunk below (the first chunk has
+    none), then backward, each row in terms of P and Q, its own last
+    unknown.  The chunks' last rows, with the first row of the chunk above
+    substituted, couple only the Q of neighbouring lanes: a tridiagonal
+    system of one row a lane, solved by parallel cyclic reduction (lanes
+    1, 2, 4, .. away; identity rows past the chunks and the warp).  Then
+    each chunk's rows from its P and Q.  pin_tol: a lane with |lam| <=
+    pin_tol has its first pivot reciprocal zeroed (x[0] = 0, the identity
+    row with right-hand side 0), as thomas.  a[0] and c[n-1] are out of
+    the system.  The kernel's arithmetic in plain PyTorch, for the tests;
+    the main path never calls it."""
+    n = rhs.shape[0]
+    nl = max(1, min(lanes, n // max(2, min_rows)))
+    base, extra = divmod(n, nl)
+    lam_ = torch.zeros_like(rhs[0]) if lam is None else lam + 0 * rhs[0]
+    zero, one = torch.zeros_like(rhs[0]), torch.ones_like(rhs[0])
+    pinned = None if pin_tol is None else torch.abs(lam_) <= pin_tol
+    rows, chunks, first = [], [], []
+    for ln in range(nl):
+        m, s = base + (ln < extra), ln * base + min(ln, extra)
+        ca = [zero + (a[s + k] if s + k > 0 else 0.0) for k in range(m)]
+        cc = [zero + (c[s + k] if s + k < n - 1 else 0.0) for k in range(m)]
+        acd, last, fst, _ = _sweep(ca, b[s:s + m], cc, rhs[s:s + m], lam_,
+                                   zero, one, pinned if ln == 0 else None)
+        first.append(fst)
+        chunks.append((s, m, *acd))
+        rows.append(last)
+    ident = (zero, one, zero, zero)
+    red = []
+    for ln in range(lanes):
+        if ln >= nl:
+            red.append(ident)
+            continue
+        am, cm, dm = rows[ln]
+        an, cn_, dn = first[ln + 1] if ln + 1 < nl else (zero, zero, zero)
+        red.append((zero if ln == 0 else am, 1.0 - cm * an, -cm * cn_,
+                    dm - cm * dn))
+    q = [r[0] for r in _pcr(red, lanes, ident)]
+    out = torch.empty_like(rhs)
+    for ln, (s, m, A, C, D) in enumerate(chunks):
+        p = zero if ln == 0 else q[ln - 1]
+        for k in range(m - 1):
+            out[s + k] = D[k] - A[k] * p - C[k] * q[ln]
+        out[s + m - 1] = q[ln]
+    return out
+
+
 def thomas_periodic_chunked(a, b, c, rhs, lam=None, pin_tol=None,
                             lanes=32, min_rows=7):
     """thomas_periodic by the steps of its kernel (csrc/thomas_periodic.cu),
@@ -101,25 +211,10 @@ def thomas_periodic_chunked(a, b, c, rhs, lam=None, pin_tol=None,
         # -a[0] in its P column, row n-1 has no c
         ca = [zero + (a[s + k] if s + k > 0 else -a[0]) for k in range(m)]
         cc = [zero + (c[s + k] if s + k < n - 1 else 0.0) for k in range(m)]
-        # forward: x_k + A_k P + C_k x_{k+1} = D_k
-        A, C, D = [None] * m, [None] * m, [None] * m
-        ap, cp, dp = -one, zero, zero
-        for k in range(m):
-            zf = 1.0 / (b[s + k] + lam_ - ca[k] * cp)
-            A[k] = -(ca[k] * ap) * zf
-            C[k] = cc[k] * zf
-            D[k] = (rhs[s + k] - ca[k] * dp) * zf
-            ap, cp, dp, zlast = A[k], C[k], D[k], zf
-        last = (A[m - 1], C[m - 1], D[m - 1])
-        # backward: x_k = D_k - A_k P - C_k Q, k = m-2 .. 0
-        ar, cr, dr = zero, -one, zero
-        for k in range(m - 2, -1, -1):
-            D[k] = D[k] - C[k] * dr
-            A[k] = A[k] - C[k] * ar
-            C[k] = -C[k] * cr
-            ar, cr, dr = A[k], C[k], D[k]
-        first.append((ar, cr, dr))
-        chunks.append((s, m, A, C, D))
+        acd, last, fst, zlast = _sweep(ca, b[s:s + m], cc, rhs[s:s + m],
+                                       lam_, zero, one)
+        first.append(fst)
+        chunks.append((s, m, *acd))
         e2 = -c[n - 1] * zlast if ln == nl - 1 else zero
         rows.append((last, e2))
     red = []
@@ -132,30 +227,7 @@ def thomas_periodic_chunked(a, b, c, rhs, lam=None, pin_tol=None,
         red.append((zero if ln == 0 else am, 1.0 - cm * an, -cm * cn_,
                     dm - cm * dn, (am if ln == 0 else zero) + e2))
 
-    def at(q):
-        return red[q] if 0 <= q < lanes else ident
-    delta = 1
-    while delta < lanes:
-        inv = [1.0 / r[1] for r in red]
-
-        def nb(q):
-            r = at(q)
-            return (r[0], 1.0 / r[1] if q < 0 or q >= lanes else inv[q],
-                    r[2], r[3], r[4])
-        new = []
-        for q in range(lanes):
-            r, lo, hi = red[q], nb(q - delta), nb(q + delta)
-            k1, k2 = r[0] * lo[1], r[2] * hi[1]
-            new.append((-lo[0] * k1, r[1] - lo[2] * k1 - hi[0] * k2,
-                        -hi[2] * k2, r[3] - lo[3] * k1 - hi[3] * k2,
-                        r[4] - lo[4] * k1 - hi[4] * k2))
-        red = new
-        delta *= 2
-    q1, q2 = [], []
-    for r in red:
-        ib = 1.0 / r[1]
-        q1.append(r[3] * ib)
-        q2.append(r[4] * ib)
+    q1, q2 = map(list, zip(*_pcr(red, lanes, ident)))
     # the chunks' rows; lane 0's P: 0 for the data, -1 for e
     x1s, x2s = [], []
     for ln, (s, m, A, C, D) in enumerate(chunks):

@@ -1159,3 +1159,168 @@ def test_cuda_thomas_periodic_columns(dev, nz, dtype, variant):
         return float((q.double() - ref).abs().max() / ref.abs().max())
     twins = rel(SK.thomas_periodic_z_plain(x, *abc, **kw)), rel(chunked(x, kw))
     assert rel(got) <= 4.0 * max(twins), (rel(got), twins)
+
+
+def _thomas_z_chunked(x, a, b, c, lamy=None, lamx=None, pin=False, tol=0.0,
+                      alpha=None, shift=None, bc_lo=None, bc_hi=None,
+                      n_solve=None):
+    """thomas_z's plain version with the kernel's scheme step by step
+    (tridiag.thomas_chunked) in place of the sweep."""
+    from cales_torch.ops import tridiag
+    nz = x.shape[0]
+    ns = nz if n_solve is None else n_solve
+    a, b, c = SK._coefs(a[:ns], b[:ns], c[:ns], alpha, x.dtype)
+    rhs = x[:ns] if shift is None else x[:ns] + shift
+    if bc_lo is not None:
+        rhs = torch.cat([(rhs[0] + bc_lo)[None], rhs[1:ns - 1],
+                         (rhs[ns - 1] + bc_hi)[None]])
+    lam = None if lamy is None else lamx[None, :] + lamy[:, None]
+    sol = tridiag.thomas_chunked(a, b, c, rhs, lam=lam,
+                                 pin_tol=tol if pin and lam is not None
+                                 else None)
+    tail = x[ns:] if shift is None else x[ns:] + shift
+    return torch.cat([sol, tail])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('variant', ['poisson', 'helmholtz', 'lam_alpha',
+                                     'slab'])
+@pytest.mark.parametrize('dtype', ['float64', 'float32'])
+@pytest.mark.parametrize('nz', [3, 4, 7, 256, 512])
+def test_cuda_thomas_z_columns(dev, nz, dtype, variant):
+    """thomas_z (a column a warp, solved in shared memory: chunks of at
+    least 7 rows a lane, the chunk ends by cyclic reduction) on (nx, ny) =
+    (40, 5) columns of a stretched channel: the pressure rows with lam on
+    the diagonal, pinned on the singular lane (its row 0 exactly 0); w's
+    alpha-scaled rows with a shift, boundary planes and the tail row
+    passed through shifted; w's rows with the lam alpha shift and the tail
+    row (full-3D implicit diffusion); the pressure rows pinned on the
+    second half of lamx, a rank's slab of 20 columns.  Against both twins,
+    the sweep (solve_kernels.thomas_z_plain) and the kernel's scheme step
+    by step (tridiag.thomas_chunked): float64 within 1e-12 of the maximum
+    of each; float32 against the float64 sweep within 4x the larger error
+    of the two float32 twins against it."""
+    from cales_torch import poisson
+    nx, ny = 40, 5
+    dt = getattr(torch, dtype)
+    cfg = Config(ng=(nx, ny, nz), l=(2 * np.pi, np.pi, 2.0), gtype=1,
+                 gr=1.0, dtype='float64', ptransform='mat')
+    grid = make_grid_from_config(cfg)
+    svp = poisson.make_solver(cfg, grid, ('PP', 'PP', 'NN'), ('c', 'c', 'c'))
+    svw = poisson.make_solver(cfg, grid, ('PP', 'PP', 'DD'), ('c', 'c', 'f'))
+    rng = np.random.default_rng(nz)
+
+    def t(a, to=dt):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=to,
+                               device=dev)
+    sv = svp if variant in ('poisson', 'slab') else svw
+    abc = tuple(t(q, torch.float64) for q in (sv.a, sv.b, sv.c))
+    alpha = -0.043
+    xs = 20 if variant == 'slab' else 0
+    x = t(rng.standard_normal((nz, ny, nx - xs)))
+    bcs = rng.standard_normal((2, ny, nx))
+
+    def args(to):
+        eps = np.finfo(np.dtype(dtype)).eps
+        if variant in ('poisson', 'slab'):
+            tol = float(eps * 4.0 * (np.abs(sv.lamx).max()
+                                     + np.abs(sv.lamy).max()))
+            return dict(lamy=t(sv.lamy, to), lamx=t(sv.lamx[xs:], to),
+                        pin=True, tol=tol)
+        if variant == 'helmholtz':
+            return dict(alpha=-0.021, shift=t([0.0173], to),
+                        bc_lo=t(bcs[0], to), bc_hi=t(bcs[1], to),
+                        n_solve=nz - 1)
+        return dict(lamy=t(sv.lamy * alpha, to),
+                    lamx=t(sv.lamx * alpha, to), alpha=alpha,
+                    n_solve=nz - 1)
+    kw = args(dt)
+    SK.reset_launches()
+    got = SK.thomas_z(x, *abc, **kw)
+    torch.cuda.synchronize()
+    assert SK.LAUNCHES['thomas_z'] == 1
+    if variant == 'poisson':
+        assert float(got[0, 0, 0]) == 0.0       # the pinned gauge
+    if dt == torch.float64:
+        _rel_close(got, SK.thomas_z_plain(x, *abc, **kw), 1e-12)
+        _rel_close(got, _thomas_z_chunked(x, *abc, **kw), 1e-12)
+        return
+    ref = SK.thomas_z_plain(x.double(), *abc, **args(torch.float64))
+
+    def rel(q):
+        return float((q.double() - ref).abs().max() / ref.abs().max())
+    twins = (rel(SK.thomas_z_plain(x, *abc, **kw)),
+             rel(_thomas_z_chunked(x, *abc, **kw)))
+    assert rel(got) <= 4.0 * max(twins), (rel(got), twins)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', ['float64', 'float32'])
+def test_cuda_thomas_z_raises_past_its_nz_limit(dev, dtype):
+    """A column is solved in shared memory: past THOMAS_Z_MAX_NZ the
+    wrapper raises (and launches nothing); at the limit it solves."""
+    dt = getattr(torch, dtype)
+    nz_max = SK.THOMAS_Z_MAX_NZ[dt]
+    SK.reset_launches()
+    for nz in (nz_max, nz_max + 1):
+        x = torch.ones((nz, 1, 32), dtype=dt, device=dev)
+        abc = (torch.ones(nz, dtype=torch.float64, device=dev),
+               torch.full((nz,), -4.0, dtype=torch.float64, device=dev),
+               torch.ones(nz, dtype=torch.float64, device=dev))
+        if nz > nz_max:
+            with pytest.raises(ValueError, match='at most'):
+                SK.thomas_z(x, *abc)
+        else:
+            got = SK.thomas_z(x, *abc)
+            _rel_close(got, SK.thomas_z_plain(x, *abc),
+                       1e-12 if dt == torch.float64 else 1e-5)
+    torch.cuda.synchronize()
+    assert SK.LAUNCHES['thomas_z'] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('ymode', ['periodic', 'halo'])
+@pytest.mark.parametrize('dtype, shape', [
+    ('float64', (72, 40, 48)), ('float64', (33, 17, 5)),
+    ('float64', (40, 9, 70)), ('float32', (72, 40, 48)),
+    ('float32', (33, 17, 5)), ('float32', (40, 9, 70))])
+def test_cuda_smag_ragged_tiles(dev, ymode, dtype, shape):
+    """smag (a z-march through shared memory, a tile of 16 x 32 cells in
+    float32 and 8 x 32 in float64, z cut into chunks of at least 16 planes
+    where the tiles are few) against its twin on (nx, ny, nz) shapes whose
+    nx is no multiple of 32 and whose ny is no multiple of the tile's rows:
+    three chunks of 16 planes at nz = 48, one at nz = 5, and four of 18
+    with a ragged last one at nz = 70; periodic in y or on a slab with
+    random halos, with and without z walls: float64 within 1e-12 of nu_t's
+    maximum, float32 within 1e-5, as chip_smoke.py holds its kernels to
+    their float32 twins."""
+    nx, ny, nz = shape
+    dt = getattr(torch, dtype)
+    cfg = Config(ng=shape, l=(2 * np.pi, np.pi, 2.0), gtype=1, gr=1.0,
+                 visci=1000.0, dtype='float64')
+    grid = make_grid_from_config(cfg)
+    rng = np.random.default_rng(17)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, dtype=np.float64),
+                               device=dev).to(dt)
+    u, v, w = (t(0.05 * rng.standard_normal((nz, ny, nx))) for _ in range(3))
+    ue, ve, we = (t(0.05 * rng.standard_normal((3, ny, nx)))
+                  for _ in range(3))
+    yh = None
+    if ymode == 'halo':
+        yh = [tuple(t(0.05 * rng.standard_normal(sh))
+                    for sh in ((nz, 2, nx), (3, 2, nx))) for _ in range(3)]
+    zc = grid.zc[1:nz + 1]
+    tauw = [t(np.abs(rng.standard_normal((ny, nx)))) for _ in range(2)]
+    args = (u, v, w, ue, ve, we, t(grid.dzci), t(grid.dzfi), cfg.dli[0],
+            cfg.dli[1], cfg.visc, t(1e-4 * (1.0 + rng.random(nz))),
+            t(np.minimum(zc, 2.0 - zc)), t((zc <= 1.0).astype(float)), *tauw)
+    tol = 1e-12 if dt == torch.float64 else 1e-5
+    K.reset_launches()
+    for zwalls in (True, False):
+        got = K.smag(*args, have_zwalls=zwalls, yh=yh)
+        ref = K.smag_plain(*args, have_zwalls=zwalls, yh=yh)
+        _rel_close(got, ref, tol)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES['smag'] == 2

@@ -217,6 +217,35 @@ def test_correc_smag_twin_matches_pallas(recipe):
     _close(got[4], s_ref, 1e-12 * np.abs(s_ref).max())
 
 
+@pytest.mark.parametrize('zwalls', [True, False])
+def test_smag_twin_matches_pallas(zwalls):
+    """fused_smag alone: the strain rate of the post-correction fill with
+    van Driest damping from non-zero wall-shear planes (z walls), or
+    (Cs Delta)^2 |S| without z walls."""
+    cfg, grid, d = _setup(9)
+    J, T = _J(d), _T(d)
+    nx, ny, nz = NG
+    dxi, dyi = cfg.dli[:2]
+    setup = tsgs.SGSSetup(cfg, grid, effective_cbcvel(cfg))
+    csd2 = (C_SMAG * setup.delta) ** 2
+    zc = grid.zc[1:nz + 1]
+    dw = np.minimum(zc, cfg.l[2] - zc)
+    nearlo = (zc <= cfg.l[2] - zc).astype(np.float64)
+    rng = np.random.default_rng(11)
+    tlo, thi = np.abs(rng.standard_normal((2, ny, nx)))
+    walls = (dict(dw_1d=dw, nearlo_1d=nearlo, tauw_lo=jnp.asarray(tlo),
+                  tauw_hi=jnp.asarray(thi)) if zwalls else {})
+    ref = np.asarray(pk.fused_smag(
+        J['u'], J['v'], J['w'], J['ue'], J['ve'], J['we'], grid.dzci,
+        grid.dzfi, dxi, dyi, cfg.visc, csd2, interpret=True, **walls))
+    t = lambda a: torch.as_tensor(np.asarray(a, dtype=np.float64))  # noqa: E731
+    got = K.smag_plain(T['u'], T['v'], T['w'], T['ue'], T['ve'], T['we'],
+                       t(grid.dzci), t(grid.dzfi), dxi, dyi, cfg.visc,
+                       t(csd2), t(dw), t(nearlo), t(tlo), t(thi),
+                       have_zwalls=zwalls)
+    _close(got, ref, 1e-12 * np.abs(ref).max())
+
+
 def test_wrappers_take_the_twin_on_cpu_without_launching():
     cfg, grid, d = _setup(6)
     T = _T(d)

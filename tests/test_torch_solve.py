@@ -144,6 +144,87 @@ def test_tridiag_thomas_matches_jax():
     _close(got, ref, 1e-13)
 
 
+# the Pallas kernel's solves of test_thomas_chunked_matches_pallas, one
+# per (variant, nz, n_solve): the lane splits share them
+_PALLAS_THOMAS = {}
+
+
+def _thomas_case(variant, nz, ns):
+    """The seeded inputs of a Thomas case on a (128, 8, nz) channel grid:
+    the pressure system's rows with lam = lamy + lamx, pinned, or w's
+    Crank-Nicolson rows (alpha-scaled) with a shift and boundary planes;
+    rows ns .. nz-1 pass through.  Returns (inputs, the Pallas kernel's
+    solve in interpret mode)."""
+    ng = (128, 8, nz)
+    cfg = _cfg(ng=ng)
+    grid = make_grid_from_config(cfg)
+    rng = np.random.default_rng(nz)
+    x = rng.standard_normal((nz, 8, 128))
+    if variant == 'poisson':
+        sv = jpoisson.make_solver(cfg, grid, CHAN_P, ('c', 'c', 'c'))
+        tol = float(np.finfo(np.float64).eps * 4.0
+                    * (np.abs(sv.lamx).max() + np.abs(sv.lamy).max()))
+        case = dict(x=x, rows=(sv.a, sv.b, sv.c), lam=(sv.lamy, sv.lamx),
+                    tol=tol, alpha=None, shift=0.0, bc=None)
+    else:
+        sv = jpoisson.make_solver(cfg, grid, ('PP', 'PP', 'DD'),
+                                  ('c', 'c', 'f'))
+        alpha = -0.043
+        case = dict(x=x, rows=(sv.a * alpha, sv.b * alpha + 1.0,
+                               sv.c * alpha), lam=None, tol=None,
+                    alpha=alpha, shift=0.0173,
+                    bc=rng.standard_normal((2, 8, 128)))
+    key = (variant, nz, ns)
+    if key not in _PALLAS_THOMAS:
+        rows = tuple(q[:ns] for q in case['rows'])
+        if variant == 'poisson':
+            ref = ps.apply_thomas_z(jnp.asarray(x), *rows, *case['lam'],
+                                    pin_singular=True, tol=case['tol'],
+                                    interpret=True, n_solve=ns)
+        else:
+            ref = ps.apply_thomas_helmholtz_z(
+                jnp.asarray(x), *rows, interpret=True, shift=case['shift'],
+                n_solve=ns, bc_lo=jnp.asarray(case['bc'][0]),
+                bc_hi=jnp.asarray(case['bc'][1]))
+        _PALLAS_THOMAS[key] = np.asarray(ref)
+    return case, _PALLAS_THOMAS[key]
+
+
+@pytest.mark.parametrize('lanes, min_rows', [(32, 7), (32, 2), (3, 2)])
+@pytest.mark.parametrize('tail', [0, 1])
+@pytest.mark.parametrize('nz', [3, 4, 7, 12, 40])
+@pytest.mark.parametrize('variant', ['poisson', 'helmholtz'])
+def test_thomas_chunked_matches_pallas(variant, nz, tail, lanes, min_rows):
+    """The card kernel's scheme step by step (tridiag.thomas_chunked:
+    chunks of rows a lane, the chunk ends by cyclic reduction, each
+    chunk's rows from its P and Q, the pinned lane's first pivot zeroed)
+    against the Pallas kernel: the pressure rows with lam on the diagonal,
+    the singular lane pinned (row 0 exactly 0), or w's alpha-scaled rows
+    with a shift and boundary planes on rows 0 and n_solve - 1; all nz
+    rows solved, or the tail row passed through (n_solve = nz - 1).  The
+    kernel's chunks of at least 7 rows on 32 lanes (one chunk below 14
+    rows), chunks of 2 rows on 32 lanes (20 chunks of 2 at nz = 40) and
+    on 3 lanes (chunks of 3 and 4 rows at nz = 12)."""
+    ns = nz - tail
+    case, ref = _thomas_case(variant, nz, ns)
+    x = _t(case['x'])
+    a, b, c = (_t(q[:ns]) for q in case['rows'])
+    rhs = x[:ns] + case['shift']
+    lam = None
+    if variant == 'poisson':
+        lamy, lamx = case['lam']
+        lam = _t(lamy)[:, None] + _t(lamx)[None, :]
+    else:
+        rhs[0] += _t(case['bc'][0])
+        rhs[ns - 1] += _t(case['bc'][1])
+    sol = ttri.thomas_chunked(a, b, c, rhs, lam=lam, pin_tol=case['tol'],
+                              lanes=lanes, min_rows=min_rows)
+    got = torch.cat([sol, x[ns:] + case['shift']])
+    if variant == 'poisson':
+        assert float(got[0, 0, 0]) == 0.0     # the pinned gauge
+    _close(got, ref, 1e-12)
+
+
 # -------------------------------------------------------------- solves
 
 def _compatible(rhs, grid):
