@@ -201,6 +201,15 @@ __device__ __forceinline__ float csqrt(float x) { return sqrtf(x); }
 __device__ __forceinline__ double csqrt(double x) { return sqrt(x); }
 __device__ __forceinline__ float cabs(float x) { return fabsf(x); }
 __device__ __forceinline__ double cabs(double x) { return fabs(x); }
+__device__ __forceinline__ float cln(float x) { return logf(x); }
+__device__ __forceinline__ double cln(double x) { return log(x); }
+// a product rounded on its own, never merged into an FMA
+__device__ __forceinline__ float cmul_rn(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ double cmul_rn(double a, double b) {
+  return __dmul_rn(a, b);
+}
 __device__ __forceinline__ float cfma(float a, float b, float c) {
   return fmaf(a, b, c);
 }

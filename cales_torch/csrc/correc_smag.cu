@@ -10,7 +10,9 @@
 //   with van Driest damping from the nearer z wall's shear, or (Cs Delta)^2
 //   |S| without z walls.  u and v at the z ghost rows follow the
 //   post-correction fill's recipe (zrec: 'D' -> 2b - q, 'N' -> -+dr b + q,
-//   q the corrected boundary plane); w's lower wall face keeps its
+//   q the corrected boundary plane; on a wall-modelled face 'E' ->
+//   (1 + b) q - b q2, the one-sided extrapolation from q and the corrected
+//   next-inner plane q2, sgs.f90:682-767); w's lower wall face keeps its
 //   corrected value (impose_norm_bc=.false.), so its generic correction is
 //   the post-fill value.
 //
@@ -32,16 +34,20 @@
 // w - dt dzci (pp(k+1) - pp(k)), in this order of operations); the z ghost
 // planes -1 and nz of u and v are the fill's recipes of the corrected
 // planes 0 and nz-1, w's plane -1 the generic correction of the edge
-// stack's row.  It also reads its centre cell's p and pp and the step's
-// profiles.  Past one barrier it takes the strain rate at its centre cell
-// from C and writes u, v, w, p + pp and nu_t of plane k.  One barrier a
-// plane: the rings are one plane deeper than the stencil, so a step's
-// writes never meet the previous step's reads.  A thread's cells of the
-// halo tile, and their wrapped offsets in a plane, are the same at every
-// step: it finds them once.  Each input is read from device memory about
-// once (the halo, read by two blocks, is meant to hit L2).  x and y wrap
-// when a plane is loaded; a ragged tile's outside cells are computed on
-// wrapped data and not stored.
+// stack's row.  An 'E' ghost plane needs the corrected plane beside the
+// boundary one: the lower one is formed at step 0, after plane 1, the
+// upper one at step nz-1 from planes nz-1 and nz-2, both still in the
+// ring; a thread forms the same cells of every plane, so neither needs a
+// barrier of its own.  The thread also reads its centre cell's p and pp
+// and the step's profiles.  Past one barrier it takes the strain rate at
+// its centre cell from C and writes u, v, w, p + pp and nu_t of plane k.
+// One barrier a plane: the rings are one plane deeper than the stencil,
+// so a step's writes never meet the previous step's reads.  A thread's
+// cells of the halo tile, and their wrapped offsets in a plane, are the
+// same at every step: it finds them once.  Each input is read from device
+// memory about once (the halo, read by two blocks, is meant to hit L2).  x
+// and y wrap when a plane is loaded; a ragged tile's outside cells are
+// computed on wrapped data and not stored.
 // Shared memory: R 4 x (3 (TY+2) x 34 + (TY+3) x 35), C 11 (TY+2) x 34
 // words: 66,944 bytes in f32, 74,880 in f64; two blocks an SM (64
 // registers a thread in f32).
@@ -57,17 +63,24 @@ namespace cales {
 
 template <typename T>
 struct ZRec {  // one face's z-ghost recipe of the post-correction fill
-  int letter;  // 0: 'D', 1: 'N'
+  int letter;  // 0: 'D', 1: 'N', 2: 'E' (b = fac_ex, dr unused)
   T b, dr;
 };
+constexpr int ZREC_E = 2;
 
-// The ghost value from the corrected boundary plane's q1.  The 'N'
-// recipe's product is fused into its sum by hand, as the compiler fused
-// it in straight-line code: inside the z-march's loop it may hoist the
-// loop-invariant product and round it apart.
-template <typename T>
-__device__ __forceinline__ T ghost(const ZRec<T>& r, int side, T q1) {
+// The ghost value from the corrected boundary plane's q1 (and, for 'E',
+// the corrected next-inner plane q2).  The 'N' recipe's product is fused
+// into its sum by hand, as the compiler fused it in straight-line code:
+// inside the z-march's loop it may hoist the loop-invariant product and
+// round it apart.  The 'E' recipe rounds its two products apart, in the
+// twin's order of operations; only the kernel's WM instantiation (a
+// wall-modelled face among the four recipes) has it, so the others keep
+// the code of the 'D' and 'N' recipes alone.
+template <bool WM, typename T>
+__device__ __forceinline__ T ghost(const ZRec<T>& r, int side, T q1, T q2) {
   if (r.letter == 0) return T(2) * r.b - q1;
+  if (WM && r.letter == ZREC_E)
+    return cmul_rn(T(1) + r.b, q1) - cmul_rn(r.b, q2);
   return side == 0 ? cfma(-r.dr, r.b, q1) : cfma(r.dr, r.b, q1);
 }
 
@@ -90,7 +103,7 @@ struct CsGeo {
   static constexpr int WORDS = 4 * RPL + 11 * CPL;
 };
 
-template <typename T>
+template <typename T, bool WM>
 __global__ void __launch_bounds__(CsGeo<CsTy<T>::TY>::NT, 2)
     correc_smag_kernel(
         const T* __restrict__ u, const T* __restrict__ v,
@@ -184,8 +197,8 @@ __global__ void __launch_bounds__(CsGeo<CsTy<T>::TY>::NT, 2)
     return raw(kz, 2)[e] -
            dtrk * dzci[kz + 1] * (raw(kz + 1, 3)[pe] - raw(kz, 3)[pe]);
   };
-  // before the march: u and v of plane 0 and their ghost plane -1, w of
-  // plane -1
+  // before the march: u and v of plane 0 and their ghost plane -1 (an
+  // 'E' ghost waits for plane 1), w of plane -1
   auto form_first = [&]() {
     for (int e = tid; e < CPL; e += NT) {
       const int pe = e + e / CS_CX;
@@ -193,8 +206,10 @@ __global__ void __launch_bounds__(CsGeo<CsTy<T>::TY>::NT, 2)
       corrected_uv(0, e, pe, a, b);
       cu(0)[e] = a;
       cv(0)[e] = b;
-      cu(-1)[e] = ghost(ru_lo, 0, a);
-      cv(-1)[e] = ghost(rv_lo, 0, b);
+      if (!WM || ru_lo.letter != ZREC_E)
+        cu(-1)[e] = ghost<WM>(ru_lo, 0, a, a);
+      if (!WM || rv_lo.letter != ZREC_E)
+        cv(-1)[e] = ghost<WM>(rv_lo, 0, b, b);
       cw(-1)[e] = corrected_w(-1, e, pe);
     }
   };
@@ -209,10 +224,21 @@ __global__ void __launch_bounds__(CsGeo<CsTy<T>::TY>::NT, 2)
         cu(k + 1)[e] = a;
         cv(k + 1)[e] = b;
       } else {
-        cu(nz)[e] = ghost(ru_hi, 1, cu(nz - 1)[e]);
-        cv(nz)[e] = ghost(rv_hi, 1, cv(nz - 1)[e]);
+        const T u1 = cu(nz - 1)[e], v1 = cv(nz - 1)[e];
+        cu(nz)[e] = ghost<WM>(ru_hi, 1, u1, WM ? cu(nz - 2)[e] : u1);
+        cv(nz)[e] = ghost<WM>(rv_hi, 1, v1, WM ? cv(nz - 2)[e] : v1);
       }
       cw(k)[e] = corrected_w(k, e, pe);
+    }
+  };
+  // after step 0's form: an 'E' ghost plane -1 from planes 0 and 1, on the
+  // cells this thread formed there
+  auto form_e_lo = [&]() {
+    for (int e = tid; e < CPL; e += NT) {
+      if (ru_lo.letter == ZREC_E)
+        cu(-1)[e] = ghost<WM>(ru_lo, 0, cu(0)[e], cu(1)[e]);
+      if (rv_lo.letter == ZREC_E)
+        cv(-1)[e] = ghost<WM>(rv_lo, 0, cv(0)[e], cv(1)[e]);
     }
   };
 
@@ -241,6 +267,7 @@ __global__ void __launch_bounds__(CsGeo<CsTy<T>::TY>::NT, 2)
   for (int k = 0; k < nz; ++k) {
     load(k + 3);
     form(k);
+    if (WM && k == 0) form_e_lo();
     // the centre's p and pp, and the step's profiles, read before the
     // barrier
     T pk = T(0), ppk = T(0);
@@ -288,15 +315,18 @@ int launch_correc_smag(const T* u, const T* v, const T* w, const T* pp,
   const ZRec<T> ru_hi{lt_uhi, T(b_uhi), T(dr_uhi)};
   const ZRec<T> rv_lo{lt_vlo, T(b_vlo), T(dr_vlo)};
   const ZRec<T> rv_hi{lt_vhi, T(b_vhi), T(dr_vhi)};
+  // the WM instantiation where a face takes the wall model's 'E' recipe
+  const bool wm = lt_ulo == ZREC_E || lt_uhi == ZREC_E || lt_vlo == ZREC_E ||
+                  lt_vhi == ZREC_E;
+  auto kernel = wm ? correc_smag_kernel<T, true> : correc_smag_kernel<T, false>;
   constexpr int TY = CsTy<T>::TY;
   const size_t smem = sizeof(T) * CsGeo<TY>::WORDS;
   cudaError_t err = cudaFuncSetAttribute(
-      correc_smag_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int nblk = ((ny + TY - 1) / TY) * ((nx + CS_TX - 1) / CS_TX);
-  correc_smag_kernel<T><<<nblk, CsGeo<TY>::NT, smem,
-                          static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<nblk, CsGeo<TY>::NT, smem, static_cast<cudaStream_t>(stream)>>>(
       u, v, w, pp, p, ue, ve, we, ppe, dzci, dzfi, csd2, dw, nearlo, tauw_lo,
       tauw_hi, fuv, uo, vo, wo, po, so, nz, ny, nx, have_zwalls, ru_lo,
       ru_hi, rv_lo, rv_hi, T(dtrk), T(dtrk * dxi), T(dtrk * dyi), T(dxi),

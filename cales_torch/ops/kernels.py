@@ -17,6 +17,9 @@ a launch counter.
   dsmag_level2    csrc/dsmag_level2.cu  ops/pallas_dsmag.py
                                         fused_dsmag_level2 ('channel',
                                         'duct', 'cavity')
+  wallmodel       csrc/wallmodel.cu     no Pallas kernel: wallmodel.py
+  (wm_planes)                           z_wall_wm_planes and timeloop.py
+                                        _wm_bcs_fast, in XLA
 
 Input contract (the JAX kernels'): interior (nz, ny, nx) fields plus
 (3, ny, nx) z-edge stacks [padded row 0, padded row nz, padded row nz+1];
@@ -42,12 +45,15 @@ import ctypes
 import torch
 
 from . import stencil as st
+from .. import wallmodel as wmod
 
 LAUNCHES = {'mom_rk': 0, 'fillps': 0, 'correc_smag': 0, 'correc_updatep': 0,
-            'smag': 0, 'dsmag': 0, 'dsmag_level1': 0, 'dsmag_level2': 0}
+            'smag': 0, 'dsmag': 0, 'dsmag_level1': 0, 'dsmag_level2': 0,
+            'wallmodel': 0}
 
-# z-ghost recipe letters understood by the correction kernel
-_LETTER_CODE = {'D': 0, 'N': 1}
+# z-ghost recipe letters understood by the correction kernel ('E': the
+# wall model's one-sided extrapolation)
+_LETTER_CODE = {'D': 0, 'N': 1, 'E': 2}
 # mom_rk's explicit/implicit diffusion split (csrc/mom_rk.cu SPLIT)
 _SPLIT_CODE = {None: 0, '1d': 1, 'xy+z': 2}
 
@@ -99,12 +105,16 @@ def padded(q, e, y=None, h=None):
     return wrap_x(ypad(zpad(q, e), zpad(*y)))
 
 
-def ghost_row(rec, side, q1):
+def ghost_row(rec, side, q1, q2=None):
     """Scalar-BC z-ghost plane from the first (side 0) or last (side 1)
-    interior plane; rec = (lt_lo, b_lo, dr_lo, lt_hi, b_hi, dr_hi)."""
+    interior plane q1; rec = (lt_lo, b_lo, dr_lo, lt_hi, b_hi, dr_hi).
+    'E' (a wall-modelled face, b = fac_ex): the one-sided extrapolation
+    (1 + b) q1 - b q2 with q2 the next-inner plane (sgs.f90:682-767)."""
     lt, b, dr = rec[3 * side:3 * side + 3]
     if lt == 'D':
         return 2.0 * b - q1
+    if lt == 'E':
+        return (1.0 + b) * q1 - b * q2
     return (-dr * b + q1) if side == 0 else (dr * b + q1)
 
 
@@ -170,12 +180,13 @@ def correc_smag_plain(u, v, w, pp, p, ue, ve, we, ppe, dtrk, dxi, dyi,
     uc, vc, wc, vlo = st.correc(up, vp, wp, ppad, dtrk, dxi, dyi, dzci)
     pn = st.updatep(ppad, p, None, False, False, dxi, dyi, dzci, dzfi)
     # post-correction fill for the strain: u, v z ghosts by the BC recipes
-    # of the corrected boundary planes; w's lower wall face is the
-    # corrected ghost-range entry (impose_norm_bc=.false.)
-    ug = wrap_xy(torch.cat([ghost_row(zrec[0], 0, uc[0])[None], uc,
-                            ghost_row(zrec[0], 1, uc[-1])[None]]))
-    vg = wrap_xy(torch.cat([ghost_row(zrec[1], 0, vc[0])[None], vc,
-                            ghost_row(zrec[1], 1, vc[-1])[None]]))
+    # of the corrected boundary planes (and the next-inner ones for 'E');
+    # w's lower wall face is the corrected ghost-range entry
+    # (impose_norm_bc=.false.)
+    ug = wrap_xy(torch.cat([ghost_row(zrec[0], 0, uc[0], uc[1])[None], uc,
+                            ghost_row(zrec[0], 1, uc[-1], uc[-2])[None]]))
+    vg = wrap_xy(torch.cat([ghost_row(zrec[1], 0, vc[0], vc[1])[None], vc,
+                            ghost_row(zrec[1], 1, vc[-1], vc[-2])[None]]))
     wcw = wrap_xy(wc)
     wg = torch.cat([vlo[2][None], wcw, wcw[-1:]])   # top row never read
     s0 = st.strain_rate(ug, vg, wg, dzci, dzfi, dxi, dyi)
@@ -571,7 +582,8 @@ def correc_smag(u, v, w, pp, p, ue, ve, we, ppe, dtrk, dxi, dyi, dzci, dzfi,
     field, in one pass (correc.f90 + updatep.f90 + sgs.f90:69-152).
 
     ue/ve/we: the PREDICTION fill's edge stacks; zrec: (u, v) z-ghost
-    recipes of the post-correction fill; csd2, dw, nearlo: (nz,) profiles
+    recipes of the post-correction fill ('D', 'N' or, on a wall-modelled
+    face, 'E'; see ghost_row); csd2, dw, nearlo: (nz,) profiles
     (Cs Delta)^2, nearest-wall distance, 1 where the lower wall is nearer;
     tauw_lo/hi: (ny, nx) wall-shear planes.  Returns (u, v, w, p, visct)."""
     if _on_cpu(u):
@@ -590,7 +602,10 @@ def correc_smag(u, v, w, pp, p, ue, ve, we, ppe, dtrk, dxi, dyi, dzci, dzfi,
             lt, b, dr = rec[3 * side:3 * side + 3]
             if lt not in _LETTER_CODE:
                 raise ValueError(f'correc_smag: z-ghost letter {lt!r} '
-                                 '(D or N)')
+                                 '(D, N or E)')
+            if lt == 'E' and nz < 2:
+                raise ValueError(f'correc_smag: the E recipe takes nz >= 2, '
+                                 f'got {nz}')
             recs += [ctypes.c_int(_LETTER_CODE[lt]), ctypes.c_double(b),
                      ctypes.c_double(dr)]
     outs = [torch.empty_like(u) for _ in range(5)]
@@ -798,3 +813,51 @@ def dsmag_level2(fu, fv, fw, fue, fve, fwe, fm, lij, s0, alph2, dzci, dzfi,
             ctypes.c_int(nz), ctypes.c_int(ny), ctypes.c_int(nx),
             ctypes.c_int(_DSMAG_AVG[avg]), d(dxi), d(dyi))
     return num if avg == 'cavity' else (num, den)
+
+
+# the wall-model kernel's plain twin lives with the model (wallmodel.py)
+wm_planes_plain = wmod.wm_planes_plain
+
+
+def wm_planes(u, v, wm, fuv=None, pp=None, dtrk=0.0, dxi=0.0, dyi=0.0):
+    """The wall model's Neumann planes of every wall-modelled z face
+    (wm: wallmodel.ZWallModel, one or two faces) in one launch: a
+    (len(wm.faces), 2, ny+2, nx+2) tensor [face][bcu, bcv] from the
+    interior u and v (periodic x and y), their rows sampled as they are,
+    with the deferred forcing fuv = (fu, fv) added, or corrected by pp
+    (fuv and pp given; see wallmodel.wm_planes_plain)."""
+    if pp is not None and fuv is None:
+        raise ValueError('wm_planes: the corrected rows take fuv with pp')
+    if _on_cpu(u):
+        return wm_planes_plain(u, v, wm, fuv=fuv, pp=pp, dtrk=dtrk, dxi=dxi,
+                               dyi=dyi)
+    nz, ny, nx = u.shape
+    faces = tuple(wm.faces)
+    if not 1 <= len(faces) <= 2:
+        raise ValueError(f'wm_planes: {len(faces)} faces (one or two)')
+    for f in faces:
+        if not (0 <= f.r1 < nz and 0 <= f.r2 < nz):
+            raise ValueError(f'wm_planes: rows {f.r1}, {f.r2} outside '
+                             f'0 .. {nz - 1}')
+        if f.mtype not in (wmod.WM_LOG, wmod.WM_LAM):
+            raise ValueError(f'wm_planes: wall model type {f.mtype}')
+    _check('wallmodel', u, (u, v, pp),
+           profiles=() if fuv is None else ((fuv, 2),))
+    out = u.new_empty((len(faces), 2, ny + 2, nx + 2))
+    mode = 0 if fuv is None else 1 if pp is None else 2
+    f0, f1 = faces[0], faces[-1]
+    d, i = ctypes.c_double, ctypes.c_int
+    h, visc = wm.h, wm.visc
+    dl = 0.5 * wm.l1d
+    _launch('wallmodel', f'cales_wallmodel_{_suffix(u)}',
+            *map(_ptr, (u, v, pp, fuv, out)), i(ny), i(nx), i(len(faces)),
+            i(mode), i(wmod.N_NEWTON),
+            *(i(q) for f in (f0, f1) for q in (f.mtype, f.r1, f.r2)),
+            *(d(q) for f in (f0, f1)
+              for q in (1.0 - f.coef, f.coef, f.sgn * (1.0 / visc), f.umag,
+                        f.vmag)),
+            d(dtrk * dxi), d(dtrk * dyi), d(h), d(visc),
+            d(visc / h * wmod.LOG_FLOOR), d(h / dl * (2.0 - h / dl)),
+            d(2.0 / dl), d(1.0 / wmod.KAP_LOG), d(wmod.B_LOG),
+            d(torch.finfo(u.dtype).eps))
+    return out

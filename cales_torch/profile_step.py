@@ -2,7 +2,8 @@
 
     python -m cales_torch.profile_step
         [--case les|les-mat|les-imp|dns|dns-imp3d|dsmag|dsmag-blow|duct|
-                cavity|tgv|tgv-fft|tri|tri-imp3d] [--ng NXxNYxNZ] [--steps 3]
+                cavity|tgv|tgv-fft|tri|tri-imp3d|wmles] [--ng NXxNYxNZ]
+        [--steps 3]
 
 Steps one of the channel configurations under torch.profiler and prints
 the device time per kernel and per stage: the CUDA kernels, the Poisson
@@ -27,8 +28,10 @@ examples/taylor_green_vortex_3d at 512^3 with ptransform='mat' (apply_y and
 the periodic Thomas kernel from nz >= 384), 'tgv-fft' the same by 'fft'
 (the example's 'auto'); 'tri' bench.py's triperiodic_dns ('mat', z_eig)
 and 'tri-imp3d' the same with full-3D implicit diffusion (thomas_periodic
-Helmholtz solves).  The grid is 512x256x256, 512^3 for the tgv cases,
-unless --ng says otherwise.  The device's idle share is 1 - (device busy
+Helmholtz solves); 'wmles' bench.py's wmles_channel (the log-law wall model
+on both z walls, hwm 0.1, visci 125 000, smag, 'mat': the wallmodel kernel
+and correc_smag's 'E' z-ghost recipe).  The grid is 512x256x256, 512^3
+for the tgv cases, unless --ng says otherwise.  The device's idle share is 1 - (device busy
 time / wall time of the profiled window).
 Needs a CUDA device.
 """
@@ -58,6 +61,7 @@ STAGES = (
     ('dsmag_level1', ('dsmag_level1_kernel',)),
     ('dsmag_level2', ('dsmag_level2_kernel',)),
     ('dsmag', ('dsmag_kernel',)),
+    ('wallmodel', ('wallmodel_kernel',)),
     ('solve: fft', ('fft', 'FFT', 'regular_fft', 'vector_fft', 'radix')),
     ('solve: z matmul', ('gemm', 'Gemm', 'sm90_', 'cutlass', 'ampere_sgemm',
                          'sgemm')),
@@ -82,7 +86,8 @@ TGV = dict(ng=(512, 512, 512), l=(2 * np.pi,) * 3, gtype=1, gr=0.0,
            **PERIODIC_BCS)
 TRI = dict(TGV, ng=(512, 256, 256), gtype=0)
 # bench.py _matrix_configs: the channel-LES headline, channel_dns_impdiff,
-# duct_les_dsmag and cavity_les_dsmag; validation/dsmag_channel.py:77-89
+# duct_les_dsmag, cavity_les_dsmag and wmles_channel;
+# validation/dsmag_channel.py:77-89
 # for the dynamic model in the channel
 CASES = {
     'les': dict(visci=20_000.0, sgstype='smag', ptransform='fft'),
@@ -114,6 +119,8 @@ CASES = {
                    bcvel=(((0.0,) * 3,) * 3,
                           ((0.0, 0.0, 0.0), (0.0, 0.0, 0.0),
                            (0.0, 1.0, 0.0))), **DUCT_BCS),
+    'wmles': dict(visci=125_000.0, sgstype='smag', ptransform='mat',
+                  lwm=((0, 0, 1), (0, 0, 1)), hwm=0.1, **CHAN_BCS),
 }
 
 

@@ -8,7 +8,11 @@ Smagorinsky, and the DNS (sgstype 'none'), each with explicit, z-implicit
 implicit; and for the y-walled classes, the square duct and the
 spanwise-periodic cavity, with dynamic Smagorinsky ('duct', 'cavity' or
 'channel' averaging) or none, explicit diffusion.  z walls may transpire
-(a uniform w through them).
+(a uniform w through them).  The channel's z walls may carry the wall
+model (log-law or laminar, cales_tpu's _wm_z_fast route) with static
+Smagorinsky and explicit diffusion, or with sgstype 'none': its Neumann
+planes come from kernels.wm_planes (csrc/wallmodel.cu) at every fill that
+reads them.
 One RK substep runs:
   1. kernels.mom_rk          momentum RHS + RK3 update (+ forcing partial
                              sums; with implicit diffusion the explicit/
@@ -70,6 +74,7 @@ from .grid import Grid
 from . import device as devmod
 from . import poisson
 from . import sgs as sgsmod
+from . import wallmodel as wmod
 from .ops import boundary as bnd
 from .ops import kernels
 from .ops import stencil as st
@@ -139,7 +144,7 @@ def unsupported(cfg: Config) -> list[str]:
     out = []
     cbc = effective_cbcvel(cfg)
     if any(cfg.lwm[ib][d] != 0 for ib in range(2) for d in range(3)):
-        out.append('wall model (lwm): ROADMAP queue 1, WMLES')
+        out += _wm_refuse(cfg)
     if cfg.sgstype == 'dsmag':
         out += sgsmod.dsmag_unsupported(cfg)
         out += _dsmag_kernel_refuses(cfg, cbc)
@@ -165,6 +170,38 @@ def unsupported(cfg: Config) -> list[str]:
                for d in range(3)])
     if any(np.ndim(x) != 0 for x in vals):
         out.append('plane-valued BC values: ROADMAP queue 1, BC topologies')
+    return out
+
+
+def _wm_refuse(cfg: Config) -> list[str]:
+    """What this slice does not run with a wall model: it runs the log-law
+    or laminar model on the z faces with static Smagorinsky and explicit
+    diffusion, or with sgstype 'none', on one device (cales_tpu's
+    _wm_z_fast route; periodic x and y and scalar BC values are checked by
+    unsupported itself)."""
+    out = []
+    lwm = [cfg.lwm[ib][d] for ib in range(2) for d in range(3)]
+    if any(m not in (0, wmod.WM_LOG, wmod.WM_LAM) for m in lwm):
+        out.append(f'wall model type lwm = {cfg.lwm} (1 log-law, -1 '
+                   'laminar)')
+    if any(cfg.lwm[ib][0] != 0 for ib in range(2)):
+        out.append('a wall model on x faces (x walls): ROADMAP queue 1, x '
+                   'walls')
+    if any(cfg.lwm[ib][1] != 0 for ib in range(2)):
+        out.append('a wall model on y faces (the duct WMLES, which also '
+                   'needs static Smagorinsky with y walls): ROADMAP queue 1, '
+                   'wall model on y faces')
+    if cfg.sgstype == 'dsmag':
+        out.append('a wall model with dynamic Smagorinsky (the JAX kernel '
+                   'path refuses it too): ROADMAP queue 1, wall model with '
+                   'dsmag')
+    if cfg.impdiff:
+        out.append('a wall model with implicit diffusion (the CN stage\'s '
+                   'boundary planes would change every substep): ROADMAP '
+                   'queue 1, wall model with implicit diffusion')
+    if cfg.dims[0] * cfg.dims[1] > 1:
+        out.append('a wall model on a device mesh: ROADMAP queue 1, wall '
+                   'model on a mesh')
     return out
 
 
@@ -334,6 +371,16 @@ class Simulation:
         self.bcu_vals = mk(bcvel_by_dir(0))
         self.bcv_vals = mk(bcvel_by_dir(1))
         self.bcw_vals = mk(bcvel_by_dir(2))
+        # the wall model on the z faces (unsupported() admits no other):
+        # the faces' interpolation rows and weights, and their static
+        # wall-parallel values
+        self.has_wm = any(cfg.lwm[ib][d] != 0 for ib in range(2)
+                          for d in range(3))
+        self.index_wm = (wmod.find_index_wm(cfg, grid) if self.has_wm
+                         else None)
+        self.wm_z = (wmod.z_wall_model(cfg, grid, self.index_wm,
+                                       self.bcu_vals[2], self.bcv_vals[2])
+                     if self.has_wm else None)
         self.rhsb_p = poisson.rhs_bound_planes(
             cfg, grid, self.cbcpre, ('c', 'c', 'c'), by_dir(cfg.bcpre))
         self.sgs_setup = sgsmod.SGSSetup(cfg, grid, self.cbcvel)
@@ -341,13 +388,21 @@ class Simulation:
         self.gvr_c = cfg.dl[0] * cfg.dl[1] * grid.dzc[1:nz + 1] / vol
         self.gvr_f = cfg.dl[0] * cfg.dl[1] * grid.dzf[1:nz + 1] / vol
 
-        # post-correction z-ghost recipes of u and v (scalar BC letters)
+        # post-correction z-ghost recipes of u and v: the scalar BC letters,
+        # or 'E' (the one-sided extrapolation, sgs.f90:682-767) on a
+        # wall-modelled face (cales_tpu timeloop.py:326-345)
         dz01 = (float(grid.dzc[0]), float(grid.dzc[nz]))
+        fac_ex = (float(grid.dzc[0] * grid.dzci[1]),
+                  float(grid.dzc[nz] * grid.dzci[nz - 1]))
 
         def rec_for(iv, bvals):
             out = []
             for ib in range(2):
-                out += [self.cbcvel[ib][2][iv], float(bvals[2][ib]), dz01[ib]]
+                if cfg.lwm[ib][2] != 0:
+                    out += ['E', fac_ex[ib], 0.0]
+                else:
+                    out += [self.cbcvel[ib][2][iv], float(bvals[2][ib]),
+                            dz01[ib]]
             return tuple(out)
         self.zrec_uv = (rec_for(0, self.bcu_vals), rec_for(1, self.bcv_vals))
 
@@ -435,6 +490,8 @@ class Simulation:
                                      or cfg.zsolver == 'thomas')
         if thomas or cn_thomas:
             names.append(zthomas)
+        if self.has_wm:
+            names.append('wallmodel')
         return names
 
     def exec_path(self) -> str:
@@ -472,6 +529,15 @@ class Simulation:
                if self.sgs_kernel == 'dsmag' else 'none')
         if self.ywalled:
             sgs += '; y walls: y-row ghost stacks'
+        if self.has_wm:
+            kinds = sorted({'log-law' if f.mtype == wmod.WM_LOG
+                            else 'laminar' for f in self.wm_z.faces})
+            sides = '+'.join(('lower', 'upper')[f.ib]
+                             for f in self.wm_z.faces)
+            sgs += (f"; wall model: {'/'.join(kinds)} on the {sides} z "
+                    'face(s), wallmodel kernel planes'
+                    + (", correc_smag's 'E' z-ghost recipe"
+                       if self.fused_smag else ''))
         mesh = ('' if self.mesh is None
                 else f'; mesh: {self.mesh.describe()}, y halos')
         return (f'{where}; poisson: {xy} + {zstage} ({self.cfg.dtype}); '
@@ -529,9 +595,21 @@ class Simulation:
 
     # ------------------------------------------------------------------
     def _dynamic_bcs(self, u, v, w):
-        """Velocity BC values (no wall model in this slice: the static
-        ones)."""
-        return self.bcu_vals, self.bcv_vals, self.bcw_vals
+        """Velocity BC values: the static ones, and on each wall-modelled
+        z face the wall model's Neumann planes of u and v from the current
+        u and v (bounduvw's is_updt_wm path, bound.f90:120-123)."""
+        if not self.has_wm:
+            return self.bcu_vals, self.bcv_vals, self.bcw_vals
+        return self._with_wm(kernels.wm_planes(u, v, self.wm_z))
+
+    def _with_wm(self, planes):
+        """The static BC values with the wall model's (faces, 2, ny+2,
+        nx+2) planes on the wall-modelled z faces."""
+        bcu_z, bcv_z = list(self.bcu_vals[2]), list(self.bcv_vals[2])
+        for n, face in enumerate(self.wm_z.faces):
+            bcu_z[face.ib], bcv_z[face.ib] = planes[n, 0], planes[n, 1]
+        return ((*self.bcu_vals[:2], tuple(bcu_z)),
+                (*self.bcv_vals[:2], tuple(bcv_z)), self.bcw_vals)
 
     def _pad_vel(self, u, v, w, bcu, bcv, bcw, vlo=None, is_correc=False):
         return bnd.pad_velocity(u, v, w, self.cbcvel, bcu, bcv, bcw,
@@ -621,13 +699,27 @@ class Simulation:
                            fuv):
         """Projection + pressure update + smag nu_t in one kernel.  The
         van Driest wall-shear planes come from the corrected wall-adjacent
-        planes, computed here as (ny, nx) expressions."""
+        planes, computed here as (ny, nx) expressions; on a wall-modelled
+        face from the wall model's planes of the corrected rows (the
+        planes the post-correction fill will take; cales_tpu timeloop.py:
+        1318-1356): there the jump across the face is dz times the Neumann
+        value."""
         cfg = self.cfg
         nz = cfg.ng[2]
         dxi, dyi = cfg.dli[0], cfg.dli[1]
         fu, fv = fuv[0], fuv[1]
+        wm_faces = {}
+        if self.has_wm:
+            planes = kernels.wm_planes(u, v, self.wm_z, fuv=fuv, pp=pp,
+                                       dtrk=dtrk, dxi=dxi, dyi=dyi)
+            wm_faces = {f.ib: planes[n] for n, f in
+                        enumerate(self.wm_z.faces)}
 
         def face(side):
+            if side in wm_faces:
+                dz = float(self.grid.dzc[0 if side == 0 else nz])
+                bu, bv = wm_faces[side]
+                return dz * bu[1:-1, 1:-1], dz * bv[1:-1, 1:-1]
             krow = 0 if side == 0 else nz - 1
             ppq = pp[krow]
             u_c = fu + u[krow] - dtrk * dxi * (torch.roll(ppq, -1, 1) - ppq)
@@ -841,9 +933,14 @@ class Simulation:
 
         # projection: prediction fill as edge stacks (w's wall-face rewrite
         # in row 1 of we2; with y walls v's in row 1 of its y rows),
-        # fillps, solve, fused correction
-        bcu, bcv, bcw = self._dynamic_bcs(u, v, w)
-        ue2, ve2, we2 = self._zedge_vel(u, v, w, bcu, bcv, bcw,
+        # fillps, solve, fused correction.  The fill takes the static
+        # values: the wall model's planes would set only u's and v's z
+        # ghost rows, which no kernel reads here (fillps takes div u;
+        # correc_smag and correc_updatep the interior rows of u and v and
+        # w's stack), so it is not run (cales_tpu runs it with the
+        # deferred forcing, timeloop.py:2568-2569, to the same state)
+        ue2, ve2, we2 = self._zedge_vel(u, v, w, self.bcu_vals,
+                                        self.bcv_vals, self.bcw_vals,
                                         is_correc=False)
         ypred = self._yedge_vel(u, v, w) if self.ywalled else None
         yv2 = None if ypred is None else ypred[1]

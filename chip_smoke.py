@@ -7,8 +7,10 @@ operator-matrix Poisson solve), drive the implicit-CN channel DNS (z-only
 and full-3D), the dynamic-Smagorinsky channel LES, the static-Smagorinsky
 LES with z-implicit diffusion, the dynamic-Smagorinsky duct and cavity, the
 two-pass dynamic Smagorinsky (the channel with transpiring walls, and the
-channel, duct and cavity by both routes) and the triperiodic DNS (explicit
-and full-3D implicit) through driver.run at 512x256x256, the Taylor-Green
+channel, duct and cavity by both routes), the triperiodic DNS (explicit
+and full-3D implicit) and the wall-modelled channel LES (the wall-model
+kernel, correc_smag's 'E' recipe; its example through the CLI too) through
+driver.run at 512x256x256, the Taylor-Green
 vortex at 512^3 by both solve routes, compare the card with the CPU
 step for step, and run the channel LES on a y-slab mesh of two ranks that
 share the card (torch.distributed over gloo, staged through the host):
@@ -68,6 +70,9 @@ KERNELS = {
                      'cales_tpu/ops/pallas_dsmag.py:708'),
     'apply_x': ('cales_torch/csrc/apply_x.cu',
                 'cales_tpu/ops/pallas_solve.py:141'),
+    # no Pallas kernel: the JAX package computes the planes in XLA
+    'wallmodel': ('cales_torch/csrc/wallmodel.cu',
+                  'cales_tpu/wallmodel.py:253'),
 }
 # the y-walled, full-3D and Helmholtz variants, each reported as a kernel
 # of its own: report name -> (kernel, phase 2 variant)
@@ -84,6 +89,7 @@ VARIANT_ROWS = {
     'dsmag_level1 (y walls)': ('dsmag_level1', 'duct'),
     'dsmag_level2 (y walls, duct)': ('dsmag_level2', 'duct'),
     'dsmag_level2 (y walls, cavity)': ('dsmag_level2', 'cavity'),
+    "correc_smag ('E' recipe, wall model)": ('correc_smag', 'wm'),
 }
 # the kernels timed at the Taylor-Green vortex's 512^3 in phase 2b, each
 # reported as a kernel of its own: report name -> (kernel, variant)
@@ -171,6 +177,11 @@ MESH_CFG = dict(LES_CFG, ptransform='mat', dims=(2, 1), **CHAN_BCS)
 # its small f64 twin, held against the single-device 'mat' + Thomas run
 MESH_SMALL = dict(MESH_CFG, ng=(64, 32, 32), dtype='float64')
 MESH_STEPS = 5
+# bench.py _matrix_configs((512, 256, 256))['wmles_channel'], written out:
+# the log-law wall model on both z walls at hwm 0.1, visci 125 000
+WM_LWM = ((0, 0, 1), (0, 0, 1))
+WMLES_CFG = dict(LES_CFG, visci=125_000.0, ptransform='mat', lwm=WM_LWM,
+                 hwm=0.1, **CHAN_BCS)
 # moving wall-parallel values on some y and z faces for the y-walled
 # kernel inputs: (face, dir, comp)
 MOVING = (((0.0,) * 3, (0.2, 0.0, -0.1), (0.0, 0.0, 0.0)),
@@ -323,6 +334,15 @@ def kernel_inputs(ng, dtype, dev, seed, big=False):
     nz_, nyl, _ = d['slab'].shape
     d['slab_blocks'] = d['slab'].reshape(nz_, nyl, 2, nx // 2).permute(
         2, 0, 1, 3).contiguous()
+    # the wall model on both z faces of this channel (bench.py's hwm and
+    # visci), its rows sampled from u + 1, a bulk flow; correc_smag's 'E'
+    # recipes with the grid's fac_ex
+    from cales_torch import wallmodel as wmod
+    wcfg = cfg.replace(lwm=WM_LWM, hwm=0.1, visci=125_000.0)
+    d['wm'] = wmod.z_wall_model(wcfg, grid, wmod.find_index_wm(wcfg, grid))
+    d['wm_u'] = d['u'] + 1.0
+    d['fac_ex'] = (float(grid.dzc[0] * grid.dzci[1]),
+                   float(grid.dzc[nz] * grid.dzci[nz - 1]))
     return d
 
 
@@ -333,7 +353,8 @@ def call(name, d, twin=False, variant=None, has_ruo=True, zrec=None):
     from cales_torch.ops import solve_kernels as SK
     mod = SK if name in SK.LAUNCHES else K
     # the wrapper of each launch-count name
-    base = {'thomas_periodic': 'thomas_periodic_z'}.get(name, name)
+    base = {'thomas_periodic': 'thomas_periodic_z',
+            'wallmodel': 'wm_planes'}.get(name, name)
     fn = getattr(mod, f'{base}_plain' if twin else base)
     ywall = variant == 'duct'
     if name == 'mom_rk':
@@ -430,6 +451,15 @@ def call(name, d, twin=False, variant=None, has_ruo=True, zrec=None):
             out = fn(d['u'], *d['abc_w'], alpha=-0.021, shift=d['shift'],
                      bc_lo=d['bc_lo'], bc_hi=d['bc_hi'], n_solve=nz - 1)
         return {'out': out}
+    if name == 'wallmodel':
+        # corrected: the fused correction's rows; rows: the post-correction
+        # fill's; forcing: the rows plus the deferred forcing
+        kw = {'corrected': dict(fuv=d['fuv'], pp=d['pp'], dtrk=0.01,
+                                dxi=d['dxi'], dyi=d['dyi']),
+              'rows': {}, 'forcing': dict(fuv=d['fuv'])}[variant]
+        out = fn(d['wm_u'], d['v'], d['wm'], **kw)
+        return {f'{c}_{side}': out[n, i] for n, side in enumerate(('lo', 'hi'))
+                for i, c in enumerate(('bcu', 'bcv'))}
     if name == 'thomas_periodic':
         if variant == 'poisson':    # the TGV's pressure z stage, pinned
             out = fn(d['u'], *d['abc_t'], lamy=d['lam_t'][0],
@@ -438,6 +468,9 @@ def call(name, d, twin=False, variant=None, has_ruo=True, zrec=None):
             out = fn(d['u'], *d['abc_t'], lamy=d['lam_t3'][0],
                      lamx=d['lam_t3'][1], alpha=ALPHA)
         return {'out': out}
+    if variant == 'wm':     # the wall model's 'E' recipes on both faces
+        fac = d['fac_ex']
+        zrec = (('E', fac[0], 0.0, 'E', fac[1], 0.0),) * 2
     zrec = zrec or (('D', 0.0, d['dz01'][0], 'D', 0.0, d['dz01'][1]),) * 2
     out = fn(d['u'], d['v'], d['w'], d['pp'], d['p'], d['ue'], d['ve'],
              d['we'], d['ppe'], 0.01, d['dxi'], d['dyi'], d['dzci'],
@@ -466,6 +499,32 @@ def compare(name, d, tol_abs=None, tol_rel=None, **kw):
     return worst
 
 
+def graph_ms(fn, n=20):
+    """Device time of one call of fn: n calls captured in a CUDA graph,
+    replayed with CUDA events around, so no host launch cost sits between
+    them (a kernel shorter than its wrapper's host time: the wall model)."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+        enable_timing=True)
+    a.record()
+    graph.replay()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / n
+
+
 def time_ms(fn, n=10):
     fn()
     torch.cuda.synchronize()
@@ -487,7 +546,7 @@ def time_ms(fn, n=10):
 # one timed for the report in phase 2b
 VARIANTS = {
     'mom_rk': ('les', 'dns', 'les_split', 'duct', 'xyz', 'les_xyz', 'tgv'),
-    'fillps': (None, 'duct'), 'correc_smag': (None,),
+    'fillps': (None, 'duct'), 'correc_smag': (None, 'wm'),
     'correc_updatep': ('impdiff_1d', 'explicit', 'duct', 'impdiff'),
     'apply_y': ('x_and_y', 'y_only'), 'z_eig': (None,),
     'thomas_z': ('helmholtz', 'poisson', 'helmholtz3d'), 'smag': (None,),
@@ -495,19 +554,24 @@ VARIANTS = {
     'thomas_periodic': ('poisson', 'helmholtz'),
     'dsmag_level1': (None, 'duct'), 'dsmag_level2': (None, 'duct', 'cavity'),
     'apply_x': ('slab', 'split', 'chunked'),
+    'wallmodel': ('corrected', 'rows', 'forcing'),
 }
 # the report rows of the other variants, by (kernel, variant)
 VARIANT_ROW_OF = {kv: row for row, kv in VARIANT_ROWS.items()}
 # bounded relative to the output's maximum: sums over many terms
 RELATIVE = ('apply_y', 'z_eig', 'thomas_z', 'dsmag', 'thomas_periodic',
-            'dsmag_level1', 'dsmag_level2', 'apply_x')
+            'dsmag_level1', 'dsmag_level2', 'apply_x', 'wallmodel')
+# the wall model's planes in float64: within this of their maximum (the
+# Newton iteration converges the same way on both; logs and divisions
+# round apart)
+WM_TOL64 = 1e-13
 # the kernels whose float32 error is held against their float64 twin in
 # phase 2b; for the GEMM kernels (3xTF32) and the reordered Thomas solves
 # (chunks and cyclic reduction) it must stay within 4x the error of their
 # float32 twin (the library matmul, the sweep) against the same float64
 # twin
 F64_TWIN = ('dsmag_level1', 'dsmag_level2', 'apply_y', 'apply_x', 'z_eig',
-            'thomas_periodic', 'thomas_z')
+            'thomas_periodic', 'thomas_z', 'wallmodel')
 FOUR_X = ('apply_y', 'apply_x', 'z_eig', 'thomas_periodic', 'thomas_z')
 # their float32 error against their float32 twin is then held to what the
 # 4x rule leaves (their own and the twin's against the float64 twin), not
@@ -533,6 +597,11 @@ WORK = {'mom_rk': (8, 6, 230), 'fillps': (3, 1, 12),
         'thomas_periodic': (1, 1, 15),
         'dsmag_level1': (3, 16, 110 + 18 * 12), 'dsmag_level2': (15, 0, 147),
         'apply_x': (1, 1, 0)}
+# the wall model's work a point of a face's padded planes: two Newton
+# solves (the start 4, 12 steps of 14 with the logarithm as one, the
+# result 4) and their inputs (the interpolation to hwm, the wall-relative
+# rows, |u_par|: 20), and in the corrected mode 4 a sampled value (12)
+WM_OPS = 2 * (4 + 12 * 14 + 4 + 20) + 12
 # variants whose reads or arithmetic differ from their kernel's first
 WORK_VARIANT = {('mom_rk', 'xyz'): (7, 6, 200),
                 ('mom_rk', 'tgv'): (7, 6, 200),
@@ -542,6 +611,9 @@ WORK_VARIANT = {('mom_rk', 'xyz'): (7, 6, 200),
 # (cuBLAS), timed as the yardstick library_ms, and their float32 bound is
 # reckoned at PEAK_TF32X3 (the SIMT figure at PEAK_FLOPS beside it)
 LIBRARY_TWIN = ('apply_y', 'z_eig', 'apply_x')
+# the kernels timed on the device by graph_ms: their wrapper's host time
+# exceeds the kernel's, so launches one by one time the host
+GRAPH_TIMED = ('wallmodel',)
 
 
 def ystacks(name, d, variant):
@@ -561,6 +633,14 @@ def work(name, d, variant=None):
     written once, and its arithmetic (the operator products of the solve
     kernels at 2 n^2 per line)."""
     nz, ny, nx = (d['slab'] if name == 'apply_x' else d['u']).shape
+    if name == 'wallmodel':
+        # two rows of u and v a face (and of pp, corrected), the face's two
+        # padded planes
+        nf = len(d['wm'].faces)
+        nin = 2 * nf * (3 if variant == 'corrected' else 2)
+        pts = nf * (ny + 2) * (nx + 2)
+        nbytes = (nin * ny * nx + 2 * pts) * d['u'].element_size()
+        return nbytes, pts * WM_OPS
     cells = nx * ny * nz
     nin, nout, per_cell = WORK_VARIANT.get((name, variant), WORK[name])
     nbytes = (nin + nout) * cells * d['u'].element_size()
@@ -613,10 +693,12 @@ def phase_kernels(dev, card):
         say(f'phase 2: kernels vs twins, (nx, ny, nz) = {small}, {dtype}')
         for name, variants in VARIANTS.items():
             ta = None if name in RELATIVE else tol_abs
+            tr = (WM_TOL64 if name == 'wallmodel' and dtype == torch.float64
+                  else tol_rel)
             for variant in variants:
                 rounds = (False, True) if name == 'mom_rk' else (True,)
                 for has_ruo in rounds:
-                    compare(name, d, ta, tol_rel, variant=variant,
+                    compare(name, d, ta, tr, variant=variant,
                             has_ruo=has_ruo)
         zn = (('N', 0.3, d['dz01'][0], 'N', -0.2, d['dz01'][1]),
               ('D', 0.1, d['dz01'][0], 'N', 0.05, d['dz01'][1]))
@@ -637,7 +719,8 @@ def phase_kernels(dev, card):
     say(f'phase 2b: mom_rk without nu_t, thomas_periodic and thomas_z '
         f'pinned at (nx, ny, nz) = {ng}, float32  [{card}]')
     d = kernel_inputs(ng, torch.float32, dev, SEED + 2, big=True)
-    for key in ('ds2', 'slab', 'slab_blocks', 'y_mom', 'y_pred', 'y_pp'):
+    for key in ('ds2', 'slab', 'slab_blocks', 'y_mom', 'y_pred', 'y_pp',
+                'wm_u'):
         del d[key]
     cache = {}
     for row, (name, variant) in BIG_ROWS.items():
@@ -673,12 +756,20 @@ def _time_row(rows, row, name, d, variant, card, cache):
     plain_ms = time_ms(lambda: call(name, d, twin=True, variant=variant))
     say(f'  {tag:<24s} kernel {ms:.3f} ms, plain twin {plain_ms:.3f} '
         f'ms per call  [{card}]')
+    eager_ms = None
+    if name in GRAPH_TIMED:
+        eager_ms, ms = ms, graph_ms(lambda: call(name, d, variant=variant))
+        say(f'  {tag:<24s} kernel {ms:.4f} ms per call on the device (a '
+            f'CUDA graph of 20 calls; called one by one {eager_ms:.4f}, '
+            f'the wrapper\'s host time)  [{card}]')
     if row is None:
         return
     bms, by = bound_ms(name, d, variant)
     rows[row] = dict(
         max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bms,
         bound_by=by, library_ms=plain_ms if name in LIBRARY_TWIN else None)
+    if eager_ms is not None:
+        rows[row]['eager_ms'] = eager_ms
     say(f'  {tag:<24s} bound {bms:.3f} ms ({by})')
     if name in LIBRARY_TWIN:
         simt, _ = bound_ms(name, d, variant, simt=True)
@@ -695,7 +786,7 @@ def _as_double(d):
     def cv(x):
         if torch.is_tensor(x):
             return x.double()
-        if isinstance(x, (list, tuple)):
+        if isinstance(x, (list, tuple)) and not hasattr(x, '_fields'):
             return type(x)(cv(q) for q in x)
         return x
     return {k: cv(v) for k, v in d.items()}
@@ -737,12 +828,13 @@ def phase_cli(card, tag='phase 3', example='turbulent_channel_les',
 
 
 def drive(tag, cfg, dev, card, nsteps, per_step, ntime=30, hooks=None,
-          keep=None):
+          keep=None, outside=None):
     """driver.run on cfg for nsteps steps with every launch count set to 0
     just before and read just after (each kernel of per_step must have
-    launched exactly per_step[name] times a step, every other kernel
-    never), then a timed loop of ntime steps; nu_t must be >= 0 and not
-    zero everywhere where an SGS model runs, w on z walls their face
+    launched exactly per_step[name] times a step, plus outside[name]
+    times outside the steps (the initial fill, the checks), every other
+    kernel never), then a timed loop of ntime steps; nu_t must be >= 0
+    and not zero everywhere where an SGS model runs, w on z walls their face
     values with no net flux through the two.  hooks: the driver's output
     hooks; keep: a dict that receives the final state.  Returns (sim,
     launches, result dict)."""
@@ -763,7 +855,7 @@ def drive(tag, cfg, dev, card, nsteps, per_step, ntime=30, hooks=None,
         f'included); launches {launches}')
     say(f'  path: {sim.exec_path()}')
     for name, n in launches.items():
-        want = per_step.get(name, 0) * nsteps
+        want = per_step.get(name, 0) * nsteps + (outside or {}).get(name, 0)
         require(n == want, f'{tag}: {name} launched {n} times, want {want}')
     dt_cfl, divtot, divmax = sim.check(state)
     dt = sim.pick_dt(dt_cfl)
@@ -857,6 +949,44 @@ def phase_les(dev, card):
     say(f'  Poisson solve at {HEADLINE_NG} float32: fft {times["fft"]:.3f} '
         f'ms, mat {times["mat"]:.3f} ms per solve (CUDA events)  [{card}]')
     return launches
+
+
+def phase_wmles(dev, card):
+    """bench.py's wmles_channel (the log-law wall model on both z walls)
+    at 512x256x256 f32 through driver.run: the wall-model kernel twice a
+    substep (the fused correction's corrected rows, the post-correction
+    fill), and once more for the initial fill and at each check; then the
+    wall model's planes of the final state: finite, the lower face's bcu of
+    the sign of the mean u next to it."""
+    from cales_torch.config import Config
+    from cales_torch.ops import kernels as K
+    cfg = Config(**WMLES_CFG)
+    nsteps = 11
+    per_step = dict(mom_rk=3, fillps=3, correc_smag=3, apply_y=6, z_eig=3,
+                    wallmodel=6)
+    keep = {}
+    sim, launches, res = drive(
+        'phase 4w: wall-modelled channel LES', cfg, dev, card, nsteps,
+        per_step, keep=keep,
+        outside={'wallmodel': 2 + nsteps // cfg.icheck})
+    path = sim.exec_path()
+    require('wallmodel' in path and "'E' z-ghost recipe" in path,
+            f'phase 4w: the path does not name the wall model: {path}')
+    st = keep.pop('state')
+    planes = K.wm_planes(st.u, st.v, sim.wm_z)
+    require(bool(torch.isfinite(planes).all()),
+            'phase 4w: non-finite wall-model planes')
+    lo = [n for n, f in enumerate(sim.wm_z.faces) if f.ib == 0][0]
+    bcu_lo = float(planes[lo, 0, 1:-1, 1:-1].double().mean())
+    u_lo = float(st.u[0].double().mean())
+    say(f'  lower face: mean bcu {bcu_lo:.5e} (tau_w/visc), mean u of the '
+        f'first row {u_lo:.5f}; planes in [{float(planes.min()):.4e}, '
+        f'{float(planes.max()):.4e}]')
+    require(bcu_lo * u_lo > 0, 'phase 4w: the lower face\'s bcu is not of '
+            'the sign of the mean u next to it')
+    res.update(bcu_lo_mean=bcu_lo, u_first_row_mean=u_lo)
+    print(json.dumps({'wmles': res}), flush=True)
+    return launches, nsteps
 
 
 def phase_dns(dev, card):
@@ -1203,6 +1333,10 @@ def phase_card_vs_cpu(dev):
                   ('visct', 1e-12)))
     _card_vs_cpu('phase 6b', Config(**{**DNS_CFG, **small}), dev,
                  (('u', 1e-11), ('v', 1e-11), ('w', 1e-11), ('p', 1e-10)))
+    # the wall-modelled channel: the wall-model kernel, the 'E' recipe
+    _card_vs_cpu('phase 6w (WMLES)', Config(**{**WMLES_CFG, **small}), dev,
+                 (('u', 1e-11), ('v', 1e-11), ('w', 1e-11), ('p', 1e-10),
+                  ('visct', 1e-12)))
     # nu_t relative to its maximum: the dynamic model's plane ratio sums
     # the rows in another order on the card
     for tag, cfg in (('phase 6c (dsmag channel)', DSMAG_CFG),
@@ -1642,7 +1776,11 @@ def main():
                        'y-walled'))
     phase_cli(card, tag='phase 3c', example='taylor_green_vortex_3d',
               steps=3, kernels=('mom_rk', 'fillps', 'correc_updatep'))
+    phase_cli(card, tag='phase 3d', example='turbulent_channel_wmles',
+              steps=10, kernels=('mom_rk', 'fillps', 'correc_smag',
+                                 'wallmodel', "'E' z-ghost recipe"))
     les = phase_les(dev, card)
+    wmles, wm_steps = phase_wmles(dev, card)
     phase_dns(dev, card)
     dsm, les_imp, res_dsm = phase_dsmag(dev, card)
     duct, cavity, res_duct, res_cav = phase_ywalls(dev, card)
@@ -1664,6 +1802,10 @@ def main():
     # steps), thomas_z's on the channel DNS with it (5 steps)
     paths = {name: (dsm, 5, name) for name in KERNELS}
     paths['correc_smag'] = (les, 31, 'correc_smag')
+    # the wall model and the 'E' recipe on the wall-modelled channel (phase
+    # 4w; the wall model's launches there include the initial fill's and
+    # the checks')
+    paths['wallmodel'] = (wmles, wm_steps, 'wallmodel')
     paths['smag'] = (les_imp, 5, 'smag')
     paths['thomas_periodic'] = (tgv, 5, 'thomas_periodic')
     for row, (name, _) in BIG_ROWS.items():
@@ -1681,6 +1823,8 @@ def main():
         if name in ('dsmag_level1', 'dsmag_level2'):
             # the two-pass duct and cavity of phase 7d
             paths[row] = (two[variant], 5, name)
+        elif variant == 'wm':
+            paths[row] = (wmles, wm_steps, name)
         else:
             paths[row] = (variant_path.get(variant, tri3), 5, name)
     sources = {**{n: KERNELS[n] for n in KERNELS},

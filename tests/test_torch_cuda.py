@@ -3,7 +3,7 @@ slab variants with y halos and apply_x too), and the slices (channel LES,
 implicit-CN channel DNS, dynamic-Smagorinsky channel, static-Smagorinsky
 LES with impdiff_1d, the y-walled duct and cavity, the two-pass dynamic
 Smagorinsky, the triperiodic Taylor-Green
-vortex and full-3D implicit diffusion)
+vortex and full-3D implicit diffusion, the wall-modelled channel LES)
 on the card against the same slices on the CPU, step for step, fp64.
 
 These tests need an NVIDIA GPU and skip without one.  The file imports
@@ -90,7 +90,8 @@ def test_cuda_kernels_match_twins_on_card(dev):
     assert K.LAUNCHES == {'mom_rk': 1, 'fillps': 1, 'correc_smag': 2,
                           'correc_updatep': 0, 'smag': 0,
                           'dsmag': 0,
-                          'dsmag_level1': 0, 'dsmag_level2': 0}
+                          'dsmag_level1': 0, 'dsmag_level2': 0,
+                          'wallmodel': 0}
 
 
 @pytest.mark.cuda
@@ -110,7 +111,8 @@ def test_card_matches_cpu_step_for_step(dev):
     assert K.LAUNCHES == {'mom_rk': 9, 'fillps': 9, 'correc_smag': 9,
                           'correc_updatep': 0, 'smag': 0,
                           'dsmag': 0,
-                          'dsmag_level1': 0, 'dsmag_level2': 0}
+                          'dsmag_level1': 0, 'dsmag_level2': 0,
+                          'wallmodel': 0}
     g, c = states
     for name, tol in (('u', 1e-11), ('v', 1e-11), ('w', 1e-11), ('p', 1e-10),
                       ('visct', 1e-12)):
@@ -165,7 +167,8 @@ def test_cuda_dns_kernels_match_twins_on_card(dev):
     assert K.LAUNCHES == {'mom_rk': 2, 'fillps': 0, 'correc_smag': 0,
                           'correc_updatep': 3, 'smag': 0,
                           'dsmag': 0,
-                          'dsmag_level1': 0, 'dsmag_level2': 0}
+                          'dsmag_level1': 0, 'dsmag_level2': 0,
+                          'wallmodel': 0}
 
 
 @pytest.mark.cuda
@@ -228,7 +231,8 @@ def test_card_matches_cpu_dns_step_for_step(dev):
     assert K.LAUNCHES == {'mom_rk': 9, 'fillps': 9, 'correc_smag': 0,
                           'correc_updatep': 9, 'smag': 0,
                           'dsmag': 0,
-                          'dsmag_level1': 0, 'dsmag_level2': 0}
+                          'dsmag_level1': 0, 'dsmag_level2': 0,
+                          'wallmodel': 0}
     assert SK.LAUNCHES == {'apply_y': 18, 'apply_x': 0, 'z_eig': 9,
                            'thomas_z': 27, 'thomas_periodic': 0}
     g, c = states
@@ -296,7 +300,8 @@ def test_cuda_sgs_kernels_match_twins_on_card(dev):
     torch.cuda.synchronize()
     assert K.LAUNCHES == {'mom_rk': 0, 'fillps': 0, 'correc_smag': 0,
                           'correc_updatep': 0, 'smag': 1, 'dsmag': 1,
-                          'dsmag_level1': 0, 'dsmag_level2': 0}
+                          'dsmag_level1': 0, 'dsmag_level2': 0,
+                          'wallmodel': 0}
 
 
 @pytest.mark.cuda
@@ -327,7 +332,8 @@ def test_card_matches_cpu_sgs_step_for_step(dev, case):
     sgs = 'dsmag' if case == 'dsmag' else 'smag'
     assert K.LAUNCHES == {'mom_rk': 9, 'fillps': 9, 'correc_smag': 0,
                           'correc_updatep': 9, 'smag': 0, 'dsmag': 0,
-                          'dsmag_level1': 0, 'dsmag_level2': 0, sgs: 9}
+                          'dsmag_level1': 0, 'dsmag_level2': 0,
+                          'wallmodel': 0, sgs: 9}
     g, c = states
     for name, tol in (('u', 1e-11), ('v', 1e-11), ('w', 1e-11), ('p', 1e-10)):
         a, b = getattr(g, name).cpu(), getattr(c, name)
@@ -446,7 +452,8 @@ def test_cuda_ywalled_kernels_match_twins_on_card(dev):
     torch.cuda.synchronize()
     assert K.LAUNCHES == {'mom_rk': 2, 'fillps': 1, 'correc_smag': 0,
                           'correc_updatep': 1, 'smag': 0, 'dsmag': 3,
-                          'dsmag_level1': 0, 'dsmag_level2': 0}
+                          'dsmag_level1': 0, 'dsmag_level2': 0,
+                          'wallmodel': 0}
 
 
 @pytest.mark.cuda
@@ -577,7 +584,8 @@ def test_card_matches_cpu_ywalled_step_for_step(dev, case):
     assert K.LAUNCHES == {'mom_rk': 9, 'fillps': 9, 'correc_smag': 0,
                           'correc_updatep': 9, 'smag': 0,
                           'dsmag': 0 if case == 'duct_none' else 9,
-                          'dsmag_level1': 0, 'dsmag_level2': 0}
+                          'dsmag_level1': 0, 'dsmag_level2': 0,
+                          'wallmodel': 0}
     g, c = states
     for name, tol in (('u', 1e-11), ('v', 1e-11), ('w', 1e-11), ('p', 1e-10)):
         a, b = getattr(g, name).cpu(), getattr(c, name)
@@ -877,7 +885,8 @@ def test_cuda_dsmag_ragged_tiles(dev, ywall, dtype, shape):
     torch.cuda.synchronize()
     assert K.LAUNCHES == {'mom_rk': 0, 'fillps': 0, 'correc_smag': 0,
                           'correc_updatep': 0, 'smag': 0, 'dsmag': 3,
-                          'dsmag_level1': 0, 'dsmag_level2': 0}
+                          'dsmag_level1': 0, 'dsmag_level2': 0,
+                          'wallmodel': 0}
 
 
 @pytest.mark.cuda
@@ -931,7 +940,8 @@ def test_cuda_correc_smag_ragged_tiles(dev, dtype, shape):
     torch.cuda.synchronize()
     assert K.LAUNCHES == {'mom_rk': 0, 'fillps': 0, 'correc_smag': 4,
                           'correc_updatep': 0, 'smag': 0, 'dsmag': 0,
-                          'dsmag_level1': 0, 'dsmag_level2': 0}
+                          'dsmag_level1': 0, 'dsmag_level2': 0,
+                          'wallmodel': 0}
 
 
 @pytest.mark.cuda
@@ -973,7 +983,8 @@ def test_cuda_dsmag_level1_ragged_tiles(dev, ywall, dtype, shape):
     torch.cuda.synchronize()
     assert K.LAUNCHES == {'mom_rk': 0, 'fillps': 0, 'correc_smag': 0,
                           'correc_updatep': 0, 'smag': 0, 'dsmag': 0,
-                          'dsmag_level1': 3, 'dsmag_level2': 0}
+                          'dsmag_level1': 3, 'dsmag_level2': 0,
+                          'wallmodel': 0}
 
 
 @pytest.mark.cuda
@@ -1324,3 +1335,132 @@ def test_cuda_smag_ragged_tiles(dev, ymode, dtype, shape):
         _rel_close(got, ref, tol)
     torch.cuda.synchronize()
     assert K.LAUNCHES['smag'] == 2
+
+
+# bench.py's wmles_channel at a test size
+WMLES = dict(ng=(32, 16, 16), l=(2 * np.pi, np.pi, 2.0), gtype=1, gr=1.0,
+             inivel='log', is_wallturb=True, is_forced=(True, False, False),
+             velf=(1.0, 0.0, 0.0), dtype='float64', ptransform='mat',
+             visci=125_000.0, sgstype='smag', lwm=((0, 0, 1), (0, 0, 1)),
+             hwm=0.1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('lwm', [((0, 0, 1), (0, 0, 1)),
+                                 ((0, 0, 0), (0, 0, -1))])
+@pytest.mark.parametrize('dtype, shape', [
+    ('float64', (40, 25, 12)), ('float64', (33, 17, 16)),
+    ('float32', (40, 25, 12)), ('float32', (33, 17, 16))])
+def test_cuda_wallmodel_matches_twin(dev, dtype, shape, lwm):
+    """The wall-model kernel against wallmodel.wm_planes_plain in its three
+    modes (the rows, with the forcing, corrected by pp), one face or both,
+    moving wall values, on (nx, ny, nz) shapes no block fits: float64
+    within 1e-13 of each plane's maximum, float32 within 1e-5."""
+    from cales_torch import wallmodel as wmod
+    nx, ny, nz = shape
+    dt = getattr(torch, dtype)
+    bcvel = (((0.0,) * 3, (0.0,) * 3, (0.03, -0.02, 0.0)),
+             ((0.0,) * 3, (0.0,) * 3, (-0.01, 0.04, 0.0)))
+    cfg = Config(**dict(WMLES, ng=shape, lwm=lwm, bcvel=bcvel))
+    grid = make_grid_from_config(cfg)
+    wm = wmod.z_wall_model(cfg, grid, wmod.find_index_wm(cfg, grid),
+                           (0.03, -0.01), (-0.02, 0.04))
+    rng = np.random.default_rng(21)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, dtype=np.float64),
+                               device=dev).to(dt)
+    u, v, pp = (t(0.3 * rng.standard_normal((nz, ny, nx))) for _ in range(3))
+    u = u + 1.0
+    fuv = t([0.013, -0.007])
+    K.reset_launches()
+    for kw in ({}, dict(fuv=fuv),
+               dict(fuv=fuv, pp=pp, dtrk=2.3e-3, dxi=cfg.dli[0],
+                    dyi=cfg.dli[1])):
+        got = K.wm_planes(u, v, wm, **kw)
+        ref = wmod.wm_planes_plain(u, v, wm, **kw)
+        assert got.shape == ref.shape == (len(wm.faces), 2, ny + 2, nx + 2)
+        for g, r in zip(got.flatten(0, 1), ref.flatten(0, 1)):
+            _rel_close(g, r, 1e-13 if dt == torch.float64 else 1e-5)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES['wallmodel'] == 3
+    assert sum(K.LAUNCHES.values()) == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype, shape', [
+    ('float64', (40, 25, 2)), ('float64', (33, 17, 17)),
+    ('float32', (40, 33, 2)), ('float32', (33, 17, 17))])
+def test_cuda_correc_smag_e_recipe_ragged_tiles(dev, dtype, shape):
+    """correc_smag's 'E' z-ghost recipe (the wall model's one-sided
+    extrapolation from the corrected boundary plane and the next-inner one)
+    on both faces and on the lower face beside a 'D' upper face, against
+    the twin on ragged tiles with nz = 2 and 17: float64 within 1e-12,
+    float32 within 1e-5 of each output's maximum."""
+    nx, ny, nz = shape
+    dt = getattr(torch, dtype)
+    cfg = Config(ng=shape, l=(2 * np.pi, np.pi, 2.0), gtype=1, gr=1.0,
+                 visci=1000.0, dtype='float64')
+    grid = make_grid_from_config(cfg)
+    rng = np.random.default_rng(12)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, dtype=np.float64),
+                               device=dev).to(dt)
+    F = lambda: t(0.05 * rng.standard_normal((nz, ny, nx)))   # noqa: E731
+    E = lambda: t(0.05 * rng.standard_normal((3, ny, nx)))    # noqa: E731
+    u, v, w, pp, p = (F() for _ in range(5))
+    ue, ve, we, ppe = (E() for _ in range(4))
+    tauw = [t(np.abs(rng.standard_normal((ny, nx)))) for _ in range(2)]
+    dz01 = (float(grid.dzc[0]), float(grid.dzc[nz]))
+    fac = (float(grid.dzc[0] * grid.dzci[1]),
+           float(grid.dzc[nz] * grid.dzci[nz - 1]))
+    zc = grid.zc[1:nz + 1]
+    K.reset_launches()
+    for zrec in ((('E', fac[0], 0.0, 'E', fac[1], 0.0),) * 2,
+                 (('E', fac[0], 0.0, 'D', 0.0, dz01[1]),
+                  ('E', fac[0], 0.0, 'D', 0.05, dz01[1]))):
+        cs = (u, v, w, pp, p, ue, ve, we, ppe, 3.7e-3, cfg.dli[0],
+              cfg.dli[1], t(grid.dzci), t(grid.dzfi), cfg.visc,
+              t(np.full(nz, 1e-4)), zrec, t([0.05, -0.02]),
+              t(np.minimum(zc, 2.0 - zc)), t((zc <= 1.0).astype(float)),
+              *tauw)
+        got = K.correc_smag(*cs)
+        ref = K.correc_smag_plain(*cs)
+        for g, r in zip(got, ref):
+            if dt == torch.float64:
+                torch.testing.assert_close(g, r, rtol=0, atol=1e-12)
+            else:
+                _rel_close(g, r, 1e-5)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES['correc_smag'] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', ['smag', 'none'])
+def test_card_matches_cpu_wmles_step_for_step(dev, case):
+    """The wall-modelled channel (bench.py's wmles_channel, and its
+    sgstype 'none' variant) on the card against the CPU, 3 steps, fp64,
+    with the launches of the steps: the wall model twice a substep with
+    smag (the corrected rows and the post-correction fill), once with
+    'none'."""
+    cfg = Config(**dict(WMLES, sgstype=case))
+    grid = make_grid_from_config(cfg)
+    fields = initflow(cfg, grid)
+    sims = [Simulation(cfg, grid, device=d) for d in (dev, 'cpu')]
+    states = [s.initial_state(*fields) for s in sims]
+    dt = sims[1].pick_dt(sims[1].check(states[1])[0])
+    K.reset_launches()
+    for _ in range(3):
+        states = [s.step(st, dt)[0] for s, st in zip(sims, states)]
+    smag = case == 'smag'
+    assert K.LAUNCHES['wallmodel'] == (18 if smag else 9)
+    assert K.LAUNCHES['correc_smag'] == (9 if smag else 0)
+    assert K.LAUNCHES['correc_updatep'] == (0 if smag else 9)
+    g, c = states
+    for name, tol in (('u', 1e-11), ('v', 1e-11), ('w', 1e-11), ('p', 1e-10),
+                      ('visct', 1e-12)):
+        a, b = getattr(g, name).cpu(), getattr(c, name)
+        if name == 'p':
+            a, b = a - a.mean(), b - b.mean()
+        assert float((a - b).abs().max()) <= tol, name

@@ -179,20 +179,29 @@ def test_fillps_twin_matches_pallas():
     _close(got, ref, 1e-13 * max(1.0, float(np.abs(np.asarray(ref)).max())))
 
 
-@pytest.mark.parametrize('recipe', ['DD', 'NN'])
+@pytest.mark.parametrize('recipe', ['DD', 'NN', 'EE', 'ED'])
 def test_correc_smag_twin_matches_pallas(recipe):
     """First unit-level test of fused_correc_updatep_smag: the deferred
-    forcing fu/fv, non-zero wall-shear planes and both z-ghost recipes."""
+    forcing fu/fv, non-zero wall-shear planes and the z-ghost recipes:
+    'D', 'N', and the wall model's 'E' (fac_ex of the grid) on both faces
+    or on the lower one beside a 'D' upper face."""
     cfg, grid, d = _setup(4)
     J, T = _J(d), _T(d)
     nx, ny, nz = NG
     dxi, dyi = cfg.dli[:2]
     dz01 = (float(grid.dzc[0]), float(grid.dzc[nz]))
+    fac = (float(grid.dzc[0] * grid.dzci[1]),
+           float(grid.dzc[nz] * grid.dzci[nz - 1]))
     if recipe == 'DD':
         zrec = (('D', 0.0, dz01[0], 'D', 0.0, dz01[1]),) * 2
-    else:
+    elif recipe == 'NN':
         zrec = (('N', 0.3, dz01[0], 'N', -0.2, dz01[1]),
                 ('N', 0.1, dz01[0], 'D', 0.05, dz01[1]))
+    elif recipe == 'EE':
+        zrec = (('E', fac[0], 0.0, 'E', fac[1], 0.0),) * 2
+    else:
+        zrec = (('E', fac[0], 0.0, 'D', 0.0, dz01[1]),
+                ('E', fac[0], 0.0, 'D', 0.05, dz01[1]))
     setup = tsgs.SGSSetup(cfg, grid, effective_cbcvel(cfg))
     csd2 = (C_SMAG * setup.delta) ** 2
     zc = grid.zc[1:nz + 1]
@@ -257,7 +266,8 @@ def test_wrappers_take_the_twin_on_cpu_without_launching():
                                rtol=0, atol=0)
     assert K.LAUNCHES == {'mom_rk': 0, 'fillps': 0, 'correc_smag': 0,
                           'correc_updatep': 0, 'smag': 0, 'dsmag': 0,
-                          'dsmag_level1': 0, 'dsmag_level2': 0}
+                          'dsmag_level1': 0, 'dsmag_level2': 0,
+                          'wallmodel': 0}
 
 
 def test_wrapper_rejects_other_devices():

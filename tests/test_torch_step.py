@@ -149,7 +149,8 @@ def test_exec_path_names_device_kernels_and_solve(pair):
           cbcvel=((('P', 'P', 'P'), ('D', 'D', 'D'), ('D', 'D', 'D')),) * 2,
           cbcpre=(('P', 'N', 'N'),) * 2, cbcsgs=(('P', 'D', 'D'),) * 2),
      'full-3D implicit diffusion'),
-    (dict(lwm=((0, 0, 1), (0, 0, 1)), hwm=0.1), 'wall model'),
+    (dict(lwm=((0, 0, 1), (0, 0, 1)), hwm=0.1, impdiff=True,
+          impdiff_1d=True), 'wall model'),
     (dict(sgstype='dsmag', dsmag_avg='duct', impdiff=True, impdiff_1d=True,
           cbcvel=((('P', 'P', 'P'), ('D', 'D', 'D'), ('D', 'D', 'D')),) * 2,
           cbcpre=(('P', 'N', 'N'),) * 2, cbcsgs=(('P', 'D', 'D'),) * 2),
@@ -180,6 +181,12 @@ def test_exec_path_names_device_kernels_and_solve(pair):
                                    ('P', 'P', 'P')),) * 2,
           cbcpre=(('P', 'N', 'P'),) * 2, cbcsgs=(('P', 'D', 'P'),) * 2),
      'periodic z with y walls'),
+    (dict(lwm=((0, 0, 1), (0, 0, 1)), hwm=0.1, impdiff=True),
+     'wall model with implicit diffusion'),
+    (dict(lwm=((0, 0, 1), (0, 0, 1)), hwm=0.1, dims=(2, 1)),
+     'wall model on a device mesh'),
+    (dict(lwm=((0, 1, 0), (0, 1, 0)), hwm=0.1), 'wall model on y faces'),
+    (dict(lwm=((1, 0, 0), (1, 0, 0)), hwm=0.1), 'wall model on x faces'),
 ])
 def test_configs_outside_the_slice_raise(change, missing):
     cfg = Config(**{**HEADLINE, **change})
@@ -204,11 +211,15 @@ def test_headline_config_is_in_the_slice():
     dict(sgstype='none', gr=0.0, is_forced=(False,) * 3, **TRIPERIODIC),
     dict(sgstype='none', gr=0.0, impdiff=True, **TRIPERIODIC),
     dict(sgstype='none', gr=0.0, impdiff=True, impdiff_1d=True,
-         **TRIPERIODIC)])
+         **TRIPERIODIC),
+    dict(lwm=((0, 0, 1), (0, 0, 1)), hwm=0.1),
+    dict(lwm=((0, 0, -1), (0, 0, 0)), hwm=0.1, ptransform='mat'),
+    dict(lwm=((0, 0, 0), (0, 0, 1)), hwm=0.1, sgstype='none')])
 def test_configs_inside_the_slice_build(change):
-    """Configurations the implicit-CN, the SGS and the triperiodic slices
-    brought in (full-3D implicit diffusion on the channel, the triperiodic
-    DNS explicit or implicit): no refusal, and the Simulation builds."""
+    """Configurations the implicit-CN, the SGS, the triperiodic and the
+    wall-model slices brought in (full-3D implicit diffusion on the
+    channel, the triperiodic DNS explicit or implicit, the z faces' wall
+    model): no refusal, and the Simulation builds."""
     cfg = Config(**{**HEADLINE, **change})
     assert unsupported(cfg) == []
     Simulation(cfg, make_grid_from_config(cfg), device='cpu')
@@ -356,3 +367,36 @@ def test_dsmag_state_carried_across_from_jax():
         jst, _ = jsim.step(jst, dt)
         tst, _ = tsim.step(tst, dt)
     _compare(jst, tst, rel=('visct',))
+
+
+# --------------------------------------- the wall-modelled channel LES
+
+WMLES = dict(HEADLINE, visci=125_000.0, ptransform='mat',
+             lwm=((0, 0, 1), (0, 0, 1)), hwm=0.1)
+WM_VARIANTS = {
+    'lower face only': dict(WMLES, lwm=((0, 0, 1), (0, 0, 0))),
+    'laminar': dict(WMLES, lwm=((0, 0, -1), (0, 0, -1)), visci=2000.0),
+    'none': dict(WMLES, sgstype='none'),
+}
+
+
+@pytest.mark.parametrize('case', sorted(WM_VARIANTS))
+def test_wmles_variants_match_jax_for_three_steps(case):
+    """The wall model on the lower face only (the upper face a no-slip
+    wall: its 'D' ghost recipe beside the 'E' one), the laminar model on
+    both, and sgstype 'none' (correc_updatep, the post-correction fill's
+    planes): 3 steps against cales_tpu's XLA path.  The bench class itself
+    is in tests/test_torch_wallmodel.py."""
+    jsim, tsim, fields = _sims(WM_VARIANTS[case])
+    assert tsim.has_wm and 'wallmodel' in tsim.kernel_names()
+    jst, tst = jsim.initial_state(*fields), tsim.initial_state(*fields)
+    _compare(jst, tst)
+    dt = jsim.pick_dt(jsim.check(jst)[0])
+    for _ in range(3):
+        jst, jd = jsim.step(jst, dt)
+        tst, td = tsim.step(tst, dt)
+        _compare(jst, tst)
+        np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=0,
+                                   atol=1e-11)
+    for a, b in zip(tsim.check(tst), jsim.check(jst)):
+        assert abs(a - b) <= 1e-12 * max(1.0, abs(b))
