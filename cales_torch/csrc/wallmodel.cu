@@ -5,16 +5,15 @@
 // cales_tpu/timeloop.py:677 _wm_bcs_fast and the fused correction's
 // corrected rows, timeloop.py:1314-1342), where the fixed Newton loop
 // fuses into a few kernels.  Run eagerly in torch it is about 350 small
-// operations a face, called twice a substep; here it is one launch.
+// operations a face, called once a substep; here it is one launch.
 // Twin: cales_torch/wallmodel.py wm_planes_plain.
 //
 // Per face (blockIdx.y, one or two faces) a thread owns one (j, i) point
 // of the face's padded (ny+2, nx+2) output planes.  It samples rows r1 and
-// r2 of u and v around its point, wrapped along the periodic x and y:
-//   mode 0  the rows as they are;
-//   mode 1  plus the deferred bulk forcing (fu, fv);
-//   mode 2  corrected, fu + u - cx (pp(i+1) - pp(i)), fv + v - cy
-//           (pp(j+1) - pp(j)), in this order of operations.
+// r2 of u and v around its point, wrapped along the periodic x and y,
+// as they are or, with `corrected`, as the fused correction makes them:
+// fu + u - cx (pp(i+1) - pp(i)), fv + v - cy (pp(j+1) - pp(j)), in this
+// order of operations.
 // It interpolates them to hwm, makes them relative to the face's static
 // wall velocity, and runs the log-law Newton iteration (a fixed n_newton
 // steps, in registers) or the laminar profile (wmodel.f90:222-335).  bcu
@@ -23,7 +22,7 @@
 // ny+2, nx+2): [face][bcu, bcv].
 //
 // Bound on the H100: bytes, at a few microseconds.  At 512x256 it reads
-// two rows each of u and v a face (and of pp in mode 2) and writes two
+// two rows each of u and v a face (and of pp, corrected) and writes two
 // padded planes a face: about 5.3 MB in f32, 1.6 us at 3.35 TB/s; its
 // arithmetic (two Newton solves a point, each 12 steps of a logarithm and
 // three divisions) about 1.2 us at 67 TFLOP/s.  The launch is the cost.
@@ -73,7 +72,7 @@ template <typename T>
 __global__ void __launch_bounds__(CALES_THREADS)
     wallmodel_kernel(const T* __restrict__ u, const T* __restrict__ v,
                      const T* __restrict__ pp, const T* __restrict__ fuv,
-                     T* __restrict__ out, int ny, int nx, int mode,
+                     T* __restrict__ out, int ny, int nx, int corrected,
                      WmFace<T> f0, WmFace<T> f1, T cx, T cy, WmConst<T> c) {
   const int px = nx + 2, py = ny + 2;
   const int64_t npt = static_cast<int64_t>(px) * py;
@@ -84,15 +83,14 @@ __global__ void __launch_bounds__(CALES_THREADS)
   const int j = static_cast<int>(pt / px);
   const int i = static_cast<int>(pt - static_cast<int64_t>(j) * px);
   const int64_t plane = static_cast<int64_t>(ny) * nx;
-  const T fu = mode > 0 ? fuv[0] : T(0), fv = mode > 0 ? fuv[1] : T(0);
+  const T fu = corrected ? fuv[0] : T(0), fv = corrected ? fuv[1] : T(0);
 
   // the sampled value of u (or v) at padded (jq, iq) of interior row r
   auto sample = [&](const T* q, int r, int jq, int iq, bool is_u) {
     const int jj = wrap_near(jq - 1, ny), ii = wrap_near(iq - 1, nx);
     const int64_t o = r * plane + static_cast<int64_t>(jj) * nx + ii;
-    if (mode == 0) return q[o];
+    if (!corrected) return q[o];
     const T fq = is_u ? fu : fv;
-    if (mode == 1) return q[o] + fq;
     const int64_t on = is_u ? r * plane + static_cast<int64_t>(jj) * nx +
                                   wrap_near(ii + 1, nx)
                             : r * plane +
@@ -143,7 +141,8 @@ WmFace<T> wm_face(int mtype, int r1, int r2, double omc, double coef,
 
 template <typename T>
 int launch_wallmodel(const T* u, const T* v, const T* pp, const T* fuv,
-                     T* out, int ny, int nx, int nf, int mode, int n_newton,
+                     T* out, int ny, int nx, int nf, int corrected,
+                     int n_newton,
                      int mt0, int r1_0, int r2_0, int mt1, int r1_1,
                      int r2_1, double omc0, double coef0, double sv0,
                      double umag0, double vmag0, double omc1, double coef1,
@@ -163,7 +162,7 @@ int launch_wallmodel(const T* u, const T* v, const T* pp, const T* fuv,
                   static_cast<unsigned>(nf), 1);
   wallmodel_kernel<T><<<grid, CALES_THREADS, 0,
                         static_cast<cudaStream_t>(stream)>>>(
-      u, v, pp, fuv, out, ny, nx, mode, f0, f1, T(cx), T(cy), c);
+      u, v, pp, fuv, out, ny, nx, corrected, f0, f1, T(cx), T(cy), c);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -172,17 +171,17 @@ int launch_wallmodel(const T* u, const T* v, const T* pp, const T* fuv,
 #define CALES_WALLMODEL_ENTRY(NAME, T)                                        \
   extern "C" int NAME(                                                        \
       const T* u, const T* v, const T* pp, const T* fuv, T* out, int ny,      \
-      int nx, int nf, int mode, int n_newton, int mt0, int r1_0, int r2_0,    \
-      int mt1, int r1_1, int r2_1, double omc0, double coef0, double sv0,     \
-      double umag0, double vmag0, double omc1, double coef1, double sv1,      \
-      double umag1, double vmag1, double cx, double cy, double h,             \
-      double visc, double ufloor, double lam_den, double lam_c, double ikap,   \
+      int nx, int nf, int corrected, int n_newton, int mt0, int r1_0,         \
+      int r2_0, int mt1, int r1_1, int r2_1, double omc0, double coef0,       \
+      double sv0, double umag0, double vmag0, double omc1, double coef1,      \
+      double sv1, double umag1, double vmag1, double cx, double cy, double h, \
+      double visc, double ufloor, double lam_den, double lam_c, double ikap,  \
       double blog, double eps, void* stream) {                                \
     return cales::launch_wallmodel<T>(                                        \
-        u, v, pp, fuv, out, ny, nx, nf, mode, n_newton, mt0, r1_0, r2_0, mt1, \
-        r1_1, r2_1, omc0, coef0, sv0, umag0, vmag0, omc1, coef1, sv1, umag1,  \
-        vmag1, cx, cy, h, visc, ufloor, lam_den, lam_c, ikap, blog, eps,      \
-        stream);                                                              \
+        u, v, pp, fuv, out, ny, nx, nf, corrected, n_newton, mt0, r1_0, r2_0, \
+        mt1, r1_1, r2_1, omc0, coef0, sv0, umag0, vmag0, omc1, coef1, sv1,    \
+        umag1, vmag1, cx, cy, h, visc, ufloor, lam_den, lam_c, ikap, blog,    \
+        eps, stream);                                                         \
   }
 
 CALES_WALLMODEL_ENTRY(cales_wallmodel_f32, float)

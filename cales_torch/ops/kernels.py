@@ -823,10 +823,10 @@ def wm_planes(u, v, wm, fuv=None, pp=None, dtrk=0.0, dxi=0.0, dyi=0.0):
     """The wall model's Neumann planes of every wall-modelled z face
     (wm: wallmodel.ZWallModel, one or two faces) in one launch: a
     (len(wm.faces), 2, ny+2, nx+2) tensor [face][bcu, bcv] from the
-    interior u and v (periodic x and y), their rows sampled as they are,
-    with the deferred forcing fuv = (fu, fv) added, or corrected by pp
-    (fuv and pp given; see wallmodel.wm_planes_plain)."""
-    if pp is not None and fuv is None:
+    interior u and v (periodic x and y), their rows sampled as they are
+    or corrected by pp and the deferred forcing fuv = (fu, fv) (both
+    given; see wallmodel.wm_planes_plain)."""
+    if (pp is None) != (fuv is None):
         raise ValueError('wm_planes: the corrected rows take fuv with pp')
     if _on_cpu(u):
         return wm_planes_plain(u, v, wm, fuv=fuv, pp=pp, dtrk=dtrk, dxi=dxi,
@@ -844,14 +844,13 @@ def wm_planes(u, v, wm, fuv=None, pp=None, dtrk=0.0, dxi=0.0, dyi=0.0):
     _check('wallmodel', u, (u, v, pp),
            profiles=() if fuv is None else ((fuv, 2),))
     out = u.new_empty((len(faces), 2, ny + 2, nx + 2))
-    mode = 0 if fuv is None else 1 if pp is None else 2
     f0, f1 = faces[0], faces[-1]
     d, i = ctypes.c_double, ctypes.c_int
     h, visc = wm.h, wm.visc
     dl = 0.5 * wm.l1d
     _launch('wallmodel', f'cales_wallmodel_{_suffix(u)}',
             *map(_ptr, (u, v, pp, fuv, out)), i(ny), i(nx), i(len(faces)),
-            i(mode), i(wmod.N_NEWTON),
+            i(pp is not None), i(wmod.N_NEWTON),
             *(i(q) for f in (f0, f1) for q in (f.mtype, f.r1, f.r2)),
             *(d(q) for f in (f0, f1)
               for q in (1.0 - f.coef, f.coef, f.sgn * (1.0 / visc), f.umag,

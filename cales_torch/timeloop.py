@@ -12,7 +12,8 @@ spanwise-periodic cavity, with dynamic Smagorinsky ('duct', 'cavity' or
 model (log-law or laminar, cales_tpu's _wm_z_fast route) with static
 Smagorinsky and explicit diffusion, or with sgstype 'none': its Neumann
 planes come from kernels.wm_planes (csrc/wallmodel.cu) at every fill that
-reads them.
+reads them; with smag the fused correction's planes serve the
+post-correction fill.
 One RK substep runs:
   1. kernels.mom_rk          momentum RHS + RK3 update (+ forcing partial
                              sums; with implicit diffusion the explicit/
@@ -594,17 +595,16 @@ class Simulation:
                             w=w_i.contiguous(), vlo=vlo, visct=visct, zq=zq)
 
     # ------------------------------------------------------------------
-    def _dynamic_bcs(self, u, v, w):
+    def _dynamic_bcs(self, u, v, w, planes=None):
         """Velocity BC values: the static ones, and on each wall-modelled
-        z face the wall model's Neumann planes of u and v from the current
-        u and v (bounduvw's is_updt_wm path, bound.f90:120-123)."""
+        z face the wall model's Neumann planes of u and v (bounduvw's
+        is_updt_wm path, bound.f90:120-123): `planes`, the (faces, 2,
+        ny+2, nx+2) planes already made from this u and v, or else made
+        here from the current u and v."""
         if not self.has_wm:
             return self.bcu_vals, self.bcv_vals, self.bcw_vals
-        return self._with_wm(kernels.wm_planes(u, v, self.wm_z))
-
-    def _with_wm(self, planes):
-        """The static BC values with the wall model's (faces, 2, ny+2,
-        nx+2) planes on the wall-modelled z faces."""
+        if planes is None:
+            planes = kernels.wm_planes(u, v, self.wm_z)
         bcu_z, bcv_z = list(self.bcu_vals[2]), list(self.bcv_vals[2])
         for n, face in enumerate(self.wm_z.faces):
             bcu_z[face.ib], bcv_z[face.ib] = planes[n, 0], planes[n, 1]
@@ -700,15 +700,16 @@ class Simulation:
         """Projection + pressure update + smag nu_t in one kernel.  The
         van Driest wall-shear planes come from the corrected wall-adjacent
         planes, computed here as (ny, nx) expressions; on a wall-modelled
-        face from the wall model's planes of the corrected rows (the
-        planes the post-correction fill will take; cales_tpu timeloop.py:
-        1318-1356): there the jump across the face is dz times the Neumann
-        value."""
+        face from the wall model's planes of the corrected rows (cales_tpu
+        timeloop.py:1318-1356): there the jump across the face is dz times
+        the Neumann value.  Returns (u, v, w, p, visct, planes): the
+        planes (None without a wall model) are those of the corrected u
+        and v, which the post-correction fill takes."""
         cfg = self.cfg
         nz = cfg.ng[2]
         dxi, dyi = cfg.dli[0], cfg.dli[1]
         fu, fv = fuv[0], fuv[1]
-        wm_faces = {}
+        wm_faces, planes = {}, None
         if self.has_wm:
             planes = kernels.wm_planes(u, v, self.wm_z, fuv=fuv, pp=pp,
                                        dtrk=dtrk, dxi=dxi, dyi=dyi)
@@ -728,10 +729,11 @@ class Simulation:
                     v_c - kernels.ghost_row(self.zrec_uv[1], side, v_c))
 
         tauw_lo, tauw_hi = self._wall_shear_planes(face, u)
-        return kernels.correc_smag(
+        out = kernels.correc_smag(
             u, v, w, pp, p, ue2, ve2, we2, ppe, dtrk, dxi, dyi, self.dzci_t,
             self.dzfi_t, cfg.visc, self.csd2_t, self.zrec_uv, fuv, self.dw_t,
             self.nearlo_t, tauw_lo, tauw_hi, have_zwalls=self.have_zwalls)
+        return (*out, planes)
 
     def _wall_shear_planes(self, face, like, bprev=None):
         """The van Driest wall-shear planes (tauw_lo, tauw_hi), (ny, nx):
@@ -958,8 +960,9 @@ class Simulation:
         ypp = self._yedge_p(pp) if self.ywalled else None
         hpp = (None if self.mesh is None
                else self.mesh.halo_y([(pp, ppe)])[0])
+        planes = None
         if self.fused_smag:
-            u, v, w, p, visct = self._correc_smag_fused(
+            u, v, w, p, visct, planes = self._correc_smag_fused(
                 u, v, w, pp, p, ue2, ve2, we2, ppe, dtrk, fuv)
         else:
             u, v, w, p = kernels.correc_updatep(
@@ -969,8 +972,10 @@ class Simulation:
                 yv=None if yv2 is None else yv2[0], yh=hpp)
         vlo = self._advance_wall_planes(state, pp, ppe, we2, dtrk,
                                         ypred=ypred, ypp=ypp)
-        # post-correction fill (main.f90:500-501, is_correc=.true.)
-        bcu, bcv, bcw = self._dynamic_bcs(u, v, w)
+        # post-correction fill (main.f90:500-501, is_correc=.true.); with
+        # smag the wall model's planes are the fused correction's, made
+        # from the same corrected rows (cales_tpu makes them again)
+        bcu, bcv, bcw = self._dynamic_bcs(u, v, w, planes)
         zq = self._zedge_vel(u, v, w, bcu, bcv, bcw, vlo=vlo, is_correc=True)
         if self.sgs_kernel:
             visct = self._sgs_stage(u, v, w, zq, vlo)

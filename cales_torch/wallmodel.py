@@ -11,10 +11,10 @@ as the JAX package's does.
 
 ``wm_planes_plain`` is the plain twin of the wall-model kernel
 (ops/kernels.wm_planes, csrc/wallmodel.cu): both faces' padded planes from
-the sampled rows of u and v, in three modes (the rows as they are, with
-the deferred bulk forcing added, or corrected by the pressure correction
-pp first).  The y- and x-face branches (``y_wall_wm_planes``, the x branch
-of ``update_wallmodel_bcs``) are not ported yet (ROADMAP queue 1).
+the sampled rows of u and v, as they are or corrected by the pressure
+correction pp and the deferred bulk forcing first.  The y- and x-face
+branches (``y_wall_wm_planes``, the x branch of ``update_wallmodel_bcs``)
+are not ported yet (ROADMAP queue 1).
 """
 from __future__ import annotations
 
@@ -220,15 +220,12 @@ def wm_planes_plain(u, v, wm: ZWallModel, fuv=None, pp=None, dtrk=0.0,
     """The wall-modelled faces' padded (ny+2, nx+2) bcu and bcv planes
     from interior (nz, ny, nx) u and v, periodic along x and y, as one
     (len(wm.faces), 2, ny+2, nx+2) tensor [face][bcu, bcv].  Each face
-    samples its rows r1 and r2 of u and v:
-      fuv None:           as they are;
-      fuv, pp None:       plus the deferred forcing (fu, fv), as the
-                          prediction fill (cales_tpu timeloop.py:677-704);
-      fuv and pp:         corrected, fu + u - dtrk dxi (pp(i+1) - pp(i))
-                          and likewise v along y, as the fused correction's
-                          rows (timeloop.py:1314-1342).
+    samples its rows r1 and r2 of u and v as they are (cales_tpu
+    timeloop.py:677-704 without fadd) or, with fuv = (fu, fv) and pp,
+    corrected: fu + u - dtrk dxi (pp(i+1) - pp(i)) and likewise v along
+    y, as the fused correction's rows (timeloop.py:1314-1342).
     The planes off the wall model's ranges keep the face's static values."""
-    if pp is not None and fuv is None:
+    if (pp is None) != (fuv is None):
         raise ValueError('wm_planes: the corrected rows take fuv with pp')
     ny, nx = u.shape[1:]
 
@@ -238,8 +235,6 @@ def wm_planes_plain(u, v, wm: ZWallModel, fuv=None, pp=None, dtrk=0.0,
             ppq = pp[r]
             uq = fuv[0] + uq - dtrk * dxi * (torch.roll(ppq, -1, 1) - ppq)
             vq = fuv[1] + vq - dtrk * dyi * (torch.roll(ppq, -1, 0) - ppq)
-        elif fuv is not None:
-            uq, vq = uq + fuv[0], vq + fuv[1]
         return _wrap_xy(uq), _wrap_xy(vq)
 
     out = []

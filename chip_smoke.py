@@ -452,11 +452,11 @@ def call(name, d, twin=False, variant=None, has_ruo=True, zrec=None):
                      bc_lo=d['bc_lo'], bc_hi=d['bc_hi'], n_solve=nz - 1)
         return {'out': out}
     if name == 'wallmodel':
-        # corrected: the fused correction's rows; rows: the post-correction
-        # fill's; forcing: the rows plus the deferred forcing
+        # corrected: the fused correction's rows; rows: the fill's (the
+        # initial and check fills, and sgstype 'none''s post-correction)
         kw = {'corrected': dict(fuv=d['fuv'], pp=d['pp'], dtrk=0.01,
                                 dxi=d['dxi'], dyi=d['dyi']),
-              'rows': {}, 'forcing': dict(fuv=d['fuv'])}[variant]
+              'rows': {}}[variant]
         out = fn(d['wm_u'], d['v'], d['wm'], **kw)
         return {f'{c}_{side}': out[n, i] for n, side in enumerate(('lo', 'hi'))
                 for i, c in enumerate(('bcu', 'bcv'))}
@@ -554,7 +554,7 @@ VARIANTS = {
     'thomas_periodic': ('poisson', 'helmholtz'),
     'dsmag_level1': (None, 'duct'), 'dsmag_level2': (None, 'duct', 'cavity'),
     'apply_x': ('slab', 'split', 'chunked'),
-    'wallmodel': ('corrected', 'rows', 'forcing'),
+    'wallmodel': ('corrected', 'rows'),
 }
 # the report rows of the other variants, by (kernel, variant)
 VARIANT_ROW_OF = {kv: row for row, kv in VARIANT_ROWS.items()}
@@ -953,9 +953,10 @@ def phase_les(dev, card):
 
 def phase_wmles(dev, card):
     """bench.py's wmles_channel (the log-law wall model on both z walls)
-    at 512x256x256 f32 through driver.run: the wall-model kernel twice a
-    substep (the fused correction's corrected rows, the post-correction
-    fill), and once more for the initial fill and at each check; then the
+    at 512x256x256 f32 through driver.run: the wall-model kernel once a
+    substep (the fused correction's corrected rows, whose planes the
+    post-correction fill takes), and once more for the initial fill and
+    at each check; then the
     wall model's planes of the final state: finite, the lower face's bcu of
     the sign of the mean u next to it."""
     from cales_torch.config import Config
@@ -963,7 +964,7 @@ def phase_wmles(dev, card):
     cfg = Config(**WMLES_CFG)
     nsteps = 11
     per_step = dict(mom_rk=3, fillps=3, correc_smag=3, apply_y=6, z_eig=3,
-                    wallmodel=6)
+                    wallmodel=3)
     keep = {}
     sim, launches, res = drive(
         'phase 4w: wall-modelled channel LES', cfg, dev, card, nsteps,

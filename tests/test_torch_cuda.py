@@ -1352,8 +1352,8 @@ WMLES = dict(ng=(32, 16, 16), l=(2 * np.pi, np.pi, 2.0), gtype=1, gr=1.0,
     ('float64', (40, 25, 12)), ('float64', (33, 17, 16)),
     ('float32', (40, 25, 12)), ('float32', (33, 17, 16))])
 def test_cuda_wallmodel_matches_twin(dev, dtype, shape, lwm):
-    """The wall-model kernel against wallmodel.wm_planes_plain in its three
-    modes (the rows, with the forcing, corrected by pp), one face or both,
+    """The wall-model kernel against wallmodel.wm_planes_plain in its two
+    modes (the rows as they are, corrected by pp), one face or both,
     moving wall values, on (nx, ny, nz) shapes no block fits: float64
     within 1e-13 of each plane's maximum, float32 within 1e-5."""
     from cales_torch import wallmodel as wmod
@@ -1374,8 +1374,7 @@ def test_cuda_wallmodel_matches_twin(dev, dtype, shape, lwm):
     u = u + 1.0
     fuv = t([0.013, -0.007])
     K.reset_launches()
-    for kw in ({}, dict(fuv=fuv),
-               dict(fuv=fuv, pp=pp, dtrk=2.3e-3, dxi=cfg.dli[0],
+    for kw in ({}, dict(fuv=fuv, pp=pp, dtrk=2.3e-3, dxi=cfg.dli[0],
                     dyi=cfg.dli[1])):
         got = K.wm_planes(u, v, wm, **kw)
         ref = wmod.wm_planes_plain(u, v, wm, **kw)
@@ -1383,8 +1382,8 @@ def test_cuda_wallmodel_matches_twin(dev, dtype, shape, lwm):
         for g, r in zip(got.flatten(0, 1), ref.flatten(0, 1)):
             _rel_close(g, r, 1e-13 if dt == torch.float64 else 1e-5)
     torch.cuda.synchronize()
-    assert K.LAUNCHES['wallmodel'] == 3
-    assert sum(K.LAUNCHES.values()) == 3
+    assert K.LAUNCHES['wallmodel'] == 2
+    assert sum(K.LAUNCHES.values()) == 2
 
 
 @pytest.mark.cuda
@@ -1437,13 +1436,53 @@ def test_cuda_correc_smag_e_recipe_ragged_tiles(dev, dtype, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('dtype', ['float32', 'float64'])
+def test_cuda_prediction_fill_uv_ghosts_are_not_read(dev, dtype):
+    """Why the port runs no wall model on the prediction fill: the fillps
+    and correc_smag kernels give bitwise the same outputs whatever the
+    prediction fill's u and v z ghost rows (edge rows 0 and 2) hold, with
+    the 'E', 'N' and 'D' recipes, on ragged tiles."""
+    nx, ny, nz = 33, 17, 6
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(3)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, dtype=np.float64),
+                               device=dev).to(dt)
+    F = lambda: t(0.1 * rng.standard_normal((nz, ny, nx)))    # noqa: E731
+    E = lambda: t(0.1 * rng.standard_normal((3, ny, nx)))     # noqa: E731
+    u, v, w, pp, p = (F() for _ in range(5))
+    ue, ve, we, ppe = (E() for _ in range(4))
+    junk = lambda e: torch.stack([e[0] + 5.0, e[1], e[2] - 3.0])  # noqa: E731
+    ue2, ve2 = junk(ue), junk(ve)
+    one = t(np.ones(nz + 2))
+    prof = t(np.linspace(0.1, 0.5, nz))
+    fuv = t([0.02, -0.01])
+    zrec = (('E', 0.4, 0.0, 'N', 0.1, 0.2), ('E', 0.3, 0.0, 'D', 0.0, 0.2))
+    tw = t(np.abs(rng.standard_normal((2, ny, nx))))
+    K.reset_launches()
+    assert torch.equal(K.fillps(u, v, w, ue, ve, we, one, 3.0, 1.5, 2.0),
+                       K.fillps(u, v, w, ue2, ve2, we, one, 3.0, 1.5, 2.0))
+    for a, b in zip(
+            K.correc_smag(u, v, w, pp, p, ue, ve, we, ppe, 1e-3, 1.5, 2.0,
+                          one, one, 1e-4, prof, zrec, fuv, prof, prof, tw[0],
+                          tw[1]),
+            K.correc_smag(u, v, w, pp, p, ue2, ve2, we, ppe, 1e-3, 1.5, 2.0,
+                          one, one, 1e-4, prof, zrec, fuv, prof, prof, tw[0],
+                          tw[1])):
+        assert torch.equal(a, b)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES['fillps'] == 2 and K.LAUNCHES['correc_smag'] == 2
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize('case', ['smag', 'none'])
 def test_card_matches_cpu_wmles_step_for_step(dev, case):
     """The wall-modelled channel (bench.py's wmles_channel, and its
     sgstype 'none' variant) on the card against the CPU, 3 steps, fp64,
-    with the launches of the steps: the wall model twice a substep with
-    smag (the corrected rows and the post-correction fill), once with
-    'none'."""
+    with the launches of the steps: the wall model once a substep (with
+    smag the fused correction's corrected rows, whose planes the
+    post-correction fill takes; with 'none' the post-correction fill)."""
     cfg = Config(**dict(WMLES, sgstype=case))
     grid = make_grid_from_config(cfg)
     fields = initflow(cfg, grid)
@@ -1454,7 +1493,7 @@ def test_card_matches_cpu_wmles_step_for_step(dev, case):
     for _ in range(3):
         states = [s.step(st, dt)[0] for s, st in zip(sims, states)]
     smag = case == 'smag'
-    assert K.LAUNCHES['wallmodel'] == (18 if smag else 9)
+    assert K.LAUNCHES['wallmodel'] == 9
     assert K.LAUNCHES['correc_smag'] == (9 if smag else 0)
     assert K.LAUNCHES['correc_updatep'] == (0 if smag else 9)
     g, c = states
