@@ -10,12 +10,13 @@ one-pass dsmag's test filter, shared across the plane: dsmag_common.cuh's
 separable passes), correc_smag (a z-march over corrected planes in shared
 memory), the one-pass dsmag and dsmag_level2 (beside those shared stages),
 z_eig, apply_y and apply_x (their float32 GEMM in gemm.cuh, 3xTF32 on the
-tensor cores), and the periodic and y-walled variants of fillps,
+tensor cores), the periodic and y-walled variants of fillps,
 correc_updatep and smag (their y reads through common.cuh's y mode,
-beside the slab's halo mode).
+beside the slab's halo mode), and the wall model (one Newton solve a
+thread, the warp's early exit).
 
     python -m cales_torch.ab_dsmag --baseline DIR [--ng 512x256x256]
-                                   [--reps 10]
+                                   [--reps 10] [--cases wallmodel,...]
 
 DIR holds another checkout (for example the parent commit unpacked by git
 archive).  Its cales_torch is imported beside this one under another
@@ -42,14 +43,18 @@ with z walls and the deferred forcing, by the 'D' recipes on both faces
 and by mixed 'N' and 'D' ones ('correc_smag N'); and, in float32
 only, at ng = (512, 512, 512): apply_y with the x operator, mom_rk
 without nu_t (the Taylor-Green vortex's), thomas_periodic pinned and
-thomas_z pinned.
+thomas_z pinned; the wall model on both log-law z faces (bench.py's hwm
+and visci) from the rows of a bulk flow (1 + u) corrected by pp
+('wallmodel') and as they are ('wallmodel rows').
 Outputs are compared in float64 at (nx, ny, nz) = (72, 40, 48) and in
 float32 at --ng (bitwise, and max|this - baseline| / max|baseline|, the
 worst output); mom_rk's partial sums, whose parts differ (blocks of 256
 cells, tiles of 8 x 32), as per-plane totals apart ('sums_rel');
 times are float32 at --ng, the mean of --reps calls after a warm-up (CUDA
-events), taken in the order baseline, this, this, baseline.  Prints one
-JSON line.  Needs a CUDA device.
+events), taken in the order baseline, this, this, baseline; the wall
+model's also as the device time of a CUDA graph of --reps calls ('graph
+ms': its wrapper's host time exceeds the kernel's).  --cases runs only
+the cases named.  Prints one JSON line.  Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -63,6 +68,7 @@ from pathlib import Path
 
 import torch
 
+from . import wallmodel as wmod
 from .ops import kernels as K
 from .ops import solve_kernels as SK
 
@@ -76,13 +82,15 @@ CASES = ('channel', 'duct', 'cavity', 'z_eig', 'dsmag_level1',
          'thomas_z helmholtz', 'thomas_z poisson', 'thomas_z lam alpha',
          'thomas_z 512^3', 'fillps', 'fillps y walls', 'correc_updatep',
          'correc_updatep y walls', 'smag', 'smag halo', 'correc_smag',
-         'correc_smag N')
+         'correc_smag N', 'wallmodel', 'wallmodel rows')
 # the cases at their own shape, in float32 only
 BIG = {'apply_y x+y 512^3': (512, 512, 512), 'mom_rk 512^3': (512, 512, 512),
        'thomas_periodic 512^3': (512, 512, 512),
        'thomas_z 512^3': (512, 512, 512)}
 # the cases whose last two outputs are partial sums, compared as totals
 SUMS = ('mom_rk',)
+# the cases timed on the device by a CUDA graph too
+GRAPH = ('wallmodel', 'wallmodel rows')
 
 
 def _baseline(root: Path):
@@ -137,10 +145,15 @@ def _inputs(ng, dtype, seed):
     blocks = slab.reshape(nz, slab.shape[1], 2, nx // 2).permute(
         2, 0, 1, 3).contiguous()
     fuv = torch.tensor([0.05, -0.02], dtype=dtype, device='cuda')
+    # the wall model on both z faces at bench.py's hwm and visci
+    wm = wmod.ZWallModel(faces=(
+        wmod.ZFace(0, wmod.WM_LOG, 0, 1, 0.3, 1.0, 0.0, 0.0),
+        wmod.ZFace(1, wmod.WM_LOG, nz - 1, nz - 2, 0.3, -1.0, 0.0, 0.0)),
+        h=0.1, l1d=2.0, visc=1.0 / 125_000.0)
     yh = [(rnd(nz, 2, nx), rnd(3, 2, nx)) for _ in range(5)]
     return dict(f=f, e=e, ye=ye, yh=yh, alph2=alph2, dz=dz, ny_op=ny_op,
                 nx_op=nx_op, prof=prof, nearlo=nearlo, tauw=tauw, fuv=fuv,
-                slab=slab,
+                slab=slab, wm=wm, wm_u=1.0 + f[0],
                 blocks=blocks, vz=vz, lam=lam, tri=_tri_inputs(ng, dtype),
                 ds2=rnd(13, nz, ny, nx))
 
@@ -198,6 +211,11 @@ def _call(mods, d, case):
     if case.startswith('apply_y'):
         return (SKm.apply_y(d['f'][0], d['ny_op'],
                             d['nx_op'] if 'x+y' in case else None),)
+    if case.startswith('wallmodel'):
+        f = d['f']
+        kw = ({} if case == 'wallmodel rows' else
+              dict(fuv=d['fuv'], pp=f[4], dtrk=0.01, dxi=40.0, dyi=20.0))
+        return (Km.wm_planes(d['wm_u'], f[1], d['wm'], **kw),)
     if case.startswith('apply_x'):
         src = d['blocks'] if case == 'apply_x chunked' else d['slab']
         return (SKm.apply_x(src, d['nx_op'],
@@ -295,12 +313,39 @@ def _time_ms(fn, reps):
     return a.elapsed_time(b) / reps
 
 
+def graph_ms(fn, reps):
+    """Device time of one call of fn: reps calls captured in a CUDA
+    graph, replayed between CUDA events."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    graph.replay()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog='cales_torch.ab_dsmag')
     ap.add_argument('--baseline', required=True, type=Path)
     ap.add_argument('--ng', default='512x256x256')
     ap.add_argument('--reps', type=int, default=10)
+    ap.add_argument('--cases', default=','.join(CASES))
     args = ap.parse_args(argv)
+    cases = args.cases.split(',')
+    unknown = set(cases) - set(CASES)
+    if unknown:
+        ap.error(f'unknown cases {sorted(unknown)}')
     if not torch.cuda.is_available():
         print('ab_dsmag needs a CUDA device', file=sys.stderr)
         return 2
@@ -314,7 +359,7 @@ def main(argv=None):
     for dtype, shape in ((torch.float64, (72, 40, 48)),
                          (torch.float32, ng)):
         d = _inputs(shape, dtype, 20261016)
-        for case in CASES:
+        for case in cases:
             if case in BIG and dtype == torch.float64:
                 continue
             dc = (_big_inputs(BIG[case], dtype, 20261017, case)
@@ -337,6 +382,12 @@ def main(argv=None):
                     times[name].append(_time_ms(
                         lambda: _call(mods[name], dc, case), args.reps))
                 out['ms'][case] = times
+                if case in GRAPH:
+                    graph = {name: [] for name in mods}
+                    for name in ('baseline', 'this', 'this', 'baseline'):
+                        graph[name].append(graph_ms(
+                            lambda: _call(mods[name], dc, case), args.reps))
+                    out.setdefault('graph_ms', {})[case] = graph
             del res, dc
         del d
         torch.cuda.empty_cache()

@@ -53,7 +53,8 @@ _SIGNATURES = {
     'cales_dsmag': [_P] * 18 + [_I] * 6 + [_D] * 10 + [_P],
     'cales_dsmag_level1': [_P] * 15 + [_I] * 5 + [_D] * 2 + [_P],
     'cales_dsmag_level2': [_P] * 30 + [_I] * 4 + [_D] * 2 + [_P],
-    'cales_wallmodel': [_P] * 5 + [_I] * 11 + [_D] * 20 + [_P],
+    # the pointers, ny, nx, corrected, cx, cy, the static WmArgs
+    'cales_wallmodel': [_P] * 5 + [_I] * 3 + [_D] * 2 + [_P] + [_P],
 }
 
 

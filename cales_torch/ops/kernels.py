@@ -41,6 +41,8 @@ counts kernel launches only; the twins never touch it.
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 
 import torch
 
@@ -819,6 +821,47 @@ def dsmag_level2(fu, fv, fw, fue, fve, fwe, fm, lij, s0, alph2, dzci, dzfi,
 wm_planes_plain = wmod.wm_planes_plain
 
 
+class _WmArgs(ctypes.Structure):
+    """The wall-model kernel's static arguments (csrc/wallmodel.cu
+    WmArgs, the same layout): slot 1 repeats slot 0 for one face."""
+    _fields_ = [('nf', ctypes.c_int), *((q, ctypes.c_int * 2) for q in
+                                        ('mtype', 'r1', 'r2')),
+                *((q, ctypes.c_double * 2) for q in
+                  ('omc', 'coef', 'sv', 'umag', 'vmag')),
+                *((q, ctypes.c_double) for q in
+                  ('h', 'visc', 'ufloor', 'lam_den', 'lam_c', 'ikap', 'blog',
+                   'lhv', 'eps'))]
+
+
+@functools.cache
+def _wm_args(wm, dtype, nz):
+    """The static arguments of wm (a ZWallModel, its own key) for fields
+    of dtype with nz rows: checked and built once, so a call passes only
+    its pointers, its mode and dtrk dxi, dtrk dyi."""
+    faces = tuple(wm.faces)
+    if not 1 <= len(faces) <= 2:
+        raise ValueError(f'wm_planes: {len(faces)} faces (one or two)')
+    for f in faces:
+        if not (0 <= f.r1 < nz and 0 <= f.r2 < nz):
+            raise ValueError(f'wm_planes: rows {f.r1}, {f.r2} outside '
+                             f'0 .. {nz - 1}')
+        if f.mtype not in (wmod.WM_LOG, wmod.WM_LAM):
+            raise ValueError(f'wm_planes: wall model type {f.mtype}')
+    h, visc, dl = wm.h, wm.visc, 0.5 * wm.l1d
+
+    def two(get):   # face 0's and the last face's
+        return tuple(get(f) for f in (faces[0], faces[-1]))
+    return _WmArgs(
+        nf=len(faces), mtype=two(lambda f: f.mtype), r1=two(lambda f: f.r1),
+        r2=two(lambda f: f.r2), omc=two(lambda f: 1.0 - f.coef),
+        coef=two(lambda f: f.coef), sv=two(lambda f: f.sgn * (1.0 / visc)),
+        umag=two(lambda f: f.umag), vmag=two(lambda f: f.vmag), h=h,
+        visc=visc, ufloor=visc / h * wmod.LOG_FLOOR,
+        lam_den=h / dl * (2.0 - h / dl), lam_c=2.0 / dl,
+        ikap=1.0 / wmod.KAP_LOG, blog=wmod.B_LOG, lhv=math.log(h / visc),
+        eps=torch.finfo(dtype).eps)
+
+
 def wm_planes(u, v, wm, fuv=None, pp=None, dtrk=0.0, dxi=0.0, dyi=0.0):
     """The wall model's Neumann planes of every wall-modelled z face
     (wm: wallmodel.ZWallModel, one or two faces) in one launch: a
@@ -831,32 +874,14 @@ def wm_planes(u, v, wm, fuv=None, pp=None, dtrk=0.0, dxi=0.0, dyi=0.0):
     if _on_cpu(u):
         return wm_planes_plain(u, v, wm, fuv=fuv, pp=pp, dtrk=dtrk, dxi=dxi,
                                dyi=dyi)
-    nz, ny, nx = u.shape
-    faces = tuple(wm.faces)
-    if not 1 <= len(faces) <= 2:
-        raise ValueError(f'wm_planes: {len(faces)} faces (one or two)')
-    for f in faces:
-        if not (0 <= f.r1 < nz and 0 <= f.r2 < nz):
-            raise ValueError(f'wm_planes: rows {f.r1}, {f.r2} outside '
-                             f'0 .. {nz - 1}')
-        if f.mtype not in (wmod.WM_LOG, wmod.WM_LAM):
-            raise ValueError(f'wm_planes: wall model type {f.mtype}')
     _check('wallmodel', u, (u, v, pp),
            profiles=() if fuv is None else ((fuv, 2),))
-    out = u.new_empty((len(faces), 2, ny + 2, nx + 2))
-    f0, f1 = faces[0], faces[-1]
-    d, i = ctypes.c_double, ctypes.c_int
-    h, visc = wm.h, wm.visc
-    dl = 0.5 * wm.l1d
-    _launch('wallmodel', f'cales_wallmodel_{_suffix(u)}',
-            *map(_ptr, (u, v, pp, fuv, out)), i(ny), i(nx), i(len(faces)),
-            i(pp is not None), i(wmod.N_NEWTON),
-            *(i(q) for f in (f0, f1) for q in (f.mtype, f.r1, f.r2)),
-            *(d(q) for f in (f0, f1)
-              for q in (1.0 - f.coef, f.coef, f.sgn * (1.0 / visc), f.umag,
-                        f.vmag)),
-            d(dtrk * dxi), d(dtrk * dyi), d(h), d(visc),
-            d(visc / h * wmod.LOG_FLOOR), d(h / dl * (2.0 - h / dl)),
-            d(2.0 / dl), d(1.0 / wmod.KAP_LOG), d(wmod.B_LOG),
-            d(torch.finfo(u.dtype).eps))
+    nz, ny, nx = u.shape
+    args = _wm_args(wm, u.dtype, nz)
+    out = u.new_empty((args.nf, 2, ny + 2, nx + 2))
+    _launch('wallmodel', f'cales_wallmodel_{_suffix(u)}', u.data_ptr(),
+            v.data_ptr(), None if pp is None else pp.data_ptr(),
+            None if fuv is None else fuv.data_ptr(), out.data_ptr(), ny, nx,
+            int(pp is not None), float(dtrk * dxi), float(dtrk * dyi),
+            ctypes.addressof(args))
     return out

@@ -7,7 +7,9 @@ bracketing cell rows (wmodel.f90:222-272), made wall-relative, fed to the
 log-law Newton iteration (288-326) or the laminar profile (327-333), and
 tau_w/visc is the Neumann value of the parallel components on that face.
 The Newton iteration runs a fixed N_NEWTON steps with no convergence test,
-as the JAX package's does.
+as the JAX package's does; the kernel lets a warp stop once all its lanes
+have converged, and ``newton_steps`` / ``wm_newton_steps`` count the steps
+that takes on given inputs.
 
 ``wm_planes_plain`` is the plain twin of the wall-model kernel
 (ops/kernels.wm_planes, csrc/wallmodel.cu): both faces' padded planes from
@@ -32,18 +34,26 @@ N_NEWTON = 12
 LOG_FLOOR = float(np.exp(-KAP_LOG * B_LOG))
 
 
+def _newton_start(upar, h, visc):
+    """The log law's first u_tau: the laminar estimate, floored."""
+    return torch.clamp_min(torch.sqrt(upar / h * visc), visc / h * LOG_FLOOR)
+
+
+def _newton_step(utau, upar, h, visc):
+    """One Newton step on u_tau of the log law (wmodel.f90:288-326)."""
+    f = upar / utau - (1.0 / KAP_LOG) * torch.log(h * utau / visc) - B_LOG
+    fp = -(1.0 / utau) * (upar / utau + 1.0 / KAP_LOG)
+    return torch.abs(utau - f / fp)
+
+
 def wallmodel_tauw(mtype: int, uh, vh, h: float, l1d: float, visc: float):
     """tau_w components aligned with (uh, vh) (wmodel.f90:288-335)."""
     eps = torch.finfo(uh.dtype).eps
     upar = torch.sqrt(uh * uh + vh * vh)
     if mtype == WM_LOG:
-        utau = torch.clamp_min(torch.sqrt(upar / h * visc),
-                               visc / h * LOG_FLOOR)
+        utau = _newton_start(upar, h, visc)
         for _ in range(N_NEWTON):
-            f = upar / utau - (1.0 / KAP_LOG) * torch.log(h * utau / visc) \
-                - B_LOG
-            fp = -(1.0 / utau) * (upar / utau + 1.0 / KAP_LOG)
-            utau = torch.abs(utau - f / fp)
+            utau = _newton_step(utau, upar, h, visc)
         tauw_tot = utau * utau
     elif mtype == WM_LAM:
         dl = 0.5 * l1d
@@ -52,6 +62,24 @@ def wallmodel_tauw(mtype: int, uh, vh, h: float, l1d: float, visc: float):
     else:
         raise ValueError(f'unknown wall model type {mtype}')
     return tauw_tot * uh / (upar + eps), tauw_tot * vh / (upar + eps)
+
+
+def newton_steps(upar, h: float, visc: float):
+    """The Newton steps the log law needs at each |u_par| (an int32 tensor
+    of upar's shape): the first step after which |du_tau| <= 4 eps u_tau,
+    the wall-model kernel's exit test, on wallmodel_tauw's iteration;
+    N_NEWTON where no step passes it.  The work of the kernel's loop on
+    given inputs, which chip_smoke.py counts in its bound."""
+    eps = torch.finfo(upar.dtype).eps
+    utau = _newton_start(upar, h, visc)
+    steps = torch.full(upar.shape, N_NEWTON, dtype=torch.int32,
+                       device=upar.device)
+    for it in range(N_NEWTON):
+        new = _newton_step(utau, upar, h, visc)
+        hit = ((new - utau).abs() <= 4.0 * eps * new) & (steps == N_NEWTON)
+        steps = torch.where(hit, it + 1, steps)
+        utau = new
+    return steps
 
 
 def _rel(v1, v2, coef, mag):
@@ -158,15 +186,13 @@ def z_wall_model(cfg, grid, index_wm, bcu_z=(0.0, 0.0),
                       visc=float(cfg.visc))
 
 
-def _face_planes(face, U1, U2, V1, V2, umag, vmag, bcu_z, bcv_z, h, l1d,
-                 visc):
-    """The updated (bcu_z, bcv_z) planes of one face from the padded
-    (ny+2, nx+2) rows U1, U2, V1, V2 and the planes umag, vmag
-    (wmodel.f90:222-272): bcu over [1:ny+1, 0:nx+1], bcv over
-    [0:ny+1, 1:nx+1], the rest kept from bcu_z, bcv_z."""
+def _face_rel(face, U1, U2, V1, V2, umag, vmag):
+    """The wall-relative (u, v) at hwm of one face from the padded (ny+2,
+    nx+2) rows U1, U2, V1, V2 and the planes umag, vmag
+    (wmodel.f90:222-272): at the bcu points [1:ny+1, 0:nx+1] and at the
+    bcv points [0:ny+1, 1:nx+1]."""
     ny, nx = U1.shape[0] - 2, U1.shape[1] - 2
-    visci = 1.0 / visc
-    coef, mtype = face.coef, face.mtype
+    coef = face.coef
     # bcu%z over (i=0..nx, j=1..ny)
     u1 = U1[1:ny + 1, 0:nx + 1]
     u2 = U2[1:ny + 1, 0:nx + 1]
@@ -177,10 +203,7 @@ def _face_planes(face, U1, U2, V1, V2, umag, vmag, bcu_z, bcv_z, h, l1d,
     um = umag[1:ny + 1, 0:nx + 1]
     vm = 0.25 * (vmag[1:ny + 1, 0:nx + 1] + vmag[1:ny + 1, 1:nx + 2]
                  + vmag[0:ny, 0:nx + 1] + vmag[0:ny, 1:nx + 2])
-    t1, _ = wallmodel_tauw(mtype, _rel(u1, u2, coef, um),
-                           _rel(v1, v2, coef, vm), h, l1d, visc)
-    bcu_z = bcu_z.clone()
-    bcu_z[1:ny + 1, 0:nx + 1] = face.sgn * visci * t1
+    at_u = (_rel(u1, u2, coef, um), _rel(v1, v2, coef, vm))
     # bcv%z over (i=1..nx, j=0..ny)
     u1 = 0.25 * (U1[0:ny + 1, 0:nx] + U1[0:ny + 1, 1:nx + 1]
                  + U1[1:ny + 2, 0:nx] + U1[1:ny + 2, 1:nx + 1])
@@ -191,8 +214,22 @@ def _face_planes(face, U1, U2, V1, V2, umag, vmag, bcu_z, bcv_z, h, l1d,
     um = 0.25 * (umag[0:ny + 1, 0:nx] + umag[0:ny + 1, 1:nx + 1]
                  + umag[1:ny + 2, 0:nx] + umag[1:ny + 2, 1:nx + 1])
     vm = vmag[0:ny + 1, 1:nx + 1]
-    _, t2 = wallmodel_tauw(mtype, _rel(u1, u2, coef, um),
-                           _rel(v1, v2, coef, vm), h, l1d, visc)
+    return at_u, (_rel(u1, u2, coef, um), _rel(v1, v2, coef, vm))
+
+
+def _face_planes(face, U1, U2, V1, V2, umag, vmag, bcu_z, bcv_z, h, l1d,
+                 visc):
+    """The updated (bcu_z, bcv_z) planes of one face from the padded
+    (ny+2, nx+2) rows U1, U2, V1, V2 and the planes umag, vmag
+    (wmodel.f90:222-272): bcu over [1:ny+1, 0:nx+1], bcv over
+    [0:ny+1, 1:nx+1], the rest kept from bcu_z, bcv_z."""
+    ny, nx = U1.shape[0] - 2, U1.shape[1] - 2
+    visci = 1.0 / visc
+    at_u, at_v = _face_rel(face, U1, U2, V1, V2, umag, vmag)
+    t1, _ = wallmodel_tauw(face.mtype, *at_u, h, l1d, visc)
+    bcu_z = bcu_z.clone()
+    bcu_z[1:ny + 1, 0:nx + 1] = face.sgn * visci * t1
+    _, t2 = wallmodel_tauw(face.mtype, *at_v, h, l1d, visc)
     bcv_z = bcv_z.clone()
     bcv_z[0:ny + 1, 1:nx + 1] = face.sgn * visci * t2
     return bcu_z, bcv_z
@@ -215,6 +252,26 @@ def _wrap_xy(q):
     return torch.cat([q[:, -1:], q, q[:, :1]], dim=1)
 
 
+def _face_rows(u, v, wm, fuv, pp, dtrk, dxi, dyi):
+    """Per face of wm: the face, its padded rows U1, U2, V1, V2 (sampled
+    as wm_planes_plain says) and its static planes umag, vmag."""
+    ny, nx = u.shape[1:]
+
+    def rows(r):
+        uq, vq = u[r], v[r]
+        if pp is not None:
+            ppq = pp[r]
+            uq = fuv[0] + uq - dtrk * dxi * (torch.roll(ppq, -1, 1) - ppq)
+            vq = fuv[1] + vq - dtrk * dyi * (torch.roll(ppq, -1, 0) - ppq)
+        return _wrap_xy(uq), _wrap_xy(vq)
+
+    for face in wm.faces:
+        (U1, V1), (U2, V2) = rows(face.r1), rows(face.r2)
+        umag = torch.full((ny + 2, nx + 2), face.umag, dtype=u.dtype,
+                          device=u.device)
+        yield face, U1, U2, V1, V2, umag, torch.full_like(umag, face.vmag)
+
+
 def wm_planes_plain(u, v, wm: ZWallModel, fuv=None, pp=None, dtrk=0.0,
                     dxi=0.0, dyi=0.0):
     """The wall-modelled faces' padded (ny+2, nx+2) bcu and bcv planes
@@ -227,23 +284,30 @@ def wm_planes_plain(u, v, wm: ZWallModel, fuv=None, pp=None, dtrk=0.0,
     The planes off the wall model's ranges keep the face's static values."""
     if (pp is None) != (fuv is None):
         raise ValueError('wm_planes: the corrected rows take fuv with pp')
-    ny, nx = u.shape[1:]
-
-    def rows(r):
-        uq, vq = u[r], v[r]
-        if pp is not None:
-            ppq = pp[r]
-            uq = fuv[0] + uq - dtrk * dxi * (torch.roll(ppq, -1, 1) - ppq)
-            vq = fuv[1] + vq - dtrk * dyi * (torch.roll(ppq, -1, 0) - ppq)
-        return _wrap_xy(uq), _wrap_xy(vq)
-
     out = []
-    for face in wm.faces:
-        (U1, V1), (U2, V2) = rows(face.r1), rows(face.r2)
-        umag = torch.full((ny + 2, nx + 2), face.umag, dtype=u.dtype,
-                          device=u.device)
-        vmag = torch.full_like(umag, face.vmag)
+    for face, U1, U2, V1, V2, umag, vmag in _face_rows(u, v, wm, fuv, pp,
+                                                       dtrk, dxi, dyi):
         out.append(torch.stack(_face_planes(face, U1, U2, V1, V2, umag, vmag,
                                             umag, vmag, wm.h, wm.l1d,
                                             wm.visc)))
     return torch.stack(out)
+
+
+def wm_newton_steps(u, v, wm: ZWallModel, fuv=None, pp=None, dtrk=0.0,
+                    dxi=0.0, dyi=0.0):
+    """newton_steps at every point of wm_planes_plain's planes (same
+    arguments), as an int32 (len(wm.faces), 2, ny+2, nx+2) tensor: 0 off
+    the planes' ranges and on laminar faces."""
+    ny, nx = u.shape[1:]
+    out = torch.zeros((len(wm.faces), 2, ny + 2, nx + 2), dtype=torch.int32,
+                      device=u.device)
+    for n, (face, *rows) in enumerate(_face_rows(u, v, wm, fuv, pp, dtrk,
+                                                 dxi, dyi)):
+        if face.mtype != WM_LOG:
+            continue
+        (ur, vr), (uq, vq) = _face_rel(face, *rows)
+        out[n, 0, 1:ny + 1, 0:nx + 1] = newton_steps(
+            torch.sqrt(ur * ur + vr * vr), wm.h, wm.visc)
+        out[n, 1, 0:ny + 1, 1:nx + 1] = newton_steps(
+            torch.sqrt(uq * uq + vq * vq), wm.h, wm.visc)
+    return out

@@ -452,12 +452,7 @@ def call(name, d, twin=False, variant=None, has_ruo=True, zrec=None):
                      bc_lo=d['bc_lo'], bc_hi=d['bc_hi'], n_solve=nz - 1)
         return {'out': out}
     if name == 'wallmodel':
-        # corrected: the fused correction's rows; rows: the fill's (the
-        # initial and check fills, and sgstype 'none''s post-correction)
-        kw = {'corrected': dict(fuv=d['fuv'], pp=d['pp'], dtrk=0.01,
-                                dxi=d['dxi'], dyi=d['dyi']),
-              'rows': {}}[variant]
-        out = fn(d['wm_u'], d['v'], d['wm'], **kw)
+        out = fn(d['wm_u'], d['v'], d['wm'], **wm_kw(d, variant))
         return {f'{c}_{side}': out[n, i] for n, side in enumerate(('lo', 'hi'))
                 for i, c in enumerate(('bcu', 'bcv'))}
     if name == 'thomas_periodic':
@@ -477,6 +472,27 @@ def call(name, d, twin=False, variant=None, has_ruo=True, zrec=None):
              d['dzfi'], d['visc'], d['csd2'], zrec, d['fuv'], d['dw'],
              d['nearlo'], d['tauw_lo'], d['tauw_hi'])
     return dict(zip(('u', 'v', 'w', 'p', 'visct'), out))
+
+
+def wm_kw(d, variant):
+    """The wall model's mode on the inputs d: 'corrected' the fused
+    correction's rows; 'rows' the fill's (the initial and check fills, and
+    sgstype 'none''s post-correction)."""
+    if variant == 'rows':
+        return {}
+    return dict(fuv=d['fuv'], pp=d['pp'], dtrk=0.01, dxi=d['dxi'],
+                dyi=d['dyi'])
+
+
+def wm_steps(d, variant):
+    """The Newton steps each point of the wall model's planes needs on the
+    inputs d, counted on the float64 twin's iteration
+    (wallmodel.wm_newton_steps; 0 off the planes' ranges)."""
+    from cales_torch import wallmodel as wmod
+    d64 = {k: d[k].double() if torch.is_tensor(d[k]) else d[k]
+           for k in ('wm_u', 'v', 'pp', 'fuv', 'dxi', 'dyi')}
+    return wmod.wm_newton_steps(d64['wm_u'], d64['v'], d['wm'],
+                                **wm_kw(d64, variant))
 
 
 def compare(name, d, tol_abs=None, tol_rel=None, **kw):
@@ -597,11 +613,12 @@ WORK = {'mom_rk': (8, 6, 230), 'fillps': (3, 1, 12),
         'thomas_periodic': (1, 1, 15),
         'dsmag_level1': (3, 16, 110 + 18 * 12), 'dsmag_level2': (15, 0, 147),
         'apply_x': (1, 1, 0)}
-# the wall model's work a point of a face's padded planes: two Newton
-# solves (the start 4, 12 steps of 14 with the logarithm as one, the
-# result 4) and their inputs (the interpolation to hwm, the wall-relative
-# rows, |u_par|: 20), and in the corrected mode 4 a sampled value (12)
-WM_OPS = 2 * (4 + 12 * 14 + 4 + 20) + 12
+# the wall model's work: a Newton solve a point of each plane's range
+# (its start 4, its result 4, its inputs 20: the interpolation to hwm, the
+# wall-relative rows, |u_par|), 14 a step for the steps these inputs need
+# (two divisions, a logarithm, 8 more and the exit test; wm_steps), and in
+# the corrected mode 4 a corrected value, u and v of both rows (16 a cell)
+WM_SOLVE_OPS, WM_STEP_OPS, WM_CORRECT_OPS = 28, 14, 16
 # variants whose reads or arithmetic differ from their kernel's first
 WORK_VARIANT = {('mom_rk', 'xyz'): (7, 6, 200),
                 ('mom_rk', 'tgv'): (7, 6, 200),
@@ -640,7 +657,12 @@ def work(name, d, variant=None):
         nin = 2 * nf * (3 if variant == 'corrected' else 2)
         pts = nf * (ny + 2) * (nx + 2)
         nbytes = (nin * ny * nx + 2 * pts) * d['u'].element_size()
-        return nbytes, pts * WM_OPS
+        solves = nf * (ny * (nx + 1) + (ny + 1) * nx)
+        flops = (solves * WM_SOLVE_OPS
+                 + int(wm_steps(d, variant).sum()) * WM_STEP_OPS)
+        if variant == 'corrected':
+            flops += nf * ny * nx * WM_CORRECT_OPS
+        return nbytes, flops
     cells = nx * ny * nz
     nin, nout, per_cell = WORK_VARIANT.get((name, variant), WORK[name])
     nbytes = (nin + nout) * cells * d['u'].element_size()
@@ -752,6 +774,11 @@ def _time_row(rows, row, name, d, variant, card, cache):
                     f'above 4x the float32 twin\'s {lib_rel:.3e}')
     worst = compare(name, d, tol_rel=(5.0 * lib_rel if name in REORDERED
                                       else 1e-5), variant=variant)
+    if name == 'wallmodel':
+        # the float64 kernel against its twin, and the float32 kernel
+        # against the float64 twin, on these inputs
+        compare(name, cache['d64'], tol_rel=WM_TOL64, variant=variant)
+        require(rel <= 1e-5, f'{tag}: {rel:.3e} against the float64 twin')
     ms = time_ms(lambda: call(name, d, variant=variant))
     plain_ms = time_ms(lambda: call(name, d, twin=True, variant=variant))
     say(f'  {tag:<24s} kernel {ms:.3f} ms, plain twin {plain_ms:.3f} '
@@ -770,6 +797,8 @@ def _time_row(rows, row, name, d, variant, card, cache):
         bound_by=by, library_ms=plain_ms if name in LIBRARY_TWIN else None)
     if eager_ms is not None:
         rows[row]['eager_ms'] = eager_ms
+    if name == 'wallmodel':
+        rows[row].update(wm_step_counts(d, variant, tag, card))
     say(f'  {tag:<24s} bound {bms:.3f} ms ({by})')
     if name in LIBRARY_TWIN:
         simt, _ = bound_ms(name, d, variant, simt=True)
@@ -779,6 +808,27 @@ def _time_row(rows, row, name, d, variant, card, cache):
     if rel is not None:
         rows[row]['f32_vs_f64_twin'] = rel
         rows[row]['f32_twin_vs_f64_twin'] = lib_rel
+
+
+def wm_step_counts(d, variant, tag, card):
+    """The Newton steps of the wall model on the inputs d: a solve's mean
+    and most, and the mean of what the kernel's warps run (31 points of a
+    plane's row from i = 0, each its lanes' most; warps with a point in
+    range), from the float64 twin's iteration."""
+    steps = wm_steps(d, variant)
+    px = steps.shape[-1]
+    lanes = torch.nn.functional.pad(steps, (0, -px % 31))
+    warps = lanes.reshape(*lanes.shape[:-1], -1, 31).amax(-1)
+    warps = warps[warps > 0].double()
+    solved = steps[steps > 0].double()
+    out = dict(newton_steps_mean=float(solved.mean()),
+               newton_steps_max=int(solved.max()),
+               warp_steps_mean=float(warps.mean()))
+    say(f'  {tag:<24s} Newton steps on these inputs (the float64 twin): '
+        f'{out["newton_steps_mean"]:.3f} a solve on average, at most '
+        f'{out["newton_steps_max"]}; the kernel\'s warps '
+        f'{out["warp_steps_mean"]:.3f} on average  [{card}]')
+    return out
 
 
 def _as_double(d):

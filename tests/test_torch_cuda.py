@@ -1346,33 +1346,57 @@ WMLES = dict(ng=(32, 16, 16), l=(2 * np.pi, np.pi, 2.0), gtype=1, gr=1.0,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('rows', ['bulk', 'near 0', 'mixed'])
 @pytest.mark.parametrize('lwm', [((0, 0, 1), (0, 0, 1)),
                                  ((0, 0, 0), (0, 0, -1))])
 @pytest.mark.parametrize('dtype, shape', [
     ('float64', (40, 25, 12)), ('float64', (33, 17, 16)),
     ('float32', (40, 25, 12)), ('float32', (33, 17, 16))])
-def test_cuda_wallmodel_matches_twin(dev, dtype, shape, lwm):
-    """The wall-model kernel against wallmodel.wm_planes_plain in its two
-    modes (the rows as they are, corrected by pp), one face or both,
-    moving wall values, on (nx, ny, nz) shapes no block fits: float64
-    within 1e-13 of each plane's maximum, float32 within 1e-5."""
+def test_cuda_wallmodel_matches_twin(dev, dtype, shape, lwm, rows):
+    """The wall-model kernel against wallmodel.wm_planes_plain (12 fixed
+    Newton steps) in its two modes (the rows as they are, corrected by
+    pp), one face or both, on (nx, ny, nz) shapes no block fits: float64
+    within 1e-13 of each plane's maximum, float32 within 1e-5.  Rows:
+    'bulk' a bulk flow with moving wall values; 'near 0' |u_par| from 0
+    to below the floor's scale (u_tau starts at its floor), still walls;
+    'mixed' |u_par| from 1e-8 to past Re_h = 1e6 drawn point by point,
+    so each warp's lanes converge at different steps and some not in 12."""
     from cales_torch import wallmodel as wmod
     nx, ny, nz = shape
     dt = getattr(torch, dtype)
-    bcvel = (((0.0,) * 3, (0.0,) * 3, (0.03, -0.02, 0.0)),
-             ((0.0,) * 3, (0.0,) * 3, (-0.01, 0.04, 0.0)))
+    still = rows == 'near 0'
+    umag, vmag = ((0.0, 0.0),) * 2 if still else ((0.03, -0.01),
+                                                  (-0.02, 0.04))
+    bcvel = (((0.0,) * 3, (0.0,) * 3, (umag[0], vmag[0], 0.0)),
+             ((0.0,) * 3, (0.0,) * 3, (umag[1], vmag[1], 0.0)))
     cfg = Config(**dict(WMLES, ng=shape, lwm=lwm, bcvel=bcvel))
     grid = make_grid_from_config(cfg)
-    wm = wmod.z_wall_model(cfg, grid, wmod.find_index_wm(cfg, grid),
-                           (0.03, -0.01), (-0.02, 0.04))
+    wm = wmod.z_wall_model(cfg, grid, wmod.find_index_wm(cfg, grid), umag,
+                           vmag)
     rng = np.random.default_rng(21)
 
     def t(a):
         return torch.as_tensor(np.asarray(a, dtype=np.float64),
                                device=dev).to(dt)
-    u, v, pp = (t(0.3 * rng.standard_normal((nz, ny, nx))) for _ in range(3))
-    u = u + 1.0
-    fuv = t([0.013, -0.007])
+
+    def field(lo, hi):
+        # magnitudes 10^[lo, hi) point by point, random signs
+        return t(rng.choice((-1.0, 1.0), (nz, ny, nx))
+                 * 10.0 ** rng.uniform(lo, hi, (nz, ny, nx)))
+    if rows == 'bulk':
+        u, v, pp = (t(0.3 * rng.standard_normal((nz, ny, nx)))
+                    for _ in range(3))
+        u = u + 1.0
+        fuv = t([0.013, -0.007])
+    elif rows == 'near 0':
+        u, v = field(-16, -5), field(-16, -5)
+        u[:, ::3] = 0.0
+        v[:, ::3] = 0.0
+        pp = field(-16, -12)
+        fuv = t([0.0, 0.0])
+    else:
+        u, v, pp = field(-8, 2.7), field(-8, 2.7), field(-6, -2)
+        fuv = t([0.013, -0.007])
     K.reset_launches()
     for kw in ({}, dict(fuv=fuv, pp=pp, dtrk=2.3e-3, dxi=cfg.dli[0],
                     dyi=cfg.dli[1])):

@@ -70,6 +70,125 @@ def test_wallmodel_tauw_matches_jax(mtype):
     assert np.abs(np.asarray(ref[0])).max() > 0
 
 
+# --------------------------------------- the kernel's Newton iteration
+
+H, L1D, VISC = 0.1, 2.0, 1.0 / 125_000.0    # bench.py's wmles_channel
+# |u_par| bands of the sweep: 0; below the floor's scale (u_tau starts at
+# its floor); the laminar start (Re_h = 1) up to Re_h = 1e6; past Re_h =
+# 1e6, where 12 steps do not reach the root in float64
+BANDS = ('zero', 'below the floor', 'Re_h 1 to 1e6', 'past Re_h 1e6')
+
+
+def _sweep(rng):
+    """(uh, vh, band of each lane): runs of neighbouring magnitudes of one
+    band, then lanes drawn from every band, so the kernel's warps of 31
+    points hold one band or mix them."""
+    re = VISC / H
+    mags = [np.zeros(31 * 4), np.logspace(-20, -6, 31 * 12),
+            re * np.logspace(0, 6, 31 * 24), re * np.logspace(6, 7.5, 31 * 4)]
+    band = np.concatenate([np.full(m.size, b) for b, m in enumerate(mags)])
+    mag = np.concatenate(mags)
+    mixed = rng.permutation(mag.size)[:31 * 12]     # 12 mixed warps
+    mag, band = np.concatenate([mag, mag[mixed]]), np.concatenate(
+        [band, band[mixed]])
+    ang = rng.uniform(-np.pi, np.pi, mag.size)      # both signs of each
+    return mag * np.cos(ang), mag * np.sin(ang), band
+
+
+def _kernel_tauw(mtype, uh, vh, h, l1d, visc):
+    """csrc/wallmodel.cu's arithmetic per thread, in torch on flat (uh, vh):
+    the points in warps of 31 neighbours (the 32nd lane owns none and
+    votes done), the rearranged Newton step, a lane done once |du_tau| <=
+    4 eps u_tau (then frozen), a warp out of the loop when all its lanes
+    are done, at most N_NEWTON steps (float32's fast logarithm and
+    divisions on the card are not emulated: the card test holds them to
+    the twin).  Returns tau_w's two components and the steps each point's
+    warp ran."""
+    eps = torch.finfo(uh.dtype).eps
+    upar = torch.sqrt(uh * uh + vh * vh)
+    n = upar.numel()
+    nw = -(-n // 31)
+    steps = torch.zeros(nw, dtype=torch.int64)
+    if mtype == twm.WM_LAM:
+        dl = 0.5 * l1d
+        tot = 2.0 / dl * (upar / (h / dl * (2.0 - h / dl))) * visc
+        return (tot * uh / (upar + eps), tot * vh / (upar + eps),
+                steps.repeat_interleave(31)[:n])
+    # (warp, lane): lane 31 and the lanes past the sweep only vote
+    up = upar.new_zeros((nw, 32))
+    up[:, :31] = torch.cat([upar, upar.new_zeros(nw * 31 - n)]).view(nw, 31)
+    owner = torch.zeros((nw, 32), dtype=torch.bool)
+    owner[:, :31] = (torch.arange(nw * 31) < n).view(nw, 31)
+    up, owner = up.flatten(), owner.flatten()
+    ikap, lhv = 1.0 / twm.KAP_LOG, float(np.log(h / visc))
+    utau = torch.clamp_min(torch.sqrt(up / h * visc),
+                           visc / h * twm.LOG_FLOOR)
+    done = ~owner
+    for _ in range(twm.N_NEWTON):
+        going = ~done.view(nw, 32).all(1)
+        if not going.any():
+            break
+        steps += going
+        a = up / utau
+        f = a - ikap * (torch.log(utau) + lhv) - twm.B_LOG
+        nxt = torch.abs(utau * (1.0 + f / (a + ikap)))
+        run = going.repeat_interleave(32) & ~done
+        done = torch.where(run, (nxt - utau).abs() <= 4.0 * eps * nxt, done)
+        utau = torch.where(run, nxt, utau)
+    tot = (utau * utau).view(nw, 32)[:, :31].flatten()[:n]
+    return (tot * uh / (upar + eps), tot * vh / (upar + eps),
+            steps.repeat_interleave(31)[:n])
+
+
+@pytest.mark.parametrize('mtype', [twm.WM_LOG, twm.WM_LAM])
+@pytest.mark.parametrize('dtype', ['float64', 'float32'])
+def test_kernel_newton_iteration_matches_tauw(dtype, mtype):
+    """The wall-model kernel's iteration (the rearranged step, the warp's
+    exit, the 12-step cap), emulated, against wallmodel_tauw's 12 fixed
+    steps over the sweep: each band within 1e-13 (float64) or 1e-5
+    (float32) of its own maximum; prints the steps the warps ran."""
+    dt = getattr(torch, dtype)
+    uh, vh, band = _sweep(np.random.default_rng(14))
+    uh, vh = (torch.as_tensor(q).to(dt) for q in (uh, vh))
+    got_u, got_v, steps = _kernel_tauw(mtype, uh, vh, H, L1D, VISC)
+    ref_u, ref_v = twm.wallmodel_tauw(mtype, uh, vh, H, L1D, VISC)
+    tol = 1e-13 if dt == torch.float64 else 1e-5
+    for b, name in enumerate(BANDS):
+        m = torch.as_tensor(band == b)
+        for g, r in ((got_u, ref_u), (got_v, ref_v)):
+            err = float((g[m] - r[m]).abs().max())
+            assert np.isfinite(err) and err <= tol * float(r[m].abs().max()), \
+                (name, err)
+    warps = steps[::31].double()
+    print(f'{dtype} mtype {mtype}: warps ran at most {int(warps.max())} '
+          f'steps, {float(warps.mean()):.2f} on average')
+    if mtype == twm.WM_LAM:
+        assert int(warps.max()) == 0
+        return
+    # the cap binds past Re_h = 1e6 in float64; converged warps exit early
+    if dt == torch.float64:
+        assert int(steps[torch.as_tensor(band == 3)].max()) == twm.N_NEWTON
+    assert 0 < float(warps.mean()) < twm.N_NEWTON
+
+
+def test_newton_steps_counts_the_exit_test():
+    """wallmodel.newton_steps: the kernel's exit test on the twin's
+    iteration, per lane: 1 at u_par = 0 (the floor is the root), 12 past
+    Re_h = 1e6, fewer in between, the same counts as the emulation's
+    warps of one point within a step (the arithmetic rounds apart)."""
+    re = VISC / H
+    upar = torch.as_tensor(np.concatenate([[0.0], re * np.logspace(0, 5, 6),
+                                           [re * 1e7]]))
+    steps = twm.newton_steps(upar, H, VISC)
+    assert steps.dtype == torch.int32
+    assert int(steps[0]) == 1 and int(steps[-1]) == twm.N_NEWTON
+    assert all(1 <= int(s) < twm.N_NEWTON for s in steps[1:-1])
+    for q, s in zip(upar, steps):
+        *_, ran = _kernel_tauw(twm.WM_LOG, q.view(1), q.new_zeros(1), H, L1D,
+                               VISC)
+        assert abs(int(ran[0]) - int(s)) <= 1
+
+
 # ------------------------------------------------------ find_index_wm
 
 @pytest.mark.parametrize('change', [
