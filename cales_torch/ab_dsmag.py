@@ -68,7 +68,6 @@ from pathlib import Path
 
 import torch
 
-from . import wallmodel as wmod
 from .ops import kernels as K
 from .ops import solve_kernels as SK
 
@@ -145,15 +144,10 @@ def _inputs(ng, dtype, seed):
     blocks = slab.reshape(nz, slab.shape[1], 2, nx // 2).permute(
         2, 0, 1, 3).contiguous()
     fuv = torch.tensor([0.05, -0.02], dtype=dtype, device='cuda')
-    # the wall model on both z faces at bench.py's hwm and visci
-    wm = wmod.ZWallModel(faces=(
-        wmod.ZFace(0, wmod.WM_LOG, 0, 1, 0.3, 1.0, 0.0, 0.0),
-        wmod.ZFace(1, wmod.WM_LOG, nz - 1, nz - 2, 0.3, -1.0, 0.0, 0.0)),
-        h=0.1, l1d=2.0, visc=1.0 / 125_000.0)
     yh = [(rnd(nz, 2, nx), rnd(3, 2, nx)) for _ in range(5)]
     return dict(f=f, e=e, ye=ye, yh=yh, alph2=alph2, dz=dz, ny_op=ny_op,
                 nx_op=nx_op, prof=prof, nearlo=nearlo, tauw=tauw, fuv=fuv,
-                slab=slab, wm=wm, wm_u=1.0 + f[0],
+                slab=slab, wm_u=1.0 + f[0],
                 blocks=blocks, vz=vz, lam=lam, tri=_tri_inputs(ng, dtype),
                 ds2=rnd(13, nz, ny, nx))
 
@@ -206,6 +200,20 @@ def _big_inputs(ng, dtype, seed, case):
                 nx_op=rnd(nx, nx, scale=0.1))
 
 
+def _channel_wm(Km, nz):
+    """The wall model on both z faces at bench.py's hwm and visci, as the
+    checkout of kernels module Km builds it (wallmodel.channel_z_faces;
+    a checkout from before it: ZWallModel of two ZFace records)."""
+    wm = importlib.import_module(Km.__name__.rsplit('.', 2)[0]
+                                 + '.wallmodel')
+    if hasattr(wm, 'channel_z_faces'):
+        return wm.channel_z_faces(nz)
+    return wm.ZWallModel(faces=(
+        wm.ZFace(0, wm.WM_LOG, 0, 1, 0.3, 1.0, 0.0, 0.0),
+        wm.ZFace(1, wm.WM_LOG, nz - 1, nz - 2, 0.3, -1.0, 0.0, 0.0)),
+        h=0.1, l1d=2.0, visc=1.0 / 125_000.0)
+
+
 def _call(mods, d, case):
     Km, SKm = mods
     if case.startswith('apply_y'):
@@ -215,7 +223,8 @@ def _call(mods, d, case):
         f = d['f']
         kw = ({} if case == 'wallmodel rows' else
               dict(fuv=d['fuv'], pp=f[4], dtrk=0.01, dxi=40.0, dyi=20.0))
-        return (Km.wm_planes(d['wm_u'], f[1], d['wm'], **kw),)
+        return tuple(Km.wm_planes(d['wm_u'], f[1],
+                                  _channel_wm(Km, f[1].shape[0]), **kw))
     if case.startswith('apply_x'):
         src = d['blocks'] if case == 'apply_x chunked' else d['slab']
         return (SKm.apply_x(src, d['nx_op'],

@@ -12,6 +12,17 @@
 // y-sharded mesh, the shard branch of cales_tpu _compute_sgs_kernel) reads
 // the rows -1 and ny of u, v, w from their halos (common.cuh hrow).
 //
+// The y-wall variant (the duct classes; the port's choice: the JAX
+// package runs static Smagorinsky with y walls through XLA,
+// cales_tpu/sgs.py:159 smag_visct, as its fused_smag takes z walls only)
+// reads the rows -1, ny-1 and ny of u, v, w from their y-row stacks
+// (common.cuh yrow), which the caller has already extrapolated on the
+// wall-modelled faces (sgs.extrapolate_stacks: the strain's one-sided
+// ghosts), and damps with the nearest of the four walls: the nearer y
+// wall's distance and shear plane (one row of its (nz, nx) plane a z
+// step) unless a z wall is strictly nearer (the running minimum over
+// y-lo, y-hi, z-lo, z-hi of sgs.f90:104-146, the first minimum winning).
+//
 // Design: a z-march through shared memory, as correc_smag.cu's without
 // the correction.  The strain rate at a cell reads 30 values around it: u
 // and v on three planes, w on two, +-1 in x and y.  A block owns a TY x 32
@@ -94,6 +105,8 @@ __global__ void __launch_bounds__(SmGeo<T>::NT, SmGeo<T>::MINB)
     const T* __restrict__ dzfi, const T* __restrict__ csd2,
     const T* __restrict__ dw, const T* __restrict__ nearlo,
     const T* __restrict__ tauw_lo, const T* __restrict__ tauw_hi,
+    const T* __restrict__ dwy, const T* __restrict__ nearylo,
+    const T* __restrict__ tauw_ylo, const T* __restrict__ tauw_yhi,
     T* __restrict__ so, YRows<T> hu, YRows<T> hv, YRows<T> hw, int nz,
     int ny, int nx, int kc, int have_zwalls, T dxi, T dyi, T visc) {
   using G = SmGeo<T>;
@@ -113,14 +126,19 @@ __global__ void __launch_bounds__(SmGeo<T>::NT, SmGeo<T>::MINB)
 
   // this thread's cells of the halo tile (e = tid + i NT): the offset of
   // each in its plane of the field (>= 0), or ~ its offset in the plane's
-  // halo (< 0, on a slab); x and y wrapped
+  // halo (< 0, on a slab) or y-row stack (< 0, y walls: rows -1, ny-1 and
+  // ny, and the ragged tile's rows past ny as row ny); x and y wrapped
   constexpr int NC = (CPL + NT - 1) / NT;
   int oc[NC];
 #pragma unroll
   for (int i = 0; i < NC; ++i) {
     const int e = tid + i * NT, ly = e / SM_CX, lx = e - ly * SM_CX;
     const int gy = y0 - 1 + ly, wx = wrap_near(x0 - 1 + lx, nx);
-    const int r = YM == Y_HALO ? (gy < 0 ? 0 : gy == ny ? 1 : -1) : -1;
+    const int r = YM == Y_HALO    ? (gy < 0 ? 0 : gy == ny ? 1 : -1)
+                  : YM == Y_WALLS ? (gy < 0        ? 0
+                                     : gy >= ny - 1 ? min(gy - ny + 2, 2)
+                                                    : -1)
+                                  : -1;
     oc[i] = r >= 0 ? ~(r * nx + wx) : wrap_near(gy, ny) * nx + wx;
   }
 
@@ -136,6 +154,10 @@ __global__ void __launch_bounds__(SmGeo<T>::NT, SmGeo<T>::MINB)
         yb[0] = hrow(hu, kz, 0, nz, nx);
         yb[1] = hrow(hv, kz, 0, nz, nx);
         yb[2] = hrow(hw, kz, 0, nz, nx);
+      } else if (YM == Y_WALLS) {
+        yb[0] = yrow(hu, kz, 0, nz, nx);
+        yb[1] = yrow(hv, kz, 0, nz, nx);
+        yb[2] = yrow(hw, kz, 0, nz, nx);
       }
       T* const dst = ring(kz);
 #pragma unroll
@@ -158,6 +180,9 @@ __global__ void __launch_bounds__(SmGeo<T>::NT, SmGeo<T>::MINB)
   const int64_t idx = static_cast<int64_t>(y0 + ty) * nx + x0 + tx;
   bool inside[RPT];
   T tlo[RPT], thi[RPT];
+  // y walls: the nearer y wall's distance and shear plane at these rows
+  T dy[RPT];
+  const T* ty_w[RPT];
 #pragma unroll
   for (int r = 0; r < RPT; ++r) {
     inside[r] = y0 + ty + r < ny && x0 + tx < nx;
@@ -166,10 +191,19 @@ __global__ void __launch_bounds__(SmGeo<T>::NT, SmGeo<T>::MINB)
       tlo[r] = tauw_lo[idx + r * nx];
       thi[r] = tauw_hi[idx + r * nx];
     }
+    dy[r] = T(0);
+    ty_w[r] = nullptr;
+    if (YM == Y_WALLS && inside[r]) {
+      dy[r] = dwy[y0 + ty + r];
+      ty_w[r] = (nearylo[y0 + ty + r] > T(0.5) ? tauw_ylo : tauw_yhi) + x0 +
+                tx;
+    }
   }
-  // plane k's spacings and profiles, read a step ahead
+  // plane k's spacings and profiles, and with y walls the nearer y
+  // wall's shear at these cells, read a step ahead
   T dzci_c, dzci_m, dzfi_c, csd2_k, dw_k = T(0);
   bool lo_k = false;
+  T ty_k[RPT];
   auto profiles = [&](int k) {
     dzci_c = dzci[k + 1];
     dzci_m = dzci[k];
@@ -179,6 +213,11 @@ __global__ void __launch_bounds__(SmGeo<T>::NT, SmGeo<T>::MINB)
       dw_k = dw[k];
       lo_k = nearlo[k] > T(0.5);
     }
+#pragma unroll
+    for (int r = 0; r < RPT; ++r)
+      ty_k[r] = YM == Y_WALLS && inside[r]
+                    ? ty_w[r][static_cast<int64_t>(k) * nx]
+                    : T(0);
   };
 
   load(k0 - 1);
@@ -198,10 +237,16 @@ __global__ void __launch_bounds__(SmGeo<T>::NT, SmGeo<T>::MINB)
       if (!inside[r]) continue;
       const T s0 = ring_strain<T, SM_CX>(uk, vk, wk, co + r * SM_CX, dxi,
                                          dyi, dzci_c, dzci_m, dzfi_c);
-      const T tauw = lo_k ? tlo[r] : thi[r];
+      T tauw = lo_k ? tlo[r] : thi[r];
+      T dist = dw_k;
+      if (YM == Y_WALLS && !(have_zwalls && dw_k < dy[r])) {
+        tauw = ty_k[r];
+        dist = dy[r];
+      }
       so[k * plane + idx + r * nx] =
-          have_zwalls ? van_driest_nut(s0, csd2_k, dw_k, tauw, visc)
-                      : csd2_k * s0;
+          have_zwalls || YM == Y_WALLS
+              ? van_driest_nut(s0, csd2_k, dist, tauw, visc)
+              : csd2_k * s0;
     }
     if (k + 1 < k1) profiles(k + 1);
     cp_async_wait<1>();   // plane k+2, for step k+1
@@ -213,18 +258,27 @@ template <typename T>
 int launch_smag(const T* u, const T* v, const T* w, const T* ue, const T* ve,
                 const T* we, const T* dzci, const T* dzfi, const T* csd2,
                 const T* dw, const T* nearlo, const T* tauw_lo,
-                const T* tauw_hi, T* so, const T* const* h, int nz, int ny,
-                int nx, int have_zwalls, double dxi, double dyi, double visc,
+                const T* tauw_hi, const T* dwy, const T* nearylo,
+                const T* tauw_ylo, const T* tauw_yhi, T* so,
+                const T* const* h, int nz, int ny, int nx, int ymode,
+                int have_zwalls, double dxi, double dyi, double visc,
                 void* stream) {
-  const bool halo = h[0] != nullptr;
-  for (int m = 1; m < 6; ++m)
-    if ((h[m] != nullptr) != halo)
+  // ymode: Y_PERIODIC, Y_WALLS (h the y-row stacks, and the y walls' van
+  // Driest inputs) or Y_HALO (h the halos)
+  const bool rows = ymode != Y_PERIODIC;
+  for (int m = 0; m < 6; ++m)
+    if ((h[m] != nullptr) != rows)
       return static_cast<int>(cudaErrorInvalidValue);
+  if (ymode == Y_WALLS && (dwy == nullptr || nearylo == nullptr ||
+                           tauw_ylo == nullptr || tauw_yhi == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   const YRows<T> hu{h[0], h[1]}, hv{h[2], h[3]}, hw{h[4], h[5]};
   using G = SmGeo<T>;
   constexpr int TY = G::TY;
   const size_t smem = sizeof(T) * SM_RING * 3 * G::CPL;
-  auto kern = halo ? &smag_kernel<T, Y_HALO> : &smag_kernel<T, Y_PERIODIC>;
+  auto kern = ymode == Y_HALO    ? &smag_kernel<T, Y_HALO>
+              : ymode == Y_WALLS ? &smag_kernel<T, Y_WALLS>
+                                 : &smag_kernel<T, Y_PERIODIC>;
   const cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -238,7 +292,8 @@ int launch_smag(const T* u, const T* v, const T* w, const T* ue, const T* ve,
                   static_cast<unsigned>((nz + kc - 1) / kc));
   kern<<<grid, G::NT, smem, static_cast<cudaStream_t>(stream)>>>(
       u, v, w, ue, ve, we, dzci, dzfi, csd2, dw, nearlo, tauw_lo, tauw_hi,
-      so, hu, hv, hw, nz, ny, nx, kc, have_zwalls, T(dxi), T(dyi), T(visc));
+      dwy, nearylo, tauw_ylo, tauw_yhi, so, hu, hv, hw, nz, ny, nx, kc,
+      have_zwalls, T(dxi), T(dyi), T(visc));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -249,14 +304,17 @@ int launch_smag(const T* u, const T* v, const T* w, const T* ue, const T* ve,
                       const T* ve, const T* we, const T* dzci,                \
                       const T* dzfi, const T* csd2, const T* dw,              \
                       const T* nearlo, const T* tauw_lo, const T* tauw_hi,    \
-                      T* so, const T* hur, const T* huc, const T* hvr,        \
-                      const T* hvc, const T* hwr, const T* hwc, int nz,       \
-                      int ny, int nx, int have_zwalls, double dxi,            \
-                      double dyi, double visc, void* stream) {                \
+                      const T* dwy, const T* nearylo, const T* tauw_ylo,      \
+                      const T* tauw_yhi, T* so, const T* hur, const T* huc,   \
+                      const T* hvr, const T* hvc, const T* hwr,               \
+                      const T* hwc, int nz, int ny, int nx, int ymode,        \
+                      int have_zwalls, double dxi, double dyi, double visc,   \
+                      void* stream) {                                         \
     const T* const h[6] = {hur, huc, hvr, hvc, hwr, hwc};                     \
     return cales::launch_smag<T>(u, v, w, ue, ve, we, dzci, dzfi, csd2, dw,   \
-                                 nearlo, tauw_lo, tauw_hi, so, h, nz, ny, nx, \
-                                 have_zwalls, dxi, dyi, visc, stream);        \
+                                 nearlo, tauw_lo, tauw_hi, dwy, nearylo,      \
+                                 tauw_ylo, tauw_yhi, so, h, nz, ny, nx,       \
+                                 ymode, have_zwalls, dxi, dyi, visc, stream); \
   }
 
 CALES_SMAG_ENTRY(cales_smag_f32, float)

@@ -18,15 +18,17 @@ a launch counter.
                                         fused_dsmag_level2 ('channel',
                                         'duct', 'cavity')
   wallmodel       csrc/wallmodel.cu     no Pallas kernel: wallmodel.py
-  (wm_planes)                           z_wall_wm_planes and timeloop.py
-                                        _wm_bcs_fast, in XLA
+  (wm_planes)                           y_wall_wm_planes, z_wall_wm_planes
+                                        and timeloop.py _wm_bcs_fast, in
+                                        XLA
 
 Input contract (the JAX kernels'): interior (nz, ny, nx) fields plus
 (3, ny, nx) z-edge stacks [padded row 0, padded row nz, padded row nz+1];
 x is periodic and wraps inside the kernel, and so is y unless the field
 comes with its y-row stack: a pair (rows (nz, 3, nx), corners (3, 3, nx))
 from ops/boundary.yedge_* (the y-walled variants of mom_rk, fillps,
-correc_updatep and the three dsmag kernels, the duct and cavity classes).
+correc_updatep, smag and the three dsmag kernels, the duct and cavity
+classes).
 On a slab of a y-sharded mesh (parallel/mesh.py) x wraps and y does not:
 mom_rk, fillps, correc_updatep and smag take yh, the halo pairs (rows
 (nz, 2, nx), corners (3, 2, nx)) of the fields they read across the slab's
@@ -197,27 +199,48 @@ def correc_smag_plain(u, v, w, pp, p, ue, ve, we, ppe, dtrk, dxi, dyi,
     return uc, vc, wc, pn, visct
 
 
-def _van_driest(s0, visc, csd2, dw, nearlo, tauw_lo, tauw_hi, have_zwalls):
-    """nu_t = (Cs Delta)^2 fd^2 |S| with the nearer z wall's van Driest
-    damping fd (sgs.f90:104-152); fd = 1 without z walls."""
+def _van_driest(s0, visc, csd2, dw, nearlo, tauw_lo, tauw_hi, have_zwalls,
+                ywall=None):
+    """nu_t = (Cs Delta)^2 fd^2 |S| with the nearest wall's van Driest
+    damping fd (sgs.f90:104-152); fd = 1 without walls.  ywall = (dwy,
+    nearylo, tauw_ylo, tauw_yhi): with y walls, the (ny,) distance to the
+    nearer y wall and 1 where it is the lower one, and the two y walls'
+    (nz, nx) shear planes; a z wall serves a cell only where it is
+    strictly nearer than the y wall (the running minimum over y-lo, y-hi,
+    z-lo, z-hi, the first minimum winning)."""
     c3 = csd2[:, None, None]
-    if not have_zwalls:
+    if not have_zwalls and ywall is None:
         return c3 * s0
-    tauw = torch.where(nearlo[:, None, None] > 0.5, tauw_lo[None],
-                       tauw_hi[None])
+    if have_zwalls:
+        tauw = torch.where(nearlo[:, None, None] > 0.5, tauw_lo[None],
+                           tauw_hi[None])
+        dist = dw[:, None, None]
+    if ywall is not None:
+        dwy, nearylo, tylo, tyhi = ywall
+        tauw_y = torch.where(nearylo[None, :, None] > 0.5, tylo[:, None],
+                             tyhi[:, None])
+        dist_y = dwy[None, :, None]
+        if have_zwalls:
+            z = dist < dist_y
+            tauw = torch.where(z, tauw, tauw_y)
+            dist = torch.where(z, dist, dist_y)
+        else:
+            tauw, dist = tauw_y, dist_y
     tauw_s = 0.5 * visc * tauw
-    dw_plus = dw[:, None, None] * torch.sqrt(tauw_s) / visc
+    dw_plus = dist * torch.sqrt(tauw_s) / visc
     fd = 1.0 - torch.exp(-dw_plus / 25.0)
     return c3 * fd * fd * s0
 
 
 def smag_plain(u, v, w, ue, ve, we, dzci, dzfi, dxi, dyi, visc, csd2, dw,
-               nearlo, tauw_lo, tauw_hi, have_zwalls=True, yh=None):
+               nearlo, tauw_lo, tauw_hi, have_zwalls=True, yh=None, ye=None,
+               ywall=None):
     hu, hv, hw = (None,) * 3 if yh is None else yh
-    s0 = st.strain_rate(padded(u, ue, h=hu), padded(v, ve, h=hv),
-                        padded(w, we, h=hw), dzci, dzfi, dxi, dyi)
+    yu, yv, yw = (None,) * 3 if ye is None else ye
+    s0 = st.strain_rate(padded(u, ue, yu, hu), padded(v, ve, yv, hv),
+                        padded(w, we, yw, hw), dzci, dzfi, dxi, dyi)
     return _van_driest(s0, visc, csd2, dw, nearlo, tauw_lo, tauw_hi,
-                       have_zwalls)
+                       have_zwalls, ywall)
 
 
 def _zext(q, wall_lo, wall_hi):
@@ -663,31 +686,53 @@ def correc_updatep(u, v, w, pp, p, we, ppe, dtrk, dxi, dyi, dzci, dzfi,
 
 
 def smag(u, v, w, ue, ve, we, dzci, dzfi, dxi, dyi, visc, csd2, dw, nearlo,
-         tauw_lo, tauw_hi, have_zwalls=True, yh=None):
+         tauw_lo, tauw_hi, have_zwalls=True, yh=None, ye=None, ywall=None):
     """Static Smagorinsky nu_t with the nearer z wall's van Driest damping
     (sgs.f90:69-152) from the post-correction fill (interiors + edge
     stacks) in one pass.  csd2, dw, nearlo: (nz,) profiles (Cs Delta)^2,
     nearest-wall distance, 1 where the lower wall is nearer; tauw_lo/hi:
     (ny, nx) wall-shear planes.  yh: a slab of a y-sharded mesh, the halo
-    pairs of (u, v, w)."""
+    pairs of (u, v, w).  ye: y walls, the (rows, corners) y-row stack
+    pairs of (u, v, w) (extrapolated on wall-modelled faces by the
+    caller, sgs.extrapolate_stacks), with ywall = (dwy, nearylo,
+    tauw_ylo, tauw_yhi): the (ny,) distance to the nearer y wall and 1
+    where it is the lower one, the y walls' (nz, nx) shear planes; the
+    nearest of the four walls damps (see _van_driest)."""
+    if (ye is None) != (ywall is None):
+        raise ValueError('smag: y walls take ye and ywall together')
+    if ye is not None and yh is not None:
+        raise ValueError('smag: y walls or a slab halo, not both')
     if _on_cpu(u):
         return smag_plain(u, v, w, ue, ve, we, dzci, dzfi, dxi, dyi, visc,
                           csd2, dw, nearlo, tauw_lo, tauw_hi,
-                          have_zwalls=have_zwalls, yh=yh)
+                          have_zwalls=have_zwalls, yh=yh, ye=ye, ywall=ywall)
     nz, ny, nx = u.shape
-    yh = (None,) * 3 if yh is None else tuple(yh)
-    if len({q is None for q in yh}) > 1:
-        raise ValueError('smag: pass the halos of u, v and w, or none')
+    ys = (None,) * 3 if yh is None and ye is None else tuple(
+        yh if yh is not None else ye)
+    if len({q is None for q in ys}) > 1:
+        raise ValueError('smag: pass the halos or y-row stacks of u, v and '
+                         'w, or none')
+    dwy, nearylo, tylo, tyhi = (None,) * 4 if ywall is None else ywall
     _check('smag', u, (u, v, w), planes=(tauw_lo, tauw_hi),
            edges=(ue, ve, we),
            profiles=((dzci, nz + 2), (dzfi, nz + 2), (csd2, nz), (dw, nz),
-                     (nearlo, nz)), **_ysplit(yh, halo=True))
+                     (nearlo, nz))
+           + (() if ywall is None else ((dwy, ny), (nearylo, ny))),
+           **_ysplit(ys, halo=yh is not None))
+    for t in (() if ywall is None else (tylo, tyhi)):
+        if (tuple(t.shape) != (nz, nx) or t.device != u.device
+                or t.dtype != u.dtype or not t.is_contiguous()):
+            raise ValueError(f'smag: y-wall shear planes contiguous '
+                             f'{(nz, nx)} {u.dtype} on {u.device}, got '
+                             f'{tuple(t.shape)} {t.dtype} on {t.device}')
+    ymode = 2 if yh is not None else 1 if ye is not None else 0
     out = torch.empty_like(u)
     d = ctypes.c_double
     _launch('smag', f'cales_smag_{_suffix(u)}',
             *map(_ptr, (u, v, w, ue, ve, we, dzci, dzfi, csd2, dw, nearlo,
-                        tauw_lo, tauw_hi, out)), *_yptrs(yh),
-            ctypes.c_int(nz), ctypes.c_int(ny), ctypes.c_int(nx),
+                        tauw_lo, tauw_hi, dwy, nearylo, tylo, tyhi, out)),
+            *_yptrs(ys), ctypes.c_int(nz), ctypes.c_int(ny),
+            ctypes.c_int(nx), ctypes.c_int(ymode),
             ctypes.c_int(int(bool(have_zwalls))), d(dxi), d(dyi), d(visc))
     return out
 
@@ -821,67 +866,124 @@ def dsmag_level2(fu, fv, fw, fue, fve, fwe, fm, lij, s0, alph2, dzci, dzfi,
 wm_planes_plain = wmod.wm_planes_plain
 
 
+_WM_FACES = 4     # csrc/wallmodel.cu WM_FACES: two y and two z faces
+_I4, _D4 = ctypes.c_int * _WM_FACES, ctypes.c_double * _WM_FACES
+
+
 class _WmArgs(ctypes.Structure):
     """The wall-model kernel's static arguments (csrc/wallmodel.cu
-    WmArgs, the same layout): slot 1 repeats slot 0 for one face."""
-    _fields_ = [('nf', ctypes.c_int), *((q, ctypes.c_int * 2) for q in
-                                        ('mtype', 'r1', 'r2')),
-                *((q, ctypes.c_double * 2) for q in
-                  ('omc', 'coef', 'sv', 'umag', 'vmag')),
+    WmArgs, the same layout); the slots past nf are unused."""
+    _fields_ = [('nf', ctypes.c_int), *((q, _I4) for q in
+                                        ('d', 'mtype', 'r1', 'r2')),
+                ('ridx', ctypes.c_int * 3 * 2 * _WM_FACES),
+                *((q, _D4) for q in ('omc', 'coef', 'sv', 'lam_den',
+                                     'lam_c')),
+                ('mag', ctypes.c_double * 2 * _WM_FACES),
+                ('rs', ctypes.c_double * 3 * 2 * _WM_FACES),
+                ('rc', ctypes.c_double * 3 * 2 * _WM_FACES),
                 *((q, ctypes.c_double) for q in
-                  ('h', 'visc', 'ufloor', 'lam_den', 'lam_c', 'ikap', 'blog',
-                   'lhv', 'eps'))]
+                  ('h', 'visc', 'ufloor', 'ikap', 'blog', 'lhv', 'eps'))]
+
+
+def _wm_recipe(fill):
+    """A sampled row's padded rows 0, n and n+1 along its fill's axis as
+    (index, s, c): s q[index] + c, index < 0 from the end (wallmodel
+    pad_row, boundary._set_centered / _set_face with scalar values)."""
+    letters, (b0, b1), (d0, d1), stag = fill
+    if letters == 'PP':
+        return ((-1, 1.0, 0.0), (-1, 1.0, 0.0), (0, 1.0, 0.0))
+    if letters[0] == 'D':
+        lo = (0, 0.0, b0) if stag else (0, -1.0, 2.0 * b0)
+    else:
+        lo = (0, 1.0, -d0 * b0)
+    if not stag:
+        top = (-1, 1.0, 0.0)
+        hi = (-1, -1.0, 2.0 * b1) if letters[1] == 'D' else (-1, 1.0,
+                                                              d1 * b1)
+    elif letters[1] == 'D':
+        top, hi = (-2, 0.0, b1), (-2, 1.0, 0.0)
+    else:
+        top, hi = (-2, 1.0, d1 * b1), (-1, 1.0, 0.0)
+    return lo, top, hi
 
 
 @functools.cache
-def _wm_args(wm, dtype, nz):
-    """The static arguments of wm (a ZWallModel, its own key) for fields
-    of dtype with nz rows: checked and built once, so a call passes only
-    its pointers, its mode and dtrk dxi, dtrk dyi."""
+def _wm_args(wm, dtype, nz, ny):
+    """The static arguments of wm (a wallmodel.WallModel, its own key) for
+    fields of dtype with nz planes of ny rows: checked and built once, so
+    a call passes only its pointers, its mode and dtrk dxi, dtrk dyi."""
     faces = tuple(wm.faces)
-    if not 1 <= len(faces) <= 2:
-        raise ValueError(f'wm_planes: {len(faces)} faces (one or two)')
+    if not 1 <= len(faces) <= _WM_FACES:
+        raise ValueError(f'wm_planes: {len(faces)} faces (one to '
+                         f'{_WM_FACES})')
     for f in faces:
-        if not (0 <= f.r1 < nz and 0 <= f.r2 < nz):
+        n = {1: ny, 2: nz}.get(f.d)
+        if n is None:
+            raise ValueError(f'wm_planes: a face of normal {f.d}')
+        if not (0 <= f.r1 < n and 0 <= f.r2 < n):
             raise ValueError(f'wm_planes: rows {f.r1}, {f.r2} outside '
-                             f'0 .. {nz - 1}')
+                             f'0 .. {n - 1}')
         if f.mtype not in (wmod.WM_LOG, wmod.WM_LAM):
             raise ValueError(f'wm_planes: wall model type {f.mtype}')
-    h, visc, dl = wm.h, wm.visc, 0.5 * wm.l1d
+        if (nz if f.d == 1 else ny) < 2:
+            raise ValueError('wm_planes: sampled rows of fewer than 2 '
+                             'cells along their fill')
+    a = _WmArgs(nf=len(faces), h=wm.h, visc=wm.visc,
+                ufloor=wm.visc / wm.h * wmod.LOG_FLOOR,
+                ikap=1.0 / wmod.KAP_LOG, blog=wmod.B_LOG,
+                lhv=math.log(wm.h / wm.visc), eps=torch.finfo(dtype).eps)
+    for n, f in enumerate(faces):
+        dl = 0.5 * f.l1d
+        a.d[n], a.mtype[n], a.r1[n], a.r2[n] = f.d, f.mtype, f.r1, f.r2
+        a.omc[n], a.coef[n] = 1.0 - f.coef, f.coef
+        a.sv[n] = f.sgn * (1.0 / wm.visc)
+        a.lam_den[n] = wm.h / dl * (2.0 - wm.h / dl)
+        a.lam_c[n] = 2.0 / dl
+        for q in range(2):
+            a.mag[n][q] = f.mags[q]
+            for pos, (idx, rs, rc) in enumerate(_wm_recipe(f.fills[q])):
+                a.ridx[n][q][pos], a.rs[n][q][pos], a.rc[n][q][pos] = (
+                    idx, rs, rc)
+    return a
 
-    def two(get):   # face 0's and the last face's
-        return tuple(get(f) for f in (faces[0], faces[-1]))
-    return _WmArgs(
-        nf=len(faces), mtype=two(lambda f: f.mtype), r1=two(lambda f: f.r1),
-        r2=two(lambda f: f.r2), omc=two(lambda f: 1.0 - f.coef),
-        coef=two(lambda f: f.coef), sv=two(lambda f: f.sgn * (1.0 / visc)),
-        umag=two(lambda f: f.umag), vmag=two(lambda f: f.vmag), h=h,
-        visc=visc, ufloor=visc / h * wmod.LOG_FLOOR,
-        lam_den=h / dl * (2.0 - h / dl), lam_c=2.0 / dl,
-        ikap=1.0 / wmod.KAP_LOG, blog=wmod.B_LOG, lhv=math.log(h / visc),
-        eps=torch.finfo(dtype).eps)
+
+@functools.cache
+def _wm_weights(wei, dtype, device):
+    """A y face's (2, nz+2) weights [1 - wei, wei] on the device."""
+    w = torch.tensor(wei, dtype=torch.float64)
+    return torch.stack([1 - w, w]).to(dtype=dtype, device=device)
 
 
-def wm_planes(u, v, wm, fuv=None, pp=None, dtrk=0.0, dxi=0.0, dyi=0.0):
-    """The wall model's Neumann planes of every wall-modelled z face
-    (wm: wallmodel.ZWallModel, one or two faces) in one launch: a
-    (len(wm.faces), 2, ny+2, nx+2) tensor [face][bcu, bcv] from the
-    interior u and v (periodic x and y), their rows sampled as they are
-    or corrected by pp and the deferred forcing fuv = (fu, fv) (both
-    given; see wallmodel.wm_planes_plain)."""
-    if (pp is None) != (fuv is None):
-        raise ValueError('wm_planes: the corrected rows take fuv with pp')
+def wm_planes(u, v, wm, fuv=None, pp=None, dtrk=0.0, dxi=0.0, dyi=0.0,
+              w=None):
+    """The wall model's Neumann planes of every wall-modelled face (wm:
+    wallmodel.WallModel, one to four y and z faces) in one launch: one
+    (2, n+2, nx+2) tensor a face, [bcu, bcv] on a z face (n = ny), [bcu,
+    bcw] on a y face (n = nz), from the interior u, v and (with y faces)
+    w, their rows sampled as they are or, on z faces with periodic y,
+    corrected by pp and the deferred forcing fuv = (fu, fv) (both given;
+    see wallmodel.wm_planes_plain)."""
     if _on_cpu(u):
         return wm_planes_plain(u, v, wm, fuv=fuv, pp=pp, dtrk=dtrk, dxi=dxi,
-                               dyi=dyi)
-    _check('wallmodel', u, (u, v, pp),
+                               dyi=dyi, w=w)
+    wmod._check_mode(wm, w, fuv, pp)
+    _check('wallmodel', u, (u, v, w, pp),
            profiles=() if fuv is None else ((fuv, 2),))
     nz, ny, nx = u.shape
-    args = _wm_args(wm, u.dtype, nz)
-    out = u.new_empty((args.nf, 2, ny + 2, nx + 2))
+    if u.numel() >= 2 ** 31:
+        raise ValueError(f'wm_planes: {u.numel()} values a field (the '
+                         'kernel indexes within a row in 32 bits)')
+    args = _wm_args(wm, u.dtype, nz, ny)
+    sizes = [2 * ((nz if f.d == 1 else ny) + 2) * (nx + 2) for f in wm.faces]
+    out = u.new_empty(sum(sizes))
+    wz = (None if wm.wei is None
+          else _wm_weights(wm.wei, u.dtype, u.device))
+    if wz is not None and wz.shape[1] != nz + 2:
+        raise ValueError(f'wm_planes: weights for nz = {wz.shape[1] - 2}, '
+                         f'fields of nz = {nz}')
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     _launch('wallmodel', f'cales_wallmodel_{_suffix(u)}', u.data_ptr(),
-            v.data_ptr(), None if pp is None else pp.data_ptr(),
-            None if fuv is None else fuv.data_ptr(), out.data_ptr(), ny, nx,
-            int(pp is not None), float(dtrk * dxi), float(dtrk * dyi),
-            ctypes.addressof(args))
-    return out
+            v.data_ptr(), ptr(w), ptr(pp), ptr(fuv), ptr(wz), out.data_ptr(),
+            nz, ny, nx, int(pp is not None), float(dtrk * dxi),
+            float(dtrk * dyi), ctypes.addressof(args))
+    return tuple(q.view(2, -1, nx + 2) for q in torch.split(out, sizes))

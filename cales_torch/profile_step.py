@@ -2,7 +2,8 @@
 
     python -m cales_torch.profile_step
         [--case les|les-mat|les-imp|dns|dns-imp3d|dsmag|dsmag-blow|duct|
-                cavity|tgv|tgv-fft|tri|tri-imp3d|wmles] [--ng NXxNYxNZ]
+                cavity|tgv|tgv-fft|tri|tri-imp3d|wmles|wmles-duct]
+        [--ng NXxNYxNZ]
         [--steps 3]
 
 Steps one of the channel configurations under torch.profiler and prints
@@ -30,7 +31,11 @@ the periodic Thomas kernel from nz >= 384), 'tgv-fft' the same by 'fft'
 and 'tri-imp3d' the same with full-3D implicit diffusion (thomas_periodic
 Helmholtz solves); 'wmles' bench.py's wmles_channel (the log-law wall model
 on both z walls, hwm 0.1, visci 125 000, smag, 'mat': the wallmodel kernel
-and correc_smag's 'E' z-ghost recipe).  The grid is 512x256x256, 512^3
+and correc_smag's 'E' z-ghost recipe); 'wmles-duct' the physics of
+examples/turbulent_duct_wmles (the log-law wall model on all four side
+walls, hwm 0.1, visci 20 000, smag, 'mat': the wallmodel kernel on four
+faces, smag's y-wall variant with its 'E' ghost stacks, the y-walled
+mom_rk, fillps and correc_updatep).  The grid is 512x256x256, 512^3
 for the tgv cases, unless --ng says otherwise.  The device's idle share is 1 - (device busy
 time / wall time of the profiled window).
 Needs a CUDA device.
@@ -87,6 +92,7 @@ TGV = dict(ng=(512, 512, 512), l=(2 * np.pi,) * 3, gtype=1, gr=0.0,
 TRI = dict(TGV, ng=(512, 256, 256), gtype=0)
 # bench.py _matrix_configs: the channel-LES headline, channel_dns_impdiff,
 # duct_les_dsmag, cavity_les_dsmag and wmles_channel;
+# examples/turbulent_duct_wmles/input.nml for the wall-modelled duct;
 # validation/dsmag_channel.py:77-89
 # for the dynamic model in the channel
 CASES = {
@@ -121,6 +127,9 @@ CASES = {
                            (0.0, 1.0, 0.0))), **DUCT_BCS),
     'wmles': dict(visci=125_000.0, sgstype='smag', ptransform='mat',
                   lwm=((0, 0, 1), (0, 0, 1)), hwm=0.1, **CHAN_BCS),
+    'wmles-duct': dict(l=(12.8, 2.0, 2.0), gr=0.0, visci=20_000.0,
+                       inivel='duc', sgstype='smag', ptransform='mat',
+                       lwm=((0, 1, 1), (0, 1, 1)), hwm=0.1, **DUCT_BCS),
 }
 
 

@@ -8,7 +8,9 @@ setup (filter width, wall-distance profiles, wall flags), copied because
 that module imports jax.  ``smag_visct`` and ``dsmag_visct`` on padded
 fields serve the initial fill; each substep's nu_t comes out of a kernel
 (ops/kernels.correc_smag, smag or dsmag), and ``dsmag_visct`` is the model
-the dsmag kernel's plain twin is held to.
+the dsmag kernel's plain twin is held to.  ``extrapolate_stacks`` is
+``extrapolate`` on a field held as edge stacks: the ghosts smag's y-wall
+variant reads on wall-modelled faces.
 """
 from __future__ import annotations
 
@@ -54,6 +56,48 @@ def extrapolate(p, iface, flags, factors):
                     (1.0 + f0) * p[1] - f0 * p[2], bool(flags.get((0, 2))),
                     (1.0 + f1) * p[-2] - f1 * p[-3], bool(flags.get((1, 2))))
     return p
+
+
+def extrapolate_stacks(q, ze, y, iface, flags, factors):
+    """extrapolate on a field held as its interior q (nz, ny, nx), its
+    z-edge stack ze (3, ny, nx) and its y-row stack pair y = (rows (nz, 3,
+    nx), corners (3, 3, nx)) (ops/boundary.zedge_*, yedge_*): the ghost
+    rows the sequential fill gives, extrapolated along y and then z where
+    flags says, as extrapolate does on the padded field (so a corner is
+    the z extrapolation of the y-extrapolated rows).  Returns (ze, (rows,
+    corners)), new tensors where anything changed."""
+    from .ops.kernels import zpad, ypad
+    rows, corners = y
+    nz, ny = q.shape[0], q.shape[1]
+    zsel = [0, nz, nz + 1]    # padded z rows kept in the corners
+    if iface != 2 and (flags.get((0, 1)) or flags.get((1, 1))):
+        rows, corners = rows.clone(), corners.clone()
+        # padded y rows 0 and ny+1 over the whole padded z range
+        if flags.get((0, 1)):
+            lo = (2.0 * zpad(q[:, 0], ze[:, 0])
+                  - zpad(q[:, 1], ze[:, 1]))
+            rows[:, 0], corners[:, 0] = lo[1:nz + 1], lo[zsel]
+        if flags.get((1, 1)):
+            hi = (2.0 * zpad(y[0][:, 1], y[1][:, 1])
+                  - zpad(q[:, -2], ze[:, -2]))
+            rows[:, 2], corners[:, 2] = hi[1:nz + 1], hi[zsel]
+    if iface != 3 and (flags.get((0, 2)) or flags.get((1, 2))):
+        f0, f1 = float(factors[0]), float(factors[1])
+        ze, corners = ze.clone(), corners.clone()
+        ysel = [0, ny, ny + 1]
+
+        def plane(k):
+            # padded z row k (1 .. nz) over the padded y range
+            if k == nz:
+                return ypad(ze[1:2], corners[1:2])[0]
+            return ypad(q[k - 1:k], rows[k - 1:k])[0]
+        if flags.get((0, 2)):
+            lo = (1.0 + f0) * plane(1) - f0 * plane(2)
+            ze[0], corners[0] = lo[1:ny + 1], lo[ysel]
+        if flags.get((1, 2)):
+            hi = (1.0 + f1) * plane(nz) - f1 * plane(nz - 1)
+            ze[2], corners[2] = hi[1:ny + 1], hi[ysel]
+    return ze, (rows, corners)
 
 
 class SGSSetup:

@@ -8,12 +8,15 @@ Smagorinsky, and the DNS (sgstype 'none'), each with explicit, z-implicit
 implicit; and for the y-walled classes, the square duct and the
 spanwise-periodic cavity, with dynamic Smagorinsky ('duct', 'cavity' or
 'channel' averaging) or none, explicit diffusion.  z walls may transpire
-(a uniform w through them).  The channel's z walls may carry the wall
-model (log-law or laminar, cales_tpu's _wm_z_fast route) with static
-Smagorinsky and explicit diffusion, or with sgstype 'none': its Neumann
-planes come from kernels.wm_planes (csrc/wallmodel.cu) at every fill that
-reads them; with smag the fused correction's planes serve the
-post-correction fill.
+(a uniform w through them).  The y-walled duct also runs static
+Smagorinsky (the smag kernel's y-wall variant).  The channel's z walls,
+and the duct's y and z walls, may carry the wall model (log-law or
+laminar, cales_tpu's _wm_fast route) with static Smagorinsky and explicit
+diffusion, or with sgstype 'none': its Neumann planes come from
+kernels.wm_planes (csrc/wallmodel.cu, every modelled face in one launch)
+once a substep, at the post-correction fill, whose edge stacks carry them
+to the next substep's momentum kernel; with the channel's fused correction
+its planes serve that fill.
 One RK substep runs:
   1. kernels.mom_rk          momentum RHS + RK3 update (+ forcing partial
                              sums; with implicit diffusion the explicit/
@@ -31,7 +34,8 @@ One RK substep runs:
                              diffusion), or
      kernels.correc_updatep  projection, p += pp (+ alpha Lz(pp))
   7. the SGS stage on the post-correction fill, where 6 did not make nu_t:
-     kernels.smag (smag with impdiff_1d), or kernels.dsmag (dsmag: |S|
+     kernels.smag (smag with impdiff_1d, or with y walls on the 'E'
+     ghost stacks, sgs.extrapolate_stacks), or kernels.dsmag (dsmag: |S|
      and partial num/den sums, then nu_t = max(|S| num/den, 0) with one
      ratio per z row ('channel') or per (z, y) row ('duct'); 'cavity'
      makes nu_t cell by cell in the kernel), or where the one pass cannot
@@ -40,11 +44,12 @@ One RK substep runs:
      kernels.dsmag_level2, with the same finish
 with the z-edge stacks (ops/boundary.zedge_*) as the glue, and with y walls
 the y-row stacks (ops/boundary.yedge_*) of the same three fills: the
-carried post-correction fill for mom_rk, the prediction fill for fillps
-and correc_updatep (with pp's after the solve), the new post-correction
-fill for dsmag (and the filtered velocity's static fill for
-dsmag_level2).  On a CUDA device the kernels are the hand-written ones of
-cales_torch/csrc; on the CPU their plain PyTorch twins.
+carried post-correction fill for mom_rk (State.yq), the prediction fill
+for fillps and correc_updatep (with pp's after the solve), the new
+post-correction fill for smag and dsmag (and the filtered velocity's
+static fill for dsmag_level2).  On a CUDA device the kernels are the
+hand-written ones of cales_torch/csrc; on the CPU their plain PyTorch
+twins.
 
 On a y-slab mesh (dims = (gy, 1), parallel/mesh.SlabMesh) each rank steps
 its slab, the counterpart of the JAX package's kernel-sharded route
@@ -97,6 +102,8 @@ class State(NamedTuple):
     istep: int
     zq: Any = None    # (ue, ve, we) z-edge stacks of the post-correction
                       # fill, carried to the next substep's momentum kernel
+    yq: Any = None    # with y walls, the same fill's (rows, corners) y-row
+                      # stack pairs of (u, v, w), carried likewise
 
 
 def _periodic(cfg: Config, d: int) -> bool:
@@ -121,10 +128,12 @@ def _ywalls_refuse(cfg: Config) -> list[str]:
              and float(cfg.bcvel[ib][1][1]) != 0.0 for ib in range(2)):
         out.append('a non-zero v through a y wall: ROADMAP queue 1, BC '
                    'topologies')
-    if cfg.sgstype == 'smag':
-        out.append('static Smagorinsky with non-periodic y (y walls; the '
-                   'JAX package runs it through XLA, not a kernel): ROADMAP '
-                   'queue 1, smag with y walls')
+    if cfg.sgstype == 'smag' and (cfg.impdiff or cfg.ptransform == 'fft'
+                                  or cfg.cbc_vel(2, 0)[0] == 'P'):
+        out.append('static Smagorinsky with y walls runs with explicit '
+                   "diffusion, z walls and the 'mat' route (smag with y "
+                   'walls beside impdiff, periodic z or fft): ROADMAP queue '
+                   '1, impdiff with y walls, BC topologies')
     if cfg.impdiff:
         kind = 'impdiff_1d' if cfg.impdiff_1d else \
             'full-3D implicit diffusion'
@@ -176,10 +185,10 @@ def unsupported(cfg: Config) -> list[str]:
 
 def _wm_refuse(cfg: Config) -> list[str]:
     """What this slice does not run with a wall model: it runs the log-law
-    or laminar model on the z faces with static Smagorinsky and explicit
-    diffusion, or with sgstype 'none', on one device (cales_tpu's
-    _wm_z_fast route; periodic x and y and scalar BC values are checked by
-    unsupported itself)."""
+    or laminar model on the y and z walls with static Smagorinsky and
+    explicit diffusion, or with sgstype 'none', on one device (cales_tpu's
+    _wm_fast route; periodic x and scalar BC values are checked by
+    unsupported itself, the y walls by _ywalls_refuse)."""
     out = []
     lwm = [cfg.lwm[ib][d] for ib in range(2) for d in range(3)]
     if any(m not in (0, wmod.WM_LOG, wmod.WM_LAM) for m in lwm):
@@ -188,10 +197,12 @@ def _wm_refuse(cfg: Config) -> list[str]:
     if any(cfg.lwm[ib][0] != 0 for ib in range(2)):
         out.append('a wall model on x faces (x walls): ROADMAP queue 1, x '
                    'walls')
-    if any(cfg.lwm[ib][1] != 0 for ib in range(2)):
-        out.append('a wall model on y faces (the duct WMLES, which also '
-                   'needs static Smagorinsky with y walls): ROADMAP queue 1, '
-                   'wall model on y faces')
+    for d, name in ((1, 'y'), (2, 'z')):
+        if any(cfg.lwm[ib][d] != 0 and cfg.cbcvel[ib][d][d] != 'D'
+               for ib in range(2)):
+            out.append(f'a wall model on {name} faces that are not walls '
+                       '(lwm on a face whose normal velocity is not D; '
+                       'sanity.f90:221-230)')
     if cfg.sgstype == 'dsmag':
         out.append('a wall model with dynamic Smagorinsky (the JAX kernel '
                    'path refuses it too): ROADMAP queue 1, wall model with '
@@ -343,7 +354,7 @@ class Simulation:
         # diffusion; cales_tpu's _fuse_correc_smag), or a separate SGS
         # kernel on the post-correction fill
         self.fused_smag = (cfg.sgstype == 'smag' and not cfg.impdiff
-                           and mesh is None)
+                           and mesh is None and not self.ywalled)
         self.sgs_kernel = ({'smag': 'smag', 'dsmag': 'dsmag'}
                            .get(cfg.sgstype) if not self.fused_smag else None)
         # dsmag: the one-pass kernel where it can carry the BC values, the
@@ -372,16 +383,17 @@ class Simulation:
         self.bcu_vals = mk(bcvel_by_dir(0))
         self.bcv_vals = mk(bcvel_by_dir(1))
         self.bcw_vals = mk(bcvel_by_dir(2))
-        # the wall model on the z faces (unsupported() admits no other):
-        # the faces' interpolation rows and weights, and their static
-        # wall-parallel values
+        # the wall model on the z and y faces (unsupported() admits no
+        # other): the faces' interpolation rows and weights, their static
+        # wall-parallel values and their sampled rows' static fills
         self.has_wm = any(cfg.lwm[ib][d] != 0 for ib in range(2)
                           for d in range(3))
         self.index_wm = (wmod.find_index_wm(cfg, grid) if self.has_wm
                          else None)
-        self.wm_z = (wmod.z_wall_model(cfg, grid, self.index_wm,
-                                       self.bcu_vals[2], self.bcv_vals[2])
-                     if self.has_wm else None)
+        self.wm = (wmod.wall_model(cfg, grid, self.index_wm,
+                                   (self.bcu_vals, self.bcv_vals,
+                                    self.bcw_vals), self.cbcvel)
+                   if self.has_wm else None)
         self.rhsb_p = poisson.rhs_bound_planes(
             cfg, grid, self.cbcpre, ('c', 'c', 'c'), by_dir(cfg.bcpre))
         self.sgs_setup = sgsmod.SGSSetup(cfg, grid, self.cbcvel)
@@ -445,6 +457,13 @@ class Simulation:
         self.nearlo_t = t((dw_lo <= dw_hi).astype(np.float64))
         self.dw_t = t(np.minimum(dw_lo, dw_hi) if self.have_zwalls
                       else np.zeros(nz))
+        # smag with y walls: the distance to the nearer y wall and 1 where
+        # it is the lower one (both y faces are walls), which van Driest
+        # weighs against the z walls' (sgs.f90:104-146)
+        if self.ywalled and cfg.sgstype == 'smag':
+            (dy_lo, _), (dy_hi, _) = setup.dw1d[2], setup.dw1d[3]
+            self.dwy_t = t(np.minimum(dy_lo, dy_hi))
+            self.nearylo_t = t((dy_lo <= dy_hi).astype(np.float64))
         # dsmag: the filter-ratio profile alpha^2 along z (2.52 on a z
         # wall's first row; the kernel sets the y walls' rows itself) and
         # the filtered-velocity fill's wall-parallel z and y values
@@ -530,15 +549,19 @@ class Simulation:
                if self.sgs_kernel == 'dsmag' else 'none')
         if self.ywalled:
             sgs += '; y walls: y-row ghost stacks'
+        if self.ywalled and self.sgs_kernel == 'smag':
+            sgs += ', the smag kernel in its y-wall variant'
         if self.has_wm:
             kinds = sorted({'log-law' if f.mtype == wmod.WM_LOG
-                            else 'laminar' for f in self.wm_z.faces})
-            sides = '+'.join(('lower', 'upper')[f.ib]
-                             for f in self.wm_z.faces)
-            sgs += (f"; wall model: {'/'.join(kinds)} on the {sides} z "
+                            else 'laminar' for f in self.wm.faces})
+            sides = '+'.join(f"{('lower', 'upper')[f.ib]} {'xyz'[f.d]}"
+                             for f in self.wm.faces)
+            sgs += (f"; wall model: {'/'.join(kinds)} on the {sides} "
                     'face(s), wallmodel kernel planes'
                     + (", correc_smag's 'E' z-ghost recipe"
-                       if self.fused_smag else ''))
+                       if self.fused_smag else '')
+                    + (", smag's 'E' ghost stacks"
+                       if self.sgs_kernel == 'smag' else ''))
         mesh = ('' if self.mesh is None
                 else f'; mesh: {self.mesh.describe()}, y halos')
         return (f'{where}; poisson: {xy} + {zstage} ({self.cfg.dtype}); '
@@ -588,28 +611,34 @@ class Simulation:
                                        pad_filtered).to(self.dtype)
         else:
             visct = torch.zeros_like(u)
-        u_i, v_i, w_i = (up[1:-1, 1:-1, 1:-1], vp[1:-1, 1:-1, 1:-1],
-                         wp[1:-1, 1:-1, 1:-1])
+        u_i, v_i, w_i = (up[1:-1, 1:-1, 1:-1].contiguous(),
+                         vp[1:-1, 1:-1, 1:-1].contiguous(),
+                         wp[1:-1, 1:-1, 1:-1].contiguous())
         zq = self._zedge_vel(u_i, v_i, w_i, bcu, bcv, bcw, is_correc=False)
-        return st0._replace(u=u_i.contiguous(), v=v_i.contiguous(),
-                            w=w_i.contiguous(), vlo=vlo, visct=visct, zq=zq)
+        yq = (self._yedge_vel(u_i, v_i, w_i, (bcu, bcv, bcw))
+              if self.ywalled else None)
+        return st0._replace(u=u_i, v=v_i, w=w_i, vlo=vlo, visct=visct, zq=zq,
+                            yq=yq)
 
     # ------------------------------------------------------------------
     def _dynamic_bcs(self, u, v, w, planes=None):
         """Velocity BC values: the static ones, and on each wall-modelled
-        z face the wall model's Neumann planes of u and v (bounduvw's
-        is_updt_wm path, bound.f90:120-123): `planes`, the (faces, 2,
-        ny+2, nx+2) planes already made from this u and v, or else made
-        here from the current u and v."""
+        face the wall model's Neumann planes of its wall-parallel
+        components, u and v on a z face, u and w on a y face (bounduvw's
+        is_updt_wm path, bound.f90:120-123): `planes`, the planes already
+        made from this u and v (kernels.wm_planes, one (2, n+2, nx+2) pair
+        a face), or else made here from the current u, v and w."""
         if not self.has_wm:
             return self.bcu_vals, self.bcv_vals, self.bcw_vals
         if planes is None:
-            planes = kernels.wm_planes(u, v, self.wm_z)
-        bcu_z, bcv_z = list(self.bcu_vals[2]), list(self.bcv_vals[2])
-        for n, face in enumerate(self.wm_z.faces):
-            bcu_z[face.ib], bcv_z[face.ib] = planes[n, 0], planes[n, 1]
-        return ((*self.bcu_vals[:2], tuple(bcu_z)),
-                (*self.bcv_vals[:2], tuple(bcv_z)), self.bcw_vals)
+            planes = kernels.wm_planes(u, v, self.wm, w=w)
+        bcs = [[list(q) for q in b] for b in (self.bcu_vals, self.bcv_vals,
+                                              self.bcw_vals)]
+        for face, pair in zip(self.wm.faces, planes):
+            bcs[0][face.d][face.ib] = pair[0]
+            # the second wall-parallel component: v on a z face, w on y
+            bcs[1 if face.d == 2 else 2][face.d][face.ib] = pair[1]
+        return tuple(tuple(tuple(q) for q in b) for b in bcs)
 
     def _pad_vel(self, u, v, w, bcu, bcv, bcw, vlo=None, is_correc=False):
         return bnd.pad_velocity(u, v, w, self.cbcvel, bcu, bcv, bcw,
@@ -658,13 +687,15 @@ class Simulation:
         return float(torch.dot(plane, torch.as_tensor(
             weights, dtype=f.dtype, device=f.device)))
 
-    def _yedge_vel(self, u, v, w, vlo=None, is_correc=False):
-        """The (rows, corners) y-row stack pairs of u, v, w."""
+    def _yedge_vel(self, u, v, w, bcs=None, vlo=None, is_correc=False):
+        """The (rows, corners) y-row stack pairs of u, v, w with the BC
+        values bcs = (bcu, bcv, bcw), the static ones by default."""
+        bcu, bcv, bcw = bcs or (self.bcu_vals, self.bcv_vals, self.bcw_vals)
         rows, corners = bnd.yedge_velocity(
-            u, v, w, self.cbcvel, self.bcu_vals, self.bcv_vals,
-            self.bcw_vals, self.cfg.dl, self.grid.dzc, self.grid.dzf,
-            vlo=vlo, is_correc=is_correc)
-        return tuple(zip(rows, corners))
+            u, v, w, self.cbcvel, bcu, bcv, bcw, self.cfg.dl, self.grid.dzc,
+            self.grid.dzf, vlo=vlo, is_correc=is_correc)
+        return tuple((r.contiguous(), c.contiguous())
+                     for r, c in zip(rows, corners))
 
     def _yedge_p(self, p):
         return bnd.yedge_scalar(p, self.cbcpre, self.bcp_vals, self.cfg.dl,
@@ -711,10 +742,9 @@ class Simulation:
         fu, fv = fuv[0], fuv[1]
         wm_faces, planes = {}, None
         if self.has_wm:
-            planes = kernels.wm_planes(u, v, self.wm_z, fuv=fuv, pp=pp,
+            planes = kernels.wm_planes(u, v, self.wm, fuv=fuv, pp=pp,
                                        dtrk=dtrk, dxi=dxi, dyi=dyi)
-            wm_faces = {f.ib: planes[n] for n, f in
-                        enumerate(self.wm_z.faces)}
+            wm_faces = {f.ib: q for f, q in zip(self.wm.faces, planes)}
 
         def face(side):
             if side in wm_faces:
@@ -735,14 +765,30 @@ class Simulation:
             self.nearlo_t, tauw_lo, tauw_hi, have_zwalls=self.have_zwalls)
         return (*out, planes)
 
+    @staticmethod
+    def _shear(A, B, bprev, scale):
+        """|grad u_par| on a wall face from the jumps A, B of its two
+        wall-parallel components across it (interior row minus ghost row),
+        each averaged onto the cell centres along x (A) and along the
+        plane's other axis (B: its row -1 is bprev, or B's last row where
+        that axis is periodic), times the inverse spacing across the face
+        (sgs.f90:117-143)."""
+        t1 = A + torch.roll(A, 1, 1)
+        if bprev is None:
+            t2 = B + torch.roll(B, 1, 0)
+        else:
+            t2 = B + torch.cat([bprev[None], B[:-1]])
+        return (torch.sqrt(t1 ** 2 + t2 ** 2) * scale).contiguous()
+
     def _wall_shear_planes(self, face, like, bprev=None):
         """The van Driest wall-shear planes (tauw_lo, tauw_hi), (ny, nx):
         |grad u_par| at each z wall (sgs.f90:117-143 z rows) from
         face(side) -> (A, B), the jumps of u and v across the wall face
         (interior row minus ghost row).  A face that is no wall takes the
         other wall's plane; without z walls both are zero, shaped `like`.
-        bprev(side): on a slab, B's row -1 (nx,) from the halo, which the
-        periodic roll along y would take from the slab's own last row."""
+        bprev(side): B's row -1 (nx,), from the halo on a slab or the
+        y-row stacks with y walls, where the periodic roll along y would
+        take the plane's own last row."""
         if not self.have_zwalls:
             z = torch.zeros_like(like[0])
             return z, z
@@ -750,53 +796,83 @@ class Simulation:
 
         def plane(side):
             A, B = face(side)
-            t1 = A + torch.roll(A, 1, 1)
-            if bprev is None:
-                t2 = B + torch.roll(B, 1, 0)
-            else:
-                t2 = B + torch.cat([bprev(side)[None], B[:-1]])
-            dzi = float(self.grid.dzci[0 if side == 0 else nz])
-            return (torch.sqrt(t1 ** 2 + t2 ** 2) * dzi).contiguous()
+            return self._shear(A, B, None if bprev is None else bprev(side),
+                               float(self.grid.dzci[0 if side == 0 else nz]))
         lo = plane(0) if self.lo_wall else None
         hi = plane(1) if self.hi_wall else None
         return (hi if lo is None else lo), (lo if hi is None else hi)
 
-    def _sgs_stage(self, u, v, w, zq, vlo):
-        """nu_t of the post-correction fill (main.f90:504-506) by the smag
-        or dsmag kernel, or by dsmag's two passes."""
+    def _ywall_shear_planes(self, u, w, we, yq):
+        """The y walls' van Driest shear planes (tauw_ylo, tauw_yhi),
+        (nz, nx), from the post-correction fill's y-row stacks yq (as the
+        z walls' from its z-edge stacks): the jumps of u and w across each
+        y face, w's row below z = 0 from its z-edge stack and corners."""
+        (yu, _), _, (yw, cw) = yq
+        dyi = self.cfg.dli[1]
+
+        def plane(side):
+            r, g = (0, 0) if side == 0 else (-1, 2)
+            return self._shear(u[:, r] - yu[:, g], w[:, r] - yw[:, g],
+                               we[0][r] - cw[0, g], dyi)
+        return plane(0), plane(1)
+
+    def _sgs_stage(self, u, v, w, zq, vlo, yq=None):
+        """nu_t of the post-correction fill (main.f90:504-506), its z-edge
+        stacks zq and with y walls its y-row stack pairs yq (made here
+        from vlo when not given), by the smag or dsmag kernel, or by
+        dsmag's two passes."""
         cfg = self.cfg
         ue, ve, we = zq
+        if self.ywalled and yq is None:
+            yq = self._yedge_vel(u, v, w, self._dynamic_bcs(u, v, w),
+                                 vlo=vlo, is_correc=True)
         dxi, dyi = cfg.dli[0], cfg.dli[1]
         if self.sgs_kernel == 'smag':
             # the post-correction fill's ghost rows (cales_tpu
-            # _compute_sgs_kernel); on a slab the halos of u, v, w and v's
-            # wall jump on the row below
-            yh = bprev = None
+            # _compute_sgs_kernel); on a slab the halos of u, v, w, with y
+            # walls their y-row stacks, and v's wall jump on the row below
+            # from either
+            yh = ye = ywall = None
+            rows = corners = None
             if self.mesh is not None:
                 yh = self.mesh.halo_y([(u, ue), (v, ve), (w, we)])
-                hv_rows, hv_corners = yh[1]
+                rows, corners = yh[1]
+            elif self.ywalled:
+                rows, corners = yq[1]
+                ywall = (self.dwy_t, self.nearylo_t,
+                         *self._ywall_shear_planes(u, w, we, yq))
 
-                def bprev(side):
-                    k, e = (0, 0) if side == 0 else (-1, 2)
-                    return hv_rows[k, 0] - hv_corners[e, 0]
+            def bprev(side):
+                k, e = (0, 0) if side == 0 else (-1, 2)
+                return rows[k, 0] - corners[e, 0]
             tauw_lo, tauw_hi = self._wall_shear_planes(
                 lambda side: ((u[0] - ue[0], v[0] - ve[0]) if side == 0
                               else (u[-1] - ue[2], v[-1] - ve[2])), u,
-                bprev=bprev)
+                bprev=None if rows is None else bprev)
+            if self.ywalled:
+                # the strain's ghosts: the one-sided extrapolation on the
+                # wall-modelled faces (sgs.extrapolate, cales_tpu
+                # sgs.smag_visct), the fill's own elsewhere
+                setup = self.sgs_setup
+                ext = [sgsmod.extrapolate_stacks(q, e, y, iface,
+                                                 setup.lwm_flags,
+                                                 setup.fac_lwm)
+                       for q, e, y, iface in zip((u, v, w), zq, yq,
+                                                 (1, 2, 3))]
+                (ue, ve, we), ye = zip(*ext)
             return kernels.smag(u, v, w, ue, ve, we, self.dzci_t,
                                 self.dzfi_t, dxi, dyi, cfg.visc,
                                 self.csd2_t, self.dw_t, self.nearlo_t,
                                 tauw_lo, tauw_hi,
-                                have_zwalls=self.have_zwalls, yh=yh)
-        ye = (self._yedge_vel(u, v, w, vlo=vlo, is_correc=True)
-              if self.ywalled else None)
+                                have_zwalls=self.have_zwalls, yh=yh, ye=ye,
+                                ywall=ywall)
         if self.dsmag_twopass:
-            return self._dsmag_twopass(u, v, w, zq, ye)
+            return self._dsmag_twopass(u, v, w, zq, yq)
         avg = cfg.dsmag_avg
         s0, num, den = kernels.dsmag(u, v, w, ue, ve, we, self.alph2_t,
                                      self.dzci_t, self.dzfi_t, dxi, dyi,
                                      self.lo_wall, self.hi_wall,
-                                     self.dsmag_zvals, ye=ye,
+                                     self.dsmag_zvals, ye=yq,
                                      yvals=self.dsmag_yvals, avg=avg)
         return s0 if avg == 'cavity' else _dsmag_ratio(s0, num, den, avg)
 
@@ -897,21 +973,26 @@ class Simulation:
         u, v, w, p, visct = state.u, state.v, state.w, state.p, state.visct
         ru_o, rv_o, rw_o = state.rhs_old
 
-        # momentum + RK: the z-edge cache of the previous post-correction
-        # fill is the kernel input (rebuilt from vlo for a carried state)
-        if state.zq is not None:
-            ue, ve, we = state.zq
-        else:
-            bcu0, bcv0, bcw0 = self._dynamic_bcs(u, v, w)
-            ue, ve, we = self._zedge_vel(u, v, w, bcu0, bcv0, bcw0,
-                                         vlo=state.vlo, is_correc=True)
+        # momentum + RK: the edge stacks of the previous post-correction
+        # fill are the kernel input (rebuilt from vlo for a carried state;
+        # cales_tpu runs the wall model again here, timeloop.py:1877-1882,
+        # to the same planes)
+        zq, yq = state.zq, state.yq
+        if zq is None or (self.ywalled and yq is None):
+            bcs0 = self._dynamic_bcs(u, v, w)
+            if zq is None:
+                zq = self._zedge_vel(u, v, w, *bcs0, vlo=state.vlo,
+                                     is_correc=True)
+            if self.ywalled:
+                yq = self._yedge_vel(u, v, w, bcs0, vlo=state.vlo,
+                                     is_correc=True)
+        ue, ve, we = zq
         pe = self._zedge_p(p)
         s, se = (visct, self._zedge_s(visct)) if self.has_sgs else (None, None)
         ye = yh = None
         if self.ywalled:
             # the y rows of the same (post-correction) fill
-            ye = (*self._yedge_vel(u, v, w, vlo=state.vlo, is_correc=True),
-                  self._yedge_s(visct) if self.has_sgs else None,
+            ye = (*yq, self._yedge_s(visct) if self.has_sgs else None,
                   self._yedge_p(p))
         if self.mesh is not None:
             # the neighbours' rows of the same fill, one exchange
@@ -936,11 +1017,15 @@ class Simulation:
         # projection: prediction fill as edge stacks (w's wall-face rewrite
         # in row 1 of we2; with y walls v's in row 1 of its y rows),
         # fillps, solve, fused correction.  The fill takes the static
-        # values: the wall model's planes would set only u's and v's z
-        # ghost rows, which no kernel reads here (fillps takes div u;
-        # correc_smag and correc_updatep the interior rows of u and v and
-        # w's stack), so it is not run (cales_tpu runs it with the
-        # deferred forcing, timeloop.py:2568-2569, to the same state)
+        # values: the wall model's planes would set only the wall-parallel
+        # ghosts (u's and v's z ghost rows, u's and w's y ghost rows),
+        # which no kernel reads here (fillps takes div u, so v's y rows,
+        # and w's; correc_smag and correc_updatep the interior rows of u
+        # and v, w's stack and v's y rows; v and w stay 'D' on their own
+        # faces), so it is not run (cales_tpu runs it with the deferred
+        # forcing, timeloop.py:2568-2569, to the same state).  Only the
+        # kept v plane's z-ghost rows (vlo[1], from v's corner stacks)
+        # differ from cales_tpu's, and every fill crops them.
         ue2, ve2, we2 = self._zedge_vel(u, v, w, self.bcu_vals,
                                         self.bcv_vals, self.bcw_vals,
                                         is_correc=False)
@@ -972,15 +1057,18 @@ class Simulation:
                 yv=None if yv2 is None else yv2[0], yh=hpp)
         vlo = self._advance_wall_planes(state, pp, ppe, we2, dtrk,
                                         ypred=ypred, ypp=ypp)
-        # post-correction fill (main.f90:500-501, is_correc=.true.); with
-        # smag the wall model's planes are the fused correction's, made
-        # from the same corrected rows (cales_tpu makes them again)
-        bcu, bcv, bcw = self._dynamic_bcs(u, v, w, planes)
-        zq = self._zedge_vel(u, v, w, bcu, bcv, bcw, vlo=vlo, is_correc=True)
+        # post-correction fill (main.f90:500-501, is_correc=.true.): the
+        # wall model runs here, once a substep; with the fused correction
+        # its planes are the fused correction's, made from the same
+        # corrected rows (cales_tpu makes them again)
+        bcs = self._dynamic_bcs(u, v, w, planes)
+        zq = self._zedge_vel(u, v, w, *bcs, vlo=vlo, is_correc=True)
+        yq = (self._yedge_vel(u, v, w, bcs, vlo=vlo, is_correc=True)
+              if self.ywalled else None)
         if self.sgs_kernel:
-            visct = self._sgs_stage(u, v, w, zq, vlo)
+            visct = self._sgs_stage(u, v, w, zq, vlo, yq)
         return state._replace(u=u, v=v, w=w, p=p, visct=visct, vlo=vlo,
-                              rhs_old=(ru, rv, rw), zq=zq), f
+                              rhs_old=(ru, rv, rw), zq=zq, yq=yq), f
 
     def _step_impl(self, state: State, dt: float):
         """One time step = 3 RK substeps (main.f90:417-507)."""

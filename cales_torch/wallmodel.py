@@ -1,9 +1,9 @@
-"""Wall models on the z faces: log-law (Newton on u_tau) and laminar.
+"""Wall models on the y and z faces: log-law (Newton on u_tau) and laminar.
 
 Counterpart of cales_tpu/wallmodel.py (reference wmodel.f90), copied
 because that module imports jax: per wall-modelled face, the wall-parallel
 velocity is interpolated to the matching height ``hwm`` between the two
-bracketing cell rows (wmodel.f90:222-272), made wall-relative, fed to the
+bracketing cell rows (wmodel.f90:171-272), made wall-relative, fed to the
 log-law Newton iteration (288-326) or the laminar profile (327-333), and
 tau_w/visc is the Neumann value of the parallel components on that face.
 The Newton iteration runs a fixed N_NEWTON steps with no convergence test,
@@ -12,11 +12,11 @@ have converged, and ``newton_steps`` / ``wm_newton_steps`` count the steps
 that takes on given inputs.
 
 ``wm_planes_plain`` is the plain twin of the wall-model kernel
-(ops/kernels.wm_planes, csrc/wallmodel.cu): both faces' padded planes from
-the sampled rows of u and v, as they are or corrected by the pressure
-correction pp and the deferred bulk forcing first.  The y- and x-face
-branches (``y_wall_wm_planes``, the x branch of ``update_wallmodel_bcs``)
-are not ported yet (ROADMAP queue 1).
+(ops/kernels.wm_planes, csrc/wallmodel.cu): every modelled face's padded
+planes from its sampled rows (u and v at z rows, u and w at y rows), as
+they are or, on z faces with periodic y, corrected by the pressure
+correction pp and the deferred bulk forcing first.  The x-face branch of
+``update_wallmodel_bcs`` is not ported yet (ROADMAP queue 1).
 """
 from __future__ import annotations
 
@@ -25,7 +25,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .config import KAP_LOG, B_LOG
+from .config import KAP_LOG, B_LOG, effective_cbcvel
+from .ops import boundary as bnd
 
 WM_LOG = 1
 WM_LAM = -1
@@ -137,102 +138,175 @@ def find_index_wm(cfg, grid):
     return tuple(tuple(r) for r in idx)
 
 
-class ZFace(NamedTuple):
-    """One wall-modelled z face: its model type, the interior rows r1
-    (nearer the wall) and r2 that bracket hwm (0-based: the padded rows
-    k1 - 1, k2 - 1), the interpolation weight coef, the sign of the wall
-    normal, and the face's static wall-parallel values umag, vmag."""
+class WallFace(NamedTuple):
+    """One wall-modelled face: its normal d (1 a y face, 2 a z face), its
+    side ib, the model type, the interior rows r1 (nearer the wall) and r2
+    along d that bracket hwm (0-based: the padded rows minus 1), the
+    interpolation weight coef, the sign of the wall normal, the static
+    wall-parallel values mags of the face's two components (u, v on a z
+    face; u, w on a y face), the laminar profile's length l1d (the domain
+    along d), and fills: how the sampled rows of the two components take
+    their ghosts along the face's other transverse axis (y on a z face,
+    z on a y face), each (letters, values, spacings, staggered) with the
+    static BC values of the effective letters (cales_tpu
+    Simulation._row_pad_xy, _row_pad_xz); 'PP' periodic."""
+    d: int
     ib: int
     mtype: int
     r1: int
     r2: int
     coef: float
     sgn: float
-    umag: float
-    vmag: float
+    mags: tuple
+    l1d: float
+    fills: tuple
 
 
-class ZWallModel(NamedTuple):
-    """The z faces a configuration models, with hwm, the domain height
-    (the laminar profile's) and the viscosity."""
+class WallModel(NamedTuple):
+    """The faces a configuration models, with hwm and the viscosity, and
+    on y faces the weights (zf - zc) / dzc (nz+2) of the z interpolation
+    to w's faces (None without a y face)."""
     faces: tuple
     h: float
-    l1d: float
     visc: float
+    wei: tuple = None
 
 
-def z_face(cfg, grid, ib, index_wm, umag=0.0, vmag=0.0) -> ZFace:
-    """Face ib's geometry (z_wall_wm_planes, cales_tpu/wallmodel.py:253-
-    268): the lower face interpolates with dzc[k1], the upper with
-    dzc[k2]."""
+def _fill(cbcvel, vals, d, ivel, dr, stag):
+    return (cbcvel[0][d][ivel] + cbcvel[1][d][ivel],
+            (float(vals[d][0]), float(vals[d][1])), dr, stag)
+
+
+def wall_face(cfg, grid, d, ib, index_wm, bcs=None, cbcvel=None) -> WallFace:
+    """Face (d, ib)'s geometry (y_wall_wm_planes, z_wall_wm_planes,
+    cales_tpu/wallmodel.py:204-268: a lower z face interpolates with
+    dzc[k1], an upper one with dzc[k2]; the y faces with dy) and its rows'
+    fill.  bcs: the static BC values (bcu, bcv, bcw) by direction and
+    side, zeros by default; cbcvel: the effective letters
+    (config.effective_cbcvel by default)."""
+    if cbcvel is None:
+        cbcvel = effective_cbcvel(cfg)
+    if bcs is None:
+        bcs = (((0.0, 0.0),) * 3,) * 3
+    bcu, bcv, bcw = bcs
     h = cfg.hwm
-    zc, dzc = grid.zc, grid.dzc
-    k2 = index_wm[2][ib]
-    k1 = k2 - 1 if ib == 0 else k2 + 1
-    coef = ((h - zc[k1]) / dzc[k1] if ib == 0
-            else (h - (cfg.l[2] - zc[k1])) / dzc[k2])
-    return ZFace(ib=ib, mtype=int(cfg.lwm[ib][2]), r1=k1 - 1, r2=k2 - 1,
-                 coef=float(coef), sgn=1.0 if ib == 0 else -1.0,
-                 umag=float(umag), vmag=float(vmag))
+    nx, ny, nz = cfg.ng
+    i2 = index_wm[d][ib]
+    i1 = i2 - 1 if ib == 0 else i2 + 1
+    if d == 2:
+        zc, dzc = grid.zc, grid.dzc
+        coef = ((h - zc[i1]) / dzc[i1] if ib == 0
+                else (h - (cfg.l[2] - zc[i1])) / dzc[i2])
+        dy = (cfg.dl[1], cfg.dl[1])
+        fills = (_fill(cbcvel, bcu, 1, 0, dy, False),
+                 _fill(cbcvel, bcv, 1, 1, dy, True))
+        mags = (float(bcu[2][ib]), float(bcv[2][ib]))
+    elif d == 1:
+        dl = cfg.dl[1]
+        coef = ((h - (i1 - 0.5) * dl) / dl if ib == 0
+                else (h - (ny - i1 + 0.5) * dl) / dl)
+        par = (float(grid.dzc[0]), float(grid.dzc[nz]))
+        nrm = (float(grid.dzf[0]), float(grid.dzf[nz]))
+        fills = (_fill(cbcvel, bcu, 2, 0, par, False),
+                 _fill(cbcvel, bcw, 2, 2, nrm, True))
+        mags = (float(bcu[1][ib]), float(bcw[1][ib]))
+    else:
+        raise ValueError(f'wall_face: no wall model on x faces (d = {d})')
+    return WallFace(d=d, ib=ib, mtype=int(cfg.lwm[ib][d]), r1=i1 - 1,
+                    r2=i2 - 1, coef=float(coef),
+                    sgn=1.0 if ib == 0 else -1.0, mags=mags,
+                    l1d=float(cfg.l[d]), fills=fills)
+
+
+def wall_model(cfg, grid, index_wm, bcs=None, cbcvel=None,
+               dirs=(2, 1)) -> WallModel:
+    """The wall-modelled faces of cfg along dirs (z, then y by default;
+    cales_tpu Simulation._wm_bcs_fast's order); bcs, cbcvel as
+    wall_face takes them."""
+    faces = tuple(wall_face(cfg, grid, d, ib, index_wm, bcs, cbcvel)
+                  for d in dirs for ib in range(2) if cfg.lwm[ib][d] != 0)
+    wei = None
+    if any(f.d == 1 for f in faces):
+        wei = tuple(float(q) for q in (grid.zf - grid.zc) / grid.dzc)
+    return WallModel(faces=faces, h=float(cfg.hwm), visc=float(cfg.visc),
+                     wei=wei)
 
 
 def z_wall_model(cfg, grid, index_wm, bcu_z=(0.0, 0.0),
-                 bcv_z=(0.0, 0.0)) -> ZWallModel:
+                 bcv_z=(0.0, 0.0)) -> WallModel:
     """The wall-modelled z faces of cfg; bcu_z, bcv_z: the static scalar
     values of u and v on the two z faces."""
-    faces = tuple(z_face(cfg, grid, ib, index_wm, bcu_z[ib], bcv_z[ib])
-                  for ib in range(2) if cfg.lwm[ib][2] != 0)
-    return ZWallModel(faces=faces, h=float(cfg.hwm), l1d=float(cfg.l[2]),
-                      visc=float(cfg.visc))
+    zero = (0.0, 0.0)
+    bcs = ((zero, zero, tuple(bcu_z)), (zero, zero, tuple(bcv_z)),
+           (zero,) * 3)
+    return wall_model(cfg, grid, index_wm, bcs, dirs=(2,))
 
 
-def _face_rel(face, U1, U2, V1, V2, umag, vmag):
-    """The wall-relative (u, v) at hwm of one face from the padded (ny+2,
-    nx+2) rows U1, U2, V1, V2 and the planes umag, vmag
-    (wmodel.f90:222-272): at the bcu points [1:ny+1, 0:nx+1] and at the
-    bcv points [0:ny+1, 1:nx+1]."""
-    ny, nx = U1.shape[0] - 2, U1.shape[1] - 2
+def channel_z_faces(nz, coef=0.3, h=0.1, visc=1.0 / 125_000.0):
+    """A wall model of both z faces of an nz-row channel with periodic y,
+    log-law, rows 0, 1 and nz-1, nz-2, still walls (bench.py's
+    wmles_channel hwm and visci): the probes' inputs at any shape."""
+    fills = (('PP', (0.0, 0.0), (0.0, 0.0), False),
+             ('PP', (0.0, 0.0), (0.0, 0.0), True))
+    return WallModel(faces=tuple(
+        WallFace(d=2, ib=ib, mtype=WM_LOG, r1=r1, r2=r2, coef=coef,
+                 sgn=1.0 - 2.0 * ib, mags=(0.0, 0.0), l1d=2.0, fills=fills)
+        for ib, (r1, r2) in enumerate(((0, 1), (nz - 1, nz - 2)))),
+        h=h, visc=visc)
+
+
+def _face_rel(face, U1, U2, V1, V2, umag, vmag, wei=None):
+    """The wall-relative (u, v) at hwm of one face from the padded
+    (n+2, nx+2) rows U1, U2 of its first component and V1, V2 of its
+    second (v on a z face, w on a y face) and the planes umag, vmag
+    (wmodel.f90:171-272): at the first component's points [1:n+1, 0:nx+1]
+    and at the second's [0:n+1, 1:nx+1].  wei: on a y face the (n+1, 1)
+    weights and their 1 - wei, interpolating u to w's z faces."""
+    n, nx = U1.shape[0] - 2, U1.shape[1] - 2
     coef = face.coef
-    # bcu%z over (i=0..nx, j=1..ny)
-    u1 = U1[1:ny + 1, 0:nx + 1]
-    u2 = U2[1:ny + 1, 0:nx + 1]
-    v1 = 0.25 * (V1[1:ny + 1, 0:nx + 1] + V1[1:ny + 1, 1:nx + 2]
-                 + V1[0:ny, 0:nx + 1] + V1[0:ny, 1:nx + 2])
-    v2 = 0.25 * (V2[1:ny + 1, 0:nx + 1] + V2[1:ny + 1, 1:nx + 2]
-                 + V2[0:ny, 0:nx + 1] + V2[0:ny, 1:nx + 2])
-    um = umag[1:ny + 1, 0:nx + 1]
-    vm = 0.25 * (vmag[1:ny + 1, 0:nx + 1] + vmag[1:ny + 1, 1:nx + 2]
-                 + vmag[0:ny, 0:nx + 1] + vmag[0:ny, 1:nx + 2])
+    # bcu over (i=0..nx, j or k=1..n)
+    u1 = U1[1:n + 1, 0:nx + 1]
+    u2 = U2[1:n + 1, 0:nx + 1]
+    v1 = 0.25 * (V1[1:n + 1, 0:nx + 1] + V1[1:n + 1, 1:nx + 2]
+                 + V1[0:n, 0:nx + 1] + V1[0:n, 1:nx + 2])
+    v2 = 0.25 * (V2[1:n + 1, 0:nx + 1] + V2[1:n + 1, 1:nx + 2]
+                 + V2[0:n, 0:nx + 1] + V2[0:n, 1:nx + 2])
+    um = umag[1:n + 1, 0:nx + 1]
+    vm = 0.25 * (vmag[1:n + 1, 0:nx + 1] + vmag[1:n + 1, 1:nx + 2]
+                 + vmag[0:n, 0:nx + 1] + vmag[0:n, 1:nx + 2])
     at_u = (_rel(u1, u2, coef, um), _rel(v1, v2, coef, vm))
-    # bcv%z over (i=1..nx, j=0..ny)
-    u1 = 0.25 * (U1[0:ny + 1, 0:nx] + U1[0:ny + 1, 1:nx + 1]
-                 + U1[1:ny + 2, 0:nx] + U1[1:ny + 2, 1:nx + 1])
-    u2 = 0.25 * (U2[0:ny + 1, 0:nx] + U2[0:ny + 1, 1:nx + 1]
-                 + U2[1:ny + 2, 0:nx] + U2[1:ny + 2, 1:nx + 1])
-    v1 = V1[0:ny + 1, 1:nx + 1]
-    v2 = V2[0:ny + 1, 1:nx + 1]
-    um = 0.25 * (umag[0:ny + 1, 0:nx] + umag[0:ny + 1, 1:nx + 1]
-                 + umag[1:ny + 2, 0:nx] + umag[1:ny + 2, 1:nx + 1])
-    vm = vmag[0:ny + 1, 1:nx + 1]
-    return at_u, (_rel(u1, u2, coef, um), _rel(v1, v2, coef, vm))
+
+    # bcv (z face) or bcw (y face) over (i=1..nx, j or k=0..n)
+    def avg(q):
+        if wei is None:
+            return 0.25 * (q[0:n + 1, 0:nx] + q[0:n + 1, 1:nx + 1]
+                           + q[1:n + 2, 0:nx] + q[1:n + 2, 1:nx + 1])
+        w, omw = wei
+        return 0.5 * (omw * (q[0:n + 1, 0:nx] + q[0:n + 1, 1:nx + 1])
+                      + w * (q[1:n + 2, 0:nx] + q[1:n + 2, 1:nx + 1]))
+    v1 = V1[0:n + 1, 1:nx + 1]
+    v2 = V2[0:n + 1, 1:nx + 1]
+    vm = vmag[0:n + 1, 1:nx + 1]
+    return at_u, (_rel(avg(U1), avg(U2), coef, avg(umag)),
+                  _rel(v1, v2, coef, vm))
 
 
-def _face_planes(face, U1, U2, V1, V2, umag, vmag, bcu_z, bcv_z, h, l1d,
-                 visc):
-    """The updated (bcu_z, bcv_z) planes of one face from the padded
-    (ny+2, nx+2) rows U1, U2, V1, V2 and the planes umag, vmag
-    (wmodel.f90:222-272): bcu over [1:ny+1, 0:nx+1], bcv over
-    [0:ny+1, 1:nx+1], the rest kept from bcu_z, bcv_z."""
-    ny, nx = U1.shape[0] - 2, U1.shape[1] - 2
+def _face_planes(face, U1, U2, V1, V2, umag, vmag, bcu, bcv, h, visc,
+                 wei=None):
+    """The updated planes of one face's two components from the padded
+    (n+2, nx+2) rows and the planes umag, vmag (wmodel.f90:171-272):
+    the first over [1:n+1, 0:nx+1], the second over [0:n+1, 1:nx+1], the
+    rest kept from bcu, bcv."""
+    n, nx = U1.shape[0] - 2, U1.shape[1] - 2
     visci = 1.0 / visc
-    at_u, at_v = _face_rel(face, U1, U2, V1, V2, umag, vmag)
-    t1, _ = wallmodel_tauw(face.mtype, *at_u, h, l1d, visc)
-    bcu_z = bcu_z.clone()
-    bcu_z[1:ny + 1, 0:nx + 1] = face.sgn * visci * t1
-    _, t2 = wallmodel_tauw(face.mtype, *at_v, h, l1d, visc)
-    bcv_z = bcv_z.clone()
-    bcv_z[0:ny + 1, 1:nx + 1] = face.sgn * visci * t2
-    return bcu_z, bcv_z
+    at_u, at_v = _face_rel(face, U1, U2, V1, V2, umag, vmag, wei)
+    t1, _ = wallmodel_tauw(face.mtype, *at_u, h, face.l1d, visc)
+    bcu = bcu.clone()
+    bcu[1:n + 1, 0:nx + 1] = face.sgn * visci * t1
+    _, t2 = wallmodel_tauw(face.mtype, *at_v, h, face.l1d, visc)
+    bcv = bcv.clone()
+    bcv[0:n + 1, 1:nx + 1] = face.sgn * visci * t2
+    return bcu, bcv
 
 
 def z_wall_wm_planes(cfg, grid, U1, U2, V1, V2, umag, vmag, bcu_z, bcv_z,
@@ -240,74 +314,110 @@ def z_wall_wm_planes(cfg, grid, U1, U2, V1, V2, umag, vmag, bcu_z, bcv_z,
     """The z-wall branch of the wall-model BC update on explicit padded
     (ny+2, nx+2) velocity ROWS at (k1, k2) (cales_tpu/wallmodel.py:253-
     296).  Returns the updated (bcu_z, bcv_z) planes for face ib."""
-    return _face_planes(z_face(cfg, grid, ib, index_wm), U1, U2, V1, V2,
-                        umag, vmag, bcu_z, bcv_z, cfg.hwm, cfg.l[2],
-                        cfg.visc)
+    return _face_planes(wall_face(cfg, grid, 2, ib, index_wm), U1, U2, V1,
+                        V2, umag, vmag, bcu_z, bcv_z, cfg.hwm, cfg.visc)
 
 
-def _wrap_xy(q):
-    """Periodic x/y ghosts around one (ny, nx) row: its padded (ny+2,
-    nx+2) row (cales_tpu Simulation._row_pad_xy with periodic x and y)."""
-    q = torch.cat([q[-1:], q, q[:1]], dim=0)
-    return torch.cat([q[:, -1:], q, q[:, :1]], dim=1)
+def _wei(wei, n, like):
+    """A y face's (n+1, 1) weights wei[0:n+1] and their 1 - wei, in
+    like's dtype."""
+    w = np.asarray(wei[0:n + 1])[:, None]
+    t = lambda a: torch.as_tensor(a, dtype=like.dtype,  # noqa: E731
+                                  device=like.device)
+    return t(w), t(1 - w)
 
 
-def _face_rows(u, v, wm, fuv, pp, dtrk, dxi, dyi):
-    """Per face of wm: the face, its padded rows U1, U2, V1, V2 (sampled
-    as wm_planes_plain says) and its static planes umag, vmag."""
+def pad_row(q, fill):
+    """One sampled (n, nx) row padded to (n+2, nx+2): x periodic, then the
+    other transverse axis by fill = (letters, values, spacings,
+    staggered), as set_bc fills it (cales_tpu Simulation._row_pad_xy,
+    _row_pad_xz)."""
+    letters, vals, dr, stag = fill
+    s = torch.cat([q[:, -1:], q, q[:, :1]], dim=1)[:, None, :]
+    s = (bnd._set_face if stag else bnd._set_centered)(s, 0, letters, vals,
+                                                        dr)
+    return s[:, 0, :]
+
+
+def _face_rows(u, v, w, wm, fuv, pp, dtrk, dxi, dyi):
+    """Per face of wm: the face, its padded rows U1, U2 (of u) and V1, V2
+    (of v on a z face, w on a y face), sampled as wm_planes_plain says,
+    its static planes umag, vmag, and on a y face its weights."""
     ny, nx = u.shape[1:]
+    nz = u.shape[0]
 
-    def rows(r):
+    def rows(face, r):
+        if face.d == 1:
+            return u[:, r], w[:, r]
         uq, vq = u[r], v[r]
         if pp is not None:
             ppq = pp[r]
             uq = fuv[0] + uq - dtrk * dxi * (torch.roll(ppq, -1, 1) - ppq)
             vq = fuv[1] + vq - dtrk * dyi * (torch.roll(ppq, -1, 0) - ppq)
-        return _wrap_xy(uq), _wrap_xy(vq)
+        return uq, vq
 
     for face in wm.faces:
-        (U1, V1), (U2, V2) = rows(face.r1), rows(face.r2)
-        umag = torch.full((ny + 2, nx + 2), face.umag, dtype=u.dtype,
+        n = nz if face.d == 1 else ny
+        (U1, V1), (U2, V2) = ([pad_row(q, f) for q, f in
+                               zip(rows(face, r), face.fills)]
+                              for r in (face.r1, face.r2))
+        umag = torch.full((n + 2, nx + 2), face.mags[0], dtype=u.dtype,
                           device=u.device)
-        yield face, U1, U2, V1, V2, umag, torch.full_like(umag, face.vmag)
+        vmag = torch.full_like(umag, face.mags[1])
+        wei = _wei(wm.wei, n, u) if face.d == 1 else None
+        yield face, (U1, U2, V1, V2, umag, vmag), wei
 
 
-def wm_planes_plain(u, v, wm: ZWallModel, fuv=None, pp=None, dtrk=0.0,
-                    dxi=0.0, dyi=0.0):
-    """The wall-modelled faces' padded (ny+2, nx+2) bcu and bcv planes
-    from interior (nz, ny, nx) u and v, periodic along x and y, as one
-    (len(wm.faces), 2, ny+2, nx+2) tensor [face][bcu, bcv].  Each face
-    samples its rows r1 and r2 of u and v as they are (cales_tpu
-    timeloop.py:677-704 without fadd) or, with fuv = (fu, fv) and pp,
-    corrected: fu + u - dtrk dxi (pp(i+1) - pp(i)) and likewise v along
-    y, as the fused correction's rows (timeloop.py:1314-1342).
-    The planes off the wall model's ranges keep the face's static values."""
+def _check_mode(wm, w, fuv, pp):
     if (pp is None) != (fuv is None):
         raise ValueError('wm_planes: the corrected rows take fuv with pp')
+    if any(f.d == 1 for f in wm.faces) and w is None:
+        raise ValueError('wm_planes: a y face samples w')
+    if pp is not None and any(f.d != 2 or f.fills[0][0] != 'PP'
+                              for f in wm.faces):
+        raise ValueError('wm_planes: the corrected rows serve z faces with '
+                         'periodic y only (the fused correction)')
+
+
+def wm_planes_plain(u, v, wm: WallModel, fuv=None, pp=None, dtrk=0.0,
+                    dxi=0.0, dyi=0.0, w=None):
+    """The wall-modelled faces' padded planes from interior (nz, ny, nx)
+    u, v and (with y faces) w: a tuple with one (2, n+2, nx+2) tensor a
+    face of wm, [bcu, bcv] on a z face (n = ny), [bcu, bcw] on a y face
+    (n = nz).  Each face samples its rows r1 and r2 (of u and v at z rows,
+    of u and w at y rows), fills their ghosts along x periodically and
+    along the other transverse axis by the face's fills (cales_tpu
+    timeloop.py:637-728, without fadd), or on z faces with periodic y,
+    with fuv = (fu, fv) and pp, corrected: fu + u - dtrk dxi (pp(i+1) -
+    pp(i)) and likewise v along y, as the fused correction's rows
+    (timeloop.py:1314-1342).  The planes off the wall model's ranges keep
+    the face's static values."""
+    _check_mode(wm, w, fuv, pp)
     out = []
-    for face, U1, U2, V1, V2, umag, vmag in _face_rows(u, v, wm, fuv, pp,
-                                                       dtrk, dxi, dyi):
+    for face, (U1, U2, V1, V2, umag, vmag), wei in _face_rows(
+            u, v, w, wm, fuv, pp, dtrk, dxi, dyi):
         out.append(torch.stack(_face_planes(face, U1, U2, V1, V2, umag, vmag,
-                                            umag, vmag, wm.h, wm.l1d,
-                                            wm.visc)))
-    return torch.stack(out)
+                                            umag, vmag, wm.h, wm.visc,
+                                            wei)))
+    return tuple(out)
 
 
-def wm_newton_steps(u, v, wm: ZWallModel, fuv=None, pp=None, dtrk=0.0,
-                    dxi=0.0, dyi=0.0):
+def wm_newton_steps(u, v, wm: WallModel, fuv=None, pp=None, dtrk=0.0,
+                    dxi=0.0, dyi=0.0, w=None):
     """newton_steps at every point of wm_planes_plain's planes (same
-    arguments), as an int32 (len(wm.faces), 2, ny+2, nx+2) tensor: 0 off
-    the planes' ranges and on laminar faces."""
-    ny, nx = u.shape[1:]
-    out = torch.zeros((len(wm.faces), 2, ny + 2, nx + 2), dtype=torch.int32,
-                      device=u.device)
-    for n, (face, *rows) in enumerate(_face_rows(u, v, wm, fuv, pp, dtrk,
-                                                 dxi, dyi)):
-        if face.mtype != WM_LOG:
-            continue
-        (ur, vr), (uq, vq) = _face_rel(face, *rows)
-        out[n, 0, 1:ny + 1, 0:nx + 1] = newton_steps(
-            torch.sqrt(ur * ur + vr * vr), wm.h, wm.visc)
-        out[n, 1, 0:ny + 1, 1:nx + 1] = newton_steps(
-            torch.sqrt(uq * uq + vq * vq), wm.h, wm.visc)
-    return out
+    arguments), as int32 (2, n+2, nx+2) tensors, one a face: 0 off the
+    planes' ranges and on laminar faces."""
+    _check_mode(wm, w, fuv, pp)
+    out = []
+    for face, rows, wei in _face_rows(u, v, w, wm, fuv, pp, dtrk, dxi, dyi):
+        n, nx = rows[0].shape[0] - 2, rows[0].shape[1] - 2
+        steps = torch.zeros((2, n + 2, nx + 2), dtype=torch.int32,
+                            device=u.device)
+        if face.mtype == WM_LOG:
+            (ur, vr), (uq, vq) = _face_rel(face, *rows, wei)
+            steps[0, 1:n + 1, 0:nx + 1] = newton_steps(
+                torch.sqrt(ur * ur + vr * vr), wm.h, wm.visc)
+            steps[1, 0:n + 1, 1:nx + 1] = newton_steps(
+                torch.sqrt(uq * uq + vq * vq), wm.h, wm.visc)
+        out.append(steps)
+    return tuple(out)

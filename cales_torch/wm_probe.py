@@ -12,11 +12,13 @@ alone.  Each runs the wall model of both log-law z faces (bench.py's hwm
 and visci, interpolation rows 0/1 and nz-1/nz-2) on float32 rows of a
 bulk flow (1 + u, u random, 'bulk') and on rows whose |u_par| spans 1e-8
 to past Re_h = 1e6 point by point ('mixed'), corrected by pp ('corrected')
-and as they are ('rows').  Times: the device time of a CUDA graph of
---reps calls, the build as it is first and last.  Errors: each build's
-planes against the float32 and the float64 twin (wm_planes_plain on the
-same rows), the worst plane's max|err| / max|twin|.  Prints one JSON
-line.  Needs a CUDA device.
+and as they are ('rows'); and the four faces of the wall-modelled duct
+(examples/turbulent_duct_wmles's walls and hwm at --ng, its y faces
+sampling u and w along y) on a bulk flow as it is ('four faces rows').
+Times: the device time of a CUDA graph of --reps calls, the build as it
+is first and last.  Errors: each build's planes against the float32 and
+the float64 twin (wm_planes_plain on the same rows), the worst plane's
+max|err| / max|twin|.  Prints one JSON line.  Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -37,10 +39,10 @@ from .ops import kernels as K
 
 SOURCES = ('common.cuh', 'common.cu', 'wallmodel.cu')
 _SAMPLES = ("  // The samples of rows r1, r2 at this lane's column: its own "
-            "component at\n")
-_STORE = ('  if (mine_lane && i < px && j < py)\n'
-          '    out[(static_cast<int64_t>(blockIdx.z) * py + j) * px + i] = '
-          'f.umag;\n  return;\n')
+            "component\n")
+_STORE = ('  if (mine_lane && i < px && j < pn)\n'
+          '    out[f.off + (static_cast<int64_t>(comp) * pn + j) * px + i] = '
+          'f.mag[comp];\n  return;\n')
 _NEWTON = '    const T utau = wm_utau(upar, on, c);\n'
 _VOTE = '    if (__all_sync(0xffffffffu, done)) break;\n'
 _LOG = 'float wm_log(float x) { return __logf(x); }\n'
@@ -72,6 +74,20 @@ def _library(name, edits, root):
     return build.open_library(build.build(csrc=csrc, root=csrc.parent / 'b'))
 
 
+def _duct_wm(ng):
+    """The wall model of the duct WMLES example's four walls at ng."""
+    from .config import Config
+    from .grid import make_grid_from_config
+    bcs = dict(cbcvel=((('P', 'P', 'P'), ('D', 'D', 'D'),
+                        ('D', 'D', 'D')),) * 2,
+               cbcpre=(('P', 'N', 'N'),) * 2, cbcsgs=(('P', 'D', 'D'),) * 2)
+    cfg = Config(ng=ng, l=(12.8, 2.0, 2.0), gtype=1, gr=0.0,
+                 visci=20_000.0, sgstype='smag', lwm=((0, 1, 1), (0, 1, 1)),
+                 hwm=0.1, **bcs)
+    grid = make_grid_from_config(cfg)
+    return wmod.wall_model(cfg, grid, wmod.find_index_wm(cfg, grid))
+
+
 def _inputs(ng, rows):
     nx, ny, nz = ng
     gen = torch.Generator(device='cuda').manual_seed(20261017)
@@ -79,6 +95,8 @@ def _inputs(ng, rows):
     def rnd(scale=0.02):
         return scale * torch.randn((nz, ny, nx), generator=gen,
                                    device='cuda')
+    if rows == 'four faces':
+        return dict(u=1.0 + rnd(), v=rnd(), w=rnd(), wm=_duct_wm(ng))
 
     def spread(lo, hi):
         # magnitudes 10^[lo, hi) point by point, random signs
@@ -89,23 +107,20 @@ def _inputs(ng, rows):
         u, v = 1.0 + rnd(), rnd()
     else:
         u, v = spread(-8, 2.7), spread(-8, 2.7)
-    wm = wmod.ZWallModel(faces=(
-        wmod.ZFace(0, wmod.WM_LOG, 0, 1, 0.3, 1.0, 0.0, 0.0),
-        wmod.ZFace(1, wmod.WM_LOG, nz - 1, nz - 2, 0.3, -1.0, 0.0, 0.0)),
-        h=0.1, l1d=2.0, visc=1.0 / 125_000.0)
     fuv = torch.tensor([0.05, -0.02], device='cuda')
-    return dict(u=u, v=v, pp=rnd(), fuv=fuv, wm=wm)
+    return dict(u=u, v=v, w=None, pp=rnd(), fuv=fuv,
+                wm=wmod.channel_z_faces(nz))
 
 
 def _mode(d, mode):
-    return ({} if mode == 'rows' else
+    return (dict(w=d['w']) if mode == 'rows' else
             dict(fuv=d['fuv'], pp=d['pp'], dtrk=0.01, dxi=40.0, dyi=20.0))
 
 
 def _rel(got, ref):
     return max(float((g.double() - r.double()).abs().max()
                      / r.double().abs().max().clamp_min(1e-300))
-               for g, r in zip(got.flatten(0, 1), ref.flatten(0, 1)))
+               for gf, rf in zip(got, ref) for g, r in zip(gf, rf))
 
 
 def main(argv=None):
@@ -127,11 +142,13 @@ def main(argv=None):
         with tempfile.TemporaryDirectory() as tmpdir:
             libs = {name: _library(name, edits, Path(tmpdir))
                     for name, edits in BUILDS.items()}
-            for rows in ('bulk', 'mixed'):
+            for rows in ('bulk', 'mixed', 'four faces'):
                 d = _inputs(ng, rows)
                 d64 = {k: q.double() if torch.is_tensor(q) else q
                        for k, q in d.items()}
-                for mode in ('corrected', 'rows'):
+                modes = (('rows',) if rows == 'four faces'
+                         else ('corrected', 'rows'))
+                for mode in modes:
                     key = f'{rows} {mode}'
                     kw, kw64 = _mode(d, mode), _mode(d64, mode)
                     twin = wmod.wm_planes_plain(d['u'], d['v'], d['wm'], **kw)

@@ -8,8 +8,10 @@ and full-3D), the dynamic-Smagorinsky channel LES, the static-Smagorinsky
 LES with z-implicit diffusion, the dynamic-Smagorinsky duct and cavity, the
 two-pass dynamic Smagorinsky (the channel with transpiring walls, and the
 channel, duct and cavity by both routes), the triperiodic DNS (explicit
-and full-3D implicit) and the wall-modelled channel LES (the wall-model
-kernel, correc_smag's 'E' recipe; its example through the CLI too) through
+and full-3D implicit), the wall-modelled channel LES (the wall-model
+kernel, correc_smag's 'E' recipe; its example through the CLI too) and the
+wall-modelled duct LES (the wall model on four faces, smag's y-wall
+variant; its example at 512x80x80 through the CLI too) through
 driver.run at 512x256x256, the Taylor-Green
 vortex at 512^3 by both solve routes, compare the card with the CPU
 step for step, and run the channel LES on a y-slab mesh of two ranks that
@@ -90,6 +92,8 @@ VARIANT_ROWS = {
     'dsmag_level2 (y walls, duct)': ('dsmag_level2', 'duct'),
     'dsmag_level2 (y walls, cavity)': ('dsmag_level2', 'cavity'),
     "correc_smag ('E' recipe, wall model)": ('correc_smag', 'wm'),
+    "smag (y walls, 'E' stacks)": ('smag', 'duct_e'),
+    'wallmodel (four faces, y and z)': ('wallmodel', 'duct'),
 }
 # the kernels timed at the Taylor-Green vortex's 512^3 in phase 2b, each
 # reported as a kernel of its own: report name -> (kernel, variant)
@@ -182,6 +186,14 @@ MESH_STEPS = 5
 WM_LWM = ((0, 0, 1), (0, 0, 1))
 WMLES_CFG = dict(LES_CFG, visci=125_000.0, ptransform='mat', lwm=WM_LWM,
                  hwm=0.1, **CHAN_BCS)
+# examples/turbulent_duct_wmles/input.nml at the headline grid (phase 8w):
+# the log-law wall model on all four side walls at hwm 0.1, smag, 'mat'
+DUCT_WM_LWM = ((0, 1, 1), (0, 1, 1))
+DUCT_WMLES_CFG = dict(ng=HEADLINE_NG, l=(12.8, 2.0, 2.0), gtype=1, gr=0.0,
+                      visci=20_000.0, inivel='duc', is_wallturb=True,
+                      is_forced=(True, False, False), velf=(1.0, 0.0, 0.0),
+                      sgstype='smag', dtype='float32', ptransform='mat',
+                      lwm=DUCT_WM_LWM, hwm=0.1, **DUCT_BCS)
 # moving wall-parallel values on some y and z faces for the y-walled
 # kernel inputs: (face, dir, comp)
 MOVING = (((0.0,) * 3, (0.2, 0.0, -0.1), (0.0, 0.0, 0.0)),
@@ -341,6 +353,27 @@ def kernel_inputs(ng, dtype, dev, seed, big=False):
     wcfg = cfg.replace(lwm=WM_LWM, hwm=0.1, visci=125_000.0)
     d['wm'] = wmod.z_wall_model(wcfg, grid, wmod.find_index_wm(wcfg, grid))
     d['wm_u'] = d['u'] + 1.0
+    # the wall model on the four walls of the duct WMLES at this shape,
+    # moving wall values (the y faces sample u and w)
+    qcfg = Config(**{**DUCT_WMLES_CFG, 'ng': ng, 'bcvel': MOVING})
+    qgrid = make_grid_from_config(qcfg)
+    d['wm4'] = wmod.wall_model(qcfg, qgrid, wmod.find_index_wm(qcfg, qgrid),
+                               bcv, effective_cbcvel(qcfg))
+    # smag with y walls: the post-correction fill's y-row stacks, as they
+    # are and extrapolated on all four faces ('E'), the nearer y wall's
+    # distance profile and the y walls' shear planes
+    yc = (np.arange(ny) + 0.5) * dcfg.dl[1]
+    d['ywall'] = (t(np.minimum(yc, dcfg.l[1] - yc)),
+                  t((yc <= dcfg.l[1] - yc).astype(np.float64)),
+                  rnd(nz, nx).abs(), rnd(nz, nx).abs())
+    flags = {(ib, dd): dd > 0 for ib in range(2) for dd in range(3)}
+    fac = (dgrid.dzc[0] * dgrid.dzci[1], dgrid.dzc[nz] * dgrid.dzci[nz - 1])
+    ext = [sgsmod.extrapolate_stacks(q, e, y, iface, flags, fac)
+           for q, e, y, iface in zip((d['u'], d['v'], d['w']),
+                                     (d['ue'], d['ve'], d['we']),
+                                     d['y_mom'][:3], (1, 2, 3))]
+    d['e_edges'] = [e.contiguous() for e, _ in ext]
+    d['e_stacks'] = [(r.contiguous(), c.contiguous()) for _, (r, c) in ext]
     d['fac_ex'] = (float(grid.dzc[0] * grid.dzci[1]),
                    float(grid.dzc[nz] * grid.dzci[nz - 1]))
     return d
@@ -378,10 +411,17 @@ def call(name, d, twin=False, variant=None, has_ruo=True, zrec=None):
         return dict(zip(('u', 'v', 'w', 'ru', 'rv', 'rw', 'usum', 'vsum'),
                         out))
     if name == 'smag':
-        return {'visct': fn(d['u'], d['v'], d['w'], d['ue'], d['ve'],
-                            d['we'], d['dzci'], d['dzfi'], d['dxi'],
-                            d['dyi'], d['visc'], d['csd2'], d['dw'],
-                            d['nearlo'], d['tauw_lo'], d['tauw_hi'])}
+        # duct: y walls, the fill's stacks; duct_e: extrapolated ('E')
+        edges, ykw = (d['ue'], d['ve'], d['we']), {}
+        if variant == 'duct':
+            ykw = dict(ye=d['y_mom'][:3], ywall=d['ywall'])
+        elif variant == 'duct_e':
+            edges = d['e_edges']
+            ykw = dict(ye=d['e_stacks'], ywall=d['ywall'])
+        return {'visct': fn(d['u'], d['v'], d['w'], *edges, d['dzci'],
+                            d['dzfi'], d['dxi'], d['dyi'], d['visc'],
+                            d['csd2'], d['dw'], d['nearlo'], d['tauw_lo'],
+                            d['tauw_hi'], **ykw)}
     if name == 'dsmag':
         yw = variant in ('duct', 'cavity')
         s0, num, den = fn(d['u'], d['v'], d['w'], d['ue_c'], d['ve_c'],
@@ -452,9 +492,11 @@ def call(name, d, twin=False, variant=None, has_ruo=True, zrec=None):
                      bc_lo=d['bc_lo'], bc_hi=d['bc_hi'], n_solve=nz - 1)
         return {'out': out}
     if name == 'wallmodel':
-        out = fn(d['wm_u'], d['v'], d['wm'], **wm_kw(d, variant))
-        return {f'{c}_{side}': out[n, i] for n, side in enumerate(('lo', 'hi'))
-                for i, c in enumerate(('bcu', 'bcv'))}
+        wm = d['wm4'] if variant == 'duct' else d['wm']
+        out = fn(d['wm_u'], d['v'], wm, **wm_kw(d, variant))
+        return {f"{('bcu', 'bcv' if f.d == 2 else 'bcw')[i]}_{'xyz'[f.d]}"
+                f"{('lo', 'hi')[f.ib]}": q[i]
+                for f, q in zip(wm.faces, out) for i in range(2)}
     if name == 'thomas_periodic':
         if variant == 'poisson':    # the TGV's pressure z stage, pinned
             out = fn(d['u'], *d['abc_t'], lamy=d['lam_t'][0],
@@ -477,9 +519,12 @@ def call(name, d, twin=False, variant=None, has_ruo=True, zrec=None):
 def wm_kw(d, variant):
     """The wall model's mode on the inputs d: 'corrected' the fused
     correction's rows; 'rows' the fill's (the initial and check fills, and
-    sgstype 'none''s post-correction)."""
+    sgstype 'none''s post-correction); 'duct' the fill's rows of the duct's
+    four faces (w sampled on the y faces)."""
     if variant == 'rows':
         return {}
+    if variant == 'duct':
+        return dict(w=d['w'])
     return dict(fuv=d['fuv'], pp=d['pp'], dtrk=0.01, dxi=d['dxi'],
                 dyi=d['dyi'])
 
@@ -490,8 +535,9 @@ def wm_steps(d, variant):
     (wallmodel.wm_newton_steps; 0 off the planes' ranges)."""
     from cales_torch import wallmodel as wmod
     d64 = {k: d[k].double() if torch.is_tensor(d[k]) else d[k]
-           for k in ('wm_u', 'v', 'pp', 'fuv', 'dxi', 'dyi')}
-    return wmod.wm_newton_steps(d64['wm_u'], d64['v'], d['wm'],
+           for k in ('wm_u', 'v', 'w', 'pp', 'fuv', 'dxi', 'dyi')}
+    return wmod.wm_newton_steps(d64['wm_u'], d64['v'],
+                                d['wm4'] if variant == 'duct' else d['wm'],
                                 **wm_kw(d64, variant))
 
 
@@ -565,12 +611,13 @@ VARIANTS = {
     'fillps': (None, 'duct'), 'correc_smag': (None, 'wm'),
     'correc_updatep': ('impdiff_1d', 'explicit', 'duct', 'impdiff'),
     'apply_y': ('x_and_y', 'y_only'), 'z_eig': (None,),
-    'thomas_z': ('helmholtz', 'poisson', 'helmholtz3d'), 'smag': (None,),
+    'thomas_z': ('helmholtz', 'poisson', 'helmholtz3d'),
+    'smag': (None, 'duct_e', 'duct'),
     'dsmag': (None, 'duct', 'cavity'),
     'thomas_periodic': ('poisson', 'helmholtz'),
     'dsmag_level1': (None, 'duct'), 'dsmag_level2': (None, 'duct', 'cavity'),
     'apply_x': ('slab', 'split', 'chunked'),
-    'wallmodel': ('corrected', 'rows'),
+    'wallmodel': ('corrected', 'rows', 'duct'),
 }
 # the report rows of the other variants, by (kernel, variant)
 VARIANT_ROW_OF = {kv: row for row, kv in VARIANT_ROWS.items()}
@@ -579,15 +626,16 @@ RELATIVE = ('apply_y', 'z_eig', 'thomas_z', 'dsmag', 'thomas_periodic',
             'dsmag_level1', 'dsmag_level2', 'apply_x', 'wallmodel')
 # the wall model's planes in float64: within this of their maximum (the
 # Newton iteration converges the same way on both; logs and divisions
-# round apart)
+# round apart); so smag's y-wall variant
 WM_TOL64 = 1e-13
+REL64 = (('smag', 'duct'), ('smag', 'duct_e'))
 # the kernels whose float32 error is held against their float64 twin in
 # phase 2b; for the GEMM kernels (3xTF32) and the reordered Thomas solves
 # (chunks and cyclic reduction) it must stay within 4x the error of their
 # float32 twin (the library matmul, the sweep) against the same float64
 # twin
 F64_TWIN = ('dsmag_level1', 'dsmag_level2', 'apply_y', 'apply_x', 'z_eig',
-            'thomas_periodic', 'thomas_z', 'wallmodel')
+            'thomas_periodic', 'thomas_z', 'wallmodel', 'smag')
 FOUR_X = ('apply_y', 'apply_x', 'z_eig', 'thomas_periodic', 'thomas_z')
 # their float32 error against their float32 twin is then held to what the
 # 4x rule leaves (their own and the twin's against the float64 twin), not
@@ -635,12 +683,14 @@ GRAPH_TIMED = ('wallmodel',)
 
 def ystacks(name, d, variant):
     """The y-row stacks a y-walled variant reads, as tensors."""
-    if variant not in ('duct', 'cavity'):
+    if variant not in ('duct', 'cavity', 'duct_e'):
         return []
     pairs = {'mom_rk': d['y_mom'], 'fillps': [d['y_pred'][1]],
              'correc_updatep': [d['y_pp'], (d['y_pred'][1][0],)],
              'dsmag': d['y_mom'][:3], 'dsmag_level1': d['y_mom'][:3],
-             'dsmag_level2': d['y_pred']}[name]
+             'dsmag_level2': d['y_pred'],
+             # the stacks, the y walls' profiles and shear planes
+             'smag': [*d['y_mom'][:3], d['ywall']]}[name]
     return [q for pair in pairs for q in pair]
 
 
@@ -651,17 +701,20 @@ def work(name, d, variant=None):
     kernels at 2 n^2 per line)."""
     nz, ny, nx = (d['slab'] if name == 'apply_x' else d['u']).shape
     if name == 'wallmodel':
-        # two rows of u and v a face (and of pp, corrected), the face's two
-        # padded planes
-        nf = len(d['wm'].faces)
-        nin = 2 * nf * (3 if variant == 'corrected' else 2)
-        pts = nf * (ny + 2) * (nx + 2)
-        nbytes = (nin * ny * nx + 2 * pts) * d['u'].element_size()
-        solves = nf * (ny * (nx + 1) + (ny + 1) * nx)
+        # two rows of its two components a face (and of pp, corrected), a
+        # z face's (ny, nx), a y face's (nz, nx), and the face's two padded
+        # planes
+        wm = d['wm4'] if variant == 'duct' else d['wm']
+        rows = [(nz if f.d == 1 else ny) for f in wm.faces]
+        nin = 2 * (3 if variant == 'corrected' else 2)
+        nbytes = sum(nin * n * nx + 2 * (n + 2) * (nx + 2)
+                     for n in rows) * d['u'].element_size()
+        solves = sum(n * (nx + 1) + (n + 1) * nx for n in rows)
         flops = (solves * WM_SOLVE_OPS
-                 + int(wm_steps(d, variant).sum()) * WM_STEP_OPS)
+                 + sum(int(q.sum()) for q in wm_steps(d, variant))
+                 * WM_STEP_OPS)
         if variant == 'corrected':
-            flops += nf * ny * nx * WM_CORRECT_OPS
+            flops += len(rows) * ny * nx * WM_CORRECT_OPS
         return nbytes, flops
     cells = nx * ny * nz
     nin, nout, per_cell = WORK_VARIANT.get((name, variant), WORK[name])
@@ -714,10 +767,11 @@ def phase_kernels(dev, card):
         d = kernel_inputs(small, dtype, dev, SEED)
         say(f'phase 2: kernels vs twins, (nx, ny, nz) = {small}, {dtype}')
         for name, variants in VARIANTS.items():
-            ta = None if name in RELATIVE else tol_abs
-            tr = (WM_TOL64 if name == 'wallmodel' and dtype == torch.float64
-                  else tol_rel)
             for variant in variants:
+                rel64 = (name == 'wallmodel' or (name, variant) in REL64)
+                ta = None if name in RELATIVE or rel64 else tol_abs
+                tr = (WM_TOL64 if rel64 and dtype == torch.float64
+                      else tol_rel)
                 rounds = (False, True) if name == 'mom_rk' else (True,)
                 for has_ruo in rounds:
                     compare(name, d, ta, tr, variant=variant,
@@ -774,7 +828,7 @@ def _time_row(rows, row, name, d, variant, card, cache):
                     f'above 4x the float32 twin\'s {lib_rel:.3e}')
     worst = compare(name, d, tol_rel=(5.0 * lib_rel if name in REORDERED
                                       else 1e-5), variant=variant)
-    if name == 'wallmodel':
+    if name == 'wallmodel' or (name, variant) in REL64:
         # the float64 kernel against its twin, and the float32 kernel
         # against the float64 twin, on these inputs
         compare(name, cache['d64'], tol_rel=WM_TOL64, variant=variant)
@@ -815,11 +869,13 @@ def wm_step_counts(d, variant, tag, card):
     and most, and the mean of what the kernel's warps run (31 points of a
     plane's row from i = 0, each its lanes' most; warps with a point in
     range), from the float64 twin's iteration."""
-    steps = wm_steps(d, variant)
-    px = steps.shape[-1]
-    lanes = torch.nn.functional.pad(steps, (0, -px % 31))
-    warps = lanes.reshape(*lanes.shape[:-1], -1, 31).amax(-1)
+    per_face = wm_steps(d, variant)
+    px = per_face[0].shape[-1]
+    lanes = [torch.nn.functional.pad(q, (0, -px % 31)) for q in per_face]
+    warps = torch.cat([q.reshape(*q.shape[:-1], -1, 31).amax(-1).flatten()
+                       for q in lanes])
     warps = warps[warps > 0].double()
+    steps = torch.cat([q.flatten() for q in per_face])
     solved = steps[steps > 0].double()
     out = dict(newton_steps_mean=float(solved.mean()),
                newton_steps_max=int(solved.max()),
@@ -1024,10 +1080,10 @@ def phase_wmles(dev, card):
     require('wallmodel' in path and "'E' z-ghost recipe" in path,
             f'phase 4w: the path does not name the wall model: {path}')
     st = keep.pop('state')
-    planes = K.wm_planes(st.u, st.v, sim.wm_z)
+    planes = torch.stack(K.wm_planes(st.u, st.v, sim.wm))
     require(bool(torch.isfinite(planes).all()),
             'phase 4w: non-finite wall-model planes')
-    lo = [n for n, f in enumerate(sim.wm_z.faces) if f.ib == 0][0]
+    lo = [n for n, f in enumerate(sim.wm.faces) if f.ib == 0][0]
     bcu_lo = float(planes[lo, 0, 1:-1, 1:-1].double().mean())
     u_lo = float(st.u[0].double().mean())
     say(f'  lower face: mean bcu {bcu_lo:.5e} (tau_w/visc), mean u of the '
@@ -1037,6 +1093,49 @@ def phase_wmles(dev, card):
             'the sign of the mean u next to it')
     res.update(bcu_lo_mean=bcu_lo, u_first_row_mean=u_lo)
     print(json.dumps({'wmles': res}), flush=True)
+    return launches, nsteps
+
+
+def phase_wmles_duct(dev, card):
+    """The wall-modelled duct (examples/turbulent_duct_wmles's physics) at
+    512x256x256 f32 through driver.run: the wall-model kernel on its four
+    faces once a substep (the post-correction fill, whose y-row stacks
+    serve the next substep's mom_rk) and once more for the initial fill
+    and at each check, smag's y-wall variant on its 'E' stacks; then the
+    wall model's planes of the final state: finite, and on each face the
+    wall shear along the flow next to it (sgn bcu of the sign of the mean
+    u of the face's first row)."""
+    from cales_torch.config import Config
+    from cales_torch.ops import kernels as K
+    cfg = Config(**DUCT_WMLES_CFG)
+    nsteps = 11
+    per_step = dict(mom_rk=3, fillps=3, correc_updatep=3, smag=3, apply_y=6,
+                    z_eig=3, wallmodel=3)
+    keep = {}
+    sim, launches, res = drive(
+        'phase 8w: wall-modelled duct LES', cfg, dev, card, nsteps,
+        per_step, keep=keep,
+        outside={'wallmodel': 2 + nsteps // cfg.icheck})
+    path = sim.exec_path()
+    require(all(k in path for k in ('wallmodel', 'lower y', 'upper z',
+                                    'y-wall variant', "'E' ghost stacks")),
+            f'phase 8w: the path does not name the wall model: {path}')
+    st = keep.pop('state')
+    planes = K.wm_planes(st.u, st.v, sim.wm, w=st.w)
+    require(all(bool(torch.isfinite(q).all()) for q in planes),
+            'phase 8w: non-finite wall-model planes')
+    next_u = {(2, 0): st.u[0], (2, 1): st.u[-1], (1, 0): st.u[:, 0],
+              (1, 1): st.u[:, -1]}
+    for f, q in zip(sim.wm.faces, planes):
+        bcu = float(q[0, 1:-1, 1:-1].double().mean())
+        un = float(next_u[(f.d, f.ib)].double().mean())
+        side = f"{('lower', 'upper')[f.ib]} {'xyz'[f.d]}"
+        say(f'  {side} face: mean bcu {bcu:.5e} (sgn tau_w/visc), mean u of '
+            f'the first row {un:.5f}')
+        require(f.sgn * bcu * un > 0, f'phase 8w: the {side} face\'s bcu '
+                'is not along the flow next to it')
+        res[f'bcu_mean_{side.replace(" ", "_")}'] = bcu
+    print(json.dumps({'wmles_duct': res}), flush=True)
     return launches, nsteps
 
 
@@ -1388,6 +1487,12 @@ def phase_card_vs_cpu(dev):
     _card_vs_cpu('phase 6w (WMLES)', Config(**{**WMLES_CFG, **small}), dev,
                  (('u', 1e-11), ('v', 1e-11), ('w', 1e-11), ('p', 1e-10),
                   ('visct', 1e-12)))
+    # the wall-modelled duct: the wall model on four faces, smag's y-wall
+    # variant on its 'E' stacks
+    _card_vs_cpu('phase 6x (duct WMLES)',
+                 Config(**{**DUCT_WMLES_CFG, **small}), dev,
+                 (('u', 1e-11), ('v', 1e-11), ('w', 1e-11), ('p', 1e-10),
+                  ('visct', 1e-10), ('vlo', 1e-11)), rel=('visct',))
     # nu_t relative to its maximum: the dynamic model's plane ratio sums
     # the rows in another order on the card
     for tag, cfg in (('phase 6c (dsmag channel)', DSMAG_CFG),
@@ -1830,8 +1935,13 @@ def main():
     phase_cli(card, tag='phase 3d', example='turbulent_channel_wmles',
               steps=10, kernels=('mom_rk', 'fillps', 'correc_smag',
                                  'wallmodel', "'E' z-ghost recipe"))
+    phase_cli(card, tag='phase 3e', example='turbulent_duct_wmles',
+              steps=10, kernels=('mom_rk', 'fillps', 'correc_updatep',
+                                 'smag', 'wallmodel', 'y-wall variant',
+                                 'lower y'))
     les = phase_les(dev, card)
     wmles, wm_steps = phase_wmles(dev, card)
+    wmduct, wmduct_steps = phase_wmles_duct(dev, card)
     phase_dns(dev, card)
     dsm, les_imp, res_dsm = phase_dsmag(dev, card)
     duct, cavity, res_duct, res_cav = phase_ywalls(dev, card)
@@ -1876,6 +1986,11 @@ def main():
             paths[row] = (two[variant], 5, name)
         elif variant == 'wm':
             paths[row] = (wmles, wm_steps, name)
+        elif name in ('smag', 'wallmodel'):
+            # smag's y-wall variant and the four-face wall model on the
+            # wall-modelled duct (phase 8w; the wall model's launches
+            # there include the initial fill's and the checks')
+            paths[row] = (wmduct, wmduct_steps, name)
         else:
             paths[row] = (variant_path.get(variant, tri3), 5, name)
     sources = {**{n: KERNELS[n] for n in KERNELS},

@@ -555,12 +555,20 @@ def test_card_matches_cpu_twopass_step_for_step(dev, case, monkeypatch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('case', ['duct_none', 'duct_dsmag', 'cavity_dsmag'])
+@pytest.mark.parametrize('case', ['duct_none', 'duct_dsmag', 'cavity_dsmag',
+                                  'duct_smag', 'duct_wmles'])
 def test_card_matches_cpu_ywalled_step_for_step(dev, case):
-    """The duct (bench.py's duct_les_dsmag, and with sgstype 'none') and
-    the cavity (cavity_les_dsmag) at (32, 16, 16), f64, 3 steps: card
+    """The duct (bench.py's duct_les_dsmag, and with sgstype 'none' and
+    'smag'), the cavity (cavity_les_dsmag) and the duct WMLES
+    (examples/turbulent_duct_wmles) at (32, 16, 16), f64, 3 steps: card
     against CPU, the kept v and w wall planes included."""
-    if case.startswith('duct'):
+    if case in ('duct_smag', 'duct_wmles'):
+        kw = {k: q for k, q in DUCT_WMLES.items()
+              if k not in ('ng', 'dtype', 'ptransform', 'gtype', 'cbcvel',
+                           'cbcpre', 'cbcsgs')}
+        if case == 'duct_smag':
+            kw['lwm'] = ((0, 0, 0), (0, 0, 0))
+    elif case.startswith('duct'):
         kw = dict(l=(4 * np.pi, 2.0, 2.0), gr=1.0, visci=10_000.0,
                   inivel='duc', is_wallturb=True,
                   is_forced=(True, False, False), velf=(1.0, 0.0, 0.0),
@@ -581,11 +589,12 @@ def test_card_matches_cpu_ywalled_step_for_step(dev, case):
     K.reset_launches()
     for _ in range(3):
         states = [s.step(st, dt)[0] for s, st in zip(sims, states)]
+    smag = case in ('duct_smag', 'duct_wmles')
     assert K.LAUNCHES == {'mom_rk': 9, 'fillps': 9, 'correc_smag': 0,
-                          'correc_updatep': 9, 'smag': 0,
-                          'dsmag': 0 if case == 'duct_none' else 9,
+                          'correc_updatep': 9, 'smag': 9 if smag else 0,
+                          'dsmag': 0 if case == 'duct_none' or smag else 9,
                           'dsmag_level1': 0, 'dsmag_level2': 0,
-                          'wallmodel': 0}
+                          'wallmodel': 9 if case == 'duct_wmles' else 0}
     g, c = states
     for name, tol in (('u', 1e-11), ('v', 1e-11), ('w', 1e-11), ('p', 1e-10)):
         a, b = getattr(g, name).cpu(), getattr(c, name)
@@ -1402,12 +1411,137 @@ def test_cuda_wallmodel_matches_twin(dev, dtype, shape, lwm, rows):
                     dyi=cfg.dli[1])):
         got = K.wm_planes(u, v, wm, **kw)
         ref = wmod.wm_planes_plain(u, v, wm, **kw)
-        assert got.shape == ref.shape == (len(wm.faces), 2, ny + 2, nx + 2)
-        for g, r in zip(got.flatten(0, 1), ref.flatten(0, 1)):
-            _rel_close(g, r, 1e-13 if dt == torch.float64 else 1e-5)
+        assert len(got) == len(ref) == len(wm.faces)
+        for gf, rf in zip(got, ref):
+            assert gf.shape == rf.shape == (2, ny + 2, nx + 2)
+            for g, r in zip(gf, rf):
+                _rel_close(g, r, 1e-13 if dt == torch.float64 else 1e-5)
     torch.cuda.synchronize()
     assert K.LAUNCHES['wallmodel'] == 2
     assert sum(K.LAUNCHES.values()) == 2
+
+
+# the duct WMLES (examples/turbulent_duct_wmles) at a test size: the
+# log-law wall model on all four side walls, static Smagorinsky
+DUCT_WMLES = dict(ng=(32, 16, 16), l=(12.8, 2.0, 2.0), gtype=1, gr=0.0,
+                  visci=20_000.0, inivel='duc', is_wallturb=True,
+                  is_forced=(True, False, False), velf=(1.0, 0.0, 0.0),
+                  dtype='float64', ptransform='mat', sgstype='smag',
+                  lwm=((0, 1, 1), (0, 1, 1)), hwm=0.1, **DUCT_BCS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('rows', ['bulk', 'mixed'])
+@pytest.mark.parametrize('lwm', [((0, 1, 1), (0, 1, 1)),
+                                 ((0, -1, 1), (0, 1, 0))])
+@pytest.mark.parametrize('dtype, shape', [
+    ('float64', (40, 25, 12)), ('float64', (33, 17, 20)),
+    ('float32', (40, 25, 12)), ('float32', (33, 17, 20))])
+def test_cuda_wallmodel_y_faces_match_twin(dev, dtype, shape, lwm, rows):
+    """The wall-model kernel with y faces (the duct WMLES: up to four
+    faces in one launch, the y faces' rows of u and w filled along z by
+    the static recipes, the z faces' rows along y by theirs, not
+    wrapped) against wallmodel.wm_planes_plain, moving wall values on
+    every face, on (nx, ny, nz) shapes with ny != nz that no block fits:
+    float64 within 1e-13 of each plane's maximum, float32 within 1e-5.
+    Rows 'bulk' a bulk flow; 'mixed' |u_par| from 1e-8 to past Re_h =
+    1e6 point by point."""
+    from cales_torch import wallmodel as wmod
+    from cales_torch.config import effective_cbcvel
+    from cales_torch.ops import boundary as bnd
+    nx, ny, nz = shape
+    dt = getattr(torch, dtype)
+    bcvel = (((0.0,) * 3, (0.03, 0.0, -0.02), (0.01, 0.02, 0.0)),
+             ((0.0,) * 3, (-0.01, 0.0, 0.04), (0.05, -0.03, 0.0)))
+    cfg = Config(**dict(DUCT_WMLES, l=(2 * np.pi, 2.0, 2.0), gr=1.0,
+                        ng=shape, lwm=lwm, bcvel=bcvel))
+    grid = make_grid_from_config(cfg)
+    bcs = [bnd.make_bc_values(cfg.ng, tuple(
+        tuple(bcvel[ib][d][iv] for ib in range(2)) for d in range(3)), dt)
+        for iv in range(3)]
+    wm = wmod.wall_model(cfg, grid, wmod.find_index_wm(cfg, grid), bcs,
+                         effective_cbcvel(cfg))
+    assert {f.d for f in wm.faces} == {1, 2}
+    rng = np.random.default_rng(23)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, dtype=np.float64),
+                               device=dev).to(dt)
+
+    def field(lo, hi):
+        return t(rng.choice((-1.0, 1.0), (nz, ny, nx))
+                 * 10.0 ** rng.uniform(lo, hi, (nz, ny, nx)))
+    if rows == 'bulk':
+        u, v, w = (t(0.3 * rng.standard_normal((nz, ny, nx)))
+                   for _ in range(3))
+        u = u + 1.0
+    else:
+        u, v, w = field(-8, 2.7), field(-8, 2.7), field(-8, 2.7)
+    K.reset_launches()
+    got = K.wm_planes(u, v, wm, w=w)
+    ref = wmod.wm_planes_plain(u, v, wm, w=w)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES['wallmodel'] == 1
+    assert len(got) == len(ref) == len(wm.faces)
+    for face, gf, rf in zip(wm.faces, got, ref):
+        n = nz if face.d == 1 else ny
+        assert gf.shape == rf.shape == (2, n + 2, nx + 2)
+        for g, r in zip(gf, rf):
+            _rel_close(g, r, 1e-13 if dt == torch.float64 else 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('wm', ['none', 'E'])
+@pytest.mark.parametrize('dtype, shape', [
+    ('float64', (40, 25, 17)), ('float64', (33, 9, 40)),
+    ('float32', (40, 25, 17)), ('float32', (33, 17, 40))])
+def test_cuda_smag_ywalls_matches_twin(dev, dtype, shape, wm):
+    """smag's y-wall variant (the y-row stacks read as a plane is loaded,
+    van Driest over the nearest of four walls) against the twin on ragged
+    tiles and z chunks, the post-correction fill's stacks as they are
+    ('none') or extrapolated on all four faces ('E', sgs.extrapolate_
+    stacks): float64 within 1e-12, float32 within 1e-5 of nu_t's
+    maximum."""
+    from cales_torch import sgs as sgsmod
+    nx, ny, nz = shape
+    dt = getattr(torch, dtype)
+    d = _ywall_inputs(dev, shape, 31)
+    u, v, w = d['fields']
+    zq, yq = d['zc'], d['yc']
+    if wm == 'E':
+        flags = {(ib, dd): dd > 0 for ib in range(2) for dd in range(3)}
+        grid = d['grid']
+        fac = (grid.dzc[0] * grid.dzci[1], grid.dzc[nz] * grid.dzci[nz - 1])
+        ext = [sgsmod.extrapolate_stacks(q, e, y, iface, flags, fac)
+               for q, e, y, iface in zip((u, v, w), zq, yq, (1, 2, 3))]
+        zq, yq = [e for e, _ in ext], [y for _, y in ext]
+    rng = np.random.default_rng(5)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, dtype=np.float64),
+                               device=dev).to(dt).contiguous()
+    zc = d['grid'].zc[1:nz + 1]
+    yc = (np.arange(ny) + 0.5) * d['cfg'].dl[1]
+    c = lambda q: q.to(dt).contiguous()   # noqa: E731
+    args = (*(c(q) for q in (u, v, w)), *(c(q) for q in zq), c(d['dzci']),
+            c(d['dzfi']), d['dxi'], d['dyi'], 1e-4,
+            t(np.full(nz, 2e-4)), t(np.minimum(zc, 2.0 - zc)),
+            t((zc <= 1.0).astype(float)),
+            *(t(np.abs(rng.standard_normal((ny, nx)))) for _ in range(2)))
+    kw = dict(ye=[(c(r), c(q)) for r, q in yq],
+              ywall=(t(np.minimum(yc, 2.0 - yc)),
+                     t((yc <= 1.0).astype(float)),
+                     *(t(np.abs(rng.standard_normal((nz, nx))))
+                       for _ in range(2))))
+    K.reset_launches()
+    got = K.smag(*args, **kw)
+    ref = K.smag_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES['smag'] == 1
+    if dt == torch.float64:
+        torch.testing.assert_close(got, ref, rtol=0, atol=1e-12)
+    else:
+        _rel_close(got, ref, 1e-5)
 
 
 @pytest.mark.cuda

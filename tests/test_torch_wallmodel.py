@@ -298,9 +298,10 @@ def test_wm_planes_plain_matches_jax(faces):
                       dict(fuv=fuv, pp=T['pp'], dtrk=dtrk,
                            dxi=tcfg.dli[0], dyi=tcfg.dli[1]))}
     for mode, (ref, kw_) in cases.items():
-        got = K.wm_planes(T['u'], T['v'], tsim.wm_z, **kw_)
-        assert got.shape == (len(tsim.wm_z.faces), 2, ny + 2, nx + 2)
-        for n, face in enumerate(tsim.wm_z.faces):
+        got = K.wm_planes(T['u'], T['v'], tsim.wm, **kw_)
+        assert len(got) == len(tsim.wm.faces)
+        assert all(q.shape == (2, ny + 2, nx + 2) for q in got)
+        for n, face in enumerate(tsim.wm.faces):
             if mode == 'corrected':
                 r = ref[face.ib]
             else:
@@ -309,7 +310,7 @@ def test_wm_planes_plain_matches_jax(faces):
                 rc = np.asarray(r[c])
                 scale = np.abs(rc).max()
                 assert scale > 0
-                np.testing.assert_allclose(got[n, c].numpy(), rc, rtol=0,
+                np.testing.assert_allclose(got[n][c].numpy(), rc, rtol=0,
                                            atol=1e-13 * scale,
                                            err_msg=f'{mode} face {face.ib}')
 
@@ -414,12 +415,16 @@ def test_prediction_fill_uv_ghosts_are_not_read():
 
 
 def test_example_namelists_of_the_wall_model():
-    """turbulent_channel_wmles is in the slice; turbulent_duct_wmles (a
-    wall model on the y faces, static Smagorinsky with y walls) is not."""
+    """turbulent_channel_wmles and turbulent_duct_wmles (a wall model on
+    the y faces, static Smagorinsky with y walls) are in the slice; the
+    duct with dynamic Smagorinsky or implicit diffusion is not."""
     ex = ROOT / 'examples'
     cfg = config_from_nml(ex / 'turbulent_channel_wmles' / 'input.nml')
     assert unsupported(cfg) == []
-    duct = unsupported(config_from_nml(
-        ex / 'turbulent_duct_wmles' / 'input.nml'))
-    assert any('wall model on y faces' in m for m in duct)
-    assert any('smag with y walls' in m for m in duct)
+    duct = config_from_nml(ex / 'turbulent_duct_wmles' / 'input.nml')
+    assert unsupported(duct) == []
+    assert unsupported(duct.replace(lwm=((0, 0, 0), (0, 0, 0)))) == []
+    assert any('wall model with dynamic Smagorinsky' in m for m in
+               unsupported(duct.replace(sgstype='dsmag')))
+    assert any('smag with y walls' in m for m in unsupported(
+        duct.replace(impdiff=True, impdiff_1d=True)))

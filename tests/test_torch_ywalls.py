@@ -521,7 +521,8 @@ def test_duct_state_carried_across_from_jax():
     (dict(cbcvel=((('D', 'D', 'D'), ('D', 'D', 'D'), ('D', 'D', 'D')),) * 2,
           cbcpre=(('N', 'N', 'N'),) * 2, cbcsgs=(('D', 'D', 'D'),) * 2,
           is_forced=(False, False, False)), 'non-periodic x'),
-    (dict(sgstype='smag'), 'smag with y walls'),
+    (dict(sgstype='smag', impdiff=True, impdiff_1d=True),
+     'smag with y walls'),
     (dict(lwm=((0, 1, 0), (0, 1, 0)), hwm=0.1), 'wall model'),
     (dict(impdiff=True, impdiff_1d=True), 'impdiff with y walls'),
     (dict(ptransform='fft'), 'mixed FFT and matrix route'),
