@@ -8,12 +8,13 @@
 // z ghosts come from (3, ny, nx) edge stacks (ops/boundary.zedge_*):
 // padded z row -1 is edge[0], row nz-1 is edge[1] (the wall-face rewrite
 // slot of the z-staggered w), row nz is edge[2].  The interior's last row
-// is never read.  x is periodic and wraps here; so is y, unless the
-// y-walled accessor (at<true>, the duct and cavity classes) takes the y
-// rows -1, ny-1 and ny from the field's y-row stack (ops/boundary.yedge_*)
-// in the same way, or the halo accessor (aty<Y_HALO>, a y slab of a
-// mesh) takes the rows -1 and ny from the neighbours' rows
-// (parallel/mesh.halo_y).
+// is never read.  x is periodic and wraps here, unless the x-walled
+// variants take the columns -1, nx-1 and nx from the field's x stack
+// (xcol below, ops/boundary.xedge_*); so is y, unless the y-walled
+// accessor (at<true>, the duct and cavity classes) takes the y rows -1,
+// ny-1 and ny from the field's y-row stack (ops/boundary.yedge_*) in the
+// same way, or the halo accessor (aty<Y_HALO>, a y slab of a mesh) takes
+// the rows -1 and ny from the neighbours' rows (parallel/mesh.halo_y).
 #pragma once
 
 #include <cstdint>
@@ -160,6 +161,26 @@ __device__ __forceinline__ T aty(const T* f, const T* e, const YRows<T>& y,
       return __ldg(hrow(y, c.k + dk, jy < 0 ? 0 : 1, c.nz, c.nx) + c.ii(di));
   }
   return at(f, e, c, dk, dj, di);
+}
+
+// The x-wall ghost columns of one field (XW, the x-walled classes): a
+// YRows whose rows are the columns (nz, 3, nyc) = [padded x 0, padded x
+// nx, padded x nx+1] (padded x nx is u's set_bc rewrite slot, the
+// interior's last column for the others) and whose corners (3, 3, nyc) are
+// their z-edge stack (ops/boundary.xedge_*).  Along y the columns wrap
+// (nyc = ny) with periodic y; with y walls (YL == Y_WALLS) they carry
+// their y ghosts and the y rewrite slot (nyc = ny + 2, row jy at jy + 1),
+// the (y ghost, x ghost) corners of the sequential x -> y -> z fill.
+// Column r (0, 1, 2) at padded z kz (-1 .. nz) and row jy (-1 .. ny).
+template <int YL, typename T>
+__device__ __forceinline__ const T* xcol(const YRows<T>& x, int kz, int r,
+                                         int jy, int nz, int ny) {
+  const int nyc = YL == Y_WALLS ? ny + 2 : ny;
+  const int jj = YL == Y_WALLS ? jy + 1
+                 : jy < 0       ? jy + ny
+                 : jy >= ny     ? jy - ny
+                                : jy;
+  return yrow(x, kz, r, nz, nyc) + jj;
 }
 
 // An asynchronous copy of one value from global to shared memory

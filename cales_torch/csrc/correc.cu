@@ -18,6 +18,12 @@
 // there, as in the reference's padded sweep (pallas_kernels.py:1557-1563).
 // The halo variant (a slab of a y-sharded mesh, cales_tpu _correc_sharded)
 // reads pp's rows -1 and ny from its halo; v's last row is the slab's own.
+// The x-walled variant (XW, with periodic y or y walls) reads pp's x ghost
+// columns from its x stack and u's wall face (interior column nx-1) from
+// u's prediction-fill x stack, the set_bc rewrite, where the TPU kernel
+// reads its xe bundle and the patched copy of u (cales_tpu
+// timeloop.py:823-830): the reads of the first and last column's cells,
+// patched in place.
 //
 // Bound on the H100: memory.  About 8 field streams per call (read u, v,
 // w, pp, p; write u, v, w, p): 1.07 GB at 512x256x256 f32, a 0.32 ms
@@ -31,7 +37,7 @@ namespace cales {
 // reaches with its 32 registers (its edge-row path would take 46).  The
 // others take 0, no minimum, as a bare __launch_bounds__(CALES_THREADS): a
 // minimum of 1 makes ptxas spend registers (the f32 plain variant 32 -> 47).
-template <typename T, int YM>
+template <typename T, int YM, bool XW>
 __global__ void __launch_bounds__(CALES_THREADS,
                                   YM == Y_HALO && sizeof(T) == 4 ? 8 : 0)
     correc_kernel(
@@ -41,7 +47,8 @@ __global__ void __launch_bounds__(CALES_THREADS,
     const T* __restrict__ dzci, const T* __restrict__ dzfi,
     const T* __restrict__ fuv, T* __restrict__ uo, T* __restrict__ vo,
     T* __restrict__ wo, T* __restrict__ po, YRows<T> ypp,
-    const T* __restrict__ yvr, int nz, int ny, int nx, int impdiff,
+    const T* __restrict__ yvr, YRows<T> xpp, YRows<T> xu, int nz, int ny,
+    int nx, int impdiff,
     int impdiff_1d, T dtrk, T cx, T cy, T dxi, T dyi, T alpha) {
   const int k = blockIdx.y;
   const int64_t idx =
@@ -57,13 +64,27 @@ __global__ void __launch_bounds__(CALES_THREADS,
   auto update = [&](auto ytag) {
     constexpr int Y = decltype(ytag)::value;
 #define PP(dk, dj, di) aty<Y>(pp, ppe, ypp, c, dk, dj, di)
+    // pp at x offset di = +-1 in this cell's row; with x walls columns
+    // -1 and nx from pp's x stack
+    auto ppx = [&](int di) {
+      if (XW) {
+        const int ix = c.i + di;
+        if (ix < 0 || ix >= nx)
+          return __ldg(xcol<YM>(xpp, k, ix < 0 ? 0 : 2, c.j, nz, ny));
+      }
+      return PP(0, 0, di);
+    };
     const T ppc = PP(0, 0, 0);
     const T ppk = PP(1, 0, 0);
+    const T ppi = ppx(1);
     const T dzci_c = dzci[k + 1];
     const T vin = (Y == Y_WALLS && c.j == ny - 1)
                       ? yvr[(static_cast<int64_t>(k) * 3 + 1) * nx + c.i]
                       : v[o];
-    uo[o] = fu + u[o] - cx * (PP(0, 0, 1) - ppc);
+    // u's wall face at x walls: the prediction fill's rewrite column
+    const T uin =
+        (XW && c.i == nx - 1) ? __ldg(xcol<YM>(xu, k, 1, c.j, nz, ny)) : u[o];
+    uo[o] = fu + uin - cx * (ppi - ppc);
     vo[o] = fv + vin - cy * (PP(0, 1, 0) - ppc);
     wo[o] = at(w, we, c, 0, 0, 0) - dtrk * dzci_c * (ppk - ppc);
     T pn = p[o] + ppc;
@@ -72,7 +93,7 @@ __global__ void __launch_bounds__(CALES_THREADS,
       T lap = ((ppk - ppc) * dzci_c - (ppc - PP(-1, 0, 0)) * dzci[k]) *
               dzfi[k + 1];
       if (!impdiff_1d) {
-        lap = lap + (PP(0, 0, 1) - T(2) * ppc + PP(0, 0, -1)) * dxi * dxi +
+        lap = lap + (ppi - T(2) * ppc + ppx(-1)) * dxi * dxi +
               (PP(0, 1, 0) - T(2) * ppc + PP(0, -1, 0)) * dyi * dyi;
       }
       pn = pn + alpha * lap;
@@ -93,27 +114,35 @@ __global__ void __launch_bounds__(CALES_THREADS,
 
 // yppr, yppc: pp's y-row stack and corners; yvr: v's y-row stack (its
 // row 1 is the wall face); all three null with periodic y.  halo: yppr,
-// yppc are pp's halo rows and corners on a slab, and yvr is null.
+// yppc are pp's halo rows and corners on a slab, and yvr is null.  xppr,
+// xppc, xur, xuc: pp's x stack and corners and u's prediction-fill ones
+// (x walls; nyc = ny + 2 with y walls), all four null with periodic x.
 template <typename T>
 int launch_correc(const T* u, const T* v, const T* w, const T* pp,
                   const T* p, const T* we, const T* ppe, const T* dzci,
                   const T* dzfi, const T* fuv, T* uo, T* vo, T* wo, T* po,
-                  const T* yppr, const T* yppc, const T* yvr, int nz, int ny,
-                  int nx, int halo, int impdiff, int impdiff_1d, double dtrk,
-                  double dxi, double dyi, double alpha, void* stream) {
+                  const T* yppr, const T* yppc, const T* yvr,
+                  const T* xppr, const T* xppc, const T* xur,
+                  const T* xuc, int nz, int ny, int nx, int halo,
+                  int impdiff, int impdiff_1d, double dtrk, double dxi,
+                  double dyi, double alpha, void* stream) {
   const bool ys = yppr != nullptr;
+  const bool xw = xppr != nullptr;
   if (ys != (yppc != nullptr) || (halo && !ys) ||
-      (yvr != nullptr) != (ys && !halo))
+      (yvr != nullptr) != (ys && !halo) || xw != (xppc != nullptr) ||
+      xw != (xur != nullptr) || xw != (xuc != nullptr) || (xw && halo))
     return static_cast<int>(cudaErrorInvalidValue);
-  const YRows<T> ypp{yppr, yppc};
-  auto kern = !ys    ? &correc_kernel<T, Y_PERIODIC>
-              : halo ? &correc_kernel<T, Y_HALO>
-                     : &correc_kernel<T, Y_WALLS>;
+  const YRows<T> ypp{yppr, yppc}, xpp{xppr, xppc}, xu{xur, xuc};
+  auto kern = !ys    ? (xw ? &correc_kernel<T, Y_PERIODIC, true>
+                           : &correc_kernel<T, Y_PERIODIC, false>)
+              : halo ? &correc_kernel<T, Y_HALO, false>
+              : xw   ? &correc_kernel<T, Y_WALLS, true>
+                     : &correc_kernel<T, Y_WALLS, false>;
   kern<<<plane_grid(nz, ny, nx), CALES_THREADS, 0,
          static_cast<cudaStream_t>(stream)>>>(
-      u, v, w, pp, p, we, ppe, dzci, dzfi, fuv, uo, vo, wo, po, ypp, yvr, nz,
-      ny, nx, impdiff, impdiff_1d, T(dtrk), T(dtrk * dxi), T(dtrk * dyi),
-      T(dxi), T(dyi), T(alpha));
+      u, v, w, pp, p, we, ppe, dzci, dzfi, fuv, uo, vo, wo, po, ypp, yvr,
+      xpp, xu, nz, ny, nx, impdiff, impdiff_1d, T(dtrk), T(dtrk * dxi),
+      T(dtrk * dyi), T(dxi), T(dyi), T(alpha));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -124,13 +153,15 @@ int launch_correc(const T* u, const T* v, const T* w, const T* pp,
                       const T* p, const T* we, const T* ppe, const T* dzci,  \
                       const T* dzfi, const T* fuv, T* uo, T* vo, T* wo,      \
                       T* po, const T* yppr, const T* yppc, const T* yvr,     \
-                      int nz, int ny, int nx, int halo, int impdiff,         \
-                      int impdiff_1d, double dtrk, double dxi, double dyi,   \
-                      double alpha, void* stream) {                          \
+                      const T* xppr, const T* xppc, const T* xur,            \
+                      const T* xuc, int nz, int ny, int nx, int halo,        \
+                      int impdiff, int impdiff_1d, double dtrk, double dxi,  \
+                      double dyi, double alpha, void* stream) {              \
     return cales::launch_correc<T>(u, v, w, pp, p, we, ppe, dzci, dzfi, fuv, \
-                                   uo, vo, wo, po, yppr, yppc, yvr, nz, ny,  \
-                                   nx, halo, impdiff, impdiff_1d, dtrk, dxi, \
-                                   dyi, alpha, stream);                      \
+                                   uo, vo, wo, po, yppr, yppc, yvr, xppr,    \
+                                   xppc, xur, xuc, nz, ny, nx, halo,         \
+                                   impdiff, impdiff_1d, dtrk, dxi, dyi,      \
+                                   alpha, stream);                           \
   }
 
 CALES_CORREC_ENTRY(cales_correc_f32, float)

@@ -9,7 +9,13 @@
 // y-row stack (pallas_kernels.py:1144-1155: v is the one field read at
 // j-1); u and w are read at their own row only.  The halo variant (a slab
 // of a y-sharded mesh, cales_tpu _fillps_sharded) reads v's row -1 from
-// its halo (common.cuh aty<Y_HALO>).
+// its halo (common.cuh aty<Y_HALO>).  The x-walled variant (XW, the
+// developing channel, the closed box, the lid-driven cavity and the
+// developing duct; with periodic y or y walls) reads u's lower x face and
+// its rewrite column (padded x nx) from u's x stack (common.cuh atxy), as
+// the TPU kernel takes them from its xe bundle and the patched copy of u
+// (cales_tpu timeloop.py:2574-2586): two reads of the cells of the first
+// and last column, patched in place.
 //
 // Bound on the H100: memory.  About 5 field streams per call (read u, v,
 // w at their backward neighbours; write the RHS): 0.67 GB at 512x256x256
@@ -20,19 +26,26 @@
 
 namespace cales {
 
-template <typename T, int YM>
+template <typename T, int YM, bool XW>
 __global__ void __launch_bounds__(CALES_THREADS) fillps_kernel(
     const T* __restrict__ u, const T* __restrict__ v, const T* __restrict__ w,
     const T* __restrict__ ue, const T* __restrict__ ve,
     const T* __restrict__ we, const T* __restrict__ dzfi,
-    T* __restrict__ rhs, YRows<T> yv, int nz, int ny, int nx, T dti, T cy,
-    T cx) {
+    T* __restrict__ rhs, YRows<T> yv, YRows<T> xu, int nz, int ny, int nx,
+    T dti, T cy, T cx) {
   const int k = blockIdx.y;
   const int64_t idx =
       static_cast<int64_t>(blockIdx.x) * CALES_THREADS + threadIdx.x;
   const int64_t plane = static_cast<int64_t>(ny) * nx;
   if (idx >= plane) return;
   const Cell c(k, idx, nz, ny, nx);
+  // u at the cell and the one below in x; with x walls u's rewrite
+  // column nx-1 and lower face x = -1 from its x stack
+  T uc = at(u, ue, c, 0, 0, 0), um = at(u, ue, c, 0, 0, -1);
+  if (XW) {
+    if (c.i == nx - 1) uc = __ldg(xcol<YM>(xu, k, 1, c.j, nz, ny));
+    if (c.i == 0) um = __ldg(xcol<YM>(xu, k, 0, c.j, nz, ny));
+  }
   // Y: the y mode of v's reads, YM where the cell's row reads a y-wall or
   // halo row of v (common.cuh y_edge_of)
   auto div = [&](auto ytag) {
@@ -42,7 +55,7 @@ __global__ void __launch_bounds__(CALES_THREADS) fillps_kernel(
            (aty<Y>(v, ve, yv, c, 0, 0, 0) -
             aty<Y>(v, ve, yv, c, 0, -1, 0)) *
                cy +
-           (at(u, ue, c, 0, 0, 0) - at(u, ue, c, 0, 0, -1)) * cx;
+           (uc - um) * cx;
   };
   T r;
   using Plain = std::integral_constant<int, Y_PERIODIC>;
@@ -56,23 +69,29 @@ __global__ void __launch_bounds__(CALES_THREADS) fillps_kernel(
 }
 
 // yvr, yvc: v's y-row stack and corners, both null with periodic y; with
-// halo set, v's halo rows and corners on a slab
+// halo set, v's halo rows and corners on a slab.  xur, xuc: u's x stack
+// and corners (x walls; nyc = ny + 2 with y walls), both null with
+// periodic x
 template <typename T>
 int launch_fillps(const T* u, const T* v, const T* w, const T* ue,
                   const T* ve, const T* we, const T* dzfi, T* rhs,
-                  const T* yvr, const T* yvc, int nz, int ny, int nx,
-                  int halo, double dti, double dxi, double dyi,
-                  void* stream) {
-  if ((yvr == nullptr) != (yvc == nullptr) || (halo && yvr == nullptr))
+                  const T* yvr, const T* yvc, const T* xur, const T* xuc,
+                  int nz, int ny, int nx, int halo, double dti, double dxi,
+                  double dyi, void* stream) {
+  const bool xw = xur != nullptr;
+  if ((yvr == nullptr) != (yvc == nullptr) || (halo && yvr == nullptr) ||
+      xw != (xuc != nullptr) || (xw && halo))
     return static_cast<int>(cudaErrorInvalidValue);
-  const YRows<T> yv{yvr, yvc};
-  auto kern = yvr == nullptr ? &fillps_kernel<T, Y_PERIODIC>
-              : halo         ? &fillps_kernel<T, Y_HALO>
-                             : &fillps_kernel<T, Y_WALLS>;
+  const YRows<T> yv{yvr, yvc}, xu{xur, xuc};
+  auto kern = yvr == nullptr ? (xw ? &fillps_kernel<T, Y_PERIODIC, true>
+                                   : &fillps_kernel<T, Y_PERIODIC, false>)
+              : halo         ? &fillps_kernel<T, Y_HALO, false>
+              : xw           ? &fillps_kernel<T, Y_WALLS, true>
+                             : &fillps_kernel<T, Y_WALLS, false>;
   kern<<<plane_grid(nz, ny, nx), CALES_THREADS, 0,
          static_cast<cudaStream_t>(stream)>>>(
-      u, v, w, ue, ve, we, dzfi, rhs, yv, nz, ny, nx, T(dti), T(dti * dyi),
-      T(dti * dxi));
+      u, v, w, ue, ve, we, dzfi, rhs, yv, xu, nz, ny, nx, T(dti),
+      T(dti * dyi), T(dti * dxi));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -81,11 +100,12 @@ int launch_fillps(const T* u, const T* v, const T* w, const T* ue,
 #define CALES_FILLPS_ENTRY(NAME, T)                                          \
   extern "C" int NAME(const T* u, const T* v, const T* w, const T* ue,       \
                       const T* ve, const T* we, const T* dzfi, T* rhs,       \
-                      const T* yvr, const T* yvc, int nz, int ny, int nx,    \
-                      int halo, double dti, double dxi, double dyi,          \
-                      void* stream) {                                        \
+                      const T* yvr, const T* yvc, const T* xur,              \
+                      const T* xuc, int nz, int ny, int nx, int halo,        \
+                      double dti, double dxi, double dyi, void* stream) {    \
     return cales::launch_fillps<T>(u, v, w, ue, ve, we, dzfi, rhs, yvr, yvc, \
-                                   nz, ny, nx, halo, dti, dxi, dyi, stream); \
+                                   xur, xuc, nz, ny, nx, halo, dti, dxi,     \
+                                   dyi, stream);                             \
   }
 
 CALES_FILLPS_ENTRY(cales_fillps_f32, float)

@@ -20,7 +20,17 @@
 //          the xy and z diffusion, pallas_kernels.py:641-649); the kernel
 //          emits the Crank-Nicolson RHS u + 1/2 f12 rud directly, while the
 //          forcing sums measure the full prediction u + f12 rud
-//          (pallas_kernels.py:671-684).
+//          (pallas_kernels.py:671-684);
+//   XW     x walls (the developing channel, the closed box, the lid-driven
+//          cavity and the developing duct; sgstype 'none', explicit
+//          diffusion, with YM periodic or y walls): the tile's halo
+//          columns -1 and nx of u, v, w and p come from their x stacks
+//          (common.cuh xcol; with y walls the stacks carry the (y ghost,
+//          x ghost) corners), as the TPU kernel's xe bundle fixes them
+//          (cales_tpu timeloop.py:1883-1924).  Only the first and last
+//          tile column of blocks have such cells, and a cell's source is
+//          found once, so the loads of every other block are those of
+//          the periodic variant.
 // The formulas are cales_torch/ops/stencil.momentum_rhs_core term by term
 // (reference mom.f90:17-309, rk.f90:77-94).
 //
@@ -73,7 +83,8 @@ namespace cales {
     T* __restrict__ uo, T* __restrict__ vo, T* __restrict__ wo,               \
     T* __restrict__ ruo_new, T* __restrict__ rvo_new, T* __restrict__ rwo_new,\
     T* __restrict__ usum, T* __restrict__ vsum, YRows<T> yu, YRows<T> yv,     \
-    YRows<T> yw, YRows<T> ys, YRows<T> yp, int nz, int ny, int nx, T f1,      \
+    YRows<T> yw, YRows<T> ys, YRows<T> yp, YRows<T> xu, YRows<T> xv,          \
+    YRows<T> xw, YRows<T> xs, YRows<T> xp, int nz, int ny, int nx, T f1,      \
     T f2, T visc, T dxi, T dyi, T bfx, T bfy, T bfz
 // The explicit RHS r and the implicit part rd of one component from its
 // advection (+ eddy stress) adv and molecular diffusion dxy, dz.
@@ -128,7 +139,7 @@ __device__ __forceinline__ const T* ystack(const YRows<T>& y, int kz,
   return YM == Y_WALLS ? yrow(y, kz, 0, nz, nx) : hrow(y, kz, 0, nz, nx);
 }
 
-template <typename T, bool SGS, int SPLIT, int YM>
+template <typename T, bool SGS, int SPLIT, int YM, bool XW>
 __global__ void __launch_bounds__(MrGeo<MomTy<T>::TY>::NT)
     mom_rk_kernel(CALES_MOM_RK_PARAMS) {
   constexpr int TY = MomTy<T>::TY;
@@ -149,13 +160,24 @@ __global__ void __launch_bounds__(MrGeo<MomTy<T>::TY>::NT)
 
   // this thread's cells of the halo tile (e = tid + i NT): the offset of
   // each in its plane of the field (>= 0), or ~ its offset in the plane's
-  // y-row stack or halo (< 0); x and y wrapped
+  // y-row stack or halo (< 0), or with x walls in its x stack (ox[i]); x
+  // and y wrapped
   constexpr int NC = (CPL + NT - 1) / NT;
+  constexpr int NYC_PAD = YM == Y_WALLS ? 2 : 0;
   int oc[NC];
+  bool ox[NC];
 #pragma unroll
   for (int i = 0; i < NC; ++i) {
     const int e = tid + i * NT, ly = e / MR_CX, lx = e - ly * MR_CX;
-    const int gy = y0 - 1 + ly, wx = wrap_near(x0 - 1 + lx, nx);
+    const int gy = y0 - 1 + ly, gx = x0 - 1 + lx, wx = wrap_near(gx, nx);
+    ox[i] = XW && (gx == -1 || gx == nx);
+    if (XW && ox[i]) {
+      // column 0 (x = -1) or 2 (x = nx); rows past ny (a ragged last
+      // tile's, never read) take row ny's
+      const int jj = YM == Y_WALLS ? min(gy, ny) + 1 : wrap_near(gy, ny);
+      oc[i] = ~((gx < 0 ? 0 : 2) * (ny + NYC_PAD) + jj);
+      continue;
+    }
     int r = -1;                      // the stack row, or the field's
     if (YM == Y_WALLS)
       r = gy < 0 ? 0 : gy == ny - 1 ? 1 : gy == ny ? 2 : -1;
@@ -179,6 +201,16 @@ __global__ void __launch_bounds__(MrGeo<MomTy<T>::TY>::NT)
         yb[3] = ystack<YM>(yp, kz, nz, nx);
         if (SGS) yb[4] = ystack<YM>(ys, kz, nz, nx);
       }
+      // the x stacks' column 0 of plane kz
+      const T* xb[5] = {nullptr, nullptr, nullptr, nullptr, nullptr};
+      if (XW) {
+        const int nyc = ny + NYC_PAD;
+        xb[0] = yrow(xu, kz, 0, nz, nyc);
+        xb[1] = yrow(xv, kz, 0, nz, nyc);
+        xb[2] = yrow(xw, kz, 0, nz, nyc);
+        xb[3] = yrow(xp, kz, 0, nz, nyc);
+        if (SGS) xb[4] = yrow(xs, kz, 0, nz, nyc);
+      }
       T* const dst = ring(kz);
 #pragma unroll
       for (int i = 0; i < NC; ++i) {
@@ -187,7 +219,8 @@ __global__ void __launch_bounds__(MrGeo<MomTy<T>::TY>::NT)
         const int o = oc[i];
 #pragma unroll
         for (int f = 0; f < NF; ++f)
-          cp_async(dst + f * CPL + e, o >= 0 ? fb[f] + o : yb[f] + ~o);
+          cp_async(dst + f * CPL + e,
+                   o >= 0 ? fb[f] + o : (XW && ox[i] ? xb[f] : yb[f]) + ~o);
       }
     }
     cp_async_commit();
@@ -455,20 +488,23 @@ using MomKernel = void (*)(const T*, const T*, const T*, const T*, const T*,
                            const T*, const T*, const T*, const T*, const T*,
                            const T*, const T*, const T*, const T*, const T*,
                            T*, T*, T*, T*, T*, T*, T*, T*, YRows<T>, YRows<T>,
+                           YRows<T>, YRows<T>, YRows<T>, YRows<T>, YRows<T>,
                            YRows<T>, YRows<T>, YRows<T>, int, int, int, T, T,
                            T, T, T, T, T, T);
 
 template <typename T, bool SGS, int SPLIT>
 MomKernel<T> pick_mom_rk(int ym) {
-  return ym == Y_HALO    ? &mom_rk_kernel<T, SGS, SPLIT, Y_HALO>
-         : ym == Y_WALLS ? &mom_rk_kernel<T, SGS, SPLIT, Y_WALLS>
-                         : &mom_rk_kernel<T, SGS, SPLIT, Y_PERIODIC>;
+  return ym == Y_HALO    ? &mom_rk_kernel<T, SGS, SPLIT, Y_HALO, false>
+         : ym == Y_WALLS ? &mom_rk_kernel<T, SGS, SPLIT, Y_WALLS, false>
+                         : &mom_rk_kernel<T, SGS, SPLIT, Y_PERIODIC, false>;
 }
 
 // y: the y-row stacks and corners of u, v, w, visct, p, in that order (10
 // pointers, all null with periodic y; visct's null without visct); with
 // halo set they are the slab's halos (rows (nz, 2, nx), corners
-// (3, 2, nx)) instead.
+// (3, 2, nx)) instead; then the x stacks and corners of the same five
+// fields (10 pointers, all null with periodic x; x walls run without
+// visct, split or halo, so its two are null).
 template <typename T>
 int launch_mom_rk(const T* u, const T* v, const T* w, const T* s, const T* p,
                   const T* ue, const T* ve, const T* we, const T* se,
@@ -480,24 +516,29 @@ int launch_mom_rk(const T* u, const T* v, const T* w, const T* s, const T* p,
                   double bfy, double bfz, void* stream) {
   const bool sgs = s != nullptr;
   const bool yw = y[0] != nullptr;
+  const bool xw = y[10] != nullptr;
   if (sgs != (se != nullptr)) return static_cast<int>(cudaErrorInvalidValue);
-  for (int m = 0; m < 10; ++m) {
-    const bool want = yw && (sgs || m / 2 != 3);
+  for (int m = 0; m < 20; ++m) {
+    const bool want = (m < 10 ? yw : xw) && (sgs || m % 10 / 2 != 3);
     if (want != (y[m] != nullptr))
       return static_cast<int>(cudaErrorInvalidValue);
   }
   const YRows<T> yu{y[0], y[1]}, yv{y[2], y[3]}, yw_{y[4], y[5]},
-      ys{y[6], y[7]}, yp{y[8], y[9]};
-  if (split < 0 || split > 2 || (halo && !yw))
+      ys{y[6], y[7]}, yp{y[8], y[9]}, xu{y[10], y[11]}, xv{y[12], y[13]},
+      xw_{y[14], y[15]}, xs{y[16], y[17]}, xp{y[18], y[19]};
+  if (split < 0 || split > 2 || (halo && !yw) ||
+      (xw && (sgs || split != 0 || halo)))
     return static_cast<int>(cudaErrorInvalidValue);
   const int ym = !yw ? Y_PERIODIC : halo ? Y_HALO : Y_WALLS;
   const MomKernel<T> kern =
-      sgs ? (split == 2   ? pick_mom_rk<T, true, 2>(ym)
-             : split == 1 ? pick_mom_rk<T, true, 1>(ym)
-                          : pick_mom_rk<T, true, 0>(ym))
-          : (split == 2   ? pick_mom_rk<T, false, 2>(ym)
-             : split == 1 ? pick_mom_rk<T, false, 1>(ym)
-                          : pick_mom_rk<T, false, 0>(ym));
+      xw ? (yw ? &mom_rk_kernel<T, false, 0, Y_WALLS, true>
+               : &mom_rk_kernel<T, false, 0, Y_PERIODIC, true>)
+      : sgs ? (split == 2   ? pick_mom_rk<T, true, 2>(ym)
+               : split == 1 ? pick_mom_rk<T, true, 1>(ym)
+                            : pick_mom_rk<T, true, 0>(ym))
+            : (split == 2   ? pick_mom_rk<T, false, 2>(ym)
+               : split == 1 ? pick_mom_rk<T, false, 1>(ym)
+                            : pick_mom_rk<T, false, 0>(ym));
   constexpr int TY = MomTy<T>::TY;
   const size_t smem = sgs ? mr_smem<T, 5>() : mr_smem<T, 4>();
   const cudaError_t err = cudaFuncSetAttribute(
@@ -507,7 +548,8 @@ int launch_mom_rk(const T* u, const T* v, const T* w, const T* s, const T* p,
   kern<<<mr_blocks(ny, nx, TY), MrGeo<TY>::NT, smem,
          static_cast<cudaStream_t>(stream)>>>(
       u, v, w, s, p, ue, ve, we, se, pe, ruo, rvo, rwo, dzci, dzfi, uo, vo,
-      wo, ru, rv, rw, usum, vsum, yu, yv, yw_, ys, yp, nz, ny, nx, T(f1),
+      wo, ru, rv, rw, usum, vsum, yu, yv, yw_, ys, yp, xu, xv, xw_, xs, xp,
+      nz, ny, nx, T(f1),
       T(f2), T(visc), T(dxi), T(dyi), T(bfx), T(bfy), T(bfz));
   return static_cast<int>(cudaGetLastError());
 }
@@ -522,11 +564,14 @@ int launch_mom_rk(const T* u, const T* v, const T* w, const T* s, const T* p,
       const T* dzfi, T* uo, T* vo, T* wo, T* ru, T* rv, T* rw, T* usum,       \
       T* vsum, const T* yur, const T* yuc, const T* yvr, const T* yvc,        \
       const T* ywr, const T* ywc, const T* ysr, const T* ysc,                 \
-      const T* ypr, const T* ypc, int nz, int ny, int nx, int split,          \
+      const T* ypr, const T* ypc, const T* xur, const T* xuc, const T* xvr,   \
+      const T* xvc, const T* xwr, const T* xwc, const T* xsr, const T* xsc,   \
+      const T* xpr, const T* xpc, int nz, int ny, int nx, int split,          \
       int halo, double f1, double f2, double visc, double dxi, double dyi,    \
       double bfx, double bfy, double bfz, void* stream) {                     \
-    const T* const y[10] = {yur, yuc, yvr, yvc, ywr, ywc, ysr, ysc, ypr,      \
-                            ypc};                                             \
+    const T* const y[20] = {yur, yuc, yvr, yvc, ywr, ywc, ysr, ysc, ypr,      \
+                            ypc, xur, xuc, xvr, xvc, xwr, xwc, xsr, xsc,      \
+                            xpr, xpc};                                        \
     return cales::launch_mom_rk<T>(u, v, w, s, p, ue, ve, we, se, pe, ruo,    \
                                    rvo, rwo, dzci, dzfi, uo, vo, wo, ru, rv,  \
                                    rw, usum, vsum, y, nz, ny, nx, split,      \

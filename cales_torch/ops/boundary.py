@@ -22,11 +22,21 @@ package's stacks hold the same rows in the order [0, ny+1, ny], packed
 into 16-row bundles for the TPU's DMA alignment; the port keeps one stack
 per field.
 
+With x walls each field has an x stack in the same way (xedge_velocity,
+xedge_scalar): columns (nz, 3, nyc) [padded x 0, padded x nx, padded x
+nx+1], padded x nx being u's set_bc rewrite slot, and their corners
+(3, 3, nyc); with y walls the columns carry their y ghosts (nyc = ny + 2),
+the (y ghost, x ghost) corners of the sequential fill.  Each is built by
+three gathers and fused multiply-adds of a recipe made once per field and
+fill (scalar BC values).
+
 
 BC values are python floats or padded 2-D planes (x-faces (nz+2, ny+2),
 y-faces (nz+2, nx+2), z-faces (ny+2, nx+2)).
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -337,6 +347,142 @@ def yedge_scalar(p, cbc, bcvals, dl, dzc):
     yp = _yrows_centered(p, cbc[1], bcvals[1], (dl[1], dl[1]))
     return yp, _zedge_of_yrows(yp, cbc[2], bcvals[2],
                                (float(dzc[0]), float(dzc[nz])))
+
+
+def _axis_recipe(letters, bvals, dr, n, face, keep):
+    """One axis of the x stacks' fill as (index, scale, offset) triples:
+    entry m of the three [ghost lo, padded n (the interior's last, or the
+    face-staggered field's set_bc rewrite slot), ghost hi] is
+    scale * q[index] + offset (set_bc, bound.f90:232-399, scalar values).
+    keep: the corrector fill's lower face, 0 here, which the caller
+    overwrites with the kept plane."""
+    (lo, hi), (b0, b1), (d0, d1) = letters, bvals, dr
+    if lo == 'P':
+        return ((n - 1, 1.0, 0.0), (n - 1, 1.0, 0.0), (0, 1.0, 0.0))
+    if not face:
+        return ((0, -1.0, 2.0 * b0) if lo == 'D' else (0, 1.0, -d0 * b0),
+                (n - 1, 1.0, 0.0),
+                (n - 1, -1.0, 2.0 * b1) if hi == 'D' else (n - 1, 1.0, d1 * b1))
+    hi_ = (n - 2, 1.0, 0.0) if hi == 'D' else (n - 1, 1.0, 0.0)
+    if keep:
+        return ((0, 0.0, 0.0), (n - 1, 1.0, 0.0), hi_)
+    return ((0, 0.0, b0) if lo == 'D' else (0, 1.0, -d0 * b0),
+            (n - 1, 0.0, b1) if hi == 'D' else (n - 2, 1.0, d1 * b1), hi_)
+
+
+@functools.lru_cache(maxsize=256)
+def _recipe(lts, bvals, drs, face, keep, ywalls, shape, dtype, device):
+    """The (index, scale, offset) tensors of _xstack's three passes on
+    `device`, built once for each field and fill (the BC values are static
+    scalars): along x and z the three entries of _axis_recipe; along y
+    (with y walls) the whole padded row range [lo, 0 .. ny-1, hi], the
+    face-staggered v's row ny-1 its rewrite slot.  Every caller shares the
+    tensors, which nothing writes."""
+    nz, ny, nx = shape
+
+    def tensors(triples):
+        idx, sc, off = zip(*triples)
+        return (torch.tensor(idx, device=device),
+                torch.tensor(sc, dtype=dtype, device=device),
+                torch.tensor(off, dtype=dtype, device=device))
+    xr = tensors(_axis_recipe(lts[0], bvals[0], drs[0], nx, face == 0,
+                              keep[0]))
+    yr = None
+    if ywalls:
+        lo, mid, hi = _axis_recipe(lts[1], bvals[1], drs[1], ny, face == 1,
+                                   keep[1])
+        inner = [(j, 1.0, 0.0) for j in range(ny - (face == 1))]
+        yr = tensors([lo, *inner, *([mid] if face == 1 else []), hi])
+    zr = tensors(_axis_recipe(lts[2], bvals[2], drs[2], nz, face == 2,
+                              keep[2]))
+    return xr, yr, zr
+
+
+def _fma(q, dim, rec):
+    """scale * q[index] + offset along dim, the recipe's entries laid
+    along dim."""
+    idx, sc, off = rec
+    shape = [1, 1, 1]
+    shape[dim] = -1
+    return torch.addcmul(off.view(shape), q.index_select(dim, idx),
+                         sc.view(shape))
+
+
+def _xstack(q, lts, bcs, drs, face, vlo=None, keep=(False, False, False),
+            ywalls=False):
+    """x-ghost columns of one field and their corners, as the sequential
+    x -> y -> z fill leaves them: the x recipe on q, with y walls the y
+    recipe on the columns (their y ghosts and the y rewrite slot: the
+    columns of the (y ghost, x ghost) corners), then the z recipe on the
+    result; each pass one gather and one fused multiply-add of a recipe
+    built once (_recipe).  lts, bcs, drs: the (lo, hi) letters, scalar
+    values and spacings per direction; face: the direction along which q
+    is staggered (0, 1, 2, or None); keep[d]: the corrector fill's kept
+    lower face along d, from the padded plane vlo[d]."""
+    if any(getattr(b, 'ndim', 0) for pair in bcs for b in pair):
+        raise ValueError('x stacks take scalar BC values')
+    nz, ny, nx = q.shape
+    xr, yr, zr = _recipe(
+        tuple(tuple(x) for x in lts), tuple(tuple(map(float, b)) for b in bcs),
+        tuple(tuple(map(float, d)) for d in drs), face, tuple(keep), ywalls,
+        (nz, ny, nx), q.dtype, q.device)
+    def xcolumns(plane):
+        # the stack's columns [0, nx, nx+1] of a padded plane, by slices
+        # (a list index would be a host-to-device copy, which waits for
+        # the stream)
+        return torch.cat([plane[..., :1], plane[..., nx:nx + 2]], dim=-1)
+    cols = _fma(q.transpose(1, 2), 1, xr)
+    if keep[0]:
+        cols[:, 0] = vlo[0][1:-1, 1:-1]
+    if ywalls:
+        cols = _fma(cols, 2, yr)
+        if keep[1]:
+            cols[:, :, 0] = xcolumns(vlo[1][1:-1])
+    corners = _fma(cols, 0, zr)
+    if keep[2]:
+        lo = xcolumns(vlo[2]).T
+        corners[0] = lo if ywalls else lo[:, 1:-1]
+    return cols, corners
+
+
+def xedge_velocity(u, v, w, cbcvel, bcu, bcv, bcw, dl, dzc, dzf,
+                   vlo=None, is_correc=False, ywalls=False,
+                   fields=(0, 1, 2)):
+    """x-ghost column stacks of (u, v, w) with pad_velocity's semantics, a
+    (cols, corners) pair each: cols (nz, 3, nyc) [padded x 0, padded x nx
+    (u's set_bc rewrite slot, the interior's last column for v and w),
+    padded x nx+1], corners (3, 3, nyc) their z-edge stack, ordered as the
+    fields' own.  nyc = ny with periodic y, which wraps; ny + 2 with y
+    walls: the columns' y ghosts at index 0 and ny + 1 and the y rewrite
+    slot at index ny, so the (y ghost, x ghost) corners of the sequential
+    x -> y -> z fill (cales_tpu timeloop._xye_section) ride in the columns.
+    The JAX package's stacks (ops/boundary.xedge_velocity) hold the same
+    columns as (nz, ny, 3) in the order [0, nx+1, nx].  is_correc with
+    vlo: the corrector fill's kept lower faces, u's x face, v's y face
+    (with y walls) and w's z face (impose_norm_bc=.false.).  fields: the
+    components to build (the others' pairs are None)."""
+    nz = u.shape[0]
+    drs = ((dl[0], dl[0]), (dl[1], dl[1]))
+    dz = ((float(dzc[0]), float(dzc[nz])), (float(dzf[0]), float(dzf[nz])))
+    out = []
+    for iv, (q, bc) in enumerate(((u, bcu), (v, bcv), (w, bcw))):
+        if iv not in fields:
+            out.append(None)
+            continue
+        lts = tuple((cbcvel[0][d][iv], cbcvel[1][d][iv]) for d in range(3))
+        keep = tuple(d == iv and is_correc and vlo is not None
+                     and lts[d][0] != 'P' for d in range(3))
+        out.append(_xstack(q, lts, bc, (*drs, dz[iv == 2]), iv, vlo=vlo,
+                           keep=keep, ywalls=ywalls))
+    return tuple(out)
+
+
+def xedge_scalar(p, cbc, bcvals, dl, dzc, ywalls=False):
+    """x-ghost column stack and its corners of a cell-centred scalar
+    (boundp's x, y and z semantics), in xedge_velocity's layout."""
+    nz = p.shape[0]
+    drs = ((dl[0], dl[0]), (dl[1], dl[1]), (float(dzc[0]), float(dzc[nz])))
+    return _xstack(p, cbc, bcvals, drs, None, ywalls=ywalls)
 
 
 def pad_velocity(u, v, w, cbcvel, bcu, bcv, bcw, dl, dzc, dzf,

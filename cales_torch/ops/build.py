@@ -39,11 +39,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
 _SIGNATURES = {
-    'cales_mom_rk': [_P] * 33 + [_I] * 5 + [_D] * 8 + [_P],
-    'cales_fillps': [_P] * 10 + [_I] * 4 + [_D] * 3 + [_P],
+    'cales_mom_rk': [_P] * 43 + [_I] * 5 + [_D] * 8 + [_P],
+    'cales_fillps': [_P] * 12 + [_I] * 4 + [_D] * 3 + [_P],
     'cales_correc_smag': ([_P] * 22 + [_I] * 4 + [_I, _D, _D] * 4
                           + [_D] * 4 + [_P]),
-    'cales_correc': [_P] * 17 + [_I] * 6 + [_D] * 4 + [_P],
+    'cales_correc': [_P] * 21 + [_I] * 6 + [_D] * 4 + [_P],
     'cales_apply_y': [_P] * 5 + [_I] * 3 + [_P],
     'cales_apply_x': [_P] * 3 + [_I] * 4 + [_P],
     'cales_z_eig': [_P] * 8 + [_I] * 3 + [_D] + [_P],

@@ -28,7 +28,12 @@ x is periodic and wraps inside the kernel, and so is y unless the field
 comes with its y-row stack: a pair (rows (nz, 3, nx), corners (3, 3, nx))
 from ops/boundary.yedge_* (the y-walled variants of mom_rk, fillps,
 correc_updatep, smag and the three dsmag kernels, the duct and cavity
-classes).
+classes).  With x walls (the developing channel, the closed box, the
+lid-driven cavity and the developing duct) x does not wrap either:
+mom_rk, fillps and correc_updatep take the fields' x stack pairs (cols
+(nz, 3, nyc), corners (3, 3, nyc), nyc = ny, or ny + 2 with y walls) from
+ops/boundary.xedge_*, and read the columns -1 and nx (and u's rewrite
+column nx - 1 in the prediction fill) from them.
 On a slab of a y-sharded mesh (parallel/mesh.py) x wraps and y does not:
 mom_rk, fillps, correc_updatep and smag take yh, the halo pairs (rows
 (nz, 2, nx), corners (3, 2, nx)) of the fields they read across the slab's
@@ -94,19 +99,39 @@ def wrap_xy(a):
     return wrap_x(torch.cat([a[:, -1:, :], a, a[:, :1, :]], dim=1))
 
 
-def padded(q, e, y=None, h=None):
+def xpad(a, x, rewrite=False):
+    """(nz+2, ny+2, nx+2) x-padded array from a y- and z-padded (nz+2,
+    ny+2, nx) one and the field's x stack pair x = (cols (nz, 3, nyc),
+    corners (3, 3, nyc)): columns [c0, a[..., 0..nx-1], c2], or with
+    rewrite [c0, a[..., 0..nx-2], c1, c2], as zpad (the fill as
+    pad_velocity has it: the face-staggered u's rewrite slot); nyc = ny
+    wraps along y, nyc = ny + 2 carries the y ghosts."""
+    cols = zpad(*x)
+    if cols.shape[2] + 2 == a.shape[1]:
+        cols = torch.cat([cols[:, :, -1:], cols, cols[:, :, :1]], dim=2)
+    if rewrite:
+        return torch.cat([cols[:, 0, :, None], a[..., :-1],
+                          cols[:, 1:3].transpose(1, 2)], dim=2)
+    return torch.cat([cols[:, 0, :, None], a, cols[:, 2, :, None]], dim=2)
+
+
+def padded(q, e, y=None, h=None, x=None, rewrite=False):
     """The (nz+2, ny+2, nx+2) ghost-filled field: z ghosts from the edge
     stack e, y ghosts from y = (rows, corners), from the halo pair h =
     (rows (nz, 2, nx), corners (3, 2, nx)) of a slab, or periodic; x
-    periodic."""
+    ghosts from the x stack pair x (x walls), or periodic.  The kernels
+    read the interior's last column from the field, as here, save u's in
+    the prediction fill, which they take from its x stack's column 1
+    (rewrite: u's set_bc rewrite slot, which the fill puts there)."""
     if h is not None:
         rows, corners = h
         return wrap_x(torch.cat([zpad(rows[:, :1], corners[:, :1]),
                                  zpad(q, e),
                                  zpad(rows[:, 1:], corners[:, 1:])], dim=1))
-    if y is None:
-        return wrap_xy(zpad(q, e))
-    return wrap_x(ypad(zpad(q, e), zpad(*y)))
+    zp = zpad(q, e)
+    a = (torch.cat([zp[:, -1:], zp, zp[:, :1]], dim=1) if y is None
+         else ypad(zp, zpad(*y)))
+    return wrap_x(a) if x is None else xpad(a, x, rewrite)
 
 
 def ghost_row(rec, side, q1, q2=None):
@@ -124,14 +149,16 @@ def ghost_row(rec, side, q1, q2=None):
 
 def mom_rk_plain(u, v, w, s, p, ue, ve, we, se, pe, ruo, rvo, rwo,
                  dzci, dzfi, f1, f2, visc, dxi, dyi, bforce,
-                 sums=(False, False), split=None, ye=None, yh=None):
+                 sums=(False, False), split=None, ye=None, yh=None,
+                 xe=None):
     nz = u.shape[0]
     yu, yv, yw, ys, yp = (None,) * 5 if ye is None else ye
     hu, hv, hw, hs, hp = (None,) * 5 if yh is None else yh
-    up, vp, wp, ppad = (padded(q, e, y, h) for q, e, y, h in
-                        ((u, ue, yu, hu), (v, ve, yv, hv), (w, we, yw, hw),
-                         (p, pe, yp, hp)))
-    sp = None if s is None else padded(s, se, ys, hs)
+    xu, xv, xw, xs, xp = (None,) * 5 if xe is None else xe
+    up, vp, wp, ppad = (padded(q, e, y, h, x) for q, e, y, h, x in
+                        ((u, ue, yu, hu, xu), (v, ve, yv, hv, xv),
+                         (w, we, yw, hw, xw), (p, pe, yp, hp, xp)))
+    sp = None if s is None else padded(s, se, ys, hs, xs)
     (eu, exyu, ezu), (ev, exyv, ezv), (ew, exyw, ezw) = st.momentum_rhs(
         up, vp, wp, sp, visc, dxi, dyi, dzci, dzfi, with_sgs=s is not None)
     if split is None:
@@ -169,9 +196,10 @@ def mom_rk_plain(u, v, w, s, p, ue, ve, we, se, pe, ruo, rvo, rwo,
 
 
 def fillps_plain(u, v, w, ue, ve, we, dzfi, dti, dxi, dyi, yv=None,
-                 yh=None):
-    return st.fillps(padded(u, ue), padded(v, ve, yv, yh), padded(w, we),
-                     dti, dxi, dyi, dzfi)
+                 yh=None, xu=None):
+    return st.fillps(padded(u, ue, x=xu, rewrite=True),
+                     padded(v, ve, yv, yh), padded(w, we), dti, dxi, dyi,
+                     dzfi)
 
 
 def correc_smag_plain(u, v, w, pp, p, ue, ve, we, ppe, dtrk, dxi, dyi,
@@ -407,11 +435,21 @@ def dsmag_level2_plain(fu, fv, fw, fue, fve, fwe, fm, lij, s0, alph2, dzci,
 
 def correc_updatep_plain(u, v, w, pp, p, we, ppe, dtrk, dxi, dyi, dzci,
                          dzfi, fuv=None, alpha=0.0, impdiff=False,
-                         impdiff_1d=False, ypp=None, yv=None, yh=None):
-    ppad = padded(pp, ppe, ypp, yh)
+                         impdiff_1d=False, ypp=None, yv=None, yh=None,
+                         xpp=None, xu=None):
+    ppad = padded(pp, ppe, ypp, yh, xpp)
     if yv is not None:
         # v's wall face: the prediction fill's rewrite row (padded y ny)
         v = torch.cat([v[:, :-1], yv[:, 1:2]], dim=1)
+    if xu is not None:
+        # u's x wall face: the prediction fill's rewrite column (padded
+        # x nx), on the interior rows as the kernel reads them (row nz-1
+        # from the corners; with y walls the columns' y index is shifted
+        # by the lower y ghost)
+        ny = u.shape[1]
+        j0 = (xu[0].shape[2] - ny) // 2
+        face = zpad(*xu)[1:-1, 1, j0:j0 + ny]
+        u = torch.cat([u[..., :-1], face[..., None]], dim=2)
     ppc = ppad[1:-1, 1:-1, 1:-1]
     nz = u.shape[0]
     dzci_c = torch.as_tensor(dzci[1:nz + 1], dtype=u.dtype,
@@ -435,9 +473,11 @@ def _on_cpu(ref):
 
 
 def _check(name, ref, fields, planes=(), edges=(), profiles=(), yrows=(),
-           ycorners=(), hrows=(), hcorners=()):
+           ycorners=(), hrows=(), hcorners=(), xcols=(), xcorners=(),
+           nyc=None):
     """Validate what the kernel takes: one CUDA device, float32/float64,
-    contiguous, shapes of the interior (nz, ny, nx)."""
+    contiguous, shapes of the interior (nz, ny, nx); x stacks (nz, 3, nyc)
+    and their corners (3, 3, nyc)."""
     if ref.device.type != 'cuda':
         raise ValueError(f'{name}: tensors must be on the CPU (plain twin) '
                          f'or a CUDA device, got {ref.device}')
@@ -446,11 +486,13 @@ def _check(name, ref, fields, planes=(), edges=(), profiles=(), yrows=(),
     nz, ny, nx = ref.shape
     want = {'field': (nz, ny, nx), 'plane': (ny, nx), 'edge': (3, ny, nx),
             'y-row stack': (nz, 3, nx), 'corner stack': (3, 3, nx),
-            'halo rows': (nz, 2, nx), 'halo corners': (3, 2, nx)}
+            'halo rows': (nz, 2, nx), 'halo corners': (3, 2, nx),
+            'x stack': (nz, 3, nyc), 'x corner stack': (3, 3, nyc)}
     for kind, group in (('field', fields), ('plane', planes),
                         ('edge', edges), ('y-row stack', yrows),
                         ('corner stack', ycorners), ('halo rows', hrows),
-                        ('halo corners', hcorners)):
+                        ('halo corners', hcorners), ('x stack', xcols),
+                        ('x corner stack', xcorners)):
         for t in group:
             if t is None:
                 continue
@@ -462,7 +504,7 @@ def _check(name, ref, fields, planes=(), edges=(), profiles=(), yrows=(),
             raise ValueError(f'{name}: profile shape {tuple(t.shape)}, '
                              f'want ({n},)')
     for t in (*fields, *planes, *edges, *yrows, *ycorners, *hrows,
-              *hcorners, *(q for q, _ in profiles)):
+              *hcorners, *xcols, *xcorners, *(q for q, _ in profiles)):
         if t is None:
             continue
         if t.device != ref.device or t.dtype != ref.dtype:
@@ -482,6 +524,14 @@ def _ysplit(ys, halo=False):
     ys = [y for y in ys if y is not None]
     rows, corners = ('hrows', 'hcorners') if halo else ('yrows', 'ycorners')
     return {rows: [y[0] for y in ys], corners: [y[1] for y in ys]}
+
+
+def _xsplit(xs, ny, ywalls):
+    """_check's arguments for (cols, corners) x stack pairs: nyc = ny, or
+    ny + 2 with y walls."""
+    xs = [x for x in xs if x is not None]
+    return dict(xcols=[x[0] for x in xs], xcorners=[x[1] for x in xs],
+                nyc=ny + 2 if ywalls else ny)
 
 
 def _yptrs(ys):
@@ -514,7 +564,7 @@ def _launch(name, entry, *args, counts=None):
 
 def mom_rk(u, v, w, s, p, ue, ve, we, se, pe, ruo, rvo, rwo, dzci, dzfi,
            f1, f2, visc, dxi, dyi, bforce, sums=(False, False), split=None,
-           ye=None, yh=None):
+           ye=None, yh=None, xe=None):
     """Momentum RHS (mom.f90:17-309) + low-storage RK3 update with -grad p
     and bforce (rk.f90:77-94) in one pass.  ruo..rwo = None skips the
     previous-RHS reads (first substep, f2 == 0).  s = se = None: no eddy
@@ -527,18 +577,27 @@ def mom_rk(u, v, w, s, p, ue, ve, we, se, pe, ruo, rvo, rwo, dzci, dzfi,
     prediction) u / v for the bulk forcing.  ye: y walls, the (rows,
     corners) y-row stack pairs of (u, v, w, visct, p), visct's None without
     visct; yh: a slab of a y-sharded mesh, the halo pairs of the same five
-    fields.  Returns (u, v, w, ru, rv, rw, usum, vsum); usum/vsum are
-    None or per-(z, part) partial sums, (nz, parts): one part on the CPU,
-    one a (y, x) tile of the kernel on the card."""
+    fields.  xe: x walls, the (cols, corners) x stack pairs of (u, v, w,
+    visct, p), visct's None (x walls run with sgstype 'none', explicit
+    diffusion and periodic y or y walls).  Returns (u, v, w, ru, rv, rw,
+    usum, vsum); usum/vsum are None or per-(z, part) partial sums,
+    (nz, parts): one part on the CPU, one a (y, x) tile of the kernel on
+    the card."""
     if split not in _SPLIT_CODE:
         raise ValueError(f"mom_rk: split {split!r} (None, '1d' or 'xy+z')")
     if _on_cpu(u):
         return mom_rk_plain(u, v, w, s, p, ue, ve, we, se, pe, ruo, rvo, rwo,
                             dzci, dzfi, f1, f2, visc, dxi, dyi, bforce,
-                            sums=sums, split=split, ye=ye, yh=yh)
+                            sums=sums, split=split, ye=ye, yh=yh, xe=xe)
     nz, ny, nx = u.shape
     if ye is not None and yh is not None:
         raise ValueError('mom_rk: y walls or a slab halo, not both')
+    xe = (None,) * 5 if xe is None else tuple(xe)
+    if xe[0] is not None and (
+            any(xe[m] is None for m in (1, 2, 4)) or xe[3] is not None
+            or s is not None or split is not None or yh is not None):
+        raise ValueError('mom_rk: x walls take the x stacks of u, v, w and '
+                         'p, without visct, implicit diffusion or a slab')
     if (ruo is None) != (rvo is None) or (ruo is None) != (rwo is None):
         raise ValueError('mom_rk: pass all or none of ruo, rvo, rwo')
     if (s is None) != (se is None):
@@ -554,7 +613,8 @@ def mom_rk(u, v, w, s, p, ue, ve, we, se, pe, ruo, rvo, rwo, dzci, dzfi,
     _check('mom_rk', u, (u, v, w, s, p, ruo, rvo, rwo),
            edges=(ue, ve, we, se, pe),
            profiles=((dzci, nz + 2), (dzfi, nz + 2)), **_ysplit(ye),
-           **_ysplit(yh, halo=True))
+           **_ysplit(yh, halo=True),
+           **_xsplit(xe, ny, ywalls=ye[0] is not None))
     halo = yh[0] is not None
     outs = [torch.empty_like(u) for _ in range(6)]
     from . import build
@@ -567,7 +627,7 @@ def mom_rk(u, v, w, s, p, ue, ve, we, se, pe, ruo, rvo, rwo, dzci, dzfi,
     _launch('mom_rk', f'cales_mom_rk_{_suffix(u)}',
             *map(_ptr, (u, v, w, s, p, ue, ve, we, se, pe, ruo, rvo, rwo,
                         dzci, dzfi, *outs, usum, vsum)),
-            *_yptrs(yh if halo else ye),
+            *_yptrs(yh if halo else ye), *_yptrs(xe),
             ctypes.c_int(nz), ctypes.c_int(ny), ctypes.c_int(nx),
             ctypes.c_int(_SPLIT_CODE[split]), ctypes.c_int(int(halo)),
             d(f1), d(f2), d(visc), d(dxi), d(dyi),
@@ -575,25 +635,31 @@ def mom_rk(u, v, w, s, p, ue, ve, we, se, pe, ruo, rvo, rwo, dzci, dzfi,
     return (*outs, usum, vsum)
 
 
-def fillps(u, v, w, ue, ve, we, dzfi, dti, dxi, dyi, yv=None, yh=None):
+def fillps(u, v, w, ue, ve, we, dzfi, dti, dxi, dyi, yv=None, yh=None,
+           xu=None):
     """Poisson RHS div(u)/dt_rk (fillps.f90:14-48) in one pass.  yv: y
     walls, v's (rows, corners) y-row stack pair (its lower wall face and
     rewrite row enter the divergence); yh: a slab of a y-sharded mesh, v's
-    halo pair (its row -1 enters the divergence)."""
+    halo pair (its row -1 enters the divergence); xu: x walls, u's
+    prediction-fill x stack pair (its lower x face and rewrite column
+    enter the divergence)."""
     if _on_cpu(u):
         return fillps_plain(u, v, w, ue, ve, we, dzfi, dti, dxi, dyi, yv=yv,
-                            yh=yh)
+                            yh=yh, xu=xu)
     nz, ny, nx = u.shape
     if yv is not None and yh is not None:
         raise ValueError('fillps: y walls or a slab halo, not both')
+    if xu is not None and yh is not None:
+        raise ValueError('fillps: x walls on a slab are not in the slice')
     _check('fillps', u, (u, v, w), edges=(ue, ve, we),
            profiles=((dzfi, nz + 2),), **_ysplit((yv,)),
-           **_ysplit((yh,), halo=True))
+           **_ysplit((yh,), halo=True),
+           **_xsplit((xu,), ny, ywalls=yv is not None))
     rhs = torch.empty_like(u)
     d = ctypes.c_double
     _launch('fillps', f'cales_fillps_{_suffix(u)}',
             *map(_ptr, (u, v, w, ue, ve, we, dzfi, rhs)),
-            *_yptrs((yh if yh is not None else yv,)),
+            *_yptrs((yh if yh is not None else yv,)), *_yptrs((xu,)),
             ctypes.c_int(nz), ctypes.c_int(ny), ctypes.c_int(nx),
             ctypes.c_int(int(yh is not None)), d(dti), d(dxi), d(dyi))
     return rhs
@@ -646,7 +712,7 @@ def correc_smag(u, v, w, pp, p, ue, ve, we, ppe, dtrk, dxi, dyi, dzci, dzfi,
 
 def correc_updatep(u, v, w, pp, p, we, ppe, dtrk, dxi, dyi, dzci, dzfi,
                    fuv=None, alpha=0.0, impdiff=False, impdiff_1d=False,
-                   ypp=None, yv=None, yh=None):
+                   ypp=None, yv=None, yh=None, xpp=None, xu=None):
     """Projection u -= dt grad pp (+ the deferred forcing fuv = (fu, fv) when
     given) and p += pp (+ alpha L(pp) under implicit diffusion, L the z
     second difference under impdiff_1d) in one pass (correc.f90:14-68,
@@ -655,28 +721,38 @@ def correc_updatep(u, v, w, pp, p, we, ppe, dtrk, dxi, dyi, dzci, dzfi,
     walls: ypp, pp's (rows, corners) y-row stack pair, and yv, v's
     prediction-fill y-row stack (nz, 3, nx), whose row 1 (the set_bc
     rewrite) stands in for v's interior last row.  yh: a slab of a
-    y-sharded mesh, pp's halo pair (v's last row is the slab's own).
-    Returns (u, v, w, p)."""
+    y-sharded mesh, pp's halo pair (v's last row is the slab's own).  x
+    walls: xpp, pp's (cols, corners) x stack pair, and xu, u's
+    prediction-fill pair, whose column 1 (the set_bc rewrite) stands in
+    for u's interior last column.  Returns (u, v, w, p)."""
     if _on_cpu(u):
         return correc_updatep_plain(u, v, w, pp, p, we, ppe, dtrk, dxi, dyi,
                                     dzci, dzfi, fuv, alpha, impdiff,
-                                    impdiff_1d, ypp=ypp, yv=yv, yh=yh)
+                                    impdiff_1d, ypp=ypp, yv=yv, yh=yh,
+                                    xpp=xpp, xu=xu)
     nz, ny, nx = u.shape
     if (ypp is None) != (yv is None):
         raise ValueError('correc_updatep: y walls take ypp and yv together')
     if ypp is not None and yh is not None:
         raise ValueError('correc_updatep: y walls or a slab halo, not both')
+    if (xpp is None) != (xu is None):
+        raise ValueError('correc_updatep: x walls take xpp and xu together')
+    if xpp is not None and yh is not None:
+        raise ValueError('correc_updatep: x walls on a slab are not in the '
+                         'slice')
     _check('correc_updatep', u, (u, v, w, pp, p), edges=(we, ppe),
            profiles=((dzci, nz + 2), (dzfi, nz + 2))
            + (((fuv, 2),) if fuv is not None else ()),
            yrows=() if yv is None else (ypp[0], yv),
            ycorners=() if yv is None else (ypp[1],),
-           **_ysplit((yh,), halo=True))
+           **_ysplit((yh,), halo=True),
+           **_xsplit((xpp, xu), ny, ywalls=yv is not None))
     outs = [torch.empty_like(u) for _ in range(4)]
     d = ctypes.c_double
     _launch('correc_updatep', f'cales_correc_{_suffix(u)}',
             *map(_ptr, (u, v, w, pp, p, we, ppe, dzci, dzfi, fuv, *outs)),
             *_yptrs((yh if yh is not None else ypp,)), _ptr(yv),
+            *_yptrs((xpp, xu)),
             ctypes.c_int(nz), ctypes.c_int(ny), ctypes.c_int(nx),
             ctypes.c_int(int(yh is not None)),
             ctypes.c_int(int(bool(impdiff))),

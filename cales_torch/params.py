@@ -19,9 +19,11 @@ def state_from_jax_numpy(d: dict, device, dtype) -> State:
     """d: {'u', 'v', 'w', 'p', 'visct': (nz, ny, nx); 'vlo', 'rhs_old':
     3-tuples; 'zq': 3-tuple of (3, ny, nx) or None; 'time'; 'istep'} with
     numpy leaves.  vlo carries the kept wall-face planes as they are: w's
-    lower z face, and with y walls v's lower y face, which the next
-    substep's fills read.  A None zq (the JAX expression path keeps none)
-    is rebuilt by the first substep from vlo."""
+    lower z face, with y walls v's lower y face, and with x walls u's
+    lower x face (the inflow face), which the next substep's fills read.
+    A None zq (the JAX expression path keeps none) is rebuilt by the first
+    substep from vlo, and so are the y-row and x stacks (State.yq, xq),
+    which the JAX package does not carry."""
     dev = torch.device(device)
 
     def t(a):

@@ -40,10 +40,15 @@ the y operator is a DCT matrix and the route is 'mat': apply_y and z_eig
 take whatever operator and eigenvalues the transforms hold, so no kernel
 changes.
 
+With x walls (the developing channel: pressure 'ND' along x, a DCT-IV;
+the closed box, the cavity and the developing duct: 'NN', a DCT-II) the x
+operator is a square DCT matrix too, fused into apply_y as MxT, and the
+route is 'mat' (there is no FFT along a walled x).
+
 Not in this slice (each raises NotImplementedError naming its ROADMAP
-item): transforms with excluded x or y rows (walled x, or a field
-face-staggered across an x or y wall), and the mixed route (an FFT along
-x with a matrix along y).
+item): transforms with excluded x or y rows (a field face-staggered
+across an x or y wall), and the mixed route (an FFT along x with a matrix
+along y).
 """
 from __future__ import annotations
 
@@ -155,14 +160,18 @@ def make_solver(cfg: Config, grid: Grid, cbc, c_or_f,
     package, except with y walls: there the y transform is a matrix
     whatever 'auto' says, and 'auto' takes 'mat' along x too, the all-matrix
     route of apply_y and z_eig, rather than the JAX package's mixed route
-    off a TPU (rfft along x and the y matrix, poisson.py:414-430); and on a
-    device mesh (dims), where the sharded solve is the all-matrix route, as
-    'auto' resolves on the TPU (poisson.py:138-141)."""
+    off a TPU (rfft along x and the y matrix, poisson.py:414-430); with x
+    walls, where there is no FFT along x and 'auto' takes the matrix along
+    y too (the x operator a square DCT, ND or NN for the pressure, through
+    apply_y's fused MxT); and on a device mesh (dims), where the sharded
+    solve is the all-matrix route, as 'auto' resolves on the TPU
+    (poisson.py:138-141)."""
     nx, ny, nz = cfg.ng
     dli = cfg.dli
     mode = getattr(cfg, 'ptransform', 'auto')
     meshed = cfg.dims[0] * cfg.dims[1] > 1
-    pp_mat = mode == 'mat' or (mode == 'auto' and (cbc[1] != 'PP' or meshed))
+    pp_mat = mode == 'mat' or (mode == 'auto' and (
+        cbc[0] != 'PP' or cbc[1] != 'PP' or meshed))
     trx = tr.make_transform(cbc[0], c_or_f[0], nx, pp_mat=pp_mat)
     try_ = tr.make_transform(cbc[1], c_or_f[1], ny, pp_mat=pp_mat)
     a, b, c = tridmatrix(cbc[2], nz, grid.dzci, grid.dzfi, c_or_f[2])

@@ -2,7 +2,8 @@
 
     python -m cales_torch.profile_step
         [--case les|les-mat|les-imp|dns|dns-imp3d|dsmag|dsmag-blow|duct|
-                cavity|tgv|tgv-fft|tri|tri-imp3d|wmles|wmles-duct]
+                cavity|tgv|tgv-fft|tri|tri-imp3d|wmles|wmles-duct|
+                xchannel|xcavity]
         [--ng NXxNYxNZ]
         [--steps 3]
 
@@ -35,7 +36,13 @@ and correc_smag's 'E' z-ghost recipe); 'wmles-duct' the physics of
 examples/turbulent_duct_wmles (the log-law wall model on all four side
 walls, hwm 0.1, visci 20 000, smag, 'mat': the wallmodel kernel on four
 faces, smag's y-wall variant with its 'E' ghost stacks, the y-walled
-mom_rk, fillps and correc_updatep).  The grid is 512x256x256, 512^3
+mom_rk, fillps and correc_updatep); 'xchannel' the physics of
+examples/developing_channel (inflow u = 1 at x = 0, outflow at x = lx,
+periodic y, z walls, sgstype 'none', 'auto' -> 'mat': the x-walled mom_rk,
+fillps and correc_updatep on the x stacks, apply_y with the DCT-IV x
+operator) and 'xcavity' examples/lid_driven_cavity's (walls on all six
+faces, the top z face moving at u = 1: the x- and y-walled variants, the
+DCT-II x and y operators).  The grid is 512x256x256, 512^3
 for the tgv cases, unless --ng says otherwise.  The device's idle share is 1 - (device busy
 time / wall time of the profiled window).
 Needs a CUDA device.
@@ -79,6 +86,19 @@ DUCT_BCS = dict(
     cbcvel=((('P', 'P', 'P'), ('D', 'D', 'D'), ('D', 'D', 'D')),) * 2,
     cbcpre=(('P', 'N', 'N'), ('P', 'N', 'N')),
     cbcsgs=(('P', 'D', 'D'), ('P', 'D', 'D')))
+# examples/developing_channel and examples/lid_driven_cavity (unforced,
+# from rest)
+XDEV_BCS = dict(
+    cbcvel=((('D', 'N', 'N'), ('P', 'P', 'P'), ('D', 'D', 'D')),
+            (('N', 'N', 'N'), ('P', 'P', 'P'), ('D', 'D', 'D'))),
+    cbcpre=(('N', 'P', 'N'), ('D', 'P', 'N')),
+    cbcsgs=(('N', 'P', 'D'), ('N', 'P', 'D')))
+ALLD = (('D', 'D', 'D'),) * 3
+XBOX_BCS = dict(cbcvel=(ALLD, ALLD), cbcpre=(('N',) * 3,) * 2,
+                cbcsgs=(('D',) * 3,) * 2)
+REST = dict(gr=0.0, visci=1000.0, inivel='zer', is_wallturb=False,
+            is_forced=(False, False, False), velf=(0.0, 0.0, 0.0),
+            sgstype='none')
 # w = 0.003 through a z wall: blowing through the lower, suction through the
 # upper one
 BLOW_FACE = ((0.0,) * 3, (0.0,) * 3, (0.0, 0.0, 0.003))
@@ -130,6 +150,13 @@ CASES = {
     'wmles-duct': dict(l=(12.8, 2.0, 2.0), gr=0.0, visci=20_000.0,
                        inivel='duc', sgstype='smag', ptransform='mat',
                        lwm=((0, 1, 1), (0, 1, 1)), hwm=0.1, **DUCT_BCS),
+    'xchannel': dict(REST, l=(1.0, 1.5, 1.0),
+                     bcvel=(((1.0, 0.0, 0.0), (0.0,) * 3, (0.0,) * 3),
+                            ((0.0,) * 3,) * 3), **XDEV_BCS),
+    'xcavity': dict(REST, l=(1.0, 1.0, 1.0),
+                    bcvel=(((0.0,) * 3,) * 3,
+                           ((0.0,) * 3, (0.0,) * 3, (1.0, 0.0, 0.0))),
+                    **XBOX_BCS),
 }
 
 

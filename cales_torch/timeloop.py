@@ -62,6 +62,15 @@ correc_smag is off, as under the JAX mesh), and the bulk forcing, the CFL
 dt and the divergence reduce over the ranks.  The van Driest wall-shear
 planes stay on their slab (z is never split) with the halo's row below.
 
+With x walls (inflow and outflow faces, or walls: the developing channel,
+and with y walls the closed box, the lid-driven cavity and the developing
+duct; sgstype 'none', explicit diffusion, one device) mom_rk, fillps and
+correc_updatep take the fields' x stacks (ops/boundary.xedge_*) of the
+same fills: the post-correction fill's columns carried in State.xq, the
+prediction fill's u columns (u's set_bc rewrite, which the kernels read in
+place of u's last column) and pp's; the kept inflow face vlo[0] advances
+with the other kept planes.
+
 The port and the JAX package carry the same state (State below), so a
 JAX state can be carried across (params.py).  Configurations outside this
 slice raise NotImplementedError naming the missing piece.
@@ -103,6 +112,8 @@ class State(NamedTuple):
     zq: Any = None    # (ue, ve, we) z-edge stacks of the post-correction
                       # fill, carried to the next substep's momentum kernel
     yq: Any = None    # with y walls, the same fill's (rows, corners) y-row
+                      # stack pairs of (u, v, w), carried likewise
+    xq: Any = None    # with x walls, the same fill's (cols, corners) x
                       # stack pairs of (u, v, w), carried likewise
 
 
@@ -148,6 +159,55 @@ def _ywalls_refuse(cfg: Config) -> list[str]:
     return out
 
 
+def _xwalls_refuse(cfg: Config) -> list[str]:
+    """What this slice does not run with non-periodic x: it runs x faces
+    of letters D and N for every field (walls, inflow, outflow) with
+    sgstype 'none', explicit diffusion, scalar BC values, z walls, one
+    device and no wall model or scalar, with periodic y or the y walls
+    that _ywalls_refuse admits, on the all-matrix Poisson route (the
+    developing channel, the closed box, the lid-driven cavity and the
+    developing duct)."""
+    out = []
+    item = 'ROADMAP queue 1, x walls'
+    letters = ([cfg.cbc_vel(0, iv) for iv in range(3)]
+               + [cfg.cbc_pre(0), cfg.cbcsgs[0][0] + cfg.cbcsgs[1][0]])
+    if any('P' in q for q in letters):
+        out.append('non-periodic x with a periodic x face on some field '
+                   '(every field D or N on both x faces): ' + item)
+    if cfg.sgstype != 'none':
+        kind = 'static' if cfg.sgstype == 'smag' else 'dynamic'
+        out.append(f'non-periodic x with {kind} Smagorinsky (the x-walled '
+                   "channel, box, cavity and duct run sgstype 'none'; the "
+                   'x modes of smag.cu and correc_smag.cu; the JAX package '
+                   f'runs XLA smag there): {item} with smag')
+    if cfg.impdiff:
+        kind = 'impdiff_1d' if cfg.impdiff_1d else             'full-3D implicit diffusion'
+        out.append(f'non-periodic x with {kind}: {item} with impdiff_1d')
+    if any(cfg.lwm[ib][d] != 0 for ib in range(2) for d in range(3)):
+        out.append(f'non-periodic x with a wall model: {item} with a wall '
+                   'model')
+    if cfg.scalar:
+        out.append(f'non-periodic x with a passive scalar: {item}, the '
+                   'x-walled scalar')
+    vals = ([cfg.bcvel[ib][d][iv] for ib in range(2) for d in range(3)
+             for iv in range(3)]
+            + [b[ib][d] for b in (cfg.bcpre, cfg.bcsgs) for ib in range(2)
+               for d in range(3)])
+    if any(np.ndim(x) != 0 for x in vals):
+        out.append('non-periodic x with plane-valued BC values (inflow '
+                   f'profiles): {item}, plane-valued inflow profiles')
+    if cfg.dims[0] * cfg.dims[1] > 1:
+        out.append(f'non-periodic x on a device mesh: {item} on a mesh')
+    if cfg.cbc_vel(2, 0)[0] == 'P':
+        out.append(f'non-periodic x with periodic z: {item}, BC topologies')
+    if cfg.ptransform == 'fft':
+        out.append("non-periodic x with ptransform 'fft' (no FFT along a "
+                   f"walled x; 'auto' takes 'mat'): {item}")
+    if any(cfg.is_forced):
+        out.append(f'non-periodic x with bulk forcing: {item}')
+    return out
+
+
 def unsupported(cfg: Config) -> list[str]:
     """What of `cfg` this slice does not run yet, each with the ROADMAP
     item that brings it; empty when the config is in the slice."""
@@ -159,8 +219,7 @@ def unsupported(cfg: Config) -> list[str]:
         out += sgsmod.dsmag_unsupported(cfg)
         out += _dsmag_kernel_refuses(cfg, cbc)
     if not _periodic(cfg, 0):
-        out.append('non-periodic x (x walls, as in the enclosed cavity and '
-                   'the x+y-walled classes): ROADMAP queue 1, BC topologies')
+        out += _xwalls_refuse(cfg)
     if not _periodic(cfg, 1):
         out += _ywalls_refuse(cfg)
     if cbc[0][2][0] == 'P' and cfg.sgstype != 'none':
@@ -337,8 +396,10 @@ class Simulation:
         self.cbcpre = tuple((cfg.cbcpre[0][d], cfg.cbcpre[1][d])
                             for d in range(3))
         # y walls on both faces (unsupported() admits no other non-periodic
-        # y): the kernels take the y-row stacks of their fills
+        # y): the kernels take the y-row stacks of their fills; x walls
+        # (or inflow and outflow faces): the x stacks of their fills
         self.ywalled = not _periodic(cfg, 1)
+        self.xwalled = not _periodic(cfg, 0)
         nx, ny, nz = cfg.ng
         # this rank's slab: the local shape the fields, the y-face planes
         # and add_rhs_bound's row indices take
@@ -517,8 +578,10 @@ class Simulation:
     def exec_path(self) -> str:
         """One-line description of the execution path (logged at start)."""
         names = '+'.join(self.kernel_names())
-        if self.ywalled:
-            names += ' (y-walled variants)'
+        walled = [a for a, on in (('x', self.xwalled), ('y', self.ywalled))
+                  if on]
+        if walled:
+            names += f" ({'-'.join(walled)}-walled variants)"
         if self.device.type == 'cuda':
             where = (f'{self.device} ({torch.cuda.get_device_name(self.device)})'
                      f', kernels: {names} (CUDA, cales_torch/csrc)')
@@ -549,6 +612,9 @@ class Simulation:
                if self.sgs_kernel == 'dsmag' else 'none')
         if self.ywalled:
             sgs += '; y walls: y-row ghost stacks'
+        if self.xwalled:
+            sgs += ('; x walls: x-ghost column stacks'
+                    + (' with their y ghosts' if self.ywalled else ''))
         if self.ywalled and self.sgs_kernel == 'smag':
             sgs += ', the smag kernel in its y-wall variant'
         if self.has_wm:
@@ -617,8 +683,10 @@ class Simulation:
         zq = self._zedge_vel(u_i, v_i, w_i, bcu, bcv, bcw, is_correc=False)
         yq = (self._yedge_vel(u_i, v_i, w_i, (bcu, bcv, bcw))
               if self.ywalled else None)
+        xq = (self._xedge_vel(u_i, v_i, w_i, (bcu, bcv, bcw))
+              if self.xwalled else None)
         return st0._replace(u=u_i, v=v_i, w=w_i, vlo=vlo, visct=visct, zq=zq,
-                            yq=yq)
+                            yq=yq, xq=xq)
 
     # ------------------------------------------------------------------
     def _dynamic_bcs(self, u, v, w, planes=None):
@@ -696,6 +764,22 @@ class Simulation:
             self.grid.dzf, vlo=vlo, is_correc=is_correc)
         return tuple((r.contiguous(), c.contiguous())
                      for r, c in zip(rows, corners))
+
+    def _xedge_vel(self, u, v, w, bcs=None, vlo=None, is_correc=False,
+                   fields=(0, 1, 2)):
+        """The (cols, corners) x stack pairs of u, v, w (of the components
+        in fields, None for the others) with the BC values bcs = (bcu,
+        bcv, bcw), the static ones by default; with y walls the columns
+        carry their y ghosts."""
+        bcu, bcv, bcw = bcs or (self.bcu_vals, self.bcv_vals, self.bcw_vals)
+        return bnd.xedge_velocity(
+            u, v, w, self.cbcvel, bcu, bcv, bcw, self.cfg.dl, self.grid.dzc,
+            self.grid.dzf, vlo=vlo, is_correc=is_correc,
+            ywalls=self.ywalled, fields=fields)
+
+    def _xedge_p(self, p):
+        return bnd.xedge_scalar(p, self.cbcpre, self.bcp_vals, self.cfg.dl,
+                                self.grid.dzc, ywalls=self.ywalled)
 
     def _yedge_p(self, p):
         return bnd.yedge_scalar(p, self.cbcpre, self.bcp_vals, self.cfg.dl,
@@ -931,38 +1015,89 @@ class Simulation:
         return out
 
     def _advance_wall_planes(self, state, pp, ppe, we2, dtrk, ypred=None,
-                             ypp=None):
+                             ypp=None, xpred=None, xpp=None):
         """The kept wall-face planes through the padded correc sweep
-        (correc.f90:45-67): w's lower z face, and with y walls its y-ghost
-        entries and v's lower y face (cales_tpu timeloop.py:1773-1796).
-        With periodic z the plane is the corrected periodic ghost row,
-        which no fill reads (the JAX package carries it the same way).
-        ypred: the prediction fill's (rows, corners) pairs of (u, v, w);
-        ypp: pp's.  The x plane is unused under periodic x, and so is the
-        y plane under periodic y."""
+        (correc.f90:45-67), each over its whole padded plane as the JAX
+        package's expression path leaves it (stencil.correc): w's lower z
+        face, and with y walls v's lower y face, with x walls u's lower x
+        face (cales_tpu timeloop.py:1680-1850).  Interior entries are the
+        prediction fill's face minus the pressure gradient across it;
+        ghost entries the same of the fill's ghost rows and columns (the
+        y-row and x stacks and their corners), or the periodic wrap.  With
+        periodic z the w plane is the corrected periodic ghost row, which
+        no fill reads (the JAX package carries it the same way).  ypred,
+        xpred: the prediction fill's (rows, corners) and (cols, corners)
+        pairs of (u, v, w); ypp, xpp: pp's.  The x and y planes are unused
+        under periodic x and y."""
         dzci0 = float(self.grid.dzci[0])
         wlo = we2[0] - dtrk * dzci0 * (pp[0] - ppe[0])
-        if not self.ywalled:
+        if self.ywalled:
+            (_, _), (yv, zyv), (_, zyw) = ypred
+            yp, zyp = ypp
+            # w's lower face at padded y 0 and ny+1: the corner stacks' rows
+            w_y = [zyw[0, r] - dtrk * dzci0 * (yp[0, r] - zyp[0, r])
+                   for r in (0, 2)]
+            wlo = torch.cat([w_y[0][None], wlo, w_y[1][None]], dim=0)
+        else:
             wlo = torch.cat([wlo[-1:], wlo, wlo[:1]], dim=0)
-            wlo = torch.cat([wlo[:, -1:], wlo, wlo[:, :1]], dim=1)
+
+        def wrap_y(a):
+            # an x stack's (..., ny) entries with the periodic y ghosts;
+            # with y walls they carry their own
+            return a if self.ywalled else torch.cat(
+                [a[..., -1:], a, a[..., :1]], dim=-1)
+
+        def xcols(a, lo, hi):
+            # a's x ghost columns (..., ny+2, nx) -> (..., ny+2, nx+2)
+            if lo is None:
+                return torch.cat([a[..., -1:], a, a[..., :1]], dim=-1)
+            return torch.cat([lo[..., None], a, hi[..., None]], dim=-1)
+        w_x = (None, None)
+        if self.xwalled:
+            zxw = xpred[2][1]
+            xp, zxp = xpp
+            # w's lower face at padded x 0 and nx+1: the corner stacks'
+            # columns over the padded y rows
+            w_x = [wrap_y(zxw[0, r] - dtrk * dzci0 * (xp[0, r] - zxp[0, r]))
+                   for r in (0, 2)]
+        wlo = xcols(wlo, *w_x)
+        if not self.ywalled and not self.xwalled:
             return (state.vlo[0], state.vlo[1], wlo)
-        (_, _), (yv, zyv), (_, zyw) = ypred
-        yp, zyp = ypp
-        dyi = self.cfg.dli[1]
-        # w's lower face at padded y 0 and ny+1: the corner stacks' rows
-        w_y = [zyw[0, r] - dtrk * dzci0 * (yp[0, r] - zyp[0, r])
-               for r in (0, 2)]
-        wlo = torch.cat([w_y[0][None], wlo, w_y[1][None]], dim=0)
-        wlo = torch.cat([wlo[:, -1:], wlo, wlo[:, :1]], dim=1)
-        # v's lower y face (padded y 0): the prediction's face minus
-        # dt dyi (pp's first row - its ghost row), its z ghosts from the
-        # corner stacks
-        vlo_i = yv[:, 0] - dtrk * dyi * (pp[:, 0, :] - yp[:, 0])
-        v_zlo = zyv[0, 0] - dtrk * dyi * (ppe[0][0] - zyp[0, 0])
-        v_zhi = zyv[2, 0] - dtrk * dyi * (ppe[2][0] - zyp[2, 0])
-        vlo_v = torch.cat([v_zlo[None], vlo_i, v_zhi[None]], dim=0)
-        vlo_v = torch.cat([vlo_v[:, -1:], vlo_v, vlo_v[:, :1]], dim=1)
-        return (state.vlo[0], vlo_v, wlo)
+        vlo_v = state.vlo[1]
+        if self.ywalled:
+            dyi = self.cfg.dli[1]
+            # v's lower y face (padded y 0): the prediction's face minus
+            # dt dyi (pp's first row - its ghost row), its z ghosts from the
+            # corner stacks
+            vlo_i = yv[:, 0] - dtrk * dyi * (pp[:, 0, :] - yp[:, 0])
+            v_zlo = zyv[0, 0] - dtrk * dyi * (ppe[0][0] - zyp[0, 0])
+            v_zhi = zyv[2, 0] - dtrk * dyi * (ppe[2][0] - zyp[2, 0])
+            vlo_v = torch.cat([v_zlo[None], vlo_i, v_zhi[None]], dim=0)
+            v_x = (None, None)
+            if self.xwalled:
+                # its x ghost columns: the x stacks' y ghost row 0 (v's
+                # lower face at x = -1, nx) over the padded z rows
+                Xv = kernels.zpad(*xpred[1])
+                Xp = kernels.zpad(*xpp)
+                v_x = [Xv[:, r, 0] - dtrk * dyi * (Xp[:, r, 1] - Xp[:, r, 0])
+                       for r in (0, 2)]
+            vlo_v = xcols(vlo_v, *v_x)
+        ulo = state.vlo[0]
+        if self.xwalled:
+            dxi = self.cfg.dli[0]
+            # u's lower x face (padded x 0) over the padded (z, y) plane:
+            # the prediction's face column minus dt dxi (pp at x = 0 - its
+            # ghost column)
+            Xu = wrap_y(kernels.zpad(*xpred[0])[:, 0])
+            Xp = wrap_y(kernels.zpad(*xpp)[:, 0])
+            p0 = kernels.zpad(pp[:, :, 0], ppe[:, :, 0])
+            if self.ywalled:
+                p0 = kernels.ypad(p0[:, :, None], kernels.zpad(
+                    yp[:, :, :1], zyp[:, :, :1]))[..., 0]
+            else:
+                p0 = wrap_y(p0)
+            ulo = Xu - dtrk * dxi * (p0 - Xp)
+        return (ulo, vlo_v, wlo)
 
     def _substep(self, state: State, f1, f2, first=False):
         """One RK3 substep.  first=True: f2 == 0 exactly (RK_COEFF[0][1]),
@@ -977,14 +1112,18 @@ class Simulation:
         # fill are the kernel input (rebuilt from vlo for a carried state;
         # cales_tpu runs the wall model again here, timeloop.py:1877-1882,
         # to the same planes)
-        zq, yq = state.zq, state.yq
-        if zq is None or (self.ywalled and yq is None):
+        zq, yq, xq = state.zq, state.yq, state.xq
+        if (zq is None or (self.ywalled and yq is None)
+                or (self.xwalled and xq is None)):
             bcs0 = self._dynamic_bcs(u, v, w)
             if zq is None:
                 zq = self._zedge_vel(u, v, w, *bcs0, vlo=state.vlo,
                                      is_correc=True)
             if self.ywalled:
                 yq = self._yedge_vel(u, v, w, bcs0, vlo=state.vlo,
+                                     is_correc=True)
+            if self.xwalled:
+                xq = self._xedge_vel(u, v, w, bcs0, vlo=state.vlo,
                                      is_correc=True)
         ue, ve, we = zq
         pe = self._zedge_p(p)
@@ -1001,12 +1140,15 @@ class Simulation:
                 pairs.insert(3, (s, se))
             h = self.mesh.halo_y(pairs)
             yh = (*h[:3], h[3] if self.has_sgs else None, h[-1])
+        # with x walls the x columns of the same fill (no visct: x walls
+        # run with sgstype 'none')
+        xe = (*xq, None, self._xedge_p(p)) if self.xwalled else None
         u, v, w, ru, rv, rw, usum, vsum = kernels.mom_rk(
             u, v, w, s, p, ue, ve, we, se, pe,
             None if first else ru_o, None if first else rv_o,
             None if first else rw_o, self.dzci_t, self.dzfi_t, f1, f2,
             cfg.visc, dxi, dyi, cfg.bforce, sums=self.sum_flags,
-            split=self.split, ye=ye, yh=yh)
+            split=self.split, ye=ye, yh=yh, xe=xe)
         f, fuv = self._bulk_forcing((usum, vsum))
         alpha = 0.0
         if cfg.impdiff:
@@ -1025,16 +1167,23 @@ class Simulation:
         # faces), so it is not run (cales_tpu runs it with the deferred
         # forcing, timeloop.py:2568-2569, to the same state).  Only the
         # kept v plane's z-ghost rows (vlo[1], from v's corner stacks)
-        # differ from cales_tpu's, and every fill crops them.
+        # differ from cales_tpu's, and every fill crops them.  With x
+        # walls u's rewrite column (padded x nx) rides in its x stack,
+        # which fillps and correc_updatep read in place of u's last
+        # column (cales_tpu patches a copy of u instead).
         ue2, ve2, we2 = self._zedge_vel(u, v, w, self.bcu_vals,
                                         self.bcv_vals, self.bcw_vals,
                                         is_correc=False)
         ypred = self._yedge_vel(u, v, w) if self.ywalled else None
         yv2 = None if ypred is None else ypred[1]
+        # (v's only for its lower y face's x ghosts, with y walls)
+        xpred = (self._xedge_vel(u, v, w, fields=(0, 1, 2) if self.ywalled
+                                 else (0, 2)) if self.xwalled else None)
+        xu2 = None if xpred is None else xpred[0]
         hv2 = (None if self.mesh is None
                else self.mesh.halo_y([(v, ve2)])[0])
         rhs = kernels.fillps(u, v, w, ue2, ve2, we2, self.dzfi_t, 1.0 / dtrk,
-                             dxi, dyi, yv=yv2, yh=hv2)
+                             dxi, dyi, yv=yv2, yh=hv2, xu=xu2)
         rhs = poisson.add_rhs_bound(self.cfg_local, ('c', 'c', 'c'),
                                     self.cbcpre, rhs, self.rhsb_p)
         if self.mesh is None:
@@ -1043,6 +1192,7 @@ class Simulation:
             pp = poisson.solve_sharded(self.solver_p, rhs, self.mesh)
         ppe = self._zedge_p(pp)
         ypp = self._yedge_p(pp) if self.ywalled else None
+        xpp = self._xedge_p(pp) if self.xwalled else None
         hpp = (None if self.mesh is None
                else self.mesh.halo_y([(pp, ppe)])[0])
         planes = None
@@ -1054,9 +1204,11 @@ class Simulation:
                 u, v, w, pp, p, we2, ppe, dtrk, dxi, dyi, self.dzci_t,
                 self.dzfi_t, fuv, alpha=alpha, impdiff=cfg.impdiff,
                 impdiff_1d=cfg.impdiff_1d, ypp=ypp,
-                yv=None if yv2 is None else yv2[0], yh=hpp)
+                yv=None if yv2 is None else yv2[0], yh=hpp, xpp=xpp,
+                xu=xu2)
         vlo = self._advance_wall_planes(state, pp, ppe, we2, dtrk,
-                                        ypred=ypred, ypp=ypp)
+                                        ypred=ypred, ypp=ypp, xpred=xpred,
+                                        xpp=xpp)
         # post-correction fill (main.f90:500-501, is_correc=.true.): the
         # wall model runs here, once a substep; with the fused correction
         # its planes are the fused correction's, made from the same
@@ -1065,10 +1217,12 @@ class Simulation:
         zq = self._zedge_vel(u, v, w, *bcs, vlo=vlo, is_correc=True)
         yq = (self._yedge_vel(u, v, w, bcs, vlo=vlo, is_correc=True)
               if self.ywalled else None)
+        xq = (self._xedge_vel(u, v, w, bcs, vlo=vlo, is_correc=True)
+              if self.xwalled else None)
         if self.sgs_kernel:
             visct = self._sgs_stage(u, v, w, zq, vlo, yq)
         return state._replace(u=u, v=v, w=w, p=p, visct=visct, vlo=vlo,
-                              rhs_old=(ru, rv, rw), zq=zq, yq=yq), f
+                              rhs_old=(ru, rv, rw), zq=zq, yq=yq, xq=xq), f
 
     def _step_impl(self, state: State, dt: float):
         """One time step = 3 RK substeps (main.f90:417-507)."""

@@ -13,8 +13,12 @@ kernel, correc_smag's 'E' recipe; its example through the CLI too) and the
 wall-modelled duct LES (the wall model on four faces, smag's y-wall
 variant; its example at 512x80x80 through the CLI too) through
 driver.run at 512x256x256, the Taylor-Green
-vortex at 512^3 by both solve routes, compare the card with the CPU
-step for step, and run the channel LES on a y-slab mesh of two ranks that
+vortex at 512^3 by both solve routes, the x-walled classes (the four
+examples developing_channel, closed_box, lid_driven_cavity and
+developing_duct through the CLI, the developing channel and the
+lid-driven cavity through driver.run at 512x256x256), compare the card
+with the CPU step for step, and run the channel LES on a y-slab mesh of
+two ranks that
 share the card (torch.distributed over gloo, staged through the host):
 the headline at 512x256x256 through driver.run, a small f64 case against
 the single-device run, and the CLI under torch.distributed.run.
@@ -94,6 +98,12 @@ VARIANT_ROWS = {
     "correc_smag ('E' recipe, wall model)": ('correc_smag', 'wm'),
     "smag (y walls, 'E' stacks)": ('smag', 'duct_e'),
     'wallmodel (four faces, y and z)': ('wallmodel', 'duct'),
+    'mom_rk (x walls)': ('mom_rk', 'xdev'),
+    'mom_rk (x and y walls)': ('mom_rk', 'xbox'),
+    'fillps (x walls)': ('fillps', 'xdev'),
+    'fillps (x and y walls)': ('fillps', 'xbox'),
+    'correc_updatep (x walls)': ('correc_updatep', 'xdev'),
+    'correc_updatep (x and y walls)': ('correc_updatep', 'xbox'),
 }
 # the kernels timed at the Taylor-Green vortex's 512^3 in phase 2b, each
 # reported as a kernel of its own: report name -> (kernel, variant)
@@ -194,6 +204,37 @@ DUCT_WMLES_CFG = dict(ng=HEADLINE_NG, l=(12.8, 2.0, 2.0), gtype=1, gr=0.0,
                       is_forced=(True, False, False), velf=(1.0, 0.0, 0.0),
                       sgstype='smag', dtype='float32', ptransform='mat',
                       lwm=DUCT_WM_LWM, hwm=0.1, **DUCT_BCS)
+# examples/developing_channel/input.nml at the headline grid (phase 11):
+# inflow u = 1 at x = 0, outflow at x = lx (u 'N', p 'D'), periodic y, z
+# walls, sgstype 'none', explicit diffusion, 'auto' (the port takes 'mat')
+XDEV_BCS = dict(
+    cbcvel=((('D', 'N', 'N'), ('P', 'P', 'P'), ('D', 'D', 'D')),
+            (('N', 'N', 'N'), ('P', 'P', 'P'), ('D', 'D', 'D'))),
+    cbcpre=(('N', 'P', 'N'), ('D', 'P', 'N')),
+    cbcsgs=(('N', 'P', 'D'), ('N', 'P', 'D')))
+XDEV_CFG = dict(ng=HEADLINE_NG, l=(1.0, 1.5, 1.0), gtype=1, gr=0.0,
+                cfl=0.95, dtmax=1e5, visci=1000.0, inivel='zer',
+                is_wallturb=False, sgstype='none', dtype='float32',
+                bcvel=(((1.0, 0.0, 0.0), (0.0,) * 3, (0.0,) * 3),
+                       ((0.0,) * 3,) * 3), **XDEV_BCS)
+# examples/developing_duct/input.nml's x and y faces: the developing
+# channel with y walls
+XDUCT_BCS = dict(
+    cbcvel=((('D', 'N', 'N'), ('D', 'D', 'D'), ('D', 'D', 'D')),
+            (('N', 'N', 'N'), ('D', 'D', 'D'), ('D', 'D', 'D'))),
+    cbcpre=(('N', 'N', 'N'), ('D', 'N', 'N')),
+    cbcsgs=(('N', 'D', 'D'), ('N', 'D', 'D')))
+XDUCT_CFG = dict(XDEV_CFG, **XDUCT_BCS)
+# examples/lid_driven_cavity/input.nml at the headline grid (phase 11b):
+# walls on all six faces, the top z face moving at u = 1
+ALLD = (('D', 'D', 'D'),) * 3
+XCAVITY_CFG = dict(ng=HEADLINE_NG, l=(1.0, 1.0, 1.0), gtype=1, gr=0.0,
+                   cfl=0.95, dtmax=1e5, visci=1000.0, inivel='zer',
+                   is_wallturb=False, sgstype='none', dtype='float32',
+                   cbcvel=(ALLD, ALLD), cbcpre=(('N',) * 3,) * 2,
+                   cbcsgs=(('D',) * 3,) * 2,
+                   bcvel=(((0.0,) * 3,) * 3,
+                          ((0.0,) * 3, (0.0,) * 3, (1.0, 0.0, 0.0))))
 # moving wall-parallel values on some y and z faces for the y-walled
 # kernel inputs: (face, dir, comp)
 MOVING = (((0.0,) * 3, (0.2, 0.0, -0.1), (0.0, 0.0, 0.0)),
@@ -376,6 +417,34 @@ def kernel_inputs(ng, dtype, dev, seed, big=False):
     d['e_stacks'] = [(r.contiguous(), c.contiguous()) for _, (r, c) in ext]
     d['fac_ex'] = (float(grid.dzc[0] * grid.dzci[1]),
                    float(grid.dzc[nz] * grid.dzci[nz - 1]))
+    # x walls: the developing channel's fills of the same interiors
+    # (periodic y; 'xdev') and the developing duct's (x and y walls, the
+    # columns with their y ghosts; 'xbox'), inflow and moving wall values,
+    # random kept lower faces for the corrector fill
+    xbc = (((1.0, 0.2, -0.1), (0.1, 0.0, 0.3), (0.2, -0.1, 0.0)),
+           ((0.05, 0.1, 0.2), (0.3, 0.0, 0.1), (0.4, 0.2, 0.0)))
+    xlo = (rnd(nz + 2, ny + 2, scale=1e-3), rnd(nz + 2, nx + 2, scale=1e-3),
+           rnd(ny + 2, nx + 2, scale=1e-3))
+    for key, bcs in (('xdev', XDEV_BCS), ('xbox', XDUCT_BCS)):
+        xcfg = Config(ng=ng, l=(1.0, 1.5, 1.0), gtype=1, gr=1.0,
+                      visci=1000.0, bcvel=xbc, **bcs)
+        xgrid = make_grid_from_config(xcfg)
+        xcbc = effective_cbcvel(xcfg)
+        xby = lambda iv: tuple(tuple(xbc[ib][d_][iv] for ib in range(2))  # noqa: E731
+                               for d_ in range(3))
+        xbv = [bnd.make_bc_values(ng, xby(iv), dtype, dev) for iv in range(3)]
+        yw = key == 'xbox'
+        cbcp = tuple((bcs['cbcpre'][0][q], bcs['cbcpre'][1][q])
+                     for q in range(3))
+        xargs = (xcbc, *xbv, xcfg.dl, xgrid.dzc, xgrid.dzf)
+        xsc = lambda q: bnd.xedge_scalar(q, cbcp, zero, xcfg.dl,  # noqa: E731
+                                         xgrid.dzc, ywalls=yw)
+        d[key + '_mom'] = (*bnd.xedge_velocity(
+            d['u'], d['v'], d['w'], *xargs, vlo=xlo, is_correc=True,
+            ywalls=yw), None, xsc(d['p']))
+        d[key + '_pred'] = bnd.xedge_velocity(d['u'], d['v'], d['w'],
+                                              *xargs, ywalls=yw)
+        d[key + '_pp'] = xsc(d['pp'])
     return d
 
 
@@ -396,16 +465,21 @@ def call(name, d, twin=False, variant=None, has_ruo=True, zrec=None):
         # xyz: no visct, the full-3D split 'xy+z' (the triperiodic and
         # channel DNS with full-3D implicit diffusion); les_xyz: visct,
         # 'xy+z'; tgv: no visct, explicit (the Taylor-Green vortex)
-        dns = variant in ('dns', 'xyz', 'tgv')
+        # xdev, xbox: no visct, explicit, x walls (the developing channel;
+        # the developing duct's x and y walls)
+        dns = variant in ('dns', 'xyz', 'tgv', 'xdev', 'xbox')
         split = {'dns': '1d', 'les_split': '1d', 'xyz': 'xy+z',
                  'les_xyz': 'xy+z'}.get(variant)
+        ye = d['y_mom'] if ywall else None
+        if variant == 'xbox':
+            ye = (*d['y_mom'][:3], None, d['y_mom'][4])
         out = list(fn(d['u'], d['v'], d['w'], None if dns else d['s'],
                       d['p'], d['ue'], d['ve'], d['we'],
                       None if dns else d['se'], d['pe'], *r, d['dzci'],
                       d['dzfi'], 2.1e-3, -1.1e-3 if has_ruo else 0.0,
                       d['visc'], d['dxi'], d['dyi'], (0.3, 0.0, 0.0),
-                      sums=(True, True), split=split,
-                      ye=d['y_mom'] if ywall else None))
+                      sums=(True, True), split=split, ye=ye,
+                      xe=d.get(f'{variant}_mom')))
         # partial sums: compare the per-plane totals
         out[6], out[7] = out[6].sum(dim=1), out[7].sum(dim=1)
         return dict(zip(('u', 'v', 'w', 'ru', 'rv', 'rw', 'usum', 'vsum'),
@@ -453,16 +527,23 @@ def call(name, d, twin=False, variant=None, has_ruo=True, zrec=None):
         # partial sums: compare the per-row totals
         return {'num': out[0].sum(dim=-1), 'den': out[1].sum(dim=-1)}
     if name == 'fillps':
+        xu = d[f'{variant}_pred'][0] if variant in ('xdev', 'xbox') else None
         return {'rhs': fn(d['u'], d['v'], d['w'], d['ue'], d['ve'], d['we'],
                           d['dzfi'], 1.0, d['dxi'], d['dyi'],
-                          yv=d['y_pred'][1] if ywall else None)}
+                          yv=d['y_pred'][1] if variant in ('duct', 'xbox')
+                          else None, xu=xu)}
     if name == 'correc_updatep':
-        imp = variant not in ('explicit', 'duct')
-        ykw = (dict(ypp=d['y_pp'], yv=d['y_pred'][1][0]) if ywall
-               else {})
+        xw = variant in ('xdev', 'xbox')
+        imp = variant not in ('explicit', 'duct') and not xw
+        ykw = (dict(ypp=d['y_pp'], yv=d['y_pred'][1][0])
+               if variant in ('duct', 'xbox') else {})
+        if xw:
+            # explicit, no deferred forcing (x walls run unforced)
+            ykw.update(xpp=d[f'{variant}_pp'], xu=d[f'{variant}_pred'][0])
         out = fn(d['u'], d['v'], d['w'], d['pp'], d['p'], d['we'], d['ppe'],
                  0.01, d['dxi'], d['dyi'], d['dzci'], d['dzfi'],
-                 None if imp else d['fuv'], alpha=-0.013 if imp else 0.0,
+                 None if imp or xw else d['fuv'],
+                 alpha=-0.013 if imp else 0.0,
                  impdiff=imp, impdiff_1d=imp and variant != 'impdiff',
                  **ykw)
         return dict(zip(('u', 'v', 'w', 'p'), out))
@@ -607,9 +688,11 @@ def time_ms(fn, n=10):
 # per-kernel variants held against the twins in phase 2; the first is the
 # one timed for the report in phase 2b
 VARIANTS = {
-    'mom_rk': ('les', 'dns', 'les_split', 'duct', 'xyz', 'les_xyz', 'tgv'),
-    'fillps': (None, 'duct'), 'correc_smag': (None, 'wm'),
-    'correc_updatep': ('impdiff_1d', 'explicit', 'duct', 'impdiff'),
+    'mom_rk': ('les', 'dns', 'les_split', 'duct', 'xyz', 'les_xyz', 'tgv',
+               'xdev', 'xbox'),
+    'fillps': (None, 'duct', 'xdev', 'xbox'), 'correc_smag': (None, 'wm'),
+    'correc_updatep': ('impdiff_1d', 'explicit', 'duct', 'impdiff', 'xdev',
+                       'xbox'),
     'apply_y': ('x_and_y', 'y_only'), 'z_eig': (None,),
     'thomas_z': ('helmholtz', 'poisson', 'helmholtz3d'),
     'smag': (None, 'duct_e', 'duct'),
@@ -670,6 +753,8 @@ WM_SOLVE_OPS, WM_STEP_OPS, WM_CORRECT_OPS = 28, 14, 16
 # variants whose reads or arithmetic differ from their kernel's first
 WORK_VARIANT = {('mom_rk', 'xyz'): (7, 6, 200),
                 ('mom_rk', 'tgv'): (7, 6, 200),
+                ('mom_rk', 'xdev'): (7, 6, 200),
+                ('mom_rk', 'xbox'): (7, 6, 200),
                 ('correc_updatep', 'impdiff'): (5, 4, 34),
                 ('dsmag_level2', 'cavity'): (16, 1, 147)}
 # the matrix-product kernels: their plain twin is a single library product
@@ -682,8 +767,19 @@ GRAPH_TIMED = ('wallmodel',)
 
 
 def ystacks(name, d, variant):
-    """The y-row stacks a y-walled variant reads, as tensors."""
-    if variant not in ('duct', 'cavity', 'duct_e'):
+    """The y-row stacks and x stacks a walled variant reads, as tensors."""
+    out = []
+    if variant in ('xdev', 'xbox'):
+        pairs = {'mom_rk': [q for q in d[f'{variant}_mom'] if q is not None],
+                 'fillps': [d[f'{variant}_pred'][0]],
+                 'correc_updatep': [d[f'{variant}_pp'],
+                                    d[f'{variant}_pred'][0]]}[name]
+        out = [q for pair in pairs for q in pair]
+        if variant == 'xdev':
+            return out
+        if name == 'mom_rk':
+            return out + [q for m in (0, 1, 2, 4) for q in d['y_mom'][m]]
+    elif variant not in ('duct', 'cavity', 'duct_e'):
         return []
     pairs = {'mom_rk': d['y_mom'], 'fillps': [d['y_pred'][1]],
              'correc_updatep': [d['y_pp'], (d['y_pred'][1][0],)],
@@ -691,7 +787,7 @@ def ystacks(name, d, variant):
              'dsmag_level2': d['y_pred'],
              # the stacks, the y walls' profiles and shear planes
              'smag': [*d['y_mom'][:3], d['ywall']]}[name]
-    return [q for pair in pairs for q in pair]
+    return out + [q for pair in pairs for q in pair]
 
 
 def work(name, d, variant=None):
@@ -995,6 +1091,13 @@ def drive(tag, cfg, dev, card, nsteps, per_step, ntime=30, hooks=None,
         # no flow through the walls: v on both y walls (the kept lower
         # face and the interior's last row)
         faces['v at y walls'] = (state.vlo[1][1:-1, 1:-1], state.v[:, -1])
+    if sim.xwalled:
+        # u on each x face where it is set (an inflow or a wall): its value
+        # there (the kept lower face and the interior's last column)
+        faces['u at the set x faces'] = tuple(
+            q - float(cfg.bcvel[ib][0][0]) for ib, q in
+            ((0, state.vlo[0][1:-1, 1:-1]), (1, state.u[:, :, -1]))
+            if sim.cbcvel[ib][0][0] == 'D')
     if sim.have_zwalls:
         # and w on both z walls: their face values (0, or W through
         # transpiring walls)
@@ -1006,18 +1109,19 @@ def drive(tag, cfg, dev, card, nsteps, per_step, ntime=30, hooks=None,
                      - state.w[-1].double().mean())
         say(f'  net flux through the z walls {flux:.3e}')
         require(abs(flux) <= 1e-6, f'{tag}: net z-wall flux {flux:.3e}')
-    for what, (lo, hi) in faces.items():
-        worst = max(float(lo.abs().max()), float(hi.abs().max()))
+    for what, planes in faces.items():
+        worst = max(float(q.abs().max()) for q in planes)
         say(f'  max |{what} - its face value| {worst:.3e}')
         require(worst <= 1e-6, f'{tag}: {what} off by {worst:.3e}')
-    lid = float(cfg.bcvel[1][2][1])
-    if lid:
-        # the lid's v on the z-top face: the mean of the last row and its
-        # ghost in the post-correction fill
-        face = 0.5 * (state.v[-1] + state.zq[1][2])
-        err = float((face - lid).abs().max())
-        say(f'  max |v - {lid}| on the lid {err:.3e}')
-        require(err <= 1e-5, f'{tag}: lid v off by {err:.3e}')
+    for iv in (0, 1):
+        lid = float(cfg.bcvel[1][2][iv])
+        if lid:
+            # the lid's u or v on the z-top face: the mean of the last row
+            # and its ghost in the post-correction fill
+            face = 0.5 * ((state.u, state.v)[iv][-1] + state.zq[iv][2])
+            err = float((face - lid).abs().max())
+            say(f'  max |{"uv"[iv]} - {lid}| on the lid {err:.3e}')
+            require(err <= 1e-5, f'{tag}: lid {"uv"[iv]} off by {err:.3e}')
     if cfg.sgstype != 'none':
         nmin, nmax = float(state.visct.min()), float(state.visct.max())
         say(f'  nu_t in [{nmin:.4e}, {nmax:.4e}]')
@@ -1423,12 +1527,49 @@ def phase_triperiodic(dev, card):
     return tri3, dns3
 
 
-def _card_vs_cpu(tag, cfg, dev, names, rel=(), two=False):
+def phase_xwalls(dev, card):
+    """Phase 11: the developing channel (examples/developing_channel's
+    physics) at 512x256x256 f32 through driver.run: the x-walled mom_rk,
+    fillps and correc_updatep, apply_y with the DCT-IV x operator, z_eig;
+    u at 1 on the inflow face, w at 0 on both z walls, the outflow's flux
+    the inflow's.  Phase 11b: the lid-driven cavity
+    (examples/lid_driven_cavity's physics) at 512x256x256 f32: the x- and
+    y-walled variants, the DCT-II x and y operators; no flow through the
+    six walls, the lid's u at 1.  Returns both runs' launches."""
+    from cales_torch.config import Config
+    per_step = dict(mom_rk=3, fillps=3, correc_updatep=3, apply_y=6,
+                    z_eig=3)
+    keep = {}
+    sim, xdev, res = drive('phase 11: developing channel',
+                           Config(**XDEV_CFG), dev, card, 5, per_step,
+                           keep=keep)
+    require(sim.xwalled and not sim.ywalled and 'x-walled variants' in
+            sim.exec_path(), 'phase 11: not on the x-walled path')
+    st = keep['state']
+    # the flux through the outflow face (the interior's last column of u)
+    # against the inflow's (the kept lower face); the grid is uniform in y
+    # and z
+    f_in = float(st.vlo[0][1:-1, 1:-1].double().mean())
+    f_out = float(st.u[:, :, -1].double().mean())
+    say(f'  flux through the inflow face {f_in:.7f}, the outflow face '
+        f'{f_out:.7f} (a unit area)')
+    require(abs(f_out - f_in) <= 1e-4 * abs(f_in),
+            f'phase 11: outflow flux {f_out:.7f}, inflow {f_in:.7f}')
+    res.update(flux_in=f_in, flux_out=f_out)
+    print(json.dumps({'developing_channel': res}), flush=True)
+    sim, xcav, res = drive('phase 11b: lid-driven cavity',
+                           Config(**XCAVITY_CFG), dev, card, 5, per_step)
+    require(sim.xwalled and sim.ywalled, 'phase 11b: not x- and y-walled')
+    print(json.dumps({'lid_driven_cavity': res}), flush=True)
+    return xdev, xcav
+
+
+def _card_vs_cpu(tag, cfg, dev, names, rel=(), two=False, fields=None):
     from cales_torch.grid import make_grid_from_config
     from cales_torch.initflow import initflow
     from cales_torch.timeloop import Simulation
     grid = make_grid_from_config(cfg)
-    u, v, w, p = initflow(cfg, grid)
+    u, v, w, p = fields if fields is not None else initflow(cfg, grid)
     with twopass() if two else contextlib.nullcontext():
         sims = [Simulation(cfg, grid, device=dv) for dv in (dev, 'cpu')]
         s32 = Simulation(cfg.replace(dtype='float32'), grid, device=dev)
@@ -1444,8 +1585,8 @@ def _card_vs_cpu(tag, cfg, dev, names, rel=(), two=False):
     for name, tol in names:
         a = getattr(g, name)
         b = getattr(c, name)
-        if name == 'vlo':    # the kept v and w wall planes
-            a, b = torch.cat([a[1], a[2]], 0), torch.cat([b[1], b[2]], 0)
+        if name == 'vlo':    # the kept u, v and w wall planes
+            a, b = (torch.cat([q.flatten() for q in x]) for x in (a, b))
         a = a.cpu()
         if name == 'p':
             a, b = a - a.mean(), b - b.mean()
@@ -1527,6 +1668,18 @@ def phase_card_vs_cpu(dev):
                      ('phase 6j (channel DNS, full-3D implicit)',
                       {**DNS_CFG, **small, 'impdiff_1d': False})):
         _card_vs_cpu(tag, Config(**cfg), dev, uvwp)
+    # the x-walled classes, their kept wall planes included, from
+    # perturbed initial fields (the examples' rest state keeps v at 0;
+    # the inflow classes start from the inflow's u = 1, not from rest, so
+    # that the first projection's f32 solve is not of an O(1/dt) jump)
+    for tag, cfg, ini in (('phase 6m (developing channel)', XDEV_CFG, 'uni'),
+                          ('phase 6n (developing duct)', XDUCT_CFG, 'uni'),
+                          ('phase 6o (lid-driven cavity)', XCAVITY_CFG,
+                           'zer')):
+        cfg = Config(**{**cfg, **small})
+        _card_vs_cpu(tag, cfg, dev, uvwp + (('vlo', 1e-11),),
+                     fields=_perturbed_fields(cfg.replace(inivel=ini),
+                                              SEED + 7))
 
 
 def _perturbed_fields(cfg, seed):
@@ -1939,6 +2092,15 @@ def main():
               steps=10, kernels=('mom_rk', 'fillps', 'correc_updatep',
                                  'smag', 'wallmodel', 'y-wall variant',
                                  'lower y'))
+    # the x-walled examples at their own 64^3
+    for tag, example, walled in (
+            ('phase 3f', 'developing_channel', '(x-walled'),
+            ('phase 3g', 'closed_box', '(x-y-walled'),
+            ('phase 3h', 'lid_driven_cavity', '(x-y-walled'),
+            ('phase 3i', 'developing_duct', '(x-y-walled')):
+        phase_cli(card, tag=tag, example=example, steps=20,
+                  kernels=('mom_rk', 'fillps', 'correc_updatep', 'apply_y',
+                           walled, 'x-ghost column stacks'))
     les = phase_les(dev, card)
     wmles, wm_steps = phase_wmles(dev, card)
     wmduct, wmduct_steps = phase_wmles_duct(dev, card)
@@ -1949,6 +2111,7 @@ def main():
                                     'cavity': res_cav})
     tgv = phase_tgv(dev, card)
     tri3, dns3 = phase_triperiodic(dev, card)
+    xdev, xcav = phase_xwalls(dev, card)
     phase_card_vs_cpu(dev)
     mesh_launches, halo_rows = phase_sharded(dev, card)
     rows.update(halo_rows)
@@ -1979,7 +2142,10 @@ def main():
     paths['apply_x'] = (mesh_launches, MESH_STEPS, 'apply_x')
     for row, name in HALO_ROWS.items():
         paths[row] = (mesh_launches, MESH_STEPS, name)
-    variant_path = {'duct': duct, 'cavity': cavity, 'helmholtz3d': dns3}
+    # the x-walled variants' on the developing channel (phase 11, 5 steps)
+    # and the lid-driven cavity (phase 11b, 5 steps)
+    variant_path = {'duct': duct, 'cavity': cavity, 'helmholtz3d': dns3,
+                    'xdev': xdev, 'xbox': xcav}
     for row, (name, variant) in VARIANT_ROWS.items():
         if name in ('dsmag_level1', 'dsmag_level2'):
             # the two-pass duct and cavity of phase 7d
