@@ -45,7 +45,11 @@ only, at ng = (512, 512, 512): apply_y with the x operator, mom_rk
 without nu_t (the Taylor-Green vortex's), thomas_periodic pinned and
 thomas_z pinned; the wall model on both log-law z faces (bench.py's hwm
 and visci) from the rows of a bulk flow (1 + u) corrected by pp
-('wallmodel') and as they are ('wallmodel rows').
+('wallmodel') and as they are ('wallmodel rows'), and on the four walls
+of the duct WMLES example ('wallmodel duct'); mom_rk with x walls and
+periodic y or y walls on random x stacks, without nu_t ('mom_rk x
+walls', 'mom_rk x+y walls'); smag with y walls on random y-row stacks,
+distances and shear planes ('smag y walls').
 Outputs are compared in float64 at (nx, ny, nz) = (72, 40, 48) and in
 float32 at --ng (bitwise, and max|this - baseline| / max|baseline|, the
 worst output); mom_rk's partial sums, whose parts differ (blocks of 256
@@ -81,7 +85,8 @@ CASES = ('channel', 'duct', 'cavity', 'z_eig', 'dsmag_level1',
          'thomas_z helmholtz', 'thomas_z poisson', 'thomas_z lam alpha',
          'thomas_z 512^3', 'fillps', 'fillps y walls', 'correc_updatep',
          'correc_updatep y walls', 'smag', 'smag halo', 'correc_smag',
-         'correc_smag N', 'wallmodel', 'wallmodel rows')
+         'correc_smag N', 'wallmodel', 'wallmodel rows', 'wallmodel duct',
+         'mom_rk x walls', 'mom_rk x+y walls', 'smag y walls')
 # the cases at their own shape, in float32 only
 BIG = {'apply_y x+y 512^3': (512, 512, 512), 'mom_rk 512^3': (512, 512, 512),
        'thomas_periodic 512^3': (512, 512, 512),
@@ -89,7 +94,7 @@ BIG = {'apply_y x+y 512^3': (512, 512, 512), 'mom_rk 512^3': (512, 512, 512),
 # the cases whose last two outputs are partial sums, compared as totals
 SUMS = ('mom_rk',)
 # the cases timed on the device by a CUDA graph too
-GRAPH = ('wallmodel', 'wallmodel rows')
+GRAPH = ('wallmodel', 'wallmodel rows', 'wallmodel duct')
 
 
 def _baseline(root: Path):
@@ -145,7 +150,16 @@ def _inputs(ng, dtype, seed):
         2, 0, 1, 3).contiguous()
     fuv = torch.tensor([0.05, -0.02], dtype=dtype, device='cuda')
     yh = [(rnd(nz, 2, nx), rnd(3, 2, nx)) for _ in range(5)]
-    return dict(f=f, e=e, ye=ye, yh=yh, alph2=alph2, dz=dz, ny_op=ny_op,
+    # x stacks (cols, corners) of u, v, w, visct, p: periodic y (nyc = ny)
+    # and with y walls (ny + 2); the y walls' distance, side and shear
+    # planes
+    xe = {n: [(rnd(nz, 3, n), rnd(3, 3, n)) for _ in range(5)]
+          for n in (ny, ny + 2)}
+    yc = (torch.arange(ny, device='cuda', dtype=dtype) + 0.5) / ny
+    ywall = (torch.minimum(yc, 1.0 - yc), (yc <= 0.5).to(dtype),
+             1e-2 * (1.0 + rnd(nz, nx)), 1e-2 * (1.0 + rnd(nz, nx)))
+    return dict(f=f, e=e, ye=ye, yh=yh, xe=xe, ywall=ywall, alph2=alph2,
+                dz=dz, ny_op=ny_op,
                 nx_op=nx_op, prof=prof, nearlo=nearlo, tauw=tauw, fuv=fuv,
                 slab=slab, wm_u=1.0 + f[0],
                 blocks=blocks, vz=vz, lam=lam, tri=_tri_inputs(ng, dtype),
@@ -214,11 +228,33 @@ def _channel_wm(Km, nz):
         h=0.1, l1d=2.0, visc=1.0 / 125_000.0)
 
 
+def _duct_wm(Km, ng):
+    """The wall model on the four walls of the duct WMLES example at ng,
+    as the checkout of kernels module Km builds it."""
+    base = Km.__name__.rsplit('.', 2)[0]
+    mod = {q: importlib.import_module(f'{base}.{q}')
+           for q in ('config', 'grid', 'wallmodel')}
+    bcs = dict(cbcvel=((('P', 'P', 'P'), ('D', 'D', 'D'),
+                        ('D', 'D', 'D')),) * 2,
+               cbcpre=(('P', 'N', 'N'),) * 2, cbcsgs=(('P', 'D', 'D'),) * 2)
+    cfg = mod['config'].Config(ng=ng, l=(12.8, 2.0, 2.0), gtype=1, gr=0.0,
+                               visci=20_000.0, sgstype='smag',
+                               lwm=((0, 1, 1), (0, 1, 1)), hwm=0.1, **bcs)
+    grid = mod['grid'].make_grid_from_config(cfg)
+    wm = mod['wallmodel']
+    return wm.wall_model(cfg, grid, wm.find_index_wm(cfg, grid))
+
+
 def _call(mods, d, case):
     Km, SKm = mods
     if case.startswith('apply_y'):
         return (SKm.apply_y(d['f'][0], d['ny_op'],
                             d['nx_op'] if 'x+y' in case else None),)
+    if case == 'wallmodel duct':
+        f = d['f']
+        nz, ny, nx = f[0].shape
+        return tuple(Km.wm_planes(d['wm_u'], f[1], _duct_wm(Km, (nx, ny, nz)),
+                                  w=f[2]))
     if case.startswith('wallmodel'):
         f = d['f']
         kw = ({} if case == 'wallmodel rows' else
@@ -265,6 +301,17 @@ def _call(mods, d, case):
                                d['alph2'], dz, dz, 40.0, 20.0,
                                avg='duct' if walls else 'channel',
                                ye=ye[:3] if walls else None)
+    if case in ('mom_rk x walls', 'mom_rk x+y walls'):
+        # x walls without nu_t (its x stack and visct absent)
+        yw = case == 'mom_rk x+y walls'
+        ny = f[0].shape[1]
+        xe = d['xe'][ny + 2 if yw else ny]
+        out = Km.mom_rk(f[0], f[1], f[2], None, f[4], e[0], e[1], e[2], None,
+                        e[4], *f[5:8], dz, dz, 0.01, -0.005, 5e-5, 40.0,
+                        20.0, (0.1, 0.0, 0.0), sums=(True, True),
+                        ye=(*ye[:3], None, ye[4]) if yw else None,
+                        xe=(*xe[:3], None, xe[4]))
+        return (*out[:6], out[6].sum(dim=1), out[7].sum(dim=1))
     if case.startswith('mom_rk'):
         # 512^3: the Taylor-Green vortex's, no nu_t and explicit
         big = case == 'mom_rk 512^3'
@@ -284,6 +331,10 @@ def _call(mods, d, case):
         return Km.correc_updatep(*f[:5], e[2], e[4], 0.01, 40.0, 20.0, dz,
                                  dz, ypp=ye[4] if walls else None,
                                  yv=ye[1][0] if walls else None)
+    if case == 'smag y walls':
+        return (Km.smag(*f[:3], *e[:3], dz, dz, 40.0, 20.0, 5e-5, d['prof'],
+                        d['prof'], d['nearlo'], *d['tauw'], ye=ye[:3],
+                        ywall=d['ywall']),)
     if case.startswith('smag'):
         return (Km.smag(*f[:3], *e[:3], dz, dz, 40.0, 20.0, 5e-5, d['prof'],
                         d['prof'], d['nearlo'], *d['tauw'],

@@ -22,9 +22,10 @@
 //          forcing sums measure the full prediction u + f12 rud
 //          (pallas_kernels.py:671-684);
 //   XW     x walls (the developing channel, the closed box, the lid-driven
-//          cavity and the developing duct; sgstype 'none', explicit
-//          diffusion, with YM periodic or y walls): the tile's halo
-//          columns -1 and nx of u, v, w and p come from their x stacks
+//          cavity and the developing duct, and their LES; with or without
+//          visct, with YM periodic or y walls, and with SPLIT 1 and YM
+//          periodic): the tile's halo columns -1 and nx of u, v, w, p
+//          (and visct) come from their x stacks
 //          (common.cuh xcol; with y walls the stacks carry the (y ghost,
 //          x ghost) corners), as the TPU kernel's xe bundle fixes them
 //          (cales_tpu timeloop.py:1883-1924).  Only the first and last
@@ -499,12 +500,22 @@ MomKernel<T> pick_mom_rk(int ym) {
                          : &mom_rk_kernel<T, SGS, SPLIT, Y_PERIODIC, false>;
 }
 
+// the x-walled variants: explicit with periodic y or y walls, split '1d'
+// with periodic y
+template <typename T, bool SGS>
+MomKernel<T> pick_mom_rk_xw(int ym, int split) {
+  return split == 1      ? &mom_rk_kernel<T, SGS, 1, Y_PERIODIC, true>
+         : ym == Y_WALLS ? &mom_rk_kernel<T, SGS, 0, Y_WALLS, true>
+                         : &mom_rk_kernel<T, SGS, 0, Y_PERIODIC, true>;
+}
+
 // y: the y-row stacks and corners of u, v, w, visct, p, in that order (10
 // pointers, all null with periodic y; visct's null without visct); with
 // halo set they are the slab's halos (rows (nz, 2, nx), corners
 // (3, 2, nx)) instead; then the x stacks and corners of the same five
-// fields (10 pointers, all null with periodic x; x walls run without
-// visct, split or halo, so its two are null).
+// fields (10 pointers, all null with periodic x; visct's null without
+// visct; x walls run with split 0 or, with periodic y, 1, never on a
+// slab).
 template <typename T>
 int launch_mom_rk(const T* u, const T* v, const T* w, const T* s, const T* p,
                   const T* ue, const T* ve, const T* we, const T* se,
@@ -527,12 +538,12 @@ int launch_mom_rk(const T* u, const T* v, const T* w, const T* s, const T* p,
       ys{y[6], y[7]}, yp{y[8], y[9]}, xu{y[10], y[11]}, xv{y[12], y[13]},
       xw_{y[14], y[15]}, xs{y[16], y[17]}, xp{y[18], y[19]};
   if (split < 0 || split > 2 || (halo && !yw) ||
-      (xw && (sgs || split != 0 || halo)))
+      (xw && (split == 2 || (split == 1 && yw) || halo)))
     return static_cast<int>(cudaErrorInvalidValue);
   const int ym = !yw ? Y_PERIODIC : halo ? Y_HALO : Y_WALLS;
   const MomKernel<T> kern =
-      xw ? (yw ? &mom_rk_kernel<T, false, 0, Y_WALLS, true>
-               : &mom_rk_kernel<T, false, 0, Y_PERIODIC, true>)
+      xw ? (sgs ? pick_mom_rk_xw<T, true>(ym, split)
+                : pick_mom_rk_xw<T, false>(ym, split))
       : sgs ? (split == 2   ? pick_mom_rk<T, true, 2>(ym)
                : split == 1 ? pick_mom_rk<T, true, 1>(ym)
                             : pick_mom_rk<T, true, 0>(ym))

@@ -23,6 +23,19 @@
 // step) unless a z wall is strictly nearer (the running minimum over
 // y-lo, y-hi, z-lo, z-hi of sgs.f90:104-146, the first minimum winning).
 //
+// The x-wall variant (XW, the developing channel, box and duct LES, with
+// periodic y or y walls; the port's choice: the JAX package runs static
+// Smagorinsky with x walls through XLA, cales_tpu/sgs.py:159 smag_visct,
+// its fused_smag excluding x walls) reads the tile's halo columns -1 and
+// nx of u, v, w from their x stacks as a plane is loaded (common.cuh
+// xcol; the stacks carry the wall model's 'E' corners where the caller
+// extrapolated them, sgs.extrapolate_stacks), as mom_rk's XW does, and
+// damps with the nearest wall in the order x, y, z: an x face whose u is
+// 'D' is a wall (an inflow face too, sgs.f90:76-81), its distance along x
+// per column and its (nz, ny) shear plane read at the cell; a later wall
+// serves a cell only where it is strictly nearer (the running minimum
+// over all six faces).
+//
 // Design: a z-march through shared memory, as correc_smag.cu's without
 // the correction.  The strain rate at a cell reads 30 values around it: u
 // and v on three planes, w on two, +-1 in x and y.  A block owns a TY x 32
@@ -96,7 +109,7 @@ struct SmGeo {
   static constexpr int MINB = sizeof(T) == 4 ? 1024 / NT : 2;
 };
 
-template <typename T, int YM>
+template <typename T, int YM, bool XW>
 __global__ void __launch_bounds__(SmGeo<T>::NT, SmGeo<T>::MINB)
     smag_kernel(
     const T* __restrict__ u, const T* __restrict__ v, const T* __restrict__ w,
@@ -107,8 +120,11 @@ __global__ void __launch_bounds__(SmGeo<T>::NT, SmGeo<T>::MINB)
     const T* __restrict__ tauw_lo, const T* __restrict__ tauw_hi,
     const T* __restrict__ dwy, const T* __restrict__ nearylo,
     const T* __restrict__ tauw_ylo, const T* __restrict__ tauw_yhi,
-    T* __restrict__ so, YRows<T> hu, YRows<T> hv, YRows<T> hw, int nz,
-    int ny, int nx, int kc, int have_zwalls, T dxi, T dyi, T visc) {
+    const T* __restrict__ dwx, const T* __restrict__ nearxlo,
+    const T* __restrict__ tauw_xlo, const T* __restrict__ tauw_xhi,
+    T* __restrict__ so, YRows<T> hu, YRows<T> hv, YRows<T> hw, YRows<T> xu,
+    YRows<T> xv, YRows<T> xw, int nz, int ny, int nx, int kc,
+    int have_zwalls, T dxi, T dyi, T visc) {
   using G = SmGeo<T>;
   constexpr int TY = G::TY, RPT = G::RPT, NT = G::NT, CPL = G::CPL;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -127,13 +143,24 @@ __global__ void __launch_bounds__(SmGeo<T>::NT, SmGeo<T>::MINB)
   // this thread's cells of the halo tile (e = tid + i NT): the offset of
   // each in its plane of the field (>= 0), or ~ its offset in the plane's
   // halo (< 0, on a slab) or y-row stack (< 0, y walls: rows -1, ny-1 and
-  // ny, and the ragged tile's rows past ny as row ny); x and y wrapped
+  // ny, and the ragged tile's rows past ny as row ny), or with x walls in
+  // its x stack (ox[i]); x and y wrapped
   constexpr int NC = (CPL + NT - 1) / NT;
+  constexpr int NYC_PAD = YM == Y_WALLS ? 2 : 0;
   int oc[NC];
+  bool ox[NC];
 #pragma unroll
   for (int i = 0; i < NC; ++i) {
     const int e = tid + i * NT, ly = e / SM_CX, lx = e - ly * SM_CX;
     const int gy = y0 - 1 + ly, wx = wrap_near(x0 - 1 + lx, nx);
+    ox[i] = XW && (x0 - 1 + lx == -1 || x0 - 1 + lx == nx);
+    if (XW && ox[i]) {
+      // column 0 (x = -1) or 2 (x = nx); rows past ny (a ragged last
+      // tile's, never stored) take row ny's
+      const int jj = YM == Y_WALLS ? min(gy, ny) + 1 : wrap_near(gy, ny);
+      oc[i] = ~((x0 - 1 + lx < 0 ? 0 : 2) * (ny + NYC_PAD) + jj);
+      continue;
+    }
     const int r = YM == Y_HALO    ? (gy < 0 ? 0 : gy == ny ? 1 : -1)
                   : YM == Y_WALLS ? (gy < 0        ? 0
                                      : gy >= ny - 1 ? min(gy - ny + 2, 2)
@@ -159,6 +186,14 @@ __global__ void __launch_bounds__(SmGeo<T>::NT, SmGeo<T>::MINB)
         yb[1] = yrow(hv, kz, 0, nz, nx);
         yb[2] = yrow(hw, kz, 0, nz, nx);
       }
+      // the x stacks' column 0 of plane kz
+      const T* xb[3] = {nullptr, nullptr, nullptr};
+      if (XW) {
+        const int nyc = ny + NYC_PAD;
+        xb[0] = yrow(xu, kz, 0, nz, nyc);
+        xb[1] = yrow(xv, kz, 0, nz, nyc);
+        xb[2] = yrow(xw, kz, 0, nz, nyc);
+      }
       T* const dst = ring(kz);
 #pragma unroll
       for (int i = 0; i < NC; ++i) {
@@ -167,7 +202,8 @@ __global__ void __launch_bounds__(SmGeo<T>::NT, SmGeo<T>::MINB)
         const int o = oc[i];
 #pragma unroll
         for (int f = 0; f < 3; ++f)
-          cp_async(dst + f * CPL + e, o >= 0 ? fb[f] + o : yb[f] + ~o);
+          cp_async(dst + f * CPL + e,
+                   o >= 0 ? fb[f] + o : (XW && ox[i] ? xb[f] : yb[f]) + ~o);
       }
     }
     cp_async_commit();
@@ -198,6 +234,14 @@ __global__ void __launch_bounds__(SmGeo<T>::NT, SmGeo<T>::MINB)
       ty_w[r] = (nearylo[y0 + ty + r] > T(0.5) ? tauw_ylo : tauw_yhi) + x0 +
                 tx;
     }
+  }
+  // x walls: the nearer x wall's distance at this column and its shear
+  // plane (nz, ny), read at the cell each step
+  T dxw = T(0);
+  const T* tx_w = nullptr;
+  if (XW && dwx != nullptr && x0 + tx < nx) {
+    dxw = dwx[x0 + tx];
+    tx_w = (nearxlo[x0 + tx] > T(0.5) ? tauw_xlo : tauw_xhi) + y0 + ty;
   }
   // plane k's spacings and profiles, and with y walls the nearer y
   // wall's shear at these cells, read a step ahead
@@ -237,16 +281,24 @@ __global__ void __launch_bounds__(SmGeo<T>::NT, SmGeo<T>::MINB)
       if (!inside[r]) continue;
       const T s0 = ring_strain<T, SM_CX>(uk, vk, wk, co + r * SM_CX, dxi,
                                          dyi, dzci_c, dzci_m, dzfi_c);
+      // the running minimum over the walls in the order x, y, z, a later
+      // wall serving only where strictly nearer: taken from z back to x,
+      // an earlier wall serving where it is no farther
+      bool any = have_zwalls;
       T tauw = lo_k ? tlo[r] : thi[r];
       T dist = dw_k;
-      if (YM == Y_WALLS && !(have_zwalls && dw_k < dy[r])) {
+      if (YM == Y_WALLS && !(any && dist < dy[r])) {
         tauw = ty_k[r];
         dist = dy[r];
+        any = true;
+      }
+      if (tx_w != nullptr && !(any && dist < dxw)) {
+        tauw = tx_w[static_cast<int64_t>(k) * ny + r];
+        dist = dxw;
+        any = true;
       }
       so[k * plane + idx + r * nx] =
-          have_zwalls || YM == Y_WALLS
-              ? van_driest_nut(s0, csd2_k, dist, tauw, visc)
-              : csd2_k * s0;
+          any ? van_driest_nut(s0, csd2_k, dist, tauw, visc) : csd2_k * s0;
     }
     if (k + 1 < k1) profiles(k + 1);
     cp_async_wait<1>();   // plane k+2, for step k+1
@@ -259,26 +311,37 @@ int launch_smag(const T* u, const T* v, const T* w, const T* ue, const T* ve,
                 const T* we, const T* dzci, const T* dzfi, const T* csd2,
                 const T* dw, const T* nearlo, const T* tauw_lo,
                 const T* tauw_hi, const T* dwy, const T* nearylo,
-                const T* tauw_ylo, const T* tauw_yhi, T* so,
-                const T* const* h, int nz, int ny, int nx, int ymode,
-                int have_zwalls, double dxi, double dyi, double visc,
-                void* stream) {
+                const T* tauw_ylo, const T* tauw_yhi, const T* dwx,
+                const T* nearxlo, const T* tauw_xlo, const T* tauw_xhi,
+                T* so, const T* const* h, const T* const* x, int nz, int ny,
+                int nx, int ymode, int have_zwalls, double dxi, double dyi,
+                double visc, void* stream) {
   // ymode: Y_PERIODIC, Y_WALLS (h the y-row stacks, and the y walls' van
-  // Driest inputs) or Y_HALO (h the halos)
+  // Driest inputs) or Y_HALO (h the halos); x the x stacks of u, v, w
+  // with x walls (periodic y or y walls), all null with periodic x, and
+  // the x walls' van Driest inputs, all null where no x face is a wall
   const bool rows = ymode != Y_PERIODIC;
+  const bool xw = x[0] != nullptr;
   for (int m = 0; m < 6; ++m)
-    if ((h[m] != nullptr) != rows)
+    if ((h[m] != nullptr) != rows || (x[m] != nullptr) != xw)
       return static_cast<int>(cudaErrorInvalidValue);
   if (ymode == Y_WALLS && (dwy == nullptr || nearylo == nullptr ||
                            tauw_ylo == nullptr || tauw_yhi == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
+  const bool xd = dwx != nullptr;
+  if ((xw && ymode == Y_HALO) || (xd && !xw) || xd != (nearxlo != nullptr) ||
+      xd != (tauw_xlo != nullptr) || xd != (tauw_xhi != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   const YRows<T> hu{h[0], h[1]}, hv{h[2], h[3]}, hw{h[4], h[5]};
+  const YRows<T> xu{x[0], x[1]}, xv{x[2], x[3]}, xw_{x[4], x[5]};
   using G = SmGeo<T>;
   constexpr int TY = G::TY;
   const size_t smem = sizeof(T) * SM_RING * 3 * G::CPL;
-  auto kern = ymode == Y_HALO    ? &smag_kernel<T, Y_HALO>
-              : ymode == Y_WALLS ? &smag_kernel<T, Y_WALLS>
-                                 : &smag_kernel<T, Y_PERIODIC>;
+  auto kern = xw ? (ymode == Y_WALLS ? &smag_kernel<T, Y_WALLS, true>
+                                     : &smag_kernel<T, Y_PERIODIC, true>)
+              : ymode == Y_HALO  ? &smag_kernel<T, Y_HALO, false>
+              : ymode == Y_WALLS ? &smag_kernel<T, Y_WALLS, false>
+                                 : &smag_kernel<T, Y_PERIODIC, false>;
   const cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -292,8 +355,9 @@ int launch_smag(const T* u, const T* v, const T* w, const T* ue, const T* ve,
                   static_cast<unsigned>((nz + kc - 1) / kc));
   kern<<<grid, G::NT, smem, static_cast<cudaStream_t>(stream)>>>(
       u, v, w, ue, ve, we, dzci, dzfi, csd2, dw, nearlo, tauw_lo, tauw_hi,
-      dwy, nearylo, tauw_ylo, tauw_yhi, so, hu, hv, hw, nz, ny, nx, kc,
-      have_zwalls, T(dxi), T(dyi), T(visc));
+      dwy, nearylo, tauw_ylo, tauw_yhi, dwx, nearxlo, tauw_xlo, tauw_xhi, so,
+      hu, hv, hw, xu, xv, xw_, nz, ny, nx, kc, have_zwalls, T(dxi), T(dyi),
+      T(visc));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -305,16 +369,21 @@ int launch_smag(const T* u, const T* v, const T* w, const T* ue, const T* ve,
                       const T* dzfi, const T* csd2, const T* dw,              \
                       const T* nearlo, const T* tauw_lo, const T* tauw_hi,    \
                       const T* dwy, const T* nearylo, const T* tauw_ylo,      \
-                      const T* tauw_yhi, T* so, const T* hur, const T* huc,   \
-                      const T* hvr, const T* hvc, const T* hwr,               \
-                      const T* hwc, int nz, int ny, int nx, int ymode,        \
-                      int have_zwalls, double dxi, double dyi, double visc,   \
-                      void* stream) {                                         \
+                      const T* tauw_yhi, const T* dwx, const T* nearxlo,      \
+                      const T* tauw_xlo, const T* tauw_xhi, T* so,            \
+                      const T* hur, const T* huc, const T* hvr,               \
+                      const T* hvc, const T* hwr, const T* hwc,               \
+                      const T* xur, const T* xuc, const T* xvr,               \
+                      const T* xvc, const T* xwr, const T* xwc, int nz,       \
+                      int ny, int nx, int ymode, int have_zwalls, double dxi, \
+                      double dyi, double visc, void* stream) {                \
     const T* const h[6] = {hur, huc, hvr, hvc, hwr, hwc};                     \
+    const T* const x[6] = {xur, xuc, xvr, xvc, xwr, xwc};                     \
     return cales::launch_smag<T>(u, v, w, ue, ve, we, dzci, dzfi, csd2, dw,   \
                                  nearlo, tauw_lo, tauw_hi, dwy, nearylo,      \
-                                 tauw_ylo, tauw_yhi, so, h, nz, ny, nx,       \
-                                 ymode, have_zwalls, dxi, dyi, visc, stream); \
+                                 tauw_ylo, tauw_yhi, dwx, nearxlo, tauw_xlo,  \
+                                 tauw_xhi, so, h, x, nz, ny, nx, ymode,       \
+                                 have_zwalls, dxi, dyi, visc, stream);        \
   }
 
 CALES_SMAG_ENTRY(cales_smag_f32, float)

@@ -22,6 +22,12 @@
 // (padded n) from the face's recipes: s q[idx] + c for the static BC
 // values of the effective letters (a periodic axis wraps the same way,
 // s = 1, c = 0), as cales_tpu's _row_pad_xy and _row_pad_xz fill them.
+// With x walls (XW, z faces with periodic y: the developing channel's wall
+// model, cales_tpu's x-walled _wm_fast route) a sampled row's padded
+// columns 0, nx and nx+1 come first from the x recipe of its component:
+// s q[idx] + c with c read per row from xc (the static x values at that
+// row; an inflow profile's vary along y), u's padded nx being its set_bc
+// rewrite slot, and then wrap along y as the rest of the row does.
 // With `corrected` (z faces with periodic y: the fused correction's rows)
 // a sample is fu + u - cx (pp(i+1) - pp(i)) or fv + v - cy (pp(j+1) -
 // pp(j)), in this order of operations.  A lane samples its own column
@@ -102,6 +108,12 @@ struct WmArgs {
   double rs[WM_FACES][2][3], rc[WM_FACES][2][3];
   double h, visc, ufloor;      // hwm, visc, the log law's floor on u_tau
   double ikap, blog, lhv, eps;  // 1/kappa, B, log(h/visc), the epsilon
+  // x walls: the x recipe of each component's padded columns 0, nx and
+  // nx+1 (idx < 0 counting from the end, the scale s; the offsets c per
+  // row in xc)
+  int xw;
+  int xidx[WM_FACES][2][3];
+  double xs[WM_FACES][2][3];
 };
 
 template <typename T>
@@ -110,6 +122,8 @@ struct WmFace {
   int ridx[2][3];
   T omc, coef, sv, lam_den, lam_c;
   T mag[2], rs[2][3], rc[2][3];
+  int xidx[2][3];
+  T xs[2][3];
   int64_t off;  // the face's planes in the output
 };
 
@@ -169,7 +183,7 @@ __device__ __forceinline__ int wm_wrap(int q, int n) {
 template <typename T>
 struct WmRec {
   T s, c;
-  int o, on;
+  int o, on, row;
 };
 
 template <typename T>
@@ -178,23 +192,25 @@ __device__ __forceinline__ WmRec<T> wm_rec(const WmFace<T>& f, int cq,
                                            int ix) {
   const int pos = p == 0 ? 0 : p == n ? 1 : p == n + 1 ? 2 : -1;
   int idx = p - 1;
-  WmRec<T> r{T(1), T(0), 0, 0};
+  WmRec<T> r{T(1), T(0), 0, 0, 0};
   if (pos >= 0) {
     idx = f.ridx[cq][pos] < 0 ? f.ridx[cq][pos] + n : f.ridx[cq][pos];
     r.s = f.rs[cq][pos];
     r.c = f.rc[cq][pos];
   }
+  r.row = idx;
   r.o = idx * stride + ii;
   r.on = cq == 0 ? idx * stride + ix
                  : (idx + 1 == n ? 0 : idx + 1) * stride + ii;
   return r;
 }
 
-template <typename T>
+template <typename T, bool XW>
 __global__ void __launch_bounds__(CALES_THREADS)
     wallmodel_kernel(const T* __restrict__ u, const T* __restrict__ v,
                      const T* __restrict__ w, const T* __restrict__ pp,
                      const T* __restrict__ fuv, const T* __restrict__ wz,
+                     const T* __restrict__ xc,
                      T* __restrict__ out, int nz, int ny, int nx,
                      int corrected, const __grid_constant__ WmFaces<T> fs,
                      T cx, T cy, WmConst<T> c) {
@@ -257,14 +273,36 @@ __global__ void __launch_bounds__(CALES_THREADS)
     }
     return r.s * val + r.c;
   };
+  // x walls: this lane's padded column as an x-recipe entry (0, 1, 2 for
+  // padded 0, nx, nx+1; -1 inside), and a sample of component cq of the
+  // face's k-th row there: the x recipe at the row r.row, then the row's
+  // recipe along y
+  const int ic = min(max(i, 0), px - 1);
+  const int xpos = !XW ? -1 : ic == 0 ? 0 : ic == nx ? 1 : ic == nx + 1 ? 2
+                                                                       : -1;
+  auto sample_x = [&](const T* q, int cq, const WmRec<T>& r, int64_t rbase,
+                      int k) {
+    const int ci = f.xidx[cq][xpos] < 0 ? f.xidx[cq][xpos] + nx
+                                        : f.xidx[cq][xpos];
+    const T c = xc[((((blockIdx.z >> 1) * 2 + cq) * 2 + k) * 3 + xpos) * ny +
+                   r.row];
+    const T val = f.xs[cq][xpos] * q[rbase + r.row * stride + ci] + c;
+    return r.s * val + r.c;
+  };
   T mine[2], oth_a[2], oth_b[2];
 #pragma unroll
   for (int k = 0; k < 2; ++k) {
     const int r = k == 0 ? f.r1 : f.r2;
     const int64_t rbase = yface ? static_cast<int64_t>(r) * nx : r * plane;
-    mine[k] = sample(qm, fm, cm, rm, rbase);
-    oth_a[k] = sample(qo, fo, co, ra, rbase);
-    oth_b[k] = sample(qo, fo, co, rb, rbase);
+    if (XW && xpos >= 0) {
+      mine[k] = sample_x(qm, own, rm, rbase, k);
+      oth_a[k] = sample_x(qo, oth, ra, rbase, k);
+      oth_b[k] = sample_x(qo, oth, rb, rbase, k);
+    } else {
+      mine[k] = sample(qm, fm, cm, rm, rbase);
+      oth_a[k] = sample(qo, fo, co, ra, rbase);
+      oth_b[k] = sample(qo, fo, co, rb, rbase);
+    }
   }
   const T q4 = T(0.25), h2 = T(0.5);
   auto rel = [&](T q1, T q2_, T mag) {
@@ -328,6 +366,8 @@ WmFace<T> wm_face(const WmArgs& a, int n, int64_t off) {
       f.ridx[q][p] = a.ridx[n][q][p];
       f.rs[q][p] = T(a.rs[n][q][p]);
       f.rc[q][p] = T(a.rc[n][q][p]);
+      f.xidx[q][p] = a.xidx[n][q][p];
+      f.xs[q][p] = T(a.xs[n][q][p]);
     }
   }
   f.off = off;
@@ -336,11 +376,16 @@ WmFace<T> wm_face(const WmArgs& a, int n, int64_t off) {
 
 template <typename T>
 int launch_wallmodel(const T* u, const T* v, const T* w, const T* pp,
-                     const T* fuv, const T* wz, T* out, int nz, int ny,
-                     int nx, int corrected, double cx, double cy,
+                     const T* fuv, const T* wz, const T* xc, T* out, int nz,
+                     int ny, int nx, int corrected, double cx, double cy,
                      const WmArgs* a, void* stream) {
   if (a->nf < 1 || a->nf > WM_FACES)
     return static_cast<int>(cudaErrorInvalidValue);
+  // x walls: z faces only, their rows as they are, the offsets given
+  if (a->xw && (xc == nullptr || corrected))
+    return static_cast<int>(cudaErrorInvalidValue);
+  for (int n = 0; a->xw && n < a->nf; ++n)
+    if (a->d[n] != 2) return static_cast<int>(cudaErrorInvalidValue);
   const WmConst<T> c{T(a->h),    T(a->visc), T(a->ufloor), T(a->ikap),
                      T(a->blog), T(a->lhv),  T(a->eps)};
   WmFaces<T> fs;
@@ -360,8 +405,11 @@ int launch_wallmodel(const T* u, const T* v, const T* w, const T* pp,
   const dim3 grid(static_cast<unsigned>((nx + 2 + WM_OUT - 1) / WM_OUT),
                   static_cast<unsigned>((rows + WM_BY - 1) / WM_BY),
                   static_cast<unsigned>(2 * a->nf));
-  wallmodel_kernel<T><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      u, v, w, pp, fuv, wz, out, nz, ny, nx, corrected, fs, T(cx), T(cy), c);
+  auto kern =
+      a->xw ? &wallmodel_kernel<T, true> : &wallmodel_kernel<T, false>;
+  kern<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      u, v, w, pp, fuv, wz, xc, out, nz, ny, nx, corrected, fs, T(cx), T(cy),
+      c);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -369,11 +417,11 @@ int launch_wallmodel(const T* u, const T* v, const T* w, const T* pp,
 
 #define CALES_WALLMODEL_ENTRY(NAME, T)                                        \
   extern "C" int NAME(const T* u, const T* v, const T* w, const T* pp,        \
-                      const T* fuv, const T* wz, T* out, int nz, int ny,      \
-                      int nx, int corrected, double cx, double cy,            \
+                      const T* fuv, const T* wz, const T* xc, T* out, int nz, \
+                      int ny, int nx, int corrected, double cx, double cy,    \
                       const cales::WmArgs* args, void* stream) {              \
-    return cales::launch_wallmodel<T>(u, v, w, pp, fuv, wz, out, nz, ny, nx,  \
-                                      corrected, cx, cy, args, stream);       \
+    return cales::launch_wallmodel<T>(u, v, w, pp, fuv, wz, xc, out, nz, ny,  \
+                                      nx, corrected, cx, cy, args, stream);   \
   }
 
 CALES_WALLMODEL_ENTRY(cales_wallmodel_f32, float)

@@ -28,7 +28,9 @@ nx+1], padded x nx being u's set_bc rewrite slot, and their corners
 (3, 3, nyc); with y walls the columns carry their y ghosts (nyc = ny + 2),
 the (y ghost, x ghost) corners of the sequential fill.  Each is built by
 three gathers and fused multiply-adds of a recipe made once per field and
-fill (scalar BC values).
+fill; a plane-valued value on an x face (an inflow profile) or a z face
+(a moving lid, the wall model's Neumann planes) adds its share of the
+offsets at run time, with periodic y.
 
 
 BC values are python floats or padded 2-D planes (x-faces (nz+2, ny+2),
@@ -355,7 +357,8 @@ def _axis_recipe(letters, bvals, dr, n, face, keep):
     face-staggered field's set_bc rewrite slot), ghost hi] is
     scale * q[index] + offset (set_bc, bound.f90:232-399, scalar values).
     keep: the corrector fill's lower face, 0 here, which the caller
-    overwrites with the kept plane."""
+    overwrites with the kept plane.  The offsets are linear in the values
+    (b0, b1)."""
     (lo, hi), (b0, b1), (d0, d1) = letters, bvals, dr
     if lo == 'P':
         return ((n - 1, 1.0, 0.0), (n - 1, 1.0, 0.0), (0, 1.0, 0.0))
@@ -373,11 +376,13 @@ def _axis_recipe(letters, bvals, dr, n, face, keep):
 @functools.lru_cache(maxsize=256)
 def _recipe(lts, bvals, drs, face, keep, ywalls, shape, dtype, device):
     """The (index, scale, offset) tensors of _xstack's three passes on
-    `device`, built once for each field and fill (the BC values are static
-    scalars): along x and z the three entries of _axis_recipe; along y
-    (with y walls) the whole padded row range [lo, 0 .. ny-1, hi], the
-    face-staggered v's row ny-1 its rewrite slot.  Every caller shares the
-    tensors, which nothing writes."""
+    `device`, built once for each field and fill (bvals: the scalar BC
+    values, a plane-valued one as 0.0): along x and z the three entries of
+    _axis_recipe; along y (with y walls) the whole padded row range [lo, 0
+    .. ny-1, hi], the face-staggered v's row ny-1 its rewrite slot.  With
+    them, along x and z, the factors (3,) of each side's value in the
+    three offsets, which a plane-valued side adds at run time.  Every
+    caller shares the tensors, which nothing writes."""
     nz, ny, nx = shape
 
     def tensors(triples):
@@ -385,6 +390,13 @@ def _recipe(lts, bvals, drs, face, keep, ywalls, shape, dtype, device):
         return (torch.tensor(idx, device=device),
                 torch.tensor(sc, dtype=dtype, device=device),
                 torch.tensor(off, dtype=dtype, device=device))
+
+    def factors(d, n):
+        # the offsets of unit values on one side and none on the other
+        return tuple(torch.tensor(
+            [t[2] for t in _axis_recipe(lts[d], unit, drs[d], n, face == d,
+                                        keep[d])], dtype=dtype, device=device)
+            for unit in ((1.0, 0.0), (0.0, 1.0)))
     xr = tensors(_axis_recipe(lts[0], bvals[0], drs[0], nx, face == 0,
                               keep[0]))
     yr = None
@@ -395,7 +407,7 @@ def _recipe(lts, bvals, drs, face, keep, ywalls, shape, dtype, device):
         yr = tensors([lo, *inner, *([mid] if face == 1 else []), hi])
     zr = tensors(_axis_recipe(lts[2], bvals[2], drs[2], nz, face == 2,
                               keep[2]))
-    return xr, yr, zr
+    return xr, yr, zr, (factors(0, nx), factors(2, nz))
 
 
 def _fma(q, dim, rec):
@@ -408,6 +420,10 @@ def _fma(q, dim, rec):
                          sc.view(shape))
 
 
+def _is_plane(b):
+    return getattr(b, 'ndim', 0) == 2
+
+
 def _xstack(q, lts, bcs, drs, face, vlo=None, keep=(False, False, False),
             ywalls=False):
     """x-ghost columns of one field and their corners, as the sequential
@@ -415,15 +431,25 @@ def _xstack(q, lts, bcs, drs, face, vlo=None, keep=(False, False, False),
     recipe on the columns (their y ghosts and the y rewrite slot: the
     columns of the (y ghost, x ghost) corners), then the z recipe on the
     result; each pass one gather and one fused multiply-add of a recipe
-    built once (_recipe).  lts, bcs, drs: the (lo, hi) letters, scalar
-    values and spacings per direction; face: the direction along which q
-    is staggered (0, 1, 2, or None); keep[d]: the corrector fill's kept
-    lower face along d, from the padded plane vlo[d]."""
-    if any(getattr(b, 'ndim', 0) for pair in bcs for b in pair):
-        raise ValueError('x stacks take scalar BC values')
+    built once (_recipe).  lts, bcs, drs: the (lo, hi) letters, values and
+    spacings per direction; face: the direction along which q is
+    staggered (0, 1, 2, or None); keep[d]: the corrector fill's kept lower
+    face along d, from the padded plane vlo[d].  A value may be a padded
+    plane on the x faces ((nz+2, ny+2): an inflow profile, its interior
+    (z, y) entries) and on the z faces ((ny+2, nx+2): a moving lid, the
+    wall model's Neumann planes, their columns 0, nx and nx+1 at the
+    interior y rows, as cales_tpu's boundary._corner_cols takes them), with
+    periodic y: its contribution to the offsets is added at run time."""
     nz, ny, nx = q.shape
-    xr, yr, zr = _recipe(
-        tuple(tuple(x) for x in lts), tuple(tuple(map(float, b)) for b in bcs),
+    planes = {(d, ib): b for d, pair in enumerate(bcs)
+              for ib, b in enumerate(pair) if _is_plane(b)}
+    if any(d == 1 or ywalls for d, _ in planes):
+        raise ValueError('x stacks take plane-valued values on the x and z '
+                         'faces, with periodic y')
+    key = tuple(tuple(0.0 if _is_plane(b) else float(b) for b in pair)
+                for pair in bcs)
+    xr, yr, zr, (xfac, zfac) = _recipe(
+        tuple(tuple(x) for x in lts), key,
         tuple(tuple(map(float, d)) for d in drs), face, tuple(keep), ywalls,
         (nz, ny, nx), q.dtype, q.device)
     def xcolumns(plane):
@@ -432,6 +458,11 @@ def _xstack(q, lts, bcs, drs, face, vlo=None, keep=(False, False, False),
         # the stream)
         return torch.cat([plane[..., :1], plane[..., nx:nx + 2]], dim=-1)
     cols = _fma(q.transpose(1, 2), 1, xr)
+    for ib in range(2):
+        if (0, ib) in planes:
+            # the profile's interior entries (nz, ny) into the three columns
+            b = planes[(0, ib)][1:-1, 1:-1].to(q.dtype)
+            cols = torch.addcmul(cols, xfac[ib].view(1, 3, 1), b[:, None])
     if keep[0]:
         cols[:, 0] = vlo[0][1:-1, 1:-1]
     if ywalls:
@@ -439,6 +470,11 @@ def _xstack(q, lts, bcs, drs, face, vlo=None, keep=(False, False, False),
         if keep[1]:
             cols[:, :, 0] = xcolumns(vlo[1][1:-1])
     corners = _fma(cols, 0, zr)
+    for ib in range(2):
+        if (2, ib) in planes:
+            # the plane's columns [0, nx, nx+1] (3, ny) into the three rows
+            b = xcolumns(planes[(2, ib)][1:-1]).T.to(q.dtype)
+            corners = torch.addcmul(corners, zfac[ib].view(3, 1, 1), b[None])
     if keep[2]:
         lo = xcolumns(vlo[2]).T
         corners[0] = lo if ywalls else lo[:, 1:-1]

@@ -29,11 +29,13 @@ comes with its y-row stack: a pair (rows (nz, 3, nx), corners (3, 3, nx))
 from ops/boundary.yedge_* (the y-walled variants of mom_rk, fillps,
 correc_updatep, smag and the three dsmag kernels, the duct and cavity
 classes).  With x walls (the developing channel, the closed box, the
-lid-driven cavity and the developing duct) x does not wrap either:
-mom_rk, fillps and correc_updatep take the fields' x stack pairs (cols
-(nz, 3, nyc), corners (3, 3, nyc), nyc = ny, or ny + 2 with y walls) from
-ops/boundary.xedge_*, and read the columns -1 and nx (and u's rewrite
-column nx - 1 in the prediction fill) from them.
+lid-driven cavity and the developing duct, and their LES) x does not wrap
+either: mom_rk, fillps, correc_updatep and smag take the fields' x stack
+pairs (cols (nz, 3, nyc), corners (3, 3, nyc), nyc = ny, or ny + 2 with y
+walls) from ops/boundary.xedge_*, and read the columns -1 and nx (and u's
+rewrite column nx - 1 in the prediction fill) from them; the wall model's
+sampled z rows take their x ghosts from the x faces' values
+(wallmodel.WallFace.xfills).
 On a slab of a y-sharded mesh (parallel/mesh.py) x wraps and y does not:
 mom_rk, fillps, correc_updatep and smag take yh, the halo pairs (rows
 (nz, 2, nx), corners (3, 2, nx)) of the fields they read across the slab's
@@ -51,6 +53,7 @@ import ctypes
 import functools
 import math
 
+import numpy as np
 import torch
 
 from . import stencil as st
@@ -228,32 +231,39 @@ def correc_smag_plain(u, v, w, pp, p, ue, ve, we, ppe, dtrk, dxi, dyi,
 
 
 def _van_driest(s0, visc, csd2, dw, nearlo, tauw_lo, tauw_hi, have_zwalls,
-                ywall=None):
+                ywall=None, xwall=None):
     """nu_t = (Cs Delta)^2 fd^2 |S| with the nearest wall's van Driest
     damping fd (sgs.f90:104-152); fd = 1 without walls.  ywall = (dwy,
     nearylo, tauw_ylo, tauw_yhi): with y walls, the (ny,) distance to the
     nearer y wall and 1 where it is the lower one, and the two y walls'
-    (nz, nx) shear planes; a z wall serves a cell only where it is
-    strictly nearer than the y wall (the running minimum over y-lo, y-hi,
-    z-lo, z-hi, the first minimum winning)."""
+    (nz, nx) shear planes; xwall = (dwx, nearxlo, tauw_xlo, tauw_xhi): with
+    x walls (an x face whose u is 'D': an inflow face is one), the same
+    along x, the shear planes (nz, ny).  The walls are taken in the order
+    x, y, z, and a later one serves a cell only where it is strictly nearer
+    than the nearest before it (the running minimum over x-lo, x-hi, y-lo,
+    y-hi, z-lo, z-hi, the first minimum winning)."""
     c3 = csd2[:, None, None]
-    if not have_zwalls and ywall is None:
-        return c3 * s0
-    if have_zwalls:
-        tauw = torch.where(nearlo[:, None, None] > 0.5, tauw_lo[None],
-                           tauw_hi[None])
-        dist = dw[:, None, None]
+    walls = []
+    if xwall is not None:
+        dwx, nearxlo, txlo, txhi = xwall
+        walls.append((torch.where(nearxlo[None, None, :] > 0.5,
+                                  txlo[:, :, None], txhi[:, :, None]),
+                      dwx[None, None, :]))
     if ywall is not None:
         dwy, nearylo, tylo, tyhi = ywall
-        tauw_y = torch.where(nearylo[None, :, None] > 0.5, tylo[:, None],
-                             tyhi[:, None])
-        dist_y = dwy[None, :, None]
-        if have_zwalls:
-            z = dist < dist_y
-            tauw = torch.where(z, tauw, tauw_y)
-            dist = torch.where(z, dist, dist_y)
-        else:
-            tauw, dist = tauw_y, dist_y
+        walls.append((torch.where(nearylo[None, :, None] > 0.5,
+                                  tylo[:, None], tyhi[:, None]),
+                      dwy[None, :, None]))
+    if have_zwalls:
+        walls.append((torch.where(nearlo[:, None, None] > 0.5, tauw_lo[None],
+                                  tauw_hi[None]), dw[:, None, None]))
+    if not walls:
+        return c3 * s0
+    tauw, dist = walls[0]
+    for tauw_n, dist_n in walls[1:]:
+        nearer = dist_n < dist
+        tauw = torch.where(nearer, tauw_n, tauw)
+        dist = torch.where(nearer, dist_n, dist)
     tauw_s = 0.5 * visc * tauw
     dw_plus = dist * torch.sqrt(tauw_s) / visc
     fd = 1.0 - torch.exp(-dw_plus / 25.0)
@@ -262,13 +272,14 @@ def _van_driest(s0, visc, csd2, dw, nearlo, tauw_lo, tauw_hi, have_zwalls,
 
 def smag_plain(u, v, w, ue, ve, we, dzci, dzfi, dxi, dyi, visc, csd2, dw,
                nearlo, tauw_lo, tauw_hi, have_zwalls=True, yh=None, ye=None,
-               ywall=None):
+               ywall=None, xe=None, xwall=None):
     hu, hv, hw = (None,) * 3 if yh is None else yh
     yu, yv, yw = (None,) * 3 if ye is None else ye
-    s0 = st.strain_rate(padded(u, ue, yu, hu), padded(v, ve, yv, hv),
-                        padded(w, we, yw, hw), dzci, dzfi, dxi, dyi)
+    xu, xv, xw = (None,) * 3 if xe is None else xe
+    s0 = st.strain_rate(padded(u, ue, yu, hu, xu), padded(v, ve, yv, hv, xv),
+                        padded(w, we, yw, hw, xw), dzci, dzfi, dxi, dyi)
     return _van_driest(s0, visc, csd2, dw, nearlo, tauw_lo, tauw_hi,
-                       have_zwalls, ywall)
+                       have_zwalls, ywall, xwall)
 
 
 def _zext(q, wall_lo, wall_hi):
@@ -578,8 +589,8 @@ def mom_rk(u, v, w, s, p, ue, ve, we, se, pe, ruo, rvo, rwo, dzci, dzfi,
     corners) y-row stack pairs of (u, v, w, visct, p), visct's None without
     visct; yh: a slab of a y-sharded mesh, the halo pairs of the same five
     fields.  xe: x walls, the (cols, corners) x stack pairs of (u, v, w,
-    visct, p), visct's None (x walls run with sgstype 'none', explicit
-    diffusion and periodic y or y walls).  Returns (u, v, w, ru, rv, rw,
+    visct, p), visct's None without visct (with periodic y or y walls;
+    split '1d' with periodic y).  Returns (u, v, w, ru, rv, rw,
     usum, vsum); usum/vsum are None or per-(z, part) partial sums,
     (nz, parts): one part on the CPU, one a (y, x) tile of the kernel on
     the card."""
@@ -594,10 +605,12 @@ def mom_rk(u, v, w, s, p, ue, ve, we, se, pe, ruo, rvo, rwo, dzci, dzfi,
         raise ValueError('mom_rk: y walls or a slab halo, not both')
     xe = (None,) * 5 if xe is None else tuple(xe)
     if xe[0] is not None and (
-            any(xe[m] is None for m in (1, 2, 4)) or xe[3] is not None
-            or s is not None or split is not None or yh is not None):
-        raise ValueError('mom_rk: x walls take the x stacks of u, v, w and '
-                         'p, without visct, implicit diffusion or a slab')
+            any(xe[m] is None for m in (1, 2, 4))
+            or (xe[3] is None) != (s is None) or split == 'xy+z'
+            or (split is not None and ye is not None) or yh is not None):
+        raise ValueError('mom_rk: x walls take the x stacks of u, v, w, p '
+                         "and of visct where it is given, with split None "
+                         "or '1d' (periodic y), not on a slab")
     if (ruo is None) != (rvo is None) or (ruo is None) != (rwo is None):
         raise ValueError('mom_rk: pass all or none of ruo, rvo, rwo')
     if (s is None) != (se is None):
@@ -762,7 +775,8 @@ def correc_updatep(u, v, w, pp, p, we, ppe, dtrk, dxi, dyi, dzci, dzfi,
 
 
 def smag(u, v, w, ue, ve, we, dzci, dzfi, dxi, dyi, visc, csd2, dw, nearlo,
-         tauw_lo, tauw_hi, have_zwalls=True, yh=None, ye=None, ywall=None):
+         tauw_lo, tauw_hi, have_zwalls=True, yh=None, ye=None, ywall=None,
+         xe=None, xwall=None):
     """Static Smagorinsky nu_t with the nearer z wall's van Driest damping
     (sgs.f90:69-152) from the post-correction fill (interiors + edge
     stacks) in one pass.  csd2, dw, nearlo: (nz,) profiles (Cs Delta)^2,
@@ -772,16 +786,27 @@ def smag(u, v, w, ue, ve, we, dzci, dzfi, dxi, dyi, visc, csd2, dw, nearlo,
     pairs of (u, v, w) (extrapolated on wall-modelled faces by the
     caller, sgs.extrapolate_stacks), with ywall = (dwy, nearylo,
     tauw_ylo, tauw_yhi): the (ny,) distance to the nearer y wall and 1
-    where it is the lower one, the y walls' (nz, nx) shear planes; the
-    nearest of the four walls damps (see _van_driest)."""
+    where it is the lower one, the y walls' (nz, nx) shear planes.  xe: x
+    walls (periodic y or y walls), the (cols, corners) x stack pairs of
+    (u, v, w) (extrapolated on wall-modelled z faces by the caller,
+    sgs.extrapolate_stacks), with xwall = (dwx, nearxlo, tauw_xlo,
+    tauw_xhi), the (nx,) distance to the nearer x wall, 1 where it is the
+    lower one, and the x walls' (nz, ny) shear planes, or None where
+    neither x face is a wall.  The nearest wall damps (see
+    _van_driest)."""
     if (ye is None) != (ywall is None):
         raise ValueError('smag: y walls take ye and ywall together')
     if ye is not None and yh is not None:
         raise ValueError('smag: y walls or a slab halo, not both')
+    if xe is None and xwall is not None:
+        raise ValueError('smag: x walls take their x stacks')
+    if xe is not None and yh is not None:
+        raise ValueError('smag: x walls on a slab are not in the slice')
     if _on_cpu(u):
         return smag_plain(u, v, w, ue, ve, we, dzci, dzfi, dxi, dyi, visc,
                           csd2, dw, nearlo, tauw_lo, tauw_hi,
-                          have_zwalls=have_zwalls, yh=yh, ye=ye, ywall=ywall)
+                          have_zwalls=have_zwalls, yh=yh, ye=ye, ywall=ywall,
+                          xe=xe, xwall=xwall)
     nz, ny, nx = u.shape
     ys = (None,) * 3 if yh is None and ye is None else tuple(
         yh if yh is not None else ye)
@@ -789,25 +814,36 @@ def smag(u, v, w, ue, ve, we, dzci, dzfi, dxi, dyi, visc, csd2, dw, nearlo,
         raise ValueError('smag: pass the halos or y-row stacks of u, v and '
                          'w, or none')
     dwy, nearylo, tylo, tyhi = (None,) * 4 if ywall is None else ywall
+    dwx, nearxlo, txlo, txhi = (None,) * 4 if xwall is None else xwall
+    xs = (None,) * 3 if xe is None else tuple(xe)
+    if len({q is None for q in xs}) > 1:
+        raise ValueError('smag: pass the x stacks of u, v and w, or none')
     _check('smag', u, (u, v, w), planes=(tauw_lo, tauw_hi),
            edges=(ue, ve, we),
            profiles=((dzci, nz + 2), (dzfi, nz + 2), (csd2, nz), (dw, nz),
                      (nearlo, nz))
-           + (() if ywall is None else ((dwy, ny), (nearylo, ny))),
-           **_ysplit(ys, halo=yh is not None))
-    for t in (() if ywall is None else (tylo, tyhi)):
-        if (tuple(t.shape) != (nz, nx) or t.device != u.device
-                or t.dtype != u.dtype or not t.is_contiguous()):
-            raise ValueError(f'smag: y-wall shear planes contiguous '
-                             f'{(nz, nx)} {u.dtype} on {u.device}, got '
-                             f'{tuple(t.shape)} {t.dtype} on {t.device}')
+           + (() if ywall is None else ((dwy, ny), (nearylo, ny)))
+           + (() if xwall is None else ((dwx, nx), (nearxlo, nx))),
+           **_ysplit(ys, halo=yh is not None),
+           **_xsplit(xs, ny, ywalls=ye is not None))
+    for what, shape, group in (('y', (nz, nx), (tylo, tyhi)),
+                               ('x', (nz, ny), (txlo, txhi))):
+        for t in group:
+            if t is not None and (
+                    tuple(t.shape) != shape or t.device != u.device
+                    or t.dtype != u.dtype or not t.is_contiguous()):
+                raise ValueError(
+                    f'smag: {what}-wall shear planes contiguous {shape} '
+                    f'{u.dtype} on {u.device}, got {tuple(t.shape)} '
+                    f'{t.dtype} on {t.device}')
     ymode = 2 if yh is not None else 1 if ye is not None else 0
     out = torch.empty_like(u)
     d = ctypes.c_double
     _launch('smag', f'cales_smag_{_suffix(u)}',
             *map(_ptr, (u, v, w, ue, ve, we, dzci, dzfi, csd2, dw, nearlo,
-                        tauw_lo, tauw_hi, dwy, nearylo, tylo, tyhi, out)),
-            *_yptrs(ys), ctypes.c_int(nz), ctypes.c_int(ny),
+                        tauw_lo, tauw_hi, dwy, nearylo, tylo, tyhi, dwx,
+                        nearxlo, txlo, txhi, out)),
+            *_yptrs(ys), *_yptrs(xs), ctypes.c_int(nz), ctypes.c_int(ny),
             ctypes.c_int(nx), ctypes.c_int(ymode),
             ctypes.c_int(int(bool(have_zwalls))), d(dxi), d(dyi), d(visc))
     return out
@@ -958,13 +994,17 @@ class _WmArgs(ctypes.Structure):
                 ('rs', ctypes.c_double * 3 * 2 * _WM_FACES),
                 ('rc', ctypes.c_double * 3 * 2 * _WM_FACES),
                 *((q, ctypes.c_double) for q in
-                  ('h', 'visc', 'ufloor', 'ikap', 'blog', 'lhv', 'eps'))]
+                  ('h', 'visc', 'ufloor', 'ikap', 'blog', 'lhv', 'eps')),
+                ('xw', ctypes.c_int),
+                ('xidx', ctypes.c_int * 3 * 2 * _WM_FACES),
+                ('xs', ctypes.c_double * 3 * 2 * _WM_FACES)]
 
 
 def _wm_recipe(fill):
     """A sampled row's padded rows 0, n and n+1 along its fill's axis as
     (index, s, c): s q[index] + c, index < 0 from the end (wallmodel
-    pad_row, boundary._set_centered / _set_face with scalar values)."""
+    pad_row, boundary._set_centered / _set_face); c is linear in the
+    values, which may be arrays (an x face's values along a row)."""
     letters, (b0, b1), (d0, d1), stag = fill
     if letters == 'PP':
         return ((-1, 1.0, 0.0), (-1, 1.0, 0.0), (0, 1.0, 0.0))
@@ -983,11 +1023,38 @@ def _wm_recipe(fill):
     return lo, top, hi
 
 
+def _wm_xrows(face, q, ny):
+    """Face's x recipe of component q at its two sampled rows: the
+    (index, s) of padded columns 0, nx, nx+1 and their offsets c as a
+    (2 rows, 3, ny) float64 array (an x face's plane-valued value at the
+    rows' interior y entries)."""
+    rows = []
+    for letters, vals, dr, stag in (xf[q] for xf in face.xfills):
+        vr = tuple(np.asarray(b[1:ny + 1]) if isinstance(b, tuple) else b
+                   for b in vals)
+        rows.append(_wm_recipe((letters, vr, dr, stag)))
+    c = np.stack([np.stack([np.broadcast_to(np.asarray(t[2], np.float64),
+                                            (ny,)) for t in rec])
+                  for rec in rows])
+    return [(t[0], t[1]) for t in rows[0]], c
+
+
 @functools.cache
-def _wm_args(wm, dtype, nz, ny):
+def _wm_args(wm, dtype, device, nz, ny):
     """The static arguments of wm (a wallmodel.WallModel, its own key) for
-    fields of dtype with nz planes of ny rows: checked and built once, so
-    a call passes only its pointers, its mode and dtrk dxi, dtrk dyi."""
+    fields of dtype on device with nz planes of ny rows: checked and built
+    once, so a call passes only its pointers, its mode and dtrk dxi, dtrk
+    dyi.  With x walls also the x recipes' offsets on the device (faces, 2
+    components, 2 rows, 3 columns, ny), else None."""
+    args = _make_wm_args(wm, dtype, nz, ny)
+    if wm.faces[0].xfills is None:
+        return args, None
+    return args, torch.tensor(
+        np.stack([np.stack([_wm_xrows(f, q, ny)[1] for q in range(2)])
+                  for f in wm.faces]), dtype=dtype, device=device)
+
+
+def _make_wm_args(wm, dtype, nz, ny):
     faces = tuple(wm.faces)
     if not 1 <= len(faces) <= _WM_FACES:
         raise ValueError(f'wm_planes: {len(faces)} faces (one to '
@@ -1004,6 +1071,9 @@ def _wm_args(wm, dtype, nz, ny):
         if (nz if f.d == 1 else ny) < 2:
             raise ValueError('wm_planes: sampled rows of fewer than 2 '
                              'cells along their fill')
+        if (f.xfills is None) != (faces[0].xfills is None) or (
+                f.xfills is not None and f.d != 2):
+            raise ValueError('wm_planes: x walls take z faces only')
     a = _WmArgs(nf=len(faces), h=wm.h, visc=wm.visc,
                 ufloor=wm.visc / wm.h * wmod.LOG_FLOOR,
                 ikap=1.0 / wmod.KAP_LOG, blog=wmod.B_LOG,
@@ -1020,6 +1090,10 @@ def _wm_args(wm, dtype, nz, ny):
             for pos, (idx, rs, rc) in enumerate(_wm_recipe(f.fills[q])):
                 a.ridx[n][q][pos], a.rs[n][q][pos], a.rc[n][q][pos] = (
                     idx, rs, rc)
+            if f.xfills is not None:
+                a.xw = 1
+                for pos, (idx, xs) in enumerate(_wm_xrows(f, q, ny)[0]):
+                    a.xidx[n][q][pos], a.xs[n][q][pos] = idx, xs
     return a
 
 
@@ -1036,9 +1110,10 @@ def wm_planes(u, v, wm, fuv=None, pp=None, dtrk=0.0, dxi=0.0, dyi=0.0,
     wallmodel.WallModel, one to four y and z faces) in one launch: one
     (2, n+2, nx+2) tensor a face, [bcu, bcv] on a z face (n = ny), [bcu,
     bcw] on a y face (n = nz), from the interior u, v and (with y faces)
-    w, their rows sampled as they are or, on z faces with periodic y,
-    corrected by pp and the deferred forcing fuv = (fu, fv) (both given;
-    see wallmodel.wm_planes_plain)."""
+    w, their rows sampled as they are or, on z faces with periodic x and
+    y, corrected by pp and the deferred forcing fuv = (fu, fv) (both
+    given; see wallmodel.wm_planes_plain).  With x walls (z faces) the
+    rows take their x ghosts from the x faces' values."""
     if _on_cpu(u):
         return wm_planes_plain(u, v, wm, fuv=fuv, pp=pp, dtrk=dtrk, dxi=dxi,
                                dyi=dyi, w=w)
@@ -1049,7 +1124,7 @@ def wm_planes(u, v, wm, fuv=None, pp=None, dtrk=0.0, dxi=0.0, dyi=0.0,
     if u.numel() >= 2 ** 31:
         raise ValueError(f'wm_planes: {u.numel()} values a field (the '
                          'kernel indexes within a row in 32 bits)')
-    args = _wm_args(wm, u.dtype, nz, ny)
+    args, xc = _wm_args(wm, u.dtype, u.device, nz, ny)
     sizes = [2 * ((nz if f.d == 1 else ny) + 2) * (nx + 2) for f in wm.faces]
     out = u.new_empty(sum(sizes))
     wz = (None if wm.wei is None
@@ -1059,7 +1134,8 @@ def wm_planes(u, v, wm, fuv=None, pp=None, dtrk=0.0, dxi=0.0, dyi=0.0,
                          f'fields of nz = {nz}')
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     _launch('wallmodel', f'cales_wallmodel_{_suffix(u)}', u.data_ptr(),
-            v.data_ptr(), ptr(w), ptr(pp), ptr(fuv), ptr(wz), out.data_ptr(),
+            v.data_ptr(), ptr(w), ptr(pp), ptr(fuv), ptr(wz), ptr(xc),
+            out.data_ptr(),
             nz, ny, nx, int(pp is not None), float(dtrk * dxi),
             float(dtrk * dyi), ctypes.addressof(args))
     return tuple(q.view(2, -1, nx + 2) for q in torch.split(out, sizes))

@@ -3,7 +3,7 @@
     python -m cales_torch.profile_step
         [--case les|les-mat|les-imp|dns|dns-imp3d|dsmag|dsmag-blow|duct|
                 cavity|tgv|tgv-fft|tri|tri-imp3d|wmles|wmles-duct|
-                xchannel|xcavity]
+                xchannel|xcavity|xwmles|xles-imp|xduct-les]
         [--ng NXxNYxNZ]
         [--steps 3]
 
@@ -42,7 +42,15 @@ periodic y, z walls, sgstype 'none', 'auto' -> 'mat': the x-walled mom_rk,
 fillps and correc_updatep on the x stacks, apply_y with the DCT-IV x
 operator) and 'xcavity' examples/lid_driven_cavity's (walls on all six
 faces, the top z face moving at u = 1: the x- and y-walled variants, the
-DCT-II x and y operators).  The grid is 512x256x256, 512^3
+DCT-II x and y operators); 'xwmles' the developing wall-modelled channel
+LES (6.4 x 3.2 x 2, gtype 6, visci 50 000, smag, the log-law wall model on
+both z walls at hwm 0.1, a 1/7-power inflow profile, outflow, periodic y:
+the x-walled mom_rk with nu_t, smag's x-wall variant on the 'E' x
+stacks, the wall model's x-walled sampling; the physics of
+tests/test_pallas_kernels.py:538), 'xles-imp' the developing channel LES
+with z-implicit diffusion (visci 20 000, smag, impdiff_1d: mom_rk's
+x-walled '1d' split, thomas_z CN solves) and 'xduct-les' the developing
+duct LES (smag's x- and y-wall variant).  The grid is 512x256x256, 512^3
 for the tgv cases, unless --ng says otherwise.  The device's idle share is 1 - (device busy
 time / wall time of the profiled window).
 Needs a CUDA device.
@@ -93,6 +101,11 @@ XDEV_BCS = dict(
             (('N', 'N', 'N'), ('P', 'P', 'P'), ('D', 'D', 'D'))),
     cbcpre=(('N', 'P', 'N'), ('D', 'P', 'N')),
     cbcsgs=(('N', 'P', 'D'), ('N', 'P', 'D')))
+XDUCT_BCS = dict(
+    cbcvel=((('D', 'N', 'N'), ('D', 'D', 'D'), ('D', 'D', 'D')),
+            (('N', 'N', 'N'), ('D', 'D', 'D'), ('D', 'D', 'D'))),
+    cbcpre=(('N', 'N', 'N'), ('D', 'N', 'N')),
+    cbcsgs=(('N', 'D', 'D'), ('N', 'D', 'D')))
 ALLD = (('D', 'D', 'D'),) * 3
 XBOX_BCS = dict(cbcvel=(ALLD, ALLD), cbcpre=(('N',) * 3,) * 2,
                 cbcsgs=(('D',) * 3,) * 2)
@@ -157,7 +170,33 @@ CASES = {
                     bcvel=(((0.0,) * 3,) * 3,
                            ((0.0,) * 3, (0.0,) * 3, (1.0, 0.0, 0.0))),
                     **XBOX_BCS),
+    # the inflow profile is added from the grid (power_law_inflow)
+    'xwmles': dict(REST, l=(6.4, 3.2, 2.0), gtype=6, visci=50_000.0,
+                   inivel='uni', sgstype='smag', lwm=((0, 0, 1), (0, 0, 1)),
+                   hwm=0.1, **XDEV_BCS),
+    'xles-imp': dict(REST, l=(1.0, 1.5, 1.0), visci=20_000.0,
+                     sgstype='smag', impdiff=True, impdiff_1d=True,
+                     bcvel=(((1.0, 0.0, 0.0), (0.0,) * 3, (0.0,) * 3),
+                            ((0.0,) * 3,) * 3), **XDEV_BCS),
+    'xduct-les': dict(REST, l=(1.0, 1.5, 1.0), visci=20_000.0,
+                      sgstype='smag',
+                      bcvel=(((1.0, 0.0, 0.0), (0.0,) * 3, (0.0,) * 3),
+                             ((0.0,) * 3,) * 3), **XDUCT_BCS),
 }
+
+
+def power_law_inflow(cfg):
+    """cfg with a 1/7-power inflow profile on its lower x face: u = (8/7)
+    min(z, lz - z)^(1/7) (0 where that is negative) at the cell centres of
+    cfg's own grid, over the padded (nz+2, ny+2) face; a developing
+    turbulent channel's mean inflow of unit bulk velocity for lz = 2."""
+    from .grid import make_grid_from_config
+    zc = make_grid_from_config(cfg).zc
+    prof = (8.0 / 7.0) * np.clip(np.minimum(zc, cfg.l[2] - zc), 0.0,
+                                 None) ** (1.0 / 7.0)
+    face = np.repeat(prof[:, None], cfg.ng[1] + 2, axis=1)
+    return cfg.replace(bcvel=((((face, 0.0, 0.0),) + ((0.0,) * 3,) * 2),
+                              ((0.0,) * 3,) * 3))
 
 
 def stage_of(name: str) -> str:
@@ -195,6 +234,8 @@ def main(argv=None):
     if args.ng:
         kw['ng'] = tuple(int(x) for x in args.ng.lower().split('x'))
     cfg = Config(**kw)
+    if args.case == 'xwmles':
+        cfg = power_law_inflow(cfg)
     ng = cfg.ng
     grid = make_grid_from_config(cfg)
     sim = Simulation(cfg, grid, device='cuda')

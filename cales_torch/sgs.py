@@ -10,7 +10,9 @@ fields serve the initial fill; each substep's nu_t comes out of a kernel
 (ops/kernels.correc_smag, smag or dsmag), and ``dsmag_visct`` is the model
 the dsmag kernel's plain twin is held to.  ``extrapolate_stacks`` is
 ``extrapolate`` on a field held as edge stacks: the ghosts smag's y-wall
-variant reads on wall-modelled faces.
+variant reads on wall-modelled faces, and with periodic y the z ghosts
+of an x stack pair (its columns and their corners in place of the
+interior and its z-edge stack), which smag's x-wall variant reads.
 """
 from __future__ import annotations
 
@@ -61,14 +63,28 @@ def extrapolate(p, iface, flags, factors):
 def extrapolate_stacks(q, ze, y, iface, flags, factors):
     """extrapolate on a field held as its interior q (nz, ny, nx), its
     z-edge stack ze (3, ny, nx) and its y-row stack pair y = (rows (nz, 3,
-    nx), corners (3, 3, nx)) (ops/boundary.zedge_*, yedge_*): the ghost
-    rows the sequential fill gives, extrapolated along y and then z where
-    flags says, as extrapolate does on the padded field (so a corner is
-    the z extrapolation of the y-extrapolated rows).  Returns (ze, (rows,
-    corners)), new tensors where anything changed."""
+    nx), corners (3, 3, nx)) (ops/boundary.zedge_*, yedge_*), or y = None
+    with periodic y (then q and ze may be an x stack's columns (nz, 3,
+    nyc) and corners (3, 3, nyc), ops/boundary.xedge_*: the z pass is the
+    same on them, the x faces carrying no wall model): the ghost rows the
+    sequential fill gives, extrapolated along y and then z where flags
+    says, as extrapolate does
+    on the padded field (so a corner is the z extrapolation of the
+    y-extrapolated rows).  Returns (ze, (rows, corners) or None), new
+    tensors where anything changed."""
     from .ops.kernels import zpad, ypad
-    rows, corners = y
     nz, ny = q.shape[0], q.shape[1]
+    if y is None:
+        if iface == 3 or not (flags.get((0, 2)) or flags.get((1, 2))):
+            return ze, None
+        f0, f1 = float(factors[0]), float(factors[1])
+        ze = ze.clone()
+        if flags.get((0, 2)):
+            ze[0] = (1.0 + f0) * q[0] - f0 * q[1]
+        if flags.get((1, 2)):
+            ze[2] = (1.0 + f1) * ze[1] - f1 * q[-2]
+        return ze, None
+    rows, corners = y
     zsel = [0, nz, nz + 1]    # padded z rows kept in the corners
     if iface != 2 and (flags.get((0, 1)) or flags.get((1, 1))):
         rows, corners = rows.clone(), corners.clone()

@@ -64,12 +64,20 @@ planes stay on their slab (z is never split) with the halo's row below.
 
 With x walls (inflow and outflow faces, or walls: the developing channel,
 and with y walls the closed box, the lid-driven cavity and the developing
-duct; sgstype 'none', explicit diffusion, one device) mom_rk, fillps and
-correc_updatep take the fields' x stacks (ops/boundary.xedge_*) of the
-same fills: the post-correction fill's columns carried in State.xq, the
+duct; sgstype 'none' or static Smagorinsky, explicit diffusion or, with
+periodic y, impdiff_1d, one device) mom_rk, fillps and correc_updatep take
+the fields' x stacks (ops/boundary.xedge_*) of the same fills: the
+post-correction fill's columns carried in State.xq (and nu_t's), the
 prediction fill's u columns (u's set_bc rewrite, which the kernels read in
 place of u's last column) and pp's; the kept inflow face vlo[0] advances
-with the other kept planes.
+with the other kept planes.  smag runs in its x-wall variant on the
+post-correction fill's x stacks, the inflow face (u 'D') a van Driest
+wall.  With periodic y the z walls may carry the wall model (the
+developing WMLES): its sampled rows take their x ghosts from the x faces'
+values, its planes reach the x stacks' corners as plane-valued offsets,
+and smag reads the 'E' stacks (sgs.extrapolate_stacks).  Plane-valued
+static velocity values (an inflow profile on an x face, a moving lid on a
+z face) ride the same offsets with periodic y (_planes_refuse).
 
 The port and the JAX package carry the same state (State below), so a
 JAX state can be carried across (params.py).  Configurations outside this
@@ -162,11 +170,13 @@ def _ywalls_refuse(cfg: Config) -> list[str]:
 def _xwalls_refuse(cfg: Config) -> list[str]:
     """What this slice does not run with non-periodic x: it runs x faces
     of letters D and N for every field (walls, inflow, outflow) with
-    sgstype 'none', explicit diffusion, scalar BC values, z walls, one
-    device and no wall model or scalar, with periodic y or the y walls
-    that _ywalls_refuse admits, on the all-matrix Poisson route (the
-    developing channel, the closed box, the lid-driven cavity and the
-    developing duct)."""
+    sgstype 'none' or static Smagorinsky, explicit diffusion or (with
+    periodic y) impdiff_1d, z walls, one device and no scalar, with
+    periodic y or the y walls that _ywalls_refuse admits, on the
+    all-matrix Poisson route (the developing channel, the closed box, the
+    lid-driven cavity and the developing duct, and their LES); with
+    periodic y also the wall model on the z walls (the developing WMLES)
+    and plane-valued velocity values (an inflow profile, _planes_refuse)."""
     out = []
     item = 'ROADMAP queue 1, x walls'
     letters = ([cfg.cbc_vel(0, iv) for iv in range(3)]
@@ -174,28 +184,24 @@ def _xwalls_refuse(cfg: Config) -> list[str]:
     if any('P' in q for q in letters):
         out.append('non-periodic x with a periodic x face on some field '
                    '(every field D or N on both x faces): ' + item)
-    if cfg.sgstype != 'none':
-        kind = 'static' if cfg.sgstype == 'smag' else 'dynamic'
-        out.append(f'non-periodic x with {kind} Smagorinsky (the x-walled '
-                   "channel, box, cavity and duct run sgstype 'none'; the "
-                   'x modes of smag.cu and correc_smag.cu; the JAX package '
-                   f'runs XLA smag there): {item} with smag')
-    if cfg.impdiff:
-        kind = 'impdiff_1d' if cfg.impdiff_1d else             'full-3D implicit diffusion'
-        out.append(f'non-periodic x with {kind}: {item} with impdiff_1d')
-    if any(cfg.lwm[ib][d] != 0 for ib in range(2) for d in range(3)):
-        out.append(f'non-periodic x with a wall model: {item} with a wall '
-                   'model')
+    if cfg.sgstype == 'dsmag':
+        out.append('non-periodic x with dynamic Smagorinsky (the x-walled '
+                   "channel, box, cavity and duct run sgstype 'none' or "
+                   'static Smagorinsky; the test filters need two-deep x '
+                   'ghosts, x modes of the dsmag kernels; the JAX package '
+                   f'runs XLA dsmag there): {item} with dsmag')
+    if cfg.impdiff and not cfg.impdiff_1d:
+        out.append('non-periodic x with full-3D implicit diffusion (an x '
+                   f'operator a velocity component): {item} with full-3D '
+                   'implicit diffusion')
+    if (any(cfg.lwm[ib][d] != 0 for ib in range(2) for d in range(3))
+            and not _periodic(cfg, 1)):
+        out.append('non-periodic x with a wall model and y walls (the JAX '
+                   f'kernel path refuses it too): {item} with a wall model '
+                   'and y walls')
     if cfg.scalar:
         out.append(f'non-periodic x with a passive scalar: {item}, the '
                    'x-walled scalar')
-    vals = ([cfg.bcvel[ib][d][iv] for ib in range(2) for d in range(3)
-             for iv in range(3)]
-            + [b[ib][d] for b in (cfg.bcpre, cfg.bcsgs) for ib in range(2)
-               for d in range(3)])
-    if any(np.ndim(x) != 0 for x in vals):
-        out.append('non-periodic x with plane-valued BC values (inflow '
-                   f'profiles): {item}, plane-valued inflow profiles')
     if cfg.dims[0] * cfg.dims[1] > 1:
         out.append(f'non-periodic x on a device mesh: {item} on a mesh')
     if cfg.cbc_vel(2, 0)[0] == 'P':
@@ -233,12 +239,62 @@ def unsupported(cfg: Config) -> list[str]:
         out.append('passive scalar: ROADMAP queue 1, scalar')
     if cfg.dims[0] * cfg.dims[1] > 1:
         out += _mesh_refuse(cfg)
-    vals = ([cfg.bcvel[ib][d][iv] for ib in range(2) for d in range(3)
-             for iv in range(3)]
-            + [b[ib][d] for b in (cfg.bcpre, cfg.bcsgs) for ib in range(2)
-               for d in range(3)])
-    if any(np.ndim(x) != 0 for x in vals):
-        out.append('plane-valued BC values: ROADMAP queue 1, BC topologies')
+    out += _planes_refuse(cfg)
+    return out
+
+
+def plane_faces(cfg: Config) -> list[tuple[int, int]]:
+    """The (side, direction) faces where some velocity BC value is a
+    plane."""
+    return [(ib, d) for ib in range(2) for d in range(3)
+            if any(np.ndim(cfg.bcvel[ib][d][iv]) != 0 for iv in range(3))]
+
+
+def _planes_refuse(cfg: Config) -> list[str]:
+    """What this slice does not run with plane-valued BC values: it runs
+    static plane-valued velocity values on the x faces (an inflow profile,
+    with x walls) and the z faces (a moving lid, the wall model's
+    Neumann planes' path) with periodic y, sgstype 'none' or static
+    Smagorinsky, explicit diffusion, one device, off the wall-modelled
+    faces; they ride the edge and x stacks' recipes as offsets."""
+    item = 'ROADMAP queue 1, BC topologies'
+    out = []
+    if any(np.ndim(b[ib][d]) != 0 for b in (cfg.bcpre, cfg.bcsgs)
+           for ib in range(2) for d in range(3)):
+        out.append(f'plane-valued pressure or SGS BC values: {item}')
+    faces = plane_faces(cfg)
+    if not faces:
+        return out
+    if not _periodic(cfg, 1):
+        out.append('plane-valued values with y walls (the x and y stacks\' '
+                   f'corners take scalars): {item}, plane-valued values '
+                   'with y walls')
+    elif any(d == 1 for _, d in faces):
+        out.append(f'plane-valued values on the periodic y faces: {item}')
+    if cfg.sgstype == 'dsmag':
+        out.append('plane-valued velocity values with dynamic Smagorinsky: '
+                   f'{item}, plane-valued values with dsmag')
+    if cfg.impdiff:
+        out.append('plane-valued velocity values with implicit diffusion '
+                   f'(the CN stage\'s boundary planes): {item}, '
+                   'plane-valued values with implicit diffusion')
+    zplanes = [np.asarray(cfg.bcvel[ib][2][iv]) for ib in range(2)
+               for iv in range(3) if np.ndim(cfg.bcvel[ib][2][iv]) != 0]
+    if _periodic(cfg, 1) and not all(
+            np.array_equal(q[0], q[-2]) and np.array_equal(q[-1], q[1])
+            for q in zplanes):
+        out.append('a z-face plane whose y ghost rows are not the periodic '
+                   'copies of its rows ny and 1 (the stacks wrap along y): '
+                   f'{item}')
+    if any(np.ndim(cfg.bcvel[ib][2][2]) != 0 for ib in range(2)):
+        out.append('a plane-valued w on the z faces (the kept lower face\'s '
+                   f'ghosts are the plane\'s own): {item}')
+    if any(cfg.lwm[ib][d] != 0 for ib, d in faces):
+        out.append('plane-valued velocity values on a wall-modelled face '
+                   f'(its static wall velocity is a scalar): {item}')
+    if cfg.dims[0] * cfg.dims[1] > 1:
+        out.append('plane-valued velocity values on a device mesh: ROADMAP '
+                   'queue 1, multi-device')
     return out
 
 
@@ -246,16 +302,16 @@ def _wm_refuse(cfg: Config) -> list[str]:
     """What this slice does not run with a wall model: it runs the log-law
     or laminar model on the y and z walls with static Smagorinsky and
     explicit diffusion, or with sgstype 'none', on one device (cales_tpu's
-    _wm_fast route; periodic x and scalar BC values are checked by
-    unsupported itself, the y walls by _ywalls_refuse)."""
+    _wm_fast route; x walls are checked by _xwalls_refuse, plane-valued
+    values by _planes_refuse, the y walls by _ywalls_refuse)."""
     out = []
     lwm = [cfg.lwm[ib][d] for ib in range(2) for d in range(3)]
     if any(m not in (0, wmod.WM_LOG, wmod.WM_LAM) for m in lwm):
         out.append(f'wall model type lwm = {cfg.lwm} (1 log-law, -1 '
                    'laminar)')
     if any(cfg.lwm[ib][0] != 0 for ib in range(2)):
-        out.append('a wall model on x faces (x walls): ROADMAP queue 1, x '
-                   'walls')
+        out.append('a wall model on x faces: ROADMAP queue 1, x walls with '
+                   'a wall model on the x faces')
     for d, name in ((1, 'y'), (2, 'z')):
         if any(cfg.lwm[ib][d] != 0 and cfg.cbcvel[ib][d][d] != 'D'
                for ib in range(2)):
@@ -414,8 +470,11 @@ class Simulation:
         # where nu_t comes from: the fused correction (smag, explicit
         # diffusion; cales_tpu's _fuse_correc_smag), or a separate SGS
         # kernel on the post-correction fill
+        # (off with x walls and with plane-valued velocity values, as
+        # cales_tpu's _fuse_correc_smag: its z-ghost recipes take scalars)
         self.fused_smag = (cfg.sgstype == 'smag' and not cfg.impdiff
-                           and mesh is None and not self.ywalled)
+                           and mesh is None and not self.ywalled
+                           and not self.xwalled and not plane_faces(cfg))
         self.sgs_kernel = ({'smag': 'smag', 'dsmag': 'dsmag'}
                            .get(cfg.sgstype) if not self.fused_smag else None)
         # dsmag: the one-pass kernel where it can carry the BC values, the
@@ -478,7 +537,8 @@ class Simulation:
                     out += [self.cbcvel[ib][2][iv], float(bvals[2][ib]),
                             dz01[ib]]
             return tuple(out)
-        self.zrec_uv = (rec_for(0, self.bcu_vals), rec_for(1, self.bcv_vals))
+        self.zrec_uv = ((rec_for(0, self.bcu_vals), rec_for(1, self.bcv_vals))
+                        if self.fused_smag else None)
 
         # Crank-Nicolson Helmholtz solvers per velocity component
         # (main.f90:318-334; w is face-staggered in z, qz = 1 with z walls):
@@ -525,6 +585,16 @@ class Simulation:
             (dy_lo, _), (dy_hi, _) = setup.dw1d[2], setup.dw1d[3]
             self.dwy_t = t(np.minimum(dy_lo, dy_hi))
             self.nearylo_t = t((dy_lo <= dy_hi).astype(np.float64))
+        # smag with x walls: the x faces whose u is 'D' are walls (an
+        # inflow face too, sgs.f90:76-81), the distance to the nearer one
+        # and 1 where it is the lower one (None where neither is a wall)
+        self.xwall_sides = tuple(ib for ib in range(2) if setup.is_wall6[ib])
+        self.xwall_prof = None
+        if self.xwalled and cfg.sgstype == 'smag' and self.xwall_sides:
+            d_lo, d_hi = (setup.dw1d[ib][0] if ib in self.xwall_sides
+                          else np.full(nx, np.inf) for ib in range(2))
+            self.xwall_prof = (t(np.minimum(d_lo, d_hi)),
+                               t((d_lo <= d_hi).astype(np.float64)))
         # dsmag: the filter-ratio profile alpha^2 along z (2.52 on a z
         # wall's first row; the kernel sets the y walls' rows itself) and
         # the filtered-velocity fill's wall-parallel z and y values
@@ -615,6 +685,10 @@ class Simulation:
         if self.xwalled:
             sgs += ('; x walls: x-ghost column stacks'
                     + (' with their y ghosts' if self.ywalled else ''))
+            if plane_faces(self.cfg):
+                sgs += ', plane-valued values as their offsets'
+        if self.xwalled and self.sgs_kernel == 'smag':
+            sgs += ', the smag kernel in its x-wall variant'
         if self.ywalled and self.sgs_kernel == 'smag':
             sgs += ', the smag kernel in its y-wall variant'
         if self.has_wm:
@@ -627,7 +701,9 @@ class Simulation:
                     + (", correc_smag's 'E' z-ghost recipe"
                        if self.fused_smag else '')
                     + (", smag's 'E' ghost stacks"
-                       if self.sgs_kernel == 'smag' else ''))
+                       if self.sgs_kernel == 'smag' else '')
+                    + (', its rows\' x ghosts from the x faces\' values'
+                       if self.xwalled else ''))
         mesh = ('' if self.mesh is None
                 else f'; mesh: {self.mesh.describe()}, y halos')
         return (f'{where}; poisson: {xy} + {zstage} ({self.cfg.dtype}); '
@@ -781,6 +857,14 @@ class Simulation:
         return bnd.xedge_scalar(p, self.cbcpre, self.bcp_vals, self.cfg.dl,
                                 self.grid.dzc, ywalls=self.ywalled)
 
+    def _xedge_s(self, s):
+        """nu_t's x stack pair, by the SGS letters (cales_tpu
+        timeloop.py:1898-1905)."""
+        cbcs = tuple((self.cfg.cbcsgs[0][d], self.cfg.cbcsgs[1][d])
+                     for d in range(3))
+        return bnd.xedge_scalar(s, cbcs, self.bcs_vals, self.cfg.dl,
+                                self.grid.dzc, ywalls=self.ywalled)
+
     def _yedge_p(self, p):
         return bnd.yedge_scalar(p, self.cbcpre, self.bcp_vals, self.cfg.dl,
                                 self.grid.dzc)
@@ -850,21 +934,25 @@ class Simulation:
         return (*out, planes)
 
     @staticmethod
-    def _shear(A, B, bprev, scale):
+    def _shear(A, B, bprev, scale, aprev=None):
         """|grad u_par| on a wall face from the jumps A, B of its two
         wall-parallel components across it (interior row minus ghost row),
-        each averaged onto the cell centres along x (A) and along the
-        plane's other axis (B: its row -1 is bprev, or B's last row where
-        that axis is periodic), times the inverse spacing across the face
-        (sgs.f90:117-143)."""
-        t1 = A + torch.roll(A, 1, 1)
+        each averaged onto the cell centres along the plane's last axis
+        (A: its column -1 is aprev, or A's last column where that axis is
+        periodic) and along its first (B: its row -1 is bprev, or B's last
+        row where that axis is periodic), times the inverse spacing across
+        the face (sgs.f90:117-143)."""
+        if aprev is None:
+            t1 = A + torch.roll(A, 1, 1)
+        else:
+            t1 = A + torch.cat([aprev[:, None], A[:, :-1]], dim=1)
         if bprev is None:
             t2 = B + torch.roll(B, 1, 0)
         else:
             t2 = B + torch.cat([bprev[None], B[:-1]])
         return (torch.sqrt(t1 ** 2 + t2 ** 2) * scale).contiguous()
 
-    def _wall_shear_planes(self, face, like, bprev=None):
+    def _wall_shear_planes(self, face, like, bprev=None, aprev=None):
         """The van Driest wall-shear planes (tauw_lo, tauw_hi), (ny, nx):
         |grad u_par| at each z wall (sgs.f90:117-143 z rows) from
         face(side) -> (A, B), the jumps of u and v across the wall face
@@ -872,7 +960,8 @@ class Simulation:
         other wall's plane; without z walls both are zero, shaped `like`.
         bprev(side): B's row -1 (nx,), from the halo on a slab or the
         y-row stacks with y walls, where the periodic roll along y would
-        take the plane's own last row."""
+        take the plane's own last row; aprev(side): A's column -1 (ny,),
+        from the x stacks with x walls."""
         if not self.have_zwalls:
             z = torch.zeros_like(like[0])
             return z, z
@@ -881,30 +970,64 @@ class Simulation:
         def plane(side):
             A, B = face(side)
             return self._shear(A, B, None if bprev is None else bprev(side),
-                               float(self.grid.dzci[0 if side == 0 else nz]))
+                               float(self.grid.dzci[0 if side == 0 else nz]),
+                               None if aprev is None else aprev(side))
         lo = plane(0) if self.lo_wall else None
         hi = plane(1) if self.hi_wall else None
         return (hi if lo is None else lo), (lo if hi is None else hi)
 
-    def _ywall_shear_planes(self, u, w, we, yq):
+    def _ywall_shear_planes(self, u, w, we, yq, xq=None):
         """The y walls' van Driest shear planes (tauw_ylo, tauw_yhi),
         (nz, nx), from the post-correction fill's y-row stacks yq (as the
         z walls' from its z-edge stacks): the jumps of u and w across each
-        y face, w's row below z = 0 from its z-edge stack and corners."""
+        y face, w's row below z = 0 from its z-edge stack and corners; with
+        x walls u's column x = -1 from its x stack xq[0] (whose columns
+        carry the y ghosts)."""
         (yu, _), _, (yw, cw) = yq
         dyi = self.cfg.dli[1]
 
         def plane(side):
             r, g = (0, 0) if side == 0 else (-1, 2)
+            aprev = None
+            if xq is not None:
+                xu = xq[0][0]
+                # padded y rows r and its ghost, at index row + 1
+                jr, jg = (1, 0) if side == 0 else (-2, -1)
+                aprev = xu[:, 0, jr] - xu[:, 0, jg]
             return self._shear(u[:, r] - yu[:, g], w[:, r] - yw[:, g],
-                               we[0][r] - cw[0, g], dyi)
+                               we[0][r] - cw[0, g], dyi, aprev)
         return plane(0), plane(1)
 
-    def _sgs_stage(self, u, v, w, zq, vlo, yq=None):
+    def _xwall_shear_planes(self, v, w, we, xq, yq=None):
+        """The x walls' van Driest shear planes (tauw_xlo, tauw_xhi),
+        (nz, ny), from the post-correction fill's x stacks xq: the jumps of
+        v and w across each x face (the interior's first or last column
+        minus the ghost column, sgs.f90:117-143 x rows), v's row -1 wrapped
+        or with y walls from its y-row stack and the x stack's y ghost,
+        w's row below z = 0 from its z-edge stack and the x stack's
+        corners.  A face that is no wall takes the other's plane."""
+        (xv, _), (xw, cw) = xq[1], xq[2]
+        js = slice(1, -1) if self.ywalled else slice(None)
+        dxi = self.cfg.dli[0]
+
+        def plane(side):
+            i, c = (0, 0) if side == 0 else (-1, 2)
+            aprev = None
+            if yq is not None:
+                aprev = yq[1][0][:, 0, i] - xv[:, c, 0]
+            return self._shear(v[:, :, i] - xv[:, c, js],
+                               w[:, :, i] - xw[:, c, js],
+                               we[0][:, i] - cw[0, c, js], dxi, aprev)
+        sides = self.xwall_sides
+        lo = plane(0) if 0 in sides else None
+        hi = plane(1) if 1 in sides else None
+        return (hi if lo is None else lo), (lo if hi is None else hi)
+
+    def _sgs_stage(self, u, v, w, zq, vlo, yq=None, xq=None):
         """nu_t of the post-correction fill (main.f90:504-506), its z-edge
-        stacks zq and with y walls its y-row stack pairs yq (made here
-        from vlo when not given), by the smag or dsmag kernel, or by
-        dsmag's two passes."""
+        stacks zq, with y walls its y-row stack pairs yq (made here from
+        vlo when not given) and with x walls its x stack pairs xq, by the
+        smag or dsmag kernel, or by dsmag's two passes."""
         cfg = self.cfg
         ue, ve, we = zq
         if self.ywalled and yq is None:
@@ -923,33 +1046,60 @@ class Simulation:
                 rows, corners = yh[1]
             elif self.ywalled:
                 rows, corners = yq[1]
-                ywall = (self.dwy_t, self.nearylo_t,
-                         *self._ywall_shear_planes(u, w, we, yq))
+                ye = yq
 
             def bprev(side):
                 k, e = (0, 0) if side == 0 else (-1, 2)
                 return rows[k, 0] - corners[e, 0]
+            aprev = xe = xwall = None
+            if self.xwalled:
+                # u's column x = -1 at the z walls from its x stack, the
+                # x walls' shear planes from the x stacks
+                xu, cu = xq[0]
+                js = slice(1, -1) if self.ywalled else slice(None)
+
+                def aprev(side):
+                    k, e = (0, 0) if side == 0 else (-1, 2)
+                    return xu[k, 0, js] - cu[e, 0, js]
+                if self.xwall_prof is not None:
+                    xwall = (*self.xwall_prof, *self._xwall_shear_planes(
+                        v, w, we, xq, yq if self.ywalled else None))
+                xe = xq
             tauw_lo, tauw_hi = self._wall_shear_planes(
                 lambda side: ((u[0] - ue[0], v[0] - ve[0]) if side == 0
                               else (u[-1] - ue[2], v[-1] - ve[2])), u,
-                bprev=None if rows is None else bprev)
+                bprev=None if rows is None else bprev, aprev=aprev)
             if self.ywalled:
+                ywall = (self.dwy_t, self.nearylo_t,
+                         *self._ywall_shear_planes(u, w, we, yq,
+                                                   xq if self.xwalled
+                                                   else None))
+            if self.has_wm:
                 # the strain's ghosts: the one-sided extrapolation on the
                 # wall-modelled faces (sgs.extrapolate, cales_tpu
-                # sgs.smag_visct), the fill's own elsewhere
+                # sgs.smag_visct), the fill's own elsewhere; with x walls
+                # the x stacks' corners too
                 setup = self.sgs_setup
                 ext = [sgsmod.extrapolate_stacks(q, e, y, iface,
                                                  setup.lwm_flags,
                                                  setup.fac_lwm)
-                       for q, e, y, iface in zip((u, v, w), zq, yq,
+                       for q, e, y, iface in zip((u, v, w), zq,
+                                                 yq or (None,) * 3,
                                                  (1, 2, 3))]
-                (ue, ve, we), ye = zip(*ext)
+                (ue, ve, we), ye_ext = zip(*ext)
+                if self.ywalled:
+                    ye = ye_ext
+                if xe is not None:
+                    xe = [(c, sgsmod.extrapolate_stacks(
+                        c, e, None, iface, setup.lwm_flags,
+                        setup.fac_lwm)[0]) for (c, e), iface in
+                        zip(xq, (1, 2, 3))]
             return kernels.smag(u, v, w, ue, ve, we, self.dzci_t,
                                 self.dzfi_t, dxi, dyi, cfg.visc,
                                 self.csd2_t, self.dw_t, self.nearlo_t,
                                 tauw_lo, tauw_hi,
                                 have_zwalls=self.have_zwalls, yh=yh, ye=ye,
-                                ywall=ywall)
+                                ywall=ywall, xe=xe, xwall=xwall)
         if self.dsmag_twopass:
             return self._dsmag_twopass(u, v, w, zq, yq)
         avg = cfg.dsmag_avg
@@ -1099,6 +1249,21 @@ class Simulation:
             ulo = Xu - dtrk * dxi * (p0 - Xp)
         return (ulo, vlo_v, wlo)
 
+    def _kept_xface(self, xu, bcu_z):
+        """u's lower x face over the padded (z, y) plane as the fill leaves
+        it, from u's x stack pair xu of that fill: the column x = 0 wrapped
+        along y (plane-valued values run with periodic y), its z ghost rows
+        by u's z recipe with the values bcu_z, a plane's own y-ghost
+        entries at the (z ghost, y ghost) corners (the sequential x -> y ->
+        z fill's z pass)."""
+        nz = xu[0].shape[0]
+        col = xu[0][:, 0]
+        col = torch.cat([col[:, -1:], col, col[:, :1]], dim=1)
+        vals = tuple(b[:, :1] if bnd._is_plane(b) else b for b in bcu_z)
+        return bnd._set_centered(
+            col[:, :, None], 0, (self.cbcvel[0][2][0], self.cbcvel[1][2][0]),
+            vals, (float(self.grid.dzc[0]), float(self.grid.dzc[nz])))[..., 0]
+
     def _substep(self, state: State, f1, f2, first=False):
         """One RK3 substep.  first=True: f2 == 0 exactly (RK_COEFF[0][1]),
         so the previous-RHS fields are not read."""
@@ -1140,9 +1305,9 @@ class Simulation:
                 pairs.insert(3, (s, se))
             h = self.mesh.halo_y(pairs)
             yh = (*h[:3], h[3] if self.has_sgs else None, h[-1])
-        # with x walls the x columns of the same fill (no visct: x walls
-        # run with sgstype 'none')
-        xe = (*xq, None, self._xedge_p(p)) if self.xwalled else None
+        # with x walls the x columns of the same fill
+        xe = ((*xq, self._xedge_s(visct) if self.has_sgs else None,
+               self._xedge_p(p)) if self.xwalled else None)
         u, v, w, ru, rv, rw, usum, vsum = kernels.mom_rk(
             u, v, w, s, p, ue, ve, we, se, pe,
             None if first else ru_o, None if first else rv_o,
@@ -1167,8 +1332,10 @@ class Simulation:
         # faces), so it is not run (cales_tpu runs it with the deferred
         # forcing, timeloop.py:2568-2569, to the same state).  Only the
         # kept v plane's z-ghost rows (vlo[1], from v's corner stacks)
-        # differ from cales_tpu's, and every fill crops them.  With x
-        # walls u's rewrite column (padded x nx) rides in its x stack,
+        # differ from cales_tpu's, and every fill crops them; with x walls
+        # the kept u plane's (vlo[0]) are taken from the post-correction
+        # fill below.  With x walls u's rewrite column (padded x nx)
+        # rides in its x stack,
         # which fillps and correc_updatep read in place of u's last
         # column (cales_tpu patches a copy of u instead).
         ue2, ve2, we2 = self._zedge_vel(u, v, w, self.bcu_vals,
@@ -1176,7 +1343,11 @@ class Simulation:
                                         is_correc=False)
         ypred = self._yedge_vel(u, v, w) if self.ywalled else None
         yv2 = None if ypred is None else ypred[1]
-        # (v's only for its lower y face's x ghosts, with y walls)
+        # (v's only for its lower y face's x ghosts, with y walls).  With
+        # a wall model the fill takes its planes here, whose columns x =
+        # 0 and nx reach u's x stack's corners and so the kept inflow
+        # face's z ghost rows (vlo[0]; cales_tpu runs the wall model in
+        # every fill, timeloop.py:2572-2583)
         xpred = (self._xedge_vel(u, v, w, fields=(0, 1, 2) if self.ywalled
                                  else (0, 2)) if self.xwalled else None)
         xu2 = None if xpred is None else xpred[0]
@@ -1219,8 +1390,15 @@ class Simulation:
               if self.ywalled else None)
         xq = (self._xedge_vel(u, v, w, bcs, vlo=vlo, is_correc=True)
               if self.xwalled else None)
+        if self.xwalled and any(bnd._is_plane(b) for b in bcs[0][2]):
+            # u's z values are planes (the wall model's, a moving lid): the
+            # kept inflow face's z ghost rows are the post-correction
+            # fill's, as cales_tpu's fill leaves them (the prediction's
+            # wall-model planes differ, and so, at the (z ghost, y ghost)
+            # corners, does the y wrap)
+            vlo = (self._kept_xface(xq[0], bcs[0][2]), *vlo[1:])
         if self.sgs_kernel:
-            visct = self._sgs_stage(u, v, w, zq, vlo, yq)
+            visct = self._sgs_stage(u, v, w, zq, vlo, yq, xq)
         return state._replace(u=u, v=v, w=w, p=p, visct=visct, vlo=vlo,
                               rhs_old=(ru, rv, rw), zq=zq, yq=yq, xq=xq), f
 

@@ -15,8 +15,11 @@ that takes on given inputs.
 (ops/kernels.wm_planes, csrc/wallmodel.cu): every modelled face's padded
 planes from its sampled rows (u and v at z rows, u and w at y rows), as
 they are or, on z faces with periodic y, corrected by the pressure
-correction pp and the deferred bulk forcing first.  The x-face branch of
-``update_wallmodel_bcs`` is not ported yet (ROADMAP queue 1).
+correction pp and the deferred bulk forcing first.  With x walls (the
+developing channel's z faces) a sampled z row takes its x ghosts and u's
+rewrite slot from the x faces' values (an inflow profile's at that row)
+before it wraps along y.  The x-face branch of ``update_wallmodel_bcs``
+is not ported yet (ROADMAP queue 1).
 """
 from __future__ import annotations
 
@@ -149,7 +152,11 @@ class WallFace(NamedTuple):
     their ghosts along the face's other transverse axis (y on a z face,
     z on a y face), each (letters, values, spacings, staggered) with the
     static BC values of the effective letters (cales_tpu
-    Simulation._row_pad_xy, _row_pad_xz); 'PP' periodic."""
+    Simulation._row_pad_xy, _row_pad_xz); 'PP' periodic.  xfills: with x
+    walls (z faces only), how the sampled rows r1 and r2 of the two
+    components take their x ghosts, in the same form by row and component,
+    a value a float or the x face's padded plane at that row, a tuple of
+    ny+2 floats, so the face hashes; None where x wraps."""
     d: int
     ib: int
     mtype: int
@@ -160,6 +167,7 @@ class WallFace(NamedTuple):
     mags: tuple
     l1d: float
     fills: tuple
+    xfills: tuple = None
 
 
 class WallModel(NamedTuple):
@@ -172,9 +180,20 @@ class WallModel(NamedTuple):
     wei: tuple = None
 
 
-def _fill(cbcvel, vals, d, ivel, dr, stag):
+def _at_row(b, r):
+    """An x face's value at the sampled z row r: a scalar as a float, the
+    padded (nz+2, ny+2) plane's row r + 1 as a tuple of ny+2 floats."""
+    if getattr(b, 'ndim', 0) != 2:
+        return float(b)
+    return tuple(torch.as_tensor(b[r + 1]).cpu().double().tolist())
+
+
+def _fill(cbcvel, vals, d, ivel, dr, stag, row=None):
+    """A component's fill along d; with row, an x face's values at the
+    sampled z row (_at_row)."""
+    val = float if row is None else (lambda b: _at_row(b, row))
     return (cbcvel[0][d][ivel] + cbcvel[1][d][ivel],
-            (float(vals[d][0]), float(vals[d][1])), dr, stag)
+            (val(vals[d][0]), val(vals[d][1])), dr, stag)
 
 
 def wall_face(cfg, grid, d, ib, index_wm, bcs=None, cbcvel=None) -> WallFace:
@@ -193,6 +212,8 @@ def wall_face(cfg, grid, d, ib, index_wm, bcs=None, cbcvel=None) -> WallFace:
     nx, ny, nz = cfg.ng
     i2 = index_wm[d][ib]
     i1 = i2 - 1 if ib == 0 else i2 + 1
+    xwalls = cbcvel[0][0][0] + cbcvel[1][0][0] != 'PP'
+    xfills = None
     if d == 2:
         zc, dzc = grid.zc, grid.dzc
         coef = ((h - zc[i1]) / dzc[i1] if ib == 0
@@ -201,7 +222,14 @@ def wall_face(cfg, grid, d, ib, index_wm, bcs=None, cbcvel=None) -> WallFace:
         fills = (_fill(cbcvel, bcu, 1, 0, dy, False),
                  _fill(cbcvel, bcv, 1, 1, dy, True))
         mags = (float(bcu[2][ib]), float(bcv[2][ib]))
+        if xwalls:
+            dx = (cfg.dl[0], cfg.dl[0])
+            xfills = tuple((_fill(cbcvel, bcu, 0, 0, dx, True, row=r),
+                            _fill(cbcvel, bcv, 0, 1, dx, False, row=r))
+                           for r in (i1 - 1, i2 - 1))
     elif d == 1:
+        if xwalls:
+            raise ValueError('wall_face: a y face with x walls')
         dl = cfg.dl[1]
         coef = ((h - (i1 - 0.5) * dl) / dl if ib == 0
                 else (h - (ny - i1 + 0.5) * dl) / dl)
@@ -215,7 +243,7 @@ def wall_face(cfg, grid, d, ib, index_wm, bcs=None, cbcvel=None) -> WallFace:
     return WallFace(d=d, ib=ib, mtype=int(cfg.lwm[ib][d]), r1=i1 - 1,
                     r2=i2 - 1, coef=float(coef),
                     sgn=1.0 if ib == 0 else -1.0, mags=mags,
-                    l1d=float(cfg.l[d]), fills=fills)
+                    l1d=float(cfg.l[d]), fills=fills, xfills=xfills)
 
 
 def wall_model(cfg, grid, index_wm, bcs=None, cbcvel=None,
@@ -327,13 +355,24 @@ def _wei(wei, n, like):
     return t(w), t(1 - w)
 
 
-def pad_row(q, fill):
-    """One sampled (n, nx) row padded to (n+2, nx+2): x periodic, then the
-    other transverse axis by fill = (letters, values, spacings,
-    staggered), as set_bc fills it (cales_tpu Simulation._row_pad_xy,
-    _row_pad_xz)."""
+def pad_row(q, fill, xfill=None):
+    """One sampled (n, nx) row padded to (n+2, nx+2): along x periodic, or
+    with x walls by xfill (a z face's row, its values the x faces' at that
+    row, a padded row of values as a (1, ny+2) tensor, which set_bc crops
+    to the row's interior), then the other transverse axis by fill =
+    (letters, values, spacings, staggered), as set_bc fills it (cales_tpu
+    Simulation._row_pad_xy, _row_pad_xz, the x -> y order of pad_velocity
+    on a row)."""
     letters, vals, dr, stag = fill
-    s = torch.cat([q[:, -1:], q, q[:, :1]], dim=1)[:, None, :]
+    if xfill is None:
+        s = torch.cat([q[:, -1:], q, q[:, :1]], dim=1)
+    else:
+        xl, xv, xd, xstag = xfill
+        xv = tuple(torch.tensor(b, dtype=q.dtype, device=q.device)[None]
+                   if isinstance(b, tuple) else b for b in xv)
+        s = (bnd._set_face if xstag else bnd._set_centered)(
+            q[None], 2, xl, xv, xd)[0]
+    s = s[:, None, :]
     s = (bnd._set_face if stag else bnd._set_centered)(s, 0, letters, vals,
                                                         dr)
     return s[:, 0, :]
@@ -358,9 +397,10 @@ def _face_rows(u, v, w, wm, fuv, pp, dtrk, dxi, dyi):
 
     for face in wm.faces:
         n = nz if face.d == 1 else ny
-        (U1, V1), (U2, V2) = ([pad_row(q, f) for q, f in
-                               zip(rows(face, r), face.fills)]
-                              for r in (face.r1, face.r2))
+        xfills = face.xfills or ((None, None),) * 2
+        (U1, V1), (U2, V2) = ([pad_row(q, f, xf) for q, f, xf in
+                               zip(rows(face, r), face.fills, xr)]
+                              for r, xr in zip((face.r1, face.r2), xfills))
         umag = torch.full((n + 2, nx + 2), face.mags[0], dtype=u.dtype,
                           device=u.device)
         vmag = torch.full_like(umag, face.mags[1])
@@ -374,9 +414,9 @@ def _check_mode(wm, w, fuv, pp):
     if any(f.d == 1 for f in wm.faces) and w is None:
         raise ValueError('wm_planes: a y face samples w')
     if pp is not None and any(f.d != 2 or f.fills[0][0] != 'PP'
-                              for f in wm.faces):
+                              or f.xfills is not None for f in wm.faces):
         raise ValueError('wm_planes: the corrected rows serve z faces with '
-                         'periodic y only (the fused correction)')
+                         'periodic x and y only (the fused correction)')
 
 
 def wm_planes_plain(u, v, wm: WallModel, fuv=None, pp=None, dtrk=0.0,
@@ -387,7 +427,8 @@ def wm_planes_plain(u, v, wm: WallModel, fuv=None, pp=None, dtrk=0.0,
     (n = nz).  Each face samples its rows r1 and r2 (of u and v at z rows,
     of u and w at y rows), fills their ghosts along x periodically and
     along the other transverse axis by the face's fills (cales_tpu
-    timeloop.py:637-728, without fadd), or on z faces with periodic y,
+    timeloop.py:637-728, without fadd; with x walls along x by the face's
+    xfills first), or on z faces with periodic x and y,
     with fuv = (fu, fv) and pp, corrected: fu + u - dtrk dxi (pp(i+1) -
     pp(i)) and likewise v along y, as the fused correction's rows
     (timeloop.py:1314-1342).  The planes off the wall model's ranges keep

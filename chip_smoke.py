@@ -16,8 +16,12 @@ driver.run at 512x256x256, the Taylor-Green
 vortex at 512^3 by both solve routes, the x-walled classes (the four
 examples developing_channel, closed_box, lid_driven_cavity and
 developing_duct through the CLI, the developing channel and the
-lid-driven cavity through driver.run at 512x256x256), compare the card
-with the CPU step for step, and run the channel LES on a y-slab mesh of
+lid-driven cavity through driver.run at 512x256x256), the developing-
+channel LES (the developing wall-modelled channel with a 1/7-power
+inflow profile, the developing channel LES with z-implicit diffusion and
+the developing duct LES at 512x256x256: x-walled mom_rk with nu_t and
+'1d', smag's x-wall variant, the wall model's x-walled rows), compare the
+card with the CPU step for step, and run the channel LES on a y-slab mesh of
 two ranks that
 share the card (torch.distributed over gloo, staged through the host):
 the headline at 512x256x256 through driver.run, a small f64 case against
@@ -104,6 +108,12 @@ VARIANT_ROWS = {
     'fillps (x and y walls)': ('fillps', 'xbox'),
     'correc_updatep (x walls)': ('correc_updatep', 'xdev'),
     'correc_updatep (x and y walls)': ('correc_updatep', 'xbox'),
+    'mom_rk (x walls, nu_t)': ('mom_rk', 'xdev_s'),
+    "mom_rk (x walls, nu_t, '1d')": ('mom_rk', 'xdev_1d'),
+    'mom_rk (x and y walls, nu_t)': ('mom_rk', 'xbox_s'),
+    'smag (x walls)': ('smag', 'xdev'),
+    'smag (x and y walls)': ('smag', 'xbox'),
+    'wallmodel (x walls, z faces)': ('wallmodel', 'xdev'),
 }
 # the kernels timed at the Taylor-Green vortex's 512^3 in phase 2b, each
 # reported as a kernel of its own: report name -> (kernel, variant)
@@ -225,6 +235,19 @@ XDUCT_BCS = dict(
     cbcpre=(('N', 'N', 'N'), ('D', 'N', 'N')),
     cbcsgs=(('N', 'D', 'D'), ('N', 'D', 'D')))
 XDUCT_CFG = dict(XDEV_CFG, **XDUCT_BCS)
+# the developing channel and duct LES (phases 12b, 12c): static
+# Smagorinsky, visci 20 000; 12b with z-implicit diffusion
+XLES_IMP_CFG = dict(XDEV_CFG, sgstype='smag', visci=20_000.0, impdiff=True,
+                    impdiff_1d=True)
+XDUCT_LES_CFG = dict(XDUCT_CFG, sgstype='smag', visci=20_000.0)
+# the developing wall-modelled channel LES (phase 12; the physics of
+# tests/test_pallas_kernels.py:538, test_pallas_xwalled_wm): 6.4 x 3.2 x 2,
+# gtype 6, visci 50 000, smag, the log-law wall model on both z walls at
+# hwm 0.1, inflow at x = 0 (xwmles_cfg adds its 1/7-power profile),
+# outflow u 'N' / p 'D', periodic y, 'auto' (the port takes 'mat')
+XWMLES_CFG = dict(XDEV_CFG, l=(6.4, 3.2, 2.0), gtype=6, gr=0.0,
+                  visci=50_000.0, inivel='uni', sgstype='smag',
+                  lwm=((0, 0, 1), (0, 0, 1)), hwm=0.1)
 # examples/lid_driven_cavity/input.nml at the headline grid (phase 11b):
 # walls on all six faces, the top z face moving at u = 1
 ALLD = (('D', 'D', 'D'),) * 3
@@ -239,6 +262,16 @@ XCAVITY_CFG = dict(ng=HEADLINE_NG, l=(1.0, 1.0, 1.0), gtype=1, gr=0.0,
 # kernel inputs: (face, dir, comp)
 MOVING = (((0.0,) * 3, (0.2, 0.0, -0.1), (0.0, 0.0, 0.0)),
           ((0.0,) * 3, (0.0, 0.0, 0.3), (0.4, -0.3, 0.0)))
+
+
+def xwmles_cfg(**change):
+    """The developing WMLES as a Config: XWMLES_CFG (with change), its
+    inflow a 1/7-power profile u = (8/7) min(z, 2 - z)^(1/7), 0 where
+    that is negative, over the padded (nz+2, ny+2) x face at the cell
+    centres of its own grid (profile_step.power_law_inflow)."""
+    from cales_torch.config import Config
+    from cales_torch.profile_step import power_law_inflow
+    return power_law_inflow(Config(**{**XWMLES_CFG, **change}))
 
 
 def card_line():
@@ -445,6 +478,26 @@ def kernel_inputs(ng, dtype, dev, seed, big=False):
         d[key + '_pred'] = bnd.xedge_velocity(d['u'], d['v'], d['w'],
                                               *xargs, ywalls=yw)
         d[key + '_pp'] = xsc(d['pp'])
+        # with nu_t: its x stack by the SGS letters; smag's x walls: the
+        # inflow face (u 'D') is one, its distance and random shear planes
+        cbcs = tuple((bcs['cbcsgs'][0][q], bcs['cbcsgs'][1][q])
+                     for q in range(3))
+        d[key + '_mom_s'] = (*d[key + '_mom'][:3], bnd.xedge_scalar(
+            d['s'], cbcs, zero, xcfg.dl, xgrid.dzc, ywalls=yw),
+            d[key + '_mom'][4])
+        xc = (np.arange(nx) + 0.5) * xcfg.dl[0]
+        d[key + '_xwall'] = (t(xc), t(np.ones(nx)), rnd(nz, ny).abs(),
+                             rnd(nz, ny).abs())
+    # the wall model on both z faces of the developing WMLES (x walls: the
+    # rows' x ghosts from the x faces' values, the inflow a 1/7-power
+    # profile that varies along z), its rows sampled from u + 1
+    mcfg = xwmles_cfg(ng=ng)
+    mgrid = make_grid_from_config(mcfg)
+    mbc = [bnd.make_bc_values(ng, tuple(
+        tuple(mcfg.bcvel[ib][d_][iv] for ib in range(2)) for d_ in range(3)),
+        dtype, dev) for iv in range(3)]
+    d['wmx'] = wmod.wall_model(mcfg, mgrid, wmod.find_index_wm(mcfg, mgrid),
+                               mbc, effective_cbcvel(mcfg))
     return d
 
 
@@ -467,19 +520,24 @@ def call(name, d, twin=False, variant=None, has_ruo=True, zrec=None):
         # 'xy+z'; tgv: no visct, explicit (the Taylor-Green vortex)
         # xdev, xbox: no visct, explicit, x walls (the developing channel;
         # the developing duct's x and y walls)
+        # xdev_s, xbox_s: visct, explicit, x walls; xdev_1d: visct, '1d',
+        # x walls (the developing channel and duct LES)
         dns = variant in ('dns', 'xyz', 'tgv', 'xdev', 'xbox')
         split = {'dns': '1d', 'les_split': '1d', 'xyz': 'xy+z',
-                 'les_xyz': 'xy+z'}.get(variant)
-        ye = d['y_mom'] if ywall else None
+                 'les_xyz': 'xy+z', 'xdev_1d': '1d'}.get(variant)
+        ye = d['y_mom'] if ywall or variant == 'xbox_s' else None
         if variant == 'xbox':
             ye = (*d['y_mom'][:3], None, d['y_mom'][4])
+        xkey = {'xdev': 'xdev_mom', 'xbox': 'xbox_mom',
+                'xdev_s': 'xdev_mom_s', 'xdev_1d': 'xdev_mom_s',
+                'xbox_s': 'xbox_mom_s'}.get(variant)
         out = list(fn(d['u'], d['v'], d['w'], None if dns else d['s'],
                       d['p'], d['ue'], d['ve'], d['we'],
                       None if dns else d['se'], d['pe'], *r, d['dzci'],
                       d['dzfi'], 2.1e-3, -1.1e-3 if has_ruo else 0.0,
                       d['visc'], d['dxi'], d['dyi'], (0.3, 0.0, 0.0),
                       sums=(True, True), split=split, ye=ye,
-                      xe=d.get(f'{variant}_mom')))
+                      xe=None if xkey is None else d[xkey]))
         # partial sums: compare the per-plane totals
         out[6], out[7] = out[6].sum(dim=1), out[7].sum(dim=1)
         return dict(zip(('u', 'v', 'w', 'ru', 'rv', 'rw', 'usum', 'vsum'),
@@ -492,6 +550,13 @@ def call(name, d, twin=False, variant=None, has_ruo=True, zrec=None):
         elif variant == 'duct_e':
             edges = d['e_edges']
             ykw = dict(ye=d['e_stacks'], ywall=d['ywall'])
+        elif variant in ('xdev', 'xbox'):
+            # x walls: the post-correction fill's x stacks, the inflow face
+            # a wall; with y walls the y-row stacks and y walls too
+            ykw = dict(xe=d[f'{variant}_mom'][:3],
+                       xwall=d[f'{variant}_xwall'])
+            if variant == 'xbox':
+                ykw.update(ye=d['y_mom'][:3], ywall=d['ywall'])
         return {'visct': fn(d['u'], d['v'], d['w'], *edges, d['dzci'],
                             d['dzfi'], d['dxi'], d['dyi'], d['visc'],
                             d['csd2'], d['dw'], d['nearlo'], d['tauw_lo'],
@@ -573,7 +638,7 @@ def call(name, d, twin=False, variant=None, has_ruo=True, zrec=None):
                      bc_lo=d['bc_lo'], bc_hi=d['bc_hi'], n_solve=nz - 1)
         return {'out': out}
     if name == 'wallmodel':
-        wm = d['wm4'] if variant == 'duct' else d['wm']
+        wm = {'duct': d['wm4'], 'xdev': d['wmx']}.get(variant, d['wm'])
         out = fn(d['wm_u'], d['v'], wm, **wm_kw(d, variant))
         return {f"{('bcu', 'bcv' if f.d == 2 else 'bcw')[i]}_{'xyz'[f.d]}"
                 f"{('lo', 'hi')[f.ib]}": q[i]
@@ -602,7 +667,7 @@ def wm_kw(d, variant):
     correction's rows; 'rows' the fill's (the initial and check fills, and
     sgstype 'none''s post-correction); 'duct' the fill's rows of the duct's
     four faces (w sampled on the y faces)."""
-    if variant == 'rows':
+    if variant in ('rows', 'xdev'):
         return {}
     if variant == 'duct':
         return dict(w=d['w'])
@@ -618,7 +683,8 @@ def wm_steps(d, variant):
     d64 = {k: d[k].double() if torch.is_tensor(d[k]) else d[k]
            for k in ('wm_u', 'v', 'w', 'pp', 'fuv', 'dxi', 'dyi')}
     return wmod.wm_newton_steps(d64['wm_u'], d64['v'],
-                                d['wm4'] if variant == 'duct' else d['wm'],
+                                {'duct': d['wm4'], 'xdev': d['wmx']}.get(
+                                    variant, d['wm']),
                                 **wm_kw(d64, variant))
 
 
@@ -689,18 +755,18 @@ def time_ms(fn, n=10):
 # one timed for the report in phase 2b
 VARIANTS = {
     'mom_rk': ('les', 'dns', 'les_split', 'duct', 'xyz', 'les_xyz', 'tgv',
-               'xdev', 'xbox'),
+               'xdev', 'xbox', 'xdev_s', 'xdev_1d', 'xbox_s'),
     'fillps': (None, 'duct', 'xdev', 'xbox'), 'correc_smag': (None, 'wm'),
     'correc_updatep': ('impdiff_1d', 'explicit', 'duct', 'impdiff', 'xdev',
                        'xbox'),
     'apply_y': ('x_and_y', 'y_only'), 'z_eig': (None,),
     'thomas_z': ('helmholtz', 'poisson', 'helmholtz3d'),
-    'smag': (None, 'duct_e', 'duct'),
+    'smag': (None, 'duct_e', 'duct', 'xdev', 'xbox'),
     'dsmag': (None, 'duct', 'cavity'),
     'thomas_periodic': ('poisson', 'helmholtz'),
     'dsmag_level1': (None, 'duct'), 'dsmag_level2': (None, 'duct', 'cavity'),
     'apply_x': ('slab', 'split', 'chunked'),
-    'wallmodel': ('corrected', 'rows', 'duct'),
+    'wallmodel': ('corrected', 'rows', 'duct', 'xdev'),
 }
 # the report rows of the other variants, by (kernel, variant)
 VARIANT_ROW_OF = {kv: row for row, kv in VARIANT_ROWS.items()}
@@ -711,7 +777,8 @@ RELATIVE = ('apply_y', 'z_eig', 'thomas_z', 'dsmag', 'thomas_periodic',
 # Newton iteration converges the same way on both; logs and divisions
 # round apart); so smag's y-wall variant
 WM_TOL64 = 1e-13
-REL64 = (('smag', 'duct'), ('smag', 'duct_e'))
+REL64 = (('smag', 'duct'), ('smag', 'duct_e'), ('smag', 'xdev'),
+         ('smag', 'xbox'))
 # the kernels whose float32 error is held against their float64 twin in
 # phase 2b; for the GEMM kernels (3xTF32) and the reordered Thomas solves
 # (chunks and cyclic reduction) it must stay within 4x the error of their
@@ -769,16 +836,28 @@ GRAPH_TIMED = ('wallmodel',)
 def ystacks(name, d, variant):
     """The y-row stacks and x stacks a walled variant reads, as tensors."""
     out = []
+    if variant in ('xdev_s', 'xdev_1d', 'xbox_s'):
+        xw = variant[:4]
+        out = [q for pair in d[f'{xw}_mom_s'] for q in pair]
+        if xw == 'xdev':
+            return out
+        return out + [q for pair in d['y_mom'] for q in pair]
     if variant in ('xdev', 'xbox'):
         pairs = {'mom_rk': [q for q in d[f'{variant}_mom'] if q is not None],
                  'fillps': [d[f'{variant}_pred'][0]],
                  'correc_updatep': [d[f'{variant}_pp'],
-                                    d[f'{variant}_pred'][0]]}[name]
+                                    d[f'{variant}_pred'][0]],
+                 # the stacks, the x walls' profiles and shear planes
+                 'smag': [*d[f'{variant}_mom'][:3],
+                          d[f'{variant}_xwall']]}[name]
         out = [q for pair in pairs for q in pair]
         if variant == 'xdev':
             return out
         if name == 'mom_rk':
             return out + [q for m in (0, 1, 2, 4) for q in d['y_mom'][m]]
+        if name == 'smag':
+            return out + [q for pair in (*d['y_mom'][:3], d['ywall'])
+                          for q in pair]
     elif variant not in ('duct', 'cavity', 'duct_e'):
         return []
     pairs = {'mom_rk': d['y_mom'], 'fillps': [d['y_pred'][1]],
@@ -800,7 +879,7 @@ def work(name, d, variant=None):
         # two rows of its two components a face (and of pp, corrected), a
         # z face's (ny, nx), a y face's (nz, nx), and the face's two padded
         # planes
-        wm = d['wm4'] if variant == 'duct' else d['wm']
+        wm = {'duct': d['wm4'], 'xdev': d['wmx']}.get(variant, d['wm'])
         rows = [(nz if f.d == 1 else ny) for f in wm.faces]
         nin = 2 * (3 if variant == 'corrected' else 2)
         nbytes = sum(nin * n * nx + 2 * (n + 2) * (nx + 2)
@@ -1093,9 +1172,15 @@ def drive(tag, cfg, dev, card, nsteps, per_step, ntime=30, hooks=None,
         faces['v at y walls'] = (state.vlo[1][1:-1, 1:-1], state.v[:, -1])
     if sim.xwalled:
         # u on each x face where it is set (an inflow or a wall): its value
-        # there (the kept lower face and the interior's last column)
+        # there (the kept lower face and the interior's last column), a
+        # plane-valued one's interior entries (an inflow profile)
+        def value(b):
+            if np.ndim(b) == 0:
+                return float(b)
+            return torch.as_tensor(np.asarray(b)[1:-1, 1:-1],
+                                   dtype=state.u.dtype, device=state.u.device)
         faces['u at the set x faces'] = tuple(
-            q - float(cfg.bcvel[ib][0][0]) for ib, q in
+            q - value(cfg.bcvel[ib][0][0]) for ib, q in
             ((0, state.vlo[0][1:-1, 1:-1]), (1, state.u[:, :, -1]))
             if sim.cbcvel[ib][0][0] == 'D')
     if sim.have_zwalls:
@@ -1564,12 +1649,67 @@ def phase_xwalls(dev, card):
     return xdev, xcav
 
 
+def phase_xles(dev, card):
+    """Phase 12: the developing wall-modelled channel LES at 512x256x256
+    f32 through driver.run: the x-walled mom_rk with nu_t, smag's x-wall
+    variant on the 'E' x stacks, the wall model's x-walled sampling, the
+    1/7-power inflow profile as the x stacks' offsets; the inflow face at
+    the profile, the outflow's flux the inflow's, w at 0 on the z walls,
+    nu_t finite and >= 0.  Phase 12b: the developing channel LES with
+    z-implicit diffusion (mom_rk's x-walled '1d' split, 9 thomas_z a
+    step); 12c the developing duct LES (smag's x- and y-wall variant).
+    Returns each run's launches and steps."""
+    from cales_torch.config import Config
+    from cales_torch.ops import kernels as K
+    per_step = dict(mom_rk=3, fillps=3, correc_updatep=3, smag=3, apply_y=6,
+                    z_eig=3)
+    cfg = xwmles_cfg()
+    nsteps = 11
+    keep = {}
+    sim, wmx, res = drive(
+        'phase 12: developing wall-modelled channel LES', cfg, dev, card,
+        nsteps, dict(per_step, wallmodel=3), keep=keep,
+        outside={'wallmodel': 2 + nsteps // cfg.icheck})
+    path = sim.exec_path()
+    require(sim.xwalled and all(k in path for k in (
+        'x-walled variants', 'wallmodel', 'x-wall variant',
+        "x faces' values", 'plane-valued values')),
+        f'phase 12: not on the x-walled WMLES path: {path}')
+    st = keep.pop('state')
+    # the flux through the outflow face (u's last column) against the
+    # inflow's (the kept lower face), weighted by the cells' dz
+    dzf = torch.as_tensor(sim.grid.dzf[1:-1], dtype=torch.float64,
+                          device=st.u.device)[:, None]
+    f_in = float((st.vlo[0][1:-1, 1:-1].double() * dzf).sum())
+    f_out = float((st.u[:, :, -1].double() * dzf).sum())
+    say(f'  flux through the inflow face {f_in:.7f}, the outflow face '
+        f'{f_out:.7f} (sum over the face of u dz)')
+    require(abs(f_out - f_in) <= 1e-4 * abs(f_in),
+            f'phase 12: outflow flux {f_out:.7f}, inflow {f_in:.7f}')
+    planes = K.wm_planes(st.u, st.v, sim.wm)
+    require(all(bool(torch.isfinite(q).all()) for q in planes),
+            'phase 12: non-finite wall-model planes')
+    res.update(flux_in=f_in, flux_out=f_out)
+    print(json.dumps({'developing_wmles': res}), flush=True)
+    _, ximp, res = drive('phase 12b: developing channel LES, impdiff_1d',
+                         Config(**XLES_IMP_CFG), dev, card, 5,
+                         dict(per_step, thomas_z=9))
+    print(json.dumps({'developing_les_impdiff': res}), flush=True)
+    sim, xduct, res = drive('phase 12c: developing duct LES',
+                            Config(**XDUCT_LES_CFG), dev, card, 5, per_step)
+    require(sim.xwalled and sim.ywalled and 'x-wall variant' in
+            sim.exec_path(), 'phase 12c: not on the x- and y-walled smag')
+    print(json.dumps({'developing_duct_les': res}), flush=True)
+    return (wmx, nsteps), (ximp, 5), (xduct, 5)
+
+
 def _card_vs_cpu(tag, cfg, dev, names, rel=(), two=False, fields=None):
     from cales_torch.grid import make_grid_from_config
     from cales_torch.initflow import initflow
     from cales_torch.timeloop import Simulation
     grid = make_grid_from_config(cfg)
     u, v, w, p = fields if fields is not None else initflow(cfg, grid)
+    say(f'{tag}: card vs CPU, {cfg.ng} float64, 3 steps')
     with twopass() if two else contextlib.nullcontext():
         sims = [Simulation(cfg, grid, device=dv) for dv in (dev, 'cpu')]
         s32 = Simulation(cfg.replace(dtype='float32'), grid, device=dev)
@@ -1580,7 +1720,6 @@ def _card_vs_cpu(tag, cfg, dev, names, rel=(), two=False, fields=None):
     dt = sims[1].pick_dt(sims[1].check(states[1])[0])
     for _ in range(3):
         states = [s.step(st, dt)[0] for s, st in zip(sims, states)]
-    say(f'{tag}: card vs CPU, {cfg.ng} float64, 3 steps')
     g, c = states
     for name, tol in names:
         a = getattr(g, name)
@@ -1680,6 +1819,37 @@ def phase_card_vs_cpu(dev):
         _card_vs_cpu(tag, cfg, dev, uvwp + (('vlo', 1e-11),),
                      fields=_perturbed_fields(cfg.replace(inivel=ini),
                                               SEED + 7))
+    # the x-walled LES and the plane-valued values, from perturbed fields:
+    # the developing channel with smag, with smag + impdiff_1d, the
+    # developing duct with smag, the developing WMLES with its inflow
+    # profile, and a periodic smag channel whose upper z face moves with
+    # an x-varying plane (tests/test_pallas_kernels.py:584's lid)
+    nx, ny, _ = small['ng']
+    lid = 1.0 + 0.3 * np.sin(2 * np.pi * np.arange(nx + 2) / nx)
+    lid_cfg = dict(LES_CFG, l=(2 * np.pi, np.pi, 1.0), gr=0.0, visci=2000.0,
+                   inivel='uni', is_wallturb=False,
+                   is_forced=(False, False, False), velf=(0.0, 0.0, 0.0),
+                   ptransform='mat', bcvel=(((0.0,) * 3,) * 3, (
+                       (0.0,) * 3, (0.0,) * 3,
+                       (np.repeat(lid[None], ny + 2, axis=0), 0.0, 0.0))),
+                   **CHAN_BCS)
+    tight = (('u', 1e-11), ('v', 1e-11), ('w', 1e-11), ('p', 1e-11),
+             ('visct', 1e-11), ('vlo', 1e-11))
+    for tag, cfg in (
+            ('phase 6p (developing channel LES)',
+             Config(**{**XDEV_CFG, 'sgstype': 'smag', 'visci': 20_000.0,
+                       **small})),
+            ('phase 6q (developing channel LES, impdiff_1d)',
+             Config(**{**XLES_IMP_CFG, **small})),
+            ('phase 6r (developing duct LES)',
+             Config(**{**XDUCT_LES_CFG, **small})),
+            ('phase 6s (developing WMLES, inflow profile)',
+             xwmles_cfg(**small)),
+            ('phase 6t (lid plane, smag channel)',
+             Config(**{**lid_cfg, **small}))):
+        _card_vs_cpu(tag, cfg, dev, tight, rel=('visct',),
+                     fields=_perturbed_fields(cfg.replace(inivel='uni'),
+                                              SEED + 8))
 
 
 def _perturbed_fields(cfg, seed):
@@ -2112,6 +2282,7 @@ def main():
     tgv = phase_tgv(dev, card)
     tri3, dns3 = phase_triperiodic(dev, card)
     xdev, xcav = phase_xwalls(dev, card)
+    xwm, ximp, xduct = phase_xles(dev, card)
     phase_card_vs_cpu(dev)
     mesh_launches, halo_rows = phase_sharded(dev, card)
     rows.update(halo_rows)
@@ -2146,8 +2317,18 @@ def main():
     # and the lid-driven cavity (phase 11b, 5 steps)
     variant_path = {'duct': duct, 'cavity': cavity, 'helmholtz3d': dns3,
                     'xdev': xdev, 'xbox': xcav}
+    # the x-walled LES variants: on the developing WMLES (phase 12, 11
+    # steps; the wall model's launches there include the initial fill's
+    # and the checks'), the developing channel LES with impdiff_1d (12b)
+    # and the developing duct LES (12c)
+    x_les_path = {('mom_rk', 'xdev_s'): xwm, ('smag', 'xdev'): xwm,
+                  ('wallmodel', 'xdev'): xwm, ('mom_rk', 'xdev_1d'): ximp,
+                  ('mom_rk', 'xbox_s'): xduct, ('smag', 'xbox'): xduct}
     for row, (name, variant) in VARIANT_ROWS.items():
-        if name in ('dsmag_level1', 'dsmag_level2'):
+        if (name, variant) in x_les_path:
+            run, nsteps = x_les_path[(name, variant)]
+            paths[row] = (run, nsteps, name)
+        elif name in ('dsmag_level1', 'dsmag_level2'):
             # the two-pass duct and cavity of phase 7d
             paths[row] = (two[variant], 5, name)
         elif variant == 'wm':

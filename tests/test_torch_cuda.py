@@ -3,7 +3,8 @@ slab variants with y halos and apply_x too), and the slices (channel LES,
 implicit-CN channel DNS, dynamic-Smagorinsky channel, static-Smagorinsky
 LES with impdiff_1d, the y-walled duct and cavity, the two-pass dynamic
 Smagorinsky, the triperiodic Taylor-Green
-vortex and full-3D implicit diffusion, the wall-modelled channel LES)
+vortex and full-3D implicit diffusion, the wall-modelled channel LES, the
+x-walled LES: the developing channel, duct and wall-modelled channel)
 on the card against the same slices on the CPU, step for step, fp64.
 
 These tests need an NVIDIA GPU and skip without one.  The file imports
@@ -1661,3 +1662,143 @@ def test_card_matches_cpu_wmles_step_for_step(dev, case):
         if name == 'p':
             a, b = a - a.mean(), b - b.mean()
         assert float((a - b).abs().max()) <= tol, name
+
+
+def _xles_sim(dev, kind, ng, dtype='float64'):
+    """A port Simulation on the card of the developing channel LES (periodic
+    y), the developing duct LES (y walls) or the developing WMLES with an
+    inflow profile (the wall model on both z walls)."""
+    from cales_torch.profile_step import power_law_inflow
+    xbcs = dict(cbcvel=((('D', 'N', 'N'), ('P', 'P', 'P'), ('D', 'D', 'D')),
+                        (('N', 'N', 'N'), ('P', 'P', 'P'), ('D', 'D', 'D'))),
+                cbcpre=(('N', 'P', 'N'), ('D', 'P', 'N')),
+                cbcsgs=(('N', 'P', 'D'), ('N', 'P', 'D')))
+    if kind == 'duct':
+        xbcs = dict(
+            cbcvel=((('D', 'N', 'N'), ('D', 'D', 'D'), ('D', 'D', 'D')),
+                    (('N', 'N', 'N'), ('D', 'D', 'D'), ('D', 'D', 'D'))),
+            cbcpre=(('N', 'N', 'N'), ('D', 'N', 'N')),
+            cbcsgs=(('N', 'D', 'D'), ('N', 'D', 'D')))
+    kw = dict(ng=ng, l=(1.0, 1.5, 1.0), gtype=1, gr=1.0, visci=20_000.0,
+              inivel='uni', is_wallturb=False, sgstype='smag', dtype=dtype,
+              is_forced=(False,) * 3, velf=(0.0,) * 3,
+              bcvel=(((1.0, 0.0, 0.0), (0.0,) * 3, (0.0,) * 3),
+                     ((0.0,) * 3,) * 3), **xbcs)
+    if kind == 'wm':
+        kw.update(l=(6.4, 3.2, 2.0), gtype=6, gr=0.0, visci=50_000.0,
+                  lwm=((0, 0, 1), (0, 0, 1)), hwm=0.1)
+    cfg = Config(**kw)
+    if kind == 'wm':
+        cfg = power_law_inflow(cfg)
+    grid = make_grid_from_config(cfg)
+    return cfg, grid, Simulation(cfg, grid, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('kind', ['dev', 'duct', 'wm'])
+@pytest.mark.parametrize('dtype, shape', [
+    ('float64', (40, 25, 11)), ('float32', (33, 17, 17))])
+def test_cuda_xwalled_les_kernels_match_twins(dev, dtype, shape, kind):
+    """The x-walled LES's kernel variants on ragged tiles against their
+    twins, on the post-correction fill's stacks of random interiors: mom_rk
+    with nu_t (and, with periodic y, the '1d' split), smag's x-wall variant
+    (on the 'E' stacks with the wall model) and the wall model's x-walled
+    rows with an inflow profile: float64 within 1e-12 (the wall model's
+    planes 1e-13 of their maximum), float32 within 1e-5 of each output's
+    maximum."""
+    cfg, grid, sim = _xles_sim(dev, kind, shape, dtype)
+    nx, ny, nz = shape
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=dev).manual_seed(29)
+    F = lambda: 0.05 * torch.randn((nz, ny, nx), generator=gen,  # noqa: E731
+                                   device=dev, dtype=dt)
+    u, v, w, p, ruo, rvo, rwo = (F() for _ in range(7))
+    u = u + 1.0
+    s = F().abs() * 1e-3
+    bcs = sim._dynamic_bcs(u, v, w)
+    vlo = tuple(1e-3 * torch.randn(q, generator=gen, device=dev, dtype=dt)
+                for q in ((nz + 2, ny + 2), (nz + 2, nx + 2),
+                          (ny + 2, nx + 2)))
+    zq = sim._zedge_vel(u, v, w, *bcs, vlo=vlo, is_correc=True)
+    yq = (sim._yedge_vel(u, v, w, bcs, vlo=vlo, is_correc=True)
+          if sim.ywalled else None)
+    xq = sim._xedge_vel(u, v, w, bcs, vlo=vlo, is_correc=True)
+    dxi, dyi = cfg.dli[0], cfg.dli[1]
+    ye = None if yq is None else (*yq, sim._yedge_s(s), sim._yedge_p(p))
+    xe = (*xq, sim._xedge_s(s), sim._xedge_p(p))
+    tol = dict(rtol=0, atol=1e-12)
+
+    def close(got, ref):
+        if dt == torch.float64:
+            torch.testing.assert_close(got, ref, **tol)
+        else:
+            _rel_close(got, ref, 1e-5)
+    for split in (None, '1d') if yq is None else (None,):
+        mom = (u, v, w, s, p, *zq, sim._zedge_s(s), sim._zedge_p(p), ruo,
+               rvo, rwo, sim.dzci_t, sim.dzfi_t, 5e-4, -2e-4, cfg.visc, dxi,
+               dyi, (0.0, 0.0, 0.0))
+        K.reset_launches()
+        got = K.mom_rk(*mom, sums=(True, True), split=split, ye=ye, xe=xe)
+        ref = K.mom_rk_plain(*mom, sums=(True, True), split=split, ye=ye,
+                             xe=xe)
+        assert K.LAUNCHES['mom_rk'] == 1
+        for g, r in zip(got[:6], ref[:6]):
+            close(g, r)
+    # smag: the stage's own glue (the shear planes, the 'E' stacks), its
+    # kernel call against the twin on the same arguments
+    calls = []
+    real = K.smag
+
+    def spy(*a, **k):
+        calls.append((a, k))
+        return real(*a, **k)
+    K.smag = spy
+    try:
+        sim._sgs_stage(u, v, w, zq, vlo, yq, xq)
+    finally:
+        K.smag = real
+    (a, k), = calls
+    assert k['xe'] is not None and (k['xwall'] is not None)
+    close(K.smag(*a, **k), K.smag_plain(*a, **k))
+    if kind == 'wm':
+        K.reset_launches()
+        got = K.wm_planes(u, v, sim.wm)
+        ref = K.wm_planes_plain(u, v, sim.wm)
+        assert K.LAUNCHES['wallmodel'] == 1
+        for g, r in zip(got, ref):
+            if dt == torch.float64:
+                _rel_close(g, r, 1e-13)
+            else:
+                _rel_close(g, r, 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('kind', ['dev', 'duct', 'wm'])
+def test_card_matches_cpu_xwalled_les_step_for_step(dev, kind):
+    """3 steps of the x-walled LES on the card and on the CPU (twins),
+    fp64: u, v, w and the kept planes within 1e-11, p within 1e-10 after
+    removing its mean, nu_t within 1e-10 of its maximum."""
+    cfg, grid, sim = _xles_sim(dev, kind, (48, 24, 16))
+    cpu = Simulation(cfg, grid, device='cpu')
+    fields = [np.asarray(f) for f in initflow(cfg, grid)]
+    rng = np.random.default_rng(3)
+    fields = [f + 1e-2 * rng.standard_normal(f.shape) for f in fields]
+    a, b = sim.initial_state(*fields), cpu.initial_state(*fields)
+    dt = cpu.pick_dt(cpu.check(b)[0])
+    K.reset_launches()
+    for _ in range(3):
+        a, _ = sim.step(a, dt)
+        b, _ = cpu.step(b, dt)
+    assert K.LAUNCHES['smag'] == 9 and K.LAUNCHES['mom_rk'] == 9
+    if kind == 'wm':
+        assert K.LAUNCHES['wallmodel'] == 9
+    for name in ('u', 'v', 'w', 'p', 'visct'):
+        x, y = getattr(a, name).cpu(), getattr(b, name)
+        if name == 'p':
+            x, y = x - x.mean(), y - y.mean()
+        err = float((x - y).abs().max())
+        if name == 'visct':
+            err /= float(y.abs().max())
+        assert err <= (1e-10 if name in ('p', 'visct') else 1e-11), name
+    for m in range(3):
+        assert float((a.vlo[m].cpu() - b.vlo[m]).abs().max()) <= 1e-11, m

@@ -377,35 +377,59 @@ def test_xwalled_configs_in_the_slice(base):
         assert ('x-y-walled' if base == 'box' else 'x-walled') in path
 
 
-@pytest.mark.parametrize('change,item', [
-    (dict(sgstype='smag'), 'x walls with smag'),
-    (dict(sgstype='dsmag', dsmag_avg='cavity'), 'x walls with smag'),
-    (dict(impdiff=True, impdiff_1d=True), 'x walls with impdiff_1d'),
-    (dict(impdiff=True), 'x walls with impdiff_1d'),
-    (dict(lwm=((0, 0, 1), (0, 0, 1)), hwm=0.1), 'x walls with a wall model'),
-    (dict(scalar=True), 'the x-walled scalar'),
-    ('inflow profile', 'plane-valued inflow profiles'),
-    (dict(dims=(2, 1)), 'x walls on a mesh'),
-    (dict(ptransform='fft'), "ptransform 'fft'"),
-    (dict(is_forced=(True, False, False), velf=(1.0, 0.0, 0.0)),
-     'bulk forcing'),
-])
-def test_xwalled_configs_outside_the_slice_raise(change, item):
-    """Every x-walled case outside the slice raises with a message that
-    says 'non-periodic x' and names its ROADMAP item."""
-    if change == 'inflow profile':
+# the x-walled changes of each base: None where the slice runs it, else
+# the ROADMAP item its refusal names (the developing channel DEV has
+# periodic y, the box BOX y walls)
+_BOTH = {'dsmag': 'x walls with dsmag',
+         'full-3D implicit': 'x walls with full-3D implicit diffusion',
+         'scalar': 'the x-walled scalar', 'mesh': 'x walls on a mesh',
+         'fft': "ptransform 'fft'", 'bulk forcing': 'bulk forcing'}
+OUTCOMES = {
+    'smag': {'dev': None, 'box': None},
+    'impdiff_1d': {'dev': None, 'box': 'impdiff with y walls'},
+    'z-wall model': {'dev': None,
+                     'box': 'x walls with a wall model and y walls'},
+    'inflow profile': {'dev': None,
+                       'box': 'plane-valued values with y walls'},
+    **{k: {'dev': item, 'box': item} for k, item in _BOTH.items()},
+}
+
+
+def _change(name):
+    if name == 'inflow profile':
         # plane-valued BC values: a profile of u on the lower x face
         prof = np.ones((BOX['ng'][2] + 2, BOX['ng'][1] + 2))
-        change = dict(bcvel=(((prof, 0.0, 0.0), (0.0,) * 3, (0.0,) * 3),
-                             ((0.0,) * 3,) * 3))
-    for base in (DEV, BOX):
-        cfg = Config(**{**base, **change})
-        msgs = [m for m in unsupported(cfg) if 'non-periodic x' in m]
-        assert any(item in m and 'ROADMAP queue 1' in m for m in msgs), \
-            unsupported(cfg)
-        with pytest.raises(NotImplementedError,
-                           match='outside the ported slice'):
-            Simulation(cfg, make_grid_from_config(cfg), device='cpu')
+        return dict(bcvel=(((prof, 0.0, 0.0), (0.0,) * 3, (0.0,) * 3),
+                           ((0.0,) * 3,) * 3))
+    return {'smag': dict(sgstype='smag'),
+            'impdiff_1d': dict(impdiff=True, impdiff_1d=True),
+            'z-wall model': dict(lwm=((0, 0, 1), (0, 0, 1)), hwm=0.1),
+            'dsmag': dict(sgstype='dsmag', dsmag_avg='cavity'),
+            'full-3D implicit': dict(impdiff=True),
+            'scalar': dict(scalar=True), 'mesh': dict(dims=(2, 1)),
+            'fft': dict(ptransform='fft'),
+            'bulk forcing': dict(is_forced=(True, False, False),
+                                 velf=(1.0, 0.0, 0.0))}[name]
+
+
+@pytest.mark.parametrize('change,base', [
+    (c, b) for c in OUTCOMES for b in ('dev', 'box')])
+def test_xwalled_configs_outside_the_slice_raise(change, base):
+    """Each x-walled change either runs (the slice's: static Smagorinsky,
+    impdiff_1d, the z-wall model and an inflow profile, the last three
+    with periodic y) or raises with a message that names its ROADMAP
+    item."""
+    item = OUTCOMES[change][base]
+    cfg = Config(**{**(DEV if base == 'dev' else BOX), **_change(change)})
+    if item is None:
+        assert unsupported(cfg) == []
+        sim = Simulation(cfg, make_grid_from_config(cfg), device='cpu')
+        assert sim.xwalled and 'x-ghost column stacks' in sim.exec_path()
+        return
+    msgs = unsupported(cfg)
+    assert any(item in m and 'ROADMAP queue 1' in m for m in msgs), msgs
+    with pytest.raises(NotImplementedError, match='outside the ported slice'):
+        Simulation(cfg, make_grid_from_config(cfg), device='cpu')
 
 
 def test_xwalled_periodic_z_raises():
