@@ -48,8 +48,9 @@ and visci) from the rows of a bulk flow (1 + u) corrected by pp
 ('wallmodel') and as they are ('wallmodel rows'), and on the four walls
 of the duct WMLES example ('wallmodel duct'); mom_rk with x walls and
 periodic y or y walls on random x stacks, without nu_t ('mom_rk x
-walls', 'mom_rk x+y walls'); smag with y walls on random y-row stacks,
-distances and shear planes ('smag y walls').
+walls', 'mom_rk x+y walls') and with it ('mom_rk x walls nu_t', 'mom_rk x
+1d' with the '1d' split, 'mom_rk x+y walls nu_t'); smag with y walls on
+random y-row stacks, distances and shear planes ('smag y walls').
 Outputs are compared in float64 at (nx, ny, nz) = (72, 40, 48) and in
 float32 at --ng (bitwise, and max|this - baseline| / max|baseline|, the
 worst output); mom_rk's partial sums, whose parts differ (blocks of 256
@@ -86,7 +87,8 @@ CASES = ('channel', 'duct', 'cavity', 'z_eig', 'dsmag_level1',
          'thomas_z 512^3', 'fillps', 'fillps y walls', 'correc_updatep',
          'correc_updatep y walls', 'smag', 'smag halo', 'correc_smag',
          'correc_smag N', 'wallmodel', 'wallmodel rows', 'wallmodel duct',
-         'mom_rk x walls', 'mom_rk x+y walls', 'smag y walls')
+         'mom_rk x walls', 'mom_rk x+y walls', 'smag y walls',
+         'mom_rk x walls nu_t', 'mom_rk x 1d', 'mom_rk x+y walls nu_t')
 # the cases at their own shape, in float32 only
 BIG = {'apply_y x+y 512^3': (512, 512, 512), 'mom_rk 512^3': (512, 512, 512),
        'thomas_periodic 512^3': (512, 512, 512),
@@ -301,16 +303,22 @@ def _call(mods, d, case):
                                d['alph2'], dz, dz, 40.0, 20.0,
                                avg='duct' if walls else 'channel',
                                ye=ye[:3] if walls else None)
-    if case in ('mom_rk x walls', 'mom_rk x+y walls'):
-        # x walls without nu_t (its x stack and visct absent)
-        yw = case == 'mom_rk x+y walls'
+    if case.startswith(('mom_rk x walls', 'mom_rk x+y walls',
+                        'mom_rk x 1d')):
+        # x walls without nu_t (its x stack and visct absent), or with it
+        # ('nu_t', and the '1d' split with periodic y)
+        yw = case.startswith('mom_rk x+y walls')
+        sgs = case.endswith(('nu_t', '1d'))
         ny = f[0].shape[1]
         xe = d['xe'][ny + 2 if yw else ny]
-        out = Km.mom_rk(f[0], f[1], f[2], None, f[4], e[0], e[1], e[2], None,
+        s, se = (f[3], e[3]) if sgs else (None, None)
+        out = Km.mom_rk(f[0], f[1], f[2], s, f[4], e[0], e[1], e[2], se,
                         e[4], *f[5:8], dz, dz, 0.01, -0.005, 5e-5, 40.0,
                         20.0, (0.1, 0.0, 0.0), sums=(True, True),
-                        ye=(*ye[:3], None, ye[4]) if yw else None,
-                        xe=(*xe[:3], None, xe[4]))
+                        split='1d' if case == 'mom_rk x 1d' else None,
+                        ye=(*ye[:3], ye[3] if sgs else None, ye[4]) if yw
+                        else None,
+                        xe=(*xe[:3], xe[3] if sgs else None, xe[4]))
         return (*out[:6], out[6].sum(dim=1), out[7].sum(dim=1))
     if case.startswith('mom_rk'):
         # 512^3: the Taylor-Green vortex's, no nu_t and explicit

@@ -31,14 +31,25 @@
 //          (cales_tpu timeloop.py:1883-1924).  Only the first and last
 //          tile column of blocks have such cells, and a cell's source is
 //          found once, so the loads of every other block are those of
-//          the periodic variant.
+//          the periodic variant;
+//   SCAL   the passive scalar (its own C entry, cales_mom_rk_scal_*; the
+//          TPU kernel's has_scal stream, pallas_kernels.py:497-499,
+//          661-667): one more cell-centred field in the ring, loaded as p
+//          is (its z-edge stack, its y-row stack with y walls, its x
+//          stack with x walls, each from the scalar's own BC letters and
+//          values), its advection-diffusion RHS ds from the ring's u, v,
+//          w and s planes (ops/stencil.scalar_rhs_core, scal.f90:14-51,
+//          alpha = visc/pr) and its RK3 update s + f1 ds + f12 ssource
+//          (+ f2 rso, skipped on the first substep with ruo,
+//          rk.f90:123-195); periodic y or y walls, never a slab.
 // The formulas are cales_torch/ops/stencil.momentum_rhs_core term by term
 // (reference mom.f90:17-309, rk.f90:77-94).
 //
 // Bound on the H100: memory.  About 14 field streams per call (read u, v,
 // w, visct, p and ru_o, rv_o, rw_o; write u, v, w, ru, rv, rw): 1.9 GB at
 // 512x256x256 f32, a 0.56 ms floor at the data sheet's 3.35 TB/s; 13
-// without visct.  The stencil reads u, v, w and visct at up to 13
+// without visct; the scalar adds four (read s and rso, write s and ds):
+// 18, a 0.72 ms floor.  The stencil reads u, v, w and visct at up to 13
 // neighbours on three z planes and p on two.
 //
 // Design: a z-march through shared memory, as correc_smag.cu's.  A block
@@ -63,7 +74,8 @@
 // memory before the plane's barrier, and warp 0 (u) and warp 1 (v) add
 // the warps' sums of that plane after it, in warp order.
 // Shared memory: 5 planes x 5 fields x 10 x 34 values, 34,000 bytes in
-// float32 with visct (27,200 without), 68,000 in float64; 58-64
+// float32 with visct (27,200 without), 68,000 in float64; the scalar adds
+// a sixth field (40,800 and 81,600 bytes with visct); 58-64
 // registers in float32 with visct (four blocks an SM), 40-58 without.
 // Measured on an NVIDIA H100 80GB HBM3 at 700 W (cales_torch.ab_dsmag,
 // f32): 0.88 ms at 512x256x256 with visct (1.43 for a thread a cell
@@ -86,7 +98,22 @@ namespace cales {
     T* __restrict__ usum, T* __restrict__ vsum, YRows<T> yu, YRows<T> yv,     \
     YRows<T> yw, YRows<T> ys, YRows<T> yp, YRows<T> xu, YRows<T> xv,          \
     YRows<T> xw, YRows<T> xs, YRows<T> xp, int nz, int ny, int nx, T f1,      \
-    T f2, T visc, T dxi, T dyi, T bfx, T bfy, T bfz
+    T f2, T visc, T dxi, T dyi, T bfx, T bfy, T bfz, ScalArgs<T> sc
+// The passive scalar of the SCAL variant: the field and its z-edge stack,
+// its previous RHS (null on the first substep), the new field and RHS, its
+// y-row and x stack pairs (null with periodic y and x), its diffusivity
+// visc/pr and source.
+template <typename T>
+struct ScalArgs {
+  const T* s;
+  const T* se;
+  const T* rso;
+  T* so;
+  T* rs;
+  YRows<T> ys, xs;
+  T alpha, ssource;
+};
+
 // The explicit RHS r and the implicit part rd of one component from its
 // advection (+ eddy stress) adv and molecular diffusion dxy, dz.
 template <int SPLIT, typename T>
@@ -140,13 +167,15 @@ __device__ __forceinline__ const T* ystack(const YRows<T>& y, int kz,
   return YM == Y_WALLS ? yrow(y, kz, 0, nz, nx) : hrow(y, kz, 0, nz, nx);
 }
 
-template <typename T, bool SGS, int SPLIT, int YM, bool XW>
+template <typename T, bool SGS, int SPLIT, int YM, bool XW, bool SCAL>
 __global__ void __launch_bounds__(MrGeo<MomTy<T>::TY>::NT)
     mom_rk_kernel(CALES_MOM_RK_PARAMS) {
   constexpr int TY = MomTy<T>::TY;
   using G = MrGeo<TY>;
   constexpr int NT = G::NT, NW = G::NW, CPL = G::CPL;
-  constexpr int NF = SGS ? 5 : 4;    // u, v, w, p (, visct)
+  // u, v, w, p (, visct) (, the scalar, field SF)
+  constexpr int SF = SGS ? 5 : 4;
+  constexpr int NF = SF + (SCAL ? 1 : 0);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* const R = reinterpret_cast<T*>(smem_raw);
   T* const part = R + MR_RING * NF * CPL;   // [2 planes][u, v][NW]
@@ -191,19 +220,21 @@ __global__ void __launch_bounds__(MrGeo<MomTy<T>::TY>::NT)
   // plane, empty past nz
   auto load = [&](int kz) {
     if (kz <= nz) {
-      const T* fb[5] = {zrow(u, ue, kz, nz, plane), zrow(v, ve, kz, nz, plane),
+      const T* fb[6] = {zrow(u, ue, kz, nz, plane), zrow(v, ve, kz, nz, plane),
                         zrow(w, we, kz, nz, plane), zrow(p, pe, kz, nz, plane),
-                        SGS ? zrow(s, se, kz, nz, plane) : nullptr};
-      const T* yb[5] = {nullptr, nullptr, nullptr, nullptr, nullptr};
+                        SGS ? zrow(s, se, kz, nz, plane) : nullptr, nullptr};
+      if (SCAL) fb[SF] = zrow(sc.s, sc.se, kz, nz, plane);
+      const T* yb[6] = {nullptr, nullptr, nullptr, nullptr, nullptr, nullptr};
       if (YM != Y_PERIODIC) {
         yb[0] = ystack<YM>(yu, kz, nz, nx);
         yb[1] = ystack<YM>(yv, kz, nz, nx);
         yb[2] = ystack<YM>(yw, kz, nz, nx);
         yb[3] = ystack<YM>(yp, kz, nz, nx);
         if (SGS) yb[4] = ystack<YM>(ys, kz, nz, nx);
+        if (SCAL) yb[SF] = ystack<YM>(sc.ys, kz, nz, nx);
       }
       // the x stacks' column 0 of plane kz
-      const T* xb[5] = {nullptr, nullptr, nullptr, nullptr, nullptr};
+      const T* xb[6] = {nullptr, nullptr, nullptr, nullptr, nullptr, nullptr};
       if (XW) {
         const int nyc = ny + NYC_PAD;
         xb[0] = yrow(xu, kz, 0, nz, nyc);
@@ -211,6 +242,7 @@ __global__ void __launch_bounds__(MrGeo<MomTy<T>::TY>::NT)
         xb[2] = yrow(xw, kz, 0, nz, nyc);
         xb[3] = yrow(xp, kz, 0, nz, nyc);
         if (SGS) xb[4] = yrow(xs, kz, 0, nz, nyc);
+        if (SCAL) xb[SF] = yrow(sc.xs, kz, 0, nz, nyc);
       }
       T* const dst = ring(kz);
 #pragma unroll
@@ -465,6 +497,38 @@ __global__ void __launch_bounds__(MrGeo<MomTy<T>::TY>::NT)
       ruo_new[o] = ru;
       rvo_new[o] = rv;
       rwo_new[o] = rw;
+      if (SCAL) {
+        // the scalar's RHS and update from the ring's planes, in
+        // scalar_rhs_core's order (scal.f90:14-51, rk.f90:123-195)
+#define MR_AT(f, dk, dj, di) pl[(dk) + 1][(f) * CPL + (dj) * MR_CX + (di)]
+#define C(dk, dj, di) MR_AT(SF, dk, dj, di)
+        const T h = T(0.5);
+        const T sc_c = C(0, 0, 0);
+        const T sc_m = C(0, 0, -1), sc_p = C(0, 0, 1);
+        const T sc_jm = C(0, -1, 0), sc_jp = C(0, 1, 0);
+        const T sc_km = C(-1, 0, 0), sc_kp = C(1, 0, 0);
+        const T usim = h * (sc_m + sc_c) * MR_AT(0, 0, 0, -1);
+        const T usip = h * (sc_p + sc_c) * MR_AT(0, 0, 0, 0);
+        const T vsjm = h * (sc_jm + sc_c) * MR_AT(1, 0, -1, 0);
+        const T vsjp = h * (sc_jp + sc_c) * MR_AT(1, 0, 0, 0);
+        const T wskm = h * (sc_km + sc_c) * MR_AT(2, -1, 0, 0);
+        const T wskp = h * (sc_kp + sc_c) * MR_AT(2, 0, 0, 0);
+#undef C
+#undef MR_AT
+        const T dsdxp = (sc_p - sc_c) * dxi, dsdxm = (sc_c - sc_m) * dxi;
+        const T dsdyp = (sc_jp - sc_c) * dyi, dsdym = (sc_c - sc_jm) * dyi;
+        const T dsdzp = (sc_kp - sc_c) * dzci_c;
+        const T dsdzm = (sc_c - sc_km) * dzci_m;
+        const T alpha = sc.alpha;
+        const T ds = dxi * (-usip + usim) + (dsdxp - dsdxm) * alpha * dxi +
+                     dyi * (-vsjp + vsjm) + (dsdyp - dsdym) * alpha * dyi +
+                     dzfi_c * (-wskp + wskm) +
+                     (dsdzp - dsdzm) * alpha * dzfi_c;
+        T sn = sc_c + f1 * ds + f12 * sc.ssource;
+        if (sc.rso != nullptr) sn = sn + f2 * sc.rso[o];
+        sc.so[o] = sn;
+        sc.rs[o] = ds;
+      }
     }
     // the warps' partial sums of the new (full-prediction) u and v
     if (usum != nullptr || vsum != nullptr) {
@@ -491,22 +555,38 @@ using MomKernel = void (*)(const T*, const T*, const T*, const T*, const T*,
                            T*, T*, T*, T*, T*, T*, T*, T*, YRows<T>, YRows<T>,
                            YRows<T>, YRows<T>, YRows<T>, YRows<T>, YRows<T>,
                            YRows<T>, YRows<T>, YRows<T>, int, int, int, T, T,
-                           T, T, T, T, T, T);
+                           T, T, T, T, T, T, ScalArgs<T>);
 
 template <typename T, bool SGS, int SPLIT>
 MomKernel<T> pick_mom_rk(int ym) {
-  return ym == Y_HALO    ? &mom_rk_kernel<T, SGS, SPLIT, Y_HALO, false>
-         : ym == Y_WALLS ? &mom_rk_kernel<T, SGS, SPLIT, Y_WALLS, false>
-                         : &mom_rk_kernel<T, SGS, SPLIT, Y_PERIODIC, false>;
+  return ym == Y_HALO ? &mom_rk_kernel<T, SGS, SPLIT, Y_HALO, false, false>
+         : ym == Y_WALLS
+             ? &mom_rk_kernel<T, SGS, SPLIT, Y_WALLS, false, false>
+             : &mom_rk_kernel<T, SGS, SPLIT, Y_PERIODIC, false, false>;
 }
 
 // the x-walled variants: explicit with periodic y or y walls, split '1d'
 // with periodic y
 template <typename T, bool SGS>
 MomKernel<T> pick_mom_rk_xw(int ym, int split) {
-  return split == 1      ? &mom_rk_kernel<T, SGS, 1, Y_PERIODIC, true>
-         : ym == Y_WALLS ? &mom_rk_kernel<T, SGS, 0, Y_WALLS, true>
-                         : &mom_rk_kernel<T, SGS, 0, Y_PERIODIC, true>;
+  return split == 1 ? &mom_rk_kernel<T, SGS, 1, Y_PERIODIC, true, false>
+         : ym == Y_WALLS ? &mom_rk_kernel<T, SGS, 0, Y_WALLS, true, false>
+                         : &mom_rk_kernel<T, SGS, 0, Y_PERIODIC, true, false>;
+}
+
+// the scalar variants, what the slice runs with a scalar on one device:
+// periodic y with each split, y walls explicit, and x walls as
+// pick_mom_rk_xw
+template <typename T, bool SGS>
+MomKernel<T> pick_mom_rk_scal(int ym, int split, bool xw) {
+  if (xw)
+    return split == 1 ? &mom_rk_kernel<T, SGS, 1, Y_PERIODIC, true, true>
+           : ym == Y_WALLS ? &mom_rk_kernel<T, SGS, 0, Y_WALLS, true, true>
+                           : &mom_rk_kernel<T, SGS, 0, Y_PERIODIC, true, true>;
+  if (ym == Y_WALLS) return &mom_rk_kernel<T, SGS, 0, Y_WALLS, false, true>;
+  return split == 2   ? &mom_rk_kernel<T, SGS, 2, Y_PERIODIC, false, true>
+         : split == 1 ? &mom_rk_kernel<T, SGS, 1, Y_PERIODIC, false, true>
+                      : &mom_rk_kernel<T, SGS, 0, Y_PERIODIC, false, true>;
 }
 
 // y: the y-row stacks and corners of u, v, w, visct, p, in that order (10
@@ -515,7 +595,9 @@ MomKernel<T> pick_mom_rk_xw(int ym, int split) {
 // (3, 2, nx)) instead; then the x stacks and corners of the same five
 // fields (10 pointers, all null with periodic x; visct's null without
 // visct; x walls run with split 0 or, with periodic y, 1, never on a
-// slab).
+// slab).  sc: the passive scalar (the SCAL variants), or null: its
+// field, edge stack and outputs set, its previous RHS with ruo, its y-row
+// and x stack pairs with the velocity's, never on a slab.
 template <typename T>
 int launch_mom_rk(const T* u, const T* v, const T* w, const T* s, const T* p,
                   const T* ue, const T* ve, const T* we, const T* se,
@@ -524,11 +606,18 @@ int launch_mom_rk(const T* u, const T* v, const T* w, const T* s, const T* p,
                   T* rv, T* rw, T* usum, T* vsum, const T* const* y, int nz,
                   int ny, int nx, int split, int halo, double f1, double f2,
                   double visc, double dxi, double dyi, double bfx,
-                  double bfy, double bfz, void* stream) {
+                  double bfy, double bfz, const ScalArgs<T>* sc,
+                  void* stream) {
   const bool sgs = s != nullptr;
   const bool yw = y[0] != nullptr;
   const bool xw = y[10] != nullptr;
   if (sgs != (se != nullptr)) return static_cast<int>(cudaErrorInvalidValue);
+  if (sc != nullptr &&
+      (sc->s == nullptr || sc->se == nullptr || sc->so == nullptr ||
+       sc->rs == nullptr || (sc->rso == nullptr) != (ruo == nullptr) ||
+       halo || yw != (sc->ys.rows != nullptr && sc->ys.corners != nullptr) ||
+       xw != (sc->xs.rows != nullptr && sc->xs.corners != nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
   for (int m = 0; m < 20; ++m) {
     const bool want = (m < 10 ? yw : xw) && (sgs || m % 10 / 2 != 3);
     if (want != (y[m] != nullptr))
@@ -541,9 +630,14 @@ int launch_mom_rk(const T* u, const T* v, const T* w, const T* s, const T* p,
       (xw && (split == 2 || (split == 1 && yw) || halo)))
     return static_cast<int>(cudaErrorInvalidValue);
   const int ym = !yw ? Y_PERIODIC : halo ? Y_HALO : Y_WALLS;
+  // y walls with the scalar run explicit
+  if (sc != nullptr && yw && split != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   const MomKernel<T> kern =
-      xw ? (sgs ? pick_mom_rk_xw<T, true>(ym, split)
-                : pick_mom_rk_xw<T, false>(ym, split))
+      sc != nullptr ? (sgs ? pick_mom_rk_scal<T, true>(ym, split, xw)
+                           : pick_mom_rk_scal<T, false>(ym, split, xw))
+      : xw ? (sgs ? pick_mom_rk_xw<T, true>(ym, split)
+                  : pick_mom_rk_xw<T, false>(ym, split))
       : sgs ? (split == 2   ? pick_mom_rk<T, true, 2>(ym)
                : split == 1 ? pick_mom_rk<T, true, 1>(ym)
                             : pick_mom_rk<T, true, 0>(ym))
@@ -551,7 +645,10 @@ int launch_mom_rk(const T* u, const T* v, const T* w, const T* s, const T* p,
                : split == 1 ? pick_mom_rk<T, false, 1>(ym)
                             : pick_mom_rk<T, false, 0>(ym));
   constexpr int TY = MomTy<T>::TY;
-  const size_t smem = sgs ? mr_smem<T, 5>() : mr_smem<T, 4>();
+  const int nf = (sgs ? 5 : 4) + (sc != nullptr ? 1 : 0);
+  const size_t smem = nf == 6   ? mr_smem<T, 6>()
+                      : nf == 5 ? mr_smem<T, 5>()
+                                : mr_smem<T, 4>();
   const cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -561,7 +658,8 @@ int launch_mom_rk(const T* u, const T* v, const T* w, const T* s, const T* p,
       u, v, w, s, p, ue, ve, we, se, pe, ruo, rvo, rwo, dzci, dzfi, uo, vo,
       wo, ru, rv, rw, usum, vsum, yu, yv, yw_, ys, yp, xu, xv, xw_, xs, xp,
       nz, ny, nx, T(f1),
-      T(f2), T(visc), T(dxi), T(dyi), T(bfx), T(bfy), T(bfz));
+      T(f2), T(visc), T(dxi), T(dyi), T(bfx), T(bfy), T(bfz),
+      sc != nullptr ? *sc : ScalArgs<T>{});
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -587,11 +685,46 @@ int launch_mom_rk(const T* u, const T* v, const T* w, const T* s, const T* p,
                                    rvo, rwo, dzci, dzfi, uo, vo, wo, ru, rv,  \
                                    rw, usum, vsum, y, nz, ny, nx, split,      \
                                    halo, f1, f2, visc, dxi, dyi, bfx, bfy,    \
-                                   bfz, stream);                              \
+                                   bfz, nullptr, stream);                     \
   }
 
 CALES_MOM_RK_ENTRY(cales_mom_rk_f32, float)
 CALES_MOM_RK_ENTRY(cales_mom_rk_f64, double)
+
+// The scalar variants: mom_rk's arguments (no slab), then the scalar's
+// field, edge stack, previous RHS (null on the first substep), outputs s
+// and ds, its y-row stack pair (null with periodic y) and x stack pair
+// (null with periodic x), and its diffusivity and source.
+#define CALES_MOM_RK_SCAL_ENTRY(NAME, T)                                      \
+  extern "C" int NAME(                                                        \
+      const T* u, const T* v, const T* w, const T* s, const T* p,             \
+      const T* ue, const T* ve, const T* we, const T* se, const T* pe,        \
+      const T* ruo, const T* rvo, const T* rwo, const T* dzci,                \
+      const T* dzfi, T* uo, T* vo, T* wo, T* ru, T* rv, T* rw, T* usum,       \
+      T* vsum, const T* yur, const T* yuc, const T* yvr, const T* yvc,        \
+      const T* ywr, const T* ywc, const T* ysr, const T* ysc,                 \
+      const T* ypr, const T* ypc, const T* xur, const T* xuc, const T* xvr,   \
+      const T* xvc, const T* xwr, const T* xwc, const T* xsr, const T* xsc,   \
+      const T* xpr, const T* xpc, const T* sca, const T* scae,                \
+      const T* rso, T* so, T* rs, const T* ycr, const T* ycc,                 \
+      const T* xcr, const T* xcc, int nz, int ny, int nx, int split,          \
+      double f1, double f2, double visc, double dxi, double dyi, double bfx,  \
+      double bfy, double bfz, double alpha, double ssource, void* stream) {   \
+    const T* const y[20] = {yur, yuc, yvr, yvc, ywr, ywc, ysr, ysc, ypr,      \
+                            ypc, xur, xuc, xvr, xvc, xwr, xwc, xsr, xsc,      \
+                            xpr, xpc};                                        \
+    const cales::ScalArgs<T> sc{sca,      scae,     rso,      so,             \
+                                rs,       {ycr, ycc}, {xcr, xcc},             \
+                                T(alpha), T(ssource)};                        \
+    return cales::launch_mom_rk<T>(u, v, w, s, p, ue, ve, we, se, pe, ruo,    \
+                                   rvo, rwo, dzci, dzfi, uo, vo, wo, ru, rv,  \
+                                   rw, usum, vsum, y, nz, ny, nx, split, 0,   \
+                                   f1, f2, visc, dxi, dyi, bfx, bfy, bfz,     \
+                                   &sc, stream);                              \
+  }
+
+CALES_MOM_RK_SCAL_ENTRY(cales_mom_rk_scal_f32, float)
+CALES_MOM_RK_SCAL_ENTRY(cales_mom_rk_scal_f64, double)
 
 // The length of a row of the partial sums usum and vsum: the tiles of a
 // plane.

@@ -8,7 +8,8 @@ Config validation -> grid -> solver setup -> initial condition or restart
 -> time loop with the stopping rules (nstep / time_max / tw_max), cadenced
 stability and divergence checks with hard aborts (main.f90:523-544),
 scalar logs (time.out, forcing.out), channel statistics, plane/volume
-outputs, checkpoint rotation and per-step wall time (main.f90:613-618).
+outputs, checkpoint rotation (a passive scalar's in the scal.bin
+sidecar) and per-step wall time (main.f90:613-618).
 Output formats are the JAX package's (the copies in cales_torch/io), fed
 numpy arrays.  On a mesh every rank steps its slab; the checks, the bulk
 means and the statistics reduce over the ranks, the checkpoint is written
@@ -92,6 +93,16 @@ def _run(sim, cfg, grid, datadir, verbose, max_steps, hooks):
             u, v, w, p, t0, istep0 = ckpt.load_checkpoint(
                 datadir / 'fld.bin', cfg.ng, cfg.np_dtype)
         state = sim.initial_state(u, v, w, p)
+        if cfg.scalar:
+            # the scalar lives in a sidecar (fld.bin stays the reference's);
+            # restarting without it would reset s to its initial field
+            spath = datadir / 'scal.bin'
+            if not spath.exists():
+                raise FileNotFoundError(
+                    'restart with scalar=True requires data/scal.bin '
+                    '(scalar sidecar checkpoint)')
+            s, _, _ = ckpt.load_scalar(spath, cfg.ng, cfg.np_dtype)
+            state = state._replace(s=sim._t(s))
         state = state._replace(time=state.time + t0,
                                istep=state.istep + istep0)
         log(verbose, f'*** Checkpoint loaded at time = {t0}, step = {istep0} ***')
@@ -280,6 +291,12 @@ def _run(sim, cfg, grid, datadir, verbose, max_steps, hooks):
                 ckpt.save_checkpoint(datadir / filename, _np(state.u),
                                      _np(state.v), _np(state.w),
                                      _np(state.p), tnow, istep)
+            if cfg.scalar:
+                # the scalar's sidecar beside it (one device)
+                sname = filename.replace('fld', 'scal')
+                ckpt.save_scalar(datadir / sname, _np(state.s), tnow, istep)
+                if not cfg.is_overwrite_save:
+                    ckpt.gen_alias(datadir, sname, alias='scal.bin')
             if not cfg.is_overwrite_save and rank0:
                 ckpt.gen_alias(datadir, filename)
             log(verbose, f'*** Checkpoint saved at time = {tnow}, '

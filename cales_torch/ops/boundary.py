@@ -521,6 +521,41 @@ def xedge_scalar(p, cbc, bcvals, dl, dzc, ywalls=False):
     return _xstack(p, cbc, bcvals, drs, None, ywalls=ywalls)
 
 
+@functools.lru_cache(maxsize=64)
+def _centred_recipe(lts, bvals, dr, n, dtype, device):
+    """_axis_recipe's three entries of a cell-centred field with scalar
+    values, as (index, scale, offset) tensors on `device`, built once."""
+    idx, sc, off = zip(*_axis_recipe(lts, bvals, dr, n, False, False))
+    return (torch.tensor(idx, device=device),
+            torch.tensor(sc, dtype=dtype, device=device),
+            torch.tensor(off, dtype=dtype, device=device))
+
+
+def _centred_fill(q, dim, lts, bvals, dr):
+    rec = _centred_recipe(tuple(lts), tuple(map(float, bvals)),
+                          tuple(map(float, dr)), q.shape[dim], q.dtype,
+                          q.device)
+    return _fma(q, dim, rec)
+
+
+def zedge_scalar_fast(p, cbc_z, bcvals_z, dzc):
+    """zedge_scalar for scalar values as one gather and one fused
+    multiply-add of a recipe built once (a passive scalar's stack, made
+    every substep)."""
+    nz = p.shape[0]
+    return _centred_fill(p, 0, cbc_z, bcvals_z,
+                         (float(dzc[0]), float(dzc[nz])))
+
+
+def yedge_scalar_fast(p, cbc, bcvals, dl, dzc):
+    """yedge_scalar for scalar values: the y-row stack and its corners,
+    each one gather and one fused multiply-add of a recipe built once."""
+    nz = p.shape[0]
+    rows = _centred_fill(p, 1, cbc[1], bcvals[1], (dl[1], dl[1]))
+    return rows, _centred_fill(rows, 0, cbc[2], bcvals[2],
+                               (float(dzc[0]), float(dzc[nz])))
+
+
 def pad_velocity(u, v, w, cbcvel, bcu, bcv, bcw, dl, dzc, dzf,
                  vlo=None, is_correc=False):
     """Ghost fill of the staggered velocity (bounduvw, bound.f90:18-154).

@@ -40,6 +40,8 @@ _I = ctypes.c_int
 _D = ctypes.c_double
 _SIGNATURES = {
     'cales_mom_rk': [_P] * 43 + [_I] * 5 + [_D] * 8 + [_P],
+    # mom_rk's pointers, the scalar's 9, nz, ny, nx, split, 10 coefficients
+    'cales_mom_rk_scal': [_P] * 52 + [_I] * 4 + [_D] * 10 + [_P],
     'cales_fillps': [_P] * 12 + [_I] * 4 + [_D] * 3 + [_P],
     'cales_correc_smag': ([_P] * 22 + [_I] * 4 + [_I, _D, _D] * 4
                           + [_D] * 4 + [_P]),

@@ -43,6 +43,10 @@ edges (mesh.halo_y), and read rows -1 and ny from them.
 z metrics are (nz+2,) tensors with ghost entries, in the fields' dtype and
 on their device.
 
+A passive scalar rides mom_rk (its own C entry, cales_mom_rk_scal_*,
+counted as mom_rk): one more cell-centred field with its z-edge stack and,
+with y or x walls, its y-row or x stack pair, built from its own BC table.
+
 Dispatch: a wrapper takes the twin only for tensors on the CPU.  For CUDA
 tensors it launches its kernel or raises; nothing falls back.  LAUNCHES
 counts kernel launches only; the twins never touch it.
@@ -150,14 +154,20 @@ def ghost_row(rec, side, q1, q2=None):
     return (-dr * b + q1) if side == 0 else (dr * b + q1)
 
 
+def _six(q):
+    """A (u, v, w, visct, p[, sca]) tuple of stack pairs as six entries,
+    None for the missing ones."""
+    return (None,) * 6 if q is None else (*q, None, None)[:6]
+
+
 def mom_rk_plain(u, v, w, s, p, ue, ve, we, se, pe, ruo, rvo, rwo,
                  dzci, dzfi, f1, f2, visc, dxi, dyi, bforce,
                  sums=(False, False), split=None, ye=None, yh=None,
-                 xe=None):
+                 xe=None, sca=None, scae=None, rso=None, scal=(0.0, 0.0)):
     nz = u.shape[0]
-    yu, yv, yw, ys, yp = (None,) * 5 if ye is None else ye
-    hu, hv, hw, hs, hp = (None,) * 5 if yh is None else yh
-    xu, xv, xw, xs, xp = (None,) * 5 if xe is None else xe
+    yu, yv, yw, ys, yp, ysc = _six(ye)
+    hu, hv, hw, hs, hp, _ = _six(yh)
+    xu, xv, xw, xs, xp, xsc = _six(xe)
     up, vp, wp, ppad = (padded(q, e, y, h, x) for q, e, y, h, x in
                         ((u, ue, yu, hu, xu), (v, ve, yv, hv, xv),
                          (w, we, yw, hw, xw), (p, pe, yp, hp, xp)))
@@ -195,7 +205,17 @@ def mom_rk_plain(u, v, w, s, p, ue, ve, we, se, pe, ruo, rvo, rwo,
         un, vn, wn = un + h * rdu, vn + h * rdv, wn + h * rdw
     usum = su.sum(dim=(1, 2))[:, None] if sums[0] else None
     vsum = sv.sum(dim=(1, 2))[:, None] if sums[1] else None
-    return un, vn, wn, ru, rv, rw, usum, vsum
+    if sca is None:
+        return un, vn, wn, ru, rv, rw, usum, vsum
+    # the passive scalar (scal.f90:14-51, rk.f90:123-195) with the same
+    # fill of the velocity
+    alpha, ssource = scal
+    ds = st.scalar_rhs(up, vp, wp, padded(sca, scae, ysc, None, xsc), alpha,
+                       dxi, dyi, dzci, dzfi)
+    sn = sca + f1 * ds + f12 * ssource
+    if rso is not None:
+        sn = sn + f2 * rso
+    return un, vn, wn, ru, rv, rw, usum, vsum, sn, ds
 
 
 def fillps_plain(u, v, w, ue, ve, we, dzfi, dti, dxi, dyi, yv=None,
@@ -575,7 +595,8 @@ def _launch(name, entry, *args, counts=None):
 
 def mom_rk(u, v, w, s, p, ue, ve, we, se, pe, ruo, rvo, rwo, dzci, dzfi,
            f1, f2, visc, dxi, dyi, bforce, sums=(False, False), split=None,
-           ye=None, yh=None, xe=None):
+           ye=None, yh=None, xe=None, sca=None, scae=None, rso=None,
+           scal=(0.0, 0.0)):
     """Momentum RHS (mom.f90:17-309) + low-storage RK3 update with -grad p
     and bforce (rk.f90:77-94) in one pass.  ruo..rwo = None skips the
     previous-RHS reads (first substep, f2 == 0).  s = se = None: no eddy
@@ -590,8 +611,13 @@ def mom_rk(u, v, w, s, p, ue, ve, we, se, pe, ruo, rvo, rwo, dzci, dzfi,
     visct; yh: a slab of a y-sharded mesh, the halo pairs of the same five
     fields.  xe: x walls, the (cols, corners) x stack pairs of (u, v, w,
     visct, p), visct's None without visct (with periodic y or y walls;
-    split '1d' with periodic y).  Returns (u, v, w, ru, rv, rw,
-    usum, vsum); usum/vsum are None or per-(z, part) partial sums,
+    split '1d' with periodic y).  sca: the passive scalar (the argument s
+    is nu_t), with its z-edge stack scae, its previous RHS rso (None with
+    ruo) and scal = (alpha, ssource), its diffusivity visc/pr and source;
+    with y or x walls its stack pair is the sixth entry of ye or xe (its
+    own BC letters and values); one device, not on a slab.  Returns (u, v,
+    w, ru, rv, rw, usum, vsum), and with sca also (s, ds), the scalar and
+    its RHS; usum/vsum are None or per-(z, part) partial sums,
     (nz, parts): one part on the CPU, one a (y, x) tile of the kernel on
     the card."""
     if split not in _SPLIT_CODE:
@@ -599,11 +625,25 @@ def mom_rk(u, v, w, s, p, ue, ve, we, se, pe, ruo, rvo, rwo, dzci, dzfi,
     if _on_cpu(u):
         return mom_rk_plain(u, v, w, s, p, ue, ve, we, se, pe, ruo, rvo, rwo,
                             dzci, dzfi, f1, f2, visc, dxi, dyi, bforce,
-                            sums=sums, split=split, ye=ye, yh=yh, xe=xe)
+                            sums=sums, split=split, ye=ye, yh=yh, xe=xe,
+                            sca=sca, scae=scae, rso=rso, scal=scal)
     nz, ny, nx = u.shape
     if ye is not None and yh is not None:
         raise ValueError('mom_rk: y walls or a slab halo, not both')
-    xe = (None,) * 5 if xe is None else tuple(xe)
+    has_scal = sca is not None
+    ye_sc, xe_sc = _six(ye)[5], _six(xe)[5]
+    if has_scal and (scae is None or (rso is None) != (ruo is None)
+                     or yh is not None
+                     or (ye is not None) != (ye_sc is not None)
+                     or (xe is not None) != (xe_sc is not None)):
+        raise ValueError('mom_rk: the scalar takes its edge stack, rso '
+                         'with ruo, its y and x stack pairs with the '
+                         "velocity's, and no slab")
+    if not has_scal and (scae is not None or rso is not None
+                         or ye_sc is not None or xe_sc is not None):
+        raise ValueError('mom_rk: scalar stacks without the scalar')
+    ye = None if ye is None else _six(ye)[:5]
+    xe = (None,) * 5 if xe is None else _six(xe)[:5]
     if xe[0] is not None and (
             any(xe[m] is None for m in (1, 2, 4))
             or (xe[3] is None) != (s is None) or split == 'xy+z'
@@ -623,13 +663,13 @@ def mom_rk(u, v, w, s, p, ue, ve, we, se, pe, ruo, rvo, rwo, dzci, dzfi,
                                  or (q[3] is None) != (s is None)):
             raise ValueError(f'mom_rk: {what} of u, v, w, p and of visct '
                              'where it is given')
-    _check('mom_rk', u, (u, v, w, s, p, ruo, rvo, rwo),
-           edges=(ue, ve, we, se, pe),
-           profiles=((dzci, nz + 2), (dzfi, nz + 2)), **_ysplit(ye),
-           **_ysplit(yh, halo=True),
-           **_xsplit(xe, ny, ywalls=ye[0] is not None))
+    _check('mom_rk', u, (u, v, w, s, p, ruo, rvo, rwo, sca, rso),
+           edges=(ue, ve, we, se, pe, scae),
+           profiles=((dzci, nz + 2), (dzfi, nz + 2)),
+           **_ysplit((*ye, ye_sc)), **_ysplit(yh, halo=True),
+           **_xsplit((*xe, xe_sc), ny, ywalls=ye[0] is not None))
     halo = yh[0] is not None
-    outs = [torch.empty_like(u) for _ in range(6)]
+    outs = [torch.empty_like(u) for _ in range(8 if has_scal else 6)]
     from . import build
     # the kernel's tiles of a plane
     nb = build.load().cales_mom_rk_blocks(ny, nx,
@@ -637,14 +677,22 @@ def mom_rk(u, v, w, s, p, ue, ve, we, se, pe, ruo, rvo, rwo, dzci, dzfi,
     usum = u.new_empty((nz, nb)) if sums[0] else None
     vsum = u.new_empty((nz, nb)) if sums[1] else None
     d = ctypes.c_double
-    _launch('mom_rk', f'cales_mom_rk_{_suffix(u)}',
-            *map(_ptr, (u, v, w, s, p, ue, ve, we, se, pe, ruo, rvo, rwo,
-                        dzci, dzfi, *outs, usum, vsum)),
-            *_yptrs(yh if halo else ye), *_yptrs(xe),
-            ctypes.c_int(nz), ctypes.c_int(ny), ctypes.c_int(nx),
-            ctypes.c_int(_SPLIT_CODE[split]), ctypes.c_int(int(halo)),
-            d(f1), d(f2), d(visc), d(dxi), d(dyi),
-            d(bforce[0]), d(bforce[1]), d(bforce[2]))
+    args = (*map(_ptr, (u, v, w, s, p, ue, ve, we, se, pe, ruo, rvo, rwo,
+                        dzci, dzfi, *outs[:6], usum, vsum)),
+            *_yptrs(yh if halo else ye), *_yptrs(xe))
+    dims = (ctypes.c_int(nz), ctypes.c_int(ny), ctypes.c_int(nx),
+            ctypes.c_int(_SPLIT_CODE[split]))
+    coefs = (d(f1), d(f2), d(visc), d(dxi), d(dyi), d(bforce[0]),
+             d(bforce[1]), d(bforce[2]))
+    if has_scal:
+        # the scalar variant: its own entry, one count under mom_rk
+        _launch('mom_rk', f'cales_mom_rk_scal_{_suffix(u)}', *args,
+                *map(_ptr, (sca, scae, rso, *outs[6:])),
+                *_yptrs((ye_sc, xe_sc)), *dims,
+                *coefs, d(scal[0]), d(scal[1]))
+        return (*outs[:6], usum, vsum, *outs[6:])
+    _launch('mom_rk', f'cales_mom_rk_{_suffix(u)}', *args, *dims,
+            ctypes.c_int(int(halo)), *coefs)
     return (*outs, usum, vsum)
 
 

@@ -4,6 +4,7 @@
 Counterpart of cales_tpu/ops/stencil.py, with the same formulas in the same
 order so the two packages agree to round-off:
   * momentum_rhs  <- mom_xyz_ad   (reference mom.f90:17-309)
+  * scalar_rhs    <- scal         (scal.f90:14-51)
   * fillps        <- fillps       (fillps.f90:14-48)
   * correc        <- correc       (correc.f90:14-68)
   * updatep       <- updatep      (updatep.f90:14-50)
@@ -13,10 +14,11 @@ order so the two packages agree to round-off:
   * filter3d, filter2d, interp_center (sgs.f90:616-680, 824-870)
   * bulk_mean     <- bulk_mean    (utils.f90:16-47)
 
-The CUDA kernels in cales_torch/csrc transcribe momentum_rhs_core and
-strain_rate_core term by term.  Index map: padded [k, j, i] == reference
-(i, j, k).  z metrics are (nz+2,) numpy arrays or tensors with ghost
-entries; they are cast to the field's dtype and device.
+The CUDA kernels in cales_torch/csrc transcribe momentum_rhs_core,
+scalar_rhs_core and strain_rate_core term by term.  Index map: padded
+[k, j, i] == reference (i, j, k).  z metrics are (nz+2,) numpy arrays or
+tensors with ghost entries; they are cast to the field's dtype and
+device.
 """
 from __future__ import annotations
 
@@ -228,6 +230,46 @@ def momentum_rhs_core(V, M, up, vp, wp, sp, visc, dxi, dyi,
     w_out = (dwdt, dwdtd_xy, dwdtd_z)
 
     return (u_out, v_out, w_out)
+
+
+def scalar_rhs(up, vp, wp, sp, alpha, dxi, dyi, dzci, dzfi):
+    """Advection-diffusion RHS of a cell-centred passive scalar
+    (scal.f90:14-51) on padded fields; alpha: its diffusivity visc/pr."""
+    nz = up.shape[0] - 2
+    metrics = {
+        'dzci_c': _zb(dzci, 1, nz + 1, up),
+        'dzci_m': _zb(dzci, 0, nz, up),
+        'dzfi_c': _zb(dzfi, 1, nz + 1, up),
+    }
+
+    def V(P, k=0, j=0, i=0):
+        return _sh(P, k, j, i)
+
+    return scalar_rhs_core(V, metrics.__getitem__, up, vp, wp, sp, alpha,
+                           dxi, dyi)
+
+
+def scalar_rhs_core(V, M, up, vp, wp, sp, alpha, dxi, dyi):
+    """The scalar's discretization against momentum_rhs_core's accessor
+    interface (M: 'dzci_c', 'dzci_m', 'dzfi_c'): centred advection by the
+    face velocities and diffusion with alpha, in cales_tpu's order."""
+    s_c = V(sp)
+    usim = 0.5 * (V(sp, i=-1) + s_c) * V(up, i=-1)
+    usip = 0.5 * (V(sp, i=1) + s_c) * V(up)
+    vsjm = 0.5 * (V(sp, j=-1) + s_c) * V(vp, j=-1)
+    vsjp = 0.5 * (V(sp, j=1) + s_c) * V(vp)
+    wskm = 0.5 * (V(sp, k=-1) + s_c) * V(wp, k=-1)
+    wskp = 0.5 * (V(sp, k=1) + s_c) * V(wp)
+    dsdxp = (V(sp, i=1) - s_c) * dxi
+    dsdxm = (s_c - V(sp, i=-1)) * dxi
+    dsdyp = (V(sp, j=1) - s_c) * dyi
+    dsdym = (s_c - V(sp, j=-1)) * dyi
+    dsdzp = (V(sp, k=1) - s_c) * M('dzci_c')
+    dsdzm = (s_c - V(sp, k=-1)) * M('dzci_m')
+    return (dxi * (-usip + usim) + (dsdxp - dsdxm) * alpha * dxi
+            + dyi * (-vsjp + vsjm) + (dsdyp - dsdym) * alpha * dyi
+            + M('dzfi_c') * (-wskp + wskm)
+            + (dsdzp - dsdzm) * alpha * M('dzfi_c'))
 
 
 def fillps(up, vp, wp, dti, dxi, dyi, dzfi):

@@ -13,6 +13,7 @@ import torch
 from .timeloop import State
 
 _FIELDS = ('u', 'v', 'w', 'p', 'visct')
+_SCALAR = ('s', 'dsdt_old')
 
 
 def state_from_jax_numpy(d: dict, device, dtype) -> State:
@@ -23,7 +24,8 @@ def state_from_jax_numpy(d: dict, device, dtype) -> State:
     lower x face (the inflow face), which the next substep's fills read.
     A None zq (the JAX expression path keeps none) is rebuilt by the first
     substep from vlo, and so are the y-row and x stacks (State.yq, xq),
-    which the JAX package does not carry."""
+    which the JAX package does not carry.  A passive scalar rides 's' and
+    'dsdt_old' (None or absent without one)."""
     dev = torch.device(device)
 
     def t(a):
@@ -35,7 +37,8 @@ def state_from_jax_numpy(d: dict, device, dtype) -> State:
         rhs_old=tuple(t(a) for a in d['rhs_old']),
         time=float(np.asarray(d['time'])),
         istep=int(np.asarray(d['istep'])),
-        zq=None if zq is None else tuple(t(a) for a in zq))
+        zq=None if zq is None else tuple(t(a) for a in zq),
+        **{k: None if d.get(k) is None else t(d[k]) for k in _SCALAR})
 
 
 def state_to_numpy(state: State) -> dict:
@@ -46,4 +49,6 @@ def state_to_numpy(state: State) -> dict:
         vlo=tuple(n(a) for a in state.vlo),
         rhs_old=tuple(n(a) for a in state.rhs_old),
         time=float(state.time), istep=int(state.istep),
-        zq=None if state.zq is None else tuple(n(a) for a in state.zq))
+        zq=None if state.zq is None else tuple(n(a) for a in state.zq),
+        **{k: None if getattr(state, k) is None else n(getattr(state, k))
+           for k in _SCALAR})

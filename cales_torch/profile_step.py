@@ -3,7 +3,7 @@
     python -m cales_torch.profile_step
         [--case les|les-mat|les-imp|dns|dns-imp3d|dsmag|dsmag-blow|duct|
                 cavity|tgv|tgv-fft|tri|tri-imp3d|wmles|wmles-duct|
-                xchannel|xcavity|xwmles|xles-imp|xduct-les]
+                xchannel|xcavity|xwmles|xles-imp|xduct-les|les-scal]
         [--ng NXxNYxNZ]
         [--steps 3]
 
@@ -50,9 +50,12 @@ stacks, the wall model's x-walled sampling; the physics of
 tests/test_pallas_kernels.py:538), 'xles-imp' the developing channel LES
 with z-implicit diffusion (visci 20 000, smag, impdiff_1d: mom_rk's
 x-walled '1d' split, thomas_z CN solves) and 'xduct-les' the developing
-duct LES (smag's x- and y-wall variant).  The grid is 512x256x256, 512^3
-for the tgv cases, unless --ng says otherwise.  The device's idle share is 1 - (device busy
-time / wall time of the profiled window).
+duct LES (smag's x- and y-wall variant); 'les-scal' the 'les-mat'
+headline with a passive scalar (Pr 0.71, s 0 on the lower z wall and 1 on
+the upper one, from s = 0: mom_rk's scalar variant).  The grid is
+512x256x256, 512^3 for the tgv cases, unless --ng says otherwise.  The
+device's idle share is 1 - (device busy time / wall time of the profiled
+window).
 Needs a CUDA device.
 """
 from __future__ import annotations
@@ -123,6 +126,11 @@ TGV = dict(ng=(512, 512, 512), l=(2 * np.pi,) * 3, gtype=1, gr=0.0,
            is_forced=(False,) * 3, velf=(0.0,) * 3, sgstype='none',
            **PERIODIC_BCS)
 TRI = dict(TGV, ng=(512, 256, 256), gtype=0)
+# a passive scalar in a channel with a warm and a cold wall: s 0 on the
+# lower z wall, 1 on the upper one, periodic x and y, Pr 0.71, from s = 0
+SCALAR = dict(scalar=True, pr=0.71, iniscal='zer',
+              cbcscal=(('P', 'P', 'D'), ('P', 'P', 'D')),
+              bcscal=((0.0, 0.0, 0.0), (0.0, 0.0, 1.0)))
 # bench.py _matrix_configs: the channel-LES headline, channel_dns_impdiff,
 # duct_les_dsmag, cavity_les_dsmag and wmles_channel;
 # examples/turbulent_duct_wmles/input.nml for the wall-modelled duct;
@@ -182,6 +190,8 @@ CASES = {
                       sgstype='smag',
                       bcvel=(((1.0, 0.0, 0.0), (0.0,) * 3, (0.0,) * 3),
                              ((0.0,) * 3,) * 3), **XDUCT_BCS),
+    'les-scal': dict(visci=20_000.0, sgstype='smag', ptransform='mat',
+                     **CHAN_BCS, **SCALAR),
 }
 
 
@@ -197,6 +207,36 @@ def power_law_inflow(cfg):
     face = np.repeat(prof[:, None], cfg.ng[1] + 2, axis=1)
     return cfg.replace(bcvel=((((face, 0.0, 0.0),) + ((0.0,) * 3,) * 2),
                               ((0.0,) * 3,) * 3))
+
+
+def device_profile(sim, state, dt, steps):
+    """(ms/step by CUDA events with the profiler off, {kernel: (device
+    ms/step, launches/step)} under torch.profiler, the state after both
+    windows) of `steps` steps from state."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    for _ in range(steps):
+        state, _ = sim.step(state, dt)
+    b.record()
+    torch.cuda.synchronize()
+    step_ms = a.elapsed_time(b) / steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            state, _ = sim.step(state, dt)
+        torch.cuda.synchronize()
+    per_kernel = {}
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue    # host-side ops; their kernels are listed themselves
+        dev_us = getattr(ev, 'self_device_time_total',
+                         getattr(ev, 'self_cuda_time_total', 0.0))
+        if dev_us > 0:
+            per_kernel[ev.key] = (dev_us / 1e3 / steps, ev.count // steps)
+    return step_ms, per_kernel, state
 
 
 def stage_of(name: str) -> str:
@@ -216,8 +256,6 @@ def main(argv=None):
     if not torch.cuda.is_available():
         print('profile_step needs a CUDA device', file=sys.stderr)
         return 2
-    from torch.profiler import ProfilerActivity, profile
-
     from .config import Config
     from .grid import make_grid_from_config
     from .initflow import initflow
@@ -243,29 +281,7 @@ def main(argv=None):
     dt = sim.pick_dt(sim.check(state)[0])
     for _ in range(2):
         state, _ = sim.step(state, dt)
-    torch.cuda.synchronize()
-    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    a.record()
-    for _ in range(args.steps):
-        state, _ = sim.step(state, dt)
-    b.record()
-    torch.cuda.synchronize()
-    step_ms = a.elapsed_time(b) / args.steps
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(args.steps):
-            state, _ = sim.step(state, dt)
-        torch.cuda.synchronize()
-    from torch.autograd import DeviceType
-    per_kernel = {}
-    for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:
-            continue    # host-side ops; their kernels are listed themselves
-        dev_us = getattr(ev, 'self_device_time_total',
-                         getattr(ev, 'self_cuda_time_total', 0.0))
-        if dev_us > 0:
-            per_kernel[ev.key] = (dev_us / 1e3 / args.steps, ev.count
-                                  // args.steps)
+    step_ms, per_kernel, state = device_profile(sim, state, dt, args.steps)
     busy = sum(ms for ms, _ in per_kernel.values())
     by_stage = {}
     for name, (ms, _) in per_kernel.items():

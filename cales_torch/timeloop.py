@@ -79,6 +79,15 @@ and smag reads the 'E' stacks (sgs.extrapolate_stacks).  Plane-valued
 static velocity values (an inflow profile on an x face, a moving lid on a
 z face) ride the same offsets with periodic y (_planes_refuse).
 
+With a passive scalar (cfg.scalar; every single-device route above) the
+scalar advances in mom_rk's scalar stream (csrc/mom_rk.cu SCAL: its RHS
+from the substep's velocity, explicit with alpha = visc/pr, and its RK3
+update), its z-edge, y-row and x stacks from its own BC table, made by
+recipes built once; with is_sforced its bulk forcing follows the kernel.
+The velocity's bulk forcing stays deferred into the correction: the
+scalar reads the substep's starting velocity, which already carries the
+previous substep's forcing either way.
+
 The port and the JAX package carry the same state (State below), so a
 JAX state can be carried across (params.py).  Configurations outside this
 slice raise NotImplementedError naming the missing piece.
@@ -123,6 +132,8 @@ class State(NamedTuple):
                       # stack pairs of (u, v, w), carried likewise
     xq: Any = None    # with x walls, the same fill's (cols, corners) x
                       # stack pairs of (u, v, w), carried likewise
+    s: Any = None         # the passive scalar (scal.f90), None without
+    dsdt_old: Any = None  # its previous-substep RHS (rk.f90:149-150)
 
 
 def _periodic(cfg: Config, d: int) -> bool:
@@ -171,10 +182,10 @@ def _xwalls_refuse(cfg: Config) -> list[str]:
     """What this slice does not run with non-periodic x: it runs x faces
     of letters D and N for every field (walls, inflow, outflow) with
     sgstype 'none' or static Smagorinsky, explicit diffusion or (with
-    periodic y) impdiff_1d, z walls, one device and no scalar, with
-    periodic y or the y walls that _ywalls_refuse admits, on the
-    all-matrix Poisson route (the developing channel, the closed box, the
-    lid-driven cavity and the developing duct, and their LES); with
+    periodic y) impdiff_1d, z walls, one device, with periodic y or the
+    y walls that _ywalls_refuse admits, on the all-matrix Poisson route
+    (the developing channel, the closed box, the lid-driven cavity and the
+    developing duct, and their LES); with
     periodic y also the wall model on the z walls (the developing WMLES)
     and plane-valued velocity values (an inflow profile, _planes_refuse)."""
     out = []
@@ -199,9 +210,6 @@ def _xwalls_refuse(cfg: Config) -> list[str]:
         out.append('non-periodic x with a wall model and y walls (the JAX '
                    f'kernel path refuses it too): {item} with a wall model '
                    'and y walls')
-    if cfg.scalar:
-        out.append(f'non-periodic x with a passive scalar: {item}, the '
-                   'x-walled scalar')
     if cfg.dims[0] * cfg.dims[1] > 1:
         out.append(f'non-periodic x on a device mesh: {item} on a mesh')
     if cfg.cbc_vel(2, 0)[0] == 'P':
@@ -236,10 +244,29 @@ def unsupported(cfg: Config) -> list[str]:
         out.append('bulk forcing along z (is_forced(3)): ROADMAP queue 1, '
                    'triperiodic LES')
     if cfg.scalar:
-        out.append('passive scalar: ROADMAP queue 1, scalar')
+        out += _scalar_refuse(cfg)
     if cfg.dims[0] * cfg.dims[1] > 1:
         out += _mesh_refuse(cfg)
     out += _planes_refuse(cfg)
+    return out
+
+
+def _scalar_refuse(cfg: Config) -> list[str]:
+    """What this slice does not run with a passive scalar: it runs the
+    scalar on every single-device route, any of the letters D, N, P on its
+    z faces, and on its x and y faces where the velocity has walls there
+    (its ghosts ride the x and y stacks; cales_tpu's own gate,
+    timeloop.py:266-273)."""
+    out = []
+    if cfg.dims[0] * cfg.dims[1] > 1:
+        out.append('passive scalar on a mesh: ROADMAP queue 1, '
+                   'multi-device')
+    for d, name in ((0, 'x'), (1, 'y')):
+        if _periodic(cfg, d) and any(cfg.cbcscal[ib][d] != 'P'
+                                     for ib in range(2)):
+            out.append(f'a non-periodic scalar along {name}, where the '
+                       'velocity is periodic (no stack carries its '
+                       f'{name} ghosts): ROADMAP queue 1, BC topologies')
     return out
 
 
@@ -610,6 +637,14 @@ class Simulation:
                             self.bcw_vals[1][0], self.bcw_vals[1][1])
         # deferred bulk forcing along the periodic x / y
         self.sum_flags = (bool(cfg.is_forced[0]), bool(cfg.is_forced[1]))
+        # the passive scalar: its BC letters and values by direction, its
+        # diffusivity visc/pr and source (mom_rk's scalar stream)
+        self.has_scal = bool(cfg.scalar)
+        self.cbcscal = tuple((cfg.cbcscal[0][d], cfg.cbcscal[1][d])
+                             for d in range(3))
+        self.bcscal = tuple(tuple(float(cfg.bcscal[ib][d]) for ib in range(2))
+                            for d in range(3))
+        self.scal_params = (cfg.visc / cfg.pr, float(cfg.ssource))
 
     # ------------------------------------------------------------------
     def kernel_names(self) -> list[str]:
@@ -643,6 +678,8 @@ class Simulation:
             names.append(zthomas)
         if self.has_wm:
             names.append('wallmodel')
+        # the passive scalar runs in mom_rk (its SCAL variant, counted as
+        # mom_rk): exec_path names it
         return names
 
     def exec_path(self) -> str:
@@ -706,8 +743,13 @@ class Simulation:
                        if self.xwalled else ''))
         mesh = ('' if self.mesh is None
                 else f'; mesh: {self.mesh.describe()}, y halos')
+        scal = ''
+        if self.has_scal:
+            scal = ("; passive scalar: mom_rk's scalar stream (alpha = "
+                    'visc/pr, explicit, its own BC stacks'
+                    + (', forced' if self.cfg.is_sforced else '') + ')')
         return (f'{where}; poisson: {xy} + {zstage} ({self.cfg.dtype}); '
-                f'diffusion: {diff}; sgs: {sgs}{mesh}')
+                f'diffusion: {diff}; sgs: {sgs}{mesh}{scal}')
 
     # ------------------------------------------------------------------
     def _t(self, a):
@@ -725,8 +767,16 @@ class Simulation:
         z2 = lambda a, b: torch.zeros((a, b), dtype=self.dtype,  # noqa: E731
                                       device=self.device)
         vlo = (z2(nz + 2, ny + 2), z2(nz + 2, nx + 2), z2(ny + 2, nx + 2))
+        s = dsdt = None
+        if self.has_scal:
+            # iniscal: 'uni' 1 everywhere, else 0 (cales_tpu
+            # timeloop.py:587-590)
+            s = (torch.ones_like(u) if self.cfg.iniscal == 'uni'
+                 else torch.zeros_like(u))
+            dsdt = torch.zeros_like(u)
         st0 = State(u=u, v=v, w=w, p=p, visct=zeros, vlo=vlo,
-                    rhs_old=(zeros, zeros, zeros), time=0.0, istep=0)
+                    rhs_old=(zeros, zeros, zeros), time=0.0, istep=0,
+                    s=s, dsdt_old=dsdt)
         return self._init_impl(st0)
 
     def _init_impl(self, st0: State) -> State:
@@ -812,6 +862,25 @@ class Simulation:
         cbc_z = (self.cfg.cbcsgs[0][2], self.cfg.cbcsgs[1][2])
         return bnd.zedge_scalar(s, cbc_z, self.bcs_vals[2],
                                 self.grid.dzc).contiguous()
+
+    def _zedge_scal(self, s):
+        """The passive scalar's z-edge stack, by its own BC table
+        (cales_tpu timeloop.py:1119-1124), from a recipe made once."""
+        return bnd.zedge_scalar_fast(s, self.cbcscal[2], self.bcscal[2],
+                                     self.grid.dzc)
+
+    def _yedge_scal(self, s):
+        """Its (rows, corners) y-row stack pair with y walls (cales_tpu
+        _ybundle_scal, timeloop.py:1168-1175)."""
+        return bnd.yedge_scalar_fast(s, self.cbcscal, self.bcscal,
+                                     self.cfg.dl, self.grid.dzc)
+
+    def _xedge_scal(self, s):
+        """Its (cols, corners) x stack pair with x walls, the (y ghost, x
+        ghost) corners with y walls (cales_tpu timeloop.py:1904-1911,
+        _xye_entries has_scal)."""
+        return bnd.xedge_scalar(s, self.cbcscal, self.bcscal, self.cfg.dl,
+                                self.grid.dzc, ywalls=self.ywalled)
 
     def _halo_padded(self, fields, edges):
         """The (nz+2, nyl+2, nx+2) ghost-filled slabs of `fields` on a
@@ -1308,12 +1377,36 @@ class Simulation:
         # with x walls the x columns of the same fill
         xe = ((*xq, self._xedge_s(visct) if self.has_sgs else None,
                self._xedge_p(p)) if self.xwalled else None)
-        u, v, w, ru, rv, rw, usum, vsum = kernels.mom_rk(
+        # the passive scalar with the same velocity (rk_scal with the
+        # beginning-of-substep velocity, rk.f90:123-195): its stacks from
+        # its own BC table, the wall model's planes never among them
+        # (cales_tpu timeloop.py:252-258)
+        scal_kw = {}
+        if self.has_scal:
+            sca = state.s
+            scal_kw = dict(sca=sca, scae=self._zedge_scal(sca),
+                           rso=None if first else state.dsdt_old,
+                           scal=self.scal_params)
+            if ye is not None:
+                ye = (*ye, self._yedge_scal(sca))
+            if xe is not None:
+                xe = (*xe, self._xedge_scal(sca))
+        outs = kernels.mom_rk(
             u, v, w, s, p, ue, ve, we, se, pe,
             None if first else ru_o, None if first else rv_o,
             None if first else rw_o, self.dzci_t, self.dzfi_t, f1, f2,
             cfg.visc, dxi, dyi, cfg.bforce, sums=self.sum_flags,
-            split=self.split, ye=ye, yh=yh, xe=xe)
+            split=self.split, ye=ye, yh=yh, xe=xe, **scal_kw)
+        u, v, w, ru, rv, rw, usum, vsum = outs[:8]
+        scal = {}
+        if self.has_scal:
+            s_new, dsdt = outs[8:]
+            if cfg.is_sforced:
+                # the scalar's bulk forcing, weighted by gvr_f as cales_tpu
+                # weighs it (timeloop.py:2285, 2536)
+                s_new = s_new + (cfg.scalf
+                                 - st.bulk_mean(s_new, self.gvr_f_t))
+            scal = dict(s=s_new, dsdt_old=dsdt)
         f, fuv = self._bulk_forcing((usum, vsum))
         alpha = 0.0
         if cfg.impdiff:
@@ -1400,7 +1493,8 @@ class Simulation:
         if self.sgs_kernel:
             visct = self._sgs_stage(u, v, w, zq, vlo, yq, xq)
         return state._replace(u=u, v=v, w=w, p=p, visct=visct, vlo=vlo,
-                              rhs_old=(ru, rv, rw), zq=zq, yq=yq, xq=xq), f
+                              rhs_old=(ru, rv, rw), zq=zq, yq=yq, xq=xq,
+                              **scal), f
 
     def _step_impl(self, state: State, dt: float):
         """One time step = 3 RK substeps (main.f90:417-507)."""

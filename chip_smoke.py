@@ -20,9 +20,12 @@ lid-driven cavity through driver.run at 512x256x256), the developing-
 channel LES (the developing wall-modelled channel with a 1/7-power
 inflow profile, the developing channel LES with z-implicit diffusion and
 the developing duct LES at 512x256x256: x-walled mom_rk with nu_t and
-'1d', smag's x-wall variant, the wall model's x-walled rows), compare the
-card with the CPU step for step, and run the channel LES on a y-slab mesh of
-two ranks that
+'1d', smag's x-wall variant, the wall model's x-walled rows), the passive
+scalar (mom_rk's scalar variant with z, y and x walls against its twin;
+the channel LES headline with a warm and a cold wall at 512x256x256, its
+uniform scalar kept, and the duct and the developing channel with a
+scalar), compare the card with the CPU step for step, and run the channel
+LES on a y-slab mesh of two ranks that
 share the card (torch.distributed over gloo, staged through the host):
 the headline at 512x256x256 through driver.run, a small f64 case against
 the single-device run, and the CLI under torch.distributed.run.
@@ -114,6 +117,9 @@ VARIANT_ROWS = {
     'smag (x walls)': ('smag', 'xdev'),
     'smag (x and y walls)': ('smag', 'xbox'),
     'wallmodel (x walls, z faces)': ('wallmodel', 'xdev'),
+    'mom_rk (scalar)': ('mom_rk', 'les_sc'),
+    'mom_rk (y walls, scalar)': ('mom_rk', 'duct_sc'),
+    'mom_rk (x walls, scalar)': ('mom_rk', 'xdev_sc'),
 }
 # the kernels timed at the Taylor-Green vortex's 512^3 in phase 2b, each
 # reported as a kernel of its own: report name -> (kernel, variant)
@@ -196,6 +202,13 @@ TGV_CFG = dict(ng=(512, 512, 512), l=(2 * np.pi,) * 3, gtype=1, gr=0.0,
 TRI_CFG = dict(ng=HEADLINE_NG, l=(2 * np.pi,) * 3, gtype=0, gr=0.0,
                visci=1600.0, inivel='tgv', sgstype='none', dtype='float32',
                ptransform='mat', **PERIODIC_BCS)
+# the passive scalar of phase 13: phase 4m's LES headline ('mat') with a
+# warm and a cold wall (s 0 on the lower z wall, 1 on the upper one), Pr
+# 0.71, from s = 0 (profile_step's 'les-scal')
+SCALAR = dict(scalar=True, pr=0.71, iniscal='zer',
+              cbcscal=(('P', 'P', 'D'), ('P', 'P', 'D')),
+              bcscal=((0.0, 0.0, 0.0), (0.0, 0.0, 1.0)))
+LES_SC_CFG = dict(LES_CFG, ptransform='mat', **SCALAR)
 # phase 4m's LES headline ('mat') on a y-slab mesh of two ranks (phase 10)
 MESH_CFG = dict(LES_CFG, ptransform='mat', dims=(2, 1), **CHAN_BCS)
 # its small f64 twin, held against the single-device 'mat' + Thomas run
@@ -450,6 +463,18 @@ def kernel_inputs(ng, dtype, dev, seed, big=False):
     d['e_stacks'] = [(r.contiguous(), c.contiguous()) for _, (r, c) in ext]
     d['fac_ex'] = (float(grid.dzc[0] * grid.dzci[1]),
                    float(grid.dzc[nz] * grid.dzci[nz - 1]))
+    # the passive scalar (mom_rk's scalar variant): a field near 1, its
+    # previous RHS, its z-edge stack with phase 13's walls (D 0 and 1) and
+    # its y-row stack pair on the duct (D 1.0 and 0.5 on the y walls, N on
+    # the z walls)
+    d['sca'] = 1.0 + f()
+    d['rso'] = f()
+    d['scae'] = bnd.zedge_scalar_fast(d['sca'], ('D', 'D'), (0.0, 1.0),
+                                      grid.dzc)
+    d['scal'] = (cfg.visc / 0.71, 0.02)
+    d['y_sca'] = bnd.yedge_scalar_fast(
+        d['sca'], (('P', 'P'), ('D', 'D'), ('N', 'N')),
+        ((0.0, 0.0), (1.0, 0.5), (0.0, 0.0)), dcfg.dl, dgrid.dzc)
     # x walls: the developing channel's fills of the same interiors
     # (periodic y; 'xdev') and the developing duct's (x and y walls, the
     # columns with their y ghosts; 'xbox'), inflow and moving wall values,
@@ -488,6 +513,12 @@ def kernel_inputs(ng, dtype, dev, seed, big=False):
         xc = (np.arange(nx) + 0.5) * xcfg.dl[0]
         d[key + '_xwall'] = (t(xc), t(np.ones(nx)), rnd(nz, ny).abs(),
                              rnd(nz, ny).abs())
+        if key == 'xdev':
+            # the scalar's x stack pair: D 1 at the inflow, N at the
+            # outflow and the z walls
+            d['xdev_sca'] = bnd.xedge_scalar(
+                d['sca'], (('D', 'N'), ('P', 'P'), ('N', 'N')),
+                ((1.0, 0.0), (0.0, 0.0), (0.0, 0.0)), xcfg.dl, xgrid.dzc)
     # the wall model on both z faces of the developing WMLES (x walls: the
     # rows' x ghosts from the x faces' values, the inflow a 1/7-power
     # profile that varies along z), its rows sampled from u + 1
@@ -522,26 +553,37 @@ def call(name, d, twin=False, variant=None, has_ruo=True, zrec=None):
         # the developing duct's x and y walls)
         # xdev_s, xbox_s: visct, explicit, x walls; xdev_1d: visct, '1d',
         # x walls (the developing channel and duct LES)
+        # les_sc, duct_sc, xdev_sc: visct, explicit and the passive scalar,
+        # with z walls, y walls or x walls (its own stacks)
         dns = variant in ('dns', 'xyz', 'tgv', 'xdev', 'xbox')
         split = {'dns': '1d', 'les_split': '1d', 'xyz': 'xy+z',
                  'les_xyz': 'xy+z', 'xdev_1d': '1d'}.get(variant)
-        ye = d['y_mom'] if ywall or variant == 'xbox_s' else None
+        ye = (d['y_mom'] if ywall or variant in ('xbox_s', 'duct_sc')
+              else None)
         if variant == 'xbox':
             ye = (*d['y_mom'][:3], None, d['y_mom'][4])
         xkey = {'xdev': 'xdev_mom', 'xbox': 'xbox_mom',
                 'xdev_s': 'xdev_mom_s', 'xdev_1d': 'xdev_mom_s',
-                'xbox_s': 'xbox_mom_s'}.get(variant)
+                'xbox_s': 'xbox_mom_s', 'xdev_sc': 'xdev_mom_s'}.get(variant)
+        xe = None if xkey is None else d[xkey]
+        skw = {}
+        if variant in ('les_sc', 'duct_sc', 'xdev_sc'):
+            skw = dict(sca=d['sca'], scae=d['scae'],
+                       rso=d['rso'] if has_ruo else None, scal=d['scal'])
+            if variant == 'duct_sc':
+                ye = (*ye, d['y_sca'])
+            if variant == 'xdev_sc':
+                xe = (*xe, d['xdev_sca'])
         out = list(fn(d['u'], d['v'], d['w'], None if dns else d['s'],
                       d['p'], d['ue'], d['ve'], d['we'],
                       None if dns else d['se'], d['pe'], *r, d['dzci'],
                       d['dzfi'], 2.1e-3, -1.1e-3 if has_ruo else 0.0,
                       d['visc'], d['dxi'], d['dyi'], (0.3, 0.0, 0.0),
-                      sums=(True, True), split=split, ye=ye,
-                      xe=None if xkey is None else d[xkey]))
+                      sums=(True, True), split=split, ye=ye, xe=xe, **skw))
         # partial sums: compare the per-plane totals
         out[6], out[7] = out[6].sum(dim=1), out[7].sum(dim=1)
-        return dict(zip(('u', 'v', 'w', 'ru', 'rv', 'rw', 'usum', 'vsum'),
-                        out))
+        return dict(zip(('u', 'v', 'w', 'ru', 'rv', 'rw', 'usum', 'vsum',
+                         's', 'ds'), out))
     if name == 'smag':
         # duct: y walls, the fill's stacks; duct_e: extrapolated ('E')
         edges, ykw = (d['ue'], d['ve'], d['we']), {}
@@ -755,7 +797,8 @@ def time_ms(fn, n=10):
 # one timed for the report in phase 2b
 VARIANTS = {
     'mom_rk': ('les', 'dns', 'les_split', 'duct', 'xyz', 'les_xyz', 'tgv',
-               'xdev', 'xbox', 'xdev_s', 'xdev_1d', 'xbox_s'),
+               'xdev', 'xbox', 'xdev_s', 'xdev_1d', 'xbox_s', 'les_sc',
+               'duct_sc', 'xdev_sc'),
     'fillps': (None, 'duct', 'xdev', 'xbox'), 'correc_smag': (None, 'wm'),
     'correc_updatep': ('impdiff_1d', 'explicit', 'duct', 'impdiff', 'xdev',
                        'xbox'),
@@ -778,7 +821,8 @@ RELATIVE = ('apply_y', 'z_eig', 'thomas_z', 'dsmag', 'thomas_periodic',
 # round apart); so smag's y-wall variant
 WM_TOL64 = 1e-13
 REL64 = (('smag', 'duct'), ('smag', 'duct_e'), ('smag', 'xdev'),
-         ('smag', 'xbox'))
+         ('smag', 'xbox'), ('mom_rk', 'les_sc'), ('mom_rk', 'duct_sc'),
+         ('mom_rk', 'xdev_sc'))
 # the kernels whose float32 error is held against their float64 twin in
 # phase 2b; for the GEMM kernels (3xTF32) and the reordered Thomas solves
 # (chunks and cyclic reduction) it must stay within 4x the error of their
@@ -818,7 +862,13 @@ WORK = {'mom_rk': (8, 6, 230), 'fillps': (3, 1, 12),
 # the corrected mode 4 a corrected value, u and v of both rows (16 a cell)
 WM_SOLVE_OPS, WM_STEP_OPS, WM_CORRECT_OPS = 28, 14, 16
 # variants whose reads or arithmetic differ from their kernel's first
-WORK_VARIANT = {('mom_rk', 'xyz'): (7, 6, 200),
+# the scalar variants read s and rso and write s and ds, and add the
+# scalar's 58 operations a cell (its six fluxes 18, six gradients 12, the
+# RHS 20, the update 8)
+WORK_VARIANT = {('mom_rk', 'les_sc'): (10, 8, 288),
+                ('mom_rk', 'duct_sc'): (10, 8, 288),
+                ('mom_rk', 'xdev_sc'): (10, 8, 288),
+                ('mom_rk', 'xyz'): (7, 6, 200),
                 ('mom_rk', 'tgv'): (7, 6, 200),
                 ('mom_rk', 'xdev'): (7, 6, 200),
                 ('mom_rk', 'xbox'): (7, 6, 200),
@@ -836,6 +886,11 @@ GRAPH_TIMED = ('wallmodel',)
 def ystacks(name, d, variant):
     """The y-row stacks and x stacks a walled variant reads, as tensors."""
     out = []
+    if variant in ('duct_sc', 'xdev_sc'):
+        # the velocity's, nu_t's and p's stacks, and the scalar's
+        pairs = ((*d['y_mom'], d['y_sca']) if variant == 'duct_sc'
+                 else (*d['xdev_mom_s'], d['xdev_sca']))
+        return [q for pair in pairs for q in pair]
     if variant in ('xdev_s', 'xdev_1d', 'xbox_s'):
         xw = variant[:4]
         out = [q for pair in d[f'{xw}_mom_s'] for q in pair]
@@ -1006,8 +1061,12 @@ def _time_row(rows, row, name, d, variant, card, cache):
     if name == 'wallmodel' or (name, variant) in REL64:
         # the float64 kernel against its twin, and the float32 kernel
         # against the float64 twin, on these inputs
+        if 'd64' not in cache:
+            cache['d64'] = _as_double(d)
         compare(name, cache['d64'], tol_rel=WM_TOL64, variant=variant)
-        require(rel <= 1e-5, f'{tag}: {rel:.3e} against the float64 twin')
+        if rel is not None:
+            require(rel <= 1e-5, f'{tag}: {rel:.3e} against the float64 '
+                    'twin')
     ms = time_ms(lambda: call(name, d, variant=variant))
     plain_ms = time_ms(lambda: call(name, d, twin=True, variant=variant))
     say(f'  {tag:<24s} kernel {ms:.3f} ms, plain twin {plain_ms:.3f} '
@@ -1703,6 +1762,85 @@ def phase_xles(dev, card):
     return (wmx, nsteps), (ximp, 5), (xduct, 5)
 
 
+def phase_scalar(dev, card):
+    """Phase 13: the passive scalar in the channel LES headline ('mat',
+    512x256x256 f32) with a warm and a cold wall through driver.run:
+    mom_rk 3 a step (its scalar variant), the step's ms, the device's busy
+    and idle time and launches a step under torch.profiler, and s's
+    minimum, maximum and volume mean; then 10 steps of the same flow from a
+    uniform scalar with N walls, no source and no forcing: s within 1e-5
+    of 1 everywhere.  Phases 13y and 13x: the dsmag duct (y walls) and the
+    developing channel (x walls) with a scalar, its stacks from its own
+    letters.  Returns the three runs' launches."""
+    from cales_torch.config import Config
+    from cales_torch.ops.stencil import bulk_mean
+    from cales_torch.profile_step import device_profile
+    from cales_torch.timeloop import Simulation
+    les = dict(mom_rk=3, fillps=3, correc_smag=3, apply_y=6, z_eig=3)
+    keep = {}
+    nsteps = 11
+    sim, launches, res = drive(
+        'phase 13: channel LES with a passive scalar, mat',
+        Config(**LES_SC_CFG), dev, card, nsteps, les, keep=keep)
+    require('passive scalar' in sim.exec_path(),
+            'phase 13: the path does not name the scalar')
+    state = keep['state']
+    s = state.s
+    smin, smax = float(s.min()), float(s.max())
+    smean = float(bulk_mean(s, sim.gvr_f_t))
+    say(f'  s in [{smin:.6e}, {smax:.6e}], volume mean {smean:.6e}')
+    require(bool(torch.isfinite(s).all()) and 0.0 < smean < 1.0,
+            f'phase 13: s in [{smin:.3e}, {smax:.3e}], mean {smean:.3e}')
+    dt = sim.pick_dt(sim.check(state)[0])
+    step_ms, per_kernel, state = device_profile(sim, state, dt, 3)
+    busy = sum(ms for ms, _ in per_kernel.values())
+    nlaunch = sum(n for _, n in per_kernel.values())
+    say(f'  profiled: {step_ms:.3f} ms/step (CUDA events), device busy '
+        f'{busy:.3f} ms, idle {step_ms - busy:.3f} ms '
+        f'({1 - busy / step_ms:.3f} of the step), {nlaunch} launches a '
+        f'step (torch.profiler)  [{card}]')
+    res.update(s_min=smin, s_max=smax, s_mean=smean, busy_ms=busy,
+               profiled_step_ms=step_ms, idle_share=1 - busy / step_ms,
+               launches_per_step=nlaunch)
+    # a uniform scalar through the developed flow stays uniform
+    # (tests/test_timeloop.py:131's constant, on the card)
+    ucfg = Config(**{**LES_SC_CFG, 'iniscal': 'uni',
+                     'cbcscal': (('P', 'P', 'N'),) * 2,
+                     'bcscal': ((0.0,) * 3,) * 2, 'ssource': 0.0,
+                     'is_sforced': False})
+    usim = Simulation(ucfg, sim.grid, device=dev)
+    ust = usim.initial_state(*(q.cpu().numpy() for q in
+                               (state.u, state.v, state.w, state.p)))
+    for _ in range(10):
+        ust, _ = usim.step(ust, dt)
+    err = float((ust.s - 1.0).abs().max())
+    say(f'  uniform scalar after 10 steps: max|s - 1| {err:.3e} (bound '
+        f'1e-5)  [{card}]')
+    require(err <= 1e-5, f'phase 13: a uniform scalar moved by {err:.3e}')
+    res['uniform_err'] = err
+    print(json.dumps({'les_scalar': res}), flush=True)
+    del usim, ust, state
+    torch.cuda.empty_cache()
+    sc = dict(scalar=True, pr=0.71, iniscal='uni', ssource=0.02)
+    _, duct, res = drive(
+        'phase 13y: dsmag duct with a passive scalar',
+        Config(**{**DUCT_CFG, **sc,
+                  'cbcscal': (('P', 'D', 'N'), ('P', 'D', 'N')),
+                  'bcscal': ((0.0, 1.0, 0.0), (0.0, 0.5, 0.0))}),
+        dev, card, 3, dict(mom_rk=3, fillps=3, apply_y=6, z_eig=3,
+                           correc_updatep=3, dsmag=3), ntime=10)
+    print(json.dumps({'duct_scalar': res}), flush=True)
+    _, xdev, res = drive(
+        'phase 13x: developing channel with a passive scalar',
+        Config(**{**XDEV_CFG, **sc,
+                  'cbcscal': (('D', 'P', 'N'), ('N', 'P', 'N')),
+                  'bcscal': ((1.0, 0.0, 0.0), (0.0, 0.0, 0.0))}),
+        dev, card, 3, dict(mom_rk=3, fillps=3, correc_updatep=3, apply_y=6,
+                           z_eig=3), ntime=10)
+    print(json.dumps({'developing_channel_scalar': res}), flush=True)
+    return (launches, nsteps), (duct, 3), (xdev, 3)
+
+
 def _card_vs_cpu(tag, cfg, dev, names, rel=(), two=False, fields=None):
     from cales_torch.grid import make_grid_from_config
     from cales_torch.initflow import initflow
@@ -1850,6 +1988,24 @@ def phase_card_vs_cpu(dev):
         _card_vs_cpu(tag, cfg, dev, tight, rel=('visct',),
                      fields=_perturbed_fields(cfg.replace(inivel='uni'),
                                               SEED + 8))
+    # the passive scalar: phase 13's channel LES, and the developing duct
+    # of tests/test_pallas_kernels.py:655 (x and y walls: the scalar's x
+    # stack carries its (y ghost, x ghost) corners) from perturbed fields
+    # (6s is the developing WMLES's)
+    sc = (('u', 1e-11), ('v', 1e-11), ('w', 1e-11), ('s', 1e-11),
+          ('p', 1e-10))
+    _card_vs_cpu('phase 6u (scalar channel LES)',
+                 Config(**{**LES_SC_CFG, **small}), dev,
+                 sc + (('visct', 1e-10),), rel=('visct',))
+    xyd = Config(**{**XDUCT_CFG, **small, 'l': (2.0, 1.0, 1.0),
+                    'visci': 2000.0, 'scalar': True, 'pr': 0.71,
+                    'iniscal': 'uni', 'ssource': 0.02,
+                    'cbcscal': (('D', 'D', 'N'), ('N', 'N', 'N')),
+                    'bcscal': ((1.0, 0.5, 0.0), (0.0, 0.0, 0.0))})
+    _card_vs_cpu('phase 6v (scalar developing duct)', xyd, dev,
+                 sc + (('vlo', 1e-11),),
+                 fields=_perturbed_fields(xyd.replace(inivel='uni'),
+                                          SEED + 9))
 
 
 def _perturbed_fields(cfg, seed):
@@ -2283,6 +2439,7 @@ def main():
     tri3, dns3 = phase_triperiodic(dev, card)
     xdev, xcav = phase_xwalls(dev, card)
     xwm, ximp, xduct = phase_xles(dev, card)
+    scal, scal_y, scal_x = phase_scalar(dev, card)
     phase_card_vs_cpu(dev)
     mesh_launches, halo_rows = phase_sharded(dev, card)
     rows.update(halo_rows)
@@ -2323,7 +2480,12 @@ def main():
     # and the developing duct LES (12c)
     x_les_path = {('mom_rk', 'xdev_s'): xwm, ('smag', 'xdev'): xwm,
                   ('wallmodel', 'xdev'): xwm, ('mom_rk', 'xdev_1d'): ximp,
-                  ('mom_rk', 'xbox_s'): xduct, ('smag', 'xbox'): xduct}
+                  ('mom_rk', 'xbox_s'): xduct, ('smag', 'xbox'): xduct,
+                  # the scalar variants: on the channel LES with a scalar
+                  # (phase 13, 11 steps), the duct (13y) and the developing
+                  # channel (13x) with one, 3 steps each
+                  ('mom_rk', 'les_sc'): scal, ('mom_rk', 'duct_sc'): scal_y,
+                  ('mom_rk', 'xdev_sc'): scal_x}
     for row, (name, variant) in VARIANT_ROWS.items():
         if (name, variant) in x_les_path:
             run, nsteps = x_les_path[(name, variant)]

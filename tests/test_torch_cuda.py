@@ -4,7 +4,8 @@ implicit-CN channel DNS, dynamic-Smagorinsky channel, static-Smagorinsky
 LES with impdiff_1d, the y-walled duct and cavity, the two-pass dynamic
 Smagorinsky, the triperiodic Taylor-Green
 vortex and full-3D implicit diffusion, the wall-modelled channel LES, the
-x-walled LES: the developing channel, duct and wall-modelled channel)
+x-walled LES: the developing channel, duct and wall-modelled channel, the
+passive scalar: mom_rk's scalar variant with z, y, x and x and y walls)
 on the card against the same slices on the CPU, step for step, fp64.
 
 These tests need an NVIDIA GPU and skip without one.  The file imports
@@ -1802,3 +1803,149 @@ def test_card_matches_cpu_xwalled_les_step_for_step(dev, kind):
         assert err <= (1e-10 if name in ('p', 'visct') else 1e-11), name
     for m in range(3):
         assert float((a.vlo[m].cpu() - b.vlo[m]).abs().max()) <= 1e-11, m
+
+
+# the passive scalar's stacks: z walls (the channel), y walls (the duct),
+# x walls (the developing channel) and x and y walls (the developing duct),
+# each scalar face of its own letter and value
+SCAL_WALLS = {
+    'z': dict(cbcvel=((('P', 'P', 'P'), ('P', 'P', 'P'),
+                       ('D', 'D', 'D')),) * 2,
+              cbcpre=(('P', 'P', 'N'), ('P', 'P', 'N')),
+              cbcsgs=(('P', 'P', 'D'), ('P', 'P', 'D')),
+              cbcscal=(('P', 'P', 'D'), ('P', 'P', 'N')),
+              bcscal=((0.0, 0.0, 0.3), (0.0, 0.0, -0.2))),
+    'y': dict(cbcvel=((('P', 'P', 'P'), ('D', 'D', 'D'),
+                       ('D', 'D', 'D')),) * 2,
+              cbcpre=(('P', 'N', 'N'), ('P', 'N', 'N')),
+              cbcsgs=(('P', 'D', 'D'), ('P', 'D', 'D')),
+              cbcscal=(('P', 'D', 'N'), ('P', 'N', 'D')),
+              bcscal=((0.0, 1.0, 0.1), (0.0, -0.3, 0.5))),
+    'x': dict(cbcvel=((('D', 'N', 'N'), ('P', 'P', 'P'), ('D', 'D', 'D')),
+                      (('N', 'N', 'N'), ('P', 'P', 'P'), ('D', 'D', 'D'))),
+              bcvel=(((1.0, 0.0, 0.0), (0.0,) * 3, (0.0,) * 3),
+                     ((0.0,) * 3,) * 3),
+              cbcpre=(('N', 'P', 'N'), ('D', 'P', 'N')),
+              cbcsgs=(('N', 'P', 'D'), ('N', 'P', 'D')),
+              cbcscal=(('D', 'P', 'N'), ('N', 'P', 'D')),
+              bcscal=((1.0, 0.0, 0.2), (0.1, 0.0, 0.4))),
+    'xy': dict(cbcvel=((('D', 'N', 'N'), ('D', 'D', 'D'), ('D', 'D', 'D')),
+                       (('N', 'N', 'N'), ('D', 'D', 'D'), ('D', 'D', 'D'))),
+               bcvel=(((1.0, 0.0, 0.0), (0.0,) * 3, (0.0,) * 3),
+                      ((0.0,) * 3,) * 3),
+               cbcpre=(('N', 'N', 'N'), ('D', 'N', 'N')),
+               cbcsgs=(('N', 'D', 'D'), ('N', 'D', 'D')),
+               cbcscal=(('D', 'D', 'N'), ('N', 'N', 'D')),
+               bcscal=((1.0, 0.5, 0.2), (0.1, -0.2, 0.4))),
+}
+
+
+def _scal_sim(dev, walls, ng, dtype='float64', **kw):
+    """A port Simulation on `dev` of a scalar-carrying flow with the walls
+    of SCAL_WALLS[walls]: smag, explicit, 'mat' (kw overrides)."""
+    base = dict(ng=ng, l=(2.0, 1.5, 1.0), gtype=1, gr=1.0, visci=20_000.0,
+                inivel='uni', is_wallturb=False, sgstype='smag',
+                dtype=dtype, is_forced=(False,) * 3, velf=(0.0,) * 3,
+                ptransform='mat', scalar=True, pr=0.71, iniscal='uni',
+                ssource=0.02)
+    cfg = Config(**{**base, **SCAL_WALLS[walls], **kw})
+    grid = make_grid_from_config(cfg)
+    return cfg, grid, Simulation(cfg, grid, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('walls', ['z', 'y', 'x', 'xy'])
+@pytest.mark.parametrize('dtype, shape', [
+    ('float64', (40, 25, 11)), ('float32', (33, 17, 17))])
+def test_cuda_mom_rk_scal_ragged_tiles(dev, walls, dtype, shape):
+    """mom_rk's scalar variant (cales_mom_rk_scal_*) against its twin on
+    ragged tiles, on the post-correction fill's stacks of random interiors
+    and the scalar's own stacks: with and without nu_t, with each split
+    the route admits (periodic y: None, '1d' and, without x walls, 'xy+z';
+    y walls: None), the first substep and a later one: the velocity's six
+    fields and the scalar's s and ds float64 within 1e-13 of each output's
+    maximum, float32 within 1e-5 (row 1's bound in chip_smoke.py)."""
+    cfg, grid, sim = _scal_sim(dev, walls, shape, dtype)
+    nx, ny, nz = shape
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=dev).manual_seed(31)
+    F = lambda: 0.05 * torch.randn((nz, ny, nx), generator=gen,  # noqa: E731
+                                   device=dev, dtype=dt)
+    u, v, w, p, ruo, rvo, rwo, rso = (F() for _ in range(8))
+    u = u + 1.0
+    sca = 1.0 + F()
+    nut = F().abs() * 1e-3
+    vlo = tuple(1e-3 * torch.randn(q, generator=gen, device=dev, dtype=dt)
+                for q in ((nz + 2, ny + 2), (nz + 2, nx + 2),
+                          (ny + 2, nx + 2)))
+    bcs = sim._dynamic_bcs(u, v, w)
+    zq = sim._zedge_vel(u, v, w, *bcs, vlo=vlo, is_correc=True)
+    yq = (sim._yedge_vel(u, v, w, bcs, vlo=vlo, is_correc=True)
+          if sim.ywalled else None)
+    xq = (sim._xedge_vel(u, v, w, bcs, vlo=vlo, is_correc=True)
+          if sim.xwalled else None)
+    splits = ((None,) if sim.ywalled else
+              (None, '1d') if sim.xwalled else (None, '1d', 'xy+z'))
+    rtol = 1e-13 if dt == torch.float64 else 1e-5
+    K.reset_launches()
+    n = 0
+    for sgs in (True, False):
+        s = nut if sgs else None
+        se = sim._zedge_s(nut) if sgs else None
+        ye = xe = None
+        if yq is not None:
+            ye = (*yq, sim._yedge_s(nut) if sgs else None, sim._yedge_p(p),
+                  sim._yedge_scal(sca))
+        if xq is not None:
+            xe = (*xq, sim._xedge_s(nut) if sgs else None, sim._xedge_p(p),
+                  sim._xedge_scal(sca))
+        for split in splits:
+            for first in (True, False):
+                r = (None,) * 4 if first else (ruo, rvo, rwo, rso)
+                mom = (u, v, w, s, p, *zq, se, sim._zedge_p(p), *r[:3],
+                       sim.dzci_t, sim.dzfi_t, 5e-4, 0.0 if first else -2e-4,
+                       cfg.visc, cfg.dli[0], cfg.dli[1], (0.0, 0.0, 0.0))
+                kw = dict(sums=(True, True), split=split, ye=ye, xe=xe,
+                          sca=sca, scae=sim._zedge_scal(sca), rso=r[3],
+                          scal=sim.scal_params)
+                got = K.mom_rk(*mom, **kw)
+                ref = K.mom_rk_plain(*mom, **kw)
+                n += 1
+                assert len(got) == len(ref) == 10
+                for g, q in zip(got[:6] + got[8:], ref[:6] + ref[8:]):
+                    _rel_close(g, q, rtol)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES['mom_rk'] == n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('walls', ['z', 'xy'])
+def test_card_matches_cpu_scalar_step_for_step(dev, walls):
+    """3 steps of a scalar-carrying LES on the card and on the CPU (twins),
+    fp64: the channel (z walls, forced scalar) and the developing duct (x
+    and y walls): u, v, w and s within 1e-11, p within 1e-10 after
+    removing its mean, nu_t within 1e-10 of its maximum; mom_rk 3 a step,
+    its scalar variant."""
+    kw = (dict(is_forced=(True, False, False), velf=(1.0, 0.0, 0.0),
+               inivel='log', is_wallturb=True, l=(2 * np.pi, np.pi, 2.0),
+               is_sforced=True, scalf=1.0) if walls == 'z' else {})
+    cfg, grid, sim = _scal_sim(dev, walls, (48, 24, 16), **kw)
+    cpu = Simulation(cfg, grid, device='cpu')
+    fields = [np.asarray(f) for f in initflow(cfg, grid)]
+    rng = np.random.default_rng(5)
+    fields = [f + 1e-2 * rng.standard_normal(f.shape) for f in fields]
+    a, b = sim.initial_state(*fields), cpu.initial_state(*fields)
+    dt = cpu.pick_dt(cpu.check(b)[0])
+    K.reset_launches()
+    for _ in range(3):
+        a, _ = sim.step(a, dt)
+        b, _ = cpu.step(b, dt)
+    assert K.LAUNCHES['mom_rk'] == 9
+    for name in ('u', 'v', 'w', 's', 'p', 'visct'):
+        x, y = getattr(a, name).cpu(), getattr(b, name)
+        if name == 'p':
+            x, y = x - x.mean(), y - y.mean()
+        err = float((x - y).abs().max())
+        if name == 'visct':
+            err /= float(y.abs().max())
+        assert err <= (1e-10 if name in ('p', 'visct') else 1e-11), name

@@ -115,3 +115,49 @@ def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):
     res = subprocess.run([sys.executable, 'chip_smoke.py'], cwd=alone,
                          capture_output=True, text=True, env=env, timeout=300)
     assert res.returncode != 0 and '"ok"' not in res.stdout
+
+
+def _scalar_cfg(**kw):
+    from cales_torch.config import Config
+    return Config(ng=(12, 8, 8), l=(2 * np.pi, np.pi, 2.0), visci=200.0,
+                  inivel='log', is_wallturb=True, dtype='float64',
+                  is_forced=(True, False, False), velf=(1.0, 0.0, 0.0),
+                  scalar=True, iniscal='uni', pr=0.7, ssource=0.1,
+                  cbcscal=(('P', 'P', 'D'), ('P', 'P', 'N')),
+                  bcscal=((0.0, 0.0, 0.5), (0.0, 0.0, 0.0)), dt_f=1e-3,
+                  **kw)
+
+
+def test_driver_scalar_restart_continues_the_run(tmp_path):
+    """4 steps straight against 2, a restart from fld.bin and the scal.bin
+    sidecar, and 2 more (tests/test_round2_fixes.py:17 in the port): s and
+    u agree within 1e-13; the JAX package's load_scalar reads the port's
+    sidecar."""
+    cfg = _scalar_cfg()
+    _, straight = driver.run(cfg, datadir=tmp_path / 'a', device='cpu',
+                             max_steps=4, verbose=False)
+    data = tmp_path / 'b'
+    _, half = driver.run(cfg, datadir=data, device='cpu', max_steps=2,
+                         verbose=False)
+    s, t, istep = ckpt.load_scalar(data / 'scal.bin', cfg.ng, np.float64)
+    np.testing.assert_array_equal(s, half.s.numpy())
+    assert (t, istep) == (half.time, half.istep) and istep == 2
+    _, resumed = driver.run(cfg.replace(restart=True), datadir=data,
+                            device='cpu', max_steps=2, verbose=False)
+    assert resumed.istep == straight.istep == 4
+    for name in ('s', 'u'):
+        np.testing.assert_allclose(getattr(resumed, name).numpy(),
+                                   getattr(straight, name).numpy(),
+                                   rtol=0, atol=1e-13, err_msg=name)
+
+
+def test_driver_scalar_restart_requires_the_sidecar(tmp_path):
+    """A restart with scalar=True and no scal.bin raises, naming it
+    (tests/test_round2_fixes.py:59 in the port)."""
+    from cales_torch.io import checkpoint as tckpt
+    cfg = _scalar_cfg(restart=True)
+    z = np.zeros(cfg.ng[::-1])
+    tckpt.save_checkpoint(tmp_path / 'fld.bin', z, z, z, z, 0.0, 0)
+    with pytest.raises(FileNotFoundError, match='scal.bin'):
+        driver.run(cfg, datadir=tmp_path, device='cpu', max_steps=1,
+                   verbose=False)

@@ -170,7 +170,7 @@ def test_exec_path_names_device_kernels_and_solve(pair):
      'non-zero v'),
     (dict(cbcvel=((('P', 'P', 'P'), ('D', 'D', 'D'), ('D', 'D', 'D')),) * 2,
           cbcpre=(('P', 'N', 'N'),) * 2), 'non-periodic y'),
-    (dict(scalar=True), 'scalar'),
+    (dict(scalar=True, dims=(2, 1)), 'scalar'),
     (dict(dims=(2, 1)), 'mesh'),
     (dict(cbcvel=(((('P',) * 3,) * 3),) * 2, cbcpre=(('P',) * 3,) * 2,
           cbcsgs=(('P',) * 3,) * 2, gr=0.0), 'triperiodic'),

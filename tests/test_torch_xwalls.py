@@ -382,10 +382,11 @@ def test_xwalled_configs_in_the_slice(base):
 # periodic y, the box BOX y walls)
 _BOTH = {'dsmag': 'x walls with dsmag',
          'full-3D implicit': 'x walls with full-3D implicit diffusion',
-         'scalar': 'the x-walled scalar', 'mesh': 'x walls on a mesh',
+         'mesh': 'x walls on a mesh',
          'fft': "ptransform 'fft'", 'bulk forcing': 'bulk forcing'}
 OUTCOMES = {
     'smag': {'dev': None, 'box': None},
+    'scalar': {'dev': None, 'box': None},
     'impdiff_1d': {'dev': None, 'box': 'impdiff with y walls'},
     'z-wall model': {'dev': None,
                      'box': 'x walls with a wall model and y walls'},
@@ -416,9 +417,9 @@ def _change(name):
     (c, b) for c in OUTCOMES for b in ('dev', 'box')])
 def test_xwalled_configs_outside_the_slice_raise(change, base):
     """Each x-walled change either runs (the slice's: static Smagorinsky,
-    impdiff_1d, the z-wall model and an inflow profile, the last three
-    with periodic y) or raises with a message that names its ROADMAP
-    item."""
+    a passive scalar, impdiff_1d, the z-wall model and an inflow profile,
+    the last three with periodic y) or raises with a message that names
+    its ROADMAP item."""
     item = OUTCOMES[change][base]
     cfg = Config(**{**(DEV if base == 'dev' else BOX), **_change(change)})
     if item is None:
