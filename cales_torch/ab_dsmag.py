@@ -23,7 +23,9 @@ archive).  Its cales_torch is imported beside this one under another
 name, so each checkout's wrappers drive its own library (built under
 DIR/cales_torch/_build): the C interfaces may differ, the Python calls
 compared here do not.  Both run on the same seeded random inputs: dsmag's
-'channel' average without y walls, 'duct' and 'cavity' with them; z_eig
+'channel' average without y walls, 'duct' and 'cavity' with them, and
+each the other way ('channel y walls', 'duct periodic y', 'cavity
+periodic y': the six instantiations of its z-walled class); z_eig
 on random operators and eigenvalues with the singular lane (0, 0) at
 lamz[0]; dsmag_level1, and dsmag_level2 'channel', without y walls and
 with them ('duct' for dsmag_level2); apply_y with the x operator fused and
@@ -76,7 +78,8 @@ import torch
 from .ops import kernels as K
 from .ops import solve_kernels as SK
 
-CASES = ('channel', 'duct', 'cavity', 'z_eig', 'dsmag_level1',
+CASES = ('channel', 'duct', 'cavity', 'channel y walls', 'duct periodic y',
+         'cavity periodic y', 'z_eig', 'dsmag_level1',
          'dsmag_level1 y walls', 'dsmag_level2', 'dsmag_level2 y walls',
          'apply_y x+y', 'apply_y y',
          'apply_x', 'apply_x split', 'apply_x chunked', 'apply_y x+y 512^3',
@@ -356,10 +359,13 @@ def _call(mods, d, case):
         return Km.correc_smag(*f[:5], *e[:4], 0.01, 40.0, 20.0, dz, dz,
                               5e-5, d['prof'], zrec, d['fuv'], d['prof'],
                               d['nearlo'], *d['tauw'])
+    # the one-pass dsmag: each average with y walls and without
+    avg = case.split()[0]
+    ywalls = case in ('duct', 'cavity', 'channel y walls')
     return Km.dsmag(*f[:3], *e[:3], d['alph2'], dz, dz, 40.0, 20.0, True,
                     True, (0.0, 0.02, 0.0, -0.01),
-                    ye=None if case == 'channel' else ye[:3],
-                    yvals=(0.2, 0.0, -0.1, 0.3), avg=case)
+                    ye=ye[:3] if ywalls else None,
+                    yvals=(0.2, 0.0, -0.1, 0.3), avg=avg)
 
 
 def _rel(res):

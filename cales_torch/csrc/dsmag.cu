@@ -31,6 +31,23 @@
 // take -F(first row) + 2b at a y wall (b the 'D' value), the filtered v is
 // 0 on its lower wall face and its padded-ny rewrite row; alpha^2 is 2.52
 // on the first and last y rows as on the first and last z rows.
+// Two modes, template switches of the periodic-y 'channel' kernel (its
+// sums also serve 'dit', the volume's one ratio, which the caller forms),
+// for what the JAX package runs in XLA (sgs.dsmag_visct; its Pallas
+// kernel turns both away):
+//   ZP   periodic z (the triperiodic box): every z ghost of A, of the
+//        velocity and of F is the real plane at the other end.  The march
+//        starts a plane earlier and ends a plane later, t = -1 .. nz, and
+//        loads the velocity's plane t mod nz (the edge stacks go unread),
+//        so A and F at the planes -1 and nz are made as any plane is,
+//        with the metrics of the plane they are; |S| and the sums are
+//        written for the planes 0 .. nz-1 only;
+//   F2D  the 2D test filter (sgs.f90:824-848): the x and y passes only,
+//        no z pass, no extrapolation before filtering (no ghost plane of
+//        A or of the velocity is read), alpha^2 2.52 everywhere (the
+//        caller's profile); F keeps its z fill, the walls' recipe below or
+//        with ZP the wrap, since the test-level strain takes its z
+//        derivatives.
 //
 // Design.  A block owns a TY x 32 (y, x) tile (TY = 16 in float32, 8 in
 // float64, whose planes are twice the bytes) and marches z, one plane a
@@ -111,7 +128,7 @@ constexpr size_t dsmag_smem_bytes() {
           (DS_NA - 1) * G::AY * DS_TX + 3 * G::VY * DS_AX + 18 * G::APL);
 }
 
-template <typename T, bool YW, int AVG>
+template <typename T, bool YW, int AVG, bool ZP, bool F2D>
 __global__ void __launch_bounds__(DsGeo<DsTy<T>::TY>::NT, 1) dsmag_kernel(
     const T* __restrict__ u, const T* __restrict__ v, const T* __restrict__ w,
     const T* __restrict__ ue, const T* __restrict__ ve,
@@ -165,7 +182,7 @@ __global__ void __launch_bounds__(DsGeo<DsTy<T>::TY>::NT, 1) dsmag_kernel(
 
   const DsTile g{x0, y0, nz, ny, nx, tid, plane};
   auto load = [&](int kz) {
-    ds_load<T, YW, TY>(vel, fld, edg, ywall, g, kz);
+    ds_load<T, YW, TY, ZP>(vel, fld, edg, ywall, g, kz);
   };
   // the velocity's x and y passes of plane kz (a z ghost by mode)
   auto vel_x = [&](int kz, int mode) {
@@ -181,7 +198,9 @@ __global__ void __launch_bounds__(DsGeo<DsTy<T>::TY>::NT, 1) dsmag_kernel(
   // stage A at plane t on the tile + halo 1; the cells past the first NT
   // go to the last warps, which load the fewest velocity cells
   auto stage_a = [&](int t) {
-    const T dzci_c = dzci[t + 1], dzci_m = dzci[t], dzfi_c = dzfi[t + 1];
+    // with ZP the plane t of -1 and nz is the plane at the other end
+    const int tm = ZP ? (t + nz) % nz : t;
+    const T dzci_c = dzci[tm + 1], dzci_m = dzci[tm], dzfi_c = dzfi[tm + 1];
     for (int e = NT - 1 - tid; e < APL; e += NT) {
       const int ay = e / DS_AX, ax = e - ay * DS_AX;
       const int vo = (ay + 1) * DS_VX + ax + 1;
@@ -189,10 +208,11 @@ __global__ void __launch_bounds__(DsGeo<DsTy<T>::TY>::NT, 1) dsmag_kernel(
     }
   };
 
-  // F at plane t: the z pass of YV; with y walls its y ghost rows take
-  // the fill, the filtered u's and w's -F(first row) + 2b, the filtered
-  // v's 0, as does its rewrite row y = ny-1 (pallas_dsmag.py:1057-1071),
-  // so that stage C reads the filled rows as they are
+  // F at plane t: the z pass of YV (with F2D YV itself); with y walls its
+  // y ghost rows take the fill, the filtered u's and w's -F(first row) +
+  // 2b, the filtered v's 0, as does its rewrite row y = ny-1
+  // (pallas_dsmag.py:1057-1071), so that stage C reads the filled rows as
+  // they are
   auto stage_f = [&](int t) {
     for (int e = tid; e < 3 * APL; e += NT) {
       const int c = e / APL, o = e - c * APL;
@@ -207,6 +227,8 @@ __global__ void __launch_bounds__(DsGeo<DsTy<T>::TY>::NT, 1) dsmag_kernel(
         f = -pass(o + DS_AX) + ywall.off_lo[c];
       else if (YW && c != 1 && gy == ny)
         f = -pass(o - DS_AX) + ywall.off_hi[c];
+      else if (F2D)
+        f = yvel(t, c)[o];
       else
         f = pass(o);
       fvel(t, c)[o] = f;
@@ -314,46 +336,53 @@ __global__ void __launch_bounds__(DsGeo<DsTy<T>::TY>::NT, 1) dsmag_kernel(
   };
 
   // the z pass in registers: zp the xy-filtered plane t-1, zs the partial
-  // sum q(t-2) + 2 q(t-1), of each of the 15 quantities
+  // sum q(t-2) + 2 q(t-1), of each of the 15 quantities (with F2D no z
+  // pass: the filtered plane t-1 is zp).  With ZP the march starts a plane
+  // earlier and ends a plane later: A and F at the planes -1 and nz are
+  // made as the others are, from the planes at the other end
+  constexpr int T0 = ZP ? -1 : 0;
   T zp[NF], zs[NF], fq[NF];
-  load(-1);
-  load(0);
-  load(1);
+  load(T0 - 1);
+  load(T0);
+  load(T0 + 1);
   cp_async_wait<0>();
   __syncthreads();
-  vel_x(-1, wall_lo ? DS_GHOST_LO : DS_PLANE);
+  vel_x(T0 - 1, !ZP && wall_lo ? DS_GHOST_LO : DS_PLANE);
   __syncthreads();
-  vel_y(-1);
+  vel_y(T0 - 1);
   __syncthreads();
-  vel_x(0, DS_PLANE);
+  vel_x(T0, DS_PLANE);
   __syncthreads();
-  vel_y(0);
+  vel_y(T0);
   __syncthreads();
-  for (int t = 0; t <= nz; ++t) {
-    if (t + 2 <= nz) load(t + 2);
-    if (t < nz) stage_a(t);
-    if (t + 1 <= nz)
-      vel_x(t + 1, wall_hi && t + 1 == nz ? DS_GHOST_HI : DS_PLANE);
+  for (int t = T0; t <= nz; ++t) {
+    if (t + 2 <= (ZP ? nz + 1 : nz)) load(t + 2);
+    if (ZP || t < nz) stage_a(t);
+    if (ZP || t + 1 <= nz)
+      vel_x(t + 1, !ZP && wall_hi && t + 1 == nz ? DS_GHOST_HI : DS_PLANE);
     __syncthreads();
-    if (t + 1 <= nz) vel_y(t + 1);
+    if (ZP || t + 1 <= nz) vel_y(t + 1);
     // A's x pass: plane t, at t = 1 the ghost below the first plane
-    // first, after the last plane the ghost above it
-    if (t == 1 && wall_lo) {
+    // first, after the last plane the ghost above it (with F2D no ghost:
+    // no z pass reads it)
+    if (ZP) {
+      ds_src_x<T, YW, TY, DS_PLANE>(src, XS, t, y0, ny, nz, tid);
+    } else if (!F2D && t == 1 && wall_lo) {
       ds_src_x<T, YW, TY, DS_GHOST_LO>(src, XS, 0, y0, ny, nz, tid);
     } else if (t < nz) {
       ds_src_x<T, YW, TY, DS_PLANE>(src, XS, t, y0, ny, nz, tid);
-    } else if (wall_hi) {
+    } else if (!F2D && wall_hi) {
       ds_src_x<T, YW, TY, DS_GHOST_HI>(src, XS, nz, y0, ny, nz, tid);
     }
     __syncthreads();
-    if (t < nz) stage_f(t);
-    if (t == 0) {
+    if (ZP || t < nz) stage_f(t);
+    if (!ZP && t == 0) {
       __syncthreads();
       fill_lo();
     }
-    if (t == nz) fill_hi();
+    if (!ZP && t == nz) fill_hi();
     T y[NF];
-    if (t == 1 && wall_lo) {
+    if (!ZP && !F2D && t == 1 && wall_lo) {
       // zs = ghost + 2 q(0), then plane 1's x pass
       ds_src_y<T, TY>(XS, cy, cx, y);
 #pragma unroll
@@ -362,7 +391,7 @@ __global__ void __launch_bounds__(DsGeo<DsTy<T>::TY>::NT, 1) dsmag_kernel(
       ds_src_x<T, YW, TY, DS_PLANE>(src, XS, 1, y0, ny, nz, tid);
       __syncthreads();
     }
-    if (t < nz || wall_hi) {
+    if (ZP || t < nz || (!F2D && wall_hi)) {
       ds_src_y<T, TY>(XS, cy, cx, y);
     } else {
 #pragma unroll
@@ -370,8 +399,13 @@ __global__ void __launch_bounds__(DsGeo<DsTy<T>::TY>::NT, 1) dsmag_kernel(
     }
 #pragma unroll
     for (int q = 0; q < NF; ++q) {
-      if (t == 0) {
-        if (!wall_lo) zs[q] = y[q] + two * y[q];   // the copied first plane
+      if (t == T0) {
+        if (ZP)
+          zs[q] = T(0);                            // set at t = 0
+        else if (!wall_lo)
+          zs[q] = y[q] + two * y[q];               // the copied first plane
+      } else if (F2D) {
+        fq[q] = zp[q];
       } else {
         fq[q] = ds_mul_rn(q4, zs[q] + y[q]);
         zs[q] = zp[q] + two * y[q];
@@ -386,29 +420,47 @@ __global__ void __launch_bounds__(DsGeo<DsTy<T>::TY>::NT, 1) dsmag_kernel(
 
 template <typename T, bool YW>
 auto pick_dsmag(int avg) {
-  return avg == DS_DUCT     ? &dsmag_kernel<T, YW, DS_DUCT>
-         : avg == DS_CAVITY ? &dsmag_kernel<T, YW, DS_CAVITY>
-                            : &dsmag_kernel<T, YW, DS_CHANNEL>;
+  return avg == DS_DUCT     ? &dsmag_kernel<T, YW, DS_DUCT, false, false>
+         : avg == DS_CAVITY ? &dsmag_kernel<T, YW, DS_CAVITY, false, false>
+                            : &dsmag_kernel<T, YW, DS_CHANNEL, false, false>;
+}
+
+// The modes for periodic z (zper: the triperiodic box) and the 2D test
+// filter (f2d), periodic y, the 'channel' sums (whose mean over the rows
+// 'dit' weighs too).
+template <typename T>
+auto pick_dsmag_mode(bool zper, bool f2d) {
+  return zper  ? (f2d ? &dsmag_kernel<T, false, DS_CHANNEL, true, true>
+                      : &dsmag_kernel<T, false, DS_CHANNEL, true, false>)
+                 : &dsmag_kernel<T, false, DS_CHANNEL, false, true>;
 }
 
 // y: the y-row stacks and corners of u, v, w (6 pointers), all null
 // without y walls; yvals: the filtered fill's 'D' values (u_lo, u_hi,
-// w_lo, w_hi) on the y walls; avg: DS_CHANNEL, DS_DUCT or DS_CAVITY.
+// w_lo, w_hi) on the y walls; avg: DS_CHANNEL, DS_DUCT or DS_CAVITY;
+// zper, f2d: the periodic-z mode and the 2D filter (see pick_dsmag_mode).
 template <typename T>
 int launch_dsmag(const T* u, const T* v, const T* w, const T* ue,
                  const T* ve, const T* we, const T* alph2, const T* dzci,
                  const T* dzfi, T* s0o, T* numo, T* deno,
                  const T* const* y, int nz, int ny, int nx, int wall_lo,
-                 int wall_hi, int avg, double dxi, double dyi,
-                 const double* zvals, const double* yvals, void* stream) {
+                 int wall_hi, int avg, int zper, int f2d, double dxi,
+                 double dyi, const double* zvals, const double* yvals,
+                 void* stream) {
   const bool ywall = y[0] != nullptr;
   if (nz < 2 || (ywall && ny < 4) || avg < DS_CHANNEL || avg > DS_CAVITY)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if ((zper || f2d) && (ywall || avg != DS_CHANNEL))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (zper && (nz < 3 || wall_lo || wall_hi))
     return static_cast<int>(cudaErrorInvalidValue);
   for (int m = 0; m < 6; ++m)
     if (ywall != (y[m] != nullptr))
       return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = dsmag_smem_bytes<T>();
-  auto kern = ywall ? pick_dsmag<T, true>(avg) : pick_dsmag<T, false>(avg);
+  auto kern = (zper || f2d) ? pick_dsmag_mode<T>(zper, f2d)
+              : ywall       ? pick_dsmag<T, true>(avg)
+                            : pick_dsmag<T, false>(avg);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -443,7 +495,8 @@ int launch_dsmag(const T* u, const T* v, const T* w, const T* ue,
                       T* deno, const T* yur, const T* yuc, const T* yvr,      \
                       const T* yvc, const T* ywr, const T* ywc, int nz,       \
                       int ny, int nx, int wall_lo, int wall_hi, int avg,      \
-                      double dxi, double dyi, double zlo_u, double zhi_u,     \
+                      int zper, int f2d, double dxi, double dyi,              \
+                      double zlo_u, double zhi_u,                             \
                       double zlo_v, double zhi_v, double ylo_u,               \
                       double yhi_u, double ylo_w, double yhi_w,               \
                       void* stream) {                                         \
@@ -452,8 +505,8 @@ int launch_dsmag(const T* u, const T* v, const T* w, const T* ue,
     const double yvals[4] = {ylo_u, yhi_u, ylo_w, yhi_w};                     \
     return cales::launch_dsmag<T>(u, v, w, ue, ve, we, alph2, dzci, dzfi,     \
                                   s0o, numo, deno, y, nz, ny, nx, wall_lo,    \
-                                  wall_hi, avg, dxi, dyi, zvals, yvals,       \
-                                  stream);                                    \
+                                  wall_hi, avg, zper, f2d, dxi, dyi, zvals,   \
+                                  yvals, stream);                             \
   }
 
 CALES_DSMAG_ENTRY(cales_dsmag_f32, float)

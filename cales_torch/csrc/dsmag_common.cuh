@@ -22,7 +22,8 @@
 // The other helpers:
 //   ds_load     the velocity plane kz on the tile + a halo of 2 by cp.async,
 //               x wrapped, y wrapped or with y walls (YW) the rows -1, ny-1
-//               and ny from the post-correction fill's y-row stacks;
+//               and ny from the post-correction fill's y-row stacks; z
+//               wrapped with ZP (dsmag.cu's periodic-z mode);
 //   ds_source   stage A at one cell: |S| S_ij (6), the centred velocity
 //               (3), its products (6) and |S|.
 // The kernel passes its ring accessors vel(kz, c) and src(kz, q), which
@@ -73,18 +74,21 @@ struct DsTile {
 
 // The velocity plane kz (-1 .. nz, ghost rows from the edge stacks) on the
 // tile + halo 2, x wrapped; y wrapped, or with y walls the rows -1, ny-1
-// and ny from the y-row stacks.  A cell's index is found once for the
-// three components and its three values copied by cp_async, one group a
-// plane: the caller waits (cp_async_wait) and passes a barrier before the
-// plane is read.
-template <typename T, bool YW, int TY, class VEL>
+// and ny from the y-row stacks.  With ZP (periodic z) any kz from -nz on,
+// the field's plane kz mod nz (the edge stacks unread).  A cell's index
+// is found once for the three components and its three values copied by
+// cp_async, one group a plane: the caller waits (cp_async_wait) and
+// passes a barrier before the plane is read.
+template <typename T, bool YW, int TY, bool ZP = false, class VEL>
 __device__ __forceinline__ void ds_load(const VEL& vel, const T* const fld[3],
                                         const T* const edg[3],
                                         const DsYWalls<T>& yw,
                                         const DsTile& g, int kz) {
   const T* row[3];
 #pragma unroll
-  for (int c = 0; c < 3; ++c) row[c] = zrow(fld[c], edg[c], kz, g.nz, g.plane);
+  for (int c = 0; c < 3; ++c)
+    row[c] = ZP ? fld[c] + static_cast<int64_t>((kz + g.nz) % g.nz) * g.plane
+                : zrow(fld[c], edg[c], kz, g.nz, g.plane);
   for (int e = g.tid; e < DsGeo<TY>::VPL; e += DsGeo<TY>::NT) {
     const int ly = e / DS_VX, lx = e - ly * DS_VX;
     const int y = g.y0 - 2 + ly, x = wrap_near(g.x0 - 2 + lx, g.nx);

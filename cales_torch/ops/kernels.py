@@ -11,7 +11,10 @@ a launch counter.
   smag            csrc/smag.cu          ops/pallas_kernels.py fused_smag
   dsmag           csrc/dsmag.cu         ops/pallas_dsmag.py
                                         fused_dsmag_onepass ('channel',
-                                        'duct', 'cavity')
+                                        'duct', 'cavity'; its modes for
+                                        periodic z and the 2D filter,
+                                        which the JAX package runs in
+                                        XLA, sgs.dsmag_visct)
   dsmag_level1    csrc/dsmag_level1.cu  ops/pallas_dsmag.py
                                         fused_dsmag_level1
   dsmag_level2    csrc/dsmag_level2.cu  ops/pallas_dsmag.py
@@ -302,10 +305,13 @@ def smag_plain(u, v, w, ue, ve, we, dzci, dzfi, dxi, dyi, visc, csd2, dw,
                        have_zwalls, ywall, xwall)
 
 
-def _zext(q, wall_lo, wall_hi):
+def _zext(q, wall_lo, wall_hi, zper=False):
     """z ghost planes of a cell-centred quantity by the dynamic model's
     recipe: linear extrapolation at a wall (extrapolate, fac_cbc = 1),
-    the first interior plane elsewhere (a homogeneous-Neumann fill)."""
+    the first interior plane elsewhere (a homogeneous-Neumann fill), or
+    with zper (periodic z) the planes at the other end."""
+    if zper:
+        return torch.cat([q[-1:], q, q[:1]])
     lo = 2.0 * q[0] - q[1] if wall_lo else q[0]
     hi = 2.0 * q[-1] - q[-2] if wall_hi else q[-1]
     return torch.cat([lo[None], q, hi[None]])
@@ -317,35 +323,52 @@ def _yext(a):
                       2.0 * a[:, -1:] - a[:, -2:-1]], dim=1)
 
 
-def _filt(q, wall_lo, wall_hi, ywall):
+def _filt(q, wall_lo, wall_hi, ywall, zper=False, f2d=False):
     """The 27-point test filter of a cell-centred quantity with the dynamic
     model's ghost recipes: _zext along z, along y _yext with y walls or
-    the periodic wrap, x periodic."""
-    q = _zext(q, wall_lo, wall_hi)
+    the periodic wrap, x periodic; with f2d the 9-point filter in the x-y
+    planes (no z pass, so the z ghosts go unread)."""
+    q = _zext(q, wall_lo, wall_hi, zper)
     q = _yext(q) if ywall else torch.cat([q[:, -1:], q, q[:, :1]], 1)
-    return st.filter3d(wrap_x(q))
+    return (st.filter2d if f2d else st.filter3d)(wrap_x(q))
+
+
+def _zwrap_padded(q):
+    """The (nz+2, ny+2, nx+2) fill of an interior periodic along x, y and
+    z: what the dsmag kernel's periodic-z mode loads (plane indices mod
+    nz), whatever the z-edge stack holds."""
+    return wrap_xy(torch.cat([q[-1:], q, q[:1]]))
 
 
 def dsmag_level1_plain(u, v, w, ue, ve, we, dzci, dzfi, dxi, dyi, wall_lo,
-                       wall_hi, ye=None):
+                       wall_hi, ye=None, zper=False, f2d=False):
     """The grid level of the Germano-Lilly model (pallas_dsmag._ds1_kernel)
     on interiors + the post-correction fill's edge stacks (and with y walls
     its y-row stack pairs ye of (u, v, w)): the filtered products and the
     wall-parallel velocity extrapolate linearly at a wall (u, v at the z
     walls, u, w at the y walls), each component's own fill elsewhere.
+    zper (periodic z, the triperiodic box): every z ghost is the plane at
+    the other end, the velocity's included (the edge stacks go unread).
+    f2d (the 2D test filter, periodic y): every filter is the x-y one, and
+    nothing is extrapolated.
     Returns (fm, fvel, lij, s0): fm = filt(|S| S_ij) (6), fvel the
     filtered velocity (3), lij = filt(uc_i uc_j) - filt(uc_i) filt(uc_j)
     (6) with uc the centred velocity, s0 = |S|."""
     ywall = ye is not None
     yu, yv, yw = (None,) * 3 if ye is None else ye
-    up, vp, wp = padded(u, ue, yu), padded(v, ve, yv), padded(w, we, yw)
+    if zper:
+        up, vp, wp = map(_zwrap_padded, (u, v, w))
+    else:
+        up, vp, wp = padded(u, ue, yu), padded(v, ve, yv), padded(w, we, yw)
     s0, sij = st.strain_rate(up, vp, wp, dzci, dzfi, dxi, dyi, with_sij=True)
 
     def filt(q):
-        return _filt(q, wall_lo, wall_hi, ywall)
+        return _filt(q, wall_lo, wall_hi, ywall, zper, f2d)
     fm = [filt(s0 * q) for q in sij]
 
     def vel_ext(qp, along_z, along_y):
+        if f2d:
+            return qp
         if along_z:
             q = qp[1:-1]
             lo = 2.0 * q[0] - q[1] if wall_lo else qp[0]
@@ -354,9 +377,10 @@ def dsmag_level1_plain(u, v, w, ue, ve, we, dzci, dzfi, dxi, dyi, wall_lo,
         if along_y and ywall:
             qp = _yext(qp[:, 1:-1])
         return qp
-    fvel = [st.filter3d(vel_ext(up, True, True)),
-            st.filter3d(vel_ext(vp, True, False)),
-            st.filter3d(vel_ext(wp, False, True))]
+    vfilt = st.filter2d if f2d else st.filter3d
+    fvel = [vfilt(vel_ext(up, True, True)),
+            vfilt(vel_ext(vp, True, False)),
+            vfilt(vel_ext(wp, False, True))]
 
     uc, vc, wc = st.interp_center(up, vp, wp)
     pairs = [(uc, uc), (vc, vc), (wc, wc), (uc, vc), (uc, wc), (vc, wc)]
@@ -390,8 +414,9 @@ def _contraction(fm, lij, ufp, vfp, wfp, alph2, dzci, dzfi, dxi, dyi, ywall):
 
 def _averaged(num, den, s0, avg):
     """'cavity': nu_t = max(|S| num / den, 0) by cell; otherwise the sums
-    of num and den over each z row, (nz, 1), for 'channel', over each
-    (z, y) row, (nz, ny, 1), for 'duct'."""
+    of num and den over each z row, (nz, 1), for 'channel' (and 'dit',
+    whose weighted mean over the rows is the caller's), over each (z, y)
+    row, (nz, ny, 1), for 'duct'."""
     if avg == 'cavity':
         return torch.clamp_min(s0 * num / den, 0.0)
     if avg == 'duct':
@@ -401,7 +426,8 @@ def _averaged(num, den, s0, avg):
 
 def dsmag_plain(u, v, w, ue, ve, we, alph2, dzci, dzfi, dxi, dyi, wall_lo,
                 wall_hi, zvals=(0.0, 0.0, 0.0, 0.0), ye=None,
-                yvals=(0.0, 0.0, 0.0, 0.0), avg='channel'):
+                yvals=(0.0, 0.0, 0.0, 0.0), avg='channel', zper=False,
+                f2d=False):
     """The Germano-Lilly model of sgs.dsmag_visct on interiors + the
     post-correction fill's edge stacks, with every ghost recipe written out
     for the class pallas_dsmag.eligible admits: dsmag_level1_plain, then the
@@ -411,13 +437,18 @@ def dsmag_plain(u, v, w, ue, ve, we, alph2, dzci, dzfi, dxi, dyi, wall_lo,
     fill's y-row stacks: both y faces are walls, with the same recipes
     along y (yvals = (u_lo, u_hi, w_lo, w_hi); v is 0 on its lower face and
     its padded-ny rewrite) and alpha^2 = 2.52 on the first and last y rows.
+    zper: periodic z (the triperiodic box), every z ghost of A, of the
+    velocity and of the filtered velocity the plane at the other end; f2d:
+    the 2D test filter (periodic y), alpha^2 is the caller's (2.52); see
+    dsmag_level1_plain.
     Returns (s0, num, den): |S| and the sums of num = M_ij L_ij and
     den = M_ij M_ij (off-diagonal pairs twice) over each z row, (nz, 1),
     for avg 'channel', over each (z, y) row, (nz, ny, 1), for 'duct'; for
     'cavity' (nu_t, None, None), nu_t = max(|S| num / den, 0) by cell."""
     ywall = ye is not None
     fm, (ufi, vfi, wfi), lij, s0 = dsmag_level1_plain(
-        u, v, w, ue, ve, we, dzci, dzfi, dxi, dyi, wall_lo, wall_hi, ye=ye)
+        u, v, w, ue, ve, we, dzci, dzfi, dxi, dyi, wall_lo, wall_hi, ye=ye,
+        zper=zper, f2d=f2d)
 
     def yfill(q, c):
         if not ywall:
@@ -428,19 +459,22 @@ def dsmag_plain(u, v, w, ue, ve, we, alph2, dzci, dzfi, dxi, dyi, wall_lo,
         lo, hi = (2.0 * yvals[0], 2.0 * yvals[1]) if c == 0 else \
             (2.0 * yvals[2], 2.0 * yvals[3])
         return torch.cat([-q[:, :1] + lo, q, -q[:, -1:] + hi], 1)
-    szlo = -1.0 if wall_lo else 1.0
-    szhi = -1.0 if wall_hi else 1.0
-    offlo = (2.0 * zvals[0] if wall_lo else 0.0,
-             2.0 * zvals[2] if wall_lo else 0.0)
-    offhi = (2.0 * zvals[1] if wall_hi else 0.0,
-             2.0 * zvals[3] if wall_hi else 0.0)
-    ufp, vfp = (wrap_x(torch.cat([(szlo * q[0] + offlo[c])[None], q,
-                                  (szhi * q[-1] + offhi[c])[None]]))
-                for c, q in enumerate((yfill(ufi, 0), yfill(vfi, 1))))
-    wy = yfill(wfi, 2)
-    zero = torch.zeros_like(wy[:1])
-    # rows [lower face, w_0 .. w_(nz-2), top-face rewrite, never read]
-    wfp = wrap_x(torch.cat([zero, wy[:-1], zero, zero]))
+    if zper:
+        ufp, vfp, wfp = map(_zwrap_padded, (ufi, vfi, wfi))
+    else:
+        szlo = -1.0 if wall_lo else 1.0
+        szhi = -1.0 if wall_hi else 1.0
+        offlo = (2.0 * zvals[0] if wall_lo else 0.0,
+                 2.0 * zvals[2] if wall_lo else 0.0)
+        offhi = (2.0 * zvals[1] if wall_hi else 0.0,
+                 2.0 * zvals[3] if wall_hi else 0.0)
+        ufp, vfp = (wrap_x(torch.cat([(szlo * q[0] + offlo[c])[None], q,
+                                      (szhi * q[-1] + offhi[c])[None]]))
+                    for c, q in enumerate((yfill(ufi, 0), yfill(vfi, 1))))
+        wy = yfill(wfi, 2)
+        zero = torch.zeros_like(wy[:1])
+        # rows [lower face, w_0 .. w_(nz-2), top-face rewrite, never read]
+        wfp = wrap_x(torch.cat([zero, wy[:-1], zero, zero]))
     num, den = _contraction(fm, lij, ufp, vfp, wfp, alph2, dzci, dzfi, dxi,
                             dyi, ywall)
     out = _averaged(num, den, s0, avg)
@@ -903,38 +937,50 @@ def smag(u, v, w, ue, ve, we, dzci, dzfi, dxi, dyi, visc, csd2, dw, nearlo,
 DSMAG_TILE = (8, 32)
 
 
-_DSMAG_AVG = {'channel': 0, 'duct': 1, 'cavity': 2}
+# the kernels' average codes; 'dit' takes the 'channel' sums, whose
+# weighted mean over the rows is the caller's
+_DSMAG_AVG = {'channel': 0, 'duct': 1, 'cavity': 2, 'dit': 0}
 
 
 def dsmag(u, v, w, ue, ve, we, alph2, dzci, dzfi, dxi, dyi, wall_lo, wall_hi,
           zvals=(0.0, 0.0, 0.0, 0.0), ye=None, yvals=(0.0, 0.0, 0.0, 0.0),
-          avg='channel'):
+          avg='channel', zper=False, f2d=False):
     """Dynamic Smagorinsky (the Germano-Lilly model, sgs.f90:153-370) in
     one z-march; no intermediate field goes to device memory.  Inputs: the
     post-correction fill (interiors + edge stacks, and with y walls the
     y-row stack pairs ye of (u, v, w)), alph2 the (nz,) filter-ratio
     profile, wall_lo/hi the z wall flags, zvals and yvals the
     filtered-velocity fill's wall-parallel 'D' values (see dsmag_plain).
+    zper: periodic z (the triperiodic box; csrc/dsmag.cu mode ZP), the
+    z ghosts the planes at the other end, the edge stacks unread; f2d: the
+    2D test filter in the x-y planes (mode F2D; periodic y).
     Returns (s0, num, den): |S| and partial sums of num = M_ij L_ij and
     den = M_ij M_ij, which the caller sums over their last dim: per
-    (z, block), (nz, nblk), for avg 'channel'; per (z, y, x block),
+    (z, block), (nz, nblk), for avg 'channel' or 'dit'; per (z, y, x block),
     (nz, ny, nx/32), for 'duct'.  For 'cavity', (nu_t, None, None).  The
     twin returns the sums whole, (nz, 1) or (nz, ny, 1)."""
     if avg not in _DSMAG_AVG:
-        raise ValueError(f'dsmag: avg {avg!r} (channel, duct or cavity)')
+        raise ValueError(f'dsmag: avg {avg!r} (dit, channel, duct or '
+                         'cavity)')
+    if zper and (wall_lo or wall_hi or ye is not None):
+        raise ValueError('dsmag: periodic z takes no z or y walls')
+    if f2d and ye is not None:
+        raise ValueError('dsmag: the 2D test filter takes no y walls')
     if _on_cpu(u):
         return dsmag_plain(u, v, w, ue, ve, we, alph2, dzci, dzfi, dxi, dyi,
                            wall_lo, wall_hi, zvals, ye=ye, yvals=yvals,
-                           avg=avg)
+                           avg=avg, zper=zper, f2d=f2d)
     nz, ny, nx = u.shape
+    if zper and nz < 3:
+        raise ValueError(f'dsmag: nz = {nz} with periodic z (at least 3)')
     ye = _check_dsmag('dsmag', u, ue, ve, we,
                        ((alph2, nz), (dzci, nz + 2), (dzfi, nz + 2)), ye,
                        (u, v, w))
     ty, tx = DSMAG_TILE
     gx = -(-nx // tx)
     s0 = torch.empty_like(u)
-    shape = {'channel': (nz, -(-ny // ty) * gx), 'duct': (nz, ny, gx),
-             'cavity': None}[avg]
+    code = _DSMAG_AVG[avg]
+    shape = ((nz, -(-ny // ty) * gx), (nz, ny, gx), None)[code]
     num = None if shape is None else u.new_empty(shape)
     den = None if shape is None else u.new_empty(shape)
     d = ctypes.c_double
@@ -943,7 +989,8 @@ def dsmag(u, v, w, ue, ve, we, alph2, dzci, dzfi, dxi, dyi, wall_lo, wall_hi,
                         den)), *_yptrs(ye),
             ctypes.c_int(nz), ctypes.c_int(ny), ctypes.c_int(nx),
             ctypes.c_int(int(bool(wall_lo))), ctypes.c_int(int(bool(wall_hi))),
-            ctypes.c_int(_DSMAG_AVG[avg]), d(dxi), d(dyi),
+            ctypes.c_int(code), ctypes.c_int(int(bool(zper))),
+            ctypes.c_int(int(bool(f2d))), d(dxi), d(dyi),
             *(d(float(q)) for q in (*zvals, *yvals)))
     return s0, num, den
 
@@ -996,7 +1043,7 @@ def dsmag_level2(fu, fv, fw, fue, fve, fwe, fm, lij, s0, alph2, dzci, dzfi,
     (z, y, x block of 32), (nz, ny, ceil(nx/32)), for 'duct'.  The twin
     returns the sums whole, (nz, 1) or (nz, ny, 1)."""
     if avg not in _DSMAG_AVG:
-        raise ValueError(f'dsmag_level2: avg {avg!r} (channel, duct or '
+        raise ValueError(f'dsmag_level2: avg {avg!r} (dit, channel, duct or '
                          'cavity)')
     if _on_cpu(fu):
         return dsmag_level2_plain(fu, fv, fw, fue, fve, fwe, fm, lij, s0,
@@ -1009,8 +1056,9 @@ def dsmag_level2(fu, fv, fw, fue, fve, fwe, fm, lij, s0, alph2, dzci, dzfi,
                        (fu, fv, fw, *fm, *lij, s0))
     from . import build
     gx = -(-nx // 32)
-    shape = {'channel': (nz, -(-(ny * gx * 32) // build.THREADS)),
-             'duct': (nz, ny, gx), 'cavity': (nz, ny, nx)}[avg]
+    code = _DSMAG_AVG[avg]
+    shape = ((nz, -(-(ny * gx * 32) // build.THREADS)), (nz, ny, gx),
+             (nz, ny, nx))[code]
     num = fu.new_empty(shape)
     den = None if avg == 'cavity' else fu.new_empty(shape)
     d = ctypes.c_double
@@ -1018,7 +1066,7 @@ def dsmag_level2(fu, fv, fw, fue, fve, fwe, fm, lij, s0, alph2, dzci, dzfi,
             *map(_ptr, (fu, fv, fw, fue, fve, fwe, *fm, *lij, s0, alph2,
                         dzci, dzfi, num, den)), *_yptrs(ye),
             ctypes.c_int(nz), ctypes.c_int(ny), ctypes.c_int(nx),
-            ctypes.c_int(_DSMAG_AVG[avg]), d(dxi), d(dyi))
+            ctypes.c_int(code), d(dxi), d(dyi))
     return num if avg == 'cavity' else (num, den)
 
 

@@ -3,7 +3,8 @@
     python -m cales_torch.profile_step
         [--case les|les-mat|les-imp|dns|dns-imp3d|dsmag|dsmag-blow|duct|
                 cavity|tgv|tgv-fft|tri|tri-imp3d|wmles|wmles-duct|
-                xchannel|xcavity|xwmles|xles-imp|xduct-les|les-scal]
+                xchannel|xcavity|xwmles|xles-imp|xduct-les|les-scal|
+                tgv-les|tgv-dsmag]
         [--ng NXxNYxNZ]
         [--steps 3]
 
@@ -52,7 +53,11 @@ with z-implicit diffusion (visci 20 000, smag, impdiff_1d: mom_rk's
 x-walled '1d' split, thomas_z CN solves) and 'xduct-les' the developing
 duct LES (smag's x- and y-wall variant); 'les-scal' the 'les-mat'
 headline with a passive scalar (Pr 0.71, s 0 on the lower z wall and 1 on
-the upper one, from s = 0: mom_rk's scalar variant).  The grid is
+the upper one, from s = 0: mom_rk's scalar variant); 'tgv-les' and
+'tgv-dsmag' the Taylor-Green vortex's LES on the example's 'auto' route
+('fft'): static Smagorinsky (the smag kernel without walls: no van
+Driest) and dynamic Smagorinsky with the 'dit' average (the dsmag
+kernel's periodic-z mode, one ratio for the volume).  The grid is
 512x256x256, 512^3 for the tgv cases, unless --ng says otherwise.  The
 device's idle share is 1 - (device busy time / wall time of the profiled
 window).
@@ -192,6 +197,9 @@ CASES = {
                              ((0.0,) * 3,) * 3), **XDUCT_BCS),
     'les-scal': dict(visci=20_000.0, sgstype='smag', ptransform='mat',
                      **CHAN_BCS, **SCALAR),
+    'tgv-les': dict(TGV, sgstype='smag', ptransform='auto'),
+    'tgv-dsmag': dict(TGV, sgstype='dsmag', dsmag_avg='dit',
+                      ptransform='auto'),
 }
 
 

@@ -1,6 +1,6 @@
 """SGS eddy viscosity: static Smagorinsky with van Driest damping, and
-dynamic Smagorinsky (Germano-Lilly) with the 'channel', 'duct' and
-'cavity' averages.
+dynamic Smagorinsky (Germano-Lilly) with the 'dit', 'channel', 'duct' and
+'cavity' averages and the 3D or the 2D test filter.
 
 Counterpart of cales_tpu/sgs.py (reference sgs.f90:69-380, extrapolate
 682-767, cmpt_alph2 769-822).  ``SGSSetup`` is the JAX package's numpy
@@ -155,8 +155,11 @@ class SGSSetup:
         self.any_wall = any(self.is_wall6)
 
     def alph2_field(self, shape, dtype, device=None):
-        """alpha^2 filter-ratio field of the 3D test filter (sgs.f90:769-822):
-        4.0 inside, 2.52 on the first off-wall layer."""
+        """alpha^2 filter-ratio field (sgs.f90:769-822): of the 3D test
+        filter 4.0 inside, 2.52 on the first off-wall layer; of the 2D
+        test filter 2.52 everywhere."""
+        if self.cfg.filter_2d:
+            return torch.full(shape, 2.52, dtype=dtype, device=device)
         a = torch.full(shape, 4.0, dtype=dtype, device=device)
         for (ib, idir), axis in (((0, 0), 2), ((1, 0), 2), ((0, 1), 1),
                                  ((1, 1), 1), ((0, 2), 0), ((1, 2), 0)):
@@ -258,21 +261,25 @@ def dsmag_unsupported(cfg):
     """The dynamic-model variants this port does not run yet, each with the
     ROADMAP item that brings it."""
     out = []
-    if cfg.dsmag_avg == 'dit':
-        out.append("dsmag_avg 'dit' (the triperiodic box's average): "
-                   'ROADMAP queue 1, triperiodic LES')
-    if cfg.filter_2d:
-        out.append('the 2D test filter (filter_2d): ROADMAP queue 1, dsmag '
-                   'classes')
+    ywalls = any(cfg.cbcvel[ib][1][1] == 'D' for ib in range(2))
+    if cfg.filter_2d and ywalls:
+        out.append('the 2D test filter (filter_2d) with y walls (A\'s y '
+                   'ghosts take the SGS fill there, not the dsmag kernels\' '
+                   'wall extrapolation): ROADMAP queue 1, dsmag classes, '
+                   'filter_2d with y walls')
     return out
 
 
 def dsmag_visct(setup: SGSSetup, cfg, grid, up, vp, wp, bcs_vals,
                 pad_vel_fn):
     """Dynamic Smagorinsky (Germano-Lilly, sgs.f90:153-380) on padded
-    fields, with the average of cfg.dsmag_avg: 'channel' over each z plane
-    (ave1d_channel), 'duct' over x for each (z, y) row (ave2d_duct,
-    sgs.f90:540-614), 'cavity' none; the term order is cales_tpu/sgs.py's.
+    fields, with the average of cfg.dsmag_avg: 'dit' the dzf-weighted mean
+    over the volume (ave0d_dit, sgs.f90:388-431), 'channel' over each z
+    plane (ave1d_channel), 'duct' over x for each (z, y) row (ave2d_duct,
+    sgs.f90:540-614), 'cavity' none; the 3D test filter, or with
+    cfg.filter_2d the 2D one in the x-y planes (sgs.f90:824-848: no
+    extrapolation at the walls, alpha^2 = 2.52); the term order is
+    cales_tpu/sgs.py's.
 
     bcs_vals: the SGS scalar's BC values (boundp of the products);
     pad_vel_fn(u, v, w) applies the filtered-velocity BC fill (bounduvw
@@ -286,12 +293,15 @@ def dsmag_visct(setup: SGSSetup, cfg, grid, up, vp, wp, bcs_vals,
     dl, dzc = cfg.dl[:2], grid.dzc
     cbcs = tuple((cfg.cbcsgs[0][d], cfg.cbcsgs[1][d]) for d in range(3))
     walls, fac = setup.wall_flags, setup.fac_cbc
+    use2d = cfg.filter_2d
+    filt = st.filter2d if use2d else st.filter3d
 
     def boundp(f):
         return bnd.pad_scalar(f, cbcs, bcs_vals, dl, dzc)
 
-    def ext(q):
-        return extrapolate(q, 0, walls, fac)
+    def ext(q, iface=0):
+        # the 2D filter reads no ghost across a wall: no extrapolation
+        return q if use2d else extrapolate(q, iface, walls, fac)
 
     # grid-level strain rate (the wall-model extrapolation is the identity
     # without a wall model, which unsupported() refuses with dsmag)
@@ -299,13 +309,13 @@ def dsmag_visct(setup: SGSSetup, cfg, grid, up, vp, wp, bcs_vals,
 
     # filtered |S| Sij (sgs.f90:189-223)
     s0p = boundp(s0)
-    mij = [st.filter3d(ext(s0p * boundp(q))) for q in sij]
+    mij = [filt(ext(s0p * boundp(q))) for q in sij]
 
     # filtered velocity, its BC fill and the test-level strain
     # (sgs.f90:225-272)
-    ufi = st.filter3d(extrapolate(up, 1, walls, fac))
-    vfi = st.filter3d(extrapolate(vp, 2, walls, fac))
-    wfi = st.filter3d(extrapolate(wp, 3, walls, fac))
+    ufi = filt(ext(up, 1))
+    vfi = filt(ext(vp, 2))
+    wfi = filt(ext(wp, 3))
     ufp, vfp, wfp = pad_vel_fn(ufi, vfi, wfi)
     s0f, sijf = st.strain_rate(ufp, vfp, wfp, dzci, dzfi, dxi, dyi,
                                with_sij=True)
@@ -317,8 +327,8 @@ def dsmag_visct(setup: SGSSetup, cfg, grid, up, vp, wp, bcs_vals,
     ucp, vcp, wcp = boundp(uc), boundp(vc), boundp(wc)
     pairs = [(ucp, ucp), (vcp, vcp), (wcp, wcp), (ucp, vcp), (ucp, wcp),
              (vcp, wcp)]
-    lij = [st.filter3d(ext(a * b)) for a, b in pairs]
-    ucf, vcf, wcf = (st.filter3d(ext(q)) for q in (ucp, vcp, wcp))
+    lij = [filt(ext(a * b)) for a, b in pairs]
+    ucf, vcf, wcf = (filt(ext(q)) for q in (ucp, vcp, wcp))
     fpairs = [(ucf, ucf), (vcf, vcf), (wcf, wcf), (ucf, vcf), (ucf, wcf),
               (vcf, wcf)]
     lij = [q - a * b for q, (a, b) in zip(lij, fpairs)]
@@ -327,6 +337,12 @@ def dsmag_visct(setup: SGSSetup, cfg, grid, up, vp, wp, bcs_vals,
     num = sum(m * q for m, q in zip(mij[:3], lij[:3])) \
         + 2.0 * sum(m * q for m, q in zip(mij[3:], lij[3:]))
     den = sum(m * m for m in mij[:3]) + 2.0 * sum(m * m for m in mij[3:])
+    if cfg.dsmag_avg == 'dit':
+        nz, ny, nx = s0.shape
+        wz = torch.as_tensor(grid.dzf[1:nz + 1] / cfg.l[2], dtype=s0.dtype,
+                             device=s0.device)[:, None, None] / (ny * nx)
+        num = torch.sum(num * wz)
+        den = torch.sum(den * wz)
     dims = {'channel': (1, 2), 'duct': (2,)}.get(cfg.dsmag_avg)
     if dims is not None:
         num = torch.mean(num, dim=dims, keepdim=True)

@@ -4,10 +4,18 @@ Counterpart of cales_tpu/timeloop.py on its single-device kernel path for
 the channel classes with periodic x/y and z walls (reference
 rk.f90:17-121, main.f90:417-507): the LES with static or dynamic
 Smagorinsky, and the DNS (sgstype 'none'), each with explicit, z-implicit
-(impdiff_1d) or full-3D implicit diffusion; the triperiodic DNS (the Taylor-Green vortex), explicit or
-implicit; and for the y-walled classes, the square duct and the
-spanwise-periodic cavity, with dynamic Smagorinsky ('duct', 'cavity' or
-'channel' averaging) or none, explicit diffusion.  z walls may transpire
+(impdiff_1d) or full-3D implicit diffusion; the triperiodic box (the
+Taylor-Green vortex), explicit or implicit, as DNS or as LES with static
+Smagorinsky (no wall: the smag kernel without van Driest, the fused
+correction off as in cales_tpu) or dynamic Smagorinsky ('dit' or
+'channel': the dsmag kernel's periodic-z mode), forced along x, y and z
+(the bulk mean of w one reduction of the momentum kernel's output); and
+for the y-walled classes, the square duct and the
+spanwise-periodic cavity, with dynamic Smagorinsky ('duct', 'cavity',
+'channel' or 'dit' averaging) or none, explicit diffusion.  The dynamic
+model averages 'dit' (one dzf-weighted ratio for the volume) wherever it
+runs, and takes the 2D test filter (filter_2d, the dsmag kernel's F2D
+mode) with periodic y on the one-pass route.  z walls may transpire
 (a uniform w through them).  The y-walled duct also runs static
 Smagorinsky (the smag kernel's y-wall variant).  The channel's z walls,
 and the duct's y and z walls, may carry the wall model (log-law or
@@ -22,7 +30,8 @@ One RK substep runs:
                              sums; with implicit diffusion the explicit/
                              implicit split, '1d' or 'xy+z', and the
                              Crank-Nicolson fold)
-  2. bulk forcing from the partial sums (rk.f90:197-222 reordered)
+  2. bulk forcing from the partial sums (rk.f90:197-222 reordered);
+     along z from the bulk mean of w
   3. implicit diffusion, per velocity component: impdiff_1d
      poisson.solve_z_only (the Thomas kernel; the forcing enters as its RHS
      shift), full-3D poisson.solve with alpha (the forcing added first)
@@ -34,11 +43,12 @@ One RK substep runs:
                              diffusion), or
      kernels.correc_updatep  projection, p += pp (+ alpha Lz(pp))
   7. the SGS stage on the post-correction fill, where 6 did not make nu_t:
-     kernels.smag (smag with impdiff_1d, or with y walls on the 'E'
-     ghost stacks, sgs.extrapolate_stacks), or kernels.dsmag (dsmag: |S|
-     and partial num/den sums, then nu_t = max(|S| num/den, 0) with one
-     ratio per z row ('channel') or per (z, y) row ('duct'); 'cavity'
-     makes nu_t cell by cell in the kernel), or where the one pass cannot
+     kernels.smag (smag with impdiff_1d, on the box, or with y walls on
+     the 'E' ghost stacks, sgs.extrapolate_stacks), or kernels.dsmag
+     (dsmag: |S| and partial num/den sums, then nu_t = max(|S| num/den, 0)
+     with one ratio per z row ('channel'), per (z, y) row ('duct') or for
+     the volume ('dit'); 'cavity' makes nu_t cell by cell in the kernel),
+     or where the one pass cannot
      carry the BC values (transpiring z walls) the two passes
      kernels.dsmag_level1, the filtered velocity's fill, and
      kernels.dsmag_level2, with the same finish
@@ -236,13 +246,15 @@ def unsupported(cfg: Config) -> list[str]:
         out += _xwalls_refuse(cfg)
     if not _periodic(cfg, 1):
         out += _ywalls_refuse(cfg)
-    if cbc[0][2][0] == 'P' and cfg.sgstype != 'none':
-        out.append(f"{'static' if cfg.sgstype == 'smag' else 'dynamic'} "
-                   'Smagorinsky on the triperiodic box (periodic z): ROADMAP '
-                   'queue 1, triperiodic LES')
-    if cfg.is_forced[2]:
-        out.append('bulk forcing along z (is_forced(3)): ROADMAP queue 1, '
-                   'triperiodic LES')
+    if (cbc[0][2][0] == 'P' and cfg.sgstype != 'none'
+            and not _periodic(cfg, 2)):
+        out.append('an SGS model with a periodic z velocity and a '
+                   'non-periodic z pressure or SGS fill: ROADMAP queue 1, '
+                   'BC topologies')
+    if cfg.is_forced[2] and not _periodic(cfg, 2):
+        out.append('bulk forcing along z (is_forced(3)) with z walls (it '
+                   'runs where z is periodic): ROADMAP queue 1, forcing '
+                   'along z with z walls')
     if cfg.scalar:
         out += _scalar_refuse(cfg)
     if cfg.dims[0] * cfg.dims[1] > 1:
@@ -396,9 +408,12 @@ def _dsmag_kernel_refuses(cfg: Config, cbc) -> list[str]:
     """The limits of the dsmag kernels' ghost recipes, which are those of
     cales_tpu's (pallas_dsmag.eligible face_ok): each z face, and each y
     face with y walls, a wall (Dirichlet normal velocity) or a
-    homogeneous-Neumann fill with zero values."""
+    homogeneous-Neumann fill with zero values, or z periodic (the one-pass
+    kernel's periodic-z mode; the JAX package runs its XLA model there);
+    the 2D test filter by the one pass only."""
     out = []
-    faces = ((2, 'z'),) + (() if _periodic(cfg, 1) else ((1, 'y'),))
+    faces = ((() if _periodic(cfg, 2) else ((2, 'z'),))
+             + (() if _periodic(cfg, 1) else ((1, 'y'),)))
     for d, face in faces:
         for ib in range(2):
             if cbc[ib][d][d] == 'D':
@@ -412,6 +427,16 @@ def _dsmag_kernel_refuses(cfg: Config, cbc) -> list[str]:
                 out.append(f'dsmag with a {face} face that is neither a '
                            'wall nor a homogeneous-Neumann fill: ROADMAP '
                            'queue 1, dsmag classes')
+    if ((_periodic(cfg, 2) or cfg.filter_2d)
+            and cfg.dsmag_avg not in ('dit', 'channel')):
+        out.append(f'the {cfg.dsmag_avg!r} average with periodic z or the '
+                   "2D test filter (the kernel's modes for them take the "
+                   "'dit' and 'channel' sums): ROADMAP queue 1, dsmag "
+                   'classes')
+    if cfg.filter_2d and not dsmag_onepass_vals_ok(cfg, not _periodic(cfg, 1)):
+        out.append('the 2D test filter where a face value forces the two '
+                   'passes (the two-pass kernels have no 2D filter): '
+                   'ROADMAP queue 1, dsmag classes, filter_2d by two passes')
     return out
 
 
@@ -435,15 +460,21 @@ def dsmag_onepass_vals_ok(cfg: Config, ywalled: bool) -> bool:
     return True
 
 
-def _dsmag_ratio(s0, num, den, avg):
+def _dsmag_ratio(s0, num, den, avg, wz=None):
     """nu_t = max(|S| ratio, 0) from a dsmag kernel's partial sums of num
     and den (summed over their last dim here): one ratio per z row
-    ('channel', ave1d_channel, sgs.f90:433-538) or per (z, y) row ('duct',
-    ave2d_duct, sgs.f90:540-614)."""
+    ('channel', ave1d_channel, sgs.f90:433-538), per (z, y) row ('duct',
+    ave2d_duct, sgs.f90:540-614), or one for the volume ('dit', ave0d_dit,
+    sgs.f90:388-431: the rows' sums weighted by wz = dzf / l_z, as
+    cales_tpu timeloop.py:1512-1514 weighs them)."""
     if avg == 'duct':
         ratio = num.sum(dim=-1) / den.sum(dim=-1)
         return torch.clamp_min(s0 * ratio[:, :, None], 0.0)
-    ratio = num.sum(dim=1) / den.sum(dim=1)
+    num1, den1 = num.sum(dim=1), den.sum(dim=1)
+    if avg == 'dit':
+        ratio = torch.sum(num1 * wz) / torch.sum(den1 * wz)
+        return torch.clamp_min(s0 * ratio, 0.0)
+    ratio = num1 / den1
     return torch.clamp_min(s0 * ratio[:, None, None], 0.0)
 
 
@@ -499,9 +530,13 @@ class Simulation:
         # kernel on the post-correction fill
         # (off with x walls and with plane-valued velocity values, as
         # cales_tpu's _fuse_correc_smag: its z-ghost recipes take scalars)
+        # (off with periodic z too, as cales_tpu's: the box has no wall and
+        # runs the smag kernel without van Driest)
+        self.zper = self.cbcvel[0][2][0] == 'P'
         self.fused_smag = (cfg.sgstype == 'smag' and not cfg.impdiff
                            and mesh is None and not self.ywalled
-                           and not self.xwalled and not plane_faces(cfg))
+                           and not self.xwalled and not plane_faces(cfg)
+                           and not self.zper)
         self.sgs_kernel = ({'smag': 'smag', 'dsmag': 'dsmag'}
                            .get(cfg.sgstype) if not self.fused_smag else None)
         # dsmag: the one-pass kernel where it can carry the BC values, the
@@ -510,6 +545,16 @@ class Simulation:
         self.dsmag_twopass = self.sgs_kernel == 'dsmag' and (
             not dsmag_onepass_vals_ok(cfg, self.ywalled)
             or os.environ.get('CALES_DSMAG_TWOPASS', '') == '1')
+        if self.dsmag_twopass and (self.zper or cfg.filter_2d):
+            # the two-pass kernels have neither the periodic-z mode nor the
+            # 2D filter: no silent one-pass run under the A/B switch
+            raise NotImplementedError(
+                'CALES_DSMAG_TWOPASS=1 with '
+                + ('periodic z (the triperiodic box)' if self.zper
+                   else 'the 2D test filter')
+                + ': the two-pass dsmag kernels run the z-walled classes '
+                'with the 3D filter; unset it to take the one-pass kernel '
+                '(ROADMAP queue 1, dsmag classes)')
         # implicit diffusion: the momentum kernel's split ('1d' z only,
         # 'xy+z' full-3D) + CN fold (rd streams elided, timeloop.py:227-229
         # and 295-306 of the JAX package)
@@ -625,17 +670,24 @@ class Simulation:
         # dsmag: the filter-ratio profile alpha^2 along z (2.52 on a z
         # wall's first row; the kernel sets the y walls' rows itself) and
         # the filtered-velocity fill's wall-parallel z and y values
+        # (2.52 everywhere with the 2D filter, SGSSetup.alph2_field), and
+        # the 'dit' average's plane weights dzf / l_z
         alph2 = np.full(nz, 4.0)
         if self.lo_wall:
             alph2[0] = 2.52
         if self.hi_wall:
             alph2[-1] = 2.52
+        if cfg.filter_2d:
+            alph2[:] = 2.52
         self.alph2_t = t(alph2)
+        self.dit_w_t = t(grid.dzf[1:nz + 1] / cfg.l[2])
+        self.gvr_c_t = t(self.gvr_c)
         self.dsmag_zvals = (self.bcu_vals[2][0], self.bcu_vals[2][1],
                             self.bcv_vals[2][0], self.bcv_vals[2][1])
         self.dsmag_yvals = (self.bcu_vals[1][0], self.bcu_vals[1][1],
                             self.bcw_vals[1][0], self.bcw_vals[1][1])
-        # deferred bulk forcing along the periodic x / y
+        # deferred bulk forcing along the periodic x / y (along z it is
+        # taken after the momentum kernel, _bulk_forcing)
         self.sum_flags = (bool(cfg.is_forced[0]), bool(cfg.is_forced[1]))
         # the passive scalar: its BC letters and values by direction, its
         # diffusivity visc/pr and source (mom_rk's scalar stream)
@@ -717,6 +769,14 @@ class Simulation:
                else f'dsmag {"two-pass" if self.dsmag_twopass else "kernel"}'
                     f', {self.cfg.dsmag_avg!r} average'
                if self.sgs_kernel == 'dsmag' else 'none')
+        if self.sgs_kernel == 'smag' and not (
+                self.have_zwalls or self.ywalled or self.xwall_sides):
+            sgs += ' (no wall: no van Driest damping)'
+        if self.sgs_kernel == 'dsmag':
+            modes = ([' its periodic-z mode'] if self.zper else []) + (
+                [' the 2D test filter'] if self.cfg.filter_2d else [])
+            if modes:
+                sgs += ' in' + ' and'.join(modes)
         if self.ywalled:
             sgs += '; y walls: y-row ghost stacks'
         if self.xwalled:
@@ -945,14 +1005,23 @@ class Simulation:
                                 self.grid.dzc)
 
     # ------------------------------------------------------------------
-    def _bulk_forcing(self, sums):
+    def _bulk_forcing(self, sums, w):
         """Bulk-velocity forcing (rk.f90:197-222, mom.f90:311-335) from the
-        momentum kernel's partial sums.  Explicit diffusion defers the
-        constants into the correction kernel (forcing along a periodic
-        direction cancels in the divergence); impdiff_1d adds them as the
-        CN solves' RHS shift, full-3D implicit diffusion to the CN RHS
-        before its solves (timeloop.py:2339-2345).  Returns the (3,)
-        forcing tensor and the (2,) (fu, fv) the corrector adds."""
+        momentum kernel's partial sums along x and y.  Explicit diffusion
+        defers their constants into the correction kernel (forcing along a
+        periodic direction cancels in the divergence); impdiff_1d adds them
+        as the CN solves' RHS shift, full-3D implicit diffusion to the CN
+        RHS before its solves (timeloop.py:2339-2345).  Along z (periodic:
+        unsupported() refuses it with z walls) the bulk mean of w with the
+        gvr_c weights is one reduction of the kernel's w (cales_tpu
+        timeloop.py:2350-2356), and explicit diffusion adds f_z to w here,
+        before fillps.  With implicit diffusion that w carries the CN fold
+        (-1/2 f12 of the implicit term); on a periodic z the fold's volume
+        mean vanishes (the dzc-weighted sum of a second difference of w
+        telescopes to zero, and so do the x and y sums of the periodic x
+        and y terms), so the mean is the unfolded prediction's, to
+        rounding, as cales_tpu takes it.  Returns the (3,) forcing tensor,
+        the (2,) (fu, fv) the corrector adds and w."""
         cfg = self.cfg
         f = torch.zeros(3, dtype=self.dtype, device=self.device)
         for d, s in enumerate(sums):
@@ -961,7 +1030,11 @@ class Simulation:
                 if self.mesh is not None:
                     tot = self.mesh.all_reduce(tot)
                 f[d] = cfg.velf[d] - torch.dot(tot, self.gvr_f_t)
-        return f, f[:2].contiguous()
+        if cfg.is_forced[2]:
+            f[2] = cfg.velf[2] - st.bulk_mean(w, self.gvr_c_t)
+            if not cfg.impdiff:
+                w = w + f[2]
+        return f, f[:2].contiguous(), w
 
     def _correc_smag_fused(self, u, v, w, pp, p, ue2, ve2, we2, ppe, dtrk,
                            fuv):
@@ -1176,8 +1249,10 @@ class Simulation:
                                      self.dzci_t, self.dzfi_t, dxi, dyi,
                                      self.lo_wall, self.hi_wall,
                                      self.dsmag_zvals, ye=yq,
-                                     yvals=self.dsmag_yvals, avg=avg)
-        return s0 if avg == 'cavity' else _dsmag_ratio(s0, num, den, avg)
+                                     yvals=self.dsmag_yvals, avg=avg,
+                                     zper=self.zper, f2d=cfg.filter_2d)
+        return s0 if avg == 'cavity' else _dsmag_ratio(s0, num, den, avg,
+                                                       self.dit_w_t)
 
     def _dsmag_twopass(self, u, v, w, zq, ye):
         """The two-pass dynamic model (cales_tpu _compute_dsmag_kernel's
@@ -1197,7 +1272,8 @@ class Simulation:
         out = kernels.dsmag_level2(fu, fv, fw, *fze, fm, lij, s0,
                                    self.alph2_t, self.dzci_t, self.dzfi_t,
                                    dxi, dyi, avg=avg, ye=fye)
-        return out if avg == 'cavity' else _dsmag_ratio(s0, *out, avg)
+        return out if avg == 'cavity' else _dsmag_ratio(s0, *out, avg,
+                                                        self.dit_w_t)
 
     def _cn_stage(self, u, v, w, f, alpha):
         """Crank-Nicolson Helmholtz solves (main.f90:423-491): the momentum
@@ -1407,7 +1483,7 @@ class Simulation:
                 s_new = s_new + (cfg.scalf
                                  - st.bulk_mean(s_new, self.gvr_f_t))
             scal = dict(s=s_new, dsdt_old=dsdt)
-        f, fuv = self._bulk_forcing((usum, vsum))
+        f, fuv, w = self._bulk_forcing((usum, vsum), w)
         alpha = 0.0
         if cfg.impdiff:
             alpha = -0.5 * cfg.visc * dtrk

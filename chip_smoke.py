@@ -120,12 +120,17 @@ VARIANT_ROWS = {
     'mom_rk (scalar)': ('mom_rk', 'les_sc'),
     'mom_rk (y walls, scalar)': ('mom_rk', 'duct_sc'),
     'mom_rk (x walls, scalar)': ('mom_rk', 'xdev_sc'),
+    'smag (no walls)': ('smag', 'nowall'),
+    'dsmag (periodic z)': ('dsmag', 'zp'),
+    'dsmag (2D filter)': ('dsmag', 'f2d'),
 }
 # the kernels timed at the Taylor-Green vortex's 512^3 in phase 2b, each
 # reported as a kernel of its own: report name -> (kernel, variant)
 BIG_ROWS = {'mom_rk (512^3, no nu_t)': ('mom_rk', 'tgv'),
             'thomas_periodic (512^3)': ('thomas_periodic', 'poisson'),
-            'thomas_z (512^3, Poisson pinned)': ('thomas_z', 'poisson')}
+            'thomas_z (512^3, Poisson pinned)': ('thomas_z', 'poisson'),
+            'smag (512^3, no walls)': ('smag', 'nowall'),
+            'dsmag (512^3, periodic z)': ('dsmag', 'zp')}
 # the slab variants of the stencil kernels on the y-slab mesh (phase 10),
 # each reported as a kernel of its own: report name -> kernel
 HALO_ROWS = {'mom_rk (y halo)': 'mom_rk', 'fillps (y halo)': 'fillps',
@@ -397,6 +402,10 @@ def kernel_inputs(ng, dtype, dev, seed, big=False):
     a2[0] = a2[-1] = 2.52
     d['alph2'] = t(a2)
     d['zvals'] = (0.0, 0.02, 0.0, -0.01)
+    # dsmag's periodic-z mode (the box: alpha^2 4 everywhere; it reads no
+    # edge stack) and its 2D filter (alpha^2 2.52 everywhere)
+    d['alph2_box'] = t(np.full(nz, 4.0))
+    d['alph2_2d'] = t(np.full(nz, 2.52))
     # y walls: the duct's fills of the same interiors as (rows, corners)
     # pairs, with moving wall-parallel values; the post-correction fill
     # (mom_rk, dsmag) keeps random lower faces of v and w
@@ -585,9 +594,12 @@ def call(name, d, twin=False, variant=None, has_ruo=True, zrec=None):
         return dict(zip(('u', 'v', 'w', 'ru', 'rv', 'rw', 'usum', 'vsum',
                          's', 'ds'), out))
     if name == 'smag':
-        # duct: y walls, the fill's stacks; duct_e: extrapolated ('E')
+        # duct: y walls, the fill's stacks; duct_e: extrapolated ('E');
+        # nowall: the triperiodic box's (no van Driest damping)
         edges, ykw = (d['ue'], d['ve'], d['we']), {}
-        if variant == 'duct':
+        if variant == 'nowall':
+            ykw = dict(have_zwalls=False)
+        elif variant == 'duct':
             ykw = dict(ye=d['y_mom'][:3], ywall=d['ywall'])
         elif variant == 'duct_e':
             edges = d['e_edges']
@@ -604,12 +616,17 @@ def call(name, d, twin=False, variant=None, has_ruo=True, zrec=None):
                             d['csd2'], d['dw'], d['nearlo'], d['tauw_lo'],
                             d['tauw_hi'], **ykw)}
     if name == 'dsmag':
+        # zp: the periodic-z mode (the box: no z wall, the stacks unread);
+        # f2d: the 2D test filter on the channel; both 'channel' sums
         yw = variant in ('duct', 'cavity')
+        zp, f2d = variant == 'zp', variant == 'f2d'
+        a2 = d['alph2_box'] if zp else d['alph2_2d'] if f2d else d['alph2']
+        avg = 'channel' if zp or f2d else variant or 'channel'
         s0, num, den = fn(d['u'], d['v'], d['w'], d['ue_c'], d['ve_c'],
-                          d['we_c'], d['alph2'], d['dzci'], d['dzfi'],
-                          d['dxi'], d['dyi'], True, True, d['zvals'],
+                          d['we_c'], a2, d['dzci'], d['dzfi'],
+                          d['dxi'], d['dyi'], not zp, not zp, d['zvals'],
                           ye=d['y_mom'][:3] if yw else None,
-                          yvals=d['yvals'], avg=variant or 'channel')
+                          yvals=d['yvals'], avg=avg, zper=zp, f2d=f2d)
         if variant == 'cavity':
             return {'visct': s0}
         # partial sums: compare the per-row totals
@@ -804,8 +821,8 @@ VARIANTS = {
                        'xbox'),
     'apply_y': ('x_and_y', 'y_only'), 'z_eig': (None,),
     'thomas_z': ('helmholtz', 'poisson', 'helmholtz3d'),
-    'smag': (None, 'duct_e', 'duct', 'xdev', 'xbox'),
-    'dsmag': (None, 'duct', 'cavity'),
+    'smag': (None, 'duct_e', 'duct', 'xdev', 'xbox', 'nowall'),
+    'dsmag': (None, 'duct', 'cavity', 'zp', 'f2d'),
     'thomas_periodic': ('poisson', 'helmholtz'),
     'dsmag_level1': (None, 'duct'), 'dsmag_level2': (None, 'duct', 'cavity'),
     'apply_x': ('slab', 'split', 'chunked'),
@@ -873,7 +890,11 @@ WORK_VARIANT = {('mom_rk', 'les_sc'): (10, 8, 288),
                 ('mom_rk', 'xdev'): (7, 6, 200),
                 ('mom_rk', 'xbox'): (7, 6, 200),
                 ('correc_updatep', 'impdiff'): (5, 4, 34),
-                ('dsmag_level2', 'cavity'): (16, 1, 147)}
+                ('dsmag_level2', 'cavity'): (16, 1, 147),
+                # no wall: the strain rate's 92 and (Cs Delta)^2 |S|
+                ('smag', 'nowall'): (3, 1, 93),
+                # the 2D filter: each of the 18 filters two passes of 4
+                ('dsmag', 'f2d'): (3, 1, 110 + 18 * 8 + 147)}
 # the matrix-product kernels: their plain twin is a single library product
 # (cuBLAS), timed as the yardstick library_ms, and their float32 bound is
 # reckoned at PEAK_TF32X3 (the SIMT figure at PEAK_FLOPS beside it)
@@ -1414,6 +1435,123 @@ def phase_dsmag(dev, card):
                                      card, 5, per_step_imp)
     print(json.dumps({'les_impdiff': res_imp}), flush=True)
     return launches, launches_imp, res
+
+
+def phase_dsmag_dit(dev, card):
+    """Phase 7e: phase 7's dynamic-Smagorinsky channel with the 'dit'
+    average (one dzf-weighted ratio for the volume) and with the 2D test
+    filter (the dsmag kernel's F2D mode, alpha^2 2.52, 'channel'), 3 steps
+    each through driver.run.  Returns the 2D filter's launches."""
+    from cales_torch.config import Config
+    per_step = dict(mom_rk=3, fillps=3, thomas_z=9, apply_y=6, z_eig=3,
+                    correc_updatep=3, dsmag=3)
+    out = {}
+    for key, change, word in (('dit', dict(dsmag_avg='dit'), "'dit'"),
+                              ('filter_2d', dict(filter_2d=True),
+                               '2D test filter')):
+        sim, launches, res = drive(f'phase 7e: dsmag channel, {key}',
+                                   Config(**{**DSMAG_CFG, **change}), dev,
+                                   card, 3, per_step, ntime=10)
+        require(word in sim.exec_path(),
+                f'phase 7e {key}: the path does not name {word}')
+        print(json.dumps({f'dsmag_channel_{key}': res}), flush=True)
+        out[key] = launches
+    return out['filter_2d']
+
+
+def _single_ratio(sim, state, tag, card):
+    """'dit': nu_t / |S| one value for the volume (where |S| is not
+    small), |S| from the dsmag kernel on the state's fill."""
+    from cales_torch.ops import kernels as K
+    cfg = sim.cfg
+    ue, ve, we = state.zq
+    s0 = K.dsmag(state.u, state.v, state.w, ue, ve, we, sim.alph2_t,
+                 sim.dzci_t, sim.dzfi_t, cfg.dli[0], cfg.dli[1], False,
+                 False, zper=True, avg='dit')[0]
+    keep = s0 > 1e-3 * s0.max()
+    r = (state.visct[keep] / s0[keep]).double()
+    lo, hi = float(r.min()), float(r.max())
+    spread = (hi - lo) / max(abs(hi), 1e-300)
+    say(f'  nu_t / |S| over the cells: [{lo:.7e}, {hi:.7e}], spread '
+        f'{spread:.3e} of its maximum (one ratio: float32 rounding, bound '
+        f'1e-5)  [{card}]')
+    require(hi > 0 and spread <= 1e-5,
+            f'{tag}: nu_t / |S| in [{lo:.3e}, {hi:.3e}], not one ratio')
+    return hi
+
+
+def phase_box_les(dev, card):
+    """The triperiodic LES: the Taylor-Green vortex of
+    examples/taylor_green_vortex_3d at 512^3 f32 on the example's 'auto'
+    route ('fft') through driver.run with static Smagorinsky (the smag
+    kernel without walls: no van Driest; phase 14, 5 steps) and with
+    dynamic Smagorinsky and the 'dit' average (the dsmag kernel's
+    periodic-z mode, one ratio for the volume; phase 14d, 3 steps), each
+    with its ms/step and the device's busy and idle time under
+    torch.profiler; the kinetic energy falls at every step.  Phase 14f:
+    the box at 256^3 with smag forced along z to a bulk w of 0.1, 3 steps.
+    Returns the three runs' launches."""
+    from cales_torch.config import Config
+    from cales_torch.ops.stencil import bulk_mean
+    from cales_torch.profile_step import device_profile
+    base = dict(mom_rk=3, fillps=3, correc_updatep=3)
+    out = {}
+    for key, tag, change, nsteps, per_step, word in (
+            ('smag', 'phase 14: TGV LES, smag', dict(sgstype='smag'), 5,
+             dict(base, smag=3), 'no van Driest'),
+            ('dsmag', "phase 14d: TGV LES, dsmag 'dit'",
+             dict(sgstype='dsmag', dsmag_avg='dit'), 3,
+             dict(base, dsmag=3), 'periodic-z mode')):
+        cfg = Config(**{**TGV_CFG, 'ptransform': 'auto', 'iout1d': 1,
+                        **change})
+        ke, keep = [], {}
+
+        def record(sim, state, istep, ke=ke):
+            ke.append(_kinetic_energy(state))
+        sim, launches, res = drive(tag, cfg, dev, card, nsteps, per_step,
+                                   ntime=10, hooks={'out1d': record},
+                                   keep=keep)
+        path = sim.exec_path()
+        require(word in path, f'{tag}: the path does not name {word}')
+        say('  kinetic energy by step: ' + ' '.join(f'{e:.9f}' for e in ke))
+        require(len(ke) == nsteps and ke[0] < 0.125 and all(
+            b < a for a, b in zip(ke, ke[1:])),
+            f'{tag}: the kinetic energy does not fall at every step')
+        state = keep['state']
+        if key == 'dsmag':
+            res['ratio'] = _single_ratio(sim, state, tag, card)
+        dt = sim.pick_dt(sim.check(state)[0])
+        step_ms, per_kernel, state = device_profile(sim, state, dt, 3)
+        busy = sum(ms for ms, _ in per_kernel.values())
+        nlaunch = sum(n for _, n in per_kernel.values())
+        sgs_ms = sum(ms for name, (ms, _) in per_kernel.items()
+                     if ('dsmag_kernel' if key == 'dsmag'
+                         else 'cales::smag_kernel') in name)
+        say(f'  profiled: {step_ms:.3f} ms/step (CUDA events), device busy '
+            f'{busy:.3f} ms, idle {step_ms - busy:.3f} ms '
+            f'({1 - busy / step_ms:.3f} of the step), {key} kernel '
+            f'{sgs_ms:.3f} ms a step, {nlaunch} launches a step '
+            f'(torch.profiler)  [{card}]')
+        res.update(kinetic_energy=ke, busy_ms=busy, profiled_step_ms=step_ms,
+                   idle_share=1 - busy / step_ms, sgs_kernel_ms=sgs_ms,
+                   launches_per_step=nlaunch)
+        print(json.dumps({f'tgv_les_{key}': res}), flush=True)
+        out[key] = launches
+        del sim, state, keep
+        torch.cuda.empty_cache()
+    cfg = Config(**{**TGV_CFG, 'ng': (256, 256, 256), 'ptransform': 'auto',
+                    'sgstype': 'smag', 'is_forced': (False, False, True),
+                    'velf': (0.0, 0.0, 0.1)})
+    keep = {}
+    sim, out['forced'], res = drive(
+        'phase 14f: the box forced along z, smag', cfg, dev, card, 3,
+        dict(base, smag=3), ntime=10, keep=keep)
+    wb = float(bulk_mean(keep['state'].w, sim.gvr_c_t))
+    say(f'  bulk w {wb:.7f} (velf 0.1, bound 1e-4)  [{card}]')
+    require(abs(wb - 0.1) <= 1e-4, f'phase 14f: bulk w {wb:.7f}, want 0.1')
+    res['bulk_w'] = wb
+    print(json.dumps({'box_forced_z': res}), flush=True)
+    return out['smag'], out['dsmag'], out['forced']
 
 
 def phase_ywalls(dev, card):
@@ -1988,6 +2126,25 @@ def phase_card_vs_cpu(dev):
         _card_vs_cpu(tag, cfg, dev, tight, rel=('visct',),
                      fields=_perturbed_fields(cfg.replace(inivel='uni'),
                                               SEED + 8))
+    # the triperiodic LES (the smag kernel without walls, dsmag's
+    # periodic-z mode with 'dit'), the box forced along x and z with
+    # impdiff_1d, and the dsmag channel with the 2D test filter, from
+    # perturbed fields
+    les_cases = (
+        ('phase 6y (box LES, smag)', dict(tgv, sgstype='smag')),
+        ("phase 6z (box LES, dsmag 'dit')",
+         dict(tgv, sgstype='dsmag', dsmag_avg='dit')),
+        ('phase 6za (box forced along x and z, smag, impdiff_1d)',
+         dict(tgv, sgstype='smag', impdiff=True, impdiff_1d=True,
+              is_forced=(True, False, True), velf=(0.05, 0.0, 0.1))),
+        ('phase 6zb (dsmag channel, filter_2d)',
+         {**DSMAG_CFG, **small, 'filter_2d': True}))
+    for tag, kw in les_cases:
+        cfg = Config(**kw)
+        _card_vs_cpu(tag, cfg, dev,
+                     (('u', 1e-11), ('v', 1e-11), ('w', 1e-11), ('p', 1e-10),
+                      ('visct', 1e-11)), rel=('visct',),
+                     fields=_perturbed_fields(cfg, SEED + 10))
     # the passive scalar: phase 13's channel LES, and the developing duct
     # of tests/test_pallas_kernels.py:655 (x and y walls: the scalar's x
     # stack carries its (y ghost, x ghost) corners) from perturbed fields
@@ -2432,10 +2589,12 @@ def main():
     wmduct, wmduct_steps = phase_wmles_duct(dev, card)
     phase_dns(dev, card)
     dsm, les_imp, res_dsm = phase_dsmag(dev, card)
+    dsm_2d = phase_dsmag_dit(dev, card)
     duct, cavity, res_duct, res_cav = phase_ywalls(dev, card)
     two = phase_twopass(dev, card, {'channel': res_dsm, 'duct': res_duct,
                                     'cavity': res_cav})
     tgv = phase_tgv(dev, card)
+    box_smag, box_dsmag, box_forced = phase_box_les(dev, card)
     tri3, dns3 = phase_triperiodic(dev, card)
     xdev, xcav = phase_xwalls(dev, card)
     xwm, ximp, xduct = phase_xles(dev, card)
@@ -2460,10 +2619,14 @@ def main():
     paths['wallmodel'] = (wmles, wm_steps, 'wallmodel')
     paths['smag'] = (les_imp, 5, 'smag')
     paths['thomas_periodic'] = (tgv, 5, 'thomas_periodic')
-    for row, (name, _) in BIG_ROWS.items():
+    for row, (name, variant) in BIG_ROWS.items():
         # thomas_z at 512^3 (a 'mat' channel from nz >= 384) counts on its
-        # kernel's path, the others on the TGV's
-        paths[row] = paths[name] if name == 'thomas_z' else (tgv, 5, name)
+        # kernel's path, the LES kernels on the TGV LES's, the others on
+        # the TGV's
+        paths[row] = (paths[name] if name == 'thomas_z'
+                      else (box_smag, 5, name) if name == 'smag'
+                      else (box_dsmag, 3, name) if name == 'dsmag'
+                      else (tgv, 5, name))
     paths['dsmag_level1'] = (two['blow'], 5, 'dsmag_level1')
     paths['dsmag_level2'] = (two['blow'], 5, 'dsmag_level2')
     # apply_x and the slab variants on the y-slab mesh (rank 0, 5 steps)
@@ -2486,8 +2649,17 @@ def main():
                   # channel (13x) with one, 3 steps each
                   ('mom_rk', 'les_sc'): scal, ('mom_rk', 'duct_sc'): scal_y,
                   ('mom_rk', 'xdev_sc'): scal_x}
+    # the triperiodic LES's: the no-wall smag on the TGV LES (phase 14, 5
+    # steps), dsmag's periodic-z mode on the TGV with 'dit' (14d, 3
+    # steps) and its 2D filter on the dsmag channel (7e, 3 steps)
+    box_path = {('smag', 'nowall'): (box_smag, 5),
+                ('dsmag', 'zp'): (box_dsmag, 3),
+                ('dsmag', 'f2d'): (dsm_2d, 3)}
     for row, (name, variant) in VARIANT_ROWS.items():
-        if (name, variant) in x_les_path:
+        if (name, variant) in box_path:
+            run, nsteps = box_path[(name, variant)]
+            paths[row] = (run, nsteps, name)
+        elif (name, variant) in x_les_path:
             run, nsteps = x_les_path[(name, variant)]
             paths[row] = (run, nsteps, name)
         elif name in ('dsmag_level1', 'dsmag_level2'):

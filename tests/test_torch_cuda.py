@@ -1949,3 +1949,156 @@ def test_card_matches_cpu_scalar_step_for_step(dev, walls):
         if name == 'visct':
             err /= float(y.abs().max())
         assert err <= (1e-10 if name in ('p', 'visct') else 1e-11), name
+
+
+def _box_sgs_inputs(dev, ng, seed):
+    """Random periodic fields on the triperiodic box (their Fourier
+    amplitudes falling as 1/k), as interiors with the wrap's z-edge stacks,
+    and the box's metrics."""
+    nx, ny, nz = ng
+    cfg = Config(ng=ng, l=(2 * np.pi, 1.7, 2.3), gtype=1, gr=0.0,
+                 visci=1600.0, dtype='float64',
+                 cbcvel=((('P',) * 3,) * 3,) * 2, cbcpre=(('P',) * 3,) * 2,
+                 cbcsgs=(('P',) * 3,) * 2)
+    grid = make_grid_from_config(cfg)
+    rng = np.random.default_rng(seed)
+    kz, ky, kx = np.meshgrid(*(np.fft.fftfreq(n) * n for n in (nz, ny, nx)),
+                             indexing='ij')
+    k = np.sqrt(kx ** 2 + ky ** 2 + kz ** 2)
+    k[0, 0, 0] = np.inf
+    fields = []
+    for _ in range(3):
+        q = np.real(np.fft.ifftn(
+            np.fft.fftn(rng.standard_normal((nz, ny, nx))) / k))
+        fields.append(torch.as_tensor(q / np.abs(q).max(), device=dev))
+    edges = [torch.stack([q[-1], q[-1], q[0]]).contiguous() for q in fields]
+    t = lambda a: torch.as_tensor(np.asarray(a, dtype=np.float64),  # noqa: E731
+                                  device=dev)
+    return dict(fields=fields, edges=edges, dzci=t(grid.dzci),
+                dzfi=t(grid.dzfi), dxi=cfg.dli[0], dyi=cfg.dli[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('mode', ['zp', 'f2d', 'zp_f2d'])
+@pytest.mark.parametrize('dtype, shape', [
+    ('float64', (40, 25, 9)), ('float64', (36, 37, 6)),
+    ('float32', (40, 33, 9)), ('float32', (36, 37, 3))])
+def test_cuda_dsmag_modes_match_twins(dev, mode, dtype, shape):
+    """dsmag's periodic-z mode (ZP: the box, the planes -1 and nz made
+    from the planes at the other end, the edge stacks unread) and its 2D
+    test filter (F2D: the channel's walls, alpha^2 2.52, and with ZP the
+    box) against the twin on ragged tiles, 'channel' sums (those 'dit'
+    weighs): |S| and the per-row sums 1e-12 of their maximum in float64,
+    1e-5 in float32."""
+    nx, ny, nz = shape
+    dt = getattr(torch, dtype)
+    tol = 1e-12 if dt == torch.float64 else 1e-5
+    zper, f2d = 'zp' in mode, 'f2d' in mode
+
+    def c(q):
+        return q.to(dt).contiguous()
+    d = (_box_sgs_inputs(dev, shape, 21) if zper
+         else _sgs_inputs(dev, shape, 22))
+    edges = d['edges']
+    if zper:
+        # garbage in the stacks: the mode must not read them
+        edges = [torch.full_like(e, 9.0) for e in edges]
+    a2 = np.full(nz, 2.52 if f2d else 4.0)
+    walls = not zper
+    ds = (*map(c, d['fields']), *map(c, edges),
+          c(torch.as_tensor(a2, device=dev)), c(d['dzci']), c(d['dzfi']),
+          d['dxi'], d['dyi'], walls, walls, (0.0, 0.4, 0.0, -0.3))
+    K.reset_launches()
+    for avg in ('channel', 'dit'):
+        s0, num, den = K.dsmag(*ds, avg=avg, zper=zper, f2d=f2d)
+        s0r, numr, denr = K.dsmag_plain(*ds, avg=avg, zper=zper, f2d=f2d)
+        _rel_close(s0, s0r, tol)
+        _rel_close(num.sum(-1), numr[..., 0], tol)
+        _rel_close(den.sum(-1), denr[..., 0], tol)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES['dsmag'] == 2
+    for bad in (dict(avg='duct'), dict(avg='cavity')):
+        with pytest.raises(RuntimeError, match='invalid argument'):
+            K.dsmag(*ds, zper=zper, f2d=f2d, **bad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', ['float64', 'float32'])
+def test_cuda_smag_without_walls_matches_twin(dev, dtype):
+    """The smag kernel's no-wall mode (have_zwalls False: no van Driest
+    damping), the triperiodic LES's, at the box's 512^3 TGV cell's tile
+    edges (a ragged shape)."""
+    shape = (40, 33, 9)
+    dt = getattr(torch, dtype)
+    tol = 1e-12 if dt == torch.float64 else 1e-5
+    d = _box_sgs_inputs(dev, shape, 23)
+    nx, ny, nz = shape
+    c = lambda q: q.to(dt).contiguous()  # noqa: E731
+    z = torch.zeros((ny, nx), dtype=dt, device=dev)
+    args = (*map(c, d['fields']), *map(c, d['edges']), c(d['dzci']),
+            c(d['dzfi']), d['dxi'], d['dyi'], 1e-3,
+            torch.full((nz,), 0.01, dtype=dt, device=dev),
+            torch.zeros(nz, dtype=dt, device=dev),
+            torch.ones(nz, dtype=dt, device=dev), z, z)
+    K.reset_launches()
+    got = K.smag(*args, have_zwalls=False)
+    ref = K.smag_plain(*args, have_zwalls=False)
+    _rel_close(got, ref, tol)
+    assert K.LAUNCHES['smag'] == 1
+
+
+BOX_PER = dict(cbcvel=((('P',) * 3,) * 3,) * 2, cbcpre=(('P',) * 3,) * 2,
+               cbcsgs=(('P',) * 3,) * 2)
+BOX_TGV = dict(ng=(32, 16, 24), l=(2 * np.pi,) * 3, gtype=1, gr=0.0,
+               visci=1600.0, inivel='tgv', is_wallturb=False,
+               dtype='float64', ptransform='mat', **BOX_PER)
+BOX_CASES = {
+    'box_smag': (dict(BOX_TGV, sgstype='smag'), 'smag'),
+    'box_dsmag_dit': (dict(BOX_TGV, sgstype='dsmag', dsmag_avg='dit'),
+                      'dsmag'),
+    'box_forced_z': (dict(BOX_TGV, sgstype='smag', impdiff=True,
+                          impdiff_1d=True, is_forced=(True, False, True),
+                          velf=(0.05, 0.0, 0.1)), 'smag'),
+    'channel_filter_2d': (dict(
+        ng=(32, 16, 16), l=(12.8, 4.8, 2.0), gtype=1, gr=5.0,
+        visci=10_000.0, inivel='poi', is_wallturb=True,
+        is_forced=(True, False, False), velf=(1.0, 0.0, 0.0),
+        dtype='float64', sgstype='dsmag', dsmag_avg='dit', filter_2d=True,
+        ptransform='mat',
+        cbcvel=((('P', 'P', 'P'), ('P', 'P', 'P'), ('D', 'D', 'D')),) * 2,
+        cbcpre=(('P', 'P', 'N'),) * 2, cbcsgs=(('P', 'P', 'D'),) * 2),
+        'dsmag'),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', sorted(BOX_CASES))
+def test_card_matches_cpu_box_les_step_for_step(dev, case):
+    """3 steps on the card and on the CPU (twins), fp64, from perturbed
+    fields: the box with smag (the smag kernel without walls), with dsmag
+    'dit' (dsmag's ZP mode), forced along x and z with impdiff_1d, and the
+    channel with the 2D test filter (F2D): u, v, w within 1e-11, p within
+    1e-10 after removing its mean, nu_t within 1e-10 of its maximum; the
+    SGS kernel 3 a step."""
+    kw, sgs = BOX_CASES[case]
+    cfg = Config(**kw)
+    grid = make_grid_from_config(cfg)
+    sims = [Simulation(cfg, grid, device=d) for d in (dev, 'cpu')]
+    rng = np.random.default_rng(31)
+    fields = [np.asarray(f) + 0.05 * rng.standard_normal(np.shape(f))
+              for f in initflow(cfg, grid)]
+    states = [s.initial_state(*fields) for s in sims]
+    dt = sims[1].pick_dt(sims[1].check(states[1])[0])
+    K.reset_launches()
+    for _ in range(3):
+        states = [s.step(st, dt)[0] for s, st in zip(sims, states)]
+    torch.cuda.synchronize()
+    assert K.LAUNCHES[sgs] == 9 and K.LAUNCHES['correc_smag'] == 0
+    g, c = states
+    for name, tol in (('u', 1e-11), ('v', 1e-11), ('w', 1e-11), ('p', 1e-10)):
+        a, b = getattr(g, name).cpu(), getattr(c, name)
+        if name == 'p':
+            a, b = a - a.mean(), b - b.mean()
+        assert float((a - b).abs().max()) <= tol, name
+    assert float(c.visct.max()) > 0
+    _rel_close(g.visct.cpu(), c.visct, 1e-10)

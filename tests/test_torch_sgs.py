@@ -133,10 +133,36 @@ def test_smag_visct_matches_jax_on_a_channel():
     _rel_close(got.numpy(), ref, 1e-12)
 
 
+@pytest.mark.parametrize('avg,filter_2d', [('dit', False), ('channel', True)])
+def test_dsmag_visct_dit_and_2d_filter_match_jax(avg, filter_2d):
+    """The variants this file once held outside the port ('dit', the 2D
+    test filter) against cales_tpu's model on the channel."""
+    jcfg, tcfg = _cfgs((16, 12, 10), dsmag_avg=avg, filter_2d=filter_2d)
+    assert tsgs.dsmag_unsupported(tcfg) == []
+    jgrid, tgrid, jp, tp, _, _, _ = _padded_pair(jcfg, tcfg, 7)
+    by = lambda c: tuple(tuple(c.bcsgs[ib][d] for ib in range(2))  # noqa: E731
+                         for d in range(3))
+    ref = jsgs.dsmag_visct(
+        jsgs.SGSSetup(jcfg, jgrid, j_effective_cbcvel(jcfg)), jcfg, jgrid,
+        *map(jnp.asarray, jp), jbnd.make_bc_values(jcfg.ng, by(jcfg),
+                                                   np.float64),
+        None, _pad_filtered(jcfg, jgrid, jbnd.make_bc_values,
+                            jbnd.pad_velocity))
+    got = tsgs.dsmag_visct(
+        tsgs.SGSSetup(tcfg, tgrid, effective_cbcvel(tcfg)), tcfg, tgrid,
+        *tp, tbnd.make_bc_values(tcfg.ng, by(tcfg), torch.float64),
+        _pad_filtered(tcfg, tgrid, tbnd.make_bc_values, tbnd.pad_velocity))
+    _rel_close(got.numpy(), ref, 1e-12)
+
+
 @pytest.mark.parametrize('avg,filter_2d,missing', [
-    ('dit', False, 'dit'), ('channel', True, 'filter_2d')])
+    ('duct', True, 'filter_2d with y walls')])
 def test_dsmag_variants_outside_the_port_raise(avg, filter_2d, missing):
-    _, tcfg = _cfgs((16, 12, 10), dsmag_avg=avg, filter_2d=filter_2d)
+    _, tcfg = _cfgs((16, 12, 10), dsmag_avg=avg, filter_2d=filter_2d,
+                    cbcvel=((('P', 'P', 'P'), ('D', 'D', 'D'),
+                             ('D', 'D', 'D')),) * 2,
+                    cbcpre=(('P', 'N', 'N'),) * 2,
+                    cbcsgs=(('P', 'D', 'D'),) * 2)
     assert any(missing in m for m in tsgs.dsmag_unsupported(tcfg))
     tgrid = make_grid_from_config(tcfg)
     z = torch.zeros((12, 14, 18), dtype=torch.float64)

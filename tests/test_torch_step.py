@@ -159,8 +159,19 @@ def test_exec_path_names_device_kernels_and_solve(pair):
           cbcvel=((('D', 'D', 'D'),) * 3,) * 2,
           cbcpre=(('N', 'N', 'N'),) * 2, cbcsgs=(('D', 'D', 'D'),) * 2),
      'cavity'),
-    (dict(sgstype='dsmag', dsmag_avg='dit'), 'dit'),
-    (dict(sgstype='dsmag', filter_2d=True), 'filter_2d'),
+    (dict(sgstype='dsmag', dsmag_avg='duct', filter_2d=True,
+          cbcvel=((('P', 'P', 'P'), ('D', 'D', 'D'), ('D', 'D', 'D')),) * 2,
+          cbcpre=(('P', 'N', 'N'),) * 2, cbcsgs=(('P', 'D', 'D'),) * 2),
+     'filter_2d with y walls'),
+    (dict(sgstype='dsmag', filter_2d=True,
+          bcvel=(((0.0,) * 3, (0.0,) * 3, (0.0, 0.0, 0.003)),) * 2),
+     'filter_2d by two passes'),
+    (dict(is_forced=(True, False, True), velf=(1.0, 0.0, 0.1)),
+     'forcing along z with z walls'),
+    (dict(sgstype='dsmag', dsmag_avg='duct', gr=0.0, **TRIPERIODIC),
+     "'duct' average with periodic z"),
+    (dict(sgstype='dsmag', dsmag_avg='cavity', filter_2d=True),
+     "'cavity' average with periodic z or the 2D test filter"),
     (dict(sgstype='dsmag', lwm=((0, 0, 1), (0, 0, 1)), hwm=0.1),
      'wall model'),
     (dict(sgstype='dsmag',
@@ -172,11 +183,6 @@ def test_exec_path_names_device_kernels_and_solve(pair):
           cbcpre=(('P', 'N', 'N'),) * 2), 'non-periodic y'),
     (dict(scalar=True, dims=(2, 1)), 'scalar'),
     (dict(dims=(2, 1)), 'mesh'),
-    (dict(cbcvel=(((('P',) * 3,) * 3),) * 2, cbcpre=(('P',) * 3,) * 2,
-          cbcsgs=(('P',) * 3,) * 2, gr=0.0), 'triperiodic'),
-    (dict(sgstype='none', gr=0.0, is_forced=(False, False, True),
-          velf=(0.0, 0.0, 1.0), **TRIPERIODIC), 'along z'),
-    (dict(sgstype='dsmag', gr=0.0, **TRIPERIODIC), 'triperiodic'),
     (dict(sgstype='none', cbcvel=((('P', 'P', 'P'), ('D', 'D', 'D'),
                                    ('P', 'P', 'P')),) * 2,
           cbcpre=(('P', 'N', 'P'),) * 2, cbcsgs=(('P', 'D', 'P'),) * 2),
@@ -194,6 +200,26 @@ def test_configs_outside_the_slice_raise(change, missing):
     assert any(missing in m for m in unsupported(cfg))
     with pytest.raises(NotImplementedError, match='outside the ported slice'):
         Simulation(cfg, grid, device='cpu')
+
+
+@pytest.mark.parametrize('change,path', [
+    (dict(sgstype='dsmag', dsmag_avg='dit'), "'dit' average"),
+    (dict(sgstype='dsmag', filter_2d=True), '2D test filter'),
+    (dict(gr=0.0, **TRIPERIODIC), 'no van Driest'),
+    (dict(sgstype='none', gr=0.0, is_forced=(False, False, True),
+          velf=(0.0, 0.0, 1.0), **TRIPERIODIC), 'periodic z'),
+    (dict(sgstype='dsmag', gr=0.0, **TRIPERIODIC), 'periodic-z mode'),
+])
+def test_box_les_and_z_forcing_configs_are_in_the_slice(change, path):
+    """The configurations this test file once held outside the slice
+    (the 'dit' average, the 2D test filter, static and dynamic Smagorinsky
+    on the triperiodic box, forcing along z): accepted now; their steps
+    are held to cales_tpu in tests/test_torch_box_les_step.py,
+    test_torch_box_forcing_step.py and test_torch_dsmag_dit_step.py."""
+    cfg = Config(**{**HEADLINE, **change})
+    assert unsupported(cfg) == []
+    sim = Simulation(cfg, make_grid_from_config(cfg), device='cpu')
+    assert path in sim.exec_path()
 
 
 def test_headline_config_is_in_the_slice():
