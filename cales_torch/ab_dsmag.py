@@ -52,7 +52,10 @@ of the duct WMLES example ('wallmodel duct'); mom_rk with x walls and
 periodic y or y walls on random x stacks, without nu_t ('mom_rk x
 walls', 'mom_rk x+y walls') and with it ('mom_rk x walls nu_t', 'mom_rk x
 1d' with the '1d' split, 'mom_rk x+y walls nu_t'); smag with y walls on
-random y-row stacks, distances and shear planes ('smag y walls').
+random y-row stacks, distances and shear planes ('smag y walls');
+dsmag's periodic-z mode, its 2D test filter and both ('dsmag zp', 'dsmag
+f2d', 'dsmag zp f2d', the 'channel' sums); mom_rk on a slab with the '1d'
+split ('mom_rk halo 1d').
 Outputs are compared in float64 at (nx, ny, nz) = (72, 40, 48) and in
 float32 at --ng (bitwise, and max|this - baseline| / max|baseline|, the
 worst output); mom_rk's partial sums, whose parts differ (blocks of 256
@@ -91,7 +94,8 @@ CASES = ('channel', 'duct', 'cavity', 'channel y walls', 'duct periodic y',
          'correc_updatep y walls', 'smag', 'smag halo', 'correc_smag',
          'correc_smag N', 'wallmodel', 'wallmodel rows', 'wallmodel duct',
          'mom_rk x walls', 'mom_rk x+y walls', 'smag y walls',
-         'mom_rk x walls nu_t', 'mom_rk x 1d', 'mom_rk x+y walls nu_t')
+         'mom_rk x walls nu_t', 'mom_rk x 1d', 'mom_rk x+y walls nu_t',
+         'dsmag zp', 'dsmag f2d', 'dsmag zp f2d', 'mom_rk halo 1d')
 # the cases at their own shape, in float32 only
 BIG = {'apply_y x+y 512^3': (512, 512, 512), 'mom_rk 512^3': (512, 512, 512),
        'thomas_periodic 512^3': (512, 512, 512),
@@ -330,10 +334,11 @@ def _call(mods, d, case):
         out = Km.mom_rk(f[0], f[1], f[2], s, f[4], e[0], e[1], e[2], se,
                         e[4], *f[5:8], dz, dz, 0.01, -0.005, 5e-5, 40.0,
                         20.0, (0.1, 0.0, 0.0), sums=(True, True),
-                        split={'mom_rk 1d': '1d',
+                        split={'mom_rk 1d': '1d', 'mom_rk halo 1d': '1d',
                                'mom_rk xy+z': 'xy+z'}.get(case),
                         ye=ye if walls else None,
-                        yh=d['yh'] if case == 'mom_rk halo' else None)
+                        yh=d['yh'] if case.startswith('mom_rk halo')
+                        else None)
         return (*out[:6], out[6].sum(dim=1), out[7].sum(dim=1))
     if case.startswith('fillps'):
         return (Km.fillps(*f[:3], *e[:3], dz, 100.0, 40.0, 20.0,
@@ -359,6 +364,13 @@ def _call(mods, d, case):
         return Km.correc_smag(*f[:5], *e[:4], 0.01, 40.0, 20.0, dz, dz,
                               5e-5, d['prof'], zrec, d['fuv'], d['prof'],
                               d['nearlo'], *d['tauw'])
+    if case.startswith('dsmag '):
+        # the one-pass dsmag's modes, the 'channel' sums: periodic z (no
+        # wall), the 2D test filter (z walls), both
+        zper = 'zp' in case
+        return Km.dsmag(*f[:3], *e[:3], d['alph2'], dz, dz, 40.0, 20.0,
+                        not zper, not zper, (0.0, 0.02, 0.0, -0.01),
+                        avg='channel', zper=zper, f2d='f2d' in case)
     # the one-pass dsmag: each average with y walls and without
     avg = case.split()[0]
     ywalls = case in ('duct', 'cavity', 'channel y walls')

@@ -48,6 +48,14 @@
 //        caller's profile); F keeps its z fill, the walls' recipe below or
 //        with ZP the wrap, since the test-level strain takes its z
 //        derivatives.
+// A third mode, YH, is a slab of the y-slab mesh (periodic y, z walls, the
+// 'channel' sums; the JAX package's fused_dsmag_onepass with ystrips,
+// pallas_dsmag.py:867-887): the velocity tile's rows -2, -1, ny and ny+1,
+// and their z-edge entries, load from the neighbours' two-row halo
+// (parallel/mesh.halo_y) where the whole field wraps.  Everything after
+// the load is the periodic kernel's: A's y ghosts and the filtered
+// velocity's are those of real rows, as with periodic y.  The sums are
+// the slab's; the caller reduces the z rows' sums over the ranks.
 //
 // Design.  A block owns a TY x 32 (y, x) tile (TY = 16 in float32, 8 in
 // float64, whose planes are twice the bytes) and marches z, one plane a
@@ -128,7 +136,7 @@ constexpr size_t dsmag_smem_bytes() {
           (DS_NA - 1) * G::AY * DS_TX + 3 * G::VY * DS_AX + 18 * G::APL);
 }
 
-template <typename T, bool YW, int AVG, bool ZP, bool F2D>
+template <typename T, bool YW, int AVG, bool ZP, bool F2D, bool YH = false>
 __global__ void __launch_bounds__(DsGeo<DsTy<T>::TY>::NT, 1) dsmag_kernel(
     const T* __restrict__ u, const T* __restrict__ v, const T* __restrict__ w,
     const T* __restrict__ ue, const T* __restrict__ ve,
@@ -182,7 +190,7 @@ __global__ void __launch_bounds__(DsGeo<DsTy<T>::TY>::NT, 1) dsmag_kernel(
 
   const DsTile g{x0, y0, nz, ny, nx, tid, plane};
   auto load = [&](int kz) {
-    ds_load<T, YW, TY, ZP>(vel, fld, edg, ywall, g, kz);
+    ds_load<T, YW, TY, ZP, YH>(vel, fld, edg, ywall, g, kz);
   };
   // the velocity's x and y passes of plane kz (a z ghost by mode)
   auto vel_x = [&](int kz, int mode) {
@@ -436,29 +444,34 @@ auto pick_dsmag_mode(bool zper, bool f2d) {
 }
 
 // y: the y-row stacks and corners of u, v, w (6 pointers), all null
-// without y walls; yvals: the filtered fill's 'D' values (u_lo, u_hi,
-// w_lo, w_hi) on the y walls; avg: DS_CHANNEL, DS_DUCT or DS_CAVITY;
-// zper, f2d: the periodic-z mode and the 2D filter (see pick_dsmag_mode).
+// without y walls, or with yhalo (a slab, mode YH) their two-deep halo
+// pairs; yvals: the filtered fill's 'D' values (u_lo, u_hi, w_lo, w_hi) on
+// the y walls; avg: DS_CHANNEL, DS_DUCT or DS_CAVITY; zper, f2d: the
+// periodic-z mode and the 2D filter (see pick_dsmag_mode).
 template <typename T>
 int launch_dsmag(const T* u, const T* v, const T* w, const T* ue,
                  const T* ve, const T* we, const T* alph2, const T* dzci,
                  const T* dzfi, T* s0o, T* numo, T* deno,
                  const T* const* y, int nz, int ny, int nx, int wall_lo,
-                 int wall_hi, int avg, int zper, int f2d, double dxi,
-                 double dyi, const double* zvals, const double* yvals,
-                 void* stream) {
-  const bool ywall = y[0] != nullptr;
+                 int wall_hi, int avg, int zper, int f2d, int yhalo,
+                 double dxi, double dyi, const double* zvals,
+                 const double* yvals, void* stream) {
+  const bool ystacks = y[0] != nullptr;
+  const bool ywall = ystacks && !yhalo;
   if (nz < 2 || (ywall && ny < 4) || avg < DS_CHANNEL || avg > DS_CAVITY)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (yhalo && (!ystacks || ny < 2 || zper || f2d || avg != DS_CHANNEL))
     return static_cast<int>(cudaErrorInvalidValue);
   if ((zper || f2d) && (ywall || avg != DS_CHANNEL))
     return static_cast<int>(cudaErrorInvalidValue);
   if (zper && (nz < 3 || wall_lo || wall_hi))
     return static_cast<int>(cudaErrorInvalidValue);
   for (int m = 0; m < 6; ++m)
-    if (ywall != (y[m] != nullptr))
+    if (ystacks != (y[m] != nullptr))
       return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = dsmag_smem_bytes<T>();
-  auto kern = (zper || f2d) ? pick_dsmag_mode<T>(zper, f2d)
+  auto kern = yhalo ? &dsmag_kernel<T, false, DS_CHANNEL, false, false, true>
+              : (zper || f2d) ? pick_dsmag_mode<T>(zper, f2d)
               : ywall       ? pick_dsmag<T, true>(avg)
                             : pick_dsmag<T, false>(avg);
   cudaError_t err = cudaFuncSetAttribute(
@@ -495,7 +508,7 @@ int launch_dsmag(const T* u, const T* v, const T* w, const T* ue,
                       T* deno, const T* yur, const T* yuc, const T* yvr,      \
                       const T* yvc, const T* ywr, const T* ywc, int nz,       \
                       int ny, int nx, int wall_lo, int wall_hi, int avg,      \
-                      int zper, int f2d, double dxi, double dyi,              \
+                      int zper, int f2d, int yhalo, double dxi, double dyi,   \
                       double zlo_u, double zhi_u,                             \
                       double zlo_v, double zhi_v, double ylo_u,               \
                       double yhi_u, double ylo_w, double yhi_w,               \
@@ -505,8 +518,8 @@ int launch_dsmag(const T* u, const T* v, const T* w, const T* ue,
     const double yvals[4] = {ylo_u, yhi_u, ylo_w, yhi_w};                     \
     return cales::launch_dsmag<T>(u, v, w, ue, ve, we, alph2, dzci, dzfi,     \
                                   s0o, numo, deno, y, nz, ny, nx, wall_lo,    \
-                                  wall_hi, avg, zper, f2d, dxi, dyi, zvals,   \
-                                  yvals, stream);                             \
+                                  wall_hi, avg, zper, f2d, yhalo, dxi, dyi,   \
+                                  zvals, yvals, stream);                      \
   }
 
 CALES_DSMAG_ENTRY(cales_dsmag_f32, float)

@@ -22,8 +22,10 @@
 // The other helpers:
 //   ds_load     the velocity plane kz on the tile + a halo of 2 by cp.async,
 //               x wrapped, y wrapped or with y walls (YW) the rows -1, ny-1
-//               and ny from the post-correction fill's y-row stacks; z
-//               wrapped with ZP (dsmag.cu's periodic-z mode);
+//               and ny from the post-correction fill's y-row stacks, or on
+//               a slab of the y-slab mesh (YH, dsmag.cu's mode) the rows
+//               -2, -1, ny and ny+1 from the neighbours' halo; z wrapped
+//               with ZP (dsmag.cu's periodic-z mode);
 //   ds_source   stage A at one cell: |S| S_ij (6), the centred velocity
 //               (3), its products (6) and |S|.
 // The kernel passes its ring accessors vel(kz, c) and src(kz, q), which
@@ -72,14 +74,32 @@ struct DsTile {
   int64_t plane;
 };
 
+// Padded row kz (-1 .. nz) of a slab's two-deep y halo (YH): rows
+// (nz, 4, nx) = [rows -2, -1, ny, ny+1] (the lower neighbour's last two,
+// the upper's first two) and their z-edge stack entries, the corners
+// (3, 4, nx), in the stack's order (parallel/mesh.halo_y, depth 2); r in
+// 0 .. 3.
+template <typename T>
+__device__ __forceinline__ const T* ds_hrow(const YRows<T>& h, int kz, int r,
+                                            int nz, int nx) {
+  const int64_t n4 = 4 * static_cast<int64_t>(nx);
+  const T* base = kz < 0 ? h.corners
+                  : kz >= nz - 1 ? h.corners + (kz - nz + 2) * n4
+                                 : h.rows + kz * n4;
+  return base + static_cast<int64_t>(r) * nx;
+}
+
 // The velocity plane kz (-1 .. nz, ghost rows from the edge stacks) on the
 // tile + halo 2, x wrapped; y wrapped, or with y walls the rows -1, ny-1
-// and ny from the y-row stacks.  With ZP (periodic z) any kz from -nz on,
-// the field's plane kz mod nz (the edge stacks unread).  A cell's index
-// is found once for the three components and its three values copied by
-// cp_async, one group a plane: the caller waits (cp_async_wait) and
-// passes a barrier before the plane is read.
-template <typename T, bool YW, int TY, bool ZP = false, class VEL>
+// and ny from the y-row stacks, or with YH (a slab) the rows -2, -1, ny
+// and ny+1 from the halo (yw.vel holds the halo pairs; a ragged tile's
+// rows past ny+1 wrap, as they feed no output).  With ZP (periodic z) any
+// kz from -nz on, the field's plane kz mod nz (the edge stacks unread).
+// A cell's index is found once for the three components and its three
+// values copied by cp_async, one group a plane: the caller waits
+// (cp_async_wait) and passes a barrier before the plane is read.
+template <typename T, bool YW, int TY, bool ZP = false, bool YH = false,
+          class VEL>
 __device__ __forceinline__ void ds_load(const VEL& vel, const T* const fld[3],
                                         const T* const edg[3],
                                         const DsYWalls<T>& yw,
@@ -97,6 +117,11 @@ __device__ __forceinline__ void ds_load(const VEL& vel, const T* const fld[3],
 #pragma unroll
       for (int c = 0; c < 3; ++c)
         cp_async(vel(kz, c) + e, yrow(yw.vel[c], kz, r, g.nz, g.nx) + x);
+    } else if (YH && y < g.ny + 2 && (y < 0 || y >= g.ny)) {
+      const int r = y < 0 ? y + 2 : y - g.ny + 2;
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+        cp_async(vel(kz, c) + e, ds_hrow(yw.vel[c], kz, r, g.nz, g.nx) + x);
     } else {
       const int64_t o = static_cast<int64_t>(wrap_near(y, g.ny)) * g.nx + x;
 #pragma unroll

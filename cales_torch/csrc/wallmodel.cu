@@ -28,6 +28,12 @@
 // s q[idx] + c with c read per row from xc (the static x values at that
 // row; an inflow profile's vary along y), u's padded nx being its set_bc
 // rewrite slot, and then wrap along y as the rest of the row does.
+// On a slab of the y-slab mesh (YH, z faces with periodic x and y, the
+// rows as they are; cales_tpu's _wm_bcs_fast under its mesh) a sampled
+// row's padded rows 0 and n+1 are its rows -1 and ny from the neighbours,
+// yh (faces, 2 components, 2 rows, 2 sides, nx) in
+// wallmodel.sampled_rows's order, where the whole field wraps y; the rest
+// is the periodic kernel's.
 // With `corrected` (z faces with periodic y: the fused correction's rows)
 // a sample is fu + u - cx (pp(i+1) - pp(i)) or fv + v - cy (pp(j+1) -
 // pp(j)), in this order of operations.  A lane samples its own column
@@ -205,12 +211,12 @@ __device__ __forceinline__ WmRec<T> wm_rec(const WmFace<T>& f, int cq,
   return r;
 }
 
-template <typename T, bool XW>
+template <typename T, bool XW, bool YH = false>
 __global__ void __launch_bounds__(CALES_THREADS)
     wallmodel_kernel(const T* __restrict__ u, const T* __restrict__ v,
                      const T* __restrict__ w, const T* __restrict__ pp,
                      const T* __restrict__ fuv, const T* __restrict__ wz,
-                     const T* __restrict__ xc,
+                     const T* __restrict__ xc, const T* __restrict__ yh,
                      T* __restrict__ out, int nz, int ny, int nx,
                      int corrected, const __grid_constant__ WmFaces<T> fs,
                      T cx, T cy, WmConst<T> c) {
@@ -289,6 +295,15 @@ __global__ void __launch_bounds__(CALES_THREADS)
     const T val = f.xs[cq][xpos] * q[rbase + r.row * stride + ci] + c;
     return r.s * val + r.c;
   };
+  // a slab (YH): a sample of component cq of the face's k-th row at its
+  // padded row p, the halo row there (p 0 or n+1), else as above
+  auto sample_h = [&](const T* q, int cq, int p, T fq, T cfac,
+                      const WmRec<T>& r, int64_t rbase, int k) -> T {
+    if (p == 0 || p == pn - 1)
+      return yh[((((blockIdx.z >> 1) * 2 + cq) * 2 + k) * 2 +
+                 (p == 0 ? 0 : 1)) * nx + ii];
+    return sample(q, fq, cfac, r, rbase);
+  };
   T mine[2], oth_a[2], oth_b[2];
 #pragma unroll
   for (int k = 0; k < 2; ++k) {
@@ -298,6 +313,10 @@ __global__ void __launch_bounds__(CALES_THREADS)
       mine[k] = sample_x(qm, own, rm, rbase, k);
       oth_a[k] = sample_x(qo, oth, ra, rbase, k);
       oth_b[k] = sample_x(qo, oth, rb, rbase, k);
+    } else if (YH) {
+      mine[k] = sample_h(qm, own, ja, fm, cm, rm, rbase, k);
+      oth_a[k] = sample_h(qo, oth, ja, fo, co, ra, rbase, k);
+      oth_b[k] = sample_h(qo, oth, jb, fo, co, rb, rbase, k);
     } else {
       mine[k] = sample(qm, fm, cm, rm, rbase);
       oth_a[k] = sample(qo, fo, co, ra, rbase);
@@ -376,11 +395,16 @@ WmFace<T> wm_face(const WmArgs& a, int n, int64_t off) {
 
 template <typename T>
 int launch_wallmodel(const T* u, const T* v, const T* w, const T* pp,
-                     const T* fuv, const T* wz, const T* xc, T* out, int nz,
-                     int ny, int nx, int corrected, double cx, double cy,
-                     const WmArgs* a, void* stream) {
+                     const T* fuv, const T* wz, const T* xc, const T* yh,
+                     T* out, int nz, int ny, int nx, int corrected, double cx,
+                     double cy, const WmArgs* a, void* stream) {
   if (a->nf < 1 || a->nf > WM_FACES)
     return static_cast<int>(cudaErrorInvalidValue);
+  // a slab's halo rows: z faces with periodic x, the rows as they are
+  if (yh != nullptr && (a->xw || corrected))
+    return static_cast<int>(cudaErrorInvalidValue);
+  for (int n = 0; yh != nullptr && n < a->nf; ++n)
+    if (a->d[n] != 2) return static_cast<int>(cudaErrorInvalidValue);
   // x walls: z faces only, their rows as they are, the offsets given
   if (a->xw && (xc == nullptr || corrected))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -405,11 +429,12 @@ int launch_wallmodel(const T* u, const T* v, const T* w, const T* pp,
   const dim3 grid(static_cast<unsigned>((nx + 2 + WM_OUT - 1) / WM_OUT),
                   static_cast<unsigned>((rows + WM_BY - 1) / WM_BY),
                   static_cast<unsigned>(2 * a->nf));
-  auto kern =
-      a->xw ? &wallmodel_kernel<T, true> : &wallmodel_kernel<T, false>;
+  auto kern = a->xw             ? &wallmodel_kernel<T, true>
+              : yh != nullptr ? &wallmodel_kernel<T, false, true>
+                              : &wallmodel_kernel<T, false>;
   kern<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      u, v, w, pp, fuv, wz, xc, out, nz, ny, nx, corrected, fs, T(cx), T(cy),
-      c);
+      u, v, w, pp, fuv, wz, xc, yh, out, nz, ny, nx, corrected, fs, T(cx),
+      T(cy), c);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -417,11 +442,13 @@ int launch_wallmodel(const T* u, const T* v, const T* w, const T* pp,
 
 #define CALES_WALLMODEL_ENTRY(NAME, T)                                        \
   extern "C" int NAME(const T* u, const T* v, const T* w, const T* pp,        \
-                      const T* fuv, const T* wz, const T* xc, T* out, int nz, \
-                      int ny, int nx, int corrected, double cx, double cy,    \
-                      const cales::WmArgs* args, void* stream) {              \
-    return cales::launch_wallmodel<T>(u, v, w, pp, fuv, wz, xc, out, nz, ny,  \
-                                      nx, corrected, cx, cy, args, stream);   \
+                      const T* fuv, const T* wz, const T* xc, const T* yh,    \
+                      T* out, int nz, int ny, int nx, int corrected,          \
+                      double cx, double cy, const cales::WmArgs* args,        \
+                      void* stream) {                                         \
+    return cales::launch_wallmodel<T>(u, v, w, pp, fuv, wz, xc, yh, out, nz,  \
+                                      ny, nx, corrected, cx, cy, args,        \
+                                      stream);                                \
   }
 
 CALES_WALLMODEL_ENTRY(cales_wallmodel_f32, float)

@@ -14,7 +14,8 @@ a launch counter.
                                         'duct', 'cavity'; its modes for
                                         periodic z and the 2D filter,
                                         which the JAX package runs in
-                                        XLA, sgs.dsmag_visct)
+                                        XLA, sgs.dsmag_visct; its slab
+                                        mode, the kernel's ystrips)
   dsmag_level1    csrc/dsmag_level1.cu  ops/pallas_dsmag.py
                                         fused_dsmag_level1
   dsmag_level2    csrc/dsmag_level2.cu  ops/pallas_dsmag.py
@@ -42,7 +43,9 @@ sampled z rows take their x ghosts from the x faces' values
 On a slab of a y-sharded mesh (parallel/mesh.py) x wraps and y does not:
 mom_rk, fillps, correc_updatep and smag take yh, the halo pairs (rows
 (nz, 2, nx), corners (3, 2, nx)) of the fields they read across the slab's
-edges (mesh.halo_y), and read rows -1 and ny from them.
+edges (mesh.halo_y), and read rows -1 and ny from them; dsmag takes them
+two rows deep (rows (nz, 4, nx), corners (3, 4, nx): rows -2, -1, ny,
+ny+1), and the wall model the sampled rows' rows -1 and ny.
 z metrics are (nz+2,) tensors with ghost entries, in the fields' dtype and
 on their device.
 
@@ -427,7 +430,7 @@ def _averaged(num, den, s0, avg):
 def dsmag_plain(u, v, w, ue, ve, we, alph2, dzci, dzfi, dxi, dyi, wall_lo,
                 wall_hi, zvals=(0.0, 0.0, 0.0, 0.0), ye=None,
                 yvals=(0.0, 0.0, 0.0, 0.0), avg='channel', zper=False,
-                f2d=False):
+                f2d=False, yh=None):
     """The Germano-Lilly model of sgs.dsmag_visct on interiors + the
     post-correction fill's edge stacks, with every ghost recipe written out
     for the class pallas_dsmag.eligible admits: dsmag_level1_plain, then the
@@ -444,7 +447,36 @@ def dsmag_plain(u, v, w, ue, ve, we, alph2, dzci, dzfi, dxi, dyi, wall_lo,
     Returns (s0, num, den): |S| and the sums of num = M_ij L_ij and
     den = M_ij M_ij (off-diagonal pairs twice) over each z row, (nz, 1),
     for avg 'channel', over each (z, y) row, (nz, ny, 1), for 'duct'; for
-    'cavity' (nu_t, None, None), nu_t = max(|S| num / den, 0) by cell."""
+    'cavity' (nu_t, None, None), nu_t = max(|S| num / den, 0) by cell.
+    yh: a slab of the y-slab mesh (periodic y, z walls, the 3D filter), the
+    depth-2 halo pairs (rows (nz, 4, nx), corners (3, 4, nx)) of (u, v, w),
+    rows -2, -1, nyl, nyl+1 (mesh.halo_y): the model runs on the slab
+    extended by those rows, whose periodic wrap reaches the outputs of
+    those rows only (the velocity's two-row halo is the model's reach),
+    and keeps the slab's rows (csrc/dsmag.cu mode YH)."""
+    if yh is not None:
+        if ye is not None or zper or f2d:
+            raise ValueError('dsmag: a slab takes periodic y, z walls and '
+                             'the 3D filter')
+
+        def ext(q, e, h):
+            rows, corners = h
+            return (torch.cat([rows[:, :2], q, rows[:, 2:]], dim=1),
+                    torch.cat([corners[:, :2], e, corners[:, 2:]], dim=1))
+        (u, ue), (v, ve), (w, we) = (ext(q, e, h) for q, e, h in
+                                     zip((u, v, w), (ue, ve, we), yh))
+    s0, num, den = _dsmag_cells(u, v, w, ue, ve, we, alph2, dzci, dzfi, dxi,
+                                dyi, wall_lo, wall_hi, zvals, ye, yvals,
+                                zper, f2d)
+    if yh is not None:
+        s0, num, den = (q[:, 2:-2] for q in (s0, num, den))
+    out = _averaged(num, den, s0, avg)
+    return (out, None, None) if avg == 'cavity' else (s0, *out)
+
+
+def _dsmag_cells(u, v, w, ue, ve, we, alph2, dzci, dzfi, dxi, dyi, wall_lo,
+                 wall_hi, zvals, ye, yvals, zper, f2d):
+    """dsmag_plain's model by cell: (|S|, num, den)."""
     ywall = ye is not None
     fm, (ufi, vfi, wfi), lij, s0 = dsmag_level1_plain(
         u, v, w, ue, ve, we, dzci, dzfi, dxi, dyi, wall_lo, wall_hi, ye=ye,
@@ -477,8 +509,7 @@ def dsmag_plain(u, v, w, ue, ve, we, alph2, dzci, dzfi, dxi, dyi, wall_lo,
         wfp = wrap_x(torch.cat([zero, wy[:-1], zero, zero]))
     num, den = _contraction(fm, lij, ufp, vfp, wfp, alph2, dzci, dzfi, dxi,
                             dyi, ywall)
-    out = _averaged(num, den, s0, avg)
-    return (out, None, None) if avg == 'cavity' else (s0, *out)
+    return s0, num, den
 
 
 def dsmag_level2_plain(fu, fv, fw, fue, fve, fwe, fm, lij, s0, alph2, dzci,
@@ -539,7 +570,7 @@ def _on_cpu(ref):
 
 def _check(name, ref, fields, planes=(), edges=(), profiles=(), yrows=(),
            ycorners=(), hrows=(), hcorners=(), xcols=(), xcorners=(),
-           nyc=None):
+           nyc=None, h2rows=(), h2corners=()):
     """Validate what the kernel takes: one CUDA device, float32/float64,
     contiguous, shapes of the interior (nz, ny, nx); x stacks (nz, 3, nyc)
     and their corners (3, 3, nyc)."""
@@ -552,12 +583,15 @@ def _check(name, ref, fields, planes=(), edges=(), profiles=(), yrows=(),
     want = {'field': (nz, ny, nx), 'plane': (ny, nx), 'edge': (3, ny, nx),
             'y-row stack': (nz, 3, nx), 'corner stack': (3, 3, nx),
             'halo rows': (nz, 2, nx), 'halo corners': (3, 2, nx),
-            'x stack': (nz, 3, nyc), 'x corner stack': (3, 3, nyc)}
+            'x stack': (nz, 3, nyc), 'x corner stack': (3, 3, nyc),
+            'halo-2 rows': (nz, 4, nx), 'halo-2 corners': (3, 4, nx)}
     for kind, group in (('field', fields), ('plane', planes),
                         ('edge', edges), ('y-row stack', yrows),
                         ('corner stack', ycorners), ('halo rows', hrows),
                         ('halo corners', hcorners), ('x stack', xcols),
-                        ('x corner stack', xcorners)):
+                        ('x corner stack', xcorners),
+                        ('halo-2 rows', h2rows),
+                        ('halo-2 corners', h2corners)):
         for t in group:
             if t is None:
                 continue
@@ -569,7 +603,8 @@ def _check(name, ref, fields, planes=(), edges=(), profiles=(), yrows=(),
             raise ValueError(f'{name}: profile shape {tuple(t.shape)}, '
                              f'want ({n},)')
     for t in (*fields, *planes, *edges, *yrows, *ycorners, *hrows,
-              *hcorners, *xcols, *xcorners, *(q for q, _ in profiles)):
+              *hcorners, *xcols, *xcorners, *h2rows, *h2corners,
+              *(q for q, _ in profiles)):
         if t is None:
             continue
         if t.device != ref.device or t.dtype != ref.dtype:
@@ -585,9 +620,10 @@ def _ptr(t):
 
 def _ysplit(ys, halo=False):
     """_check's arguments for (rows, corners) y-row stack pairs, or with
-    halo a slab's halo pairs."""
+    halo a slab's halo pairs (halo = 2: two rows a side)."""
     ys = [y for y in ys if y is not None]
-    rows, corners = ('hrows', 'hcorners') if halo else ('yrows', 'ycorners')
+    rows, corners = {False: ('yrows', 'ycorners'), True: ('hrows', 'hcorners'),
+                     2: ('h2rows', 'h2corners')}[halo]
     return {rows: [y[0] for y in ys], corners: [y[1] for y in ys]}
 
 
@@ -944,7 +980,7 @@ _DSMAG_AVG = {'channel': 0, 'duct': 1, 'cavity': 2, 'dit': 0}
 
 def dsmag(u, v, w, ue, ve, we, alph2, dzci, dzfi, dxi, dyi, wall_lo, wall_hi,
           zvals=(0.0, 0.0, 0.0, 0.0), ye=None, yvals=(0.0, 0.0, 0.0, 0.0),
-          avg='channel', zper=False, f2d=False):
+          avg='channel', zper=False, f2d=False, yh=None):
     """Dynamic Smagorinsky (the Germano-Lilly model, sgs.f90:153-370) in
     one z-march; no intermediate field goes to device memory.  Inputs: the
     post-correction fill (interiors + edge stacks, and with y walls the
@@ -953,7 +989,11 @@ def dsmag(u, v, w, ue, ve, we, alph2, dzci, dzfi, dxi, dyi, wall_lo, wall_hi,
     filtered-velocity fill's wall-parallel 'D' values (see dsmag_plain).
     zper: periodic z (the triperiodic box; csrc/dsmag.cu mode ZP), the
     z ghosts the planes at the other end, the edge stacks unread; f2d: the
-    2D test filter in the x-y planes (mode F2D; periodic y).
+    2D test filter in the x-y planes (mode F2D; periodic y).  yh: a slab
+    of the y-slab mesh (mode YH; periodic y, z walls, the 3D filter,
+    'channel' or 'dit'), the depth-2 halo pairs (rows (nz, 4, nx), corners
+    (3, 4, nx)) of (u, v, w) from mesh.halo_y, which the velocity tile
+    takes for its rows -2, -1, nyl and nyl+1; the sums are the slab's.
     Returns (s0, num, den): |S| and partial sums of num = M_ij L_ij and
     den = M_ij M_ij, which the caller sums over their last dim: per
     (z, block), (nz, nblk), for avg 'channel' or 'dit'; per (z, y, x block),
@@ -966,16 +1006,26 @@ def dsmag(u, v, w, ue, ve, we, alph2, dzci, dzfi, dxi, dyi, wall_lo, wall_hi,
         raise ValueError('dsmag: periodic z takes no z or y walls')
     if f2d and ye is not None:
         raise ValueError('dsmag: the 2D test filter takes no y walls')
+    if yh is not None and (ye is not None or zper or f2d
+                           or _DSMAG_AVG[avg] != 0):
+        raise ValueError("dsmag: a slab's halos take periodic y, z walls, "
+                         "the 3D filter and the 'channel' or 'dit' sums")
     if _on_cpu(u):
         return dsmag_plain(u, v, w, ue, ve, we, alph2, dzci, dzfi, dxi, dyi,
                            wall_lo, wall_hi, zvals, ye=ye, yvals=yvals,
-                           avg=avg, zper=zper, f2d=f2d)
+                           avg=avg, zper=zper, f2d=f2d, yh=yh)
     nz, ny, nx = u.shape
     if zper and nz < 3:
         raise ValueError(f'dsmag: nz = {nz} with periodic z (at least 3)')
+    if yh is not None and ny < 2:
+        raise ValueError(f'dsmag: a slab of {ny} row(s) (its two-row halo '
+                         'reaches one rank a side)')
     ye = _check_dsmag('dsmag', u, ue, ve, we,
                        ((alph2, nz), (dzci, nz + 2), (dzfi, nz + 2)), ye,
                        (u, v, w))
+    if yh is not None:
+        _check('dsmag', u, (), **_ysplit(yh, halo=2))
+        ye = tuple(yh)
     ty, tx = DSMAG_TILE
     gx = -(-nx // tx)
     s0 = torch.empty_like(u)
@@ -990,8 +1040,8 @@ def dsmag(u, v, w, ue, ve, we, alph2, dzci, dzfi, dxi, dyi, wall_lo, wall_hi,
             ctypes.c_int(nz), ctypes.c_int(ny), ctypes.c_int(nx),
             ctypes.c_int(int(bool(wall_lo))), ctypes.c_int(int(bool(wall_hi))),
             ctypes.c_int(code), ctypes.c_int(int(bool(zper))),
-            ctypes.c_int(int(bool(f2d))), d(dxi), d(dyi),
-            *(d(float(q)) for q in (*zvals, *yvals)))
+            ctypes.c_int(int(bool(f2d))), ctypes.c_int(int(yh is not None)),
+            d(dxi), d(dyi), *(d(float(q)) for q in (*zvals, *yvals)))
     return s0, num, den
 
 
@@ -1201,7 +1251,7 @@ def _wm_weights(wei, dtype, device):
 
 
 def wm_planes(u, v, wm, fuv=None, pp=None, dtrk=0.0, dxi=0.0, dyi=0.0,
-              w=None):
+              w=None, yh=None):
     """The wall model's Neumann planes of every wall-modelled face (wm:
     wallmodel.WallModel, one to four y and z faces) in one launch: one
     (2, n+2, nx+2) tensor a face, [bcu, bcv] on a z face (n = ny), [bcu,
@@ -1209,14 +1259,26 @@ def wm_planes(u, v, wm, fuv=None, pp=None, dtrk=0.0, dxi=0.0, dyi=0.0,
     w, their rows sampled as they are or, on z faces with periodic x and
     y, corrected by pp and the deferred forcing fuv = (fu, fv) (both
     given; see wallmodel.wm_planes_plain).  With x walls (z faces) the
-    rows take their x ghosts from the x faces' values."""
+    rows take their x ghosts from the x faces' values.  yh: a slab of the
+    y-slab mesh (z faces, periodic x and y, the rows as they are), the
+    (4 faces, 2, nx) halo rows -1 and nyl of wallmodel.sampled_rows, which
+    the rows take along y in place of the wrap (the kernel's slab
+    variant)."""
     if _on_cpu(u):
         return wm_planes_plain(u, v, wm, fuv=fuv, pp=pp, dtrk=dtrk, dxi=dxi,
-                               dyi=dyi, w=w)
-    wmod._check_mode(wm, w, fuv, pp)
+                               dyi=dyi, w=w, yh=yh)
+    wmod._check_mode(wm, w, fuv, pp, yh)
     _check('wallmodel', u, (u, v, w, pp),
            profiles=() if fuv is None else ((fuv, 2),))
     nz, ny, nx = u.shape
+    if yh is not None and (
+            tuple(yh.shape) != (4 * len(wm.faces), 2, nx)
+            or yh.device != u.device or yh.dtype != u.dtype
+            or not yh.is_contiguous()):
+        raise ValueError(f'wm_planes: halo rows contiguous '
+                         f'{(4 * len(wm.faces), 2, nx)} {u.dtype} on '
+                         f'{u.device}, got {tuple(yh.shape)} {yh.dtype} on '
+                         f'{yh.device}')
     if u.numel() >= 2 ** 31:
         raise ValueError(f'wm_planes: {u.numel()} values a field (the '
                          'kernel indexes within a row in 32 bits)')
@@ -1231,7 +1293,7 @@ def wm_planes(u, v, wm, fuv=None, pp=None, dtrk=0.0, dxi=0.0, dyi=0.0,
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     _launch('wallmodel', f'cales_wallmodel_{_suffix(u)}', u.data_ptr(),
             v.data_ptr(), ptr(w), ptr(pp), ptr(fuv), ptr(wz), ptr(xc),
-            out.data_ptr(),
+            ptr(yh), out.data_ptr(),
             nz, ny, nx, int(pp is not None), float(dtrk * dxi),
             float(dtrk * dyi), ctypes.addressof(args))
     return tuple(q.view(2, -1, nx + 2) for q in torch.split(out, sizes))

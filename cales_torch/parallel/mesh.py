@@ -8,9 +8,10 @@ rank, as the reference's pencils keep the tridiagonal direction local.
 
   halo_y            the y rows the stencil kernels read across a slab edge:
                     row -1 from the rank below and row ny/gy from the rank
-                    above, of each field and of its z-edge stack (the JAX
-                    package's _halo_strips packs both; its 8-row strips are
-                    Mosaic's granularity, the port moves one row a side);
+                    above (two rows a side for the dsmag kernel), of each
+                    field and of its z-edge stack (the JAX package's
+                    _halo_strips packs both; its 8-row strips are Mosaic's
+                    granularity, the port moves the rows it reads);
   transpose_y_to_x  the Poisson solve's forward pencil transpose: split x,
   transpose_x_to_y  gather y, and back, on all_to_all_single;
   all_reduce        sums and maxima over the whole domain.
@@ -73,19 +74,28 @@ class SlabMesh:
         return np.concatenate([p.numpy() for p in parts], axis=1)
 
     # -- halos -------------------------------------------------------------
-    def halo_y(self, pairs):
-        """pairs: [(field (nz, nyl, nx), z-edge stack (3, nyl, nx)), ...].
-        Returns [(rows (nz, 2, nx), corners (3, 2, nx)), ...]: rows holds
-        row -1 (the lower neighbour's last row) and row nyl (the upper
-        neighbour's first row), corners their z-edge stack entries, in the
-        stack's order.  One neighbour exchange for all the pairs."""
-        nz = pairs[0][0].shape[0]
-        first = torch.stack([torch.cat([f[:, 0], e[:, 0]]) for f, e in pairs])
-        last = torch.stack([torch.cat([f[:, -1], e[:, -1]])
-                            for f, e in pairs])
+    def halo_y(self, pairs, depth=1):
+        """pairs: [(field (n, nyl, nx), z-edge stack (3, nyl, nx) or None),
+        ...].  Returns [(rows (n, 2 depth, nx), corners (3, 2 depth, nx) or
+        None), ...]: rows holds rows -depth .. -1 (the lower neighbour's
+        last rows) and nyl .. nyl + depth - 1 (the upper neighbour's first
+        rows), corners their z-edge stack entries, in the stack's order.
+        One neighbour exchange for all the pairs.  Depth 1 serves the
+        stencil kernels, depth 2 the dsmag kernel (its velocity tile's y
+        halo); a neighbour's slab must be that deep (no rank two away is
+        reached)."""
+        d = int(depth)
+        if not 1 <= d <= self.nyl:
+            raise ValueError(f'halo_y: depth {d} on slabs of {self.nyl} rows')
+        parts = [q for pair in pairs for q in pair if q is not None]
+        sizes = [q.shape[0] for q in parts]
+        first = torch.cat([q[:, :d] for q in parts])
+        last = torch.cat([q[:, self.nyl - d:] for q in parts])
         from_lo, from_hi = self.comm.exchange(to_lo=first, to_hi=last)
-        both = torch.stack([from_lo, from_hi], dim=2)   # (nf, nz+3, 2, nx)
-        return [(both[m, :nz], both[m, nz:]) for m in range(len(pairs))]
+        rows = iter(torch.cat([lo, hi], dim=1) for lo, hi in zip(
+            torch.split(from_lo, sizes), torch.split(from_hi, sizes)))
+        return [(next(rows), None if e is None else next(rows))
+                for _, e in pairs]
 
     # -- pencil transposes of the Poisson solve ----------------------------
     def transpose_y_to_x(self, blocks):

@@ -63,14 +63,19 @@ twins.
 
 On a y-slab mesh (dims = (gy, 1), parallel/mesh.SlabMesh) each rank steps
 its slab, the counterpart of the JAX package's kernel-sharded route
-(Simulation with _kernel_sharded and use_pallas_solve_sharded): the halos
-of the fields each stencil kernel reads at +-1 in y come from the
-neighbours before it runs (mesh.halo_y), the Poisson solve is
+(Simulation with _kernel_sharded and use_pallas_solve_sharded), for the
+channel classes: sgstype 'none', static Smagorinsky (with the z walls'
+wall model too) or the one-pass dynamic Smagorinsky ('channel', 'dit'),
+explicit diffusion or impdiff_1d.  The halos of the fields each stencil
+kernel reads at +-1 in y come from the neighbours before it runs
+(mesh.halo_y; two rows deep for dsmag's tile), the Poisson solve is
 poisson.solve_sharded (apply_x, the pencil transposes, apply_y, thomas_z),
-the correction and nu_t run as correc_updatep and smag (the fused
-correc_smag is off, as under the JAX mesh), and the bulk forcing, the CFL
-dt and the divergence reduce over the ranks.  The van Driest wall-shear
-planes stay on their slab (z is never split) with the halo's row below.
+the z-only CN solves run on each slab, the correction and nu_t run as
+correc_updatep and smag or dsmag (the fused correc_smag is off, as under
+the JAX mesh), the wall model takes its sampled rows' y halos, and the
+bulk forcing, dsmag's z sums, the CFL dt and the divergence reduce over
+the ranks.  The van Driest wall-shear planes stay on their slab (z is
+never split) with the halo's row below.
 
 With x walls (inflow and outflow faces, or walls: the developing channel,
 and with y walls the closed box, the lid-driven cavity and the developing
@@ -342,7 +347,8 @@ def _wm_refuse(cfg: Config) -> list[str]:
     or laminar model on the y and z walls with static Smagorinsky and
     explicit diffusion, or with sgstype 'none', on one device (cales_tpu's
     _wm_fast route; x walls are checked by _xwalls_refuse, plane-valued
-    values by _planes_refuse, the y walls by _ywalls_refuse)."""
+    values by _planes_refuse, the y walls by _ywalls_refuse, a mesh by
+    _mesh_refuse: the z faces run on the y-slab mesh)."""
     out = []
     lwm = [cfg.lwm[ib][d] for ib in range(2) for d in range(3)]
     if any(m not in (0, wmod.WM_LOG, wmod.WM_LAM) for m in lwm):
@@ -365,17 +371,21 @@ def _wm_refuse(cfg: Config) -> list[str]:
         out.append('a wall model with implicit diffusion (the CN stage\'s '
                    'boundary planes would change every substep): ROADMAP '
                    'queue 1, wall model with implicit diffusion')
-    if cfg.dims[0] * cfg.dims[1] > 1:
-        out.append('a wall model on a device mesh: ROADMAP queue 1, wall '
-                   'model on a mesh')
+    if (cfg.dims[0] * cfg.dims[1] > 1
+            and any(cfg.lwm[ib][1] != 0 for ib in range(2))):
+        out.append('a wall model on a device mesh on y faces (the z faces '
+                   'run on the y-slab mesh; the y walls stay on one '
+                   'device): ROADMAP queue 1, multi-device')
     return out
 
 
 def _mesh_refuse(cfg: Config) -> list[str]:
     """What this slice does not run on a device mesh (dims): the y-slab
-    mesh dims = (gy, 1) runs the channel classes with periodic x and y,
-    explicit diffusion, static Smagorinsky or none, and the all-matrix
-    Poisson route."""
+    mesh dims = (gy, 1) runs the channel classes with periodic x and y and
+    the all-matrix Poisson route: sgstype 'none', static Smagorinsky (the
+    z walls may carry the wall model) or the one-pass dynamic Smagorinsky
+    ('channel' or 'dit', the 3D filter), explicit diffusion or
+    impdiff_1d."""
     gy, gx = int(cfg.dims[0]), int(cfg.dims[1])
     nx, ny, _ = cfg.ng
     out = []
@@ -387,11 +397,21 @@ def _mesh_refuse(cfg: Config) -> list[str]:
         out.append(f'dims = ({gy}, {gx}) with ny = {ny}, nx = {nx} not '
                    f'divisible by gy')
     if cfg.sgstype == 'dsmag':
-        out.append(f'dynamic Smagorinsky under a device mesh: {item}')
-    if cfg.impdiff:
-        out.append('implicit diffusion under a device mesh '
-                   "(solve_z_only_sharded, mom_rk's no-fold split): "
-                   f'{item}')
+        if dsmag_twopass(cfg):
+            out.append('the two-pass dynamic Smagorinsky under a device mesh '
+                       '(transpiring z walls, or CALES_DSMAG_TWOPASS=1): '
+                       f'{item}, dsmag by two passes')
+        if cfg.filter_2d:
+            out.append('the 2D test filter under a device mesh: '
+                       f'{item}, filter_2d')
+        if ny % gy == 0 and ny // gy < 2:
+            out.append(f'dims = ({gy}, {gx}) with dsmag: slabs of {ny // gy} '
+                       "y row(s), thinner than the dsmag kernel's two-row y "
+                       'halo (a rank two away is not reached)')
+    if cfg.impdiff and not cfg.impdiff_1d:
+        out.append('full-3D implicit diffusion under a device mesh (a '
+                   'sharded Helmholtz solve a component): '
+                   f'{item}, full-3D implicit diffusion')
     if not _periodic(cfg, 1):
         out.append(f'y walls under a device mesh: {item}')
     if not _periodic(cfg, 0):
@@ -460,17 +480,30 @@ def dsmag_onepass_vals_ok(cfg: Config, ywalled: bool) -> bool:
     return True
 
 
-def _dsmag_ratio(s0, num, den, avg, wz=None):
+def dsmag_twopass(cfg: Config) -> bool:
+    """Whether dsmag takes the two passes (dsmag_level1, the filtered
+    fill, dsmag_level2): where the one-pass kernel cannot carry the BC
+    values, or when CALES_DSMAG_TWOPASS=1 (cales_tpu's own switch)."""
+    return cfg.sgstype == 'dsmag' and (
+        not dsmag_onepass_vals_ok(cfg, not _periodic(cfg, 1))
+        or os.environ.get('CALES_DSMAG_TWOPASS', '') == '1')
+
+
+def _dsmag_ratio(s0, num, den, avg, wz=None, reduce=None):
     """nu_t = max(|S| ratio, 0) from a dsmag kernel's partial sums of num
     and den (summed over their last dim here): one ratio per z row
     ('channel', ave1d_channel, sgs.f90:433-538), per (z, y) row ('duct',
     ave2d_duct, sgs.f90:540-614), or one for the volume ('dit', ave0d_dit,
     sgs.f90:388-431: the rows' sums weighted by wz = dzf / l_z, as
-    cales_tpu timeloop.py:1512-1514 weighs them)."""
+    cales_tpu timeloop.py:1512-1514 weighs them).  reduce: on a slab the
+    sum over the ranks, of the z rows' sums of num and den in one call
+    ('channel' and 'dit')."""
     if avg == 'duct':
         ratio = num.sum(dim=-1) / den.sum(dim=-1)
         return torch.clamp_min(s0 * ratio[:, :, None], 0.0)
     num1, den1 = num.sum(dim=1), den.sum(dim=1)
+    if reduce is not None:
+        num1, den1 = reduce(torch.stack([num1, den1]))
     if avg == 'dit':
         ratio = torch.sum(num1 * wz) / torch.sum(den1 * wz)
         return torch.clamp_min(s0 * ratio, 0.0)
@@ -542,9 +575,7 @@ class Simulation:
         # dsmag: the one-pass kernel where it can carry the BC values, the
         # two passes (dsmag_level1, the filtered fill, dsmag_level2)
         # elsewhere or when CALES_DSMAG_TWOPASS=1 (cales_tpu's own switch)
-        self.dsmag_twopass = self.sgs_kernel == 'dsmag' and (
-            not dsmag_onepass_vals_ok(cfg, self.ywalled)
-            or os.environ.get('CALES_DSMAG_TWOPASS', '') == '1')
+        self.dsmag_twopass = dsmag_twopass(cfg)
         if self.dsmag_twopass and (self.zper or cfg.filter_2d):
             # the two-pass kernels have neither the periodic-z mode nor the
             # 2D filter: no silent one-pass run under the A/B switch
@@ -630,7 +661,12 @@ class Simulation:
                     cfg, grid, cbc, _C_OR_F[ivel], bvals[ivel], self.dtype,
                     self.device)
                 if cfg.impdiff_1d:
-                    planes = {k: q for k, q in planes.items() if k[0] == 'z'}
+                    # on a slab its rows of the z-face planes (z is never
+                    # split: the z-only solves need no communication)
+                    ys = (slice(None) if mesh is None
+                          else slice(mesh.y0, mesh.y0 + mesh.nyl))
+                    planes = {k: q[ys].contiguous()
+                              for k, q in planes.items() if k[0] == 'z'}
                 zero = all(bool((q == 0).all()) for q in planes.values())
                 self.cn_planes.append(None if zero else planes)
 
@@ -803,6 +839,13 @@ class Simulation:
                        if self.xwalled else ''))
         mesh = ('' if self.mesh is None
                 else f'; mesh: {self.mesh.describe()}, y halos')
+        if self.mesh is not None and self.sgs_kernel == 'dsmag':
+            mesh += (" (dsmag's two rows deep), the dsmag sums reduced over "
+                     'the ranks')
+        if self.mesh is not None and self.has_wm:
+            mesh += ", the wall model's sampled rows' halos"
+        if self.mesh is not None and self.cfg.impdiff_1d:
+            mesh += ', the z-only CN solves on the slab'
         scal = ''
         if self.has_scal:
             scal = ("; passive scalar: mom_rk's scalar stream (alpha = "
@@ -852,6 +895,11 @@ class Simulation:
         if self.cfg.sgstype == 'smag':
             visct = sgsmod.smag_visct(self.sgs_setup, self.cfg, self.grid,
                                       up, vp, wp).to(self.dtype)
+        elif self.cfg.sgstype == 'dsmag' and self.mesh is not None:
+            # on a slab the one-pass kernel on the same fill, whose y halo
+            # is two rows deep (the padded fields carry one)
+            visct = self._dsmag_onepass(u, v, w, self._zedge_vel(
+                u, v, w, bcu, bcv, bcw))
         elif self.cfg.sgstype == 'dsmag':
             # the filtered velocity's fill: the static planes, not the
             # corrector's (sgs.f90:256-257)
@@ -885,7 +933,7 @@ class Simulation:
         if not self.has_wm:
             return self.bcu_vals, self.bcv_vals, self.bcw_vals
         if planes is None:
-            planes = kernels.wm_planes(u, v, self.wm, w=w)
+            planes = self._wm_planes(u, v, w)
         bcs = [[list(q) for q in b] for b in (self.bcu_vals, self.bcv_vals,
                                               self.bcw_vals)]
         for face, pair in zip(self.wm.faces, planes):
@@ -893,6 +941,17 @@ class Simulation:
             # the second wall-parallel component: v on a z face, w on y
             bcs[1 if face.d == 2 else 2][face.d][face.ib] = pair[1]
         return tuple(tuple(tuple(q) for q in b) for b in bcs)
+
+    def _wm_planes(self, u, v, w):
+        """The wall model's planes of the rows as they are
+        (kernels.wm_planes); on a slab the sampled rows' y halos (their rows
+        -1 and nyl, where one device wraps them) come from the neighbours,
+        one exchange (cales_tpu _wm_bcs_fast on its mesh)."""
+        yh = None
+        if self.mesh is not None:
+            (yh, _), = self.mesh.halo_y(
+                [(wmod.sampled_rows(u, v, self.wm), None)])
+        return kernels.wm_planes(u, v, self.wm, w=w, yh=yh)
 
     def _pad_vel(self, u, v, w, bcu, bcv, bcw, vlo=None, is_correc=False):
         return bnd.pad_velocity(u, v, w, self.cbcvel, bcu, bcv, bcw,
@@ -1180,12 +1239,34 @@ class Simulation:
             # the post-correction fill's ghost rows (cales_tpu
             # _compute_sgs_kernel); on a slab the halos of u, v, w, with y
             # walls their y-row stacks, and v's wall jump on the row below
-            # from either
+            # from either.  With a wall model the strain reads the one-sided
+            # extrapolation on the wall-modelled faces (sgs.extrapolate,
+            # cales_tpu sgs.smag_visct), the fill's own ghosts elsewhere;
+            # with x walls the x stacks' corners too, and on a slab the
+            # halos of the extrapolated stacks (the neighbours' 'E' ghosts),
+            # while the wall jump keeps the fill's
+            setup = self.sgs_setup
+            ext = None
+            if self.has_wm:
+                ext = [sgsmod.extrapolate_stacks(q, e, y, iface,
+                                                 setup.lwm_flags,
+                                                 setup.fac_lwm)
+                       for q, e, y, iface in zip((u, v, w), zq,
+                                                 yq or (None,) * 3,
+                                                 (1, 2, 3))]
             yh = ye = ywall = None
             rows = corners = None
             if self.mesh is not None:
-                yh = self.mesh.halo_y([(u, ue), (v, ve), (w, we)])
-                rows, corners = yh[1]
+                strain_e = zq if ext is None else [e for e, _ in ext]
+                pairs = list(zip((u, v, w), strain_e))
+                if ext is not None:
+                    pairs.append((ve, None))
+                h = self.mesh.halo_y(pairs)
+                yh = h[:3]
+                # v's rows, and its fill's corners (the fourth pair's
+                # rows with a wall model)
+                rows = yh[1][0]
+                corners = yh[1][1] if ext is None else h[3][0]
             elif self.ywalled:
                 rows, corners = yq[1]
                 ye = yq
@@ -1216,18 +1297,7 @@ class Simulation:
                          *self._ywall_shear_planes(u, w, we, yq,
                                                    xq if self.xwalled
                                                    else None))
-            if self.has_wm:
-                # the strain's ghosts: the one-sided extrapolation on the
-                # wall-modelled faces (sgs.extrapolate, cales_tpu
-                # sgs.smag_visct), the fill's own elsewhere; with x walls
-                # the x stacks' corners too
-                setup = self.sgs_setup
-                ext = [sgsmod.extrapolate_stacks(q, e, y, iface,
-                                                 setup.lwm_flags,
-                                                 setup.fac_lwm)
-                       for q, e, y, iface in zip((u, v, w), zq,
-                                                 yq or (None,) * 3,
-                                                 (1, 2, 3))]
+            if ext is not None:
                 (ue, ve, we), ye_ext = zip(*ext)
                 if self.ywalled:
                     ye = ye_ext
@@ -1244,15 +1314,31 @@ class Simulation:
                                 ywall=ywall, xe=xe, xwall=xwall)
         if self.dsmag_twopass:
             return self._dsmag_twopass(u, v, w, zq, yq)
+        return self._dsmag_onepass(u, v, w, zq, yq)
+
+    def _dsmag_onepass(self, u, v, w, zq, yq=None):
+        """The one-pass dynamic model on the post-correction fill (its
+        z-edge stacks zq, with y walls its y-row stack pairs yq): |S| and
+        the partial sums of num and den from kernels.dsmag, then the
+        average.  On a slab the kernel reads two y rows a side of u, v, w
+        from the neighbours (its velocity tile's halo; cales_tpu's
+        fused_dsmag_onepass ystrips), and the z rows' sums of num and den
+        are reduced over the ranks before the ratio, one all_reduce of
+        2 nz values."""
+        cfg = self.cfg
+        yh = reduce = None
+        if self.mesh is not None:
+            yh = self.mesh.halo_y(list(zip((u, v, w), zq)), depth=2)
+            reduce = self.mesh.all_reduce
         avg = cfg.dsmag_avg
-        s0, num, den = kernels.dsmag(u, v, w, ue, ve, we, self.alph2_t,
-                                     self.dzci_t, self.dzfi_t, dxi, dyi,
-                                     self.lo_wall, self.hi_wall,
+        s0, num, den = kernels.dsmag(u, v, w, *zq, self.alph2_t,
+                                     self.dzci_t, self.dzfi_t, cfg.dli[0],
+                                     cfg.dli[1], self.lo_wall, self.hi_wall,
                                      self.dsmag_zvals, ye=yq,
                                      yvals=self.dsmag_yvals, avg=avg,
-                                     zper=self.zper, f2d=cfg.filter_2d)
-        return s0 if avg == 'cavity' else _dsmag_ratio(s0, num, den, avg,
-                                                       self.dit_w_t)
+                                     zper=self.zper, f2d=cfg.filter_2d, yh=yh)
+        return s0 if avg == 'cavity' else _dsmag_ratio(
+            s0, num, den, avg, self.dit_w_t, reduce=reduce)
 
     def _dsmag_twopass(self, u, v, w, zq, ye):
         """The two-pass dynamic model (cales_tpu _compute_dsmag_kernel's

@@ -18,8 +18,10 @@ they are or, on z faces with periodic y, corrected by the pressure
 correction pp and the deferred bulk forcing first.  With x walls (the
 developing channel's z faces) a sampled z row takes its x ghosts and u's
 rewrite slot from the x faces' values (an inflow profile's at that row)
-before it wraps along y.  The x-face branch of ``update_wallmodel_bcs``
-is not ported yet (ROADMAP queue 1).
+before it wraps along y.  On a slab of the y-slab mesh a sampled z row
+takes its rows -1 and nyl from the neighbours (``sampled_rows`` is what
+a slab sends) where one device wraps y.  The x-face branch of
+``update_wallmodel_bcs`` is not ported yet (ROADMAP queue 1).
 """
 from __future__ import annotations
 
@@ -355,15 +357,20 @@ def _wei(wei, n, like):
     return t(w), t(1 - w)
 
 
-def pad_row(q, fill, xfill=None):
+def pad_row(q, fill, xfill=None, halo=None):
     """One sampled (n, nx) row padded to (n+2, nx+2): along x periodic, or
     with x walls by xfill (a z face's row, its values the x faces' at that
     row, a padded row of values as a (1, ny+2) tensor, which set_bc crops
     to the row's interior), then the other transverse axis by fill =
     (letters, values, spacings, staggered), as set_bc fills it (cales_tpu
     Simulation._row_pad_xy, _row_pad_xz, the x -> y order of pad_velocity
-    on a row)."""
+    on a row).  halo: on a slab of the y-slab mesh (a z face's row,
+    periodic x and y), its (2, nx) rows -1 and nyl from the neighbours,
+    which take the place of the periodic wrap along y."""
     letters, vals, dr, stag = fill
+    if halo is not None:
+        s = torch.cat([halo[:1], q, halo[1:]])
+        return torch.cat([s[:, -1:], s, s[:, :1]], dim=1)
     if xfill is None:
         s = torch.cat([q[:, -1:], q, q[:, :1]], dim=1)
     else:
@@ -378,10 +385,23 @@ def pad_row(q, fill, xfill=None):
     return s[:, 0, :]
 
 
-def _face_rows(u, v, w, wm, fuv, pp, dtrk, dxi, dyi):
+def sampled_rows(u, v, wm):
+    """The rows r1 and r2 of u and v of each z face of wm, as one
+    (4 faces, ny, nx) tensor in the order (face, component, row): what a
+    slab sends its neighbours for their y halos (mesh.halo_y), and the
+    order of the halo rows the slab variant of the wall-model kernel
+    takes."""
+    if any(f.d != 2 for f in wm.faces):
+        raise ValueError('sampled_rows: z faces only')
+    return torch.stack([q[r] for f in wm.faces for q in (u, v)
+                        for r in (f.r1, f.r2)])
+
+
+def _face_rows(u, v, w, wm, fuv, pp, dtrk, dxi, dyi, yh=None):
     """Per face of wm: the face, its padded rows U1, U2 (of u) and V1, V2
     (of v on a z face, w on a y face), sampled as wm_planes_plain says,
-    its static planes umag, vmag, and on a y face its weights."""
+    its static planes umag, vmag, and on a y face its weights; yh: a
+    slab's halo rows of sampled_rows, (4 faces, 2, nx)."""
     ny, nx = u.shape[1:]
     nz = u.shape[0]
 
@@ -395,12 +415,17 @@ def _face_rows(u, v, w, wm, fuv, pp, dtrk, dxi, dyi):
             vq = fuv[1] + vq - dtrk * dyi * (torch.roll(ppq, -1, 0) - ppq)
         return uq, vq
 
-    for face in wm.faces:
+    for m, face in enumerate(wm.faces):
         n = nz if face.d == 1 else ny
         xfills = face.xfills or ((None, None),) * 2
-        (U1, V1), (U2, V2) = ([pad_row(q, f, xf) for q, f, xf in
-                               zip(rows(face, r), face.fills, xr)]
-                              for r, xr in zip((face.r1, face.r2), xfills))
+        # the halo rows of (u, v) at (r1, r2), or None
+        halos = (((None, None),) * 2 if yh is None
+                 else ((yh[4 * m], yh[4 * m + 2]),
+                       (yh[4 * m + 1], yh[4 * m + 3])))
+        (U1, V1), (U2, V2) = ([pad_row(q, f, xf, h) for q, f, xf, h in
+                               zip(rows(face, r), face.fills, xr, hr)]
+                              for r, xr, hr in zip((face.r1, face.r2),
+                                                   xfills, halos))
         umag = torch.full((n + 2, nx + 2), face.mags[0], dtype=u.dtype,
                           device=u.device)
         vmag = torch.full_like(umag, face.mags[1])
@@ -408,9 +433,14 @@ def _face_rows(u, v, w, wm, fuv, pp, dtrk, dxi, dyi):
         yield face, (U1, U2, V1, V2, umag, vmag), wei
 
 
-def _check_mode(wm, w, fuv, pp):
+def _check_mode(wm, w, fuv, pp, yh=None):
     if (pp is None) != (fuv is None):
         raise ValueError('wm_planes: the corrected rows take fuv with pp')
+    if yh is not None and (pp is not None or any(
+            f.d != 2 or f.fills[0][0] != 'PP' or f.xfills is not None
+            for f in wm.faces)):
+        raise ValueError("wm_planes: a slab's halo rows serve z faces with "
+                         'periodic x and y, the rows as they are')
     if any(f.d == 1 for f in wm.faces) and w is None:
         raise ValueError('wm_planes: a y face samples w')
     if pp is not None and any(f.d != 2 or f.fills[0][0] != 'PP'
@@ -420,7 +450,7 @@ def _check_mode(wm, w, fuv, pp):
 
 
 def wm_planes_plain(u, v, wm: WallModel, fuv=None, pp=None, dtrk=0.0,
-                    dxi=0.0, dyi=0.0, w=None):
+                    dxi=0.0, dyi=0.0, w=None, yh=None):
     """The wall-modelled faces' padded planes from interior (nz, ny, nx)
     u, v and (with y faces) w: a tuple with one (2, n+2, nx+2) tensor a
     face of wm, [bcu, bcv] on a z face (n = ny), [bcu, bcw] on a y face
@@ -432,11 +462,14 @@ def wm_planes_plain(u, v, wm: WallModel, fuv=None, pp=None, dtrk=0.0,
     with fuv = (fu, fv) and pp, corrected: fu + u - dtrk dxi (pp(i+1) -
     pp(i)) and likewise v along y, as the fused correction's rows
     (timeloop.py:1314-1342).  The planes off the wall model's ranges keep
-    the face's static values."""
-    _check_mode(wm, w, fuv, pp)
+    the face's static values.  yh: on a slab of the y-slab mesh (z faces,
+    periodic x and y, the rows as they are), the (4 faces, 2, nx) halo
+    rows -1 and nyl of sampled_rows, which the rows take along y in place
+    of the wrap."""
+    _check_mode(wm, w, fuv, pp, yh)
     out = []
     for face, (U1, U2, V1, V2, umag, vmag), wei in _face_rows(
-            u, v, w, wm, fuv, pp, dtrk, dxi, dyi):
+            u, v, w, wm, fuv, pp, dtrk, dxi, dyi, yh):
         out.append(torch.stack(_face_planes(face, U1, U2, V1, V2, umag, vmag,
                                             umag, vmag, wm.h, wm.visc,
                                             wei)))
@@ -444,13 +477,14 @@ def wm_planes_plain(u, v, wm: WallModel, fuv=None, pp=None, dtrk=0.0,
 
 
 def wm_newton_steps(u, v, wm: WallModel, fuv=None, pp=None, dtrk=0.0,
-                    dxi=0.0, dyi=0.0, w=None):
+                    dxi=0.0, dyi=0.0, w=None, yh=None):
     """newton_steps at every point of wm_planes_plain's planes (same
     arguments), as int32 (2, n+2, nx+2) tensors, one a face: 0 off the
     planes' ranges and on laminar faces."""
-    _check_mode(wm, w, fuv, pp)
+    _check_mode(wm, w, fuv, pp, yh)
     out = []
-    for face, rows, wei in _face_rows(u, v, w, wm, fuv, pp, dtrk, dxi, dyi):
+    for face, rows, wei in _face_rows(u, v, w, wm, fuv, pp, dtrk, dxi, dyi,
+                                      yh):
         n, nx = rows[0].shape[0] - 2, rows[0].shape[1] - 2
         steps = torch.zeros((2, n + 2, nx + 2), dtype=torch.int32,
                             device=u.device)

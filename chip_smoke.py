@@ -28,12 +28,17 @@ scalar), compare the card with the CPU step for step, and run the channel
 LES on a y-slab mesh of two ranks that
 share the card (torch.distributed over gloo, staged through the host):
 the headline at 512x256x256 through driver.run, a small f64 case against
-the single-device run, and the CLI under torch.distributed.run.
+the single-device run, and the CLI under torch.distributed.run; then on
+the same mesh the channel DNS with z-implicit diffusion, the
+wall-modelled channel LES and the dsmag channel ('channel' with
+impdiff_1d, one step with 'dit'), each at 512x256x256 with its slab
+kernel variant against its twin and a small f64 case against one device.
 
     python3 chip_smoke.py            # all phases, one card
 
-(``chip_smoke.py --sharded-rank DIR`` is one rank of the mesh phase, which
-the script starts itself under torch.distributed.run.)
+(``chip_smoke.py --sharded-rank DIR`` is one rank of the mesh phase 10,
+``--sharded-les-rank DIR`` one of phases 10i, 10w and 10d, which the
+script starts itself under torch.distributed.run.)
 
 Exits non-zero without a CUDA device, or when any phase fails.  The last
 line of standard output is {"ok": true, "device": {...}}; the line before
@@ -2540,10 +2545,376 @@ def phase_cli_mesh(card):
         require((Path(tmp) / 'data' / 'fld.bin').exists(), 'no fld.bin')
 
 
+# the channel classes on the y-slab mesh (phases 10i, 10w, 10d): each at
+# the headline grid on dims (2, 1) in float32 through driver.run, with its
+# launches a step (and outside the steps: the initial fill's and the
+# checks' wall model, the initial nu_t's dsmag), the slab kernel variant
+# it brings held against its twin on its own state, and a small float64
+# twin on the mesh held against the single-device run.  (key, title,
+# config, report row, per step, outside)
+MESH_LES_STEPS = 3
+MESH_CLASSES = (
+    ('10i', 'channel DNS, impdiff_1d (channel_dns_impdiff)',
+     dict(DNS_CFG, dims=(2, 1)), 'mom_rk (y halo, split 1d)',
+     dict(mom_rk=3, fillps=3, correc_updatep=3, apply_x=6, apply_y=6,
+          thomas_z=12), {}),
+    ('10w', 'wall-modelled channel LES (wmles_channel)',
+     dict(WMLES_CFG, dims=(2, 1)), 'wallmodel (y halo)',
+     dict(mom_rk=3, fillps=3, correc_updatep=3, smag=3, apply_x=6,
+          apply_y=6, thomas_z=3, wallmodel=3), 'wm'),
+    ('10d', "dsmag channel, 'channel', impdiff_1d",
+     dict(DSMAG_CFG, dims=(2, 1)), 'dsmag (y halo)',
+     dict(mom_rk=3, fillps=3, correc_updatep=3, dsmag=3, apply_x=6,
+          apply_y=6, thomas_z=12), {'dsmag': 1}))
+# report row -> kernel
+MESH_LES_ROWS = {'mom_rk (y halo, split 1d)': 'mom_rk',
+                 'wallmodel (y halo)': 'wallmodel', 'dsmag (y halo)': 'dsmag'}
+
+
+def _outside(outside, cfg, nsteps):
+    """The launches outside the steps: the wall model's at the initial
+    fill, the initial check and every icheck-th step's check."""
+    if outside == 'wm':
+        return {'wallmodel': 2 + nsteps // cfg.icheck}
+    return outside
+
+
+def _small(kw):
+    """A class's small float64 twin on the mesh (MESH_SMALL's grid)."""
+    return dict(kw, ng=MESH_SMALL['ng'], dtype='float64')
+
+
+def _mesh_gates(sim, state, mesh):
+    """The PERF.md section 2 gates on the slabs, reduced over the ranks:
+    (finite, divmax, bulk u, nu_t min and max, max |w| on the z walls)."""
+    _, _, divmax = sim.check(state)
+    fields = (state.u, state.v, state.w, state.p, state.visct)
+    return dict(
+        finite=mesh.reduce_scalar(
+            float(all(bool(torch.isfinite(f).all()) for f in fields)),
+            'min'),
+        divmax=divmax, bulk_u=sim.bulk_mean(state.u, sim.gvr_f),
+        nu_t_min=mesh.reduce_scalar(float(state.visct.min()), 'min'),
+        nu_t_max=mesh.reduce_scalar(float(state.visct.max()), 'max'),
+        w_walls=mesh.reduce_scalar(max(
+            float(state.vlo[2][1:-1, 1:-1].abs().max()),
+            float(state.w[-1].abs().max())), 'max'))
+
+
+def _mesh_les_row(row, sim, state, mesh, dt, card):
+    """Rank 0's check of the slab variant a class brings, on its own
+    state and halos at the slab's shape, against its twin (float32 within
+    1e-4 of each output's maximum, as phase 10's halo rows: FMA
+    contraction on the developed field; a wrong halo row moves an output
+    by O(1)), timed with its twin and its periodic variant on the same
+    slab, and its bound: the bytes (each input and halo once, each output
+    once) or the operations this run's inputs need."""
+    from cales_torch import wallmodel as wmod
+    from cales_torch.ops import kernels as K
+    cfg = sim.cfg
+    u, v, w, p, s = state.u, state.v, state.w, state.p, state.visct
+    ue, ve, we = state.zq
+    dxi, dyi = cfg.dli[0], cfg.dli[1]
+    name = MESH_LES_ROWS[row]
+    if name == 'mom_rk':
+        pe = sim._zedge_p(p)
+        h = mesh.halo_y([(u, ue), (v, ve), (w, we), (p, pe)])
+        yh = (*h[:3], None, h[3])
+        args = ((u, v, w, None, p, ue, ve, we, None, pe,
+                 *state.rhs_old, sim.dzci_t, sim.dzfi_t, 0.5 * dt, -0.2 * dt,
+                 cfg.visc, dxi, dyi, cfg.bforce),
+                dict(sums=(True, False), split='1d', yh=yh))
+        halo = h
+    elif name == 'dsmag':
+        yh = mesh.halo_y([(u, ue), (v, ve), (w, we)], depth=2)
+        args = ((u, v, w, ue, ve, we, sim.alph2_t, sim.dzci_t, sim.dzfi_t,
+                 dxi, dyi, sim.lo_wall, sim.hi_wall, sim.dsmag_zvals),
+                dict(yh=yh))
+        halo = yh
+    else:
+        (yh, _), = mesh.halo_y([(wmod.sampled_rows(u, v, sim.wm), None)])
+        args = ((u, v, sim.wm), dict(yh=yh))
+        halo = (yh,)
+    rows = {}
+    if mesh.rank == 0:
+        a, kw = args
+        fname = 'wm_planes' if name == 'wallmodel' else name
+        fn, twin = getattr(K, fname), getattr(K, f'{fname}_plain')
+
+        def outputs(res):
+            res = [q for q in (res if isinstance(res, tuple) else (res,))
+                   if q is not None]
+            if name == 'mom_rk':       # the partial sums: per-plane totals
+                res[-1] = res[-1].sum(dim=1)
+            if name == 'dsmag':        # the partial sums: per-row totals
+                res[1:] = [q.sum(dim=-1) for q in res[1:]]
+            return res
+        got, ref = outputs(fn(*a, **kw)), outputs(twin(*a, **kw))
+        errs = []
+        for g, r in zip(got, ref):
+            d = (g - r).abs()
+            errs.append((float(d.max()), float(d.max() / r.abs().max())))
+        worst = max(e[0] for e in errs)
+        worst_rel = max(e[1] for e in errs)
+        tol = 1e-5 if name == 'wallmodel' else 1e-4
+        require(all(np.isfinite(e[0]) and e[1] <= tol for e in errs),
+                f'{row}: error {worst_rel:.3e} of an output maximum, above '
+                f'{tol:.0e}')
+        timer = graph_ms if name in GRAPH_TIMED else time_ms
+        ms = timer(lambda: fn(*a, **kw))
+        plain_ms = time_ms(lambda: twin(*a, **kw), n=3)
+        periodic_ms = timer(lambda: fn(*a, **{
+            k: q for k, q in kw.items() if k != 'yh'}))
+        esize = u.element_size()
+        halo_bytes = sum(q.numel() * q.element_size() for q in _flat(halo))
+        nz, nyl, nx = u.shape
+        if name == 'wallmodel':
+            # the sampled rows (two of u and v a face), their halo rows and
+            # the faces' planes; a Newton solve a point and the steps these
+            # rows need (the float64 twin's count)
+            nf = len(sim.wm.faces)
+            nbytes = (nf * 4 * nyl * nx + nf * 2 * (nyl + 2) * (nx + 2)
+                      ) * esize + halo_bytes
+            solves = nf * (nyl * (nx + 1) + (nyl + 1) * nx)
+            steps = sum(int(q.sum()) for q in wmod.wm_newton_steps(
+                u.double(), v.double(), sim.wm, yh=yh.double()))
+            flops = solves * WM_SOLVE_OPS + steps * WM_STEP_OPS
+        else:
+            nin, nout, per_cell = ((7, 6, 200) if name == 'mom_rk'
+                                   else WORK[name])
+            nbytes = (nin + nout) * u.numel() * esize + halo_bytes
+            flops = per_cell * u.numel()
+        t_b = nbytes / PEAK_BPS * 1e3
+        t_o = flops / PEAK_FLOPS[u.dtype] * 1e3
+        rows[row] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                         bound_ms=max(t_b, t_o),
+                         bound_by='bytes' if t_b >= t_o else 'operations',
+                         library_ms=None, periodic_variant_ms=periodic_ms,
+                         max_rel_err=worst_rel, halo_bytes=halo_bytes,
+                         shape=[nx, nyl, nz])
+        say(f'  {row} at the slab {(nx, nyl, nz)}: max|err| {worst:.3e} '
+            f'(per output / its max|ref|: '
+            + ' '.join(f'{e[1]:.1e}' for e in errs) + f'), kernel '
+            f'{ms:.4f} ms (its periodic variant on the slab '
+            f'{periodic_ms:.4f}), plain twin {plain_ms:.3f} ms, bound '
+            f'{rows[row]["bound_ms"]:.4f} ms by {rows[row]["bound_by"]} '
+            f'({halo_bytes} halo bytes)  [{card}]')
+    mesh.barrier()
+    return rows
+
+
+def sharded_les_rank(out_dir):
+    """sharded_les_rank_body, with a failure's traceback written to
+    DIR/rank<r>.err for the parent to show."""
+    try:
+        return sharded_les_rank_body(out_dir)
+    except BaseException:
+        import traceback
+        rank = os.environ.get('RANK', '?')
+        (Path(out_dir) / f'rank{rank}.err').write_text(traceback.format_exc())
+        raise
+
+
+def sharded_les_rank_body(out_dir):
+    """One rank of phases 10i, 10w and 10d (started under
+    torch.distributed.run, two ranks on the one card over gloo, staged
+    through pinned host buffers): each class at the headline grid through
+    driver.run with every launch count set to 0 just before and read just
+    after, its gates, its ms/step, its slab variant against its twin, and
+    its small f64 twin, whose gathered fields rank 0 writes for the
+    parent; 10d also takes one step with 'dit'."""
+    from cales_torch import driver
+    from cales_torch.config import Config
+    from cales_torch.grid import make_grid_from_config
+    from cales_torch.parallel import mesh as meshmod
+    from cales_torch.timeloop import Simulation
+    out_dir = Path(out_dir)
+    first = Config(**MESH_CLASSES[0][2])
+    mesh, dev = meshmod.from_env(first.dims, first.ng, 'cuda', 'gloo')
+    card = card_line()
+    rank = mesh.rank
+    res = {'rank': rank, 'card': card}
+    runs = [(key, kw) for key, _, kw, *_ in MESH_CLASSES]
+    runs.append(('10d dit', dict(MESH_CLASSES[2][2], dsmag_avg='dit')))
+    for key, kw in runs:
+        cfg = Config(**kw)
+        m = meshmod.SlabMesh(mesh.comm, cfg.dims, cfg.ng)
+        nsteps = 1 if key == '10d dit' else MESH_LES_STEPS
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        sim, state = driver.run(cfg, datadir=out_dir / key.replace(' ', '_'),
+                                device=dev, mesh=m, max_steps=nsteps,
+                                verbose=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        r = {'launches': counts(), 'steps': nsteps, 'wall_s': wall}
+        if rank == 0:
+            say(f'  phase {key} path: {sim.exec_path()}')
+        dt = sim.pick_dt(sim.check(state)[0])
+        ntime = 0 if key == '10d dit' else 2
+        torch.cuda.synchronize()
+        m.barrier()
+        t0 = time.perf_counter()
+        for _ in range(ntime):
+            state, _ = sim.step(state, dt)
+        torch.cuda.synchronize()
+        m.barrier()
+        r['ms_per_step'] = ((time.perf_counter() - t0) * 1e3 / ntime
+                            if ntime else None)
+        r.update(_mesh_gates(sim, state, m))
+        r['peak_gib'] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        if sim.has_wm:
+            planes = torch.stack(sim._wm_planes(state.u, state.v, state.w))
+            r['wm_finite'] = m.reduce_scalar(
+                float(bool(torch.isfinite(planes).all())), 'min')
+        if key == '10d dit':
+            res[key] = r
+            del sim, state
+            continue
+        row = [c[3] for c in MESH_CLASSES if c[0] == key][0]
+        r['halo_rows'] = _mesh_les_row(row, sim, state, m, dt, card)
+        del sim, state
+        torch.cuda.empty_cache()
+        # the small f64 twin on the slabs, 3 steps from the perturbed start
+        cfg64 = Config(**_small(kw))
+        m64 = meshmod.SlabMesh(mesh.comm, cfg64.dims, cfg64.ng)
+        sim = Simulation(cfg64, make_grid_from_config(cfg64), device=dev,
+                         mesh=m64)
+        st = sim.initial_state(*_perturbed_fields(cfg64, SEED + 5))
+        dt = sim.pick_dt(sim.check(st)[0])
+        for _ in range(3):
+            st, _ = sim.step(st, dt)
+        small = {q: m64.gather(getattr(st, q))
+                 for q in ('u', 'v', 'w', 'p', 'visct')}
+        if rank == 0:
+            np.savez(out_dir / f'small_{key}.npz', dt=dt, **small)
+        res[key] = r
+        del sim, st
+    (out_dir / f'rank{rank}.json').write_text(json.dumps(res))
+    mesh.barrier()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def phase_sharded_les(dev, card):
+    """Phases 10i, 10w and 10d: the channel DNS with impdiff_1d, the
+    wall-modelled channel LES and the dsmag channel ('channel', impdiff_1d;
+    then one step with 'dit') on a y-slab mesh, dims = (2, 1), two ranks
+    sharing the one card over gloo staged through the host (as phase 10:
+    its ms/step is a correctness run's, no scaling figure), each at
+    512x256x256 f32 with the PERF.md section 2 gates and exact launches,
+    its slab kernel variant against its twin, and its small f64 twin
+    against the single-device 'mat' + Thomas run on the card within
+    1e-11.  Returns ({key: rank 0's launches}, the report rows)."""
+    from cales_torch.config import Config
+    from cales_torch.grid import make_grid_from_config
+    from cales_torch.timeloop import Simulation
+    torch.cuda.empty_cache()
+    env = dict(os.environ)
+    env.setdefault('GLOO_SOCKET_IFNAME', 'lo')
+    say(f'phases 10i, 10w, 10d: the channel classes on a y-slab mesh, dims '
+        f'(2, 1), {HEADLINE_NG} float32, two ranks on one card (gloo, '
+        f'staged through the host)  [{card}]')
+    with tempfile.TemporaryDirectory() as tmp:
+        cmd = [sys.executable, '-m', 'torch.distributed.run', '--standalone',
+               '--nproc_per_node', '2', str(ROOT / 'chip_smoke.py'),
+               '--sharded-les-rank', tmp]
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, capture_output=True, text=True, cwd=ROOT,
+                             timeout=900, env=env)
+        say(f'  torch.distributed.run exit {res.returncode} after '
+            f'{time.perf_counter() - t0:.1f} s')
+        for line in res.stdout.splitlines():
+            say(f'  | {line}')
+        errs = ''.join(f'rank {r}:\n{q.read_text()}' for r in range(2)
+                       for q in [Path(tmp) / f'rank{r}.err'] if q.exists())
+        require(res.returncode == 0, f'a rank of phases 10i-10d failed:\n'
+                                     f'{errs or res.stderr[-4000:]}')
+        ranks = [json.loads((Path(tmp) / f'rank{r}.json').read_text())
+                 for r in range(2)]
+        smalls = {key: dict(np.load(Path(tmp) / f'small_{key}.npz'))
+                  for key, *_ in MESH_CLASSES}
+    small_eps = float(np.sqrt(np.finfo(np.float32).eps) * 10)
+    launches, rows = {}, {}
+    per = {c[0]: c for c in MESH_CLASSES}
+    per['10d dit'] = ('10d dit', "dsmag channel, 'dit', impdiff_1d",
+                      dict(per['10d'][2], dsmag_avg='dit'), None,
+                      per['10d'][4], per['10d'][5])
+    report = {}
+    for key, (_, title, kw, row, per_step, outside) in per.items():
+        cfg = Config(**kw)
+        for rk in ranks:
+            r = rk[key]
+            want_out = _outside(outside, cfg, r['steps'])
+            for name, n in r['launches'].items():
+                want = per_step.get(name, 0) * r['steps'] + want_out.get(
+                    name, 0)
+                require(n == want, f'phase {key} rank {rk["rank"]}: {name} '
+                                   f'launched {n} times, want {want}')
+        r0 = ranks[0][key]
+        launches[key] = r0['launches']
+        tag = f'phase {key}: {title}'
+        ms = ('' if r0['ms_per_step'] is None else
+              f'{r0["ms_per_step"]:.3f} ms/step over 2 steps (host clock; '
+              'two ranks time-share the card and stage every collective '
+              'through the host: a correctness run, not a scaling figure), ')
+        say(f'{tag}: {ms}{r0["steps"]} steps through driver.run in '
+            f'{r0["wall_s"]:.1f} s; rank 0 launches {r0["launches"]}  '
+            f'[{card}]')
+        say(f'  divmax {r0["divmax"]:.3e} (abort bound {small_eps:.3e}), '
+            f'bulk u {r0["bulk_u"]:.7f}, nu_t in [{r0["nu_t_min"]:.4e}, '
+            f'{r0["nu_t_max"]:.4e}], max |w| on the z walls '
+            f'{r0["w_walls"]:.3e}, peak memory a rank '
+            + ', '.join(f'{rk[key]["peak_gib"]:.2f}' for rk in ranks)
+            + f' GiB  [{card}]')
+        require(r0['finite'] == 1.0, f'{tag}: non-finite field')
+        require(r0['divmax'] <= small_eps, f'{tag}: divmax '
+                                           f'{r0["divmax"]:.3e}')
+        require(abs(r0['bulk_u'] - 1.0) <= 1e-4,
+                f'{tag}: bulk u {r0["bulk_u"]:.7f}, want 1')
+        require(r0['nu_t_min'] >= 0.0, f'{tag}: nu_t min {r0["nu_t_min"]}')
+        require((r0['nu_t_max'] > 0.0) == (cfg.sgstype != 'none'),
+                f'{tag}: nu_t max {r0["nu_t_max"]}')
+        require(r0['w_walls'] <= 1e-6, f'{tag}: w on the walls '
+                                       f'{r0["w_walls"]:.3e}')
+        if 'wm_finite' in r0:
+            require(r0['wm_finite'] == 1.0, f'{tag}: non-finite wall-model '
+                                            'planes')
+        report[key] = {k: r0[k] for k in ('ms_per_step', 'divmax', 'bulk_u',
+                                           'nu_t_min', 'nu_t_max',
+                                           'w_walls')} | {'card': card}
+        rows.update(r0.get('halo_rows', {}))
+        if key not in smalls:
+            continue
+        # the small f64 twin against the single-device 'mat' + Thomas run
+        cfg1 = Config(**{**_small(kw), 'dims': (1, 1), 'zsolver': 'thomas'})
+        sim = Simulation(cfg1, make_grid_from_config(cfg1), device=dev)
+        st = sim.initial_state(*_perturbed_fields(cfg1, SEED + 5))
+        small = smalls[key]
+        for _ in range(3):
+            st, _ = sim.step(st, float(small['dt']))
+        say(f'  gy = 2 against one device, {cfg1.ng} float64, 3 steps, on '
+            f'the card:')
+        for name in ('u', 'v', 'w', 'p', 'visct'):
+            a, b = small[name], getattr(st, name).cpu().numpy()
+            if name == 'p':
+                a, b = a - a.mean(), b - b.mean()
+            err = float(np.abs(a - b).max())
+            say(f'    {name:<5s} max|err| {err:.3e} (bound 1e-11)')
+            require(err <= 1e-11, f'{tag} f64 {name}: {err:.3e}')
+            report[key][f'f64_{name}_err'] = err
+    print(json.dumps({'mesh_classes_2x1': report}), flush=True)
+    return launches, rows
+
+
 def main():
     if len(sys.argv) == 3 and sys.argv[1] == '--sharded-rank':
         sys.path.insert(0, str(ROOT))
         return sharded_rank(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] == '--sharded-les-rank':
+        sys.path.insert(0, str(ROOT))
+        return sharded_les_rank(sys.argv[2])
     say(f'python {sys.version.split()[0]}, torch {torch.__version__}, '
         f'CUDA {torch.version.cuda}, cuda available: '
         f'{torch.cuda.is_available()}')
@@ -2602,6 +2973,8 @@ def main():
     phase_card_vs_cpu(dev)
     mesh_launches, halo_rows = phase_sharded(dev, card)
     rows.update(halo_rows)
+    les_mesh, les_mesh_rows = phase_sharded_les(dev, card)
+    rows.update(les_mesh_rows)
     # each kernel's launches on the main path that runs it: the dsmag
     # channel (5 steps), or the LES (31 steps) for correc_smag, or the
     # smag + impdiff_1d LES (5 steps) for smag, or the TGV by 'mat' (5
@@ -2633,6 +3006,11 @@ def main():
     paths['apply_x'] = (mesh_launches, MESH_STEPS, 'apply_x')
     for row, name in HALO_ROWS.items():
         paths[row] = (mesh_launches, MESH_STEPS, name)
+    # the channel classes' slab variants on their mesh phases (rank 0, 3
+    # steps; the wall model's launches there include the initial fill's
+    # and the checks', dsmag's the initial nu_t's)
+    for key, _, _, row, _, _ in MESH_CLASSES:
+        paths[row] = (les_mesh[key], MESH_LES_STEPS, MESH_LES_ROWS[row])
     # the x-walled variants' on the developing channel (phase 11, 5 steps)
     # and the lid-driven cavity (phase 11b, 5 steps)
     variant_path = {'duct': duct, 'cavity': cavity, 'helmholtz3d': dns3,
@@ -2677,7 +3055,8 @@ def main():
     sources = {**{n: KERNELS[n] for n in KERNELS},
                **{row: KERNELS[n] for row, (n, _) in VARIANT_ROWS.items()},
                **{row: KERNELS[n] for row, (n, _) in BIG_ROWS.items()},
-               **{row: KERNELS[n] for row, n in HALO_ROWS.items()}}
+               **{row: KERNELS[n] for row, n in HALO_ROWS.items()},
+               **{row: KERNELS[n] for row, n in MESH_LES_ROWS.items()}}
     report = {'kernels': [
         dict(name=row, route='cuda', source=sources[row][0],
              replaces=sources[row][1], launches=run[name],

@@ -49,13 +49,27 @@ def case_comm(m, inp, out, key):
         out[f'{key}.{name}'] = np.stack([q.numpy() for q in gathered])
 
 
+def case_halo2(m, inp, out, key):
+    """halo_y at depth 2 of a global field and its edge stack, and of a
+    field without one."""
+    g = torch.as_tensor(inp[f'{key}.field'])
+    e = torch.as_tensor(inp[f'{key}.edge'])
+    (rows, corners), (rows_b, none) = m.halo_y(
+        [(m.local(g), m.local(e)), (m.local(g)[:2], None)], depth=2)
+    assert none is None
+    for name, t in (('rows2', rows), ('corners2', corners),
+                    ('rows2b', rows_b)):
+        gathered = m.comm.all_gather(t.contiguous())
+        out[f'{key}.{name}'] = np.stack([q.numpy() for q in gathered])
+
+
 def _config(kw):
     from cales_torch.config import Config
     kw = dict(kw)
     for name in ('l', 'ng', 'is_forced', 'velf', 'dims', 'stop_type'):
         if name in kw:
             kw[name] = tuple(kw[name])
-    for name in ('cbcvel', 'cbcpre', 'cbcsgs'):
+    for name in ('cbcvel', 'cbcpre', 'cbcsgs', 'bcvel', 'lwm'):
         if name in kw:
             kw[name] = json_tuple(kw[name])
     return Config(**kw)
@@ -140,6 +154,8 @@ def main(work, rank, world):
         kind = case['kind']
         if kind == 'comm':
             case_comm(m, inp, out, case['key'])
+        elif kind == 'halo2':
+            case_halo2(m, inp, out, case['key'])
         elif kind == 'solve':
             case_solve(m, inp, out, case['key'], case['cfg'])
         elif kind == 'driver':

@@ -2102,3 +2102,74 @@ def test_card_matches_cpu_box_les_step_for_step(dev, case):
         assert float((a - b).abs().max()) <= tol, name
     assert float(c.visct.max()) > 0
     _rel_close(g.visct.cpu(), c.visct, 1e-10)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype, shape', [
+    ('float64', (40, 13, 9)), ('float64', (36, 2, 12)),
+    ('float32', (40, 21, 9)), ('float32', (33, 2, 12))])
+def test_cuda_slab_les_kernels_match_twins(dev, dtype, shape):
+    """The slab variants of the y-slab mesh's channel classes against their
+    twins on random halos, on (nx, nyl, nz) shapes no tile fits and on
+    slabs of 2 rows (a tile's rows past nyl + 1 wrap): dsmag's YH mode
+    (the depth-2 halo, 'channel' sums, |S| and the per-row sums), the wall
+    model's slab rows (both z faces, the sampled rows' halo rows) and
+    mom_rk's halo variant with the '1d' split (with and without nu_t).
+    float64 within 1e-12 (the wall model 1e-13) of each output's maximum,
+    float32 within 1e-5."""
+    from cales_torch import wallmodel as wmod
+    nx, ny, nz = shape
+    dt = getattr(torch, dtype)
+    tol = 1e-12 if dt == torch.float64 else 1e-5
+    rng = np.random.default_rng(23)
+
+    def c(q):
+        return q.to(dt).contiguous()
+
+    def r(*s, scale=0.1):
+        return c(torch.as_tensor(scale * rng.standard_normal(s), device=dev))
+    d = _sgs_inputs(dev, shape, 24)
+    fields, edges = [c(q) for q in d['fields']], [c(e) for e in d['edges']]
+    h2 = [(r(nz, 4, nx), r(3, 4, nx)) for _ in range(3)]
+    ds = (*fields, *edges, c(d['alph2']), c(d['dzci']), c(d['dzfi']),
+          d['dxi'], d['dyi'], True, True, (0.0, 0.4, 0.0, -0.3))
+    K.reset_launches()
+    for avg in ('channel', 'dit'):
+        s0, num, den = K.dsmag(*ds, avg=avg, yh=h2)
+        s0r, numr, denr = K.dsmag_plain(*ds, avg=avg, yh=h2)
+        _rel_close(s0, s0r, tol)
+        _rel_close(num.sum(-1), numr[..., 0], tol)
+        _rel_close(den.sum(-1), denr[..., 0], tol)
+    # the wall model's slab rows: a bulk flow, moving wall values
+    bcvel = (((0.0,) * 3, (0.0,) * 3, (0.03, -0.02, 0.0)),
+             ((0.0,) * 3, (0.0,) * 3, (-0.01, 0.04, 0.0)))
+    cfg = Config(**dict(WMLES, ng=shape, bcvel=bcvel))
+    grid = make_grid_from_config(cfg)
+    wm = wmod.z_wall_model(cfg, grid, wmod.find_index_wm(cfg, grid),
+                           (0.03, -0.01), (-0.02, 0.04))
+    u, v = r(nz, ny, nx, scale=0.3) + 1.0, r(nz, ny, nx, scale=0.3)
+    yh = r(4 * len(wm.faces), 2, nx, scale=0.3)
+    got = K.wm_planes(u, v, wm, yh=yh)
+    ref = wmod.wm_planes_plain(u, v, wm, yh=yh)
+    for gf, rf in zip(got, ref):
+        for g, q in zip(gf, rf):
+            _rel_close(g, q, 1e-13 if dt == torch.float64 else 1e-5)
+    # mom_rk's halo variant with the '1d' split (the CN fold)
+    s = r(nz, ny, nx).abs()
+    H = lambda: (r(nz, 2, nx), r(3, 2, nx))   # noqa: E731
+    h1 = tuple(H() for _ in range(5))
+    for sgs in (True, False):
+        mom = (*fields, s if sgs else None, r(nz, ny, nx), *edges,
+               r(3, ny, nx) if sgs else None, r(3, ny, nx),
+               *(r(nz, ny, nx) for _ in range(3)), c(d['dzci']),
+               c(d['dzfi']), 5e-4, -2e-4, d['visc'], d['dxi'], d['dyi'],
+               (0.1, 0.0, 0.0))
+        h = h1 if sgs else (*h1[:3], None, h1[4])
+        got = K.mom_rk(*mom, sums=(True, False), split='1d', yh=h)
+        ref = K.mom_rk_plain(*mom, sums=(True, False), split='1d', yh=h)
+        for g, q in zip(got[:6], ref[:6]):
+            _rel_close(g, q, tol)
+        _rel_close(got[6].sum(1), ref[6][:, 0], tol)
+    torch.cuda.synchronize()
+    assert (K.LAUNCHES['dsmag'], K.LAUNCHES['wallmodel'],
+            K.LAUNCHES['mom_rk']) == (2, 1, 2)

@@ -23,8 +23,12 @@ here.  One spawn runs several cases.
   * mom_rk's halo twin on a slab whose halos are cut from the whole field
     equals the periodic twin on the whole field's rows (the construction
     of python -m cales_torch.fma_probe);
-  * the mesh's refusals: unsupported() for what stays single-device, a
-    world size that is not gy, a transport the ranks cannot use.
+  * the mesh's refusals: unsupported() for what stays single-device (the
+    two-pass dsmag, full-3D implicit diffusion, the 2D test filter, a slab
+    thinner than the dsmag kernel's halo, ...), a world size that is not
+    gy, a transport the ranks cannot use; what runs on the mesh (the
+    impdiff_1d, wall-modelled and dsmag channels too, whose steps
+    tests/test_torch_sharded_imp.py and test_torch_sharded_les.py hold).
 """
 import json
 import os
@@ -156,7 +160,12 @@ def _check_comm(out, inputs, key, gy):
                                rtol=1e-13, atol=1e-13)
 
 
-def _check_steps(out, key, jst, jchk, kw, work, nsteps):
+def _check_steps(out, key, jst, jchk, kw, work, nsteps, bulk=1.0):
+    """The fields of 2 steps on the slabs against the JAX package's, the
+    checks, the bulk velocity (the forced value with explicit diffusion;
+    the reference's own with implicit diffusion, whose CN solves take the
+    forcing as a shift and diffuse it), the kernels named and the sharded
+    checkpoint."""
     for name, tol in TOL.items():
         a = np.asarray(getattr(jst, name))
         b = out[f'{key}.{name}']
@@ -167,7 +176,7 @@ def _check_steps(out, key, jst, jchk, kw, work, nsteps):
     dt_cfl, _, divmax = out[f'{key}.check']
     assert abs(dt_cfl - jchk[0]) <= 1e-12 * jchk[0]
     assert divmax <= 1e-10 and abs(divmax - jchk[2]) <= 1e-12
-    assert abs(out[f'{key}.bulk'] - 1.0) <= 1e-12
+    assert abs(out[f'{key}.bulk'] - bulk) <= 1e-12
     names = list(out[f'{key}.names'])
     assert 'apply_x' in names and 'thomas_z' in names and 'z_eig' not in names
     assert ('smag' in names) == (kw['sgstype'] == 'smag')
@@ -297,8 +306,15 @@ def test_slab_with_cut_halos_is_the_whole_fields_rows():
 @pytest.mark.parametrize('change, needle', [
     (dict(dims=(2, 2)), 'gx > 1'),
     (dict(dims=(3, 1)), 'not divisible by gy'),
-    (dict(sgstype='dsmag', dsmag_avg='channel'), 'dynamic Smagorinsky'),
-    (dict(impdiff=True, impdiff_1d=True), 'implicit diffusion'),
+    (dict(sgstype='dsmag', dsmag_avg='channel',
+          bcvel=(((0.0,) * 3, (0.0,) * 3, (0.0, 0.0, 0.003)),) * 2),
+     'the two-pass dynamic Smagorinsky under a device mesh'),
+    (dict(impdiff=True, impdiff_1d=False),
+     'full-3D implicit diffusion under a device mesh'),
+    (dict(sgstype='dsmag', dsmag_avg='channel', filter_2d=True),
+     'the 2D test filter under a device mesh'),
+    (dict(sgstype='dsmag', dsmag_avg='channel', ng=(64, 2, 16)),
+     "thinner than the dsmag kernel's two-row y halo"),
     (dict(ptransform='fft'), "ptransform 'fft' under a device mesh"),
     (dict(cbcvel=((('P', 'P', 'P'), ('D', 'D', 'D'), ('D', 'D', 'D')),) * 2,
           cbcpre=(('P', 'N', 'N'), ('P', 'N', 'N')),
@@ -314,6 +330,17 @@ def test_mesh_refusals(change, needle):
 def test_mesh_slice_is_supported():
     assert unsupported(Config(**SMAG, dims=(2, 1))) == []
     assert unsupported(Config(**NONE, dims=(4, 1))) == []
+    # the channel DNS and LES with impdiff_1d, the wall-modelled channel
+    # and the one-pass dynamic Smagorinsky channel ('channel' and 'dit',
+    # explicit and impdiff_1d)
+    imp = dict(impdiff=True, impdiff_1d=True)
+    for change in (dict(sgstype='none', **imp), imp,
+                   dict(lwm=((0, 0, 1), (0, 0, 1)), hwm=0.1),
+                   dict(sgstype='dsmag', dsmag_avg='channel'),
+                   dict(sgstype='dsmag', dsmag_avg='dit', **imp)):
+        for gy in (2, 4):
+            assert unsupported(Config(**{**SMAG, **change},
+                                      dims=(gy, 1))) == [], change
     # 'auto' resolves to the all-matrix route under a mesh
     assert unsupported(Config(**{**SMAG, 'ptransform': 'auto'},
                               dims=(2, 1))) == []

@@ -189,7 +189,7 @@ def test_exec_path_names_device_kernels_and_solve(pair):
      'periodic z with y walls'),
     (dict(lwm=((0, 0, 1), (0, 0, 1)), hwm=0.1, impdiff=True),
      'wall model with implicit diffusion'),
-    (dict(lwm=((0, 0, 1), (0, 0, 1)), hwm=0.1, dims=(2, 1)),
+    (dict(lwm=((0, 1, 1), (0, 1, 1)), hwm=0.1, dims=(2, 1)),
      'wall model on a device mesh'),
     (dict(lwm=((0, 1, 0), (0, 1, 0)), hwm=0.1), 'wall model on y faces'),
     (dict(lwm=((1, 0, 0), (1, 0, 0)), hwm=0.1), 'wall model on x faces'),
