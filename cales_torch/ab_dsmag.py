@@ -55,7 +55,16 @@ walls', 'mom_rk x+y walls') and with it ('mom_rk x walls nu_t', 'mom_rk x
 random y-row stacks, distances and shear planes ('smag y walls');
 dsmag's periodic-z mode, its 2D test filter and both ('dsmag zp', 'dsmag
 f2d', 'dsmag zp f2d', the 'channel' sums); mom_rk on a slab with the '1d'
-split ('mom_rk halo 1d').
+split ('mom_rk halo 1d'); dsmag's slab mode with periodic y on random
+two-deep halos ('dsmag halo', the 'channel' sums); dsmag's slab of a
+y-walled mesh (YW + YH,
+'dsmag slab duct', 'dsmag slab cavity', 'dsmag slab channel'): this
+checkout's kernel on two slabs of the field, the lower wall's and the
+upper wall's (the lower of (ny/2 rounded down to 16) rows, so the
+'channel' sums' 8-row groups and the tiles fall as on the whole field),
+their y-row stacks the whole field's wall rows and their halos its rows,
+the outputs joined along y, against the baseline's y-walled kernel on the
+whole field.
 Outputs are compared in float64 at (nx, ny, nz) = (72, 40, 48) and in
 float32 at --ng (bitwise, and max|this - baseline| / max|baseline|, the
 worst output); mom_rk's partial sums, whose parts differ (blocks of 256
@@ -95,7 +104,9 @@ CASES = ('channel', 'duct', 'cavity', 'channel y walls', 'duct periodic y',
          'correc_smag N', 'wallmodel', 'wallmodel rows', 'wallmodel duct',
          'mom_rk x walls', 'mom_rk x+y walls', 'smag y walls',
          'mom_rk x walls nu_t', 'mom_rk x 1d', 'mom_rk x+y walls nu_t',
-         'dsmag zp', 'dsmag f2d', 'dsmag zp f2d', 'mom_rk halo 1d')
+         'dsmag zp', 'dsmag f2d', 'dsmag zp f2d', 'mom_rk halo 1d',
+         'dsmag halo', 'dsmag slab duct', 'dsmag slab cavity',
+         'dsmag slab channel')
 # the cases at their own shape, in float32 only
 BIG = {'apply_y x+y 512^3': (512, 512, 512), 'mom_rk 512^3': (512, 512, 512),
        'thomas_periodic 512^3': (512, 512, 512),
@@ -167,12 +178,16 @@ def _inputs(ng, dtype, seed):
     yc = (torch.arange(ny, device='cuda', dtype=dtype) + 0.5) / ny
     ywall = (torch.minimum(yc, 1.0 - yc), (yc <= 0.5).to(dtype),
              1e-2 * (1.0 + rnd(nz, nx)), 1e-2 * (1.0 + rnd(nz, nx)))
-    return dict(f=f, e=e, ye=ye, yh=yh, xe=xe, ywall=ywall, alph2=alph2,
-                dz=dz, ny_op=ny_op,
-                nx_op=nx_op, prof=prof, nearlo=nearlo, tauw=tauw, fuv=fuv,
-                slab=slab, wm_u=1.0 + f[0],
-                blocks=blocks, vz=vz, lam=lam, tri=_tri_inputs(ng, dtype),
-                ds2=rnd(13, nz, ny, nx))
+    d = dict(f=f, e=e, ye=ye, yh=yh, xe=xe, ywall=ywall, alph2=alph2,
+             dz=dz, ny_op=ny_op,
+             nx_op=nx_op, prof=prof, nearlo=nearlo, tauw=tauw, fuv=fuv,
+             slab=slab, wm_u=1.0 + f[0],
+             blocks=blocks, vz=vz, lam=lam, tri=_tri_inputs(ng, dtype),
+             ds2=rnd(13, nz, ny, nx))
+    # dsmag's two-deep halos, drawn last so the inputs above keep their
+    # values
+    d['yh2'] = [(rnd(nz, 4, nx), rnd(3, 4, nx)) for _ in range(3)]
+    return d
 
 
 def _tri_inputs(ng, dtype):
@@ -252,6 +267,27 @@ def _duct_wm(Km, ng):
     grid = mod['grid'].make_grid_from_config(cfg)
     wm = mod['wallmodel']
     return wm.wall_model(cfg, grid, wm.find_index_wm(cfg, grid))
+
+
+def _dsmag_slabs(f, e, ye, args, kw):
+    """dsmag's slab mode with y walls on the lower and the upper wall's
+    slabs of the whole-field inputs (f, e and the y-row stacks ye of u, v,
+    w), the outputs joined along y."""
+    from .ops import boundary as bnd
+    ny = f[0].shape[1]
+    cut = ny // 2 // 16 * 16
+    outs = []
+    for lo, hi, own in ((0, cut, (True, False)), (cut, ny, (False, True))):
+        q = [a[:, lo:hi].contiguous() for a in f]
+        qe = [a[:, lo:hi].contiguous() for a in e]
+        rows = [(lo - 2) % ny, (lo - 1) % ny, hi % ny, (hi + 1) % ny]
+        h = [(a[:, rows].contiguous(), b[:, rows].contiguous())
+             for a, b in zip(f, e)]
+        ys = [bnd.slab_ystack(a, b, y, hh, own)
+              for a, b, y, hh in zip(q, qe, ye, h)]
+        outs.append(K.dsmag(*q, *qe, *args, ye=ys, yh=h, yown=own, **kw))
+    return tuple(None if a is None else torch.cat([a, b], dim=1)
+                 for a, b in zip(*outs))
 
 
 def _call(mods, d, case):
@@ -364,6 +400,19 @@ def _call(mods, d, case):
         return Km.correc_smag(*f[:5], *e[:4], 0.01, 40.0, 20.0, dz, dz,
                               5e-5, d['prof'], zrec, d['fuv'], d['prof'],
                               d['nearlo'], *d['tauw'])
+    if case == 'dsmag halo':
+        return Km.dsmag(*f[:3], *e[:3], d['alph2'], dz, dz, 40.0, 20.0, True,
+                        True, (0.0, 0.02, 0.0, -0.01), avg='channel',
+                        yh=d['yh2'])
+    if case.startswith('dsmag slab'):
+        # the slab mode with y walls (this checkout) against the whole
+        # field's y-walled kernel (the baseline)
+        args = (d['alph2'], dz, dz, 40.0, 20.0, True, True,
+                (0.0, 0.02, 0.0, -0.01))
+        kw = dict(yvals=(0.2, 0.0, -0.1, 0.3), avg=case.split()[-1])
+        if Km is K:
+            return _dsmag_slabs(f[:3], e[:3], ye[:3], args, kw)
+        return Km.dsmag(*f[:3], *e[:3], *args, ye=ye[:3], **kw)
     if case.startswith('dsmag '):
         # the one-pass dsmag's modes, the 'channel' sums: periodic z (no
         # wall), the 2D test filter (z walls), both

@@ -56,6 +56,17 @@
 // the load is the periodic kernel's: A's y ghosts and the filtered
 // velocity's are those of real rows, as with periodic y.  The sums are
 // the slab's; the caller reduces the z rows' sums over the ranks.
+// YW and YH together are a slab of a y-walled mesh (the duct and cavity
+// classes on dims (gy, 1), any of the three averages; the JAX package's
+// per-shard wall gating y_lo & ywf, pallas_dsmag.py:382-386, 650-652):
+// the rows -1, ny-1 and ny load from the slab's y-row stacks (the wall
+// recipe's rows on a side the slab owns, the neighbours' rows and its own
+// last row elsewhere; boundary.slab_ystack) and the rows -2 and ny+1 from
+// the halo, and the y-wall recipes (A's ghost rows, the wall-parallel
+// velocity's, F's fill, alpha^2 2.52) apply on the owned sides only, two
+// run-time flags (ywall.lo, ywall.hi).  A slab's rows are its own: 'duct'
+// sums a (z, y) row over x and 'cavity' is pointwise, so neither needs a
+// reduction over the ranks.
 //
 // Design.  A block owns a TY x 32 (y, x) tile (TY = 16 in float32, 8 in
 // float64, whose planes are twice the bytes) and marches z, one plane a
@@ -178,6 +189,12 @@ __global__ void __launch_bounds__(DsGeo<DsTy<T>::TY>::NT, 1) dsmag_kernel(
   const T szlo = wall_lo ? T(-1) : T(1), szhi = wall_hi ? T(-1) : T(1);
   const T zofflo[2] = {zoff_lo_u, zoff_lo_v};
   const T zoffhi[2] = {zoff_hi_u, zoff_hi_v};
+  // the y walls of this field: both with YW, on a slab of a y-walled mesh
+  // (YW and YH) the ones the slab holds, read from shared memory where
+  // they are used (held in registers across the march, the flags cost the
+  // float32 slab instantiations about 90 B of spills)
+  auto ylo = [&]() { return YW && (!YH || ywall.lo != 0); };
+  auto yhi = [&]() { return YW && (!YH || ywall.hi != 0); };
 
   auto vel = [&](int kz, int c) {
     return Vs + (((kz + 4) & 3) * 3 + c) * G::VPL;
@@ -195,11 +212,14 @@ __global__ void __launch_bounds__(DsGeo<DsTy<T>::TY>::NT, 1) dsmag_kernel(
   // the velocity's x and y passes of plane kz (a z ghost by mode)
   auto vel_x = [&](int kz, int mode) {
     if (mode == DS_GHOST_LO)
-      ds_vel_x<T, YW, TY, DS_GHOST_LO>(vel, XV, kz, y0, ny, nz, tid);
+      ds_vel_x<T, YW, TY, DS_GHOST_LO>(vel, XV, kz, y0, ny, nz, tid,
+                                       ylo(), yhi());
     else if (mode == DS_GHOST_HI)
-      ds_vel_x<T, YW, TY, DS_GHOST_HI>(vel, XV, kz, y0, ny, nz, tid);
+      ds_vel_x<T, YW, TY, DS_GHOST_HI>(vel, XV, kz, y0, ny, nz, tid,
+                                       ylo(), yhi());
     else
-      ds_vel_x<T, YW, TY, DS_PLANE>(vel, XV, kz, y0, ny, nz, tid);
+      ds_vel_x<T, YW, TY, DS_PLANE>(vel, XV, kz, y0, ny, nz, tid, ylo(),
+                                    yhi());
   };
   auto vel_y = [&](int kz) { ds_vel_y<T, TY>(XV, yvel, kz, tid); };
 
@@ -216,8 +236,8 @@ __global__ void __launch_bounds__(DsGeo<DsTy<T>::TY>::NT, 1) dsmag_kernel(
     }
   };
 
-  // F at plane t: the z pass of YV (with F2D YV itself); with y walls its
-  // y ghost rows take the fill, the filtered u's and w's -F(first row) +
+  // F at plane t: the z pass of YV (with F2D YV itself); at a y wall its
+  // y ghost row takes the fill, the filtered u's and w's -F(first row) +
   // 2b, the filtered v's 0, as does its rewrite row y = ny-1
   // (pallas_dsmag.py:1057-1071), so that stage C reads the filled rows as
   // they are
@@ -229,11 +249,11 @@ __global__ void __launch_bounds__(DsGeo<DsTy<T>::TY>::NT, 1) dsmag_kernel(
       };
       T f;
       const int gy = y0 - 1 + o / DS_AX;
-      if (YW && c == 1 && (gy == -1 || gy == ny - 1))
+      if (c == 1 && ((ylo() && gy == -1) || (yhi() && gy == ny - 1)))
         f = T(0);
-      else if (YW && c != 1 && gy == -1)
+      else if (ylo() && c != 1 && gy == -1)
         f = -pass(o + DS_AX) + ywall.off_lo[c];
-      else if (YW && c != 1 && gy == ny)
+      else if (yhi() && c != 1 && gy == ny)
         f = -pass(o - DS_AX) + ywall.off_hi[c];
       else if (F2D)
         f = yvel(t, c)[o];
@@ -280,7 +300,9 @@ __global__ void __launch_bounds__(DsGeo<DsTy<T>::TY>::NT, 1) dsmag_kernel(
         [&](int dk, int dj, int di) { return FU(1, dk, dj, di); },
         [&](int dk, int dj, int di) { return FU(2, dk, dj, di); }, dxi, dyi,
         dzci[kc + 1], dzci[kc], dzfi[kc + 1], sf);
-    const T a2 = (YW && (yc == 0 || yc == ny - 1)) ? T(2.52) : alph2[kc];
+    const T a2 = ((ylo() && yc == 0) || (yhi() && yc == ny - 1))
+                     ? T(2.52)
+                     : alph2[kc];
     T m[6], l[6];
     const int pa[6] = {6, 7, 8, 6, 6, 7}, pb[6] = {6, 7, 8, 7, 8, 8};
 #pragma unroll
@@ -374,13 +396,17 @@ __global__ void __launch_bounds__(DsGeo<DsTy<T>::TY>::NT, 1) dsmag_kernel(
     // first, after the last plane the ghost above it (with F2D no ghost:
     // no z pass reads it)
     if (ZP) {
-      ds_src_x<T, YW, TY, DS_PLANE>(src, XS, t, y0, ny, nz, tid);
+      ds_src_x<T, YW, TY, DS_PLANE>(src, XS, t, y0, ny, nz, tid, ylo(),
+                                    yhi());
     } else if (!F2D && t == 1 && wall_lo) {
-      ds_src_x<T, YW, TY, DS_GHOST_LO>(src, XS, 0, y0, ny, nz, tid);
+      ds_src_x<T, YW, TY, DS_GHOST_LO>(src, XS, 0, y0, ny, nz, tid,
+                                       ylo(), yhi());
     } else if (t < nz) {
-      ds_src_x<T, YW, TY, DS_PLANE>(src, XS, t, y0, ny, nz, tid);
+      ds_src_x<T, YW, TY, DS_PLANE>(src, XS, t, y0, ny, nz, tid, ylo(),
+                                    yhi());
     } else if (!F2D && wall_hi) {
-      ds_src_x<T, YW, TY, DS_GHOST_HI>(src, XS, nz, y0, ny, nz, tid);
+      ds_src_x<T, YW, TY, DS_GHOST_HI>(src, XS, nz, y0, ny, nz, tid,
+                                       ylo(), yhi());
     }
     __syncthreads();
     if (ZP || t < nz) stage_f(t);
@@ -396,7 +422,8 @@ __global__ void __launch_bounds__(DsGeo<DsTy<T>::TY>::NT, 1) dsmag_kernel(
 #pragma unroll
       for (int q = 0; q < NF; ++q) zs[q] = y[q] + two * zp[q];
       __syncthreads();
-      ds_src_x<T, YW, TY, DS_PLANE>(src, XS, 1, y0, ny, nz, tid);
+      ds_src_x<T, YW, TY, DS_PLANE>(src, XS, 1, y0, ny, nz, tid, ylo(),
+                                    yhi());
       __syncthreads();
     }
     if (ZP || t < nz || (!F2D && wall_hi)) {
@@ -426,11 +453,12 @@ __global__ void __launch_bounds__(DsGeo<DsTy<T>::TY>::NT, 1) dsmag_kernel(
   }
 }
 
-template <typename T, bool YW>
+template <typename T, bool YW, bool YH = false>
 auto pick_dsmag(int avg) {
-  return avg == DS_DUCT     ? &dsmag_kernel<T, YW, DS_DUCT, false, false>
-         : avg == DS_CAVITY ? &dsmag_kernel<T, YW, DS_CAVITY, false, false>
-                            : &dsmag_kernel<T, YW, DS_CHANNEL, false, false>;
+  return avg == DS_DUCT ? &dsmag_kernel<T, YW, DS_DUCT, false, false, YH>
+         : avg == DS_CAVITY
+             ? &dsmag_kernel<T, YW, DS_CAVITY, false, false, YH>
+             : &dsmag_kernel<T, YW, DS_CHANNEL, false, false, YH>;
 }
 
 // The modes for periodic z (zper: the triperiodic box) and the 2D test
@@ -444,36 +472,42 @@ auto pick_dsmag_mode(bool zper, bool f2d) {
 }
 
 // y: the y-row stacks and corners of u, v, w (6 pointers), all null
-// without y walls, or with yhalo (a slab, mode YH) their two-deep halo
-// pairs; yvals: the filtered fill's 'D' values (u_lo, u_hi, w_lo, w_hi) on
-// the y walls; avg: DS_CHANNEL, DS_DUCT or DS_CAVITY; zper, f2d: the
-// periodic-z mode and the 2D filter (see pick_dsmag_mode).
+// without y walls; h: their two-deep halo pairs on a slab of the y-slab
+// mesh (6 pointers, all null off a slab): h alone is mode YH (periodic y,
+// the 'channel' sums), y and h together a slab of a y-walled mesh, whose
+// y holds the slab's y-row stacks and ylo, yhi the walls it owns; yvals:
+// the filtered fill's 'D' values (u_lo, u_hi, w_lo, w_hi) on the y walls;
+// avg: DS_CHANNEL, DS_DUCT or DS_CAVITY; zper, f2d: the periodic-z mode
+// and the 2D filter (see pick_dsmag_mode).
 template <typename T>
 int launch_dsmag(const T* u, const T* v, const T* w, const T* ue,
                  const T* ve, const T* we, const T* alph2, const T* dzci,
                  const T* dzfi, T* s0o, T* numo, T* deno,
-                 const T* const* y, int nz, int ny, int nx, int wall_lo,
-                 int wall_hi, int avg, int zper, int f2d, int yhalo,
-                 double dxi, double dyi, const double* zvals,
-                 const double* yvals, void* stream) {
+                 const T* const* y, const T* const* h, int nz, int ny,
+                 int nx, int wall_lo, int wall_hi, int avg, int zper,
+                 int f2d, int ylo, int yhi, double dxi, double dyi,
+                 const double* zvals, const double* yvals, void* stream) {
   const bool ystacks = y[0] != nullptr;
-  const bool ywall = ystacks && !yhalo;
+  const bool halo = h[0] != nullptr;
+  const bool ywall = ystacks && !halo;
   if (nz < 2 || (ywall && ny < 4) || avg < DS_CHANNEL || avg > DS_CAVITY)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (yhalo && (!ystacks || ny < 2 || zper || f2d || avg != DS_CHANNEL))
+  if (halo && (ny < 2 || zper || f2d || (!ystacks && avg != DS_CHANNEL)))
     return static_cast<int>(cudaErrorInvalidValue);
-  if ((zper || f2d) && (ywall || avg != DS_CHANNEL))
+  if ((zper || f2d) && (ystacks || avg != DS_CHANNEL))
     return static_cast<int>(cudaErrorInvalidValue);
   if (zper && (nz < 3 || wall_lo || wall_hi))
     return static_cast<int>(cudaErrorInvalidValue);
   for (int m = 0; m < 6; ++m)
-    if (ystacks != (y[m] != nullptr))
+    if (ystacks != (y[m] != nullptr) || halo != (h[m] != nullptr))
       return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = dsmag_smem_bytes<T>();
-  auto kern = yhalo ? &dsmag_kernel<T, false, DS_CHANNEL, false, false, true>
+  auto kern = halo ? (ystacks ? pick_dsmag<T, true, true>(avg)
+                              : &dsmag_kernel<T, false, DS_CHANNEL, false,
+                                              false, true>)
               : (zper || f2d) ? pick_dsmag_mode<T>(zper, f2d)
-              : ywall       ? pick_dsmag<T, true>(avg)
-                            : pick_dsmag<T, false>(avg);
+              : ywall         ? pick_dsmag<T, true>(avg)
+                              : pick_dsmag<T, false>(avg);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -481,12 +515,17 @@ int launch_dsmag(const T* u, const T* v, const T* w, const T* ue,
   constexpr int TY = DsTy<T>::TY;
   const int nblk = ((ny + TY - 1) / TY) * ((nx + DS_TX - 1) / DS_TX);
   DsYWalls<T> yw{};
-  for (int c = 0; c < 3; ++c) yw.vel[c] = YRows<T>{y[2 * c], y[2 * c + 1]};
-  if (ywall) {
+  for (int c = 0; c < 3; ++c) {
+    yw.vel[c] = YRows<T>{y[2 * c], y[2 * c + 1]};
+    yw.hal[c] = YRows<T>{h[2 * c], h[2 * c + 1]};
+  }
+  if (ystacks) {
     yw.off_lo[0] = T(2 * yvals[0]);
     yw.off_hi[0] = T(2 * yvals[1]);
     yw.off_lo[2] = T(2 * yvals[2]);
     yw.off_hi[2] = T(2 * yvals[3]);
+    yw.lo = halo ? ylo : 1;
+    yw.hi = halo ? yhi : 1;
   }
   // the filtered-velocity fill's 'D' offsets 2b, on wall faces only
   const T olu = wall_lo ? T(2 * zvals[0]) : T(0);
@@ -506,20 +545,23 @@ int launch_dsmag(const T* u, const T* v, const T* w, const T* ue,
                       const T* ve, const T* we, const T* alph2,               \
                       const T* dzci, const T* dzfi, T* s0o, T* numo,          \
                       T* deno, const T* yur, const T* yuc, const T* yvr,      \
-                      const T* yvc, const T* ywr, const T* ywc, int nz,       \
+                      const T* yvc, const T* ywr, const T* ywc,               \
+                      const T* hur, const T* huc, const T* hvr,               \
+                      const T* hvc, const T* hwr, const T* hwc, int nz,       \
                       int ny, int nx, int wall_lo, int wall_hi, int avg,      \
-                      int zper, int f2d, int yhalo, double dxi, double dyi,   \
-                      double zlo_u, double zhi_u,                             \
+                      int zper, int f2d, int ylo, int yhi, double dxi,        \
+                      double dyi, double zlo_u, double zhi_u,                 \
                       double zlo_v, double zhi_v, double ylo_u,               \
                       double yhi_u, double ylo_w, double yhi_w,               \
                       void* stream) {                                         \
     const T* const y[6] = {yur, yuc, yvr, yvc, ywr, ywc};                     \
+    const T* const h[6] = {hur, huc, hvr, hvc, hwr, hwc};                     \
     const double zvals[4] = {zlo_u, zhi_u, zlo_v, zhi_v};                     \
     const double yvals[4] = {ylo_u, yhi_u, ylo_w, yhi_w};                     \
     return cales::launch_dsmag<T>(u, v, w, ue, ve, we, alph2, dzci, dzfi,     \
-                                  s0o, numo, deno, y, nz, ny, nx, wall_lo,    \
-                                  wall_hi, avg, zper, f2d, yhalo, dxi, dyi,   \
-                                  zvals, yvals, stream);                      \
+                                  s0o, numo, deno, y, h, nz, ny, nx,          \
+                                  wall_lo, wall_hi, avg, zper, f2d, ylo, yhi, \
+                                  dxi, dyi, zvals, yvals, stream);            \
   }
 
 CALES_DSMAG_ENTRY(cales_dsmag_f32, float)

@@ -61,11 +61,15 @@ __device__ __forceinline__ int ring(int kz) { return (kz + 3) % 3; }
 
 // The y-wall inputs and recipes of one call: y-row stacks of the velocity
 // (null without y walls) and the filtered fill's 'D' offsets 2b of u and w
-// on the lower and upper y walls (dsmag.cu's only).
+// on the lower and upper y walls; on a slab of the y-slab mesh (dsmag.cu's
+// modes YH and YW + YH) the velocity's two-deep halo and, with y walls,
+// which of the two walls the slab holds (dsmag.cu's only).
 template <typename T>
 struct DsYWalls {
   YRows<T> vel[3];
+  YRows<T> hal[3];
   T off_lo[3], off_hi[3];   // index 1 (v) unused: v's fill is 0
+  int lo, hi;
 };
 
 // The tile of one block and the dims: (x0, y0) its first centre cell.
@@ -92,8 +96,11 @@ __device__ __forceinline__ const T* ds_hrow(const YRows<T>& h, int kz, int r,
 // The velocity plane kz (-1 .. nz, ghost rows from the edge stacks) on the
 // tile + halo 2, x wrapped; y wrapped, or with y walls the rows -1, ny-1
 // and ny from the y-row stacks, or with YH (a slab) the rows -2, -1, ny
-// and ny+1 from the halo (yw.vel holds the halo pairs; a ragged tile's
-// rows past ny+1 wrap, as they feed no output).  With ZP (periodic z) any
+// and ny+1 from the halo (yw.hal; a ragged tile's rows past ny+1 wrap, as
+// they feed no output); with both (a slab of a y-walled mesh) the rows -1,
+// ny-1 and ny from the slab's y-row stacks, which hold the wall recipe's
+// rows on the sides the slab owns and the neighbours' rows elsewhere, and
+// the rows -2 and ny+1 from the halo.  With ZP (periodic z) any
 // kz from -nz on, the field's plane kz mod nz (the edge stacks unread).
 // A cell's index is found once for the three components and its three
 // values copied by cp_async, one group a plane: the caller waits
@@ -121,7 +128,7 @@ __device__ __forceinline__ void ds_load(const VEL& vel, const T* const fld[3],
       const int r = y < 0 ? y + 2 : y - g.ny + 2;
 #pragma unroll
       for (int c = 0; c < 3; ++c)
-        cp_async(vel(kz, c) + e, ds_hrow(yw.vel[c], kz, r, g.nz, g.nx) + x);
+        cp_async(vel(kz, c) + e, ds_hrow(yw.hal[c], kz, r, g.nz, g.nx) + x);
     } else {
       const int64_t o = static_cast<int64_t>(wrap_near(y, g.ny)) * g.nx + x;
 #pragma unroll
@@ -195,10 +202,12 @@ enum { DS_PLANE = 0, DS_GHOST_LO = 1, DS_GHOST_HI = 2 };
 // input is the filtered velocity's: the ghost MODE (u and v only; w's z
 // ghosts are loaded)
 // and, with y walls, u's and w's rows y < 0 and y >= ny extrapolated from
-// the two rows inside, 2 q(0) - q(1), after the z ghost.
+// the two rows inside, 2 q(0) - q(1), after the z ghost; ylo, yhi: which
+// of the two y walls there are (both, but on a slab of a y-walled mesh).
 template <typename T, bool YW, int TY, int MODE, class VEL>
 __device__ __forceinline__ void ds_vel_x(const VEL& vel, T* xv, int kz,
-                                         int y0, int ny, int nz, int tid) {
+                                         int y0, int ny, int nz, int tid,
+                                         bool ylo = YW, bool yhi = YW) {
   using G = DsGeo<TY>;
   const T two = T(2);
   for (int e = tid; e < 3 * G::VY * DS_AX; e += G::NT) {
@@ -214,7 +223,9 @@ __device__ __forceinline__ void ds_vel_x(const VEL& vel, T* xv, int kz,
     };
     // with y walls, u's and w's rows outside: the offset of the row in
     const int gy = y0 - 2 + vy;
-    const int in = (YW && c != 1) ? (gy < 0 ? DS_VX : gy >= ny ? -DS_VX : 0)
+    const int in = (YW && c != 1) ? (gy < 0    ? (ylo ? DS_VX : 0)
+                                     : gy >= ny ? (yhi ? -DS_VX : 0)
+                                                : 0)
                                   : 0;
     if (in == 0) {
       xv[e] = ds_pass(zv(o), zv(o + 1), zv(o + 2));
@@ -243,17 +254,21 @@ __device__ __forceinline__ void ds_vel_y(const T* xv, const YV& yv, int kz,
 // is the caller's) into xs [15][AY][DS_TX]: a warp a row of 32.  With y
 // walls A's y ghost rows y = -1 and ny are the extrapolation 2 q(0) - q(1)
 // of A itself (pallas_dsmag.py:941-949) on each plane, formed before the
-// z ghost.
+// z ghost; ylo, yhi as ds_vel_x's.
 template <typename T, bool YW, int TY, int MODE, class SRC>
 __device__ __forceinline__ void ds_src_x(const SRC& src, T* xs, int kz,
-                                         int y0, int ny, int nz, int tid) {
+                                         int y0, int ny, int nz, int tid,
+                                         bool ylo = YW, bool yhi = YW) {
   using G = DsGeo<TY>;
   const T two = T(2);
   const int lane = tid & 31;
   for (int r = tid >> 5; r < (DS_NA - 1) * G::AY; r += G::NT / 32) {
     const int q = r / G::AY, ay = r - q * G::AY, o = ay * DS_AX + lane;
     const int gy = y0 - 1 + ay;
-    const int in = YW ? (gy == -1 ? DS_AX : gy == ny ? -DS_AX : 0) : 0;
+    const int in = !YW                 ? 0
+                   : gy == -1 && ylo   ? DS_AX
+                   : gy == ny && yhi   ? -DS_AX
+                                       : 0;
     // plane kp's value at offset i, its y ghost rows filled
     auto at = [&](int kp, int i) -> T {
       const T* a = src(kp, q);

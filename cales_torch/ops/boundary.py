@@ -32,6 +32,12 @@ fill; a plane-valued value on an x face (an inflow profile) or a z face
 (a moving lid, the wall model's Neumann planes) adds its share of the
 offsets at run time, with periodic y.
 
+On a slab of a y-walled mesh (dims = (gy, 1)) the stacks are the slab's
+(slab_ystack): the wall recipe's rows, built on the slab from its own
+rows 0 and nyl-1 with no communication, on a side the slab owns (rank 0
+the lower wall, rank gy-1 the upper), the neighbours' halo rows elsewhere,
+so the y-walled kernels run on every slab as they do on the whole field.
+
 
 BC values are python floats or padded 2-D planes (x-faces (nz+2, ny+2),
 y-faces (nz+2, nx+2), z-faces (ny+2, nx+2)).
@@ -340,6 +346,29 @@ def yedge_velocity(u, v, w, cbcvel, bcu, bcv, bcw, dl, dzc, dzf,
     zyw = _zedge_of_yrows(yw, zlts(2), bcw[2], dr_z_nrm, face=True,
                           vlo_plane=vlo[2] if keep_w else None, keep=keep_w)
     return (yu, yv, yw), (zyu, zyv, zyw)
+
+
+def slab_ystack(q, e, wall, halo, own):
+    """The y-row stack pair (rows (nz, 3, nx), corners (3, 3, nx)) of a
+    slab of a y-walled field on the y-slab mesh: [row -1, row nyl-1, row
+    nyl] and their z-edge entries.  own = (lower, upper), the walls the
+    slab holds: there the rows are the wall recipe's, `wall` the stack pair
+    of the slab's own fill (yedge_velocity or yedge_scalar on the slab;
+    None on a slab that owns neither); elsewhere rows -1 and nyl are the
+    neighbours' from `halo` (rows (nz, 2 d, nx), corners (3, 2 d, nx) from
+    mesh.halo_y at depth d) and row nyl-1 the slab's own last row and its
+    entry of the z-edge stack e: the y-walled kernels read the y-walled
+    accessor's rows from one stack on every slab."""
+    rows, corners = halo
+    d = rows.shape[1] // 2
+    mine = (q[:, -1], e[:, -1])
+    ends = ((wall[0][:, 0], wall[1][:, 0]) if own[0]
+            else (rows[:, d - 1], corners[:, d - 1]),
+            (wall[0][:, 1], wall[1][:, 1]) if own[1] else mine,
+            (wall[0][:, 2], wall[1][:, 2]) if own[1]
+            else (rows[:, d], corners[:, d]))
+    return (torch.stack([r for r, _ in ends], dim=1),
+            torch.stack([c for _, c in ends], dim=1))
 
 
 def yedge_scalar(p, cbc, bcvals, dl, dzc):

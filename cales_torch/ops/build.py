@@ -52,8 +52,9 @@ _SIGNATURES = {
     'cales_thomas_z': [_P] * 10 + [_I] * 5 + [_D, _I, _D] + [_P],
     'cales_thomas_periodic': [_P] * 7 + [_I] * 4 + [_D, _I, _D] + [_P],
     'cales_smag': [_P] * 34 + [_I] * 5 + [_D] * 3 + [_P],
-    # ... wall_lo, wall_hi, avg, zper, f2d, yhalo, then dxi, dyi, the values
-    'cales_dsmag': [_P] * 18 + [_I] * 9 + [_D] * 10 + [_P],
+    # ... the y-row stacks, the halos, nz, ny, nx, wall_lo, wall_hi, avg,
+    # zper, f2d, ylo, yhi, then dxi, dyi, the values
+    'cales_dsmag': [_P] * 24 + [_I] * 10 + [_D] * 10 + [_P],
     'cales_dsmag_level1': [_P] * 15 + [_I] * 5 + [_D] * 2 + [_P],
     'cales_dsmag_level2': [_P] * 30 + [_I] * 4 + [_D] * 2 + [_P],
     # the pointers (a slab's halo rows among them), nz, ny, nx, corrected,

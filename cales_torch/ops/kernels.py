@@ -45,7 +45,12 @@ mom_rk, fillps, correc_updatep and smag take yh, the halo pairs (rows
 (nz, 2, nx), corners (3, 2, nx)) of the fields they read across the slab's
 edges (mesh.halo_y), and read rows -1 and ny from them; dsmag takes them
 two rows deep (rows (nz, 4, nx), corners (3, 4, nx): rows -2, -1, ny,
-ny+1), and the wall model the sampled rows' rows -1 and ny.
+ny+1), and the wall model the sampled rows' rows -1 and ny.  With y walls
+on the mesh every slab passes its own y-row stack pairs
+(boundary.slab_ystack: the wall recipe's rows on the side it owns, the
+halo rows elsewhere) as ye, and the y-walled variants run as on the whole
+field; dsmag takes them with its two-row halo and the walls the slab owns
+(ye, yh and yown together).
 z metrics are (nz+2,) tensors with ghost entries, in the fields' dtype and
 on their device.
 
@@ -320,19 +325,21 @@ def _zext(q, wall_lo, wall_hi, zper=False):
     return torch.cat([lo[None], q, hi[None]])
 
 
-def _yext(a):
-    """y ghost rows of an (n, ny, m) array extrapolated at both y walls."""
-    return torch.cat([2.0 * a[:, :1] - a[:, 1:2], a,
-                      2.0 * a[:, -1:] - a[:, -2:-1]], dim=1)
+def _yext(a, yw=(True, True)):
+    """y ghost rows of an (n, ny, m) array extrapolated at the y walls yw =
+    (lower, upper), wrapped on a side that is none."""
+    lo = 2.0 * a[:, :1] - a[:, 1:2] if yw[0] else a[:, -1:]
+    hi = 2.0 * a[:, -1:] - a[:, -2:-1] if yw[1] else a[:, :1]
+    return torch.cat([lo, a, hi], dim=1)
 
 
-def _filt(q, wall_lo, wall_hi, ywall, zper=False, f2d=False):
+def _filt(q, wall_lo, wall_hi, yw, zper=False, f2d=False):
     """The 27-point test filter of a cell-centred quantity with the dynamic
-    model's ghost recipes: _zext along z, along y _yext with y walls or
-    the periodic wrap, x periodic; with f2d the 9-point filter in the x-y
-    planes (no z pass, so the z ghosts go unread)."""
-    q = _zext(q, wall_lo, wall_hi, zper)
-    q = _yext(q) if ywall else torch.cat([q[:, -1:], q, q[:, :1]], 1)
+    model's ghost recipes: _zext along z, along y _yext at the y walls yw =
+    (lower, upper) and the periodic wrap elsewhere, x periodic; with f2d
+    the 9-point filter in the x-y planes (no z pass, so the z ghosts go
+    unread)."""
+    q = _yext(_zext(q, wall_lo, wall_hi, zper), yw)
     return (st.filter2d if f2d else st.filter3d)(wrap_x(q))
 
 
@@ -344,7 +351,7 @@ def _zwrap_padded(q):
 
 
 def dsmag_level1_plain(u, v, w, ue, ve, we, dzci, dzfi, dxi, dyi, wall_lo,
-                       wall_hi, ye=None, zper=False, f2d=False):
+                       wall_hi, ye=None, zper=False, f2d=False, yw=None):
     """The grid level of the Germano-Lilly model (pallas_dsmag._ds1_kernel)
     on interiors + the post-correction fill's edge stacks (and with y walls
     its y-row stack pairs ye of (u, v, w)): the filtered products and the
@@ -353,20 +360,23 @@ def dsmag_level1_plain(u, v, w, ue, ve, we, dzci, dzfi, dxi, dyi, wall_lo,
     zper (periodic z, the triperiodic box): every z ghost is the plane at
     the other end, the velocity's included (the edge stacks go unread).
     f2d (the 2D test filter, periodic y): every filter is the x-y one, and
-    nothing is extrapolated.
+    nothing is extrapolated.  yw: which y faces are walls (lower, upper),
+    both where ye is given (dsmag_plain's slab of a y-walled mesh passes
+    its own).
     Returns (fm, fvel, lij, s0): fm = filt(|S| S_ij) (6), fvel the
     filtered velocity (3), lij = filt(uc_i uc_j) - filt(uc_i) filt(uc_j)
     (6) with uc the centred velocity, s0 = |S|."""
-    ywall = ye is not None
-    yu, yv, yw = (None,) * 3 if ye is None else ye
+    if yw is None:
+        yw = (ye is not None,) * 2
+    yu, yv, ywr = (None,) * 3 if ye is None else ye
     if zper:
         up, vp, wp = map(_zwrap_padded, (u, v, w))
     else:
-        up, vp, wp = padded(u, ue, yu), padded(v, ve, yv), padded(w, we, yw)
+        up, vp, wp = padded(u, ue, yu), padded(v, ve, yv), padded(w, we, ywr)
     s0, sij = st.strain_rate(up, vp, wp, dzci, dzfi, dxi, dyi, with_sij=True)
 
     def filt(q):
-        return _filt(q, wall_lo, wall_hi, ywall, zper, f2d)
+        return _filt(q, wall_lo, wall_hi, yw, zper, f2d)
     fm = [filt(s0 * q) for q in sij]
 
     def vel_ext(qp, along_z, along_y):
@@ -377,8 +387,10 @@ def dsmag_level1_plain(u, v, w, ue, ve, we, dzci, dzfi, dxi, dyi, wall_lo,
             lo = 2.0 * q[0] - q[1] if wall_lo else qp[0]
             hi = 2.0 * q[-1] - q[-2] if wall_hi else qp[-1]
             qp = torch.cat([lo[None], q, hi[None]])
-        if along_y and ywall:
-            qp = _yext(qp[:, 1:-1])
+        if along_y and any(yw):
+            q = _yext(qp[:, 1:-1], yw)
+            qp = torch.cat([q[:, :1] if yw[0] else qp[:, :1], q[:, 1:-1],
+                            q[:, -1:] if yw[1] else qp[:, -1:]], dim=1)
         return qp
     vfilt = st.filter2d if f2d else st.filter3d
     fvel = [vfilt(vel_ext(up, True, True)),
@@ -395,18 +407,20 @@ def dsmag_level1_plain(u, v, w, ue, ve, we, dzci, dzfi, dxi, dyi, wall_lo,
     return fm, fvel, lij, s0
 
 
-def _contraction(fm, lij, ufp, vfp, wfp, alph2, dzci, dzfi, dxi, dyi, ywall):
+def _contraction(fm, lij, ufp, vfp, wfp, alph2, dzci, dzfi, dxi, dyi, yw):
     """The test level on the filled filtered velocity (ufp, vfp, wfp):
     M_ij = 2 (fm - alpha^2 |S~| S~_ij), alpha^2 = 2.52 on the first and
-    last y rows with y walls; returns num = M_ij L_ij and den = M_ij M_ij
-    (off-diagonal pairs twice) by cell."""
+    last y rows at the y walls yw = (lower, upper); returns num = M_ij L_ij
+    and den = M_ij M_ij (off-diagonal pairs twice) by cell."""
     s0f, sijf = st.strain_rate(ufp, vfp, wfp, dzci, dzfi, dxi, dyi,
                                with_sij=True)
     a2 = alph2[:, None, None].expand(s0f.shape[0], s0f.shape[1], 1)
-    if ywall:
+    if any(yw):
         a2 = a2.clone()
-        a2[:, 0] = 2.52
-        a2[:, -1] = 2.52
+        if yw[0]:
+            a2[:, 0] = 2.52
+        if yw[1]:
+            a2[:, -1] = 2.52
     mij = [2.0 * (m - a2 * s0f * sf) for m, sf in zip(fm, sijf)]
     num = (mij[0] * lij[0] + mij[1] * lij[1] + mij[2] * lij[2]
            + 2.0 * (mij[3] * lij[3] + mij[4] * lij[4] + mij[5] * lij[5]))
@@ -430,7 +444,7 @@ def _averaged(num, den, s0, avg):
 def dsmag_plain(u, v, w, ue, ve, we, alph2, dzci, dzfi, dxi, dyi, wall_lo,
                 wall_hi, zvals=(0.0, 0.0, 0.0, 0.0), ye=None,
                 yvals=(0.0, 0.0, 0.0, 0.0), avg='channel', zper=False,
-                f2d=False, yh=None):
+                f2d=False, yh=None, yown=None):
     """The Germano-Lilly model of sgs.dsmag_visct on interiors + the
     post-correction fill's edge stacks, with every ghost recipe written out
     for the class pallas_dsmag.eligible admits: dsmag_level1_plain, then the
@@ -453,44 +467,77 @@ def dsmag_plain(u, v, w, ue, ve, we, alph2, dzci, dzfi, dxi, dyi, wall_lo,
     rows -2, -1, nyl, nyl+1 (mesh.halo_y): the model runs on the slab
     extended by those rows, whose periodic wrap reaches the outputs of
     those rows only (the velocity's two-row halo is the model's reach),
-    and keeps the slab's rows (csrc/dsmag.cu mode YH)."""
+    and keeps the slab's rows (csrc/dsmag.cu mode YH).  ye with yh: a slab
+    of a y-walled mesh (YW and YH), ye the slab's y-row stack pairs
+    (boundary.slab_ystack) and yown = (lower, upper) the y walls it holds:
+    the slab is extended by the halo's two rows on a side it does not own
+    and the wall recipes apply on the sides it owns, whose stack rows are
+    the wall's; the extension's own outer ghost wraps and reaches the
+    cropped rows only."""
+    yw = None
     if yh is not None:
-        if ye is not None or zper or f2d:
-            raise ValueError('dsmag: a slab takes periodic y, z walls and '
-                             'the 3D filter')
+        if zper or f2d:
+            raise ValueError('dsmag: a slab takes z walls and the 3D filter')
+        if (ye is None) != (yown is None):
+            raise ValueError("dsmag: a slab's y walls take ye and yown "
+                             'together')
+        lo, hi = yown if ye is not None else (False, False)
 
         def ext(q, e, h):
             rows, corners = h
-            return (torch.cat([rows[:, :2], q, rows[:, 2:]], dim=1),
-                    torch.cat([corners[:, :2], e, corners[:, 2:]], dim=1))
+            q = torch.cat([rows[:, :2]] * (not lo) + [q]
+                          + [rows[:, 2:]] * (not hi), dim=1)
+            e = torch.cat([corners[:, :2]] * (not lo) + [e]
+                          + [corners[:, 2:]] * (not hi), dim=1)
+            return q, e
         (u, ue), (v, ve), (w, we) = (ext(q, e, h) for q, e, h in
                                      zip((u, v, w), (ue, ve, we), yh))
+        if ye is not None:
+            # the extended field's stack pairs: the wall's rows on an owned
+            # side, the wrap and its own last row elsewhere
+            def stack(q, e, y):
+                r, c = y
+                pick = ((r[:, 0], c[:, 0]) if lo else (q[:, -1], e[:, -1]),
+                        (r[:, 1], c[:, 1]) if hi else (q[:, -1], e[:, -1]),
+                        (r[:, 2], c[:, 2]) if hi else (q[:, 0], e[:, 0]))
+                return (torch.stack([a for a, _ in pick], dim=1),
+                        torch.stack([b for _, b in pick], dim=1))
+            ye = [stack(q, e, y) for q, e, y in
+                  zip((u, v, w), (ue, ve, we), ye)]
+            yw = (bool(lo), bool(hi))
     s0, num, den = _dsmag_cells(u, v, w, ue, ve, we, alph2, dzci, dzfi, dxi,
                                 dyi, wall_lo, wall_hi, zvals, ye, yvals,
-                                zper, f2d)
+                                zper, f2d, yw)
     if yh is not None:
-        s0, num, den = (q[:, 2:-2] for q in (s0, num, den))
+        ny = s0.shape[1]
+        keep = slice(0 if yw and yw[0] else 2, ny - (0 if yw and yw[1] else 2))
+        s0, num, den = (q[:, keep] for q in (s0, num, den))
     out = _averaged(num, den, s0, avg)
     return (out, None, None) if avg == 'cavity' else (s0, *out)
 
 
 def _dsmag_cells(u, v, w, ue, ve, we, alph2, dzci, dzfi, dxi, dyi, wall_lo,
-                 wall_hi, zvals, ye, yvals, zper, f2d):
-    """dsmag_plain's model by cell: (|S|, num, den)."""
-    ywall = ye is not None
+                 wall_hi, zvals, ye, yvals, zper, f2d, yw=None):
+    """dsmag_plain's model by cell: (|S|, num, den); yw: the y walls
+    (lower, upper), both where ye is given unless it says otherwise."""
+    if yw is None:
+        yw = (ye is not None,) * 2
     fm, (ufi, vfi, wfi), lij, s0 = dsmag_level1_plain(
         u, v, w, ue, ve, we, dzci, dzfi, dxi, dyi, wall_lo, wall_hi, ye=ye,
-        zper=zper, f2d=f2d)
+        zper=zper, f2d=f2d, yw=yw)
 
     def yfill(q, c):
-        if not ywall:
-            return torch.cat([q[:, -1:], q, q[:, :1]], 1)
+        # a face that is no wall wraps
         if c == 1:      # [lower face, v_0 .. v_(ny-2), rewrite, ny-2 copy]
             zero = torch.zeros_like(q[:, :1])
-            return torch.cat([zero, q[:, :-1], zero, q[:, -2:-1]], 1)
-        lo, hi = (2.0 * yvals[0], 2.0 * yvals[1]) if c == 0 else \
+            lo = [zero] if yw[0] else [q[:, -1:]]
+            hi = ([q[:, :-1], zero, q[:, -2:-1]] if yw[1]
+                  else [q, q[:, :1]])
+            return torch.cat(lo + hi, 1)
+        blo, bhi = (2.0 * yvals[0], 2.0 * yvals[1]) if c == 0 else \
             (2.0 * yvals[2], 2.0 * yvals[3])
-        return torch.cat([-q[:, :1] + lo, q, -q[:, -1:] + hi], 1)
+        return torch.cat([-q[:, :1] + blo if yw[0] else q[:, -1:], q,
+                          -q[:, -1:] + bhi if yw[1] else q[:, :1]], 1)
     if zper:
         ufp, vfp, wfp = map(_zwrap_padded, (ufi, vfi, wfi))
     else:
@@ -508,7 +555,7 @@ def _dsmag_cells(u, v, w, ue, ve, we, alph2, dzci, dzfi, dxi, dyi, wall_lo,
         # rows [lower face, w_0 .. w_(nz-2), top-face rewrite, never read]
         wfp = wrap_x(torch.cat([zero, wy[:-1], zero, zero]))
     num, den = _contraction(fm, lij, ufp, vfp, wfp, alph2, dzci, dzfi, dxi,
-                            dyi, ywall)
+                            dyi, yw)
     return s0, num, den
 
 
@@ -525,7 +572,7 @@ def dsmag_level2_plain(fu, fv, fw, fue, fve, fwe, fm, lij, s0, alph2, dzci,
     yu, yv, yw = (None,) * 3 if ye is None else ye
     num, den = _contraction(fm, lij, padded(fu, fue, yu), padded(fv, fve, yv),
                             padded(fw, fwe, yw), alph2, dzci, dzfi, dxi, dyi,
-                            ye is not None)
+                            (ye is not None,) * 2)
     return _averaged(num, den, s0, avg)
 
 
@@ -980,7 +1027,7 @@ _DSMAG_AVG = {'channel': 0, 'duct': 1, 'cavity': 2, 'dit': 0}
 
 def dsmag(u, v, w, ue, ve, we, alph2, dzci, dzfi, dxi, dyi, wall_lo, wall_hi,
           zvals=(0.0, 0.0, 0.0, 0.0), ye=None, yvals=(0.0, 0.0, 0.0, 0.0),
-          avg='channel', zper=False, f2d=False, yh=None):
+          avg='channel', zper=False, f2d=False, yh=None, yown=None):
     """Dynamic Smagorinsky (the Germano-Lilly model, sgs.f90:153-370) in
     one z-march; no intermediate field goes to device memory.  Inputs: the
     post-correction fill (interiors + edge stacks, and with y walls the
@@ -993,8 +1040,13 @@ def dsmag(u, v, w, ue, ve, we, alph2, dzci, dzfi, dxi, dyi, wall_lo, wall_hi,
     of the y-slab mesh (mode YH; periodic y, z walls, the 3D filter,
     'channel' or 'dit'), the depth-2 halo pairs (rows (nz, 4, nx), corners
     (3, 4, nx)) of (u, v, w) from mesh.halo_y, which the velocity tile
-    takes for its rows -2, -1, nyl and nyl+1; the sums are the slab's.
-    Returns (s0, num, den): |S| and partial sums of num = M_ij L_ij and
+    takes for its rows -2, -1, nyl and nyl+1; the sums are the slab's.  yh
+    with ye: a slab of a y-walled mesh (modes YW and YH, any average), ye
+    the slab's y-row stack pairs (boundary.slab_ystack: the wall's rows on
+    the sides it owns, the neighbours' elsewhere), which the tile takes for
+    its rows -1, nyl-1 and nyl, the halo its rows -2 and nyl+1, and yown =
+    (lower, upper) the y walls the slab holds, where the wall recipes
+    apply.  Returns (s0, num, den): |S| and partial sums of num = M_ij L_ij and
     den = M_ij M_ij, which the caller sums over their last dim: per
     (z, block), (nz, nblk), for avg 'channel' or 'dit'; per (z, y, x block),
     (nz, ny, nx/32), for 'duct'.  For 'cavity', (nu_t, None, None).  The
@@ -1006,26 +1058,33 @@ def dsmag(u, v, w, ue, ve, we, alph2, dzci, dzfi, dxi, dyi, wall_lo, wall_hi,
         raise ValueError('dsmag: periodic z takes no z or y walls')
     if f2d and ye is not None:
         raise ValueError('dsmag: the 2D test filter takes no y walls')
-    if yh is not None and (ye is not None or zper or f2d
-                           or _DSMAG_AVG[avg] != 0):
-        raise ValueError("dsmag: a slab's halos take periodic y, z walls, "
-                         "the 3D filter and the 'channel' or 'dit' sums")
+    if yh is not None and (zper or f2d or (ye is None
+                                            and _DSMAG_AVG[avg] != 0)):
+        raise ValueError("dsmag: a slab's halos take z walls, the 3D filter "
+                         "and, with periodic y, the 'channel' or 'dit' sums")
+    if (yown is not None) != (yh is not None and ye is not None):
+        raise ValueError("dsmag: yown names a slab's y walls, with ye and "
+                         'yh')
     if _on_cpu(u):
         return dsmag_plain(u, v, w, ue, ve, we, alph2, dzci, dzfi, dxi, dyi,
                            wall_lo, wall_hi, zvals, ye=ye, yvals=yvals,
-                           avg=avg, zper=zper, f2d=f2d, yh=yh)
+                           avg=avg, zper=zper, f2d=f2d, yh=yh, yown=yown)
     nz, ny, nx = u.shape
     if zper and nz < 3:
         raise ValueError(f'dsmag: nz = {nz} with periodic z (at least 3)')
     if yh is not None and ny < 2:
         raise ValueError(f'dsmag: a slab of {ny} row(s) (its two-row halo '
                          'reaches one rank a side)')
-    ye = _check_dsmag('dsmag', u, ue, ve, we,
-                       ((alph2, nz), (dzci, nz + 2), (dzfi, nz + 2)), ye,
-                       (u, v, w))
-    if yh is not None:
-        _check('dsmag', u, (), **_ysplit(yh, halo=2))
-        ye = tuple(yh)
+    if yh is None:
+        ye = _check_dsmag('dsmag', u, ue, ve, we,
+                           ((alph2, nz), (dzci, nz + 2), (dzfi, nz + 2)), ye,
+                           (u, v, w))
+    else:
+        ye = (None,) * 3 if ye is None else tuple(ye)
+        _check('dsmag', u, (u, v, w), edges=(ue, ve, we),
+               profiles=((alph2, nz), (dzci, nz + 2), (dzfi, nz + 2)),
+               **_ysplit(ye), **_ysplit(yh, halo=2))
+    lo, hi = (0, 0) if yown is None else (int(bool(q)) for q in yown)
     ty, tx = DSMAG_TILE
     gx = -(-nx // tx)
     s0 = torch.empty_like(u)
@@ -1036,11 +1095,12 @@ def dsmag(u, v, w, ue, ve, we, alph2, dzci, dzfi, dxi, dyi, wall_lo, wall_hi,
     d = ctypes.c_double
     _launch('dsmag', f'cales_dsmag_{_suffix(u)}',
             *map(_ptr, (u, v, w, ue, ve, we, alph2, dzci, dzfi, s0, num,
-                        den)), *_yptrs(ye),
+                        den)), *_yptrs(ye), *_yptrs((None,) * 3 if yh is None
+                                                    else yh),
             ctypes.c_int(nz), ctypes.c_int(ny), ctypes.c_int(nx),
             ctypes.c_int(int(bool(wall_lo))), ctypes.c_int(int(bool(wall_hi))),
             ctypes.c_int(code), ctypes.c_int(int(bool(zper))),
-            ctypes.c_int(int(bool(f2d))), ctypes.c_int(int(yh is not None)),
+            ctypes.c_int(int(bool(f2d))), ctypes.c_int(lo), ctypes.c_int(hi),
             d(dxi), d(dyi), *(d(float(q)) for q in (*zvals, *yvals)))
     return s0, num, den
 

@@ -66,16 +66,28 @@ its slab, the counterpart of the JAX package's kernel-sharded route
 (Simulation with _kernel_sharded and use_pallas_solve_sharded), for the
 channel classes: sgstype 'none', static Smagorinsky (with the z walls'
 wall model too) or the one-pass dynamic Smagorinsky ('channel', 'dit'),
-explicit diffusion or impdiff_1d.  The halos of the fields each stencil
-kernel reads at +-1 in y come from the neighbours before it runs
-(mesh.halo_y; two rows deep for dsmag's tile), the Poisson solve is
-poisson.solve_sharded (apply_x, the pencil transposes, apply_y, thomas_z),
-the z-only CN solves run on each slab, the correction and nu_t run as
-correc_updatep and smag or dsmag (the fused correc_smag is off, as under
-the JAX mesh), the wall model takes its sampled rows' y halos, and the
-bulk forcing, dsmag's z sums, the CFL dt and the divergence reduce over
-the ranks.  The van Driest wall-shear planes stay on their slab (z is
-never split) with the halo's row below.
+explicit diffusion or impdiff_1d; and for the y-walled duct and cavity
+classes as one device runs them (sgstype 'none', static Smagorinsky, the
+one-pass dynamic Smagorinsky with any average, explicit diffusion).  The
+halos of the fields each stencil kernel reads at +-1 in y come from the
+neighbours before it runs (mesh.halo_y; two rows deep for dsmag's tile),
+the Poisson solve is poisson.solve_sharded (apply_x, the pencil
+transposes, apply_y, thomas_z), the z-only CN solves run on each slab, the
+correction and nu_t run as correc_updatep and smag or dsmag (the fused
+correc_smag is off, as under the JAX mesh), the wall model takes its
+sampled rows' y halos, and the bulk forcing, dsmag's z sums, the CFL dt
+and the divergence reduce over the ranks.  The van Driest wall-shear
+planes of the z walls stay on their slab (z is never split) with the
+halo's row below.  With y walls every slab runs the y-walled kernel
+variants on its own y-row stacks (boundary.slab_ystack): the wall recipe's
+rows on the side a slab owns (rank 0 the lower wall, rank gy-1 the upper),
+built there from its own rows with no communication, the halo rows
+elsewhere (the JAX package's per-shard wall flags, _ywf_shard); dsmag
+takes them with its two-row halo (csrc/dsmag.cu YW + YH), the y walls'
+shear planes of smag's van Driest are made on their owners and summed
+over the ranks (one all_reduce of two (nz, nx) planes a substep), the kept
+v and w wall planes advance on the owners, and the pressure's y-face RHS
+planes land on the owners' rows only (slab_rhs_planes).
 
 With x walls (inflow and outflow faces, or walls: the developing channel,
 and with y walls the closed box, the lid-driven cavity and the developing
@@ -374,8 +386,9 @@ def _wm_refuse(cfg: Config) -> list[str]:
     if (cfg.dims[0] * cfg.dims[1] > 1
             and any(cfg.lwm[ib][1] != 0 for ib in range(2))):
         out.append('a wall model on a device mesh on y faces (the z faces '
-                   'run on the y-slab mesh; the y walls stay on one '
-                   'device): ROADMAP queue 1, multi-device')
+                   'run on the y-slab mesh, and the y walls without a wall '
+                   'model): ROADMAP queue 1, multi-device, the y faces\' '
+                   'wall model on the mesh')
     return out
 
 
@@ -385,7 +398,9 @@ def _mesh_refuse(cfg: Config) -> list[str]:
     the all-matrix Poisson route: sgstype 'none', static Smagorinsky (the
     z walls may carry the wall model) or the one-pass dynamic Smagorinsky
     ('channel' or 'dit', the 3D filter), explicit diffusion or
-    impdiff_1d."""
+    impdiff_1d; and with the y walls _ywalls_refuse admits (the duct and
+    cavity classes) what one device runs there, without a wall model, on
+    slabs of at least 2 rows."""
     gy, gx = int(cfg.dims[0]), int(cfg.dims[1])
     nx, ny, _ = cfg.ng
     out = []
@@ -413,7 +428,18 @@ def _mesh_refuse(cfg: Config) -> list[str]:
                    'sharded Helmholtz solve a component): '
                    f'{item}, full-3D implicit diffusion')
     if not _periodic(cfg, 1):
-        out.append(f'y walls under a device mesh: {item}')
+        if ny % gy == 0 and ny // gy < 2:
+            out.append(f'dims = ({gy}, {gx}) with y walls: slabs of '
+                       f'{ny // gy} y row, thinner than a wall-owning slab '
+                       "reads (v's upper-wall recipe takes row nyl-2; the "
+                       "dsmag kernel's y-wall mode extrapolates A and the "
+                       'velocity from the two rows next to the wall): at '
+                       'least 2')
+        if any(cfg.lwm[ib][d] != 0 for ib in range(2) for d in range(3)):
+            out.append('a wall model with y walls under a device mesh (the '
+                       "z faces' sampled rows take their y ghosts at the y "
+                       f'walls): {item}, the y faces\' wall model on the '
+                       'mesh')
     if not _periodic(cfg, 0):
         out.append(f'x walls under a device mesh: {item}')
     if cfg.cbc_vel(2, 0)[0] == 'P':
@@ -489,6 +515,15 @@ def dsmag_twopass(cfg: Config) -> bool:
         or os.environ.get('CALES_DSMAG_TWOPASS', '') == '1')
 
 
+def slab_rhs_planes(planes, own):
+    """The pressure's add_rhs_bound planes for a slab of a y-walled mesh,
+    which adds them on its local grid (cfg_local): the y faces' planes on
+    the slab that owns the face (own = (lower, upper)) and zero on the
+    others, whose first and last rows are no wall."""
+    return {k: (q if k[0] != 'y' or own[k[1]] else 0.0 * q)
+            for k, q in planes.items()}
+
+
 def _dsmag_ratio(s0, num, den, avg, wz=None, reduce=None):
     """nu_t = max(|S| ratio, 0) from a dsmag kernel's partial sums of num
     and den (summed over their last dim here): one ratio per z row
@@ -553,6 +588,11 @@ class Simulation:
         self.nyl = ny if mesh is None else mesh.nyl
         self.cfg_local = cfg if mesh is None else cfg.replace(
             ng=(nx, self.nyl, nz))
+        # a slab of a y-walled mesh: the y walls it holds (rank 0 the
+        # lower, rank gy-1 the upper), where its y-row stacks take the wall
+        # recipe's rows (boundary.slab_ystack); None elsewhere
+        self.yown = ((mesh.rank == 0, mesh.rank == mesh.gy - 1)
+                     if mesh is not None and self.ywalled else None)
 
         self.solver_p = poisson.make_solver(
             cfg, grid, tuple(cfg.cbc_pre(d) for d in range(3)),
@@ -619,6 +659,8 @@ class Simulation:
                    if self.has_wm else None)
         self.rhsb_p = poisson.rhs_bound_planes(
             cfg, grid, self.cbcpre, ('c', 'c', 'c'), by_dir(cfg.bcpre))
+        if self.yown is not None:
+            self.rhsb_p = slab_rhs_planes(self.rhsb_p, self.yown)
         self.sgs_setup = sgsmod.SGSSetup(cfg, grid, self.cbcvel)
         vol = cfg.l[0] * cfg.l[1] * cfg.l[2]
         self.gvr_c = cfg.dl[0] * cfg.dl[1] * grid.dzc[1:nz + 1] / vol
@@ -689,10 +731,13 @@ class Simulation:
         # smag with y walls: the distance to the nearer y wall and 1 where
         # it is the lower one (both y faces are walls), which van Driest
         # weighs against the z walls' (sgs.f90:104-146)
+        # (on a slab its rows of them)
         if self.ywalled and cfg.sgstype == 'smag':
             (dy_lo, _), (dy_hi, _) = setup.dw1d[2], setup.dw1d[3]
-            self.dwy_t = t(np.minimum(dy_lo, dy_hi))
-            self.nearylo_t = t((dy_lo <= dy_hi).astype(np.float64))
+            ys = (slice(None) if mesh is None
+                  else slice(mesh.y0, mesh.y0 + mesh.nyl))
+            self.dwy_t = t(np.minimum(dy_lo, dy_hi)[ys])
+            self.nearylo_t = t((dy_lo <= dy_hi).astype(np.float64)[ys])
         # smag with x walls: the x faces whose u is 'D' are walls (an
         # inflow face too, sgs.f90:76-81), the distance to the nearer one
         # and 1 where it is the lower one (None where neither is a wall)
@@ -846,6 +891,13 @@ class Simulation:
             mesh += ", the wall model's sampled rows' halos"
         if self.mesh is not None and self.cfg.impdiff_1d:
             mesh += ', the z-only CN solves on the slab'
+        if self.yown is not None:
+            owns = [n for n, on in zip(('lower', 'upper'), self.yown) if on]
+            mesh += ("; y walls: the slab's y-row stacks ("
+                     + (' and '.join(owns) + ' wall recipe' if owns
+                        else 'no wall') + ', halo rows elsewhere)')
+            if self.sgs_kernel == 'smag':
+                mesh += ", the y walls' shear planes summed over the ranks"
         scal = ''
         if self.has_scal:
             scal = ("; passive scalar: mom_rk's scalar stream (alpha = "
@@ -889,10 +941,19 @@ class Simulation:
         up, vp, wp, vlo = self._pad_vel(u, v, w, bcu, bcv, bcw)
         if self.mesh is not None:
             # the y ghosts from the neighbours (vlo's y ghost rows, wrapped
-            # on the slab, are never read: every fill crops them)
+            # on the slab, are never read: every fill crops them); with y
+            # walls the wall recipe's on the sides the slab owns (and v's
+            # rewrite row on the upper wall's slab), vlo's y-ghost rows read
+            # there only
             up, vp, wp = self._halo_padded(
-                (u, v, w), self._zedge_vel(u, v, w, bcu, bcv, bcw))
-        if self.cfg.sgstype == 'smag':
+                (u, v, w), self._zedge_vel(u, v, w, bcu, bcv, bcw),
+                self._yedge_vel(u, v, w, (bcu, bcv, bcw))
+                if self.yown is not None else None)
+        if self.yown is not None and self.has_sgs:
+            # on a slab of a y-walled mesh the SGS kernel on the fill's
+            # interiors and stacks, as after a correction (below)
+            visct = None
+        elif self.cfg.sgstype == 'smag':
             visct = sgsmod.smag_visct(self.sgs_setup, self.cfg, self.grid,
                                       up, vp, wp).to(self.dtype)
         elif self.cfg.sgstype == 'dsmag' and self.mesh is not None:
@@ -919,6 +980,8 @@ class Simulation:
               if self.ywalled else None)
         xq = (self._xedge_vel(u_i, v_i, w_i, (bcu, bcv, bcw))
               if self.xwalled else None)
+        if visct is None:
+            visct = self._sgs_stage(u_i, v_i, w_i, zq, vlo, yq)
         return st0._replace(u=u_i, v=v_i, w=w_i, vlo=vlo, visct=visct, zq=zq,
                             yq=yq, xq=xq)
 
@@ -1001,13 +1064,26 @@ class Simulation:
         return bnd.xedge_scalar(s, self.cbcscal, self.bcscal, self.cfg.dl,
                                 self.grid.dzc, ywalls=self.ywalled)
 
-    def _halo_padded(self, fields, edges):
+    def _halo_padded(self, fields, edges, walls=None):
         """The (nz+2, nyl+2, nx+2) ghost-filled slabs of `fields` on a
         mesh: z ghosts from their edge stacks, y ghosts from the
-        neighbours' rows (one exchange), x periodic."""
+        neighbours' rows (one exchange), x periodic; with y walls (walls:
+        the stack pairs of the slab's own fill) the slab's y-row stacks,
+        the wall recipe's rows on the sides it owns."""
         halos = self.mesh.halo_y(list(zip(fields, edges)))
-        return [kernels.padded(q, e, h=h)
-                for q, e, h in zip(fields, edges, halos)]
+        if walls is None:
+            return [kernels.padded(q, e, h=h)
+                    for q, e, h in zip(fields, edges, halos)]
+        return [kernels.padded(q, e, y=y) for q, e, y in zip(
+            fields, edges, self._yslab(fields, edges, walls, halos))]
+
+    def _yslab(self, fields, edges, walls, halos):
+        """The y-row stack pairs of fields on a slab of a y-walled mesh
+        (boundary.slab_ystack) from the stack pairs of the slab's own fill
+        (walls) and the halo pairs; None for a field given as None."""
+        return tuple(None if q is None else bnd.slab_ystack(
+            q, e, y, h, self.yown)
+            for q, e, y, h in zip(fields, edges, walls, halos))
 
     def bulk_mean(self, f, weights):
         """Volume-weighted mean of a field (st.bulk_mean), over the whole
@@ -1183,7 +1259,10 @@ class Simulation:
         z walls' from its z-edge stacks): the jumps of u and w across each
         y face, w's row below z = 0 from its z-edge stack and corners; with
         x walls u's column x = -1 from its x stack xq[0] (whose columns
-        carry the y ghosts)."""
+        carry the y ghosts).  On a slab of a y-walled mesh (yq the slab's
+        own fill's) each plane is made on the slab that owns its wall and
+        is zero on the others, and one all_reduce gives every slab both:
+        van Driest weighs the nearer wall, which a slab may not hold."""
         (yu, _), _, (yw, cw) = yq
         dyi = self.cfg.dli[1]
 
@@ -1197,7 +1276,13 @@ class Simulation:
                 aprev = xu[:, 0, jr] - xu[:, 0, jg]
             return self._shear(u[:, r] - yu[:, g], w[:, r] - yw[:, g],
                                we[0][r] - cw[0, g], dyi, aprev)
-        return plane(0), plane(1)
+        if self.yown is None:
+            return plane(0), plane(1)
+        both = torch.stack([plane(side) if self.yown[side]
+                            else torch.zeros_like(u[:, 0])
+                            for side in range(2)])
+        both = self.mesh.all_reduce(both)
+        return both[0], both[1]
 
     def _xwall_shear_planes(self, v, w, we, xq, yq=None):
         """The x walls' van Driest shear planes (tauw_xlo, tauw_xhi),
@@ -1267,6 +1352,11 @@ class Simulation:
                 # rows with a wall model)
                 rows = yh[1][0]
                 corners = yh[1][1] if ext is None else h[3][0]
+                if self.yown is not None:
+                    # y walls (no wall model): the slab's stacks
+                    ye = self._yslab((u, v, w), zq, yq, yh)
+                    rows, corners = ye[1]
+                    yh = None
             elif self.ywalled:
                 rows, corners = yq[1]
                 ye = yq
@@ -1324,19 +1414,26 @@ class Simulation:
         from the neighbours (its velocity tile's halo; cales_tpu's
         fused_dsmag_onepass ystrips), and the z rows' sums of num and den
         are reduced over the ranks before the ratio, one all_reduce of
-        2 nz values."""
+        2 nz values; with y walls the kernel takes the slab's y-row stacks
+        too and applies the wall recipes on the sides the slab owns."""
         cfg = self.cfg
         yh = reduce = None
         if self.mesh is not None:
             yh = self.mesh.halo_y(list(zip((u, v, w), zq)), depth=2)
             reduce = self.mesh.all_reduce
+            if self.yown is not None:
+                # y walls: the slab's stacks (rows -1, nyl-1, nyl) beside
+                # the halo's rows -2 and nyl+1; 'duct' and 'cavity' stay on
+                # the slab, 'channel' and 'dit' reduce as with periodic y
+                yq = self._yslab((u, v, w), zq, yq, yh)
         avg = cfg.dsmag_avg
         s0, num, den = kernels.dsmag(u, v, w, *zq, self.alph2_t,
                                      self.dzci_t, self.dzfi_t, cfg.dli[0],
                                      cfg.dli[1], self.lo_wall, self.hi_wall,
                                      self.dsmag_zvals, ye=yq,
                                      yvals=self.dsmag_yvals, avg=avg,
-                                     zper=self.zper, f2d=cfg.filter_2d, yh=yh)
+                                     zper=self.zper, f2d=cfg.filter_2d, yh=yh,
+                                     yown=self.yown)
         return s0 if avg == 'cavity' else _dsmag_ratio(
             s0, num, den, avg, self.dit_w_t, reduce=reduce)
 
@@ -1536,6 +1633,11 @@ class Simulation:
                 pairs.insert(3, (s, se))
             h = self.mesh.halo_y(pairs)
             yh = (*h[:3], h[3] if self.has_sgs else None, h[-1])
+            if self.yown is not None:
+                # with y walls the slab's stacks, the y-walled variant
+                ye = self._yslab((u, v, w, s, p), (ue, ve, we, se, pe), ye,
+                                 yh)
+                yh = None
         # with x walls the x columns of the same fill
         xe = ((*xq, self._xedge_s(visct) if self.has_sgs else None,
                self._xedge_p(p)) if self.xwalled else None)
@@ -1608,6 +1710,9 @@ class Simulation:
         xu2 = None if xpred is None else xpred[0]
         hv2 = (None if self.mesh is None
                else self.mesh.halo_y([(v, ve2)])[0])
+        if self.yown is not None:
+            yv2 = bnd.slab_ystack(v, ve2, yv2, hv2, self.yown)
+            hv2 = None
         rhs = kernels.fillps(u, v, w, ue2, ve2, we2, self.dzfi_t, 1.0 / dtrk,
                              dxi, dyi, yv=yv2, yh=hv2, xu=xu2)
         rhs = poisson.add_rhs_bound(self.cfg_local, ('c', 'c', 'c'),
@@ -1621,6 +1726,12 @@ class Simulation:
         xpp = self._xedge_p(pp) if self.xwalled else None
         hpp = (None if self.mesh is None
                else self.mesh.halo_y([(pp, ppe)])[0])
+        # the kernels' pp stack: on a slab of a y-walled mesh the slab's
+        # (the kept planes below take the wall recipe's, on its owner)
+        ypp_k = ypp
+        if self.yown is not None:
+            ypp_k = bnd.slab_ystack(pp, ppe, ypp, hpp, self.yown)
+            hpp = None
         planes = None
         if self.fused_smag:
             u, v, w, p, visct, planes = self._correc_smag_fused(
@@ -1629,7 +1740,7 @@ class Simulation:
             u, v, w, p = kernels.correc_updatep(
                 u, v, w, pp, p, we2, ppe, dtrk, dxi, dyi, self.dzci_t,
                 self.dzfi_t, fuv, alpha=alpha, impdiff=cfg.impdiff,
-                impdiff_1d=cfg.impdiff_1d, ypp=ypp,
+                impdiff_1d=cfg.impdiff_1d, ypp=ypp_k,
                 yv=None if yv2 is None else yv2[0], yh=hpp, xpp=xpp,
                 xu=xu2)
         vlo = self._advance_wall_planes(state, pp, ppe, we2, dtrk,
@@ -1693,6 +1804,12 @@ class Simulation:
         mask = (False,) * 3
         if cfg.mask_divergence_check:
             mask = tuple(cfg.cbc_pre(d) != 'PP' for d in range(3))
+        if self.yown is not None and mask[1]:
+            # the masked y-wall cell rows are the owners' first or last:
+            # drop them from the padded slabs (their ghost the next row)
+            ys = slice(int(self.yown[0]), up.shape[1] - int(self.yown[1]))
+            up, vp, wp = (q[:, ys] for q in (up, vp, wp))
+            mask = (mask[0], False, mask[2])
         divtot, divmax = st.divergence(up, vp, wp, cfg.dli[0], cfg.dli[1],
                                        self.grid.dzfi, mask=mask)
         if self.mesh is not None:
@@ -1716,10 +1833,18 @@ class Simulation:
         edges = [*self._zedge_vel(state.u, state.v, state.w, bcu, bcv, bcw,
                                   vlo=state.vlo, is_correc=True),
                  self._zedge_s(state.visct)]
+        walls = None
+        if self.yown is not None:
+            walls = [*self._yedge_vel(state.u, state.v, state.w,
+                                      (bcu, bcv, bcw), vlo=state.vlo,
+                                      is_correc=True),
+                     self._yedge_s(state.visct)]
         if with_p:
             fields.append(state.p)
             edges.append(self._zedge_p(state.p))
-        out = self._halo_padded(fields, edges)
+            if walls is not None:
+                walls.append(self._yedge_p(state.p))
+        out = self._halo_padded(fields, edges, walls)
         return (*out[:3], out[4] if with_p else None, out[3])
 
     def check(self, state: State):

@@ -32,13 +32,16 @@ the single-device run, and the CLI under torch.distributed.run; then on
 the same mesh the channel DNS with z-implicit diffusion, the
 wall-modelled channel LES and the dsmag channel ('channel' with
 impdiff_1d, one step with 'dit'), each at 512x256x256 with its slab
-kernel variant against its twin and a small f64 case against one device.
+kernel variant against its twin and a small f64 case against one device,
+and the y-walled dsmag duct, cavity and smag duct (their slab variants
+timed in phase 2b on the lower and the upper wall's slab; the 'none'
+duct's small f64 case too).
 
     python3 chip_smoke.py            # all phases, one card
 
 (``chip_smoke.py --sharded-rank DIR`` is one rank of the mesh phase 10,
-``--sharded-les-rank DIR`` one of phases 10i, 10w and 10d, which the
-script starts itself under torch.distributed.run.)
+``--sharded-les-rank DIR`` one of phases 10i, 10w, 10d, 10y, 10yc and
+10ys, which the script starts itself under torch.distributed.run.)
 
 Exits non-zero without a CUDA device, or when any phase fails.  The last
 line of standard output is {"ok": true, "device": {...}}; the line before
@@ -141,6 +144,20 @@ BIG_ROWS = {'mom_rk (512^3, no nu_t)': ('mom_rk', 'tgv'),
 HALO_ROWS = {'mom_rk (y halo)': 'mom_rk', 'fillps (y halo)': 'fillps',
              'correc_updatep (y halo)': 'correc_updatep',
              'smag (y halo)': 'smag'}
+# the y-walled slab of the y-slab mesh (phases 10y, 10yc, 10ys): the
+# y-walled variants on a slab's own y-row stacks (the wall recipe's rows
+# on the side it owns, halo rows elsewhere; dsmag's YW + YH mode), each
+# reported as a kernel of its own, timed in phase 2b at the headline's slab
+# on dims (2, 1) (nx, ny/2, nz) on a slab that owns the lower wall and on
+# one that owns the upper: report name -> (kernel, dsmag's average)
+WALLED_SLAB_NG = (512, 128, 256)
+WALLED_SLAB_ROWS = {'mom_rk (y walls, slab)': ('mom_rk', None),
+                    'fillps (y walls, slab)': ('fillps', None),
+                    'correc_updatep (y walls, slab)': ('correc_updatep',
+                                                       None),
+                    'smag (y walls, slab)': ('smag', None),
+                    'dsmag (y walls, slab, duct)': ('dsmag', 'duct'),
+                    'dsmag (y walls, slab, cavity)': ('dsmag', 'cavity')}
 LES_KERNELS = ('mom_rk', 'fillps', 'correc_smag')
 # H100 SXM data-sheet rates: HBM
 # bytes/s and float32 / float64 FLOP/s outside the tensor cores
@@ -1059,6 +1076,169 @@ def phase_kernels(dev, card):
         _time_row(rows, row, name, d, variant, card, cache)
     del d, cache
     torch.cuda.empty_cache()
+    rows.update(walled_slab_rows(dev, card))
+    return rows
+
+
+def walled_slab_inputs(dev, dtype, own, seed):
+    """The inputs of the y-walled slab variants on a slab of WALLED_SLAB_NG
+    that owns the y walls own = (lower, upper): seeded random interiors,
+    z-edge stacks and halo rows (one and two deep) on the card, the wall
+    stacks of the duct's fill (DUCT_CFG's letters, MOVING's values) built
+    on the slab as the main path builds them, and the slab's y-row stacks
+    (boundary.slab_ystack).  Returns (sim, {name: (args, kwargs)}), the
+    wrappers' and twins' arguments by kernel ('dsmag duct', 'dsmag
+    cavity')."""
+    from cales_torch.config import Config
+    from cales_torch.grid import make_grid_from_config
+    from cales_torch.ops import boundary as bnd
+    from cales_torch.timeloop import Simulation
+    cfg = Config(**{**DUCT_CFG, 'ng': WALLED_SLAB_NG, 'bcvel': MOVING,
+                    'sgstype': 'smag', 'dtype': str(dtype)[6:]})
+    sim = Simulation(cfg, make_grid_from_config(cfg), device=dev)
+    nx, ny, nz = cfg.ng
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape, scale=0.02):
+        return scale * torch.randn(shape, generator=gen, device=dev,
+                                   dtype=dtype)
+    u, v, w, p, pp, ru, rv, rw = (rnd(nz, ny, nx) for _ in range(8))
+    s = 1e-3 * torch.rand((nz, ny, nx), generator=gen, device=dev,
+                          dtype=dtype)
+    bcs = (sim.bcu_vals, sim.bcv_vals, sim.bcw_vals)
+    ue, ve, we = sim._zedge_vel(u, v, w, *bcs)
+    se, pe, ppe = sim._zedge_s(s), sim._zedge_p(p), sim._zedge_p(pp)
+
+    def halo(q, depth=1):
+        return (rnd(q.shape[0], 2 * depth, nx), rnd(3, 2 * depth, nx))
+
+    def slab(fields, edges, walls, depth=1):
+        h = [halo(q, depth) for q in fields]
+        return [bnd.slab_ystack(q, e, y, hh, own)
+                for q, e, y, hh in zip(fields, edges, walls, h)], h
+    # the post-correction fill (mom_rk, smag, dsmag) and the prediction
+    # fill (fillps, correc_updatep)
+    vlo = (None, torch.zeros((nz + 2, nx + 2), dtype=dtype, device=dev),
+           torch.zeros((ny + 2, nx + 2), dtype=dtype, device=dev))
+    post = sim._yedge_vel(u, v, w, bcs, vlo=vlo, is_correc=True)
+    ymom, _ = slab((u, v, w, s, p), (ue, ve, we, se, pe),
+                   (*post, sim._yedge_s(s), sim._yedge_p(p)))
+    ypred, _ = slab((v,), (ve,), (sim._yedge_vel(u, v, w)[1],))
+    (ypp,), _ = slab((pp,), (ppe,), (sim._yedge_p(pp),))
+    yds, h2 = slab((u, v, w), (ue, ve, we), post, depth=2)
+    dxi, dyi = cfg.dli[0], cfg.dli[1]
+    ywall = (sim.dwy_t, sim.nearylo_t, 1e-2 * (1.0 + rnd(nz, nx)),
+             1e-2 * (1.0 + rnd(nz, nx)))
+    tauw = [1e-2 * (1.0 + rnd(ny, nx)) for _ in range(2)]
+    alph2 = torch.full((nz,), 4.0, dtype=dtype, device=dev)
+    alph2[0] = alph2[-1] = 2.52
+    ds = ((u, v, w, ue, ve, we, alph2, sim.dzci_t, sim.dzfi_t, dxi, dyi,
+           True, True, sim.dsmag_zvals),
+          dict(ye=yds, yh=h2, yown=own, yvals=sim.dsmag_yvals))
+    calls = {
+        'mom_rk': ((u, v, w, s, p, ue, ve, we, se, pe, ru, rv, rw,
+                    sim.dzci_t, sim.dzfi_t, 0.01, -0.005, cfg.visc, dxi, dyi,
+                    cfg.bforce), dict(sums=(True, False), ye=ymom)),
+        'fillps': ((u, v, w, ue, ve, we, sim.dzfi_t, 100.0, dxi, dyi),
+                   dict(yv=ypred[0])),
+        'correc_updatep': ((u, v, w, pp, p, we, ppe, 0.01, dxi, dyi,
+                            sim.dzci_t, sim.dzfi_t),
+                           dict(ypp=ypp, yv=ypred[0][0])),
+        'smag': ((u, v, w, ue, ve, we, sim.dzci_t, sim.dzfi_t, dxi, dyi,
+                  cfg.visc, sim.csd2_t, sim.dw_t, sim.nearlo_t, *tauw),
+                 dict(ye=ymom[:3], ywall=ywall)),
+        'dsmag duct': (ds[0], dict(ds[1], avg='duct')),
+        'dsmag cavity': (ds[0], dict(ds[1], avg='cavity'))}
+    return sim, calls
+
+
+def walled_slab_rows(dev, card):
+    """Phase 2b's rows of the y-walled slab variants (WALLED_SLAB_ROWS):
+    each on a slab that owns the lower wall and on one that owns the upper,
+    its float32 kernel against its float32 twin (within 1e-5 of each
+    output's maximum, as phase 2b's random inputs hold) and against the
+    float64 twin on the same inputs (reported), both timed (CUDA events),
+    and its bound: each interior and each stack and halo read once, each
+    output written once, or its arithmetic."""
+    from cales_torch.ops import kernels as K
+
+    def outputs(res, name):
+        res = [q for q in (res if isinstance(res, tuple) else (res,))
+               if q is not None]
+        if name == 'mom_rk':        # the partial sums: per-plane totals
+            res[-1] = res[-1].sum(dim=1)
+        if name == 'dsmag' and len(res) == 3:   # per-row totals
+            res[1:] = [q.sum(dim=-1) for q in res[1:]]
+        return res
+
+    def to64(x):
+        if torch.is_tensor(x):
+            return x.double() if x.is_floating_point() else x
+        if isinstance(x, (list, tuple)):
+            return type(x)(to64(q) for q in x)
+        if isinstance(x, dict):
+            return {k: to64(q) for k, q in x.items()}
+        return x
+    say(f'phase 2b: the y-walled slab variants at (nx, ny, nz) = '
+        f'{WALLED_SLAB_NG}, float32, on the lower and the upper wall\'s '
+        f'slab  [{card}]')
+    rows = {}
+    for own, side in (((True, False), 'lower'), ((False, True), 'upper')):
+        _, calls = walled_slab_inputs(dev, torch.float32, own,
+                                      SEED + (7 if own[0] else 8))
+        for row, (name, avg) in WALLED_SLAB_ROWS.items():
+            a, kw = calls[name if avg is None else f'{name} {avg}']
+            fn, twin = getattr(K, name), getattr(K, f'{name}_plain')
+            got, ref = outputs(fn(*a, **kw), name), outputs(twin(*a, **kw),
+                                                            name)
+            ref64 = outputs(twin(*to64(a), **to64(kw)), name)
+            errs = [(float((g - r).abs().max()),
+                     float((g - r).abs().max() / r.abs().max()))
+                    for g, r in zip(got, ref)]
+            rel64 = max(float((g.double() - r).abs().max() / r.abs().max())
+                        for g, r in zip(got, ref64))
+            worst = max(e[0] for e in errs)
+            worst_rel = max(e[1] for e in errs)
+            tag = f'{row} [{side} wall]'
+            require(all(np.isfinite(e[0]) and e[1] <= 1e-5 for e in errs),
+                    f'{tag}: error {worst_rel:.3e} of an output maximum, '
+                    'above 1e-5')
+            ms = time_ms(lambda: fn(*a, **kw))
+            plain_ms = time_ms(lambda: twin(*a, **kw), n=3)
+            u = a[0]
+            nin, nout, per_cell = ((8, 6, 230) if name == 'mom_rk'
+                                   else WORK[name])
+            if name == 'dsmag' and avg == 'cavity':
+                nout = 1
+            stacks = _flat([kw.get(k) for k in ('ye', 'yv', 'ypp', 'yh',
+                                                'ywall')])
+            nbytes = ((nin + nout) * u.numel() * u.element_size()
+                      + sum(q.numel() * q.element_size() for q in stacks))
+            t_b = nbytes / PEAK_BPS * 1e3
+            t_o = per_cell * u.numel() / PEAK_FLOPS[u.dtype] * 1e3
+            say(f'  {tag:<40s} max|err| {worst:.3e} (per output / its '
+                f'max|ref|: ' + ' '.join(f'{e[1]:.1e}' for e in errs)
+                + f'; float32 against the float64 twin {rel64:.2e}), kernel '
+                f'{ms:.4f} ms, plain twin {plain_ms:.3f} ms, bound '
+                f'{max(t_b, t_o):.4f} ms by '
+                f'{"bytes" if t_b >= t_o else "operations"}  [{card}]')
+            if own[0]:
+                rows[row] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                                 bound_ms=max(t_b, t_o),
+                                 bound_by='bytes' if t_b >= t_o
+                                 else 'operations', library_ms=None,
+                                 max_rel_err=worst_rel,
+                                 f32_vs_f64_twin=rel64,
+                                 shape=list(WALLED_SLAB_NG))
+            else:
+                r = rows[row]
+                r.update(ms_upper_wall_slab=ms,
+                         plain_ms_upper_wall_slab=plain_ms,
+                         max_abs_err=max(r['max_abs_err'], worst),
+                         max_rel_err=max(r['max_rel_err'], worst_rel),
+                         f32_vs_f64_twin=max(r['f32_vs_f64_twin'], rel64))
+        del calls
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -2195,8 +2375,13 @@ def _timed(fn, mesh, n):
 
 
 def _flat(x):
-    """The tensors of a nest of tuples and lists."""
-    return [x] if torch.is_tensor(x) else [q for y in x for q in _flat(y)]
+    """The tensors of a nest of tuples and lists, Nones and other values
+    left out."""
+    if torch.is_tensor(x):
+        return [x]
+    if isinstance(x, (list, tuple)):
+        return [q for y in x for q in _flat(y)]
+    return []
 
 
 def _halo_kernel_rows(sim, state, mesh, dt, card):
@@ -2565,10 +2750,36 @@ MESH_CLASSES = (
     ('10d', "dsmag channel, 'channel', impdiff_1d",
      dict(DSMAG_CFG, dims=(2, 1)), 'dsmag (y halo)',
      dict(mom_rk=3, fillps=3, correc_updatep=3, dsmag=3, apply_x=6,
-          apply_y=6, thomas_z=12), {'dsmag': 1}))
+          apply_y=6, thomas_z=12), {'dsmag': 1}),
+    # the y-walled classes (their slab variants' rows are phase 2b's,
+    # WALLED_SLAB_ROWS; the initial nu_t is a kernel's launch on a slab)
+    ('10y', "dsmag duct, 'duct' (duct_les_dsmag)",
+     dict(DUCT_CFG, dims=(2, 1)), None,
+     dict(mom_rk=3, fillps=3, correc_updatep=3, dsmag=3, apply_x=6,
+          apply_y=6, thomas_z=3), {'dsmag': 1}),
+    ('10yc', "dsmag cavity, 'cavity' (cavity_les_dsmag)",
+     dict(CAVITY_CFG, dims=(2, 1)), None,
+     dict(mom_rk=3, fillps=3, correc_updatep=3, dsmag=3, apply_x=6,
+          apply_y=6, thomas_z=3), {'dsmag': 1}),
+    ('10ys', 'static-Smagorinsky duct (duct_les_dsmag with smag)',
+     dict(DUCT_CFG, sgstype='smag', dims=(2, 1)), None,
+     dict(mom_rk=3, fillps=3, correc_updatep=3, smag=3, apply_x=6,
+          apply_y=6, thomas_z=3), {'smag': 1}))
 # report row -> kernel
 MESH_LES_ROWS = {'mom_rk (y halo, split 1d)': 'mom_rk',
                  'wallmodel (y halo)': 'wallmodel', 'dsmag (y halo)': 'dsmag'}
+# the classes run only as their small float64 twin on the mesh: the duct
+# with sgstype 'none'
+MESH_SMALL_ONLY = (('10yn', "'none' duct",
+                    dict(DUCT_CFG, sgstype='none', dims=(2, 1))),)
+# the y-walled slab rows of phase 2b -> the mesh phase whose main path
+# launches them
+WALLED_SLAB_PHASE = {'mom_rk (y walls, slab)': '10y',
+                     'fillps (y walls, slab)': '10y',
+                     'correc_updatep (y walls, slab)': '10y',
+                     'smag (y walls, slab)': '10ys',
+                     'dsmag (y walls, slab, duct)': '10y',
+                     'dsmag (y walls, slab, cavity)': '10yc'}
 
 
 def _outside(outside, cfg, nsteps):
@@ -2586,10 +2797,26 @@ def _small(kw):
 
 def _mesh_gates(sim, state, mesh):
     """The PERF.md section 2 gates on the slabs, reduced over the ranks:
-    (finite, divmax, bulk u, nu_t min and max, max |w| on the z walls)."""
+    (finite, divmax, bulk u, nu_t min and max, max |w| on the z walls,
+    max |v| on the y walls (each on its owner: the kept lower face, the
+    upper face's row), and v on the upper z face against its value b, the
+    fill's mean of the last row and the ghost, where that face is a wall
+    without a wall model: the cavity's lid; None elsewhere)."""
     _, _, divmax = sim.check(state)
     fields = (state.u, state.v, state.w, state.p, state.visct)
+    vy = 0.0
+    if sim.yown is not None:
+        if sim.yown[0]:
+            vy = float(state.vlo[1][1:-1, 1:-1].abs().max())
+        if sim.yown[1]:
+            vy = max(vy, float(state.v[:, -1].abs().max()))
+    lid = None
+    if sim.cbcvel[1][2][1] == 'D' and sim.cfg.lwm[1][2] == 0:
+        lid = mesh.reduce_scalar(float((0.5 * (state.v[-1] + state.zq[1][2])
+                                        - sim.bcv_vals[2][1]).abs().max()),
+                                 'max')
     return dict(
+        v_ywalls=mesh.reduce_scalar(vy, 'max'), v_lid=lid,
         finite=mesh.reduce_scalar(
             float(all(bool(torch.isfinite(f).all()) for f in fields)),
             'min'),
@@ -2703,6 +2930,35 @@ def _mesh_les_row(row, sim, state, mesh, dt, card):
     return rows
 
 
+def _mesh_small(key, kw, mesh, dev, out_dir):
+    """A class's small float64 twin on the slabs, 3 steps from the
+    perturbed start; rank 0 writes the gathered fields (and the kept wall
+    planes, vlo[1] its own and vlo[2] over the slabs' rows) for the
+    parent."""
+    from cales_torch.config import Config
+    from cales_torch.grid import make_grid_from_config
+    from cales_torch.parallel import mesh as meshmod
+    from cales_torch.timeloop import Simulation
+    cfg64 = Config(**_small(kw))
+    m64 = meshmod.SlabMesh(mesh.comm, cfg64.dims, cfg64.ng)
+    sim = Simulation(cfg64, make_grid_from_config(cfg64), device=dev,
+                     mesh=m64)
+    st = sim.initial_state(*_perturbed_fields(cfg64, SEED + 5))
+    dt = sim.pick_dt(sim.check(st)[0])
+    for _ in range(3):
+        st, _ = sim.step(st, dt)
+    small = {q: m64.gather(getattr(st, q))
+             for q in ('u', 'v', 'w', 'p', 'visct')}
+    w2 = [q.cpu().numpy()
+          for q in m64.comm.all_gather(st.vlo[2].contiguous())]
+    small['vlo2'] = np.concatenate([w2[0][:1]] + [q[1:-1] for q in w2]
+                                   + [w2[-1][-1:]])
+    small['vlo1'] = st.vlo[1].cpu().numpy()
+    if mesh.rank == 0:
+        np.savez(out_dir / f'small_{key}.npz', dt=dt, **small)
+    del sim, st
+
+
 def sharded_les_rank(out_dir):
     """sharded_les_rank_body, with a failure's traceback written to
     DIR/rank<r>.err for the parent to show."""
@@ -2716,18 +2972,17 @@ def sharded_les_rank(out_dir):
 
 
 def sharded_les_rank_body(out_dir):
-    """One rank of phases 10i, 10w and 10d (started under
+    """One rank of phases 10i, 10w, 10d, 10y, 10yc and 10ys (started under
     torch.distributed.run, two ranks on the one card over gloo, staged
     through pinned host buffers): each class at the headline grid through
     driver.run with every launch count set to 0 just before and read just
-    after, its gates, its ms/step, its slab variant against its twin, and
-    its small f64 twin, whose gathered fields rank 0 writes for the
-    parent; 10d also takes one step with 'dit'."""
+    after, its gates, its ms/step, its slab variant against its twin (the
+    channel classes'), and its small f64 twin, whose gathered fields rank
+    0 writes for the parent; 10d also takes one step with 'dit', and the
+    'none' duct runs its small twin only."""
     from cales_torch import driver
     from cales_torch.config import Config
-    from cales_torch.grid import make_grid_from_config
     from cales_torch.parallel import mesh as meshmod
-    from cales_torch.timeloop import Simulation
     out_dir = Path(out_dir)
     first = Config(**MESH_CLASSES[0][2])
     mesh, dev = meshmod.from_env(first.dims, first.ng, 'cuda', 'gloo')
@@ -2736,7 +2991,12 @@ def sharded_les_rank_body(out_dir):
     res = {'rank': rank, 'card': card}
     runs = [(key, kw) for key, _, kw, *_ in MESH_CLASSES]
     runs.append(('10d dit', dict(MESH_CLASSES[2][2], dsmag_avg='dit')))
+    runs += [(key, kw) for key, _, kw in MESH_SMALL_ONLY]
+    small_only = {key for key, *_ in MESH_SMALL_ONLY}
     for key, kw in runs:
+        if key in small_only:
+            _mesh_small(key, kw, mesh, dev, out_dir)
+            continue
         cfg = Config(**kw)
         m = meshmod.SlabMesh(mesh.comm, cfg.dims, cfg.ng)
         nsteps = 1 if key == '10d dit' else MESH_LES_STEPS
@@ -2773,49 +3033,72 @@ def sharded_les_rank_body(out_dir):
             del sim, state
             continue
         row = [c[3] for c in MESH_CLASSES if c[0] == key][0]
-        r['halo_rows'] = _mesh_les_row(row, sim, state, m, dt, card)
+        if row is not None:
+            r['halo_rows'] = _mesh_les_row(row, sim, state, m, dt, card)
         del sim, state
         torch.cuda.empty_cache()
-        # the small f64 twin on the slabs, 3 steps from the perturbed start
-        cfg64 = Config(**_small(kw))
-        m64 = meshmod.SlabMesh(mesh.comm, cfg64.dims, cfg64.ng)
-        sim = Simulation(cfg64, make_grid_from_config(cfg64), device=dev,
-                         mesh=m64)
-        st = sim.initial_state(*_perturbed_fields(cfg64, SEED + 5))
-        dt = sim.pick_dt(sim.check(st)[0])
-        for _ in range(3):
-            st, _ = sim.step(st, dt)
-        small = {q: m64.gather(getattr(st, q))
-                 for q in ('u', 'v', 'w', 'p', 'visct')}
-        if rank == 0:
-            np.savez(out_dir / f'small_{key}.npz', dt=dt, **small)
+        _mesh_small(key, kw, mesh, dev, out_dir)
         res[key] = r
-        del sim, st
     (out_dir / f'rank{rank}.json').write_text(json.dumps(res))
     mesh.barrier()
     torch.distributed.destroy_process_group()
     return 0
 
 
-def phase_sharded_les(dev, card):
-    """Phases 10i, 10w and 10d: the channel DNS with impdiff_1d, the
-    wall-modelled channel LES and the dsmag channel ('channel', impdiff_1d;
-    then one step with 'dit') on a y-slab mesh, dims = (2, 1), two ranks
-    sharing the one card over gloo staged through the host (as phase 10:
-    its ms/step is a correctness run's, no scaling figure), each at
-    512x256x256 f32 with the PERF.md section 2 gates and exact launches,
-    its slab kernel variant against its twin, and its small f64 twin
-    against the single-device 'mat' + Thomas run on the card within
-    1e-11.  Returns ({key: rank 0's launches}, the report rows)."""
+def _small_vs_one_device(tag, kw, small, dev, ywalled):
+    """A class's small f64 twin on the mesh (small: rank 0's gathered
+    fields) against the single-device 'mat' + Thomas run on the card
+    within 1e-11, p without its mean; with y walls the kept planes vlo[1]
+    and vlo[2] too.  Returns the errors by name."""
     from cales_torch.config import Config
     from cales_torch.grid import make_grid_from_config
     from cales_torch.timeloop import Simulation
+    cfg1 = Config(**{**_small(kw), 'dims': (1, 1), 'zsolver': 'thomas'})
+    sim = Simulation(cfg1, make_grid_from_config(cfg1), device=dev)
+    st = sim.initial_state(*_perturbed_fields(cfg1, SEED + 5))
+    for _ in range(3):
+        st, _ = sim.step(st, float(small['dt']))
+    say(f'  {tag}: gy = 2 against one device, {cfg1.ng} float64, 3 '
+        f'steps, on the card:')
+    names = ('u', 'v', 'w', 'p', 'visct') + (('vlo1', 'vlo2') if ywalled
+                                              else ())
+    out = {}
+    for name in names:
+        ref = (st.vlo[int(name[-1])] if name.startswith('vlo')
+               else getattr(st, name))
+        a, b = small[name], ref.cpu().numpy()
+        if name == 'p':
+            a, b = a - a.mean(), b - b.mean()
+        err = float(np.abs(a - b).max())
+        say(f'    {name:<5s} max|err| {err:.3e} (bound 1e-11)')
+        require(err <= 1e-11, f'{tag} f64 {name}: {err:.3e}')
+        out[f'f64_{name}_err'] = err
+    return out
+
+
+def phase_sharded_les(dev, card):
+    """Phases 10i, 10w and 10d: the channel DNS with impdiff_1d, the
+    wall-modelled channel LES and the dsmag channel ('channel', impdiff_1d;
+    then one step with 'dit'); 10y, 10yc and 10ys: the y-walled dsmag duct
+    ('duct'), dsmag cavity ('cavity', the lid on v) and static-Smagorinsky
+    duct, on a y-slab mesh, dims = (2, 1), two ranks
+    sharing the one card over gloo staged through the host (as phase 10:
+    its ms/step is a correctness run's, no scaling figure), each at
+    512x256x256 f32 with the PERF.md section 2 gates (with y walls v on
+    them, each on its owner; v on the cavity's lid) and exact launches,
+    the channel classes' slab kernel variant against its twin, and each
+    class's small f64 twin (the 'none' duct's alone, 10yn) against the
+    single-device 'mat' + Thomas run on the card within 1e-11 (with y
+    walls the kept planes too).  Returns ({key: rank 0's launches}, the
+    report rows)."""
+    from cales_torch.config import Config
     torch.cuda.empty_cache()
     env = dict(os.environ)
     env.setdefault('GLOO_SOCKET_IFNAME', 'lo')
-    say(f'phases 10i, 10w, 10d: the channel classes on a y-slab mesh, dims '
-        f'(2, 1), {HEADLINE_NG} float32, two ranks on one card (gloo, '
-        f'staged through the host)  [{card}]')
+    say(f'phases 10i, 10w, 10d, 10y, 10yc, 10ys: the channel, duct and '
+        f'cavity classes on a y-slab mesh, dims (2, 1), {HEADLINE_NG} '
+        f'float32, two ranks on one card (gloo, staged through the host)  '
+        f'[{card}]')
     with tempfile.TemporaryDirectory() as tmp:
         cmd = [sys.executable, '-m', 'torch.distributed.run', '--standalone',
                '--nproc_per_node', '2', str(ROOT / 'chip_smoke.py'),
@@ -2829,12 +3112,12 @@ def phase_sharded_les(dev, card):
             say(f'  | {line}')
         errs = ''.join(f'rank {r}:\n{q.read_text()}' for r in range(2)
                        for q in [Path(tmp) / f'rank{r}.err'] if q.exists())
-        require(res.returncode == 0, f'a rank of phases 10i-10d failed:\n'
+        require(res.returncode == 0, f'a rank of phases 10i-10ys failed:\n'
                                      f'{errs or res.stderr[-4000:]}')
         ranks = [json.loads((Path(tmp) / f'rank{r}.json').read_text())
                  for r in range(2)]
         smalls = {key: dict(np.load(Path(tmp) / f'small_{key}.npz'))
-                  for key, *_ in MESH_CLASSES}
+                  for key, *_ in (*MESH_CLASSES, *MESH_SMALL_ONLY)}
     small_eps = float(np.sqrt(np.finfo(np.float32).eps) * 10)
     launches, rows = {}, {}
     per = {c[0]: c for c in MESH_CLASSES}
@@ -2844,6 +3127,7 @@ def phase_sharded_les(dev, card):
     report = {}
     for key, (_, title, kw, row, per_step, outside) in per.items():
         cfg = Config(**kw)
+        ywalled = cfg.cbc_vel(1, 1) != 'PP'
         for rk in ranks:
             r = rk[key]
             want_out = _outside(outside, cfg, r['steps'])
@@ -2865,14 +3149,26 @@ def phase_sharded_les(dev, card):
         say(f'  divmax {r0["divmax"]:.3e} (abort bound {small_eps:.3e}), '
             f'bulk u {r0["bulk_u"]:.7f}, nu_t in [{r0["nu_t_min"]:.4e}, '
             f'{r0["nu_t_max"]:.4e}], max |w| on the z walls '
-            f'{r0["w_walls"]:.3e}, peak memory a rank '
+            f'{r0["w_walls"]:.3e}, max |v| on the y walls '
+            f'{r0["v_ywalls"]:.3e}'
+            + ('' if r0['v_lid'] is None else
+               f', v on the upper z face against its value '
+               f'{cfg.bcvel[1][2][1]} {r0["v_lid"]:.3e}')
+            + ', peak memory a rank '
             + ', '.join(f'{rk[key]["peak_gib"]:.2f}' for rk in ranks)
             + f' GiB  [{card}]')
         require(r0['finite'] == 1.0, f'{tag}: non-finite field')
         require(r0['divmax'] <= small_eps, f'{tag}: divmax '
                                            f'{r0["divmax"]:.3e}')
-        require(abs(r0['bulk_u'] - 1.0) <= 1e-4,
-                f'{tag}: bulk u {r0["bulk_u"]:.7f}, want 1')
+        if any(cfg.is_forced):
+            require(abs(r0['bulk_u'] - 1.0) <= 1e-4,
+                    f'{tag}: bulk u {r0["bulk_u"]:.7f}, want 1')
+        if ywalled:
+            require(r0['v_ywalls'] <= 1e-6, f'{tag}: v on the y walls '
+                                            f'{r0["v_ywalls"]:.3e}')
+        if r0['v_lid'] is not None:
+            require(r0['v_lid'] <= 1e-5, f'{tag}: v on the upper z face '
+                                         f'{r0["v_lid"]:.3e} from its value')
         require(r0['nu_t_min'] >= 0.0, f'{tag}: nu_t min {r0["nu_t_min"]}')
         require((r0['nu_t_max'] > 0.0) == (cfg.sgstype != 'none'),
                 f'{tag}: nu_t max {r0["nu_t_max"]}')
@@ -2883,27 +3179,16 @@ def phase_sharded_les(dev, card):
                                             'planes')
         report[key] = {k: r0[k] for k in ('ms_per_step', 'divmax', 'bulk_u',
                                            'nu_t_min', 'nu_t_max',
-                                           'w_walls')} | {'card': card}
+                                           'w_walls', 'v_ywalls',
+                                           'v_lid')} | {'card': card}
         rows.update(r0.get('halo_rows', {}))
-        if key not in smalls:
-            continue
-        # the small f64 twin against the single-device 'mat' + Thomas run
-        cfg1 = Config(**{**_small(kw), 'dims': (1, 1), 'zsolver': 'thomas'})
-        sim = Simulation(cfg1, make_grid_from_config(cfg1), device=dev)
-        st = sim.initial_state(*_perturbed_fields(cfg1, SEED + 5))
-        small = smalls[key]
-        for _ in range(3):
-            st, _ = sim.step(st, float(small['dt']))
-        say(f'  gy = 2 against one device, {cfg1.ng} float64, 3 steps, on '
-            f'the card:')
-        for name in ('u', 'v', 'w', 'p', 'visct'):
-            a, b = small[name], getattr(st, name).cpu().numpy()
-            if name == 'p':
-                a, b = a - a.mean(), b - b.mean()
-            err = float(np.abs(a - b).max())
-            say(f'    {name:<5s} max|err| {err:.3e} (bound 1e-11)')
-            require(err <= 1e-11, f'{tag} f64 {name}: {err:.3e}')
-            report[key][f'f64_{name}_err'] = err
+        if key in smalls:
+            report[key].update(_small_vs_one_device(tag, kw, smalls[key],
+                                                    dev, ywalled))
+    for key, title, kw in MESH_SMALL_ONLY:
+        report[key] = _small_vs_one_device(f'phase {key}: {title}', kw,
+                                           smalls[key], dev, True)
+        report[key]['card'] = card
     print(json.dumps({'mesh_classes_2x1': report}), flush=True)
     return launches, rows
 
@@ -3010,7 +3295,13 @@ def main():
     # steps; the wall model's launches there include the initial fill's
     # and the checks', dsmag's the initial nu_t's)
     for key, _, _, row, _, _ in MESH_CLASSES:
-        paths[row] = (les_mesh[key], MESH_LES_STEPS, MESH_LES_ROWS[row])
+        if row is not None:
+            paths[row] = (les_mesh[key], MESH_LES_STEPS, MESH_LES_ROWS[row])
+    # the y-walled slab variants on the duct, cavity and smag duct mesh
+    # phases (rank 0, the lower wall's slab, 3 steps; dsmag's and smag's
+    # launches there include the initial nu_t's)
+    for row, (name, _) in WALLED_SLAB_ROWS.items():
+        paths[row] = (les_mesh[WALLED_SLAB_PHASE[row]], MESH_LES_STEPS, name)
     # the x-walled variants' on the developing channel (phase 11, 5 steps)
     # and the lid-driven cavity (phase 11b, 5 steps)
     variant_path = {'duct': duct, 'cavity': cavity, 'helmholtz3d': dns3,
@@ -3056,7 +3347,8 @@ def main():
                **{row: KERNELS[n] for row, (n, _) in VARIANT_ROWS.items()},
                **{row: KERNELS[n] for row, (n, _) in BIG_ROWS.items()},
                **{row: KERNELS[n] for row, n in HALO_ROWS.items()},
-               **{row: KERNELS[n] for row, n in MESH_LES_ROWS.items()}}
+               **{row: KERNELS[n] for row, n in MESH_LES_ROWS.items()},
+               **{row: KERNELS[n] for row, (n, _) in WALLED_SLAB_ROWS.items()}}
     report = {'kernels': [
         dict(name=row, route='cuda', source=sources[row][0],
              replaces=sources[row][1], launches=run[name],

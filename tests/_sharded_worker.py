@@ -105,6 +105,13 @@ def case_steps(m, inp, out, key, kw, nsteps):
         st, _ = sim.step(st, dt)
     for name in ('u', 'v', 'w', 'p', 'visct'):
         out[f'{key}.{name}'] = m.gather(getattr(st, name))
+    # the kept wall planes: v's lower y face from rank 0 (the lower y
+    # wall's owner), w's lower z face over the slabs' rows, its y ghost
+    # rows from the ranks that own the y walls
+    out[f'{key}.vlo1'] = st.vlo[1].numpy()
+    w2 = [q.numpy() for q in m.comm.all_gather(st.vlo[2].contiguous())]
+    out[f'{key}.vlo2'] = np.concatenate(
+        [w2[0][:1]] + [q[1:-1] for q in w2] + [w2[-1][-1:]])
     out[f'{key}.check'] = np.array(sim.check(st))
     out[f'{key}.bulk'] = np.array(sim.bulk_mean(st.u, sim.gvr_f))
     out[f'{key}.names'] = np.array(sim.kernel_names())

@@ -2173,3 +2173,102 @@ def test_cuda_slab_les_kernels_match_twins(dev, dtype, shape):
     torch.cuda.synchronize()
     assert (K.LAUNCHES['dsmag'], K.LAUNCHES['wallmodel'],
             K.LAUNCHES['mom_rk']) == (2, 1, 2)
+
+
+# the y-walled classes' letters (bench.py's duct and cavity), with moving
+# wall-parallel values on some y and z faces: (face, dir, comp)
+_DUCT_BCS = dict(
+    cbcvel=((('P', 'P', 'P'), ('D', 'D', 'D'), ('D', 'D', 'D')),) * 2,
+    cbcpre=(('P', 'N', 'N'),) * 2, cbcsgs=(('P', 'D', 'D'),) * 2,
+    bcvel=(((0.0,) * 3, (0.2, 0.0, -0.1), (0.0, 0.0, 0.0)),
+           ((0.0,) * 3, (0.0, 0.0, 0.3), (0.4, -0.3, 0.0))))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('own', [(True, False), (False, False),
+                                 (False, True)])
+@pytest.mark.parametrize('dtype, shape', [
+    ('float64', (40, 10, 12)), ('float32', (72, 19, 24)),
+    ('float64', (40, 2, 12))])
+def test_cuda_walled_slab_kernels_match_twins(dev, dtype, shape, own):
+    """The y-walled slab of the y-slab mesh: each kernel on a slab's own
+    y-row stacks (boundary.slab_ystack: the wall recipe's rows on the
+    side it owns, random halo rows elsewhere) against its twin, on the
+    lower, a middle and the upper slab, on (nx, nyl, nz) shapes no tile
+    fits and on a slab of 2 rows: mom_rk with nu_t, fillps,
+    correc_updatep, smag with the y walls' damping, and dsmag's YW + YH
+    mode with the 'duct', 'cavity' and 'channel' averages.  float64
+    within 1e-12 of each output's maximum (smag 1e-13 relative), float32
+    within 1e-5."""
+    from cales_torch.ops import boundary as bnd
+    nx, ny, nz = shape
+    dt = getattr(torch, dtype)
+    tol = 1e-12 if dt == torch.float64 else 1e-5
+    cfg = Config(ng=shape, l=(4 * np.pi, 2.0, 2.0), gtype=1, gr=1.0,
+                 visci=10_000.0, sgstype='smag', dtype=dtype,
+                 ptransform='mat', **_DUCT_BCS)
+    sim = Simulation(cfg, make_grid_from_config(cfg), device=dev)
+    rng = np.random.default_rng(31)
+
+    def r(*s, scale=0.05):
+        return torch.as_tensor(scale * rng.standard_normal(s), device=dev,
+                               dtype=dt)
+    u, v, w, p, pp, ru, rv, rw = (r(nz, ny, nx) for _ in range(8))
+    s = r(nz, ny, nx, scale=1e-3).abs()
+    bcs = (sim.bcu_vals, sim.bcv_vals, sim.bcw_vals)
+    ue, ve, we = sim._zedge_vel(u, v, w, *bcs)
+    se, pe, ppe = sim._zedge_s(s), sim._zedge_p(p), sim._zedge_p(pp)
+
+    def slab(fields, edges, walls, depth=1):
+        h = [(r(nz, 2 * depth, nx), r(3, 2 * depth, nx)) for _ in fields]
+        return [bnd.slab_ystack(q, e, y, hh, own)
+                for q, e, y, hh in zip(fields, edges, walls, h)], h
+    vlo = (None, torch.zeros((nz + 2, nx + 2), dtype=dt, device=dev),
+           torch.zeros((ny + 2, nx + 2), dtype=dt, device=dev))
+    post = sim._yedge_vel(u, v, w, bcs, vlo=vlo, is_correc=True)
+    ymom, _ = slab((u, v, w, s, p), (ue, ve, we, se, pe),
+                   (*post, sim._yedge_s(s), sim._yedge_p(p)))
+    (ypv,), _ = slab((v,), (ve,), (sim._yedge_vel(u, v, w)[1],))
+    (ypp,), _ = slab((pp,), (ppe,), (sim._yedge_p(pp),))
+    yds, h2 = slab((u, v, w), (ue, ve, we), post, depth=2)
+    dxi, dyi = cfg.dli[0], cfg.dli[1]
+    K.reset_launches()
+    mom = (u, v, w, s, p, ue, ve, we, se, pe, ru, rv, rw, sim.dzci_t,
+           sim.dzfi_t, 5e-4, -2e-4, cfg.visc, dxi, dyi, (0.1, 0.0, 0.0))
+    got = K.mom_rk(*mom, sums=(True, False), ye=ymom)
+    ref = K.mom_rk_plain(*mom, sums=(True, False), ye=ymom)
+    for g, q in zip(got[:6], ref[:6]):
+        _rel_close(g, q, tol)
+    _rel_close(got[6].sum(1), ref[6][:, 0], tol)
+    fp = (u, v, w, ue, ve, we, sim.dzfi_t, 100.0, dxi, dyi)
+    _rel_close(K.fillps(*fp, yv=ypv), K.fillps_plain(*fp, yv=ypv), tol)
+    cp = (u, v, w, pp, p, we, ppe, 0.01, dxi, dyi, sim.dzci_t, sim.dzfi_t)
+    for g, q in zip(K.correc_updatep(*cp, ypp=ypp, yv=ypv[0]),
+                    K.correc_updatep_plain(*cp, ypp=ypp, yv=ypv[0])):
+        _rel_close(g, q, tol)
+    ywall = (sim.dwy_t, sim.nearylo_t, r(nz, nx, scale=1e-2).abs() + 1e-2,
+             r(nz, nx, scale=1e-2).abs() + 1e-2)
+    tauw = [r(ny, nx, scale=1e-2).abs() + 1e-2 for _ in range(2)]
+    sm = (u, v, w, ue, ve, we, sim.dzci_t, sim.dzfi_t, dxi, dyi, cfg.visc,
+          sim.csd2_t, sim.dw_t, sim.nearlo_t, *tauw)
+    _rel_close(K.smag(*sm, ye=ymom[:3], ywall=ywall),
+               K.smag_plain(*sm, ye=ymom[:3], ywall=ywall),
+               1e-13 if dt == torch.float64 else tol)
+    alph2 = torch.full((nz,), 4.0, dtype=dt, device=dev)
+    alph2[0] = alph2[-1] = 2.52
+    ds = (u, v, w, ue, ve, we, alph2, sim.dzci_t, sim.dzfi_t, dxi, dyi,
+          True, True, sim.dsmag_zvals)
+    kw = dict(ye=yds, yh=h2, yown=own, yvals=sim.dsmag_yvals)
+    for avg in ('duct', 'cavity', 'channel'):
+        got = K.dsmag(*ds, avg=avg, **kw)
+        ref = K.dsmag_plain(*ds, avg=avg, **kw)
+        _rel_close(got[0], ref[0], tol)
+        if avg != 'cavity':
+            _rel_close(got[1].sum(-1), ref[1].reshape(ref[1].shape[0], -1)
+                       .sum(-1) if avg == 'channel' else ref[1][..., 0], tol)
+            _rel_close(got[2].sum(-1), ref[2].reshape(ref[2].shape[0], -1)
+                       .sum(-1) if avg == 'channel' else ref[2][..., 0], tol)
+    torch.cuda.synchronize()
+    assert (K.LAUNCHES['mom_rk'], K.LAUNCHES['fillps'],
+            K.LAUNCHES['correc_updatep'], K.LAUNCHES['smag'],
+            K.LAUNCHES['dsmag']) == (1, 1, 1, 1, 3)

@@ -318,7 +318,8 @@ def test_slab_with_cut_halos_is_the_whole_fields_rows():
     (dict(ptransform='fft'), "ptransform 'fft' under a device mesh"),
     (dict(cbcvel=((('P', 'P', 'P'), ('D', 'D', 'D'), ('D', 'D', 'D')),) * 2,
           cbcpre=(('P', 'N', 'N'), ('P', 'N', 'N')),
-          cbcsgs=(('P', 'D', 'D'), ('P', 'D', 'D')), sgstype='none'),
+          cbcsgs=(('P', 'D', 'D'), ('P', 'D', 'D')),
+          lwm=((0, 1, 1), (0, 1, 1)), hwm=0.2),
      'y walls under a device mesh'),
 ])
 def test_mesh_refusals(change, needle):
