@@ -64,7 +64,15 @@ upper wall's (the lower of (ny/2 rounded down to 16) rows, so the
 'channel' sums' 8-row groups and the tiles fall as on the whole field),
 their y-row stacks the whole field's wall rows and their halos its rows,
 the outputs joined along y, against the baseline's y-walled kernel on the
-whole field.
+whole field; the wall model's slab variant with periodic y ('wallmodel
+halo': the channel's z faces on the rows of the lower half of the field,
+their y halos its rows, both checkouts' slab variant) and the y-walled
+slab variant ('wallmodel slab duct': this checkout's on the lower and the
+upper half of the field, the duct's z faces' rows each slab makes and
+each y face on its owner, joined, against the baseline's four-face
+kernel on the whole field); dsmag's periodic-z mode on a slab ('dsmag
+slab zp': this checkout's ZP + YH on the two halves, |S| joined, against
+the baseline's ZP on the whole field).
 Outputs are compared in float64 at (nx, ny, nz) = (72, 40, 48) and in
 float32 at --ng (bitwise, and max|this - baseline| / max|baseline|, the
 worst output); mom_rk's partial sums, whose parts differ (blocks of 256
@@ -106,7 +114,8 @@ CASES = ('channel', 'duct', 'cavity', 'channel y walls', 'duct periodic y',
          'mom_rk x walls nu_t', 'mom_rk x 1d', 'mom_rk x+y walls nu_t',
          'dsmag zp', 'dsmag f2d', 'dsmag zp f2d', 'mom_rk halo 1d',
          'dsmag halo', 'dsmag slab duct', 'dsmag slab cavity',
-         'dsmag slab channel')
+         'dsmag slab channel', 'wallmodel halo', 'wallmodel slab duct',
+         'dsmag slab zp')
 # the cases at their own shape, in float32 only
 BIG = {'apply_y x+y 512^3': (512, 512, 512), 'mom_rk 512^3': (512, 512, 512),
        'thomas_periodic 512^3': (512, 512, 512),
@@ -114,7 +123,7 @@ BIG = {'apply_y x+y 512^3': (512, 512, 512), 'mom_rk 512^3': (512, 512, 512),
 # the cases whose last two outputs are partial sums, compared as totals
 SUMS = ('mom_rk',)
 # the cases timed on the device by a CUDA graph too
-GRAPH = ('wallmodel', 'wallmodel rows', 'wallmodel duct')
+GRAPH = ('wallmodel', 'wallmodel rows', 'wallmodel duct', 'wallmodel halo')
 
 
 def _baseline(root: Path):
@@ -290,11 +299,54 @@ def _dsmag_slabs(f, e, ye, args, kw):
                  for a, b in zip(*outs))
 
 
+def _wm_slabs(u, v, w, wm):
+    """This checkout's wall model on the lower and the upper half of the
+    fields as slabs of a y-walled mesh (wallmodel.slab_wall_model, their
+    z faces' y halos the field's rows), joined: each z face's bcu and bcv
+    rows the lower slab makes (padded 0 .. ny/2) and the upper's past
+    them, then each y face from its owner."""
+    from . import wallmodel as wmod
+    ny = u.shape[1]
+    cut = ny // 2
+    outs = {}
+    for y0, nyl, own in ((0, cut, (True, False)),
+                         (cut, ny - cut, (False, True))):
+        wms = wmod.slab_wall_model(wm, y0, nyl, own)
+        q = [a[:, y0:y0 + nyl].contiguous() for a in (u, v, w)]
+        rows = wmod.sampled_rows(u, v, wms)
+        yh = torch.stack([rows[:, (y0 - 1) % ny], rows[:, (y0 + nyl) % ny]],
+                         dim=1)
+        for f, p in zip(wms.faces, K.wm_planes(*q[:2], wms, w=q[2], yh=yh,
+                                               yown=own)):
+            outs.setdefault((f.d, f.ib), []).append(p)
+    return tuple(torch.cat([p[0][:, :cut + 1], p[1][:, 1:]], dim=1)
+                 if d == 2 else p[0] for (d, _), p in outs.items())
+
+
 def _call(mods, d, case):
     Km, SKm = mods
     if case.startswith('apply_y'):
         return (SKm.apply_y(d['f'][0], d['ny_op'],
                             d['nx_op'] if 'x+y' in case else None),)
+    if case == 'wallmodel slab duct':
+        f = d['f']
+        nz, ny, nx = f[0].shape
+        if Km is K:
+            return _wm_slabs(d['wm_u'], f[1], f[2],
+                             _duct_wm(Km, (nx, ny, nz)))
+        return tuple(Km.wm_planes(d['wm_u'], f[1], _duct_wm(Km, (nx, ny, nz)),
+                                  w=f[2]))
+    if case == 'wallmodel halo':
+        # the slab variant with periodic y on the lower half of the rows
+        f = d['f']
+        ny = f[1].shape[1]
+        wm = _channel_wm(Km, f[1].shape[0])
+        rows = torch.stack([q[r] for face in wm.faces
+                            for q in (d['wm_u'], f[1])
+                            for r in (face.r1, face.r2)])
+        yh = torch.stack([rows[:, ny - 1], rows[:, ny // 2]], dim=1)
+        q = [a[:, :ny // 2].contiguous() for a in (d['wm_u'], f[1])]
+        return tuple(Km.wm_planes(*q, wm, yh=yh))
     if case == 'wallmodel duct':
         f = d['f']
         nz, ny, nx = f[0].shape
@@ -404,6 +456,26 @@ def _call(mods, d, case):
         return Km.dsmag(*f[:3], *e[:3], d['alph2'], dz, dz, 40.0, 20.0, True,
                         True, (0.0, 0.02, 0.0, -0.01), avg='channel',
                         yh=d['yh2'])
+    if case == 'dsmag slab zp':
+        # the periodic-z mode on two slabs (this checkout) against the
+        # whole field's (the baseline): |S|
+        args = (d['alph2'], dz, dz, 40.0, 20.0, False, False,
+                (0.0, 0.0, 0.0, 0.0))
+        if Km is not K:
+            return Km.dsmag(*f[:3], *e[:3], *args, avg='channel',
+                            zper=True)[:1]
+        ny = f[0].shape[1]
+        cut = ny // 2 // 16 * 16
+        out = []
+        for lo, hi in ((0, cut), (cut, ny)):
+            rows = [(lo - 2) % ny, (lo - 1) % ny, hi % ny, (hi + 1) % ny]
+            q = [a[:, lo:hi].contiguous() for a in f[:3]]
+            qe = [a[:, lo:hi].contiguous() for a in e[:3]]
+            yh = [(a[:, rows].contiguous(), b[:, rows].contiguous())
+                  for a, b in zip(f[:3], e[:3])]
+            out.append(K.dsmag(*q, *qe, *args, avg='channel', zper=True,
+                               yh=yh)[0])
+        return (torch.cat(out, dim=1),)
     if case.startswith('dsmag slab'):
         # the slab mode with y walls (this checkout) against the whole
         # field's y-walled kernel (the baseline)

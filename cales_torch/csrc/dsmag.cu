@@ -55,7 +55,10 @@
 // (parallel/mesh.halo_y) where the whole field wraps.  Everything after
 // the load is the periodic kernel's: A's y ghosts and the filtered
 // velocity's are those of real rows, as with periodic y.  The sums are
-// the slab's; the caller reduces the z rows' sums over the ranks.
+// the slab's; the caller reduces the z rows' sums over the ranks.  ZP and
+// YH together are a slab of the periodic box (the triperiodic LES with
+// 'dit' on dims (gy, 1)): the halo's rows load for the plane t mod nz as
+// the slab's own planes do, its z-edge entries unread (ds_hrow_zp).
 // YW and YH together are a slab of a y-walled mesh (the duct and cavity
 // classes on dims (gy, 1), any of the three averages; the JAX package's
 // per-shard wall gating y_lo & ywf, pallas_dsmag.py:382-386, 650-652):
@@ -474,7 +477,8 @@ auto pick_dsmag_mode(bool zper, bool f2d) {
 // y: the y-row stacks and corners of u, v, w (6 pointers), all null
 // without y walls; h: their two-deep halo pairs on a slab of the y-slab
 // mesh (6 pointers, all null off a slab): h alone is mode YH (periodic y,
-// the 'channel' sums), y and h together a slab of a y-walled mesh, whose
+// the 'channel' sums; with zper ZP and YH), y and h together a slab of a
+// y-walled mesh, whose
 // y holds the slab's y-row stacks and ylo, yhi the walls it owns; yvals:
 // the filtered fill's 'D' values (u_lo, u_hi, w_lo, w_hi) on the y walls;
 // avg: DS_CHANNEL, DS_DUCT or DS_CAVITY; zper, f2d: the periodic-z mode
@@ -492,7 +496,8 @@ int launch_dsmag(const T* u, const T* v, const T* w, const T* ue,
   const bool ywall = ystacks && !halo;
   if (nz < 2 || (ywall && ny < 4) || avg < DS_CHANNEL || avg > DS_CAVITY)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (halo && (ny < 2 || zper || f2d || (!ystacks && avg != DS_CHANNEL)))
+  if (halo && (ny < 2 || f2d || (zper && ystacks) ||
+               (!ystacks && avg != DS_CHANNEL)))
     return static_cast<int>(cudaErrorInvalidValue);
   if ((zper || f2d) && (ystacks || avg != DS_CHANNEL))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -503,6 +508,8 @@ int launch_dsmag(const T* u, const T* v, const T* w, const T* ue,
       return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = dsmag_smem_bytes<T>();
   auto kern = halo ? (ystacks ? pick_dsmag<T, true, true>(avg)
+                      : zper  ? &dsmag_kernel<T, false, DS_CHANNEL, true,
+                                              false, true>
                               : &dsmag_kernel<T, false, DS_CHANNEL, false,
                                               false, true>)
               : (zper || f2d) ? pick_dsmag_mode<T>(zper, f2d)

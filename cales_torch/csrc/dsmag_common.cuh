@@ -25,7 +25,8 @@
 //               and ny from the post-correction fill's y-row stacks, or on
 //               a slab of the y-slab mesh (YH, dsmag.cu's mode) the rows
 //               -2, -1, ny and ny+1 from the neighbours' halo; z wrapped
-//               with ZP (dsmag.cu's periodic-z mode);
+//               with ZP (dsmag.cu's periodic-z mode), the halo's rows too
+//               with ZP and YH;
 //   ds_source   stage A at one cell: |S| S_ij (6), the centred velocity
 //               (3), its products (6) and |S|.
 // The kernel passes its ring accessors vel(kz, c) and src(kz, q), which
@@ -93,6 +94,16 @@ __device__ __forceinline__ const T* ds_hrow(const YRows<T>& h, int kz, int r,
   return base + static_cast<int64_t>(r) * nx;
 }
 
+// With ZP and YH (a slab of the periodic box): the halo's row r of the
+// plane kz mod nz (kz from -2 to nz+1), its z-edge entries unread, as the
+// slab's own planes load mod nz.
+template <typename T>
+__device__ __forceinline__ const T* ds_hrow_zp(const YRows<T>& h, int kz,
+                                               int r, int nz, int nx) {
+  const int64_t k = (kz + nz) % nz;
+  return h.rows + (k * 4 + r) * nx;
+}
+
 // The velocity plane kz (-1 .. nz, ghost rows from the edge stacks) on the
 // tile + halo 2, x wrapped; y wrapped, or with y walls the rows -1, ny-1
 // and ny from the y-row stacks, or with YH (a slab) the rows -2, -1, ny
@@ -128,7 +139,9 @@ __device__ __forceinline__ void ds_load(const VEL& vel, const T* const fld[3],
       const int r = y < 0 ? y + 2 : y - g.ny + 2;
 #pragma unroll
       for (int c = 0; c < 3; ++c)
-        cp_async(vel(kz, c) + e, ds_hrow(yw.hal[c], kz, r, g.nz, g.nx) + x);
+        cp_async(vel(kz, c) + e,
+                 (ZP ? ds_hrow_zp(yw.hal[c], kz, r, g.nz, g.nx)
+                     : ds_hrow(yw.hal[c], kz, r, g.nz, g.nx)) + x);
     } else {
       const int64_t o = static_cast<int64_t>(wrap_near(y, g.ny)) * g.nx + x;
 #pragma unroll

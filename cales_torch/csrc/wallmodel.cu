@@ -33,7 +33,14 @@
 // row's padded rows 0 and n+1 are its rows -1 and ny from the neighbours,
 // yh (faces, 2 components, 2 rows, 2 sides, nx) in
 // wallmodel.sampled_rows's order, where the whole field wraps y; the rest
-// is the periodic kernel's.
+// is the periodic kernel's.  On a slab of a y-walled mesh (YH with the
+// run-time flags ylo, yhi >= 0: the walls the slab holds) a z face's row
+// takes its y recipe's rows on the sides the slab owns (the ghost, and on
+// the upper wall's slab the staggered component's rewrite row n) and the
+// halo rows elsewhere, where the recipe's row n is the row itself; the y
+// faces the slab owns come after its z faces in the launch, their rows
+// the slab's own, their planes' z recipes as on the whole field (a y face
+// needs no halo: z is never split).
 // With `corrected` (z faces with periodic y: the fused correction's rows)
 // a sample is fu + u - cx (pp(i+1) - pp(i)) or fv + v - cy (pp(j+1) -
 // pp(j)), in this order of operations.  A lane samples its own column
@@ -195,8 +202,11 @@ struct WmRec {
 template <typename T>
 __device__ __forceinline__ WmRec<T> wm_rec(const WmFace<T>& f, int cq,
                                            int p, int n, int stride, int ii,
-                                           int ix) {
-  const int pos = p == 0 ? 0 : p == n ? 1 : p == n + 1 ? 2 : -1;
+                                           int ix, bool rec_hi = true) {
+  // rec_hi false: a slab's row n is the row itself (its upper side is a
+  // neighbour's, whose halo row n+1 the caller reads)
+  const int pos = p == 0 ? 0 : p == n ? (rec_hi ? 1 : -1)
+                  : p == n + 1 ? 2 : -1;
   int idx = p - 1;
   WmRec<T> r{T(1), T(0), 0, 0, 0};
   if (pos >= 0) {
@@ -219,7 +229,7 @@ __global__ void __launch_bounds__(CALES_THREADS)
                      const T* __restrict__ xc, const T* __restrict__ yh,
                      T* __restrict__ out, int nz, int ny, int nx,
                      int corrected, const __grid_constant__ WmFaces<T> fs,
-                     T cx, T cy, WmConst<T> c) {
+                     T cx, T cy, WmConst<T> c, int ylo, int yhi) {
   // the face of this block, read in place from the kernel's parameters
   // (__grid_constant__: a member indexed at run time is not copied to the
   // stack)
@@ -259,10 +269,14 @@ __global__ void __launch_bounds__(CALES_THREADS)
   const int stride = yface ? ny * nx : nx;
   const T* const q2 = yface ? w : v;
   const int own = comp, oth = 1 - comp;
+  // the sides whose halo rows a z face's rows take on a slab (YH): both
+  // off a y-walled mesh (ylo, yhi < 0), else those the slab does not own
+  const bool halo_lo = YH && !yface && ylo <= 0;
+  const bool halo_hi = YH && !yface && yhi <= 0;
   // each sample's recipe and offsets in its row (wm_rec)
-  const WmRec<T> rm = wm_rec(f, own, ja, n, stride, ii, ix),
-                 ra = wm_rec(f, oth, ja, n, stride, ii, ix),
-                 rb = wm_rec(f, oth, jb, n, stride, ii, ix);
+  const WmRec<T> rm = wm_rec(f, own, ja, n, stride, ii, ix, !halo_hi),
+                 ra = wm_rec(f, oth, ja, n, stride, ii, ix, !halo_hi),
+                 rb = wm_rec(f, oth, jb, n, stride, ii, ix, !halo_hi);
   // this plane's component and the other: the field, the deferred
   // forcing and the correction's factor
   const T* const qm = is_u ? u : q2;
@@ -296,10 +310,11 @@ __global__ void __launch_bounds__(CALES_THREADS)
     return r.s * val + r.c;
   };
   // a slab (YH): a sample of component cq of the face's k-th row at its
-  // padded row p, the halo row there (p 0 or n+1), else as above
+  // padded row p, the halo row there (p 0 or n+1 on a halo side), else as
+  // above
   auto sample_h = [&](const T* q, int cq, int p, T fq, T cfac,
                       const WmRec<T>& r, int64_t rbase, int k) -> T {
-    if (p == 0 || p == pn - 1)
+    if ((p == 0 && halo_lo) || (p == pn - 1 && halo_hi))
       return yh[((((blockIdx.z >> 1) * 2 + cq) * 2 + k) * 2 +
                  (p == 0 ? 0 : 1)) * nx + ii];
     return sample(q, fq, cfac, r, rbase);
@@ -397,14 +412,23 @@ template <typename T>
 int launch_wallmodel(const T* u, const T* v, const T* w, const T* pp,
                      const T* fuv, const T* wz, const T* xc, const T* yh,
                      T* out, int nz, int ny, int nx, int corrected, double cx,
-                     double cy, const WmArgs* a, void* stream) {
+                     double cy, const WmArgs* a, int ylo, int yhi,
+                     void* stream) {
   if (a->nf < 1 || a->nf > WM_FACES)
     return static_cast<int>(cudaErrorInvalidValue);
-  // a slab's halo rows: z faces with periodic x, the rows as they are
-  if (yh != nullptr && (a->xw || corrected))
+  // a slab's halo rows: z faces with periodic x, the rows as they are;
+  // on a y-walled mesh (ylo, yhi >= 0) the y faces it owns after them
+  if (yh != nullptr && (a->xw || corrected || (ylo < 0) != (yhi < 0)))
     return static_cast<int>(cudaErrorInvalidValue);
-  for (int n = 0; yh != nullptr && n < a->nf; ++n)
-    if (a->d[n] != 2) return static_cast<int>(cudaErrorInvalidValue);
+  bool yfaces = false;
+  for (int n = 0; yh != nullptr && n < a->nf; ++n) {
+    if (a->d[n] == 1) {
+      if (ylo < 0) return static_cast<int>(cudaErrorInvalidValue);
+      yfaces = true;
+    } else if (yfaces) {
+      return static_cast<int>(cudaErrorInvalidValue);   // z faces first
+    }
+  }
   // x walls: z faces only, their rows as they are, the offsets given
   if (a->xw && (xc == nullptr || corrected))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -434,7 +458,7 @@ int launch_wallmodel(const T* u, const T* v, const T* w, const T* pp,
                               : &wallmodel_kernel<T, false>;
   kern<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
       u, v, w, pp, fuv, wz, xc, yh, out, nz, ny, nx, corrected, fs, T(cx),
-      T(cy), c);
+      T(cy), c, ylo, yhi);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -445,10 +469,10 @@ int launch_wallmodel(const T* u, const T* v, const T* w, const T* pp,
                       const T* fuv, const T* wz, const T* xc, const T* yh,    \
                       T* out, int nz, int ny, int nx, int corrected,          \
                       double cx, double cy, const cales::WmArgs* args,        \
-                      void* stream) {                                         \
+                      int ylo, int yhi, void* stream) {                       \
     return cales::launch_wallmodel<T>(u, v, w, pp, fuv, wz, xc, yh, out, nz,  \
-                                      ny, nx, corrected, cx, cy, args,        \
-                                      stream);                                \
+                                      ny, nx, corrected, cx, cy, args, ylo,   \
+                                      yhi, stream);                           \
   }
 
 CALES_WALLMODEL_ENTRY(cales_wallmodel_f32, float)

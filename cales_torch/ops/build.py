@@ -58,8 +58,9 @@ _SIGNATURES = {
     'cales_dsmag_level1': [_P] * 15 + [_I] * 5 + [_D] * 2 + [_P],
     'cales_dsmag_level2': [_P] * 30 + [_I] * 4 + [_D] * 2 + [_P],
     # the pointers (a slab's halo rows among them), nz, ny, nx, corrected,
-    # cx, cy, the static WmArgs
-    'cales_wallmodel': [_P] * 9 + [_I] * 4 + [_D] * 2 + [_P] + [_P],
+    # cx, cy, the static WmArgs, a y-walled slab's walls ylo, yhi
+    'cales_wallmodel': ([_P] * 9 + [_I] * 4 + [_D] * 2 + [_P] + [_I] * 2
+                        + [_P]),
 }
 
 

@@ -462,9 +462,10 @@ def dsmag_plain(u, v, w, ue, ve, we, alph2, dzci, dzfi, dxi, dyi, wall_lo,
     den = M_ij M_ij (off-diagonal pairs twice) over each z row, (nz, 1),
     for avg 'channel', over each (z, y) row, (nz, ny, 1), for 'duct'; for
     'cavity' (nu_t, None, None), nu_t = max(|S| num / den, 0) by cell.
-    yh: a slab of the y-slab mesh (periodic y, z walls, the 3D filter), the
-    depth-2 halo pairs (rows (nz, 4, nx), corners (3, 4, nx)) of (u, v, w),
-    rows -2, -1, nyl, nyl+1 (mesh.halo_y): the model runs on the slab
+    yh: a slab of the y-slab mesh (periodic y, z walls or with zper
+    periodic z, the 3D filter), the depth-2 halo pairs (rows (nz, 4, nx),
+    corners (3, 4, nx)) of (u, v, w), rows -2, -1, nyl, nyl+1
+    (mesh.halo_y; with zper their corners unread): the model runs on the slab
     extended by those rows, whose periodic wrap reaches the outputs of
     those rows only (the velocity's two-row halo is the model's reach),
     and keeps the slab's rows (csrc/dsmag.cu mode YH).  ye with yh: a slab
@@ -476,8 +477,9 @@ def dsmag_plain(u, v, w, ue, ve, we, alph2, dzci, dzfi, dxi, dyi, wall_lo,
     cropped rows only."""
     yw = None
     if yh is not None:
-        if zper or f2d:
-            raise ValueError('dsmag: a slab takes z walls and the 3D filter')
+        if f2d or (zper and ye is not None):
+            raise ValueError('dsmag: a slab takes the 3D filter, and '
+                             'periodic z with periodic y')
         if (ye is None) != (yown is None):
             raise ValueError("dsmag: a slab's y walls take ye and yown "
                              'together')
@@ -1037,10 +1039,12 @@ def dsmag(u, v, w, ue, ve, we, alph2, dzci, dzfi, dxi, dyi, wall_lo, wall_hi,
     zper: periodic z (the triperiodic box; csrc/dsmag.cu mode ZP), the
     z ghosts the planes at the other end, the edge stacks unread; f2d: the
     2D test filter in the x-y planes (mode F2D; periodic y).  yh: a slab
-    of the y-slab mesh (mode YH; periodic y, z walls, the 3D filter,
-    'channel' or 'dit'), the depth-2 halo pairs (rows (nz, 4, nx), corners
-    (3, 4, nx)) of (u, v, w) from mesh.halo_y, which the velocity tile
-    takes for its rows -2, -1, nyl and nyl+1; the sums are the slab's.  yh
+    of the y-slab mesh (mode YH; periodic y, z walls or with zper periodic
+    z (modes ZP and YH), the 3D filter, 'channel' or 'dit'), the depth-2
+    halo pairs (rows (nz, 4, nx), corners (3, 4, nx)) of (u, v, w) from
+    mesh.halo_y, which the velocity tile takes for its rows -2, -1, nyl
+    and nyl+1 (with zper the halo's rows of plane t mod nz, its corners
+    unread); the sums are the slab's.  yh
     with ye: a slab of a y-walled mesh (modes YW and YH, any average), ye
     the slab's y-row stack pairs (boundary.slab_ystack: the wall's rows on
     the sides it owns, the neighbours' elsewhere), which the tile takes for
@@ -1058,10 +1062,9 @@ def dsmag(u, v, w, ue, ve, we, alph2, dzci, dzfi, dxi, dyi, wall_lo, wall_hi,
         raise ValueError('dsmag: periodic z takes no z or y walls')
     if f2d and ye is not None:
         raise ValueError('dsmag: the 2D test filter takes no y walls')
-    if yh is not None and (zper or f2d or (ye is None
-                                            and _DSMAG_AVG[avg] != 0)):
-        raise ValueError("dsmag: a slab's halos take z walls, the 3D filter "
-                         "and, with periodic y, the 'channel' or 'dit' sums")
+    if yh is not None and (f2d or (ye is None and _DSMAG_AVG[avg] != 0)):
+        raise ValueError("dsmag: a slab's halos take the 3D filter and, "
+                         "with periodic y, the 'channel' or 'dit' sums")
     if (yown is not None) != (yh is not None and ye is not None):
         raise ValueError("dsmag: yown names a slab's y walls, with ye and "
                          'yh')
@@ -1311,7 +1314,7 @@ def _wm_weights(wei, dtype, device):
 
 
 def wm_planes(u, v, wm, fuv=None, pp=None, dtrk=0.0, dxi=0.0, dyi=0.0,
-              w=None, yh=None):
+              w=None, yh=None, yown=None):
     """The wall model's Neumann planes of every wall-modelled face (wm:
     wallmodel.WallModel, one to four y and z faces) in one launch: one
     (2, n+2, nx+2) tensor a face, [bcu, bcv] on a z face (n = ny), [bcu,
@@ -1321,22 +1324,27 @@ def wm_planes(u, v, wm, fuv=None, pp=None, dtrk=0.0, dxi=0.0, dyi=0.0,
     given; see wallmodel.wm_planes_plain).  With x walls (z faces) the
     rows take their x ghosts from the x faces' values.  yh: a slab of the
     y-slab mesh (z faces, periodic x and y, the rows as they are), the
-    (4 faces, 2, nx) halo rows -1 and nyl of wallmodel.sampled_rows, which
-    the rows take along y in place of the wrap (the kernel's slab
-    variant)."""
+    (4 z faces, 2, nx) halo rows -1 and nyl of wallmodel.sampled_rows,
+    which the rows take along y in place of the wrap (the kernel's slab
+    variant); with yown = (lower, upper) a slab of a y-walled mesh
+    (wallmodel.slab_wall_model: its z faces, then the y faces it owns on
+    its own rows), the z faces' rows take the y recipe on the sides the
+    slab owns and the halo rows elsewhere (the kernel's y-walled slab
+    variant, two run-time flags)."""
     if _on_cpu(u):
         return wm_planes_plain(u, v, wm, fuv=fuv, pp=pp, dtrk=dtrk, dxi=dxi,
-                               dyi=dyi, w=w, yh=yh)
-    wmod._check_mode(wm, w, fuv, pp, yh)
+                               dyi=dyi, w=w, yh=yh, yown=yown)
+    wmod._check_mode(wm, w, fuv, pp, yh, yown)
     _check('wallmodel', u, (u, v, w, pp),
            profiles=() if fuv is None else ((fuv, 2),))
     nz, ny, nx = u.shape
+    nzf = sum(f.d == 2 for f in wm.faces)
     if yh is not None and (
-            tuple(yh.shape) != (4 * len(wm.faces), 2, nx)
+            tuple(yh.shape) != (4 * nzf, 2, nx)
             or yh.device != u.device or yh.dtype != u.dtype
             or not yh.is_contiguous()):
         raise ValueError(f'wm_planes: halo rows contiguous '
-                         f'{(4 * len(wm.faces), 2, nx)} {u.dtype} on '
+                         f'{(4 * nzf, 2, nx)} {u.dtype} on '
                          f'{u.device}, got {tuple(yh.shape)} {yh.dtype} on '
                          f'{yh.device}')
     if u.numel() >= 2 ** 31:
@@ -1351,9 +1359,12 @@ def wm_planes(u, v, wm, fuv=None, pp=None, dtrk=0.0, dxi=0.0, dyi=0.0,
         raise ValueError(f'wm_planes: weights for nz = {wz.shape[1] - 2}, '
                          f'fields of nz = {nz}')
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    # the slab's y walls: -1 off a y-walled mesh (the periodic slab
+    # variant's halo on both sides)
+    ylo, yhi = (-1, -1) if yown is None else (int(bool(q)) for q in yown)
     _launch('wallmodel', f'cales_wallmodel_{_suffix(u)}', u.data_ptr(),
             v.data_ptr(), ptr(w), ptr(pp), ptr(fuv), ptr(wz), ptr(xc),
             ptr(yh), out.data_ptr(),
             nz, ny, nx, int(pp is not None), float(dtrk * dxi),
-            float(dtrk * dyi), ctypes.addressof(args))
+            float(dtrk * dyi), ctypes.addressof(args), ylo, yhi)
     return tuple(q.view(2, -1, nx + 2) for q in torch.split(out, sizes))

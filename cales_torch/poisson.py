@@ -283,6 +283,15 @@ def _thomas_tol(lamx, lamy, dtype) -> float:
     return float(torch.finfo(dtype).eps * scale * 4.0)
 
 
+def _holds_singular(lamx_np, lamy_np, tol) -> bool:
+    """Whether the lanes (lamy[j] + lamx[i]) of a spectrum whose x lanes
+    carry lamx_np hold the singular one, |lamy + lamx| <= tol: on a slab
+    of the sharded solve, the rank whose slice of sv.lamx holds it, in
+    whatever order the x transform leaves its eigenvalues."""
+    lam = np.asarray(lamx_np)[None, :] + np.asarray(lamy_np)[:, None]
+    return bool(np.any(np.abs(lam) <= tol))
+
+
 def _z_thomas(sv: DirectSolver, body, lamx_np, alpha=None, key='lamx'):
     """Thomas z stage on a real (nz, ny, n) spectrum whose x lanes carry
     the eigenvalues lamx_np (n,) (key names them in the device cache): the
@@ -291,7 +300,9 @@ def _z_thomas(sv: DirectSolver, body, lamx_np, alpha=None, key='lamx'):
     lanes are a slice of it), or with alpha the Helmholtz
     solve (I + alpha L) on the alpha-scaled rows with the diagonal shift
     (lamy + lamx) alpha (poisson.py:326-338), the face-staggered Dirichlet
-    tail row passed through."""
+    tail row passed through.  The pin flag is set where these lanes hold
+    the singular lane (_holds_singular): on one rank of a slab-sharded
+    solve."""
     dt, dev = body.dtype, body.device
     lamy = _dev(sv, 'lamy', torch.float64, dev,
                 lambda: _t(sv.lamy, torch.float64, dev))
@@ -303,9 +314,12 @@ def _z_thomas(sv: DirectSolver, body, lamx_np, alpha=None, key='lamx'):
         lamy, lamx = lamy * alpha, lamx * alpha
     lamy, lamx = lamy.to(dt), lamx.to(dt)
     a, b, c = _abc(sv, dev)
-    pin = alpha is None and sv.bcz in ('PP', 'NN')
+    tol = _thomas_tol(sv.lamx, sv.lamy, dt)
+    pin = (alpha is None and sv.bcz in ('PP', 'NN')
+           and _dev(sv, ('pin', key, len(lamx_np)), dt, None,
+                    lambda: _holds_singular(lamx_np, sv.lamy, tol)))
     kw = dict(lamy=lamy, lamx=lamx, pin=pin, alpha=alpha,
-              tol=_thomas_tol(sv.lamx, sv.lamy, dt) if pin else 0.0)
+              tol=tol if pin else 0.0)
     if sv.bcz == 'PP':
         return sk.thomas_periodic_z(body, a, b, c, **kw)
     nz = body.shape[0]
@@ -380,9 +394,10 @@ def solve_sharded(sv: DirectSolver, p, mesh):
 
       apply_x forward, written as gy x-column blocks      (nz, ny/gy, nx)
       all-to-all: split x, gather y                       (nz, ny, nx/gy)
-      apply_y along y; thomas_z on this rank's lamx
-      lanes, the singular lane pinned when bcz is 'NN'
-      (it lies on rank 0); apply_y back
+      apply_y along y; thomas_z (thomas_periodic with
+      periodic z) on this rank's lamx lanes, the
+      singular lane pinned where bcz is 'NN' or 'PP'
+      on the rank that holds it; apply_y back
       all-to-all back                                     (nz, ny/gy, nx)
       apply_x backward, reading the blocks in place
 
@@ -391,12 +406,15 @@ def solve_sharded(sv: DirectSolver, p, mesh):
     rounding and up to the gauge of the constant mode.  Which
     configurations come here is timeloop.unsupported()'s to say; the solver
     must have what all of theirs have: square 'mat' x and y transforms, no
-    face-staggered tail row, z not periodic."""
+    face-staggered tail row.  With periodic z (the triperiodic box) the
+    pinned periodic Thomas takes the JAX package's single-device z stage's
+    place (thomas_periodic, poisson.py:575-576): the result differs from
+    it by a constant."""
     nx, ny, _ = sv.ng
     if not (sv.trx.kind == sv.try_.kind == 'mat' and sv.trx.nsolve == nx
-            and sv.try_.nsolve == ny and not sv.qz and sv.bcz != 'PP'):
+            and sv.try_.nsolve == ny and not sv.qz):
         raise ValueError("solve_sharded: the solver needs square 'mat' x "
-                         'and y transforms, no tail row and z not periodic')
+                         'and y transforms and no tail row')
     dt, dev = p.dtype, p.device
     fy, fxT, by, bxT = _dev(sv, 'mat', dt, dev, lambda: tuple(
         _t(m, dt, dev) for m in (sv.try_.fwd_mat, sv.trx.fwd_mat.T,

@@ -66,19 +66,24 @@ its slab, the counterpart of the JAX package's kernel-sharded route
 (Simulation with _kernel_sharded and use_pallas_solve_sharded), for the
 channel classes: sgstype 'none', static Smagorinsky (with the z walls'
 wall model too) or the one-pass dynamic Smagorinsky ('channel', 'dit'),
-explicit diffusion or impdiff_1d; and for the y-walled duct and cavity
+explicit diffusion or impdiff_1d; for the y-walled duct and cavity
 classes as one device runs them (sgstype 'none', static Smagorinsky, the
-one-pass dynamic Smagorinsky with any average, explicit diffusion).  The
+one-pass dynamic Smagorinsky with any average, explicit diffusion; the
+wall model on the y and z walls, the wall-modelled duct); and for the
+triperiodic box (sgstype 'none', static Smagorinsky, the one-pass
+dynamic Smagorinsky in its periodic-z mode, explicit diffusion, forced
+along z too).  The
 halos of the fields each stencil kernel reads at +-1 in y come from the
 neighbours before it runs (mesh.halo_y; two rows deep for dsmag's tile),
 the Poisson solve is poisson.solve_sharded (apply_x, the pencil
-transposes, apply_y, thomas_z), the z-only CN solves run on each slab, the
-correction and nu_t run as correc_updatep and smag or dsmag (the fused
-correc_smag is off, as under the JAX mesh), the wall model takes its
-sampled rows' y halos, and the bulk forcing, dsmag's z sums, the CFL dt
-and the divergence reduce over the ranks.  The van Driest wall-shear
-planes of the z walls stay on their slab (z is never split) with the
-halo's row below.  With y walls every slab runs the y-walled kernel
+transposes, apply_y, thomas_z or with periodic z thomas_periodic, pinned
+on the rank that holds the singular lane), the z-only CN solves run on
+each slab, the correction and nu_t run as correc_updatep and smag or
+dsmag (the fused correc_smag is off, as under the JAX mesh), the wall
+model takes its sampled rows' y halos, and the bulk forcing, dsmag's z
+sums, the CFL dt and the divergence reduce over the ranks.  The van
+Driest wall-shear planes of the z walls stay on their slab (z is never
+split) with the halo's row below.  With y walls every slab runs the y-walled kernel
 variants on its own y-row stacks (boundary.slab_ystack): the wall recipe's
 rows on the side a slab owns (rank 0 the lower wall, rank gy-1 the upper),
 built there from its own rows with no communication, the halo rows
@@ -87,7 +92,14 @@ takes them with its two-row halo (csrc/dsmag.cu YW + YH), the y walls'
 shear planes of smag's van Driest are made on their owners and summed
 over the ranks (one all_reduce of two (nz, nx) planes a substep), the kept
 v and w wall planes advance on the owners, and the pressure's y-face RHS
-planes land on the owners' rows only (slab_rhs_planes).
+planes land on the owners' rows only (slab_rhs_planes).  With the wall
+model a y face's planes are made on its owner from its own rows
+(wallmodel.slab_wall_model; unsupported() refuses sampled rows off that
+slab), the z faces' sampled rows take the y recipe on the sides a slab
+owns and the neighbours' rows elsewhere (one exchange of those rows), the
+owner's y-row stacks carry the planes (they are the fill's of
+_dynamic_bcs), and smag's 'E' stacks extrapolate the slab's y-row stacks
+on the walls it owns, y first, then z.
 
 With x walls (inflow and outflow faces, or walls: the developing channel,
 and with y walls the closed box, the lid-driven cavity and the developing
@@ -357,10 +369,10 @@ def _planes_refuse(cfg: Config) -> list[str]:
 def _wm_refuse(cfg: Config) -> list[str]:
     """What this slice does not run with a wall model: it runs the log-law
     or laminar model on the y and z walls with static Smagorinsky and
-    explicit diffusion, or with sgstype 'none', on one device (cales_tpu's
-    _wm_fast route; x walls are checked by _xwalls_refuse, plane-valued
-    values by _planes_refuse, the y walls by _ywalls_refuse, a mesh by
-    _mesh_refuse: the z faces run on the y-slab mesh)."""
+    explicit diffusion, or with sgstype 'none' (cales_tpu's _wm_fast
+    route; x walls are checked by _xwalls_refuse, plane-valued values by
+    _planes_refuse, the y walls by _ywalls_refuse, a mesh by _mesh_refuse:
+    the y and z faces run on the y-slab mesh)."""
     out = []
     lwm = [cfg.lwm[ib][d] for ib in range(2) for d in range(3)]
     if any(m not in (0, wmod.WM_LOG, wmod.WM_LAM) for m in lwm):
@@ -383,12 +395,6 @@ def _wm_refuse(cfg: Config) -> list[str]:
         out.append('a wall model with implicit diffusion (the CN stage\'s '
                    'boundary planes would change every substep): ROADMAP '
                    'queue 1, wall model with implicit diffusion')
-    if (cfg.dims[0] * cfg.dims[1] > 1
-            and any(cfg.lwm[ib][1] != 0 for ib in range(2))):
-        out.append('a wall model on a device mesh on y faces (the z faces '
-                   'run on the y-slab mesh, and the y walls without a wall '
-                   'model): ROADMAP queue 1, multi-device, the y faces\' '
-                   'wall model on the mesh')
     return out
 
 
@@ -398,9 +404,12 @@ def _mesh_refuse(cfg: Config) -> list[str]:
     the all-matrix Poisson route: sgstype 'none', static Smagorinsky (the
     z walls may carry the wall model) or the one-pass dynamic Smagorinsky
     ('channel' or 'dit', the 3D filter), explicit diffusion or
-    impdiff_1d; and with the y walls _ywalls_refuse admits (the duct and
-    cavity classes) what one device runs there, without a wall model, on
-    slabs of at least 2 rows."""
+    impdiff_1d; with the y walls _ywalls_refuse admits (the duct and
+    cavity classes) what one device runs there, on slabs of at least 2
+    rows, the wall model on the y and z faces too (the wall-modelled duct)
+    where each y face's sampled rows lie on its owner's slab; and with
+    periodic z (the triperiodic box) sgstype 'none', static Smagorinsky
+    or the one-pass dynamic Smagorinsky, explicit diffusion."""
     gy, gx = int(cfg.dims[0]), int(cfg.dims[1])
     nx, ny, _ = cfg.ng
     out = []
@@ -435,18 +444,40 @@ def _mesh_refuse(cfg: Config) -> list[str]:
                        "dsmag kernel's y-wall mode extrapolates A and the "
                        'velocity from the two rows next to the wall): at '
                        'least 2')
-        if any(cfg.lwm[ib][d] != 0 for ib in range(2) for d in range(3)):
-            out.append('a wall model with y walls under a device mesh (the '
-                       "z faces' sampled rows take their y ghosts at the y "
-                       f'walls): {item}, the y faces\' wall model on the '
-                       'mesh')
+        out += _wm_slab_refuse(cfg, gy)
     if not _periodic(cfg, 0):
         out.append(f'x walls under a device mesh: {item}')
-    if cfg.cbc_vel(2, 0)[0] == 'P':
-        out.append('periodic z under a device mesh (the sharded periodic '
-                   f'Thomas stage): {item}')
+    if cfg.cbc_vel(2, 0)[0] == 'P' and cfg.impdiff_1d:
+        out.append('periodic z with impdiff_1d under a device mesh (the '
+                   "slabs' periodic z-only Helmholtz solves): "
+                   f'{item}, impdiff_1d on the periodic box')
     if cfg.ptransform == 'fft':
         out.append(f"ptransform 'fft' under a device mesh: {item}")
+    return out
+
+
+def _wm_slab_refuse(cfg: Config, gy: int) -> list[str]:
+    """A y face's wall model runs on the slab that owns the wall, from its
+    own rows: refused where its sampled rows r1, r2 (wallmodel
+    find_index_wm) leave that slab (r2 >= nyl rows from the wall)."""
+    nyl = cfg.ng[1] // gy
+    out = []
+    for ib, side in ((0, 'lower'), (1, 'upper')):
+        if cfg.lwm[ib][1] == 0 or cfg.ng[1] % gy:
+            continue
+        try:
+            r2 = wmod.y_index_wm(cfg, ib) - 1
+        except ValueError:
+            continue        # hwm off the grid: the Simulation says so
+        depth = r2 if ib == 0 else cfg.ng[1] - 1 - r2
+        if depth >= nyl:
+            out.append(f'a sampled y row off its owning slab: the {side} '
+                       "y wall's wall model on a device mesh of dims = "
+                       f'({gy}, 1) samples row {r2}, {depth} rows from the '
+                       f'wall, on slabs of {nyl} rows (y walls under a '
+                       'device mesh model each y face on the slab that '
+                       'owns it): ROADMAP queue 1, multi-device, the y '
+                       "faces' wall model off the wall's slab")
     return out
 
 
@@ -657,11 +688,24 @@ class Simulation:
                                    (self.bcu_vals, self.bcv_vals,
                                     self.bcw_vals), self.cbcvel)
                    if self.has_wm else None)
+        # the faces this rank models: on a slab of a y-walled mesh the z
+        # faces and the y faces it owns, on its own rows
+        self.wm_run = self.wm
+        if self.has_wm and self.yown is not None:
+            self.wm_run = wmod.slab_wall_model(self.wm, mesh.y0, mesh.nyl,
+                                               self.yown)
         self.rhsb_p = poisson.rhs_bound_planes(
             cfg, grid, self.cbcpre, ('c', 'c', 'c'), by_dir(cfg.bcpre))
         if self.yown is not None:
             self.rhsb_p = slab_rhs_planes(self.rhsb_p, self.yown)
         self.sgs_setup = sgsmod.SGSSetup(cfg, grid, self.cbcvel)
+        # the wall-modelled faces smag's 'E' stacks extrapolate: on a slab
+        # of a y-walled mesh the y faces it owns only (its other sides'
+        # rows are the neighbours')
+        self.ext_flags = self.sgs_setup.lwm_flags
+        if self.yown is not None:
+            self.ext_flags = {k: on and (k[1] != 1 or self.yown[k[0]])
+                              for k, on in self.ext_flags.items()}
         vol = cfg.l[0] * cfg.l[1] * cfg.l[2]
         self.gvr_c = cfg.dl[0] * cfg.dl[1] * grid.dzc[1:nz + 1] / vol
         self.gvr_f = cfg.dl[0] * cfg.dl[1] * grid.dzf[1:nz + 1] / vol
@@ -809,7 +853,7 @@ class Simulation:
                                      or cfg.zsolver == 'thomas')
         if thomas or cn_thomas:
             names.append(zthomas)
-        if self.has_wm:
+        if self.has_wm and self.wm_run.faces:
             names.append('wallmodel')
         # the passive scalar runs in mom_rk (its SCAL variant, counted as
         # mom_rk): exec_path names it
@@ -889,6 +933,8 @@ class Simulation:
                      'the ranks')
         if self.mesh is not None and self.has_wm:
             mesh += ", the wall model's sampled rows' halos"
+            if self.yown is not None:
+                mesh += ", the y faces' planes on their owners"
         if self.mesh is not None and self.cfg.impdiff_1d:
             mesh += ', the z-only CN solves on the slab'
         if self.yown is not None:
@@ -999,7 +1045,7 @@ class Simulation:
             planes = self._wm_planes(u, v, w)
         bcs = [[list(q) for q in b] for b in (self.bcu_vals, self.bcv_vals,
                                               self.bcw_vals)]
-        for face, pair in zip(self.wm.faces, planes):
+        for face, pair in zip(self.wm_run.faces, planes):
             bcs[0][face.d][face.ib] = pair[0]
             # the second wall-parallel component: v on a z face, w on y
             bcs[1 if face.d == 2 else 2][face.d][face.ib] = pair[1]
@@ -1007,14 +1053,19 @@ class Simulation:
 
     def _wm_planes(self, u, v, w):
         """The wall model's planes of the rows as they are
-        (kernels.wm_planes); on a slab the sampled rows' y halos (their rows
-        -1 and nyl, where one device wraps them) come from the neighbours,
-        one exchange (cales_tpu _wm_bcs_fast on its mesh)."""
+        (kernels.wm_planes); on a slab the z faces' sampled rows' y halos
+        (their rows -1 and nyl, where one device wraps them) come from the
+        neighbours, one exchange of those rows alone (cales_tpu
+        _wm_bcs_fast on its mesh), and with y walls the y faces' planes
+        are made on their owners from their own rows."""
+        wm = self.wm_run
+        if not wm.faces:
+            return ()
         yh = None
-        if self.mesh is not None:
-            (yh, _), = self.mesh.halo_y(
-                [(wmod.sampled_rows(u, v, self.wm), None)])
-        return kernels.wm_planes(u, v, self.wm, w=w, yh=yh)
+        if self.mesh is not None and any(f.d == 2 for f in wm.faces):
+            (yh, _), = self.mesh.halo_y([(wmod.sampled_rows(u, v, wm),
+                                          None)])
+        return kernels.wm_planes(u, v, wm, w=w, yh=yh, yown=self.yown)
 
     def _pad_vel(self, u, v, w, bcu, bcv, bcw, vlo=None, is_correc=False):
         return bnd.pad_velocity(u, v, w, self.cbcvel, bcu, bcv, bcw,
@@ -1166,7 +1217,12 @@ class Simulation:
                     tot = self.mesh.all_reduce(tot)
                 f[d] = cfg.velf[d] - torch.dot(tot, self.gvr_f_t)
         if cfg.is_forced[2]:
-            f[2] = cfg.velf[2] - st.bulk_mean(w, self.gvr_c_t)
+            if self.mesh is None:
+                f[2] = cfg.velf[2] - st.bulk_mean(w, self.gvr_c_t)
+            else:
+                # the slabs' plane sums of w over the ranks
+                f[2] = cfg.velf[2] - torch.dot(self.mesh.all_reduce(
+                    torch.sum(w, dim=(1, 2))), self.gvr_c_t)
             if not cfg.impdiff:
                 w = w + f[2]
         return f, f[:2].contiguous(), w
@@ -1329,19 +1385,28 @@ class Simulation:
             # cales_tpu sgs.smag_visct), the fill's own ghosts elsewhere;
             # with x walls the x stacks' corners too, and on a slab the
             # halos of the extrapolated stacks (the neighbours' 'E' ghosts),
-            # while the wall jump keeps the fill's
+            # while the wall jump keeps the fill's.  With y walls on a slab
+            # the slab's y-row stacks of the fill (its own wall rows, the
+            # neighbours' rows elsewhere: boundary.slab_ystack) take the
+            # extrapolation, y first, then z, on the walls the slab owns
+            # only (ext_flags), so that the halo rows' 'E' z ghosts are the
+            # neighbours' own
             setup = self.sgs_setup
+            slab_y = self.mesh is not None and self.yown is not None
+            if slab_y:
+                yq = self._yslab((u, v, w), zq, yq, self.mesh.halo_y(
+                    list(zip((u, v, w), zq))))
             ext = None
             if self.has_wm:
                 ext = [sgsmod.extrapolate_stacks(q, e, y, iface,
-                                                 setup.lwm_flags,
+                                                 self.ext_flags,
                                                  setup.fac_lwm)
                        for q, e, y, iface in zip((u, v, w), zq,
                                                  yq or (None,) * 3,
                                                  (1, 2, 3))]
             yh = ye = ywall = None
             rows = corners = None
-            if self.mesh is not None:
+            if self.mesh is not None and not slab_y:
                 strain_e = zq if ext is None else [e for e, _ in ext]
                 pairs = list(zip((u, v, w), strain_e))
                 if ext is not None:
@@ -1352,11 +1417,6 @@ class Simulation:
                 # rows with a wall model)
                 rows = yh[1][0]
                 corners = yh[1][1] if ext is None else h[3][0]
-                if self.yown is not None:
-                    # y walls (no wall model): the slab's stacks
-                    ye = self._yslab((u, v, w), zq, yq, yh)
-                    rows, corners = ye[1]
-                    yh = None
             elif self.ywalled:
                 rows, corners = yq[1]
                 ye = yq

@@ -20,7 +20,10 @@ developing channel's z faces) a sampled z row takes its x ghosts and u's
 rewrite slot from the x faces' values (an inflow profile's at that row)
 before it wraps along y.  On a slab of the y-slab mesh a sampled z row
 takes its rows -1 and nyl from the neighbours (``sampled_rows`` is what
-a slab sends) where one device wraps y.  The x-face branch of
+a slab sends) where one device wraps y; with y walls it takes the wall
+recipe's rows on the sides the slab owns and the neighbours' elsewhere,
+and a y face is modelled on the slab that owns it alone, from its own
+rows (``slab_wall_model``).  The x-face branch of
 ``update_wallmodel_bcs`` is not ported yet (ROADMAP queue 1).
 """
 from __future__ import annotations
@@ -119,16 +122,7 @@ def find_index_wm(cfg, grid):
                     i -= 1
             idx[0][ib] = i
         if cfg.lwm[ib][1] != 0:
-            if not 0.5 * dl[1] < h < (ny - 0.5) * dl[1]:
-                err('y')
-            j = 1 if ib == 0 else ny
-            if ib == 0:
-                while (j - 0.5) * dl[1] < h:
-                    j += 1
-            else:
-                while (ny - j + 0.5) * dl[1] < h:
-                    j -= 1
-            idx[1][ib] = j
+            idx[1][ib] = y_index_wm(cfg, ib)
         if cfg.lwm[ib][2] != 0:
             if not grid.zc[1] < h < grid.zc[nz]:
                 err('z')
@@ -141,6 +135,22 @@ def find_index_wm(cfg, grid):
                     k -= 1
             idx[2][ib] = k
     return tuple(tuple(r) for r in idx)
+
+
+def y_index_wm(cfg, ib):
+    """find_index_wm's index of the y face ib (uniform y: no grid)."""
+    ny, dl, h = cfg.ng[1], cfg.dl[1], cfg.hwm
+    if not 0.5 * dl < h < (ny - 0.5) * dl:
+        raise ValueError(f'hwm={h} outside the first..last cell-center band '
+                         'in direction y (sanity.f90:233-241)')
+    j = 1 if ib == 0 else ny
+    if ib == 0:
+        while (j - 0.5) * dl < h:
+            j += 1
+    else:
+        while (ny - j + 0.5) * dl < h:
+            j -= 1
+    return j
 
 
 class WallFace(NamedTuple):
@@ -357,7 +367,7 @@ def _wei(wei, n, like):
     return t(w), t(1 - w)
 
 
-def pad_row(q, fill, xfill=None, halo=None):
+def pad_row(q, fill, xfill=None, halo=None, own=None):
     """One sampled (n, nx) row padded to (n+2, nx+2): along x periodic, or
     with x walls by xfill (a z face's row, its values the x faces' at that
     row, a padded row of values as a (1, ny+2) tensor, which set_bc crops
@@ -365,12 +375,21 @@ def pad_row(q, fill, xfill=None, halo=None):
     (letters, values, spacings, staggered), as set_bc fills it (cales_tpu
     Simulation._row_pad_xy, _row_pad_xz, the x -> y order of pad_velocity
     on a row).  halo: on a slab of the y-slab mesh (a z face's row,
-    periodic x and y), its (2, nx) rows -1 and nyl from the neighbours,
-    which take the place of the periodic wrap along y."""
+    periodic x), its (2, nx) rows -1 and nyl from the neighbours, which
+    take the place of the periodic wrap along y; with own = (lower,
+    upper), the y walls a slab of a y-walled mesh holds, the fill's rows
+    on the sides it owns (its ghost and, for the staggered component, its
+    rewrite row n) and the halo rows and the row itself elsewhere."""
     letters, vals, dr, stag = fill
-    if halo is not None:
+    if halo is not None and own is None:
         s = torch.cat([halo[:1], q, halo[1:]])
         return torch.cat([s[:, -1:], s, s[:, :1]], dim=1)
+    if halo is not None:
+        full = pad_row(q, fill)
+        hx, qx = (torch.cat([a[:, -1:], a, a[:, :1]], dim=1)
+                  for a in (halo, q[-1:]))
+        return torch.cat([full[:1] if own[0] else hx[:1], full[1:-2],
+                          full[-2:] if own[1] else torch.cat([qx, hx[1:]])])
     if xfill is None:
         s = torch.cat([q[:, -1:], q, q[:, :1]], dim=1)
     else:
@@ -387,21 +406,41 @@ def pad_row(q, fill, xfill=None, halo=None):
 
 def sampled_rows(u, v, wm):
     """The rows r1 and r2 of u and v of each z face of wm, as one
-    (4 faces, ny, nx) tensor in the order (face, component, row): what a
+    (4 z faces, ny, nx) tensor in the order (face, component, row): what a
     slab sends its neighbours for their y halos (mesh.halo_y), and the
     order of the halo rows the slab variant of the wall-model kernel
-    takes."""
-    if any(f.d != 2 for f in wm.faces):
-        raise ValueError('sampled_rows: z faces only')
-    return torch.stack([q[r] for f in wm.faces for q in (u, v)
+    takes.  A y face samples its own slab's rows and sends none."""
+    return torch.stack([q[r] for f in wm.faces if f.d == 2 for q in (u, v)
                         for r in (f.r1, f.r2)])
 
 
-def _face_rows(u, v, w, wm, fuv, pp, dtrk, dxi, dyi, yh=None):
+def slab_wall_model(wm, y0, nyl, own):
+    """The wall model a slab of a y-walled y-slab mesh runs: wm's z faces,
+    whose sampled rows take the slab's y halos, and the y faces it owns
+    (own = (lower, upper)) with their rows r1, r2 on the slab's rows
+    (timeloop.unsupported refuses a wall whose rows leave its owner's
+    slab of nyl rows from y0)."""
+    faces = []
+    for f in wm.faces:
+        if f.d == 1:
+            if not own[f.ib]:
+                continue
+            r1, r2 = f.r1 - y0, f.r2 - y0
+            if not (0 <= r1 < nyl and 0 <= r2 < nyl):
+                raise ValueError(f'slab_wall_model: rows {f.r1}, {f.r2} of '
+                                 f'the y face {f.ib} off the slab [{y0}, '
+                                 f'{y0 + nyl})')
+            f = f._replace(r1=r1, r2=r2)
+        faces.append(f)
+    return wm._replace(faces=tuple(faces))
+
+
+def _face_rows(u, v, w, wm, fuv, pp, dtrk, dxi, dyi, yh=None, yown=None):
     """Per face of wm: the face, its padded rows U1, U2 (of u) and V1, V2
     (of v on a z face, w on a y face), sampled as wm_planes_plain says,
     its static planes umag, vmag, and on a y face its weights; yh: a
-    slab's halo rows of sampled_rows, (4 faces, 2, nx)."""
+    slab's halo rows of sampled_rows, (4 z faces, 2, nx); yown: the y
+    walls of a slab of a y-walled mesh."""
     ny, nx = u.shape[1:]
     nz = u.shape[0]
 
@@ -418,11 +457,13 @@ def _face_rows(u, v, w, wm, fuv, pp, dtrk, dxi, dyi, yh=None):
     for m, face in enumerate(wm.faces):
         n = nz if face.d == 1 else ny
         xfills = face.xfills or ((None, None),) * 2
-        # the halo rows of (u, v) at (r1, r2), or None
-        halos = (((None, None),) * 2 if yh is None
+        # the halo rows of (u, v) at (r1, r2), or None (a y face's rows
+        # are its own slab's; on a slab the z faces come first)
+        halos = (((None, None),) * 2 if yh is None or face.d == 1
                  else ((yh[4 * m], yh[4 * m + 2]),
                        (yh[4 * m + 1], yh[4 * m + 3])))
-        (U1, V1), (U2, V2) = ([pad_row(q, f, xf, h) for q, f, xf, h in
+        own = yown if face.d == 2 else None
+        (U1, V1), (U2, V2) = ([pad_row(q, f, xf, h, own) for q, f, xf, h in
                                zip(rows(face, r), face.fills, xr, hr)]
                               for r, xr, hr in zip((face.r1, face.r2),
                                                    xfills, halos))
@@ -433,14 +474,23 @@ def _face_rows(u, v, w, wm, fuv, pp, dtrk, dxi, dyi, yh=None):
         yield face, (U1, U2, V1, V2, umag, vmag), wei
 
 
-def _check_mode(wm, w, fuv, pp, yh=None):
+def _check_mode(wm, w, fuv, pp, yh=None, yown=None):
     if (pp is None) != (fuv is None):
         raise ValueError('wm_planes: the corrected rows take fuv with pp')
+    zfaces = [f for f in wm.faces if f.d == 2]
     if yh is not None and (pp is not None or any(
-            f.d != 2 or f.fills[0][0] != 'PP' or f.xfills is not None
-            for f in wm.faces)):
+            f.xfills is not None for f in wm.faces) or (yown is None and (
+                len(zfaces) < len(wm.faces)
+                or any(f.fills[0][0] != 'PP' for f in zfaces)))):
         raise ValueError("wm_planes: a slab's halo rows serve z faces with "
-                         'periodic x and y, the rows as they are')
+                         'periodic x, the rows as they are, with periodic y '
+                         'or the y walls a slab holds (yown)')
+    if yown is not None and (yh is None) != (not zfaces):
+        raise ValueError("wm_planes: a slab of a y-walled mesh takes its z "
+                         "faces' halo rows, and none without z faces")
+    if ((yh is not None or yown is not None)
+            and wm.faces[:len(zfaces)] != tuple(zfaces)):
+        raise ValueError('wm_planes: on a slab the z faces come first')
     if any(f.d == 1 for f in wm.faces) and w is None:
         raise ValueError('wm_planes: a y face samples w')
     if pp is not None and any(f.d != 2 or f.fills[0][0] != 'PP'
@@ -450,7 +500,7 @@ def _check_mode(wm, w, fuv, pp, yh=None):
 
 
 def wm_planes_plain(u, v, wm: WallModel, fuv=None, pp=None, dtrk=0.0,
-                    dxi=0.0, dyi=0.0, w=None, yh=None):
+                    dxi=0.0, dyi=0.0, w=None, yh=None, yown=None):
     """The wall-modelled faces' padded planes from interior (nz, ny, nx)
     u, v and (with y faces) w: a tuple with one (2, n+2, nx+2) tensor a
     face of wm, [bcu, bcv] on a z face (n = ny), [bcu, bcw] on a y face
@@ -463,13 +513,16 @@ def wm_planes_plain(u, v, wm: WallModel, fuv=None, pp=None, dtrk=0.0,
     pp(i)) and likewise v along y, as the fused correction's rows
     (timeloop.py:1314-1342).  The planes off the wall model's ranges keep
     the face's static values.  yh: on a slab of the y-slab mesh (z faces,
-    periodic x and y, the rows as they are), the (4 faces, 2, nx) halo
+    periodic x and y, the rows as they are), the (4 z faces, 2, nx) halo
     rows -1 and nyl of sampled_rows, which the rows take along y in place
-    of the wrap."""
-    _check_mode(wm, w, fuv, pp, yh)
+    of the wrap.  yown: a slab of a y-walled mesh (lower, upper), whose
+    wm is slab_wall_model's (its z faces first, the y faces it owns on
+    its own rows): the z faces' rows take the y recipe's rows on the
+    sides the slab owns and yh's elsewhere (pad_row)."""
+    _check_mode(wm, w, fuv, pp, yh, yown)
     out = []
     for face, (U1, U2, V1, V2, umag, vmag), wei in _face_rows(
-            u, v, w, wm, fuv, pp, dtrk, dxi, dyi, yh):
+            u, v, w, wm, fuv, pp, dtrk, dxi, dyi, yh, yown):
         out.append(torch.stack(_face_planes(face, U1, U2, V1, V2, umag, vmag,
                                             umag, vmag, wm.h, wm.visc,
                                             wei)))
@@ -477,14 +530,14 @@ def wm_planes_plain(u, v, wm: WallModel, fuv=None, pp=None, dtrk=0.0,
 
 
 def wm_newton_steps(u, v, wm: WallModel, fuv=None, pp=None, dtrk=0.0,
-                    dxi=0.0, dyi=0.0, w=None, yh=None):
+                    dxi=0.0, dyi=0.0, w=None, yh=None, yown=None):
     """newton_steps at every point of wm_planes_plain's planes (same
     arguments), as int32 (2, n+2, nx+2) tensors, one a face: 0 off the
     planes' ranges and on laminar faces."""
-    _check_mode(wm, w, fuv, pp, yh)
+    _check_mode(wm, w, fuv, pp, yh, yown)
     out = []
     for face, rows, wei in _face_rows(u, v, w, wm, fuv, pp, dtrk, dxi, dyi,
-                                      yh):
+                                      yh, yown):
         n, nx = rows[0].shape[0] - 2, rows[0].shape[1] - 2
         steps = torch.zeros((2, n + 2, nx + 2), dtype=torch.int32,
                             device=u.device)

@@ -158,6 +158,16 @@ WALLED_SLAB_ROWS = {'mom_rk (y walls, slab)': ('mom_rk', None),
                     'smag (y walls, slab)': ('smag', None),
                     'dsmag (y walls, slab, duct)': ('dsmag', 'duct'),
                     'dsmag (y walls, slab, cavity)': ('dsmag', 'cavity')}
+# the slab modes of the wall-modelled duct and the periodic box on the
+# y-slab mesh (phases 10yw, 10t, 10td), each reported as a kernel of its
+# own, timed in phase 2b at the headline's slab on dims (2, 1): the wall
+# model's y-walled slab variant on the lower and the upper wall's slab,
+# dsmag's ZP + YH mode, thomas_periodic on the pencil (nz, ny, nx/2) of the
+# rank that holds the singular lane and of the other: report name ->
+# (kernel, the mesh phase whose main path launches it)
+SLAB_MODE_ROWS = {'wallmodel (y walls, slab)': ('wallmodel', '10yw'),
+                  'dsmag (periodic z, slab)': ('dsmag', '10td'),
+                  'thomas_periodic (pencil)': ('thomas_periodic', '10t')}
 LES_KERNELS = ('mom_rk', 'fillps', 'correc_smag')
 # H100 SXM data-sheet rates: HBM
 # bytes/s and float32 / float64 FLOP/s outside the tensor cores
@@ -1077,6 +1087,7 @@ def phase_kernels(dev, card):
     del d, cache
     torch.cuda.empty_cache()
     rows.update(walled_slab_rows(dev, card))
+    rows.update(slab_mode_rows(dev, card))
     return rows
 
 
@@ -1239,6 +1250,217 @@ def walled_slab_rows(dev, card):
                          f32_vs_f64_twin=max(r['f32_vs_f64_twin'], rel64))
         del calls
         torch.cuda.empty_cache()
+    return rows
+
+
+def _rel_errs(got, ref):
+    """(max|err|, max|err| / max|ref|) of each output."""
+    return [(float((g.double() - r.double()).abs().max()),
+             float((g.double() - r.double()).abs().max()
+                   / r.double().abs().max())) for g, r in zip(got, ref)]
+
+
+def _slab_row(row, errs, rel64, ms, plain_ms, nbytes, flops, dtype, card,
+              **extra):
+    """A phase 2b slab-mode row: its errors, times and bound (bytes at
+    PEAK_BPS, operations at PEAK_FLOPS), said and returned."""
+    t_b = nbytes / PEAK_BPS * 1e3
+    t_o = flops / PEAK_FLOPS[dtype] * 1e3
+    worst = max(e[0] for e in errs)
+    out = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+               bound_ms=max(t_b, t_o),
+               bound_by='bytes' if t_b >= t_o else 'operations',
+               library_ms=None, max_rel_err=max(e[1] for e in errs),
+               f32_vs_f64_twin=rel64, **extra)
+    say(f'  {row:<42s} max|err| {worst:.3e} (per output / its max|ref|: '
+        + ' '.join(f'{e[1]:.1e}' for e in errs) + f'; float32 against the '
+        f'float64 twin {rel64:.2e}), kernel {ms:.4f} ms, plain twin '
+        f'{plain_ms:.3f} ms, bound {out["bound_ms"]:.4f} ms by '
+        f'{out["bound_by"]}  [{card}]')
+    return out
+
+
+def slab_mode_rows(dev, card):
+    """Phase 2b's rows of SLAB_MODE_ROWS at the headline's slab on dims
+    (2, 1), float32, each against its float32 twin and the float64 twin on
+    the same inputs, timed with its twin, and its bound (each input, halo
+    and output moved once, or the arithmetic these inputs need):
+      the wall model's y-walled slab variant: DUCT_WMLES_CFG's faces on the
+        lower and the upper wall's slab (nx, ny/2, nz) of seeded fields
+        (wallmodel.slab_wall_model: the two z faces, their rows' y halos
+        cut from the whole field, the y face the slab owns), within 1e-5 of
+        each plane's maximum, the float64 kernel within 1e-13 of the
+        float64 twin's; timed by a CUDA graph (its wrapper's host time
+        exceeds the kernel's);
+      dsmag's ZP + YH mode: TRI_CFG's box with 'dit' on a slab, the
+        'channel' sums (per-row totals) within 1e-5 of each output's
+        maximum;
+      thomas_periodic, pinned, on the pencil (nz, ny, nx/2) of TRI_CFG's
+        Poisson system, rank 0's lamx lanes and rank 1's, the pin flag
+        where the lanes hold the singular one (poisson._holds_singular),
+        the singular lane's right-hand side of zero sum as a divergence's;
+        within 4x the float32 twin's error against the float64 twin."""
+    from cales_torch import poisson
+    from cales_torch import wallmodel as wmod
+    from cales_torch.config import Config
+    from cales_torch.grid import make_grid_from_config
+    from cales_torch.ops import kernels as K
+    from cales_torch.ops import solve_kernels as SK
+    f32 = torch.float32
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+
+    def rnd(*shape, scale=1.0):
+        return scale * torch.randn(shape, generator=gen, device=dev,
+                                   dtype=f32)
+    nx, ny, nz = HEADLINE_NG
+    nyl = ny // 2
+    rows = {}
+    say(f'phase 2b: the slab modes of the wall-modelled duct and the '
+        f'periodic box at the slab (nx, ny/2, nz) = {(nx, nyl, nz)} and the '
+        f'pencil (nx/2, ny, nz) = {(nx // 2, ny, nz)}, float32  [{card}]')
+    # the wall model's y-walled slab variant
+    cfg = Config(**DUCT_WMLES_CFG)
+    grid = make_grid_from_config(cfg)
+    wm = wmod.wall_model(cfg, grid, wmod.find_index_wm(cfg, grid))
+    U = (1.0 + rnd(nz, ny, nx, scale=0.1), rnd(nz, ny, nx, scale=0.1),
+         rnd(nz, ny, nx, scale=0.1))
+    row = 'wallmodel (y walls, slab)'
+    for own in ((True, False), (False, True)):
+        y0 = 0 if own[0] else nyl
+        wms = wmod.slab_wall_model(wm, y0, nyl, own)
+        u, v, w = (q[:, y0:y0 + nyl].contiguous() for q in U)
+        yh = wmod.sampled_rows(*U[:2], wms)[
+            :, [(y0 - 1) % ny, (y0 + nyl) % ny]].contiguous()
+        kw = dict(w=w, yh=yh, yown=own)
+        got = K.wm_planes(u, v, wms, **kw)
+        ref = K.wm_planes_plain(u, v, wms, **kw)
+        d64 = [q.double() for q in (u, v, w, yh)]
+        kw64 = dict(w=d64[2], yh=d64[3], yown=own)
+        ref64 = K.wm_planes_plain(*d64[:2], wms, **kw64)
+        errs = _rel_errs(got, ref)
+        rel64 = max(e[1] for e in _rel_errs(got, ref64))
+        err64 = max(e[1] for e in _rel_errs(
+            K.wm_planes(*d64[:2], wms, **kw64), ref64))
+        side = 'lower' if own[0] else 'upper'
+        require(all(np.isfinite(e[0]) and e[1] <= 1e-5 for e in errs),
+                f'{row} [{side} wall]: error above 1e-5 of a plane maximum')
+        require(err64 <= WM_TOL64, f'{row} [{side} wall]: float64 kernel '
+                f'{err64:.3e} from its twin, above {WM_TOL64:.0e}')
+        ms = graph_ms(lambda: K.wm_planes(u, v, wms, **kw))
+        plain_ms = time_ms(lambda: K.wm_planes_plain(u, v, wms, **kw), n=3)
+        ns = [nz if f.d == 1 else nyl for f in wms.faces]
+        nbytes = (sum(4 * n * nx + 2 * (n + 2) * (nx + 2) for n in ns)
+                  * 4 + yh.numel() * 4)
+        steps = sum(int(q.sum()) for q in wmod.wm_newton_steps(
+            *d64[:2], wms, **kw64))
+        flops = (sum(n * (nx + 1) + (n + 1) * nx for n in ns) * WM_SOLVE_OPS
+                 + steps * WM_STEP_OPS)
+        r = _slab_row(f'{row} [{side} wall]', errs, rel64, ms, plain_ms,
+                      nbytes, flops, f32, card, f64_vs_f64_twin=err64,
+                      faces=len(ns), shape=[nx, nyl, nz])
+        if own[0]:
+            rows[row] = r
+        else:
+            rows[row].update(ms_upper_wall_slab=ms,
+                             plain_ms_upper_wall_slab=plain_ms,
+                             max_abs_err=max(rows[row]['max_abs_err'],
+                                             r['max_abs_err']),
+                             max_rel_err=max(rows[row]['max_rel_err'],
+                                             r['max_rel_err']),
+                             f32_vs_f64_twin=max(rows[row]['f32_vs_f64_twin'],
+                                                 rel64))
+    del U, u, v, w, got, ref, ref64, d64
+    torch.cuda.empty_cache()
+    # dsmag's ZP + YH mode on the box's slab
+    cfg = Config(**TRI_CFG)
+    grid = make_grid_from_config(cfg)
+    U = [rnd(nz, ny, nx, scale=0.02) for _ in range(3)]
+    y0 = 0
+    q = [a[:, y0:y0 + nyl].contiguous() for a in U]
+    e = [torch.stack([a[-1], a[-1], a[0]])[:, y0:y0 + nyl].contiguous()
+         for a in U]
+    hrows = [(y0 + j) % ny for j in (-2, -1, nyl, nyl + 1)]
+    yh = [(a[:, hrows].contiguous(),
+           torch.stack([a[-1], a[-1], a[0]])[:, hrows].contiguous())
+          for a in U]
+    t = lambda a: torch.as_tensor(np.asarray(a), dtype=f32,  # noqa: E731
+                                  device=dev)
+    args = (*q, *e, torch.full((nz,), 4.0, dtype=f32, device=dev),
+            t(grid.dzci), t(grid.dzfi), cfg.dli[0], cfg.dli[1], False, False)
+    kw = dict(avg='channel', zper=True, yh=yh)
+
+    def totals(res):
+        return [res[0], res[1].sum(dim=-1), res[2].sum(dim=-1)]
+    got = totals(K.dsmag(*args, **kw))
+    ref = totals(K.dsmag_plain(*args, **kw))
+    args64 = tuple(a.double() if torch.is_tensor(a) else a for a in args)
+    ref64 = totals(K.dsmag_plain(*args64, avg='channel', zper=True,
+                                 yh=[(a.double(), b.double())
+                                     for a, b in yh]))
+    errs = _rel_errs(got, ref)
+    rel64 = max(er[1] for er in _rel_errs(got, ref64))
+    row = 'dsmag (periodic z, slab)'
+    require(all(np.isfinite(er[0]) and er[1] <= 1e-5 for er in errs),
+            f'{row}: error above 1e-5 of an output maximum')
+    ms = time_ms(lambda: K.dsmag(*args, **kw))
+    plain_ms = time_ms(lambda: K.dsmag_plain(*args, **kw), n=3)
+    nin, nout, per_cell = WORK['dsmag']
+    cells = nz * nyl * nx
+    halo = sum(a.numel() + b.numel() for a, b in yh) * 4
+    rows[row] = _slab_row(row, errs, rel64, ms, plain_ms,
+                          (nin + nout) * cells * 4 + halo, per_cell * cells,
+                          f32, card, halo_bytes=halo, shape=[nx, nyl, nz])
+    del U, q, e, yh, args, args64, got, ref, ref64
+    torch.cuda.empty_cache()
+    # thomas_periodic on the pencil of each rank
+    sv = poisson.make_solver(cfg, grid, tuple(cfg.cbc_pre(dd)
+                                              for dd in range(3)),
+                             ('c', 'c', 'c'))
+    nxl = nx // 2
+    tol = poisson._thomas_tol(sv.lamx, sv.lamy, f32)
+    abc = [torch.as_tensor(a, dtype=torch.float64, device=dev)
+           for a in (sv.a, sv.b, sv.c)]
+    lamy = t(sv.lamy)
+    row = 'thomas_periodic (pencil)'
+    for rank in range(2):
+        lamx_np = sv.lamx[rank * nxl:(rank + 1) * nxl]
+        pin = poisson._holds_singular(lamx_np, sv.lamy, tol)
+        body = rnd(nz, ny, nxl)
+        # the singular lane's column summed to 0 along z, as a divergence's
+        # transform is (its volume mean): the main path's right-hand side
+        lane = np.abs(lamx_np[None, :] + sv.lamy[:, None]) <= tol
+        for j, i in np.argwhere(lane):
+            body[:, j, i] -= body[:, j, i].mean()
+        kw = dict(lamy=lamy, lamx=t(lamx_np), pin=pin, tol=tol)
+        got = SK.thomas_periodic_z(body, *abc, **kw)
+        ref = SK.thomas_periodic_z_plain(body, *abc, **kw)
+        # the float64 twin on the same (float32) inputs
+        ref64 = SK.thomas_periodic_z_plain(
+            body.double(), *abc, lamy=lamy.double(),
+            lamx=kw['lamx'].double(), pin=pin, tol=tol)
+        errs = _rel_errs([got], [ref])
+        rel64 = _rel_errs([got], [ref64])[0][1]
+        lib64 = _rel_errs([ref], [ref64])[0][1]
+        require(np.isfinite(errs[0][0]) and rel64 <= 4.0 * lib64,
+                f'{row} [rank {rank}]: {rel64:.3e} against the float64 '
+                f'twin, above 4x the float32 twin\'s {lib64:.3e}')
+        ms = time_ms(lambda: SK.thomas_periodic_z(body, *abc, **kw))
+        plain_ms = time_ms(lambda: SK.thomas_periodic_z_plain(body, *abc,
+                                                              **kw), n=3)
+        nin, nout, per_cell = WORK['thomas_periodic']
+        cells = nz * ny * nxl
+        r = _slab_row(f'{row} [rank {rank}, pin {pin}]', errs, rel64, ms,
+                      plain_ms, (nin + nout) * cells * 4, per_cell * cells,
+                      f32, card, f32_twin_vs_f64_twin=lib64,
+                      shape=[nxl, ny, nz])
+        if rank == 0:
+            rows[row] = dict(r, pinned_rank=0 if pin else None)
+        else:
+            rows[row].update(ms_rank1=ms, plain_ms_rank1=plain_ms)
+            if pin:
+                rows[row]['pinned_rank'] = 1
+    require(rows[row]['pinned_rank'] is not None,
+            f'{row}: no rank holds the singular lane')
     return rows
 
 
@@ -2764,7 +2986,26 @@ MESH_CLASSES = (
     ('10ys', 'static-Smagorinsky duct (duct_les_dsmag with smag)',
      dict(DUCT_CFG, sgstype='smag', dims=(2, 1)), None,
      dict(mom_rk=3, fillps=3, correc_updatep=3, smag=3, apply_x=6,
-          apply_y=6, thomas_z=3), {'smag': 1}))
+          apply_y=6, thomas_z=3), {'smag': 1}),
+    # the wall-modelled duct: the wall model on the four walls, the y
+    # faces' on their owners (its slab rows are phase 2b's)
+    ('10yw', 'wall-modelled duct (turbulent_duct_wmles at the headline '
+     'grid)', dict(DUCT_WMLES_CFG, dims=(2, 1)), None,
+     dict(mom_rk=3, fillps=3, correc_updatep=3, smag=3, apply_x=6,
+          apply_y=6, thomas_z=3, wallmodel=3), {'smag': 1, 'wm': 1}),
+    # the triperiodic box: the pinned periodic Thomas on the pencil, dsmag
+    # in its ZP + YH mode (phase 2b's rows); smag's no-wall halo variant
+    ('10t', 'triperiodic DNS (triperiodic_dns)', dict(TRI_CFG, dims=(2, 1)),
+     None, dict(mom_rk=3, fillps=3, correc_updatep=3, apply_x=6, apply_y=6,
+                thomas_periodic=3), {}),
+    ('10tl', 'box LES, static Smagorinsky (triperiodic_dns with smag)',
+     dict(TRI_CFG, sgstype='smag', dims=(2, 1)), None,
+     dict(mom_rk=3, fillps=3, correc_updatep=3, smag=3, apply_x=6,
+          apply_y=6, thomas_periodic=3), {}),
+    ('10td', "box LES, dynamic Smagorinsky 'dit' (triperiodic_dns with "
+     'dsmag)', dict(TRI_CFG, sgstype='dsmag', dsmag_avg='dit', dims=(2, 1)),
+     None, dict(mom_rk=3, fillps=3, correc_updatep=3, dsmag=3, apply_x=6,
+                apply_y=6, thomas_periodic=3), {'dsmag': 1}))
 # report row -> kernel
 MESH_LES_ROWS = {'mom_rk (y halo, split 1d)': 'mom_rk',
                  'wallmodel (y halo)': 'wallmodel', 'dsmag (y halo)': 'dsmag'}
@@ -2783,10 +3024,14 @@ WALLED_SLAB_PHASE = {'mom_rk (y walls, slab)': '10y',
 
 
 def _outside(outside, cfg, nsteps):
-    """The launches outside the steps: the wall model's at the initial
-    fill, the initial check and every icheck-th step's check."""
+    """The launches outside the steps: with 'wm' (alone, or a key of the
+    dict) the wall model's at the initial fill, the initial check and
+    every icheck-th step's check."""
     if outside == 'wm':
         return {'wallmodel': 2 + nsteps // cfg.icheck}
+    if 'wm' in outside:
+        return {**{k: n for k, n in outside.items() if k != 'wm'},
+                'wallmodel': 2 + nsteps // cfg.icheck}
     return outside
 
 
@@ -2797,11 +3042,12 @@ def _small(kw):
 
 def _mesh_gates(sim, state, mesh):
     """The PERF.md section 2 gates on the slabs, reduced over the ranks:
-    (finite, divmax, bulk u, nu_t min and max, max |w| on the z walls,
-    max |v| on the y walls (each on its owner: the kept lower face, the
-    upper face's row), and v on the upper z face against its value b, the
-    fill's mean of the last row and the ghost, where that face is a wall
-    without a wall model: the cavity's lid; None elsewhere)."""
+    (finite, divmax, bulk u, nu_t min and max, max |w| on the z walls
+    (None with periodic z), max |v| on the y walls (each on its owner: the
+    kept lower face, the upper face's row), v on the upper z face against
+    its value b, the fill's mean of the last row and the ghost, where that
+    face is a wall without a wall model: the cavity's lid; None elsewhere),
+    and the kinetic energy (the box's must fall)."""
     _, _, divmax = sim.check(state)
     fields = (state.u, state.v, state.w, state.p, state.visct)
     vy = 0.0
@@ -2815,7 +3061,15 @@ def _mesh_gates(sim, state, mesh):
         lid = mesh.reduce_scalar(float((0.5 * (state.v[-1] + state.zq[1][2])
                                         - sim.bcv_vals[2][1]).abs().max()),
                                  'max')
+    w_walls = None
+    if sim.cbcvel[0][2][2] == 'D':
+        w_walls = mesh.reduce_scalar(max(
+            float(state.vlo[2][1:-1, 1:-1].abs().max()),
+            float(state.w[-1].abs().max())), 'max')
     return dict(
+        energy=mesh.reduce_scalar(
+            0.5 * float(sum((q.double() ** 2).sum()
+                            for q in (state.u, state.v, state.w))), 'sum'),
         v_ywalls=mesh.reduce_scalar(vy, 'max'), v_lid=lid,
         finite=mesh.reduce_scalar(
             float(all(bool(torch.isfinite(f).all()) for f in fields)),
@@ -2823,9 +3077,7 @@ def _mesh_gates(sim, state, mesh):
         divmax=divmax, bulk_u=sim.bulk_mean(state.u, sim.gvr_f),
         nu_t_min=mesh.reduce_scalar(float(state.visct.min()), 'min'),
         nu_t_max=mesh.reduce_scalar(float(state.visct.max()), 'max'),
-        w_walls=mesh.reduce_scalar(max(
-            float(state.vlo[2][1:-1, 1:-1].abs().max()),
-            float(state.w[-1].abs().max())), 'max'))
+        w_walls=w_walls)
 
 
 def _mesh_les_row(row, sim, state, mesh, dt, card):
@@ -2972,7 +3224,8 @@ def sharded_les_rank(out_dir):
 
 
 def sharded_les_rank_body(out_dir):
-    """One rank of phases 10i, 10w, 10d, 10y, 10yc and 10ys (started under
+    """One rank of phases 10i, 10w, 10d, 10y, 10yc, 10ys, 10yw, 10t, 10tl
+    and 10td (started under
     torch.distributed.run, two ranks on the one card over gloo, staged
     through pinned host buffers): each class at the headline grid through
     driver.run with every launch count set to 0 just before and read just
@@ -3013,6 +3266,7 @@ def sharded_les_rank_body(out_dir):
             say(f'  phase {key} path: {sim.exec_path()}')
         dt = sim.pick_dt(sim.check(state)[0])
         ntime = 0 if key == '10d dit' else 2
+        energy0 = _mesh_gates(sim, state, m)['energy']
         torch.cuda.synchronize()
         m.barrier()
         t0 = time.perf_counter()
@@ -3023,11 +3277,13 @@ def sharded_les_rank_body(out_dir):
         r['ms_per_step'] = ((time.perf_counter() - t0) * 1e3 / ntime
                             if ntime else None)
         r.update(_mesh_gates(sim, state, m))
+        r['energy_before'] = energy0
         r['peak_gib'] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
         if sim.has_wm:
-            planes = torch.stack(sim._wm_planes(state.u, state.v, state.w))
+            planes = sim._wm_planes(state.u, state.v, state.w)
             r['wm_finite'] = m.reduce_scalar(
-                float(bool(torch.isfinite(planes).all())), 'min')
+                float(all(bool(torch.isfinite(q).all()) for q in planes)),
+                'min')
         if key == '10d dit':
             res[key] = r
             del sim, state
@@ -3081,11 +3337,14 @@ def phase_sharded_les(dev, card):
     wall-modelled channel LES and the dsmag channel ('channel', impdiff_1d;
     then one step with 'dit'); 10y, 10yc and 10ys: the y-walled dsmag duct
     ('duct'), dsmag cavity ('cavity', the lid on v) and static-Smagorinsky
-    duct, on a y-slab mesh, dims = (2, 1), two ranks
-    sharing the one card over gloo staged through the host (as phase 10:
-    its ms/step is a correctness run's, no scaling figure), each at
+    duct; 10yw: the wall-modelled duct (the wall model on its four walls);
+    10t, 10tl and 10td: the triperiodic box as DNS, with static
+    Smagorinsky and with dsmag 'dit'; on a y-slab mesh, dims = (2, 1), two
+    ranks sharing the one card over gloo staged through the host (as phase
+    10: its ms/step is a correctness run's, no scaling figure), each at
     512x256x256 f32 with the PERF.md section 2 gates (with y walls v on
-    them, each on its owner; v on the cavity's lid) and exact launches,
+    them, each on its owner; v on the cavity's lid; the box's kinetic
+    energy falling over the timed steps) and exact launches,
     the channel classes' slab kernel variant against its twin, and each
     class's small f64 twin (the 'none' duct's alone, 10yn) against the
     single-device 'mat' + Thomas run on the card within 1e-11 (with y
@@ -3095,8 +3354,8 @@ def phase_sharded_les(dev, card):
     torch.cuda.empty_cache()
     env = dict(os.environ)
     env.setdefault('GLOO_SOCKET_IFNAME', 'lo')
-    say(f'phases 10i, 10w, 10d, 10y, 10yc, 10ys: the channel, duct and '
-        f'cavity classes on a y-slab mesh, dims (2, 1), {HEADLINE_NG} '
+    say(f'phases 10i, 10w, 10d, 10y, 10yc, 10ys, 10yw, 10t, 10tl, 10td: '
+        f'the channel, duct, cavity and box classes on a y-slab mesh, dims (2, 1), {HEADLINE_NG} '
         f'float32, two ranks on one card (gloo, staged through the host)  '
         f'[{card}]')
     with tempfile.TemporaryDirectory() as tmp:
@@ -3112,7 +3371,7 @@ def phase_sharded_les(dev, card):
             say(f'  | {line}')
         errs = ''.join(f'rank {r}:\n{q.read_text()}' for r in range(2)
                        for q in [Path(tmp) / f'rank{r}.err'] if q.exists())
-        require(res.returncode == 0, f'a rank of phases 10i-10ys failed:\n'
+        require(res.returncode == 0, f'a rank of phases 10i-10td failed:\n'
                                      f'{errs or res.stderr[-4000:]}')
         ranks = [json.loads((Path(tmp) / f'rank{r}.json').read_text())
                  for r in range(2)]
@@ -3148,9 +3407,12 @@ def phase_sharded_les(dev, card):
             f'[{card}]')
         say(f'  divmax {r0["divmax"]:.3e} (abort bound {small_eps:.3e}), '
             f'bulk u {r0["bulk_u"]:.7f}, nu_t in [{r0["nu_t_min"]:.4e}, '
-            f'{r0["nu_t_max"]:.4e}], max |w| on the z walls '
-            f'{r0["w_walls"]:.3e}, max |v| on the y walls '
-            f'{r0["v_ywalls"]:.3e}'
+            f'{r0["nu_t_max"]:.4e}], '
+            + ('' if r0['w_walls'] is None else
+               f'max |w| on the z walls {r0["w_walls"]:.3e}, ')
+            + f'max |v| on the y walls {r0["v_ywalls"]:.3e}, kinetic '
+            f'energy {r0["energy_before"]:.6e} -> {r0["energy"]:.6e} over '
+            f'the 2 timed steps'
             + ('' if r0['v_lid'] is None else
                f', v on the upper z face against its value '
                f'{cfg.bcvel[1][2][1]} {r0["v_lid"]:.3e}')
@@ -3172,15 +3434,22 @@ def phase_sharded_les(dev, card):
         require(r0['nu_t_min'] >= 0.0, f'{tag}: nu_t min {r0["nu_t_min"]}')
         require((r0['nu_t_max'] > 0.0) == (cfg.sgstype != 'none'),
                 f'{tag}: nu_t max {r0["nu_t_max"]}')
-        require(r0['w_walls'] <= 1e-6, f'{tag}: w on the walls '
-                                       f'{r0["w_walls"]:.3e}')
+        if r0['w_walls'] is not None:
+            require(r0['w_walls'] <= 1e-6, f'{tag}: w on the walls '
+                                           f'{r0["w_walls"]:.3e}')
+        if cfg.cbc_vel(2, 0) == 'PP' and r0['ms_per_step'] is not None:
+            # the box: no forcing, the energy decays
+            require(r0['energy'] < r0['energy_before'],
+                    f'{tag}: kinetic energy {r0["energy_before"]:.6e} -> '
+                    f'{r0["energy"]:.6e}, not falling')
         if 'wm_finite' in r0:
             require(r0['wm_finite'] == 1.0, f'{tag}: non-finite wall-model '
                                             'planes')
         report[key] = {k: r0[k] for k in ('ms_per_step', 'divmax', 'bulk_u',
                                            'nu_t_min', 'nu_t_max',
                                            'w_walls', 'v_ywalls',
-                                           'v_lid')} | {'card': card}
+                                           'v_lid', 'energy_before',
+                                           'energy')} | {'card': card}
         rows.update(r0.get('halo_rows', {}))
         if key in smalls:
             report[key].update(_small_vs_one_device(tag, kw, smalls[key],
@@ -3302,6 +3571,11 @@ def main():
     # launches there include the initial nu_t's)
     for row, (name, _) in WALLED_SLAB_ROWS.items():
         paths[row] = (les_mesh[WALLED_SLAB_PHASE[row]], MESH_LES_STEPS, name)
+    # the wall-modelled duct's and the box's slab modes on phases 10yw, 10t
+    # and 10td (rank 0, 3 steps; the wall model's launches there include
+    # the initial fill's and the checks', dsmag's the initial nu_t's)
+    for row, (name, key) in SLAB_MODE_ROWS.items():
+        paths[row] = (les_mesh[key], MESH_LES_STEPS, name)
     # the x-walled variants' on the developing channel (phase 11, 5 steps)
     # and the lid-driven cavity (phase 11b, 5 steps)
     variant_path = {'duct': duct, 'cavity': cavity, 'helmholtz3d': dns3,
@@ -3348,7 +3622,8 @@ def main():
                **{row: KERNELS[n] for row, (n, _) in BIG_ROWS.items()},
                **{row: KERNELS[n] for row, n in HALO_ROWS.items()},
                **{row: KERNELS[n] for row, n in MESH_LES_ROWS.items()},
-               **{row: KERNELS[n] for row, (n, _) in WALLED_SLAB_ROWS.items()}}
+               **{row: KERNELS[n] for row, (n, _) in WALLED_SLAB_ROWS.items()},
+               **{row: KERNELS[n] for row, (n, _) in SLAB_MODE_ROWS.items()}}
     report = {'kernels': [
         dict(name=row, route='cuda', source=sources[row][0],
              replaces=sources[row][1], launches=run[name],

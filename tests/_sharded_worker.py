@@ -127,6 +127,25 @@ def case_steps(m, inp, out, key, kw, nsteps):
     out[f'{key}.readback'] = np.array(ok)
 
 
+def case_wmplanes(m, inp, out, key, kw):
+    """The wall model's planes of global fields on this rank's slab, as
+    the step makes them (Simulation._wm_planes: the z faces' sampled rows'
+    halos through the mesh, the y faces on their owners), gathered: the
+    face (d, ib) of rank r as {key}.r{r}.f{d}{ib}."""
+    from cales_torch.grid import make_grid_from_config
+    from cales_torch.timeloop import Simulation
+    cfg = _config(kw)
+    sim = Simulation(cfg, make_grid_from_config(cfg), device='cpu', mesh=m)
+    u, v, w = (torch.as_tensor(m.local(inp[f'{key}.{q}'])) for q in 'uvw')
+    mine = {f'{f.d}{f.ib}': q.numpy() for f, q in
+            zip(sim.wm_run.faces, sim._wm_planes(u, v, w))}
+    every = [None] * m.gy
+    torch.distributed.all_gather_object(every, mine)
+    for r, faces in enumerate(every):
+        for name, q in faces.items():
+            out[f'{key}.r{r}.f{name}'] = q
+
+
 def case_driver(m, out, key, kw, datadir):
     """driver.run on the slabs under the wall-time stop rule, with rank 0's
     clock two hours ahead of the others' after its first reading: the
@@ -165,6 +184,8 @@ def main(work, rank, world):
             case_halo2(m, inp, out, case['key'])
         elif kind == 'solve':
             case_solve(m, inp, out, case['key'], case['cfg'])
+        elif kind == 'wmplanes':
+            case_wmplanes(m, inp, out, case['key'], case['cfg'])
         elif kind == 'driver':
             case_driver(m, out, case['key'], case['cfg'],
                         work / case['key'])

@@ -2272,3 +2272,151 @@ def test_cuda_walled_slab_kernels_match_twins(dev, dtype, shape, own):
     assert (K.LAUNCHES['mom_rk'], K.LAUNCHES['fillps'],
             K.LAUNCHES['correc_updatep'], K.LAUNCHES['smag'],
             K.LAUNCHES['dsmag']) == (1, 1, 1, 1, 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('own', [(True, False), (False, False),
+                                 (False, True)])
+@pytest.mark.parametrize('dtype, shape', [
+    ('float64', (40, 32, 12)), ('float32', (72, 38, 17)),
+    ('float64', (33, 24, 20))])
+def test_cuda_wallmodel_ywalled_slab_matches_twin(dev, dtype, shape, own):
+    """The wall model's y-walled slab variant (the duct WMLES on the y-slab
+    mesh, wallmodel.slab_wall_model): the z faces' rows with the y recipe
+    on the sides the slab owns and halo rows cut from the whole field
+    elsewhere, the y face it owns on its own rows, in one launch, on the
+    lower, a middle and the upper slab of (nx, ny, nz) shapes no block
+    fits, moving wall values on every face: float64 within 1e-13 of each
+    plane's maximum (the libraries' log differs), float32 within 1e-5; and
+    the slab's planes against the whole field's cut to the slab (the rows
+    the slab makes), within the same bounds."""
+    from cales_torch import wallmodel as wmod
+    from cales_torch.config import effective_cbcvel
+    from cales_torch.ops import boundary as bnd
+    nx, ny, nz = shape
+    dt = getattr(torch, dtype)
+    tol = 1e-13 if dt == torch.float64 else 1e-5
+    bcvel = (((0.0,) * 3, (0.03, 0.0, -0.02), (0.01, 0.02, 0.0)),
+             ((0.0,) * 3, (-0.01, 0.0, 0.04), (0.05, -0.03, 0.0)))
+    cfg = Config(**dict(DUCT_WMLES, l=(2 * np.pi, 2.0, 2.0), gr=1.0,
+                        ng=shape, bcvel=bcvel, hwm=0.2))
+    grid = make_grid_from_config(cfg)
+    bcs = [bnd.make_bc_values(cfg.ng, tuple(
+        tuple(bcvel[ib][d][iv] for ib in range(2)) for d in range(3)), dt)
+        for iv in range(3)]
+    wm = wmod.wall_model(cfg, grid, wmod.find_index_wm(cfg, grid), bcs,
+                         effective_cbcvel(cfg))
+    rng = np.random.default_rng(29)
+    u, v, w = (torch.as_tensor(0.3 * rng.standard_normal((nz, ny, nx)),
+                               device=dev).to(dt) for _ in range(3))
+    u = u + 1.0
+    nyl = ny // 4
+    y0 = {(True, False): 0, (False, False): nyl,
+          (False, True): ny - nyl}[own]
+    wms = wmod.slab_wall_model(wm, y0, nyl, own)
+    q = [a[:, y0:y0 + nyl].contiguous() for a in (u, v, w)]
+    yh = wmod.sampled_rows(u, v, wms)[
+        :, [(y0 - 1) % ny, (y0 + nyl) % ny]].contiguous()
+    K.reset_launches()
+    got = K.wm_planes(*q[:2], wms, w=q[2], yh=yh, yown=own)
+    ref = wmod.wm_planes_plain(*q[:2], wms, w=q[2], yh=yh, yown=own)
+    whole = dict(zip(wm.faces, wmod.wm_planes_plain(u, v, wm, w=w)))
+    torch.cuda.synchronize()
+    assert K.LAUNCHES['wallmodel'] == 1
+    assert len(got) == len(wms.faces) == 2 + sum(own)
+    for face, g, r in zip(wms.faces, got, ref):
+        _rel_close(g, r, tol)
+        if face.d == 1:
+            b = [p for f, p in whole.items() if f.d == 1
+                 and f.ib == face.ib][0]
+            _rel_close(g, b, tol)
+            continue
+        b = whole[face]
+        _rel_close(g[0, 1:nyl + 1], b[0, y0 + 1:y0 + nyl + 1], tol)
+        _rel_close(g[1, 0:nyl + 1], b[1, y0:y0 + nyl + 1], tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype, shape', [
+    ('float64', (40, 10, 12)), ('float32', (72, 19, 24)),
+    ('float64', (40, 2, 7))])
+def test_cuda_dsmag_periodic_z_slab_matches_twin(dev, dtype, shape):
+    """dsmag's ZP + YH mode (the box LES with 'dit' on the y-slab mesh:
+    the velocity's planes mod nz, the two-row halo's rows of the same
+    plane) against its twin and against the whole field's ZP kernel cut
+    to the slab, on shapes no tile fits and a slab of 2 rows: |S| within
+    1e-12 (f64) or 1e-5 (f32) of its maximum, the 'channel' sums' row
+    totals the same relative to their maximum."""
+    nx, nyl, nz = shape
+    dt = getattr(torch, dtype)
+    tol = 1e-12 if dt == torch.float64 else 1e-5
+    rng = np.random.default_rng(37)
+    ny = 3 * nyl
+    U = [torch.as_tensor(0.05 * rng.standard_normal((nz, ny, nx)),
+                         device=dev).to(dt) for _ in range(3)]
+    E = [torch.stack([a[-1], a[-1], a[0]]) for a in U]
+    dz = torch.full((nz + 2,), nz / 2.0, dtype=dt, device=dev)
+    alph2 = torch.full((nz,), 4.0, dtype=dt, device=dev)
+    args = (alph2, dz, dz, 40.0, 20.0, False, False)
+    whole = K.dsmag(*U, *E, *args, avg='channel', zper=True)
+    for y0 in (0, nyl, 2 * nyl):
+        rows = [(y0 + j) % ny for j in (-2, -1, nyl, nyl + 1)]
+        q = [a[:, y0:y0 + nyl].contiguous() for a in U]
+        e = [a[:, y0:y0 + nyl].contiguous() for a in E]
+        yh = [(a[:, rows].contiguous(), b[:, rows].contiguous())
+              for a, b in zip(U, E)]
+        K.reset_launches()
+        got = K.dsmag(*q, *e, *args, avg='channel', zper=True, yh=yh)
+        ref = K.dsmag_plain(*q, *e, *args, avg='channel', zper=True, yh=yh)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES['dsmag'] == 1
+        _rel_close(got[0], ref[0], tol)
+        _rel_close(got[0], whole[0][:, y0:y0 + nyl], tol)
+        for g, r in zip(got[1:], ref[1:]):
+            _rel_close(g.sum(-1), r[:, 0], tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', ['float64', 'float32'])
+@pytest.mark.parametrize('gy', [2, 4])
+def test_cuda_thomas_periodic_on_the_pencil(dev, dtype, gy):
+    """thomas_periodic on each rank's pencil (nz, ny, nx/gy) of the box's
+    Poisson system (the sharded solve with periodic z): its lamx lanes a
+    slice of the spectrum, pinned on the rank whose slice holds the
+    singular lane (poisson._holds_singular), against the twin within
+    1e-12 (f64) or 1e-5 (f32) of the maximum, and the pinned lane's last
+    row 0."""
+    from cales_torch import poisson
+    dt = getattr(torch, dtype)
+    cfg = Config(ng=(64, 24, 20), l=(2 * np.pi,) * 3, gtype=1, gr=0.0,
+                 visci=1600.0, inivel='tgv', sgstype='none', dtype=dtype,
+                 ptransform='mat', cbcvel=((('P',) * 3,) * 3,) * 2,
+                 cbcpre=(('P',) * 3,) * 2, cbcsgs=(('P',) * 3,) * 2)
+    sv = poisson.make_solver(cfg, make_grid_from_config(cfg),
+                             tuple(cfg.cbc_pre(d) for d in range(3)),
+                             ('c', 'c', 'c'))
+    nx, ny, nz = cfg.ng
+    nxl = nx // gy
+    tol = poisson._thomas_tol(sv.lamx, sv.lamy, dt)
+    abc = [torch.as_tensor(a, dtype=torch.float64, device=dev)
+           for a in (sv.a, sv.b, sv.c)]
+    rng = np.random.default_rng(41)
+    pinned = []
+    for rank in range(gy):
+        lamx = sv.lamx[rank * nxl:(rank + 1) * nxl]
+        pin = poisson._holds_singular(lamx, sv.lamy, tol)
+        pinned.append(pin)
+        body = torch.as_tensor(rng.standard_normal((nz, ny, nxl)),
+                               device=dev).to(dt)
+        kw = dict(lamy=torch.as_tensor(sv.lamy, device=dev).to(dt),
+                  lamx=torch.as_tensor(lamx, device=dev).to(dt), pin=pin,
+                  tol=tol)
+        got = SK.thomas_periodic_z(body, *abc, **kw)
+        ref = SK.thomas_periodic_z_plain(body, *abc, **kw)
+        _rel_close(got, ref, 1e-12 if dt == torch.float64 else 1e-5)
+        if pin:
+            lane = np.argwhere(np.abs(lamx[None, :] + sv.lamy[:, None])
+                               <= tol)
+            for j, i in lane:
+                assert float(got[-1, j, i]) == 0.0
+    assert sum(pinned) == 1

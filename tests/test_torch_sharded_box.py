@@ -1,0 +1,129 @@
+"""The triperiodic box on a y-slab mesh (dims = (gy, 1)) on the CPU, on gloo
+ranks of tests/_sharded_worker.py (the kernels' plain twins), against the
+JAX package's single-device Simulation(use_pallas=False), f64, from the
+seeded asymmetric start of tests/test_torch_sharded.py, at the size of
+tests/test_torch_triperiodic.py's Taylor-Green vortex (16^3, 'mat'):
+
+  * 2 steps at gy = 2 of the DNS (bench.py's triperiodic_dns), the box
+    LES with static Smagorinsky (no wall: no van Driest), the box LES with
+    dynamic Smagorinsky ('dit': the dsmag kernel's periodic-z mode on a
+    slab, ZP + YH) and the smag box forced along z (the bulk mean of w
+    summed over the ranks): u, v, w, nu_t within 1e-11, p within 1e-11
+    after removing its mean (the sharded z stage is the pinned periodic
+    Thomas), the CFL dt, divmax, bulk u (the reference's), and the
+    kernels named; in the same spawn solve_sharded with periodic z against
+    JAX poisson.solve within 1e-11 after removing the mean;
+  * the singular lane (lamx, lamy, lamz) = (0, 0, 0) pinned on the rank
+    whose slice of lamx holds it, whatever that order;
+  * what unsupported() runs on the mesh (bench.py's six classes and the
+    wall-modelled duct example at dims (2, 1) and (4, 1)) and what it
+    still refuses with periodic z.
+"""
+import numpy as np
+import pytest
+import torch
+
+from cales_torch import poisson
+from cales_torch.config import Config
+from cales_torch.grid import make_grid_from_config
+from cales_torch.nml import config_from_nml
+from cales_torch.timeloop import unsupported
+
+from test_torch_sharded import (ROOT, _check_steps, _gauge, _jax_solve,
+                                _jax_steps, _solve_case, _spawn)
+from test_torch_sharded_imp import _bulk
+from test_torch_triperiodic import TGV
+
+torch.set_num_threads(1)
+
+BOX = dict(TGV, ptransform='mat')
+CASES = {'tri': BOX, 'tri_smag': dict(BOX, sgstype='smag'),
+         'tri_dsmag': dict(BOX, sgstype='dsmag', dsmag_avg='dit'),
+         'tri_smag_fz': dict(BOX, sgstype='smag',
+                             is_forced=(False, False, True),
+                             velf=(0.0, 0.0, 0.1))}
+TOL = 1e-11
+
+
+@pytest.fixture(scope='module')
+def refs():
+    return {key: (kw, _jax_steps(kw, 2)) for key, kw in CASES.items()}
+
+
+def test_box_steps_and_solve_match_one_device(tmp_path, refs):
+    gy = 2
+    cases, inputs = [], {}
+    for key, (kw, (fields, dt, _, _)) in refs.items():
+        assert unsupported(Config(**kw, dims=(gy, 1))) == [], key
+        for q, f in zip('uvwp', fields):
+            inputs[f'{key}.{q}'] = f
+        inputs[f'{key}.dt'] = np.array(dt)
+        cases.append({'kind': 'steps', 'key': key, 'ng': kw['ng'],
+                      'cfg': {**kw, 'dims': (gy, 1)}, 'nsteps': 2})
+    rhs = _solve_case(BOX, np.random.default_rng(9))
+    cases.append({'kind': 'solve', 'key': 's', 'ng': BOX['ng'],
+                  'cfg': {**BOX, 'dims': (gy, 1)}})
+    inputs['s.rhs'] = rhs
+    out, work = _spawn(tmp_path, gy, cases, inputs)
+    for key, (kw, (_, _, jst, jchk)) in refs.items():
+        _check_steps(out, key, jst, jchk, kw, work, 2, bulk=_bulk(kw, jst),
+                     zthomas='thomas_periodic')
+        names = list(out[f'{key}.names'])
+        assert ('dsmag' in names) == (kw['sgstype'] == 'dsmag'), key
+        assert 'wallmodel' not in names
+    # forced along z: the bulk w (uniform z) is the forced value
+    assert abs(out['tri_smag_fz.w'].mean()
+               - CASES['tri_smag_fz']['velf'][2]) <= 1e-12
+    err = np.abs(_gauge(out['s.p']) - _gauge(_jax_solve(BOX, rhs))).max()
+    assert err <= TOL, f'solve_sharded, periodic z: {err:.3e}'
+
+
+@pytest.mark.parametrize('gy', [2, 4])
+def test_singular_lane_pinned_on_the_rank_that_holds_it(gy):
+    cfg = Config(**BOX, dims=(gy, 1))
+    sv = poisson.make_solver(cfg, make_grid_from_config(cfg),
+                             tuple(cfg.cbc_pre(d) for d in range(3)),
+                             ('c', 'c', 'c'))
+    assert sv.bcz == 'PP'
+    tol = poisson._thomas_tol(sv.lamx, sv.lamy, torch.float64)
+    nxl = cfg.ng[0] // gy
+    zero = int(np.argmin(np.abs(sv.lamx)))
+    for lamx in (sv.lamx, sv.lamx[::-1]):
+        where = int(np.argmin(np.abs(lamx))) // nxl
+        holds = [poisson._holds_singular(lamx[r * nxl:(r + 1) * nxl],
+                                         sv.lamy, tol) for r in range(gy)]
+        assert holds == [r == where for r in range(gy)]
+    assert abs(sv.lamx[zero]) <= tol and min(abs(sv.lamy)) <= tol
+
+
+@pytest.mark.parametrize('gy', [2, 4])
+@pytest.mark.parametrize('name', ['triperiodic_dns', 'channel_dns_impdiff',
+                                  'channel_les_smag', 'duct_les_dsmag',
+                                  'cavity_les_dsmag', 'wmles_channel',
+                                  'turbulent_duct_wmles'])
+def test_mesh_runs_the_classes(name, gy):
+    """bench.py's six classes at 512x256x256 and the wall-modelled duct
+    example (512x80x80: its y faces' rows 3 and 4 from the wall on slabs of
+    40 and 20 rows) run on dims (gy, 1)."""
+    if name == 'turbulent_duct_wmles':
+        cfg = config_from_nml(
+            str(ROOT / 'examples' / name / 'input.nml')).replace(
+                dims=(gy, 1))
+    else:
+        import bench
+        cfg = Config(**bench._matrix_configs((512, 256, 256))[name],
+                     dims=(gy, 1))
+    assert unsupported(cfg) == [], name
+
+
+@pytest.mark.parametrize('change, needle', [
+    (dict(impdiff=True, impdiff_1d=True),
+     'periodic z with impdiff_1d under a device mesh'),
+    (dict(impdiff=True), 'full-3D implicit diffusion under a device mesh'),
+    (dict(sgstype='dsmag', dsmag_avg='dit', filter_2d=True),
+     'the 2D test filter under a device mesh'),
+    (dict(ptransform='fft'), "ptransform 'fft' under a device mesh"),
+])
+def test_box_mesh_refusals(change, needle):
+    missing = unsupported(Config(**{**BOX, **change}, dims=(2, 1)))
+    assert any(needle in m for m in missing), missing

@@ -89,6 +89,7 @@ def test_duct_and_cavity_steps_match_one_device(tmp_path):
 def test_mesh_runs_the_duct_and_cavity_classes(gy):
     """bench.py's duct_les_dsmag and cavity_les_dsmag (their grid and
     float32), and the 'none' and smag ducts, run on dims (gy, 1)."""
+    assert unsupported(Config(**_WM_DUCT, dims=(gy, 1))) == []
     import bench
     cfgs = bench._matrix_configs((512, 256, 256))
     for key in ('duct_les_dsmag', 'cavity_les_dsmag'):
@@ -108,11 +109,13 @@ _WM_DUCT = dict(DUCT, sgstype='smag', lwm=((0, 1, 1), (0, 1, 1)), hwm=0.2,
 
 
 @pytest.mark.parametrize('change, env, needle', [
-    # the duct WMLES: the y faces' wall model on the mesh (its queue-1
-    # item), and a wall model with y walls
-    (_WM_DUCT, {}, "the y faces' wall model on the mesh"),
-    (dict(_WM_DUCT, lwm=((0, 0, 1), (0, 0, 1))), {},
-     'a wall model with y walls under a device mesh'),
+    # the duct WMLES (it runs on the mesh,
+    # tests/test_torch_sharded_wmduct.py): its y faces' rows 4 from the
+    # walls (hwm 0.6) off slabs of 3 rows, and with full-3D implicit
+    # diffusion
+    (dict(_WM_DUCT, hwm=0.6), {}, 'a sampled y row off its owning slab'),
+    (dict(_WM_DUCT, impdiff=True), {},
+     'a wall model with implicit diffusion'),
     (DUCT, {'CALES_DSMAG_TWOPASS': '1'},
      'the two-pass dynamic Smagorinsky under a device mesh'),
     (dict(DUCT, scalar=True), {}, 'passive scalar on a mesh'),

@@ -189,7 +189,11 @@ def test_exec_path_names_device_kernels_and_solve(pair):
      'periodic z with y walls'),
     (dict(lwm=((0, 0, 1), (0, 0, 1)), hwm=0.1, impdiff=True),
      'wall model with implicit diffusion'),
-    (dict(lwm=((0, 1, 1), (0, 1, 1)), hwm=0.1, dims=(2, 1)),
+    # the duct WMLES on four slabs of 4 rows, its y faces' rows 6 from
+    # the walls (hwm 1.2): off the walls' slabs
+    (dict(lwm=((0, 1, 1), (0, 1, 1)), hwm=1.2, dims=(4, 1), ptransform='mat',
+          cbcvel=((('P', 'P', 'P'), ('D', 'D', 'D'), ('D', 'D', 'D')),) * 2,
+          cbcpre=(('P', 'N', 'N'),) * 2, cbcsgs=(('P', 'D', 'D'),) * 2),
      'wall model on a device mesh'),
     (dict(lwm=((0, 1, 0), (0, 1, 0)), hwm=0.1), 'wall model on y faces'),
     (dict(lwm=((1, 0, 0), (1, 0, 0)), hwm=0.1), 'wall model on x faces'),
