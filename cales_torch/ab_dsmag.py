@@ -72,7 +72,19 @@ upper half of the field, the duct's z faces' rows each slab makes and
 each y face on its owner, joined, against the baseline's four-face
 kernel on the whole field); dsmag's periodic-z mode on a slab ('dsmag
 slab zp': this checkout's ZP + YH on the two halves, |S| joined, against
-the baseline's ZP on the whole field).
+the baseline's ZP on the whole field); mom_rk's scalar variant (the
+scalar, its stacks and previous RHS random) periodic and with y walls
+('mom_rk scal', 'mom_rk scal y walls'); and the slab modes of the
+passive scalar, the two-pass dsmag and the 2D filter, each this
+checkout's on the two slabs of the field (cut as 'dsmag slab duct''s;
+their halos the field's rows, with y walls their y-row stacks the whole
+field's wall rows on the owned sides), joined along y, against the
+baseline's kernel on the whole field: 'mom_rk halo scal' (the scalar's
+Y_HALO variant against the periodic one), 'dsmag_level1 halo' (YH) and
+'dsmag_level1 slab' (YW + YH against the y-walled kernel), 'dsmag_level2
+halo' (YH, its 'channel' partial sums joined) and 'dsmag_level2 slab duct'
+(YW + YH), 'dsmag f2d halo' and 'dsmag zp f2d halo' (F2D + YH, with ZP
+too; |S| and the 'channel' partial sums joined).
 Outputs are compared in float64 at (nx, ny, nz) = (72, 40, 48) and in
 float32 at --ng (bitwise, and max|this - baseline| / max|baseline|, the
 worst output); mom_rk's partial sums, whose parts differ (blocks of 256
@@ -115,7 +127,10 @@ CASES = ('channel', 'duct', 'cavity', 'channel y walls', 'duct periodic y',
          'dsmag zp', 'dsmag f2d', 'dsmag zp f2d', 'mom_rk halo 1d',
          'dsmag halo', 'dsmag slab duct', 'dsmag slab cavity',
          'dsmag slab channel', 'wallmodel halo', 'wallmodel slab duct',
-         'dsmag slab zp')
+         'dsmag slab zp', 'mom_rk scal', 'mom_rk scal y walls',
+         'mom_rk halo scal', 'dsmag_level1 halo', 'dsmag_level1 slab',
+         'dsmag_level2 halo', 'dsmag_level2 slab duct', 'dsmag f2d halo',
+         'dsmag zp f2d halo')
 # the cases at their own shape, in float32 only
 BIG = {'apply_y x+y 512^3': (512, 512, 512), 'mom_rk 512^3': (512, 512, 512),
        'thomas_periodic 512^3': (512, 512, 512),
@@ -278,10 +293,13 @@ def _duct_wm(Km, ng):
     return wm.wall_model(cfg, grid, wm.find_index_wm(cfg, grid))
 
 
-def _dsmag_slabs(f, e, ye, args, kw):
-    """dsmag's slab mode with y walls on the lower and the upper wall's
-    slabs of the whole-field inputs (f, e and the y-row stacks ye of u, v,
-    w), the outputs joined along y."""
+def _slabs(f, e, ye, depth, call):
+    """call(fields, edges, halos, stacks, own) on the lower and the upper
+    slab of the whole-field inputs (the fields f with their edge stacks
+    e; cut at ny/2 rounded down to 16 rows), their halos the field's rows
+    depth deep, with y-row stacks ye (None for a field without one) their
+    slab's y-row stacks (boundary.slab_ystack: the whole field's wall rows
+    on the side each owns), else None; the outputs joined along y."""
     from .ops import boundary as bnd
     ny = f[0].shape[1]
     cut = ny // 2 // 16 * 16
@@ -289,14 +307,24 @@ def _dsmag_slabs(f, e, ye, args, kw):
     for lo, hi, own in ((0, cut, (True, False)), (cut, ny, (False, True))):
         q = [a[:, lo:hi].contiguous() for a in f]
         qe = [a[:, lo:hi].contiguous() for a in e]
-        rows = [(lo - 2) % ny, (lo - 1) % ny, hi % ny, (hi + 1) % ny]
+        rows = [(lo + j) % ny for j in range(-depth, 0)] + [
+            (hi + j) % ny for j in range(depth)]
         h = [(a[:, rows].contiguous(), b[:, rows].contiguous())
              for a, b in zip(f, e)]
-        ys = [bnd.slab_ystack(a, b, y, hh, own)
-              for a, b, y, hh in zip(q, qe, ye, h)]
-        outs.append(K.dsmag(*q, *qe, *args, ye=ys, yh=h, yown=own, **kw))
+        ys = None if ye is None else [
+            None if y is None else bnd.slab_ystack(a, b, y, hh, own)
+            for a, b, y, hh in zip(q, qe, ye, h)]
+        outs.append(call(q, qe, h, ys, own))
     return tuple(None if a is None else torch.cat([a, b], dim=1)
                  for a, b in zip(*outs))
+
+
+def _dsmag_slabs(f, e, ye, args, kw):
+    """dsmag's slab mode with y walls on the lower and the upper wall's
+    slabs of the whole-field inputs (f, e and the y-row stacks ye of u, v,
+    w), the outputs joined along y."""
+    return _slabs(f, e, ye, 2, lambda q, qe, h, ys, own: K.dsmag(
+        *q, *qe, *args, ye=ys, yh=h, yown=own, **kw))
 
 
 def _wm_slabs(u, v, w, wm):
@@ -387,6 +415,75 @@ def _call(mods, d, case):
         return (SKm.thomas_z(x, *t['abc_n'], **kw),)
     f, e, ye, dz = d['f'], d['e'], d.get('ye'), d['dz']
     walls = case.endswith('y walls')
+    if case in ('dsmag_level1 halo', 'dsmag_level1 slab'):
+        # the slab modes (this checkout, two slabs joined) against the
+        # whole field's periodic or y-walled kernel (the baseline)
+        walls = case.endswith('slab')
+        args = (dz, dz, 40.0, 20.0, True, True)
+        if Km is not K:
+            fm, fvel, lij, s0 = Km.dsmag_level1(
+                *f[:3], *e[:3], *args, ye=ye[:3] if walls else None)
+            return (*fm, *fvel, *lij, s0)
+
+        def level1(q, qe, h, ys, own):
+            fm, fvel, lij, s0 = K.dsmag_level1(
+                *q, *qe, *args, ye=ys, yh=h, yown=own if walls else None)
+            return (*fm, *fvel, *lij, s0)
+        return _slabs(f[:3], e[:3], ye[:3] if walls else None, 2, level1)
+    if case in ('dsmag_level2 halo', 'dsmag_level2 slab duct'):
+        q = d['ds2']
+        walls = case.endswith('duct')
+        args = (d['alph2'], dz, dz, 40.0, 20.0)
+        avg = 'duct' if walls else 'channel'
+        if Km is not K:
+            return Km.dsmag_level2(*f[:3], *e[:3], q[0:6], q[6:12], q[12],
+                                   *args, avg=avg,
+                                   ye=ye[:3] if walls else None)
+
+        def level2(qq, qe, h, ys, own):
+            return K.dsmag_level2(
+                *qq[:3], *qe[:3], qq[3:9], qq[9:15], qq[15], *args, avg=avg,
+                ye=ys[:3] if walls else None, yh=None if walls else h[:3],
+                yown=own if walls else None)
+        # the per-cell inputs ride the cut as fields with a stack of zeros
+        zero = torch.zeros_like(e[0])
+        return _slabs([*f[:3], *q], [*e[:3], *[zero] * 13],
+                      [*ye[:3], *[None] * 13] if walls else None, 1, level2)
+    if case in ('dsmag f2d halo', 'dsmag zp f2d halo'):
+        zper = case.startswith('dsmag zp')
+        args = (d['alph2'], dz, dz, 40.0, 20.0, not zper, not zper,
+                (0.0, 0.02, 0.0, -0.01))
+        kw = dict(avg='channel', zper=zper, f2d=True)
+        if Km is not K:
+            return Km.dsmag(*f[:3], *e[:3], *args, **kw)
+        return _slabs(f[:3], e[:3], None, 2, lambda q, qe, h, ys, own:
+                      K.dsmag(*q, *qe, *args, yh=h, **kw))
+    if case.startswith('mom_rk') and 'scal' in case:
+        # the scalar variant: u, v, w, nu_t, p (f[0:5], e[0:5]), the
+        # previous RHS f[5:8]; the scalar f[5] with the edge stack e[3],
+        # its previous RHS f[6], with y walls its stack pair ye[3]
+        mom = (dz, dz, 0.01, -0.005, 5e-5, 40.0, 20.0, (0.1, 0.0, 0.0))
+        scal = (2e-4, 0.05)
+
+        def outputs(out, sums):
+            return (*out[:6], *out[8:], *sums(out[6]), *sums(out[7]))
+        if case == 'mom_rk halo scal' and Km is K:
+            def slab(q, qe, h, ys, own):
+                return outputs(K.mom_rk(
+                    *q[:5], *qe[:5], *q[6:9], *mom, sums=(True, True),
+                    yh=tuple(h[:6]), sca=q[5], scae=qe[5], rso=q[9],
+                    scal=scal), lambda t: (t,))
+            # u, v, w, nu_t, p, the scalar, the previous RHS, the
+            # scalar's
+            zero = torch.zeros_like(e[0])
+            out = _slabs([*f[:5], f[5], *f[5:8], f[6]],
+                         [*e[:5], e[3], *[zero] * 4], None, 1, slab)
+            return (*out[:8], out[8].sum(dim=1), out[9].sum(dim=1))
+        walls = case.endswith('y walls')
+        return outputs(Km.mom_rk(
+            *f[:5], *e[:5], *f[5:8], *mom, sums=(True, True),
+            ye=(*ye, ye[3]) if walls else None, sca=f[5], scae=e[3],
+            rso=f[6], scal=scal), lambda t: (t.sum(dim=1),))
     if case.startswith('dsmag_level1'):
         fm, fvel, lij, s0 = Km.dsmag_level1(
             *f[:3], *e[:3], dz, dz, 40.0, 20.0, True, True,

@@ -59,6 +59,10 @@
 // YH together are a slab of the periodic box (the triperiodic LES with
 // 'dit' on dims (gy, 1)): the halo's rows load for the plane t mod nz as
 // the slab's own planes do, its z-edge entries unread (ds_hrow_zp).
+// F2D and YH together are a slab with the 2D test filter (the dsmag channel
+// with filter_2d on dims (gy, 1); with ZP too, the box with filter_2d): the
+// halo's rows load as in YH, and the rest is the F2D kernel's.  The JAX
+// package runs its XLA model there.
 // YW and YH together are a slab of a y-walled mesh (the duct and cavity
 // classes on dims (gy, 1), any of the three averages; the JAX package's
 // per-shard wall gating y_lo & ywf, pallas_dsmag.py:382-386, 650-652):
@@ -466,19 +470,21 @@ auto pick_dsmag(int avg) {
 
 // The modes for periodic z (zper: the triperiodic box) and the 2D test
 // filter (f2d), periodic y, the 'channel' sums (whose mean over the rows
-// 'dit' weighs too).
-template <typename T>
+// 'dit' weighs too); YH: on a slab of the y-slab mesh (with neither, the
+// slab's plain YH mode).
+template <typename T, bool YH = false>
 auto pick_dsmag_mode(bool zper, bool f2d) {
-  return zper  ? (f2d ? &dsmag_kernel<T, false, DS_CHANNEL, true, true>
-                      : &dsmag_kernel<T, false, DS_CHANNEL, true, false>)
-                 : &dsmag_kernel<T, false, DS_CHANNEL, false, true>;
+  return zper ? (f2d ? &dsmag_kernel<T, false, DS_CHANNEL, true, true, YH>
+                     : &dsmag_kernel<T, false, DS_CHANNEL, true, false, YH>)
+              : (f2d ? &dsmag_kernel<T, false, DS_CHANNEL, false, true, YH>
+                     : &dsmag_kernel<T, false, DS_CHANNEL, false, false, YH>);
 }
 
 // y: the y-row stacks and corners of u, v, w (6 pointers), all null
 // without y walls; h: their two-deep halo pairs on a slab of the y-slab
 // mesh (6 pointers, all null off a slab): h alone is mode YH (periodic y,
-// the 'channel' sums; with zper ZP and YH), y and h together a slab of a
-// y-walled mesh, whose
+// the 'channel' sums; with zper ZP and YH, with f2d F2D and YH), y and h
+// together a slab of a y-walled mesh, whose
 // y holds the slab's y-row stacks and ylo, yhi the walls it owns; yvals:
 // the filtered fill's 'D' values (u_lo, u_hi, w_lo, w_hi) on the y walls;
 // avg: DS_CHANNEL, DS_DUCT or DS_CAVITY; zper, f2d: the periodic-z mode
@@ -496,7 +502,7 @@ int launch_dsmag(const T* u, const T* v, const T* w, const T* ue,
   const bool ywall = ystacks && !halo;
   if (nz < 2 || (ywall && ny < 4) || avg < DS_CHANNEL || avg > DS_CAVITY)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (halo && (ny < 2 || f2d || (zper && ystacks) ||
+  if (halo && (ny < 2 || ((zper || f2d) && ystacks) ||
                (!ystacks && avg != DS_CHANNEL)))
     return static_cast<int>(cudaErrorInvalidValue);
   if ((zper || f2d) && (ystacks || avg != DS_CHANNEL))
@@ -508,10 +514,7 @@ int launch_dsmag(const T* u, const T* v, const T* w, const T* ue,
       return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = dsmag_smem_bytes<T>();
   auto kern = halo ? (ystacks ? pick_dsmag<T, true, true>(avg)
-                      : zper  ? &dsmag_kernel<T, false, DS_CHANNEL, true,
-                                              false, true>
-                              : &dsmag_kernel<T, false, DS_CHANNEL, false,
-                                              false, true>)
+                              : pick_dsmag_mode<T, true>(zper, f2d))
               : (zper || f2d) ? pick_dsmag_mode<T>(zper, f2d)
               : ywall         ? pick_dsmag<T, true>(avg)
                               : pick_dsmag<T, false>(avg);

@@ -14,6 +14,20 @@
 // ghost recipes and its plain twin: cales_torch/ops/kernels
 // dsmag_level1_plain.  The fields are stored in the compute dtype (the TPU
 // kernel's bf16 store of fm and lij is not carried over).
+// Two slab modes for the y-slab mesh (the JAX package's fused_dsmag_level1
+// with ystrips and per-shard wall flags, pallas_dsmag.py:537-605), template
+// switches as dsmag.cu's:
+//   YH       a slab with periodic y: the velocity tile's rows -2, -1, ny
+//            and ny+1, and their z-edge entries, load from the neighbours'
+//            two-row halo (parallel/mesh.halo_y); everything after the load
+//            is the periodic kernel's;
+//   YW + YH  a slab of a y-walled mesh: the rows -1, ny-1 and ny from the
+//            slab's y-row stacks (boundary.slab_ystack: the wall recipe's
+//            rows on a side it owns, the neighbours' rows elsewhere), -2 and
+//            ny+1 from the halo, and the y-wall recipes (A's ghost rows, the
+//            wall-parallel velocity's) on the owned sides only, two run-time
+//            flags (ywall.lo, ywall.hi) read from shared memory.
+// The 16 outputs are the slab's own rows.
 //
 // Design: dsmag.cu's z-march without its stage C, on the same tile, rings
 // and stages (dsmag_common.cuh).  A block owns a TY x 32 (y, x) tile (TY =
@@ -71,7 +85,7 @@ constexpr size_t dsmag_level1_smem_bytes() {
           3 * G::VY * DS_AX + 9 * G::APL);
 }
 
-template <typename T, bool YW>
+template <typename T, bool YW, bool YH = false>
 __global__ void __launch_bounds__(DsGeo<DsTy<T>::TY>::NT, 1)
     dsmag_level1_kernel(const T* __restrict__ u, const T* __restrict__ v,
                         const T* __restrict__ w, const T* __restrict__ ue,
@@ -107,6 +121,10 @@ __global__ void __launch_bounds__(DsGeo<DsTy<T>::TY>::NT, 1)
   }
   __syncthreads();
   const T q4 = T(0.25), two = T(2);
+  // the y walls of this field: both with YW, on a slab of a y-walled mesh
+  // (YW and YH) the ones the slab holds
+  auto ylo = [&]() { return YW && (!YH || ywall.lo != 0); };
+  auto yhi = [&]() { return YW && (!YH || ywall.hi != 0); };
 
   auto vel = [&](int kz, int c) {
     return Vs + (((kz + 4) & 3) * 3 + c) * G::VPL;
@@ -115,15 +133,20 @@ __global__ void __launch_bounds__(DsGeo<DsTy<T>::TY>::NT, 1)
   auto yvel = [&](int kz, int c) { return YV + (ring(kz) * 3 + c) * APL; };
 
   const DsTile g{x0, y0, nz, ny, nx, tid, plane};
-  auto load = [&](int kz) { ds_load<T, YW, TY>(vel, fld, edg, ywall, g, kz); };
+  auto load = [&](int kz) {
+    ds_load<T, YW, TY, false, YH>(vel, fld, edg, ywall, g, kz);
+  };
   // the velocity's x and y passes of plane kz (a z ghost by mode)
   auto vel_x = [&](int kz, int mode) {
     if (mode == DS_GHOST_LO)
-      ds_vel_x<T, YW, TY, DS_GHOST_LO>(vel, XV, kz, y0, ny, nz, tid);
+      ds_vel_x<T, YW, TY, DS_GHOST_LO>(vel, XV, kz, y0, ny, nz, tid, ylo(),
+                                       yhi());
     else if (mode == DS_GHOST_HI)
-      ds_vel_x<T, YW, TY, DS_GHOST_HI>(vel, XV, kz, y0, ny, nz, tid);
+      ds_vel_x<T, YW, TY, DS_GHOST_HI>(vel, XV, kz, y0, ny, nz, tid, ylo(),
+                                       yhi());
     else
-      ds_vel_x<T, YW, TY, DS_PLANE>(vel, XV, kz, y0, ny, nz, tid);
+      ds_vel_x<T, YW, TY, DS_PLANE>(vel, XV, kz, y0, ny, nz, tid, ylo(),
+                                    yhi());
   };
   auto vel_y = [&](int kz) { ds_vel_y<T, TY>(XV, yvel, kz, tid); };
 
@@ -171,11 +194,14 @@ __global__ void __launch_bounds__(DsGeo<DsTy<T>::TY>::NT, 1)
     // A's x pass: plane t, at t = 1 the ghost below the first plane
     // first, after the last plane the ghost above it
     if (t == 1 && wall_lo) {
-      ds_src_x<T, YW, TY, DS_GHOST_LO>(src, XS, 0, y0, ny, nz, tid);
+      ds_src_x<T, YW, TY, DS_GHOST_LO>(src, XS, 0, y0, ny, nz, tid, ylo(),
+                                       yhi());
     } else if (t < nz) {
-      ds_src_x<T, YW, TY, DS_PLANE>(src, XS, t, y0, ny, nz, tid);
+      ds_src_x<T, YW, TY, DS_PLANE>(src, XS, t, y0, ny, nz, tid, ylo(),
+                                    yhi());
     } else if (wall_hi) {
-      ds_src_x<T, YW, TY, DS_GHOST_HI>(src, XS, nz, y0, ny, nz, tid);
+      ds_src_x<T, YW, TY, DS_GHOST_HI>(src, XS, nz, y0, ny, nz, tid, ylo(),
+                                       yhi());
     }
     cp_async_wait<0>();   // plane t+2 has landed, for step t+1
     __syncthreads();
@@ -195,7 +221,8 @@ __global__ void __launch_bounds__(DsGeo<DsTy<T>::TY>::NT, 1)
 #pragma unroll
       for (int q = 0; q < NF; ++q) zs[q] = y[q] + two * zp[q];
       __syncthreads();
-      ds_src_x<T, YW, TY, DS_PLANE>(src, XS, 1, y0, ny, nz, tid);
+      ds_src_x<T, YW, TY, DS_PLANE>(src, XS, 1, y0, ny, nz, tid, ylo(),
+                                    yhi());
       __syncthreads();
     }
     if (t < nz || wall_hi) {
@@ -228,23 +255,30 @@ __global__ void __launch_bounds__(DsGeo<DsTy<T>::TY>::NT, 1)
 }
 
 // y: the y-row stacks and corners of u, v, w (6 pointers), all null
-// without y walls; out: the 16 fields (fm[6], fvel[3], lij[6], s0), each
-// (nz, ny, nx), one after another.
+// without y walls; h: their two-deep halo pairs on a slab of the y-slab
+// mesh (6 pointers, all null off a slab): h alone is mode YH, y and h
+// together a slab of a y-walled mesh (YW + YH), whose y holds the slab's
+// y-row stacks and ylo, yhi the walls it owns; out: the 16 fields (fm[6],
+// fvel[3], lij[6], s0), each (nz, ny, nx), one after another.
 template <typename T>
 int launch_dsmag_level1(const T* u, const T* v, const T* w, const T* ue,
                         const T* ve, const T* we, const T* dzci,
-                        const T* dzfi, T* out, const T* const* y, int nz,
-                        int ny, int nx, int wall_lo, int wall_hi, double dxi,
-                        double dyi, void* stream) {
-  const bool ywall = y[0] != nullptr;
-  if (nz < 2 || (ywall && ny < 4))
+                        const T* dzfi, T* out, const T* const* y,
+                        const T* const* h, int nz, int ny, int nx,
+                        int wall_lo, int wall_hi, int ylo, int yhi,
+                        double dxi, double dyi, void* stream) {
+  const bool ystacks = y[0] != nullptr;
+  const bool halo = h[0] != nullptr;
+  if (nz < 2 || (ystacks && !halo && ny < 4) || (halo && ny < 2))
     return static_cast<int>(cudaErrorInvalidValue);
   for (int m = 0; m < 6; ++m)
-    if (ywall != (y[m] != nullptr))
+    if (ystacks != (y[m] != nullptr) || halo != (h[m] != nullptr))
       return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = dsmag_level1_smem_bytes<T>();
-  auto kern = ywall ? &dsmag_level1_kernel<T, true>
-                    : &dsmag_level1_kernel<T, false>;
+  auto kern = halo ? (ystacks ? &dsmag_level1_kernel<T, true, true>
+                              : &dsmag_level1_kernel<T, false, true>)
+              : ystacks ? &dsmag_level1_kernel<T, true>
+                        : &dsmag_level1_kernel<T, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -252,7 +286,12 @@ int launch_dsmag_level1(const T* u, const T* v, const T* w, const T* ue,
   constexpr int TY = DsTy<T>::TY;
   const int nblk = ((ny + TY - 1) / TY) * ((nx + DS_TX - 1) / DS_TX);
   DsYWalls<T> yw{};
-  for (int c = 0; c < 3; ++c) yw.vel[c] = YRows<T>{y[2 * c], y[2 * c + 1]};
+  for (int c = 0; c < 3; ++c) {
+    yw.vel[c] = YRows<T>{y[2 * c], y[2 * c + 1]};
+    yw.hal[c] = YRows<T>{h[2 * c], h[2 * c + 1]};
+  }
+  yw.lo = halo ? ylo : 1;
+  yw.hi = halo ? yhi : 1;
   kern<<<nblk, DsGeo<TY>::NT, smem, static_cast<cudaStream_t>(stream)>>>(
       u, v, w, ue, ve, we, dzci, dzfi, out, yw, nz, ny, nx, wall_lo, wall_hi,
       T(dxi), T(dyi));
@@ -266,12 +305,17 @@ int launch_dsmag_level1(const T* u, const T* v, const T* w, const T* ue,
                       const T* ve, const T* we, const T* dzci,               \
                       const T* dzfi, T* out, const T* yur, const T* yuc,     \
                       const T* yvr, const T* yvc, const T* ywr,              \
-                      const T* ywc, int nz, int ny, int nx, int wall_lo,     \
-                      int wall_hi, double dxi, double dyi, void* stream) {   \
+                      const T* ywc, const T* hur, const T* huc,              \
+                      const T* hvr, const T* hvc, const T* hwr,              \
+                      const T* hwc, int nz, int ny, int nx, int wall_lo,     \
+                      int wall_hi, int ylo, int yhi, double dxi, double dyi, \
+                      void* stream) {                                        \
     const T* const y[6] = {yur, yuc, yvr, yvc, ywr, ywc};                    \
+    const T* const h[6] = {hur, huc, hvr, hvc, hwr, hwc};                    \
     return cales::launch_dsmag_level1<T>(u, v, w, ue, ve, we, dzci, dzfi,    \
-                                         out, y, nz, ny, nx, wall_lo,        \
-                                         wall_hi, dxi, dyi, stream);         \
+                                         out, y, h, nz, ny, nx, wall_lo,     \
+                                         wall_hi, ylo, yhi, dxi, dyi,        \
+                                         stream);                            \
   }
 
 CALES_DSMAG_LEVEL1_ENTRY(cales_dsmag_level1_f32, float)

@@ -16,6 +16,19 @@
 //   'cavity'   nu_t = max(|S| num / den, 0).
 // The caller sums the partials and forms nu_t = max(|S| ratio, 0).  Plain
 // twin: cales_torch/ops/kernels dsmag_level2_plain.
+// Two slab modes for the y-slab mesh (the JAX package's fused_dsmag_level2
+// with ystrips, pallas_dsmag.py:606-781, which haloes the filtered velocity
+// alone: fm, lij and s0 are read pointwise), template switches:
+//   YH       a slab with periodic y: the filtered velocity's rows -1 and ny
+//            (and their z-edge entries) from its depth-1 halo
+//            (parallel/mesh.halo_y), through the halo accessor aty<Y_HALO>
+//            on the first and last rows;
+//   YW + YH  a slab of a y-walled mesh: the reads of YW on the slab's y-row
+//            stacks (boundary.slab_ystack: the fill's wall rows on a side it
+//            owns, the halo rows elsewhere), alpha^2 2.52 on the first and
+//            last rows of the sides it owns only (run-time flags ylo, yhi).
+// The sums are the slab's: the caller reduces 'channel' over the ranks,
+// 'duct' stays on the slab and 'cavity' is pointwise.
 //
 // Design: one thread per output cell, as smag.cu; the strain is
 // common.cuh's on the y-walled accessor at<YW> (rows that read a y-wall row
@@ -42,15 +55,15 @@ struct Ds2In {
   const T* s0;
 };
 
-template <typename T, bool YW, int AVG>
+template <typename T, bool YW, int AVG, bool YH = false>
 __global__ void __launch_bounds__(CALES_THREADS) dsmag_level2_kernel(
     const T* __restrict__ fu, const T* __restrict__ fv,
     const T* __restrict__ fw, const T* __restrict__ fue,
     const T* __restrict__ fve, const T* __restrict__ fwe, Ds2In<T> in,
     const T* __restrict__ alph2, const T* __restrict__ dzci,
     const T* __restrict__ dzfi, T* __restrict__ numo, T* __restrict__ deno,
-    YRows<T> yu, YRows<T> yv, YRows<T> yw, int nz, int ny, int nx, T dxi,
-    T dyi) {
+    YRows<T> yu, YRows<T> yv, YRows<T> yw, int nz, int ny, int nx, int ylo,
+    int yhi, T dxi, T dyi) {
   const int k = blockIdx.y;
   const int gx = (nx + 31) / 32;
   const int lane = threadIdx.x & 31;
@@ -85,10 +98,29 @@ __global__ void __launch_bounds__(CALES_THREADS) dsmag_level2_kernel(
     if constexpr (YW) {
       s0f = y_edge(j, ny) ? strain(std::true_type{})
                           : strain(std::false_type{});
+    } else if constexpr (YH) {
+      // a slab: its first and last rows read the halo (yu, yv, yw)
+      auto strain_h = [&]() {
+        return strain_rate<T>(
+            [&](int dk, int dj, int di) {
+              return aty<Y_HALO>(fu, fue, yu, c, dk, dj, di);
+            },
+            [&](int dk, int dj, int di) {
+              return aty<Y_HALO>(fv, fve, yv, c, dk, dj, di);
+            },
+            [&](int dk, int dj, int di) {
+              return aty<Y_HALO>(fw, fwe, yw, c, dk, dj, di);
+            },
+            dxi, dyi, dzci[k + 1], dzci[k], dzfi[k + 1], sf);
+      };
+      s0f = y_edge_of<Y_HALO>(j, ny) ? strain_h() : strain(std::false_type{});
     } else {
       s0f = strain(std::false_type{});
     }
-    const T a2 = (YW && (j == 0 || j == ny - 1)) ? T(2.52) : alph2[k];
+    const T a2 = (YW && ((j == 0 && (!YH || ylo != 0)) ||
+                         (j == ny - 1 && (!YH || yhi != 0))))
+                     ? T(2.52)
+                     : alph2[k];
     const int64_t o = static_cast<int64_t>(k) * plane + idx;
     T m[6], l[6];
 #pragma unroll
@@ -127,28 +159,36 @@ __global__ void __launch_bounds__(CALES_THREADS) dsmag_level2_kernel(
   }
 }
 
-template <typename T, bool YW>
+template <typename T, bool YW, bool YH = false>
 auto pick_dsmag_level2(int avg) {
-  return avg == DS2_DUCT     ? &dsmag_level2_kernel<T, YW, DS2_DUCT>
-         : avg == DS2_CAVITY ? &dsmag_level2_kernel<T, YW, DS2_CAVITY>
-                             : &dsmag_level2_kernel<T, YW, DS2_CHANNEL>;
+  return avg == DS2_DUCT     ? &dsmag_level2_kernel<T, YW, DS2_DUCT, YH>
+         : avg == DS2_CAVITY ? &dsmag_level2_kernel<T, YW, DS2_CAVITY, YH>
+                             : &dsmag_level2_kernel<T, YW, DS2_CHANNEL, YH>;
 }
 
 // q: fm[6], lij[6], s0; y: the y-row stacks and corners of the filtered
-// u, v, w (6 pointers), all null without y walls; avg: DS2_CHANNEL,
-// DS2_DUCT or DS2_CAVITY (nu_t into numo, deno unused).
+// u, v, w (6 pointers), all null without y walls; h: their depth-1 halo
+// pairs on a slab with periodic y (mode YH, the 'channel' sums; 6
+// pointers, all null elsewhere); ylo, yhi: on a slab of a y-walled mesh
+// (y its y-row stacks, mode YW + YH) the walls it owns, -1 elsewhere; avg:
+// DS2_CHANNEL, DS2_DUCT or DS2_CAVITY (nu_t into numo, deno unused).
 template <typename T>
 int launch_dsmag_level2(const T* fu, const T* fv, const T* fw, const T* fue,
                         const T* fve, const T* fwe, const T* const* q,
                         const T* alph2, const T* dzci, const T* dzfi,
-                        T* numo, T* deno, const T* const* y, int nz, int ny,
-                        int nx, int avg, double dxi, double dyi,
+                        T* numo, T* deno, const T* const* y,
+                        const T* const* h, int nz, int ny, int nx, int avg,
+                        int ylo, int yhi, double dxi, double dyi,
                         void* stream) {
-  const bool ywall = y[0] != nullptr;
-  if (nz < 2 || (ywall && ny < 4) || avg < DS2_CHANNEL || avg > DS2_CAVITY)
+  const bool ystacks = y[0] != nullptr;
+  const bool halo = h[0] != nullptr;
+  const bool slab = ystacks && ylo >= 0;
+  if (nz < 2 || (ystacks && !slab && ny < 4) || avg < DS2_CHANNEL ||
+      avg > DS2_CAVITY || (ystacks && halo) ||
+      (halo && avg != DS2_CHANNEL) || (slab && (yhi < 0 || ny < 2)))
     return static_cast<int>(cudaErrorInvalidValue);
   for (int m = 0; m < 6; ++m)
-    if (ywall != (y[m] != nullptr))
+    if (ystacks != (y[m] != nullptr) || halo != (h[m] != nullptr))
       return static_cast<int>(cudaErrorInvalidValue);
   Ds2In<T> in{};
   for (int m = 0; m < 6; ++m) {
@@ -160,12 +200,17 @@ int launch_dsmag_level2(const T* fu, const T* fv, const T* fw, const T* fue,
   const dim3 grid(static_cast<unsigned>((slots + CALES_THREADS - 1) /
                                         CALES_THREADS),
                   static_cast<unsigned>(nz), 1);
-  auto kern = ywall ? pick_dsmag_level2<T, true>(avg)
-                    : pick_dsmag_level2<T, false>(avg);
+  auto kern = slab      ? pick_dsmag_level2<T, true, true>(avg)
+              : ystacks ? pick_dsmag_level2<T, true>(avg)
+              : halo    ? &dsmag_level2_kernel<T, false, DS2_CHANNEL, true>
+                        : pick_dsmag_level2<T, false>(avg);
+  // the rows the kernel reads past the interior: the y-row stacks, or a
+  // slab's halo pairs
+  const T* const* r = halo ? h : y;
   kern<<<grid, CALES_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       fu, fv, fw, fue, fve, fwe, in, alph2, dzci, dzfi, numo, deno,
-      YRows<T>{y[0], y[1]}, YRows<T>{y[2], y[3]}, YRows<T>{y[4], y[5]}, nz,
-      ny, nx, T(dxi), T(dyi));
+      YRows<T>{r[0], r[1]}, YRows<T>{r[2], r[3]}, YRows<T>{r[4], r[5]}, nz,
+      ny, nx, slab ? ylo : 1, slab ? yhi : 1, T(dxi), T(dyi));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -180,14 +225,19 @@ int launch_dsmag_level2(const T* fu, const T* fv, const T* fw, const T* fue,
                       const T* s0, const T* alph2, const T* dzci,            \
                       const T* dzfi, T* numo, T* deno, const T* yur,         \
                       const T* yuc, const T* yvr, const T* yvc,              \
-                      const T* ywr, const T* ywc, int nz, int ny, int nx,    \
-                      int avg, double dxi, double dyi, void* stream) {       \
+                      const T* ywr, const T* ywc, const T* hur,              \
+                      const T* huc, const T* hvr, const T* hvc,              \
+                      const T* hwr, const T* hwc, int nz, int ny, int nx,    \
+                      int avg, int ylo, int yhi, double dxi, double dyi,     \
+                      void* stream) {                                        \
     const T* const q[13] = {fm0, fm1, fm2, fm3, fm4, fm5, l0,                \
                             l1,  l2,  l3,  l4,  l5,  s0};                    \
     const T* const y[6] = {yur, yuc, yvr, yvc, ywr, ywc};                    \
+    const T* const h[6] = {hur, huc, hvr, hvc, hwr, hwc};                    \
     return cales::launch_dsmag_level2<T>(fu, fv, fw, fue, fve, fwe, q,       \
                                          alph2, dzci, dzfi, numo, deno, y,   \
-                                         nz, ny, nx, avg, dxi, dyi, stream); \
+                                         h, nz, ny, nx, avg, ylo, yhi, dxi,  \
+                                         dyi, stream);                       \
   }
 
 CALES_DSMAG_LEVEL2_ENTRY(cales_dsmag_level2_f32, float)

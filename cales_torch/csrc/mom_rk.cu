@@ -41,7 +41,10 @@
 //          w and s planes (ops/stencil.scalar_rhs_core, scal.f90:14-51,
 //          alpha = visc/pr) and its RK3 update s + f1 ds + f12 ssource
 //          (+ f2 rso, skipped on the first substep with ruo,
-//          rk.f90:123-195); periodic y or y walls, never a slab.
+//          rk.f90:123-195); periodic y, y walls, or a slab of the y-slab
+//          mesh (Y_HALO, explicit or split 1: the scalar's halo rows -1 and
+//          ny read as the velocity's, the TPU kernel's scalar window on the
+//          y strips, cales_tpu/timeloop.py:1943-2078).
 // The formulas are cales_torch/ops/stencil.momentum_rhs_core term by term
 // (reference mom.f90:17-309, rk.f90:77-94).
 //
@@ -574,15 +577,18 @@ MomKernel<T> pick_mom_rk_xw(int ym, int split) {
                          : &mom_rk_kernel<T, SGS, 0, Y_PERIODIC, true, false>;
 }
 
-// the scalar variants, what the slice runs with a scalar on one device:
-// periodic y with each split, y walls explicit, and x walls as
-// pick_mom_rk_xw
+// the scalar variants, what the slice runs with a scalar: periodic y with
+// each split, y walls explicit, x walls as pick_mom_rk_xw, and a slab of
+// the y-slab mesh explicit or with split 1
 template <typename T, bool SGS>
 MomKernel<T> pick_mom_rk_scal(int ym, int split, bool xw) {
   if (xw)
     return split == 1 ? &mom_rk_kernel<T, SGS, 1, Y_PERIODIC, true, true>
            : ym == Y_WALLS ? &mom_rk_kernel<T, SGS, 0, Y_WALLS, true, true>
                            : &mom_rk_kernel<T, SGS, 0, Y_PERIODIC, true, true>;
+  if (ym == Y_HALO)
+    return split == 1 ? &mom_rk_kernel<T, SGS, 1, Y_HALO, false, true>
+                      : &mom_rk_kernel<T, SGS, 0, Y_HALO, false, true>;
   if (ym == Y_WALLS) return &mom_rk_kernel<T, SGS, 0, Y_WALLS, false, true>;
   return split == 2   ? &mom_rk_kernel<T, SGS, 2, Y_PERIODIC, false, true>
          : split == 1 ? &mom_rk_kernel<T, SGS, 1, Y_PERIODIC, false, true>
@@ -597,7 +603,8 @@ MomKernel<T> pick_mom_rk_scal(int ym, int split, bool xw) {
 // visct; x walls run with split 0 or, with periodic y, 1, never on a
 // slab).  sc: the passive scalar (the SCAL variants), or null: its
 // field, edge stack and outputs set, its previous RHS with ruo, its y-row
-// and x stack pairs with the velocity's, never on a slab.
+// and x stack pairs with the velocity's (on a slab its halo pair, with
+// split 0 or 1).
 template <typename T>
 int launch_mom_rk(const T* u, const T* v, const T* w, const T* s, const T* p,
                   const T* ue, const T* ve, const T* we, const T* se,
@@ -615,7 +622,8 @@ int launch_mom_rk(const T* u, const T* v, const T* w, const T* s, const T* p,
   if (sc != nullptr &&
       (sc->s == nullptr || sc->se == nullptr || sc->so == nullptr ||
        sc->rs == nullptr || (sc->rso == nullptr) != (ruo == nullptr) ||
-       halo || yw != (sc->ys.rows != nullptr && sc->ys.corners != nullptr) ||
+       (halo && split == 2) ||
+       yw != (sc->ys.rows != nullptr && sc->ys.corners != nullptr) ||
        xw != (sc->xs.rows != nullptr && sc->xs.corners != nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   for (int m = 0; m < 20; ++m) {
@@ -631,7 +639,7 @@ int launch_mom_rk(const T* u, const T* v, const T* w, const T* s, const T* p,
     return static_cast<int>(cudaErrorInvalidValue);
   const int ym = !yw ? Y_PERIODIC : halo ? Y_HALO : Y_WALLS;
   // y walls with the scalar run explicit
-  if (sc != nullptr && yw && split != 0)
+  if (sc != nullptr && ym == Y_WALLS && split != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const MomKernel<T> kern =
       sc != nullptr ? (sgs ? pick_mom_rk_scal<T, true>(ym, split, xw)
@@ -691,10 +699,11 @@ int launch_mom_rk(const T* u, const T* v, const T* w, const T* s, const T* p,
 CALES_MOM_RK_ENTRY(cales_mom_rk_f32, float)
 CALES_MOM_RK_ENTRY(cales_mom_rk_f64, double)
 
-// The scalar variants: mom_rk's arguments (no slab), then the scalar's
-// field, edge stack, previous RHS (null on the first substep), outputs s
-// and ds, its y-row stack pair (null with periodic y) and x stack pair
-// (null with periodic x), and its diffusivity and source.
+// The scalar variants: mom_rk's arguments, then the scalar's field, edge
+// stack, previous RHS (null on the first substep), outputs s and ds, its
+// y-row stack pair (null with periodic y; with halo set its halo pair on a
+// slab) and x stack pair (null with periodic x), and its diffusivity and
+// source.
 #define CALES_MOM_RK_SCAL_ENTRY(NAME, T)                                      \
   extern "C" int NAME(                                                        \
       const T* u, const T* v, const T* w, const T* s, const T* p,             \
@@ -708,8 +717,9 @@ CALES_MOM_RK_ENTRY(cales_mom_rk_f64, double)
       const T* xpr, const T* xpc, const T* sca, const T* scae,                \
       const T* rso, T* so, T* rs, const T* ycr, const T* ycc,                 \
       const T* xcr, const T* xcc, int nz, int ny, int nx, int split,          \
-      double f1, double f2, double visc, double dxi, double dyi, double bfx,  \
-      double bfy, double bfz, double alpha, double ssource, void* stream) {   \
+      int halo, double f1, double f2, double visc, double dxi, double dyi,    \
+      double bfx, double bfy, double bfz, double alpha, double ssource,       \
+      void* stream) {                                                         \
     const T* const y[20] = {yur, yuc, yvr, yvc, ywr, ywc, ysr, ysc, ypr,      \
                             ypc, xur, xuc, xvr, xvc, xwr, xwc, xsr, xsc,      \
                             xpr, xpc};                                        \
@@ -718,9 +728,9 @@ CALES_MOM_RK_ENTRY(cales_mom_rk_f64, double)
                                 T(alpha), T(ssource)};                        \
     return cales::launch_mom_rk<T>(u, v, w, s, p, ue, ve, we, se, pe, ruo,    \
                                    rvo, rwo, dzci, dzfi, uo, vo, wo, ru, rv,  \
-                                   rw, usum, vsum, y, nz, ny, nx, split, 0,   \
-                                   f1, f2, visc, dxi, dyi, bfx, bfy, bfz,     \
-                                   &sc, stream);                              \
+                                   rw, usum, vsum, y, nz, ny, nx, split,      \
+                                   halo, f1, f2, visc, dxi, dyi, bfx, bfy,    \
+                                   bfz, &sc, stream);                         \
   }
 
 CALES_MOM_RK_SCAL_ENTRY(cales_mom_rk_scal_f32, float)

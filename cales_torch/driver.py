@@ -33,6 +33,7 @@ from .grid import make_grid_from_config
 from .initflow import initflow
 from .io import checkpoint as ckpt
 from .io import output as out
+from .io import sharded as shio
 
 from .timeloop import Simulation
 
@@ -86,13 +87,12 @@ def _run(sim, cfg, grid, datadir, verbose, max_steps, hooks):
     if cfg.restart:
         if mesh is not None:
             # each rank reads its slabs (the MPI-IO subarray analogue)
-            from .io import sharded as shio
             u, v, w, p, t0, istep0 = shio.load_checkpoint_sharded(
                 datadir / 'fld.bin', cfg.ng, cfg.np_dtype, mesh)
         else:
             u, v, w, p, t0, istep0 = ckpt.load_checkpoint(
                 datadir / 'fld.bin', cfg.ng, cfg.np_dtype)
-        state = sim.initial_state(u, v, w, p)
+        s = None
         if cfg.scalar:
             # the scalar lives in a sidecar (fld.bin stays the reference's);
             # restarting without it would reset s to its initial field
@@ -101,8 +101,12 @@ def _run(sim, cfg, grid, datadir, verbose, max_steps, hooks):
                 raise FileNotFoundError(
                     'restart with scalar=True requires data/scal.bin '
                     '(scalar sidecar checkpoint)')
-            s, _, _ = ckpt.load_scalar(spath, cfg.ng, cfg.np_dtype)
-            state = state._replace(s=sim._t(s))
+            if mesh is not None:
+                s, _, _ = shio.load_checkpoint_sharded(
+                    spath, cfg.ng, cfg.np_dtype, mesh, nfields=1)
+            else:
+                s, _, _ = ckpt.load_scalar(spath, cfg.ng, cfg.np_dtype)
+        state = sim.initial_state(u, v, w, p, s)
         state = state._replace(time=state.time + t0,
                                istep=state.istep + istep0)
         log(verbose, f'*** Checkpoint loaded at time = {t0}, step = {istep0} ***')
@@ -283,8 +287,7 @@ def _run(sim, cfg, grid, datadir, verbose, max_steps, hooks):
                 else:
                     filename = f'fld_{istep:07d}.bin'
             if mesh is not None:
-                from .io import sharded as shio
-                shio.save_checkpoint_sharded(
+                    shio.save_checkpoint_sharded(
                     datadir / filename, (state.u, state.v, state.w, state.p),
                     mesh, tnow, istep)
             else:
@@ -292,10 +295,15 @@ def _run(sim, cfg, grid, datadir, verbose, max_steps, hooks):
                                      _np(state.v), _np(state.w),
                                      _np(state.p), tnow, istep)
             if cfg.scalar:
-                # the scalar's sidecar beside it (one device)
+                # the scalar's sidecar beside it, slab by slab on a mesh
                 sname = filename.replace('fld', 'scal')
-                ckpt.save_scalar(datadir / sname, _np(state.s), tnow, istep)
-                if not cfg.is_overwrite_save:
+                if mesh is not None:
+                    shio.save_checkpoint_sharded(datadir / sname, (state.s,),
+                                                 mesh, tnow, istep)
+                else:
+                    ckpt.save_scalar(datadir / sname, _np(state.s), tnow,
+                                     istep)
+                if not cfg.is_overwrite_save and rank0:
                     ckpt.gen_alias(datadir, sname, alias='scal.bin')
             if not cfg.is_overwrite_save and rank0:
                 ckpt.gen_alias(datadir, filename)

@@ -5,7 +5,8 @@ subarray writes, load.f90:155-187): every rank writes its (nz, ny/gy, nx)
 slabs of u, v, w, p at their strided offsets of the same ``fld.bin`` file
 through a memory map, and rank 0 creates the file and writes the (time,
 istep) footer.  The bytes are those of io/checkpoint.save_checkpoint on the
-gathered fields; no rank holds more than its slab.  The barriers are
+gathered fields (with the passive scalar's one field, of save_scalar's
+``scal.bin`` sidecar); no rank holds more than its slab.  The barriers are
 torch.distributed's (parallel/mesh.SlabMesh.barrier).
 """
 from __future__ import annotations
@@ -20,45 +21,49 @@ def _np(a):
 
 
 def save_checkpoint_sharded(path, fields, mesh, time: float, istep: int):
-    """fields: this rank's (u, v, w, p) slabs (tensors or numpy)."""
+    """fields: this rank's slabs (tensors or numpy) of the file's fields in
+    their order: (u, v, w, p) for fld.bin, (s,) for scal.bin."""
     nx, ny, nz = mesh.ng
     n = nx * ny * nz
     arrs = [_np(a) for a in fields]
+    nf = len(arrs)
     dtype = arrs[0].dtype
     if mesh.rank == 0:
         # create and size the file before any rank maps it
         with open(path, 'wb') as f:
-            f.truncate((4 * n + 2) * dtype.itemsize)
+            f.truncate((nf * n + 2) * dtype.itemsize)
     mesh.barrier()
-    mm = np.memmap(path, dtype=dtype, mode='r+', shape=(4 * n + 2,))
+    mm = np.memmap(path, dtype=dtype, mode='r+', shape=(nf * n + 2,))
     ys = slice(mesh.y0, mesh.y0 + mesh.nyl)
     for m, a in enumerate(arrs):
         mm[m * n:(m + 1) * n].reshape(nz, ny, nx)[:, ys] = a
     if mesh.rank == 0:
-        mm[4 * n] = dtype.type(time)
-        mm[4 * n + 1] = dtype.type(float(istep))
+        mm[nf * n] = dtype.type(time)
+        mm[nf * n + 1] = dtype.type(float(istep))
     mm.flush()
     del mm
     # every slab on disk before any rank reports the checkpoint written
     mesh.barrier()
 
 
-def load_checkpoint_sharded(path, ng, dtype, mesh):
-    """This rank's slabs of a fld.bin checkpoint, with the size check of
-    io/checkpoint.load_checkpoint.  Returns (u, v, w, p, time, istep)."""
+def load_checkpoint_sharded(path, ng, dtype, mesh, nfields=4):
+    """This rank's slabs of a checkpoint of nfields fields (4: fld.bin, 1:
+    the scalar's scal.bin), with the size check of
+    io/checkpoint.load_checkpoint.  Returns (*fields, time, istep)."""
     nx, ny, nz = ng
     n = nx * ny * nz
-    expected = (4 * n + 2) * np.dtype(dtype).itemsize
+    expected = (nfields * n + 2) * np.dtype(dtype).itemsize
     actual = os.path.getsize(path)
     if actual != expected:
         raise ValueError(
             f'checkpoint size mismatch: {actual} bytes, expected {expected} '
             f'for ng={ng} dtype={dtype} (load.f90:44-52 parity check)')
-    mm = np.memmap(path, dtype=np.dtype(dtype), mode='r', shape=(4 * n + 2,))
+    mm = np.memmap(path, dtype=np.dtype(dtype), mode='r',
+                   shape=(nfields * n + 2,))
     ys = slice(mesh.y0, mesh.y0 + mesh.nyl)
     out = [np.array(mm[m * n:(m + 1) * n].reshape(nz, ny, nx)[:, ys])
-           for m in range(4)]
-    time = float(mm[4 * n])
-    istep = int(round(float(mm[4 * n + 1])))
+           for m in range(nfields)]
+    time = float(mm[nfields * n])
+    istep = int(round(float(mm[nfields * n + 1])))
     del mm
     return (*out, time, istep)

@@ -40,8 +40,9 @@ _I = ctypes.c_int
 _D = ctypes.c_double
 _SIGNATURES = {
     'cales_mom_rk': [_P] * 43 + [_I] * 5 + [_D] * 8 + [_P],
-    # mom_rk's pointers, the scalar's 9, nz, ny, nx, split, 10 coefficients
-    'cales_mom_rk_scal': [_P] * 52 + [_I] * 4 + [_D] * 10 + [_P],
+    # mom_rk's pointers, the scalar's 9, nz, ny, nx, split, halo, 10
+    # coefficients
+    'cales_mom_rk_scal': [_P] * 52 + [_I] * 5 + [_D] * 10 + [_P],
     'cales_fillps': [_P] * 12 + [_I] * 4 + [_D] * 3 + [_P],
     'cales_correc_smag': ([_P] * 22 + [_I] * 4 + [_I, _D, _D] * 4
                           + [_D] * 4 + [_P]),
@@ -55,8 +56,11 @@ _SIGNATURES = {
     # ... the y-row stacks, the halos, nz, ny, nx, wall_lo, wall_hi, avg,
     # zper, f2d, ylo, yhi, then dxi, dyi, the values
     'cales_dsmag': [_P] * 24 + [_I] * 10 + [_D] * 10 + [_P],
-    'cales_dsmag_level1': [_P] * 15 + [_I] * 5 + [_D] * 2 + [_P],
-    'cales_dsmag_level2': [_P] * 30 + [_I] * 4 + [_D] * 2 + [_P],
+    # ... the y-row stacks, the halos, nz, ny, nx, wall_lo, wall_hi, ylo,
+    # yhi, then dxi, dyi
+    'cales_dsmag_level1': [_P] * 21 + [_I] * 7 + [_D] * 2 + [_P],
+    # ... the y-row stacks, the halos, nz, ny, nx, avg, ylo, yhi, dxi, dyi
+    'cales_dsmag_level2': [_P] * 36 + [_I] * 6 + [_D] * 2 + [_P],
     # the pointers (a slab's halo rows among them), nz, ny, nx, corrected,
     # cx, cy, the static WmArgs, a y-walled slab's walls ylo, yhi
     'cales_wallmodel': ([_P] * 9 + [_I] * 4 + [_D] * 2 + [_P] + [_I] * 2

@@ -43,20 +43,23 @@ sampled z rows take their x ghosts from the x faces' values
 On a slab of a y-sharded mesh (parallel/mesh.py) x wraps and y does not:
 mom_rk, fillps, correc_updatep and smag take yh, the halo pairs (rows
 (nz, 2, nx), corners (3, 2, nx)) of the fields they read across the slab's
-edges (mesh.halo_y), and read rows -1 and ny from them; dsmag takes them
-two rows deep (rows (nz, 4, nx), corners (3, 4, nx): rows -2, -1, ny,
-ny+1), and the wall model the sampled rows' rows -1 and ny.  With y walls
+edges (mesh.halo_y), and read rows -1 and ny from them; dsmag and
+dsmag_level1 take them two rows deep (rows (nz, 4, nx), corners (3, 4,
+nx): rows -2, -1, ny, ny+1), dsmag_level2 the filtered velocity's one row
+deep, and the wall model the sampled rows' rows -1 and ny.  With y walls
 on the mesh every slab passes its own y-row stack pairs
 (boundary.slab_ystack: the wall recipe's rows on the side it owns, the
 halo rows elsewhere) as ye, and the y-walled variants run as on the whole
-field; dsmag takes them with its two-row halo and the walls the slab owns
-(ye, yh and yown together).
+field; dsmag and dsmag_level1 take them with their two-row halo and the
+walls the slab owns (ye, yh and yown together), dsmag_level2 with the
+walls it owns (ye and yown).
 z metrics are (nz+2,) tensors with ghost entries, in the fields' dtype and
 on their device.
 
 A passive scalar rides mom_rk (its own C entry, cales_mom_rk_scal_*,
 counted as mom_rk): one more cell-centred field with its z-edge stack and,
-with y or x walls, its y-row or x stack pair, built from its own BC table.
+with y or x walls, its y-row or x stack pair, built from its own BC table,
+or on a slab its halo pair.
 
 Dispatch: a wrapper takes the twin only for tensors on the CPU.  For CUDA
 tensors it launches its kernel or raises; nothing falls back.  LAUNCHES
@@ -177,7 +180,7 @@ def mom_rk_plain(u, v, w, s, p, ue, ve, we, se, pe, ruo, rvo, rwo,
                  xe=None, sca=None, scae=None, rso=None, scal=(0.0, 0.0)):
     nz = u.shape[0]
     yu, yv, yw, ys, yp, ysc = _six(ye)
-    hu, hv, hw, hs, hp, _ = _six(yh)
+    hu, hv, hw, hs, hp, hsc = _six(yh)
     xu, xv, xw, xs, xp, xsc = _six(xe)
     up, vp, wp, ppad = (padded(q, e, y, h, x) for q, e, y, h, x in
                         ((u, ue, yu, hu, xu), (v, ve, yv, hv, xv),
@@ -221,7 +224,7 @@ def mom_rk_plain(u, v, w, s, p, ue, ve, we, se, pe, ruo, rvo, rwo,
     # the passive scalar (scal.f90:14-51, rk.f90:123-195) with the same
     # fill of the velocity
     alpha, ssource = scal
-    ds = st.scalar_rhs(up, vp, wp, padded(sca, scae, ysc, None, xsc), alpha,
+    ds = st.scalar_rhs(up, vp, wp, padded(sca, scae, ysc, hsc, xsc), alpha,
                        dxi, dyi, dzci, dzfi)
     sn = sca + f1 * ds + f12 * ssource
     if rso is not None:
@@ -350,8 +353,53 @@ def _zwrap_padded(q):
     return wrap_xy(torch.cat([q[-1:], q, q[:1]]))
 
 
+def _slab_ext(u, v, w, ue, ve, we, ye, yh, yown, name):
+    """A slab of the y-slab mesh extended by the depth-2 halo pairs yh of
+    (u, v, w) (rows (nz, 4, nx), corners (3, 4, nx): rows -2, -1, nyl,
+    nyl+1, mesh.halo_y) on the sides it does not own, for a twin that runs
+    on the extended field and keeps the slab's rows: its periodic wrap
+    reaches the outputs of the extension's rows only (the velocity's
+    two-row halo is the dynamic model's reach).  ye with yown: a slab of a
+    y-walled mesh, ye its y-row stack pairs (boundary.slab_ystack) and
+    yown = (lower, upper) the y walls it holds, whose stack rows are the
+    wall's; the extended field's stack pairs take the wall's rows on an
+    owned side, the wrap and its own last row elsewhere.  Returns the
+    extended (u, v, w, ue, ve, we), their stack pairs (or None), the y
+    walls yw (or None) and the slice of the slab's own rows."""
+    if (ye is None) != (yown is None):
+        raise ValueError(f"{name}: a slab's y walls take ye and yown "
+                         'together')
+    lo, hi = yown if ye is not None else (False, False)
+
+    def ext(q, e, h):
+        rows, corners = h
+        q = torch.cat([rows[:, :2]] * (not lo) + [q]
+                      + [rows[:, 2:]] * (not hi), dim=1)
+        e = torch.cat([corners[:, :2]] * (not lo) + [e]
+                      + [corners[:, 2:]] * (not hi), dim=1)
+        return q, e
+    (u, ue), (v, ve), (w, we) = (ext(q, e, h) for q, e, h in
+                                 zip((u, v, w), (ue, ve, we), yh))
+    yw = None
+    if ye is not None:
+        def stack(q, e, y):
+            r, c = y
+            pick = ((r[:, 0], c[:, 0]) if lo else (q[:, -1], e[:, -1]),
+                    (r[:, 1], c[:, 1]) if hi else (q[:, -1], e[:, -1]),
+                    (r[:, 2], c[:, 2]) if hi else (q[:, 0], e[:, 0]))
+            return (torch.stack([a for a, _ in pick], dim=1),
+                    torch.stack([b for _, b in pick], dim=1))
+        ye = [stack(q, e, y) for q, e, y in
+              zip((u, v, w), (ue, ve, we), ye)]
+        yw = (bool(lo), bool(hi))
+    ny = u.shape[1]
+    keep = slice(0 if lo else 2, ny - (0 if hi else 2))
+    return (u, v, w, ue, ve, we), ye, yw, keep
+
+
 def dsmag_level1_plain(u, v, w, ue, ve, we, dzci, dzfi, dxi, dyi, wall_lo,
-                       wall_hi, ye=None, zper=False, f2d=False, yw=None):
+                       wall_hi, ye=None, zper=False, f2d=False, yw=None,
+                       yh=None, yown=None):
     """The grid level of the Germano-Lilly model (pallas_dsmag._ds1_kernel)
     on interiors + the post-correction fill's edge stacks (and with y walls
     its y-row stack pairs ye of (u, v, w)): the filtered products and the
@@ -362,10 +410,27 @@ def dsmag_level1_plain(u, v, w, ue, ve, we, dzci, dzfi, dxi, dyi, wall_lo,
     f2d (the 2D test filter, periodic y): every filter is the x-y one, and
     nothing is extrapolated.  yw: which y faces are walls (lower, upper),
     both where ye is given (dsmag_plain's slab of a y-walled mesh passes
-    its own).
+    its own).  yh: a slab of the y-slab mesh (z walls, the 3D filter), the
+    depth-2 halo pairs of (u, v, w), with ye and yown on a slab of a
+    y-walled mesh: the model runs on the slab extended by them (_slab_ext)
+    and keeps the slab's rows (csrc/dsmag_level1.cu modes YH, YW + YH).
     Returns (fm, fvel, lij, s0): fm = filt(|S| S_ij) (6), fvel the
     filtered velocity (3), lij = filt(uc_i uc_j) - filt(uc_i) filt(uc_j)
     (6) with uc the centred velocity, s0 = |S|."""
+    if yh is not None:
+        if zper or f2d:
+            raise ValueError('dsmag_level1: a slab takes z walls and the 3D '
+                             'filter')
+        (u, v, w, ue, ve, we), ye, yw, keep = _slab_ext(
+            u, v, w, ue, ve, we, ye, yh, yown, 'dsmag_level1')
+        fm, fvel, lij, s0 = dsmag_level1_plain(u, v, w, ue, ve, we, dzci,
+                                               dzfi, dxi, dyi, wall_lo,
+                                               wall_hi, ye=ye, yw=yw)
+
+        def crop(q):
+            return q[:, keep].contiguous()
+        return ([crop(q) for q in fm], [crop(q) for q in fvel],
+                [crop(q) for q in lij], crop(s0))
     if yw is None:
         yw = (ye is not None,) * 2
     yu, yv, ywr = (None,) * 3 if ye is None else ye
@@ -463,56 +528,27 @@ def dsmag_plain(u, v, w, ue, ve, we, alph2, dzci, dzfi, dxi, dyi, wall_lo,
     for avg 'channel', over each (z, y) row, (nz, ny, 1), for 'duct'; for
     'cavity' (nu_t, None, None), nu_t = max(|S| num / den, 0) by cell.
     yh: a slab of the y-slab mesh (periodic y, z walls or with zper
-    periodic z, the 3D filter), the depth-2 halo pairs (rows (nz, 4, nx),
-    corners (3, 4, nx)) of (u, v, w), rows -2, -1, nyl, nyl+1
-    (mesh.halo_y; with zper their corners unread): the model runs on the slab
-    extended by those rows, whose periodic wrap reaches the outputs of
-    those rows only (the velocity's two-row halo is the model's reach),
-    and keeps the slab's rows (csrc/dsmag.cu mode YH).  ye with yh: a slab
-    of a y-walled mesh (YW and YH), ye the slab's y-row stack pairs
-    (boundary.slab_ystack) and yown = (lower, upper) the y walls it holds:
-    the slab is extended by the halo's two rows on a side it does not own
-    and the wall recipes apply on the sides it owns, whose stack rows are
-    the wall's; the extension's own outer ghost wraps and reaches the
-    cropped rows only."""
-    yw = None
+    periodic z, the 3D or with f2d the 2D filter), the depth-2 halo pairs
+    (rows (nz, 4, nx), corners (3, 4, nx)) of (u, v, w), rows -2, -1, nyl,
+    nyl+1 (mesh.halo_y; with zper their corners unread): the model runs on
+    the slab extended by those rows and keeps the slab's rows (_slab_ext;
+    csrc/dsmag.cu mode YH, with ZP and F2D).  ye with yh: a slab of a
+    y-walled mesh (YW and YH, z walls, the 3D filter), ye the slab's y-row
+    stack pairs (boundary.slab_ystack) and yown = (lower, upper) the y
+    walls it holds: the slab is extended by the halo's two rows on a side
+    it does not own and the wall recipes apply on the sides it owns, whose
+    stack rows are the wall's."""
+    yw = keep = None
     if yh is not None:
-        if f2d or (zper and ye is not None):
-            raise ValueError('dsmag: a slab takes the 3D filter, and '
-                             'periodic z with periodic y')
-        if (ye is None) != (yown is None):
-            raise ValueError("dsmag: a slab's y walls take ye and yown "
-                             'together')
-        lo, hi = yown if ye is not None else (False, False)
-
-        def ext(q, e, h):
-            rows, corners = h
-            q = torch.cat([rows[:, :2]] * (not lo) + [q]
-                          + [rows[:, 2:]] * (not hi), dim=1)
-            e = torch.cat([corners[:, :2]] * (not lo) + [e]
-                          + [corners[:, 2:]] * (not hi), dim=1)
-            return q, e
-        (u, ue), (v, ve), (w, we) = (ext(q, e, h) for q, e, h in
-                                     zip((u, v, w), (ue, ve, we), yh))
-        if ye is not None:
-            # the extended field's stack pairs: the wall's rows on an owned
-            # side, the wrap and its own last row elsewhere
-            def stack(q, e, y):
-                r, c = y
-                pick = ((r[:, 0], c[:, 0]) if lo else (q[:, -1], e[:, -1]),
-                        (r[:, 1], c[:, 1]) if hi else (q[:, -1], e[:, -1]),
-                        (r[:, 2], c[:, 2]) if hi else (q[:, 0], e[:, 0]))
-                return (torch.stack([a for a, _ in pick], dim=1),
-                        torch.stack([b for _, b in pick], dim=1))
-            ye = [stack(q, e, y) for q, e, y in
-                  zip((u, v, w), (ue, ve, we), ye)]
-            yw = (bool(lo), bool(hi))
+        if (zper or f2d) and ye is not None:
+            raise ValueError('dsmag: a slab of a y-walled mesh takes z walls '
+                             'and the 3D filter')
+        (u, v, w, ue, ve, we), ye, yw, keep = _slab_ext(
+            u, v, w, ue, ve, we, ye, yh, yown, 'dsmag')
     s0, num, den = _dsmag_cells(u, v, w, ue, ve, we, alph2, dzci, dzfi, dxi,
                                 dyi, wall_lo, wall_hi, zvals, ye, yvals,
                                 zper, f2d, yw)
-    if yh is not None:
-        ny = s0.shape[1]
-        keep = slice(0 if yw and yw[0] else 2, ny - (0 if yw and yw[1] else 2))
+    if keep is not None:
         s0, num, den = (q[:, keep] for q in (s0, num, den))
     out = _averaged(num, den, s0, avg)
     return (out, None, None) if avg == 'cavity' else (s0, *out)
@@ -562,19 +598,29 @@ def _dsmag_cells(u, v, w, ue, ve, we, alph2, dzci, dzfi, dxi, dyi, wall_lo,
 
 
 def dsmag_level2_plain(fu, fv, fw, fue, fve, fwe, fm, lij, s0, alph2, dzci,
-                       dzfi, dxi, dyi, avg='channel', ye=None):
+                       dzfi, dxi, dyi, avg='channel', ye=None, yh=None,
+                       yown=None):
     """The test level of the Germano-Lilly model (pallas_dsmag._ds2_kernel)
     from dsmag_level1's outputs: the filtered velocity (fu, fv, fw) with the
     edge stacks of its BC fill (the static planes, is_correc=False: w's
     faces carry their values, the upper one in the rewrite row) and with y
-    walls the fill's y-row stack pairs ye; fm, lij (6 each) and s0.
+    walls the fill's y-row stack pairs ye; fm, lij (6 each) and s0.  yh: a
+    slab of the y-slab mesh with periodic y, the depth-1 halo pairs of
+    (fu, fv, fw) (mesh.halo_y), their rows -1 and nyl; ye with yown: a slab
+    of a y-walled mesh, ye the slab's y-row stack pairs of the fill
+    (boundary.slab_ystack), alpha^2 2.52 on the first and last rows of the
+    y walls yown = (lower, upper) it holds only (csrc/dsmag_level2.cu modes
+    YH, YW + YH).
     Returns nu_t = max(|S| num / den, 0) for avg 'cavity', else (num, den)
     summed over each z row, (nz, 1), for 'channel', over each (z, y) row,
     (nz, ny, 1), for 'duct'."""
     yu, yv, yw = (None,) * 3 if ye is None else ye
-    num, den = _contraction(fm, lij, padded(fu, fue, yu), padded(fv, fve, yv),
-                            padded(fw, fwe, yw), alph2, dzci, dzfi, dxi, dyi,
-                            (ye is not None,) * 2)
+    hu, hv, hw = (None,) * 3 if yh is None else yh
+    walls = ((ye is not None,) * 2 if yown is None
+             else tuple(bool(q) for q in yown))
+    num, den = _contraction(fm, lij, padded(fu, fue, yu, hu),
+                            padded(fv, fve, yv, hv), padded(fw, fwe, yw, hw),
+                            alph2, dzci, dzfi, dxi, dyi, walls)
     return _averaged(num, den, s0, avg)
 
 
@@ -734,7 +780,8 @@ def mom_rk(u, v, w, s, p, ue, ve, we, se, pe, ruo, rvo, rwo, dzci, dzfi,
     is nu_t), with its z-edge stack scae, its previous RHS rso (None with
     ruo) and scal = (alpha, ssource), its diffusivity visc/pr and source;
     with y or x walls its stack pair is the sixth entry of ye or xe (its
-    own BC letters and values); one device, not on a slab.  Returns (u, v,
+    own BC letters and values), on a slab its halo pair the sixth entry of
+    yh (split None or '1d').  Returns (u, v,
     w, ru, rv, rw, usum, vsum), and with sca also (s, ds), the scalar and
     its RHS; usum/vsum are None or per-(z, part) partial sums,
     (nz, parts): one part on the CPU, one a (y, x) tile of the kernel on
@@ -750,18 +797,22 @@ def mom_rk(u, v, w, s, p, ue, ve, we, se, pe, ruo, rvo, rwo, dzci, dzfi,
     if ye is not None and yh is not None:
         raise ValueError('mom_rk: y walls or a slab halo, not both')
     has_scal = sca is not None
-    ye_sc, xe_sc = _six(ye)[5], _six(xe)[5]
+    ye_sc, xe_sc, yh_sc = _six(ye)[5], _six(xe)[5], _six(yh)[5]
     if has_scal and (scae is None or (rso is None) != (ruo is None)
-                     or yh is not None
+                     or (yh is not None and split == 'xy+z')
                      or (ye is not None) != (ye_sc is not None)
-                     or (xe is not None) != (xe_sc is not None)):
+                     or (xe is not None) != (xe_sc is not None)
+                     or (yh is not None) != (yh_sc is not None)):
         raise ValueError('mom_rk: the scalar takes its edge stack, rso '
-                         'with ruo, its y and x stack pairs with the '
-                         "velocity's, and no slab")
+                         'with ruo, its y and x stack pairs and slab halo '
+                         "with the velocity's (on a slab split None or "
+                         "'1d')")
     if not has_scal and (scae is not None or rso is not None
-                         or ye_sc is not None or xe_sc is not None):
+                         or ye_sc is not None or xe_sc is not None
+                         or yh_sc is not None):
         raise ValueError('mom_rk: scalar stacks without the scalar')
     ye = None if ye is None else _six(ye)[:5]
+    yh = None if yh is None else _six(yh)[:5]
     xe = (None,) * 5 if xe is None else _six(xe)[:5]
     if xe[0] is not None and (
             any(xe[m] is None for m in (1, 2, 4))
@@ -785,7 +836,7 @@ def mom_rk(u, v, w, s, p, ue, ve, we, se, pe, ruo, rvo, rwo, dzci, dzfi,
     _check('mom_rk', u, (u, v, w, s, p, ruo, rvo, rwo, sca, rso),
            edges=(ue, ve, we, se, pe, scae),
            profiles=((dzci, nz + 2), (dzfi, nz + 2)),
-           **_ysplit((*ye, ye_sc)), **_ysplit(yh, halo=True),
+           **_ysplit((*ye, ye_sc)), **_ysplit((*yh, yh_sc), halo=True),
            **_xsplit((*xe, xe_sc), ny, ywalls=ye[0] is not None))
     halo = yh[0] is not None
     outs = [torch.empty_like(u) for _ in range(8 if has_scal else 6)]
@@ -807,8 +858,8 @@ def mom_rk(u, v, w, s, p, ue, ve, we, se, pe, ruo, rvo, rwo, dzci, dzfi,
         # the scalar variant: its own entry, one count under mom_rk
         _launch('mom_rk', f'cales_mom_rk_scal_{_suffix(u)}', *args,
                 *map(_ptr, (sca, scae, rso, *outs[6:])),
-                *_yptrs((ye_sc, xe_sc)), *dims,
-                *coefs, d(scal[0]), d(scal[1]))
+                *_yptrs((yh_sc if halo else ye_sc, xe_sc)), *dims,
+                ctypes.c_int(int(halo)), *coefs, d(scal[0]), d(scal[1]))
         return (*outs[:6], usum, vsum, *outs[6:])
     _launch('mom_rk', f'cales_mom_rk_{_suffix(u)}', *args, *dims,
             ctypes.c_int(int(halo)), *coefs)
@@ -1040,7 +1091,8 @@ def dsmag(u, v, w, ue, ve, we, alph2, dzci, dzfi, dxi, dyi, wall_lo, wall_hi,
     z ghosts the planes at the other end, the edge stacks unread; f2d: the
     2D test filter in the x-y planes (mode F2D; periodic y).  yh: a slab
     of the y-slab mesh (mode YH; periodic y, z walls or with zper periodic
-    z (modes ZP and YH), the 3D filter, 'channel' or 'dit'), the depth-2
+    z (modes ZP and YH), the 3D or with f2d the 2D filter (F2D and YH),
+    'channel' or 'dit'), the depth-2
     halo pairs (rows (nz, 4, nx), corners (3, 4, nx)) of (u, v, w) from
     mesh.halo_y, which the velocity tile takes for its rows -2, -1, nyl
     and nyl+1 (with zper the halo's rows of plane t mod nz, its corners
@@ -1062,9 +1114,9 @@ def dsmag(u, v, w, ue, ve, we, alph2, dzci, dzfi, dxi, dyi, wall_lo, wall_hi,
         raise ValueError('dsmag: periodic z takes no z or y walls')
     if f2d and ye is not None:
         raise ValueError('dsmag: the 2D test filter takes no y walls')
-    if yh is not None and (f2d or (ye is None and _DSMAG_AVG[avg] != 0)):
-        raise ValueError("dsmag: a slab's halos take the 3D filter and, "
-                         "with periodic y, the 'channel' or 'dit' sums")
+    if yh is not None and ye is None and _DSMAG_AVG[avg] != 0:
+        raise ValueError("dsmag: a slab's halos with periodic y take the "
+                         "'channel' or 'dit' sums")
     if (yown is not None) != (yh is not None and ye is not None):
         raise ValueError("dsmag: yown names a slab's y walls, with ye and "
                          'yh')
@@ -1123,50 +1175,94 @@ def _check_dsmag(name, u, ue, ve, we, profiles, ye, fields):
 
 
 def dsmag_level1(u, v, w, ue, ve, we, dzci, dzfi, dxi, dyi, wall_lo,
-                 wall_hi, ye=None):
+                 wall_hi, ye=None, yh=None, yown=None):
     """The grid level of the two-pass dynamic Smagorinsky model in one
     z-march (see dsmag_level1_plain): from the post-correction fill
     (interiors + edge stacks, with y walls the y-row stack pairs ye of
     (u, v, w)) to (fm, fvel, lij, s0), 16 fields in the fields' dtype,
-    views of one (16, nz, ny, nx) block."""
+    views of one (16, nz, ny, nx) block.  yh: a slab of the y-slab mesh
+    (mode YH), the depth-2 halo pairs (rows (nz, 4, nx), corners (3, 4,
+    nx)) of (u, v, w) from mesh.halo_y, the velocity tile's rows -2, -1,
+    nyl and nyl+1; with ye and yown = (lower, upper) a slab of a y-walled
+    mesh (modes YW and YH): ye the slab's y-row stack pairs
+    (boundary.slab_ystack) for the rows -1, nyl-1 and nyl, the wall
+    recipes on the walls it holds."""
+    if (yown is not None) != (yh is not None and ye is not None):
+        raise ValueError("dsmag_level1: yown names a slab's y walls, with ye "
+                         'and yh')
+    lo, hi = (-1, -1) if yown is None else (int(bool(q)) for q in yown)
     if _on_cpu(u):
         return dsmag_level1_plain(u, v, w, ue, ve, we, dzci, dzfi, dxi, dyi,
-                                  wall_lo, wall_hi, ye=ye)
+                                  wall_lo, wall_hi, ye=ye, yh=yh, yown=yown)
     nz, ny, nx = u.shape
-    ye = _check_dsmag('dsmag_level1', u, ue, ve, we,
-                       ((dzci, nz + 2), (dzfi, nz + 2)), ye, (u, v, w))
+    if yh is None:
+        ye = _check_dsmag('dsmag_level1', u, ue, ve, we,
+                           ((dzci, nz + 2), (dzfi, nz + 2)), ye, (u, v, w))
+    else:
+        if nz < 2 or ny < 2:
+            raise ValueError(f'dsmag_level1: a slab of {ny} row(s) and nz = '
+                             f'{nz} (at least 2 each)')
+        ye = (None,) * 3 if ye is None else tuple(ye)
+        _check('dsmag_level1', u, (u, v, w), edges=(ue, ve, we),
+               profiles=((dzci, nz + 2), (dzfi, nz + 2)), **_ysplit(ye),
+               **_ysplit(yh, halo=2))
     out = u.new_empty((16, nz, ny, nx))
     d = ctypes.c_double
     _launch('dsmag_level1', f'cales_dsmag_level1_{_suffix(u)}',
             *map(_ptr, (u, v, w, ue, ve, we, dzci, dzfi, out)), *_yptrs(ye),
+            *_yptrs((None,) * 3 if yh is None else yh),
             ctypes.c_int(nz), ctypes.c_int(ny), ctypes.c_int(nx),
             ctypes.c_int(int(bool(wall_lo))), ctypes.c_int(int(bool(wall_hi))),
-            d(dxi), d(dyi))
+            ctypes.c_int(lo), ctypes.c_int(hi), d(dxi), d(dyi))
     return list(out[0:6]), list(out[6:9]), list(out[9:15]), out[15]
 
 
 def dsmag_level2(fu, fv, fw, fue, fve, fwe, fm, lij, s0, alph2, dzci, dzfi,
-                 dxi, dyi, avg='channel', ye=None):
+                 dxi, dyi, avg='channel', ye=None, yh=None, yown=None):
     """The test level of the two-pass dynamic Smagorinsky model (see
     dsmag_level2_plain), one thread per cell: the filtered velocity with
     its fill's edge stacks (and y-row stack pairs ye), dsmag_level1's fm,
-    lij and s0, alph2 the (nz,) filter-ratio profile.  Returns nu_t for
-    avg 'cavity'; otherwise partial sums (num, den) that the caller sums
-    over their last dim: per (z, block), (nz, nblk), for 'channel'; per
-    (z, y, x block of 32), (nz, ny, ceil(nx/32)), for 'duct'.  The twin
-    returns the sums whole, (nz, 1) or (nz, ny, 1)."""
+    lij and s0, alph2 the (nz,) filter-ratio profile.  yh: a slab of the
+    y-slab mesh with periodic y (mode YH, 'channel' or 'dit'), the depth-1
+    halo pairs (rows (nz, 2, nx), corners (3, 2, nx)) of (fu, fv, fw);
+    yown = (lower, upper) with ye: a slab of a y-walled mesh (modes YW and
+    YH), ye the slab's y-row stack pairs of the fill, alpha^2 2.52 at the
+    walls it holds.  Returns nu_t for avg 'cavity'; otherwise partial sums
+    (num, den) that the caller sums over their last dim: per (z, block),
+    (nz, nblk), for 'channel'; per (z, y, x block of 32), (nz, ny,
+    ceil(nx/32)), for 'duct'.  The twin returns the sums whole, (nz, 1) or
+    (nz, ny, 1)."""
     if avg not in _DSMAG_AVG:
         raise ValueError(f'dsmag_level2: avg {avg!r} (dit, channel, duct or '
                          'cavity)')
+    if yh is not None and (ye is not None or _DSMAG_AVG[avg] != 0):
+        raise ValueError("dsmag_level2: a slab's halos take periodic y and "
+                         "the 'channel' or 'dit' sums")
+    if yown is not None and ye is None:
+        raise ValueError("dsmag_level2: yown names a slab's y walls, with "
+                         'ye')
     if _on_cpu(fu):
         return dsmag_level2_plain(fu, fv, fw, fue, fve, fwe, fm, lij, s0,
-                                  alph2, dzci, dzfi, dxi, dyi, avg=avg, ye=ye)
+                                  alph2, dzci, dzfi, dxi, dyi, avg=avg, ye=ye,
+                                  yh=yh, yown=yown)
     nz, ny, nx = fu.shape
     if len(fm) != 6 or len(lij) != 6:
         raise ValueError('dsmag_level2: fm and lij take 6 fields each')
-    ye = _check_dsmag('dsmag_level2', fu, fue, fve, fwe,
-                       ((alph2, nz), (dzci, nz + 2), (dzfi, nz + 2)), ye,
-                       (fu, fv, fw, *fm, *lij, s0))
+    lo, hi = (-1, -1) if yown is None else (int(bool(q)) for q in yown)
+    if yh is None and yown is None:
+        ye = _check_dsmag('dsmag_level2', fu, fue, fve, fwe,
+                           ((alph2, nz), (dzci, nz + 2), (dzfi, nz + 2)), ye,
+                           (fu, fv, fw, *fm, *lij, s0))
+    else:
+        if nz < 2 or ny < 2:
+            raise ValueError(f'dsmag_level2: a slab of {ny} row(s) and nz = '
+                             f'{nz} (at least 2 each)')
+        ye = (None,) * 3 if ye is None else tuple(ye)
+        _check('dsmag_level2', fu, (fu, fv, fw, *fm, *lij, s0),
+               edges=(fue, fve, fwe),
+               profiles=((alph2, nz), (dzci, nz + 2), (dzfi, nz + 2)),
+               **_ysplit(ye), **_ysplit((None,) * 3 if yh is None else yh,
+                                        halo=True))
     from . import build
     gx = -(-nx // 32)
     code = _DSMAG_AVG[avg]
@@ -1178,8 +1274,10 @@ def dsmag_level2(fu, fv, fw, fue, fve, fwe, fm, lij, s0, alph2, dzci, dzfi,
     _launch('dsmag_level2', f'cales_dsmag_level2_{_suffix(fu)}',
             *map(_ptr, (fu, fv, fw, fue, fve, fwe, *fm, *lij, s0, alph2,
                         dzci, dzfi, num, den)), *_yptrs(ye),
+            *_yptrs((None,) * 3 if yh is None else yh),
             ctypes.c_int(nz), ctypes.c_int(ny), ctypes.c_int(nx),
-            ctypes.c_int(code), d(dxi), d(dyi))
+            ctypes.c_int(code), ctypes.c_int(lo), ctypes.c_int(hi), d(dxi),
+            d(dyi))
     return num if avg == 'cavity' else (num, den)
 
 

@@ -65,30 +65,37 @@ On a y-slab mesh (dims = (gy, 1), parallel/mesh.SlabMesh) each rank steps
 its slab, the counterpart of the JAX package's kernel-sharded route
 (Simulation with _kernel_sharded and use_pallas_solve_sharded), for the
 channel classes: sgstype 'none', static Smagorinsky (with the z walls'
-wall model too) or the one-pass dynamic Smagorinsky ('channel', 'dit'),
-explicit diffusion or impdiff_1d; for the y-walled duct and cavity
-classes as one device runs them (sgstype 'none', static Smagorinsky, the
-one-pass dynamic Smagorinsky with any average, explicit diffusion; the
-wall model on the y and z walls, the wall-modelled duct); and for the
-triperiodic box (sgstype 'none', static Smagorinsky, the one-pass
-dynamic Smagorinsky in its periodic-z mode, explicit diffusion, forced
-along z too).  The
+wall model too) or the dynamic Smagorinsky ('channel', 'dit'; one pass
+with the 3D or the 2D filter, or the two passes: transpiring z walls,
+CALES_DSMAG_TWOPASS=1), explicit diffusion or impdiff_1d; for the
+y-walled duct and cavity classes as one device runs them (sgstype
+'none', static Smagorinsky, the dynamic Smagorinsky with any average by
+one or two passes, explicit diffusion; the wall model on the y and z
+walls, the wall-modelled duct); and for the triperiodic box (sgstype
+'none', static Smagorinsky, the one-pass dynamic Smagorinsky in its
+periodic-z mode with either filter, explicit diffusion, forced along z
+too); each with or without the passive scalar.  The
 halos of the fields each stencil kernel reads at +-1 in y come from the
-neighbours before it runs (mesh.halo_y; two rows deep for dsmag's tile),
+neighbours before it runs (mesh.halo_y; two rows deep for the velocity
+tiles of dsmag and dsmag_level1, one row of the filtered velocity for
+dsmag_level2; the scalar's rows ride the momentum kernel's exchange),
 the Poisson solve is poisson.solve_sharded (apply_x, the pencil
 transposes, apply_y, thomas_z or with periodic z thomas_periodic, pinned
 on the rank that holds the singular lane), the z-only CN solves run on
 each slab, the correction and nu_t run as correc_updatep and smag or
 dsmag (the fused correc_smag is off, as under the JAX mesh), the wall
-model takes its sampled rows' y halos, and the bulk forcing, dsmag's z
-sums, the CFL dt and the divergence reduce over the ranks.  The van
+model takes its sampled rows' y halos, and the bulk forcing (the
+scalar's too), dsmag's z sums, the CFL dt and the divergence reduce over
+the ranks.  The van
 Driest wall-shear planes of the z walls stay on their slab (z is never
 split) with the halo's row below.  With y walls every slab runs the y-walled kernel
 variants on its own y-row stacks (boundary.slab_ystack): the wall recipe's
 rows on the side a slab owns (rank 0 the lower wall, rank gy-1 the upper),
 built there from its own rows with no communication, the halo rows
-elsewhere (the JAX package's per-shard wall flags, _ywf_shard); dsmag
-takes them with its two-row halo (csrc/dsmag.cu YW + YH), the y walls'
+elsewhere (the JAX package's per-shard wall flags, _ywf_shard; the
+scalar's from its own recipe); dsmag and dsmag_level1 take them with their
+two-row halo (csrc/dsmag.cu, dsmag_level1.cu YW + YH), dsmag_level2 the
+filtered velocity's (YW + YH), the y walls'
 shear planes of smag's van Driest are made on their owners and summed
 over the ranks (one all_reduce of two (nz, nx) planes a substep), the kept
 v and w wall planes advance on the owners, and the pressure's y-face RHS
@@ -118,7 +125,7 @@ and smag reads the 'E' stacks (sgs.extrapolate_stacks).  Plane-valued
 static velocity values (an inflow profile on an x face, a moving lid on a
 z face) ride the same offsets with periodic y (_planes_refuse).
 
-With a passive scalar (cfg.scalar; every single-device route above) the
+With a passive scalar (cfg.scalar; every route above) the
 scalar advances in mom_rk's scalar stream (csrc/mom_rk.cu SCAL: its RHS
 from the substep's velocity, explicit with alpha = visc/pr, and its RK3
 update), its z-edge, y-row and x stacks from its own BC table, made by
@@ -294,14 +301,12 @@ def unsupported(cfg: Config) -> list[str]:
 
 def _scalar_refuse(cfg: Config) -> list[str]:
     """What this slice does not run with a passive scalar: it runs the
-    scalar on every single-device route, any of the letters D, N, P on its
-    z faces, and on its x and y faces where the velocity has walls there
-    (its ghosts ride the x and y stacks; cales_tpu's own gate,
+    scalar on every route the velocity runs, on one device and on the
+    y-slab mesh (_mesh_refuse says which), any of the letters D, N, P on
+    its z faces, and on its x and y faces where the velocity has walls
+    there (its ghosts ride the x and y stacks; cales_tpu's own gate,
     timeloop.py:266-273)."""
     out = []
-    if cfg.dims[0] * cfg.dims[1] > 1:
-        out.append('passive scalar on a mesh: ROADMAP queue 1, '
-                   'multi-device')
     for d, name in ((0, 'x'), (1, 'y')):
         if _periodic(cfg, d) and any(cfg.cbcscal[ib][d] != 'P'
                                      for ib in range(2)):
@@ -402,14 +407,16 @@ def _mesh_refuse(cfg: Config) -> list[str]:
     """What this slice does not run on a device mesh (dims): the y-slab
     mesh dims = (gy, 1) runs the channel classes with periodic x and y and
     the all-matrix Poisson route: sgstype 'none', static Smagorinsky (the
-    z walls may carry the wall model) or the one-pass dynamic Smagorinsky
-    ('channel' or 'dit', the 3D filter), explicit diffusion or
+    z walls may carry the wall model) or the dynamic Smagorinsky ('channel'
+    or 'dit', one pass with the 3D or the 2D filter, or two passes:
+    transpiring z walls, CALES_DSMAG_TWOPASS=1), explicit diffusion or
     impdiff_1d; with the y walls _ywalls_refuse admits (the duct and
     cavity classes) what one device runs there, on slabs of at least 2
     rows, the wall model on the y and z faces too (the wall-modelled duct)
     where each y face's sampled rows lie on its owner's slab; and with
     periodic z (the triperiodic box) sgstype 'none', static Smagorinsky
-    or the one-pass dynamic Smagorinsky, explicit diffusion."""
+    or the one-pass dynamic Smagorinsky (the 3D or 2D filter), explicit
+    diffusion.  The passive scalar runs on each of these routes."""
     gy, gx = int(cfg.dims[0]), int(cfg.dims[1])
     nx, ny, _ = cfg.ng
     out = []
@@ -421,13 +428,6 @@ def _mesh_refuse(cfg: Config) -> list[str]:
         out.append(f'dims = ({gy}, {gx}) with ny = {ny}, nx = {nx} not '
                    f'divisible by gy')
     if cfg.sgstype == 'dsmag':
-        if dsmag_twopass(cfg):
-            out.append('the two-pass dynamic Smagorinsky under a device mesh '
-                       '(transpiring z walls, or CALES_DSMAG_TWOPASS=1): '
-                       f'{item}, dsmag by two passes')
-        if cfg.filter_2d:
-            out.append('the 2D test filter under a device mesh: '
-                       f'{item}, filter_2d')
         if ny % gy == 0 and ny // gy < 2:
             out.append(f'dims = ({gy}, {gx}) with dsmag: slabs of {ny // gy} '
                        "y row(s), thinner than the dsmag kernel's two-row y "
@@ -929,8 +929,14 @@ class Simulation:
         mesh = ('' if self.mesh is None
                 else f'; mesh: {self.mesh.describe()}, y halos')
         if self.mesh is not None and self.sgs_kernel == 'dsmag':
-            mesh += (" (dsmag's two rows deep), the dsmag sums reduced over "
-                     'the ranks')
+            mesh += (" (dsmag_level1's two rows deep, the filtered "
+                     "velocity's one row deep for dsmag_level2)"
+                     if self.dsmag_twopass else " (dsmag's two rows deep)")
+            mesh += ', the dsmag sums reduced over the ranks'
+        if self.mesh is not None and self.has_scal:
+            mesh += (", the scalar's halo rows in the momentum exchange"
+                     + (', its forcing summed over the ranks'
+                        if self.cfg.is_sforced else ''))
         if self.mesh is not None and self.has_wm:
             mesh += ", the wall model's sampled rows' halos"
             if self.yown is not None:
@@ -957,22 +963,26 @@ class Simulation:
         return torch.as_tensor(np.asarray(a), dtype=self.dtype,
                                device=self.device)
 
-    def initial_state(self, u, v, w, p) -> State:
+    def initial_state(self, u, v, w, p, s=None) -> State:
         """State from (nz, ny, nx) initial fields (numpy or tensors); on a
-        mesh the global fields or this rank's slabs."""
+        mesh the global fields or this rank's slabs.  s: the passive
+        scalar's field (a restart's), else its initial field."""
         if self.mesh is not None:
             u, v, w, p = (self.mesh.local(a) for a in (u, v, w, p))
+            if s is not None:
+                s = self.mesh.local(s)
         u, v, w, p = (self._t(a) for a in (u, v, w, p))
         zeros = torch.zeros_like(u)
         nx, ny, nz = self.cfg_local.ng
         z2 = lambda a, b: torch.zeros((a, b), dtype=self.dtype,  # noqa: E731
                                       device=self.device)
         vlo = (z2(nz + 2, ny + 2), z2(nz + 2, nx + 2), z2(ny + 2, nx + 2))
-        s = dsdt = None
+        dsdt = None
         if self.has_scal:
             # iniscal: 'uni' 1 everywhere, else 0 (cales_tpu
             # timeloop.py:587-590)
-            s = (torch.ones_like(u) if self.cfg.iniscal == 'uni'
+            s = (self._t(s) if s is not None
+                 else torch.ones_like(u) if self.cfg.iniscal == 'uni'
                  else torch.zeros_like(u))
             dsdt = torch.zeros_like(u)
         st0 = State(u=u, v=v, w=w, p=p, visct=zeros, vlo=vlo,
@@ -1003,10 +1013,11 @@ class Simulation:
             visct = sgsmod.smag_visct(self.sgs_setup, self.cfg, self.grid,
                                       up, vp, wp).to(self.dtype)
         elif self.cfg.sgstype == 'dsmag' and self.mesh is not None:
-            # on a slab the one-pass kernel on the same fill, whose y halo
-            # is two rows deep (the padded fields carry one)
-            visct = self._dsmag_onepass(u, v, w, self._zedge_vel(
-                u, v, w, bcu, bcv, bcw))
+            # on a slab the kernels on the same fill, whose y halo is two
+            # rows deep (the padded fields carry one)
+            stage = (self._dsmag_twopass if self.dsmag_twopass
+                     else self._dsmag_onepass)
+            visct = stage(u, v, w, self._zedge_vel(u, v, w, bcu, bcv, bcw))
         elif self.cfg.sgstype == 'dsmag':
             # the filtered velocity's fill: the static planes, not the
             # corrector's (sgs.f90:256-257)
@@ -1139,12 +1150,16 @@ class Simulation:
     def bulk_mean(self, f, weights):
         """Volume-weighted mean of a field (st.bulk_mean), over the whole
         domain on a mesh."""
+        return float(self._bulk_mean_t(f, weights))
+
+    def _bulk_mean_t(self, f, weights):
+        """bulk_mean as a tensor on f's device; on a mesh the slabs' plane
+        sums reduced over the ranks."""
         if self.mesh is None:
-            return float(st.bulk_mean(f, weights))
-        plane = torch.sum(f, dim=(1, 2))
-        plane = self.mesh.all_reduce(plane)
-        return float(torch.dot(plane, torch.as_tensor(
-            weights, dtype=f.dtype, device=f.device)))
+            return st.bulk_mean(f, weights)
+        plane = self.mesh.all_reduce(torch.sum(f, dim=(1, 2)))
+        return torch.dot(plane, torch.as_tensor(weights, dtype=f.dtype,
+                                                device=f.device))
 
     def _yedge_vel(self, u, v, w, bcs=None, vlo=None, is_correc=False):
         """The (rows, corners) y-row stack pairs of u, v, w with the BC
@@ -1217,12 +1232,7 @@ class Simulation:
                     tot = self.mesh.all_reduce(tot)
                 f[d] = cfg.velf[d] - torch.dot(tot, self.gvr_f_t)
         if cfg.is_forced[2]:
-            if self.mesh is None:
-                f[2] = cfg.velf[2] - st.bulk_mean(w, self.gvr_c_t)
-            else:
-                # the slabs' plane sums of w over the ranks
-                f[2] = cfg.velf[2] - torch.dot(self.mesh.all_reduce(
-                    torch.sum(w, dim=(1, 2))), self.gvr_c_t)
+            f[2] = cfg.velf[2] - self._bulk_mean_t(w, self.gvr_c_t)
             if not cfg.impdiff:
                 w = w + f[2]
         return f, f[:2].contiguous(), w
@@ -1497,26 +1507,48 @@ class Simulation:
         return s0 if avg == 'cavity' else _dsmag_ratio(
             s0, num, den, avg, self.dit_w_t, reduce=reduce)
 
-    def _dsmag_twopass(self, u, v, w, zq, ye):
-        """The two-pass dynamic model (cales_tpu _compute_dsmag_kernel's
-        single-device route): dsmag_level1 on the post-correction fill,
-        the filtered velocity's BC fill with the static planes
-        (sgs.f90:256-257) as edge stacks, which carry the wall-normal face
-        values, then dsmag_level2."""
+    def _dsmag_twopass(self, u, v, w, zq, ye=None):
+        """The two-pass dynamic model (cales_tpu _compute_dsmag_kernel):
+        dsmag_level1 on the post-correction fill, the filtered velocity's
+        BC fill with the static planes (sgs.f90:256-257) as edge stacks,
+        which carry the wall-normal face values, then dsmag_level2.  On a
+        slab (cales_tpu's fused_dsmag_level1 / level2 under shard_map,
+        timeloop.py:1429-1500) level1 reads two y rows a side of u, v, w
+        from the neighbours (the exchange of the one pass), the filtered
+        velocity's fill is the slab's own (z-edge stacks; with y walls its
+        y-row stacks on the sides the slab owns), level2 reads one y row a
+        side of it (one more exchange), and the z rows' sums of num and den
+        are reduced over the ranks before the ratio ('channel', 'dit'); with
+        y walls both levels take the slab's y-row stacks and the wall
+        recipes on the walls it owns."""
         cfg = self.cfg
         dxi, dyi = cfg.dli[0], cfg.dli[1]
+        yh = yown = reduce = None
+        if self.mesh is not None:
+            yh = self.mesh.halo_y(list(zip((u, v, w), zq)), depth=2)
+            reduce = self.mesh.all_reduce
+            if self.yown is not None:
+                ye = self._yslab((u, v, w), zq, ye, yh)
+                yown = self.yown
         fm, (fu, fv, fw), lij, s0 = kernels.dsmag_level1(
             u, v, w, *zq, self.dzci_t, self.dzfi_t, dxi, dyi, self.lo_wall,
-            self.hi_wall, ye=ye)
+            self.hi_wall, ye=ye, yh=yh, yown=yown)
         fze = self._zedge_vel(fu, fv, fw, self.bcu_vals, self.bcv_vals,
                               self.bcw_vals, is_correc=False)
         fye = self._yedge_vel(fu, fv, fw) if self.ywalled else None
+        fyh = None
+        if self.mesh is not None:
+            fyh = self.mesh.halo_y(list(zip((fu, fv, fw), fze)))
+            if self.yown is not None:
+                fye = self._yslab((fu, fv, fw), fze, fye, fyh)
+                fyh = None
         avg = cfg.dsmag_avg
         out = kernels.dsmag_level2(fu, fv, fw, *fze, fm, lij, s0,
                                    self.alph2_t, self.dzci_t, self.dzfi_t,
-                                   dxi, dyi, avg=avg, ye=fye)
-        return out if avg == 'cavity' else _dsmag_ratio(s0, *out, avg,
-                                                        self.dit_w_t)
+                                   dxi, dyi, avg=avg, ye=fye, yh=fyh,
+                                   yown=yown)
+        return out if avg == 'cavity' else _dsmag_ratio(
+            s0, *out, avg, self.dit_w_t, reduce=reduce)
 
     def _cn_stage(self, u, v, w, f, alpha):
         """Crank-Nicolson Helmholtz solves (main.f90:423-491): the momentum
@@ -1681,38 +1713,40 @@ class Simulation:
         ue, ve, we = zq
         pe = self._zedge_p(p)
         s, se = (visct, self._zedge_s(visct)) if self.has_sgs else (None, None)
+        # the passive scalar with the same velocity (rk_scal with the
+        # beginning-of-substep velocity, rk.f90:123-195): its stacks from
+        # its own BC table, the wall model's planes never among them
+        # (cales_tpu timeloop.py:252-258)
+        sca = scae = None
+        if self.has_scal:
+            sca = state.s
+            scae = self._zedge_scal(sca)
         ye = yh = None
         if self.ywalled:
             # the y rows of the same (post-correction) fill
             ye = (*yq, self._yedge_s(visct) if self.has_sgs else None,
                   self._yedge_p(p))
+            if self.has_scal:
+                ye = (*ye, self._yedge_scal(sca))
         if self.mesh is not None:
-            # the neighbours' rows of the same fill, one exchange
-            pairs = [(u, ue), (v, ve), (w, we), (p, pe)]
-            if self.has_sgs:
-                pairs.insert(3, (s, se))
-            h = self.mesh.halo_y(pairs)
-            yh = (*h[:3], h[3] if self.has_sgs else None, h[-1])
+            # the neighbours' rows of the same fill and of the scalar, one
+            # exchange
+            fields, edges = (u, v, w, s, p, sca), (ue, ve, we, se, pe, scae)
+            h = iter(self.mesh.halo_y([(q, e) for q, e in zip(fields, edges)
+                                       if q is not None]))
+            yh = tuple(None if q is None else next(h) for q in fields)
             if self.yown is not None:
                 # with y walls the slab's stacks, the y-walled variant
-                ye = self._yslab((u, v, w, s, p), (ue, ve, we, se, pe), ye,
-                                 yh)
+                ye = self._yslab(fields, edges, ye, yh)
                 yh = None
         # with x walls the x columns of the same fill
         xe = ((*xq, self._xedge_s(visct) if self.has_sgs else None,
                self._xedge_p(p)) if self.xwalled else None)
-        # the passive scalar with the same velocity (rk_scal with the
-        # beginning-of-substep velocity, rk.f90:123-195): its stacks from
-        # its own BC table, the wall model's planes never among them
-        # (cales_tpu timeloop.py:252-258)
         scal_kw = {}
         if self.has_scal:
-            sca = state.s
-            scal_kw = dict(sca=sca, scae=self._zedge_scal(sca),
+            scal_kw = dict(sca=sca, scae=scae,
                            rso=None if first else state.dsdt_old,
                            scal=self.scal_params)
-            if ye is not None:
-                ye = (*ye, self._yedge_scal(sca))
             if xe is not None:
                 xe = (*xe, self._xedge_scal(sca))
         outs = kernels.mom_rk(
@@ -1727,9 +1761,10 @@ class Simulation:
             s_new, dsdt = outs[8:]
             if cfg.is_sforced:
                 # the scalar's bulk forcing, weighted by gvr_f as cales_tpu
-                # weighs it (timeloop.py:2285, 2536)
+                # weighs it (timeloop.py:2285, 2536); on a mesh over the
+                # ranks
                 s_new = s_new + (cfg.scalf
-                                 - st.bulk_mean(s_new, self.gvr_f_t))
+                                 - self._bulk_mean_t(s_new, self.gvr_f_t))
             scal = dict(s=s_new, dsdt_old=dsdt)
         f, fuv, w = self._bulk_forcing((usum, vsum), w)
         alpha = 0.0

@@ -35,13 +35,17 @@ impdiff_1d, one step with 'dit'), each at 512x256x256 with its slab
 kernel variant against its twin and a small f64 case against one device,
 and the y-walled dsmag duct, cavity and smag duct (their slab variants
 timed in phase 2b on the lower and the upper wall's slab; the 'none'
-duct's small f64 case too).
+duct's small f64 case too), the wall-modelled duct and the box on the
+same mesh, and there the passive scalar (the channel LES and the dsmag
+duct with one), the two-pass dynamic Smagorinsky (the transpiring
+channel, the duct by the switch) and the 2D test filter (the dsmag
+channel and the box), their slab modes timed in phase 2b.
 
     python3 chip_smoke.py            # all phases, one card
 
 (``chip_smoke.py --sharded-rank DIR`` is one rank of the mesh phase 10,
-``--sharded-les-rank DIR`` one of phases 10i, 10w, 10d, 10y, 10yc and
-10ys, which the script starts itself under torch.distributed.run.)
+``--sharded-les-rank DIR`` one of phases 10i to 10tf, which the script
+starts itself under torch.distributed.run.)
 
 Exits non-zero without a CUDA device, or when any phase fails.  The last
 line of standard output is {"ok": true, "device": {...}}; the line before
@@ -167,7 +171,18 @@ WALLED_SLAB_ROWS = {'mom_rk (y walls, slab)': ('mom_rk', None),
 # (kernel, the mesh phase whose main path launches it)
 SLAB_MODE_ROWS = {'wallmodel (y walls, slab)': ('wallmodel', '10yw'),
                   'dsmag (periodic z, slab)': ('dsmag', '10td'),
-                  'thomas_periodic (pencil)': ('thomas_periodic', '10t')}
+                  'thomas_periodic (pencil)': ('thomas_periodic', '10t'),
+                  # the passive scalar's, the two-pass dsmag's and the 2D
+                  # filter's slab modes (phases 10s, 10b, 10yb, 10f, 10tf;
+                  # slab_twopass_rows)
+                  'mom_rk (scalar, y halo)': ('mom_rk', '10s'),
+                  'dsmag_level1 (y halo)': ('dsmag_level1', '10b'),
+                  'dsmag_level1 (y walls, slab)': ('dsmag_level1', '10yb'),
+                  'dsmag_level2 (y halo)': ('dsmag_level2', '10b'),
+                  'dsmag_level2 (y walls, slab, duct)': ('dsmag_level2',
+                                                         '10yb'),
+                  'dsmag (2D filter, slab)': ('dsmag', '10f'),
+                  'dsmag (2D filter, periodic z, slab)': ('dsmag', '10tf')}
 LES_KERNELS = ('mom_rk', 'fillps', 'correc_smag')
 # H100 SXM data-sheet rates: HBM
 # bytes/s and float32 / float64 FLOP/s outside the tensor cores
@@ -246,6 +261,11 @@ SCALAR = dict(scalar=True, pr=0.71, iniscal='zer',
               cbcscal=(('P', 'P', 'D'), ('P', 'P', 'D')),
               bcscal=((0.0, 0.0, 0.0), (0.0, 0.0, 1.0)))
 LES_SC_CFG = dict(LES_CFG, ptransform='mat', **SCALAR)
+# phase 13y's dsmag duct with a scalar: 1 at the start, 1 and 0.5 on the y
+# walls, N on the z walls, a source 0.02
+DUCT_SC_CFG = dict(DUCT_CFG, scalar=True, pr=0.71, iniscal='uni',
+                   ssource=0.02, cbcscal=(('P', 'D', 'N'), ('P', 'D', 'N')),
+                   bcscal=((0.0, 1.0, 0.0), (0.0, 0.5, 0.0)))
 # phase 4m's LES headline ('mat') on a y-slab mesh of two ranks (phase 10)
 MESH_CFG = dict(LES_CFG, ptransform='mat', dims=(2, 1), **CHAN_BCS)
 # its small f64 twin, held against the single-device 'mat' + Thomas run
@@ -1088,6 +1108,7 @@ def phase_kernels(dev, card):
     torch.cuda.empty_cache()
     rows.update(walled_slab_rows(dev, card))
     rows.update(slab_mode_rows(dev, card))
+    rows.update(slab_twopass_rows(dev, card))
     return rows
 
 
@@ -1182,14 +1203,7 @@ def walled_slab_rows(dev, card):
             res[1:] = [q.sum(dim=-1) for q in res[1:]]
         return res
 
-    def to64(x):
-        if torch.is_tensor(x):
-            return x.double() if x.is_floating_point() else x
-        if isinstance(x, (list, tuple)):
-            return type(x)(to64(q) for q in x)
-        if isinstance(x, dict):
-            return {k: to64(q) for k, q in x.items()}
-        return x
+    to64 = _to64
     say(f'phase 2b: the y-walled slab variants at (nx, ny, nz) = '
         f'{WALLED_SLAB_NG}, float32, on the lower and the upper wall\'s '
         f'slab  [{card}]')
@@ -1251,6 +1265,17 @@ def walled_slab_rows(dev, card):
         del calls
         torch.cuda.empty_cache()
     return rows
+
+
+def _to64(x):
+    """Tensors (in lists, tuples and dicts too) in float64."""
+    if torch.is_tensor(x):
+        return x.double() if x.is_floating_point() else x
+    if isinstance(x, (list, tuple)):
+        return type(x)(_to64(q) for q in x)
+    if isinstance(x, dict):
+        return {k: _to64(q) for k, q in x.items()}
+    return x
 
 
 def _rel_errs(got, ref):
@@ -1461,6 +1486,213 @@ def slab_mode_rows(dev, card):
                 rows[row]['pinned_rank'] = 1
     require(rows[row]['pinned_rank'] is not None,
             f'{row}: no rank holds the singular lane')
+    return rows
+
+
+def slab_twopass_rows(dev, card):
+    """Phase 2b's rows of the passive scalar's, the two-pass dsmag's and
+    the 2D test filter's slab modes (SLAB_MODE_ROWS, phases 10s, 10b,
+    10yb, 10f, 10tf) at the headline's slab on dims (2, 1), (nx, ny/2, nz),
+    on seeded random fields and halo rows: each float32 kernel against its
+    float32 twin (within 1e-5 of each output's maximum), and on the same
+    inputs in float64 the float64 kernel against the float64 twin (within
+    1e-12 of each output's maximum) and the float32 kernel against the
+    float64 twin (reported); timed with its twin (CUDA events), its bound
+    the bytes (each input, stack, halo and output once) or the arithmetic:
+      mom_rk's scalar variant on a slab (Y_HALO, explicit, with nu_t:
+        LES_SC_CFG's channel on the mesh), the six fields' halo rows;
+      dsmag_level1 in its YH mode on DSMAG_CFG's channel (the depth-2 halo)
+        and in its YW + YH mode on DUCT_CFG's duct (MOVING's values) on the
+        lower and the upper wall's slab;
+      dsmag_level2 in its YH mode ('channel', the filtered velocity's
+        depth-1 halo) and YW + YH mode ('duct') on level1's twin's output;
+      dsmag's F2D + YH mode on DSMAG_CFG's channel (alpha^2 2.52), and F2D
+        + ZP + YH on TRI_CFG's box."""
+    from cales_torch.config import Config
+    from cales_torch.grid import make_grid_from_config
+    from cales_torch.ops import boundary as bnd
+    from cales_torch.ops import kernels as K
+    from cales_torch.timeloop import Simulation
+    f32 = torch.float32
+    nx, ny, nz = HEADLINE_NG
+    nyl = ny // 2
+    shape = (nx, nyl, nz)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+
+    def rnd(*sz, scale=0.02):
+        return scale * torch.randn(sz, generator=gen, device=dev, dtype=f32)
+
+    def halo(depth, n=nz):
+        return (rnd(n, 2 * depth, nx), rnd(3, 2 * depth, nx))
+
+    def sim_of(kw):
+        cfg = Config(**{**kw, 'ng': shape, 'dims': (1, 1),
+                        'dtype': 'float32'})
+        return Simulation(cfg, make_grid_from_config(cfg), device=dev)
+
+    def flat(res):
+        out = []
+        for q in (res if isinstance(res, (tuple, list)) else (res,)):
+            if isinstance(q, (tuple, list)):
+                out += flat(q)
+            elif q is not None:
+                out.append(q)
+        return out
+
+    def check(row, fn, twin, a, kw, totals, work_of):
+        """The row's errors in float32 and float64, times and bound;
+        totals(list of outputs) -> their comparable form (partial sums as
+        totals); work_of() -> (bytes, operations)."""
+        got, ref = totals(flat(fn(*a, **kw))), totals(flat(twin(*a, **kw)))
+        a64, kw64 = _to64(a), _to64(kw)
+        ref64 = totals(flat(twin(*a64, **kw64)))
+        err64 = max(e[1] for e in _rel_errs(
+            totals(flat(fn(*a64, **kw64))), ref64))
+        errs = _rel_errs(got, ref)
+        rel64 = max(e[1] for e in _rel_errs(got, ref64))
+        require(all(np.isfinite(e[0]) and e[1] <= 1e-5 for e in errs),
+                f'{row}: float32 error above 1e-5 of an output maximum')
+        require(err64 <= 1e-12, f'{row}: float64 kernel {err64:.3e} from '
+                                'its twin, above 1e-12')
+        del a64, kw64, ref64
+        ms = time_ms(lambda: fn(*a, **kw))
+        plain_ms = time_ms(lambda: twin(*a, **kw), n=3)
+        nbytes, flops = work_of()
+        return _slab_row(row, errs, rel64, ms, plain_ms, nbytes, flops, f32,
+                         card, f64_vs_f64_twin=err64, shape=list(shape))
+
+    def nbytes_of(nin, nout, extra):
+        cells = nx * nyl * nz
+        return ((nin + nout) * cells * 4
+                + sum(q.numel() * q.element_size() for q in _flat(extra)))
+    cells = nx * nyl * nz
+    rows = {}
+    say(f'phase 2b: the slab modes of the passive scalar, the two-pass '
+        f'dsmag and the 2D test filter at the slab (nx, ny/2, nz) = {shape}, '
+        f'float32, against their twins in float32 and float64  [{card}]')
+    # mom_rk's scalar variant on the channel's slab
+    sim = sim_of(LES_SC_CFG)
+    u, v, w, p, ru, rv, rw, rso = (rnd(nz, nyl, nx) for _ in range(8))
+    s = rnd(nz, nyl, nx, scale=1e-3).abs()
+    sca = rnd(nz, nyl, nx, scale=0.3).abs()
+    e = [rnd(3, nyl, nx) for _ in range(4)]
+    se = rnd(3, nyl, nx, scale=1e-3).abs()
+    h = (*(halo(1) for _ in range(3)), (rnd(nz, 2, nx, scale=1e-3).abs(),
+                                        rnd(3, 2, nx, scale=1e-3).abs()),
+         halo(1), (rnd(nz, 2, nx, scale=0.3).abs(),
+                   rnd(3, 2, nx, scale=0.3).abs()))
+    cfg = sim.cfg
+    a = (u, v, w, s, p, e[0], e[1], e[2], se, e[3], ru, rv, rw, sim.dzci_t,
+         sim.dzfi_t, 0.01, -0.005, cfg.visc, cfg.dli[0], cfg.dli[1],
+         cfg.bforce)
+    kw = dict(sums=(True, False), yh=h, sca=sca, scae=sim._zedge_scal(sca),
+              rso=rso, scal=sim.scal_params)
+
+    def mom_totals(res):
+        # u, v, w, ru, rv, rw, the usum partial sums, s, ds
+        return [*res[:6], res[6].sum(dim=1), *res[7:]]
+    nin, nout, per_cell = WORK_VARIANT[('mom_rk', 'les_sc')]
+    rows['mom_rk (scalar, y halo)'] = check(
+        'mom_rk (scalar, y halo)', K.mom_rk, K.mom_rk_plain, a, kw,
+        mom_totals, lambda: (nbytes_of(nin, nout, h), per_cell * cells))
+    del sim, a, kw, u, v, w, p, ru, rv, rw, rso, s, sca, e, se, h
+    torch.cuda.empty_cache()
+    # the two passes on the channel's slab (YH)
+    sim = sim_of(DSMAG_CFG)
+    cfg = sim.cfg
+    U = [rnd(nz, nyl, nx) for _ in range(3)]
+    E = sim._zedge_vel(*U, sim.bcu_vals, sim.bcv_vals, sim.bcw_vals)
+    h2 = [halo(2) for _ in range(3)]
+    lv1 = (*U, *E, sim.dzci_t, sim.dzfi_t, cfg.dli[0], cfg.dli[1], True,
+           True)
+    nin, nout, per_cell = WORK['dsmag_level1']
+    rows['dsmag_level1 (y halo)'] = check(
+        'dsmag_level1 (y halo)', K.dsmag_level1, K.dsmag_level1_plain, lv1,
+        dict(yh=h2), lambda r: r,
+        lambda: (nbytes_of(nin, nout, h2), per_cell * cells))
+    fm, fvel, lij, s0 = K.dsmag_level1_plain(*lv1, yh=h2)
+    fze = sim._zedge_vel(*fvel, sim.bcu_vals, sim.bcv_vals, sim.bcw_vals)
+    h1 = [halo(1) for _ in range(3)]
+    lv2 = (*fvel, *fze, fm, lij, s0, sim.alph2_t, sim.dzci_t, sim.dzfi_t,
+           cfg.dli[0], cfg.dli[1])
+
+    def sum_totals(res):
+        return [q.reshape(q.shape[0], -1).sum(dim=-1) for q in res]
+    nin, nout, per_cell = WORK['dsmag_level2']
+    rows['dsmag_level2 (y halo)'] = check(
+        'dsmag_level2 (y halo)', K.dsmag_level2, K.dsmag_level2_plain, lv2,
+        dict(avg='channel', yh=h1), sum_totals,
+        lambda: (nbytes_of(nin, nout, h1), per_cell * cells))
+    del fm, fvel, lij, s0, lv2, fze, h1
+    torch.cuda.empty_cache()
+    # the 2D filter on the channel's slab, and on the box's
+    nin, nout, per_cell = WORK_VARIANT[('dsmag', 'f2d')]
+
+    def ds_totals(res):
+        return [res[0], *sum_totals(res[1:])]
+    for row, zper in (('dsmag (2D filter, slab)', False),
+                      ('dsmag (2D filter, periodic z, slab)', True)):
+        if zper:
+            bsim = sim_of({**TRI_CFG, 'sgstype': 'dsmag', 'dsmag_avg': 'dit',
+                           'filter_2d': True})
+            ds = (*U, *(torch.stack([q[-1], q[-1], q[0]]).contiguous()
+                        for q in U), bsim.alph2_t, bsim.dzci_t, bsim.dzfi_t,
+                  bsim.cfg.dli[0], bsim.cfg.dli[1], False, False,
+                  (0.0,) * 4)
+        else:
+            a2 = torch.full((nz,), 2.52, dtype=f32, device=dev)
+            ds = (*U, *E, a2, sim.dzci_t, sim.dzfi_t, cfg.dli[0], cfg.dli[1],
+                  True, True, sim.dsmag_zvals)
+        rows[row] = check(row, K.dsmag, K.dsmag_plain, ds,
+                          dict(avg='channel', zper=zper, f2d=True, yh=h2),
+                          ds_totals,
+                          lambda: (nbytes_of(nin, nout, h2),
+                                   per_cell * cells))
+    del sim, U, E, h2, lv1, ds
+    torch.cuda.empty_cache()
+    # the two passes on the duct's lower and upper wall's slab (YW + YH)
+    for own, side in (((True, False), 'lower'), ((False, True), 'upper')):
+        sim = sim_of({**DUCT_CFG, 'bcvel': MOVING})
+        cfg = sim.cfg
+        bcs = (sim.bcu_vals, sim.bcv_vals, sim.bcw_vals)
+        U = [rnd(nz, nyl, nx) for _ in range(3)]
+        E = sim._zedge_vel(*U, *bcs)
+        h2 = [halo(2) for _ in range(3)]
+        ys = [bnd.slab_ystack(q, qe, y, hh, own) for q, qe, y, hh in
+              zip(U, E, sim._yedge_vel(*U), h2)]
+        lv1 = (*U, *E, sim.dzci_t, sim.dzfi_t, cfg.dli[0], cfg.dli[1], True,
+               True)
+        kw1 = dict(ye=ys, yh=h2, yown=own)
+        fm, fvel, lij, s0 = K.dsmag_level1_plain(*lv1, **kw1)
+        fze = sim._zedge_vel(*fvel, *bcs)
+        h1 = [halo(1) for _ in range(3)]
+        fys = [bnd.slab_ystack(q, qe, y, hh, own) for q, qe, y, hh in
+               zip(fvel, fze, sim._yedge_vel(*fvel), h1)]
+        lv2 = (*fvel, *fze, fm, lij, s0, sim.alph2_t, sim.dzci_t,
+               sim.dzfi_t, cfg.dli[0], cfg.dli[1])
+        kw2 = dict(avg='duct', ye=fys, yown=own)
+        for row, fn, twin, a, kw, totals, extra, name in (
+                ('dsmag_level1 (y walls, slab)', K.dsmag_level1,
+                 K.dsmag_level1_plain, lv1, kw1, lambda r: r, (ys, h2),
+                 'dsmag_level1'),
+                ('dsmag_level2 (y walls, slab, duct)', K.dsmag_level2,
+                 K.dsmag_level2_plain, lv2, kw2,
+                 lambda r: [q.sum(dim=-1) for q in r], fys, 'dsmag_level2')):
+            nin, nout, per_cell = WORK[name]
+            r = check(f'{row} [{side} wall]', fn, twin, a, kw, totals,
+                      lambda: (nbytes_of(nin, nout, extra),
+                               per_cell * cells))
+            if own[0]:
+                rows[row] = r
+            else:
+                rows[row].update(
+                    ms_upper_wall_slab=r['ms'],
+                    plain_ms_upper_wall_slab=r['plain_ms'],
+                    **{k: max(rows[row][k], r[k]) for k in (
+                        'max_abs_err', 'max_rel_err', 'f32_vs_f64_twin',
+                        'f64_vs_f64_twin')})
+        del sim, U, E, h2, ys, lv1, kw1, fm, fvel, lij, s0, fze, h1, fys, lv2
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -2368,10 +2600,7 @@ def phase_scalar(dev, card):
     torch.cuda.empty_cache()
     sc = dict(scalar=True, pr=0.71, iniscal='uni', ssource=0.02)
     _, duct, res = drive(
-        'phase 13y: dsmag duct with a passive scalar',
-        Config(**{**DUCT_CFG, **sc,
-                  'cbcscal': (('P', 'D', 'N'), ('P', 'D', 'N')),
-                  'bcscal': ((0.0, 1.0, 0.0), (0.0, 0.5, 0.0))}),
+        'phase 13y: dsmag duct with a passive scalar', Config(**DUCT_SC_CFG),
         dev, card, 3, dict(mom_rk=3, fillps=3, apply_y=6, z_eig=3,
                            correc_updatep=3, dsmag=3), ntime=10)
     print(json.dumps({'duct_scalar': res}), flush=True)
@@ -3005,7 +3234,41 @@ MESH_CLASSES = (
     ('10td', "box LES, dynamic Smagorinsky 'dit' (triperiodic_dns with "
      'dsmag)', dict(TRI_CFG, sgstype='dsmag', dsmag_avg='dit', dims=(2, 1)),
      None, dict(mom_rk=3, fillps=3, correc_updatep=3, dsmag=3, apply_x=6,
-                apply_y=6, thomas_periodic=3), {'dsmag': 1}))
+                apply_y=6, thomas_periodic=3), {'dsmag': 1}),
+    # the passive scalar (mom_rk's scalar variant on the slab: Y_HALO, and
+    # with y walls Y_WALLS on the slab's stacks), the two passes (YH, YW +
+    # YH) and the 2D filter (F2D + YH, with ZP too): their rows are phase
+    # 2b's (slab_twopass_rows)
+    ('10s', "channel LES with a passive scalar (phase 13's LES_SC_CFG)",
+     dict(LES_SC_CFG, dims=(2, 1)), None,
+     dict(mom_rk=3, fillps=3, correc_updatep=3, smag=3, apply_x=6,
+          apply_y=6, thomas_z=3), {}),
+    ('10ysc', "dsmag duct with a passive scalar (phase 13y's)",
+     dict(DUCT_SC_CFG, dims=(2, 1)), None,
+     dict(mom_rk=3, fillps=3, correc_updatep=3, dsmag=3, apply_x=6,
+          apply_y=6, thomas_z=3), {'dsmag': 1}),
+    ('10b', 'transpiring dsmag channel (dsmag_blow), two passes',
+     dict(DSMAG_BLOW_CFG, dims=(2, 1)), None,
+     dict(mom_rk=3, fillps=3, correc_updatep=3, dsmag_level1=3,
+          dsmag_level2=3, apply_x=6, apply_y=6, thomas_z=12),
+     {'dsmag_level1': 1, 'dsmag_level2': 1}),
+    ('10yb', "dsmag duct by two passes ('duct', CALES_DSMAG_TWOPASS=1)",
+     dict(DUCT_CFG, dims=(2, 1)), None,
+     dict(mom_rk=3, fillps=3, correc_updatep=3, dsmag_level1=3,
+          dsmag_level2=3, apply_x=6, apply_y=6, thomas_z=3),
+     {'dsmag_level1': 1, 'dsmag_level2': 1}),
+    ('10f', "dsmag channel with the 2D test filter ('channel', impdiff_1d)",
+     dict(DSMAG_CFG, filter_2d=True, dims=(2, 1)), None,
+     dict(mom_rk=3, fillps=3, correc_updatep=3, dsmag=3, apply_x=6,
+          apply_y=6, thomas_z=12), {'dsmag': 1}),
+    ('10tf', "box LES, dsmag 'dit' with the 2D test filter",
+     dict(TRI_CFG, sgstype='dsmag', dsmag_avg='dit', filter_2d=True,
+          dims=(2, 1)), None,
+     dict(mom_rk=3, fillps=3, correc_updatep=3, dsmag=3, apply_x=6,
+          apply_y=6, thomas_periodic=3), {'dsmag': 1}))
+# the classes that run under CALES_DSMAG_TWOPASS=1 (twopass), their small
+# twin and its one-device reference too: the duct by two passes
+MESH_TWOPASS = ('10yb',)
 # report row -> kernel
 MESH_LES_ROWS = {'mom_rk (y halo, split 1d)': 'mom_rk',
                  'wallmodel (y halo)': 'wallmodel', 'dsmag (y halo)': 'dsmag'}
@@ -3021,6 +3284,23 @@ WALLED_SLAB_PHASE = {'mom_rk (y walls, slab)': '10y',
                      'smag (y walls, slab)': '10ys',
                      'dsmag (y walls, slab, duct)': '10y',
                      'dsmag (y walls, slab, cavity)': '10yc'}
+
+
+def _mesh_env(key):
+    """twopass() for a class of MESH_TWOPASS."""
+    return twopass() if key in MESH_TWOPASS else contextlib.nullcontext()
+
+
+def _scalar_range(cfg, time):
+    """The bounds a passive scalar keeps: its start and the values of its
+    'D' faces, the upper one raised by ssource * time; None without a
+    scalar."""
+    if not cfg.scalar:
+        return None
+    vals = [1.0 if cfg.iniscal == 'uni' else 0.0] + [
+        float(cfg.bcscal[ib][d]) for ib in range(2) for d in range(3)
+        if cfg.cbcscal[ib][d] == 'D']
+    return min(vals), max(vals) + max(cfg.ssource, 0.0) * time
 
 
 def _outside(outside, cfg, nsteps):
@@ -3042,7 +3322,9 @@ def _small(kw):
 
 def _mesh_gates(sim, state, mesh):
     """The PERF.md section 2 gates on the slabs, reduced over the ranks:
-    (finite, divmax, bulk u, nu_t min and max, max |w| on the z walls
+    (finite (the passive scalar too), divmax, bulk u, nu_t min and max,
+    with a scalar its minimum and maximum and the time, max |w - its
+    value| on the z walls
     (None with periodic z), max |v| on the y walls (each on its owner: the
     kept lower face, the upper face's row), v on the upper z face against
     its value b, the fill's mean of the last row and the ghost, where that
@@ -3063,10 +3345,18 @@ def _mesh_gates(sim, state, mesh):
                                  'max')
     w_walls = None
     if sim.cbcvel[0][2][2] == 'D':
+        # against the faces' values (w through a transpiring wall)
+        blo, bhi = sim.bcw_vals[2]
         w_walls = mesh.reduce_scalar(max(
-            float(state.vlo[2][1:-1, 1:-1].abs().max()),
-            float(state.w[-1].abs().max())), 'max')
-    return dict(
+            float((state.vlo[2][1:-1, 1:-1] - blo).abs().max()),
+            float((state.w[-1] - bhi).abs().max())), 'max')
+    scal = {}
+    if state.s is not None:
+        fields += (state.s,)
+        scal = dict(s_min=mesh.reduce_scalar(float(state.s.min()), 'min'),
+                    s_max=mesh.reduce_scalar(float(state.s.max()), 'max'),
+                    time=state.time)
+    return dict(**scal,
         energy=mesh.reduce_scalar(
             0.5 * float(sum((q.double() ** 2).sum()
                             for q in (state.u, state.v, state.w))), 'sum'),
@@ -3200,7 +3490,8 @@ def _mesh_small(key, kw, mesh, dev, out_dir):
     for _ in range(3):
         st, _ = sim.step(st, dt)
     small = {q: m64.gather(getattr(st, q))
-             for q in ('u', 'v', 'w', 'p', 'visct')}
+             for q in ('u', 'v', 'w', 'p', 'visct')
+             + (('s',) if st.s is not None else ())}
     w2 = [q.cpu().numpy()
           for q in m64.comm.all_gather(st.vlo[2].contiguous())]
     small['vlo2'] = np.concatenate([w2[0][:1]] + [q[1:-1] for q in w2]
@@ -3224,15 +3515,16 @@ def sharded_les_rank(out_dir):
 
 
 def sharded_les_rank_body(out_dir):
-    """One rank of phases 10i, 10w, 10d, 10y, 10yc, 10ys, 10yw, 10t, 10tl
-    and 10td (started under
+    """One rank of phases 10i, 10w, 10d, 10y, 10yc, 10ys, 10yw, 10t, 10tl,
+    10td, 10s, 10ysc, 10b, 10yb, 10f and 10tf (started under
     torch.distributed.run, two ranks on the one card over gloo, staged
     through pinned host buffers): each class at the headline grid through
     driver.run with every launch count set to 0 just before and read just
     after, its gates, its ms/step, its slab variant against its twin (the
     channel classes'), and its small f64 twin, whose gathered fields rank
     0 writes for the parent; 10d also takes one step with 'dit', and the
-    'none' duct runs its small twin only."""
+    'none' duct runs its small twin only; the classes of MESH_TWOPASS
+    under CALES_DSMAG_TWOPASS=1."""
     from cales_torch import driver
     from cales_torch.config import Config
     from cales_torch.parallel import mesh as meshmod
@@ -3247,54 +3539,55 @@ def sharded_les_rank_body(out_dir):
     runs += [(key, kw) for key, _, kw in MESH_SMALL_ONLY]
     small_only = {key for key, *_ in MESH_SMALL_ONLY}
     for key, kw in runs:
-        if key in small_only:
-            _mesh_small(key, kw, mesh, dev, out_dir)
-            continue
-        cfg = Config(**kw)
-        m = meshmod.SlabMesh(mesh.comm, cfg.dims, cfg.ng)
-        nsteps = 1 if key == '10d dit' else MESH_LES_STEPS
-        torch.cuda.reset_peak_memory_stats(dev)
-        reset_counts()
-        t0 = time.perf_counter()
-        sim, state = driver.run(cfg, datadir=out_dir / key.replace(' ', '_'),
-                                device=dev, mesh=m, max_steps=nsteps,
-                                verbose=False)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        r = {'launches': counts(), 'steps': nsteps, 'wall_s': wall}
-        if rank == 0:
-            say(f'  phase {key} path: {sim.exec_path()}')
-        dt = sim.pick_dt(sim.check(state)[0])
-        ntime = 0 if key == '10d dit' else 2
-        energy0 = _mesh_gates(sim, state, m)['energy']
-        torch.cuda.synchronize()
-        m.barrier()
-        t0 = time.perf_counter()
-        for _ in range(ntime):
-            state, _ = sim.step(state, dt)
-        torch.cuda.synchronize()
-        m.barrier()
-        r['ms_per_step'] = ((time.perf_counter() - t0) * 1e3 / ntime
-                            if ntime else None)
-        r.update(_mesh_gates(sim, state, m))
-        r['energy_before'] = energy0
-        r['peak_gib'] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
-        if sim.has_wm:
-            planes = sim._wm_planes(state.u, state.v, state.w)
-            r['wm_finite'] = m.reduce_scalar(
-                float(all(bool(torch.isfinite(q).all()) for q in planes)),
-                'min')
-        if key == '10d dit':
-            res[key] = r
+        with _mesh_env(key):
+            if key in small_only:
+                _mesh_small(key, kw, mesh, dev, out_dir)
+                continue
+            cfg = Config(**kw)
+            m = meshmod.SlabMesh(mesh.comm, cfg.dims, cfg.ng)
+            nsteps = 1 if key == '10d dit' else MESH_LES_STEPS
+            torch.cuda.reset_peak_memory_stats(dev)
+            reset_counts()
+            t0 = time.perf_counter()
+            sim, state = driver.run(
+                cfg, datadir=out_dir / key.replace(' ', '_'), device=dev,
+                mesh=m, max_steps=nsteps, verbose=False)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            r = {'launches': counts(), 'steps': nsteps, 'wall_s': wall}
+            if rank == 0:
+                say(f'  phase {key} path: {sim.exec_path()}')
+            dt = sim.pick_dt(sim.check(state)[0])
+            ntime = 0 if key == '10d dit' else 2
+            energy0 = _mesh_gates(sim, state, m)['energy']
+            torch.cuda.synchronize()
+            m.barrier()
+            t0 = time.perf_counter()
+            for _ in range(ntime):
+                state, _ = sim.step(state, dt)
+            torch.cuda.synchronize()
+            m.barrier()
+            r['ms_per_step'] = ((time.perf_counter() - t0) * 1e3 / ntime
+                                if ntime else None)
+            r.update(_mesh_gates(sim, state, m))
+            r['energy_before'] = energy0
+            r['peak_gib'] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+            if sim.has_wm:
+                planes = sim._wm_planes(state.u, state.v, state.w)
+                r['wm_finite'] = m.reduce_scalar(
+                    float(all(bool(torch.isfinite(q).all()) for q in planes)),
+                    'min')
+            if key == '10d dit':
+                res[key] = r
+                del sim, state
+                continue
+            row = [c[3] for c in MESH_CLASSES if c[0] == key][0]
+            if row is not None:
+                r['halo_rows'] = _mesh_les_row(row, sim, state, m, dt, card)
             del sim, state
-            continue
-        row = [c[3] for c in MESH_CLASSES if c[0] == key][0]
-        if row is not None:
-            r['halo_rows'] = _mesh_les_row(row, sim, state, m, dt, card)
-        del sim, state
-        torch.cuda.empty_cache()
-        _mesh_small(key, kw, mesh, dev, out_dir)
-        res[key] = r
+            torch.cuda.empty_cache()
+            _mesh_small(key, kw, mesh, dev, out_dir)
+            res[key] = r
     (out_dir / f'rank{rank}.json').write_text(json.dumps(res))
     mesh.barrier()
     torch.distributed.destroy_process_group()
@@ -3316,8 +3609,9 @@ def _small_vs_one_device(tag, kw, small, dev, ywalled):
         st, _ = sim.step(st, float(small['dt']))
     say(f'  {tag}: gy = 2 against one device, {cfg1.ng} float64, 3 '
         f'steps, on the card:')
-    names = ('u', 'v', 'w', 'p', 'visct') + (('vlo1', 'vlo2') if ywalled
-                                              else ())
+    names = (('u', 'v', 'w', 'p', 'visct')
+             + (('s',) if cfg1.scalar else ())
+             + (('vlo1', 'vlo2') if ywalled else ()))
     out = {}
     for name in names:
         ref = (st.vlo[int(name[-1])] if name.startswith('vlo')
@@ -3339,7 +3633,12 @@ def phase_sharded_les(dev, card):
     ('duct'), dsmag cavity ('cavity', the lid on v) and static-Smagorinsky
     duct; 10yw: the wall-modelled duct (the wall model on its four walls);
     10t, 10tl and 10td: the triperiodic box as DNS, with static
-    Smagorinsky and with dsmag 'dit'; on a y-slab mesh, dims = (2, 1), two
+    Smagorinsky and with dsmag 'dit'; 10s and 10ysc: the channel LES and
+    the dsmag duct with a passive scalar (its range gated: within its
+    start's and walls' values); 10b and 10yb: the two-pass dsmag on the
+    transpiring channel (dsmag_blow) and on the duct under
+    CALES_DSMAG_TWOPASS=1; 10f and 10tf: the 2D test filter on the dsmag
+    channel and on the box with 'dit'; on a y-slab mesh, dims = (2, 1), two
     ranks sharing the one card over gloo staged through the host (as phase
     10: its ms/step is a correctness run's, no scaling figure), each at
     512x256x256 f32 with the PERF.md section 2 gates (with y walls v on
@@ -3354,10 +3653,10 @@ def phase_sharded_les(dev, card):
     torch.cuda.empty_cache()
     env = dict(os.environ)
     env.setdefault('GLOO_SOCKET_IFNAME', 'lo')
-    say(f'phases 10i, 10w, 10d, 10y, 10yc, 10ys, 10yw, 10t, 10tl, 10td: '
-        f'the channel, duct, cavity and box classes on a y-slab mesh, dims (2, 1), {HEADLINE_NG} '
-        f'float32, two ranks on one card (gloo, staged through the host)  '
-        f'[{card}]')
+    say(f'phases 10i, 10w, 10d, 10y, 10yc, 10ys, 10yw, 10t, 10tl, 10td, '
+        f'10s, 10ysc, 10b, 10yb, 10f, 10tf: the channel, duct, cavity and '
+        f'box classes on a y-slab mesh, dims (2, 1), {HEADLINE_NG} float32, '
+        f'two ranks on one card (gloo, staged through the host)  [{card}]')
     with tempfile.TemporaryDirectory() as tmp:
         cmd = [sys.executable, '-m', 'torch.distributed.run', '--standalone',
                '--nproc_per_node', '2', str(ROOT / 'chip_smoke.py'),
@@ -3371,7 +3670,7 @@ def phase_sharded_les(dev, card):
             say(f'  | {line}')
         errs = ''.join(f'rank {r}:\n{q.read_text()}' for r in range(2)
                        for q in [Path(tmp) / f'rank{r}.err'] if q.exists())
-        require(res.returncode == 0, f'a rank of phases 10i-10td failed:\n'
+        require(res.returncode == 0, f'a rank of phases 10i-10tf failed:\n'
                                      f'{errs or res.stderr[-4000:]}')
         ranks = [json.loads((Path(tmp) / f'rank{r}.json').read_text())
                  for r in range(2)]
@@ -3409,7 +3708,7 @@ def phase_sharded_les(dev, card):
             f'bulk u {r0["bulk_u"]:.7f}, nu_t in [{r0["nu_t_min"]:.4e}, '
             f'{r0["nu_t_max"]:.4e}], '
             + ('' if r0['w_walls'] is None else
-               f'max |w| on the z walls {r0["w_walls"]:.3e}, ')
+               f'max |w - its value| on the z walls {r0["w_walls"]:.3e}, ')
             + f'max |v| on the y walls {r0["v_ywalls"]:.3e}, kinetic '
             f'energy {r0["energy_before"]:.6e} -> {r0["energy"]:.6e} over '
             f'the 2 timed steps'
@@ -3436,7 +3735,8 @@ def phase_sharded_les(dev, card):
                 f'{tag}: nu_t max {r0["nu_t_max"]}')
         if r0['w_walls'] is not None:
             require(r0['w_walls'] <= 1e-6, f'{tag}: w on the walls '
-                                           f'{r0["w_walls"]:.3e}')
+                                           f'{r0["w_walls"]:.3e} from its '
+                                           'value')
         if cfg.cbc_vel(2, 0) == 'PP' and r0['ms_per_step'] is not None:
             # the box: no forcing, the energy decays
             require(r0['energy'] < r0['energy_before'],
@@ -3445,15 +3745,30 @@ def phase_sharded_les(dev, card):
         if 'wm_finite' in r0:
             require(r0['wm_finite'] == 1.0, f'{tag}: non-finite wall-model '
                                             'planes')
+        bounds = _scalar_range(cfg, r0.get('time', 0.0))
+        if bounds is not None:
+            # within its start's and walls' values, to 1e-2 of their range:
+            # the central scheme is not bounded (phase 13 reads s down to
+            # -4.8e-5 after 11 steps; the duct's at 32x16x16 and dt 0.13
+            # overshoots its start by 0.064)
+            lo, hi = bounds
+            slack = 1e-2 * max(hi - lo, 1.0)
+            say(f'  s in [{r0["s_min"]:.6e}, {r0["s_max"]:.6e}] at t = '
+                f'{r0["time"]:.6e} (bounds [{lo:.4f}, {hi:.6f}])  [{card}]')
+            require(lo - slack <= r0['s_min'] and r0['s_max'] <= hi + slack,
+                    f'{tag}: s in [{r0["s_min"]:.6e}, {r0["s_max"]:.6e}], '
+                    f'outside [{lo}, {hi}]')
         report[key] = {k: r0[k] for k in ('ms_per_step', 'divmax', 'bulk_u',
                                            'nu_t_min', 'nu_t_max',
                                            'w_walls', 'v_ywalls',
                                            'v_lid', 'energy_before',
-                                           'energy')} | {'card': card}
+                                           'energy', 's_min', 's_max')
+                       if k in r0} | {'card': card}
         rows.update(r0.get('halo_rows', {}))
         if key in smalls:
-            report[key].update(_small_vs_one_device(tag, kw, smalls[key],
-                                                    dev, ywalled))
+            with _mesh_env(key):
+                report[key].update(_small_vs_one_device(
+                    tag, kw, smalls[key], dev, ywalled))
     for key, title, kw in MESH_SMALL_ONLY:
         report[key] = _small_vs_one_device(f'phase {key}: {title}', kw,
                                            smalls[key], dev, True)

@@ -4,13 +4,15 @@
 
 Starts a gloo process group on a ``file://`` store in <workdir>, reads the
 cases of <workdir>/cases.json with their inputs in <workdir>/in.npz, runs
-them on this rank's slabs on the CPU (the kernels' plain twins) and, on
+them (each with the environment variables of its 'env', if any) on this
+rank's slabs on the CPU (the kernels' plain twins) and, on
 rank 0, writes what the test compares to <workdir>/out.npz.  It imports
 torch and cales_torch only: the JAX references stay in the test process.
 """
 from __future__ import annotations
 
 import json
+import os
 import sys
 import types
 from pathlib import Path
@@ -69,7 +71,8 @@ def _config(kw):
     for name in ('l', 'ng', 'is_forced', 'velf', 'dims', 'stop_type'):
         if name in kw:
             kw[name] = tuple(kw[name])
-    for name in ('cbcvel', 'cbcpre', 'cbcsgs', 'bcvel', 'lwm'):
+    for name in ('cbcvel', 'cbcpre', 'cbcsgs', 'bcvel', 'lwm', 'cbcscal',
+                 'bcscal'):
         if name in kw:
             kw[name] = json_tuple(kw[name])
     return Config(**kw)
@@ -93,7 +96,8 @@ def case_solve(m, inp, out, key, kw):
 
 def case_steps(m, inp, out, key, kw, nsteps):
     """nsteps steps of the Simulation on the slabs from global fields,
-    then the sharded checkpoint written and read back."""
+    then the sharded checkpoint written and read back (and with a passive
+    scalar its scal.bin sidecar written slab by slab)."""
     from cales_torch.grid import make_grid_from_config
     from cales_torch.io import sharded
     from cales_torch.timeloop import Simulation
@@ -105,6 +109,11 @@ def case_steps(m, inp, out, key, kw, nsteps):
         st, _ = sim.step(st, dt)
     for name in ('u', 'v', 'w', 'p', 'visct'):
         out[f'{key}.{name}'] = m.gather(getattr(st, name))
+    if st.s is not None:
+        out[f'{key}.s'] = m.gather(st.s)
+        sharded.save_checkpoint_sharded(
+            Path(inp['workdir'].item()) / f'{key}.scal.bin', (st.s,), m,
+            st.time, st.istep)
     # the kept wall planes: v's lower y face from rank 0 (the lower y
     # wall's owner), w's lower z face over the slabs' rows, its y ghost
     # rows from the ranks that own the y walls
@@ -168,6 +177,31 @@ def case_driver(m, out, key, kw, datadir):
         [int(q) for q in m.comm.all_gather(torch.tensor([st.istep]))])
 
 
+def case_scal_restart(m, out, key, kw, datadir):
+    """driver.run on the slabs with a passive scalar to nstep, its last
+    step saved (fld.bin and the scal.bin sidecar, slab by slab), then a
+    restart from those files for one step more: the gathered scalar after
+    the first run, its time, and u and s after the restart go to the
+    parent."""
+    import shutil
+    from cales_torch import driver
+    cfg = _config(kw)
+    first, again = datadir / 'first', datadir / 'restart'
+    _, st = driver.run(cfg, datadir=first, device='cpu', verbose=False,
+                       mesh=m)
+    out[f'{key}.s1'] = m.gather(st.s)
+    out[f'{key}.t1'] = np.array(st.time)
+    if m.rank == 0:
+        again.mkdir()
+        for name in ('fld.bin', 'scal.bin'):
+            shutil.copy(first / name, again / name)
+    m.barrier()
+    _, st = driver.run(cfg.replace(restart=True, nstep=cfg.nstep + 1),
+                       datadir=again, device='cpu', verbose=False, mesh=m)
+    for name in ('u', 's'):
+        out[f'{key}.{name}2'] = m.gather(getattr(st, name))
+
+
 def main(work, rank, world):
     work = Path(work)
     make = _mesh(work, rank, world)
@@ -176,6 +210,9 @@ def main(work, rank, world):
     inp['workdir'] = np.array(str(work))
     out = {}
     for case in cases:
+        # a case's environment (CALES_DSMAG_TWOPASS) for its run only
+        saved = {k: os.environ.get(k) for k in case.get('env', {})}
+        os.environ.update(case.get('env', {}))
         m = make(tuple(case['ng']))
         kind = case['kind']
         if kind == 'comm':
@@ -189,9 +226,17 @@ def main(work, rank, world):
         elif kind == 'driver':
             case_driver(m, out, case['key'], case['cfg'],
                         work / case['key'])
+        elif kind == 'scal_restart':
+            case_scal_restart(m, out, case['key'], case['cfg'],
+                              work / case['key'])
         else:
             case_steps(m, inp, out, case['key'], case['cfg'],
                        case['nsteps'])
+        for k, val in saved.items():
+            if val is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = val
     if rank == 0:
         np.savez(work / 'out.npz', **out)
     torch.distributed.destroy_process_group()

@@ -5,7 +5,8 @@ LES with impdiff_1d, the y-walled duct and cavity, the two-pass dynamic
 Smagorinsky, the triperiodic Taylor-Green
 vortex and full-3D implicit diffusion, the wall-modelled channel LES, the
 x-walled LES: the developing channel, duct and wall-modelled channel, the
-passive scalar: mom_rk's scalar variant with z, y, x and x and y walls)
+passive scalar: mom_rk's scalar variant with z, y, x and x and y walls,
+the slab modes of the y-slab mesh)
 on the card against the same slices on the CPU, step for step, fp64.
 
 These tests need an NVIDIA GPU and skip without one.  The file imports
@@ -2420,3 +2421,173 @@ def test_cuda_thomas_periodic_on_the_pencil(dev, dtype, gy):
             for j, i in lane:
                 assert float(got[-1, j, i]) == 0.0
     assert sum(pinned) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('split', [None, '1d'])
+@pytest.mark.parametrize('dtype, shape', [
+    ('float64', (40, 13, 9)), ('float64', (36, 2, 12)),
+    ('float32', (40, 21, 9)), ('float32', (33, 2, 12))])
+def test_cuda_slab_scalar_and_2d_filter_match_twins(dev, dtype, shape,
+                                                    split):
+    """The periodic slab of the y-slab mesh (random halos) on (nx, nyl, nz)
+    shapes no tile fits and slabs of 2 rows: mom_rk's scalar variant with
+    the halos (Y_HALO, the scalar's halo pair the sixth; explicit and
+    '1d', with and without nu_t), dsmag_level1's YH mode (the depth-2
+    halo), dsmag_level2's YH mode (the filtered velocity's depth-1 halo,
+    'channel' sums) and dsmag's 2D filter on the slab (F2D + YH, with ZP
+    too), each against its twin: float64 within 1e-12 of each output's
+    maximum, float32 within 1e-5."""
+    nx, ny, nz = shape
+    dt = getattr(torch, dtype)
+    tol = 1e-12 if dt == torch.float64 else 1e-5
+    rng = np.random.default_rng(41)
+
+    def c(q):
+        return q.to(dt).contiguous()
+
+    def r(*s, scale=0.1):
+        return c(torch.as_tensor(scale * rng.standard_normal(s), device=dev))
+    d = _sgs_inputs(dev, shape, 42)
+    fields, edges = [c(q) for q in d['fields']], [c(e) for e in d['edges']]
+    dzci, dzfi = c(d['dzci']), c(d['dzfi'])
+    H = lambda depth: (r(nz, 2 * depth, nx), r(3, 2 * depth, nx))  # noqa
+    K.reset_launches()
+    # mom_rk with the scalar on the slab
+    s = r(nz, ny, nx).abs()
+    sca, rso = r(nz, ny, nx, scale=1.0), r(nz, ny, nx)
+    h1 = tuple(H(1) for _ in range(6))
+    for sgs in (True, False):
+        mom = (*fields, s if sgs else None, r(nz, ny, nx), *edges,
+               r(3, ny, nx) if sgs else None, r(3, ny, nx),
+               *(r(nz, ny, nx) for _ in range(3)), dzci, dzfi, 5e-4, -2e-4,
+               d['visc'], d['dxi'], d['dyi'], (0.1, 0.0, 0.0))
+        h = h1 if sgs else (*h1[:3], None, *h1[4:])
+        # the scalar's z-edge stack: its row 1 the interior's last row, as
+        # a cell-centred field's (the kernel reads it there, the twin's
+        # update the interior)
+        scae = torch.stack([r(ny, nx, scale=1.0), sca[-1],
+                            r(ny, nx, scale=1.0)])
+        sc = dict(sca=sca, scae=scae, rso=rso, scal=(2e-4, 0.05))
+        got = K.mom_rk(*mom, sums=(True, False), split=split, yh=h, **sc)
+        ref = K.mom_rk_plain(*mom, sums=(True, False), split=split, yh=h,
+                             **sc)
+        for g, q in zip((*got[:6], *got[8:]), (*ref[:6], *ref[8:])):
+            _rel_close(g, q, tol)
+        _rel_close(got[6].sum(1), ref[6][:, 0], tol)
+    # the two passes on the slab
+    h2 = [H(2) for _ in range(3)]
+    lv1 = (*fields, *edges, dzci, dzfi, d['dxi'], d['dyi'], True, True)
+    got = K.dsmag_level1(*lv1, yh=h2)
+    ref = K.dsmag_level1_plain(*lv1, yh=h2)
+    for g, q in zip((*got[0], *got[1], *got[2], got[3]),
+                    (*ref[0], *ref[1], *ref[2], ref[3])):
+        _rel_close(g, q, tol)
+    fm, fvel, lij, s0 = ref
+    fe = [r(3, ny, nx) for _ in range(3)]
+    lv2 = (*fvel, *fe, fm, lij, s0, c(d['alph2']), dzci, dzfi, d['dxi'],
+           d['dyi'])
+    fh = [H(1) for _ in range(3)]
+    num, den = K.dsmag_level2(*lv2, avg='channel', yh=fh)
+    numr, denr = K.dsmag_level2_plain(*lv2, avg='channel', yh=fh)
+    _rel_close(num.sum(-1), numr[..., 0], tol)
+    _rel_close(den.sum(-1), denr[..., 0], tol)
+    # the 2D filter on the slab, with z walls and with periodic z
+    for zper in (False, True):
+        a2 = torch.full((nz,), 2.52, dtype=dt, device=dev)
+        ds = (*fields, *edges, a2, dzci, dzfi, d['dxi'], d['dyi'],
+              not zper, not zper, (0.0, 0.4, 0.0, -0.3))
+        got = K.dsmag(*ds, avg='channel', zper=zper, f2d=True, yh=h2)
+        ref = K.dsmag_plain(*ds, avg='channel', zper=zper, f2d=True, yh=h2)
+        _rel_close(got[0], ref[0], tol)
+        for g, q in zip(got[1:], ref[1:]):
+            _rel_close(g.sum(-1), q[..., 0], tol)
+    torch.cuda.synchronize()
+    assert (K.LAUNCHES['mom_rk'], K.LAUNCHES['dsmag_level1'],
+            K.LAUNCHES['dsmag_level2'], K.LAUNCHES['dsmag']) == (2, 1, 1, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('own', [(True, False), (False, False),
+                                 (False, True)])
+@pytest.mark.parametrize('dtype, shape', [
+    ('float64', (40, 12, 12)), ('float32', (72, 19, 17)),
+    ('float64', (36, 2, 10))])
+def test_cuda_walled_slab_scalar_and_twopass_match_twins(dev, dtype, shape,
+                                                         own):
+    """The y-walled slab of the y-slab mesh (its y-row stacks from
+    boundary.slab_ystack: the wall recipe's rows on the side it owns,
+    random halo rows elsewhere), on the lower, a middle and the upper slab
+    of shapes no tile fits and of 2 rows: mom_rk's y-walled scalar variant
+    on the slab's stacks (the scalar's from its own recipe), and the two
+    passes' YW + YH modes, dsmag_level1 (the depth-2 halo, the wall
+    recipes on the owned sides) and dsmag_level2 ('duct', 'cavity',
+    'channel'; alpha^2 2.52 on the owned walls' rows), each against its
+    twin: float64 within 1e-12 of each output's maximum, float32 within
+    1e-5."""
+    from cales_torch.ops import boundary as bnd
+    nx, ny, nz = shape
+    dt = getattr(torch, dtype)
+    tol = 1e-12 if dt == torch.float64 else 1e-5
+    cfg = Config(ng=shape, l=(4 * np.pi, 2.0, 2.0), gtype=1, gr=1.0,
+                 visci=10_000.0, sgstype='dsmag', dsmag_avg='duct',
+                 dtype=dtype, ptransform='mat', scalar=True, pr=0.71,
+                 cbcscal=(('P', 'D', 'N'), ('P', 'D', 'N')),
+                 bcscal=((0.0, 1.0, 0.0), (0.0, 0.5, 0.0)), **_DUCT_BCS)
+    sim = Simulation(cfg, make_grid_from_config(cfg), device=dev)
+    rng = np.random.default_rng(43)
+
+    def r(*s, scale=0.05):
+        return torch.as_tensor(scale * rng.standard_normal(s), device=dev,
+                               dtype=dt)
+    u, v, w, p, ru, rv, rw, rso = (r(nz, ny, nx) for _ in range(8))
+    s = r(nz, ny, nx, scale=1e-3).abs()
+    sca = 0.5 + r(nz, ny, nx, scale=0.2)
+    bcs = (sim.bcu_vals, sim.bcv_vals, sim.bcw_vals)
+    ue, ve, we = sim._zedge_vel(u, v, w, *bcs)
+    se, pe, sce = sim._zedge_s(s), sim._zedge_p(p), sim._zedge_scal(sca)
+
+    def slab(fields, edges, walls, depth=1):
+        h = [(r(nz, 2 * depth, nx), r(3, 2 * depth, nx)) for _ in fields]
+        return [bnd.slab_ystack(q, e, y, hh, own)
+                for q, e, y, hh in zip(fields, edges, walls, h)], h
+    K.reset_launches()
+    ymom, _ = slab((u, v, w, s, p, sca), (ue, ve, we, se, pe, sce),
+                   (*sim._yedge_vel(u, v, w), sim._yedge_s(s),
+                    sim._yedge_p(p), sim._yedge_scal(sca)))
+    mom = (u, v, w, s, p, ue, ve, we, se, pe, ru, rv, rw, sim.dzci_t,
+           sim.dzfi_t, 5e-4, -2e-4, cfg.visc, cfg.dli[0], cfg.dli[1],
+           (0.1, 0.0, 0.0))
+    sc = dict(sca=sca, scae=sce, rso=rso, scal=sim.scal_params)
+    got = K.mom_rk(*mom, sums=(True, False), ye=ymom, **sc)
+    ref = K.mom_rk_plain(*mom, sums=(True, False), ye=ymom, **sc)
+    for g, q in zip((*got[:6], *got[8:]), (*ref[:6], *ref[8:])):
+        _rel_close(g, q, tol)
+    yds, h2 = slab((u, v, w), (ue, ve, we), sim._yedge_vel(u, v, w),
+                   depth=2)
+    lv1 = (u, v, w, ue, ve, we, sim.dzci_t, sim.dzfi_t, cfg.dli[0],
+           cfg.dli[1], True, True)
+    got = K.dsmag_level1(*lv1, ye=yds, yh=h2, yown=own)
+    ref = K.dsmag_level1_plain(*lv1, ye=yds, yh=h2, yown=own)
+    for g, q in zip((*got[0], *got[1], *got[2], got[3]),
+                    (*ref[0], *ref[1], *ref[2], ref[3])):
+        _rel_close(g, q, tol)
+    fm, fvel, lij, s0 = ref
+    fze = sim._zedge_vel(*fvel, *bcs)
+    fye, _ = slab(fvel, fze, sim._yedge_vel(*fvel))
+    alph2 = torch.full((nz,), 4.0, dtype=dt, device=dev)
+    alph2[0] = alph2[-1] = 2.52
+    lv2 = (*fvel, *fze, fm, lij, s0, alph2, sim.dzci_t, sim.dzfi_t,
+           cfg.dli[0], cfg.dli[1])
+    for avg in ('duct', 'cavity', 'channel'):
+        got = K.dsmag_level2(*lv2, avg=avg, ye=fye, yown=own)
+        ref = K.dsmag_level2_plain(*lv2, avg=avg, ye=fye, yown=own)
+        if avg == 'cavity':
+            _rel_close(got, ref, tol)
+            continue
+        for g, q in zip(got, ref):
+            _rel_close(g.sum(-1), q.reshape(q.shape[0], -1).sum(-1)
+                       if avg == 'channel' else q[..., 0], tol)
+    torch.cuda.synchronize()
+    assert (K.LAUNCHES['mom_rk'], K.LAUNCHES['dsmag_level1'],
+            K.LAUNCHES['dsmag_level2']) == (1, 1, 3)

@@ -14,8 +14,8 @@
     discrete rate (tests/test_timeloop.py:131's test_scalar_transport);
   * unsupported() accepts the scalar on every single-device route of the
     slice (the example namelists and bench.py's classes with scalar=True)
-    and refuses it on a mesh and where it is not periodic along a
-    periodic velocity, naming the ROADMAP item."""
+    and refuses it where it is not periodic along a periodic velocity, on
+    one device and on the y-slab mesh, naming the ROADMAP item."""
 import dataclasses
 from pathlib import Path
 
@@ -311,8 +311,9 @@ def test_unsupported_accepts_the_scalar_on_every_route(name):
 
 
 @pytest.mark.parametrize('change, item', [
-    (dict(dims=(2, 1)), 'passive scalar on a mesh: ROADMAP queue 1, '
-                        'multi-device'),
+    # on the y-slab mesh the scalar takes the letters one device admits
+    (dict(dims=(2, 1), cbcscal=(('P', 'N', 'N'), ('P', 'N', 'N'))),
+     'a non-periodic scalar along y, where the velocity is periodic'),
     (dict(cbcscal=(('D', 'P', 'N'), ('N', 'P', 'N'))),
      'a non-periodic scalar along x, where the velocity is periodic'),
     (dict(cbcscal=(('P', 'N', 'N'), ('P', 'N', 'N'))),

@@ -23,12 +23,15 @@ here.  One spawn runs several cases.
   * mom_rk's halo twin on a slab whose halos are cut from the whole field
     equals the periodic twin on the whole field's rows (the construction
     of python -m cales_torch.fma_probe);
-  * the mesh's refusals: unsupported() for what stays single-device (the
-    two-pass dsmag, full-3D implicit diffusion, the 2D test filter, a slab
-    thinner than the dsmag kernel's halo, ...), a world size that is not
-    gy, a transport the ranks cannot use; what runs on the mesh (the
-    impdiff_1d, wall-modelled and dsmag channels too, whose steps
-    tests/test_torch_sharded_imp.py and test_torch_sharded_les.py hold).
+  * the mesh's refusals: unsupported() for what stays single-device
+    (full-3D implicit diffusion, with the passive scalar too, the 2D test
+    filter with y walls, a slab thinner than the dsmag kernel's halo, ...),
+    a world size that is not gy, a transport the ranks cannot use; what
+    runs on the mesh (the impdiff_1d, wall-modelled and dsmag channels, the
+    passive scalar, the two-pass dsmag and the 2D test filter too, whose
+    steps tests/test_torch_sharded_imp.py, test_torch_sharded_les.py,
+    test_torch_sharded_scalar.py and test_torch_sharded_twopass.py
+    hold).
 """
 import json
 import os
@@ -308,13 +311,17 @@ def test_slab_with_cut_halos_is_the_whole_fields_rows():
 @pytest.mark.parametrize('change, needle', [
     (dict(dims=(2, 2)), 'gx > 1'),
     (dict(dims=(3, 1)), 'not divisible by gy'),
-    (dict(sgstype='dsmag', dsmag_avg='channel',
-          bcvel=(((0.0,) * 3, (0.0,) * 3, (0.0, 0.0, 0.003)),) * 2),
-     'the two-pass dynamic Smagorinsky under a device mesh'),
+    # the passive scalar with full-3D implicit diffusion
+    (dict(scalar=True, impdiff=True, impdiff_1d=False),
+     'full-3D implicit diffusion under a device mesh'),
     (dict(impdiff=True, impdiff_1d=False),
      'full-3D implicit diffusion under a device mesh'),
-    (dict(sgstype='dsmag', dsmag_avg='channel', filter_2d=True),
-     'the 2D test filter under a device mesh'),
+    # the 2D test filter with y walls (refused on one device too)
+    (dict(sgstype='dsmag', dsmag_avg='channel', filter_2d=True,
+          cbcvel=((('P', 'P', 'P'), ('D', 'D', 'D'), ('D', 'D', 'D')),) * 2,
+          cbcpre=(('P', 'N', 'N'), ('P', 'N', 'N')),
+          cbcsgs=(('P', 'D', 'D'), ('P', 'D', 'D'))),
+     'the 2D test filter (filter_2d) with y walls'),
     (dict(sgstype='dsmag', dsmag_avg='channel', ng=(64, 2, 16)),
      "thinner than the dsmag kernel's two-row y halo"),
     (dict(ptransform='fft'), "ptransform 'fft' under a device mesh"),
@@ -335,14 +342,19 @@ def test_mesh_refusals(change, needle):
 def test_mesh_slice_is_supported():
     assert unsupported(Config(**SMAG, dims=(2, 1))) == []
     assert unsupported(Config(**NONE, dims=(4, 1))) == []
-    # the channel DNS and LES with impdiff_1d, the wall-modelled channel
-    # and the one-pass dynamic Smagorinsky channel ('channel' and 'dit',
-    # explicit and impdiff_1d)
+    # the channel DNS and LES with impdiff_1d, the wall-modelled channel,
+    # the one-pass dynamic Smagorinsky channel ('channel' and 'dit',
+    # explicit and impdiff_1d), with the 2D test filter and by the two
+    # passes (transpiring z walls), and the LES with a passive scalar
     imp = dict(impdiff=True, impdiff_1d=True)
+    blow = (((0.0,) * 3, (0.0,) * 3, (0.0, 0.0, 0.003)),) * 2
     for change in (dict(sgstype='none', **imp), imp,
                    dict(lwm=((0, 0, 1), (0, 0, 1)), hwm=0.1),
                    dict(sgstype='dsmag', dsmag_avg='channel'),
-                   dict(sgstype='dsmag', dsmag_avg='dit', **imp)):
+                   dict(sgstype='dsmag', dsmag_avg='dit', **imp),
+                   dict(sgstype='dsmag', dsmag_avg='channel', filter_2d=True),
+                   dict(sgstype='dsmag', dsmag_avg='channel', bcvel=blow),
+                   dict(scalar=True, is_sforced=True, scalf=0.5, **imp)):
         for gy in (2, 4):
             assert unsupported(Config(**{**SMAG, **change},
                                       dims=(gy, 1))) == [], change

@@ -15,9 +15,10 @@ tests/test_torch_triperiodic.py's Taylor-Green vortex (16^3, 'mat'):
     JAX poisson.solve within 1e-11 after removing the mean;
   * the singular lane (lamx, lamy, lamz) = (0, 0, 0) pinned on the rank
     whose slice of lamx holds it, whatever that order;
-  * what unsupported() runs on the mesh (bench.py's six classes and the
-    wall-modelled duct example at dims (2, 1) and (4, 1)) and what it
-    still refuses with periodic z.
+  * what unsupported() runs on the mesh (bench.py's six classes, the
+    wall-modelled duct example, and the classes with a passive scalar, by
+    the two-pass dynamic Smagorinsky and with the 2D test filter, at dims
+    (2, 1) and (4, 1)) and what it still refuses with periodic z.
 """
 import numpy as np
 import pytest
@@ -96,23 +97,51 @@ def test_singular_lane_pinned_on_the_rank_that_holds_it(gy):
     assert abs(sv.lamx[zero]) <= tol and min(abs(sv.lamy)) <= tol
 
 
+# the scalar of chip_smoke.py's phase 13 (s 0 and 1 on the z walls) and of
+# its duct (13y: 1 and 0.5 on the y walls, N on the z walls)
+_SCALAR = dict(scalar=True, pr=0.71, iniscal='zer',
+               cbcscal=(('P', 'P', 'D'), ('P', 'P', 'D')),
+               bcscal=((0.0, 0.0, 0.0), (0.0, 0.0, 1.0)))
+_DUCT_SCALAR = dict(_SCALAR, cbcscal=(('P', 'D', 'N'), ('P', 'D', 'N')),
+                    bcscal=((0.0, 1.0, 0.0), (0.0, 0.5, 0.0)))
+_DSMAG_CHANNEL = dict(sgstype='dsmag', dsmag_avg='channel')
+_BLOW = (((0.0,) * 3, (0.0,) * 3, (0.0, 0.0, 0.003)),) * 2
+# name: (bench.py class, change, CALES_DSMAG_TWOPASS)
+_MESH_CLASSES = {
+    'les_scalar': ('channel_les_smag', _SCALAR, ''),
+    'dsmag_duct_scalar': ('duct_les_dsmag', _DUCT_SCALAR, ''),
+    'dsmag_blow': ('channel_les_smag', dict(_DSMAG_CHANNEL, bcvel=_BLOW), ''),
+    'twopass_channel': ('channel_les_smag', _DSMAG_CHANNEL, '1'),
+    'twopass_duct': ('duct_les_dsmag', {}, '1'),
+    'twopass_cavity': ('cavity_les_dsmag', {}, '1'),
+    'dsmag_filter_2d': ('channel_les_smag',
+                        dict(_DSMAG_CHANNEL, filter_2d=True), ''),
+    'box_filter_2d': ('triperiodic_dns', dict(sgstype='dsmag',
+                                              dsmag_avg='dit',
+                                              filter_2d=True), '')}
+
+
 @pytest.mark.parametrize('gy', [2, 4])
 @pytest.mark.parametrize('name', ['triperiodic_dns', 'channel_dns_impdiff',
                                   'channel_les_smag', 'duct_les_dsmag',
                                   'cavity_les_dsmag', 'wmles_channel',
-                                  'turbulent_duct_wmles'])
-def test_mesh_runs_the_classes(name, gy):
-    """bench.py's six classes at 512x256x256 and the wall-modelled duct
+                                  'turbulent_duct_wmles', *_MESH_CLASSES])
+def test_mesh_runs_the_classes(name, gy, monkeypatch):
+    """bench.py's six classes at 512x256x256, the wall-modelled duct
     example (512x80x80: its y faces' rows 3 and 4 from the wall on slabs of
-    40 and 20 rows) run on dims (gy, 1)."""
+    40 and 20 rows), and those classes with a passive scalar, by the two
+    passes (transpiring z walls, CALES_DSMAG_TWOPASS=1) and with the 2D
+    test filter run on dims (gy, 1)."""
     if name == 'turbulent_duct_wmles':
         cfg = config_from_nml(
             str(ROOT / 'examples' / name / 'input.nml')).replace(
                 dims=(gy, 1))
     else:
         import bench
-        cfg = Config(**bench._matrix_configs((512, 256, 256))[name],
-                     dims=(gy, 1))
+        base, change, switch = _MESH_CLASSES.get(name, (name, {}, ''))
+        monkeypatch.setenv('CALES_DSMAG_TWOPASS', switch)
+        cfg = Config(**{**bench._matrix_configs((512, 256, 256))[base],
+                        **change}, dims=(gy, 1))
     assert unsupported(cfg) == [], name
 
 
@@ -120,8 +149,8 @@ def test_mesh_runs_the_classes(name, gy):
     (dict(impdiff=True, impdiff_1d=True),
      'periodic z with impdiff_1d under a device mesh'),
     (dict(impdiff=True), 'full-3D implicit diffusion under a device mesh'),
-    (dict(sgstype='dsmag', dsmag_avg='dit', filter_2d=True),
-     'the 2D test filter under a device mesh'),
+    (dict(impdiff=True, impdiff_1d=True, scalar=True),
+     'periodic z with impdiff_1d under a device mesh'),
     (dict(ptransform='fft'), "ptransform 'fft' under a device mesh"),
 ])
 def test_box_mesh_refusals(change, needle):

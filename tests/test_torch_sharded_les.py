@@ -138,8 +138,10 @@ def test_wm_twin_on_a_slab_is_the_whole_fields_rows(gy):
 
 
 @pytest.mark.parametrize('change, env, needle', [
-    (DSMAG, {'CALES_DSMAG_TWOPASS': '1'},
-     'two-pass dynamic Smagorinsky under a device mesh'),
+    # the 2D filter where transpiring walls force the two passes
+    (dict(DSMAG, filter_2d=True,
+          bcvel=(((0.0,) * 3, (0.0,) * 3, (0.0, 0.0, 0.003)),) * 2), {},
+     'the 2D test filter where a face value forces the two passes'),
     (dict(DSMAG, ng=(64, 4, 16)), {}, "thinner than the dsmag kernel's"),
     (dict(WMLES, impdiff=True, impdiff_1d=True), {},
      'a wall model with implicit diffusion'),

@@ -116,9 +116,10 @@ _WM_DUCT = dict(DUCT, sgstype='smag', lwm=((0, 1, 1), (0, 1, 1)), hwm=0.2,
     (dict(_WM_DUCT, hwm=0.6), {}, 'a sampled y row off its owning slab'),
     (dict(_WM_DUCT, impdiff=True), {},
      'a wall model with implicit diffusion'),
-    (DUCT, {'CALES_DSMAG_TWOPASS': '1'},
-     'the two-pass dynamic Smagorinsky under a device mesh'),
-    (dict(DUCT, scalar=True), {}, 'passive scalar on a mesh'),
+    (dict(DUCT, filter_2d=True), {},
+     'the 2D test filter (filter_2d) with y walls'),
+    (dict(DUCT, scalar=True, impdiff=True), {},
+     'full-3D implicit diffusion under a device mesh'),
     (dict(DUCT, ptransform='fft'), {}, "ptransform 'fft' under a device "
                                         'mesh'),
     (dict(DUCT, ng=(16, 4, 10)), {}, 'with y walls: slabs of 1 y row'),

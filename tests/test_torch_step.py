@@ -181,7 +181,9 @@ def test_exec_path_names_device_kernels_and_solve(pair):
      'non-zero v'),
     (dict(cbcvel=((('P', 'P', 'P'), ('D', 'D', 'D'), ('D', 'D', 'D')),) * 2,
           cbcpre=(('P', 'N', 'N'),) * 2), 'non-periodic y'),
-    (dict(scalar=True, dims=(2, 1)), 'scalar'),
+    # the scalar on a mesh takes the letters one device admits
+    (dict(scalar=True, dims=(2, 1),
+          cbcscal=(('P', 'N', 'N'), ('P', 'N', 'N'))), 'scalar'),
     (dict(dims=(2, 1)), 'mesh'),
     (dict(sgstype='none', cbcvel=((('P', 'P', 'P'), ('D', 'D', 'D'),
                                    ('P', 'P', 'P')),) * 2,
