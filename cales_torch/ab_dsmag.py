@@ -84,7 +84,19 @@ Y_HALO variant against the periodic one), 'dsmag_level1 halo' (YH) and
 'dsmag_level1 slab' (YW + YH against the y-walled kernel), 'dsmag_level2
 halo' (YH, its 'channel' partial sums joined) and 'dsmag_level2 slab duct'
 (YW + YH), 'dsmag f2d halo' and 'dsmag zp f2d halo' (F2D + YH, with ZP
-too; |S| and the 'channel' partial sums joined).
+too; |S| and the 'channel' partial sums joined); and the slab modes of
+full-3D implicit diffusion and of x walls on the mesh (SLAB_3D_X, cut and
+joined as those, against the baseline's periodic-y kernel on the whole
+field; 'fillps x walls', 'correc_updatep x walls' and 'smag x walls' the
+x-walled variants of periodic y, both on the whole field): 'mom_rk halo
+xy+z' and 'mom_rk halo scal xy+z' (Y_HALO with the
+'xy+z' split, without and with the scalar), 'correc_updatep halo full3d'
+(alpha L(pp) in 3-D on the halo), and on random x stacks of periodic y
+'mom_rk halo x walls' (XW x Y_HALO, no nu_t), 'mom_rk halo x 1d' (with
+nu_t and the '1d' split), 'fillps halo x walls', 'correc_updatep halo x
+walls' (the slab's own stacks' rows) and 'smag halo x walls' (random x
+walls' van Driest inputs; mom_rk's and smag's stacks with the rows -1 and
+nyl).
 Outputs are compared in float64 at (nx, ny, nz) = (72, 40, 48) and in
 float32 at --ng (bitwise, and max|this - baseline| / max|baseline|, the
 worst output); mom_rk's partial sums, whose parts differ (blocks of 256
@@ -130,7 +142,19 @@ CASES = ('channel', 'duct', 'cavity', 'channel y walls', 'duct periodic y',
          'dsmag slab zp', 'mom_rk scal', 'mom_rk scal y walls',
          'mom_rk halo scal', 'dsmag_level1 halo', 'dsmag_level1 slab',
          'dsmag_level2 halo', 'dsmag_level2 slab duct', 'dsmag f2d halo',
-         'dsmag zp f2d halo')
+         'dsmag zp f2d halo', *('fillps x walls', 'correc_updatep x walls',
+                                'smag x walls', 'mom_rk halo xy+z',
+                                'mom_rk halo scal xy+z',
+                                'correc_updatep halo full3d',
+                                'mom_rk halo x walls', 'mom_rk halo x 1d',
+                                'fillps halo x walls',
+                                'correc_updatep halo x walls',
+                                'smag halo x walls'))
+# the x-walled fillps, correc_updatep and smag with periodic y (both
+# checkouts on the whole field), and the slab modes of full-3D implicit
+# diffusion and of x walls on the mesh ('halo': this checkout's on two
+# slabs, joined, against the baseline's whole-field kernel)
+SLAB_3D_X = CASES[-11:]
 # the cases at their own shape, in float32 only
 BIG = {'apply_y x+y 512^3': (512, 512, 512), 'mom_rk 512^3': (512, 512, 512),
        'thomas_periodic 512^3': (512, 512, 512),
@@ -351,8 +375,106 @@ def _wm_slabs(u, v, w, wm):
                  if d == 2 else p[0] for (d, _), p in outs.items())
 
 
+def _slab_3d_x(Km, d, case):
+    """The cases of SLAB_3D_X: the baseline (Km not this checkout's K) on
+    the whole field, periodic y ('xy+z' with and without the scalar,
+    correc_updatep with full-3D alpha L(pp), the x-walled variants on the
+    x stacks of periodic y); this checkout on the lower and the upper slab
+    (cut as _slabs cuts), their halos the field's rows, the x stacks of
+    mom_rk and smag the field's with the rows -1 and nyl (nyc = nyl + 2),
+    fillps's and correc_updatep's the slab's rows, the outputs joined
+    along y (mom_rk's partial sums as per-plane totals)."""
+    f, e, dz = d['f'], d['e'], d['dz']
+    ny = f[0].shape[1]
+    xe = d['xe'][ny]
+    xw = 'x walls' in case or case == 'mom_rk halo x 1d'
+    # correc_updatep: full-3D alpha L(pp) on the halo, impdiff_1d's with x
+    # walls
+    sgs = case in ('mom_rk halo xy+z', 'mom_rk halo scal xy+z',
+                   'mom_rk halo x 1d')
+    split = ('xy+z' if 'xy+z' in case else '1d' if case.endswith('1d')
+             else None)
+    scal = 'scal' in case
+    mom = (dz, dz, 0.01, -0.005, 5e-5, 40.0, 20.0, (0.1, 0.0, 0.0))
+    xwall = (d['prof'][:1].expand(f[0].shape[2]).contiguous(),
+             (torch.arange(f[0].shape[2], device='cuda')
+              < f[0].shape[2] // 2).to(f[0].dtype),
+             *(1e-2 * (1.0 + q.abs()) for q in (f[6][:, :, 0], f[7][:, :, 0])))
+
+    def run(kern, q, qe, h, x, xq, tw, xw_planes):
+        """One call: q, qe the fields and edges, h their halos (None on
+        the whole field), x the x stacks with the rows -1 and nyl or the
+        whole field's, xq the slab's own rows of them."""
+        if case.startswith('mom_rk'):
+            kw = dict(sums=(True, True), split=split)
+            if h is not None:
+                kw['yh'] = (*h[:3], h[3] if sgs else None, h[4],
+                            *((h[5],) if scal else ()))
+            if xw:
+                kw['xe'] = (*x[:3], x[3] if sgs else None, x[4])
+            if scal:
+                kw.update(sca=q[5], scae=qe[5], rso=q[6], scal=(2e-4, 0.05))
+            ruo = q[7:10] if scal else q[5:8]
+            out = kern.mom_rk(q[0], q[1], q[2], q[3] if sgs else None, q[4],
+                              qe[0], qe[1], qe[2], qe[3] if sgs else None,
+                              qe[4], *ruo, *mom, **kw)
+            return (*out[:6], *out[8:], out[6], out[7])
+        if case.startswith('fillps'):
+            return (kern.fillps(*q[:3], *qe[:3], dz, 100.0, 40.0, 20.0,
+                                yh=None if h is None else h[1],
+                                xu=xq[0]),)
+        if case.startswith('correc_updatep'):
+            full3d = not xw
+            # pp (q[3]) with its edge stack qe[3] and halo h[3]
+            return kern.correc_updatep(
+                *q[:5], qe[2], qe[3], 0.01, 40.0, 20.0, dz, dz,
+                alpha=-3e-4, impdiff=True, impdiff_1d=not full3d,
+                yh=None if h is None else h[3],
+                xpp=xq[3] if xw else None, xu=xq[0] if xw else None)
+        return (kern.smag(*q[:3], *qe[:3], dz, dz, 40.0, 20.0, 5e-5,
+                          d['prof'], d['prof'], d['nearlo'], *tw,
+                          yh=None if h is None else h[:3], xe=x[:3],
+                          xwall=(*xwall[:2], *xw_planes)),)
+    # the fields: u, v, w, nu_t, p, the previous RHS (or the scalar, its
+    # previous RHS and the velocity's), with their edge stacks (zeros for
+    # the pointwise ones)
+    zero = torch.zeros_like(e[0])
+    if scal:
+        F = [*f[:5], f[5], f[6], *f[5:8]]
+        E = [*e[:5], e[3], zero, zero, zero, zero]
+    else:
+        F = [*f[:5], *f[5:8]]
+        E = [*e[:5], zero, zero, zero]
+    if Km is not K or 'halo' not in case:
+        out = run(Km, F, E, None, xe, xe, d['tauw'], xwall[2:])
+        return tuple(q.sum(dim=1) if m >= len(out) - 2 and
+                     case.startswith('mom_rk') else q
+                     for m, q in enumerate(out))
+    cut = ny // 2 // 16 * 16
+    outs = []
+    for lo, hi in ((0, cut), (cut, ny)):
+        q = [a[:, lo:hi].contiguous() for a in F]
+        qe = [a[:, lo:hi].contiguous() for a in E]
+        rows = [(lo - 1) % ny, hi % ny]
+        h = [(a[:, rows].contiguous(), b[:, rows].contiguous())
+             for a, b in zip(F, E)]
+        ext = list(range(lo, hi))
+        xx = [tuple(a[..., [rows[0], *ext, rows[1]]].contiguous()
+                    for a in x) for x in xe]
+        xq = [tuple(a[..., lo:hi].contiguous() for a in x) for x in xe]
+        tw = [t[lo:hi].contiguous() for t in d['tauw']]
+        xwp = [t[:, lo:hi].contiguous() for t in xwall[2:]]
+        outs.append(run(K, q, qe, h, xx, xq, tw, xwp))
+    out = [torch.cat([a, b], dim=1) for a, b in zip(*outs)]
+    if case.startswith('mom_rk'):
+        out[-2:] = [q.sum(dim=1) for q in out[-2:]]
+    return tuple(out)
+
+
 def _call(mods, d, case):
     Km, SKm = mods
+    if case in SLAB_3D_X:
+        return _slab_3d_x(Km, d, case)
     if case.startswith('apply_y'):
         return (SKm.apply_y(d['f'][0], d['ny_op'],
                             d['nx_op'] if 'x+y' in case else None),)

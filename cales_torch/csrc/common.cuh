@@ -168,9 +168,13 @@ __device__ __forceinline__ T aty(const T* f, const T* e, const YRows<T>& y,
 // nx, padded x nx+1] (padded x nx is u's set_bc rewrite slot, the
 // interior's last column for the others) and whose corners (3, 3, nyc) are
 // their z-edge stack (ops/boundary.xedge_*).  Along y the columns wrap
-// (nyc = ny) with periodic y; with y walls (YL == Y_WALLS) they carry
-// their y ghosts and the y rewrite slot (nyc = ny + 2, row jy at jy + 1),
-// the (y ghost, x ghost) corners of the sequential x -> y -> z fill.
+// (nyc = ny) with periodic y, and hold the slab's rows on a slab (YL ==
+// Y_HALO: fillps and correc read them in the cell's own row only); with y
+// walls (YL == Y_WALLS) they carry their y ghosts and the y rewrite slot
+// (nyc = ny + 2, row jy at jy + 1), the (y ghost, x ghost) corners of the
+// sequential x -> y -> z fill.  (mom_rk and smag, which read the corners,
+// take a slab's stacks with the neighbours' rows -1 and ny, nyc = ny + 2,
+// by their own offsets.)
 // Column r (0, 1, 2) at padded z kz (-1 .. nz) and row jy (-1 .. ny).
 template <int YL, typename T>
 __device__ __forceinline__ const T* xcol(const YRows<T>& x, int kz, int r,

@@ -18,12 +18,14 @@
 // there, as in the reference's padded sweep (pallas_kernels.py:1557-1563).
 // The halo variant (a slab of a y-sharded mesh, cales_tpu _correc_sharded)
 // reads pp's rows -1 and ny from its halo; v's last row is the slab's own.
-// The x-walled variant (XW, with periodic y or y walls) reads pp's x ghost
-// columns from its x stack and u's wall face (interior column nx-1) from
-// u's prediction-fill x stack, the set_bc rewrite, where the TPU kernel
-// reads its xe bundle and the patched copy of u (cales_tpu
-// timeloop.py:823-830): the reads of the first and last column's cells,
-// patched in place.
+// The x-walled variant (XW, with periodic y or y walls, and on a slab
+// with the halo variant) reads pp's x ghost columns from its x stack and
+// u's wall face (interior column nx-1) from u's prediction-fill x stack,
+// the set_bc rewrite, where the TPU kernel reads its xe bundle and the
+// patched copy of u (cales_tpu timeloop.py:823-830): the reads of the
+// first and last column's cells, patched in place.  pp's x ghosts are
+// read in the cell's own row only, so on a slab the stacks hold the
+// slab's rows and no corner of a halo row is read.
 //
 // Bound on the H100: memory.  About 8 field streams per call (read u, v,
 // w, pp, p; write u, v, w, p): 1.07 GB at 512x256x256 f32, a 0.32 ms
@@ -35,11 +37,12 @@ namespace cales {
 
 // The f32 halo variant holds to the 8 blocks an SM that the plain one
 // reaches with its 32 registers (its edge-row path would take 46).  The
-// others take 0, no minimum, as a bare __launch_bounds__(CALES_THREADS): a
-// minimum of 1 makes ptxas spend registers (the f32 plain variant 32 -> 47).
+// others, the x-walled halo variant among them, take 0, no minimum, as a
+// bare __launch_bounds__(CALES_THREADS): a minimum of 1 makes ptxas spend
+// registers (the f32 plain variant 32 -> 47).
 template <typename T, int YM, bool XW>
-__global__ void __launch_bounds__(CALES_THREADS,
-                                  YM == Y_HALO && sizeof(T) == 4 ? 8 : 0)
+__global__ void __launch_bounds__(
+    CALES_THREADS, YM == Y_HALO && !XW && sizeof(T) == 4 ? 8 : 0)
     correc_kernel(
     const T* __restrict__ u, const T* __restrict__ v, const T* __restrict__ w,
     const T* __restrict__ pp, const T* __restrict__ p,
@@ -116,7 +119,8 @@ __global__ void __launch_bounds__(CALES_THREADS,
 // row 1 is the wall face); all three null with periodic y.  halo: yppr,
 // yppc are pp's halo rows and corners on a slab, and yvr is null.  xppr,
 // xppc, xur, xuc: pp's x stack and corners and u's prediction-fill ones
-// (x walls; nyc = ny + 2 with y walls), all four null with periodic x.
+// (x walls; nyc = ny + 2 with y walls, ny with periodic y and on a slab),
+// all four null with periodic x.
 template <typename T>
 int launch_correc(const T* u, const T* v, const T* w, const T* pp,
                   const T* p, const T* we, const T* ppe, const T* dzci,
@@ -130,12 +134,13 @@ int launch_correc(const T* u, const T* v, const T* w, const T* pp,
   const bool xw = xppr != nullptr;
   if (ys != (yppc != nullptr) || (halo && !ys) ||
       (yvr != nullptr) != (ys && !halo) || xw != (xppc != nullptr) ||
-      xw != (xur != nullptr) || xw != (xuc != nullptr) || (xw && halo))
+      xw != (xur != nullptr) || xw != (xuc != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const YRows<T> ypp{yppr, yppc}, xpp{xppr, xppc}, xu{xur, xuc};
   auto kern = !ys    ? (xw ? &correc_kernel<T, Y_PERIODIC, true>
                            : &correc_kernel<T, Y_PERIODIC, false>)
-              : halo ? &correc_kernel<T, Y_HALO, false>
+              : halo ? (xw ? &correc_kernel<T, Y_HALO, true>
+                           : &correc_kernel<T, Y_HALO, false>)
               : xw   ? &correc_kernel<T, Y_WALLS, true>
                      : &correc_kernel<T, Y_WALLS, false>;
   kern<<<plane_grid(nz, ny, nx), CALES_THREADS, 0,

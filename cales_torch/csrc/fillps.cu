@@ -11,11 +11,13 @@
 // of a y-sharded mesh, cales_tpu _fillps_sharded) reads v's row -1 from
 // its halo (common.cuh aty<Y_HALO>).  The x-walled variant (XW, the
 // developing channel, the closed box, the lid-driven cavity and the
-// developing duct; with periodic y or y walls) reads u's lower x face and
-// its rewrite column (padded x nx) from u's x stack (common.cuh atxy), as
-// the TPU kernel takes them from its xe bundle and the patched copy of u
-// (cales_tpu timeloop.py:2574-2586): two reads of the cells of the first
-// and last column, patched in place.
+// developing duct; with periodic y or y walls; the developing channel on
+// a slab, with the halo variant, whose x stack holds the slab's rows)
+// reads u's lower x face and its rewrite column (padded x nx) from u's x
+// stack (common.cuh xcol), as the TPU kernel takes them from its xe
+// bundle and the patched copy of u (cales_tpu timeloop.py:2574-2586): two
+// reads of the cells of the first and last column, patched in place; u
+// is read in its own row only, so no x ghost of a halo row is read.
 //
 // Bound on the H100: memory.  About 5 field streams per call (read u, v,
 // w at their backward neighbours; write the RHS): 0.67 GB at 512x256x256
@@ -70,8 +72,8 @@ __global__ void __launch_bounds__(CALES_THREADS) fillps_kernel(
 
 // yvr, yvc: v's y-row stack and corners, both null with periodic y; with
 // halo set, v's halo rows and corners on a slab.  xur, xuc: u's x stack
-// and corners (x walls; nyc = ny + 2 with y walls), both null with
-// periodic x
+// and corners (x walls; nyc = ny + 2 with y walls, ny with periodic y and
+// on a slab), both null with periodic x
 template <typename T>
 int launch_fillps(const T* u, const T* v, const T* w, const T* ue,
                   const T* ve, const T* we, const T* dzfi, T* rhs,
@@ -80,12 +82,13 @@ int launch_fillps(const T* u, const T* v, const T* w, const T* ue,
                   double dyi, void* stream) {
   const bool xw = xur != nullptr;
   if ((yvr == nullptr) != (yvc == nullptr) || (halo && yvr == nullptr) ||
-      xw != (xuc != nullptr) || (xw && halo))
+      xw != (xuc != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const YRows<T> yv{yvr, yvc}, xu{xur, xuc};
   auto kern = yvr == nullptr ? (xw ? &fillps_kernel<T, Y_PERIODIC, true>
                                    : &fillps_kernel<T, Y_PERIODIC, false>)
-              : halo         ? &fillps_kernel<T, Y_HALO, false>
+              : halo         ? (xw ? &fillps_kernel<T, Y_HALO, true>
+                                   : &fillps_kernel<T, Y_HALO, false>)
               : xw           ? &fillps_kernel<T, Y_WALLS, true>
                              : &fillps_kernel<T, Y_WALLS, false>;
   kern<<<plane_grid(nz, ny, nx), CALES_THREADS, 0,

@@ -23,15 +23,17 @@
 //          (pallas_kernels.py:671-684);
 //   XW     x walls (the developing channel, the closed box, the lid-driven
 //          cavity and the developing duct, and their LES; with or without
-//          visct, with YM periodic or y walls, and with SPLIT 1 and YM
-//          periodic): the tile's halo columns -1 and nx of u, v, w, p
-//          (and visct) come from their x stacks
+//          visct, with YM periodic, y walls or a slab, and with SPLIT 1
+//          and YM periodic or a slab): the tile's halo columns -1 and nx
+//          of u, v, w, p (and visct) come from their x stacks
 //          (common.cuh xcol; with y walls the stacks carry the (y ghost,
-//          x ghost) corners), as the TPU kernel's xe bundle fixes them
-//          (cales_tpu timeloop.py:1883-1924).  Only the first and last
-//          tile column of blocks have such cells, and a cell's source is
-//          found once, so the loads of every other block are those of
-//          the periodic variant;
+//          x ghost) corners, and on a slab the neighbours' rows -1 and ny,
+//          the corners where the halo rows meet the x ghost columns), as
+//          the TPU kernel's xe bundle fixes them, y-sharded on the mesh
+//          (cales_tpu timeloop.py:169-183, 1883-1924).  Only the first
+//          and last tile column of blocks have such cells, and a cell's
+//          source is found once, so the loads of every other block are
+//          those of the periodic variant;
 //   SCAL   the passive scalar (its own C entry, cales_mom_rk_scal_*; the
 //          TPU kernel's has_scal stream, pallas_kernels.py:497-499,
 //          661-667): one more cell-centred field in the ring, loaded as p
@@ -42,7 +44,7 @@
 //          alpha = visc/pr) and its RK3 update s + f1 ds + f12 ssource
 //          (+ f2 rso, skipped on the first substep with ruo,
 //          rk.f90:123-195); periodic y, y walls, or a slab of the y-slab
-//          mesh (Y_HALO, explicit or split 1: the scalar's halo rows -1 and
+//          mesh (Y_HALO, with each split: the scalar's halo rows -1 and
 //          ny read as the velocity's, the TPU kernel's scalar window on the
 //          y strips, cales_tpu/timeloop.py:1943-2078).
 // The formulas are cales_torch/ops/stencil.momentum_rhs_core term by term
@@ -196,7 +198,8 @@ __global__ void __launch_bounds__(MrGeo<MomTy<T>::TY>::NT)
   // y-row stack or halo (< 0), or with x walls in its x stack (ox[i]); x
   // and y wrapped
   constexpr int NC = (CPL + NT - 1) / NT;
-  constexpr int NYC_PAD = YM == Y_WALLS ? 2 : 0;
+  // the x stacks carry the rows -1 and ny with y walls and on a slab
+  constexpr int NYC_PAD = YM != Y_PERIODIC ? 2 : 0;
   int oc[NC];
   bool ox[NC];
 #pragma unroll
@@ -207,7 +210,7 @@ __global__ void __launch_bounds__(MrGeo<MomTy<T>::TY>::NT)
     if (XW && ox[i]) {
       // column 0 (x = -1) or 2 (x = nx); rows past ny (a ragged last
       // tile's, never read) take row ny's
-      const int jj = YM == Y_WALLS ? min(gy, ny) + 1 : wrap_near(gy, ny);
+      const int jj = YM != Y_PERIODIC ? min(gy, ny) + 1 : wrap_near(gy, ny);
       oc[i] = ~((gx < 0 ? 0 : 2) * (ny + NYC_PAD) + jj);
       continue;
     }
@@ -569,17 +572,20 @@ MomKernel<T> pick_mom_rk(int ym) {
 }
 
 // the x-walled variants: explicit with periodic y or y walls, split '1d'
-// with periodic y
+// with periodic y; on a slab of the y-slab mesh explicit or split '1d'
 template <typename T, bool SGS>
 MomKernel<T> pick_mom_rk_xw(int ym, int split) {
+  if (ym == Y_HALO)
+    return split == 1 ? &mom_rk_kernel<T, SGS, 1, Y_HALO, true, false>
+                      : &mom_rk_kernel<T, SGS, 0, Y_HALO, true, false>;
   return split == 1 ? &mom_rk_kernel<T, SGS, 1, Y_PERIODIC, true, false>
          : ym == Y_WALLS ? &mom_rk_kernel<T, SGS, 0, Y_WALLS, true, false>
                          : &mom_rk_kernel<T, SGS, 0, Y_PERIODIC, true, false>;
 }
 
 // the scalar variants, what the slice runs with a scalar: periodic y with
-// each split, y walls explicit, x walls as pick_mom_rk_xw, and a slab of
-// the y-slab mesh explicit or with split 1
+// each split, y walls explicit, x walls as pick_mom_rk_xw on one device,
+// and a slab of the y-slab mesh with each split
 template <typename T, bool SGS>
 MomKernel<T> pick_mom_rk_scal(int ym, int split, bool xw) {
   if (xw)
@@ -587,8 +593,9 @@ MomKernel<T> pick_mom_rk_scal(int ym, int split, bool xw) {
            : ym == Y_WALLS ? &mom_rk_kernel<T, SGS, 0, Y_WALLS, true, true>
                            : &mom_rk_kernel<T, SGS, 0, Y_PERIODIC, true, true>;
   if (ym == Y_HALO)
-    return split == 1 ? &mom_rk_kernel<T, SGS, 1, Y_HALO, false, true>
-                      : &mom_rk_kernel<T, SGS, 0, Y_HALO, false, true>;
+    return split == 2   ? &mom_rk_kernel<T, SGS, 2, Y_HALO, false, true>
+           : split == 1 ? &mom_rk_kernel<T, SGS, 1, Y_HALO, false, true>
+                        : &mom_rk_kernel<T, SGS, 0, Y_HALO, false, true>;
   if (ym == Y_WALLS) return &mom_rk_kernel<T, SGS, 0, Y_WALLS, false, true>;
   return split == 2   ? &mom_rk_kernel<T, SGS, 2, Y_PERIODIC, false, true>
          : split == 1 ? &mom_rk_kernel<T, SGS, 1, Y_PERIODIC, false, true>
@@ -600,11 +607,12 @@ MomKernel<T> pick_mom_rk_scal(int ym, int split, bool xw) {
 // halo set they are the slab's halos (rows (nz, 2, nx), corners
 // (3, 2, nx)) instead; then the x stacks and corners of the same five
 // fields (10 pointers, all null with periodic x; visct's null without
-// visct; x walls run with split 0 or, with periodic y, 1, never on a
-// slab).  sc: the passive scalar (the SCAL variants), or null: its
+// visct; nyc = ny + 2 with y walls and on a slab, whose stacks carry the
+// rows -1 and ny; x walls run with split 0 or, with periodic y or on a
+// slab, 1).  sc: the passive scalar (the SCAL variants), or null: its
 // field, edge stack and outputs set, its previous RHS with ruo, its y-row
 // and x stack pairs with the velocity's (on a slab its halo pair, with
-// split 0 or 1).
+// any split; x walls on one device).
 template <typename T>
 int launch_mom_rk(const T* u, const T* v, const T* w, const T* s, const T* p,
                   const T* ue, const T* ve, const T* we, const T* se,
@@ -622,7 +630,7 @@ int launch_mom_rk(const T* u, const T* v, const T* w, const T* s, const T* p,
   if (sc != nullptr &&
       (sc->s == nullptr || sc->se == nullptr || sc->so == nullptr ||
        sc->rs == nullptr || (sc->rso == nullptr) != (ruo == nullptr) ||
-       (halo && split == 2) ||
+       (halo && xw) ||
        yw != (sc->ys.rows != nullptr && sc->ys.corners != nullptr) ||
        xw != (sc->xs.rows != nullptr && sc->xs.corners != nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -635,7 +643,7 @@ int launch_mom_rk(const T* u, const T* v, const T* w, const T* s, const T* p,
       ys{y[6], y[7]}, yp{y[8], y[9]}, xu{y[10], y[11]}, xv{y[12], y[13]},
       xw_{y[14], y[15]}, xs{y[16], y[17]}, xp{y[18], y[19]};
   if (split < 0 || split > 2 || (halo && !yw) ||
-      (xw && (split == 2 || (split == 1 && yw) || halo)))
+      (xw && (split == 2 || (split == 1 && yw && !halo))))
     return static_cast<int>(cudaErrorInvalidValue);
   const int ym = !yw ? Y_PERIODIC : halo ? Y_HALO : Y_WALLS;
   // y walls with the scalar run explicit

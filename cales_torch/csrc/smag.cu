@@ -24,12 +24,14 @@
 // y-lo, y-hi, z-lo, z-hi of sgs.f90:104-146, the first minimum winning).
 //
 // The x-wall variant (XW, the developing channel, box and duct LES, with
-// periodic y or y walls; the port's choice: the JAX package runs static
-// Smagorinsky with x walls through XLA, cales_tpu/sgs.py:159 smag_visct,
-// its fused_smag excluding x walls) reads the tile's halo columns -1 and
-// nx of u, v, w from their x stacks as a plane is loaded (common.cuh
-// xcol; the stacks carry the wall model's 'E' corners where the caller
-// extrapolated them, sgs.extrapolate_stacks), as mom_rk's XW does, and
+// periodic y or y walls, and the developing channel LES on a slab of the
+// y-slab mesh, whose x stacks carry the neighbours' rows -1 and ny; the
+// port's choice: the JAX package runs static Smagorinsky with x walls
+// through XLA, cales_tpu/sgs.py:159 smag_visct, its fused_smag excluding
+// x walls) reads the tile's halo columns -1 and nx of u, v, w from their
+// x stacks as a plane is loaded (common.cuh xcol; the stacks carry the
+// wall model's 'E' corners where the caller extrapolated them,
+// sgs.extrapolate_stacks), as mom_rk's XW does, and
 // damps with the nearest wall in the order x, y, z: an x face whose u is
 // 'D' is a wall (an inflow face too, sgs.f90:76-81), its distance along x
 // per column and its (nz, ny) shear plane read at the cell; a later wall
@@ -146,7 +148,8 @@ __global__ void __launch_bounds__(SmGeo<T>::NT, SmGeo<T>::MINB)
   // ny, and the ragged tile's rows past ny as row ny), or with x walls in
   // its x stack (ox[i]); x and y wrapped
   constexpr int NC = (CPL + NT - 1) / NT;
-  constexpr int NYC_PAD = YM == Y_WALLS ? 2 : 0;
+  // the x stacks carry the rows -1 and ny with y walls and on a slab
+  constexpr int NYC_PAD = YM != Y_PERIODIC ? 2 : 0;
   int oc[NC];
   bool ox[NC];
 #pragma unroll
@@ -157,7 +160,7 @@ __global__ void __launch_bounds__(SmGeo<T>::NT, SmGeo<T>::MINB)
     if (XW && ox[i]) {
       // column 0 (x = -1) or 2 (x = nx); rows past ny (a ragged last
       // tile's, never stored) take row ny's
-      const int jj = YM == Y_WALLS ? min(gy, ny) + 1 : wrap_near(gy, ny);
+      const int jj = YM != Y_PERIODIC ? min(gy, ny) + 1 : wrap_near(gy, ny);
       oc[i] = ~((x0 - 1 + lx < 0 ? 0 : 2) * (ny + NYC_PAD) + jj);
       continue;
     }
@@ -318,8 +321,9 @@ int launch_smag(const T* u, const T* v, const T* w, const T* ue, const T* ve,
                 double visc, void* stream) {
   // ymode: Y_PERIODIC, Y_WALLS (h the y-row stacks, and the y walls' van
   // Driest inputs) or Y_HALO (h the halos); x the x stacks of u, v, w
-  // with x walls (periodic y or y walls), all null with periodic x, and
-  // the x walls' van Driest inputs, all null where no x face is a wall
+  // with x walls (periodic y, y walls or a slab; nyc = ny + 2 with y
+  // walls and on a slab), all null with periodic x, and the x walls' van
+  // Driest inputs, all null where no x face is a wall
   const bool rows = ymode != Y_PERIODIC;
   const bool xw = x[0] != nullptr;
   for (int m = 0; m < 6; ++m)
@@ -329,7 +333,7 @@ int launch_smag(const T* u, const T* v, const T* w, const T* ue, const T* ve,
                            tauw_ylo == nullptr || tauw_yhi == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const bool xd = dwx != nullptr;
-  if ((xw && ymode == Y_HALO) || (xd && !xw) || xd != (nearxlo != nullptr) ||
+  if ((xd && !xw) || xd != (nearxlo != nullptr) ||
       xd != (tauw_xlo != nullptr) || xd != (tauw_xhi != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const YRows<T> hu{h[0], h[1]}, hv{h[2], h[3]}, hw{h[4], h[5]};
@@ -337,8 +341,9 @@ int launch_smag(const T* u, const T* v, const T* w, const T* ue, const T* ve,
   using G = SmGeo<T>;
   constexpr int TY = G::TY;
   const size_t smem = sizeof(T) * SM_RING * 3 * G::CPL;
-  auto kern = xw ? (ymode == Y_WALLS ? &smag_kernel<T, Y_WALLS, true>
-                                     : &smag_kernel<T, Y_PERIODIC, true>)
+  auto kern = xw ? (ymode == Y_WALLS  ? &smag_kernel<T, Y_WALLS, true>
+                    : ymode == Y_HALO ? &smag_kernel<T, Y_HALO, true>
+                                      : &smag_kernel<T, Y_PERIODIC, true>)
               : ymode == Y_HALO  ? &smag_kernel<T, Y_HALO, false>
               : ymode == Y_WALLS ? &smag_kernel<T, Y_WALLS, false>
                                  : &smag_kernel<T, Y_PERIODIC, false>;

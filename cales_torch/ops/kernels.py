@@ -52,7 +52,11 @@ on the mesh every slab passes its own y-row stack pairs
 halo rows elsewhere) as ye, and the y-walled variants run as on the whole
 field; dsmag and dsmag_level1 take them with their two-row halo and the
 walls the slab owns (ye, yh and yown together), dsmag_level2 with the
-walls it owns (ye and yown).
+walls it owns (ye and yown).  With x walls on the mesh (periodic y)
+x does not wrap either: mom_rk and smag, which read the corners where
+the halo rows meet the x ghost columns, take x stacks that carry the
+neighbours' rows -1 and ny (nyc = ny + 2, their rows in the momentum
+and SGS exchanges), fillps and correc_updatep the slab's own (nyc = ny).
 z metrics are (nz+2,) tensors with ghost entries, in the fields' dtype and
 on their device.
 
@@ -140,18 +144,20 @@ def padded(q, e, y=None, h=None, x=None, rewrite=False):
     """The (nz+2, ny+2, nx+2) ghost-filled field: z ghosts from the edge
     stack e, y ghosts from y = (rows, corners), from the halo pair h =
     (rows (nz, 2, nx), corners (3, 2, nx)) of a slab, or periodic; x
-    ghosts from the x stack pair x (x walls), or periodic.  The kernels
-    read the interior's last column from the field, as here, save u's in
-    the prediction fill, which they take from its x stack's column 1
-    (rewrite: u's set_bc rewrite slot, which the fill puts there)."""
+    ghosts from the x stack pair x (x walls; on a slab its columns carry
+    the neighbours' rows -1 and ny, nyc = ny + 2, where the corners are
+    read), or periodic.  The kernels read the interior's last column from
+    the field, as here, save u's in the prediction fill, which they take
+    from its x stack's column 1 (rewrite: u's set_bc rewrite slot, which
+    the fill puts there)."""
     if h is not None:
         rows, corners = h
-        return wrap_x(torch.cat([zpad(rows[:, :1], corners[:, :1]),
-                                 zpad(q, e),
-                                 zpad(rows[:, 1:], corners[:, 1:])], dim=1))
-    zp = zpad(q, e)
-    a = (torch.cat([zp[:, -1:], zp, zp[:, :1]], dim=1) if y is None
-         else ypad(zp, zpad(*y)))
+        a = torch.cat([zpad(rows[:, :1], corners[:, :1]), zpad(q, e),
+                       zpad(rows[:, 1:], corners[:, 1:])], dim=1)
+    else:
+        zp = zpad(q, e)
+        a = (torch.cat([zp[:, -1:], zp, zp[:, :1]], dim=1) if y is None
+             else ypad(zp, zpad(*y)))
     return wrap_x(a) if x is None else xpad(a, x, rewrite)
 
 
@@ -724,7 +730,8 @@ def _ysplit(ys, halo=False):
 
 def _xsplit(xs, ny, ywalls):
     """_check's arguments for (cols, corners) x stack pairs: nyc = ny, or
-    ny + 2 with y walls."""
+    ny + 2 with y walls (ywalls; also a slab's stacks that carry the rows
+    -1 and ny)."""
     xs = [x for x in xs if x is not None]
     return dict(xcols=[x[0] for x in xs], xcorners=[x[1] for x in xs],
                 nyc=ny + 2 if ywalls else ny)
@@ -775,13 +782,15 @@ def mom_rk(u, v, w, s, p, ue, ve, we, se, pe, ruo, rvo, rwo, dzci, dzfi,
     corners) y-row stack pairs of (u, v, w, visct, p), visct's None without
     visct; yh: a slab of a y-sharded mesh, the halo pairs of the same five
     fields.  xe: x walls, the (cols, corners) x stack pairs of (u, v, w,
-    visct, p), visct's None without visct (with periodic y or y walls;
-    split '1d' with periodic y).  sca: the passive scalar (the argument s
-    is nu_t), with its z-edge stack scae, its previous RHS rso (None with
-    ruo) and scal = (alpha, ssource), its diffusivity visc/pr and source;
-    with y or x walls its stack pair is the sixth entry of ye or xe (its
-    own BC letters and values), on a slab its halo pair the sixth entry of
-    yh (split None or '1d').  Returns (u, v,
+    visct, p), visct's None without visct (with periodic y, y walls or on
+    a slab with yh, where the columns carry the neighbours' rows -1 and
+    ny, nyc = ny + 2; split '1d' with periodic y or on a slab).  sca: the
+    passive scalar (the argument s is nu_t), with its z-edge stack scae,
+    its previous RHS rso (None with ruo) and scal = (alpha, ssource), its
+    diffusivity visc/pr and source; with y or x walls its stack pair is
+    the sixth entry of ye or xe (its own BC letters and values; x walls on
+    one device), on a slab its halo pair the sixth entry of yh (any
+    split).  Returns (u, v,
     w, ru, rv, rw, usum, vsum), and with sca also (s, ds), the scalar and
     its RHS; usum/vsum are None or per-(z, part) partial sums,
     (nz, parts): one part on the CPU, one a (y, x) tile of the kernel on
@@ -799,14 +808,13 @@ def mom_rk(u, v, w, s, p, ue, ve, we, se, pe, ruo, rvo, rwo, dzci, dzfi,
     has_scal = sca is not None
     ye_sc, xe_sc, yh_sc = _six(ye)[5], _six(xe)[5], _six(yh)[5]
     if has_scal and (scae is None or (rso is None) != (ruo is None)
-                     or (yh is not None and split == 'xy+z')
+                     or (yh is not None and xe is not None)
                      or (ye is not None) != (ye_sc is not None)
                      or (xe is not None) != (xe_sc is not None)
                      or (yh is not None) != (yh_sc is not None)):
         raise ValueError('mom_rk: the scalar takes its edge stack, rso '
                          'with ruo, its y and x stack pairs and slab halo '
-                         "with the velocity's (on a slab split None or "
-                         "'1d')")
+                         "with the velocity's (x walls on one device)")
     if not has_scal and (scae is not None or rso is not None
                          or ye_sc is not None or xe_sc is not None
                          or yh_sc is not None):
@@ -817,10 +825,10 @@ def mom_rk(u, v, w, s, p, ue, ve, we, se, pe, ruo, rvo, rwo, dzci, dzfi,
     if xe[0] is not None and (
             any(xe[m] is None for m in (1, 2, 4))
             or (xe[3] is None) != (s is None) or split == 'xy+z'
-            or (split is not None and ye is not None) or yh is not None):
+            or (split is not None and ye is not None)):
         raise ValueError('mom_rk: x walls take the x stacks of u, v, w, p '
                          "and of visct where it is given, with split None "
-                         "or '1d' (periodic y), not on a slab")
+                         "or '1d' (periodic y or a slab)")
     if (ruo is None) != (rvo is None) or (ruo is None) != (rwo is None):
         raise ValueError('mom_rk: pass all or none of ruo, rvo, rwo')
     if (s is None) != (se is None):
@@ -837,7 +845,8 @@ def mom_rk(u, v, w, s, p, ue, ve, we, se, pe, ruo, rvo, rwo, dzci, dzfi,
            edges=(ue, ve, we, se, pe, scae),
            profiles=((dzci, nz + 2), (dzfi, nz + 2)),
            **_ysplit((*ye, ye_sc)), **_ysplit((*yh, yh_sc), halo=True),
-           **_xsplit((*xe, xe_sc), ny, ywalls=ye[0] is not None))
+           **_xsplit((*xe, xe_sc), ny,
+                     ywalls=ye[0] is not None or yh[0] is not None))
     halo = yh[0] is not None
     outs = [torch.empty_like(u) for _ in range(8 if has_scal else 6)]
     from . import build
@@ -873,15 +882,14 @@ def fillps(u, v, w, ue, ve, we, dzfi, dti, dxi, dyi, yv=None, yh=None,
     rewrite row enter the divergence); yh: a slab of a y-sharded mesh, v's
     halo pair (its row -1 enters the divergence); xu: x walls, u's
     prediction-fill x stack pair (its lower x face and rewrite column
-    enter the divergence)."""
+    enter the divergence; on a slab the slab's own rows, nyc = ny, as u is
+    read in its own row only)."""
     if _on_cpu(u):
         return fillps_plain(u, v, w, ue, ve, we, dzfi, dti, dxi, dyi, yv=yv,
                             yh=yh, xu=xu)
     nz, ny, nx = u.shape
     if yv is not None and yh is not None:
         raise ValueError('fillps: y walls or a slab halo, not both')
-    if xu is not None and yh is not None:
-        raise ValueError('fillps: x walls on a slab are not in the slice')
     _check('fillps', u, (u, v, w), edges=(ue, ve, we),
            profiles=((dzfi, nz + 2),), **_ysplit((yv,)),
            **_ysplit((yh,), halo=True),
@@ -955,7 +963,9 @@ def correc_updatep(u, v, w, pp, p, we, ppe, dtrk, dxi, dyi, dzci, dzfi,
     y-sharded mesh, pp's halo pair (v's last row is the slab's own).  x
     walls: xpp, pp's (cols, corners) x stack pair, and xu, u's
     prediction-fill pair, whose column 1 (the set_bc rewrite) stands in
-    for u's interior last column.  Returns (u, v, w, p)."""
+    for u's interior last column (on a slab both hold the slab's own
+    rows, nyc = ny: pp's x ghosts are read in the cell's own row only).
+    Returns (u, v, w, p)."""
     if _on_cpu(u):
         return correc_updatep_plain(u, v, w, pp, p, we, ppe, dtrk, dxi, dyi,
                                     dzci, dzfi, fuv, alpha, impdiff,
@@ -968,9 +978,6 @@ def correc_updatep(u, v, w, pp, p, we, ppe, dtrk, dxi, dyi, dzci, dzfi,
         raise ValueError('correc_updatep: y walls or a slab halo, not both')
     if (xpp is None) != (xu is None):
         raise ValueError('correc_updatep: x walls take xpp and xu together')
-    if xpp is not None and yh is not None:
-        raise ValueError('correc_updatep: x walls on a slab are not in the '
-                         'slice')
     _check('correc_updatep', u, (u, v, w, pp, p), edges=(we, ppe),
            profiles=((dzci, nz + 2), (dzfi, nz + 2))
            + (((fuv, 2),) if fuv is not None else ()),
@@ -1005,8 +1012,9 @@ def smag(u, v, w, ue, ve, we, dzci, dzfi, dxi, dyi, visc, csd2, dw, nearlo,
     caller, sgs.extrapolate_stacks), with ywall = (dwy, nearylo,
     tauw_ylo, tauw_yhi): the (ny,) distance to the nearer y wall and 1
     where it is the lower one, the y walls' (nz, nx) shear planes.  xe: x
-    walls (periodic y or y walls), the (cols, corners) x stack pairs of
-    (u, v, w) (extrapolated on wall-modelled z faces by the caller,
+    walls (periodic y, y walls, or a slab with yh, whose columns carry the
+    neighbours' rows -1 and ny, nyc = ny + 2), the (cols, corners) x stack
+    pairs of (u, v, w) (extrapolated on wall-modelled z faces by the caller,
     sgs.extrapolate_stacks), with xwall = (dwx, nearxlo, tauw_xlo,
     tauw_xhi), the (nx,) distance to the nearer x wall, 1 where it is the
     lower one, and the x walls' (nz, ny) shear planes, or None where
@@ -1018,8 +1026,6 @@ def smag(u, v, w, ue, ve, we, dzci, dzfi, dxi, dyi, visc, csd2, dw, nearlo,
         raise ValueError('smag: y walls or a slab halo, not both')
     if xe is None and xwall is not None:
         raise ValueError('smag: x walls take their x stacks')
-    if xe is not None and yh is not None:
-        raise ValueError('smag: x walls on a slab are not in the slice')
     if _on_cpu(u):
         return smag_plain(u, v, w, ue, ve, we, dzci, dzfi, dxi, dyi, visc,
                           csd2, dw, nearlo, tauw_lo, tauw_hi,
@@ -1043,7 +1049,7 @@ def smag(u, v, w, ue, ve, we, dzci, dzfi, dxi, dyi, visc, csd2, dw, nearlo,
            + (() if ywall is None else ((dwy, ny), (nearylo, ny)))
            + (() if xwall is None else ((dwx, nx), (nearxlo, nx))),
            **_ysplit(ys, halo=yh is not None),
-           **_xsplit(xs, ny, ywalls=ye is not None))
+           **_xsplit(xs, ny, ywalls=ye is not None or yh is not None))
     for what, shape, group in (('y', (nz, nx), (tylo, tyhi)),
                                ('x', (nz, ny), (txlo, txhi))):
         for t in group:

@@ -20,6 +20,8 @@ The transport (parallel/comm.py) is the caller's explicit choice.
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -83,17 +85,22 @@ class SlabMesh:
         One neighbour exchange for all the pairs.  Depth 1 serves the
         stencil kernels, depth 2 the dsmag kernel (its velocity tile's y
         halo); a neighbour's slab must be that deep (no rank two away is
-        reached)."""
+        reached).  Any array whose dim 1 is y may ride the same exchange
+        (an x stack's columns and corners, transposed to (n, nyl, 3)): the
+        trailing dims need not be nx."""
         d = int(depth)
         if not 1 <= d <= self.nyl:
             raise ValueError(f'halo_y: depth {d} on slabs of {self.nyl} rows')
         parts = [q for pair in pairs for q in pair if q is not None]
-        sizes = [q.shape[0] for q in parts]
-        first = torch.cat([q[:, :d] for q in parts])
-        last = torch.cat([q[:, self.nyl - d:] for q in parts])
+        shapes = [(q.shape[0], d, *q.shape[2:]) for q in parts]
+        sizes = [math.prod(sh) for sh in shapes]
+        first = torch.cat([q[:, :d].reshape(-1) for q in parts])
+        last = torch.cat([q[:, self.nyl - d:].reshape(-1) for q in parts])
         from_lo, from_hi = self.comm.exchange(to_lo=first, to_hi=last)
-        rows = iter(torch.cat([lo, hi], dim=1) for lo, hi in zip(
-            torch.split(from_lo, sizes), torch.split(from_hi, sizes)))
+        rows = iter(torch.cat([lo.view(sh), hi.view(sh)], dim=1)
+                    for lo, hi, sh in zip(torch.split(from_lo, sizes),
+                                          torch.split(from_hi, sizes),
+                                          shapes))
         return [(next(rows), None if e is None else next(rows))
                 for _, e in pairs]
 

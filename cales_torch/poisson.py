@@ -33,7 +33,10 @@ On a y-slab mesh (dims = (gy, 1), parallel/mesh.py) solve_sharded is the
 slab-sharded Poisson solve of the JAX package's kernel-sharded route
 (poisson.solve_sharded_pallas): apply_x while x is local, the pencil
 transpose (split x, gather y), apply_y along y only, thomas_z on this
-rank's x columns, apply_y back, the transpose back, apply_x back.
+rank's x columns, apply_y back, the transpose back, apply_x back; with
+alpha the full-3D Helmholtz solve of each velocity component by the same
+route (its tail row passing through); the z-only solves (solve_z_only)
+need no communication and run on each slab.
 
 With y walls (homogeneous-Neumann pressure, the duct and cavity classes)
 the y operator is a DCT matrix and the route is 'mat': apply_y and z_eig
@@ -388,33 +391,41 @@ def solve(sv: DirectSolver, p, alpha=None):
     return _solve_fft(sv, p, alpha)
 
 
-def solve_sharded(sv: DirectSolver, p, mesh):
+def solve_sharded(sv: DirectSolver, p, mesh, alpha=None):
     """The slab-sharded Poisson solve (poisson.solve_sharded_pallas) of this
-    rank's (nz, ny/gy, nx) RHS slab p on `mesh` (parallel/mesh.SlabMesh):
+    rank's (nz, ny/gy, nx) RHS slab p on `mesh` (parallel/mesh.SlabMesh),
+    or with alpha the Helmholtz solve (I + alpha L) of full-3D implicit
+    diffusion, one per velocity component (the JAX package's CN stage on
+    its mesh, timeloop.py:2360-2413):
 
       apply_x forward, written as gy x-column blocks      (nz, ny/gy, nx)
       all-to-all: split x, gather y                       (nz, ny, nx/gy)
       apply_y along y; thomas_z (thomas_periodic with
-      periodic z) on this rank's lamx lanes, the
-      singular lane pinned where bcz is 'NN' or 'PP'
-      on the rank that holds it; apply_y back
+      periodic z) on this rank's lamx lanes: the
+      Poisson solve's singular lane pinned where bcz
+      is 'NN' or 'PP' on the rank that holds it; with
+      alpha the alpha-scaled rows, the (lamy + lamx)
+      alpha shift and no pin, the face-staggered
+      Dirichlet tail row (w with z walls) passed
+      through; apply_y back
       all-to-all back                                     (nz, ny/gy, nx)
       apply_x backward, reading the blocks in place
 
     The z stage is Thomas at every nz, as the JAX route takes it, so the
     result matches the single-device solve (z_eig below nz = 384) to
-    rounding and up to the gauge of the constant mode.  Which
-    configurations come here is timeloop.unsupported()'s to say; the solver
-    must have what all of theirs have: square 'mat' x and y transforms, no
-    face-staggered tail row.  With periodic z (the triperiodic box) the
-    pinned periodic Thomas takes the JAX package's single-device z stage's
-    place (thomas_periodic, poisson.py:575-576): the result differs from
-    it by a constant."""
+    rounding and, for the Poisson solve, up to the gauge of the constant
+    mode.  Which configurations come here is timeloop.unsupported()'s to
+    say; the solver must have what all of theirs have: square 'mat' x and
+    y transforms (the DCT of a walled x too), and a tail row only with
+    alpha.  With periodic z (the triperiodic box) the pinned periodic
+    Thomas takes the JAX package's single-device z stage's place
+    (thomas_periodic, poisson.py:575-576): the result differs from it by a
+    constant."""
     nx, ny, _ = sv.ng
     if not (sv.trx.kind == sv.try_.kind == 'mat' and sv.trx.nsolve == nx
-            and sv.try_.nsolve == ny and not sv.qz):
+            and sv.try_.nsolve == ny and (alpha is not None or not sv.qz)):
         raise ValueError("solve_sharded: the solver needs square 'mat' x "
-                         'and y transforms and no tail row')
+                         'and y transforms, and a tail row only with alpha')
     dt, dev = p.dtype, p.device
     fy, fxT, by, bxT = _dev(sv, 'mat', dt, dev, lambda: tuple(
         _t(m, dt, dev) for m in (sv.try_.fwd_mat, sv.trx.fwd_mat.T,
@@ -423,7 +434,7 @@ def solve_sharded(sv: DirectSolver, p, mesh):
     lamx_l = sv.lamx[mesh.rank * nxl:(mesh.rank + 1) * nxl]
     body = mesh.transpose_y_to_x(sk.apply_x(p, fxT, split=mesh.gy))
     body = sk.apply_y(body, fy)
-    body = _z_thomas(sv, body, lamx_l, key=('lamx_slab', mesh.rank))
+    body = _z_thomas(sv, body, lamx_l, alpha, key=('lamx_slab', mesh.rank))
     body = sk.apply_y(body, by)
     return sk.apply_x(mesh.transpose_x_to_y(body), bxT)
 

@@ -34,7 +34,8 @@ One RK substep runs:
      along z from the bulk mean of w
   3. implicit diffusion, per velocity component: impdiff_1d
      poisson.solve_z_only (the Thomas kernel; the forcing enters as its RHS
-     shift), full-3D poisson.solve with alpha (the forcing added first)
+     shift), full-3D poisson.solve with alpha (the forcing added first;
+     on a mesh poisson.solve_sharded with alpha)
   4. kernels.fillps          div(u)/dt_rk of the prediction
   5. poisson.solve           'fft': cuFFT x/y + z stage; 'mat': apply_y,
                              z_eig, thomas_z or (periodic z)
@@ -67,22 +68,27 @@ its slab, the counterpart of the JAX package's kernel-sharded route
 channel classes: sgstype 'none', static Smagorinsky (with the z walls'
 wall model too) or the dynamic Smagorinsky ('channel', 'dit'; one pass
 with the 3D or the 2D filter, or the two passes: transpiring z walls,
-CALES_DSMAG_TWOPASS=1), explicit diffusion or impdiff_1d; for the
-y-walled duct and cavity classes as one device runs them (sgstype
-'none', static Smagorinsky, the dynamic Smagorinsky with any average by
-one or two passes, explicit diffusion; the wall model on the y and z
-walls, the wall-modelled duct); and for the triperiodic box (sgstype
-'none', static Smagorinsky, the one-pass dynamic Smagorinsky in its
-periodic-z mode with either filter, explicit diffusion, forced along z
-too); each with or without the passive scalar.  The
+CALES_DSMAG_TWOPASS=1), explicit diffusion, impdiff_1d or full-3D
+implicit diffusion; for the y-walled duct and cavity classes as one
+device runs them (sgstype 'none', static Smagorinsky, the dynamic
+Smagorinsky with any average by one or two passes, explicit diffusion;
+the wall model on the y and z walls, the wall-modelled duct); for the
+triperiodic box (sgstype 'none', static Smagorinsky, the one-pass dynamic
+Smagorinsky in its periodic-z mode with either filter, explicit, z-only
+or full-3D implicit diffusion, forced along z too); each with or without
+the passive scalar; and for the developing channel with periodic y and
+its LES (sgstype 'none' or static Smagorinsky, explicit diffusion or
+impdiff_1d, no scalar, no wall model).  The
 halos of the fields each stencil kernel reads at +-1 in y come from the
 neighbours before it runs (mesh.halo_y; two rows deep for the velocity
 tiles of dsmag and dsmag_level1, one row of the filtered velocity for
 dsmag_level2; the scalar's rows ride the momentum kernel's exchange),
 the Poisson solve is poisson.solve_sharded (apply_x, the pencil
 transposes, apply_y, thomas_z or with periodic z thomas_periodic, pinned
-on the rank that holds the singular lane), the z-only CN solves run on
-each slab, the correction and nu_t run as correc_updatep and smag or
+on the rank that holds the singular lane), and so is each full-3D CN
+solve (with alpha: no pin, w's tail row passed through; the CN planes
+the slab's rows), the z-only CN solves run on each slab, the correction
+and nu_t run as correc_updatep and smag or
 dsmag (the fused correc_smag is off, as under the JAX mesh), the wall
 model takes its sampled rows' y halos, and the bulk forcing (the
 scalar's too), dsmag's z sums, the CFL dt and the divergence reduce over
@@ -106,12 +112,20 @@ slab), the z faces' sampled rows take the y recipe on the sides a slab
 owns and the neighbours' rows elsewhere (one exchange of those rows), the
 owner's y-row stacks carry the planes (they are the fill's of
 _dynamic_bcs), and smag's 'E' stacks extrapolate the slab's y-row stacks
-on the walls it owns, y first, then z.
+on the walls it owns, y first, then z.  With x walls (periodic y) each
+slab makes its x stacks from its own rows (the x recipes are pointwise
+along y) and the neighbours' stacks' rows -1 and nyl ride the momentum
+and SGS exchanges (the JAX package's y-sharded xe bundles), so mom_rk
+and smag read the corners where the halo rows meet the x ghost columns
+(their XW x Y_HALO variants); fillps and correc_updatep read the slab's
+own stacks; the x walls' shear planes of van Driest take v's halo row,
+and the kept inflow face advances on the slab's rows.
 
 With x walls (inflow and outflow faces, or walls: the developing channel,
 and with y walls the closed box, the lid-driven cavity and the developing
 duct; sgstype 'none' or static Smagorinsky, explicit diffusion or, with
-periodic y, impdiff_1d, one device) mom_rk, fillps and correc_updatep take
+periodic y, impdiff_1d; on one device, and with periodic y on the y-slab
+mesh as above) mom_rk, fillps and correc_updatep take
 the fields' x stacks (ops/boundary.xedge_*) of the same fills: the
 post-correction fill's columns carried in State.xq (and nu_t's), the
 prediction fill's u columns (u's set_bc rewrite, which the kernels read in
@@ -228,12 +242,14 @@ def _xwalls_refuse(cfg: Config) -> list[str]:
     """What this slice does not run with non-periodic x: it runs x faces
     of letters D and N for every field (walls, inflow, outflow) with
     sgstype 'none' or static Smagorinsky, explicit diffusion or (with
-    periodic y) impdiff_1d, z walls, one device, with periodic y or the
-    y walls that _ywalls_refuse admits, on the all-matrix Poisson route
-    (the developing channel, the closed box, the lid-driven cavity and the
-    developing duct, and their LES); with
-    periodic y also the wall model on the z walls (the developing WMLES)
-    and plane-valued velocity values (an inflow profile, _planes_refuse)."""
+    periodic y) impdiff_1d, z walls, with periodic y or the y walls that
+    _ywalls_refuse admits, on the all-matrix Poisson route (the
+    developing channel, the closed box, the lid-driven cavity and the
+    developing duct, and their LES); with periodic y also the wall model
+    on the z walls (the developing WMLES) and plane-valued velocity values
+    (an inflow profile, _planes_refuse).  On one device; on the y-slab
+    mesh with periodic y, without the wall model or the scalar
+    (_mesh_refuse says which)."""
     out = []
     item = 'ROADMAP queue 1, x walls'
     letters = ([cfg.cbc_vel(0, iv) for iv in range(3)]
@@ -256,8 +272,6 @@ def _xwalls_refuse(cfg: Config) -> list[str]:
         out.append('non-periodic x with a wall model and y walls (the JAX '
                    f'kernel path refuses it too): {item} with a wall model '
                    'and y walls')
-    if cfg.dims[0] * cfg.dims[1] > 1:
-        out.append(f'non-periodic x on a device mesh: {item} on a mesh')
     if cfg.cbc_vel(2, 0)[0] == 'P':
         out.append(f'non-periodic x with periodic z: {item}, BC topologies')
     if cfg.ptransform == 'fft':
@@ -405,18 +419,23 @@ def _wm_refuse(cfg: Config) -> list[str]:
 
 def _mesh_refuse(cfg: Config) -> list[str]:
     """What this slice does not run on a device mesh (dims): the y-slab
-    mesh dims = (gy, 1) runs the channel classes with periodic x and y and
-    the all-matrix Poisson route: sgstype 'none', static Smagorinsky (the
-    z walls may carry the wall model) or the dynamic Smagorinsky ('channel'
-    or 'dit', one pass with the 3D or the 2D filter, or two passes:
-    transpiring z walls, CALES_DSMAG_TWOPASS=1), explicit diffusion or
-    impdiff_1d; with the y walls _ywalls_refuse admits (the duct and
-    cavity classes) what one device runs there, on slabs of at least 2
-    rows, the wall model on the y and z faces too (the wall-modelled duct)
-    where each y face's sampled rows lie on its owner's slab; and with
-    periodic z (the triperiodic box) sgstype 'none', static Smagorinsky
-    or the one-pass dynamic Smagorinsky (the 3D or 2D filter), explicit
-    diffusion.  The passive scalar runs on each of these routes."""
+    mesh dims = (gy, 1) runs, on the all-matrix Poisson route, the channel
+    classes with periodic x and y: sgstype 'none', static Smagorinsky (the
+    z walls may carry the wall model) or the dynamic Smagorinsky
+    ('channel' or 'dit', one pass with the 3D or the 2D filter, or two
+    passes: transpiring z walls, CALES_DSMAG_TWOPASS=1), explicit
+    diffusion, impdiff_1d or full-3D implicit diffusion (a sharded
+    Helmholtz solve a component); with the y walls _ywalls_refuse admits
+    (the duct and cavity classes) what one device runs there, on slabs of
+    at least 2 rows, the wall model on the y and z faces too (the
+    wall-modelled duct) where each y face's sampled rows lie on its
+    owner's slab; with periodic z (the triperiodic box) sgstype 'none',
+    static Smagorinsky or the one-pass dynamic Smagorinsky (the 3D or 2D
+    filter), each diffusion; and with x walls and periodic y (the
+    developing channel and its LES) what one device runs there, sgstype
+    'none' or static Smagorinsky, explicit or impdiff_1d, scalar BC
+    values.  The passive scalar runs on each of these routes but the
+    x-walled one."""
     gy, gx = int(cfg.dims[0]), int(cfg.dims[1])
     nx, ny, _ = cfg.ng
     out = []
@@ -432,10 +451,6 @@ def _mesh_refuse(cfg: Config) -> list[str]:
             out.append(f'dims = ({gy}, {gx}) with dsmag: slabs of {ny // gy} '
                        "y row(s), thinner than the dsmag kernel's two-row y "
                        'halo (a rank two away is not reached)')
-    if cfg.impdiff and not cfg.impdiff_1d:
-        out.append('full-3D implicit diffusion under a device mesh (a '
-                   'sharded Helmholtz solve a component): '
-                   f'{item}, full-3D implicit diffusion')
     if not _periodic(cfg, 1):
         if ny % gy == 0 and ny // gy < 2:
             out.append(f'dims = ({gy}, {gx}) with y walls: slabs of '
@@ -446,11 +461,20 @@ def _mesh_refuse(cfg: Config) -> list[str]:
                        'least 2')
         out += _wm_slab_refuse(cfg, gy)
     if not _periodic(cfg, 0):
-        out.append(f'x walls under a device mesh: {item}')
-    if cfg.cbc_vel(2, 0)[0] == 'P' and cfg.impdiff_1d:
-        out.append('periodic z with impdiff_1d under a device mesh (the '
-                   "slabs' periodic z-only Helmholtz solves): "
-                   f'{item}, impdiff_1d on the periodic box')
+        if not _periodic(cfg, 1):
+            out.append('x and y walls together under a device mesh (the '
+                       'closed box, the cavity, the developing duct: the x '
+                       "stacks' (y ghost, x ghost) corners on the walled "
+                       f'slabs): {item}, x and y walls on a mesh')
+        if any(cfg.lwm[ib][d] != 0 for ib in range(2) for d in range(3)):
+            out.append('x walls with a wall model under a device mesh (the '
+                       "developing WMLES: the sampled rows' x ghosts on a "
+                       f'slab): {item}, x walls with the wall model on a '
+                       'mesh')
+        if cfg.scalar:
+            out.append('x walls with the passive scalar under a device '
+                       "mesh (mom_rk's scalar variant with x walls on a "
+                       f'slab): {item}, x walls with the scalar on a mesh')
     if cfg.ptransform == 'fft':
         out.append(f"ptransform 'fft' under a device mesh: {item}")
     return out
@@ -575,6 +599,29 @@ def _dsmag_ratio(s0, num, den, avg, wz=None, reduce=None):
         return torch.clamp_min(s0 * ratio, 0.0)
     ratio = num1 / den1
     return torch.clamp_min(s0 * ratio[:, None, None], 0.0)
+
+
+def _xstack_halo_pairs(xs):
+    """The x stack pairs xs (cols (nz, 3, nyl), corners (3, 3, nyl); None
+    entries skipped) of a slab as mesh.halo_y pairs, y along dim 1."""
+    return [(c.transpose(1, 2), k.transpose(1, 2)) for c, k in
+            (x for x in xs if x is not None)]
+
+
+def _xstacks_on_slab(xs, halos):
+    """The x stack pairs xs of a slab with the neighbours' rows -1 and nyl
+    (halos: mesh.halo_y's pairs of _xstack_halo_pairs(xs), in order):
+    cols (nz, 3, nyl+2), corners (3, 3, nyl+2), row j at index j + 1, the
+    layout of the y-walled stacks, which mom_rk and smag read where the
+    halo rows meet the x ghost columns (the JAX package's y-sharded xe
+    bundles, cales_tpu timeloop.py:169-183).  The x recipes are pointwise
+    along y, so the neighbours' rows are their own stacks' rows."""
+    def ext(a, h):
+        h = h.transpose(1, 2)
+        return torch.cat([h[..., :1], a, h[..., 1:]], dim=2).contiguous()
+    it = iter(halos)
+    return tuple(None if x is None else tuple(map(ext, x, next(it)))
+                 for x in xs)
 
 
 class Simulation:
@@ -747,12 +794,17 @@ class Simulation:
                     cfg, grid, cbc, _C_OR_F[ivel], bvals[ivel], self.dtype,
                     self.device)
                 if cfg.impdiff_1d:
-                    # on a slab its rows of the z-face planes (z is never
-                    # split: the z-only solves need no communication)
-                    ys = (slice(None) if mesh is None
-                          else slice(mesh.y0, mesh.y0 + mesh.nyl))
-                    planes = {k: q[ys].contiguous()
-                              for k, q in planes.items() if k[0] == 'z'}
+                    planes = {k: q for k, q in planes.items()
+                              if k[0] == 'z'}
+                if mesh is not None:
+                    # on a slab its rows of the z faces' (ny, nx) planes and
+                    # the x faces' (nz, ny) ones, which add_rhs_bound adds
+                    # on the local grid (z and x are never split; the y
+                    # faces are periodic)
+                    ys = slice(mesh.y0, mesh.y0 + mesh.nyl)
+                    planes = {k: (q[ys] if k[0] == 'z' else q[:, ys]
+                                  if k[0] == 'x' else q).contiguous()
+                              for k, q in planes.items()}
                 zero = all(bool((q == 0).all()) for q in planes.values())
                 self.cn_planes.append(None if zero else planes)
 
@@ -943,6 +995,13 @@ class Simulation:
                 mesh += ", the y faces' planes on their owners"
         if self.mesh is not None and self.cfg.impdiff_1d:
             mesh += ', the z-only CN solves on the slab'
+        elif self.mesh is not None and self.cfg.impdiff:
+            mesh += (', the full-3D CN solves slab-sharded (apply_x, the '
+                     f'y<->x all-to-all, apply_y, {zthomas} on the rank\'s '
+                     'lamx lanes, a component each)')
+        if self.mesh is not None and self.xwalled:
+            mesh += (", the x stacks' rows -1 and nyl in the momentum and "
+                     'SGS exchanges')
         if self.yown is not None:
             owns = [n for n, on in zip(('lower', 'upper'), self.yown) if on]
             mesh += ("; y walls: the slab's y-row stacks ("
@@ -1000,14 +1059,19 @@ class Simulation:
             # on the slab, are never read: every fill crops them); with y
             # walls the wall recipe's on the sides the slab owns (and v's
             # rewrite row on the upper wall's slab), vlo's y-ghost rows read
-            # there only
+            # there only; with x walls the x stacks (u's last column its
+            # rewrite slot)
             up, vp, wp = self._halo_padded(
                 (u, v, w), self._zedge_vel(u, v, w, bcu, bcv, bcw),
                 self._yedge_vel(u, v, w, (bcu, bcv, bcw))
-                if self.yown is not None else None)
-        if self.yown is not None and self.has_sgs:
-            # on a slab of a y-walled mesh the SGS kernel on the fill's
-            # interiors and stacks, as after a correction (below)
+                if self.yown is not None else None,
+                self._xedge_vel(u, v, w, (bcu, bcv, bcw))
+                if self.xwalled else None)
+        if self.mesh is not None and (self.ywalled or self.xwalled) \
+                and self.has_sgs:
+            # on a slab of a y-walled or x-walled mesh the SGS kernel on
+            # the fill's interiors and stacks, as after a correction
+            # (below)
             visct = None
         elif self.cfg.sgstype == 'smag':
             visct = sgsmod.smag_visct(self.sgs_setup, self.cfg, self.grid,
@@ -1038,7 +1102,7 @@ class Simulation:
         xq = (self._xedge_vel(u_i, v_i, w_i, (bcu, bcv, bcw))
               if self.xwalled else None)
         if visct is None:
-            visct = self._sgs_stage(u_i, v_i, w_i, zq, vlo, yq)
+            visct = self._sgs_stage(u_i, v_i, w_i, zq, vlo, yq, xq)
         return st0._replace(u=u_i, v=v_i, w=w_i, vlo=vlo, visct=visct, zq=zq,
                             yq=yq, xq=xq)
 
@@ -1126,16 +1190,25 @@ class Simulation:
         return bnd.xedge_scalar(s, self.cbcscal, self.bcscal, self.cfg.dl,
                                 self.grid.dzc, ywalls=self.ywalled)
 
-    def _halo_padded(self, fields, edges, walls=None):
+    def _halo_padded(self, fields, edges, walls=None, xs=None):
         """The (nz+2, nyl+2, nx+2) ghost-filled slabs of `fields` on a
         mesh: z ghosts from their edge stacks, y ghosts from the
         neighbours' rows (one exchange), x periodic; with y walls (walls:
         the stack pairs of the slab's own fill) the slab's y-row stacks,
-        the wall recipe's rows on the sides it owns."""
-        halos = self.mesh.halo_y(list(zip(fields, edges)))
+        the wall recipe's rows on the sides it owns; with x walls (xs: the
+        x stack pairs of the slab's own fill) the x ghosts from them, their
+        rows -1 and nyl from the neighbours in the same exchange, and the
+        first field's (u's) last column its set_bc rewrite slot, as the
+        fill leaves it."""
+        pairs = list(zip(fields, edges))
+        halos = self.mesh.halo_y(pairs + _xstack_halo_pairs(xs or ()))
+        xs = (_xstacks_on_slab(xs, halos[len(pairs):]) if xs is not None
+              else (None,) * len(pairs))
+        halos = halos[:len(pairs)]
         if walls is None:
-            return [kernels.padded(q, e, h=h)
-                    for q, e, h in zip(fields, edges, halos)]
+            return [kernels.padded(q, e, h=h, x=x, rewrite=i == 0)
+                    for i, (q, e, h, x) in enumerate(zip(fields, edges,
+                                                         halos, xs))]
         return [kernels.padded(q, e, y=y) for q, e, y in zip(
             fields, edges, self._yslab(fields, edges, walls, halos))]
 
@@ -1350,23 +1423,26 @@ class Simulation:
         both = self.mesh.all_reduce(both)
         return both[0], both[1]
 
-    def _xwall_shear_planes(self, v, w, we, xq, yq=None):
+    def _xwall_shear_planes(self, v, w, we, xq, vrow=None):
         """The x walls' van Driest shear planes (tauw_xlo, tauw_xhi),
         (nz, ny), from the post-correction fill's x stacks xq: the jumps of
         v and w across each x face (the interior's first or last column
-        minus the ghost column, sgs.f90:117-143 x rows), v's row -1 wrapped
-        or with y walls from its y-row stack and the x stack's y ghost,
-        w's row below z = 0 from its z-edge stack and the x stack's
-        corners.  A face that is no wall takes the other's plane."""
+        minus the ghost column, sgs.f90:117-143 x rows), v's row -1 wrapped,
+        or where the stacks carry the rows -1 and ny (y walls, a slab) from
+        vrow (nz, nx), v's row -1 (its y-row stack's, or on a slab its
+        halo's) and the x stack's y ghost, w's row below z = 0 from its
+        z-edge stack and the x stack's corners.  A face that is no wall
+        takes the other's plane.  On a slab each plane is its rows' (x is
+        never split: no reduction)."""
         (xv, _), (xw, cw) = xq[1], xq[2]
-        js = slice(1, -1) if self.ywalled else slice(None)
+        js = slice(1, -1) if xv.shape[2] == v.shape[1] + 2 else slice(None)
         dxi = self.cfg.dli[0]
 
         def plane(side):
             i, c = (0, 0) if side == 0 else (-1, 2)
             aprev = None
-            if yq is not None:
-                aprev = yq[1][0][:, 0, i] - xv[:, c, 0]
+            if vrow is not None:
+                aprev = vrow[:, i] - xv[:, c, 0]
             return self._shear(v[:, :, i] - xv[:, c, js],
                                w[:, :, i] - xw[:, c, js],
                                we[0][:, i] - cw[0, c, js], dxi, aprev)
@@ -1421,7 +1497,11 @@ class Simulation:
                 pairs = list(zip((u, v, w), strain_e))
                 if ext is not None:
                     pairs.append((ve, None))
-                h = self.mesh.halo_y(pairs)
+                # with x walls (no wall model on the mesh) the x stacks'
+                # rows -1 and nyl ride the exchange
+                h = self.mesh.halo_y(pairs + _xstack_halo_pairs(xq or ()))
+                if self.xwalled:
+                    xq = _xstacks_on_slab(xq, h[len(pairs):])
                 yh = h[:3]
                 # v's rows, and its fill's corners (the fourth pair's
                 # rows with a wall model)
@@ -1437,16 +1517,19 @@ class Simulation:
             aprev = xe = xwall = None
             if self.xwalled:
                 # u's column x = -1 at the z walls from its x stack, the
-                # x walls' shear planes from the x stacks
+                # x walls' shear planes from the x stacks (v's row -1 from
+                # its y-row stack or, on a slab, its halo)
                 xu, cu = xq[0]
-                js = slice(1, -1) if self.ywalled else slice(None)
+                js = (slice(1, -1) if xu.shape[2] == u.shape[1] + 2
+                      else slice(None))
 
                 def aprev(side):
                     k, e = (0, 0) if side == 0 else (-1, 2)
                     return xu[k, 0, js] - cu[e, 0, js]
                 if self.xwall_prof is not None:
+                    vrow = None if rows is None else rows[:, 0]
                     xwall = (*self.xwall_prof, *self._xwall_shear_planes(
-                        v, w, we, xq, yq if self.ywalled else None))
+                        v, w, we, xq, vrow))
                 xe = xq
             tauw_lo, tauw_hi = self._wall_shear_planes(
                 lambda side: ((u[0] - ue[0], v[0] - ve[0]) if side == 0
@@ -1557,7 +1640,10 @@ class Simulation:
         z-face planes (scaled by alpha) enter rows 0 / n_solve - 1.
         Full-3D: the forcing is added to the CN RHS, then add_rhs_bound with
         the alpha-scaled planes and poisson.solve with alpha per component
-        (cales_tpu timeloop.py:2339-2345, 2374-2413)."""
+        (cales_tpu timeloop.py:2339-2345, 2374-2413); on a slab the planes'
+        rows on the local grid and poisson.solve_sharded with alpha (the
+        forcing is the mean over the ranks, _bulk_forcing's).  The z-only
+        solves need no communication: on a slab they run on its rows."""
         cfg = self.cfg
         if not cfg.impdiff_1d:
             out = []
@@ -1569,10 +1655,14 @@ class Simulation:
                                  self.cbcvel[1][d][ivel]) for d in range(3))
                     planes = {k: alpha * q
                               for k, q in self.cn_planes[ivel].items()}
-                    fld = poisson.add_rhs_bound(cfg, _C_OR_F[ivel], cbc, fld,
+                    fld = poisson.add_rhs_bound(self.cfg_local,
+                                                _C_OR_F[ivel], cbc, fld,
                                                 planes)
-                out.append(poisson.solve(self.solver_vel[ivel], fld,
-                                         alpha=alpha))
+                sv = self.solver_vel[ivel]
+                out.append(poisson.solve(sv, fld, alpha=alpha)
+                           if self.mesh is None else
+                           poisson.solve_sharded(sv, fld, self.mesh,
+                                                 alpha=alpha))
             return out
         out = []
         for ivel, fld in enumerate((u, v, w)):
@@ -1728,20 +1818,23 @@ class Simulation:
                   self._yedge_p(p))
             if self.has_scal:
                 ye = (*ye, self._yedge_scal(sca))
+        # with x walls the x columns of the same fill
+        xe = ((*xq, self._xedge_s(visct) if self.has_sgs else None,
+               self._xedge_p(p)) if self.xwalled else None)
         if self.mesh is not None:
             # the neighbours' rows of the same fill and of the scalar, one
-            # exchange
+            # exchange; with x walls their x stacks' rows ride it
             fields, edges = (u, v, w, s, p, sca), (ue, ve, we, se, pe, scae)
-            h = iter(self.mesh.halo_y([(q, e) for q, e in zip(fields, edges)
-                                       if q is not None]))
+            pairs = [(q, e) for q, e in zip(fields, edges) if q is not None]
+            h = self.mesh.halo_y(pairs + _xstack_halo_pairs(xe or ()))
+            if xe is not None:
+                xe = _xstacks_on_slab(xe, h[len(pairs):])
+            h = iter(h[:len(pairs)])
             yh = tuple(None if q is None else next(h) for q in fields)
             if self.yown is not None:
                 # with y walls the slab's stacks, the y-walled variant
                 ye = self._yslab(fields, edges, ye, yh)
                 yh = None
-        # with x walls the x columns of the same fill
-        xe = ((*xq, self._xedge_s(visct) if self.has_sgs else None,
-               self._xedge_p(p)) if self.xwalled else None)
         scal_kw = {}
         if self.has_scal:
             scal_kw = dict(sca=sca, scae=scae,
@@ -1928,18 +2021,25 @@ class Simulation:
         edges = [*self._zedge_vel(state.u, state.v, state.w, bcu, bcv, bcw,
                                   vlo=state.vlo, is_correc=True),
                  self._zedge_s(state.visct)]
-        walls = None
+        walls = xs = None
         if self.yown is not None:
             walls = [*self._yedge_vel(state.u, state.v, state.w,
                                       (bcu, bcv, bcw), vlo=state.vlo,
                                       is_correc=True),
                      self._yedge_s(state.visct)]
+        if self.xwalled:
+            xs = [*self._xedge_vel(state.u, state.v, state.w,
+                                   (bcu, bcv, bcw), vlo=state.vlo,
+                                   is_correc=True),
+                  self._xedge_s(state.visct)]
         if with_p:
             fields.append(state.p)
             edges.append(self._zedge_p(state.p))
             if walls is not None:
                 walls.append(self._yedge_p(state.p))
-        out = self._halo_padded(fields, edges, walls)
+            if xs is not None:
+                xs.append(self._xedge_p(state.p))
+        out = self._halo_padded(fields, edges, walls, xs)
         return (*out[:3], out[4] if with_p else None, out[3])
 
     def check(self, state: State):

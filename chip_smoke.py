@@ -39,13 +39,17 @@ duct's small f64 case too), the wall-modelled duct and the box on the
 same mesh, and there the passive scalar (the channel LES and the dsmag
 duct with one), the two-pass dynamic Smagorinsky (the transpiring
 channel, the duct by the switch) and the 2D test filter (the dsmag
-channel and the box), their slab modes timed in phase 2b.
+channel and the box), full-3D implicit diffusion (the channel DNS and the
+box; the box with impdiff_1d and the scalar channel LES with full-3D as
+small f64 cases) and x walls (the developing channel and its LES with
+impdiff_1d), their slab modes timed in phase 2b.
 
     python3 chip_smoke.py            # all phases, one card
 
 (``chip_smoke.py --sharded-rank DIR`` is one rank of the mesh phase 10,
-``--sharded-les-rank DIR`` one of phases 10i to 10tf, which the script
-starts itself under torch.distributed.run.)
+``--sharded-les-rank DIR`` one of phases 10i to 10tf and
+``--sharded-les-rank DIR second`` one of phases 10i3 to 10i3s, which the
+script starts itself under torch.distributed.run.)
 
 Exits non-zero without a CUDA device, or when any phase fails.  The last
 line of standard output is {"ok": true, "device": {...}}; the line before
@@ -182,7 +186,21 @@ SLAB_MODE_ROWS = {'wallmodel (y walls, slab)': ('wallmodel', '10yw'),
                   'dsmag_level2 (y walls, slab, duct)': ('dsmag_level2',
                                                          '10yb'),
                   'dsmag (2D filter, slab)': ('dsmag', '10f'),
-                  'dsmag (2D filter, periodic z, slab)': ('dsmag', '10tf')}
+                  'dsmag (2D filter, periodic z, slab)': ('dsmag', '10tf'),
+                  # full-3D implicit diffusion's and the x walls' slab
+                  # modes (phases 10i3, 10i3s, 10x, 10xb;
+                  # slab_imp3d_x_rows)
+                  'mom_rk (y halo, split xy+z)': ('mom_rk', '10i3'),
+                  'mom_rk (scalar, y halo, split xy+z)': ('mom_rk',
+                                                          '10i3s'),
+                  'correc_updatep (y halo, full-3D)': ('correc_updatep',
+                                                       '10i3'),
+                  'mom_rk (x walls, y halo)': ('mom_rk', '10x'),
+                  "mom_rk (x walls, y halo, nu_t, '1d')": ('mom_rk', '10xb'),
+                  'fillps (x walls, y halo)': ('fillps', '10x'),
+                  'correc_updatep (x walls, y halo)': ('correc_updatep',
+                                                       '10x'),
+                  'smag (x walls, y halo)': ('smag', '10xb')}
 LES_KERNELS = ('mom_rk', 'fillps', 'correc_smag')
 # H100 SXM data-sheet rates: HBM
 # bytes/s and float32 / float64 FLOP/s outside the tensor cores
@@ -1109,6 +1127,7 @@ def phase_kernels(dev, card):
     rows.update(walled_slab_rows(dev, card))
     rows.update(slab_mode_rows(dev, card))
     rows.update(slab_twopass_rows(dev, card))
+    rows.update(slab_imp3d_x_rows(dev, card))
     return rows
 
 
@@ -1489,6 +1508,35 @@ def slab_mode_rows(dev, card):
     return rows
 
 
+def _check_row(row, fn, twin, a, kw, totals, work_of, card, shape):
+    """A phase 2b slab-mode row: the float32 kernel against its float32
+    twin (within 1e-5 of each output's maximum) and, on the same inputs in
+    float64, the float64 kernel against the float64 twin (within 1e-12)
+    and the float32 kernel against the float64 twin (reported); timed with
+    its twin (CUDA events), its bound from work_of() -> (bytes,
+    operations); totals(list of outputs) -> their comparable form (partial
+    sums as totals)."""
+    got = totals(_flat(fn(*a, **kw)))
+    ref = totals(_flat(twin(*a, **kw)))
+    a64, kw64 = _to64(a), _to64(kw)
+    ref64 = totals(_flat(twin(*a64, **kw64)))
+    err64 = max(e[1] for e in _rel_errs(
+        totals(_flat(fn(*a64, **kw64))), ref64))
+    errs = _rel_errs(got, ref)
+    rel64 = max(e[1] for e in _rel_errs(got, ref64))
+    require(all(np.isfinite(e[0]) and e[1] <= 1e-5 for e in errs),
+            f'{row}: float32 error above 1e-5 of an output maximum')
+    require(err64 <= 1e-12, f'{row}: float64 kernel {err64:.3e} from its '
+                            'twin, above 1e-12')
+    del a64, kw64, ref64
+    ms = time_ms(lambda: fn(*a, **kw))
+    plain_ms = time_ms(lambda: twin(*a, **kw), n=3)
+    nbytes, flops = work_of()
+    return _slab_row(row, errs, rel64, ms, plain_ms, nbytes, flops,
+                     torch.float32, card, f64_vs_f64_twin=err64,
+                     shape=list(shape))
+
+
 def slab_twopass_rows(dev, card):
     """Phase 2b's rows of the passive scalar's, the two-pass dsmag's and
     the 2D test filter's slab modes (SLAB_MODE_ROWS, phases 10s, 10b,
@@ -1530,36 +1578,9 @@ def slab_twopass_rows(dev, card):
                         'dtype': 'float32'})
         return Simulation(cfg, make_grid_from_config(cfg), device=dev)
 
-    def flat(res):
-        out = []
-        for q in (res if isinstance(res, (tuple, list)) else (res,)):
-            if isinstance(q, (tuple, list)):
-                out += flat(q)
-            elif q is not None:
-                out.append(q)
-        return out
-
     def check(row, fn, twin, a, kw, totals, work_of):
-        """The row's errors in float32 and float64, times and bound;
-        totals(list of outputs) -> their comparable form (partial sums as
-        totals); work_of() -> (bytes, operations)."""
-        got, ref = totals(flat(fn(*a, **kw))), totals(flat(twin(*a, **kw)))
-        a64, kw64 = _to64(a), _to64(kw)
-        ref64 = totals(flat(twin(*a64, **kw64)))
-        err64 = max(e[1] for e in _rel_errs(
-            totals(flat(fn(*a64, **kw64))), ref64))
-        errs = _rel_errs(got, ref)
-        rel64 = max(e[1] for e in _rel_errs(got, ref64))
-        require(all(np.isfinite(e[0]) and e[1] <= 1e-5 for e in errs),
-                f'{row}: float32 error above 1e-5 of an output maximum')
-        require(err64 <= 1e-12, f'{row}: float64 kernel {err64:.3e} from '
-                                'its twin, above 1e-12')
-        del a64, kw64, ref64
-        ms = time_ms(lambda: fn(*a, **kw))
-        plain_ms = time_ms(lambda: twin(*a, **kw), n=3)
-        nbytes, flops = work_of()
-        return _slab_row(row, errs, rel64, ms, plain_ms, nbytes, flops, f32,
-                         card, f64_vs_f64_twin=err64, shape=list(shape))
+        return _check_row(row, fn, twin, a, kw, totals, work_of, card,
+                          shape)
 
     def nbytes_of(nin, nout, extra):
         cells = nx * nyl * nz
@@ -1692,6 +1713,174 @@ def slab_twopass_rows(dev, card):
                         'max_abs_err', 'max_rel_err', 'f32_vs_f64_twin',
                         'f64_vs_f64_twin')})
         del sim, U, E, h2, ys, lv1, kw1, fm, fvel, lij, s0, fze, h1, fys, lv2
+        torch.cuda.empty_cache()
+    return rows
+
+
+def slab_imp3d_x_rows(dev, card):
+    """Phase 2b's rows of the full-3D and the x-walled slab modes
+    (SLAB_MODE_ROWS, phases 10i3, 10i3s, 10x, 10xb) at the headline's slab
+    on dims (2, 1), (nx, ny/2, nz), on seeded random fields and halo rows,
+    each by _check_row (float32 within 1e-5 of its twin, float64 within
+    1e-12), its bound the bytes (each input, stack, halo and output once)
+    or the arithmetic:
+      mom_rk's 'xy+z' split with the halos (Y_HALO, no nu_t: the full-3D
+        channel DNS), and its scalar variant with nu_t (the scalar channel
+        LES with full-3D);
+      correc_updatep's halo variant with full-3D alpha L(pp);
+      with x walls (XDEV_CFG's and XLES_IMP_CFG's x stacks of the slab's
+        fields, and random neighbours' rows -1 and nyl where mom_rk and
+        smag read them): mom_rk's XW x Y_HALO explicit without nu_t, and
+        with nu_t and the '1d' split; fillps's and correc_updatep's on the
+        slab's own stacks; smag's with the x walls' van Driest inputs."""
+    from cales_torch.config import Config
+    from cales_torch.grid import make_grid_from_config
+    from cales_torch.ops import kernels as K
+    from cales_torch.timeloop import Simulation, _xstacks_on_slab
+    f32 = torch.float32
+    nx, ny, nz = HEADLINE_NG
+    nyl = ny // 2
+    shape = (nx, nyl, nz)
+    cells = nx * nyl * nz
+    gen = torch.Generator(device=dev).manual_seed(SEED + 29)
+
+    def rnd(*sz, scale=0.02):
+        return scale * torch.randn(sz, generator=gen, device=dev, dtype=f32)
+
+    def halo(n=nz):
+        return (rnd(n, 2, nx), rnd(3, 2, nx))
+
+    def sim_of(kw):
+        cfg = Config(**{**kw, 'ng': shape, 'dims': (1, 1),
+                        'dtype': 'float32'})
+        return Simulation(cfg, make_grid_from_config(cfg), device=dev)
+
+    def nbytes_of(nin, nout, extra):
+        return ((nin + nout) * cells * 4
+                + sum(q.numel() * q.element_size() for q in _flat(extra)))
+
+    def mom_totals(res):
+        # u, v, w, ru, rv, rw, the usum partial sums (per-plane totals),
+        # and with the scalar s, ds
+        return [*res[:6], res[6].sum(dim=1), *res[7:]]
+
+    def row_of(row, fn, twin, a, kw, totals, work):
+        return _check_row(row, fn, twin, a, kw, totals,
+                          lambda: (nbytes_of(*work[:2], work[3]),
+                                   work[2] * cells), card, shape)
+    rows = {}
+    say(f'phase 2b: the full-3D and x-walled slab modes at the slab (nx, '
+        f'ny/2, nz) = {shape}, float32, against their twins in float32 and '
+        f'float64  [{card}]')
+    # the full-3D channel DNS's mom_rk on the slab
+    sim = sim_of(dict(DNS_CFG, impdiff_1d=False))
+    cfg = sim.cfg
+    u, v, w, p, ru, rv, rw = (rnd(nz, nyl, nx) for _ in range(7))
+    e = [rnd(3, nyl, nx) for _ in range(4)]
+    h = [halo() for _ in range(4)]
+    a = (u, v, w, None, p, e[0], e[1], e[2], None, e[3], ru, rv, rw,
+         sim.dzci_t, sim.dzfi_t, 0.01, -0.005, cfg.visc, cfg.dli[0],
+         cfg.dli[1], cfg.bforce)
+    kw = dict(sums=(True, False), split='xy+z', yh=(*h[:3], None, h[3]))
+    rows['mom_rk (y halo, split xy+z)'] = row_of(
+        'mom_rk (y halo, split xy+z)', K.mom_rk, K.mom_rk_plain, a, kw,
+        mom_totals, (*WORK_VARIANT[('mom_rk', 'xyz')], h))
+    # correc_updatep's halo variant with full-3D alpha L(pp)
+    pp, ppe = rnd(nz, nyl, nx), rnd(3, nyl, nx)
+    hp = halo()
+    a = (u, v, w, pp, p, e[2], ppe, 0.01, cfg.dli[0], cfg.dli[1],
+         sim.dzci_t, sim.dzfi_t)
+    kw = dict(alpha=ALPHA * 0.01, impdiff=True, impdiff_1d=False, yh=hp)
+    rows['correc_updatep (y halo, full-3D)'] = row_of(
+        'correc_updatep (y halo, full-3D)', K.correc_updatep,
+        K.correc_updatep_plain, a, kw, list,
+        (*WORK_VARIANT[('correc_updatep', 'impdiff')], hp))
+    del sim, a, kw, u, v, w, p, ru, rv, rw, e, h, pp, ppe, hp
+    torch.cuda.empty_cache()
+    # the scalar channel LES with full-3D: mom_rk's scalar variant
+    sim = sim_of(dict(LES_SC_CFG, impdiff=True))
+    cfg = sim.cfg
+    u, v, w, p, ru, rv, rw, rso = (rnd(nz, nyl, nx) for _ in range(8))
+    s = rnd(nz, nyl, nx, scale=1e-3).abs()
+    sca = rnd(nz, nyl, nx, scale=0.3).abs()
+    e = [rnd(3, nyl, nx) for _ in range(4)]
+    se = rnd(3, nyl, nx, scale=1e-3).abs()
+    h = (*(halo() for _ in range(3)), (rnd(nz, 2, nx, scale=1e-3).abs(),
+                                       rnd(3, 2, nx, scale=1e-3).abs()),
+         halo(), (rnd(nz, 2, nx, scale=0.3).abs(),
+                  rnd(3, 2, nx, scale=0.3).abs()))
+    a = (u, v, w, s, p, e[0], e[1], e[2], se, e[3], ru, rv, rw, sim.dzci_t,
+         sim.dzfi_t, 0.01, -0.005, cfg.visc, cfg.dli[0], cfg.dli[1],
+         cfg.bforce)
+    kw = dict(sums=(True, False), split='xy+z', yh=h, sca=sca,
+              scae=sim._zedge_scal(sca), rso=rso, scal=sim.scal_params)
+    rows['mom_rk (scalar, y halo, split xy+z)'] = row_of(
+        'mom_rk (scalar, y halo, split xy+z)', K.mom_rk, K.mom_rk_plain, a,
+        kw, mom_totals, (*WORK_VARIANT[('mom_rk', 'les_sc')], h))
+    del sim, a, kw, u, v, w, p, ru, rv, rw, rso, s, sca, e, se, h
+    torch.cuda.empty_cache()
+    # x walls on the slab: the developing channel, and its LES with
+    # impdiff_1d
+    for key, kwc in (('dev', XDEV_CFG), ('les', XLES_IMP_CFG)):
+        sim = sim_of(kwc)
+        cfg = sim.cfg
+        sgs = sim.has_sgs
+        dxi, dyi = cfg.dli[0], cfg.dli[1]
+        u = 1.0 + rnd(nz, nyl, nx, scale=0.1)
+        v, w, p, pp, ru, rv, rw = (rnd(nz, nyl, nx) for _ in range(7))
+        s = rnd(nz, nyl, nx, scale=1e-3).abs()
+        bcs = (sim.bcu_vals, sim.bcv_vals, sim.bcw_vals)
+        zq = sim._zedge_vel(u, v, w, *bcs)
+        xq = sim._xedge_vel(u, v, w, bcs)
+        xs = (*xq, sim._xedge_s(s) if sgs else None, sim._xedge_p(p))
+        # the neighbours' rows of the stacks (the exchange's)
+        xh = [(rnd(nz, 2, 3), rnd(3, 2, 3)) for q in xs if q is not None]
+        xe = _xstacks_on_slab(xs, xh)
+        h = [halo() for _ in range(5)]
+        yh = (*h[:3], h[3] if sgs else None, h[4])
+        a = (u, v, w, s if sgs else None, p, *zq,
+             sim._zedge_s(s) if sgs else None, sim._zedge_p(p), ru, rv, rw,
+             sim.dzci_t, sim.dzfi_t, 0.01, -0.005, cfg.visc, dxi, dyi,
+             cfg.bforce)
+        kw = dict(sums=(False, False), split=sim.split, yh=yh, xe=xe)
+        row = ('mom_rk (x walls, y halo)' if key == 'dev'
+               else "mom_rk (x walls, y halo, nu_t, '1d')")
+        nin, nout, per_cell = (WORK_VARIANT[('mom_rk', 'xdev')] if key ==
+                               'dev' else WORK['mom_rk'])
+        rows[row] = row_of(row, K.mom_rk, K.mom_rk_plain, a, kw, list,
+                           (nin, nout, per_cell, (yh, xe)))
+        if key == 'dev':
+            # fillps and correc_updatep on the slab's own stacks (the
+            # prediction fill's u, pp's)
+            xu2 = sim._xedge_vel(u, v, w, fields=(0, 2))[0]
+            hv = halo()
+            a = (u, v, w, *zq, sim.dzfi_t, 100.0, dxi, dyi)
+            rows['fillps (x walls, y halo)'] = row_of(
+                'fillps (x walls, y halo)', K.fillps, K.fillps_plain, a,
+                dict(yh=hv, xu=xu2), list, (*WORK['fillps'], (hv, xu2)))
+            xpp, hp = sim._xedge_p(pp), halo()
+            a = (u, v, w, pp, p, zq[2], sim._zedge_p(pp), 0.01, dxi, dyi,
+                 sim.dzci_t, sim.dzfi_t)
+            kw = dict(alpha=ALPHA * 0.01, impdiff=True, impdiff_1d=True,
+                      yh=hp, xpp=xpp, xu=xu2)
+            rows['correc_updatep (x walls, y halo)'] = row_of(
+                'correc_updatep (x walls, y halo)', K.correc_updatep,
+                K.correc_updatep_plain, a, kw, list,
+                (*WORK['correc_updatep'], (hp, xpp, xu2)))
+        else:
+            # smag with the x walls' van Driest inputs (random shear
+            # planes; the z walls' too)
+            planes = tuple(1e-2 * (1.0 + rnd(nz, nyl).abs())
+                           for _ in range(2))
+            tz = tuple(1e-2 * (1.0 + rnd(nyl, nx).abs()) for _ in range(2))
+            xwall = (*sim.xwall_prof, *planes)
+            a = (u, v, w, *zq, sim.dzci_t, sim.dzfi_t, dxi, dyi, cfg.visc,
+                 sim.csd2_t, sim.dw_t, sim.nearlo_t, *tz)
+            kw = dict(yh=h[:3], xe=xe[:3], xwall=xwall)
+            rows['smag (x walls, y halo)'] = row_of(
+                'smag (x walls, y halo)', K.smag, K.smag_plain, a, kw, list,
+                (*WORK['smag'], (h[:3], xe[:3], xwall, tz)))
+        del sim, a, kw, u, v, w, p, pp, ru, rv, rw, s, zq, xq, xs, xh, xe, h
         torch.cuda.empty_cache()
     return rows
 
@@ -3043,7 +3232,7 @@ def sharded_rank_body(out_dir):
                      mesh=m64)
     st = sim.initial_state(*_perturbed_fields(cfg64, SEED + 5))
     dt = sim.pick_dt(sim.check(st)[0])
-    for _ in range(3):
+    for _ in range(MESH_SMALL_STEPS):
         st, _ = sim.step(st, dt)
     small = {q: m64.gather(getattr(st, q))
              for q in ('u', 'v', 'w', 'p', 'visct')}
@@ -3265,17 +3454,55 @@ MESH_CLASSES = (
      dict(TRI_CFG, sgstype='dsmag', dsmag_avg='dit', filter_2d=True,
           dims=(2, 1)), None,
      dict(mom_rk=3, fillps=3, correc_updatep=3, dsmag=3, apply_x=6,
-          apply_y=6, thomas_periodic=3), {'dsmag': 1}))
+          apply_y=6, thomas_periodic=3), {'dsmag': 1}),
+    # full-3D implicit diffusion (three sharded Helmholtz solves a substep
+    # beside the Poisson solve: apply_x and apply_y 8 and the Thomas kernel
+    # 4 a substep) and x walls with periodic y (the x stacks' rows in the
+    # exchanges): their rows are phase 2b's (slab_imp3d_x_rows)
+    ('10i3', 'channel DNS, full-3D implicit diffusion (phase 5f)',
+     dict(DNS_CFG, impdiff_1d=False, dims=(2, 1)), None,
+     dict(mom_rk=3, fillps=3, correc_updatep=3, apply_x=24, apply_y=24,
+          thomas_z=12), {}),
+    ('10t3', 'triperiodic DNS, full-3D implicit diffusion (phase 9i)',
+     dict(TRI_CFG, impdiff=True, dims=(2, 1)), None,
+     dict(mom_rk=3, fillps=3, correc_updatep=3, apply_x=24, apply_y=24,
+          thomas_periodic=12), {}),
+    ('10x', 'developing channel (phase 11, examples/developing_channel)',
+     dict(XDEV_CFG, dims=(2, 1)), None,
+     dict(mom_rk=3, fillps=3, correc_updatep=3, apply_x=6, apply_y=6,
+          thomas_z=3), {}),
+    ('10xb', 'developing channel LES, impdiff_1d (phase 12b)',
+     dict(XLES_IMP_CFG, dims=(2, 1)), None,
+     dict(mom_rk=3, fillps=3, correc_updatep=3, smag=3, apply_x=6,
+          apply_y=6, thomas_z=12), {'smag': 1}))
+# the classes of the second runner (a subprocess of their own, so that
+# neither runner nears its time limit)
+MESH_SECOND = ('10i3', '10t3', '10x', '10xb', '10t1', '10i3s')
 # the classes that run under CALES_DSMAG_TWOPASS=1 (twopass), their small
 # twin and its one-device reference too: the duct by two passes
 MESH_TWOPASS = ('10yb',)
 # report row -> kernel
 MESH_LES_ROWS = {'mom_rk (y halo, split 1d)': 'mom_rk',
                  'wallmodel (y halo)': 'wallmodel', 'dsmag (y halo)': 'dsmag'}
-# the classes run only as their small float64 twin on the mesh: the duct
-# with sgstype 'none'
-MESH_SMALL_ONLY = (('10yn', "'none' duct",
-                    dict(DUCT_CFG, sgstype='none', dims=(2, 1))),)
+# the classes run only as their small float64 twin on the mesh, with
+# their launches a step there: the duct with sgstype 'none', the box with
+# impdiff_1d (the slabs' periodic z-only solves) and the scalar channel
+# LES with full-3D implicit diffusion (mom_rk's scalar 'xy+z' variant on
+# the slab)
+MESH_SMALL_ONLY = (
+    ('10yn', "'none' duct", dict(DUCT_CFG, sgstype='none', dims=(2, 1)),
+     dict(mom_rk=3, fillps=3, correc_updatep=3, apply_x=6, apply_y=6,
+          thomas_z=3)),
+    ('10t1', 'triperiodic DNS, impdiff_1d',
+     dict(TRI_CFG, impdiff=True, impdiff_1d=True, dims=(2, 1)),
+     dict(mom_rk=3, fillps=3, correc_updatep=3, apply_x=6, apply_y=6,
+          thomas_periodic=12)),
+    ('10i3s', 'scalar channel LES, full-3D implicit diffusion',
+     dict(LES_SC_CFG, impdiff=True, dims=(2, 1)),
+     dict(mom_rk=3, fillps=3, correc_updatep=3, smag=3, apply_x=24,
+          apply_y=24, thomas_z=12)))
+# the small runs' steps
+MESH_SMALL_STEPS = 3
 # the y-walled slab rows of phase 2b -> the mesh phase whose main path
 # launches them
 WALLED_SLAB_PHASE = {'mom_rk (y walls, slab)': '10y',
@@ -3356,6 +3583,19 @@ def _mesh_gates(sim, state, mesh):
         scal = dict(s_min=mesh.reduce_scalar(float(state.s.min()), 'min'),
                     s_max=mesh.reduce_scalar(float(state.s.max()), 'max'),
                     time=state.time)
+    if sim.xwalled:
+        # u on the inflow face (the kept lower face's rows of the slab)
+        # against its value, and the flux through the outflow face (u's
+        # last column) against the inflow's, sums of u dz over the ranks
+        dzf = torch.as_tensor(sim.grid.dzf[1:-1], dtype=torch.float64,
+                              device=state.u.device)[:, None]
+        face = state.vlo[0][1:-1, 1:-1].double()
+        scal.update(
+            u_inflow=mesh.reduce_scalar(float(
+                (face - float(sim.cfg.bcvel[0][0][0])).abs().max()), 'max'),
+            flux_in=mesh.reduce_scalar(float((face * dzf).sum()), 'sum'),
+            flux_out=mesh.reduce_scalar(float(
+                (state.u[:, :, -1].double() * dzf).sum()), 'sum'))
     return dict(**scal,
         energy=mesh.reduce_scalar(
             0.5 * float(sum((q.double() ** 2).sum()
@@ -3473,10 +3713,10 @@ def _mesh_les_row(row, sim, state, mesh, dt, card):
 
 
 def _mesh_small(key, kw, mesh, dev, out_dir):
-    """A class's small float64 twin on the slabs, 3 steps from the
-    perturbed start; rank 0 writes the gathered fields (and the kept wall
-    planes, vlo[1] its own and vlo[2] over the slabs' rows) for the
-    parent."""
+    """A class's small float64 twin on the slabs, MESH_SMALL_STEPS steps
+    from the perturbed start; rank 0 writes the gathered fields (and the
+    kept wall planes, vlo[1] its own, vlo[2] over the slabs' rows, vlo[0]
+    over the slabs' interior rows) for the parent."""
     from cales_torch.config import Config
     from cales_torch.grid import make_grid_from_config
     from cales_torch.parallel import mesh as meshmod
@@ -3487,7 +3727,7 @@ def _mesh_small(key, kw, mesh, dev, out_dir):
                      mesh=m64)
     st = sim.initial_state(*_perturbed_fields(cfg64, SEED + 5))
     dt = sim.pick_dt(sim.check(st)[0])
-    for _ in range(3):
+    for _ in range(MESH_SMALL_STEPS):
         st, _ = sim.step(st, dt)
     small = {q: m64.gather(getattr(st, q))
              for q in ('u', 'v', 'w', 'p', 'visct')
@@ -3497,16 +3737,20 @@ def _mesh_small(key, kw, mesh, dev, out_dir):
     small['vlo2'] = np.concatenate([w2[0][:1]] + [q[1:-1] for q in w2]
                                    + [w2[-1][-1:]])
     small['vlo1'] = st.vlo[1].cpu().numpy()
+    small['vlo0'] = np.concatenate(
+        [q.cpu().numpy()[:, 1:-1] for q in m64.comm.all_gather(
+            st.vlo[0].contiguous())], axis=1)
     if mesh.rank == 0:
         np.savez(out_dir / f'small_{key}.npz', dt=dt, **small)
     del sim, st
 
 
-def sharded_les_rank(out_dir):
-    """sharded_les_rank_body, with a failure's traceback written to
-    DIR/rank<r>.err for the parent to show."""
+def sharded_les_rank(out_dir, second=False):
+    """sharded_les_rank_body on the classes of MESH_SECOND (second) or on
+    the others, with a failure's traceback written to DIR/rank<r>.err for
+    the parent to show."""
     try:
-        return sharded_les_rank_body(out_dir)
+        return sharded_les_rank_body(out_dir, second)
     except BaseException:
         import traceback
         rank = os.environ.get('RANK', '?')
@@ -3514,17 +3758,19 @@ def sharded_les_rank(out_dir):
         raise
 
 
-def sharded_les_rank_body(out_dir):
+def sharded_les_rank_body(out_dir, second=False):
     """One rank of phases 10i, 10w, 10d, 10y, 10yc, 10ys, 10yw, 10t, 10tl,
-    10td, 10s, 10ysc, 10b, 10yb, 10f and 10tf (started under
+    10td, 10s, 10ysc, 10b, 10yb, 10f and 10tf, or with second of 10i3,
+    10t3, 10x, 10xb, 10t1 and 10i3s (MESH_SECOND) (started under
     torch.distributed.run, two ranks on the one card over gloo, staged
     through pinned host buffers): each class at the headline grid through
     driver.run with every launch count set to 0 just before and read just
     after, its gates, its ms/step, its slab variant against its twin (the
     channel classes'), and its small f64 twin, whose gathered fields rank
     0 writes for the parent; 10d also takes one step with 'dit', and the
-    'none' duct runs its small twin only; the classes of MESH_TWOPASS
-    under CALES_DSMAG_TWOPASS=1."""
+    classes of MESH_SMALL_ONLY run their small twin only, their launches
+    counted there; the classes of MESH_TWOPASS under
+    CALES_DSMAG_TWOPASS=1."""
     from cales_torch import driver
     from cales_torch.config import Config
     from cales_torch.parallel import mesh as meshmod
@@ -3536,12 +3782,17 @@ def sharded_les_rank_body(out_dir):
     res = {'rank': rank, 'card': card}
     runs = [(key, kw) for key, _, kw, *_ in MESH_CLASSES]
     runs.append(('10d dit', dict(MESH_CLASSES[2][2], dsmag_avg='dit')))
-    runs += [(key, kw) for key, _, kw in MESH_SMALL_ONLY]
+    runs += [(key, kw) for key, _, kw, _ in MESH_SMALL_ONLY]
+    runs = [(key, kw) for key, kw in runs
+            if (key in MESH_SECOND) == second]
     small_only = {key for key, *_ in MESH_SMALL_ONLY}
     for key, kw in runs:
         with _mesh_env(key):
             if key in small_only:
+                reset_counts()
                 _mesh_small(key, kw, mesh, dev, out_dir)
+                torch.cuda.synchronize()
+                res[key] = {'launches': counts(), 'steps': MESH_SMALL_STEPS}
                 continue
             cfg = Config(**kw)
             m = meshmod.SlabMesh(mesh.comm, cfg.dims, cfg.ng)
@@ -3594,29 +3845,36 @@ def sharded_les_rank_body(out_dir):
     return 0
 
 
-def _small_vs_one_device(tag, kw, small, dev, ywalled):
+def _small_vs_one_device(tag, kw, small, dev):
     """A class's small f64 twin on the mesh (small: rank 0's gathered
     fields) against the single-device 'mat' + Thomas run on the card
     within 1e-11, p without its mean; with y walls the kept planes vlo[1]
-    and vlo[2] too.  Returns the errors by name."""
+    and vlo[2] too, with x walls vlo[0] and vlo[2] on the interior y rows
+    (their periodic y ghost rows no fill reads).  Returns the errors by
+    name."""
     from cales_torch.config import Config
     from cales_torch.grid import make_grid_from_config
     from cales_torch.timeloop import Simulation
     cfg1 = Config(**{**_small(kw), 'dims': (1, 1), 'zsolver': 'thomas'})
     sim = Simulation(cfg1, make_grid_from_config(cfg1), device=dev)
     st = sim.initial_state(*_perturbed_fields(cfg1, SEED + 5))
-    for _ in range(3):
+    for _ in range(MESH_SMALL_STEPS):
         st, _ = sim.step(st, float(small['dt']))
-    say(f'  {tag}: gy = 2 against one device, {cfg1.ng} float64, 3 '
-        f'steps, on the card:')
+    say(f'  {tag}: gy = 2 against one device, {cfg1.ng} float64, '
+        f'{MESH_SMALL_STEPS} steps, on the card:')
     names = (('u', 'v', 'w', 'p', 'visct')
              + (('s',) if cfg1.scalar else ())
-             + (('vlo1', 'vlo2') if ywalled else ()))
+             + (('vlo1', 'vlo2') if sim.ywalled else ())
+             + (('vlo0', 'vlo2') if sim.xwalled else ()))
     out = {}
     for name in names:
         ref = (st.vlo[int(name[-1])] if name.startswith('vlo')
                else getattr(st, name))
         a, b = small[name], ref.cpu().numpy()
+        if sim.xwalled and name == 'vlo0':
+            b = b[:, 1:-1]
+        if sim.xwalled and name == 'vlo2':
+            a, b = a[1:-1], b[1:-1]
         if name == 'p':
             a, b = a - a.mean(), b - b.mean()
         err = float(np.abs(a - b).max())
@@ -3638,7 +3896,13 @@ def phase_sharded_les(dev, card):
     start's and walls' values); 10b and 10yb: the two-pass dsmag on the
     transpiring channel (dsmag_blow) and on the duct under
     CALES_DSMAG_TWOPASS=1; 10f and 10tf: the 2D test filter on the dsmag
-    channel and on the box with 'dit'; on a y-slab mesh, dims = (2, 1), two
+    channel and on the box with 'dit'; in a second runner (MESH_SECOND)
+    10i3 and 10t3: the channel DNS and the box with full-3D implicit
+    diffusion, 10x and 10xb: the developing channel and its LES with
+    impdiff_1d (u at its value on the inflow face, the outflow's flux the
+    inflow's), and the small f64 cases alone of 10t1 (the box with
+    impdiff_1d) and 10i3s (the scalar channel LES with full-3D), their
+    launches counted on their own steps; on a y-slab mesh, dims = (2, 1), two
     ranks sharing the one card over gloo staged through the host (as phase
     10: its ms/step is a correctness run's, no scaling figure), each at
     512x256x256 f32 with the PERF.md section 2 gates (with y walls v on
@@ -3653,29 +3917,37 @@ def phase_sharded_les(dev, card):
     torch.cuda.empty_cache()
     env = dict(os.environ)
     env.setdefault('GLOO_SOCKET_IFNAME', 'lo')
-    say(f'phases 10i, 10w, 10d, 10y, 10yc, 10ys, 10yw, 10t, 10tl, 10td, '
-        f'10s, 10ysc, 10b, 10yb, 10f, 10tf: the channel, duct, cavity and '
-        f'box classes on a y-slab mesh, dims (2, 1), {HEADLINE_NG} float32, '
-        f'two ranks on one card (gloo, staged through the host)  [{card}]')
-    with tempfile.TemporaryDirectory() as tmp:
-        cmd = [sys.executable, '-m', 'torch.distributed.run', '--standalone',
-               '--nproc_per_node', '2', str(ROOT / 'chip_smoke.py'),
-               '--sharded-les-rank', tmp]
-        t0 = time.perf_counter()
-        res = subprocess.run(cmd, capture_output=True, text=True, cwd=ROOT,
-                             timeout=900, env=env)
-        say(f'  torch.distributed.run exit {res.returncode} after '
-            f'{time.perf_counter() - t0:.1f} s')
-        for line in res.stdout.splitlines():
-            say(f'  | {line}')
-        errs = ''.join(f'rank {r}:\n{q.read_text()}' for r in range(2)
-                       for q in [Path(tmp) / f'rank{r}.err'] if q.exists())
-        require(res.returncode == 0, f'a rank of phases 10i-10tf failed:\n'
-                                     f'{errs or res.stderr[-4000:]}')
-        ranks = [json.loads((Path(tmp) / f'rank{r}.json').read_text())
-                 for r in range(2)]
-        smalls = {key: dict(np.load(Path(tmp) / f'small_{key}.npz'))
-                  for key, *_ in (*MESH_CLASSES, *MESH_SMALL_ONLY)}
+    ranks, smalls = [{}, {}], {}
+    for second in (False, True):
+        keys = [k for k, *_ in (*MESH_CLASSES, *MESH_SMALL_ONLY)
+                if (k in MESH_SECOND) == second]
+        say(f'phases {", ".join(keys)}: the channel, duct, cavity and box '
+            f'classes on a y-slab mesh, dims (2, 1), {HEADLINE_NG} float32, '
+            f'two ranks on one card (gloo, staged through the host)  '
+            f'[{card}]')
+        with tempfile.TemporaryDirectory() as tmp:
+            cmd = [sys.executable, '-m', 'torch.distributed.run',
+                   '--standalone', '--nproc_per_node', '2',
+                   str(ROOT / 'chip_smoke.py'), '--sharded-les-rank', tmp,
+                   *(['second'] if second else [])]
+            t0 = time.perf_counter()
+            res = subprocess.run(cmd, capture_output=True, text=True,
+                                 cwd=ROOT, timeout=900, env=env)
+            say(f'  torch.distributed.run exit {res.returncode} after '
+                f'{time.perf_counter() - t0:.1f} s (limit 900 s)')
+            for line in res.stdout.splitlines():
+                say(f'  | {line}')
+            errs = ''.join(f'rank {r}:\n{q.read_text()}' for r in range(2)
+                           for q in [Path(tmp) / f'rank{r}.err']
+                           if q.exists())
+            require(res.returncode == 0,
+                    f'a rank of phases {keys[0]}-{keys[-1]} failed:\n'
+                    f'{errs or res.stderr[-4000:]}')
+            for r in range(2):
+                ranks[r].update(json.loads(
+                    (Path(tmp) / f'rank{r}.json').read_text()))
+            smalls.update({key: dict(np.load(Path(tmp) / f'small_{key}.npz'))
+                           for key in keys})
     small_eps = float(np.sqrt(np.finfo(np.float32).eps) * 10)
     launches, rows = {}, {}
     per = {c[0]: c for c in MESH_CLASSES}
@@ -3745,6 +4017,19 @@ def phase_sharded_les(dev, card):
         if 'wm_finite' in r0:
             require(r0['wm_finite'] == 1.0, f'{tag}: non-finite wall-model '
                                             'planes')
+        if 'u_inflow' in r0:
+            # x walls: u at its value on the inflow face, the outflow's
+            # flux the inflow's
+            say(f'  max |u - its value| on the inflow face '
+                f'{r0["u_inflow"]:.3e}; flux through the inflow face '
+                f'{r0["flux_in"]:.7f}, the outflow face {r0["flux_out"]:.7f}'
+                f' (sum over the face of u dz)  [{card}]')
+            require(r0['u_inflow'] <= 1e-6, f'{tag}: u on the inflow face '
+                                            f'off by {r0["u_inflow"]:.3e}')
+            require(abs(r0['flux_out'] - r0['flux_in'])
+                    <= 1e-4 * abs(r0['flux_in']),
+                    f'{tag}: outflow flux {r0["flux_out"]:.7f}, inflow '
+                    f'{r0["flux_in"]:.7f}')
         bounds = _scalar_range(cfg, r0.get('time', 0.0))
         if bounds is not None:
             # within its start's and walls' values, to 1e-2 of their range:
@@ -3762,16 +4047,28 @@ def phase_sharded_les(dev, card):
                                            'nu_t_min', 'nu_t_max',
                                            'w_walls', 'v_ywalls',
                                            'v_lid', 'energy_before',
-                                           'energy', 's_min', 's_max')
+                                           'energy', 's_min', 's_max',
+                                           'u_inflow', 'flux_in',
+                                           'flux_out', 'wall_s')
                        if k in r0} | {'card': card}
         rows.update(r0.get('halo_rows', {}))
         if key in smalls:
             with _mesh_env(key):
                 report[key].update(_small_vs_one_device(
-                    tag, kw, smalls[key], dev, ywalled))
-    for key, title, kw in MESH_SMALL_ONLY:
-        report[key] = _small_vs_one_device(f'phase {key}: {title}', kw,
-                                           smalls[key], dev, True)
+                    tag, kw, smalls[key], dev))
+    for key, title, kw, per_step in MESH_SMALL_ONLY:
+        # its launches on the small twin's steps, each rank's
+        for rk in ranks:
+            r = rk[key]
+            for name, n in r['launches'].items():
+                want = per_step.get(name, 0) * r['steps']
+                require(n == want, f'phase {key} rank {rk["rank"]}: {name} '
+                                   f'launched {n} times, want {want}')
+        launches[key] = ranks[0][key]['launches']
+        tag = f'phase {key}: {title}'
+        say(f'{tag}: rank 0 launches {launches[key]} in {MESH_SMALL_STEPS} '
+            f'steps of its small twin  [{card}]')
+        report[key] = _small_vs_one_device(tag, kw, smalls[key], dev)
         report[key]['card'] = card
     print(json.dumps({'mesh_classes_2x1': report}), flush=True)
     return launches, rows
@@ -3781,9 +4078,9 @@ def main():
     if len(sys.argv) == 3 and sys.argv[1] == '--sharded-rank':
         sys.path.insert(0, str(ROOT))
         return sharded_rank(sys.argv[2])
-    if len(sys.argv) == 3 and sys.argv[1] == '--sharded-les-rank':
+    if len(sys.argv) in (3, 4) and sys.argv[1] == '--sharded-les-rank':
         sys.path.insert(0, str(ROOT))
-        return sharded_les_rank(sys.argv[2])
+        return sharded_les_rank(sys.argv[2], sys.argv[3:] == ['second'])
     say(f'python {sys.version.split()[0]}, torch {torch.__version__}, '
         f'CUDA {torch.version.cuda}, cuda available: '
         f'{torch.cuda.is_available()}')
@@ -3889,8 +4186,10 @@ def main():
     # the wall-modelled duct's and the box's slab modes on phases 10yw, 10t
     # and 10td (rank 0, 3 steps; the wall model's launches there include
     # the initial fill's and the checks', dsmag's the initial nu_t's)
+    small_only = {key for key, *_ in MESH_SMALL_ONLY}
     for row, (name, key) in SLAB_MODE_ROWS.items():
-        paths[row] = (les_mesh[key], MESH_LES_STEPS, name)
+        paths[row] = (les_mesh[key], MESH_SMALL_STEPS if key in small_only
+                      else MESH_LES_STEPS, name)
     # the x-walled variants' on the developing channel (phase 11, 5 steps)
     # and the lid-driven cavity (phase 11b, 5 steps)
     variant_path = {'duct': duct, 'cavity': cavity, 'helmholtz3d': dns3,

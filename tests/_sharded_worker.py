@@ -82,16 +82,27 @@ def json_tuple(x):
     return tuple(json_tuple(q) for q in x) if isinstance(x, list) else x
 
 
-def case_solve(m, inp, out, key, kw):
-    """The slab-sharded Poisson solve of a global RHS."""
+def case_solve(m, inp, out, key, kw, ivel=None, alpha=None):
+    """The slab-sharded Poisson solve of a global RHS, or with ivel and
+    alpha velocity component ivel's Helmholtz solve (I + alpha L) (the
+    full-3D CN stage's, its solver as the Simulation makes it)."""
     from cales_torch import poisson
+    from cales_torch.config import effective_cbcvel
     from cales_torch.grid import make_grid_from_config
+    from cales_torch.timeloop import _C_OR_F
     cfg = _config(kw)
     grid = make_grid_from_config(cfg)
-    sv = poisson.make_solver(cfg, grid, tuple(cfg.cbc_pre(d) for d in
-                                             range(3)), ('c', 'c', 'c'))
+    if ivel is None:
+        sv = poisson.make_solver(cfg, grid, tuple(cfg.cbc_pre(d) for d in
+                                                 range(3)), ('c', 'c', 'c'))
+    else:
+        cbc = effective_cbcvel(cfg)
+        sv = poisson.make_solver(cfg, grid, tuple(
+            cbc[0][d][ivel] + cbc[1][d][ivel] for d in range(3)),
+            _C_OR_F[ivel])
     rhs = torch.as_tensor(m.local(inp[f'{key}.rhs']))
-    out[f'{key}.p'] = m.gather(poisson.solve_sharded(sv, rhs, m))
+    out[f'{key}.p'] = m.gather(poisson.solve_sharded(sv, rhs, m,
+                                                     alpha=alpha))
 
 
 def case_steps(m, inp, out, key, kw, nsteps):
@@ -118,6 +129,11 @@ def case_steps(m, inp, out, key, kw, nsteps):
     # wall's owner), w's lower z face over the slabs' rows, its y ghost
     # rows from the ranks that own the y walls
     out[f'{key}.vlo1'] = st.vlo[1].numpy()
+    # u's lower x face over the slabs' rows (its y ghost rows, periodic
+    # copies that no fill reads, stay out)
+    out[f'{key}.vlo0'] = np.concatenate(
+        [q.numpy()[:, 1:-1] for q in m.comm.all_gather(
+            st.vlo[0].contiguous())], axis=1)
     w2 = [q.numpy() for q in m.comm.all_gather(st.vlo[2].contiguous())]
     out[f'{key}.vlo2'] = np.concatenate(
         [w2[0][:1]] + [q[1:-1] for q in w2] + [w2[-1][-1:]])
@@ -220,7 +236,8 @@ def main(work, rank, world):
         elif kind == 'halo2':
             case_halo2(m, inp, out, case['key'])
         elif kind == 'solve':
-            case_solve(m, inp, out, case['key'], case['cfg'])
+            case_solve(m, inp, out, case['key'], case['cfg'],
+                       case.get('ivel'), case.get('alpha'))
         elif kind == 'wmplanes':
             case_wmplanes(m, inp, out, case['key'], case['cfg'])
         elif kind == 'driver':

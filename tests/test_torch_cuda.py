@@ -2591,3 +2591,113 @@ def test_cuda_walled_slab_scalar_and_twopass_match_twins(dev, dtype, shape,
     torch.cuda.synchronize()
     assert (K.LAUNCHES['mom_rk'], K.LAUNCHES['dsmag_level1'],
             K.LAUNCHES['dsmag_level2']) == (1, 1, 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype, shape', [
+    ('float64', (40, 13, 9)), ('float64', (36, 2, 12)),
+    ('float32', (40, 21, 9)), ('float32', (33, 2, 12))])
+def test_cuda_slab_full3d_and_xwalled_match_twins(dev, dtype, shape):
+    """The slab of the y-slab mesh (random halos) on (nx, nyl, nz) shapes
+    no tile fits and slabs of 2 rows: mom_rk's 'xy+z' split with the
+    halos (Y_HALO, with and without nu_t, and the scalar variant),
+    correc_updatep's halo variant with full-3D alpha L(pp); with x walls
+    (the developing channel LES's x stacks of random interiors, and random
+    neighbours' rows -1 and nyl for the stacks that carry them) mom_rk's
+    XW x Y_HALO (explicit and '1d', with and without nu_t), fillps's and
+    correc_updatep's on the slab's own stacks, and smag's with the x
+    walls' van Driest inputs, each against its twin: float64 within 1e-12
+    of each output's maximum, float32 within 1e-5."""
+    from cales_torch.timeloop import _xstacks_on_slab
+    nx, ny, nz = shape
+    dt = getattr(torch, dtype)
+    tol = 1e-12 if dt == torch.float64 else 1e-5
+    rng = np.random.default_rng(47)
+
+    def c(q):
+        return q.to(dt).contiguous()
+
+    def r(*s, scale=0.1):
+        return c(torch.as_tensor(scale * rng.standard_normal(s), device=dev))
+    d = _sgs_inputs(dev, shape, 48)
+    fields, edges = [c(q) for q in d['fields']], [c(e) for e in d['edges']]
+    dzci, dzfi = c(d['dzci']), c(d['dzfi'])
+    H = lambda: (r(nz, 2, nx), r(3, 2, nx))  # noqa: E731
+    K.reset_launches()
+    # full-3D on the slab: mom_rk 'xy+z' (+ the scalar), correc_updatep
+    s = r(nz, ny, nx).abs()
+    sca, rso = r(nz, ny, nx, scale=1.0), r(nz, ny, nx)
+    h1 = tuple(H() for _ in range(6))
+    for sgs in (True, False):
+        mom = (*fields, s if sgs else None, r(nz, ny, nx), *edges,
+               r(3, ny, nx) if sgs else None, r(3, ny, nx),
+               *(r(nz, ny, nx) for _ in range(3)), dzci, dzfi, 5e-4, -2e-4,
+               d['visc'], d['dxi'], d['dyi'], (0.1, 0.0, 0.0))
+        h = h1[:5] if sgs else (*h1[:3], None, h1[4])
+        got = K.mom_rk(*mom, sums=(True, False), split='xy+z', yh=h)
+        ref = K.mom_rk_plain(*mom, sums=(True, False), split='xy+z', yh=h)
+        for g, q in zip(got[:6], ref[:6]):
+            _rel_close(g, q, tol)
+        _rel_close(got[6].sum(1), ref[6][:, 0], tol)
+        scae = torch.stack([r(ny, nx, scale=1.0), sca[-1],
+                            r(ny, nx, scale=1.0)])
+        sc = dict(sca=sca, scae=scae, rso=rso, scal=(2e-4, 0.05))
+        h = h1 if sgs else (*h1[:3], None, *h1[4:])
+        got = K.mom_rk(*mom, sums=(True, False), split='xy+z', yh=h, **sc)
+        ref = K.mom_rk_plain(*mom, sums=(True, False), split='xy+z', yh=h,
+                             **sc)
+        for g, q in zip((*got[:6], *got[8:]), (*ref[:6], *ref[8:])):
+            _rel_close(g, q, tol)
+    pp, p = r(nz, ny, nx), r(nz, ny, nx)
+    cor = (*fields, pp, p, edges[2], r(3, ny, nx), 5e-4, d['dxi'], d['dyi'],
+           dzci, dzfi)
+    ckw = dict(alpha=-3e-4, impdiff=True, impdiff_1d=False, yh=H())
+    for g, q in zip(K.correc_updatep(*cor, **ckw),
+                    K.correc_updatep_plain(*cor, **ckw)):
+        _rel_close(g, q, tol)
+    # x walls on the slab
+    cfg, _, sim = _xles_sim(dev, 'dev', shape, dtype)
+    u, v, w = (1.0 + r(nz, ny, nx)), r(nz, ny, nx), r(nz, ny, nx)
+    bcs = sim._dynamic_bcs(u, v, w)
+    zq = sim._zedge_vel(u, v, w, *bcs)
+    xq = sim._xedge_vel(u, v, w, bcs)
+    xs, xp = sim._xedge_s(s), sim._xedge_p(p)
+    # the stacks with random neighbours' rows (mom_rk, smag)
+    xh = [(r(nz, 2, 3), r(3, 2, 3)) for _ in range(5)]
+    xe = _xstacks_on_slab((*xq, xs, xp), xh)
+    dxi, dyi = cfg.dli[0], cfg.dli[1]
+    for sgs in (True, False):
+        for split in (None, '1d'):
+            mom = (u, v, w, s if sgs else None, p, *zq,
+                   sim._zedge_s(s) if sgs else None, sim._zedge_p(p),
+                   *(r(nz, ny, nx) for _ in range(3)), sim.dzci_t,
+                   sim.dzfi_t, 5e-4, -2e-4, cfg.visc, dxi, dyi,
+                   (0.0, 0.0, 0.0))
+            h = h1[:5] if sgs else (*h1[:3], None, h1[4])
+            x = xe if sgs else (*xe[:3], None, xe[4])
+            got = K.mom_rk(*mom, sums=(True, True), split=split, yh=h, xe=x)
+            ref = K.mom_rk_plain(*mom, sums=(True, True), split=split,
+                                 yh=h, xe=x)
+            for g, q in zip(got[:6], ref[:6]):
+                _rel_close(g, q, tol)
+    xu2 = sim._xedge_vel(u, v, w, fields=(0, 2))[0]
+    fil = (u, v, w, *zq, sim.dzfi_t, 40.0, dxi, dyi)
+    hv = H()
+    _rel_close(K.fillps(*fil, yh=hv, xu=xu2),
+               K.fillps_plain(*fil, yh=hv, xu=xu2), tol)
+    cor = (u, v, w, pp, p, zq[2], sim._zedge_p(pp), 5e-4, dxi, dyi,
+           sim.dzci_t, sim.dzfi_t)
+    ckw = dict(alpha=-3e-4, impdiff=True, impdiff_1d=True, yh=H(),
+               xpp=sim._xedge_p(pp), xu=xu2)
+    for g, q in zip(K.correc_updatep(*cor, **ckw),
+                    K.correc_updatep_plain(*cor, **ckw)):
+        _rel_close(g, q, tol)
+    planes = tuple(r(nz, ny, scale=1.0).abs() for _ in range(2))
+    tz = tuple(r(ny, nx, scale=1.0).abs() for _ in range(2))
+    smg = (u, v, w, *zq, sim.dzci_t, sim.dzfi_t, dxi, dyi, cfg.visc,
+           sim.csd2_t, sim.dw_t, sim.nearlo_t, *tz)
+    skw = dict(yh=h1[:3], xe=xe[:3], xwall=(*sim.xwall_prof, *planes))
+    _rel_close(K.smag(*smg, **skw), K.smag_plain(*smg, **skw), tol)
+    torch.cuda.synchronize()
+    assert (K.LAUNCHES['mom_rk'], K.LAUNCHES['fillps'],
+            K.LAUNCHES['correc_updatep'], K.LAUNCHES['smag']) == (8, 1, 2, 1)

@@ -24,14 +24,15 @@ here.  One spawn runs several cases.
     equals the periodic twin on the whole field's rows (the construction
     of python -m cales_torch.fma_probe);
   * the mesh's refusals: unsupported() for what stays single-device
-    (full-3D implicit diffusion, with the passive scalar too, the 2D test
+    (x and y walls together, x walls with the passive scalar, the 2D test
     filter with y walls, a slab thinner than the dsmag kernel's halo, ...),
     a world size that is not gy, a transport the ranks cannot use; what
     runs on the mesh (the impdiff_1d, wall-modelled and dsmag channels, the
-    passive scalar, the two-pass dsmag and the 2D test filter too, whose
-    steps tests/test_torch_sharded_imp.py, test_torch_sharded_les.py,
-    test_torch_sharded_scalar.py and test_torch_sharded_twopass.py
-    hold).
+    passive scalar, the two-pass dsmag and the 2D test filter too, full-3D
+    implicit diffusion and the developing channel, whose steps
+    tests/test_torch_sharded_imp.py, test_torch_sharded_les.py,
+    test_torch_sharded_scalar.py, test_torch_sharded_twopass.py,
+    test_torch_sharded_imp3d.py and test_torch_sharded_xwalls.py hold).
 """
 import json
 import os
@@ -73,6 +74,21 @@ SMAG = dict(ng=(64, 32, 16), l=(2 * np.pi, np.pi, 2.0), gtype=1, gr=1.0,
             sgstype='smag', dtype='float64', ptransform='mat', **CHAN_BCS)
 NONE = dict(SMAG, sgstype='none')
 TOL = {'u': 1e-11, 'v': 1e-11, 'w': 1e-11, 'p': 1e-11, 'visct': 1e-11}
+# the developing channel's x faces (inflow u = 1 at x = 0, outflow at x =
+# lx: u 'N', p 'D'), periodic y, z walls; XDUCT_BCS the developing duct's,
+# with y walls
+XDEV_BCS = dict(
+    cbcvel=((('D', 'N', 'N'), ('P', 'P', 'P'), ('D', 'D', 'D')),
+            (('N', 'N', 'N'), ('P', 'P', 'P'), ('D', 'D', 'D'))),
+    bcvel=(((1.0, 0.0, 0.0), (0.0, 0.0, 0.0), (0.0, 0.0, 0.0)),) * 2,
+    cbcpre=(('N', 'P', 'N'), ('D', 'P', 'N')),
+    cbcsgs=(('N', 'P', 'D'), ('N', 'P', 'D')), is_forced=(False,) * 3)
+XDUCT_BCS = dict(
+    XDEV_BCS,
+    cbcvel=((('D', 'N', 'N'), ('D', 'D', 'D'), ('D', 'D', 'D')),
+            (('N', 'N', 'N'), ('D', 'D', 'D'), ('D', 'D', 'D'))),
+    cbcpre=(('N', 'N', 'N'), ('D', 'N', 'N')),
+    cbcsgs=(('N', 'D', 'D'), ('N', 'D', 'D')))
 
 
 def _spawn(tmp_path, gy, cases, inputs):
@@ -311,11 +327,10 @@ def test_slab_with_cut_halos_is_the_whole_fields_rows():
 @pytest.mark.parametrize('change, needle', [
     (dict(dims=(2, 2)), 'gx > 1'),
     (dict(dims=(3, 1)), 'not divisible by gy'),
-    # the passive scalar with full-3D implicit diffusion
-    (dict(scalar=True, impdiff=True, impdiff_1d=False),
-     'full-3D implicit diffusion under a device mesh'),
-    (dict(impdiff=True, impdiff_1d=False),
-     'full-3D implicit diffusion under a device mesh'),
+    # x and y walls together (the developing duct), and x walls with the
+    # passive scalar (the developing channel with a scalar)
+    (XDUCT_BCS, 'x and y walls on a mesh'),
+    (dict(XDEV_BCS, scalar=True), 'x walls with the scalar on a mesh'),
     # the 2D test filter with y walls (refused on one device too)
     (dict(sgstype='dsmag', dsmag_avg='channel', filter_2d=True,
           cbcvel=((('P', 'P', 'P'), ('D', 'D', 'D'), ('D', 'D', 'D')),) * 2,
@@ -345,7 +360,10 @@ def test_mesh_slice_is_supported():
     # the channel DNS and LES with impdiff_1d, the wall-modelled channel,
     # the one-pass dynamic Smagorinsky channel ('channel' and 'dit',
     # explicit and impdiff_1d), with the 2D test filter and by the two
-    # passes (transpiring z walls), and the LES with a passive scalar
+    # passes (transpiring z walls), the LES with a passive scalar, the
+    # channel DNS and LES with full-3D implicit diffusion (with a scalar
+    # too), and the developing channel (x walls, periodic y) and its LES
+    # with impdiff_1d
     imp = dict(impdiff=True, impdiff_1d=True)
     blow = (((0.0,) * 3, (0.0,) * 3, (0.0, 0.0, 0.003)),) * 2
     for change in (dict(sgstype='none', **imp), imp,
@@ -354,7 +372,10 @@ def test_mesh_slice_is_supported():
                    dict(sgstype='dsmag', dsmag_avg='dit', **imp),
                    dict(sgstype='dsmag', dsmag_avg='channel', filter_2d=True),
                    dict(sgstype='dsmag', dsmag_avg='channel', bcvel=blow),
-                   dict(scalar=True, is_sforced=True, scalf=0.5, **imp)):
+                   dict(scalar=True, is_sforced=True, scalf=0.5, **imp),
+                   dict(sgstype='none', impdiff=True), dict(impdiff=True),
+                   dict(scalar=True, impdiff=True),
+                   dict(XDEV_BCS, sgstype='none'), dict(XDEV_BCS, **imp)):
         for gy in (2, 4):
             assert unsupported(Config(**{**SMAG, **change},
                                       dims=(gy, 1))) == [], change

@@ -17,8 +17,11 @@ tests/test_torch_triperiodic.py's Taylor-Green vortex (16^3, 'mat'):
     whose slice of lamx holds it, whatever that order;
   * what unsupported() runs on the mesh (bench.py's six classes, the
     wall-modelled duct example, and the classes with a passive scalar, by
-    the two-pass dynamic Smagorinsky and with the 2D test filter, at dims
-    (2, 1) and (4, 1)) and what it still refuses with periodic z.
+    the two-pass dynamic Smagorinsky, with the 2D test filter, with
+    full-3D implicit diffusion, the box with impdiff_1d, and the
+    developing channel example and its LES, at dims (2, 1) and (4, 1)) and
+    what it still refuses (ptransform 'fft'; x walls with the wall model,
+    an inflow profile, full-3D implicit diffusion with y walls).
 """
 import numpy as np
 import pytest
@@ -30,8 +33,8 @@ from cales_torch.grid import make_grid_from_config
 from cales_torch.nml import config_from_nml
 from cales_torch.timeloop import unsupported
 
-from test_torch_sharded import (ROOT, _check_steps, _gauge, _jax_solve,
-                                _jax_steps, _solve_case, _spawn)
+from test_torch_sharded import (ROOT, XDEV_BCS, _check_steps, _gauge,
+                                _jax_solve, _jax_steps, _solve_case, _spawn)
 from test_torch_sharded_imp import _bulk
 from test_torch_triperiodic import TGV
 
@@ -118,24 +121,40 @@ _MESH_CLASSES = {
                         dict(_DSMAG_CHANNEL, filter_2d=True), ''),
     'box_filter_2d': ('triperiodic_dns', dict(sgstype='dsmag',
                                               dsmag_avg='dit',
-                                              filter_2d=True), '')}
+                                              filter_2d=True), ''),
+    'dns_impdiff_3d': ('channel_dns_impdiff', dict(impdiff_1d=False), ''),
+    'box_impdiff_3d': ('triperiodic_dns', dict(impdiff=True), ''),
+    'box_impdiff_1d': ('triperiodic_dns', dict(impdiff=True,
+                                               impdiff_1d=True), ''),
+    'les_scalar_3d': ('channel_les_smag', dict(_SCALAR, impdiff=True), '')}
 
 
 @pytest.mark.parametrize('gy', [2, 4])
 @pytest.mark.parametrize('name', ['triperiodic_dns', 'channel_dns_impdiff',
                                   'channel_les_smag', 'duct_les_dsmag',
                                   'cavity_les_dsmag', 'wmles_channel',
-                                  'turbulent_duct_wmles', *_MESH_CLASSES])
+                                  'turbulent_duct_wmles',
+                                  'developing_channel',
+                                  'developing_channel_les',
+                                  *_MESH_CLASSES])
 def test_mesh_runs_the_classes(name, gy, monkeypatch):
     """bench.py's six classes at 512x256x256, the wall-modelled duct
     example (512x80x80: its y faces' rows 3 and 4 from the wall on slabs of
-    40 and 20 rows), and those classes with a passive scalar, by the two
-    passes (transpiring z walls, CALES_DSMAG_TWOPASS=1) and with the 2D
-    test filter run on dims (gy, 1)."""
+    40 and 20 rows), the developing channel example at 512x256x256 and its
+    LES (static Smagorinsky, impdiff_1d), and those classes with a passive
+    scalar, by the two passes (transpiring z walls,
+    CALES_DSMAG_TWOPASS=1), with the 2D test filter and with full-3D
+    implicit diffusion (the box with impdiff_1d too) run on dims (gy, 1)."""
     if name == 'turbulent_duct_wmles':
         cfg = config_from_nml(
             str(ROOT / 'examples' / name / 'input.nml')).replace(
                 dims=(gy, 1))
+    elif name.startswith('developing_channel'):
+        cfg = config_from_nml(
+            str(ROOT / 'examples' / 'developing_channel' / 'input.nml')
+        ).replace(ng=(512, 256, 256), dims=(gy, 1))
+        if name.endswith('les'):
+            cfg = cfg.replace(sgstype='smag', impdiff=True, impdiff_1d=True)
     else:
         import bench
         base, change, switch = _MESH_CLASSES.get(name, (name, {}, ''))
@@ -145,12 +164,23 @@ def test_mesh_runs_the_classes(name, gy, monkeypatch):
     assert unsupported(cfg) == [], name
 
 
+# a padded (nz+2, ny+2) inflow profile of u on the lower x face
+_PROFILE = np.ones((BOX['ng'][2] + 2, BOX['ng'][1] + 2))
+
+
 @pytest.mark.parametrize('change, needle', [
-    (dict(impdiff=True, impdiff_1d=True),
-     'periodic z with impdiff_1d under a device mesh'),
-    (dict(impdiff=True), 'full-3D implicit diffusion under a device mesh'),
-    (dict(impdiff=True, impdiff_1d=True, scalar=True),
-     'periodic z with impdiff_1d under a device mesh'),
+    # the developing WMLES (x walls with the z walls' wall model), an
+    # inflow profile (plane-valued values), and full-3D implicit diffusion
+    # with y walls (the duct's; refused on one device too)
+    (dict(XDEV_BCS, lwm=((0, 0, 1), (0, 0, 1)), hwm=0.1, sgstype='smag'),
+     'x walls with the wall model on a mesh'),
+    (dict(XDEV_BCS, bcvel=(((_PROFILE, 0.0, 0.0), (0.0,) * 3, (0.0,) * 3),
+                           ((0.0,) * 3,) * 3)),
+     'plane-valued velocity values on a device mesh'),
+    (dict(impdiff=True, cbcvel=((('P', 'P', 'P'), ('D', 'D', 'D'),
+                                 ('D', 'D', 'D')),) * 2,
+          cbcpre=(('P', 'N', 'N'),) * 2, cbcsgs=(('P', 'N', 'N'),) * 2),
+     'full-3D implicit diffusion with y walls'),
     (dict(ptransform='fft'), "ptransform 'fft' under a device mesh"),
 ])
 def test_box_mesh_refusals(change, needle):

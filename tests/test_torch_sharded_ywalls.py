@@ -119,7 +119,7 @@ _WM_DUCT = dict(DUCT, sgstype='smag', lwm=((0, 1, 1), (0, 1, 1)), hwm=0.2,
     (dict(DUCT, filter_2d=True), {},
      'the 2D test filter (filter_2d) with y walls'),
     (dict(DUCT, scalar=True, impdiff=True), {},
-     'full-3D implicit diffusion under a device mesh'),
+     'full-3D implicit diffusion with y walls'),
     (dict(DUCT, ptransform='fft'), {}, "ptransform 'fft' under a device "
                                         'mesh'),
     (dict(DUCT, ng=(16, 4, 10)), {}, 'with y walls: slabs of 1 y row'),

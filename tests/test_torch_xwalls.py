@@ -382,10 +382,11 @@ def test_xwalled_configs_in_the_slice(base):
 # periodic y, the box BOX y walls)
 _BOTH = {'dsmag': 'x walls with dsmag',
          'full-3D implicit': 'x walls with full-3D implicit diffusion',
-         'mesh': 'x walls on a mesh',
          'fft': "ptransform 'fft'", 'bulk forcing': 'bulk forcing'}
 OUTCOMES = {
     'smag': {'dev': None, 'box': None},
+    # the y-slab mesh runs x walls with periodic y
+    'mesh': {'dev': None, 'box': 'x and y walls on a mesh'},
     'scalar': {'dev': None, 'box': None},
     'impdiff_1d': {'dev': None, 'box': 'impdiff with y walls'},
     'z-wall model': {'dev': None,
@@ -424,6 +425,12 @@ def test_xwalled_configs_outside_the_slice_raise(change, base):
     cfg = Config(**{**(DEV if base == 'dev' else BOX), **_change(change)})
     if item is None:
         assert unsupported(cfg) == []
+        if cfg.dims[0] * cfg.dims[1] > 1:
+            # a mesh's Simulation takes the mesh (its steps:
+            # tests/test_torch_sharded_xwalls.py)
+            with pytest.raises(ValueError, match='needs a device mesh'):
+                Simulation(cfg, make_grid_from_config(cfg), device='cpu')
+            return
         sim = Simulation(cfg, make_grid_from_config(cfg), device='cpu')
         assert sim.xwalled and 'x-ghost column stacks' in sim.exec_path()
         return
