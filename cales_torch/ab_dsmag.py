@@ -96,7 +96,19 @@ xy+z' and 'mom_rk halo scal xy+z' (Y_HALO with the
 nu_t and the '1d' split), 'fillps halo x walls', 'correc_updatep halo x
 walls' (the slab's own stacks' rows) and 'smag halo x walls' (random x
 walls' van Driest inputs; mom_rk's and smag's stacks with the rows -1 and
-nyl).
+nyl); and the slab modes of x walls with y walls, of the scalar with x
+walls and of the wall model with x walls (SLAB_XY, cut and joined as
+those, against the baseline's whole-field kernel): 'mom_rk slab x+y
+walls' and 'mom_rk slab x+y walls nu_t' (XW x Y_WALLS on a slab's y-row
+stacks, without and with nu_t), 'fillps slab x+y walls', 'correc_updatep
+slab x+y walls' and 'smag slab x+y walls' (random x stacks of nyc = ny +
+2, a slab's its columns lo .. hi + 1: the wall rows on the side it owns,
+the neighbour's rows elsewhere; smag with random y and x walls' van
+Driest inputs), 'mom_rk halo scal x walls' (SCAL x XW x Y_HALO against
+the whole field's SCAL x XW of periodic y) and 'wallmodel halo x walls'
+(the developing WMLES's z faces with its 1/7-power inflow profile, each
+slab's XW x YH mode with its y halos and its rows of the profile, against
+the whole field's XW mode).
 Outputs are compared in float64 at (nx, ny, nz) = (72, 40, 48) and in
 float32 at --ng (bitwise, and max|this - baseline| / max|baseline|, the
 worst output); mom_rk's partial sums, whose parts differ (blocks of 256
@@ -110,6 +122,7 @@ the cases named.  Prints one JSON line.  Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
+import functools
 import importlib
 import importlib.util
 import json
@@ -149,12 +162,20 @@ CASES = ('channel', 'duct', 'cavity', 'channel y walls', 'duct periodic y',
                                 'mom_rk halo x walls', 'mom_rk halo x 1d',
                                 'fillps halo x walls',
                                 'correc_updatep halo x walls',
-                                'smag halo x walls'))
+                                'smag halo x walls'),
+         *('mom_rk slab x+y walls', 'mom_rk slab x+y walls nu_t',
+           'fillps slab x+y walls', 'correc_updatep slab x+y walls',
+           'smag slab x+y walls', 'mom_rk halo scal x walls',
+           'wallmodel halo x walls'))
 # the x-walled fillps, correc_updatep and smag with periodic y (both
 # checkouts on the whole field), and the slab modes of full-3D implicit
 # diffusion and of x walls on the mesh ('halo': this checkout's on two
 # slabs, joined, against the baseline's whole-field kernel)
-SLAB_3D_X = CASES[-11:]
+SLAB_3D_X = CASES[-18:-7]
+# the slab modes of x walls with y walls, the scalar with x walls and the
+# wall model with x walls on the mesh: this checkout's on two slabs,
+# joined, against the baseline's whole-field kernel (_slab_xy)
+SLAB_XY = CASES[-7:]
 # the cases at their own shape, in float32 only
 BIG = {'apply_y x+y 512^3': (512, 512, 512), 'mom_rk 512^3': (512, 512, 512),
        'thomas_periodic 512^3': (512, 512, 512),
@@ -162,7 +183,8 @@ BIG = {'apply_y x+y 512^3': (512, 512, 512), 'mom_rk 512^3': (512, 512, 512),
 # the cases whose last two outputs are partial sums, compared as totals
 SUMS = ('mom_rk',)
 # the cases timed on the device by a CUDA graph too
-GRAPH = ('wallmodel', 'wallmodel rows', 'wallmodel duct', 'wallmodel halo')
+GRAPH = ('wallmodel', 'wallmodel rows', 'wallmodel duct', 'wallmodel halo',
+         'wallmodel halo x walls')
 
 
 def _baseline(root: Path):
@@ -471,10 +493,165 @@ def _slab_3d_x(Km, d, case):
     return tuple(out)
 
 
+@functools.lru_cache(maxsize=8)
+def _xwm(base, ng):
+    """The developing WMLES's wall model at ng (the log law on both z
+    walls, x walls with a 1/7-power inflow profile, periodic y) as the
+    checkout whose package is `base` builds it, built once (no host work
+    where a CUDA graph captures the calls): the whole field's, and with
+    this checkout the lower and the upper half's slab models (their rows
+    of the profile, timeloop._slab_planes)."""
+    mod = {q: importlib.import_module(f'{base}.{q}')
+           for q in ('config', 'grid', 'wallmodel', 'profile_step',
+                     'ops.boundary')}
+    cfg = mod['config'].Config(
+        ng=ng, l=(6.4, 3.2, 2.0), gtype=6, gr=0.0, visci=50_000.0,
+        sgstype='smag', lwm=((0, 0, 1), (0, 0, 1)), hwm=0.1,
+        cbcvel=((('D', 'N', 'N'), ('P', 'P', 'P'), ('D', 'D', 'D')),
+                (('N', 'N', 'N'), ('P', 'P', 'P'), ('D', 'D', 'D'))),
+        cbcpre=(('N', 'P', 'N'), ('D', 'P', 'N')),
+        cbcsgs=(('N', 'P', 'D'), ('N', 'P', 'D')))
+    cfg = mod['profile_step'].power_law_inflow(cfg)
+    grid = mod['grid'].make_grid_from_config(cfg)
+    wm = mod['wallmodel']
+    index = wm.find_index_wm(cfg, grid)
+    bcs = tuple(mod['ops.boundary'].make_bc_values(
+        ng, tuple(tuple(cfg.bcvel[ib][dd][iv] for ib in range(2))
+                  for dd in range(3)), torch.float64)
+        for iv in range(3))
+    whole = wm.wall_model(cfg, grid, index, bcs)
+    if base != K.__name__.rsplit('.', 2)[0]:
+        return whole, ()
+    from .timeloop import _slab_planes
+    ny = ng[1]
+    cut = ny // 2
+    return whole, tuple(
+        wm.wall_model(cfg, grid, index, tuple(
+            _slab_planes(b, y0, nyl, ny) for b in bcs))
+        for y0, nyl in ((0, cut), (cut, ny - cut)))
+
+
+def _slab_xy(Km, d, case):
+    """The cases of SLAB_XY: the baseline (Km not this checkout's K) on the
+    whole field, this checkout on the lower and the upper slab (cut as
+    _slabs cuts), joined along y: with x and y walls (the y-row stacks
+    random, the slabs' by boundary.slab_ystack with the whole field's
+    wall rows on the side each owns; the x stacks (nyc = ny + 2) random,
+    a slab's its columns lo .. hi + 1: the whole field's wall rows on the
+    owned side, the neighbour's rows elsewhere) mom_rk without and with
+    nu_t, fillps, correc_updatep and smag with the y and x walls' van
+    Driest inputs; mom_rk's scalar variant with x walls and periodic y
+    (its halos the field's rows, the x stacks with the rows -1 and nyl);
+    and the wall model of the developing WMLES (x walls, an inflow
+    profile) on the rows as they are, the slabs' with their y halos and
+    their rows of the profile (XW x YH), joined as _wm_slabs joins."""
+    f, e, ye, dz = d['f'], d['e'], d['ye'], d['dz']
+    nz, ny, nx = f[0].shape
+    mom = (dz, dz, 0.01, -0.005, 5e-5, 40.0, 20.0, (0.1, 0.0, 0.0))
+    tw = d['tauw']
+    yplanes = d['ywall'][2:]
+    xwall = (d['prof'][:1].expand(nx).contiguous(),
+             (torch.arange(nx, device='cuda') < nx // 2).to(f[0].dtype),
+             *(1e-2 * (1.0 + q.abs()) for q in (f[6][:, :, 0],
+                                                f[7][:, :, 0])))
+    if case == 'wallmodel halo x walls':
+        whole, slabs = _xwm(Km.__name__.rsplit('.', 2)[0], (nx, ny, nz))
+        u, v = d['wm_u'], f[1]
+        if Km is not K:
+            return tuple(Km.wm_planes(u, v, whole))
+        from .wallmodel import sampled_rows
+        cut = ny // 2
+        outs = []
+        rows = sampled_rows(u, v, whole)
+        for (y0, nyl), slab in zip(((0, cut), (cut, ny - cut)), slabs):
+            yh = torch.stack([rows[:, (y0 - 1) % ny],
+                              rows[:, (y0 + nyl) % ny]], dim=1)
+            outs.append(K.wm_planes(u[:, y0:y0 + nyl].contiguous(),
+                                    v[:, y0:y0 + nyl].contiguous(), slab,
+                                    yh=yh))
+        return tuple(torch.cat([a[:, :cut + 1], b[:, 1:]], dim=1)
+                     for a, b in zip(*outs))
+    if case == 'mom_rk halo scal x walls':
+        xe = d['xe'][ny]
+        # the scalar f[5] with the edge stack e[3], its previous RHS f[6],
+        # its x stack nu_t's (random all the same)
+        kw = dict(sums=(True, True), scal=(2e-4, 0.05))
+        if Km is not K:
+            out = Km.mom_rk(*f[:5], *e[:5], *f[5:8], *mom,
+                            xe=(*xe, xe[3]), sca=f[5], scae=e[3], rso=f[6],
+                            **kw)
+            return (*out[:6], *out[8:], out[6].sum(dim=1),
+                    out[7].sum(dim=1))
+        cut = ny // 2 // 16 * 16
+        outs = []
+        F = [*f[:5], f[5], f[6], *f[5:8]]
+        E = [*e[:5], e[3]] + [torch.zeros_like(e[0])] * 4
+        for lo, hi in ((0, cut), (cut, ny)):
+            q = [a[:, lo:hi].contiguous() for a in F]
+            qe = [a[:, lo:hi].contiguous() for a in E]
+            rows = [(lo - 1) % ny, hi % ny]
+            h = [(a[:, rows].contiguous(), b[:, rows].contiguous())
+                 for a, b in zip(F[:6], E[:6])]
+            idx = [rows[0], *range(lo, hi), rows[1]]
+            xx = [tuple(a[..., idx].contiguous() for a in x)
+                  for x in (*xe, xe[3])]
+            out = K.mom_rk(*q[:5], *qe[:5], *q[7:10], *mom, yh=tuple(h),
+                           xe=tuple(xx), sca=q[5], scae=qe[5], rso=q[6],
+                           **kw)
+            outs.append((*out[:6], *out[8:], out[6], out[7]))
+        out = [torch.cat([a, b], dim=1) for a, b in zip(*outs)]
+        out[-2:] = [q.sum(dim=1) for q in out[-2:]]
+        return tuple(out)
+    # x and y walls: the whole field's stacks, or a slab's
+    xe = d['xe'][ny + 2]
+    sgs = case.endswith('nu_t') or case.startswith('smag')
+
+    def run(kern, q, qe, ys, x, lo, hi):
+        if case.startswith('mom_rk'):
+            return kern.mom_rk(
+                q[0], q[1], q[2], q[3] if sgs else None, q[4], qe[0], qe[1],
+                qe[2], qe[3] if sgs else None, qe[4], *q[5:8], *mom,
+                sums=(True, True),
+                ye=(*ys[:3], ys[3] if sgs else None, ys[4]),
+                xe=(*x[:3], x[3] if sgs else None, x[4]))
+        if case.startswith('fillps'):
+            return (kern.fillps(*q[:3], *qe[:3], dz, 100.0, 40.0, 20.0,
+                                yv=ys[1], xu=x[0]),)
+        if case.startswith('correc_updatep'):
+            # pp q[3], its y-row stack ys[3], its x stack x[3]
+            return kern.correc_updatep(*q[:5], qe[2], qe[3], 0.01, 40.0,
+                                       20.0, dz, dz, ypp=ys[3],
+                                       yv=ys[1][0], xpp=x[3], xu=x[0])
+        ywall = (d['ywall'][0][lo:hi].contiguous(),
+                 d['ywall'][1][lo:hi].contiguous(), *yplanes)
+        return (kern.smag(*q[:3], *qe[:3], dz, dz, 40.0, 20.0, 5e-5,
+                          d['prof'], d['prof'], d['nearlo'],
+                          *(t[lo:hi].contiguous() for t in tw), ye=ys[:3],
+                          ywall=ywall, xe=x[:3],
+                          xwall=(*xwall[:2], *(t[:, lo:hi].contiguous()
+                                               for t in xwall[2:]))),)
+    cut = ny // 2 // 16 * 16
+    if Km is not K:
+        out = list(run(Km, f, e, ye, xe, 0, ny))
+    else:
+        def slab(q, qe, h, ys, own):
+            lo, hi = (0, cut) if own[0] else (cut, ny)
+            x = [tuple(a[..., lo:hi + 2].contiguous() for a in xx)
+                 for xx in xe]
+            return run(K, q, qe, ys, x, lo, hi)
+        out = list(_slabs(f, e, ye, 1, slab))
+    if case.startswith('mom_rk'):
+        # the partial sums (of the two slabs, joined) as per-plane totals
+        out[6:8] = [q.sum(dim=1) for q in out[6:8]]
+    return tuple(out)
+
+
 def _call(mods, d, case):
     Km, SKm = mods
     if case in SLAB_3D_X:
         return _slab_3d_x(Km, d, case)
+    if case in SLAB_XY:
+        return _slab_xy(Km, d, case)
     if case.startswith('apply_y'):
         return (SKm.apply_y(d['f'][0], d['ny_op'],
                             d['nx_op'] if 'x+y' in case else None),)

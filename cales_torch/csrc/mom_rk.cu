@@ -46,7 +46,10 @@
 //          rk.f90:123-195); periodic y, y walls, or a slab of the y-slab
 //          mesh (Y_HALO, with each split: the scalar's halo rows -1 and
 //          ny read as the velocity's, the TPU kernel's scalar window on the
-//          y strips, cales_tpu/timeloop.py:1943-2078).
+//          y strips, cales_tpu/timeloop.py:1943-2078; with XW explicit or
+//          split 1, its x stack carrying the neighbours' rows -1 and ny as
+//          the velocity's, the scalar's xe columns in the y-sharded xe
+//          bundle, cales_tpu timeloop.py:160-199).
 // The formulas are cales_torch/ops/stencil.momentum_rhs_core term by term
 // (reference mom.f90:17-309, rk.f90:77-94).
 //
@@ -584,10 +587,14 @@ MomKernel<T> pick_mom_rk_xw(int ym, int split) {
 }
 
 // the scalar variants, what the slice runs with a scalar: periodic y with
-// each split, y walls explicit, x walls as pick_mom_rk_xw on one device,
-// and a slab of the y-slab mesh with each split
+// each split, y walls explicit, x walls as pick_mom_rk_xw (on a slab of
+// the y-slab mesh explicit or split '1d'), and a slab of the y-slab mesh
+// with each split
 template <typename T, bool SGS>
 MomKernel<T> pick_mom_rk_scal(int ym, int split, bool xw) {
+  if (xw && ym == Y_HALO)
+    return split == 1 ? &mom_rk_kernel<T, SGS, 1, Y_HALO, true, true>
+                      : &mom_rk_kernel<T, SGS, 0, Y_HALO, true, true>;
   if (xw)
     return split == 1 ? &mom_rk_kernel<T, SGS, 1, Y_PERIODIC, true, true>
            : ym == Y_WALLS ? &mom_rk_kernel<T, SGS, 0, Y_WALLS, true, true>
@@ -612,7 +619,8 @@ MomKernel<T> pick_mom_rk_scal(int ym, int split, bool xw) {
 // slab, 1).  sc: the passive scalar (the SCAL variants), or null: its
 // field, edge stack and outputs set, its previous RHS with ruo, its y-row
 // and x stack pairs with the velocity's (on a slab its halo pair, with
-// any split; x walls on one device).
+// any split, and with x walls its x stack pair with the neighbours' rows
+// as the velocity's).
 template <typename T>
 int launch_mom_rk(const T* u, const T* v, const T* w, const T* s, const T* p,
                   const T* ue, const T* ve, const T* we, const T* se,
@@ -630,7 +638,6 @@ int launch_mom_rk(const T* u, const T* v, const T* w, const T* s, const T* p,
   if (sc != nullptr &&
       (sc->s == nullptr || sc->se == nullptr || sc->so == nullptr ||
        sc->rs == nullptr || (sc->rso == nullptr) != (ruo == nullptr) ||
-       (halo && xw) ||
        yw != (sc->ys.rows != nullptr && sc->ys.corners != nullptr) ||
        xw != (sc->xs.rows != nullptr && sc->xs.corners != nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);

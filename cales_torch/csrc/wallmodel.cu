@@ -28,6 +28,11 @@
 // s q[idx] + c with c read per row from xc (the static x values at that
 // row; an inflow profile's vary along y), u's padded nx being its set_bc
 // rewrite slot, and then wrap along y as the rest of the row does.
+// With both (XW x YH: the developing WMLES on a slab of the y-slab mesh,
+// periodic y; cales_tpu's z_wall_wm_planes under its xe column protocol,
+// timeloop.py:183-190) a row's x ghost columns take the x recipe on every
+// padded row, the halo rows' too, its offsets xc per padded row 0 .. ny+1
+// (the slab's rows of an inflow profile and their periodic neighbours).
 // On a slab of the y-slab mesh (YH, z faces with periodic x and y, the
 // rows as they are; cales_tpu's _wm_bcs_fast under its mesh) a sampled
 // row's padded rows 0 and n+1 are its rows -1 and ny from the neighbours,
@@ -295,18 +300,28 @@ __global__ void __launch_bounds__(CALES_THREADS)
   };
   // x walls: this lane's padded column as an x-recipe entry (0, 1, 2 for
   // padded 0, nx, nx+1; -1 inside), and a sample of component cq of the
-  // face's k-th row there: the x recipe at the row r.row, then the row's
-  // recipe along y
+  // face's k-th row at its padded row p there: the x recipe at the row
+  // r.row, then the row's recipe along y; on a slab (YH) the offsets
+  // carry the rows -1 and ny (row j at j + 1), and on a halo side the
+  // neighbours' row takes the x recipe at its own offset (the x recipes
+  // are pointwise along y)
   const int ic = min(max(i, 0), px - 1);
   const int xpos = !XW ? -1 : ic == 0 ? 0 : ic == nx ? 1 : ic == nx + 1 ? 2
                                                                        : -1;
-  auto sample_x = [&](const T* q, int cq, const WmRec<T>& r, int64_t rbase,
-                      int k) {
+  constexpr int XOFF = YH ? 1 : 0;
+  auto sample_x = [&](const T* q, int cq, int p, const WmRec<T>& r,
+                      int64_t rbase, int k) -> T {
     const int ci = f.xidx[cq][xpos] < 0 ? f.xidx[cq][xpos] + nx
                                         : f.xidx[cq][xpos];
-    const T c = xc[((((blockIdx.z >> 1) * 2 + cq) * 2 + k) * 3 + xpos) * ny +
-                   r.row];
-    const T val = f.xs[cq][xpos] * q[rbase + r.row * stride + ci] + c;
+    const int m = ((blockIdx.z >> 1) * 2 + cq) * 2 + k;
+    const T* const c = xc + (m * 3 + xpos) * (ny + 2 * XOFF);
+    if (YH && ((p == 0 && halo_lo) || (p == pn - 1 && halo_hi))) {
+      const int side = p == 0 ? 0 : 1;
+      return f.xs[cq][xpos] * yh[(m * 2 + side) * nx + ci] +
+             c[side == 0 ? 0 : ny + 1];
+    }
+    const T val = f.xs[cq][xpos] * q[rbase + r.row * stride + ci] +
+                  c[r.row + XOFF];
     return r.s * val + r.c;
   };
   // a slab (YH): a sample of component cq of the face's k-th row at its
@@ -325,9 +340,9 @@ __global__ void __launch_bounds__(CALES_THREADS)
     const int r = k == 0 ? f.r1 : f.r2;
     const int64_t rbase = yface ? static_cast<int64_t>(r) * nx : r * plane;
     if (XW && xpos >= 0) {
-      mine[k] = sample_x(qm, own, rm, rbase, k);
-      oth_a[k] = sample_x(qo, oth, ra, rbase, k);
-      oth_b[k] = sample_x(qo, oth, rb, rbase, k);
+      mine[k] = sample_x(qm, own, ja, rm, rbase, k);
+      oth_a[k] = sample_x(qo, oth, ja, ra, rbase, k);
+      oth_b[k] = sample_x(qo, oth, jb, rb, rbase, k);
     } else if (YH) {
       mine[k] = sample_h(qm, own, ja, fm, cm, rm, rbase, k);
       oth_a[k] = sample_h(qo, oth, ja, fo, co, ra, rbase, k);
@@ -416,9 +431,11 @@ int launch_wallmodel(const T* u, const T* v, const T* w, const T* pp,
                      void* stream) {
   if (a->nf < 1 || a->nf > WM_FACES)
     return static_cast<int>(cudaErrorInvalidValue);
-  // a slab's halo rows: z faces with periodic x, the rows as they are;
-  // on a y-walled mesh (ylo, yhi >= 0) the y faces it owns after them
-  if (yh != nullptr && (a->xw || corrected || (ylo < 0) != (yhi < 0)))
+  // a slab's halo rows: z faces, the rows as they are, with periodic x or
+  // (periodic y) x walls; on a y-walled mesh (ylo, yhi >= 0, periodic x)
+  // the y faces it owns after them
+  if (yh != nullptr && ((a->xw && ylo >= 0) || corrected ||
+                        (ylo < 0) != (yhi < 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   bool yfaces = false;
   for (int n = 0; yh != nullptr && n < a->nf; ++n) {
@@ -453,7 +470,8 @@ int launch_wallmodel(const T* u, const T* v, const T* w, const T* pp,
   const dim3 grid(static_cast<unsigned>((nx + 2 + WM_OUT - 1) / WM_OUT),
                   static_cast<unsigned>((rows + WM_BY - 1) / WM_BY),
                   static_cast<unsigned>(2 * a->nf));
-  auto kern = a->xw             ? &wallmodel_kernel<T, true>
+  auto kern = a->xw ? (yh != nullptr ? &wallmodel_kernel<T, true, true>
+                                     : &wallmodel_kernel<T, true>)
               : yh != nullptr ? &wallmodel_kernel<T, false, true>
                               : &wallmodel_kernel<T, false>;
   kern<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(

@@ -37,6 +37,10 @@ On a slab of a y-walled mesh (dims = (gy, 1)) the stacks are the slab's
 rows 0 and nyl-1 with no communication, on a side the slab owns (rank 0
 the lower wall, rank gy-1 the upper), the neighbours' halo rows elsewhere,
 so the y-walled kernels run on every slab as they do on the whole field.
+With x walls as well each slab builds its x stacks with the wall recipe's
+y ghosts and v's rewrite row on the sides it owns only (xedge_* with
+yown), and takes its rows -1 and nyl elsewhere from the neighbours'
+stacks (timeloop._xstacks_on_slab).
 
 
 BC values are python floats or padded 2-D planes (x-faces (nz+2, ny+2),
@@ -403,15 +407,19 @@ def _axis_recipe(letters, bvals, dr, n, face, keep):
 
 
 @functools.lru_cache(maxsize=256)
-def _recipe(lts, bvals, drs, face, keep, ywalls, shape, dtype, device):
+def _recipe(lts, bvals, drs, face, keep, ywalls, yown, shape, dtype,
+            device):
     """The (index, scale, offset) tensors of _xstack's three passes on
     `device`, built once for each field and fill (bvals: the scalar BC
     values, a plane-valued one as 0.0): along x and z the three entries of
     _axis_recipe; along y (with y walls) the whole padded row range [lo, 0
-    .. ny-1, hi], the face-staggered v's row ny-1 its rewrite slot.  With
-    them, along x and z, the factors (3,) of each side's value in the
-    three offsets, which a plane-valued side adds at run time.  Every
-    caller shares the tensors, which nothing writes."""
+    .. ny-1, hi], the face-staggered v's row ny-1 its rewrite slot, where
+    on a slab of the y-slab mesh a side it does not own (yown = (lower,
+    upper)) takes its own first or last row in place of the wall recipe's
+    ghost (and v's last row its own), which the caller replaces by the
+    neighbour's.  With them, along x and z, the factors (3,) of each
+    side's value in the three offsets, which a plane-valued side adds at
+    run time.  Every caller shares the tensors, which nothing writes."""
     nz, ny, nx = shape
 
     def tensors(triples):
@@ -432,6 +440,10 @@ def _recipe(lts, bvals, drs, face, keep, ywalls, shape, dtype, device):
     if ywalls:
         lo, mid, hi = _axis_recipe(lts[1], bvals[1], drs[1], ny, face == 1,
                                    keep[1])
+        if not yown[0]:
+            lo = (0, 1.0, 0.0)
+        if not yown[1]:
+            mid = hi = (ny - 1, 1.0, 0.0)
         inner = [(j, 1.0, 0.0) for j in range(ny - (face == 1))]
         yr = tensors([lo, *inner, *([mid] if face == 1 else []), hi])
     zr = tensors(_axis_recipe(lts[2], bvals[2], drs[2], nz, face == 2,
@@ -454,7 +466,7 @@ def _is_plane(b):
 
 
 def _xstack(q, lts, bcs, drs, face, vlo=None, keep=(False, False, False),
-            ywalls=False):
+            ywalls=False, yown=None):
     """x-ghost columns of one field and their corners, as the sequential
     x -> y -> z fill leaves them: the x recipe on q, with y walls the y
     recipe on the columns (their y ghosts and the y rewrite slot: the
@@ -468,7 +480,11 @@ def _xstack(q, lts, bcs, drs, face, vlo=None, keep=(False, False, False),
     (z, y) entries) and on the z faces ((ny+2, nx+2): a moving lid, the
     wall model's Neumann planes, their columns 0, nx and nx+1 at the
     interior y rows, as cales_tpu's boundary._corner_cols takes them), with
-    periodic y: its contribution to the offsets is added at run time."""
+    periodic y: its contribution to the offsets is added at run time.
+    yown: with y walls on a slab of the y-slab mesh, the walls it holds
+    (lower, upper); the stack's rows -1 and nyl on the other sides are its
+    own rows 0 and nyl-1, for the caller to replace by the neighbours'
+    (timeloop._xstacks_on_slab), and v's row nyl-1 is its own."""
     nz, ny, nx = q.shape
     planes = {(d, ib): b for d, pair in enumerate(bcs)
               for ib, b in enumerate(pair) if _is_plane(b)}
@@ -480,6 +496,7 @@ def _xstack(q, lts, bcs, drs, face, vlo=None, keep=(False, False, False),
     xr, yr, zr, (xfac, zfac) = _recipe(
         tuple(tuple(x) for x in lts), key,
         tuple(tuple(map(float, d)) for d in drs), face, tuple(keep), ywalls,
+        (True, True) if yown is None else tuple(map(bool, yown)),
         (nz, ny, nx), q.dtype, q.device)
     def xcolumns(plane):
         # the stack's columns [0, nx, nx+1] of a padded plane, by slices
@@ -512,7 +529,7 @@ def _xstack(q, lts, bcs, drs, face, vlo=None, keep=(False, False, False),
 
 def xedge_velocity(u, v, w, cbcvel, bcu, bcv, bcw, dl, dzc, dzf,
                    vlo=None, is_correc=False, ywalls=False,
-                   fields=(0, 1, 2)):
+                   fields=(0, 1, 2), yown=None):
     """x-ghost column stacks of (u, v, w) with pad_velocity's semantics, a
     (cols, corners) pair each: cols (nz, 3, nyc) [padded x 0, padded x nx
     (u's set_bc rewrite slot, the interior's last column for v and w),
@@ -525,7 +542,8 @@ def xedge_velocity(u, v, w, cbcvel, bcu, bcv, bcw, dl, dzc, dzf,
     columns as (nz, ny, 3) in the order [0, nx+1, nx].  is_correc with
     vlo: the corrector fill's kept lower faces, u's x face, v's y face
     (with y walls) and w's z face (impose_norm_bc=.false.).  fields: the
-    components to build (the others' pairs are None)."""
+    components to build (the others' pairs are None).  yown: a slab's y
+    walls on the y-slab mesh (_xstack)."""
     nz = u.shape[0]
     drs = ((dl[0], dl[0]), (dl[1], dl[1]))
     dz = ((float(dzc[0]), float(dzc[nz])), (float(dzf[0]), float(dzf[nz])))
@@ -538,16 +556,16 @@ def xedge_velocity(u, v, w, cbcvel, bcu, bcv, bcw, dl, dzc, dzf,
         keep = tuple(d == iv and is_correc and vlo is not None
                      and lts[d][0] != 'P' for d in range(3))
         out.append(_xstack(q, lts, bc, (*drs, dz[iv == 2]), iv, vlo=vlo,
-                           keep=keep, ywalls=ywalls))
+                           keep=keep, ywalls=ywalls, yown=yown))
     return tuple(out)
 
 
-def xedge_scalar(p, cbc, bcvals, dl, dzc, ywalls=False):
+def xedge_scalar(p, cbc, bcvals, dl, dzc, ywalls=False, yown=None):
     """x-ghost column stack and its corners of a cell-centred scalar
     (boundp's x, y and z semantics), in xedge_velocity's layout."""
     nz = p.shape[0]
     drs = ((dl[0], dl[0]), (dl[1], dl[1]), (float(dzc[0]), float(dzc[nz])))
-    return _xstack(p, cbc, bcvals, drs, None, ywalls=ywalls)
+    return _xstack(p, cbc, bcvals, drs, None, ywalls=ywalls, yown=yown)
 
 
 @functools.lru_cache(maxsize=64)

@@ -52,11 +52,15 @@ on the mesh every slab passes its own y-row stack pairs
 halo rows elsewhere) as ye, and the y-walled variants run as on the whole
 field; dsmag and dsmag_level1 take them with their two-row halo and the
 walls the slab owns (ye, yh and yown together), dsmag_level2 with the
-walls it owns (ye and yown).  With x walls on the mesh (periodic y)
-x does not wrap either: mom_rk and smag, which read the corners where
-the halo rows meet the x ghost columns, take x stacks that carry the
-neighbours' rows -1 and ny (nyc = ny + 2, their rows in the momentum
-and SGS exchanges), fillps and correc_updatep the slab's own (nyc = ny).
+walls it owns (ye and yown).  With x walls on the mesh x does not wrap
+either: mom_rk and smag, which read the corners where the halo rows meet
+the x ghost columns, take x stacks that carry the neighbours' rows -1
+and ny (nyc = ny + 2, their rows in the momentum and SGS exchanges; with
+y walls the wall recipe's rows on the sides the slab owns,
+timeloop._xstacks_on_slab), fillps and correc_updatep the slab's own
+(nyc = ny, or ny + 2 with y walls); the wall model's sampled z rows
+take their halo rows' x ghosts from the slab's rows of the x faces'
+values.
 z metrics are (nz+2,) tensors with ghost entries, in the fields' dtype and
 on their device.
 
@@ -788,8 +792,9 @@ def mom_rk(u, v, w, s, p, ue, ve, we, se, pe, ruo, rvo, rwo, dzci, dzfi,
     passive scalar (the argument s is nu_t), with its z-edge stack scae,
     its previous RHS rso (None with ruo) and scal = (alpha, ssource), its
     diffusivity visc/pr and source; with y or x walls its stack pair is
-    the sixth entry of ye or xe (its own BC letters and values; x walls on
-    one device), on a slab its halo pair the sixth entry of yh (any
+    the sixth entry of ye or xe (its own BC letters and values; on a slab
+    with x walls its x stack pair carries the neighbours' rows like the
+    velocity's), on a slab its halo pair the sixth entry of yh (any
     split).  Returns (u, v,
     w, ru, rv, rw, usum, vsum), and with sca also (s, ds), the scalar and
     its RHS; usum/vsum are None or per-(z, part) partial sums,
@@ -808,13 +813,12 @@ def mom_rk(u, v, w, s, p, ue, ve, we, se, pe, ruo, rvo, rwo, dzci, dzfi,
     has_scal = sca is not None
     ye_sc, xe_sc, yh_sc = _six(ye)[5], _six(xe)[5], _six(yh)[5]
     if has_scal and (scae is None or (rso is None) != (ruo is None)
-                     or (yh is not None and xe is not None)
                      or (ye is not None) != (ye_sc is not None)
                      or (xe is not None) != (xe_sc is not None)
                      or (yh is not None) != (yh_sc is not None)):
         raise ValueError('mom_rk: the scalar takes its edge stack, rso '
                          'with ruo, its y and x stack pairs and slab halo '
-                         "with the velocity's (x walls on one device)")
+                         "with the velocity's")
     if not has_scal and (scae is not None or rso is not None
                          or ye_sc is not None or xe_sc is not None
                          or yh_sc is not None):
@@ -1336,35 +1340,40 @@ def _wm_recipe(fill):
     return lo, top, hi
 
 
-def _wm_xrows(face, q, ny):
+def _wm_xrows(face, q, ny, ghosts=False):
     """Face's x recipe of component q at its two sampled rows: the
     (index, s) of padded columns 0, nx, nx+1 and their offsets c as a
     (2 rows, 3, ny) float64 array (an x face's plane-valued value at the
-    rows' interior y entries)."""
+    rows' interior y entries), or with ghosts (2 rows, 3, ny + 2), its
+    entries at the padded rows 0 .. ny+1 (a slab's, whose rows -1 and ny
+    are the neighbours')."""
+    n = ny + 2 if ghosts else ny
     rows = []
     for letters, vals, dr, stag in (xf[q] for xf in face.xfills):
-        vr = tuple(np.asarray(b[1:ny + 1]) if isinstance(b, tuple) else b
-                   for b in vals)
+        vr = tuple(np.asarray(b if ghosts else b[1:ny + 1])
+                   if isinstance(b, tuple) else b for b in vals)
         rows.append(_wm_recipe((letters, vr, dr, stag)))
     c = np.stack([np.stack([np.broadcast_to(np.asarray(t[2], np.float64),
-                                            (ny,)) for t in rec])
+                                            (n,)) for t in rec])
                   for rec in rows])
     return [(t[0], t[1]) for t in rows[0]], c
 
 
 @functools.cache
-def _wm_args(wm, dtype, device, nz, ny):
+def _wm_args(wm, dtype, device, nz, ny, ghosts=False):
     """The static arguments of wm (a wallmodel.WallModel, its own key) for
     fields of dtype on device with nz planes of ny rows: checked and built
     once, so a call passes only its pointers, its mode and dtrk dxi, dtrk
     dyi.  With x walls also the x recipes' offsets on the device (faces, 2
-    components, 2 rows, 3 columns, ny), else None."""
+    components, 2 rows, 3 columns, ny, or with ghosts ny + 2: a slab's,
+    its halo rows' too), else None."""
     args = _make_wm_args(wm, dtype, nz, ny)
     if wm.faces[0].xfills is None:
         return args, None
     return args, torch.tensor(
-        np.stack([np.stack([_wm_xrows(f, q, ny)[1] for q in range(2)])
-                  for f in wm.faces]), dtype=dtype, device=device)
+        np.stack([np.stack([_wm_xrows(f, q, ny, ghosts)[1]
+                            for q in range(2)]) for f in wm.faces]),
+        dtype=dtype, device=device)
 
 
 def _make_wm_args(wm, dtype, nz, ny):
@@ -1427,10 +1436,12 @@ def wm_planes(u, v, wm, fuv=None, pp=None, dtrk=0.0, dxi=0.0, dyi=0.0,
     y, corrected by pp and the deferred forcing fuv = (fu, fv) (both
     given; see wallmodel.wm_planes_plain).  With x walls (z faces) the
     rows take their x ghosts from the x faces' values.  yh: a slab of the
-    y-slab mesh (z faces, periodic x and y, the rows as they are), the
-    (4 z faces, 2, nx) halo rows -1 and nyl of wallmodel.sampled_rows,
-    which the rows take along y in place of the wrap (the kernel's slab
-    variant); with yown = (lower, upper) a slab of a y-walled mesh
+    y-slab mesh (z faces, periodic y, the rows as they are), the (4 z
+    faces, 2, nx) halo rows -1 and nyl of wallmodel.sampled_rows, which
+    the rows take along y in place of the wrap (the kernel's slab variant;
+    with x walls its XW x YH mode, the halo rows' x ghosts by the x
+    recipes at the offsets of those rows, which the slab's wall model
+    carries); with yown = (lower, upper) a slab of a y-walled mesh
     (wallmodel.slab_wall_model: its z faces, then the y faces it owns on
     its own rows), the z faces' rows take the y recipe on the sides the
     slab owns and the halo rows elsewhere (the kernel's y-walled slab
@@ -1454,7 +1465,7 @@ def wm_planes(u, v, wm, fuv=None, pp=None, dtrk=0.0, dxi=0.0, dyi=0.0,
     if u.numel() >= 2 ** 31:
         raise ValueError(f'wm_planes: {u.numel()} values a field (the '
                          'kernel indexes within a row in 32 bits)')
-    args, xc = _wm_args(wm, u.dtype, u.device, nz, ny)
+    args, xc = _wm_args(wm, u.dtype, u.device, nz, ny, yh is not None)
     sizes = [2 * ((nz if f.d == 1 else ny) + 2) * (nx + 2) for f in wm.faces]
     out = u.new_empty(sum(sizes))
     wz = (None if wm.wei is None

@@ -76,9 +76,11 @@ the wall model on the y and z walls, the wall-modelled duct); for the
 triperiodic box (sgstype 'none', static Smagorinsky, the one-pass dynamic
 Smagorinsky in its periodic-z mode with either filter, explicit, z-only
 or full-3D implicit diffusion, forced along z too); each with or without
-the passive scalar; and for the developing channel with periodic y and
-its LES (sgstype 'none' or static Smagorinsky, explicit diffusion or
-impdiff_1d, no scalar, no wall model).  The
+the passive scalar; and for the x-walled classes as one device runs
+them (the developing channel and its LES, the developing WMLES with its
+inflow profile, the closed box, the lid-driven cavity and the developing
+duct; sgstype 'none' or static Smagorinsky, explicit diffusion or with
+periodic y impdiff_1d, a passive scalar, plane-valued values).  The
 halos of the fields each stencil kernel reads at +-1 in y come from the
 neighbours before it runs (mesh.halo_y; two rows deep for the velocity
 tiles of dsmag and dsmag_level1, one row of the filtered velocity for
@@ -119,13 +121,24 @@ and SGS exchanges (the JAX package's y-sharded xe bundles), so mom_rk
 and smag read the corners where the halo rows meet the x ghost columns
 (their XW x Y_HALO variants); fillps and correc_updatep read the slab's
 own stacks; the x walls' shear planes of van Driest take v's halo row,
-and the kept inflow face advances on the slab's rows.
+and the kept inflow face advances on the slab's rows.  With x and y walls
+a slab's x stacks carry the wall recipe's rows -1 and nyl (and v's
+rewrite row) on the sides it owns and the neighbours' rows elsewhere
+(boundary.xedge_* with yown, _xstacks_on_slab: the JAX package's xe
+bundles with the corner section on the ye bundle), so the XW x Y_WALLS
+variants run on the slab's y-row and x stacks; the scalar's x stack rides
+the momentum exchange (mom_rk's SCAL x XW x Y_HALO with periodic y); the
+z walls' wall model with x walls takes its sampled rows' halo rows and
+applies the x recipe to them at their own rows' offsets (wallmodel.cu's
+XW x YH mode); and plane-valued values (an inflow profile, a lid plane)
+are cut to the slab's rows, their y ghosts the periodic wrap's
+(_slab_planes).
 
 With x walls (inflow and outflow faces, or walls: the developing channel,
 and with y walls the closed box, the lid-driven cavity and the developing
 duct; sgstype 'none' or static Smagorinsky, explicit diffusion or, with
-periodic y, impdiff_1d; on one device, and with periodic y on the y-slab
-mesh as above) mom_rk, fillps and correc_updatep take
+periodic y, impdiff_1d; on one device and on the y-slab mesh as
+above) mom_rk, fillps and correc_updatep take
 the fields' x stacks (ops/boundary.xedge_*) of the same fills: the
 post-correction fill's columns carried in State.xq (and nu_t's), the
 prediction fill's u columns (u's set_bc rewrite, which the kernels read in
@@ -137,7 +150,8 @@ developing WMLES): its sampled rows take their x ghosts from the x faces'
 values, its planes reach the x stacks' corners as plane-valued offsets,
 and smag reads the 'E' stacks (sgs.extrapolate_stacks).  Plane-valued
 static velocity values (an inflow profile on an x face, a moving lid on a
-z face) ride the same offsets with periodic y (_planes_refuse).
+z face) ride the same offsets with periodic y (_planes_refuse), on one
+device and on the mesh.
 
 With a passive scalar (cfg.scalar; every route above) the
 scalar advances in mom_rk's scalar stream (csrc/mom_rk.cu SCAL: its RHS
@@ -247,9 +261,8 @@ def _xwalls_refuse(cfg: Config) -> list[str]:
     developing channel, the closed box, the lid-driven cavity and the
     developing duct, and their LES); with periodic y also the wall model
     on the z walls (the developing WMLES) and plane-valued velocity values
-    (an inflow profile, _planes_refuse).  On one device; on the y-slab
-    mesh with periodic y, without the wall model or the scalar
-    (_mesh_refuse says which)."""
+    (an inflow profile, _planes_refuse).  On one device and on the y-slab
+    mesh (_mesh_refuse)."""
     out = []
     item = 'ROADMAP queue 1, x walls'
     letters = ([cfg.cbc_vel(0, iv) for iv in range(3)]
@@ -342,8 +355,10 @@ def _planes_refuse(cfg: Config) -> list[str]:
     static plane-valued velocity values on the x faces (an inflow profile,
     with x walls) and the z faces (a moving lid, the wall model's
     Neumann planes' path) with periodic y, sgstype 'none' or static
-    Smagorinsky, explicit diffusion, one device, off the wall-modelled
-    faces; they ride the edge and x stacks' recipes as offsets."""
+    Smagorinsky, explicit diffusion, off the wall-modelled faces, on one
+    device and on the y-slab mesh (each slab its rows of the planes,
+    _slab_planes); they ride the edge and x stacks' recipes as
+    offsets."""
     item = 'ROADMAP queue 1, BC topologies'
     out = []
     if any(np.ndim(b[ib][d]) != 0 for b in (cfg.bcpre, cfg.bcsgs)
@@ -379,9 +394,6 @@ def _planes_refuse(cfg: Config) -> list[str]:
     if any(cfg.lwm[ib][d] != 0 for ib, d in faces):
         out.append('plane-valued velocity values on a wall-modelled face '
                    f'(its static wall velocity is a scalar): {item}')
-    if cfg.dims[0] * cfg.dims[1] > 1:
-        out.append('plane-valued velocity values on a device mesh: ROADMAP '
-                   'queue 1, multi-device')
     return out
 
 
@@ -432,10 +444,13 @@ def _mesh_refuse(cfg: Config) -> list[str]:
     owner's slab; with periodic z (the triperiodic box) sgstype 'none',
     static Smagorinsky or the one-pass dynamic Smagorinsky (the 3D or 2D
     filter), each diffusion; and with x walls and periodic y (the
-    developing channel and its LES) what one device runs there, sgstype
-    'none' or static Smagorinsky, explicit or impdiff_1d, scalar BC
-    values.  The passive scalar runs on each of these routes but the
-    x-walled one."""
+    developing channel and its LES), and with x and y walls (the closed
+    box, the lid-driven cavity and the developing duct), what one device
+    runs there: sgstype 'none' or static Smagorinsky, explicit diffusion or
+    with periodic y impdiff_1d, with periodic y the z walls' wall model
+    (the developing WMLES) and plane-valued values (an inflow profile).
+    The passive scalar and plane-valued values run on each of these
+    routes as one device runs them."""
     gy, gx = int(cfg.dims[0]), int(cfg.dims[1])
     nx, ny, _ = cfg.ng
     out = []
@@ -460,21 +475,6 @@ def _mesh_refuse(cfg: Config) -> list[str]:
                        'velocity from the two rows next to the wall): at '
                        'least 2')
         out += _wm_slab_refuse(cfg, gy)
-    if not _periodic(cfg, 0):
-        if not _periodic(cfg, 1):
-            out.append('x and y walls together under a device mesh (the '
-                       'closed box, the cavity, the developing duct: the x '
-                       "stacks' (y ghost, x ghost) corners on the walled "
-                       f'slabs): {item}, x and y walls on a mesh')
-        if any(cfg.lwm[ib][d] != 0 for ib in range(2) for d in range(3)):
-            out.append('x walls with a wall model under a device mesh (the '
-                       "developing WMLES: the sampled rows' x ghosts on a "
-                       f'slab): {item}, x walls with the wall model on a '
-                       'mesh')
-        if cfg.scalar:
-            out.append('x walls with the passive scalar under a device '
-                       "mesh (mom_rk's scalar variant with x walls on a "
-                       f'slab): {item}, x walls with the scalar on a mesh')
     if cfg.ptransform == 'fft':
         out.append(f"ptransform 'fft' under a device mesh: {item}")
     return out
@@ -579,6 +579,22 @@ def slab_rhs_planes(planes, own):
             for k, q in planes.items()}
 
 
+def _slab_planes(vals, y0, nyl, ny):
+    """A slab's rows of the plane-valued BC values vals (make_bc_values's
+    layout): the x faces' (nz+2, ny+2) and the z faces' (ny+2, nx+2)
+    planes at the padded rows of the slab's rows y0-1 .. y0+nyl, taken
+    from the planes' interior rows with the periodic wrap (_planes_refuse
+    admits planes with periodic y only); scalars as they are."""
+    rows = (y0 - 1 + torch.arange(nyl + 2)) % ny + 1
+
+    def cut(b, d):
+        if not bnd._is_plane(b) or d == 1:
+            return b
+        return b.index_select(1 if d == 0 else 0, rows.to(b.device))
+    return tuple(tuple(cut(b, d) for b in pair)
+                 for d, pair in enumerate(vals))
+
+
 def _dsmag_ratio(s0, num, den, avg, wz=None, reduce=None):
     """nu_t = max(|S| ratio, 0) from a dsmag kernel's partial sums of num
     and den (summed over their last dim here): one ratio per z row
@@ -601,24 +617,36 @@ def _dsmag_ratio(s0, num, den, avg, wz=None, reduce=None):
     return torch.clamp_min(s0 * ratio[:, None, None], 0.0)
 
 
-def _xstack_halo_pairs(xs):
-    """The x stack pairs xs (cols (nz, 3, nyl), corners (3, 3, nyl); None
-    entries skipped) of a slab as mesh.halo_y pairs, y along dim 1."""
-    return [(c.transpose(1, 2), k.transpose(1, 2)) for c, k in
-            (x for x in xs if x is not None)]
+def _xstack_halo_pairs(xs, ywalls=False):
+    """The x stack pairs xs (cols (nz, 3, nyl), corners (3, 3, nyl), or
+    with y walls their rows 0 .. nyl-1 of (nz, 3, nyl+2), (3, 3, nyl+2);
+    None entries skipped) of a slab as mesh.halo_y pairs, y along dim 1."""
+    def rows(a):
+        return (a[..., 1:-1] if ywalls else a).transpose(1, 2)
+    return [(rows(c), rows(k)) for c, k in (x for x in xs if x is not None)]
 
 
-def _xstacks_on_slab(xs, halos):
+def _xstacks_on_slab(xs, halos, own=None):
     """The x stack pairs xs of a slab with the neighbours' rows -1 and nyl
     (halos: mesh.halo_y's pairs of _xstack_halo_pairs(xs), in order):
     cols (nz, 3, nyl+2), corners (3, 3, nyl+2), row j at index j + 1, the
     layout of the y-walled stacks, which mom_rk and smag read where the
     halo rows meet the x ghost columns (the JAX package's y-sharded xe
     bundles, cales_tpu timeloop.py:169-183).  The x recipes are pointwise
-    along y, so the neighbours' rows are their own stacks' rows."""
+    along y, so the neighbours' rows are their own stacks' rows.  own: with
+    y walls the walls the slab holds (lower, upper), xs the slab's own
+    y-walled stacks (boundary.xedge_* with yown): the wall recipe's rows
+    -1 and nyl (and v's rewrite row) on the sides it owns, the neighbours'
+    rows elsewhere, the x counterpart of boundary.slab_ystack (the JAX
+    package's xe bundles with their corner section on the ye bundle,
+    cales_tpu timeloop.py:160-199)."""
     def ext(a, h):
         h = h.transpose(1, 2)
-        return torch.cat([h[..., :1], a, h[..., 1:]], dim=2).contiguous()
+        if own is None:
+            return torch.cat([h[..., :1], a, h[..., 1:]], dim=2).contiguous()
+        return torch.cat([a[..., :1] if own[0] else h[..., :1], a[..., 1:-1],
+                          a[..., -1:] if own[1] else h[..., 1:]],
+                         dim=2).contiguous()
     it = iter(halos)
     return tuple(None if x is None else tuple(map(ext, x, next(it)))
                  for x in xs)
@@ -724,6 +752,10 @@ class Simulation:
         self.bcu_vals = mk(bcvel_by_dir(0))
         self.bcv_vals = mk(bcvel_by_dir(1))
         self.bcw_vals = mk(bcvel_by_dir(2))
+        if mesh is not None:
+            self.bcu_vals, self.bcv_vals, self.bcw_vals = (
+                _slab_planes(q, mesh.y0, mesh.nyl, ny)
+                for q in (self.bcu_vals, self.bcv_vals, self.bcw_vals))
         # the wall model on the z and y faces (unsupported() admits no
         # other): the faces' interpolation rows and weights, their static
         # wall-parallel values and their sampled rows' static fills
@@ -1001,7 +1033,9 @@ class Simulation:
                      'lamx lanes, a component each)')
         if self.mesh is not None and self.xwalled:
             mesh += (", the x stacks' rows -1 and nyl in the momentum and "
-                     'SGS exchanges')
+                     'SGS exchanges'
+                     + (" (the wall recipe's on the walls the slab owns)"
+                        if self.yown is not None else ''))
         if self.yown is not None:
             owns = [n for n, on in zip(('lower', 'upper'), self.yown) if on]
             mesh += ("; y walls: the slab's y-row stacks ("
@@ -1188,7 +1222,8 @@ class Simulation:
         ghost) corners with y walls (cales_tpu timeloop.py:1904-1911,
         _xye_entries has_scal)."""
         return bnd.xedge_scalar(s, self.cbcscal, self.bcscal, self.cfg.dl,
-                                self.grid.dzc, ywalls=self.ywalled)
+                                self.grid.dzc, ywalls=self.ywalled,
+                                yown=self.yown)
 
     def _halo_padded(self, fields, edges, walls=None, xs=None):
         """The (nz+2, nyl+2, nx+2) ghost-filled slabs of `fields` on a
@@ -1199,18 +1234,22 @@ class Simulation:
         x stack pairs of the slab's own fill) the x ghosts from them, their
         rows -1 and nyl from the neighbours in the same exchange, and the
         first field's (u's) last column its set_bc rewrite slot, as the
-        fill leaves it."""
+        fill leaves it; with x and y walls the x stacks' rows -1 and nyl
+        the wall recipe's on the sides the slab owns (_xstacks_on_slab)."""
         pairs = list(zip(fields, edges))
-        halos = self.mesh.halo_y(pairs + _xstack_halo_pairs(xs or ()))
-        xs = (_xstacks_on_slab(xs, halos[len(pairs):]) if xs is not None
-              else (None,) * len(pairs))
+        halos = self.mesh.halo_y(pairs + _xstack_halo_pairs(
+            xs or (), walls is not None))
+        xs = (_xstacks_on_slab(xs, halos[len(pairs):], self.yown)
+              if xs is not None else (None,) * len(pairs))
         halos = halos[:len(pairs)]
         if walls is None:
             return [kernels.padded(q, e, h=h, x=x, rewrite=i == 0)
                     for i, (q, e, h, x) in enumerate(zip(fields, edges,
                                                          halos, xs))]
-        return [kernels.padded(q, e, y=y) for q, e, y in zip(
-            fields, edges, self._yslab(fields, edges, walls, halos))]
+        return [kernels.padded(q, e, y=y, x=x, rewrite=i == 0)
+                for i, (q, e, y, x) in enumerate(zip(
+                    fields, edges, self._yslab(fields, edges, walls, halos),
+                    xs))]
 
     def _yslab(self, fields, edges, walls, halos):
         """The y-row stack pairs of fields on a slab of a y-walled mesh
@@ -1249,16 +1288,18 @@ class Simulation:
         """The (cols, corners) x stack pairs of u, v, w (of the components
         in fields, None for the others) with the BC values bcs = (bcu,
         bcv, bcw), the static ones by default; with y walls the columns
-        carry their y ghosts."""
+        carry their y ghosts (on a slab of a y-walled mesh the wall
+        recipe's on the sides it owns only: _xstacks_on_slab)."""
         bcu, bcv, bcw = bcs or (self.bcu_vals, self.bcv_vals, self.bcw_vals)
         return bnd.xedge_velocity(
             u, v, w, self.cbcvel, bcu, bcv, bcw, self.cfg.dl, self.grid.dzc,
             self.grid.dzf, vlo=vlo, is_correc=is_correc,
-            ywalls=self.ywalled, fields=fields)
+            ywalls=self.ywalled, fields=fields, yown=self.yown)
 
     def _xedge_p(self, p):
         return bnd.xedge_scalar(p, self.cbcpre, self.bcp_vals, self.cfg.dl,
-                                self.grid.dzc, ywalls=self.ywalled)
+                                self.grid.dzc, ywalls=self.ywalled,
+                                yown=self.yown)
 
     def _xedge_s(self, s):
         """nu_t's x stack pair, by the SGS letters (cales_tpu
@@ -1266,7 +1307,8 @@ class Simulation:
         cbcs = tuple((self.cfg.cbcsgs[0][d], self.cfg.cbcsgs[1][d])
                      for d in range(3))
         return bnd.xedge_scalar(s, cbcs, self.bcs_vals, self.cfg.dl,
-                                self.grid.dzc, ywalls=self.ywalled)
+                                self.grid.dzc, ywalls=self.ywalled,
+                                yown=self.yown)
 
     def _yedge_p(self, p):
         return bnd.yedge_scalar(p, self.cbcpre, self.bcp_vals, self.cfg.dl,
@@ -1480,8 +1522,13 @@ class Simulation:
             setup = self.sgs_setup
             slab_y = self.mesh is not None and self.yown is not None
             if slab_y:
-                yq = self._yslab((u, v, w), zq, yq, self.mesh.halo_y(
-                    list(zip((u, v, w), zq))))
+                # with x walls the x stacks' rows -1 and nyl ride the same
+                # exchange
+                h = self.mesh.halo_y(list(zip((u, v, w), zq))
+                                     + _xstack_halo_pairs(xq or (), True))
+                yq = self._yslab((u, v, w), zq, yq, h[:3])
+                if self.xwalled:
+                    xq = _xstacks_on_slab(xq, h[3:], self.yown)
             ext = None
             if self.has_wm:
                 ext = [sgsmod.extrapolate_stacks(q, e, y, iface,
@@ -1497,8 +1544,9 @@ class Simulation:
                 pairs = list(zip((u, v, w), strain_e))
                 if ext is not None:
                     pairs.append((ve, None))
-                # with x walls (no wall model on the mesh) the x stacks'
-                # rows -1 and nyl ride the exchange
+                # with x walls the x stacks' rows -1 and nyl ride the
+                # exchange (the fill's: a wall model's 'E' corners are
+                # extrapolated from them below)
                 h = self.mesh.halo_y(pairs + _xstack_halo_pairs(xq or ()))
                 if self.xwalled:
                     xq = _xstacks_on_slab(xq, h[len(pairs):])
@@ -1818,17 +1866,20 @@ class Simulation:
                   self._yedge_p(p))
             if self.has_scal:
                 ye = (*ye, self._yedge_scal(sca))
-        # with x walls the x columns of the same fill
+        # with x walls the x columns of the same fill (and the scalar's)
         xe = ((*xq, self._xedge_s(visct) if self.has_sgs else None,
                self._xedge_p(p)) if self.xwalled else None)
+        if xe is not None and self.has_scal:
+            xe = (*xe, self._xedge_scal(sca))
         if self.mesh is not None:
             # the neighbours' rows of the same fill and of the scalar, one
             # exchange; with x walls their x stacks' rows ride it
             fields, edges = (u, v, w, s, p, sca), (ue, ve, we, se, pe, scae)
             pairs = [(q, e) for q, e in zip(fields, edges) if q is not None]
-            h = self.mesh.halo_y(pairs + _xstack_halo_pairs(xe or ()))
+            h = self.mesh.halo_y(pairs + _xstack_halo_pairs(
+                xe or (), self.ywalled))
             if xe is not None:
-                xe = _xstacks_on_slab(xe, h[len(pairs):])
+                xe = _xstacks_on_slab(xe, h[len(pairs):], self.yown)
             h = iter(h[:len(pairs)])
             yh = tuple(None if q is None else next(h) for q in fields)
             if self.yown is not None:
@@ -1840,8 +1891,6 @@ class Simulation:
             scal_kw = dict(sca=sca, scae=scae,
                            rso=None if first else state.dsdt_old,
                            scal=self.scal_params)
-            if xe is not None:
-                xe = (*xe, self._xedge_scal(sca))
         outs = kernels.mom_rk(
             u, v, w, s, p, ue, ve, we, se, pe,
             None if first else ru_o, None if first else rv_o,

@@ -20,8 +20,10 @@ developing channel's z faces) a sampled z row takes its x ghosts and u's
 rewrite slot from the x faces' values (an inflow profile's at that row)
 before it wraps along y.  On a slab of the y-slab mesh a sampled z row
 takes its rows -1 and nyl from the neighbours (``sampled_rows`` is what
-a slab sends) where one device wraps y; with y walls it takes the wall
-recipe's rows on the sides the slab owns and the neighbours' elsewhere,
+a slab sends) where one device wraps y (with x walls those rows take
+their x ghosts too, from the slab's rows of the x faces' values); with y
+walls it takes the wall recipe's rows on the sides the slab owns and the
+neighbours' elsewhere,
 and a y face is modelled on the slab that owns it alone, from its own
 rows (``slab_wall_model``).  The x-face branch of
 ``update_wallmodel_bcs`` is not ported yet (ROADMAP queue 1).
@@ -374,15 +376,20 @@ def pad_row(q, fill, xfill=None, halo=None, own=None):
     to the row's interior), then the other transverse axis by fill =
     (letters, values, spacings, staggered), as set_bc fills it (cales_tpu
     Simulation._row_pad_xy, _row_pad_xz, the x -> y order of pad_velocity
-    on a row).  halo: on a slab of the y-slab mesh (a z face's row,
-    periodic x), its (2, nx) rows -1 and nyl from the neighbours, which
-    take the place of the periodic wrap along y; with own = (lower,
-    upper), the y walls a slab of a y-walled mesh holds, the fill's rows
-    on the sides it owns (its ghost and, for the staggered component, its
-    rewrite row n) and the halo rows and the row itself elsewhere."""
+    on a row).  halo: on a slab of the y-slab mesh (a z face's row), its
+    (2, nx) rows -1 and nyl from the neighbours, which take the place of
+    the periodic wrap along y, x periodic or with x walls by xfill on all
+    nyl + 2 rows (its values the slab's rows of the x faces', their rows
+    -1 and nyl too: the x recipes are pointwise along y); with own =
+    (lower, upper), the y walls a slab of a y-walled mesh holds (periodic
+    x), the fill's rows on the sides it owns (its ghost and, for the
+    staggered component, its rewrite row n) and the halo rows and the row
+    itself elsewhere."""
     letters, vals, dr, stag = fill
     if halo is not None and own is None:
         s = torch.cat([halo[:1], q, halo[1:]])
+        if xfill is not None:
+            return _xfill(s, xfill)
         return torch.cat([s[:, -1:], s, s[:, :1]], dim=1)
     if halo is not None:
         full = pad_row(q, fill)
@@ -393,15 +400,22 @@ def pad_row(q, fill, xfill=None, halo=None, own=None):
     if xfill is None:
         s = torch.cat([q[:, -1:], q, q[:, :1]], dim=1)
     else:
-        xl, xv, xd, xstag = xfill
-        xv = tuple(torch.tensor(b, dtype=q.dtype, device=q.device)[None]
-                   if isinstance(b, tuple) else b for b in xv)
-        s = (bnd._set_face if xstag else bnd._set_centered)(
-            q[None], 2, xl, xv, xd)[0]
+        s = _xfill(q, xfill)
     s = s[:, None, :]
     s = (bnd._set_face if stag else bnd._set_centered)(s, 0, letters, vals,
                                                         dr)
     return s[:, 0, :]
+
+
+def _xfill(q, xfill):
+    """The (m, nx) rows q padded along x by xfill (pad_row): set_bc along
+    x with the x faces' values at those rows, a plane-valued one a tuple
+    of m + 2 values (cropped to q's m rows) or of m (q's own rows)."""
+    xl, xv, xd, xstag = xfill
+    xv = tuple(torch.tensor(b, dtype=q.dtype, device=q.device)[None]
+               if isinstance(b, tuple) else b for b in xv)
+    return (bnd._set_face if xstag else bnd._set_centered)(
+        q[None], 2, xl, xv, xd)[0]
 
 
 def sampled_rows(u, v, wm):
@@ -478,13 +492,15 @@ def _check_mode(wm, w, fuv, pp, yh=None, yown=None):
     if (pp is None) != (fuv is None):
         raise ValueError('wm_planes: the corrected rows take fuv with pp')
     zfaces = [f for f in wm.faces if f.d == 2]
-    if yh is not None and (pp is not None or any(
-            f.xfills is not None for f in wm.faces) or (yown is None and (
-                len(zfaces) < len(wm.faces)
-                or any(f.fills[0][0] != 'PP' for f in zfaces)))):
-        raise ValueError("wm_planes: a slab's halo rows serve z faces with "
-                         'periodic x, the rows as they are, with periodic y '
-                         'or the y walls a slab holds (yown)')
+    xw = any(f.xfills is not None for f in wm.faces)
+    if yh is not None and (pp is not None or (yown is not None and xw) or (
+            yown is None and (len(zfaces) < len(wm.faces)
+                              or any(f.fills[0][0] != 'PP'
+                                     for f in zfaces)))):
+        raise ValueError("wm_planes: a slab's halo rows serve z faces, the "
+                         'rows as they are, with periodic y (x periodic or '
+                         'x walls) or the y walls a slab holds (yown, '
+                         'periodic x)')
     if yown is not None and (yh is None) != (not zfaces):
         raise ValueError("wm_planes: a slab of a y-walled mesh takes its z "
                          "faces' halo rows, and none without z faces")
@@ -513,12 +529,14 @@ def wm_planes_plain(u, v, wm: WallModel, fuv=None, pp=None, dtrk=0.0,
     pp(i)) and likewise v along y, as the fused correction's rows
     (timeloop.py:1314-1342).  The planes off the wall model's ranges keep
     the face's static values.  yh: on a slab of the y-slab mesh (z faces,
-    periodic x and y, the rows as they are), the (4 z faces, 2, nx) halo
-    rows -1 and nyl of sampled_rows, which the rows take along y in place
-    of the wrap.  yown: a slab of a y-walled mesh (lower, upper), whose
-    wm is slab_wall_model's (its z faces first, the y faces it owns on
-    its own rows): the z faces' rows take the y recipe's rows on the
-    sides the slab owns and yh's elsewhere (pad_row)."""
+    periodic y, the rows as they are; with x walls the halo rows padded
+    along x too, by the slab's rows of the x faces' values, pad_row), the
+    (4 z faces, 2, nx) halo rows -1 and nyl of sampled_rows, which the
+    rows take along y in place of the wrap.  yown: a slab of a y-walled
+    mesh (lower, upper), whose wm is slab_wall_model's (its z faces first,
+    the y faces it owns on its own rows): the z faces' rows take the y
+    recipe's rows on the sides the slab owns and yh's elsewhere
+    (pad_row)."""
     _check_mode(wm, w, fuv, pp, yh, yown)
     out = []
     for face, (U1, U2, V1, V2, umag, vmag), wei in _face_rows(

@@ -41,14 +41,18 @@ duct with one), the two-pass dynamic Smagorinsky (the transpiring
 channel, the duct by the switch) and the 2D test filter (the dsmag
 channel and the box), full-3D implicit diffusion (the channel DNS and the
 box; the box with impdiff_1d and the scalar channel LES with full-3D as
-small f64 cases) and x walls (the developing channel and its LES with
-impdiff_1d), their slab modes timed in phase 2b.
+small f64 cases), x walls (the developing channel and its LES with
+impdiff_1d) and x walls with y walls, the wall model and the scalar (the
+developing duct LES, the lid-driven cavity, the developing WMLES with its
+inflow profile, the developing channel with a scalar; the closed box and
+the x+y-walled scalar as small f64 cases), their slab modes timed in
+phase 2b.  Each phase's first line carries the seconds since the start.
 
     python3 chip_smoke.py            # all phases, one card
 
 (``chip_smoke.py --sharded-rank DIR`` is one rank of the mesh phase 10,
 ``--sharded-les-rank DIR`` one of phases 10i to 10tf and
-``--sharded-les-rank DIR second`` one of phases 10i3 to 10i3s, which the
+``--sharded-les-rank DIR second`` one of phases 10i3 to 10xysc, which the
 script starts itself under torch.distributed.run.)
 
 Exits non-zero without a CUDA device, or when any phase fails.  The last
@@ -200,7 +204,16 @@ SLAB_MODE_ROWS = {'wallmodel (y walls, slab)': ('wallmodel', '10yw'),
                   'fillps (x walls, y halo)': ('fillps', '10x'),
                   'correc_updatep (x walls, y halo)': ('correc_updatep',
                                                        '10x'),
-                  'smag (x walls, y halo)': ('smag', '10xb')}
+                  'smag (x walls, y halo)': ('smag', '10xb'),
+                  # x walls with y walls, the scalar and the wall model's
+                  # slab modes (phases 10xy, 10xs, 10xw; slab_xy_rows)
+                  'mom_rk (x and y walls, slab)': ('mom_rk', '10xy'),
+                  'fillps (x and y walls, slab)': ('fillps', '10xy'),
+                  'correc_updatep (x and y walls, slab)': ('correc_updatep',
+                                                           '10xy'),
+                  'smag (x and y walls, slab)': ('smag', '10xy'),
+                  'mom_rk (scalar, x walls, y halo)': ('mom_rk', '10xs'),
+                  'wallmodel (x walls, y halo)': ('wallmodel', '10xw')}
 LES_KERNELS = ('mom_rk', 'fillps', 'correc_smag')
 # H100 SXM data-sheet rates: HBM
 # bytes/s and float32 / float64 FLOP/s outside the tensor cores
@@ -288,7 +301,7 @@ DUCT_SC_CFG = dict(DUCT_CFG, scalar=True, pr=0.71, iniscal='uni',
 MESH_CFG = dict(LES_CFG, ptransform='mat', dims=(2, 1), **CHAN_BCS)
 # its small f64 twin, held against the single-device 'mat' + Thomas run
 MESH_SMALL = dict(MESH_CFG, ng=(64, 32, 32), dtype='float64')
-MESH_STEPS = 5
+MESH_STEPS = 3
 # bench.py _matrix_configs((512, 256, 256))['wmles_channel'], written out:
 # the log-law wall model on both z walls at hwm 0.1, visci 125 000
 WM_LWM = ((0, 0, 1), (0, 0, 1))
@@ -346,6 +359,15 @@ XCAVITY_CFG = dict(ng=HEADLINE_NG, l=(1.0, 1.0, 1.0), gtype=1, gr=0.0,
                    cbcsgs=(('D',) * 3,) * 2,
                    bcvel=(((0.0,) * 3,) * 3,
                           ((0.0,) * 3, (0.0,) * 3, (1.0, 0.0, 0.0))))
+# phase 13x's passive scalar on the developing channel: 1 at the start, 1
+# on the inflow face ('D'), N on the outflow and the z walls, a source 0.02
+XDEV_SCALAR = dict(scalar=True, pr=0.71, iniscal='uni', ssource=0.02,
+                   cbcscal=(('D', 'P', 'N'), ('N', 'P', 'N')),
+                   bcscal=((1.0, 0.0, 0.0), (0.0, 0.0, 0.0)))
+# tests/test_sharding_paths.py:735's x+y-walled scalar on the developing
+# duct: 1 on the inflow face and 0.5 on the lower y wall ('D'), N elsewhere
+XDUCT_SCALAR = dict(XDEV_SCALAR, cbcscal=(('D', 'D', 'N'), ('N', 'N', 'N')),
+                    bcscal=((1.0, 0.5, 0.0), (0.0, 0.0, 0.0)))
 # moving wall-parallel values on some y and z faces for the y-walled
 # kernel inputs: (face, dir, comp)
 MOVING = (((0.0,) * 3, (0.2, 0.0, -0.1), (0.0, 0.0, 0.0)),
@@ -369,7 +391,13 @@ def card_line():
     return res.stdout.strip().splitlines()[0]
 
 
+T0 = time.perf_counter()
+
+
 def say(msg):
+    """Print msg; a phase's first line with the seconds since the start."""
+    if msg.startswith(('phase', 'phases')):
+        msg = f'[{time.perf_counter() - T0:7.1f} s] {msg}'
     print(msg, flush=True)
 
 
@@ -955,6 +983,8 @@ WM_SOLVE_OPS, WM_STEP_OPS, WM_CORRECT_OPS = 28, 14, 16
 WORK_VARIANT = {('mom_rk', 'les_sc'): (10, 8, 288),
                 ('mom_rk', 'duct_sc'): (10, 8, 288),
                 ('mom_rk', 'xdev_sc'): (10, 8, 288),
+                # the scalar without nu_t (phase 10xs's slab)
+                ('mom_rk', 'xsc_slab'): (9, 8, 258),
                 ('mom_rk', 'xyz'): (7, 6, 200),
                 ('mom_rk', 'tgv'): (7, 6, 200),
                 ('mom_rk', 'xdev'): (7, 6, 200),
@@ -1128,6 +1158,7 @@ def phase_kernels(dev, card):
     rows.update(slab_mode_rows(dev, card))
     rows.update(slab_twopass_rows(dev, card))
     rows.update(slab_imp3d_x_rows(dev, card))
+    rows.update(slab_xy_rows(dev, card))
     return rows
 
 
@@ -1290,7 +1321,7 @@ def _to64(x):
     """Tensors (in lists, tuples and dicts too) in float64."""
     if torch.is_tensor(x):
         return x.double() if x.is_floating_point() else x
-    if isinstance(x, (list, tuple)):
+    if isinstance(x, (list, tuple)) and not hasattr(x, '_fields'):
         return type(x)(_to64(q) for q in x)
     if isinstance(x, dict):
         return {k: _to64(q) for k, q in x.items()}
@@ -1508,14 +1539,16 @@ def slab_mode_rows(dev, card):
     return rows
 
 
-def _check_row(row, fn, twin, a, kw, totals, work_of, card, shape):
+def _check_row(row, fn, twin, a, kw, totals, work_of, card, shape,
+               timer=None):
     """A phase 2b slab-mode row: the float32 kernel against its float32
     twin (within 1e-5 of each output's maximum) and, on the same inputs in
     float64, the float64 kernel against the float64 twin (within 1e-12)
     and the float32 kernel against the float64 twin (reported); timed with
     its twin (CUDA events), its bound from work_of() -> (bytes,
     operations); totals(list of outputs) -> their comparable form (partial
-    sums as totals)."""
+    sums as totals); timer: the kernel's timer (time_ms by default,
+    graph_ms for a kernel shorter than its wrapper's host time)."""
     got = totals(_flat(fn(*a, **kw)))
     ref = totals(_flat(twin(*a, **kw)))
     a64, kw64 = _to64(a), _to64(kw)
@@ -1529,7 +1562,7 @@ def _check_row(row, fn, twin, a, kw, totals, work_of, card, shape):
     require(err64 <= 1e-12, f'{row}: float64 kernel {err64:.3e} from its '
                             'twin, above 1e-12')
     del a64, kw64, ref64
-    ms = time_ms(lambda: fn(*a, **kw))
+    ms = (timer or time_ms)(lambda: fn(*a, **kw))
     plain_ms = time_ms(lambda: twin(*a, **kw), n=3)
     nbytes, flops = work_of()
     return _slab_row(row, errs, rel64, ms, plain_ms, nbytes, flops,
@@ -1885,6 +1918,185 @@ def slab_imp3d_x_rows(dev, card):
     return rows
 
 
+def slab_xy_rows(dev, card):
+    """Phase 2b's rows of the x-walled slab modes (SLAB_MODE_ROWS,
+    phases 10xy, 10xs, 10xw) at the headline's slab on dims (2, 1), (nx,
+    ny/2, nz), on seeded random fields, halo rows and neighbours' stack
+    rows, each by _check_row (float32 within 1e-5 of its twin, float64
+    within 1e-12), its bound the bytes (each input, stack, halo and
+    output once) or the arithmetic:
+      with x and y walls (XDUCT_LES_CFG's stacks on the lower wall's slab:
+        its y-row stacks by boundary.slab_ystack, its x stacks with the
+        wall recipe's rows on the lower side and the neighbour's rows
+        above, timeloop._xstacks_on_slab): mom_rk's XW x Y_WALLS with nu_t,
+        fillps's and correc_updatep's on the slab's own x stacks, smag's
+        with the y and x walls' van Driest inputs;
+      mom_rk's SCAL x XW x Y_HALO without nu_t (phase 13x's developing
+        channel with a scalar: its x stacks with the neighbours' rows);
+      the wall model's XW x YH mode on the developing WMLES's z faces at
+        the slab (the slab's rows of its 1/7-power inflow profile), timed
+        by a CUDA graph, its bound counting the Newton steps these rows
+        need (the float64 twin's count)."""
+    from cales_torch import wallmodel as wmod
+    from cales_torch.config import Config
+    from cales_torch.grid import make_grid_from_config
+    from cales_torch.ops import boundary as bnd
+    from cales_torch.ops import kernels as K
+    from cales_torch.timeloop import (Simulation, _slab_planes,
+                                      _xstacks_on_slab)
+    f32 = torch.float32
+    nx, ny, nz = HEADLINE_NG
+    nyl = ny // 2
+    shape = (nx, nyl, nz)
+    cells = nx * nyl * nz
+    own = (True, False)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+
+    def rnd(*sz, scale=0.02):
+        return scale * torch.randn(sz, generator=gen, device=dev, dtype=f32)
+
+    def halo(n=nz):
+        return (rnd(n, 2, nx), rnd(3, 2, nx))
+
+    def xhalo():
+        return (rnd(nz, 2, 3), rnd(3, 2, 3))
+
+    def sim_of(kw, ng=shape):
+        cfg = Config(**{**kw, 'ng': ng, 'dims': (1, 1), 'dtype': 'float32'})
+        return Simulation(cfg, make_grid_from_config(cfg), device=dev)
+
+    def nbytes_of(nin, nout, extra):
+        return ((nin + nout) * cells * 4
+                + sum(q.numel() * q.element_size() for q in _flat(extra)))
+
+    def row_of(row, fn, twin, a, kw, totals, work, timer=None):
+        return _check_row(row, fn, twin, a, kw, totals,
+                          lambda: (nbytes_of(*work[:2], work[3]),
+                                   work[2] * cells), card, shape,
+                          timer=timer)
+
+    def mom_totals(res):
+        return [*res[:6], res[6].sum(dim=1), *res[8:]]
+    rows = {}
+    say(f'phase 2b: the x-walled slab modes of x and y walls, the scalar and '
+        f'the wall model at the slab (nx, ny/2, nz) = {shape}, float32, '
+        f'against their twins in float32 and float64  [{card}]')
+    # x and y walls on the lower wall's slab: the developing duct LES
+    sim = sim_of(XDUCT_LES_CFG)
+    sim.yown = own
+    cfg = sim.cfg
+    dxi, dyi = cfg.dli[0], cfg.dli[1]
+    u = 1.0 + rnd(nz, nyl, nx, scale=0.1)
+    v, w, p, pp, ru, rv, rw = (rnd(nz, nyl, nx) for _ in range(7))
+    s = rnd(nz, nyl, nx, scale=1e-3).abs()
+    bcs = (sim.bcu_vals, sim.bcv_vals, sim.bcw_vals)
+    vlo = (torch.zeros((nz + 2, nyl + 2), dtype=f32, device=dev),
+           torch.zeros((nz + 2, nx + 2), dtype=f32, device=dev),
+           torch.zeros((nyl + 2, nx + 2), dtype=f32, device=dev))
+    zq = sim._zedge_vel(u, v, w, *bcs, vlo=vlo, is_correc=True)
+    se, pe, ppe = sim._zedge_s(s), sim._zedge_p(p), sim._zedge_p(pp)
+    walls = (*sim._yedge_vel(u, v, w, bcs, vlo=vlo, is_correc=True),
+             sim._yedge_s(s), sim._yedge_p(p))
+    ye = [bnd.slab_ystack(q, e, y, halo(), own) for q, e, y in
+          zip((u, v, w, s, p), (*zq, se, pe), walls)]
+    xe = _xstacks_on_slab((*sim._xedge_vel(u, v, w, bcs, vlo=vlo,
+                                           is_correc=True),
+                           sim._xedge_s(s), sim._xedge_p(p)),
+                          [xhalo() for _ in range(5)], own)
+    a = (u, v, w, s, p, *zq, se, pe, ru, rv, rw, sim.dzci_t, sim.dzfi_t,
+         0.01, -0.005, cfg.visc, dxi, dyi, cfg.bforce)
+    row = 'mom_rk (x and y walls, slab)'
+    rows[row] = row_of(row, K.mom_rk, K.mom_rk_plain, a,
+                       dict(sums=(False, False), ye=ye, xe=xe),
+                       lambda res: list(res[:6]),
+                       (*WORK['mom_rk'], (ye, xe)))
+    ze2 = sim._zedge_vel(u, v, w, *bcs)
+    yv2 = bnd.slab_ystack(v, ze2[1], sim._yedge_vel(u, v, w)[1], halo(), own)
+    xu2 = sim._xedge_vel(u, v, w, fields=(0,))[0]
+    row = 'fillps (x and y walls, slab)'
+    rows[row] = row_of(row, K.fillps, K.fillps_plain,
+                       (u, v, w, *ze2, sim.dzfi_t, 100.0, dxi, dyi),
+                       dict(yv=yv2, xu=xu2), list,
+                       (*WORK['fillps'], (yv2, xu2)))
+    ypp = bnd.slab_ystack(pp, ppe, sim._yedge_p(pp), halo(), own)
+    xpp = sim._xedge_p(pp)
+    row = 'correc_updatep (x and y walls, slab)'
+    rows[row] = row_of(row, K.correc_updatep, K.correc_updatep_plain,
+                       (u, v, w, pp, p, ze2[2], ppe, 0.01, dxi, dyi,
+                        sim.dzci_t, sim.dzfi_t),
+                       dict(ypp=ypp, yv=yv2[0], xpp=xpp, xu=xu2), list,
+                       (*WORK['correc_updatep'], (ypp, yv2[0], xpp, xu2)))
+    ywall = (sim.dwy_t, sim.nearylo_t,
+             *(1e-2 * (1.0 + rnd(nz, nx).abs()) for _ in range(2)))
+    xwall = (*sim.xwall_prof,
+             *(1e-2 * (1.0 + rnd(nz, nyl).abs()) for _ in range(2)))
+    tz = tuple(1e-2 * (1.0 + rnd(nyl, nx).abs()) for _ in range(2))
+    row = 'smag (x and y walls, slab)'
+    rows[row] = row_of(row, K.smag, K.smag_plain,
+                       (u, v, w, *zq, sim.dzci_t, sim.dzfi_t, dxi, dyi,
+                        cfg.visc, sim.csd2_t, sim.dw_t, sim.nearlo_t, *tz),
+                       dict(ye=ye[:3], ywall=ywall, xe=xe[:3], xwall=xwall),
+                       list, (*WORK['smag'], (ye[:3], ywall, xe[:3], xwall,
+                                              tz)))
+    del sim, a, u, v, w, p, pp, ru, rv, rw, s, zq, ye, xe, ze2, yv2, xu2
+    del ypp, xpp, walls
+    torch.cuda.empty_cache()
+    # the scalar with x walls and periodic y: phase 13x's developing
+    # channel, no nu_t
+    sim = sim_of(dict(XDEV_CFG, **XDEV_SCALAR))
+    cfg = sim.cfg
+    dxi, dyi = cfg.dli[0], cfg.dli[1]
+    u = 1.0 + rnd(nz, nyl, nx, scale=0.1)
+    v, w, p, ru, rv, rw, rso = (rnd(nz, nyl, nx) for _ in range(7))
+    sca = rnd(nz, nyl, nx, scale=0.3).abs()
+    bcs = (sim.bcu_vals, sim.bcv_vals, sim.bcw_vals)
+    zq = sim._zedge_vel(u, v, w, *bcs)
+    xs = (*sim._xedge_vel(u, v, w, bcs), None, sim._xedge_p(p),
+          sim._xedge_scal(sca))
+    xe = _xstacks_on_slab(xs, [xhalo() for _ in range(5)])
+    h = (*(halo() for _ in range(3)), None, halo(),
+         (rnd(nz, 2, nx, scale=0.3).abs(), rnd(3, 2, nx, scale=0.3).abs()))
+    a = (u, v, w, None, p, *zq, None, sim._zedge_p(p), ru, rv, rw,
+         sim.dzci_t, sim.dzfi_t, 0.01, -0.005, cfg.visc, dxi, dyi,
+         cfg.bforce)
+    kw = dict(sums=(False, False), yh=h, xe=xe, sca=sca,
+              scae=sim._zedge_scal(sca), rso=rso, scal=sim.scal_params)
+    row = 'mom_rk (scalar, x walls, y halo)'
+    rows[row] = row_of(row, K.mom_rk, K.mom_rk_plain, a, kw,
+                       lambda res: [*res[:6], *res[8:]],
+                       (*WORK_VARIANT[('mom_rk', 'xsc_slab')], (h, xe)))
+    del sim, a, kw, u, v, w, p, ru, rv, rw, rso, sca, zq, xs, xe, h
+    torch.cuda.empty_cache()
+    # the wall model's XW x YH mode: the developing WMLES's z faces on the
+    # slab [0, nyl), its rows of the inflow profile
+    cfg = xwmles_cfg(ng=HEADLINE_NG, dims=(1, 1), dtype='float32')
+    grid = make_grid_from_config(cfg)
+    sim = Simulation(cfg, grid, device=dev)
+    wm = wmod.wall_model(cfg, grid, sim.index_wm, tuple(
+        _slab_planes(b, 0, nyl, ny)
+        for b in (sim.bcu_vals, sim.bcv_vals, sim.bcw_vals)), sim.cbcvel)
+    u = 1.0 + rnd(nz, nyl, nx, scale=0.1)
+    v = rnd(nz, nyl, nx, scale=0.1)
+    yh = rnd(4 * len(wm.faces), 2, nx, scale=0.1)
+    yh.view(-1, 2, 2, 2, nx)[:, 0] += 1.0      # u's rows
+
+    def wm_work():
+        nf = len(wm.faces)
+        nbytes = ((nf * 4 * nyl * nx + nf * 2 * (nyl + 2) * (nx + 2)) * 4
+                  + yh.numel() * 4)
+        solves = nf * (nyl * (nx + 1) + (nyl + 1) * nx)
+        steps = sum(int(q.sum()) for q in wmod.wm_newton_steps(
+            u.double(), v.double(), wm, yh=yh.double()))
+        return nbytes, solves * WM_SOLVE_OPS + steps * WM_STEP_OPS
+    row = 'wallmodel (x walls, y halo)'
+    rows[row] = _check_row(row, K.wm_planes, wmod.wm_planes_plain,
+                           (u, v, wm), dict(yh=yh), list, wm_work, card,
+                           shape, timer=graph_ms)
+    del sim, u, v, yh, wm
+    torch.cuda.empty_cache()
+    return rows
+
+
 def _time_row(rows, row, name, d, variant, card, cache):
     """One kernel variant on the inputs d against its twin (and, for
     F64_TWIN, its float32 error against the float64 twin, from d in
@@ -1994,29 +2206,42 @@ def counts():
     return {**K.LAUNCHES, **SK.LAUNCHES}
 
 
-def phase_cli(card, tag='phase 3', example='turbulent_channel_les',
-              steps=20, kernels=LES_KERNELS):
-    """An example case through the CLI, in a subprocess."""
-    nml = ROOT / 'examples' / example / 'input.nml'
+def phase_clis(card, runs):
+    """Examples through the CLI, each in a subprocess of its own, all
+    started together (they share the card, each with its own datadir):
+    runs = [(tag, example, steps, kernels), ...]; each must exit 0, name
+    its kernels on its Execution path line and write its fld.bin."""
     with tempfile.TemporaryDirectory() as tmp:
-        cmd = [sys.executable, '-m', 'cales_torch', str(nml), '--max-steps',
-               str(steps), '--datadir', tmp]
-        say(f'{tag}: {" ".join(cmd[1:])}  [{card}]')
+        procs = []
         t0 = time.perf_counter()
-        res = subprocess.run(cmd, capture_output=True, text=True, cwd=ROOT,
-                             timeout=600)
-        say(f'  exit {res.returncode} after {time.perf_counter() - t0:.1f} s')
-        lines = res.stdout.splitlines()
-        for line in lines[:3] + lines[-3:]:
-            say(f'  | {line}')
-        require(res.returncode == 0, f'CLI failed:\n{res.stderr[-3000:]}')
-        path = [ln for ln in lines if 'Execution path' in ln]
-        require(path and all(k in path[0] for k in kernels),
-                f'the Execution path line does not name {kernels}')
-        require((Path(tmp) / 'fld.bin').exists(), 'no fld.bin written')
+        for tag, example, steps, kernels in runs:
+            data = Path(tmp) / tag.replace(' ', '_')
+            data.mkdir()
+            nml = ROOT / 'examples' / example / 'input.nml'
+            cmd = [sys.executable, '-m', 'cales_torch', str(nml),
+                   '--max-steps', str(steps), '--datadir', str(data)]
+            say(f'{tag}: {" ".join(cmd[1:])}  [{card}]')
+            out, err = data / 'stdout.txt', data / 'stderr.txt'
+            with open(out, 'w') as fo, open(err, 'w') as fe:
+                procs.append((tag, kernels, data, out, err, subprocess.Popen(
+                    cmd, stdout=fo, stderr=fe, text=True, cwd=ROOT)))
+        for tag, kernels, data, out, err, proc in procs:
+            rc = proc.wait(timeout=600)
+            say(f'  {tag}: exit {rc} after {time.perf_counter() - t0:.1f} s '
+                'since all started')
+            lines = out.read_text().splitlines()
+            for line in lines[:3] + lines[-3:]:
+                say(f'  | {line}')
+            require(rc == 0, f'{tag}: CLI failed:\n'
+                             f'{err.read_text()[-3000:]}')
+            path = [ln for ln in lines if 'Execution path' in ln]
+            require(path and all(k in path[0] for k in kernels),
+                    f'{tag}: the Execution path line does not name '
+                    f'{kernels}')
+            require((data / 'fld.bin').exists(), f'{tag}: no fld.bin')
 
 
-def drive(tag, cfg, dev, card, nsteps, per_step, ntime=30, hooks=None,
+def drive(tag, cfg, dev, card, nsteps, per_step, ntime=10, hooks=None,
           keep=None, outside=None):
     """driver.run on cfg for nsteps steps with every launch count set to 0
     just before and read just after (each kernel of per_step must have
@@ -2787,7 +3012,6 @@ def phase_scalar(dev, card):
     print(json.dumps({'les_scalar': res}), flush=True)
     del usim, ust, state
     torch.cuda.empty_cache()
-    sc = dict(scalar=True, pr=0.71, iniscal='uni', ssource=0.02)
     _, duct, res = drive(
         'phase 13y: dsmag duct with a passive scalar', Config(**DUCT_SC_CFG),
         dev, card, 3, dict(mom_rk=3, fillps=3, apply_y=6, z_eig=3,
@@ -2795,13 +3019,15 @@ def phase_scalar(dev, card):
     print(json.dumps({'duct_scalar': res}), flush=True)
     _, xdev, res = drive(
         'phase 13x: developing channel with a passive scalar',
-        Config(**{**XDEV_CFG, **sc,
-                  'cbcscal': (('D', 'P', 'N'), ('N', 'P', 'N')),
-                  'bcscal': ((1.0, 0.0, 0.0), (0.0, 0.0, 0.0))}),
+        Config(**XDEV_CFG, **XDEV_SCALAR),
         dev, card, 3, dict(mom_rk=3, fillps=3, correc_updatep=3, apply_y=6,
                            z_eig=3), ntime=10)
     print(json.dumps({'developing_channel_scalar': res}), flush=True)
     return (launches, nsteps), (duct, 3), (xdev, 3)
+
+
+# phase 6's steps, on the card and on the CPU
+CARD_CPU_STEPS = 3
 
 
 def _card_vs_cpu(tag, cfg, dev, names, rel=(), two=False, fields=None):
@@ -2810,7 +3036,7 @@ def _card_vs_cpu(tag, cfg, dev, names, rel=(), two=False, fields=None):
     from cales_torch.timeloop import Simulation
     grid = make_grid_from_config(cfg)
     u, v, w, p = fields if fields is not None else initflow(cfg, grid)
-    say(f'{tag}: card vs CPU, {cfg.ng} float64, 3 steps')
+    say(f'{tag}: card vs CPU, {cfg.ng} float64, {CARD_CPU_STEPS} steps')
     with twopass() if two else contextlib.nullcontext():
         sims = [Simulation(cfg, grid, device=dv) for dv in (dev, 'cpu')]
         s32 = Simulation(cfg.replace(dtype='float32'), grid, device=dev)
@@ -2819,7 +3045,7 @@ def _card_vs_cpu(tag, cfg, dev, names, rel=(), two=False, fields=None):
                 f'{tag}: not on the two-pass route')
     states = [s.initial_state(u, v, w, p) for s in sims]
     dt = sims[1].pick_dt(sims[1].check(states[1])[0])
-    for _ in range(3):
+    for _ in range(CARD_CPU_STEPS):
         states = [s.step(st, dt)[0] for s, st in zip(sims, states)]
     g, c = states
     for name, tol in names:
@@ -2837,9 +3063,10 @@ def _card_vs_cpu(tag, cfg, dev, names, rel=(), two=False, fields=None):
             f' {err:.3e} (bound {tol:.0e})')
         require(err <= tol, f'card vs CPU {name}: {err:.3e} above {tol:.0e}')
     # the working precision: float32 on the card against the float64 CPU
-    # run, relative to each field's maximum (f32 rounding over 9 substeps)
+    # run, relative to each field's maximum (f32 rounding over the
+    # substeps)
     st32 = s32.initial_state(u, v, w, p)
-    for _ in range(3):
+    for _ in range(CARD_CPU_STEPS):
         st32, _ = s32.step(st32, dt)
     for name, _ in names:
         if name == 'vlo':
@@ -2855,8 +3082,9 @@ def _card_vs_cpu(tag, cfg, dev, names, rel=(), two=False, fields=None):
 
 
 def phase_card_vs_cpu(dev):
-    """3 steps of a small f64 channel on the card (kernels) and on the CPU
-    (twins), then the same in f32 on the card: the LES and the DNS."""
+    """CARD_CPU_STEPS steps of a small f64 channel on the card (kernels)
+    and on the CPU (twins), then the same in f32 on the card: the LES and
+    the DNS."""
     from cales_torch.config import Config
     small = dict(ng=(64, 32, 32), dtype='float64')
     _card_vs_cpu('phase 6', Config(**{**LES_CFG, **small}), dev,
@@ -3183,7 +3411,7 @@ def sharded_rank_body(out_dir):
             f'(setup, checks and I/O included); rank 0 launches '
             f'{res["launches"]}')
     dt = sim.pick_dt(sim.check(state)[0])
-    ntime = 5
+    ntime = 3
     torch.cuda.synchronize()
     mesh.barrier()
     t0 = time.perf_counter()
@@ -3225,7 +3453,8 @@ def sharded_rank_body(out_dir):
     res['halo_rows'] = _halo_kernel_rows(sim, state, mesh, dt, card)
     del sim, state, fields, pairs
     torch.cuda.empty_cache()
-    # the small f64 case on the slabs, 3 steps from the perturbed start
+    # the small f64 case on the slabs, MESH_SMALL_STEPS steps from the
+    # perturbed start
     cfg64 = Config(**MESH_SMALL)
     m64 = meshmod.SlabMesh(mesh.comm, cfg64.dims, cfg64.ng)
     sim = Simulation(cfg64, make_grid_from_config(cfg64), device=dev,
@@ -3321,10 +3550,10 @@ def phase_sharded(dev, card):
     cfg1 = Config(**{**MESH_SMALL, 'dims': (1, 1), 'zsolver': 'thomas'})
     sim = Simulation(cfg1, make_grid_from_config(cfg1), device=dev)
     st = sim.initial_state(*_perturbed_fields(cfg1, SEED + 5))
-    for _ in range(3):
+    for _ in range(MESH_SMALL_STEPS):
         st, _ = sim.step(st, float(small['dt']))
-    say(f'  gy = 2 against one device, {cfg1.ng} float64, 3 steps, on the '
-        f'card:')
+    say(f'  gy = 2 against one device, {cfg1.ng} float64, '
+        f'{MESH_SMALL_STEPS} steps, on the card:')
     for name in ('u', 'v', 'w', 'p', 'visct'):
         a, b = small[name], getattr(st, name).cpu().numpy()
         if name == 'p':
@@ -3347,7 +3576,7 @@ def phase_cli_mesh(card):
         path.write_text(nml.replace('dims(1:2) = 0, 0', 'dims(1:2) = 2, 1'))
         cmd = [sys.executable, '-m', 'torch.distributed.run', '--standalone',
                '--nproc_per_node', '2', '-m', 'cales_torch', str(path),
-               '--transport', 'gloo', '--max-steps', '10', '--datadir',
+               '--transport', 'gloo', '--max-steps', '3', '--datadir',
                str(Path(tmp) / 'data')]
         say(f'phase 10c: {" ".join(cmd[1:])}  [{card}]')
         env = dict(os.environ)
@@ -3377,7 +3606,9 @@ def phase_cli_mesh(card):
 # it brings held against its twin on its own state, and a small float64
 # twin on the mesh held against the single-device run.  (key, title,
 # config, report row, per step, outside)
-MESH_LES_STEPS = 3
+MESH_LES_STEPS = 2
+# the mesh classes' timed steps after their driver.run (host clock)
+MESH_TIMED = 1
 MESH_CLASSES = (
     ('10i', 'channel DNS, impdiff_1d (channel_dns_impdiff)',
      dict(DNS_CFG, dims=(2, 1)), 'mom_rk (y halo, split 1d)',
@@ -3474,10 +3705,31 @@ MESH_CLASSES = (
     ('10xb', 'developing channel LES, impdiff_1d (phase 12b)',
      dict(XLES_IMP_CFG, dims=(2, 1)), None,
      dict(mom_rk=3, fillps=3, correc_updatep=3, smag=3, apply_x=6,
-          apply_y=6, thomas_z=12), {'smag': 1}))
+          apply_y=6, thomas_z=12), {'smag': 1}),
+    # x walls with y walls, the wall model and the scalar (their rows are
+    # phase 2b's, slab_xy_rows): the developing duct LES, the
+    # lid-driven cavity, the developing WMLES with its 1/7-power inflow
+    # ('_inflow': _class_cfg), the developing channel with phase 13x's
+    # scalar
+    ('10xy', 'developing duct LES (phase 12c)',
+     dict(XDUCT_LES_CFG, dims=(2, 1)), None,
+     dict(mom_rk=3, fillps=3, correc_updatep=3, smag=3, apply_x=6,
+          apply_y=6, thomas_z=3), {'smag': 1}),
+    ('10xc', 'lid-driven cavity (phase 11b)', dict(XCAVITY_CFG, dims=(2, 1)),
+     None, dict(mom_rk=3, fillps=3, correc_updatep=3, apply_x=6, apply_y=6,
+                thomas_z=3), {}),
+    ('10xw', 'developing WMLES with its 1/7-power inflow (phase 12)',
+     dict(XWMLES_CFG, dims=(2, 1), _inflow=True), None,
+     dict(mom_rk=3, fillps=3, correc_updatep=3, smag=3, apply_x=6,
+          apply_y=6, thomas_z=3, wallmodel=3), {'smag': 1, 'wm': 1}),
+    ('10xs', "developing channel with a passive scalar (phase 13x's)",
+     dict(XDEV_CFG, dims=(2, 1), **XDEV_SCALAR), None,
+     dict(mom_rk=3, fillps=3, correc_updatep=3, apply_x=6, apply_y=6,
+          thomas_z=3), {}))
 # the classes of the second runner (a subprocess of their own, so that
 # neither runner nears its time limit)
-MESH_SECOND = ('10i3', '10t3', '10x', '10xb', '10t1', '10i3s')
+MESH_SECOND = ('10i3', '10t3', '10x', '10xb', '10t1', '10i3s', '10xy',
+               '10xc', '10xw', '10xs', '10xk', '10xysc')
 # the classes that run under CALES_DSMAG_TWOPASS=1 (twopass), their small
 # twin and its one-device reference too: the duct by two passes
 MESH_TWOPASS = ('10yb',)
@@ -3500,9 +3752,20 @@ MESH_SMALL_ONLY = (
     ('10i3s', 'scalar channel LES, full-3D implicit diffusion',
      dict(LES_SC_CFG, impdiff=True, dims=(2, 1)),
      dict(mom_rk=3, fillps=3, correc_updatep=3, smag=3, apply_x=24,
-          apply_y=24, thomas_z=12)))
+          apply_y=24, thomas_z=12)),
+    # the closed box (examples/closed_box: six still walls) and the x+y
+    # walled scalar of tests/test_sharding_paths.py:735
+    ('10xk', 'closed box', dict(XCAVITY_CFG, bcvel=((((0.0,) * 3,) * 3,) * 2),
+                                dims=(2, 1)),
+     dict(mom_rk=3, fillps=3, correc_updatep=3, apply_x=6, apply_y=6,
+          thomas_z=3)),
+    ('10xysc', 'developing duct with a passive scalar (x and y walls)',
+     dict(XDUCT_CFG, l=(2.0, 1.0, 1.0), visci=2000.0, inivel='uni',
+          dims=(2, 1), **XDUCT_SCALAR),
+     dict(mom_rk=3, fillps=3, correc_updatep=3, apply_x=6, apply_y=6,
+          thomas_z=3)))
 # the small runs' steps
-MESH_SMALL_STEPS = 3
+MESH_SMALL_STEPS = 2
 # the y-walled slab rows of phase 2b -> the mesh phase whose main path
 # launches them
 WALLED_SLAB_PHASE = {'mom_rk (y walls, slab)': '10y',
@@ -3524,6 +3787,16 @@ def _scalar_range(cfg, time):
     scalar."""
     if not cfg.scalar:
         return None
+    if cfg.inivel == 'zer' and any(
+            cfg.cbcvel[ib][0][0] == 'D'
+            and np.any(np.asarray(cfg.bcvel[ib][0][0]) != 0.0)
+            for ib in range(2)):
+        # an impulsive start (at rest, an inflow on an x face: phase 13x's
+        # developing channel) is no solenoidal field with its values, and
+        # the central scheme at cell Peclet numbers above 2 keeps no bound
+        # from it, on one device as on the mesh (the f64 twin holds the
+        # two to each other): its range is reported, not gated
+        return None
     vals = [1.0 if cfg.iniscal == 'uni' else 0.0] + [
         float(cfg.bcscal[ib][d]) for ib in range(2) for d in range(3)
         if cfg.cbcscal[ib][d] == 'D']
@@ -3540,6 +3813,18 @@ def _outside(outside, cfg, nsteps):
         return {**{k: n for k, n in outside.items() if k != 'wm'},
                 'wallmodel': 2 + nsteps // cfg.icheck}
     return outside
+
+
+def _class_cfg(kw, **change):
+    """A mesh class's Config from its dict (with change); '_inflow' (the
+    developing WMLES) gives it its 1/7-power inflow profile at the cell
+    centres of its own grid (profile_step.power_law_inflow)."""
+    from cales_torch.config import Config
+    from cales_torch.profile_step import power_law_inflow
+    kw = {**kw, **change}
+    inflow = kw.pop('_inflow', False)
+    cfg = Config(**kw)
+    return power_law_inflow(cfg) if inflow else cfg
 
 
 def _small(kw):
@@ -3565,11 +3850,18 @@ def _mesh_gates(sim, state, mesh):
             vy = float(state.vlo[1][1:-1, 1:-1].abs().max())
         if sim.yown[1]:
             vy = max(vy, float(state.v[:, -1].abs().max()))
-    lid = None
+    lid = u_lid = None
     if sim.cbcvel[1][2][1] == 'D' and sim.cfg.lwm[1][2] == 0:
         lid = mesh.reduce_scalar(float((0.5 * (state.v[-1] + state.zq[1][2])
                                         - sim.bcv_vals[2][1]).abs().max()),
                                  'max')
+    if (sim.cbcvel[1][2][0] == 'D' and sim.cfg.lwm[1][2] == 0
+            and np.ndim(sim.cfg.bcvel[1][2][0]) == 0
+            and float(sim.cfg.bcvel[1][2][0]) != 0.0):
+        # a lid moving along x (the cavity's): u on the upper z face
+        u_lid = mesh.reduce_scalar(float(
+            (0.5 * (state.u[-1] + state.zq[0][2])
+             - float(sim.cfg.bcvel[1][2][0])).abs().max()), 'max')
     w_walls = None
     if sim.cbcvel[0][2][2] == 'D':
         # against the faces' values (w through a transpiring wall)
@@ -3590,9 +3882,12 @@ def _mesh_gates(sim, state, mesh):
         dzf = torch.as_tensor(sim.grid.dzf[1:-1], dtype=torch.float64,
                               device=state.u.device)[:, None]
         face = state.vlo[0][1:-1, 1:-1].double()
+        # its value: a scalar, or the slab's rows of an inflow profile
+        b = sim.bcu_vals[0][0]
+        val = b[1:-1, 1:-1].double() if torch.is_tensor(b) else float(b)
         scal.update(
             u_inflow=mesh.reduce_scalar(float(
-                (face - float(sim.cfg.bcvel[0][0][0])).abs().max()), 'max'),
+                (face - val).abs().max()), 'max'),
             flux_in=mesh.reduce_scalar(float((face * dzf).sum()), 'sum'),
             flux_out=mesh.reduce_scalar(float(
                 (state.u[:, :, -1].double() * dzf).sum()), 'sum'))
@@ -3600,7 +3895,7 @@ def _mesh_gates(sim, state, mesh):
         energy=mesh.reduce_scalar(
             0.5 * float(sum((q.double() ** 2).sum()
                             for q in (state.u, state.v, state.w))), 'sum'),
-        v_ywalls=mesh.reduce_scalar(vy, 'max'), v_lid=lid,
+        v_ywalls=mesh.reduce_scalar(vy, 'max'), v_lid=lid, u_lid=u_lid,
         finite=mesh.reduce_scalar(
             float(all(bool(torch.isfinite(f).all()) for f in fields)),
             'min'),
@@ -3717,11 +4012,10 @@ def _mesh_small(key, kw, mesh, dev, out_dir):
     from the perturbed start; rank 0 writes the gathered fields (and the
     kept wall planes, vlo[1] its own, vlo[2] over the slabs' rows, vlo[0]
     over the slabs' interior rows) for the parent."""
-    from cales_torch.config import Config
     from cales_torch.grid import make_grid_from_config
     from cales_torch.parallel import mesh as meshmod
     from cales_torch.timeloop import Simulation
-    cfg64 = Config(**_small(kw))
+    cfg64 = _class_cfg(_small(kw))
     m64 = meshmod.SlabMesh(mesh.comm, cfg64.dims, cfg64.ng)
     sim = Simulation(cfg64, make_grid_from_config(cfg64), device=dev,
                      mesh=m64)
@@ -3761,11 +4055,13 @@ def sharded_les_rank(out_dir, second=False):
 def sharded_les_rank_body(out_dir, second=False):
     """One rank of phases 10i, 10w, 10d, 10y, 10yc, 10ys, 10yw, 10t, 10tl,
     10td, 10s, 10ysc, 10b, 10yb, 10f and 10tf, or with second of 10i3,
-    10t3, 10x, 10xb, 10t1 and 10i3s (MESH_SECOND) (started under
+    10t3, 10x, 10xb, 10t1, 10i3s, 10xy, 10xc, 10xw, 10xs, 10xk and 10xysc
+    (MESH_SECOND) (started under
     torch.distributed.run, two ranks on the one card over gloo, staged
     through pinned host buffers): each class at the headline grid through
     driver.run with every launch count set to 0 just before and read just
-    after, its gates, its ms/step, its slab variant against its twin (the
+    after, its gates, its ms/step over MESH_TIMED steps, its slab variant
+    against its twin (the
     channel classes'), and its small f64 twin, whose gathered fields rank
     0 writes for the parent; 10d also takes one step with 'dit', and the
     classes of MESH_SMALL_ONLY run their small twin only, their launches
@@ -3794,7 +4090,7 @@ def sharded_les_rank_body(out_dir, second=False):
                 torch.cuda.synchronize()
                 res[key] = {'launches': counts(), 'steps': MESH_SMALL_STEPS}
                 continue
-            cfg = Config(**kw)
+            cfg = _class_cfg(kw)
             m = meshmod.SlabMesh(mesh.comm, cfg.dims, cfg.ng)
             nsteps = 1 if key == '10d dit' else MESH_LES_STEPS
             torch.cuda.reset_peak_memory_stats(dev)
@@ -3809,7 +4105,7 @@ def sharded_les_rank_body(out_dir, second=False):
             if rank == 0:
                 say(f'  phase {key} path: {sim.exec_path()}')
             dt = sim.pick_dt(sim.check(state)[0])
-            ntime = 0 if key == '10d dit' else 2
+            ntime = 0 if key == '10d dit' else MESH_TIMED
             energy0 = _mesh_gates(sim, state, m)['energy']
             torch.cuda.synchronize()
             m.barrier()
@@ -3849,13 +4145,12 @@ def _small_vs_one_device(tag, kw, small, dev):
     """A class's small f64 twin on the mesh (small: rank 0's gathered
     fields) against the single-device 'mat' + Thomas run on the card
     within 1e-11, p without its mean; with y walls the kept planes vlo[1]
-    and vlo[2] too, with x walls vlo[0] and vlo[2] on the interior y rows
-    (their periodic y ghost rows no fill reads).  Returns the errors by
-    name."""
-    from cales_torch.config import Config
+    and vlo[2] too, with x walls vlo[0] on the interior y rows and vlo[2]
+    (with periodic y on the interior y rows: their periodic y ghost rows
+    no fill reads).  Returns the errors by name."""
     from cales_torch.grid import make_grid_from_config
     from cales_torch.timeloop import Simulation
-    cfg1 = Config(**{**_small(kw), 'dims': (1, 1), 'zsolver': 'thomas'})
+    cfg1 = _class_cfg(_small(kw), dims=(1, 1), zsolver='thomas')
     sim = Simulation(cfg1, make_grid_from_config(cfg1), device=dev)
     st = sim.initial_state(*_perturbed_fields(cfg1, SEED + 5))
     for _ in range(MESH_SMALL_STEPS):
@@ -3864,8 +4159,9 @@ def _small_vs_one_device(tag, kw, small, dev):
         f'{MESH_SMALL_STEPS} steps, on the card:')
     names = (('u', 'v', 'w', 'p', 'visct')
              + (('s',) if cfg1.scalar else ())
-             + (('vlo1', 'vlo2') if sim.ywalled else ())
-             + (('vlo0', 'vlo2') if sim.xwalled else ()))
+             + (('vlo0',) if sim.xwalled else ())
+             + (('vlo1',) if sim.ywalled else ())
+             + (('vlo2',) if sim.ywalled or sim.xwalled else ()))
     out = {}
     for name in names:
         ref = (st.vlo[int(name[-1])] if name.startswith('vlo')
@@ -3873,7 +4169,7 @@ def _small_vs_one_device(tag, kw, small, dev):
         a, b = small[name], ref.cpu().numpy()
         if sim.xwalled and name == 'vlo0':
             b = b[:, 1:-1]
-        if sim.xwalled and name == 'vlo2':
+        if sim.xwalled and not sim.ywalled and name == 'vlo2':
             a, b = a[1:-1], b[1:-1]
         if name == 'p':
             a, b = a - a.mean(), b - b.mean()
@@ -3900,9 +4196,13 @@ def phase_sharded_les(dev, card):
     10i3 and 10t3: the channel DNS and the box with full-3D implicit
     diffusion, 10x and 10xb: the developing channel and its LES with
     impdiff_1d (u at its value on the inflow face, the outflow's flux the
-    inflow's), and the small f64 cases alone of 10t1 (the box with
-    impdiff_1d) and 10i3s (the scalar channel LES with full-3D), their
-    launches counted on their own steps; on a y-slab mesh, dims = (2, 1), two
+    inflow's), 10xy, 10xc, 10xw and 10xs: the developing duct LES, the
+    lid-driven cavity (the lid's u), the developing WMLES with its
+    1/7-power inflow and the developing channel with a scalar, and the
+    small f64 cases alone of 10t1 (the box with impdiff_1d), 10i3s (the
+    scalar channel LES with full-3D), 10xk (the closed box) and 10xysc
+    (the x+y-walled scalar), their launches counted on their own steps;
+    on a y-slab mesh, dims = (2, 1), two
     ranks sharing the one card over gloo staged through the host (as phase
     10: its ms/step is a correctness run's, no scaling figure), each at
     512x256x256 f32 with the PERF.md section 2 gates (with y walls v on
@@ -3913,7 +4213,6 @@ def phase_sharded_les(dev, card):
     single-device 'mat' + Thomas run on the card within 1e-11 (with y
     walls the kept planes too).  Returns ({key: rank 0's launches}, the
     report rows)."""
-    from cales_torch.config import Config
     torch.cuda.empty_cache()
     env = dict(os.environ)
     env.setdefault('GLOO_SOCKET_IFNAME', 'lo')
@@ -3956,7 +4255,7 @@ def phase_sharded_les(dev, card):
                       per['10d'][4], per['10d'][5])
     report = {}
     for key, (_, title, kw, row, per_step, outside) in per.items():
-        cfg = Config(**kw)
+        cfg = _class_cfg(kw)
         ywalled = cfg.cbc_vel(1, 1) != 'PP'
         for rk in ranks:
             r = rk[key]
@@ -3970,7 +4269,8 @@ def phase_sharded_les(dev, card):
         launches[key] = r0['launches']
         tag = f'phase {key}: {title}'
         ms = ('' if r0['ms_per_step'] is None else
-              f'{r0["ms_per_step"]:.3f} ms/step over 2 steps (host clock; '
+              f'{r0["ms_per_step"]:.3f} ms/step over {MESH_TIMED} step(s) '
+              '(host clock; '
               'two ranks time-share the card and stage every collective '
               'through the host: a correctness run, not a scaling figure), ')
         say(f'{tag}: {ms}{r0["steps"]} steps through driver.run in '
@@ -3983,7 +4283,7 @@ def phase_sharded_les(dev, card):
                f'max |w - its value| on the z walls {r0["w_walls"]:.3e}, ')
             + f'max |v| on the y walls {r0["v_ywalls"]:.3e}, kinetic '
             f'energy {r0["energy_before"]:.6e} -> {r0["energy"]:.6e} over '
-            f'the 2 timed steps'
+            f'the {MESH_TIMED} timed step(s)'
             + ('' if r0['v_lid'] is None else
                f', v on the upper z face against its value '
                f'{cfg.bcvel[1][2][1]} {r0["v_lid"]:.3e}')
@@ -4002,6 +4302,11 @@ def phase_sharded_les(dev, card):
         if r0['v_lid'] is not None:
             require(r0['v_lid'] <= 1e-5, f'{tag}: v on the upper z face '
                                          f'{r0["v_lid"]:.3e} from its value')
+        if r0.get('u_lid') is not None:
+            say(f'  max |u - {cfg.bcvel[1][2][0]}| on the lid '
+                f'{r0["u_lid"]:.3e}  [{card}]')
+            require(r0['u_lid'] <= 1e-5, f"{tag}: the lid's u "
+                                         f'{r0["u_lid"]:.3e} from its value')
         require(r0['nu_t_min'] >= 0.0, f'{tag}: nu_t min {r0["nu_t_min"]}')
         require((r0['nu_t_max'] > 0.0) == (cfg.sgstype != 'none'),
                 f'{tag}: nu_t max {r0["nu_t_max"]}')
@@ -4026,11 +4331,17 @@ def phase_sharded_les(dev, card):
                 f' (sum over the face of u dz)  [{card}]')
             require(r0['u_inflow'] <= 1e-6, f'{tag}: u on the inflow face '
                                             f'off by {r0["u_inflow"]:.3e}')
+            # (x walls without an inflow, the cavity's: no flux through
+            # either face, to 1e-6)
             require(abs(r0['flux_out'] - r0['flux_in'])
-                    <= 1e-4 * abs(r0['flux_in']),
+                    <= 1e-4 * max(abs(r0['flux_in']), 1e-2),
                     f'{tag}: outflow flux {r0["flux_out"]:.7f}, inflow '
                     f'{r0["flux_in"]:.7f}')
         bounds = _scalar_range(cfg, r0.get('time', 0.0))
+        if bounds is None and 's_min' in r0:
+            say(f'  s in [{r0["s_min"]:.6e}, {r0["s_max"]:.6e}] at t = '
+                f'{r0["time"]:.6e} (an impulsive start: not gated)  '
+                f'[{card}]')
         if bounds is not None:
             # within its start's and walls' values, to 1e-2 of their range:
             # the central scheme is not bounded (phase 13 reads s down to
@@ -4046,8 +4357,9 @@ def phase_sharded_les(dev, card):
         report[key] = {k: r0[k] for k in ('ms_per_step', 'divmax', 'bulk_u',
                                            'nu_t_min', 'nu_t_max',
                                            'w_walls', 'v_ywalls',
-                                           'v_lid', 'energy_before',
-                                           'energy', 's_min', 's_max',
+                                           'v_lid', 'u_lid',
+                                           'energy_before', 'energy',
+                                           's_min', 's_max',
                                            'u_inflow', 'flux_in',
                                            'flux_out', 'wall_s')
                        if k in r0} | {'card': card}
@@ -4099,28 +4411,27 @@ def main():
     say(f'phase 1: kernels built and loaded in {time.perf_counter() - t0:.1f} s '
         f'({build.BUILD_ROOT / build.source_hash()})')
     rows = phase_kernels(dev, card)
-    phase_cli(card)
-    phase_cli(card, tag='phase 3b', example='turbulent_duct_les', steps=10,
-              kernels=('mom_rk', 'fillps', 'correc_updatep', 'dsmag',
-                       'y-walled'))
-    phase_cli(card, tag='phase 3c', example='taylor_green_vortex_3d',
-              steps=3, kernels=('mom_rk', 'fillps', 'correc_updatep'))
-    phase_cli(card, tag='phase 3d', example='turbulent_channel_wmles',
-              steps=10, kernels=('mom_rk', 'fillps', 'correc_smag',
-                                 'wallmodel', "'E' z-ghost recipe"))
-    phase_cli(card, tag='phase 3e', example='turbulent_duct_wmles',
-              steps=10, kernels=('mom_rk', 'fillps', 'correc_updatep',
-                                 'smag', 'wallmodel', 'y-wall variant',
-                                 'lower y'))
+    # the examples through the CLI, all at once: the channel LES, the duct
+    # LES, the Taylor-Green vortex, the wall-modelled channel and duct, and
     # the x-walled examples at their own 64^3
-    for tag, example, walled in (
-            ('phase 3f', 'developing_channel', '(x-walled'),
-            ('phase 3g', 'closed_box', '(x-y-walled'),
-            ('phase 3h', 'lid_driven_cavity', '(x-y-walled'),
-            ('phase 3i', 'developing_duct', '(x-y-walled')):
-        phase_cli(card, tag=tag, example=example, steps=20,
-                  kernels=('mom_rk', 'fillps', 'correc_updatep', 'apply_y',
-                           walled, 'x-ghost column stacks'))
+    xwalled = ('mom_rk', 'fillps', 'correc_updatep', 'apply_y',
+               'x-ghost column stacks')
+    phase_clis(card, [
+        ('phase 3', 'turbulent_channel_les', 5, LES_KERNELS),
+        ('phase 3b', 'turbulent_duct_les', 5,
+         ('mom_rk', 'fillps', 'correc_updatep', 'dsmag', 'y-walled')),
+        ('phase 3c', 'taylor_green_vortex_3d', 3,
+         ('mom_rk', 'fillps', 'correc_updatep')),
+        ('phase 3d', 'turbulent_channel_wmles', 5,
+         ('mom_rk', 'fillps', 'correc_smag', 'wallmodel',
+          "'E' z-ghost recipe")),
+        ('phase 3e', 'turbulent_duct_wmles', 5,
+         ('mom_rk', 'fillps', 'correc_updatep', 'smag', 'wallmodel',
+          'y-wall variant', 'lower y')),
+        ('phase 3f', 'developing_channel', 5, (*xwalled, '(x-walled')),
+        ('phase 3g', 'closed_box', 5, (*xwalled, '(x-y-walled')),
+        ('phase 3h', 'lid_driven_cavity', 5, (*xwalled, '(x-y-walled')),
+        ('phase 3i', 'developing_duct', 5, (*xwalled, '(x-y-walled'))])
     les = phase_les(dev, card)
     wmles, wm_steps = phase_wmles(dev, card)
     wmduct, wmduct_steps = phase_wmles_duct(dev, card)
@@ -4168,24 +4479,27 @@ def main():
                       else (tgv, 5, name))
     paths['dsmag_level1'] = (two['blow'], 5, 'dsmag_level1')
     paths['dsmag_level2'] = (two['blow'], 5, 'dsmag_level2')
-    # apply_x and the slab variants on the y-slab mesh (rank 0, 5 steps)
+    # apply_x and the slab variants on the y-slab mesh (rank 0,
+    # MESH_STEPS steps)
     paths['apply_x'] = (mesh_launches, MESH_STEPS, 'apply_x')
     for row, name in HALO_ROWS.items():
         paths[row] = (mesh_launches, MESH_STEPS, name)
-    # the channel classes' slab variants on their mesh phases (rank 0, 3
-    # steps; the wall model's launches there include the initial fill's
-    # and the checks', dsmag's the initial nu_t's)
+    # the channel classes' slab variants on their mesh phases (rank 0,
+    # MESH_LES_STEPS steps; the wall model's launches there include the
+    # initial fill's and the checks', dsmag's the initial nu_t's)
     for key, _, _, row, _, _ in MESH_CLASSES:
         if row is not None:
             paths[row] = (les_mesh[key], MESH_LES_STEPS, MESH_LES_ROWS[row])
     # the y-walled slab variants on the duct, cavity and smag duct mesh
-    # phases (rank 0, the lower wall's slab, 3 steps; dsmag's and smag's
-    # launches there include the initial nu_t's)
+    # phases (rank 0, the lower wall's slab, MESH_LES_STEPS steps; dsmag's
+    # and smag's launches there include the initial nu_t's)
     for row, (name, _) in WALLED_SLAB_ROWS.items():
         paths[row] = (les_mesh[WALLED_SLAB_PHASE[row]], MESH_LES_STEPS, name)
     # the wall-modelled duct's and the box's slab modes on phases 10yw, 10t
-    # and 10td (rank 0, 3 steps; the wall model's launches there include
-    # the initial fill's and the checks', dsmag's the initial nu_t's)
+    # and 10td and the later slab modes (rank 0, MESH_LES_STEPS steps,
+    # MESH_SMALL_STEPS for the small-only classes; the wall model's
+    # launches there include the initial fill's and the checks', dsmag's
+    # and smag's the initial nu_t's)
     small_only = {key for key, *_ in MESH_SMALL_ONLY}
     for row, (name, key) in SLAB_MODE_ROWS.items():
         paths[row] = (les_mesh[key], MESH_SMALL_STEPS if key in small_only

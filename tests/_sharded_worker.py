@@ -75,6 +75,12 @@ def _config(kw):
                  'bcscal'):
         if name in kw:
             kw[name] = json_tuple(kw[name])
+    if 'bcvel' in kw:
+        # a plane-valued value (an inflow profile, a lid) came as nested
+        # lists
+        kw['bcvel'] = tuple(tuple(tuple(
+            np.asarray(b) if isinstance(b, tuple) else b for b in comps)
+            for comps in face) for face in kw['bcvel'])
     return Config(**kw)
 
 

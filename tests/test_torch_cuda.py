@@ -2701,3 +2701,133 @@ def test_cuda_slab_full3d_and_xwalled_match_twins(dev, dtype, shape):
     torch.cuda.synchronize()
     assert (K.LAUNCHES['mom_rk'], K.LAUNCHES['fillps'],
             K.LAUNCHES['correc_updatep'], K.LAUNCHES['smag']) == (8, 1, 2, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('own', [(True, False), (False, False),
+                                 (False, True)])
+@pytest.mark.parametrize('dtype, shape', [
+    ('float64', (40, 13, 9)), ('float64', (36, 2, 12)),
+    ('float32', (40, 21, 9)), ('float32', (33, 2, 12))])
+def test_cuda_slab_xywalled_scalar_and_wallmodel_match_twins(dev, dtype,
+                                                             shape, own):
+    """x walls on the y-slab mesh, on (nx, nyl, nz) shapes no tile fits and
+    slabs of 2 rows: with y walls (the developing duct LES's stacks of
+    random interiors on a slab that owns the walls own: its y-row stacks
+    by boundary.slab_ystack, its x stacks by _xstacks_on_slab with random
+    neighbours' rows where it owns no wall) mom_rk's XW x Y_WALLS with nu_t,
+    fillps, correc_updatep and smag with the y and x walls' van Driest
+    inputs; with periodic y mom_rk's SCAL x XW x Y_HALO (explicit and '1d',
+    with and without nu_t), and the wall model's XW x YH mode (the
+    developing WMLES with its inflow profile, the slab's rows of it, random
+    halo rows), each against its twin: float64 within 1e-12 of each
+    output's maximum, float32 within 1e-5."""
+    from cales_torch import wallmodel as wmod
+    from cales_torch.ops import boundary as bnd
+    from cales_torch.timeloop import _slab_planes, _xstacks_on_slab
+    nx, ny, nz = shape
+    dt = getattr(torch, dtype)
+    tol = 1e-12 if dt == torch.float64 else 1e-5
+    rng = np.random.default_rng(53)
+
+    def r(*s, scale=0.1):
+        return torch.as_tensor(scale * rng.standard_normal(s),
+                               device=dev).to(dt).contiguous()
+    H = lambda: (r(nz, 2, nx), r(3, 2, nx))  # noqa: E731
+    K.reset_launches()
+    # x and y walls on a slab that owns the walls `own`
+    cfg, _, sim = _xles_sim(dev, 'duct', shape, dtype)
+    sim.yown = own
+    u, v, w = (1.0 + r(nz, ny, nx)), r(nz, ny, nx), r(nz, ny, nx)
+    s, p, pp = r(nz, ny, nx).abs(), r(nz, ny, nx), r(nz, ny, nx)
+    bcs = (sim.bcu_vals, sim.bcv_vals, sim.bcw_vals)
+    z2 = lambda a, b: torch.zeros((a, b), dtype=dt, device=dev)  # noqa: E731
+    vlo = (z2(nz + 2, ny + 2), z2(nz + 2, nx + 2), z2(ny + 2, nx + 2))
+    zq = sim._zedge_vel(u, v, w, *bcs, vlo=vlo, is_correc=True)
+    se, pe, ppe = sim._zedge_s(s), sim._zedge_p(p), sim._zedge_p(pp)
+    fields = (u, v, w, s, p)
+    edges = (*zq, se, pe)
+    walls = (*sim._yedge_vel(u, v, w, bcs, vlo=vlo, is_correc=True),
+             sim._yedge_s(s), sim._yedge_p(p))
+    ye = [bnd.slab_ystack(q, e, y, H(), own)
+          for q, e, y in zip(fields, edges, walls)]
+    xown = (*sim._xedge_vel(u, v, w, bcs, vlo=vlo, is_correc=True),
+            sim._xedge_s(s), sim._xedge_p(p))
+    xe = _xstacks_on_slab(xown, [(r(nz, 2, 3), r(3, 2, 3))
+                                 for _ in range(5)], own)
+    dxi, dyi = cfg.dli[0], cfg.dli[1]
+    mom = (*fields[:3], s, p, *edges, *(r(nz, ny, nx) for _ in range(3)),
+           sim.dzci_t, sim.dzfi_t, 5e-4, -2e-4, cfg.visc, dxi, dyi,
+           (0.0, 0.0, 0.0))
+    got = K.mom_rk(*mom, sums=(True, False), ye=ye, xe=xe)
+    ref = K.mom_rk_plain(*mom, sums=(True, False), ye=ye, xe=xe)
+    for g, q in zip(got[:6], ref[:6]):
+        _rel_close(g, q, tol)
+    ze2 = sim._zedge_vel(u, v, w, *bcs)
+    yv2 = bnd.slab_ystack(v, ze2[1], sim._yedge_vel(u, v, w)[1], H(), own)
+    xu2 = sim._xedge_vel(u, v, w)[0]
+    fil = (u, v, w, *ze2, sim.dzfi_t, 40.0, dxi, dyi)
+    _rel_close(K.fillps(*fil, yv=yv2, xu=xu2),
+               K.fillps_plain(*fil, yv=yv2, xu=xu2), tol)
+    ypp = bnd.slab_ystack(pp, ppe, sim._yedge_p(pp), H(), own)
+    cor = (u, v, w, pp, p, ze2[2], ppe, 5e-4, dxi, dyi, sim.dzci_t,
+           sim.dzfi_t)
+    ckw = dict(ypp=ypp, yv=yv2[0], xpp=sim._xedge_p(pp), xu=xu2)
+    for g, q in zip(K.correc_updatep(*cor, **ckw),
+                    K.correc_updatep_plain(*cor, **ckw)):
+        _rel_close(g, q, tol)
+    ywall = (sim.dwy_t, sim.nearylo_t, r(nz, nx, scale=1.0).abs(),
+             r(nz, nx, scale=1.0).abs())
+    xwall = (*sim.xwall_prof, r(nz, ny, scale=1.0).abs(),
+             r(nz, ny, scale=1.0).abs())
+    tz = tuple(r(ny, nx, scale=1.0).abs() for _ in range(2))
+    smg = (u, v, w, *zq, sim.dzci_t, sim.dzfi_t, dxi, dyi, cfg.visc,
+           sim.csd2_t, sim.dw_t, sim.nearlo_t, *tz)
+    skw = dict(ye=ye[:3], ywall=ywall, xe=xe[:3], xwall=xwall)
+    _rel_close(K.smag(*smg, **skw), K.smag_plain(*smg, **skw), tol)
+    # the scalar with x walls and periodic y on a slab
+    cfg, _, sim = _xles_sim(dev, 'dev', shape, dtype)
+    bcs = (sim.bcu_vals, sim.bcv_vals, sim.bcw_vals)
+    zq = sim._zedge_vel(u, v, w, *bcs)
+    sca, rso = r(nz, ny, nx, scale=1.0), r(nz, ny, nx)
+    sce = torch.stack([r(ny, nx, scale=1.0), sca[-1], r(ny, nx, scale=1.0)])
+    xsc = bnd.xedge_scalar(sca, (('D', 'N'), ('P', 'P'), ('N', 'N')),
+                           ((1.0, 0.0), (0.0, 0.0), (0.0, 0.0)), cfg.dl,
+                           sim.grid.dzc)
+    h1 = tuple(H() for _ in range(6))
+    xs = (*sim._xedge_vel(u, v, w, bcs), sim._xedge_s(s), sim._xedge_p(p),
+          xsc)
+    xe = _xstacks_on_slab(xs, [(r(nz, 2, 3), r(3, 2, 3)) for _ in range(6)])
+    for sgs in (True, False):
+        for split in (None, '1d'):
+            mom = (u, v, w, s if sgs else None, p, *zq,
+                   se if sgs else None, pe,
+                   *(r(nz, ny, nx) for _ in range(3)), sim.dzci_t,
+                   sim.dzfi_t, 5e-4, -2e-4, cfg.visc, dxi, dyi,
+                   (0.0, 0.0, 0.0))
+            h = h1 if sgs else (*h1[:3], None, *h1[4:])
+            x = xe if sgs else (*xe[:3], None, *xe[4:])
+            sc = dict(sca=sca, scae=sce, rso=rso, scal=(2e-4, 0.05))
+            got = K.mom_rk(*mom, sums=(True, True), split=split, yh=h, xe=x,
+                           **sc)
+            ref = K.mom_rk_plain(*mom, sums=(True, True), split=split,
+                                 yh=h, xe=x, **sc)
+            for g, q in zip((*got[:6], *got[8:]), (*ref[:6], *ref[8:])):
+                _rel_close(g, q, tol)
+    # the wall model's XW x YH mode: the slab [0, nyl) of a field of 2 nyl
+    # rows, its rows of the inflow profile
+    cfg, grid, sim = _xles_sim(dev, 'wm', (nx, 2 * ny, nz), dtype)
+    bcs = tuple(_slab_planes(b, 0, ny, 2 * ny)
+                for b in (sim.bcu_vals, sim.bcv_vals, sim.bcw_vals))
+    wm = wmod.wall_model(cfg, grid, sim.index_wm, bcs, sim.cbcvel)
+    uq, vq = 1.0 + r(nz, ny, nx), r(nz, ny, nx)
+    yh = r(4 * len(wm.faces), 2, nx)
+    yh.view(-1, 2, 2, 2, nx)[:, 0] += 1.0      # u's rows
+    got = K.wm_planes(uq, vq, wm, yh=yh)
+    ref = wmod.wm_planes_plain(uq, vq, wm, yh=yh)
+    for g, q in zip(got, ref):
+        _rel_close(g, q, 1e-13 if dt == torch.float64 else tol)
+    torch.cuda.synchronize()
+    assert (K.LAUNCHES['mom_rk'], K.LAUNCHES['fillps'],
+            K.LAUNCHES['correc_updatep'], K.LAUNCHES['smag'],
+            K.LAUNCHES['wallmodel']) == (5, 1, 1, 1, 1)

@@ -23,16 +23,18 @@ here.  One spawn runs several cases.
   * mom_rk's halo twin on a slab whose halos are cut from the whole field
     equals the periodic twin on the whole field's rows (the construction
     of python -m cales_torch.fma_probe);
-  * the mesh's refusals: unsupported() for what stays single-device
-    (x and y walls together, x walls with the passive scalar, the 2D test
-    filter with y walls, a slab thinner than the dsmag kernel's halo, ...),
+  * the mesh's refusals: unsupported() for what stays refused (x and y
+    walls with the wall model, x walls with dsmag, the 2D test filter
+    with y walls, a slab thinner than the dsmag kernel's halo, ...),
     a world size that is not gy, a transport the ranks cannot use; what
     runs on the mesh (the impdiff_1d, wall-modelled and dsmag channels, the
     passive scalar, the two-pass dsmag and the 2D test filter too, full-3D
-    implicit diffusion and the developing channel, whose steps
+    implicit diffusion, the developing channel, x walls with y walls, the
+    wall model, the scalar and an inflow profile, whose steps
     tests/test_torch_sharded_imp.py, test_torch_sharded_les.py,
     test_torch_sharded_scalar.py, test_torch_sharded_twopass.py,
-    test_torch_sharded_imp3d.py and test_torch_sharded_xwalls.py hold).
+    test_torch_sharded_imp3d.py, test_torch_sharded_xwalls.py,
+    test_torch_sharded_xywalls.py and test_torch_sharded_xwm.py hold).
 """
 import json
 import os
@@ -327,10 +329,12 @@ def test_slab_with_cut_halos_is_the_whole_fields_rows():
 @pytest.mark.parametrize('change, needle', [
     (dict(dims=(2, 2)), 'gx > 1'),
     (dict(dims=(3, 1)), 'not divisible by gy'),
-    # x and y walls together (the developing duct), and x walls with the
-    # passive scalar (the developing channel with a scalar)
-    (XDUCT_BCS, 'x and y walls on a mesh'),
-    (dict(XDEV_BCS, scalar=True), 'x walls with the scalar on a mesh'),
+    # x and y walls with the z walls' wall model, and x walls with dsmag
+    # (refused on one device too)
+    (dict(XDUCT_BCS, lwm=((0, 0, 1), (0, 0, 1)), hwm=0.1),
+     'x walls with a wall model and y walls'),
+    (dict(XDEV_BCS, sgstype='dsmag', dsmag_avg='channel'),
+     'non-periodic x with dynamic Smagorinsky'),
     # the 2D test filter with y walls (refused on one device too)
     (dict(sgstype='dsmag', dsmag_avg='channel', filter_2d=True,
           cbcvel=((('P', 'P', 'P'), ('D', 'D', 'D'), ('D', 'D', 'D')),) * 2,
@@ -375,7 +379,14 @@ def test_mesh_slice_is_supported():
                    dict(scalar=True, is_sforced=True, scalf=0.5, **imp),
                    dict(sgstype='none', impdiff=True), dict(impdiff=True),
                    dict(scalar=True, impdiff=True),
-                   dict(XDEV_BCS, sgstype='none'), dict(XDEV_BCS, **imp)):
+                   dict(XDEV_BCS, sgstype='none'), dict(XDEV_BCS, **imp),
+                   # x and y walls (the developing duct, 'none' and smag),
+                   # the developing WMLES, x walls with a scalar, with
+                   # periodic y and with y walls
+                   dict(XDUCT_BCS, sgstype='none'), XDUCT_BCS,
+                   dict(XDEV_BCS, lwm=((0, 0, 1), (0, 0, 1)), hwm=0.1),
+                   dict(XDEV_BCS, scalar=True),
+                   dict(XDUCT_BCS, scalar=True)):
         for gy in (2, 4):
             assert unsupported(Config(**{**SMAG, **change},
                                       dims=(gy, 1))) == [], change

@@ -18,10 +18,14 @@ tests/test_torch_triperiodic.py's Taylor-Green vortex (16^3, 'mat'):
   * what unsupported() runs on the mesh (bench.py's six classes, the
     wall-modelled duct example, and the classes with a passive scalar, by
     the two-pass dynamic Smagorinsky, with the 2D test filter, with
-    full-3D implicit diffusion, the box with impdiff_1d, and the
-    developing channel example and its LES, at dims (2, 1) and (4, 1)) and
-    what it still refuses (ptransform 'fft'; x walls with the wall model,
-    an inflow profile, full-3D implicit diffusion with y walls).
+    full-3D implicit diffusion, the box with impdiff_1d, the developing
+    channel example and its LES, the closed box, the lid-driven cavity
+    and the developing duct examples, the developing WMLES with its
+    1/7-power inflow profile, the developing channel with a scalar and the
+    x+y-walled scalar of tests/test_sharding_paths.py:735, at dims (2, 1)
+    and (4, 1)) and what it still refuses (ptransform 'fft'; x walls with
+    dsmag, an inflow profile with y walls, full-3D implicit diffusion
+    with y walls).
 """
 import numpy as np
 import pytest
@@ -33,7 +37,8 @@ from cales_torch.grid import make_grid_from_config
 from cales_torch.nml import config_from_nml
 from cales_torch.timeloop import unsupported
 
-from test_torch_sharded import (ROOT, XDEV_BCS, _check_steps, _gauge,
+from test_torch_sharded import (ROOT, XDEV_BCS, XDUCT_BCS, _check_steps,
+                                _gauge,
                                 _jax_solve, _jax_steps, _solve_case, _spawn)
 from test_torch_sharded_imp import _bulk
 from test_torch_triperiodic import TGV
@@ -129,6 +134,40 @@ _MESH_CLASSES = {
     'les_scalar_3d': ('channel_les_smag', dict(_SCALAR, impdiff=True), '')}
 
 
+def _example(name):
+    return config_from_nml(str(ROOT / 'examples' / name / 'input.nml'))
+
+
+def _xwmles():
+    import chip_smoke
+    return chip_smoke.xwmles_cfg()
+
+
+def _xdev_scalar():
+    return _example('developing_channel').replace(
+        scalar=True, pr=0.71, iniscal='uni', ssource=0.02,
+        cbcscal=(('D', 'P', 'N'), ('N', 'P', 'N')),
+        bcscal=((1.0, 0.0, 0.0), (0.0, 0.0, 0.0)))
+
+
+def _xy_scalar():
+    # tests/test_sharding_paths.py:735 (its ng (128, 32, 16))
+    return _example('developing_duct').replace(
+        ng=(128, 32, 16), l=(2.0, 1.0, 1.0), visci=2000.0, inivel='uni',
+        scalar=True, pr=0.71, iniscal='uni', ssource=0.02,
+        cbcscal=(('D', 'D', 'N'), ('N', 'N', 'N')),
+        bcscal=((1.0, 0.5, 0.0), (0.0, 0.0, 0.0)))
+
+
+_XY_CLASSES = {
+    'closed_box': lambda: _example('closed_box'),
+    'lid_driven_cavity': lambda: _example('lid_driven_cavity'),
+    'developing_duct': lambda: _example('developing_duct'),
+    'developing_wmles': _xwmles,
+    'developing_channel_scalar': _xdev_scalar,
+    'xywalled_scalar': _xy_scalar}
+
+
 @pytest.mark.parametrize('gy', [2, 4])
 @pytest.mark.parametrize('name', ['triperiodic_dns', 'channel_dns_impdiff',
                                   'channel_les_smag', 'duct_les_dsmag',
@@ -136,7 +175,10 @@ _MESH_CLASSES = {
                                   'turbulent_duct_wmles',
                                   'developing_channel',
                                   'developing_channel_les',
-                                  *_MESH_CLASSES])
+                                  'closed_box', 'lid_driven_cavity',
+                                  'developing_duct', 'developing_wmles',
+                                  'developing_channel_scalar',
+                                  'xywalled_scalar', *_MESH_CLASSES])
 def test_mesh_runs_the_classes(name, gy, monkeypatch):
     """bench.py's six classes at 512x256x256, the wall-modelled duct
     example (512x80x80: its y faces' rows 3 and 4 from the wall on slabs of
@@ -144,8 +186,15 @@ def test_mesh_runs_the_classes(name, gy, monkeypatch):
     LES (static Smagorinsky, impdiff_1d), and those classes with a passive
     scalar, by the two passes (transpiring z walls,
     CALES_DSMAG_TWOPASS=1), with the 2D test filter and with full-3D
-    implicit diffusion (the box with impdiff_1d too) run on dims (gy, 1)."""
-    if name == 'turbulent_duct_wmles':
+    implicit diffusion (the box with impdiff_1d too), and the x-walled
+    examples with y walls (closed_box, lid_driven_cavity, developing_duct
+    at their 64^3), the developing WMLES with its 1/7-power inflow
+    (chip_smoke.xwmles_cfg), the developing channel with chip_smoke.py's
+    phase 13x scalar and tests/test_sharding_paths.py:735's x+y-walled
+    scalar run on dims (gy, 1)."""
+    if name in _XY_CLASSES:
+        cfg = _XY_CLASSES[name]().replace(dims=(gy, 1))
+    elif name == 'turbulent_duct_wmles':
         cfg = config_from_nml(
             str(ROOT / 'examples' / name / 'input.nml')).replace(
                 dims=(gy, 1))
@@ -169,14 +218,14 @@ _PROFILE = np.ones((BOX['ng'][2] + 2, BOX['ng'][1] + 2))
 
 
 @pytest.mark.parametrize('change, needle', [
-    # the developing WMLES (x walls with the z walls' wall model), an
-    # inflow profile (plane-valued values), and full-3D implicit diffusion
-    # with y walls (the duct's; refused on one device too)
-    (dict(XDEV_BCS, lwm=((0, 0, 1), (0, 0, 1)), hwm=0.1, sgstype='smag'),
-     'x walls with the wall model on a mesh'),
-    (dict(XDEV_BCS, bcvel=(((_PROFILE, 0.0, 0.0), (0.0,) * 3, (0.0,) * 3),
-                           ((0.0,) * 3,) * 3)),
-     'plane-valued velocity values on a device mesh'),
+    # x walls with dsmag, an inflow profile with y walls (plane-valued
+    # values with y walls), and full-3D implicit diffusion with y walls
+    # (the duct's; each refused on one device too)
+    (dict(XDEV_BCS, sgstype='dsmag', dsmag_avg='dit'),
+     'non-periodic x with dynamic Smagorinsky'),
+    (dict(XDUCT_BCS, bcvel=(((_PROFILE, 0.0, 0.0), (0.0,) * 3, (0.0,) * 3),
+                            ((0.0,) * 3,) * 3)),
+     'plane-valued values with y walls'),
     (dict(impdiff=True, cbcvel=((('P', 'P', 'P'), ('D', 'D', 'D'),
                                  ('D', 'D', 'D')),) * 2,
           cbcpre=(('P', 'N', 'N'),) * 2, cbcsgs=(('P', 'N', 'N'),) * 2),

@@ -385,8 +385,9 @@ _BOTH = {'dsmag': 'x walls with dsmag',
          'fft': "ptransform 'fft'", 'bulk forcing': 'bulk forcing'}
 OUTCOMES = {
     'smag': {'dev': None, 'box': None},
-    # the y-slab mesh runs x walls with periodic y
-    'mesh': {'dev': None, 'box': 'x and y walls on a mesh'},
+    # the y-slab mesh runs x walls with periodic y and with y walls (the
+    # box's case: an x-split pencil mesh, gx > 1)
+    'mesh': {'dev': None, 'box': 'gx > 1'},
     'scalar': {'dev': None, 'box': None},
     'impdiff_1d': {'dev': None, 'box': 'impdiff with y walls'},
     'z-wall model': {'dev': None,
@@ -397,7 +398,9 @@ OUTCOMES = {
 }
 
 
-def _change(name):
+def _change(name, base='dev'):
+    if name == 'mesh':
+        return dict(dims=(2, 1) if base == 'dev' else (2, 2))
     if name == 'inflow profile':
         # plane-valued BC values: a profile of u on the lower x face
         prof = np.ones((BOX['ng'][2] + 2, BOX['ng'][1] + 2))
@@ -408,7 +411,7 @@ def _change(name):
             'z-wall model': dict(lwm=((0, 0, 1), (0, 0, 1)), hwm=0.1),
             'dsmag': dict(sgstype='dsmag', dsmag_avg='cavity'),
             'full-3D implicit': dict(impdiff=True),
-            'scalar': dict(scalar=True), 'mesh': dict(dims=(2, 1)),
+            'scalar': dict(scalar=True),
             'fft': dict(ptransform='fft'),
             'bulk forcing': dict(is_forced=(True, False, False),
                                  velf=(1.0, 0.0, 0.0))}[name]
@@ -422,7 +425,8 @@ def test_xwalled_configs_outside_the_slice_raise(change, base):
     the last three with periodic y) or raises with a message that names
     its ROADMAP item."""
     item = OUTCOMES[change][base]
-    cfg = Config(**{**(DEV if base == 'dev' else BOX), **_change(change)})
+    cfg = Config(**{**(DEV if base == 'dev' else BOX),
+                    **_change(change, base)})
     if item is None:
         assert unsupported(cfg) == []
         if cfg.dims[0] * cfg.dims[1] > 1:
