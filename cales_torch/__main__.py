@@ -1,6 +1,6 @@
 """CLI entry point: ``python -m cales_torch [input.nml] [--datadir DIR]
-[--dtype float32|float64] [--max-steps N] [--device cuda|cpu]
-[--transport nccl|gloo]``.
+[--dtype float32|float64] [--ptransform auto|fft|mat] [--max-steps N]
+[--device cuda|cpu] [--transport nccl|gloo]``.
 
 The default device is cuda; without a card the run stops with an error.
 ``--device cpu`` runs the kernels' plain PyTorch twins instead.  A
@@ -13,7 +13,10 @@ process each:
 over NCCL, a card a rank (the default on cuda), or gloo (the default on
 the CPU; with cuda it stages the tensors through the host, so that the
 ranks can share one card).  A world size that is not gy, or NCCL with
-fewer cards than ranks, stops the run with an error."""
+fewer cards than ranks, stops the run with an error.  ``--ptransform``
+sets the Poisson solve's periodic transform, which the namelist does not
+carry ('auto' takes 'mat' on a mesh and with y walls; 'fft' takes the
+FFT along every periodic direction there too)."""
 from __future__ import annotations
 
 import argparse
@@ -30,6 +33,10 @@ def main(argv=None):
     ap.add_argument('--datadir', default='data', help='output directory')
     ap.add_argument('--dtype', default=None, choices=['float32', 'float64'],
                     help='override compute precision')
+    ap.add_argument('--ptransform', default=None,
+                    choices=['auto', 'fft', 'mat'],
+                    help="override the periodic transform of the Poisson "
+                         "solve (default: the config's, 'auto')")
     ap.add_argument('--max-steps', type=int, default=None,
                     help='cap the number of steps')
     ap.add_argument('--device', default='cuda',
@@ -47,6 +54,8 @@ def main(argv=None):
     overrides = {}
     if args.dtype:
         overrides['dtype'] = args.dtype
+    if args.ptransform:
+        overrides['ptransform'] = args.ptransform
     cfg = config_from_nml(args.input, **overrides)
     run(cfg, datadir=args.datadir, device=args.device,
         max_steps=args.max_steps, transport=args.transport)

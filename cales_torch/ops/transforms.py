@@ -2,17 +2,16 @@
 
 Counterpart of cales_tpu/ops/transforms.py.  ``make_transform`` is a copy of
 the JAX package's numpy constructor (that module imports jax, so it is copied
-rather than imported); ``fwd``/``bwd`` apply a transform along one axis of a
-(z, y, x) tensor: ``torch.fft`` for kind 'fft' (periodic), a matmul with the
-precomputed operator matrix for kind 'mat'.  See the JAX module for the
-(transform, eigenvalue) table per BC pair and staggering.
+rather than imported).  The solve routes apply the transforms themselves
+(poisson.py): ``torch.fft`` for kind 'fft' (periodic), the operator matrices
+of kind 'mat' through the apply_y and apply_x kernels.  See the JAX module
+for the (transform, eigenvalue) table per BC pair and staggering.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
 import numpy as np
-import torch
 
 
 @dataclass(frozen=True)
@@ -98,34 +97,3 @@ def make_transform(bc: str, c_or_f: str, n: int,
     Tinv = np.linalg.inv(T)
     return Transform1D(kind='mat', n=n, nsolve=nsolve, lam=lam,
                        fwd_mat=T, bwd_mat=Tinv)
-
-
-def _matmul_axis(arr, mat, axis):
-    """Contract `mat` (k_out, k_in) with `arr` along `axis`; a complex
-    array has its real and imaginary parts transformed separately."""
-    if arr.is_complex():
-        return torch.complex(_matmul_axis(arr.real, mat, axis),
-                             _matmul_axis(arr.imag, mat, axis))
-    m = torch.as_tensor(mat, dtype=arr.dtype, device=arr.device)
-    moved = torch.movedim(arr, axis, -1)
-    return torch.movedim(torch.matmul(moved, m.T), -1, axis)
-
-
-def fwd(tr: Transform1D, arr, axis: int):
-    """Forward transform along `axis`.  For PP: rfft on real input, fft on
-    complex input."""
-    if tr.kind == 'fft':
-        if arr.is_complex():
-            return torch.fft.fft(arr, dim=axis)
-        return torch.fft.rfft(arr, dim=axis)
-    return _matmul_axis(arr, tr.fwd_mat, axis)
-
-
-def bwd(tr: Transform1D, arr, axis: int, n: int, real_out: bool):
-    """Backward transform along `axis`; `n` is the output length of an
-    inverse rfft."""
-    if tr.kind == 'fft':
-        if real_out:
-            return torch.fft.irfft(arr, n=n, dim=axis)
-        return torch.fft.ifft(arr, dim=axis)
-    return _matmul_axis(arr, tr.bwd_mat, axis)

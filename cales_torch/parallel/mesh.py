@@ -13,7 +13,11 @@ rank, as the reference's pencils keep the tridiagonal direction local.
                     _halo_strips packs both; its 8-row strips are Mosaic's
                     granularity, the port moves the rows it reads);
   transpose_y_to_x  the Poisson solve's forward pencil transpose: split x,
-  transpose_x_to_y  gather y, and back, on all_to_all_single;
+  transpose_x_to_y  gather y, and back, on all_to_all_single: the x
+                    columns of the 'mat' route, or on the 'fft' route the
+                    real view of the half spectrum's kx lanes (kx_lanes a
+                    rank; complex data travels as plain reals, so gloo and
+                    NCCL carry it alike);
   all_reduce        sums and maxima over the whole domain.
 
 The transport (parallel/comm.py) is the caller's explicit choice.
@@ -105,19 +109,28 @@ class SlabMesh:
                 for _, e in pairs]
 
     # -- pencil transposes of the Poisson solve ----------------------------
+    def kx_lanes(self, nxh: int) -> int:
+        """The lanes a rank holds of a half spectrum of nxh = nx/2 + 1
+        complex lanes on the 'fft' route: ceil(nxh / gy), the last rank's
+        tail dead padding, so that every block of the all-to-all is of one
+        size (nxh, odd, divides by no even gy)."""
+        return -(-int(nxh) // self.gy)
+
     def transpose_y_to_x(self, blocks):
         """blocks (gy, nz, nyl, nxl), block q this slab's x columns
-        [q nxl, (q+1) nxl) (solve_kernels.apply_x(split=gy) writes them so)
-        -> (nz, ny, nxl): this rank's x columns over all y.  One all-to-all
-        and one copy."""
+        [q nxl, (q+1) nxl) (solve_kernels.apply_x(split=gy) writes them so;
+        on the 'fft' route the real view of rank q's kx lanes, nxl = 2
+        kx_lanes) -> (nz, ny, nxl): this rank's x columns over all y.  One
+        all-to-all and one copy."""
         recv = self.comm.all_to_all(blocks)
         g, nz, nyl, nxl = recv.shape
         return recv.permute(1, 0, 2, 3).reshape(nz, g * nyl, nxl)
 
     def transpose_x_to_y(self, a):
-        """a (nz, ny, nxl), this rank's x columns -> (gy, nz, nyl, nxl):
-        block q rank q's x columns on this slab's y rows, the chunked input
-        solve_kernels.apply_x takes.  One copy and one all-to-all."""
+        """a (nz, ny, nxl), this rank's x columns (or lanes) -> (gy, nz,
+        nyl, nxl): block q rank q's x columns on this slab's y rows, the
+        chunked input solve_kernels.apply_x takes.  One copy and one
+        all-to-all."""
         nz, ny, nxl = a.shape
         send = a.reshape(nz, self.gy, ny // self.gy, nxl).permute(
             1, 0, 2, 3).contiguous()

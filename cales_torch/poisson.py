@@ -3,12 +3,17 @@
 Counterpart of cales_tpu/poisson.py (reference initsolver.f90:17-169,
 solver.f90:20-233, bound.f90:447-617).  The setup (tridmatrix, the z
 eigendecomposition, rhs_bound_planes) is numpy, copied from the JAX module,
-which imports jax.  Periodic x and y take one of two transform routes:
+which imports jax.  Periodic x takes one of two transform routes:
 
-  'fft'  rfft along x, fft along y (cuFFT on the card), then the z stage
-         on the complex spectrum: two real (nz, nz) matmuls against the z
-         eigenvectors (zsolver 'eig'), or the Thomas kernel on its real
-         and imaginary parts (zsolver 'thomas');
+  'fft'  rfft along x (cuFFT on the card), then the y stage on the
+         complex half spectrum: an FFT along y with periodic y, or with y
+         walls (the mixed route, the JAX package's XLA solve with
+         x_was_fft, poisson.py:414-436) the DCT matrix by the apply_y
+         kernel, M alone, on its real view (nz, ny, 2 (nx/2 + 1)), the
+         real and imaginary parts as interleaved x lanes; then the z stage
+         on the lanes: two real (nz, nz) matmuls against the z
+         eigenvectors (zsolver 'eig'), or the Thomas kernel on the real
+         view (zsolver 'thomas'); and back;
   'mat'  the JAX kernel path's unfused solve (poisson.solve(pallas=True,
          pre_xformed_x=False)): apply_y with the x operator fused
          (forward), the z stage (z_eig, or thomas_z from nz >= 384 or with
@@ -30,18 +35,22 @@ bulk-forcing shift, the boundary planes and the face-staggered tail row
 inside the kernel (the periodic kernel with periodic z).
 
 On a y-slab mesh (dims = (gy, 1), parallel/mesh.py) solve_sharded is the
-slab-sharded Poisson solve of the JAX package's kernel-sharded route
-(poisson.solve_sharded_pallas): apply_x while x is local, the pencil
-transpose (split x, gather y), apply_y along y only, thomas_z on this
-rank's x columns, apply_y back, the transpose back, apply_x back; with
-alpha the full-3D Helmholtz solve of each velocity component by the same
-route (its tail row passing through); the z-only solves (solve_z_only)
-need no communication and run on each slab.
+slab-sharded Poisson solve: on the 'mat' route the JAX package's
+kernel-sharded route (poisson.solve_sharded_pallas): apply_x while x is
+local, the pencil transpose (split x, gather y), apply_y along y only,
+thomas_z on this rank's x columns, apply_y back, the transpose back,
+apply_x back; on the 'fft' route the JAX package's sharded XLA solve
+(poisson.solve with hints): the rfft along x on the slab, the transpose
+of the half spectrum's lanes (split kx, gather y), the y stage and the z
+stage of the one-device route on this rank's lanes, and back.  With alpha
+the full-3D Helmholtz solve of each velocity component by the same route
+(its tail row passing through); the z-only solves (solve_z_only) need no
+communication and run on each slab.
 
 With y walls (homogeneous-Neumann pressure, the duct and cavity classes)
-the y operator is a DCT matrix and the route is 'mat': apply_y and z_eig
-take whatever operator and eigenvalues the transforms hold, so no kernel
-changes.
+the y operator is a DCT matrix, on the 'mat' route as on the mixed one:
+apply_y and the z stages take whatever operator and eigenvalues the
+transforms hold, so no kernel changes.
 
 With x walls (the developing channel: pressure 'ND' along x, a DCT-IV;
 the closed box, the cavity and the developing duct: 'NN', a DCT-II) the x
@@ -50,8 +59,7 @@ route is 'mat' (there is no FFT along a walled x).
 
 Not in this slice (each raises NotImplementedError naming its ROADMAP
 item): transforms with excluded x or y rows (a field face-staggered
-across an x or y wall), and the mixed route (an FFT along x with a matrix
-along y).
+across an x or y wall), and an FFT along y with a matrix along x.
 """
 from __future__ import annotations
 
@@ -168,7 +176,10 @@ def make_solver(cfg: Config, grid: Grid, cbc, c_or_f,
     y too (the x operator a square DCT, ND or NN for the pressure, through
     apply_y's fused MxT); and on a device mesh (dims), where the sharded
     solve is the all-matrix route, as 'auto' resolves on the TPU
-    (poisson.py:138-141)."""
+    (poisson.py:138-141).  An explicit 'fft' takes the FFT along every
+    periodic direction and the matrix along a walled one, on one device
+    and on the mesh: with y walls the mixed route (rfft along x, the y
+    DCT matrix)."""
     nx, ny, nz = cfg.ng
     dli = cfg.dli
     mode = getattr(cfg, 'ptransform', 'auto')
@@ -218,14 +229,17 @@ def uses_thomas(sv: DirectSolver) -> bool:
 
 
 def _check_in_slice(sv: DirectSolver, alpha):
+    """The transforms both routes take: square ones (no excluded x or y
+    row), an FFT along y only with one along x, and a tail row only with
+    alpha."""
     nx, ny, _ = sv.ng
-    if sv.trx.kind != sv.try_.kind or sv.trx.nsolve != nx \
-            or sv.try_.nsolve != ny or (sv.qz and alpha is None):
+    if (sv.trx.kind, sv.try_.kind) == ('mat', 'fft') \
+            or sv.trx.nsolve != nx or sv.try_.nsolve != ny \
+            or (sv.qz and alpha is None):
         raise NotImplementedError(
-            'transforms with excluded rows or mixed kinds (an FFT along x '
-            "with y walls, ptransform='fft'), or a Poisson solve of a "
-            'face-staggered field, are not ported yet: ROADMAP queue 1, BC '
-            'topologies')
+            'transforms with excluded rows or an FFT along y with a matrix '
+            'along x, or a Poisson solve of a face-staggered field, are not '
+            'ported yet: ROADMAP queue 1, BC topologies')
 
 
 def _eig_tol(sv: DirectSolver, lamx_np) -> float:
@@ -242,26 +256,43 @@ def _eig_tol(sv: DirectSolver, lamx_np) -> float:
     return float(np.finfo(np.float64).eps * scale * 4.0)
 
 
-def _eig_ops(sv: DirectSolver, rdt: torch.dtype, device: torch.device):
+def _eig_ops(sv: DirectSolver, rdt: torch.dtype, device: torch.device,
+             lamx_np, key):
     """(Vl, Vr, lam3, inv) on the device in the real dtype rdt over the
-    (nz - qz, ny, nx//2+1) spectral grid: lam3 = lamz + lamy + lamx, inv =
-    1/lam3 and zero for the singular mode (the Poisson solve)."""
+    (nz - qz, ny, n) spectral grid whose n x lanes carry lamx_np (the
+    half spectrum's nx//2+1, or a slab's lanes of it, key naming them in
+    the device cache): lam3 = lamz + lamy + lamx, inv = 1/lam3 and zero
+    for the singular mode (the Poisson solve), by a tolerance from the
+    whole spectrum."""
+    nxh = sv.ng[0] // 2 + 1
+
     def build():
-        nx = sv.ng[0]
-        lamx_np = sv.lamx[: nx // 2 + 1]
-        lamy_np = sv.lamy
-        lamxy = (torch.as_tensor(lamy_np, dtype=rdt, device=device)[:, None]
+        lamxy = (torch.as_tensor(sv.lamy, dtype=rdt, device=device)[:, None]
                  + torch.as_tensor(lamx_np, dtype=rdt, device=device)[None, :])
         lamz = torch.as_tensor(sv.lamz, dtype=rdt, device=device)
         lam3 = lamz[:, None, None] + lamxy[None, :, :]
         # project out the (exactly) singular constant mode instead of the
         # reference's eps-regularized pivot (solver.f90:165-169)
-        tol = _eig_tol(sv, lamx_np)
+        tol = _eig_tol(sv, sv.lamx[:nxh])
         inv = torch.where(lam3.abs() > tol, 1.0 / lam3,
                           torch.zeros_like(lam3))
         return (torch.as_tensor(sv.zVl, dtype=rdt, device=device),
                 torch.as_tensor(sv.zVr, dtype=rdt, device=device), lam3, inv)
-    return _dev(sv, 'eig_fft', rdt, device, build)
+    return _dev(sv, key, rdt, device, build)
+
+
+def _real_view(spec):
+    """The real view (..., 2 n) of a complex (..., n) spectrum: the real
+    and imaginary parts of each lane as two interleaved x lanes."""
+    return torch.view_as_real(spec.contiguous()).reshape(
+        *spec.shape[:-1], 2 * spec.shape[-1])
+
+
+def _complex_view(re):
+    """The complex (..., n) spectrum of a real view (..., 2 n) whose last
+    dim lies contiguous."""
+    return torch.view_as_complex(re.reshape(*re.shape[:-1],
+                                            re.shape[-1] // 2, 2))
 
 
 def _zmatmul(mat, zc):
@@ -330,31 +361,48 @@ def _z_thomas(sv: DirectSolver, body, lamx_np, alpha=None, key='lamx'):
                        **kw)
 
 
-def _solve_fft(sv: DirectSolver, p, alpha=None):
-    nz, ny, nx = p.shape
-    body = tr.fwd(sv.trx, p, axis=-1)        # rfft along x
-    body = tr.fwd(sv.try_, body, axis=-2)    # fft along y (complex input)
+def _y_stage(sv: DirectSolver, spec, inverse=False):
+    """The y stage of the 'fft' route on the complex spectrum spec (nz, ny,
+    n) along x: the FFT along y (periodic y), or the y transform's matrix
+    by the apply_y kernel on its real view (y walls: the mixed route), the
+    real and imaginary lanes alike."""
+    if sv.try_.kind == 'fft':
+        fft = torch.fft.ifft if inverse else torch.fft.fft
+        return fft(spec, dim=1)
+    dt, dev = spec.dtype.to_real(), spec.device
+    fy, by = _dev(sv, 'ymat', dt, dev, lambda: (
+        _t(sv.try_.fwd_mat, dt, dev), _t(sv.try_.bwd_mat, dt, dev)))
+    return _complex_view(sk.apply_y(_real_view(spec), by if inverse else fy))
+
+
+def _z_stage_fft(sv: DirectSolver, spec, lamx_np, alpha=None, key='lamx'):
+    """The z stage of the 'fft' route on the complex spectrum spec (nz,
+    ny, n) whose x lanes carry lamx_np: the Thomas kernel on its real
+    view, each lane's eigenvalue on its real and imaginary lanes, or the z
+    eigen matmuls on rows 0 .. nz-qz-1 (the face-staggered Dirichlet tail
+    row passes through, poisson.py:446-490); key names the lanes in the
+    device cache."""
     if uses_thomas(sv):
-        # the real and imaginary parts as x lanes of one real field, each
-        # with its wavenumber's eigenvalue
-        nxh = nx // 2 + 1
-        re = torch.view_as_real(body).reshape(nz, ny, 2 * nxh)
-        lamx2 = np.repeat(sv.lamx[:nxh], 2)
-        body = torch.view_as_complex(
-            _z_thomas(sv, re, lamx2, alpha).reshape(nz, ny, nxh, 2))
-    else:
-        # the z eigen-matmuls on rows 0 .. nz-qz-1; the face-staggered
-        # Dirichlet tail row passes through (poisson.py:446-490)
-        nzs = nz - sv.qz
-        Vl, Vr, lam3, inv = _eig_ops(sv, p.dtype, p.device)
-        if alpha is not None:
-            inv = 1.0 / (lam3 * alpha + 1.0)
-        hat = _zmatmul(Vl, body[:nzs]) * inv[..., None]
-        zsol = torch.view_as_complex(_zmatmul(Vr, torch.view_as_complex(hat)))
-        body = torch.cat([zsol, body[nzs:]]) if sv.qz else zsol
-    body = tr.bwd(sv.try_, body, axis=-2, n=ny, real_out=False)
-    body = tr.bwd(sv.trx, body, axis=-1, n=nx, real_out=True)
-    return body.to(p.dtype)
+        return _complex_view(_z_thomas(sv, _real_view(spec),
+                                       np.repeat(lamx_np, 2), alpha,
+                                       key=key))
+    nzs = spec.shape[0] - sv.qz
+    Vl, Vr, lam3, inv = _eig_ops(sv, spec.dtype.to_real(), spec.device,
+                                 lamx_np, key=('eig_fft', key))
+    if alpha is not None:
+        inv = 1.0 / (lam3 * alpha + 1.0)
+    hat = _zmatmul(Vl, spec[:nzs]) * inv[..., None]
+    zsol = torch.view_as_complex(_zmatmul(Vr, torch.view_as_complex(hat)))
+    return torch.cat([zsol, spec[nzs:]]) if sv.qz else zsol
+
+
+def _solve_fft(sv: DirectSolver, p, alpha=None):
+    nx = p.shape[-1]
+    spec = torch.fft.rfft(p, dim=-1)
+    spec = _y_stage(sv, spec)
+    spec = _z_stage_fft(sv, spec, sv.lamx[:nx // 2 + 1], alpha)
+    spec = _y_stage(sv, spec, inverse=True)
+    return torch.fft.irfft(spec, n=nx, dim=-1).to(p.dtype)
 
 
 def _solve_mat(sv: DirectSolver, p, alpha=None):
@@ -392,11 +440,12 @@ def solve(sv: DirectSolver, p, alpha=None):
 
 
 def solve_sharded(sv: DirectSolver, p, mesh, alpha=None):
-    """The slab-sharded Poisson solve (poisson.solve_sharded_pallas) of this
-    rank's (nz, ny/gy, nx) RHS slab p on `mesh` (parallel/mesh.SlabMesh),
-    or with alpha the Helmholtz solve (I + alpha L) of full-3D implicit
-    diffusion, one per velocity component (the JAX package's CN stage on
-    its mesh, timeloop.py:2360-2413):
+    """The slab-sharded Poisson solve of this rank's (nz, ny/gy, nx) RHS
+    slab p on `mesh` (parallel/mesh.SlabMesh), or with alpha the Helmholtz
+    solve (I + alpha L) of full-3D implicit diffusion, one per velocity
+    component (the JAX package's CN stage on its mesh,
+    timeloop.py:2360-2413).  On the 'mat' route
+    (poisson.solve_sharded_pallas):
 
       apply_x forward, written as gy x-column blocks      (nz, ny/gy, nx)
       all-to-all: split x, gather y                       (nz, ny, nx/gy)
@@ -414,18 +463,16 @@ def solve_sharded(sv: DirectSolver, p, mesh, alpha=None):
     The z stage is Thomas at every nz, as the JAX route takes it, so the
     result matches the single-device solve (z_eig below nz = 384) to
     rounding and, for the Poisson solve, up to the gauge of the constant
-    mode.  Which configurations come here is timeloop.unsupported()'s to
-    say; the solver must have what all of theirs have: square 'mat' x and
-    y transforms (the DCT of a walled x too), and a tail row only with
-    alpha.  With periodic z (the triperiodic box) the pinned periodic
+    mode.  With periodic z (the triperiodic box) the pinned periodic
     Thomas takes the JAX package's single-device z stage's place
     (thomas_periodic, poisson.py:575-576): the result differs from it by a
-    constant."""
-    nx, ny, _ = sv.ng
-    if not (sv.trx.kind == sv.try_.kind == 'mat' and sv.trx.nsolve == nx
-            and sv.try_.nsolve == ny and (alpha is not None or not sv.qz)):
-        raise ValueError("solve_sharded: the solver needs square 'mat' x "
-                         'and y transforms, and a tail row only with alpha')
+    constant.  On the 'fft' route (_solve_fft_sharded) the one-device
+    route's stages on this rank's lanes of the half spectrum.  Which
+    configurations come here is timeloop.unsupported()'s to say; the
+    solver takes what the one-device solve takes (_check_in_slice)."""
+    _check_in_slice(sv, alpha)
+    if sv.trx.kind == 'fft':
+        return _solve_fft_sharded(sv, p, mesh, alpha)
     dt, dev = p.dtype, p.device
     fy, fxT, by, bxT = _dev(sv, 'mat', dt, dev, lambda: tuple(
         _t(m, dt, dev) for m in (sv.try_.fwd_mat, sv.trx.fwd_mat.T,
@@ -437,6 +484,57 @@ def solve_sharded(sv: DirectSolver, p, mesh, alpha=None):
     body = _z_thomas(sv, body, lamx_l, alpha, key=('lamx_slab', mesh.rank))
     body = sk.apply_y(body, by)
     return sk.apply_x(mesh.transpose_x_to_y(body), bxT)
+
+
+def fft_slab_lamx(sv: DirectSolver, mesh) -> np.ndarray:
+    """The x eigenvalues of this rank's kx lanes on the 'fft' route of the
+    y-slab mesh: the half spectrum's nxh = nx/2 + 1 lanes padded to gy
+    mesh.kx_lanes(nxh) with the Nyquist eigenvalue (dead lanes, never
+    singular), this rank's block of them."""
+    nx = sv.ng[0]
+    nxh = nx // 2 + 1
+    nkl = mesh.kx_lanes(nxh)
+    lamx = np.concatenate([sv.lamx[:nxh],
+                           np.full(mesh.gy * nkl - nxh, sv.lamx[nx // 2])])
+    return lamx[mesh.rank * nkl:(mesh.rank + 1) * nkl]
+
+
+def _solve_fft_sharded(sv: DirectSolver, p, mesh, alpha=None):
+    """The 'fft' route on the y-slab mesh (the JAX package's sharded XLA
+    solve, poisson.solve with hints; the reference's solver_gpu.f90:80-158
+    transposes):
+
+      rfft along x on the slab, its real view           (nz, ny/gy, 2 nxh)
+      all-to-all: split the kx lanes, gather y          (nz, ny, 2 nkl)
+      the y stage (the FFT along y, or apply_y with the
+      DCT matrix: the mixed route), the z stage of the
+      one-device route on this rank's lanes, the y
+      stage back
+      all-to-all back, irfft along x                    (nz, ny/gy, nx)
+
+    The nxh = nx/2 + 1 lanes of the half spectrum are padded to gy nkl,
+    nkl = ceil(nxh / gy) a rank (parallel/mesh.SlabMesh.kx_lanes): every
+    rank sends and receives blocks of one size, and the dead lanes (zero,
+    the Nyquist eigenvalue, never singular) are dropped on the way back.
+    The singular lane (kx, ky) = (0, 0) is rank 0's: the eigen stage
+    projects it, Thomas pins it, by tolerances from the whole spectrum.
+    The result equals the one-device 'fft' solve to rounding, its gauge
+    included."""
+    nz, nyl, nx = p.shape
+    gy, nxh = mesh.gy, nx // 2 + 1
+    nkl = mesh.kx_lanes(nxh)
+    re = _real_view(torch.fft.rfft(p, dim=-1))
+    if gy * nkl > nxh:
+        re = torch.nn.functional.pad(re, (0, 2 * (gy * nkl - nxh)))
+    blocks = re.reshape(nz, nyl, gy, 2 * nkl).permute(2, 0, 1, 3)
+    spec = _complex_view(mesh.transpose_y_to_x(blocks.contiguous()))
+    spec = _y_stage(sv, spec)
+    spec = _z_stage_fft(sv, spec, fft_slab_lamx(sv, mesh), alpha,
+                        key=('lamx_fft_slab', mesh.rank))
+    spec = _y_stage(sv, spec, inverse=True)
+    back = mesh.transpose_x_to_y(_real_view(spec)).permute(1, 2, 0, 3)
+    re = back.reshape(nz, nyl, gy * 2 * nkl)[..., :2 * nxh]
+    return torch.fft.irfft(_complex_view(re), n=nx, dim=-1).to(p.dtype)
 
 
 def solve_z_only(sv: DirectSolver, p, alpha, shift=None, bc_planes=None):

@@ -2,7 +2,7 @@
 
     python -m cales_torch.profile_step
         [--case les|les-mat|les-imp|dns|dns-imp3d|dsmag|dsmag-blow|duct|
-                cavity|tgv|tgv-fft|tri|tri-imp3d|wmles|wmles-duct|
+                cavity|duct-fft|tgv|tgv-fft|tri|tri-imp3d|wmles|wmles-duct|
                 xchannel|xcavity|xwmles|xles-imp|xduct-les|les-scal|
                 tgv-les|tgv-dsmag]
         [--ng NXxNYxNZ]
@@ -24,7 +24,10 @@ dsmag kernel's 'duct' and 'cavity' averages); 'dsmag-blow' the 'dsmag'
 channel with transpiring walls (w = 0.003 through both z walls, which
 only the two-pass dsmag carries: dsmag_level1, dsmag_level2); with
 CALES_DSMAG_TWOPASS=1 in the environment 'dsmag', 'duct' and 'cavity'
-take the two passes too; 'dns-imp3d' the channel DNS
+take the two passes too; 'duct-fft' the 'duct' by ptransform 'fft', the
+mixed Poisson route (cuFFT along x, apply_y with the y DCT alone on the
+real view of the rfft's lanes, the z eigen-matmuls); 'dns-imp3d' the
+channel DNS
 with full-3D implicit diffusion (a Helmholtz solve per component, thomas_z
 with the lam shift); 'tgv' the Taylor-Green vortex of
 examples/taylor_green_vortex_3d at 512^3 with ptransform='mat' (apply_y and
@@ -164,6 +167,9 @@ CASES = {
     'duct': dict(l=(4 * np.pi, 2.0, 2.0), visci=10_000.0, inivel='duc',
                  sgstype='dsmag', dsmag_avg='duct', ptransform='mat',
                  **DUCT_BCS),
+    'duct-fft': dict(l=(4 * np.pi, 2.0, 2.0), visci=10_000.0, inivel='duc',
+                     sgstype='dsmag', dsmag_avg='duct', ptransform='fft',
+                     **DUCT_BCS),
     'cavity': dict(l=(1.0, 1.0, 1.0), gr=0.0, visci=5_000.0, inivel='tgv',
                    is_wallturb=False, is_forced=(False, False, False),
                    velf=(0.0, 0.0, 0.0), sgstype='dsmag', dsmag_avg='cavity',

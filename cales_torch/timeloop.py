@@ -232,12 +232,12 @@ def _ywalls_refuse(cfg: Config) -> list[str]:
              and float(cfg.bcvel[ib][1][1]) != 0.0 for ib in range(2)):
         out.append('a non-zero v through a y wall: ROADMAP queue 1, BC '
                    'topologies')
-    if cfg.sgstype == 'smag' and (cfg.impdiff or cfg.ptransform == 'fft'
+    if cfg.sgstype == 'smag' and (cfg.impdiff
                                   or cfg.cbc_vel(2, 0)[0] == 'P'):
         out.append('static Smagorinsky with y walls runs with explicit '
-                   "diffusion, z walls and the 'mat' route (smag with y "
-                   'walls beside impdiff, periodic z or fft): ROADMAP queue '
-                   '1, impdiff with y walls, BC topologies')
+                   'diffusion and z walls (smag with y walls beside impdiff '
+                   'or periodic z): ROADMAP queue 1, impdiff with y walls, '
+                   'BC topologies')
     if cfg.impdiff:
         kind = 'impdiff_1d' if cfg.impdiff_1d else \
             'full-3D implicit diffusion'
@@ -246,9 +246,6 @@ def _ywalls_refuse(cfg: Config) -> list[str]:
     if cfg.cbc_vel(2, 0)[0] == 'P':
         out.append('periodic z with y walls: ROADMAP queue 1, BC '
                    'topologies')
-    if cfg.ptransform == 'fft':
-        out.append("ptransform 'fft' with y walls (the mixed FFT and matrix "
-                   'route): ROADMAP queue 1, BC topologies')
     return out
 
 
@@ -431,7 +428,9 @@ def _wm_refuse(cfg: Config) -> list[str]:
 
 def _mesh_refuse(cfg: Config) -> list[str]:
     """What this slice does not run on a device mesh (dims): the y-slab
-    mesh dims = (gy, 1) runs, on the all-matrix Poisson route, the channel
+    mesh dims = (gy, 1) runs, on the all-matrix Poisson route and (with
+    periodic x) on the 'fft' route ('fft' with y walls: the mixed route,
+    the y DCT matrix on the rfft's lanes), the channel
     classes with periodic x and y: sgstype 'none', static Smagorinsky (the
     z walls may carry the wall model) or the dynamic Smagorinsky
     ('channel' or 'dit', one pass with the 3D or the 2D filter, or two
@@ -475,8 +474,6 @@ def _mesh_refuse(cfg: Config) -> list[str]:
                        'velocity from the two rows next to the wall): at '
                        'least 2')
         out += _wm_slab_refuse(cfg, gy)
-    if cfg.ptransform == 'fft':
-        out.append(f"ptransform 'fft' under a device mesh: {item}")
     return out
 
 
@@ -914,8 +911,10 @@ class Simulation:
         kernel's name; exec_path says which variant runs)."""
         cfg = self.cfg
         mat = self.solver_p.trx.kind == 'mat'
-        # the sharded solve takes Thomas at every nz (poisson.solve_sharded)
-        thomas = poisson.uses_thomas(self.solver_p) or self.mesh is not None
+        # the sharded 'mat' solve takes Thomas at every nz
+        # (poisson.solve_sharded); the 'fft' route the one-device z stage
+        thomas = poisson.uses_thomas(self.solver_p) or (
+            self.mesh is not None and mat)
         zthomas = ('thomas_periodic' if self.solver_p.bcz == 'PP'
                    else 'thomas_z')
         names = ['mom_rk', 'fillps',
@@ -924,9 +923,11 @@ class Simulation:
             names += ['dsmag_level1', 'dsmag_level2']
         elif self.sgs_kernel:
             names.append(self.sgs_kernel)
-        if mat:
+        # apply_y: the 'mat' route's x and y operators, or the mixed
+        # route's y DCT on the rfft's lanes
+        if mat or self.solver_p.try_.kind == 'mat':
             names.append('apply_y')
-        if self.mesh is not None:
+        if self.mesh is not None and mat:
             names.append('apply_x')
         if mat and not thomas:
             names.append('z_eig')
@@ -957,11 +958,15 @@ class Simulation:
             where = f'cpu, kernels: {names} (plain PyTorch twins)'
         periodic_z = self.solver_p.bcz == 'PP'
         zthomas = 'thomas_periodic' if periodic_z else 'thomas_z'
+        fft = self.solver_p.trx.kind == 'fft'
         zstage = (zthomas if poisson.uses_thomas(self.solver_p)
-                  or self.mesh is not None
-                  else 'z eigen-matmul' if self.solver_p.trx.kind == 'fft'
-                  else 'z_eig')
-        xy = ('torch.fft x/y' if self.solver_p.trx.kind == 'fft'
+                  or (self.mesh is not None and not fft)
+                  else 'z eigen-matmul' if fft else 'z_eig')
+        ystage = ('torch.fft y' if self.solver_p.try_.kind == 'fft'
+                  else 'apply_y y DCT on the lanes (mixed route)')
+        xy = (f'torch.fft x, {ystage}' if fft and self.mesh is None
+              else f'torch.fft x, the kx<->y all-to-all, {ystage} '
+                   '(slab-sharded)' if fft
               else 'apply_y x/y operator matmuls' if self.mesh is None
               else 'apply_x, the y<->x all-to-all, apply_y (slab-sharded)')
         diff = ('explicit' if not self.cfg.impdiff

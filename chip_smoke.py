@@ -46,13 +46,20 @@ impdiff_1d) and x walls with y walls, the wall model and the scalar (the
 developing duct LES, the lid-driven cavity, the developing WMLES with its
 inflow profile, the developing channel with a scalar; the closed box and
 the x+y-walled scalar as small f64 cases), their slab modes timed in
-phase 2b.  Each phase's first line carries the seconds since the start.
+phase 2b; then ptransform 'fft' everywhere the JAX package runs it: the
+dsmag duct by the mixed route (the rfft along x, apply_y with the y DCT
+on the real view of its lanes, timed in phase 2b) on one device at
+512x256x256 (phase 8f), and on the mesh the LES headline and the mixed
+dsmag duct at 512x256x256 (10ff, 10yf) and as small f64 cases the box
+LES with 'dit', the full-3D channel DNS and the wall-modelled duct (10tdf,
+10i3f, 10ywf).  Each phase's first line carries the seconds since the
+start.
 
     python3 chip_smoke.py            # all phases, one card
 
 (``chip_smoke.py --sharded-rank DIR`` is one rank of the mesh phase 10,
 ``--sharded-les-rank DIR`` one of phases 10i to 10tf and
-``--sharded-les-rank DIR second`` one of phases 10i3 to 10xysc, which the
+``--sharded-les-rank DIR second`` one of phases 10i3 to 10ywf, which the
 script starts itself under torch.distributed.run.)
 
 Exits non-zero without a CUDA device, or when any phase fails.  The last
@@ -214,6 +221,12 @@ SLAB_MODE_ROWS = {'wallmodel (y walls, slab)': ('wallmodel', '10yw'),
                   'smag (x and y walls, slab)': ('smag', '10xy'),
                   'mom_rk (scalar, x walls, y halo)': ('mom_rk', '10xs'),
                   'wallmodel (x walls, y halo)': ('wallmodel', '10xw')}
+# the mixed route's y stage (ptransform 'fft' with y walls, phase 8f and
+# the mesh classes 10yf, 10ywf): apply_y with the y DCT alone on the real
+# view of the rfft's lanes at the headline grid, (nz, ny, 2 (nx/2 + 1)),
+# timed in phase 2b: report name -> kernel
+REAL_VIEW_SHAPE = (256, 256, 514)
+REAL_VIEW_ROWS = {'apply_y (real view, mixed route)': 'apply_y'}
 LES_KERNELS = ('mom_rk', 'fillps', 'correc_smag')
 # H100 SXM data-sheet rates: HBM
 # bytes/s and float32 / float64 FLOP/s outside the tensor cores
@@ -1159,6 +1172,7 @@ def phase_kernels(dev, card):
     rows.update(slab_twopass_rows(dev, card))
     rows.update(slab_imp3d_x_rows(dev, card))
     rows.update(slab_xy_rows(dev, card))
+    rows.update(real_view_rows(dev, card))
     return rows
 
 
@@ -2097,6 +2111,85 @@ def slab_xy_rows(dev, card):
     return rows
 
 
+def real_view_rows(dev, card):
+    """apply_y on the mixed route's real view (ptransform 'fft' with y
+    walls): the y DCT alone on the rfft's lanes, their real and imaginary
+    parts interleaved, (nz, ny, 2 (nx/2 + 1)) = REAL_VIEW_SHAPE at the
+    headline grid, against its twin (one torch.matmul, the library call
+    too) within 1e-5 of the output's maximum, float32 against the float64
+    twin within 4x the float32 twin's error; its time, the twin's, the
+    same product with the width padded to a multiple of 4 (gemm.cuh's
+    16-byte copies; 514 takes 4-byte ones), and its bound: the field read
+    and written once and the operator (bytes), 2 ny flops a lane (at the
+    3xTF32 rate).  Also the y FFT of the 'fft' route along dim 1 of the
+    (nz, ny, nx/2 + 1) spectrum and of a slab rank's lanes at dims (2, 1),
+    as it runs and through a contiguous y-last copy."""
+    from cales_torch.ops import solve_kernels as SK
+    from cales_torch.ops import transforms as tr
+    nz, ny, lanes = REAL_VIEW_SHAPE
+    row = 'apply_y (real view, mixed route)'
+    say(f'phase 2b: {row} at (nz, ny, lanes) = {REAL_VIEW_SHAPE}, float32 '
+        f'[{card}]')
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    x = torch.randn((nz, ny, lanes), generator=gen, device=dev)
+    m = torch.as_tensor(tr.make_transform('NN', 'c', ny).fwd_mat,
+                        dtype=torch.float32, device=dev)
+    got = SK.apply_y(x, m)
+    twin = SK.apply_y_plain(x, m)
+    ref = SK.apply_y_plain(x.double(), m.double())
+    scale = float(ref.abs().max())
+    rel = float((got.double() - ref).abs().max()) / scale
+    lib_rel = float((twin.double() - ref).abs().max()) / scale
+    err = float((got - twin).abs().max())
+    say(f'  {row}: max|err| against the twin {err:.3e} (max|ref| '
+        f'{scale:.3e}, bound {1e-5 * scale:.1e}); float32 against the '
+        f'float64 twin {rel:.3e}, the float32 twin {lib_rel:.3e}  [{card}]')
+    require(err <= 1e-5 * scale, f'{row}: {err:.3e} against its twin')
+    require(rel <= 4.0 * lib_rel, f'{row}: {rel:.3e} against the float64 '
+            f'twin, above 4x the float32 twin\'s {lib_rel:.3e}')
+    ms = time_ms(lambda: SK.apply_y(x, m))
+    plain_ms = time_ms(lambda: SK.apply_y_plain(x, m))
+    wide = torch.nn.functional.pad(x, (0, -lanes % 4))
+    wide_ms = time_ms(lambda: SK.apply_y(wide, m))
+    cells = nz * ny * lanes
+    nbytes = (2 * cells + ny * ny) * 4
+    flops = 2 * ny * cells
+    t_b, t_o = nbytes / PEAK_BPS * 1e3, flops / PEAK_TF32X3 * 1e3
+    out = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+               bound_ms=max(t_b, t_o),
+               bound_by='bytes' if t_b >= t_o else 'operations',
+               library_ms=plain_ms,
+               bound_simt_ms=max(t_b, flops / PEAK_FLOPS[torch.float32]
+                                 * 1e3),
+               f32_vs_f64_twin=rel, f32_twin_vs_f64_twin=lib_rel,
+               padded_width=lanes + (-lanes % 4), padded_ms=wide_ms)
+    say(f'  {row}: kernel {ms:.4f} ms, plain twin (torch.matmul) '
+        f'{plain_ms:.4f} ms, the width padded to {out["padded_width"]} '
+        f'{wide_ms:.4f} ms; bound {out["bound_ms"]:.4f} ms by '
+        f'{out["bound_by"]} (SIMT fp32 {out["bound_simt_ms"]:.4f})  '
+        f'[{card}]')
+    del x, got, twin, ref, wide
+    ffts = {}
+    for tag, nk in (('one device', lanes // 2), ('slab rank, dims (2, 1)',
+                                                 -(-(lanes // 2) // 2))):
+        c = torch.complex(torch.randn((nz, ny, nk), generator=gen,
+                                      device=dev),
+                          torch.randn((nz, ny, nk), generator=gen,
+                                      device=dev))
+        strided = time_ms(lambda: torch.fft.fft(c, dim=1))
+        moved = time_ms(lambda: torch.fft.fft(
+            c.transpose(1, 2).contiguous(), dim=-1).transpose(
+                1, 2).contiguous())
+        ffts[tag] = dict(lanes=nk, strided_ms=strided, moved_ms=moved)
+        say(f'  the y FFT of the {tag} spectrum (nz, ny, {nk}) complex64: '
+            f'along dim 1 as it lies {strided:.4f} ms, through a y-last '
+            f'copy and back {moved:.4f} ms  [{card}]')
+        del c
+    out['y_fft'] = ffts
+    torch.cuda.empty_cache()
+    return {row: out}
+
+
 def _time_row(rows, row, name, d, variant, card, cache):
     """One kernel variant on the inputs d against its twin (and, for
     F64_TWIN, its float32 error against the float64 twin, from d in
@@ -2621,6 +2714,50 @@ def phase_ywalls(dev, card):
                              Config(**CAVITY_CFG), dev, card, 5, per_step)
     print(json.dumps({'cavity': res_c}), flush=True)
     return duct, cavity, res_d, res_c
+
+
+def phase_mixed(dev, card, res_duct):
+    """Phase 8f: phase 8's dynamic-Smagorinsky duct by ptransform 'fft',
+    the mixed Poisson route (rfft along x, apply_y with the y DCT alone on
+    the real view of its lanes, the z eigen matmuls, and back), at
+    512x256x256 f32 through driver.run with phase 8's gates and exact
+    launches (apply_y 6 a step, no z_eig); its ms/step beside phase 8's
+    in this call (res_duct), and the Poisson solve alone by both routes on
+    the same RHS.  Returns its launches."""
+    from cales_torch import poisson
+    from cales_torch.config import Config
+    from cales_torch.timeloop import Simulation
+    per_step = dict(mom_rk=3, fillps=3, apply_y=6, correc_updatep=3,
+                    dsmag=3)
+    cfg = Config(**{**DUCT_CFG, 'ptransform': 'fft'})
+    sim, launches, res = drive("phase 8f: dynamic-Smagorinsky duct, 'fft' "
+                               '(the mixed route)', cfg, dev, card, 5,
+                               per_step)
+    path = sim.exec_path()
+    require('mixed route' in path, f'phase 8f: not the mixed route: {path}')
+    mat = Simulation(Config(**DUCT_CFG), sim.grid, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    rhs = torch.randn(tuple(HEADLINE_NG[::-1]), generator=gen, device=dev)
+    rhs = rhs - rhs.mean()
+    sol = {route: poisson.solve(s_.solver_p, rhs)
+           for route, s_ in (('fft', sim), ('mat', mat))}
+    diff = float(((sol['fft'] - sol['fft'].mean())
+                  - (sol['mat'] - sol['mat'].mean())).abs().max()
+                 / sol['mat'].abs().max())
+    times = {route: time_ms(lambda: poisson.solve(s_.solver_p, rhs), n=20)
+             for route, s_ in (('fft', sim), ('mat', mat))}
+    say(f'  {res["ms_per_step"]:.3f} ms/step against phase 8\'s (\'mat\') '
+        f'{res_duct["ms_per_step"]:.3f} in this call; the Poisson solve at '
+        f'{HEADLINE_NG} float32: mixed {times["fft"]:.3f} ms, mat '
+        f'{times["mat"]:.3f} ms (CUDA events), the two solutions apart by '
+        f'{diff:.3e} of the maximum after removing their means  [{card}]')
+    require(diff <= 1e-3, f'phase 8f: the routes\' solves apart by {diff}')
+    res.update(solve_ms_mixed=times['fft'], solve_ms_mat=times['mat'],
+               solve_rel_diff=diff, mat_ms_per_step=res_duct['ms_per_step'])
+    print(json.dumps({'duct_mixed': res}), flush=True)
+    del sim, mat, sol, rhs
+    torch.cuda.empty_cache()
+    return launches
 
 
 @contextlib.contextmanager
@@ -3725,11 +3862,25 @@ MESH_CLASSES = (
     ('10xs', "developing channel with a passive scalar (phase 13x's)",
      dict(XDEV_CFG, dims=(2, 1), **XDEV_SCALAR), None,
      dict(mom_rk=3, fillps=3, correc_updatep=3, apply_x=6, apply_y=6,
-          thomas_z=3), {}))
+          thomas_z=3), {}),
+    # ptransform 'fft' on the mesh (poisson._solve_fft_sharded: the rfft
+    # along x, the half spectrum's lanes through the all-to-all, the y
+    # stage and the z eigen matmuls on a rank's lanes): the LES headline
+    # (bench.py:273-279, phase 4's route; no apply_x, no apply_y) and the
+    # dsmag duct by the mixed route (apply_y with the y DCT on the lanes,
+    # phase 2b's real-view row)
+    ('10ff', "LES headline by 'fft' (bench.py channel_les_smag, phase 4)",
+     dict(LES_CFG, dims=(2, 1), **CHAN_BCS), None,
+     dict(mom_rk=3, fillps=3, correc_updatep=3, smag=3), {}),
+    ('10yf', "dsmag duct by 'fft', the mixed route (phase 8f)",
+     dict(DUCT_CFG, ptransform='fft', dims=(2, 1)), None,
+     dict(mom_rk=3, fillps=3, correc_updatep=3, dsmag=3, apply_y=6),
+     {'dsmag': 1}))
 # the classes of the second runner (a subprocess of their own, so that
 # neither runner nears its time limit)
 MESH_SECOND = ('10i3', '10t3', '10x', '10xb', '10t1', '10i3s', '10xy',
-               '10xc', '10xw', '10xs', '10xk', '10xysc')
+               '10xc', '10xw', '10xs', '10xk', '10xysc', '10ff', '10yf',
+               '10tdf', '10i3f', '10ywf')
 # the classes that run under CALES_DSMAG_TWOPASS=1 (twopass), their small
 # twin and its one-device reference too: the duct by two passes
 MESH_TWOPASS = ('10yb',)
@@ -3763,7 +3914,26 @@ MESH_SMALL_ONLY = (
      dict(XDUCT_CFG, l=(2.0, 1.0, 1.0), visci=2000.0, inivel='uni',
           dims=(2, 1), **XDUCT_SCALAR),
      dict(mom_rk=3, fillps=3, correc_updatep=3, apply_x=6, apply_y=6,
-          thomas_z=3)))
+          thomas_z=3)),
+    # ptransform 'fft' on the mesh: the box LES with dsmag 'dit', the
+    # channel DNS with full-3D implicit diffusion (the Helmholtz solves by
+    # the same route) and the wall-modelled duct by the mixed route
+    ('10tdf', "box LES, dsmag 'dit', by 'fft'",
+     dict(TRI_CFG, sgstype='dsmag', dsmag_avg='dit', ptransform='fft',
+          dims=(2, 1)),
+     dict(mom_rk=3, fillps=3, correc_updatep=3, dsmag=3)),
+    ('10i3f', "channel DNS, full-3D implicit diffusion, by 'fft'",
+     dict(DNS_CFG, impdiff_1d=False, ptransform='fft', dims=(2, 1)),
+     dict(mom_rk=3, fillps=3, correc_updatep=3)),
+    ('10ywf', "wall-modelled duct by 'fft', the mixed route",
+     dict(DUCT_WMLES_CFG, ptransform='fft', dims=(2, 1)),
+     dict(mom_rk=3, fillps=3, correc_updatep=3, smag=3, apply_y=6,
+          wallmodel=3)))
+# the small-only classes' launches outside their steps: the initial nu_t's
+# SGS kernel on a slab with walls or with dsmag, the wall model's at the
+# initial fill and the one check
+MESH_SMALL_OUTSIDE = {'10tdf': {'dsmag': 1},
+                      '10ywf': {'smag': 1, 'wallmodel': 2}}
 # the small runs' steps
 MESH_SMALL_STEPS = 2
 # the y-walled slab rows of phase 2b -> the mesh phase whose main path
@@ -4055,8 +4225,8 @@ def sharded_les_rank(out_dir, second=False):
 def sharded_les_rank_body(out_dir, second=False):
     """One rank of phases 10i, 10w, 10d, 10y, 10yc, 10ys, 10yw, 10t, 10tl,
     10td, 10s, 10ysc, 10b, 10yb, 10f and 10tf, or with second of 10i3,
-    10t3, 10x, 10xb, 10t1, 10i3s, 10xy, 10xc, 10xw, 10xs, 10xk and 10xysc
-    (MESH_SECOND) (started under
+    10t3, 10x, 10xb, 10t1, 10i3s, 10xy, 10xc, 10xw, 10xs, 10xk, 10xysc,
+    10ff, 10yf, 10tdf, 10i3f and 10ywf (MESH_SECOND) (started under
     torch.distributed.run, two ranks on the one card over gloo, staged
     through pinned host buffers): each class at the headline grid through
     driver.run with every launch count set to 0 just before and read just
@@ -4143,14 +4313,17 @@ def sharded_les_rank_body(out_dir, second=False):
 
 def _small_vs_one_device(tag, kw, small, dev):
     """A class's small f64 twin on the mesh (small: rank 0's gathered
-    fields) against the single-device 'mat' + Thomas run on the card
-    within 1e-11, p without its mean; with y walls the kept planes vlo[1]
-    and vlo[2] too, with x walls vlo[0] on the interior y rows and vlo[2]
-    (with periodic y on the interior y rows: their periodic y ghost rows
-    no fill reads).  Returns the errors by name."""
+    fields) against the single-device run on the card within 1e-11, p
+    without its mean ('mat' + Thomas for the 'mat' classes, whose mesh
+    route takes Thomas at every nz; a 'fft' class on its own route); with
+    y walls the kept planes vlo[1] and vlo[2] too, with x walls vlo[0] on
+    the interior y rows and vlo[2] (with periodic y on the interior y
+    rows: their periodic y ghost rows no fill reads).  Returns the errors
+    by name."""
     from cales_torch.grid import make_grid_from_config
     from cales_torch.timeloop import Simulation
-    cfg1 = _class_cfg(_small(kw), dims=(1, 1), zsolver='thomas')
+    route = {} if kw.get('ptransform') == 'fft' else {'zsolver': 'thomas'}
+    cfg1 = _class_cfg(_small(kw), dims=(1, 1), **route)
     sim = Simulation(cfg1, make_grid_from_config(cfg1), device=dev)
     st = sim.initial_state(*_perturbed_fields(cfg1, SEED + 5))
     for _ in range(MESH_SMALL_STEPS):
@@ -4210,9 +4383,12 @@ def phase_sharded_les(dev, card):
     energy falling over the timed steps) and exact launches,
     the channel classes' slab kernel variant against its twin, and each
     class's small f64 twin (the 'none' duct's alone, 10yn) against the
-    single-device 'mat' + Thomas run on the card within 1e-11 (with y
-    walls the kept planes too).  Returns ({key: rank 0's launches}, the
-    report rows)."""
+    single-device run on the card within 1e-11 (with y walls the kept
+    planes too); and with ptransform 'fft' (the second runner) 10ff and
+    10yf: the LES headline and the dsmag duct by the mixed route, and the
+    small f64 cases alone of 10tdf (the box LES with 'dit'), 10i3f (the
+    full-3D channel DNS) and 10ywf (the wall-modelled duct, mixed).
+    Returns ({key: rank 0's launches}, the report rows)."""
     torch.cuda.empty_cache()
     env = dict(os.environ)
     env.setdefault('GLOO_SOCKET_IFNAME', 'lo')
@@ -4373,7 +4549,8 @@ def phase_sharded_les(dev, card):
         for rk in ranks:
             r = rk[key]
             for name, n in r['launches'].items():
-                want = per_step.get(name, 0) * r['steps']
+                want = (per_step.get(name, 0) * r['steps']
+                        + MESH_SMALL_OUTSIDE.get(key, {}).get(name, 0))
                 require(n == want, f'phase {key} rank {rk["rank"]}: {name} '
                                    f'launched {n} times, want {want}')
         launches[key] = ranks[0][key]['launches']
@@ -4439,6 +4616,7 @@ def main():
     dsm, les_imp, res_dsm = phase_dsmag(dev, card)
     dsm_2d = phase_dsmag_dit(dev, card)
     duct, cavity, res_duct, res_cav = phase_ywalls(dev, card)
+    mixed = phase_mixed(dev, card, res_duct)
     two = phase_twopass(dev, card, {'channel': res_dsm, 'duct': res_duct,
                                     'cavity': res_cav})
     tgv = phase_tgv(dev, card)
@@ -4504,6 +4682,10 @@ def main():
     for row, (name, key) in SLAB_MODE_ROWS.items():
         paths[row] = (les_mesh[key], MESH_SMALL_STEPS if key in small_only
                       else MESH_LES_STEPS, name)
+    # apply_y on the mixed route's real view: on the one-device duct by
+    # 'fft' (phase 8f, 5 steps)
+    for row, name in REAL_VIEW_ROWS.items():
+        paths[row] = (mixed, 5, name)
     # the x-walled variants' on the developing channel (phase 11, 5 steps)
     # and the lid-driven cavity (phase 11b, 5 steps)
     variant_path = {'duct': duct, 'cavity': cavity, 'helmholtz3d': dns3,
@@ -4551,7 +4733,8 @@ def main():
                **{row: KERNELS[n] for row, n in HALO_ROWS.items()},
                **{row: KERNELS[n] for row, n in MESH_LES_ROWS.items()},
                **{row: KERNELS[n] for row, (n, _) in WALLED_SLAB_ROWS.items()},
-               **{row: KERNELS[n] for row, (n, _) in SLAB_MODE_ROWS.items()}}
+               **{row: KERNELS[n] for row, (n, _) in SLAB_MODE_ROWS.items()},
+               **{row: KERNELS[n] for row, n in REAL_VIEW_ROWS.items()}}
     report = {'kernels': [
         dict(name=row, route='cuda', source=sources[row][0],
              replaces=sources[row][1], launches=run[name],

@@ -91,7 +91,8 @@ def json_tuple(x):
 def case_solve(m, inp, out, key, kw, ivel=None, alpha=None):
     """The slab-sharded Poisson solve of a global RHS, or with ivel and
     alpha velocity component ivel's Helmholtz solve (I + alpha L) (the
-    full-3D CN stage's, its solver as the Simulation makes it)."""
+    full-3D CN stage's), each solver as the Simulation makes it (its
+    ptransform and zsolver the config's)."""
     from cales_torch import poisson
     from cales_torch.config import effective_cbcvel
     from cales_torch.grid import make_grid_from_config
@@ -100,12 +101,13 @@ def case_solve(m, inp, out, key, kw, ivel=None, alpha=None):
     grid = make_grid_from_config(cfg)
     if ivel is None:
         sv = poisson.make_solver(cfg, grid, tuple(cfg.cbc_pre(d) for d in
-                                                 range(3)), ('c', 'c', 'c'))
+                                                 range(3)), ('c', 'c', 'c'),
+                                 zsolver=cfg.zsolver)
     else:
         cbc = effective_cbcvel(cfg)
         sv = poisson.make_solver(cfg, grid, tuple(
             cbc[0][d][ivel] + cbc[1][d][ivel] for d in range(3)),
-            _C_OR_F[ivel])
+            _C_OR_F[ivel], zsolver=cfg.zsolver)
     rhs = torch.as_tensor(m.local(inp[f'{key}.rhs']))
     out[f'{key}.p'] = m.gather(poisson.solve_sharded(sv, rhs, m,
                                                      alpha=alpha))

@@ -6,7 +6,8 @@ Smagorinsky, the triperiodic Taylor-Green
 vortex and full-3D implicit diffusion, the wall-modelled channel LES, the
 x-walled LES: the developing channel, duct and wall-modelled channel, the
 passive scalar: mom_rk's scalar variant with z, y, x and x and y walls,
-the slab modes of the y-slab mesh)
+the slab modes of the y-slab mesh, ptransform 'fft' with y walls: the
+mixed Poisson route)
 on the card against the same slices on the CPU, step for step, fp64.
 
 These tests need an NVIDIA GPU and skip without one.  The file imports
@@ -2831,3 +2832,78 @@ def test_cuda_slab_xywalled_scalar_and_wallmodel_match_twins(dev, dtype,
     assert (K.LAUNCHES['mom_rk'], K.LAUNCHES['fillps'],
             K.LAUNCHES['correc_updatep'], K.LAUNCHES['smag'],
             K.LAUNCHES['wallmodel']) == (5, 1, 1, 1, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', ['mixed_solve', 'duct_dsmag_fft',
+                                  'duct_smag_fft'])
+def test_card_matches_cpu_fft_routes(dev, case):
+    """ptransform 'fft' with y walls (the mixed route: the rfft along x,
+    apply_y with the y DCT alone on the real view of its lanes): apply_y
+    on the ragged real-view widths 2 (nx/2 + 1) of one device and 2 nkl of
+    a slab rank (not multiples of 4: gemm.cuh's 4-byte copies), float64
+    within 1e-13 of its twin and float32 within 1e-5 and the 4x rule of
+    test_cuda_f32_gemm_on_tensor_cores; the Poisson and w's Helmholtz
+    solve on the card against the CPU within 1e-12 of their maximum; the
+    dsmag and smag duct at (32, 16, 16), f64, 3 steps: card against CPU as
+    test_card_matches_cpu_ywalled_step_for_step holds the 'mat' route."""
+    from cales_torch import poisson
+    from cales_torch.ops import transforms as tr
+    if case == 'mixed_solve':
+        ny = 12
+        m = tr.make_transform('NN', 'c', ny).fwd_mat
+        rng = np.random.default_rng(29)
+        for lanes in (2 * (36 // 2 + 1), 2 * 10):
+            x = rng.standard_normal((10, ny, lanes))
+            xs = {d: torch.as_tensor(x, dtype=d, device=dev)
+                  for d in (torch.float64, torch.float32)}
+            ms = {d: torch.as_tensor(m, dtype=d, device=dev) for d in xs}
+            _rel_close(SK.apply_y(xs[torch.float64], ms[torch.float64]),
+                       SK.apply_y_plain(xs[torch.float64],
+                                        ms[torch.float64]), 1e-13)
+            got = SK.apply_y(xs[torch.float32], ms[torch.float32])
+            ref = SK.apply_y_plain(xs[torch.float32], ms[torch.float32])
+            _rel_close(got, ref, 1e-5)
+            r64 = SK.apply_y_plain(xs[torch.float32].double(),
+                                   ms[torch.float32].double())
+            assert (float((got.double() - r64).abs().max())
+                    <= 4.0 * float((ref.double() - r64).abs().max())), lanes
+        cfg = Config(ng=(36, ny, 10), l=(4 * np.pi, 2.0, 2.0), gtype=1,
+                     gr=1.0, dtype='float64', ptransform='fft', **DUCT_BCS)
+        grid = make_grid_from_config(cfg)
+        rhs = rng.standard_normal((10, ny, 36))
+        for cbc, cf, alpha in ((('PP', 'NN', 'NN'), ('c', 'c', 'c'), None),
+                               (('PP', 'DD', 'DD'), ('c', 'c', 'f'), -0.03)):
+            sv = poisson.make_solver(cfg, grid, cbc, cf)
+            assert (sv.trx.kind, sv.try_.kind) == ('fft', 'mat')
+            got = poisson.solve(sv, torch.as_tensor(rhs, device=dev),
+                                alpha=alpha).cpu()
+            ref = poisson.solve(sv, torch.as_tensor(rhs), alpha=alpha)
+            _rel_close(got - got.mean(), ref - ref.mean(), 1e-12)
+        return
+    kw = dict(l=(4 * np.pi, 2.0, 2.0), gr=1.0, visci=10_000.0, inivel='duc',
+              is_wallturb=True, is_forced=(True, False, False),
+              velf=(1.0, 0.0, 0.0), dsmag_avg='duct',
+              sgstype='dsmag' if case == 'duct_dsmag_fft' else 'smag')
+    cfg = Config(ng=(32, 16, 16), gtype=1, dtype='float64', ptransform='fft',
+                 **DUCT_BCS, **kw)
+    grid = make_grid_from_config(cfg)
+    fields = initflow(cfg, grid)
+    sims = [Simulation(cfg, grid, device=d) for d in (dev, 'cpu')]
+    states = [s.initial_state(*fields) for s in sims]
+    dt = sims[1].pick_dt(sims[1].check(states[1])[0])
+    SK.reset_launches()
+    for _ in range(3):
+        states = [s.step(st, dt)[0] for s, st in zip(sims, states)]
+    torch.cuda.synchronize()
+    assert SK.LAUNCHES == {'apply_y': 18, 'apply_x': 0, 'z_eig': 0,
+                           'thomas_z': 0, 'thomas_periodic': 0}
+    g, c = states
+    for name, tol in (('u', 1e-11), ('v', 1e-11), ('w', 1e-11), ('p', 1e-10)):
+        a, b = getattr(g, name).cpu(), getattr(c, name)
+        if name == 'p':
+            a, b = a - a.mean(), b - b.mean()
+        assert float((a - b).abs().max()) <= tol, name
+    for m in (1, 2):
+        assert float((g.vlo[m].cpu() - c.vlo[m]).abs().max()) <= 1e-11
+    _rel_close(g.visct.cpu(), c.visct, 1e-10)

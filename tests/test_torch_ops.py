@@ -235,10 +235,16 @@ def test_transforms_match_jax(bc, c_or_f, pp_mat):
     rng = np.random.default_rng(7)
     x = rng.standard_normal((4, 6, tt.nsolve))
     fj = jtr.fwd(jt, jnp.asarray(x), axis=-1)
-    ft = ttr.fwd(tt, _t(x), axis=-1)
-    np.testing.assert_allclose(_n(ft), _n(fj), rtol=0, atol=1e-12)
     bj = jtr.bwd(jt, fj, axis=-1, n=tt.nsolve, real_out=True)
-    bt = ttr.bwd(tt, ft, axis=-1, n=tt.nsolve, real_out=True)
+    # the port applies them as its solve routes do (poisson.py): the rfft
+    # for kind 'fft', the operator matrices for kind 'mat'
+    if tt.kind == 'fft':
+        ft = torch.fft.rfft(_t(x), dim=-1)
+        bt = torch.fft.irfft(ft, n=tt.nsolve, dim=-1)
+    else:
+        ft = torch.matmul(_t(x), _t(tt.fwd_mat).T)
+        bt = torch.matmul(ft, _t(tt.bwd_mat).T)
+    np.testing.assert_allclose(_n(ft), _n(fj), rtol=0, atol=1e-12)
     np.testing.assert_allclose(_n(bt), _n(bj), rtol=0, atol=1e-12)
     np.testing.assert_allclose(_n(bt), x, rtol=0, atol=1e-12)
 
@@ -280,19 +286,27 @@ def test_poisson_solve_matches_jax_and_residual():
 
 
 def test_poisson_outside_slice_raises():
-    """Outside the slice, with or without alpha: the mixed route (an FFT
-    along x, the y-wall matrix along y) and transforms with an excluded
-    row (v face-staggered across y walls); the Poisson solve of a field
+    """Outside the slice, with or without alpha: transforms with an
+    excluded row (v face-staggered across y walls) and an FFT along y with
+    a matrix along x (x walls, periodic y); the Poisson solve of a field
     face-staggered across a z wall (qz = 1, only its Helmholtz solve
-    runs)."""
+    runs).  The mixed route (an FFT along x, the y-wall matrix along y)
+    runs: tests/test_torch_fft_ywalls.py holds it to JAX."""
     cfg = _cfg(ptransform='fft')
     grid = make_grid_from_config(cfg)
     zeros = torch.zeros(NG[::-1], dtype=torch.float64)
-    for cbc, c_or_f in ((('PP', 'NN', 'NN'), ('c', 'c', 'c')),
-                        (('PP', 'DD', 'DD'), ('c', 'f', 'c'))):
+    sv = tpoisson.make_solver(cfg, grid, ('PP', 'NN', 'NN'),
+                              ('c', 'c', 'c'))
+    assert (sv.trx.kind, sv.try_.kind) == ('fft', 'mat')
+    for alpha in (None, -0.1):
+        assert tpoisson.solve(sv, zeros, alpha=alpha).shape == zeros.shape
+    for cbc, c_or_f, match in (
+            (('PP', 'DD', 'DD'), ('c', 'f', 'c'), 'excluded rows'),
+            (('NN', 'PP', 'NN'), ('c', 'c', 'c'),
+             'an FFT along y with a matrix along x')):
         sv = tpoisson.make_solver(cfg, grid, cbc, c_or_f)
         for alpha in (None, -0.1):
-            with pytest.raises(NotImplementedError, match='mixed kinds'):
+            with pytest.raises(NotImplementedError, match=match):
                 tpoisson.solve(sv, zeros, alpha=alpha)
     sv = tpoisson.make_solver(_cfg(ptransform='mat'), grid,
                               ('PP', 'PP', 'DD'), ('c', 'c', 'f'))

@@ -343,7 +343,10 @@ def test_slab_with_cut_halos_is_the_whole_fields_rows():
      'the 2D test filter (filter_2d) with y walls'),
     (dict(sgstype='dsmag', dsmag_avg='channel', ng=(64, 2, 16)),
      "thinner than the dsmag kernel's two-row y halo"),
-    (dict(ptransform='fft'), "ptransform 'fft' under a device mesh"),
+    # 'fft' runs on the mesh with periodic x (test_torch_sharded_fft.py);
+    # there is no FFT along a walled x
+    (dict(XDEV_BCS, ptransform='fft'), "non-periodic x with ptransform "
+                                       "'fft'"),
     # the duct WMLES whose y faces sample row 16 from each wall (hwm 1.6)
     # on slabs of 16 rows
     (dict(cbcvel=((('P', 'P', 'P'), ('D', 'D', 'D'), ('D', 'D', 'D')),) * 2,
@@ -386,7 +389,17 @@ def test_mesh_slice_is_supported():
                    dict(XDUCT_BCS, sgstype='none'), XDUCT_BCS,
                    dict(XDEV_BCS, lwm=((0, 0, 1), (0, 0, 1)), hwm=0.1),
                    dict(XDEV_BCS, scalar=True),
-                   dict(XDUCT_BCS, scalar=True)):
+                   dict(XDUCT_BCS, scalar=True),
+                   # ptransform 'fft' with periodic x, and with y walls
+                   # (the mixed route)
+                   dict(ptransform='fft'),
+                   dict(ptransform='fft', impdiff=True),
+                   dict(ptransform='fft',
+                        cbcvel=((('P', 'P', 'P'), ('D', 'D', 'D'),
+                                 ('D', 'D', 'D')),) * 2,
+                        cbcpre=(('P', 'N', 'N'),) * 2,
+                        cbcsgs=(('P', 'D', 'D'),) * 2, sgstype='dsmag',
+                        dsmag_avg='duct')):
         for gy in (2, 4):
             assert unsupported(Config(**{**SMAG, **change},
                                       dims=(gy, 1))) == [], change

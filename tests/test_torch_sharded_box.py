@@ -23,9 +23,9 @@ tests/test_torch_triperiodic.py's Taylor-Green vortex (16^3, 'mat'):
     and the developing duct examples, the developing WMLES with its
     1/7-power inflow profile, the developing channel with a scalar and the
     x+y-walled scalar of tests/test_sharding_paths.py:735, at dims (2, 1)
-    and (4, 1)) and what it still refuses (ptransform 'fft'; x walls with
-    dsmag, an inflow profile with y walls, full-3D implicit diffusion
-    with y walls).
+    and (4, 1)) and what it still refuses (ptransform 'fft' with x walls;
+    x walls with dsmag, an inflow profile with y walls, full-3D implicit
+    diffusion with y walls).
 """
 import numpy as np
 import pytest
@@ -230,7 +230,10 @@ _PROFILE = np.ones((BOX['ng'][2] + 2, BOX['ng'][1] + 2))
                                  ('D', 'D', 'D')),) * 2,
           cbcpre=(('P', 'N', 'N'),) * 2, cbcsgs=(('P', 'N', 'N'),) * 2),
      'full-3D implicit diffusion with y walls'),
-    (dict(ptransform='fft'), "ptransform 'fft' under a device mesh"),
+    # 'fft' runs on the mesh with periodic x (the box's 'dit' LES,
+    # test_torch_sharded_fft.py); there is no FFT along a walled x
+    (dict(XDEV_BCS, ptransform='fft'), "non-periodic x with ptransform "
+                                       "'fft'"),
 ])
 def test_box_mesh_refusals(change, needle):
     missing = unsupported(Config(**{**BOX, **change}, dims=(2, 1)))

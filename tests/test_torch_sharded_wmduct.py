@@ -102,7 +102,9 @@ def test_wm_duct_steps_and_planes_match_one_device(tmp_path, ref, gy):
      'a sampled y row off its owning slab'),
     (dict(impdiff=True, impdiff_1d=True), 2,
      'a wall model with implicit diffusion'),
-    (dict(ptransform='fft'), 2, "ptransform 'fft' under a device mesh"),
+    # the mixed route runs on the mesh; the slab rule holds on it too
+    (dict(ptransform='fft', hwm=0.5), 4,
+     'a sampled y row off its owning slab'),
 ])
 def test_wm_duct_mesh_refusals(change, gy, needle):
     missing = unsupported(Config(**{**WMDUCT, **change}, dims=(gy, 1)))

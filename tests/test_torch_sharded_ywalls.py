@@ -120,8 +120,9 @@ _WM_DUCT = dict(DUCT, sgstype='smag', lwm=((0, 1, 1), (0, 1, 1)), hwm=0.2,
      'the 2D test filter (filter_2d) with y walls'),
     (dict(DUCT, scalar=True, impdiff=True), {},
      'full-3D implicit diffusion with y walls'),
-    (dict(DUCT, ptransform='fft'), {}, "ptransform 'fft' under a device "
-                                        'mesh'),
+    # the mixed route runs on the mesh; the thin slabs stay refused on it
+    (dict(DUCT, ptransform='fft', ng=(16, 4, 10)), {},
+     'with y walls: slabs of 1 y row'),
     (dict(DUCT, ng=(16, 4, 10)), {}, 'with y walls: slabs of 1 y row'),
 ])
 def test_mesh_refuses_what_the_walled_slab_does_not_run(monkeypatch, change,

@@ -525,7 +525,12 @@ def test_duct_state_carried_across_from_jax():
      'smag with y walls'),
     (dict(lwm=((0, 1, 0), (0, 1, 0)), hwm=0.1), 'wall model'),
     (dict(impdiff=True, impdiff_1d=True), 'impdiff with y walls'),
-    (dict(ptransform='fft'), 'mixed FFT and matrix route'),
+    # the mixed route runs (test_torch_fft_ywalls.py); with x walls there
+    # is no FFT along x
+    (dict(cbcvel=((('D', 'D', 'D'), ('D', 'D', 'D'), ('D', 'D', 'D')),) * 2,
+          cbcpre=(('N', 'N', 'N'),) * 2, cbcsgs=(('D', 'D', 'D'),) * 2,
+          is_forced=(False, False, False), ptransform='fft'),
+     "non-periodic x with ptransform 'fft'"),
     (dict(bcvel=(((0.0,) * 3, (0.0, 0.1, 0.0), (0.0,) * 3),
                  ((0.0,) * 3,) * 3)), 'non-zero v through a y wall'),
     (dict(cbcsgs=(('P', 'P', 'D'),) * 2), 'non-periodic y other than walls'),
