@@ -4,16 +4,16 @@
 
 The default device is cuda; without a card the run stops with an error.
 ``--device cpu`` runs the kernels' plain PyTorch twins instead.  A
-namelist with dims(1:2) = gy, 1 runs on a y-slab mesh of gy ranks, one
-process each:
+namelist with dims(1:2) = gy, gx runs on a mesh of gy gx ranks, one
+process each (y slabs with gx = 1, pencils with gx > 1):
 
-    python -m torch.distributed.run --nproc_per_node gy -m cales_torch \
+    python -m torch.distributed.run --nproc_per_node <gy gx> -m cales_torch \
         input.nml [--transport gloo]
 
 over NCCL, a card a rank (the default on cuda), or gloo (the default on
 the CPU; with cuda it stages the tensors through the host, so that the
-ranks can share one card).  A world size that is not gy, or NCCL with
-fewer cards than ranks, stops the run with an error.  ``--ptransform``
+ranks can share one card).  A world size that is not gy gx, or NCCL
+with fewer cards than ranks, stops the run with an error.  ``--ptransform``
 sets the Poisson solve's periodic transform, which the namelist does not
 carry ('auto' takes 'mat' on a mesh and with y walls; 'fft' takes the
 FFT along every periodic direction there too)."""

@@ -121,6 +121,20 @@ __device__ __forceinline__ T at(const T* f, const T* e, const YRows<T>& y,
 // ny come from its neighbours.
 enum YMode { Y_PERIODIC = 0, Y_WALLS = 1, Y_HALO = 2 };
 
+// The x modes of a stencil kernel: x periodic on the whole field, x walls
+// (X_WALLS: the x stacks of xcol below, u's rewrite column, the x walls'
+// van Driest), or a pencil of a 2D (gy, gx) mesh (X_HALO), whose columns -1
+// and nx come from its x neighbours (parallel/mesh.halo_x) in the x
+// stacks' form: column 0 the lower neighbour's last column, column 2 the
+// upper neighbour's first, column 1 never read (no rewrite slot), their
+// z-edge entries the corners; along y they always carry the rows -1 and
+// ny (nyc = ny + 2, row jy at jy + 1: the neighbours' rows on a slab, the
+// periodic wrap with gy = 1), so the (x +-1, y +-1) corners of mom_rk's
+// and smag's tiles arrive by the y exchange of the x halo (the JAX
+// package's _xe_pack completed by _halo_y, cales_tpu/timeloop.py:
+// 998-1015).  Nothing of a wall is read in the halo mode.
+enum XMode { X_PERIODIC = 0, X_WALLS = 1, X_HALO = 2 };
+
 // The y halo of one field on a slab: rows (nz, 2, nx) = [row -1 (the lower
 // neighbour's last row), row ny (the upper neighbour's first row)] and
 // their z-edge stack entries, the corners (3, 2, nx), ordered as the
@@ -176,11 +190,13 @@ __device__ __forceinline__ T aty(const T* f, const T* e, const YRows<T>& y,
 // take a slab's stacks with the neighbours' rows -1 and ny, nyc = ny + 2,
 // by their own offsets.)
 // Column r (0, 1, 2) at padded z kz (-1 .. nz) and row jy (-1 .. ny).
-template <int YL, typename T>
+// With XM == X_HALO (below) the stacks always carry the rows -1 and ny.
+template <int YL, int XM = X_WALLS, typename T>
 __device__ __forceinline__ const T* xcol(const YRows<T>& x, int kz, int r,
                                          int jy, int nz, int ny) {
-  const int nyc = YL == Y_WALLS ? ny + 2 : ny;
-  const int jj = YL == Y_WALLS ? jy + 1
+  constexpr bool pad = YL == Y_WALLS || XM == X_HALO;
+  const int nyc = pad ? ny + 2 : ny;
+  const int jj = pad ? jy + 1
                  : jy < 0       ? jy + ny
                  : jy >= ny     ? jy - ny
                                 : jy;

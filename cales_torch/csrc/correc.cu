@@ -18,7 +18,7 @@
 // there, as in the reference's padded sweep (pallas_kernels.py:1557-1563).
 // The halo variant (a slab of a y-sharded mesh, cales_tpu _correc_sharded)
 // reads pp's rows -1 and ny from its halo; v's last row is the slab's own.
-// The x-walled variant (XW, with periodic y or y walls, and on a slab
+// The x-walled variant (X_WALLS, with periodic y or y walls, and on a slab
 // with the halo variant) reads pp's x ghost columns from its x stack and
 // u's wall face (interior column nx-1) from u's prediction-fill x stack,
 // the set_bc rewrite, where the TPU kernel reads its xe bundle and the
@@ -26,6 +26,10 @@
 // first and last column's cells, patched in place.  pp's x ghosts are
 // read in the cell's own row only, so on a slab the stacks hold the
 // slab's rows and no corner of a halo row is read.
+// The x-halo variant (X_HALO, a pencil of a 2D mesh, with the y halo
+// variant or periodic y) reads pp's columns -1 and nx from its x halo
+// stack (common.cuh XMode), in the cell's own row; u's last column is
+// its own (no wall face, no rewrite read).
 //
 // Bound on the H100: memory.  About 8 field streams per call (read u, v,
 // w, pp, p; write u, v, w, p): 1.07 GB at 512x256x256 f32, a 0.32 ms
@@ -37,12 +41,12 @@ namespace cales {
 
 // The f32 halo variant holds to the 8 blocks an SM that the plain one
 // reaches with its 32 registers (its edge-row path would take 46).  The
-// others, the x-walled halo variant among them, take 0, no minimum, as a
-// bare __launch_bounds__(CALES_THREADS): a minimum of 1 makes ptxas spend
-// registers (the f32 plain variant 32 -> 47).
-template <typename T, int YM, bool XW>
+// others, the x-walled and x-halo variants among them, take 0, no
+// minimum, as a bare __launch_bounds__(CALES_THREADS): a minimum of 1
+// makes ptxas spend registers (the f32 plain variant 32 -> 47).
+template <typename T, int YM, int XM>
 __global__ void __launch_bounds__(
-    CALES_THREADS, YM == Y_HALO && !XW && sizeof(T) == 4 ? 8 : 0)
+    CALES_THREADS, YM == Y_HALO && XM == X_PERIODIC && sizeof(T) == 4 ? 8 : 0)
     correc_kernel(
     const T* __restrict__ u, const T* __restrict__ v, const T* __restrict__ w,
     const T* __restrict__ pp, const T* __restrict__ p,
@@ -68,12 +72,12 @@ __global__ void __launch_bounds__(
     constexpr int Y = decltype(ytag)::value;
 #define PP(dk, dj, di) aty<Y>(pp, ppe, ypp, c, dk, dj, di)
     // pp at x offset di = +-1 in this cell's row; with x walls columns
-    // -1 and nx from pp's x stack
+    // -1 and nx from pp's x stack, on a pencil from its x halo
     auto ppx = [&](int di) {
-      if (XW) {
+      if (XM != X_PERIODIC) {
         const int ix = c.i + di;
         if (ix < 0 || ix >= nx)
-          return __ldg(xcol<YM>(xpp, k, ix < 0 ? 0 : 2, c.j, nz, ny));
+          return __ldg(xcol<YM, XM>(xpp, k, ix < 0 ? 0 : 2, c.j, nz, ny));
       }
       return PP(0, 0, di);
     };
@@ -85,8 +89,9 @@ __global__ void __launch_bounds__(
                       ? yvr[(static_cast<int64_t>(k) * 3 + 1) * nx + c.i]
                       : v[o];
     // u's wall face at x walls: the prediction fill's rewrite column
-    const T uin =
-        (XW && c.i == nx - 1) ? __ldg(xcol<YM>(xu, k, 1, c.j, nz, ny)) : u[o];
+    const T uin = (XM == X_WALLS && c.i == nx - 1)
+                      ? __ldg(xcol<YM>(xu, k, 1, c.j, nz, ny))
+                      : u[o];
     uo[o] = fu + uin - cx * (ppi - ppc);
     vo[o] = fv + vin - cy * (PP(0, 1, 0) - ppc);
     wo[o] = at(w, we, c, 0, 0, 0) - dtrk * dzci_c * (ppk - ppc);
@@ -120,7 +125,9 @@ __global__ void __launch_bounds__(
 // yppc are pp's halo rows and corners on a slab, and yvr is null.  xppr,
 // xppc, xur, xuc: pp's x stack and corners and u's prediction-fill ones
 // (x walls; nyc = ny + 2 with y walls, ny with periodic y and on a slab),
-// all four null with periodic x.
+// all four null with periodic x.  xhalo: xppr, xppc are pp's x halo
+// stack and corners on a pencil (nyc = ny + 2; with periodic y or the y
+// halo), xur and xuc null.
 template <typename T>
 int launch_correc(const T* u, const T* v, const T* w, const T* pp,
                   const T* p, const T* we, const T* ppe, const T* dzci,
@@ -128,21 +135,30 @@ int launch_correc(const T* u, const T* v, const T* w, const T* pp,
                   const T* yppr, const T* yppc, const T* yvr,
                   const T* xppr, const T* xppc, const T* xur,
                   const T* xuc, int nz, int ny, int nx, int halo,
-                  int impdiff, int impdiff_1d, double dtrk, double dxi,
-                  double dyi, double alpha, void* stream) {
+                  int xhalo, int impdiff, int impdiff_1d, double dtrk,
+                  double dxi, double dyi, double alpha, void* stream) {
   const bool ys = yppr != nullptr;
   const bool xw = xppr != nullptr;
+  // the x stacks of u go with pp's at x walls, never in the halo mode
+  const bool with_xu = xw && !xhalo;
   if (ys != (yppc != nullptr) || (halo && !ys) ||
       (yvr != nullptr) != (ys && !halo) || xw != (xppc != nullptr) ||
-      xw != (xur != nullptr) || xw != (xuc != nullptr))
+      with_xu != (xur != nullptr) || with_xu != (xuc != nullptr) ||
+      (xhalo && (!xw || (ys && !halo))))
     return static_cast<int>(cudaErrorInvalidValue);
   const YRows<T> ypp{yppr, yppc}, xpp{xppr, xppc}, xu{xur, xuc};
-  auto kern = !ys    ? (xw ? &correc_kernel<T, Y_PERIODIC, true>
-                           : &correc_kernel<T, Y_PERIODIC, false>)
-              : halo ? (xw ? &correc_kernel<T, Y_HALO, true>
-                           : &correc_kernel<T, Y_HALO, false>)
-              : xw   ? &correc_kernel<T, Y_WALLS, true>
-                     : &correc_kernel<T, Y_WALLS, false>;
+  using K = void (*)(const T*, const T*, const T*, const T*, const T*,
+                     const T*, const T*, const T*, const T*, const T*, T*,
+                     T*, T*, T*, YRows<T>, const T*, YRows<T>, YRows<T>,
+                     int, int, int, int, int, T, T, T, T, T, T);
+  const K kern = xhalo ? (halo ? &correc_kernel<T, Y_HALO, X_HALO>
+                               : &correc_kernel<T, Y_PERIODIC, X_HALO>)
+                 : !ys  ? (xw ? &correc_kernel<T, Y_PERIODIC, X_WALLS>
+                              : &correc_kernel<T, Y_PERIODIC, X_PERIODIC>)
+                 : halo ? (xw ? &correc_kernel<T, Y_HALO, X_WALLS>
+                              : &correc_kernel<T, Y_HALO, X_PERIODIC>)
+                 : xw   ? &correc_kernel<T, Y_WALLS, X_WALLS>
+                        : &correc_kernel<T, Y_WALLS, X_PERIODIC>;
   kern<<<plane_grid(nz, ny, nx), CALES_THREADS, 0,
          static_cast<cudaStream_t>(stream)>>>(
       u, v, w, pp, p, we, ppe, dzci, dzfi, fuv, uo, vo, wo, po, ypp, yvr,
@@ -160,11 +176,11 @@ int launch_correc(const T* u, const T* v, const T* w, const T* pp,
                       T* po, const T* yppr, const T* yppc, const T* yvr,     \
                       const T* xppr, const T* xppc, const T* xur,            \
                       const T* xuc, int nz, int ny, int nx, int halo,        \
-                      int impdiff, int impdiff_1d, double dtrk, double dxi,  \
-                      double dyi, double alpha, void* stream) {              \
+                      int xhalo, int impdiff, int impdiff_1d, double dtrk,   \
+                      double dxi, double dyi, double alpha, void* stream) {  \
     return cales::launch_correc<T>(u, v, w, pp, p, we, ppe, dzci, dzfi, fuv, \
                                    uo, vo, wo, po, yppr, yppc, yvr, xppr,    \
-                                   xppc, xur, xuc, nz, ny, nx, halo,         \
+                                   xppc, xur, xuc, nz, ny, nx, halo, xhalo,  \
                                    impdiff, impdiff_1d, dtrk, dxi, dyi,      \
                                    alpha, stream);                           \
   }

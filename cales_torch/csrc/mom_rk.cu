@@ -21,7 +21,8 @@
 //          emits the Crank-Nicolson RHS u + 1/2 f12 rud directly, while the
 //          forcing sums measure the full prediction u + f12 rud
 //          (pallas_kernels.py:671-684);
-//   XW     x walls (the developing channel, the closed box, the lid-driven
+//   XM     the x mode (common.cuh XMode): periodic; X_WALLS, x walls
+//          (the developing channel, the closed box, the lid-driven
 //          cavity and the developing duct, and their LES; with or without
 //          visct, with YM periodic, y walls or a slab, and with SPLIT 1
 //          and YM periodic or a slab): the tile's halo columns -1 and nx
@@ -33,7 +34,12 @@
 //          (cales_tpu timeloop.py:169-183, 1883-1924).  Only the first
 //          and last tile column of blocks have such cells, and a cell's
 //          source is found once, so the loads of every other block are
-//          those of the periodic variant;
+//          those of the periodic variant; or X_HALO, a pencil of a 2D
+//          (gy, gx) mesh (the channel classes with gx > 1; with nu_t or
+//          without, split 0 or 1, YM periodic or a slab): the same loads
+//          from the x halo stacks, which always carry the rows -1 and ny
+//          (the JAX package's _xe_pack bundles completed by the y halo,
+//          cales_tpu/timeloop.py:998-1015);
 //   SCAL   the passive scalar (its own C entry, cales_mom_rk_scal_*; the
 //          TPU kernel's has_scal stream, pallas_kernels.py:497-499,
 //          661-667): one more cell-centred field in the ring, loaded as p
@@ -46,7 +52,7 @@
 //          rk.f90:123-195); periodic y, y walls, or a slab of the y-slab
 //          mesh (Y_HALO, with each split: the scalar's halo rows -1 and
 //          ny read as the velocity's, the TPU kernel's scalar window on the
-//          y strips, cales_tpu/timeloop.py:1943-2078; with XW explicit or
+//          y strips, cales_tpu/timeloop.py:1943-2078; with X_WALLS explicit or
 //          split 1, its x stack carrying the neighbours' rows -1 and ny as
 //          the velocity's, the scalar's xe columns in the y-sharded xe
 //          bundle, cales_tpu timeloop.py:160-199).
@@ -175,7 +181,7 @@ __device__ __forceinline__ const T* ystack(const YRows<T>& y, int kz,
   return YM == Y_WALLS ? yrow(y, kz, 0, nz, nx) : hrow(y, kz, 0, nz, nx);
 }
 
-template <typename T, bool SGS, int SPLIT, int YM, bool XW, bool SCAL>
+template <typename T, bool SGS, int SPLIT, int YM, int XM, bool SCAL>
 __global__ void __launch_bounds__(MrGeo<MomTy<T>::TY>::NT)
     mom_rk_kernel(CALES_MOM_RK_PARAMS) {
   constexpr int TY = MomTy<T>::TY;
@@ -201,8 +207,10 @@ __global__ void __launch_bounds__(MrGeo<MomTy<T>::TY>::NT)
   // y-row stack or halo (< 0), or with x walls in its x stack (ox[i]); x
   // and y wrapped
   constexpr int NC = (CPL + NT - 1) / NT;
-  // the x stacks carry the rows -1 and ny with y walls and on a slab
-  constexpr int NYC_PAD = YM != Y_PERIODIC ? 2 : 0;
+  constexpr bool XW = XM != X_PERIODIC;
+  // the x stacks carry the rows -1 and ny with y walls and on a slab,
+  // the x halos always
+  constexpr int NYC_PAD = YM != Y_PERIODIC || XM == X_HALO ? 2 : 0;
   int oc[NC];
   bool ox[NC];
 #pragma unroll
@@ -213,7 +221,7 @@ __global__ void __launch_bounds__(MrGeo<MomTy<T>::TY>::NT)
     if (XW && ox[i]) {
       // column 0 (x = -1) or 2 (x = nx); rows past ny (a ragged last
       // tile's, never read) take row ny's
-      const int jj = YM != Y_PERIODIC ? min(gy, ny) + 1 : wrap_near(gy, ny);
+      const int jj = NYC_PAD ? min(gy, ny) + 1 : wrap_near(gy, ny);
       oc[i] = ~((gx < 0 ? 0 : 2) * (ny + NYC_PAD) + jj);
       continue;
     }
@@ -568,22 +576,35 @@ using MomKernel = void (*)(const T*, const T*, const T*, const T*, const T*,
 
 template <typename T, bool SGS, int SPLIT>
 MomKernel<T> pick_mom_rk(int ym) {
-  return ym == Y_HALO ? &mom_rk_kernel<T, SGS, SPLIT, Y_HALO, false, false>
-         : ym == Y_WALLS
-             ? &mom_rk_kernel<T, SGS, SPLIT, Y_WALLS, false, false>
-             : &mom_rk_kernel<T, SGS, SPLIT, Y_PERIODIC, false, false>;
+  constexpr int XP = X_PERIODIC;
+  return ym == Y_HALO    ? &mom_rk_kernel<T, SGS, SPLIT, Y_HALO, XP, false>
+         : ym == Y_WALLS ? &mom_rk_kernel<T, SGS, SPLIT, Y_WALLS, XP, false>
+                         : &mom_rk_kernel<T, SGS, SPLIT, Y_PERIODIC, XP, false>;
 }
 
 // the x-walled variants: explicit with periodic y or y walls, split '1d'
 // with periodic y; on a slab of the y-slab mesh explicit or split '1d'
 template <typename T, bool SGS>
 MomKernel<T> pick_mom_rk_xw(int ym, int split) {
+  constexpr int XW = X_WALLS;
   if (ym == Y_HALO)
-    return split == 1 ? &mom_rk_kernel<T, SGS, 1, Y_HALO, true, false>
-                      : &mom_rk_kernel<T, SGS, 0, Y_HALO, true, false>;
-  return split == 1 ? &mom_rk_kernel<T, SGS, 1, Y_PERIODIC, true, false>
-         : ym == Y_WALLS ? &mom_rk_kernel<T, SGS, 0, Y_WALLS, true, false>
-                         : &mom_rk_kernel<T, SGS, 0, Y_PERIODIC, true, false>;
+    return split == 1 ? &mom_rk_kernel<T, SGS, 1, Y_HALO, XW, false>
+                      : &mom_rk_kernel<T, SGS, 0, Y_HALO, XW, false>;
+  return split == 1      ? &mom_rk_kernel<T, SGS, 1, Y_PERIODIC, XW, false>
+         : ym == Y_WALLS ? &mom_rk_kernel<T, SGS, 0, Y_WALLS, XW, false>
+                         : &mom_rk_kernel<T, SGS, 0, Y_PERIODIC, XW, false>;
+}
+
+// the x-halo variants (a pencil of a 2D mesh): explicit or split '1d', on
+// a slab of the mesh's y rows or with periodic y (gy = 1)
+template <typename T, bool SGS>
+MomKernel<T> pick_mom_rk_xh(int ym, int split) {
+  constexpr int XH = X_HALO;
+  if (ym == Y_HALO)
+    return split == 1 ? &mom_rk_kernel<T, SGS, 1, Y_HALO, XH, false>
+                      : &mom_rk_kernel<T, SGS, 0, Y_HALO, XH, false>;
+  return split == 1 ? &mom_rk_kernel<T, SGS, 1, Y_PERIODIC, XH, false>
+                    : &mom_rk_kernel<T, SGS, 0, Y_PERIODIC, XH, false>;
 }
 
 // the scalar variants, what the slice runs with a scalar: periodic y with
@@ -592,21 +613,22 @@ MomKernel<T> pick_mom_rk_xw(int ym, int split) {
 // with each split
 template <typename T, bool SGS>
 MomKernel<T> pick_mom_rk_scal(int ym, int split, bool xw) {
+  constexpr int XP = X_PERIODIC, XW = X_WALLS;
   if (xw && ym == Y_HALO)
-    return split == 1 ? &mom_rk_kernel<T, SGS, 1, Y_HALO, true, true>
-                      : &mom_rk_kernel<T, SGS, 0, Y_HALO, true, true>;
+    return split == 1 ? &mom_rk_kernel<T, SGS, 1, Y_HALO, XW, true>
+                      : &mom_rk_kernel<T, SGS, 0, Y_HALO, XW, true>;
   if (xw)
-    return split == 1 ? &mom_rk_kernel<T, SGS, 1, Y_PERIODIC, true, true>
-           : ym == Y_WALLS ? &mom_rk_kernel<T, SGS, 0, Y_WALLS, true, true>
-                           : &mom_rk_kernel<T, SGS, 0, Y_PERIODIC, true, true>;
+    return split == 1      ? &mom_rk_kernel<T, SGS, 1, Y_PERIODIC, XW, true>
+           : ym == Y_WALLS ? &mom_rk_kernel<T, SGS, 0, Y_WALLS, XW, true>
+                           : &mom_rk_kernel<T, SGS, 0, Y_PERIODIC, XW, true>;
   if (ym == Y_HALO)
-    return split == 2   ? &mom_rk_kernel<T, SGS, 2, Y_HALO, false, true>
-           : split == 1 ? &mom_rk_kernel<T, SGS, 1, Y_HALO, false, true>
-                        : &mom_rk_kernel<T, SGS, 0, Y_HALO, false, true>;
-  if (ym == Y_WALLS) return &mom_rk_kernel<T, SGS, 0, Y_WALLS, false, true>;
-  return split == 2   ? &mom_rk_kernel<T, SGS, 2, Y_PERIODIC, false, true>
-         : split == 1 ? &mom_rk_kernel<T, SGS, 1, Y_PERIODIC, false, true>
-                      : &mom_rk_kernel<T, SGS, 0, Y_PERIODIC, false, true>;
+    return split == 2   ? &mom_rk_kernel<T, SGS, 2, Y_HALO, XP, true>
+           : split == 1 ? &mom_rk_kernel<T, SGS, 1, Y_HALO, XP, true>
+                        : &mom_rk_kernel<T, SGS, 0, Y_HALO, XP, true>;
+  if (ym == Y_WALLS) return &mom_rk_kernel<T, SGS, 0, Y_WALLS, XP, true>;
+  return split == 2   ? &mom_rk_kernel<T, SGS, 2, Y_PERIODIC, XP, true>
+         : split == 1 ? &mom_rk_kernel<T, SGS, 1, Y_PERIODIC, XP, true>
+                      : &mom_rk_kernel<T, SGS, 0, Y_PERIODIC, XP, true>;
 }
 
 // y: the y-row stacks and corners of u, v, w, visct, p, in that order (10
@@ -616,8 +638,10 @@ MomKernel<T> pick_mom_rk_scal(int ym, int split, bool xw) {
 // fields (10 pointers, all null with periodic x; visct's null without
 // visct; nyc = ny + 2 with y walls and on a slab, whose stacks carry the
 // rows -1 and ny; x walls run with split 0 or, with periodic y or on a
-// slab, 1).  sc: the passive scalar (the SCAL variants), or null: its
-// field, edge stack and outputs set, its previous RHS with ruo, its y-row
+// slab, 1); with xhalo set they are a pencil's x halo stacks (nyc = ny +
+// 2; split 0 or 1, periodic y or a slab, no scalar).  sc: the passive
+// scalar (the SCAL variants), or null: its field, edge stack and outputs
+// set, its previous RHS with ruo, its y-row
 // and x stack pairs with the velocity's (on a slab its halo pair, with
 // any split, and with x walls its x stack pair with the neighbours' rows
 // as the velocity's).
@@ -627,7 +651,8 @@ int launch_mom_rk(const T* u, const T* v, const T* w, const T* s, const T* p,
                   const T* pe, const T* ruo, const T* rvo, const T* rwo,
                   const T* dzci, const T* dzfi, T* uo, T* vo, T* wo, T* ru,
                   T* rv, T* rw, T* usum, T* vsum, const T* const* y, int nz,
-                  int ny, int nx, int split, int halo, double f1, double f2,
+                  int ny, int nx, int split, int halo, int xhalo,
+                  double f1, double f2,
                   double visc, double dxi, double dyi, double bfx,
                   double bfy, double bfz, const ScalArgs<T>* sc,
                   void* stream) {
@@ -650,7 +675,8 @@ int launch_mom_rk(const T* u, const T* v, const T* w, const T* s, const T* p,
       ys{y[6], y[7]}, yp{y[8], y[9]}, xu{y[10], y[11]}, xv{y[12], y[13]},
       xw_{y[14], y[15]}, xs{y[16], y[17]}, xp{y[18], y[19]};
   if (split < 0 || split > 2 || (halo && !yw) ||
-      (xw && (split == 2 || (split == 1 && yw && !halo))))
+      (xw && (split == 2 || (split == 1 && yw && !halo))) ||
+      (xhalo && (!xw || sc != nullptr || (yw && !halo))))
     return static_cast<int>(cudaErrorInvalidValue);
   const int ym = !yw ? Y_PERIODIC : halo ? Y_HALO : Y_WALLS;
   // y walls with the scalar run explicit
@@ -659,6 +685,8 @@ int launch_mom_rk(const T* u, const T* v, const T* w, const T* s, const T* p,
   const MomKernel<T> kern =
       sc != nullptr ? (sgs ? pick_mom_rk_scal<T, true>(ym, split, xw)
                            : pick_mom_rk_scal<T, false>(ym, split, xw))
+      : xhalo ? (sgs ? pick_mom_rk_xh<T, true>(ym, split)
+                     : pick_mom_rk_xh<T, false>(ym, split))
       : xw ? (sgs ? pick_mom_rk_xw<T, true>(ym, split)
                   : pick_mom_rk_xw<T, false>(ym, split))
       : sgs ? (split == 2   ? pick_mom_rk<T, true, 2>(ym)
@@ -699,16 +727,16 @@ int launch_mom_rk(const T* u, const T* v, const T* w, const T* s, const T* p,
       const T* ypr, const T* ypc, const T* xur, const T* xuc, const T* xvr,   \
       const T* xvc, const T* xwr, const T* xwc, const T* xsr, const T* xsc,   \
       const T* xpr, const T* xpc, int nz, int ny, int nx, int split,          \
-      int halo, double f1, double f2, double visc, double dxi, double dyi,    \
-      double bfx, double bfy, double bfz, void* stream) {                     \
+      int halo, int xhalo, double f1, double f2, double visc, double dxi,     \
+      double dyi, double bfx, double bfy, double bfz, void* stream) {         \
     const T* const y[20] = {yur, yuc, yvr, yvc, ywr, ywc, ysr, ysc, ypr,      \
                             ypc, xur, xuc, xvr, xvc, xwr, xwc, xsr, xsc,      \
                             xpr, xpc};                                        \
     return cales::launch_mom_rk<T>(u, v, w, s, p, ue, ve, we, se, pe, ruo,    \
                                    rvo, rwo, dzci, dzfi, uo, vo, wo, ru, rv,  \
                                    rw, usum, vsum, y, nz, ny, nx, split,      \
-                                   halo, f1, f2, visc, dxi, dyi, bfx, bfy,    \
-                                   bfz, nullptr, stream);                     \
+                                   halo, xhalo, f1, f2, visc, dxi, dyi, bfx,  \
+                                   bfy, bfz, nullptr, stream);                \
   }
 
 CALES_MOM_RK_ENTRY(cales_mom_rk_f32, float)
@@ -732,9 +760,9 @@ CALES_MOM_RK_ENTRY(cales_mom_rk_f64, double)
       const T* xpr, const T* xpc, const T* sca, const T* scae,                \
       const T* rso, T* so, T* rs, const T* ycr, const T* ycc,                 \
       const T* xcr, const T* xcc, int nz, int ny, int nx, int split,          \
-      int halo, double f1, double f2, double visc, double dxi, double dyi,    \
-      double bfx, double bfy, double bfz, double alpha, double ssource,       \
-      void* stream) {                                                         \
+      int halo, int xhalo, double f1, double f2, double visc, double dxi,     \
+      double dyi, double bfx, double bfy, double bfz, double alpha,           \
+      double ssource, void* stream) {                                         \
     const T* const y[20] = {yur, yuc, yvr, yvc, ywr, ywc, ysr, ysc, ypr,      \
                             ypc, xur, xuc, xvr, xvc, xwr, xwc, xsr, xsc,      \
                             xpr, xpc};                                        \
@@ -744,8 +772,8 @@ CALES_MOM_RK_ENTRY(cales_mom_rk_f64, double)
     return cales::launch_mom_rk<T>(u, v, w, s, p, ue, ve, we, se, pe, ruo,    \
                                    rvo, rwo, dzci, dzfi, uo, vo, wo, ru, rv,  \
                                    rw, usum, vsum, y, nz, ny, nx, split,      \
-                                   halo, f1, f2, visc, dxi, dyi, bfx, bfy,    \
-                                   bfz, &sc, stream);                         \
+                                   halo, xhalo, f1, f2, visc, dxi, dyi, bfx,  \
+                                   bfy, bfz, &sc, stream);                    \
   }
 
 CALES_MOM_RK_SCAL_ENTRY(cales_mom_rk_scal_f32, float)

@@ -23,7 +23,7 @@
 // step) unless a z wall is strictly nearer (the running minimum over
 // y-lo, y-hi, z-lo, z-hi of sgs.f90:104-146, the first minimum winning).
 //
-// The x-wall variant (XW, the developing channel, box and duct LES, with
+// The x-wall variant (X_WALLS, the developing channel, box and duct LES, with
 // periodic y or y walls, and the developing channel LES on a slab of the
 // y-slab mesh, whose x stacks carry the neighbours' rows -1 and ny; the
 // port's choice: the JAX package runs static Smagorinsky with x walls
@@ -31,12 +31,19 @@
 // x walls) reads the tile's halo columns -1 and nx of u, v, w from their
 // x stacks as a plane is loaded (common.cuh xcol; the stacks carry the
 // wall model's 'E' corners where the caller extrapolated them,
-// sgs.extrapolate_stacks), as mom_rk's XW does, and
+// sgs.extrapolate_stacks), as mom_rk's X_WALLS does, and
 // damps with the nearest wall in the order x, y, z: an x face whose u is
 // 'D' is a wall (an inflow face too, sgs.f90:76-81), its distance along x
 // per column and its (nz, ny) shear plane read at the cell; a later wall
 // serves a cell only where it is strictly nearer (the running minimum
 // over all six faces).
+//
+// The x-halo variant (X_HALO, a pencil of a 2D mesh, with the y halo
+// variant or periodic y) reads the tile's halo columns -1 and nx from the
+// x halo stacks (common.cuh XMode: they carry the rows -1 and ny, the
+// corners where the y halo rows meet the x halo columns) as the x-wall
+// variant reads its x stacks, and damps with the z walls only: no x
+// wall's distance or shear plane is read.
 //
 // Design: a z-march through shared memory, as correc_smag.cu's without
 // the correction.  The strain rate at a cell reads 30 values around it: u
@@ -111,7 +118,7 @@ struct SmGeo {
   static constexpr int MINB = sizeof(T) == 4 ? 1024 / NT : 2;
 };
 
-template <typename T, int YM, bool XW>
+template <typename T, int YM, int XM>
 __global__ void __launch_bounds__(SmGeo<T>::NT, SmGeo<T>::MINB)
     smag_kernel(
     const T* __restrict__ u, const T* __restrict__ v, const T* __restrict__ w,
@@ -146,21 +153,23 @@ __global__ void __launch_bounds__(SmGeo<T>::NT, SmGeo<T>::MINB)
   // each in its plane of the field (>= 0), or ~ its offset in the plane's
   // halo (< 0, on a slab) or y-row stack (< 0, y walls: rows -1, ny-1 and
   // ny, and the ragged tile's rows past ny as row ny), or with x walls in
-  // its x stack (ox[i]); x and y wrapped
+  // its x stack or x halo (ox[i]); x and y wrapped
   constexpr int NC = (CPL + NT - 1) / NT;
-  // the x stacks carry the rows -1 and ny with y walls and on a slab
-  constexpr int NYC_PAD = YM != Y_PERIODIC ? 2 : 0;
+  constexpr bool XS = XM != X_PERIODIC;
+  // the x stacks carry the rows -1 and ny with y walls and on a slab,
+  // the x halos always
+  constexpr int NYC_PAD = YM != Y_PERIODIC || XM == X_HALO ? 2 : 0;
   int oc[NC];
   bool ox[NC];
 #pragma unroll
   for (int i = 0; i < NC; ++i) {
     const int e = tid + i * NT, ly = e / SM_CX, lx = e - ly * SM_CX;
     const int gy = y0 - 1 + ly, wx = wrap_near(x0 - 1 + lx, nx);
-    ox[i] = XW && (x0 - 1 + lx == -1 || x0 - 1 + lx == nx);
-    if (XW && ox[i]) {
+    ox[i] = XS && (x0 - 1 + lx == -1 || x0 - 1 + lx == nx);
+    if (XS && ox[i]) {
       // column 0 (x = -1) or 2 (x = nx); rows past ny (a ragged last
       // tile's, never stored) take row ny's
-      const int jj = YM != Y_PERIODIC ? min(gy, ny) + 1 : wrap_near(gy, ny);
+      const int jj = NYC_PAD ? min(gy, ny) + 1 : wrap_near(gy, ny);
       oc[i] = ~((x0 - 1 + lx < 0 ? 0 : 2) * (ny + NYC_PAD) + jj);
       continue;
     }
@@ -191,7 +200,7 @@ __global__ void __launch_bounds__(SmGeo<T>::NT, SmGeo<T>::MINB)
       }
       // the x stacks' column 0 of plane kz
       const T* xb[3] = {nullptr, nullptr, nullptr};
-      if (XW) {
+      if (XS) {
         const int nyc = ny + NYC_PAD;
         xb[0] = yrow(xu, kz, 0, nz, nyc);
         xb[1] = yrow(xv, kz, 0, nz, nyc);
@@ -206,7 +215,7 @@ __global__ void __launch_bounds__(SmGeo<T>::NT, SmGeo<T>::MINB)
 #pragma unroll
         for (int f = 0; f < 3; ++f)
           cp_async(dst + f * CPL + e,
-                   o >= 0 ? fb[f] + o : (XW && ox[i] ? xb[f] : yb[f]) + ~o);
+                   o >= 0 ? fb[f] + o : (XS && ox[i] ? xb[f] : yb[f]) + ~o);
       }
     }
     cp_async_commit();
@@ -242,7 +251,7 @@ __global__ void __launch_bounds__(SmGeo<T>::NT, SmGeo<T>::MINB)
   // plane (nz, ny), read at the cell each step
   T dxw = T(0);
   const T* tx_w = nullptr;
-  if (XW && dwx != nullptr && x0 + tx < nx) {
+  if (XM == X_WALLS && dwx != nullptr && x0 + tx < nx) {
     dxw = dwx[x0 + tx];
     tx_w = (nearxlo[x0 + tx] > T(0.5) ? tauw_xlo : tauw_xhi) + y0 + ty;
   }
@@ -317,13 +326,15 @@ int launch_smag(const T* u, const T* v, const T* w, const T* ue, const T* ve,
                 const T* tauw_ylo, const T* tauw_yhi, const T* dwx,
                 const T* nearxlo, const T* tauw_xlo, const T* tauw_xhi,
                 T* so, const T* const* h, const T* const* x, int nz, int ny,
-                int nx, int ymode, int have_zwalls, double dxi, double dyi,
-                double visc, void* stream) {
+                int nx, int ymode, int xhalo, int have_zwalls, double dxi,
+                double dyi, double visc, void* stream) {
   // ymode: Y_PERIODIC, Y_WALLS (h the y-row stacks, and the y walls' van
   // Driest inputs) or Y_HALO (h the halos); x the x stacks of u, v, w
   // with x walls (periodic y, y walls or a slab; nyc = ny + 2 with y
   // walls and on a slab), all null with periodic x, and the x walls' van
-  // Driest inputs, all null where no x face is a wall
+  // Driest inputs, all null where no x face is a wall; with xhalo x the x
+  // halo stacks of a pencil (nyc = ny + 2; periodic y or Y_HALO), no x
+  // wall's inputs
   const bool rows = ymode != Y_PERIODIC;
   const bool xw = x[0] != nullptr;
   for (int m = 0; m < 6; ++m)
@@ -334,19 +345,23 @@ int launch_smag(const T* u, const T* v, const T* w, const T* ue, const T* ve,
     return static_cast<int>(cudaErrorInvalidValue);
   const bool xd = dwx != nullptr;
   if ((xd && !xw) || xd != (nearxlo != nullptr) ||
-      xd != (tauw_xlo != nullptr) || xd != (tauw_xhi != nullptr))
+      xd != (tauw_xlo != nullptr) || xd != (tauw_xhi != nullptr) ||
+      (xhalo && (!xw || xd || ymode == Y_WALLS)))
     return static_cast<int>(cudaErrorInvalidValue);
   const YRows<T> hu{h[0], h[1]}, hv{h[2], h[3]}, hw{h[4], h[5]};
   const YRows<T> xu{x[0], x[1]}, xv{x[2], x[3]}, xw_{x[4], x[5]};
   using G = SmGeo<T>;
   constexpr int TY = G::TY;
   const size_t smem = sizeof(T) * SM_RING * 3 * G::CPL;
-  auto kern = xw ? (ymode == Y_WALLS  ? &smag_kernel<T, Y_WALLS, true>
-                    : ymode == Y_HALO ? &smag_kernel<T, Y_HALO, true>
-                                      : &smag_kernel<T, Y_PERIODIC, true>)
-              : ymode == Y_HALO  ? &smag_kernel<T, Y_HALO, false>
-              : ymode == Y_WALLS ? &smag_kernel<T, Y_WALLS, false>
-                                 : &smag_kernel<T, Y_PERIODIC, false>;
+  auto kern =
+      xhalo ? (ymode == Y_HALO ? &smag_kernel<T, Y_HALO, X_HALO>
+                               : &smag_kernel<T, Y_PERIODIC, X_HALO>)
+      : xw  ? (ymode == Y_WALLS  ? &smag_kernel<T, Y_WALLS, X_WALLS>
+               : ymode == Y_HALO ? &smag_kernel<T, Y_HALO, X_WALLS>
+                                 : &smag_kernel<T, Y_PERIODIC, X_WALLS>)
+      : ymode == Y_HALO  ? &smag_kernel<T, Y_HALO, X_PERIODIC>
+      : ymode == Y_WALLS ? &smag_kernel<T, Y_WALLS, X_PERIODIC>
+                         : &smag_kernel<T, Y_PERIODIC, X_PERIODIC>;
   const cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -380,15 +395,15 @@ int launch_smag(const T* u, const T* v, const T* w, const T* ue, const T* ve,
                       const T* hvc, const T* hwr, const T* hwc,               \
                       const T* xur, const T* xuc, const T* xvr,               \
                       const T* xvc, const T* xwr, const T* xwc, int nz,       \
-                      int ny, int nx, int ymode, int have_zwalls, double dxi, \
-                      double dyi, double visc, void* stream) {                \
+                      int ny, int nx, int ymode, int xhalo, int have_zwalls,  \
+                      double dxi, double dyi, double visc, void* stream) {    \
     const T* const h[6] = {hur, huc, hvr, hvc, hwr, hwc};                     \
     const T* const x[6] = {xur, xuc, xvr, xvc, xwr, xwc};                     \
     return cales::launch_smag<T>(u, v, w, ue, ve, we, dzci, dzfi, csd2, dw,   \
                                  nearlo, tauw_lo, tauw_hi, dwy, nearylo,      \
                                  tauw_ylo, tauw_yhi, dwx, nearxlo, tauw_xlo,  \
                                  tauw_xhi, so, h, x, nz, ny, nx, ymode,       \
-                                 have_zwalls, dxi, dyi, visc, stream);        \
+                                 xhalo, have_zwalls, dxi, dyi, visc, stream); \
   }
 
 CALES_SMAG_ENTRY(cales_smag_f32, float)

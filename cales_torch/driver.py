@@ -52,11 +52,12 @@ def run(cfg: Config, datadir='data', device='cuda', verbose=True,
 
     hooks: optional {'out1d' | 'out2d' | 'out3d': fn(sim, state, istep)}
     replacing the default outputs at their cadences.  With dims > 1 the
-    run is one rank of a y-slab mesh: `mesh` (parallel/mesh.SlabMesh), or
+    run is one rank of a device mesh, y slabs (gx = 1) or pencils (gx >
+    1): `mesh` (parallel/mesh.SlabMesh), or
     one started here from the torch.distributed.run environment over
     `transport` ('nccl': a card a rank, the default on cuda; 'gloo': the
     CPU, or CUDA tensors staged through the host so that ranks can share
-    a card); the state is then this rank's slabs."""
+    a card); the state is then this rank's slabs or pencils."""
     validate(cfg)
     datadir = Path(datadir)
     own_mesh = False

@@ -39,20 +39,21 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
 _SIGNATURES = {
-    'cales_mom_rk': [_P] * 43 + [_I] * 5 + [_D] * 8 + [_P],
-    # mom_rk's pointers, the scalar's 9, nz, ny, nx, split, halo, 10
-    # coefficients
-    'cales_mom_rk_scal': [_P] * 52 + [_I] * 5 + [_D] * 10 + [_P],
-    'cales_fillps': [_P] * 12 + [_I] * 4 + [_D] * 3 + [_P],
+    # the pointers, nz, ny, nx, split, halo, xhalo, 8 coefficients
+    'cales_mom_rk': [_P] * 43 + [_I] * 6 + [_D] * 8 + [_P],
+    # mom_rk's pointers, the scalar's 9, nz, ny, nx, split, halo, xhalo,
+    # 10 coefficients
+    'cales_mom_rk_scal': [_P] * 52 + [_I] * 6 + [_D] * 10 + [_P],
+    'cales_fillps': [_P] * 12 + [_I] * 5 + [_D] * 3 + [_P],
     'cales_correc_smag': ([_P] * 22 + [_I] * 4 + [_I, _D, _D] * 4
                           + [_D] * 4 + [_P]),
-    'cales_correc': [_P] * 21 + [_I] * 6 + [_D] * 4 + [_P],
+    'cales_correc': [_P] * 21 + [_I] * 7 + [_D] * 4 + [_P],
     'cales_apply_y': [_P] * 5 + [_I] * 3 + [_P],
     'cales_apply_x': [_P] * 3 + [_I] * 4 + [_P],
     'cales_z_eig': [_P] * 8 + [_I] * 3 + [_D] + [_P],
     'cales_thomas_z': [_P] * 10 + [_I] * 5 + [_D, _I, _D] + [_P],
     'cales_thomas_periodic': [_P] * 7 + [_I] * 4 + [_D, _I, _D] + [_P],
-    'cales_smag': [_P] * 34 + [_I] * 5 + [_D] * 3 + [_P],
+    'cales_smag': [_P] * 34 + [_I] * 6 + [_D] * 3 + [_P],
     # ... the y-row stacks, the halos, nz, ny, nx, wall_lo, wall_hi, avg,
     # zper, f2d, ylo, yhi, then dxi, dyi, the values
     'cales_dsmag': [_P] * 24 + [_I] * 10 + [_D] * 10 + [_P],

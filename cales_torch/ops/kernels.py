@@ -61,6 +61,13 @@ timeloop._xstacks_on_slab), fillps and correc_updatep the slab's own
 (nyc = ny, or ny + 2 with y walls); the wall model's sampled z rows
 take their halo rows' x ghosts from the slab's rows of the x faces'
 values.
+On a pencil of a 2D (gy, gx) mesh (gx > 1) x does not wrap either:
+mom_rk, fillps, correc_updatep and smag take xh, the x halo pairs of the
+fields they read across the pencil's x edges (mesh.halo_x, in the x
+stacks' form: cols (nz, 3, ny + 2), corners (3, 3, ny + 2), column 0 the
+lower neighbour's last column, column 2 the upper neighbour's first, the
+rows -1 and ny the y exchange's; their x-halo variants, csrc X_HALO),
+with the slab's y halos yh or, with gy = 1, periodic y.
 z metrics are (nz+2,) tensors with ghost entries, in the fields' dtype and
 on their device.
 
@@ -187,11 +194,13 @@ def _six(q):
 def mom_rk_plain(u, v, w, s, p, ue, ve, we, se, pe, ruo, rvo, rwo,
                  dzci, dzfi, f1, f2, visc, dxi, dyi, bforce,
                  sums=(False, False), split=None, ye=None, yh=None,
-                 xe=None, sca=None, scae=None, rso=None, scal=(0.0, 0.0)):
+                 xe=None, sca=None, scae=None, rso=None, scal=(0.0, 0.0),
+                 xh=None):
     nz = u.shape[0]
     yu, yv, yw, ys, yp, ysc = _six(ye)
     hu, hv, hw, hs, hp, hsc = _six(yh)
-    xu, xv, xw, xs, xp, xsc = _six(xe)
+    # a pencil's x halo pairs pad as x stacks do (no rewrite slot read)
+    xu, xv, xw, xs, xp, xsc = _six(xe if xh is None else xh)
     up, vp, wp, ppad = (padded(q, e, y, h, x) for q, e, y, h, x in
                         ((u, ue, yu, hu, xu), (v, ve, yv, hv, xv),
                          (w, we, yw, hw, xw), (p, pe, yp, hp, xp)))
@@ -243,7 +252,11 @@ def mom_rk_plain(u, v, w, s, p, ue, ve, we, se, pe, ruo, rvo, rwo,
 
 
 def fillps_plain(u, v, w, ue, ve, we, dzfi, dti, dxi, dyi, yv=None,
-                 yh=None, xu=None):
+                 yh=None, xu=None, xh=None):
+    if xh is not None:
+        # a pencil: u's x halo, its last column its own
+        return st.fillps(padded(u, ue, x=xh), padded(v, ve, yv, yh),
+                         padded(w, we), dti, dxi, dyi, dzfi)
     return st.fillps(padded(u, ue, x=xu, rewrite=True),
                      padded(v, ve, yv, yh), padded(w, we), dti, dxi, dyi,
                      dzfi)
@@ -316,10 +329,11 @@ def _van_driest(s0, visc, csd2, dw, nearlo, tauw_lo, tauw_hi, have_zwalls,
 
 def smag_plain(u, v, w, ue, ve, we, dzci, dzfi, dxi, dyi, visc, csd2, dw,
                nearlo, tauw_lo, tauw_hi, have_zwalls=True, yh=None, ye=None,
-               ywall=None, xe=None, xwall=None):
+               ywall=None, xe=None, xwall=None, xh=None):
     hu, hv, hw = (None,) * 3 if yh is None else yh
     yu, yv, yw = (None,) * 3 if ye is None else ye
-    xu, xv, xw = (None,) * 3 if xe is None else xe
+    x = xe if xh is None else xh
+    xu, xv, xw = (None,) * 3 if x is None else x
     s0 = st.strain_rate(padded(u, ue, yu, hu, xu), padded(v, ve, yv, hv, xv),
                         padded(w, we, yw, hw, xw), dzci, dzfi, dxi, dyi)
     return _van_driest(s0, visc, csd2, dw, nearlo, tauw_lo, tauw_hi,
@@ -637,8 +651,8 @@ def dsmag_level2_plain(fu, fv, fw, fue, fve, fwe, fm, lij, s0, alph2, dzci,
 def correc_updatep_plain(u, v, w, pp, p, we, ppe, dtrk, dxi, dyi, dzci,
                          dzfi, fuv=None, alpha=0.0, impdiff=False,
                          impdiff_1d=False, ypp=None, yv=None, yh=None,
-                         xpp=None, xu=None):
-    ppad = padded(pp, ppe, ypp, yh, xpp)
+                         xpp=None, xu=None, xh=None):
+    ppad = padded(pp, ppe, ypp, yh, xpp if xh is None else xh)
     if yv is not None:
         # v's wall face: the prediction fill's rewrite row (padded y ny)
         v = torch.cat([v[:, :-1], yv[:, 1:2]], dim=1)
@@ -735,7 +749,7 @@ def _ysplit(ys, halo=False):
 def _xsplit(xs, ny, ywalls):
     """_check's arguments for (cols, corners) x stack pairs: nyc = ny, or
     ny + 2 with y walls (ywalls; also a slab's stacks that carry the rows
-    -1 and ny)."""
+    -1 and ny, and a pencil's x halos)."""
     xs = [x for x in xs if x is not None]
     return dict(xcols=[x[0] for x in xs], xcorners=[x[1] for x in xs],
                 nyc=ny + 2 if ywalls else ny)
@@ -772,7 +786,7 @@ def _launch(name, entry, *args, counts=None):
 def mom_rk(u, v, w, s, p, ue, ve, we, se, pe, ruo, rvo, rwo, dzci, dzfi,
            f1, f2, visc, dxi, dyi, bforce, sums=(False, False), split=None,
            ye=None, yh=None, xe=None, sca=None, scae=None, rso=None,
-           scal=(0.0, 0.0)):
+           scal=(0.0, 0.0), xh=None):
     """Momentum RHS (mom.f90:17-309) + low-storage RK3 update with -grad p
     and bforce (rk.f90:77-94) in one pass.  ruo..rwo = None skips the
     previous-RHS reads (first substep, f2 == 0).  s = se = None: no eddy
@@ -795,7 +809,10 @@ def mom_rk(u, v, w, s, p, ue, ve, we, se, pe, ruo, rvo, rwo, dzci, dzfi,
     the sixth entry of ye or xe (its own BC letters and values; on a slab
     with x walls its x stack pair carries the neighbours' rows like the
     velocity's), on a slab its halo pair the sixth entry of yh (any
-    split).  Returns (u, v,
+    split).  xh: a pencil of a 2D mesh, the x halo pairs of (u, v, w,
+    visct, p) (mesh.halo_x; nyc = ny + 2), visct's None without visct,
+    with yh or (gy = 1) periodic y, split None or '1d', no scalar.
+    Returns (u, v,
     w, ru, rv, rw, usum, vsum), and with sca also (s, ds), the scalar and
     its RHS; usum/vsum are None or per-(z, part) partial sums,
     (nz, parts): one part on the CPU, one a (y, x) tile of the kernel on
@@ -806,10 +823,17 @@ def mom_rk(u, v, w, s, p, ue, ve, we, se, pe, ruo, rvo, rwo, dzci, dzfi,
         return mom_rk_plain(u, v, w, s, p, ue, ve, we, se, pe, ruo, rvo, rwo,
                             dzci, dzfi, f1, f2, visc, dxi, dyi, bforce,
                             sums=sums, split=split, ye=ye, yh=yh, xe=xe,
-                            sca=sca, scae=scae, rso=rso, scal=scal)
+                            sca=sca, scae=scae, rso=rso, scal=scal, xh=xh)
     nz, ny, nx = u.shape
     if ye is not None and yh is not None:
         raise ValueError('mom_rk: y walls or a slab halo, not both')
+    xhalo = xh is not None
+    if xhalo and (xe is not None or ye is not None or sca is not None
+                  or split == 'xy+z'):
+        raise ValueError("mom_rk: a pencil's x halos go without x stacks, y "
+                         "walls and the scalar, with split None or '1d'")
+    if xhalo:
+        xe = xh
     has_scal = sca is not None
     ye_sc, xe_sc, yh_sc = _six(ye)[5], _six(xe)[5], _six(yh)[5]
     if has_scal and (scae is None or (rso is None) != (ruo is None)
@@ -830,7 +854,8 @@ def mom_rk(u, v, w, s, p, ue, ve, we, se, pe, ruo, rvo, rwo, dzci, dzfi,
             any(xe[m] is None for m in (1, 2, 4))
             or (xe[3] is None) != (s is None) or split == 'xy+z'
             or (split is not None and ye is not None)):
-        raise ValueError('mom_rk: x walls take the x stacks of u, v, w, p '
+        raise ValueError('mom_rk: x walls (or x halos) take the x stacks of '
+                         'u, v, w, p '
                          "and of visct where it is given, with split None "
                          "or '1d' (periodic y or a slab)")
     if (ruo is None) != (rvo is None) or (ruo is None) != (rwo is None):
@@ -850,7 +875,8 @@ def mom_rk(u, v, w, s, p, ue, ve, we, se, pe, ruo, rvo, rwo, dzci, dzfi,
            profiles=((dzci, nz + 2), (dzfi, nz + 2)),
            **_ysplit((*ye, ye_sc)), **_ysplit((*yh, yh_sc), halo=True),
            **_xsplit((*xe, xe_sc), ny,
-                     ywalls=ye[0] is not None or yh[0] is not None))
+                     ywalls=(ye[0] is not None or yh[0] is not None
+                             or xhalo)))
     halo = yh[0] is not None
     outs = [torch.empty_like(u) for _ in range(8 if has_scal else 6)]
     from . import build
@@ -865,46 +891,56 @@ def mom_rk(u, v, w, s, p, ue, ve, we, se, pe, ruo, rvo, rwo, dzci, dzfi,
             *_yptrs(yh if halo else ye), *_yptrs(xe))
     dims = (ctypes.c_int(nz), ctypes.c_int(ny), ctypes.c_int(nx),
             ctypes.c_int(_SPLIT_CODE[split]))
+    modes = (ctypes.c_int(int(halo)), ctypes.c_int(int(xhalo)))
     coefs = (d(f1), d(f2), d(visc), d(dxi), d(dyi), d(bforce[0]),
              d(bforce[1]), d(bforce[2]))
     if has_scal:
         # the scalar variant: its own entry, one count under mom_rk
         _launch('mom_rk', f'cales_mom_rk_scal_{_suffix(u)}', *args,
                 *map(_ptr, (sca, scae, rso, *outs[6:])),
-                *_yptrs((yh_sc if halo else ye_sc, xe_sc)), *dims,
-                ctypes.c_int(int(halo)), *coefs, d(scal[0]), d(scal[1]))
+                *_yptrs((yh_sc if halo else ye_sc, xe_sc)), *dims, *modes,
+                *coefs, d(scal[0]), d(scal[1]))
         return (*outs[:6], usum, vsum, *outs[6:])
-    _launch('mom_rk', f'cales_mom_rk_{_suffix(u)}', *args, *dims,
-            ctypes.c_int(int(halo)), *coefs)
+    _launch('mom_rk', f'cales_mom_rk_{_suffix(u)}', *args, *dims, *modes,
+            *coefs)
     return (*outs, usum, vsum)
 
 
 def fillps(u, v, w, ue, ve, we, dzfi, dti, dxi, dyi, yv=None, yh=None,
-           xu=None):
+           xu=None, xh=None):
     """Poisson RHS div(u)/dt_rk (fillps.f90:14-48) in one pass.  yv: y
     walls, v's (rows, corners) y-row stack pair (its lower wall face and
     rewrite row enter the divergence); yh: a slab of a y-sharded mesh, v's
     halo pair (its row -1 enters the divergence); xu: x walls, u's
     prediction-fill x stack pair (its lower x face and rewrite column
     enter the divergence; on a slab the slab's own rows, nyc = ny, as u is
-    read in its own row only)."""
+    read in its own row only); xh: a pencil of a 2D mesh, u's x halo pair
+    (nyc = ny + 2; its column -1 enters the divergence), with yh or
+    periodic y."""
     if _on_cpu(u):
         return fillps_plain(u, v, w, ue, ve, we, dzfi, dti, dxi, dyi, yv=yv,
-                            yh=yh, xu=xu)
+                            yh=yh, xu=xu, xh=xh)
     nz, ny, nx = u.shape
     if yv is not None and yh is not None:
         raise ValueError('fillps: y walls or a slab halo, not both')
+    xhalo = xh is not None
+    if xhalo and (xu is not None or yv is not None):
+        raise ValueError("fillps: a pencil's x halo goes without x stacks "
+                         'and y walls')
+    if xhalo:
+        xu = xh
     _check('fillps', u, (u, v, w), edges=(ue, ve, we),
            profiles=((dzfi, nz + 2),), **_ysplit((yv,)),
            **_ysplit((yh,), halo=True),
-           **_xsplit((xu,), ny, ywalls=yv is not None))
+           **_xsplit((xu,), ny, ywalls=yv is not None or xhalo))
     rhs = torch.empty_like(u)
     d = ctypes.c_double
     _launch('fillps', f'cales_fillps_{_suffix(u)}',
             *map(_ptr, (u, v, w, ue, ve, we, dzfi, rhs)),
             *_yptrs((yh if yh is not None else yv,)), *_yptrs((xu,)),
             ctypes.c_int(nz), ctypes.c_int(ny), ctypes.c_int(nx),
-            ctypes.c_int(int(yh is not None)), d(dti), d(dxi), d(dyi))
+            ctypes.c_int(int(yh is not None)), ctypes.c_int(int(xhalo)),
+            d(dti), d(dxi), d(dyi))
     return rhs
 
 
@@ -955,7 +991,7 @@ def correc_smag(u, v, w, pp, p, ue, ve, we, ppe, dtrk, dxi, dyi, dzci, dzfi,
 
 def correc_updatep(u, v, w, pp, p, we, ppe, dtrk, dxi, dyi, dzci, dzfi,
                    fuv=None, alpha=0.0, impdiff=False, impdiff_1d=False,
-                   ypp=None, yv=None, yh=None, xpp=None, xu=None):
+                   ypp=None, yv=None, yh=None, xpp=None, xu=None, xh=None):
     """Projection u -= dt grad pp (+ the deferred forcing fuv = (fu, fv) when
     given) and p += pp (+ alpha L(pp) under implicit diffusion, L the z
     second difference under impdiff_1d) in one pass (correc.f90:14-68,
@@ -969,12 +1005,13 @@ def correc_updatep(u, v, w, pp, p, we, ppe, dtrk, dxi, dyi, dzci, dzfi,
     prediction-fill pair, whose column 1 (the set_bc rewrite) stands in
     for u's interior last column (on a slab both hold the slab's own
     rows, nyc = ny: pp's x ghosts are read in the cell's own row only).
-    Returns (u, v, w, p)."""
+    xh: a pencil of a 2D mesh, pp's x halo pair (nyc = ny + 2; u's last
+    column is its own), with yh or periodic y.  Returns (u, v, w, p)."""
     if _on_cpu(u):
         return correc_updatep_plain(u, v, w, pp, p, we, ppe, dtrk, dxi, dyi,
                                     dzci, dzfi, fuv, alpha, impdiff,
                                     impdiff_1d, ypp=ypp, yv=yv, yh=yh,
-                                    xpp=xpp, xu=xu)
+                                    xpp=xpp, xu=xu, xh=xh)
     nz, ny, nx = u.shape
     if (ypp is None) != (yv is None):
         raise ValueError('correc_updatep: y walls take ypp and yv together')
@@ -982,13 +1019,19 @@ def correc_updatep(u, v, w, pp, p, we, ppe, dtrk, dxi, dyi, dzci, dzfi,
         raise ValueError('correc_updatep: y walls or a slab halo, not both')
     if (xpp is None) != (xu is None):
         raise ValueError('correc_updatep: x walls take xpp and xu together')
+    xhalo = xh is not None
+    if xhalo and (xpp is not None or yv is not None):
+        raise ValueError("correc_updatep: a pencil's x halo goes without x "
+                         'stacks and y walls')
+    if xhalo:
+        xpp = xh
     _check('correc_updatep', u, (u, v, w, pp, p), edges=(we, ppe),
            profiles=((dzci, nz + 2), (dzfi, nz + 2))
            + (((fuv, 2),) if fuv is not None else ()),
            yrows=() if yv is None else (ypp[0], yv),
            ycorners=() if yv is None else (ypp[1],),
            **_ysplit((yh,), halo=True),
-           **_xsplit((xpp, xu), ny, ywalls=yv is not None))
+           **_xsplit((xpp, xu), ny, ywalls=yv is not None or xhalo))
     outs = [torch.empty_like(u) for _ in range(4)]
     d = ctypes.c_double
     _launch('correc_updatep', f'cales_correc_{_suffix(u)}',
@@ -996,7 +1039,7 @@ def correc_updatep(u, v, w, pp, p, we, ppe, dtrk, dxi, dyi, dzci, dzfi,
             *_yptrs((yh if yh is not None else ypp,)), _ptr(yv),
             *_yptrs((xpp, xu)),
             ctypes.c_int(nz), ctypes.c_int(ny), ctypes.c_int(nx),
-            ctypes.c_int(int(yh is not None)),
+            ctypes.c_int(int(yh is not None)), ctypes.c_int(int(xhalo)),
             ctypes.c_int(int(bool(impdiff))),
             ctypes.c_int(int(bool(impdiff_1d))),
             d(dtrk), d(dxi), d(dyi), d(alpha))
@@ -1005,7 +1048,7 @@ def correc_updatep(u, v, w, pp, p, we, ppe, dtrk, dxi, dyi, dzci, dzfi,
 
 def smag(u, v, w, ue, ve, we, dzci, dzfi, dxi, dyi, visc, csd2, dw, nearlo,
          tauw_lo, tauw_hi, have_zwalls=True, yh=None, ye=None, ywall=None,
-         xe=None, xwall=None):
+         xe=None, xwall=None, xh=None):
     """Static Smagorinsky nu_t with the nearer z wall's van Driest damping
     (sgs.f90:69-152) from the post-correction fill (interiors + edge
     stacks) in one pass.  csd2, dw, nearlo: (nz,) profiles (Cs Delta)^2,
@@ -1022,19 +1065,26 @@ def smag(u, v, w, ue, ve, we, dzci, dzfi, dxi, dyi, visc, csd2, dw, nearlo,
     sgs.extrapolate_stacks), with xwall = (dwx, nearxlo, tauw_xlo,
     tauw_xhi), the (nx,) distance to the nearer x wall, 1 where it is the
     lower one, and the x walls' (nz, ny) shear planes, or None where
-    neither x face is a wall.  The nearest wall damps (see
-    _van_driest)."""
+    neither x face is a wall.  xh: a pencil of a 2D mesh, the x halo pairs
+    of (u, v, w) (nyc = ny + 2), with yh or periodic y, no x wall.  The
+    nearest wall damps (see _van_driest)."""
     if (ye is None) != (ywall is None):
         raise ValueError('smag: y walls take ye and ywall together')
     if ye is not None and yh is not None:
         raise ValueError('smag: y walls or a slab halo, not both')
     if xe is None and xwall is not None:
         raise ValueError('smag: x walls take their x stacks')
+    xhalo = xh is not None
+    if xhalo and (xe is not None or ye is not None):
+        raise ValueError("smag: a pencil's x halos go without x stacks and "
+                         'y walls')
     if _on_cpu(u):
         return smag_plain(u, v, w, ue, ve, we, dzci, dzfi, dxi, dyi, visc,
                           csd2, dw, nearlo, tauw_lo, tauw_hi,
                           have_zwalls=have_zwalls, yh=yh, ye=ye, ywall=ywall,
-                          xe=xe, xwall=xwall)
+                          xe=xe, xwall=xwall, xh=xh)
+    if xhalo:
+        xe = xh
     nz, ny, nx = u.shape
     ys = (None,) * 3 if yh is None and ye is None else tuple(
         yh if yh is not None else ye)
@@ -1053,7 +1103,8 @@ def smag(u, v, w, ue, ve, we, dzci, dzfi, dxi, dyi, visc, csd2, dw, nearlo,
            + (() if ywall is None else ((dwy, ny), (nearylo, ny)))
            + (() if xwall is None else ((dwx, nx), (nearxlo, nx))),
            **_ysplit(ys, halo=yh is not None),
-           **_xsplit(xs, ny, ywalls=ye is not None or yh is not None))
+           **_xsplit(xs, ny, ywalls=ye is not None or yh is not None
+                     or xhalo))
     for what, shape, group in (('y', (nz, nx), (tylo, tyhi)),
                                ('x', (nz, ny), (txlo, txhi))):
         for t in group:
@@ -1072,7 +1123,7 @@ def smag(u, v, w, ue, ve, we, dzci, dzfi, dxi, dyi, visc, csd2, dw, nearlo,
                         tauw_lo, tauw_hi, dwy, nearylo, tylo, tyhi, dwx,
                         nearxlo, txlo, txhi, out)),
             *_yptrs(ys), *_yptrs(xs), ctypes.c_int(nz), ctypes.c_int(ny),
-            ctypes.c_int(nx), ctypes.c_int(ymode),
+            ctypes.c_int(nx), ctypes.c_int(ymode), ctypes.c_int(int(xhalo)),
             ctypes.c_int(int(bool(have_zwalls))), d(dxi), d(dyi), d(visc))
     return out
 

@@ -1,4 +1,4 @@
-"""The transport of the slab mesh: torch.distributed collectives over an
+"""The transport of the device mesh: torch.distributed collectives over an
 explicit backend.
 
   'nccl'  one card a rank, the collectives on the tensors where they lie;
@@ -83,6 +83,8 @@ class Comm:
         self.size = dist.get_world_size()
         # CUDA tensors over gloo go through pinned host buffers
         self.staged = transport == 'gloo' and self.device.type == 'cuda'
+        # the process groups of rank subsets (a mesh row), by their ranks
+        self._groups = {}
 
     def describe(self) -> str:
         if self.staged:
@@ -111,23 +113,35 @@ class Comm:
         dist.all_reduce(h, op=_OPS[op])
         return self._back(h, t)
 
-    def all_to_all(self, send):
-        """all_to_all_single along dim 0: block q of `send` goes to rank q,
-        block q of the result came from rank q."""
-        if send.shape[0] != self.size:
+    def group(self, ranks):
+        """The process group of `ranks` (dist.new_group, made once): every
+        rank of the world must ask for the same groups in the same order,
+        its own or not."""
+        key = tuple(int(r) for r in ranks)
+        if key not in self._groups:
+            self._groups[key] = (dist.new_group(list(key)), len(key))
+        return self._groups[key]
+
+    def all_to_all(self, send, group=None):
+        """all_to_all_single along dim 0: block q of `send` goes to rank q
+        (of `group`, a Comm.group, when given: its q-th rank), block q of
+        the result came from rank q.  Every block is of one size."""
+        pg, size = (None, self.size) if group is None else group
+        if send.shape[0] != size:
             raise ValueError(f'all_to_all: dim 0 is {send.shape[0]}, want '
-                             f'{self.size} blocks')
+                             f'{size} blocks')
         h = self._to_host(send)
         out = torch.empty_like(h)
-        dist.all_to_all_single(out, h)
+        dist.all_to_all_single(out, h, group=pg)
         return self._back(out, send)
 
-    def exchange(self, to_lo, to_hi):
-        """Neighbour exchange on the periodic ring of ranks: to_lo goes to
-        rank - 1 and to_hi to rank + 1; returns (from_lo, from_hi), what
-        rank - 1 sent up and rank + 1 sent down."""
-        lo = (self.rank - 1) % self.size
-        hi = (self.rank + 1) % self.size
+    def exchange(self, to_lo, to_hi, lo, hi):
+        """Neighbour exchange on a periodic ring of ranks (a mesh axis):
+        to_lo goes to rank lo and to_hi to rank hi; returns (from_lo,
+        from_hi), what lo sent up and hi sent down.  A ring of one (lo and
+        hi this rank) is the local wrap, no message."""
+        if lo == hi == self.rank:
+            return to_hi, to_lo
         a, b = self._to_host(to_lo), self._to_host(to_hi)
         from_lo, from_hi = torch.empty_like(b), torch.empty_like(a)
         # the tags tell the two messages of a two-rank ring apart; NCCL
@@ -164,7 +178,7 @@ def env_rank() -> tuple[int, int, int, int]:
     except KeyError as e:
         raise RuntimeError(
             'a device mesh (dims) needs one process a rank: launch with '
-            '`python -m torch.distributed.run --nproc_per_node <gy> -m '
+            '`python -m torch.distributed.run --nproc_per_node <gy gx> -m '
             f'cales_torch ...` (missing {e.args[0]} in the environment)'
         ) from None
     local = int(os.environ.get('LOCAL_RANK', rank))

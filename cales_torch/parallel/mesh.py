@@ -1,23 +1,41 @@
-"""The y-slab mesh: dims = (gy, 1), one rank a y slab.
+"""The device mesh: dims = (gy, gx), one rank a y slab (gx = 1) or a
+pencil (gx > 1).
 
-Counterpart of cales_tpu/parallel/mesh.py for the JAX package's
-kernel-sharded route with gx = 1 (cales_tpu/timeloop.py `_kernel_sharded`
-and `use_pallas_solve_sharded`).  Rank r holds the y rows [r ny/gy,
-(r+1) ny/gy) of every (nz, ny, nx) field; z and x stay whole on every
+Counterpart of cales_tpu/parallel/mesh.py, a ('gy', 'gx') mesh whose
+devices are ordered as a (gy, gx) reshape (cales_tpu/parallel/mesh.py:35):
+rank r = iy gx + ix holds the y rows [iy ny/gy, (iy+1) ny/gy) and the x
+columns [ix nx/gx, (ix+1) nx/gx) of every (nz, ny, nx) field, the JAX
+package's kernel-sharded route (cales_tpu/timeloop.py `_kernel_sharded`,
+`_gx_sharded` and `use_pallas_solve_sharded`); z stays whole on every
 rank, as the reference's pencils keep the tridiagonal direction local.
+With gx = 1 x stays whole too: the y slabs.
 
-  halo_y            the y rows the stencil kernels read across a slab edge:
+  halo_y            the y rows the stencil kernels read across a y edge:
                     row -1 from the rank below and row ny/gy from the rank
                     above (two rows a side for the dsmag kernel), of each
                     field and of its z-edge stack (the JAX package's
                     _halo_strips packs both; its 8-row strips are Mosaic's
-                    granularity, the port moves the rows it reads);
-  transpose_y_to_x  the Poisson solve's forward pencil transpose: split x,
-  transpose_x_to_y  gather y, and back, on all_to_all_single: the x
-                    columns of the 'mat' route, or on the 'fft' route the
-                    real view of the half spectrum's kx lanes (kx_lanes a
-                    rank; complex data travels as plain reals, so gloo and
-                    NCCL carry it alike);
+                    granularity, the port moves the rows it reads); the y
+                    neighbours are (iy -+ 1 mod gy, ix), with gy = 1 the
+                    local wrap;
+  halo_x            on a pencil the x columns -1 and nx/gx from the x
+                    neighbours (iy, ix -+ 1 mod gx) in the form of an x
+                    stack (the JAX package's _xe_pack bundles), whose rows
+                    -1 and ny/gy then ride halo_y: the (x +-1, y +-1)
+                    corners arrive by two hops;
+  transpose_y_to_x  the Poisson solve's forward pencil transpose on the y
+  transpose_x_to_y  slabs: split x, gather y, and back, on
+                    all_to_all_single: the x columns of the 'mat' route,
+                    or on the 'fft' route the real view of the half
+                    spectrum's kx lanes (kx_lanes a rank; complex data
+                    travels as plain reals, so gloo and NCCL carry it
+                    alike);
+  pencil_to_slab    on a pencil mesh the re-slab around the Poisson solve:
+  slab_to_pencil    one all-to-all inside the mesh row (the gx ranks of one
+                    iy) turns the pencil into the y slab of the world's
+                    P = gy gx slabs (`slab`, rank r its rows [r ny/P,
+                    (r+1) ny/P)), whose transposes the slab route runs
+                    unchanged, and back;
   all_reduce        sums and maxima over the whole domain.
 
 The transport (parallel/comm.py) is the caller's explicit choice.
@@ -35,8 +53,18 @@ from . import comm as commmod
 class SlabMesh:
     """The mesh of one rank: `comm` its collectives, `ng` = (nx, ny, nz) the
     global grid, dims = (gy, gx) as the namelist's dims(1:2).  Which dims
-    and grids run is timeloop.unsupported()'s to say (gx = 1, nx and ny
-    divisible by gy); the mesh checks the world size only."""
+    and grids run is timeloop.unsupported()'s to say (nx and ny divisible
+    by gy, and by gy gx on a pencil mesh); the mesh checks the world size
+    and the divisions it needs.
+
+      nyl, y0   this rank's y rows [y0, y0 + nyl), nyl = ny / gy
+      nxp, x0   its x columns [x0, x0 + nxp), nxp = nx / gx (nx on a slab)
+      nxl       the x columns a rank holds between the Poisson solve's
+                transposes: nx / gy on a slab, nx / (gy gx) on the world
+                slab of a pencil mesh
+      slab      with gx > 1 the world's y slabs, dims (gy gx, 1), on the
+                same transport: the Poisson solve's mesh after the
+                re-slab"""
 
     def __init__(self, comm: commmod.Comm, dims, ng):
         gy, gx = int(dims[0]), int(dims[1])
@@ -44,40 +72,72 @@ class SlabMesh:
             raise ValueError(f'dims = ({gy}, {gx}) needs {gy * gx} ranks, the '
                              f'process group has {comm.size}')
         nx, ny, nz = ng
-        if ny % gy or nx % gy:
+        if gx == 1 and (ny % gy or nx % gy):
             raise ValueError(f'dims = ({gy}, {gx}): ny = {ny} and nx = {nx} '
                              f'must divide by gy = {gy}')
+        if gx > 1 and (ny % (gy * gx) or nx % (gy * gx)):
+            raise ValueError(f'dims = ({gy}, {gx}): ny = {ny} and nx = {nx} '
+                             f'must divide by gy gx = {gy * gx} (the Poisson '
+                             'solve\'s re-slab)')
         self.comm = comm
-        self.gy = gy
+        self.gy, self.gx = gy, gx
         self.rank = comm.rank
+        self.iy, self.ix = divmod(self.rank, gx)
         self.ng = tuple(ng)
         self.nyl = ny // gy
-        self.nxl = nx // gy
-        self.y0 = self.rank * self.nyl
+        self.nxp = nx // gx
+        self.nxl = nx // (gy * gx)
+        self.y0 = self.iy * self.nyl
+        self.x0 = self.ix * self.nxp
+        # the neighbours along y (same ix) and along x (same iy), periodic
+        self.ylo = ((self.iy - 1) % gy) * gx + self.ix
+        self.yhi = ((self.iy + 1) % gy) * gx + self.ix
+        self.xlo = self.iy * gx + (self.ix - 1) % gx
+        self.xhi = self.iy * gx + (self.ix + 1) % gx
+        self.slab = self.row = None
+        if gx > 1:
+            # every rank makes every row's group, in one order
+            rows = [comm.group([q * gx + i for i in range(gx)])
+                    for q in range(gy)]
+            self.row = rows[self.iy]
+            self.slab = SlabMesh(comm, (gy * gx, 1), ng)
 
     def describe(self) -> str:
-        return (f'y slabs dims = ({self.gy}, 1), rank {self.rank}: y rows '
-                f'[{self.y0}, {self.y0 + self.nyl}) of {self.ng[1]}; '
+        if self.gx == 1:
+            return (f'y slabs dims = ({self.gy}, 1), rank {self.rank}: y rows '
+                    f'[{self.y0}, {self.y0 + self.nyl}) of {self.ng[1]}; '
+                    f'transport {self.comm.describe()}')
+        return (f'pencils dims = ({self.gy}, {self.gx}), rank {self.rank} = '
+                f'(iy {self.iy}, ix {self.ix}): y rows [{self.y0}, '
+                f'{self.y0 + self.nyl}) of {self.ng[1]}, x columns '
+                f'[{self.x0}, {self.x0 + self.nxp}) of {self.ng[0]}; '
                 f'transport {self.comm.describe()}')
 
     # -- placement -------------------------------------------------------
     def local(self, a):
-        """This rank's slab (nz, ny/gy, nx) of a global (nz, ny, nx) array
-        (numpy or tensor); a slab-shaped one is returned as it is."""
-        if a.shape[1] == self.nyl and self.nyl != self.ng[1]:
+        """This rank's block (n, ny/gy, nx/gx) of a global (n, ny, nx) array
+        (numpy or tensor; a field or a z-edge stack); one of the block's
+        shape is returned as it is."""
+        nx, ny = self.ng[0], self.ng[1]
+        if (tuple(a.shape[1:3]) == (self.nyl, self.nxp)
+                and (self.nyl, self.nxp) != (ny, nx)):
             return a
-        if a.shape[1] != self.ng[1]:
-            raise ValueError(f'field of y extent {a.shape[1]}: want '
-                             f'{self.ng[1]} (global) or {self.nyl} (slab)')
-        sl = a[:, self.y0:self.y0 + self.nyl]
+        if tuple(a.shape[1:3]) != (ny, nx):
+            raise ValueError(f'field of (y, x) extent {tuple(a.shape[1:3])}: '
+                             f'want {(ny, nx)} (global) or '
+                             f'{(self.nyl, self.nxp)} (this rank\'s)')
+        sl = a[:, self.y0:self.y0 + self.nyl, self.x0:self.x0 + self.nxp]
         return np.ascontiguousarray(sl) if isinstance(a, np.ndarray) \
             else sl.contiguous()
 
     def gather(self, t):
-        """The global (nz, ny, nx) numpy array of a slab-sharded field, on
-        every rank."""
-        parts = self.comm.all_gather(t)
-        return np.concatenate([p.numpy() for p in parts], axis=1)
+        """The global (nz, ny, nx) numpy array of a sharded field, on every
+        rank."""
+        parts = [p.numpy() for p in self.comm.all_gather(t)]
+        g = self.gx
+        return np.concatenate([np.concatenate(parts[q * g:(q + 1) * g],
+                                              axis=2)
+                               for q in range(self.gy)], axis=1)
 
     # -- halos -------------------------------------------------------------
     def halo_y(self, pairs, depth=1):
@@ -100,12 +160,39 @@ class SlabMesh:
         sizes = [math.prod(sh) for sh in shapes]
         first = torch.cat([q[:, :d].reshape(-1) for q in parts])
         last = torch.cat([q[:, self.nyl - d:].reshape(-1) for q in parts])
-        from_lo, from_hi = self.comm.exchange(to_lo=first, to_hi=last)
+        from_lo, from_hi = self.comm.exchange(to_lo=first, to_hi=last,
+                                              lo=self.ylo, hi=self.yhi)
         rows = iter(torch.cat([lo.view(sh), hi.view(sh)], dim=1)
                     for lo, hi, sh in zip(torch.split(from_lo, sizes),
                                           torch.split(from_hi, sizes),
                                           shapes))
         return [(next(rows), None if e is None else next(rows))
+                for _, e in pairs]
+
+    def halo_x(self, pairs):
+        """pairs: [(field (n, nyl, nxp), z-edge stack (3, nyl, nxp) or
+        None), ...] of a pencil.  Returns [(cols (n, 3, nyl), corners
+        (3, 3, nyl) or None), ...]: each field's x halo in the form of an x
+        stack (kernels.xpad): column 0 the lower x neighbour's last column
+        (x = -1), column 2 the upper neighbour's first (x = nxp), column 1
+        the field's own last column (no rewrite slot: the halo mode never
+        reads it), corners the same columns of its z-edge stack.  One
+        exchange with the x neighbours for all the pairs.  Their rows -1
+        and nyl are the y exchange's (timeloop._xstacks_on_slab)."""
+        parts = [q for pair in pairs for q in pair if q is not None]
+        shapes = [tuple(q.shape[:2]) for q in parts]
+        sizes = [math.prod(sh) for sh in shapes]
+        first = torch.cat([q[..., 0].reshape(-1) for q in parts])
+        last = torch.cat([q[..., -1].reshape(-1) for q in parts])
+        from_lo, from_hi = self.comm.exchange(to_lo=first, to_hi=last,
+                                              lo=self.xlo, hi=self.xhi)
+        cols = iter(torch.stack([lo.view(sh), q[..., -1], hi.view(sh)],
+                                dim=1)
+                    for q, lo, hi, sh in zip(parts,
+                                             torch.split(from_lo, sizes),
+                                             torch.split(from_hi, sizes),
+                                             shapes))
+        return [(next(cols), None if e is None else next(cols))
                 for _, e in pairs]
 
     # -- pencil transposes of the Poisson solve ----------------------------
@@ -136,6 +223,25 @@ class SlabMesh:
             1, 0, 2, 3).contiguous()
         return self.comm.all_to_all(send)
 
+    def pencil_to_slab(self, a):
+        """a (nz, nyl, nxp), this rank's pencil -> (nz, ny/P, nx), its y slab
+        of the world's P = gy gx (rows [rank ny/P, (rank+1) ny/P): rank =
+        iy gx + ix, so the slabs of a mesh row are its pencils' rows in x
+        order).  One all-to-all inside the mesh row: block q the rows of
+        the row's q-th slab, received as the q-th pencil's columns."""
+        nz, g, nxp = a.shape[0], self.gx, self.nxp
+        nys = self.nyl // g
+        send = a.reshape(nz, g, nys, nxp).permute(1, 0, 2, 3).contiguous()
+        recv = self.comm.all_to_all(send, group=self.row)
+        return recv.permute(1, 2, 0, 3).reshape(nz, nys, g * nxp)
+
+    def slab_to_pencil(self, a):
+        """pencil_to_slab's inverse: (nz, ny/P, nx) -> (nz, nyl, nxp)."""
+        nz, nys, g, nxp = a.shape[0], a.shape[1], self.gx, self.nxp
+        send = a.reshape(nz, nys, g, nxp).permute(2, 0, 1, 3).contiguous()
+        recv = self.comm.all_to_all(send, group=self.row)
+        return recv.permute(1, 0, 2, 3).reshape(nz, g * nys, nxp)
+
     # -- reductions ----------------------------------------------------------
     def all_reduce(self, t, op: str = 'sum'):
         return self.comm.all_reduce(t, op)
@@ -147,10 +253,10 @@ class SlabMesh:
         return float(self.comm.all_reduce(t, op)[0])
 
     def mean_of_ranks(self, a):
-        """The mean over the ranks of a numpy array (a slab's plane means
-        -> the domain's: the slabs are of one size)."""
+        """The mean over the ranks of a numpy array (a slab's or pencil's
+        plane means -> the domain's: the blocks are of one size)."""
         t = torch.as_tensor(np.ascontiguousarray(a), device=self.comm.device)
-        return self.comm.all_reduce(t).cpu().numpy() / self.gy
+        return self.comm.all_reduce(t).cpu().numpy() / self.comm.size
 
     def barrier(self):
         self.comm.barrier()

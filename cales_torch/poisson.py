@@ -45,7 +45,10 @@ of the half spectrum's lanes (split kx, gather y), the y stage and the z
 stage of the one-device route on this rank's lanes, and back.  With alpha
 the full-3D Helmholtz solve of each velocity component by the same route
 (its tail row passing through); the z-only solves (solve_z_only) need no
-communication and run on each slab.
+communication and run on each slab.  On a pencil mesh (dims (gy, gx),
+gx > 1) solve_sharded re-slabs: an all-to-all inside the mesh row turns
+the pencil into a y slab of gy gx, the slab route runs on those, and one
+more turns it back; the z-only solves run on each pencil's columns.
 
 With y walls (homogeneous-Neumann pressure, the duct and cavity classes)
 the y operator is a DCT matrix, on the 'mat' route as on the mixed one:
@@ -469,7 +472,21 @@ def solve_sharded(sv: DirectSolver, p, mesh, alpha=None):
     constant.  On the 'fft' route (_solve_fft_sharded) the one-device
     route's stages on this rank's lanes of the half spectrum.  Which
     configurations come here is timeloop.unsupported()'s to say; the
-    solver takes what the one-device solve takes (_check_in_slice)."""
+    solver takes what the one-device solve takes (_check_in_slice).
+
+    On a pencil mesh (dims (gy, gx), gx > 1) p is this rank's (nz, ny/gy,
+    nx/gx) pencil: one all-to-all inside its mesh row turns it into its y
+    slab of the world's P = gy gx (mesh.pencil_to_slab), the slab route
+    above runs on those P slabs (mesh.slab: apply_x split P, the world's
+    all-to-all, ..., or the 'fft' route's stages on ceil((nx/2 + 1)/P)
+    lanes a rank), and one more turns the result back: four all-to-alls a
+    solve where the slab takes two, no kernel changed, the singular lane
+    rank 0's.  The JAX package takes GSPMD's pencil sequence there
+    (poisson.solve with hints); the two agree to rounding and the gauge
+    of the constant mode."""
+    if mesh.gx > 1:
+        return mesh.slab_to_pencil(solve_sharded(
+            sv, mesh.pencil_to_slab(p), mesh.slab, alpha=alpha))
     _check_in_slice(sv, alpha)
     if sv.trx.kind == 'fft':
         return _solve_fft_sharded(sv, p, mesh, alpha)

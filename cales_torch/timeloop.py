@@ -134,6 +134,19 @@ XW x YH mode); and plane-valued values (an inflow profile, a lid plane)
 are cut to the slab's rows, their y ghosts the periodic wrap's
 (_slab_planes).
 
+On a 2D pencil mesh (dims = (gy, gx), gx > 1; the JAX package's
+_gx_sharded route) each rank steps its pencil of y rows and x columns,
+for the periodic-x, periodic-y channel classes with z walls (sgstype
+'none' or static Smagorinsky, explicit diffusion or impdiff_1d, 'mat' or
+'fft'; _pencil_refuse names the rest): before each stencil kernel the x
+neighbours' columns of the fields it reads arrive as x stacks
+(mesh.halo_x), whose rows -1 and nyl ride the y exchange of the rows
+(_pencil_halos), so mom_rk, fillps, correc_updatep and smag run their
+x-halo variants (with the y halo variants, or periodic y with gy = 1);
+the z walls' van Driest planes take u's column -1 from its x halo; the
+Poisson solve re-slabs (poisson.solve_sharded), and the z-only CN solves
+run on the pencil's columns.
+
 With x walls (inflow and outflow faces, or walls: the developing channel,
 and with y walls the closed box, the lid-driven cavity and the developing
 duct; sgstype 'none' or static Smagorinsky, explicit diffusion or, with
@@ -453,11 +466,9 @@ def _mesh_refuse(cfg: Config) -> list[str]:
     gy, gx = int(cfg.dims[0]), int(cfg.dims[1])
     nx, ny, _ = cfg.ng
     out = []
-    item = 'ROADMAP queue 1, multi-device'
     if gx > 1:
-        out.append(f'an x-split pencil mesh (dims = ({gy}, {gx}), gx > 1: the '
-                   f'xe column protocol): {item}')
-    if ny % gy or nx % gy:
+        out += _pencil_refuse(cfg)
+    elif ny % gy or nx % gy:
         out.append(f'dims = ({gy}, {gx}) with ny = {ny}, nx = {nx} not '
                    f'divisible by gy')
     if cfg.sgstype == 'dsmag':
@@ -474,6 +485,45 @@ def _mesh_refuse(cfg: Config) -> list[str]:
                        'velocity from the two rows next to the wall): at '
                        'least 2')
         out += _wm_slab_refuse(cfg, gy)
+    return out
+
+
+def _pencil_refuse(cfg: Config) -> list[str]:
+    """What a pencil mesh (dims = (gy, gx), gx > 1) does not run yet: it
+    runs the periodic-x, periodic-y channel classes with z walls, sgstype
+    'none' or static Smagorinsky, explicit diffusion or impdiff_1d, by
+    'mat' or 'fft', on ny and nx divisible by gy gx (the Poisson solve's
+    re-slab); every other configuration names its item of ROADMAP queue 1,
+    multi-device."""
+    gy, gx = int(cfg.dims[0]), int(cfg.dims[1])
+    nx, ny, _ = cfg.ng
+    item = 'ROADMAP queue 1, multi-device'
+    what = []
+    if not _periodic(cfg, 1):
+        what.append('y walls')
+    if not _periodic(cfg, 0):
+        what.append('x walls (run-time x-wall owner flags)')
+    if cfg.cbc_vel(2, 0)[0] == 'P':
+        what.append('periodic z')
+    if cfg.sgstype == 'dsmag':
+        what.append("dynamic Smagorinsky (the dsmag kernels' two-deep x "
+                    'halo)')
+    if any(cfg.lwm[ib][d] != 0 for ib in range(2) for d in range(3)):
+        what.append("the wall model (wallmodel.cu's x halo)")
+    if cfg.scalar:
+        what.append('the passive scalar')
+    if cfg.impdiff and not cfg.impdiff_1d:
+        what.append('full-3D implicit diffusion')
+    if plane_faces(cfg) or any(
+            np.ndim(b[ib][d]) != 0 for b in (cfg.bcpre, cfg.bcsgs)
+            for ib in range(2) for d in range(3)):
+        what.append('plane-valued values')
+    out = [f'{q} on a pencil mesh (dims = ({gy}, {gx}), gx > 1): {item}'
+           for q in what]
+    if ny % (gy * gx) or nx % (gy * gx):
+        out.append(f'dims = ({gy}, {gx}) with ny = {ny}, nx = {nx} not '
+                   f'divisible by gy gx = {gy * gx} (the Poisson solve\'s '
+                   f're-slab on a pencil mesh, gx > 1): {item}')
     return out
 
 
@@ -651,8 +701,9 @@ def _xstacks_on_slab(xs, halos, own=None):
 
 class Simulation:
     """Static solver setup + the step function on one torch device, or on
-    one rank of a y-slab mesh (mesh: parallel/mesh.SlabMesh, which the
-    namelist's dims asks for), where every field is this rank's slab."""
+    one rank of a device mesh (mesh: parallel/mesh.SlabMesh, which the
+    namelist's dims asks for), where every field is this rank's slab or
+    pencil."""
 
     def __init__(self, cfg: Config, grid: Grid, device='cuda', mesh=None):
         missing = unsupported(cfg)
@@ -665,10 +716,12 @@ class Simulation:
                 f'dims = {tuple(cfg.dims)} ' + (
                     'needs a device mesh (parallel/mesh.from_env)' if meshed
                     else 'runs on one device; a mesh was given'))
-        if mesh is not None and (mesh.gy != cfg.dims[0]
-                                 or tuple(mesh.ng) != tuple(cfg.ng)):
-            raise ValueError(f'mesh of {mesh.gy} slabs of {mesh.ng}, config '
-                             f'dims {tuple(cfg.dims)} ng {tuple(cfg.ng)}')
+        if mesh is not None and (
+                (mesh.gy, mesh.gx) != tuple(int(d) for d in cfg.dims[:2])
+                or tuple(mesh.ng) != tuple(cfg.ng)):
+            raise ValueError(f'mesh of dims ({mesh.gy}, {mesh.gx}) on '
+                             f'{mesh.ng}, config dims {tuple(cfg.dims)} ng '
+                             f'{tuple(cfg.ng)}')
         self.cfg = cfg
         self.grid = grid
         self.mesh = mesh
@@ -686,11 +739,15 @@ class Simulation:
         self.ywalled = not _periodic(cfg, 1)
         self.xwalled = not _periodic(cfg, 0)
         nx, ny, nz = cfg.ng
-        # this rank's slab: the local shape the fields, the y-face planes
-        # and add_rhs_bound's row indices take
+        # this rank's slab or pencil: the local shape the fields, the face
+        # planes and add_rhs_bound's row indices take
         self.nyl = ny if mesh is None else mesh.nyl
+        self.nxp = nx if mesh is None else mesh.nxp
         self.cfg_local = cfg if mesh is None else cfg.replace(
-            ng=(nx, self.nyl, nz))
+            ng=(self.nxp, self.nyl, nz))
+        # a pencil of a 2D mesh (gx > 1): the kernels' x-halo variants on
+        # the x neighbours' columns (mesh.halo_x)
+        self.xhalo = mesh is not None and mesh.gx > 1
         # a slab of a y-walled mesh: the y walls it holds (rank 0 the
         # lower, rank gy-1 the upper), where its y-row stacks take the wall
         # recipe's rows (boundary.slab_ystack); None elsewhere
@@ -827,12 +884,13 @@ class Simulation:
                               if k[0] == 'z'}
                 if mesh is not None:
                     # on a slab its rows of the z faces' (ny, nx) planes and
-                    # the x faces' (nz, ny) ones, which add_rhs_bound adds
-                    # on the local grid (z and x are never split; the y
-                    # faces are periodic)
+                    # the x faces' (nz, ny) ones, on a pencil its columns of
+                    # the z and y faces' too, which add_rhs_bound adds on
+                    # the local grid (z is never split)
                     ys = slice(mesh.y0, mesh.y0 + mesh.nyl)
-                    planes = {k: (q[ys] if k[0] == 'z' else q[:, ys]
-                                  if k[0] == 'x' else q).contiguous()
+                    xs = slice(mesh.x0, mesh.x0 + mesh.nxp)
+                    planes = {k: (q[ys, xs] if k[0] == 'z' else q[:, ys]
+                                  if k[0] == 'x' else q[:, xs]).contiguous()
                               for k, q in planes.items()}
                 zero = all(bool((q == 0).all()) for q in planes.values())
                 self.cn_planes.append(None if zero else planes)
@@ -1016,7 +1074,15 @@ class Simulation:
                     + (', its rows\' x ghosts from the x faces\' values'
                        if self.xwalled else ''))
         mesh = ('' if self.mesh is None
-                else f'; mesh: {self.mesh.describe()}, y halos')
+                else f'; mesh: {self.mesh.describe()}, y halos'
+                if not self.xhalo
+                else f'; mesh: {self.mesh.describe()}, '
+                     + ('y halos and ' if self.mesh.gy > 1 else '')
+                     + "x halos (the x-halo kernel variants; the x halos' "
+                     'rows -1 and nyl in the y exchange), the Poisson solve '
+                     're-slabbed (an all-to-all in the mesh row each way '
+                     f'around the slab route on {self.mesh.gy * self.mesh.gx} '
+                     'y slabs)')
         if self.mesh is not None and self.sgs_kernel == 'dsmag':
             mesh += (" (dsmag_level1's two rows deep, the filtered "
                      "velocity's one row deep for dsmag_level2)"
@@ -1240,8 +1306,16 @@ class Simulation:
         rows -1 and nyl from the neighbours in the same exchange, and the
         first field's (u's) last column its set_bc rewrite slot, as the
         fill leaves it; with x and y walls the x stacks' rows -1 and nyl
-        the wall recipe's on the sides the slab owns (_xstacks_on_slab)."""
+        the wall recipe's on the sides the slab owns (_xstacks_on_slab).
+        On a pencil (gx > 1) the x ghosts from the x neighbours' columns
+        (_pencil_halos), the y ghosts from the y halo or, with gy = 1,
+        periodic."""
         pairs = list(zip(fields, edges))
+        if self.xhalo:
+            yh, xh = self._pencil_halos(pairs, pairs)
+            return [kernels.padded(q, e, h=None if yh is None else yh[i],
+                                   x=xh[i])
+                    for i, (q, e) in enumerate(pairs)]
         halos = self.mesh.halo_y(pairs + _xstack_halo_pairs(
             xs or (), walls is not None))
         xs = (_xstacks_on_slab(xs, halos[len(pairs):], self.yown)
@@ -1255,6 +1329,22 @@ class Simulation:
                 for i, (q, e, y, x) in enumerate(zip(
                     fields, edges, self._yslab(fields, edges, walls, halos),
                     xs))]
+
+    def _pencil_halos(self, ypairs, xpairs):
+        """On a pencil mesh (gx > 1): (yh, xh), the y halo pairs of ypairs
+        (mesh.halo_y; None with gy = 1, where y is periodic on the pencil)
+        and the x halo pairs of xpairs (mesh.halo_x; None for a pair whose
+        field is None), whose rows -1 and nyl ride the same y exchange
+        (_xstacks_on_slab: x stacks of nyc = nyl + 2, so the (x +-1, y +-1)
+        corners arrive by two hops, as cales_tpu's _xe_pack bundles are
+        completed by _halo_y, timeloop.py:998-1015)."""
+        m = self.mesh
+        xs = m.halo_x([q for q in xpairs if q[0] is not None])
+        ypairs = list(ypairs) if m.gy > 1 else []
+        h = m.halo_y(ypairs + _xstack_halo_pairs(xs))
+        it = iter(_xstacks_on_slab(xs, h[len(ypairs):]))
+        xh = [None if q is None else next(it) for q, _ in xpairs]
+        return (h[:len(ypairs)] if m.gy > 1 else None), xh
 
     def _yslab(self, fields, edges, walls, halos):
         """The y-row stack pairs of fields on a slab of a y-walled mesh
@@ -1542,9 +1632,17 @@ class Simulation:
                        for q, e, y, iface in zip((u, v, w), zq,
                                                  yq or (None,) * 3,
                                                  (1, 2, 3))]
-            yh = ye = ywall = None
+            yh = ye = ywall = xh = None
             rows = corners = None
-            if self.mesh is not None and not slab_y:
+            if self.xhalo:
+                # a pencil: the y halos of u, v, w (with gy = 1 y is
+                # periodic) and their x halos, whose u serves the z walls'
+                # shear planes' column x = -1
+                pairs = list(zip((u, v, w), zq))
+                yh, xh = self._pencil_halos(pairs, pairs)
+                if yh is not None:
+                    rows, corners = yh[1]
+            elif self.mesh is not None and not slab_y:
                 strain_e = zq if ext is None else [e for e, _ in ext]
                 pairs = list(zip((u, v, w), strain_e))
                 if ext is not None:
@@ -1568,6 +1666,13 @@ class Simulation:
                 k, e = (0, 0) if side == 0 else (-1, 2)
                 return rows[k, 0] - corners[e, 0]
             aprev = xe = xwall = None
+            if xh is not None:
+                # u's column x = -1 at the z walls from its x halo
+                xu, cu = xh[0]
+
+                def aprev(side):
+                    k, e = (0, 0) if side == 0 else (-1, 2)
+                    return xu[k, 0, 1:-1] - cu[e, 0, 1:-1]
             if self.xwalled:
                 # u's column x = -1 at the z walls from its x stack, the
                 # x walls' shear planes from the x stacks (v's row -1 from
@@ -1607,7 +1712,7 @@ class Simulation:
                                 self.csd2_t, self.dw_t, self.nearlo_t,
                                 tauw_lo, tauw_hi,
                                 have_zwalls=self.have_zwalls, yh=yh, ye=ye,
-                                ywall=ywall, xe=xe, xwall=xwall)
+                                ywall=ywall, xe=xe, xwall=xwall, xh=xh)
         if self.dsmag_twopass:
             return self._dsmag_twopass(u, v, w, zq, yq)
         return self._dsmag_onepass(u, v, w, zq, yq)
@@ -1864,7 +1969,7 @@ class Simulation:
         if self.has_scal:
             sca = state.s
             scae = self._zedge_scal(sca)
-        ye = yh = None
+        ye = yh = xh = None
         if self.ywalled:
             # the y rows of the same (post-correction) fill
             ye = (*yq, self._yedge_s(visct) if self.has_sgs else None,
@@ -1876,7 +1981,17 @@ class Simulation:
                self._xedge_p(p)) if self.xwalled else None)
         if xe is not None and self.has_scal:
             xe = (*xe, self._xedge_scal(sca))
-        if self.mesh is not None:
+        if self.xhalo:
+            # a pencil: the x neighbours' columns of the same fill, their
+            # rows -1 and nyl in the y exchange of the rows
+            fields, edges = (u, v, w, s, p), (ue, ve, we, se, pe)
+            hy, xh = self._pencil_halos(
+                [(q, e) for q, e in zip(fields, edges) if q is not None],
+                list(zip(fields, edges)))
+            if hy is not None:
+                h = iter(hy)
+                yh = tuple(None if q is None else next(h) for q in fields)
+        elif self.mesh is not None:
             # the neighbours' rows of the same fill and of the scalar, one
             # exchange; with x walls their x stacks' rows ride it
             fields, edges = (u, v, w, s, p, sca), (ue, ve, we, se, pe, scae)
@@ -1901,7 +2016,7 @@ class Simulation:
             None if first else ru_o, None if first else rv_o,
             None if first else rw_o, self.dzci_t, self.dzfi_t, f1, f2,
             cfg.visc, dxi, dyi, cfg.bforce, sums=self.sum_flags,
-            split=self.split, ye=ye, yh=yh, xe=xe, **scal_kw)
+            split=self.split, ye=ye, yh=yh, xe=xe, xh=xh, **scal_kw)
         u, v, w, ru, rv, rw, usum, vsum = outs[:8]
         scal = {}
         if self.has_scal:
@@ -1950,13 +2065,18 @@ class Simulation:
         xpred = (self._xedge_vel(u, v, w, fields=(0, 1, 2) if self.ywalled
                                  else (0, 2)) if self.xwalled else None)
         xu2 = None if xpred is None else xpred[0]
-        hv2 = (None if self.mesh is None
-               else self.mesh.halo_y([(v, ve2)])[0])
+        hv2 = hu2 = None
+        if self.xhalo:
+            # a pencil: v's y halo and u's x halo
+            hy, (hu2,) = self._pencil_halos([(v, ve2)], [(u, ue2)])
+            hv2 = None if hy is None else hy[0]
+        elif self.mesh is not None:
+            hv2 = self.mesh.halo_y([(v, ve2)])[0]
         if self.yown is not None:
             yv2 = bnd.slab_ystack(v, ve2, yv2, hv2, self.yown)
             hv2 = None
         rhs = kernels.fillps(u, v, w, ue2, ve2, we2, self.dzfi_t, 1.0 / dtrk,
-                             dxi, dyi, yv=yv2, yh=hv2, xu=xu2)
+                             dxi, dyi, yv=yv2, yh=hv2, xu=xu2, xh=hu2)
         rhs = poisson.add_rhs_bound(self.cfg_local, ('c', 'c', 'c'),
                                     self.cbcpre, rhs, self.rhsb_p)
         if self.mesh is None:
@@ -1966,8 +2086,13 @@ class Simulation:
         ppe = self._zedge_p(pp)
         ypp = self._yedge_p(pp) if self.ywalled else None
         xpp = self._xedge_p(pp) if self.xwalled else None
-        hpp = (None if self.mesh is None
-               else self.mesh.halo_y([(pp, ppe)])[0])
+        hpp = xhpp = None
+        if self.xhalo:
+            # a pencil: pp's y and x halos
+            hy, (xhpp,) = self._pencil_halos([(pp, ppe)], [(pp, ppe)])
+            hpp = None if hy is None else hy[0]
+        elif self.mesh is not None:
+            hpp = self.mesh.halo_y([(pp, ppe)])[0]
         # the kernels' pp stack: on a slab of a y-walled mesh the slab's
         # (the kept planes below take the wall recipe's, on its owner)
         ypp_k = ypp
@@ -1984,7 +2109,7 @@ class Simulation:
                 self.dzfi_t, fuv, alpha=alpha, impdiff=cfg.impdiff,
                 impdiff_1d=cfg.impdiff_1d, ypp=ypp_k,
                 yv=None if yv2 is None else yv2[0], yh=hpp, xpp=xpp,
-                xu=xu2)
+                xu=xu2, xh=xhpp)
         vlo = self._advance_wall_planes(state, pp, ppe, we2, dtrk,
                                         ypred=ypred, ypp=ypp, xpred=xpred,
                                         xpp=xpp)

@@ -52,15 +52,23 @@ on the real view of its lanes, timed in phase 2b) on one device at
 512x256x256 (phase 8f), and on the mesh the LES headline and the mixed
 dsmag duct at 512x256x256 (10ff, 10yf) and as small f64 cases the box
 LES with 'dit', the full-3D channel DNS and the wall-modelled duct (10tdf,
-10i3f, 10ywf).  Each phase's first line carries the seconds since the
-start.
+10i3f, 10ywf); then on the 2D pencil mesh dims (2, 2), four ranks that
+share the card, the LES headline by 'mat' and by 'fft' and the LES with
+impdiff_1d at 512x256x256 (10p, 10pf, 10pi: the x-halo variants of
+mom_rk, fillps, correc_updatep and smag, timed in phase 2b at the pencil
+(256, 128, 256), the Poisson solve re-slabbed), their small f64 twins and
+the 'none' channel's (10pn) against one device, and the LES example
+through the CLI with dims(1:2) = 2, 2 (10pc).  Each phase's first line
+carries the seconds since the start.
 
     python3 chip_smoke.py            # all phases, one card
 
 (``chip_smoke.py --sharded-rank DIR`` is one rank of the mesh phase 10,
 ``--sharded-les-rank DIR`` one of phases 10i to 10tf and
-``--sharded-les-rank DIR second`` one of phases 10i3 to 10ywf, which the
-script starts itself under torch.distributed.run.)
+``--sharded-les-rank DIR second`` one of phases 10i3 to 10ywf and
+``--pencil-rank DIR`` one of phases 10p to 10pn, which the script starts
+itself under torch.distributed.run; ``chip_smoke.py --pencil-nccl`` runs
+those phases alone on four cards, a card a rank over NCCL.)
 
 Exits non-zero without a CUDA device, or when any phase fails.  The last
 line of standard output is {"ok": true, "device": {...}}; the line before
@@ -221,6 +229,15 @@ SLAB_MODE_ROWS = {'wallmodel (y walls, slab)': ('wallmodel', '10yw'),
                   'smag (x and y walls, slab)': ('smag', '10xy'),
                   'mom_rk (scalar, x walls, y halo)': ('mom_rk', '10xs'),
                   'wallmodel (x walls, y halo)': ('wallmodel', '10xw')}
+# the pencil mesh's x-halo variants, timed in phase 2b at the headline's
+# pencil of dims (2, 2), (nx/2, ny/2, nz) (pencil_rows): report name ->
+# (kernel, the pencil phase whose rank-0 main path launches it)
+PENCIL_NG = (256, 128, 256)
+PENCIL_ROWS = {'mom_rk (x halo, y halo)': ('mom_rk', '10p'),
+               "mom_rk (x halo, y halo, '1d')": ('mom_rk', '10pi'),
+               'fillps (x halo, y halo)': ('fillps', '10p'),
+               'correc_updatep (x halo, y halo)': ('correc_updatep', '10p'),
+               'smag (x halo, y halo)': ('smag', '10p')}
 # the mixed route's y stage (ptransform 'fft' with y walls, phase 8f and
 # the mesh classes 10yf, 10ywf): apply_y with the y DCT alone on the real
 # view of the rfft's lanes at the headline grid, (nz, ny, 2 (nx/2 + 1)),
@@ -1173,6 +1190,7 @@ def phase_kernels(dev, card):
     rows.update(slab_imp3d_x_rows(dev, card))
     rows.update(slab_xy_rows(dev, card))
     rows.update(real_view_rows(dev, card))
+    rows.update(pencil_rows(dev, card))
     return rows
 
 
@@ -1929,6 +1947,89 @@ def slab_imp3d_x_rows(dev, card):
                 (*WORK['smag'], (h[:3], xe[:3], xwall, tz)))
         del sim, a, kw, u, v, w, p, pp, ru, rv, rw, s, zq, xq, xs, xh, xe, h
         torch.cuda.empty_cache()
+    return rows
+
+
+def pencil_rows(dev, card):
+    """Phase 2b's rows of the pencil mesh's x-halo variants (PENCIL_ROWS,
+    the mesh phase 10p, dims (2, 2)) at the headline's pencil, (nx/2,
+    ny/2, nz), on seeded random fields, y halos and x halos (their rows
+    -1 and nyl too), each by _check_row (float32 within 1e-5 of its twin,
+    float64 within 1e-12), its bound the bytes (each input, halo and
+    output once) or the arithmetic: mom_rk's X_HALO x Y_HALO explicit with
+    nu_t and with the '1d' split (the LES with impdiff_1d), fillps's,
+    correc_updatep's (impdiff_1d's p update) and smag's with the z walls'
+    van Driest."""
+    from cales_torch.config import Config
+    from cales_torch.grid import make_grid_from_config
+    from cales_torch.ops import kernels as K
+    from cales_torch.timeloop import Simulation
+    f32 = torch.float32
+    nx, nyl, nz = PENCIL_NG
+    cells = nx * nyl * nz
+    gen = torch.Generator(device=dev).manual_seed(SEED + 41)
+
+    def rnd(*sz, scale=0.02):
+        return scale * torch.randn(sz, generator=gen, device=dev, dtype=f32)
+
+    def yhalo():
+        return (rnd(nz, 2, nx), rnd(3, 2, nx))
+
+    def xhalo():
+        return (rnd(nz, 3, nyl + 2), rnd(3, 3, nyl + 2))
+
+    def row_of(row, fn, twin, a, kw, totals, work):
+        nbytes = ((work[0] + work[1]) * cells * 4
+                  + sum(q.numel() * q.element_size()
+                        for q in _flat((kw.get('yh'), kw.get('xh')))))
+        return _check_row(row, fn, twin, a, kw, totals,
+                          lambda: (nbytes, work[2] * cells), card,
+                          PENCIL_NG)
+    cfg = Config(**{**LES_IMP_CFG, 'ng': PENCIL_NG, 'dims': (1, 1),
+                    'dtype': 'float32'})
+    sim = Simulation(cfg, make_grid_from_config(cfg), device=dev)
+    dxi, dyi = cfg.dli[0], cfg.dli[1]
+    say(f'phase 2b: the pencil mesh\'s x-halo variants at the pencil (nx/2, '
+        f'ny/2, nz) = {PENCIL_NG} of dims (2, 2), float32, against their '
+        f'twins in float32 and float64  [{card}]')
+    rows = {}
+    u, v, w, p, pp, ru, rv, rw = (rnd(nz, nyl, nx) for _ in range(8))
+    s = rnd(nz, nyl, nx, scale=1e-3).abs()
+    e = [rnd(3, nyl, nx) for _ in range(3)]
+    se, pe, ppe = rnd(3, nyl, nx, scale=1e-3).abs(), rnd(3, nyl, nx), \
+        rnd(3, nyl, nx)
+    yh = [yhalo() for _ in range(5)]
+    xh = [xhalo() for _ in range(5)]
+
+    def mom_totals(res):
+        return [*res[:6], res[6].sum(dim=1)]
+    for row, split in (('mom_rk (x halo, y halo)', None),
+                       ("mom_rk (x halo, y halo, '1d')", '1d')):
+        a = (u, v, w, s, p, *e, se, pe, ru, rv, rw, sim.dzci_t, sim.dzfi_t,
+             0.01, -0.005, cfg.visc, dxi, dyi, cfg.bforce)
+        kw = dict(sums=(True, False), split=split, yh=tuple(yh),
+                  xh=tuple(xh))
+        rows[row] = row_of(row, K.mom_rk, K.mom_rk_plain, a, kw, mom_totals,
+                           WORK['mom_rk'])
+    a = (u, v, w, *e, sim.dzfi_t, 100.0, dxi, dyi)
+    rows['fillps (x halo, y halo)'] = row_of(
+        'fillps (x halo, y halo)', K.fillps, K.fillps_plain, a,
+        dict(yh=yh[1], xh=xh[0]), list, WORK['fillps'])
+    a = (u, v, w, pp, p, e[2], ppe, 0.01, dxi, dyi, sim.dzci_t, sim.dzfi_t)
+    kw = dict(alpha=ALPHA * 0.01, impdiff=True, impdiff_1d=True,
+              yh=yhalo(), xh=xhalo())
+    rows['correc_updatep (x halo, y halo)'] = row_of(
+        'correc_updatep (x halo, y halo)', K.correc_updatep,
+        K.correc_updatep_plain, a, kw, list,
+        WORK_VARIANT[('correc_updatep', 'impdiff')])
+    tz = tuple(1e-2 * (1.0 + rnd(nyl, nx).abs()) for _ in range(2))
+    a = (u, v, w, *e, sim.dzci_t, sim.dzfi_t, dxi, dyi, cfg.visc,
+         sim.csd2_t, sim.dw_t, sim.nearlo_t, *tz)
+    rows['smag (x halo, y halo)'] = row_of(
+        'smag (x halo, y halo)', K.smag, K.smag_plain, a,
+        dict(yh=tuple(yh[:3]), xh=tuple(xh[:3])), list, WORK['smag'])
+    del sim, u, v, w, p, pp, ru, rv, rw, s, e, se, pe, ppe, yh, xh
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -3702,20 +3803,24 @@ def phase_sharded(dev, card):
     return r0['launches'], r0['halo_rows']
 
 
-def phase_cli_mesh(card):
+def phase_cli_mesh(card, dims=(2, 1), transport='gloo'):
     """The LES example through the CLI under torch.distributed.run with
-    dims(1:2) = 2, 1 on a temporary copy of its namelist."""
+    dims(1:2) = gy, gx on a temporary copy of its namelist (phase 10c on
+    the y slabs, 10pc on the pencils), over `transport`."""
+    gy, gx = dims
     nml = (ROOT / 'examples' / 'turbulent_channel_les' / 'input.nml'
            ).read_text()
     require('dims(1:2) = 0, 0' in nml, 'the LES example lost its dims line')
     with tempfile.TemporaryDirectory() as tmp:
         path = Path(tmp) / 'input.nml'
-        path.write_text(nml.replace('dims(1:2) = 0, 0', 'dims(1:2) = 2, 1'))
+        path.write_text(nml.replace('dims(1:2) = 0, 0',
+                                    f'dims(1:2) = {gy}, {gx}'))
         cmd = [sys.executable, '-m', 'torch.distributed.run', '--standalone',
-               '--nproc_per_node', '2', '-m', 'cales_torch', str(path),
-               '--transport', 'gloo', '--max-steps', '3', '--datadir',
-               str(Path(tmp) / 'data')]
-        say(f'phase 10c: {" ".join(cmd[1:])}  [{card}]')
+               '--nproc_per_node', str(gy * gx), '-m', 'cales_torch',
+               str(path), '--transport', transport, '--max-steps', '3',
+               '--datadir', str(Path(tmp) / 'data')]
+        tag = 'phase 10c' if gx == 1 else 'phase 10pc'
+        say(f'{tag}: {" ".join(cmd[1:])}  [{card}]')
         env = dict(os.environ)
         env.setdefault('GLOO_SOCKET_IFNAME', 'lo')
         t0 = time.perf_counter()
@@ -3728,9 +3833,10 @@ def phase_cli_mesh(card):
         require(res.returncode == 0, f'CLI on the mesh failed:\n'
                                      f'{res.stderr[-3000:]}')
         path_line = [ln for ln in lines if 'Execution path' in ln]
-        require(len(path_line) == 1 and all(
-            k in path_line[0] for k in ('apply_x', 'smag', 'dims = (2, 1)',
-                                        'staged')),
+        want = ('apply_x', 'smag', f'dims = ({gy}, {gx})',
+                'staged' if transport == 'gloo' else 'nccl') + (
+            () if gx == 1 else ('x halos', 're-slabbed'))
+        require(len(path_line) == 1 and all(k in path_line[0] for k in want),
                 'the Execution path line (rank 0 alone) does not name the '
                 'mesh path')
         require((Path(tmp) / 'data' / 'fld.bin').exists(), 'no fld.bin')
@@ -3742,8 +3848,10 @@ def phase_cli_mesh(card):
 # checks' wall model, the initial nu_t's dsmag), the slab kernel variant
 # it brings held against its twin on its own state, and a small float64
 # twin on the mesh held against the single-device run.  (key, title,
-# config, report row, per step, outside)
-MESH_LES_STEPS = 2
+# config, report row, per step, outside); one step of driver.run each,
+# so that the script, with the pencil mesh's four-rank phases, stays near
+# half its time limit
+MESH_LES_STEPS = 1
 # the mesh classes' timed steps after their driver.run (host clock)
 MESH_TIMED = 1
 MESH_CLASSES = (
@@ -4328,8 +4436,8 @@ def _small_vs_one_device(tag, kw, small, dev):
     st = sim.initial_state(*_perturbed_fields(cfg1, SEED + 5))
     for _ in range(MESH_SMALL_STEPS):
         st, _ = sim.step(st, float(small['dt']))
-    say(f'  {tag}: gy = 2 against one device, {cfg1.ng} float64, '
-        f'{MESH_SMALL_STEPS} steps, on the card:')
+    say(f'  {tag}: dims {tuple(kw["dims"])} against one device, {cfg1.ng} '
+        f'float64, {MESH_SMALL_STEPS} steps, on the card:')
     names = (('u', 'v', 'w', 'p', 'visct')
              + (('s',) if cfg1.scalar else ())
              + (('vlo0',) if sim.xwalled else ())
@@ -4563,6 +4671,187 @@ def phase_sharded_les(dev, card):
     return launches, rows
 
 
+# the channel classes on the 2D pencil mesh dims (2, 2) (phases 10p, 10pf,
+# 10pi): four ranks on the one card over gloo, each class at the headline
+# grid in float32 through driver.run with exact launches a rank (the
+# x-halo variants of mom_rk, fillps, correc_updatep and smag, the re-slab
+# around the slab route's kernels on 4 y slabs), the PERF.md section 2
+# gates and one timed step; and the small float64 twins of the LES by
+# 'mat' and by 'fft', the 'none' channel and the LES with impdiff_1d
+# against one device on the card within 1e-11.  (key, title, config, per
+# step)
+PENCIL_DIMS = (2, 2)
+PENCIL_STEPS = 2
+PENCIL_CLASSES = (
+    ('10p', "LES headline by 'mat' (phase 10's)", dict(MESH_CFG,
+                                                     dims=PENCIL_DIMS),
+     dict(mom_rk=3, fillps=3, correc_updatep=3, smag=3, apply_x=6,
+          apply_y=6, thomas_z=3)),
+    ('10pf', "LES headline by 'fft' (bench.py channel_les_smag, phase 4)",
+     dict(LES_CFG, dims=PENCIL_DIMS, **CHAN_BCS),
+     dict(mom_rk=3, fillps=3, correc_updatep=3, smag=3)),
+    ('10pi', 'LES with impdiff_1d (phase 5\'s LES_IMP_CFG)',
+     dict(LES_IMP_CFG, dims=PENCIL_DIMS),
+     dict(mom_rk=3, fillps=3, correc_updatep=3, smag=3, apply_x=6,
+          apply_y=6, thomas_z=12)))
+# the small float64 twins: the classes' and the 'none' channel's
+PENCIL_SMALL = tuple(c[:3] for c in PENCIL_CLASSES) + (
+    ('10pn', "'none' channel by 'mat'",
+     dict(MESH_CFG, sgstype='none', dims=PENCIL_DIMS)),)
+
+
+def pencil_rank(out_dir, transport='gloo'):
+    """pencil_rank_body, with a failure's traceback written to
+    DIR/rank<r>.err for the parent to show."""
+    try:
+        return pencil_rank_body(out_dir, transport)
+    except BaseException:
+        import traceback
+        rank = os.environ.get('RANK', '?')
+        (Path(out_dir) / f'rank{rank}.err').write_text(traceback.format_exc())
+        raise
+
+
+def pencil_rank_body(out_dir, transport='gloo'):
+    """One rank of phases 10p, 10pf and 10pi (started under
+    torch.distributed.run, four ranks on the one card over gloo, staged
+    through pinned host buffers, or with transport 'nccl' a card a rank):
+    each class at the headline grid through
+    driver.run with every launch count set to 0 just before and read just
+    after, its gates, its ms/step over MESH_TIMED steps, then the small
+    f64 twins (PENCIL_SMALL), whose gathered fields rank 0 writes for the
+    parent."""
+    from cales_torch import driver
+    from cales_torch.parallel import mesh as meshmod
+    out_dir = Path(out_dir)
+    first = _class_cfg(PENCIL_CLASSES[0][2])
+    mesh, dev = meshmod.from_env(first.dims, first.ng, 'cuda', transport)
+    card = card_line()
+    rank = mesh.rank
+    res = {'rank': rank, 'card': card}
+    for key, _, kw, _ in PENCIL_CLASSES:
+        cfg = _class_cfg(kw)
+        m = meshmod.SlabMesh(mesh.comm, cfg.dims, cfg.ng)
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        sim, state = driver.run(cfg, datadir=out_dir / key, device=dev,
+                                mesh=m, max_steps=PENCIL_STEPS,
+                                verbose=False)
+        torch.cuda.synchronize()
+        r = {'launches': counts(), 'steps': PENCIL_STEPS,
+             'wall_s': time.perf_counter() - t0}
+        if rank == 0:
+            say(f'  phase {key} path: {sim.exec_path()}')
+        dt = sim.pick_dt(sim.check(state)[0])
+        torch.cuda.synchronize()
+        m.barrier()
+        t0 = time.perf_counter()
+        for _ in range(MESH_TIMED):
+            state, _ = sim.step(state, dt)
+        torch.cuda.synchronize()
+        m.barrier()
+        r['ms_per_step'] = (time.perf_counter() - t0) * 1e3 / MESH_TIMED
+        r.update(_mesh_gates(sim, state, m))
+        r['peak_gib'] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        res[key] = r
+        del sim, state
+        torch.cuda.empty_cache()
+    for key, _, kw in PENCIL_SMALL:
+        _mesh_small(key, kw, mesh, dev, out_dir)
+    (out_dir / f'rank{rank}.json').write_text(json.dumps(res))
+    mesh.barrier()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def phase_pencil(dev, card, transport='gloo'):
+    """Phases 10p, 10pf and 10pi: the LES headline by 'mat' and by 'fft'
+    and the LES with impdiff_1d on the 2D pencil mesh dims (2, 2), four
+    ranks sharing the one card over gloo staged through the host (a
+    correctness run: the staging and the four ranks' time-sharing of the
+    card make its ms/step no scaling figure), each at 512x256x256 f32 with
+    exact launches a rank and the PERF.md section 2 gates; the small f64
+    twins of the three and of the 'none' channel against one device on the
+    card within 1e-11 (phase 10pn the 'none' channel's); then the LES
+    example through the CLI with dims(1:2) = 2, 2 (10pc).  With transport
+    'nccl' (`chip_smoke.py --pencil-nccl`, four cards) the same on a card a
+    rank, its ms/step a scaling figure.  Returns {key: rank 0's
+    launches}."""
+    torch.cuda.empty_cache()
+    env = dict(os.environ)
+    env.setdefault('GLOO_SOCKET_IFNAME', 'lo')
+    nr = PENCIL_DIMS[0] * PENCIL_DIMS[1]
+    keys = [k for k, *_ in PENCIL_CLASSES]
+    where = ('ranks on one card (gloo, staged through the host)'
+             if transport == 'gloo' else 'ranks, a card each (NCCL)')
+    say(f'phases {", ".join(keys)}: the channel classes on the pencil mesh '
+        f'dims {PENCIL_DIMS}, {HEADLINE_NG} float32, {nr} {where}  [{card}]')
+    with tempfile.TemporaryDirectory() as tmp:
+        cmd = [sys.executable, '-m', 'torch.distributed.run', '--standalone',
+               '--nproc_per_node', str(nr), str(ROOT / 'chip_smoke.py'),
+               '--pencil-rank', tmp, transport]
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, capture_output=True, text=True, cwd=ROOT,
+                             timeout=900, env=env)
+        say(f'  torch.distributed.run exit {res.returncode} after '
+            f'{time.perf_counter() - t0:.1f} s (limit 900 s)')
+        for line in res.stdout.splitlines():
+            say(f'  | {line}')
+        errs = ''.join(f'rank {r}:\n{q.read_text()}' for r in range(nr)
+                       for q in [Path(tmp) / f'rank{r}.err'] if q.exists())
+        require(res.returncode == 0, f'a rank of phases 10p-10pi failed:\n'
+                                     f'{errs or res.stderr[-4000:]}')
+        ranks = [json.loads((Path(tmp) / f'rank{r}.json').read_text())
+                 for r in range(nr)]
+        smalls = {key: dict(np.load(Path(tmp) / f'small_{key}.npz'))
+                  for key, *_ in PENCIL_SMALL}
+    small_eps = float(np.sqrt(np.finfo(np.float32).eps) * 10)
+    launches, report = {}, {}
+    for key, title, kw, per_step in PENCIL_CLASSES:
+        tag = f'phase {key}: {title}, dims {PENCIL_DIMS}'
+        for rk in ranks:
+            for name, n in rk[key]['launches'].items():
+                want = per_step.get(name, 0) * PENCIL_STEPS
+                require(n == want, f'{tag} rank {rk["rank"]}: {name} '
+                                   f'launched {n} times, want {want}')
+        r0 = ranks[0][key]
+        launches[key] = r0['launches']
+        say(f'{tag}: rank 0 launches {r0["launches"]} in {PENCIL_STEPS} '
+            f'steps; {r0["ms_per_step"]:.3f} ms/step over {MESH_TIMED} '
+            + (f'(host clock; {nr} ranks time-share the card and stage '
+               'every collective through the host)' if transport == 'gloo'
+               else '(host clock; a card a rank, NCCL)')
+            + f', driver.run {r0["wall_s"]:.1f} s'
+            f'; divmax {r0["divmax"]:.3e}, bulk u {r0["bulk_u"]:.7f}, nu_t '
+            f'in [{r0["nu_t_min"]:.4e}, {r0["nu_t_max"]:.4e}], max |w| on '
+            f'the z walls {r0["w_walls"]:.3e}; peak memory a rank '
+            + ', '.join(f'{rk[key]["peak_gib"]:.2f}' for rk in ranks)
+            + f' GiB  [{card}]')
+        require(r0['finite'] == 1.0, f'{tag}: non-finite field')
+        require(r0['divmax'] <= small_eps, f'{tag}: divmax '
+                                           f'{r0["divmax"]:.3e}')
+        require(abs(r0['bulk_u'] - 1.0) <= 1e-4,
+                f'{tag}: bulk u {r0["bulk_u"]:.7f}, want 1')
+        require(r0['nu_t_min'] >= 0.0 and r0['nu_t_max'] > 0.0,
+                f'{tag}: nu_t in [{r0["nu_t_min"]}, {r0["nu_t_max"]}]')
+        require(r0['w_walls'] <= 1e-6, f'{tag}: w on the walls '
+                                       f'{r0["w_walls"]:.3e}')
+        report[key] = {k: r0[k] for k in ('ms_per_step', 'divmax', 'bulk_u',
+                                           'nu_t_min', 'nu_t_max',
+                                           'w_walls', 'wall_s')} | {
+            'peak_gib_per_rank': [rk[key]['peak_gib'] for rk in ranks],
+            'card': card}
+    for key, title, kw in PENCIL_SMALL:
+        tag = f'phase {key}: {title}'
+        report.setdefault(key, {'card': card}).update(_small_vs_one_device(
+            tag, kw, smalls[key], dev))
+    print(json.dumps({'pencil_classes_2x2': report | {
+        'transport': transport}}), flush=True)
+    phase_cli_mesh(card, PENCIL_DIMS, transport)
+    return launches
+
+
 def main():
     if len(sys.argv) == 3 and sys.argv[1] == '--sharded-rank':
         sys.path.insert(0, str(ROOT))
@@ -4570,6 +4859,9 @@ def main():
     if len(sys.argv) in (3, 4) and sys.argv[1] == '--sharded-les-rank':
         sys.path.insert(0, str(ROOT))
         return sharded_les_rank(sys.argv[2], sys.argv[3:] == ['second'])
+    if len(sys.argv) in (3, 4) and sys.argv[1] == '--pencil-rank':
+        sys.path.insert(0, str(ROOT))
+        return pencil_rank(sys.argv[2], *sys.argv[3:])
     say(f'python {sys.version.split()[0]}, torch {torch.__version__}, '
         f'CUDA {torch.version.cuda}, cuda available: '
         f'{torch.cuda.is_available()}')
@@ -4587,6 +4879,13 @@ def main():
     build.load()
     say(f'phase 1: kernels built and loaded in {time.perf_counter() - t0:.1f} s '
         f'({build.BUILD_ROOT / build.source_hash()})')
+    if sys.argv[1:] == ['--pencil-nccl']:
+        # the pencil phase alone on four cards, a card a rank over NCCL
+        require(torch.cuda.device_count() >= 4, '--pencil-nccl needs four '
+                                                'cards')
+        phase_pencil(dev, card, 'nccl')
+        print(card_line(), flush=True)
+        return 0
     rows = phase_kernels(dev, card)
     # the examples through the CLI, all at once: the channel LES, the duct
     # LES, the Taylor-Green vortex, the wall-modelled channel and duct, and
@@ -4630,6 +4929,7 @@ def main():
     rows.update(halo_rows)
     les_mesh, les_mesh_rows = phase_sharded_les(dev, card)
     rows.update(les_mesh_rows)
+    pencil = phase_pencil(dev, card)
     # each kernel's launches on the main path that runs it: the dsmag
     # channel (5 steps), or the LES (31 steps) for correc_smag, or the
     # smag + impdiff_1d LES (5 steps) for smag, or the TGV by 'mat' (5
@@ -4682,6 +4982,10 @@ def main():
     for row, (name, key) in SLAB_MODE_ROWS.items():
         paths[row] = (les_mesh[key], MESH_SMALL_STEPS if key in small_only
                       else MESH_LES_STEPS, name)
+    # the pencil mesh's x-halo variants on its phases (rank 0,
+    # PENCIL_STEPS steps)
+    for row, (name, key) in PENCIL_ROWS.items():
+        paths[row] = (pencil[key], PENCIL_STEPS, name)
     # apply_y on the mixed route's real view: on the one-device duct by
     # 'fft' (phase 8f, 5 steps)
     for row, name in REAL_VIEW_ROWS.items():
@@ -4734,7 +5038,8 @@ def main():
                **{row: KERNELS[n] for row, n in MESH_LES_ROWS.items()},
                **{row: KERNELS[n] for row, (n, _) in WALLED_SLAB_ROWS.items()},
                **{row: KERNELS[n] for row, (n, _) in SLAB_MODE_ROWS.items()},
-               **{row: KERNELS[n] for row, n in REAL_VIEW_ROWS.items()}}
+               **{row: KERNELS[n] for row, n in REAL_VIEW_ROWS.items()},
+               **{row: KERNELS[n] for row, (n, _) in PENCIL_ROWS.items()}}
     report = {'kernels': [
         dict(name=row, route='cuda', source=sources[row][0],
              replaces=sources[row][1], launches=run[name],

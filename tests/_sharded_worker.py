@@ -1,11 +1,13 @@
-"""One rank of the y-slab mesh checks of tests/test_torch_sharded.py.
+"""One rank of the device-mesh checks of tests/test_torch_sharded.py and
+tests/test_torch_pencil*.py.
 
     python tests/_sharded_worker.py <workdir> <rank> <world_size>
 
 Starts a gloo process group on a ``file://`` store in <workdir>, reads the
 cases of <workdir>/cases.json with their inputs in <workdir>/in.npz, runs
 them (each with the environment variables of its 'env', if any) on this
-rank's slabs on the CPU (the kernels' plain twins) and, on
+rank's slabs, or with a case's 'dims' (gy, gx) its pencils, on the CPU
+(the kernels' plain twins) and, on
 rank 0, writes what the test compares to <workdir>/out.npz.  It imports
 torch and cales_torch only: the JAX references stay in the test process.
 """
@@ -28,7 +30,8 @@ def _mesh(work, rank, world):
     comm.init_process_group('gloo', rank, world,
                             init_method=f'file://{work}/store')
     c = comm.Comm('gloo', torch.device('cpu'))
-    return lambda ng: mesh.SlabMesh(c, (world, 1), ng)
+    return lambda ng, dims=None: mesh.SlabMesh(
+        c, tuple(dims) if dims else (world, 1), ng)
 
 
 def case_comm(m, inp, out, key):
@@ -46,6 +49,26 @@ def case_comm(m, inp, out, key):
              'back': back.permute(1, 2, 0, 3).reshape(loc.shape),
              'total': total,
              'peak': torch.tensor(peak, dtype=torch.float64)}
+    for name, t in parts.items():
+        gathered = m.comm.all_gather(t.contiguous())
+        out[f'{key}.{name}'] = np.stack([q.numpy() for q in gathered])
+
+
+def case_pencil_comm(m, inp, out, key):
+    """On a pencil mesh: a global field's x halo (mesh.halo_x) with its
+    rows -1 and nyl from the y exchange (timeloop._pencil_halos' path), its
+    y halo, and the re-slab of the Poisson solve there and back."""
+    from cales_torch.timeloop import _xstack_halo_pairs, _xstacks_on_slab
+    g = torch.as_tensor(inp[f'{key}.field'])
+    e = torch.as_tensor(inp[f'{key}.edge'])
+    loc, eloc = m.local(g), m.local(e)
+    xs = m.halo_x([(loc, eloc)])
+    h = m.halo_y([(loc, eloc)] + _xstack_halo_pairs(xs))
+    (cols, corners), = _xstacks_on_slab(xs, h[1:])
+    slab = m.pencil_to_slab(loc)
+    parts = {'xcols': cols, 'xcorners': corners, 'rows': h[0][0],
+             'corners': h[0][1], 'slab': slab,
+             'back': m.slab_to_pencil(slab)}
     for name, t in parts.items():
         gathered = m.comm.all_gather(t.contiguous())
         out[f'{key}.{name}'] = np.stack([q.numpy() for q in gathered])
@@ -135,7 +158,11 @@ def case_steps(m, inp, out, key, kw, nsteps):
             st.time, st.istep)
     # the kept wall planes: v's lower y face from rank 0 (the lower y
     # wall's owner), w's lower z face over the slabs' rows, its y ghost
-    # rows from the ranks that own the y walls
+    # rows from the ranks that own the y walls; on a pencil mesh w's
+    # lower z face's interior
+    if m.gx > 1:
+        out[f'{key}.vlo2i'] = m.gather(
+            st.vlo[2][None, 1:-1, 1:-1].contiguous())[0]
     out[f'{key}.vlo1'] = st.vlo[1].numpy()
     # u's lower x face over the slabs' rows (its y ghost rows, periodic
     # copies that no fill reads, stay out)
@@ -237,10 +264,12 @@ def main(work, rank, world):
         # a case's environment (CALES_DSMAG_TWOPASS) for its run only
         saved = {k: os.environ.get(k) for k in case.get('env', {})}
         os.environ.update(case.get('env', {}))
-        m = make(tuple(case['ng']))
+        m = make(tuple(case['ng']), case.get('dims'))
         kind = case['kind']
         if kind == 'comm':
             case_comm(m, inp, out, case['key'])
+        elif kind == 'pencil_comm':
+            case_pencil_comm(m, inp, out, case['key'])
         elif kind == 'halo2':
             case_halo2(m, inp, out, case['key'])
         elif kind == 'solve':

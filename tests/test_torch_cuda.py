@@ -2907,3 +2907,76 @@ def test_card_matches_cpu_fft_routes(dev, case):
     for m in (1, 2):
         assert float((g.vlo[m].cpu() - c.vlo[m]).abs().max()) <= 1e-11
     _rel_close(g.visct.cpu(), c.visct, 1e-10)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('yhalo', [True, False], ids=['y halo', 'periodic y'])
+@pytest.mark.parametrize('dtype, shape', [
+    ('float64', (37, 13, 9)), ('float64', (34, 2, 12)),
+    ('float32', (37, 21, 9)), ('float32', (33, 2, 12))])
+def test_cuda_pencil_x_halo_variants_match_twins(dev, dtype, shape, yhalo):
+    """A pencil of the 2D mesh (random x halos with random rows -1 and nyl,
+    and random y halos or, with gy = 1, periodic y) on (nxp, nyl, nz)
+    shapes no tile fits and slabs of 2 rows: the x-halo variants (X_HALO)
+    of mom_rk (explicit and '1d', with and without nu_t), fillps,
+    correc_updatep (explicit, impdiff_1d and the full-3D p update, which
+    reads pp's x halo on both sides) and smag (z walls' van Driest),
+    each against its twin: float64 within 1e-12 of each output's maximum,
+    float32 within 1e-5."""
+    nx, ny, nz = shape
+    dt = getattr(torch, dtype)
+    tol = 1e-12 if dt == torch.float64 else 1e-5
+    rng = np.random.default_rng(53)
+
+    def c(q):
+        return q.to(dt).contiguous()
+
+    def r(*s, scale=0.1):
+        return c(torch.as_tensor(scale * rng.standard_normal(s), device=dev))
+    d = _sgs_inputs(dev, shape, 54)
+    fields, edges = [c(q) for q in d['fields']], [c(e) for e in d['edges']]
+    dzci, dzfi = c(d['dzci']), c(d['dzfi'])
+
+    def H():
+        return (r(nz, 2, nx), r(3, 2, nx)) if yhalo else None
+
+    def X():
+        return (r(nz, 3, ny + 2), r(3, 3, ny + 2))
+    K.reset_launches()
+    s, p, pp = r(nz, ny, nx).abs(), r(nz, ny, nx), r(nz, ny, nx)
+    hy, hx = [H() for _ in range(5)], [X() for _ in range(5)]
+    for sgs in (True, False):
+        for split in (None, '1d'):
+            mom = (*fields, s if sgs else None, p, *edges,
+                   r(3, ny, nx) if sgs else None, r(3, ny, nx),
+                   *(r(nz, ny, nx) for _ in range(3)), dzci, dzfi, 5e-4,
+                   -2e-4, d['visc'], d['dxi'], d['dyi'], (0.1, 0.0, 0.0))
+            yh = None if not yhalo else (
+                tuple(hy) if sgs else (*hy[:3], None, hy[4]))
+            xh = tuple(hx) if sgs else (*hx[:3], None, hx[4])
+            kw = dict(sums=(True, True), split=split, yh=yh, xh=xh)
+            got, ref = K.mom_rk(*mom, **kw), K.mom_rk_plain(*mom, **kw)
+            for g, q in zip(got[:6], ref[:6]):
+                _rel_close(g, q, tol)
+            _rel_close(got[6].sum(1), ref[6][:, 0], tol)
+            _rel_close(got[7].sum(1), ref[7][:, 0], tol)
+    fil = (*fields, *edges, dzfi, 40.0, d['dxi'], d['dyi'])
+    fkw = dict(yh=H(), xh=X())
+    _rel_close(K.fillps(*fil, **fkw), K.fillps_plain(*fil, **fkw), tol)
+    cor = (*fields, pp, p, edges[2], r(3, ny, nx), 5e-4, d['dxi'], d['dyi'],
+           dzci, dzfi)
+    for imp, imp1 in ((False, False), (True, True), (True, False)):
+        ckw = dict(alpha=-3e-4, impdiff=imp, impdiff_1d=imp1, yh=H(),
+                   xh=X(), fuv=c(torch.tensor([0.01, -0.02], device=dev)))
+        for g, q in zip(K.correc_updatep(*cor, **ckw),
+                        K.correc_updatep_plain(*cor, **ckw)):
+            _rel_close(g, q, tol)
+    tz = tuple(r(ny, nx, scale=1.0).abs() for _ in range(2))
+    smg = (*fields, *edges, dzci, dzfi, d['dxi'], d['dyi'], d['visc'],
+           c(d['csd2']), c(d['dw']), c(d['nearlo']), *tz)
+    skw = dict(yh=tuple(H() for _ in range(3)) if yhalo else None,
+               xh=tuple(X() for _ in range(3)))
+    _rel_close(K.smag(*smg, **skw), K.smag_plain(*smg, **skw), tol)
+    torch.cuda.synchronize()
+    assert (K.LAUNCHES['mom_rk'], K.LAUNCHES['fillps'],
+            K.LAUNCHES['correc_updatep'], K.LAUNCHES['smag']) == (4, 1, 3, 1)

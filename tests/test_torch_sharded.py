@@ -327,7 +327,9 @@ def test_slab_with_cut_halos_is_the_whole_fields_rows():
 
 
 @pytest.mark.parametrize('change, needle', [
-    (dict(dims=(2, 2)), 'gx > 1'),
+    # a pencil mesh (gx > 1) runs the 'none' and smag channels; dsmag
+    # there waits for the two-deep x halo
+    (dict(dims=(2, 2), sgstype='dsmag', dsmag_avg='channel'), 'gx > 1'),
     (dict(dims=(3, 1)), 'not divisible by gy'),
     # x and y walls with the z walls' wall model, and x walls with dsmag
     # (refused on one device too)
@@ -364,6 +366,8 @@ def test_mesh_refusals(change, needle):
 def test_mesh_slice_is_supported():
     assert unsupported(Config(**SMAG, dims=(2, 1))) == []
     assert unsupported(Config(**NONE, dims=(4, 1))) == []
+    # the channel on a pencil mesh (gx > 1)
+    assert unsupported(Config(**SMAG, dims=(2, 2))) == []
     # the channel DNS and LES with impdiff_1d, the wall-modelled channel,
     # the one-pass dynamic Smagorinsky channel ('channel' and 'dit',
     # explicit and impdiff_1d), with the 2D test filter and by the two

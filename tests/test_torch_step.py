@@ -184,9 +184,10 @@ def test_exec_path_names_device_kernels_and_solve(pair):
     # the scalar on a mesh takes the letters one device admits
     (dict(scalar=True, dims=(2, 1),
           cbcscal=(('P', 'N', 'N'), ('P', 'N', 'N'))), 'scalar'),
-    # this 'fft' LES runs on the y-slab mesh (test_torch_sharded_fft.py);
-    # the x-split pencil mesh stays refused
-    (dict(dims=(2, 2)), 'mesh'),
+    # this 'fft' LES runs on the y-slab mesh (test_torch_sharded_fft.py)
+    # and on the pencil mesh (test_torch_pencil_steps.py); dsmag on the
+    # pencil mesh stays refused
+    (dict(dims=(2, 2), sgstype='dsmag'), 'mesh'),
     (dict(sgstype='none', cbcvel=((('P', 'P', 'P'), ('D', 'D', 'D'),
                                    ('P', 'P', 'P')),) * 2,
           cbcpre=(('P', 'N', 'P'),) * 2, cbcsgs=(('P', 'D', 'P'),) * 2),
