@@ -108,7 +108,13 @@ Driest inputs), 'mom_rk halo scal x walls' (SCAL x XW x Y_HALO against
 the whole field's SCAL x XW of periodic y) and 'wallmodel halo x walls'
 (the developing WMLES's z faces with its 1/7-power inflow profile, each
 slab's XW x YH mode with its y halos and its rows of the profile, against
-the whole field's XW mode).
+the whole field's XW mode); and the x-halo modes of the pencil mesh
+(PENCIL: this checkout's on the four pencils of dims (2, 2), their halos
+the field's rows and columns, joined, against the baseline's whole-field
+kernel): 'dsmag pencil' and 'dsmag pencil zp' (dsmag XH x YH, with ZP
+too, against the periodic 'channel' and ZP modes: |S|) and 'mom_rk
+pencil xy+z' (X_HALO x Y_HALO with nu_t and the 'xy+z' split against the
+periodic 'xy+z'; its partial sums as per-plane totals).
 Outputs are compared in float64 at (nx, ny, nz) = (72, 40, 48) and in
 float32 at --ng (bitwise, and max|this - baseline| / max|baseline|, the
 worst output); mom_rk's partial sums, whose parts differ (blocks of 256
@@ -166,16 +172,20 @@ CASES = ('channel', 'duct', 'cavity', 'channel y walls', 'duct periodic y',
          *('mom_rk slab x+y walls', 'mom_rk slab x+y walls nu_t',
            'fillps slab x+y walls', 'correc_updatep slab x+y walls',
            'smag slab x+y walls', 'mom_rk halo scal x walls',
-           'wallmodel halo x walls'))
+           'wallmodel halo x walls'),
+         *('dsmag pencil', 'dsmag pencil zp', 'mom_rk pencil xy+z'))
 # the x-walled fillps, correc_updatep and smag with periodic y (both
 # checkouts on the whole field), and the slab modes of full-3D implicit
 # diffusion and of x walls on the mesh ('halo': this checkout's on two
 # slabs, joined, against the baseline's whole-field kernel)
-SLAB_3D_X = CASES[-18:-7]
+SLAB_3D_X = CASES[-21:-10]
 # the slab modes of x walls with y walls, the scalar with x walls and the
 # wall model with x walls on the mesh: this checkout's on two slabs,
 # joined, against the baseline's whole-field kernel (_slab_xy)
-SLAB_XY = CASES[-7:]
+SLAB_XY = CASES[-10:-3]
+# the x-halo modes of a pencil mesh: this checkout's on the four pencils of
+# dims (2, 2), joined, against the baseline's whole-field kernel (_pencils)
+PENCIL = CASES[-3:]
 # the cases at their own shape, in float32 only
 BIG = {'apply_y x+y 512^3': (512, 512, 512), 'mom_rk 512^3': (512, 512, 512),
        'thomas_periodic 512^3': (512, 512, 512),
@@ -646,8 +656,67 @@ def _slab_xy(Km, d, case):
     return tuple(out)
 
 
+def _pencils(Km, d, case):
+    """The cases of PENCIL: the baseline on the whole field (the periodic
+    'channel' dsmag, its ZP mode, mom_rk with nu_t and the 'xy+z' split),
+    this checkout's XH x YH modes (X_HALO x Y_HALO for mom_rk) on the four
+    pencils of a (2, 2) mesh (cut at ny/2 rounded down to 16 rows and nx/2
+    to 32 columns, so that the tiles fall as on the whole field), their
+    halos the field's rows and columns (dsmag's two deep, the x halos over
+    the rows -2 .. nyl + 1; mom_rk's one deep, the x halos in the x
+    stacks' form), the outputs joined (dsmag's |S|; mom_rk's fields and
+    its partial sums as per-plane totals)."""
+    f, e, dz = d['f'], d['e'], d['dz']
+    nz, ny, nx = f[0].shape
+    dsmag = case.startswith('dsmag')
+    zper = case.endswith('zp')
+    args = ((d['alph2'], dz, dz, 40.0, 20.0, not zper, not zper,
+             (0.0, 0.02, 0.0, -0.01)) if dsmag
+            else (dz, dz, 0.01, -0.005, 5e-5, 40.0, 20.0, (0.1, 0.0, 0.0)))
+    nh = 3 if dsmag else 5
+
+    def call(km, q, qe, **kw):
+        if dsmag:
+            return km.dsmag(*q, *qe, *args, avg='channel', zper=zper,
+                            **kw)[:1]
+        out = km.mom_rk(*q[:5], *qe, *q[5:8], *args, sums=(True, True),
+                        split='xy+z', **kw)
+        return (*out[:6], out[6].sum(dim=1), out[7].sum(dim=1))
+    F, E = f[:nh] if dsmag else f[:8], e[:nh]
+    if Km is not K:
+        return call(Km, F, E)
+    dep = 2 if dsmag else 1
+    cy, cx = ny // 2 // 16 * 16, nx // 2 // 32 * 32
+    grid = []
+    for y0, y1 in ((0, cy), (cy, ny)):
+        row = []
+        for x0, x1 in ((0, cx), (cx, nx)):
+            ends = [(y0 + j) % ny for j in range(-dep, 0)] + [
+                (y1 + j) % ny for j in range(dep)]
+            ys = [j % ny for j in range(y0 - dep, y1 + dep)]
+            cols = ([(x0 + j) % nx for j in range(-dep, 0)]
+                    + ([x1 - 1] if dep == 1 else [])
+                    + [(x1 + j) % nx for j in range(dep)])
+            q = [a[:, y0:y1, x0:x1].contiguous() for a in F]
+            qe = [a[:, y0:y1, x0:x1].contiguous() for a in E]
+            yh = [(a[:, ends, x0:x1].contiguous(),
+                   b[:, ends, x0:x1].contiguous())
+                  for a, b in zip(F[:nh], E)]
+            xh = [tuple(t[:, ys][:, :, cols].transpose(1, 2).contiguous()
+                        for t in (a, b)) for a, b in zip(F[:nh], E)]
+            row.append(call(K, q, qe, yh=yh, xh=xh))
+        grid.append(row)
+    nf = 1 if dsmag else 6
+    out = [torch.cat([torch.cat([r[m] for r in row], dim=2)
+                      for row in grid], dim=1) for m in range(nf)]
+    return (*out, *(sum(r[m] for row in grid for r in row)
+                    for m in range(nf, len(grid[0][0]))))
+
+
 def _call(mods, d, case):
     Km, SKm = mods
+    if case in PENCIL:
+        return _pencils(Km, d, case)
     if case in SLAB_3D_X:
         return _slab_3d_x(Km, d, case)
     if case in SLAB_XY:

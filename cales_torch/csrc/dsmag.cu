@@ -74,6 +74,16 @@
 // run-time flags (ywall.lo, ywall.hi).  A slab's rows are its own: 'duct'
 // sums a (z, y) row over x and 'cavity' is pointwise, so neither needs a
 // reduction over the ranks.
+// A fourth mode, XH, is a pencil of the 2D (gy, gx) mesh (periodic x and
+// y, the 'channel' sums; with YH on gy > 1, periodic y on gy = 1; with ZP
+// the box's 'dit'; the JAX package's fused_dsmag_onepass under its 2D
+// shard_map with _dsmag_xext, cales_tpu/timeloop.py:486-509): the
+// velocity tile's columns -2, -1, nx and nx+1, at every row of the tile
+// and with their z-edge entries, load from the x neighbours' two-deep
+// halo, whose rows -2, -1, ny and ny+1 came by the y exchange (the
+// (x +-1..2, y +-1..2) corners, two hops), where the whole field wraps.
+// Everything after the load is the periodic kernel's.  The sums are the
+// pencil's; the caller reduces the z rows' sums over all gy gx ranks.
 //
 // Design.  A block owns a TY x 32 (y, x) tile (TY = 16 in float32, 8 in
 // float64, whose planes are twice the bytes) and marches z, one plane a
@@ -154,7 +164,8 @@ constexpr size_t dsmag_smem_bytes() {
           (DS_NA - 1) * G::AY * DS_TX + 3 * G::VY * DS_AX + 18 * G::APL);
 }
 
-template <typename T, bool YW, int AVG, bool ZP, bool F2D, bool YH = false>
+template <typename T, bool YW, int AVG, bool ZP, bool F2D, bool YH = false,
+          bool XH = false>
 __global__ void __launch_bounds__(DsGeo<DsTy<T>::TY>::NT, 1) dsmag_kernel(
     const T* __restrict__ u, const T* __restrict__ v, const T* __restrict__ w,
     const T* __restrict__ ue, const T* __restrict__ ve,
@@ -214,7 +225,7 @@ __global__ void __launch_bounds__(DsGeo<DsTy<T>::TY>::NT, 1) dsmag_kernel(
 
   const DsTile g{x0, y0, nz, ny, nx, tid, plane};
   auto load = [&](int kz) {
-    ds_load<T, YW, TY, ZP, YH>(vel, fld, edg, ywall, g, kz);
+    ds_load<T, YW, TY, ZP, YH, XH>(vel, fld, edg, ywall, g, kz);
   };
   // the velocity's x and y passes of plane kz (a z ghost by mode)
   auto vel_x = [&](int kz, int mode) {
@@ -480,25 +491,40 @@ auto pick_dsmag_mode(bool zper, bool f2d) {
                      : &dsmag_kernel<T, false, DS_CHANNEL, false, false, YH>);
 }
 
+// The modes of a pencil of the 2D mesh (XH): the 'channel' sums with the
+// 3D filter, z walls or with zper periodic z (the box's 'dit'); YH on a
+// mesh of gy > 1 (the y halo), periodic y on gy = 1.
+template <typename T, bool YH>
+auto pick_dsmag_xh(bool zper) {
+  return zper ? &dsmag_kernel<T, false, DS_CHANNEL, true, false, YH, true>
+              : &dsmag_kernel<T, false, DS_CHANNEL, false, false, YH, true>;
+}
+
 // y: the y-row stacks and corners of u, v, w (6 pointers), all null
 // without y walls; h: their two-deep halo pairs on a slab of the y-slab
 // mesh (6 pointers, all null off a slab): h alone is mode YH (periodic y,
 // the 'channel' sums; with zper ZP and YH, with f2d F2D and YH), y and h
 // together a slab of a y-walled mesh, whose
-// y holds the slab's y-row stacks and ylo, yhi the walls it owns; yvals:
-// the filtered fill's 'D' values (u_lo, u_hi, w_lo, w_hi) on the y walls;
+// y holds the slab's y-row stacks and ylo, yhi the walls it owns; x:
+// their two-deep x halo pairs on a pencil of the 2D mesh (6 pointers,
+// all null off a pencil; cols (nz, 4, ny+4), corners (3, 4, ny+4)): mode
+// XH, the 'channel' sums, the 3D filter, no y walls, with h (YH) or
+// periodic y, with zper or z walls; yvals: the filtered fill's 'D' values
+// (u_lo, u_hi, w_lo, w_hi) on the y walls;
 // avg: DS_CHANNEL, DS_DUCT or DS_CAVITY; zper, f2d: the periodic-z mode
 // and the 2D filter (see pick_dsmag_mode).
 template <typename T>
 int launch_dsmag(const T* u, const T* v, const T* w, const T* ue,
                  const T* ve, const T* we, const T* alph2, const T* dzci,
                  const T* dzfi, T* s0o, T* numo, T* deno,
-                 const T* const* y, const T* const* h, int nz, int ny,
+                 const T* const* y, const T* const* h, const T* const* x,
+                 int nz, int ny,
                  int nx, int wall_lo, int wall_hi, int avg, int zper,
                  int f2d, int ylo, int yhi, double dxi, double dyi,
                  const double* zvals, const double* yvals, void* stream) {
   const bool ystacks = y[0] != nullptr;
   const bool halo = h[0] != nullptr;
+  const bool xhalo = x[0] != nullptr;
   const bool ywall = ystacks && !halo;
   if (nz < 2 || (ywall && ny < 4) || avg < DS_CHANNEL || avg > DS_CAVITY)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -509,11 +535,16 @@ int launch_dsmag(const T* u, const T* v, const T* w, const T* ue,
     return static_cast<int>(cudaErrorInvalidValue);
   if (zper && (nz < 3 || wall_lo || wall_hi))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (xhalo && (nx < 2 || ystacks || f2d || avg != DS_CHANNEL))
+    return static_cast<int>(cudaErrorInvalidValue);
   for (int m = 0; m < 6; ++m)
-    if (ystacks != (y[m] != nullptr) || halo != (h[m] != nullptr))
+    if (ystacks != (y[m] != nullptr) || halo != (h[m] != nullptr) ||
+        xhalo != (x[m] != nullptr))
       return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = dsmag_smem_bytes<T>();
-  auto kern = halo ? (ystacks ? pick_dsmag<T, true, true>(avg)
+  auto kern = xhalo ? (halo ? pick_dsmag_xh<T, true>(zper)
+                            : pick_dsmag_xh<T, false>(zper))
+              : halo ? (ystacks ? pick_dsmag<T, true, true>(avg)
                               : pick_dsmag_mode<T, true>(zper, f2d))
               : (zper || f2d) ? pick_dsmag_mode<T>(zper, f2d)
               : ywall         ? pick_dsmag<T, true>(avg)
@@ -528,6 +559,7 @@ int launch_dsmag(const T* u, const T* v, const T* w, const T* ue,
   for (int c = 0; c < 3; ++c) {
     yw.vel[c] = YRows<T>{y[2 * c], y[2 * c + 1]};
     yw.hal[c] = YRows<T>{h[2 * c], h[2 * c + 1]};
+    yw.xh[c] = YRows<T>{x[2 * c], x[2 * c + 1]};
   }
   if (ystacks) {
     yw.off_lo[0] = T(2 * yvals[0]);
@@ -557,7 +589,9 @@ int launch_dsmag(const T* u, const T* v, const T* w, const T* ue,
                       T* deno, const T* yur, const T* yuc, const T* yvr,      \
                       const T* yvc, const T* ywr, const T* ywc,               \
                       const T* hur, const T* huc, const T* hvr,               \
-                      const T* hvc, const T* hwr, const T* hwc, int nz,       \
+                      const T* hvc, const T* hwr, const T* hwc,               \
+                      const T* xur, const T* xuc, const T* xvr,               \
+                      const T* xvc, const T* xwr, const T* xwc, int nz,       \
                       int ny, int nx, int wall_lo, int wall_hi, int avg,      \
                       int zper, int f2d, int ylo, int yhi, double dxi,        \
                       double dyi, double zlo_u, double zhi_u,                 \
@@ -566,10 +600,11 @@ int launch_dsmag(const T* u, const T* v, const T* w, const T* ue,
                       void* stream) {                                         \
     const T* const y[6] = {yur, yuc, yvr, yvc, ywr, ywc};                     \
     const T* const h[6] = {hur, huc, hvr, hvc, hwr, hwc};                     \
+    const T* const x[6] = {xur, xuc, xvr, xvc, xwr, xwc};                     \
     const double zvals[4] = {zlo_u, zhi_u, zlo_v, zhi_v};                     \
     const double yvals[4] = {ylo_u, yhi_u, ylo_w, yhi_w};                     \
     return cales::launch_dsmag<T>(u, v, w, ue, ve, we, alph2, dzci, dzfi,     \
-                                  s0o, numo, deno, y, h, nz, ny, nx,          \
+                                  s0o, numo, deno, y, h, x, nz, ny, nx,       \
                                   wall_lo, wall_hi, avg, zper, f2d, ylo, yhi, \
                                   dxi, dyi, zvals, yvals, stream);            \
   }

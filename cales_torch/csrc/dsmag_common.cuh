@@ -24,9 +24,11 @@
 //               x wrapped, y wrapped or with y walls (YW) the rows -1, ny-1
 //               and ny from the post-correction fill's y-row stacks, or on
 //               a slab of the y-slab mesh (YH, dsmag.cu's mode) the rows
-//               -2, -1, ny and ny+1 from the neighbours' halo; z wrapped
-//               with ZP (dsmag.cu's periodic-z mode), the halo's rows too
-//               with ZP and YH;
+//               -2, -1, ny and ny+1 from the neighbours' halo; on a pencil
+//               of the 2D mesh (XH, dsmag.cu's mode) the columns -2, -1, nx
+//               and nx+1 from the x neighbours' two-deep halo; z wrapped
+//               with ZP (dsmag.cu's periodic-z mode), the halos' rows too
+//               with ZP and YH or XH;
 //   ds_source   stage A at one cell: |S| S_ij (6), the centred velocity
 //               (3), its products (6) and |S|.
 // The kernel passes its ring accessors vel(kz, c) and src(kz, q), which
@@ -64,11 +66,13 @@ __device__ __forceinline__ int ring(int kz) { return (kz + 3) % 3; }
 // (null without y walls) and the filtered fill's 'D' offsets 2b of u and w
 // on the lower and upper y walls; on a slab of the y-slab mesh (dsmag.cu's
 // modes YH and YW + YH) the velocity's two-deep halo and, with y walls,
-// which of the two walls the slab holds (dsmag.cu's only).
+// which of the two walls the slab holds (dsmag.cu's only); on a pencil of
+// the 2D mesh (dsmag.cu's mode XH) the velocity's two-deep x halo.
 template <typename T>
 struct DsYWalls {
   YRows<T> vel[3];
   YRows<T> hal[3];
+  YRows<T> xh[3];
   T off_lo[3], off_hi[3];   // index 1 (v) unused: v's fill is 0
   int lo, hi;
 };
@@ -104,6 +108,13 @@ __device__ __forceinline__ const T* ds_hrow_zp(const YRows<T>& h, int kz,
   return h.rows + (k * 4 + r) * nx;
 }
 
+// A pencil's two-deep x halo (XH) has the layout of a slab's two-deep y
+// halo with x and y exchanged: cols (nz, 4, ny+4) = [columns -2, -1, nx,
+// nx+1] over the rows -2 .. ny+1 (row y at index y+2) and their z-edge
+// entries, the corners (3, 4, ny+4) (parallel/mesh.halo_x at depth 2,
+// its rows by the depth-2 y exchange: timeloop._pencil_halos), so
+// ds_hrow and ds_hrow_zp read it with ny+4 in place of nx.
+//
 // The velocity plane kz (-1 .. nz, ghost rows from the edge stacks) on the
 // tile + halo 2, x wrapped; y wrapped, or with y walls the rows -1, ny-1
 // and ny from the y-row stacks, or with YH (a slab) the rows -2, -1, ny
@@ -111,13 +122,18 @@ __device__ __forceinline__ const T* ds_hrow_zp(const YRows<T>& h, int kz,
 // they feed no output); with both (a slab of a y-walled mesh) the rows -1,
 // ny-1 and ny from the slab's y-row stacks, which hold the wall recipe's
 // rows on the sides the slab owns and the neighbours' rows elsewhere, and
-// the rows -2 and ny+1 from the halo.  With ZP (periodic z) any
-// kz from -nz on, the field's plane kz mod nz (the edge stacks unread).
+// the rows -2 and ny+1 from the halo.  With XH (a pencil) the columns
+// -2, -1, nx and nx+1 from the x halo at any row of the tile: with YH its
+// rows -2 .. ny+1, which carry the corners (a ragged tile's rows past
+// ny+1 wrap), with periodic y its rows 0 .. ny-1, wrapped; a ragged
+// tile's columns past nx+1 wrap.  With ZP
+// (periodic z) any kz from -nz on, the field's plane kz mod nz (the edge
+// stacks unread), the halos' plane kz mod nz too.
 // A cell's index is found once for the three components and its three
 // values copied by cp_async, one group a plane: the caller waits
 // (cp_async_wait) and passes a barrier before the plane is read.
 template <typename T, bool YW, int TY, bool ZP = false, bool YH = false,
-          class VEL>
+          bool XH = false, class VEL>
 __device__ __forceinline__ void ds_load(const VEL& vel, const T* const fld[3],
                                         const T* const edg[3],
                                         const DsYWalls<T>& yw,
@@ -129,8 +145,17 @@ __device__ __forceinline__ void ds_load(const VEL& vel, const T* const fld[3],
                 : zrow(fld[c], edg[c], kz, g.nz, g.plane);
   for (int e = g.tid; e < DsGeo<TY>::VPL; e += DsGeo<TY>::NT) {
     const int ly = e / DS_VX, lx = e - ly * DS_VX;
-    const int y = g.y0 - 2 + ly, x = wrap_near(g.x0 - 2 + lx, g.nx);
-    if (YW && (y == -1 || y == g.ny - 1 || y == g.ny)) {
+    const int y = g.y0 - 2 + ly, xr = g.x0 - 2 + lx;
+    const int x = wrap_near(xr, g.nx);
+    if (XH && (xr < 0 || (xr >= g.nx && xr < g.nx + 2))) {
+      const int c = xr < 0 ? xr + 2 : xr - g.nx + 2;
+      const int yi = (YH && y < g.ny + 2 ? y : wrap_near(y, g.ny)) + 2;
+#pragma unroll
+      for (int q = 0; q < 3; ++q)
+        cp_async(vel(kz, q) + e,
+                 (ZP ? ds_hrow_zp(yw.xh[q], kz, c, g.nz, g.ny + 4)
+                     : ds_hrow(yw.xh[q], kz, c, g.nz, g.ny + 4)) + yi);
+    } else if (YW && (y == -1 || y == g.ny - 1 || y == g.ny)) {
       const int r = y < 0 ? 0 : y - g.ny + 2;
 #pragma unroll
       for (int c = 0; c < 3; ++c)

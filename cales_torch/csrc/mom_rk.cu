@@ -35,11 +35,11 @@
 //          and last tile column of blocks have such cells, and a cell's
 //          source is found once, so the loads of every other block are
 //          those of the periodic variant; or X_HALO, a pencil of a 2D
-//          (gy, gx) mesh (the channel classes with gx > 1; with nu_t or
-//          without, split 0 or 1, YM periodic or a slab): the same loads
-//          from the x halo stacks, which always carry the rows -1 and ny
-//          (the JAX package's _xe_pack bundles completed by the y halo,
-//          cales_tpu/timeloop.py:998-1015);
+//          (gy, gx) mesh (the channel classes and the box with gx > 1;
+//          with nu_t or without, each split, YM periodic or a slab): the
+//          same loads from the x halo stacks, which always carry the rows
+//          -1 and ny (the JAX package's _xe_pack bundles completed by the
+//          y halo, cales_tpu/timeloop.py:998-1015);
 //   SCAL   the passive scalar (its own C entry, cales_mom_rk_scal_*; the
 //          TPU kernel's has_scal stream, pallas_kernels.py:497-499,
 //          661-667): one more cell-centred field in the ring, loaded as p
@@ -595,16 +595,19 @@ MomKernel<T> pick_mom_rk_xw(int ym, int split) {
                          : &mom_rk_kernel<T, SGS, 0, Y_PERIODIC, XW, false>;
 }
 
-// the x-halo variants (a pencil of a 2D mesh): explicit or split '1d', on
-// a slab of the mesh's y rows or with periodic y (gy = 1)
+// the x-halo variants (a pencil of a 2D mesh): each split (explicit,
+// '1d', 'xy+z'), on a slab of the mesh's y rows or with periodic y (gy =
+// 1)
 template <typename T, bool SGS>
 MomKernel<T> pick_mom_rk_xh(int ym, int split) {
   constexpr int XH = X_HALO;
   if (ym == Y_HALO)
-    return split == 1 ? &mom_rk_kernel<T, SGS, 1, Y_HALO, XH, false>
-                      : &mom_rk_kernel<T, SGS, 0, Y_HALO, XH, false>;
-  return split == 1 ? &mom_rk_kernel<T, SGS, 1, Y_PERIODIC, XH, false>
-                    : &mom_rk_kernel<T, SGS, 0, Y_PERIODIC, XH, false>;
+    return split == 2   ? &mom_rk_kernel<T, SGS, 2, Y_HALO, XH, false>
+           : split == 1 ? &mom_rk_kernel<T, SGS, 1, Y_HALO, XH, false>
+                        : &mom_rk_kernel<T, SGS, 0, Y_HALO, XH, false>;
+  return split == 2   ? &mom_rk_kernel<T, SGS, 2, Y_PERIODIC, XH, false>
+         : split == 1 ? &mom_rk_kernel<T, SGS, 1, Y_PERIODIC, XH, false>
+                      : &mom_rk_kernel<T, SGS, 0, Y_PERIODIC, XH, false>;
 }
 
 // the scalar variants, what the slice runs with a scalar: periodic y with
@@ -639,7 +642,7 @@ MomKernel<T> pick_mom_rk_scal(int ym, int split, bool xw) {
 // visct; nyc = ny + 2 with y walls and on a slab, whose stacks carry the
 // rows -1 and ny; x walls run with split 0 or, with periodic y or on a
 // slab, 1); with xhalo set they are a pencil's x halo stacks (nyc = ny +
-// 2; split 0 or 1, periodic y or a slab, no scalar).  sc: the passive
+// 2; any split, periodic y or a slab, no scalar).  sc: the passive
 // scalar (the SCAL variants), or null: its field, edge stack and outputs
 // set, its previous RHS with ruo, its y-row
 // and x stack pairs with the velocity's (on a slab its halo pair, with
@@ -675,7 +678,7 @@ int launch_mom_rk(const T* u, const T* v, const T* w, const T* s, const T* p,
       ys{y[6], y[7]}, yp{y[8], y[9]}, xu{y[10], y[11]}, xv{y[12], y[13]},
       xw_{y[14], y[15]}, xs{y[16], y[17]}, xp{y[18], y[19]};
   if (split < 0 || split > 2 || (halo && !yw) ||
-      (xw && (split == 2 || (split == 1 && yw && !halo))) ||
+      (xw && !xhalo && (split == 2 || (split == 1 && yw && !halo))) ||
       (xhalo && (!xw || sc != nullptr || (yw && !halo))))
     return static_cast<int>(cudaErrorInvalidValue);
   const int ym = !yw ? Y_PERIODIC : halo ? Y_HALO : Y_WALLS;

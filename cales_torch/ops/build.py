@@ -54,9 +54,9 @@ _SIGNATURES = {
     'cales_thomas_z': [_P] * 10 + [_I] * 5 + [_D, _I, _D] + [_P],
     'cales_thomas_periodic': [_P] * 7 + [_I] * 4 + [_D, _I, _D] + [_P],
     'cales_smag': [_P] * 34 + [_I] * 6 + [_D] * 3 + [_P],
-    # ... the y-row stacks, the halos, nz, ny, nx, wall_lo, wall_hi, avg,
-    # zper, f2d, ylo, yhi, then dxi, dyi, the values
-    'cales_dsmag': [_P] * 24 + [_I] * 10 + [_D] * 10 + [_P],
+    # ... the y-row stacks, the halos, the x halos, nz, ny, nx, wall_lo,
+    # wall_hi, avg, zper, f2d, ylo, yhi, then dxi, dyi, the values
+    'cales_dsmag': [_P] * 30 + [_I] * 10 + [_D] * 10 + [_P],
     # ... the y-row stacks, the halos, nz, ny, nx, wall_lo, wall_hi, ylo,
     # yhi, then dxi, dyi
     'cales_dsmag_level1': [_P] * 21 + [_I] * 7 + [_D] * 2 + [_P],

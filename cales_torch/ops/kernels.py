@@ -421,6 +421,24 @@ def _slab_ext(u, v, w, ue, ve, we, ye, yh, yown, name):
     return (u, v, w, ue, ve, we), ye, yw, keep
 
 
+def _pencil_xext(fields, edges, xh, yext):
+    """A pencil's fields and edge stacks extended along x by their
+    two-deep x halo pairs xh (cols (nz, 4, nyl + 4), corners (3, 4,
+    nyl + 4): columns -2, -1, nxp, nxp + 1 over the rows -2 .. nyl + 1);
+    yext: the fields are already extended along y by two rows a side
+    (_slab_ext), else the halos' rows 0 .. nyl - 1 (periodic y on the
+    pencil).  Returns the six extended arrays and the slice of the
+    pencil's own columns."""
+    out = []
+    for a, h in zip((*fields, *edges),
+                    (*(c for c, _ in xh), *(k for _, k in xh))):
+        if not yext:
+            h = h[..., 2:-2]
+        h = h.transpose(1, 2)
+        out.append(torch.cat([h[..., :2], a, h[..., 2:]], dim=2))
+    return out, slice(2, out[0].shape[2] - 2)
+
+
 def dsmag_level1_plain(u, v, w, ue, ve, we, dzci, dzfi, dxi, dyi, wall_lo,
                        wall_hi, ye=None, zper=False, f2d=False, yw=None,
                        yh=None, yown=None):
@@ -533,7 +551,7 @@ def _averaged(num, den, s0, avg):
 def dsmag_plain(u, v, w, ue, ve, we, alph2, dzci, dzfi, dxi, dyi, wall_lo,
                 wall_hi, zvals=(0.0, 0.0, 0.0, 0.0), ye=None,
                 yvals=(0.0, 0.0, 0.0, 0.0), avg='channel', zper=False,
-                f2d=False, yh=None, yown=None):
+                f2d=False, yh=None, yown=None, xh=None):
     """The Germano-Lilly model of sgs.dsmag_visct on interiors + the
     post-correction fill's edge stacks, with every ghost recipe written out
     for the class pallas_dsmag.eligible admits: dsmag_level1_plain, then the
@@ -561,19 +579,37 @@ def dsmag_plain(u, v, w, ue, ve, we, alph2, dzci, dzfi, dxi, dyi, wall_lo,
     stack pairs (boundary.slab_ystack) and yown = (lower, upper) the y
     walls it holds: the slab is extended by the halo's two rows on a side
     it does not own and the wall recipes apply on the sides it owns, whose
-    stack rows are the wall's."""
-    yw = keep = None
+    stack rows are the wall's.
+    xh: a pencil of a 2D mesh (periodic y or a slab's yh, z walls or with
+    zper periodic z, the 3D filter, 'channel' or 'dit'), the two-deep x
+    halo pairs of (u, v, w) (cols (nz, 4, nyl + 4), corners (3, 4,
+    nyl + 4): columns -2, -1, nxp, nxp + 1 over the rows -2 .. nyl + 1,
+    mesh.halo_x at depth 2 with its rows from the depth-2 y exchange):
+    the model runs on the pencil extended by those columns (after the y
+    extension by yh; with periodic y their rows 0 .. nyl - 1) and keeps
+    the pencil's cells (csrc/dsmag.cu mode XH, with YH and ZP)."""
+    yw = keep = xkeep = None
+    if xh is not None and (ye is not None or f2d
+                           or avg not in ('channel', 'dit')):
+        raise ValueError("dsmag: a pencil's x halos take periodic y or a "
+                         "slab's y halo, the 3D filter and the 'channel' or "
+                         "'dit' sums")
     if yh is not None:
         if (zper or f2d) and ye is not None:
             raise ValueError('dsmag: a slab of a y-walled mesh takes z walls '
                              'and the 3D filter')
         (u, v, w, ue, ve, we), ye, yw, keep = _slab_ext(
             u, v, w, ue, ve, we, ye, yh, yown, 'dsmag')
+    if xh is not None:
+        (u, v, w, ue, ve, we), xkeep = _pencil_xext(
+            (u, v, w), (ue, ve, we), xh, yh is not None)
     s0, num, den = _dsmag_cells(u, v, w, ue, ve, we, alph2, dzci, dzfi, dxi,
                                 dyi, wall_lo, wall_hi, zvals, ye, yvals,
                                 zper, f2d, yw)
     if keep is not None:
         s0, num, den = (q[:, keep] for q in (s0, num, den))
+    if xkeep is not None:
+        s0, num, den = (q[..., xkeep] for q in (s0, num, den))
     out = _averaged(num, den, s0, avg)
     return (out, None, None) if avg == 'cavity' else (s0, *out)
 
@@ -689,10 +725,11 @@ def _on_cpu(ref):
 
 def _check(name, ref, fields, planes=(), edges=(), profiles=(), yrows=(),
            ycorners=(), hrows=(), hcorners=(), xcols=(), xcorners=(),
-           nyc=None, h2rows=(), h2corners=()):
+           nyc=None, h2rows=(), h2corners=(), x2cols=(), x2corners=()):
     """Validate what the kernel takes: one CUDA device, float32/float64,
     contiguous, shapes of the interior (nz, ny, nx); x stacks (nz, 3, nyc)
-    and their corners (3, 3, nyc)."""
+    and their corners (3, 3, nyc); a pencil's two-deep x halos (nz, 4,
+    ny + 4) and their corners (3, 4, ny + 4)."""
     if ref.device.type != 'cuda':
         raise ValueError(f'{name}: tensors must be on the CPU (plain twin) '
                          f'or a CUDA device, got {ref.device}')
@@ -703,14 +740,18 @@ def _check(name, ref, fields, planes=(), edges=(), profiles=(), yrows=(),
             'y-row stack': (nz, 3, nx), 'corner stack': (3, 3, nx),
             'halo rows': (nz, 2, nx), 'halo corners': (3, 2, nx),
             'x stack': (nz, 3, nyc), 'x corner stack': (3, 3, nyc),
-            'halo-2 rows': (nz, 4, nx), 'halo-2 corners': (3, 4, nx)}
+            'halo-2 rows': (nz, 4, nx), 'halo-2 corners': (3, 4, nx),
+            'x halo-2 cols': (nz, 4, ny + 4),
+            'x halo-2 corners': (3, 4, ny + 4)}
     for kind, group in (('field', fields), ('plane', planes),
                         ('edge', edges), ('y-row stack', yrows),
                         ('corner stack', ycorners), ('halo rows', hrows),
                         ('halo corners', hcorners), ('x stack', xcols),
                         ('x corner stack', xcorners),
                         ('halo-2 rows', h2rows),
-                        ('halo-2 corners', h2corners)):
+                        ('halo-2 corners', h2corners),
+                        ('x halo-2 cols', x2cols),
+                        ('x halo-2 corners', x2corners)):
         for t in group:
             if t is None:
                 continue
@@ -722,8 +763,8 @@ def _check(name, ref, fields, planes=(), edges=(), profiles=(), yrows=(),
             raise ValueError(f'{name}: profile shape {tuple(t.shape)}, '
                              f'want ({n},)')
     for t in (*fields, *planes, *edges, *yrows, *ycorners, *hrows,
-              *hcorners, *xcols, *xcorners, *h2rows, *h2corners,
-              *(q for q, _ in profiles)):
+              *hcorners, *xcols, *xcorners, *h2rows, *h2corners, *x2cols,
+              *x2corners, *(q for q, _ in profiles)):
         if t is None:
             continue
         if t.device != ref.device or t.dtype != ref.dtype:
@@ -811,7 +852,7 @@ def mom_rk(u, v, w, s, p, ue, ve, we, se, pe, ruo, rvo, rwo, dzci, dzfi,
     velocity's), on a slab its halo pair the sixth entry of yh (any
     split).  xh: a pencil of a 2D mesh, the x halo pairs of (u, v, w,
     visct, p) (mesh.halo_x; nyc = ny + 2), visct's None without visct,
-    with yh or (gy = 1) periodic y, split None or '1d', no scalar.
+    with yh or (gy = 1) periodic y, any split, no scalar.
     Returns (u, v,
     w, ru, rv, rw, usum, vsum), and with sca also (s, ds), the scalar and
     its RHS; usum/vsum are None or per-(z, part) partial sums,
@@ -828,10 +869,9 @@ def mom_rk(u, v, w, s, p, ue, ve, we, se, pe, ruo, rvo, rwo, dzci, dzfi,
     if ye is not None and yh is not None:
         raise ValueError('mom_rk: y walls or a slab halo, not both')
     xhalo = xh is not None
-    if xhalo and (xe is not None or ye is not None or sca is not None
-                  or split == 'xy+z'):
+    if xhalo and (xe is not None or ye is not None or sca is not None):
         raise ValueError("mom_rk: a pencil's x halos go without x stacks, y "
-                         "walls and the scalar, with split None or '1d'")
+                         'walls and the scalar')
     if xhalo:
         xe = xh
     has_scal = sca is not None
@@ -852,7 +892,8 @@ def mom_rk(u, v, w, s, p, ue, ve, we, se, pe, ruo, rvo, rwo, dzci, dzfi,
     xe = (None,) * 5 if xe is None else _six(xe)[:5]
     if xe[0] is not None and (
             any(xe[m] is None for m in (1, 2, 4))
-            or (xe[3] is None) != (s is None) or split == 'xy+z'
+            or (xe[3] is None) != (s is None)
+            or (split == 'xy+z' and not xhalo)
             or (split is not None and ye is not None)):
         raise ValueError('mom_rk: x walls (or x halos) take the x stacks of '
                          'u, v, w, p '
@@ -1141,7 +1182,8 @@ _DSMAG_AVG = {'channel': 0, 'duct': 1, 'cavity': 2, 'dit': 0}
 
 def dsmag(u, v, w, ue, ve, we, alph2, dzci, dzfi, dxi, dyi, wall_lo, wall_hi,
           zvals=(0.0, 0.0, 0.0, 0.0), ye=None, yvals=(0.0, 0.0, 0.0, 0.0),
-          avg='channel', zper=False, f2d=False, yh=None, yown=None):
+          avg='channel', zper=False, f2d=False, yh=None, yown=None,
+          xh=None):
     """Dynamic Smagorinsky (the Germano-Lilly model, sgs.f90:153-370) in
     one z-march; no intermediate field goes to device memory.  Inputs: the
     post-correction fill (interiors + edge stacks, and with y walls the
@@ -1163,7 +1205,15 @@ def dsmag(u, v, w, ue, ve, we, alph2, dzci, dzfi, dxi, dyi, wall_lo, wall_hi,
     the sides it owns, the neighbours' elsewhere), which the tile takes for
     its rows -1, nyl-1 and nyl, the halo its rows -2 and nyl+1, and yown =
     (lower, upper) the y walls the slab holds, where the wall recipes
-    apply.  Returns (s0, num, den): |S| and partial sums of num = M_ij L_ij and
+    apply.  xh: a pencil of a 2D mesh (mode XH; periodic y or with yh, z
+    walls or with zper periodic z, the 3D filter, 'channel' or 'dit'), the
+    two-deep x halo pairs of (u, v, w) (cols (nz, 4, ny + 4), corners
+    (3, 4, ny + 4): columns -2, -1, nx, nx + 1 over the rows -2 .. ny + 1,
+    mesh.halo_x at depth 2, its rows from the depth-2 y exchange;
+    timeloop._pencil_halos), which the velocity tile takes for its
+    columns -2, -1, nx and nx + 1 (with zper the plane t mod nz, the
+    corners unread); the sums are the pencil's.
+    Returns (s0, num, den): |S| and partial sums of num = M_ij L_ij and
     den = M_ij M_ij, which the caller sums over their last dim: per
     (z, block), (nz, nblk), for avg 'channel' or 'dit'; per (z, y, x block),
     (nz, ny, nx/32), for 'duct'.  For 'cavity', (nu_t, None, None).  The
@@ -1181,17 +1231,25 @@ def dsmag(u, v, w, ue, ve, we, alph2, dzci, dzfi, dxi, dyi, wall_lo, wall_hi,
     if (yown is not None) != (yh is not None and ye is not None):
         raise ValueError("dsmag: yown names a slab's y walls, with ye and "
                          'yh')
+    if xh is not None and (ye is not None or f2d or _DSMAG_AVG[avg] != 0):
+        raise ValueError("dsmag: a pencil's x halos take periodic y or a "
+                         "slab's y halo, the 3D filter and the 'channel' or "
+                         "'dit' sums")
     if _on_cpu(u):
         return dsmag_plain(u, v, w, ue, ve, we, alph2, dzci, dzfi, dxi, dyi,
                            wall_lo, wall_hi, zvals, ye=ye, yvals=yvals,
-                           avg=avg, zper=zper, f2d=f2d, yh=yh, yown=yown)
+                           avg=avg, zper=zper, f2d=f2d, yh=yh, yown=yown,
+                           xh=xh)
     nz, ny, nx = u.shape
     if zper and nz < 3:
         raise ValueError(f'dsmag: nz = {nz} with periodic z (at least 3)')
     if yh is not None and ny < 2:
         raise ValueError(f'dsmag: a slab of {ny} row(s) (its two-row halo '
                          'reaches one rank a side)')
-    if yh is None:
+    if xh is not None and nx < 2:
+        raise ValueError(f'dsmag: a pencil of {nx} column(s) (its two-column '
+                         'x halo reaches one rank a side)')
+    if yh is None and xh is None:
         ye = _check_dsmag('dsmag', u, ue, ve, we,
                            ((alph2, nz), (dzci, nz + 2), (dzfi, nz + 2)), ye,
                            (u, v, w))
@@ -1199,7 +1257,9 @@ def dsmag(u, v, w, ue, ve, we, alph2, dzci, dzfi, dxi, dyi, wall_lo, wall_hi,
         ye = (None,) * 3 if ye is None else tuple(ye)
         _check('dsmag', u, (u, v, w), edges=(ue, ve, we),
                profiles=((alph2, nz), (dzci, nz + 2), (dzfi, nz + 2)),
-               **_ysplit(ye), **_ysplit(yh, halo=2))
+               **_ysplit(ye), **_ysplit(yh or (), halo=2),
+               x2cols=[c for c, _ in xh or ()],
+               x2corners=[k for _, k in xh or ()])
     lo, hi = (0, 0) if yown is None else (int(bool(q)) for q in yown)
     ty, tx = DSMAG_TILE
     gx = -(-nx // tx)
@@ -1213,6 +1273,7 @@ def dsmag(u, v, w, ue, ve, we, alph2, dzci, dzfi, dxi, dyi, wall_lo, wall_hi,
             *map(_ptr, (u, v, w, ue, ve, we, alph2, dzci, dzfi, s0, num,
                         den)), *_yptrs(ye), *_yptrs((None,) * 3 if yh is None
                                                     else yh),
+            *_yptrs((None,) * 3 if xh is None else xh),
             ctypes.c_int(nz), ctypes.c_int(ny), ctypes.c_int(nx),
             ctypes.c_int(int(bool(wall_lo))), ctypes.c_int(int(bool(wall_hi))),
             ctypes.c_int(code), ctypes.c_int(int(bool(zper))),

@@ -22,7 +22,10 @@ With gx = 1 x stays whole too: the y slabs.
                     neighbours (iy, ix -+ 1 mod gx) in the form of an x
                     stack (the JAX package's _xe_pack bundles), whose rows
                     -1 and ny/gy then ride halo_y: the (x +-1, y +-1)
-                    corners arrive by two hops;
+                    corners arrive by two hops; two columns a side for the
+                    dsmag kernel, whose rows -2, -1, ny/gy and ny/gy + 1
+                    ride halo_y at depth 2 (the (x +-1..2, y +-1..2)
+                    corners, cales_tpu/timeloop.py:1003-1005);
   transpose_y_to_x  the Poisson solve's forward pencil transpose on the y
   transpose_x_to_y  slabs: split x, gather y, and back, on
                     all_to_all_single: the x columns of the 'mat' route,
@@ -169,30 +172,45 @@ class SlabMesh:
         return [(next(rows), None if e is None else next(rows))
                 for _, e in pairs]
 
-    def halo_x(self, pairs):
+    def halo_x(self, pairs, depth=1):
         """pairs: [(field (n, nyl, nxp), z-edge stack (3, nyl, nxp) or
-        None), ...] of a pencil.  Returns [(cols (n, 3, nyl), corners
-        (3, 3, nyl) or None), ...]: each field's x halo in the form of an x
-        stack (kernels.xpad): column 0 the lower x neighbour's last column
-        (x = -1), column 2 the upper neighbour's first (x = nxp), column 1
-        the field's own last column (no rewrite slot: the halo mode never
-        reads it), corners the same columns of its z-edge stack.  One
-        exchange with the x neighbours for all the pairs.  Their rows -1
-        and nyl are the y exchange's (timeloop._xstacks_on_slab)."""
+        None), ...] of a pencil.  One exchange with the x neighbours for
+        all the pairs.  Depth 1 (the stencil kernels) returns [(cols
+        (n, 3, nyl), corners (3, 3, nyl) or None), ...]: each field's x
+        halo in the form of an x stack (kernels.xpad): column 0 the lower x
+        neighbour's last column (x = -1), column 2 the upper neighbour's
+        first (x = nxp), column 1 the field's own last column (no rewrite
+        slot: the halo mode never reads it), corners the same columns of
+        its z-edge stack.  Depth 2 (the dsmag kernel's velocity tile)
+        returns (cols (n, 4, nyl), corners (3, 4, nyl)): the columns -2,
+        -1 (the lower neighbour's last two), nxp and nxp + 1 (the upper
+        neighbour's first two), in that order.  Their rows -depth .. -1
+        and nyl .. nyl + depth - 1 are the y exchange's
+        (timeloop._xstacks_on_slab); with gx = 1 the columns are the local
+        wrap."""
+        d = int(depth)
+        if d not in (1, 2) or d > self.nxp:
+            raise ValueError(f'halo_x: depth {d} on pencils of {self.nxp} '
+                             'columns')
         parts = [q for pair in pairs for q in pair if q is not None]
-        shapes = [tuple(q.shape[:2]) for q in parts]
+        shapes = [(q.shape[0], d, q.shape[1]) for q in parts]
         sizes = [math.prod(sh) for sh in shapes]
-        first = torch.cat([q[..., 0].reshape(-1) for q in parts])
-        last = torch.cat([q[..., -1].reshape(-1) for q in parts])
+        first = torch.cat([q[..., :d].transpose(1, 2).reshape(-1)
+                           for q in parts])
+        last = torch.cat([q[..., -d:].transpose(1, 2).reshape(-1)
+                          for q in parts])
         from_lo, from_hi = self.comm.exchange(to_lo=first, to_hi=last,
                                               lo=self.xlo, hi=self.xhi)
-        cols = iter(torch.stack([lo.view(sh), q[..., -1], hi.view(sh)],
-                                dim=1)
-                    for q, lo, hi, sh in zip(parts,
-                                             torch.split(from_lo, sizes),
-                                             torch.split(from_hi, sizes),
-                                             shapes))
-        return [(next(cols), None if e is None else next(cols))
+
+        def cols(q, lo, hi):
+            mid = [q[..., -1][:, None]] if d == 1 else []
+            return torch.cat([lo, *mid, hi], dim=1)
+        it = iter(cols(q, lo.view(sh), hi.view(sh))
+                  for q, lo, hi, sh in zip(parts,
+                                           torch.split(from_lo, sizes),
+                                           torch.split(from_hi, sizes),
+                                           shapes))
+        return [(next(it), None if e is None else next(it))
                 for _, e in pairs]
 
     # -- pencil transposes of the Poisson solve ----------------------------

@@ -136,16 +136,22 @@ are cut to the slab's rows, their y ghosts the periodic wrap's
 
 On a 2D pencil mesh (dims = (gy, gx), gx > 1; the JAX package's
 _gx_sharded route) each rank steps its pencil of y rows and x columns,
-for the periodic-x, periodic-y channel classes with z walls (sgstype
-'none' or static Smagorinsky, explicit diffusion or impdiff_1d, 'mat' or
-'fft'; _pencil_refuse names the rest): before each stencil kernel the x
-neighbours' columns of the fields it reads arrive as x stacks
-(mesh.halo_x), whose rows -1 and nyl ride the y exchange of the rows
-(_pencil_halos), so mom_rk, fillps, correc_updatep and smag run their
-x-halo variants (with the y halo variants, or periodic y with gy = 1);
-the z walls' van Driest planes take u's column -1 from its x halo; the
-Poisson solve re-slabs (poisson.solve_sharded), and the z-only CN solves
-run on the pencil's columns.
+for the classes whose x and y sides are periodic, with z walls or
+periodic z (the triperiodic box), with no wall model, scalar or plane
+values (sgstype 'none', static Smagorinsky or the one-pass dynamic
+Smagorinsky 'channel' or 'dit'; explicit diffusion, impdiff_1d or
+full-3D implicit diffusion; 'mat' or 'fft'; _pencil_refuse names the
+rest): before each stencil kernel the x neighbours' columns of the
+fields it reads arrive as x stacks (mesh.halo_x), whose rows -1 and nyl
+ride the y exchange of the rows (_pencil_halos), so mom_rk, fillps,
+correc_updatep and smag run their x-halo variants (with the y halo
+variants, or periodic y with gy = 1); dsmag takes two columns and two
+rows a side, the corners by the same two hops (its XH mode), and its z
+rows' sums reduce over all the ranks; the z walls' van Driest planes
+take u's column -1 from its x halo; the Poisson solve and full-3D
+implicit diffusion's three Helmholtz solves re-slab
+(poisson.solve_sharded), and the z-only CN solves run on the pencil's
+columns.
 
 With x walls (inflow and outflow faces, or walls: the developing channel,
 and with y walls the closed box, the lid-driven cavity and the developing
@@ -462,7 +468,8 @@ def _mesh_refuse(cfg: Config) -> list[str]:
     with periodic y impdiff_1d, with periodic y the z walls' wall model
     (the developing WMLES) and plane-valued values (an inflow profile).
     The passive scalar and plane-valued values run on each of these
-    routes as one device runs them."""
+    routes as one device runs them.  A 2D pencil mesh (gx > 1) runs what
+    _pencil_refuse admits."""
     gy, gx = int(cfg.dims[0]), int(cfg.dims[1])
     nx, ny, _ = cfg.ng
     out = []
@@ -490,11 +497,14 @@ def _mesh_refuse(cfg: Config) -> list[str]:
 
 def _pencil_refuse(cfg: Config) -> list[str]:
     """What a pencil mesh (dims = (gy, gx), gx > 1) does not run yet: it
-    runs the periodic-x, periodic-y channel classes with z walls, sgstype
-    'none' or static Smagorinsky, explicit diffusion or impdiff_1d, by
-    'mat' or 'fft', on ny and nx divisible by gy gx (the Poisson solve's
-    re-slab); every other configuration names its item of ROADMAP queue 1,
-    multi-device."""
+    runs the classes whose x and y sides are periodic, with z walls or
+    periodic z (the triperiodic box), sgstype 'none', static Smagorinsky
+    or the one-pass dynamic Smagorinsky ('channel' or 'dit', the 3D
+    filter: dsmag.cu's two-deep x halo mode), explicit diffusion,
+    impdiff_1d or full-3D implicit diffusion (the Helmholtz solves through
+    the re-slab), by 'mat' or 'fft', on ny and nx divisible by gy gx (the
+    Poisson solve's re-slab); every other configuration names its item of
+    ROADMAP queue 1, multi-device."""
     gy, gx = int(cfg.dims[0]), int(cfg.dims[1])
     nx, ny, _ = cfg.ng
     item = 'ROADMAP queue 1, multi-device'
@@ -503,17 +513,25 @@ def _pencil_refuse(cfg: Config) -> list[str]:
         what.append('y walls')
     if not _periodic(cfg, 0):
         what.append('x walls (run-time x-wall owner flags)')
-    if cfg.cbc_vel(2, 0)[0] == 'P':
-        what.append('periodic z')
     if cfg.sgstype == 'dsmag':
-        what.append("dynamic Smagorinsky (the dsmag kernels' two-deep x "
-                    'halo)')
+        if dsmag_twopass(cfg):
+            what.append('the two-pass dynamic Smagorinsky (a face value '
+                        'that forces it, or CALES_DSMAG_TWOPASS=1: the x '
+                        'halo modes of dsmag_level1 and dsmag_level2)')
+        if cfg.filter_2d:
+            what.append('the 2D test filter (filter_2d: dsmag.cu F2D with '
+                        'the x halo)')
+        if cfg.dsmag_avg not in ('channel', 'dit'):
+            what.append(f'the {cfg.dsmag_avg!r} dsmag average')
+        if nx % gx == 0 and nx // gx < 2:
+            what.append(f'dynamic Smagorinsky on pencils of {nx // gx} x '
+                        "column(s), thinner than the dsmag kernel's "
+                        'two-column x halo (a rank two away is not '
+                        'reached)')
     if any(cfg.lwm[ib][d] != 0 for ib in range(2) for d in range(3)):
         what.append("the wall model (wallmodel.cu's x halo)")
     if cfg.scalar:
         what.append('the passive scalar')
-    if cfg.impdiff and not cfg.impdiff_1d:
-        what.append('full-3D implicit diffusion')
     if plane_faces(cfg) or any(
             np.ndim(b[ib][d]) != 0 for b in (cfg.bcpre, cfg.bcsgs)
             for ib in range(2) for d in range(3)):
@@ -680,7 +698,10 @@ def _xstacks_on_slab(xs, halos, own=None):
     layout of the y-walled stacks, which mom_rk and smag read where the
     halo rows meet the x ghost columns (the JAX package's y-sharded xe
     bundles, cales_tpu timeloop.py:169-183).  The x recipes are pointwise
-    along y, so the neighbours' rows are their own stacks' rows.  own: with
+    along y, so the neighbours' rows are their own stacks' rows.  A
+    pencil's two-deep x halos (mesh.halo_x depth 2, cols (nz, 4, nyl))
+    with the depth-2 y exchange's rows: cols (nz, 4, nyl+4), row j at
+    index j + 2 (the dsmag kernel's form).  own: with
     y walls the walls the slab holds (lower, upper), xs the slab's own
     y-walled stacks (boundary.xedge_* with yown): the wall recipe's rows
     -1 and nyl (and v's rewrite row) on the sides it owns, the neighbours'
@@ -690,7 +711,8 @@ def _xstacks_on_slab(xs, halos, own=None):
     def ext(a, h):
         h = h.transpose(1, 2)
         if own is None:
-            return torch.cat([h[..., :1], a, h[..., 1:]], dim=2).contiguous()
+            d = h.shape[-1] // 2
+            return torch.cat([h[..., :d], a, h[..., d:]], dim=2).contiguous()
         return torch.cat([a[..., :1] if own[0] else h[..., :1], a[..., 1:-1],
                           a[..., -1:] if own[1] else h[..., 1:]],
                          dim=2).contiguous()
@@ -1086,7 +1108,10 @@ class Simulation:
         if self.mesh is not None and self.sgs_kernel == 'dsmag':
             mesh += (" (dsmag_level1's two rows deep, the filtered "
                      "velocity's one row deep for dsmag_level2)"
-                     if self.dsmag_twopass else " (dsmag's two rows deep)")
+                     if self.dsmag_twopass
+                     else " (dsmag's two rows and two columns deep, with "
+                          'their corners)' if self.xhalo
+                     else " (dsmag's two rows deep)")
             mesh += ', the dsmag sums reduced over the ranks'
         if self.mesh is not None and self.has_scal:
             mesh += (", the scalar's halo rows in the momentum exchange"
@@ -1101,7 +1126,9 @@ class Simulation:
         elif self.mesh is not None and self.cfg.impdiff:
             mesh += (', the full-3D CN solves slab-sharded (apply_x, the '
                      f'y<->x all-to-all, apply_y, {zthomas} on the rank\'s '
-                     'lamx lanes, a component each)')
+                     'lamx lanes, a component each'
+                     + (', re-slabbed as the Poisson solve' if self.xhalo
+                        else '') + ')')
         if self.mesh is not None and self.xwalled:
             mesh += (", the x stacks' rows -1 and nyl in the momentum and "
                      'SGS exchanges'
@@ -1330,18 +1357,21 @@ class Simulation:
                     fields, edges, self._yslab(fields, edges, walls, halos),
                     xs))]
 
-    def _pencil_halos(self, ypairs, xpairs):
+    def _pencil_halos(self, ypairs, xpairs, depth=1):
         """On a pencil mesh (gx > 1): (yh, xh), the y halo pairs of ypairs
         (mesh.halo_y; None with gy = 1, where y is periodic on the pencil)
         and the x halo pairs of xpairs (mesh.halo_x; None for a pair whose
         field is None), whose rows -1 and nyl ride the same y exchange
         (_xstacks_on_slab: x stacks of nyc = nyl + 2, so the (x +-1, y +-1)
         corners arrive by two hops, as cales_tpu's _xe_pack bundles are
-        completed by _halo_y, timeloop.py:998-1015)."""
+        completed by _halo_y, timeloop.py:998-1015).  depth 2 (the dsmag
+        kernel): two rows and two columns a side, the x halos (nz, 4,
+        nyl + 4) with the (x +-1..2, y +-1..2) corners, by the same two
+        hops (cales_tpu timeloop.py:1003-1005)."""
         m = self.mesh
-        xs = m.halo_x([q for q in xpairs if q[0] is not None])
+        xs = m.halo_x([q for q in xpairs if q[0] is not None], depth=depth)
         ypairs = list(ypairs) if m.gy > 1 else []
-        h = m.halo_y(ypairs + _xstack_halo_pairs(xs))
+        h = m.halo_y(ypairs + _xstack_halo_pairs(xs), depth=depth)
         it = iter(_xstacks_on_slab(xs, h[len(ypairs):]))
         xh = [None if q is None else next(it) for q, _ in xpairs]
         return (h[:len(ypairs)] if m.gy > 1 else None), xh
@@ -1726,10 +1756,20 @@ class Simulation:
         fused_dsmag_onepass ystrips), and the z rows' sums of num and den
         are reduced over the ranks before the ratio, one all_reduce of
         2 nz values; with y walls the kernel takes the slab's y-row stacks
-        too and applies the wall recipes on the sides the slab owns."""
+        too and applies the wall recipes on the sides the slab owns.  On a
+        pencil (gx > 1) it reads two columns a side too, with their
+        (x +-1..2, y +-1..2) corners (_pencil_halos at depth 2: the x halo
+        then its rows in the y exchange; cales_tpu _dsmag_xext,
+        timeloop.py:486-509), and the z rows' sums are reduced over all
+        gy gx ranks in that one all_reduce (mesh.all_reduce is the
+        world's)."""
         cfg = self.cfg
-        yh = reduce = None
-        if self.mesh is not None:
+        yh = xh = reduce = None
+        if self.xhalo:
+            pairs = list(zip((u, v, w), zq))
+            yh, xh = self._pencil_halos(pairs, pairs, depth=2)
+            reduce = self.mesh.all_reduce
+        elif self.mesh is not None:
             yh = self.mesh.halo_y(list(zip((u, v, w), zq)), depth=2)
             reduce = self.mesh.all_reduce
             if self.yown is not None:
@@ -1744,7 +1784,7 @@ class Simulation:
                                      self.dsmag_zvals, ye=yq,
                                      yvals=self.dsmag_yvals, avg=avg,
                                      zper=self.zper, f2d=cfg.filter_2d, yh=yh,
-                                     yown=self.yown)
+                                     yown=self.yown, xh=xh)
         return s0 if avg == 'cavity' else _dsmag_ratio(
             s0, num, den, avg, self.dit_w_t, reduce=reduce)
 

@@ -54,21 +54,24 @@ dsmag duct at 512x256x256 (10ff, 10yf) and as small f64 cases the box
 LES with 'dit', the full-3D channel DNS and the wall-modelled duct (10tdf,
 10i3f, 10ywf); then on the 2D pencil mesh dims (2, 2), four ranks that
 share the card, the LES headline by 'mat' and by 'fft' and the LES with
-impdiff_1d at 512x256x256 (10p, 10pf, 10pi: the x-halo variants of
-mom_rk, fillps, correc_updatep and smag, timed in phase 2b at the pencil
-(256, 128, 256), the Poisson solve re-slabbed), their small f64 twins and
-the 'none' channel's (10pn) against one device, and the LES example
-through the CLI with dims(1:2) = 2, 2 (10pc).  Each phase's first line
-carries the seconds since the start.
+impdiff_1d, the dsmag channel (two-deep x halos), the triperiodic DNS
+and its dsmag 'dit' LES, and the channel DNS with full-3D implicit
+diffusion at 512x256x256 (10p, 10pf, 10pi, 10pd, 10pt, 10ptd, 10pi3: the
+x-halo variants of mom_rk ('xy+z' too), fillps, correc_updatep, smag and
+dsmag, timed in phase 2b at the pencil (256, 128, 256), the Poisson and
+Helmholtz solves re-slabbed), their small f64 twins and those of the
+'none' channel, the box's smag LES and the box DNS by 'fft' (10pn,
+10ptl, 10ptf) against one device, and the LES example through the CLI
+with dims(1:2) = 2, 2 (10pc).  Each phase's first line carries the
+seconds since the start.
 
     python3 chip_smoke.py            # all phases, one card
 
-(``chip_smoke.py --sharded-rank DIR`` is one rank of the mesh phase 10,
-``--sharded-les-rank DIR`` one of phases 10i to 10tf and
-``--sharded-les-rank DIR second`` one of phases 10i3 to 10ywf and
-``--pencil-rank DIR`` one of phases 10p to 10pn, which the script starts
-itself under torch.distributed.run; ``chip_smoke.py --pencil-nccl`` runs
-those phases alone on four cards, a card a rank over NCCL.)
+(``chip_smoke.py --mesh-rank DIR`` is one rank of the y-slab mesh's
+phases 10 and 10i to 10ywf, ``--pencil-rank DIR`` one of phases 10p to
+10ptf, which the script starts itself under torch.distributed.run, one
+launch each; ``chip_smoke.py --pencil-nccl`` runs the pencil phases alone
+on four cards, a card a rank over NCCL.)
 
 Exits non-zero without a CUDA device, or when any phase fails.  The last
 line of standard output is {"ok": true, "device": {...}}; the line before
@@ -237,7 +240,17 @@ PENCIL_ROWS = {'mom_rk (x halo, y halo)': ('mom_rk', '10p'),
                "mom_rk (x halo, y halo, '1d')": ('mom_rk', '10pi'),
                'fillps (x halo, y halo)': ('fillps', '10p'),
                'correc_updatep (x halo, y halo)': ('correc_updatep', '10p'),
-               'smag (x halo, y halo)': ('smag', '10p')}
+               'smag (x halo, y halo)': ('smag', '10p'),
+               # the full-3D channel DNS (10pi3), the box's smag LES (its
+               # small twin 10ptl: the no-wall run) and the one-pass
+               # dsmag's two-deep x halo mode on the channel (10pd) and the
+               # box with 'dit' (10ptd)
+               "mom_rk (x halo, y halo, 'xy+z')": ('mom_rk', '10pi3'),
+               'correc_updatep (x halo, y halo, full-3D)': ('correc_updatep',
+                                                            '10pi3'),
+               'smag (x halo, y halo, no wall)': ('smag', '10ptl'),
+               'dsmag (x halo, y halo)': ('dsmag', '10pd'),
+               'dsmag (x halo, y halo, periodic z)': ('dsmag', '10ptd')}
 # the mixed route's y stage (ptransform 'fft' with y walls, phase 8f and
 # the mesh classes 10yf, 10ywf): apply_y with the y DCT alone on the real
 # view of the rfft's lanes at the headline grid, (nz, ny, 2 (nx/2 + 1)),
@@ -1957,9 +1970,12 @@ def pencil_rows(dev, card):
     -1 and nyl too), each by _check_row (float32 within 1e-5 of its twin,
     float64 within 1e-12), its bound the bytes (each input, halo and
     output once) or the arithmetic: mom_rk's X_HALO x Y_HALO explicit with
-    nu_t and with the '1d' split (the LES with impdiff_1d), fillps's,
-    correc_updatep's (impdiff_1d's p update) and smag's with the z walls'
-    van Driest."""
+    nu_t, with the '1d' split (the LES with impdiff_1d) and with the 'xy+z'
+    split (full-3D implicit diffusion), fillps's, correc_updatep's
+    (impdiff_1d's p update and the full-3D one) and smag's with the z
+    walls' van Driest and without a wall (the box); dsmag's XH x YH mode
+    (two-deep x halos (nz, 4, ny/2 + 4) and depth-2 y halos, its z rows'
+    sums as totals) on the z-walled channel and, with ZP, on the box."""
     from cales_torch.config import Config
     from cales_torch.grid import make_grid_from_config
     from cales_torch.ops import kernels as K
@@ -2004,7 +2020,8 @@ def pencil_rows(dev, card):
     def mom_totals(res):
         return [*res[:6], res[6].sum(dim=1)]
     for row, split in (('mom_rk (x halo, y halo)', None),
-                       ("mom_rk (x halo, y halo, '1d')", '1d')):
+                       ("mom_rk (x halo, y halo, '1d')", '1d'),
+                       ("mom_rk (x halo, y halo, 'xy+z')", 'xy+z')):
         a = (u, v, w, s, p, *e, se, pe, ru, rv, rw, sim.dzci_t, sim.dzfi_t,
              0.01, -0.005, cfg.visc, dxi, dyi, cfg.bforce)
         kw = dict(sums=(True, False), split=split, yh=tuple(yh),
@@ -2022,13 +2039,47 @@ def pencil_rows(dev, card):
         'correc_updatep (x halo, y halo)', K.correc_updatep,
         K.correc_updatep_plain, a, kw, list,
         WORK_VARIANT[('correc_updatep', 'impdiff')])
+    row = 'correc_updatep (x halo, y halo, full-3D)'
+    rows[row] = row_of(row, K.correc_updatep, K.correc_updatep_plain, a,
+                       dict(kw, impdiff_1d=False), list,
+                       WORK_VARIANT[('correc_updatep', 'impdiff')])
     tz = tuple(1e-2 * (1.0 + rnd(nyl, nx).abs()) for _ in range(2))
     a = (u, v, w, *e, sim.dzci_t, sim.dzfi_t, dxi, dyi, cfg.visc,
          sim.csd2_t, sim.dw_t, sim.nearlo_t, *tz)
     rows['smag (x halo, y halo)'] = row_of(
         'smag (x halo, y halo)', K.smag, K.smag_plain, a,
         dict(yh=tuple(yh[:3]), xh=tuple(xh[:3])), list, WORK['smag'])
-    del sim, u, v, w, p, pp, ru, rv, rw, s, e, se, pe, ppe, yh, xh
+    rows['smag (x halo, y halo, no wall)'] = row_of(
+        'smag (x halo, y halo, no wall)', K.smag, K.smag_plain, a,
+        dict(yh=tuple(yh[:3]), xh=tuple(xh[:3]), have_zwalls=False), list,
+        WORK_VARIANT[('smag', 'nowall')])
+    del sim, p, pp, ru, rv, rw, s, se, pe, ppe, yh, xh
+    torch.cuda.empty_cache()
+    # dsmag's XH x YH mode: the channel (z walls, alpha^2 2.52 on the
+    # walls' rows) and the box (ZP, uniform z); two-deep x halos over the
+    # rows -2 .. nyl+1 and depth-2 y halos
+
+    def dsmag_totals(res):
+        return [res[0], res[1].sum(dim=-1), res[2].sum(dim=-1)]
+    yh2 = [(rnd(nz, 4, nx), rnd(3, 4, nx)) for _ in range(3)]
+    xh2 = [(rnd(nz, 4, nyl + 4), rnd(3, 4, nyl + 4)) for _ in range(3)]
+    for row, kw0 in (('dsmag (x halo, y halo)', DSMAG_CFG),
+                     ('dsmag (x halo, y halo, periodic z)', TRI_CFG)):
+        cfg = Config(**{**kw0, 'ng': PENCIL_NG, 'dims': (1, 1),
+                        'dtype': 'float32'})
+        grid = make_grid_from_config(cfg)
+        zper = cfg.cbc_vel(2, 0) == 'PP'
+        a2 = torch.full((nz,), 4.0, dtype=f32, device=dev)
+        if not zper:
+            a2[0] = a2[-1] = 2.52
+        a = (u, v, w, *e, a2,
+             torch.as_tensor(grid.dzci, dtype=f32, device=dev),
+             torch.as_tensor(grid.dzfi, dtype=f32, device=dev),
+             cfg.dli[0], cfg.dli[1], not zper, not zper)
+        rows[row] = row_of(row, K.dsmag, K.dsmag_plain, a,
+                           dict(avg='channel', zper=zper, yh=yh2, xh=xh2),
+                           dsmag_totals, WORK['dsmag'])
+    del u, v, w, e, yh2, xh2
     torch.cuda.empty_cache()
     return rows
 
@@ -3603,11 +3654,11 @@ def _halo_kernel_rows(sim, state, mesh, dt, card):
     return rows
 
 
-def sharded_rank(out_dir):
-    """sharded_rank_body, with a failure's traceback written to
+def mesh_rank(out_dir):
+    """mesh_rank_body, with a failure's traceback written to
     DIR/rank<r>.err for the parent to show."""
     try:
-        return sharded_rank_body(out_dir)
+        return mesh_rank_body(out_dir)
     except BaseException:
         import traceback
         rank = os.environ.get('RANK', '?')
@@ -3615,22 +3666,43 @@ def sharded_rank(out_dir):
         raise
 
 
-def sharded_rank_body(out_dir):
-    """One rank of phase 10 (started under torch.distributed.run, two ranks
-    on the one card over gloo, staged through pinned host buffers): the
+def mesh_rank_body(out_dir):
+    """One rank of the two-rank runner of the y-slab mesh (started under
+    torch.distributed.run, two ranks on the one card over gloo, staged
+    through pinned host buffers): phase 10 (sharded_rank_work), then the
+    classes of phases 10i .. 10ywf (sharded_les_work), on one process
+    group, so that the ranks reach the card once."""
+    from cales_torch.config import Config
+    from cales_torch.parallel import mesh as meshmod
+    out_dir = Path(out_dir)
+    cfg = Config(**MESH_CFG)
+    mesh, dev = meshmod.from_env(cfg.dims, cfg.ng, 'cuda', 'gloo')
+    t0 = time.perf_counter()
+    sharded_rank_work(mesh, dev, out_dir)
+    t1 = time.perf_counter()
+    sharded_les_work(mesh, dev, out_dir)
+    if mesh.rank == 0:
+        say(f'  phase 10 took {t1 - t0:.1f} s of the runner, phases '
+            f'10i-10ywf {time.perf_counter() - t1:.1f} s')
+    mesh.barrier()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def sharded_rank_work(mesh, dev, out_dir):
+    """Phase 10's work on a rank of the y-slab mesh (mesh_rank_body): the
     headline on the y-slab mesh through driver.run with every launch count
     set to 0 just before and read just after, the correctness gates, the
     step and the collectives timed; the slab variants against their twins;
     then the small f64 case, whose gathered fields rank 0 writes for the
-    parent to hold against the single-device run."""
+    parent to hold against the single-device run (p10_rank<r>.json,
+    small.npz)."""
     from cales_torch import driver
     from cales_torch.config import Config
     from cales_torch.grid import make_grid_from_config
     from cales_torch.parallel import mesh as meshmod
     from cales_torch.timeloop import Simulation
-    out_dir = Path(out_dir)
     cfg = Config(**MESH_CFG)
-    mesh, dev = meshmod.from_env(cfg.dims, cfg.ng, 'cuda', 'gloo')
     card = card_line()
     rank = mesh.rank
     res = {'rank': rank, 'card': card}
@@ -3705,13 +3777,52 @@ def sharded_rank_body(out_dir):
              for q in ('u', 'v', 'w', 'p', 'visct')}
     if rank == 0:
         np.savez(out_dir / 'small.npz', dt=dt, **small)
-    (out_dir / f'rank{rank}.json').write_text(json.dumps(res))
+    (out_dir / f'p10_rank{rank}.json').write_text(json.dumps(res))
+    del sim, st
+    torch.cuda.empty_cache()
     mesh.barrier()
-    torch.distributed.destroy_process_group()
-    return 0
 
 
-def phase_sharded(dev, card):
+def run_mesh_ranks(card):
+    """The two-rank runner of the y-slab mesh (mesh_rank_body), one launch
+    of torch.distributed.run for phase 10 and phases 10i .. 10ywf; returns
+    phase 10's (ranks' results, small f64 fields) and the classes' (ranks'
+    results, small f64 fields by key)."""
+    torch.cuda.empty_cache()
+    env = dict(os.environ)
+    # gloo's pairs on the loopback interface: the ranks share one host
+    env.setdefault('GLOO_SOCKET_IFNAME', 'lo')
+    keys = [k for k, *_ in (*MESH_CLASSES, *MESH_SMALL_ONLY)]
+    say(f'phases 10, {", ".join(keys)}: the LES headline and the channel, '
+        f'duct, cavity and box classes on a y-slab mesh, dims (2, 1), '
+        f'{HEADLINE_NG} float32, two ranks on one card (gloo, staged '
+        f'through the host), one launch  [{card}]')
+    with tempfile.TemporaryDirectory() as tmp:
+        cmd = [sys.executable, '-m', 'torch.distributed.run', '--standalone',
+               '--nproc_per_node', '2', str(ROOT / 'chip_smoke.py'),
+               '--mesh-rank', tmp]
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, capture_output=True, text=True, cwd=ROOT,
+                             timeout=1000, env=env)
+        say(f'  torch.distributed.run exit {res.returncode} after '
+            f'{time.perf_counter() - t0:.1f} s (limit 1000 s)')
+        for line in res.stdout.splitlines():
+            say(f'  | {line}')
+        errs = ''.join(f'rank {r}:\n{q.read_text()}' for r in range(2)
+                       for q in [Path(tmp) / f'rank{r}.err'] if q.exists())
+        require(res.returncode == 0,
+                f'a rank of the y-slab mesh runner failed:\n'
+                f'{errs or res.stderr[-4000:]}')
+        p10 = ([json.loads((Path(tmp) / f'p10_rank{r}.json').read_text())
+                for r in range(2)], dict(np.load(Path(tmp) / 'small.npz')))
+        les = ([json.loads((Path(tmp) / f'les_rank{r}.json').read_text())
+                for r in range(2)],
+               {key: dict(np.load(Path(tmp) / f'small_{key}.npz'))
+                for key in keys})
+    return p10, les
+
+
+def phase_sharded(dev, card, p10):
     """Phase 10: the channel LES on a y-slab mesh, dims = (2, 1), two ranks
     sharing the one card through torch.distributed over gloo with the CUDA
     tensors staged through pinned host buffers (NCCL refuses two ranks on
@@ -3721,36 +3832,16 @@ def phase_sharded(dev, card):
     ranks' time-sharing of the card make it no scaling figure); the slab
     kernels against their twins; the small f64 case against the
     single-device 'mat' + Thomas run on the card within 1e-11; then the
-    LES example through the CLI under torch.distributed.run.  Returns
-    (rank 0's launches, the halo variants' report rows)."""
+    LES example through the CLI under torch.distributed.run.  p10: the
+    two-rank runner's results (run_mesh_ranks).  Returns (rank 0's
+    launches, the halo variants' report rows)."""
     from cales_torch.config import Config
     from cales_torch.grid import make_grid_from_config
     from cales_torch.timeloop import Simulation
-    torch.cuda.empty_cache()
-    env = dict(os.environ)
-    # gloo's pairs on the loopback interface: the ranks share one host
-    env.setdefault('GLOO_SOCKET_IFNAME', 'lo')
+    ranks, small = p10
     say(f'phase 10: the LES on a y-slab mesh, dims (2, 1), {MESH_CFG["ng"]} '
         f'float32, two ranks on one card (gloo, staged through the host)  '
         f'[{card}]')
-    with tempfile.TemporaryDirectory() as tmp:
-        cmd = [sys.executable, '-m', 'torch.distributed.run', '--standalone',
-               '--nproc_per_node', '2', str(ROOT / 'chip_smoke.py'),
-               '--sharded-rank', tmp]
-        t0 = time.perf_counter()
-        res = subprocess.run(cmd, capture_output=True, text=True, cwd=ROOT,
-                             timeout=900, env=env)
-        say(f'  torch.distributed.run exit {res.returncode} after '
-            f'{time.perf_counter() - t0:.1f} s')
-        for line in res.stdout.splitlines():
-            say(f'  | {line}')
-        errs = ''.join(f'rank {r}:\n{q.read_text()}' for r in range(2)
-                       for q in [Path(tmp) / f'rank{r}.err'] if q.exists())
-        require(res.returncode == 0,
-                f'a rank of phase 10 failed:\n{errs or res.stderr[-4000:]}')
-        ranks = [json.loads((Path(tmp) / f'rank{r}.json').read_text())
-                 for r in range(2)]
-        small = dict(np.load(Path(tmp) / 'small.npz'))
     r0 = ranks[0]
     per_step = dict(mom_rk=3, fillps=3, correc_updatep=3, smag=3, apply_x=6,
                     apply_y=6, thomas_z=3)
@@ -3984,11 +4075,6 @@ MESH_CLASSES = (
      dict(DUCT_CFG, ptransform='fft', dims=(2, 1)), None,
      dict(mom_rk=3, fillps=3, correc_updatep=3, dsmag=3, apply_y=6),
      {'dsmag': 1}))
-# the classes of the second runner (a subprocess of their own, so that
-# neither runner nears its time limit)
-MESH_SECOND = ('10i3', '10t3', '10x', '10xb', '10t1', '10i3s', '10xy',
-               '10xc', '10xw', '10xs', '10xk', '10xysc', '10ff', '10yf',
-               '10tdf', '10i3f', '10ywf')
 # the classes that run under CALES_DSMAG_TWOPASS=1 (twopass), their small
 # twin and its one-device reference too: the duct by two passes
 MESH_TWOPASS = ('10yb',)
@@ -4317,48 +4403,25 @@ def _mesh_small(key, kw, mesh, dev, out_dir):
     del sim, st
 
 
-def sharded_les_rank(out_dir, second=False):
-    """sharded_les_rank_body on the classes of MESH_SECOND (second) or on
-    the others, with a failure's traceback written to DIR/rank<r>.err for
-    the parent to show."""
-    try:
-        return sharded_les_rank_body(out_dir, second)
-    except BaseException:
-        import traceback
-        rank = os.environ.get('RANK', '?')
-        (Path(out_dir) / f'rank{rank}.err').write_text(traceback.format_exc())
-        raise
-
-
-def sharded_les_rank_body(out_dir, second=False):
-    """One rank of phases 10i, 10w, 10d, 10y, 10yc, 10ys, 10yw, 10t, 10tl,
-    10td, 10s, 10ysc, 10b, 10yb, 10f and 10tf, or with second of 10i3,
-    10t3, 10x, 10xb, 10t1, 10i3s, 10xy, 10xc, 10xw, 10xs, 10xk, 10xysc,
-    10ff, 10yf, 10tdf, 10i3f and 10ywf (MESH_SECOND) (started under
-    torch.distributed.run, two ranks on the one card over gloo, staged
-    through pinned host buffers): each class at the headline grid through
+def sharded_les_work(mesh, dev, out_dir):
+    """The work of phases 10i .. 10ywf on a rank of the y-slab mesh
+    (mesh_rank_body): each class at the headline grid through
     driver.run with every launch count set to 0 just before and read just
     after, its gates, its ms/step over MESH_TIMED steps, its slab variant
     against its twin (the
     channel classes'), and its small f64 twin, whose gathered fields rank
-    0 writes for the parent; 10d also takes one step with 'dit', and the
-    classes of MESH_SMALL_ONLY run their small twin only, their launches
-    counted there; the classes of MESH_TWOPASS under
-    CALES_DSMAG_TWOPASS=1."""
+    0 writes for the parent (les_rank<r>.json, small_<key>.npz); 10d also
+    takes one step with 'dit', and the classes of MESH_SMALL_ONLY run
+    their small twin only, their launches counted there; the classes of
+    MESH_TWOPASS under CALES_DSMAG_TWOPASS=1."""
     from cales_torch import driver
-    from cales_torch.config import Config
     from cales_torch.parallel import mesh as meshmod
-    out_dir = Path(out_dir)
-    first = Config(**MESH_CLASSES[0][2])
-    mesh, dev = meshmod.from_env(first.dims, first.ng, 'cuda', 'gloo')
     card = card_line()
     rank = mesh.rank
     res = {'rank': rank, 'card': card}
     runs = [(key, kw) for key, _, kw, *_ in MESH_CLASSES]
     runs.append(('10d dit', dict(MESH_CLASSES[2][2], dsmag_avg='dit')))
     runs += [(key, kw) for key, _, kw, _ in MESH_SMALL_ONLY]
-    runs = [(key, kw) for key, kw in runs
-            if (key in MESH_SECOND) == second]
     small_only = {key for key, *_ in MESH_SMALL_ONLY}
     for key, kw in runs:
         with _mesh_env(key):
@@ -4413,10 +4476,8 @@ def sharded_les_rank_body(out_dir, second=False):
             torch.cuda.empty_cache()
             _mesh_small(key, kw, mesh, dev, out_dir)
             res[key] = r
-    (out_dir / f'rank{rank}.json').write_text(json.dumps(res))
+    (out_dir / f'les_rank{rank}.json').write_text(json.dumps(res))
     mesh.barrier()
-    torch.distributed.destroy_process_group()
-    return 0
 
 
 def _small_vs_one_device(tag, kw, small, dev):
@@ -4461,7 +4522,7 @@ def _small_vs_one_device(tag, kw, small, dev):
     return out
 
 
-def phase_sharded_les(dev, card):
+def phase_sharded_les(dev, card, les):
     """Phases 10i, 10w and 10d: the channel DNS with impdiff_1d, the
     wall-modelled channel LES and the dsmag channel ('channel', impdiff_1d;
     then one step with 'dit'); 10y, 10yc and 10ys: the y-walled dsmag duct
@@ -4473,8 +4534,7 @@ def phase_sharded_les(dev, card):
     start's and walls' values); 10b and 10yb: the two-pass dsmag on the
     transpiring channel (dsmag_blow) and on the duct under
     CALES_DSMAG_TWOPASS=1; 10f and 10tf: the 2D test filter on the dsmag
-    channel and on the box with 'dit'; in a second runner (MESH_SECOND)
-    10i3 and 10t3: the channel DNS and the box with full-3D implicit
+    channel and on the box with 'dit'; 10i3 and 10t3: the channel DNS and the box with full-3D implicit
     diffusion, 10x and 10xb: the developing channel and its LES with
     impdiff_1d (u at its value on the inflow face, the outflow's flux the
     inflow's), 10xy, 10xc, 10xw and 10xs: the developing duct LES, the
@@ -4492,45 +4552,13 @@ def phase_sharded_les(dev, card):
     the channel classes' slab kernel variant against its twin, and each
     class's small f64 twin (the 'none' duct's alone, 10yn) against the
     single-device run on the card within 1e-11 (with y walls the kept
-    planes too); and with ptransform 'fft' (the second runner) 10ff and
+    planes too); and with ptransform 'fft' 10ff and
     10yf: the LES headline and the dsmag duct by the mixed route, and the
     small f64 cases alone of 10tdf (the box LES with 'dit'), 10i3f (the
     full-3D channel DNS) and 10ywf (the wall-modelled duct, mixed).
+    les: the two-rank runner's results (run_mesh_ranks).
     Returns ({key: rank 0's launches}, the report rows)."""
-    torch.cuda.empty_cache()
-    env = dict(os.environ)
-    env.setdefault('GLOO_SOCKET_IFNAME', 'lo')
-    ranks, smalls = [{}, {}], {}
-    for second in (False, True):
-        keys = [k for k, *_ in (*MESH_CLASSES, *MESH_SMALL_ONLY)
-                if (k in MESH_SECOND) == second]
-        say(f'phases {", ".join(keys)}: the channel, duct, cavity and box '
-            f'classes on a y-slab mesh, dims (2, 1), {HEADLINE_NG} float32, '
-            f'two ranks on one card (gloo, staged through the host)  '
-            f'[{card}]')
-        with tempfile.TemporaryDirectory() as tmp:
-            cmd = [sys.executable, '-m', 'torch.distributed.run',
-                   '--standalone', '--nproc_per_node', '2',
-                   str(ROOT / 'chip_smoke.py'), '--sharded-les-rank', tmp,
-                   *(['second'] if second else [])]
-            t0 = time.perf_counter()
-            res = subprocess.run(cmd, capture_output=True, text=True,
-                                 cwd=ROOT, timeout=900, env=env)
-            say(f'  torch.distributed.run exit {res.returncode} after '
-                f'{time.perf_counter() - t0:.1f} s (limit 900 s)')
-            for line in res.stdout.splitlines():
-                say(f'  | {line}')
-            errs = ''.join(f'rank {r}:\n{q.read_text()}' for r in range(2)
-                           for q in [Path(tmp) / f'rank{r}.err']
-                           if q.exists())
-            require(res.returncode == 0,
-                    f'a rank of phases {keys[0]}-{keys[-1]} failed:\n'
-                    f'{errs or res.stderr[-4000:]}')
-            for r in range(2):
-                ranks[r].update(json.loads(
-                    (Path(tmp) / f'rank{r}.json').read_text()))
-            smalls.update({key: dict(np.load(Path(tmp) / f'small_{key}.npz'))
-                           for key in keys})
+    ranks, smalls = les
     small_eps = float(np.sqrt(np.finfo(np.float32).eps) * 10)
     launches, rows = {}, {}
     per = {c[0]: c for c in MESH_CLASSES}
@@ -4671,33 +4699,63 @@ def phase_sharded_les(dev, card):
     return launches, rows
 
 
-# the channel classes on the 2D pencil mesh dims (2, 2) (phases 10p, 10pf,
-# 10pi): four ranks on the one card over gloo, each class at the headline
-# grid in float32 through driver.run with exact launches a rank (the
-# x-halo variants of mom_rk, fillps, correc_updatep and smag, the re-slab
-# around the slab route's kernels on 4 y slabs), the PERF.md section 2
-# gates and one timed step; and the small float64 twins of the LES by
-# 'mat' and by 'fft', the 'none' channel and the LES with impdiff_1d
-# against one device on the card within 1e-11.  (key, title, config, per
-# step)
+# the classes on the 2D pencil mesh dims (2, 2) (phases 10p, 10pf, 10pi,
+# 10pd, 10pt, 10ptd, 10pi3): four ranks on the one card over gloo, each
+# class at the headline grid in float32 through driver.run with exact
+# launches a rank (the x-halo variants of mom_rk, fillps, correc_updatep,
+# smag and dsmag, the re-slab around the slab route's kernels on 4 y
+# slabs, full-3D implicit diffusion's Helmholtz solves through it), the
+# PERF.md section 2 gates and one timed step; and the small float64 twins
+# of those classes, of the 'none' channel, the box's smag LES and the box
+# DNS by 'fft' against one device on the card within 1e-11.  (key, title,
+# config, per step, outside the steps: the initial nu_t's dsmag)
 PENCIL_DIMS = (2, 2)
 PENCIL_STEPS = 2
 PENCIL_CLASSES = (
     ('10p', "LES headline by 'mat' (phase 10's)", dict(MESH_CFG,
                                                      dims=PENCIL_DIMS),
      dict(mom_rk=3, fillps=3, correc_updatep=3, smag=3, apply_x=6,
-          apply_y=6, thomas_z=3)),
+          apply_y=6, thomas_z=3), {}),
     ('10pf', "LES headline by 'fft' (bench.py channel_les_smag, phase 4)",
      dict(LES_CFG, dims=PENCIL_DIMS, **CHAN_BCS),
-     dict(mom_rk=3, fillps=3, correc_updatep=3, smag=3)),
+     dict(mom_rk=3, fillps=3, correc_updatep=3, smag=3), {}),
     ('10pi', 'LES with impdiff_1d (phase 5\'s LES_IMP_CFG)',
      dict(LES_IMP_CFG, dims=PENCIL_DIMS),
      dict(mom_rk=3, fillps=3, correc_updatep=3, smag=3, apply_x=6,
-          apply_y=6, thomas_z=12)))
-# the small float64 twins: the classes' and the 'none' channel's
+          apply_y=6, thomas_z=12), {}),
+    ('10pd', "dsmag channel, 'channel', impdiff_1d (phase 10d's)",
+     dict(DSMAG_CFG, dims=PENCIL_DIMS),
+     dict(mom_rk=3, fillps=3, correc_updatep=3, dsmag=3, apply_x=6,
+          apply_y=6, thomas_z=12), {'dsmag': 1}),
+    ('10pt', 'triperiodic DNS (triperiodic_dns)',
+     dict(TRI_CFG, dims=PENCIL_DIMS),
+     dict(mom_rk=3, fillps=3, correc_updatep=3, apply_x=6, apply_y=6,
+          thomas_periodic=3), {}),
+    ('10ptd', "box LES, dynamic Smagorinsky 'dit'",
+     dict(TRI_CFG, sgstype='dsmag', dsmag_avg='dit', dims=PENCIL_DIMS),
+     dict(mom_rk=3, fillps=3, correc_updatep=3, dsmag=3, apply_x=6,
+          apply_y=6, thomas_periodic=3), {'dsmag': 1}),
+    # three Helmholtz solves a substep beside the Poisson solve, each
+    # through the re-slab: 16 all-to-alls a substep
+    ('10pi3', 'channel DNS, full-3D implicit diffusion (phase 5f)',
+     dict(DNS_CFG, impdiff_1d=False, dims=PENCIL_DIMS),
+     dict(mom_rk=3, fillps=3, correc_updatep=3, apply_x=24, apply_y=24,
+          thomas_z=12), {}))
+# the small float64 twins: the classes', the 'none' channel's, the box's
+# smag LES (its launches counted: the no-wall smag's main path) and the
+# box DNS by 'fft'
 PENCIL_SMALL = tuple(c[:3] for c in PENCIL_CLASSES) + (
     ('10pn', "'none' channel by 'mat'",
-     dict(MESH_CFG, sgstype='none', dims=PENCIL_DIMS)),)
+     dict(MESH_CFG, sgstype='none', dims=PENCIL_DIMS)),
+    ('10ptl', 'box LES, static Smagorinsky (no wall)',
+     dict(TRI_CFG, sgstype='smag', dims=PENCIL_DIMS)),
+    ('10ptf', "triperiodic DNS by 'fft'",
+     dict(TRI_CFG, ptransform='fft', dims=PENCIL_DIMS)))
+# the small twins whose launches phase 2b's rows read, and what they
+# launch: a step's, and outside the steps the initial nu_t's smag
+PENCIL_SMALL_COUNTED = {'10ptl': (dict(mom_rk=3, fillps=3, correc_updatep=3,
+                                       smag=3, apply_x=6, apply_y=6,
+                                       thomas_periodic=3), {})}
 
 
 def pencil_rank(out_dir, transport='gloo'):
@@ -4713,14 +4771,14 @@ def pencil_rank(out_dir, transport='gloo'):
 
 
 def pencil_rank_body(out_dir, transport='gloo'):
-    """One rank of phases 10p, 10pf and 10pi (started under
-    torch.distributed.run, four ranks on the one card over gloo, staged
-    through pinned host buffers, or with transport 'nccl' a card a rank):
-    each class at the headline grid through
+    """One rank of phases 10p, 10pf, 10pi, 10pd, 10pt, 10ptd and 10pi3
+    (started under torch.distributed.run, four ranks on the one card over
+    gloo, staged through pinned host buffers, or with transport 'nccl' a
+    card a rank): each class at the headline grid through
     driver.run with every launch count set to 0 just before and read just
     after, its gates, its ms/step over MESH_TIMED steps, then the small
     f64 twins (PENCIL_SMALL), whose gathered fields rank 0 writes for the
-    parent."""
+    parent (the launches of those of PENCIL_SMALL_COUNTED counted)."""
     from cales_torch import driver
     from cales_torch.parallel import mesh as meshmod
     out_dir = Path(out_dir)
@@ -4729,7 +4787,7 @@ def pencil_rank_body(out_dir, transport='gloo'):
     card = card_line()
     rank = mesh.rank
     res = {'rank': rank, 'card': card}
-    for key, _, kw, _ in PENCIL_CLASSES:
+    for key, _, kw, _, _ in PENCIL_CLASSES:
         cfg = _class_cfg(kw)
         m = meshmod.SlabMesh(mesh.comm, cfg.dims, cfg.ng)
         torch.cuda.reset_peak_memory_stats(dev)
@@ -4744,6 +4802,7 @@ def pencil_rank_body(out_dir, transport='gloo'):
         if rank == 0:
             say(f'  phase {key} path: {sim.exec_path()}')
         dt = sim.pick_dt(sim.check(state)[0])
+        energy0 = _mesh_gates(sim, state, m)['energy']
         torch.cuda.synchronize()
         m.barrier()
         t0 = time.perf_counter()
@@ -4753,12 +4812,17 @@ def pencil_rank_body(out_dir, transport='gloo'):
         m.barrier()
         r['ms_per_step'] = (time.perf_counter() - t0) * 1e3 / MESH_TIMED
         r.update(_mesh_gates(sim, state, m))
+        r['energy_before'] = energy0
         r['peak_gib'] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
         res[key] = r
         del sim, state
         torch.cuda.empty_cache()
     for key, _, kw in PENCIL_SMALL:
+        reset_counts()
         _mesh_small(key, kw, mesh, dev, out_dir)
+        torch.cuda.synchronize()
+        if key in PENCIL_SMALL_COUNTED:
+            res[key] = {'launches': counts(), 'steps': MESH_SMALL_STEPS}
     (out_dir / f'rank{rank}.json').write_text(json.dumps(res))
     mesh.barrier()
     torch.distributed.destroy_process_group()
@@ -4767,14 +4831,19 @@ def pencil_rank_body(out_dir, transport='gloo'):
 
 def phase_pencil(dev, card, transport='gloo'):
     """Phases 10p, 10pf and 10pi: the LES headline by 'mat' and by 'fft'
-    and the LES with impdiff_1d on the 2D pencil mesh dims (2, 2), four
+    and the LES with impdiff_1d; 10pd: the dsmag channel ('channel',
+    impdiff_1d); 10pt and 10ptd: the triperiodic DNS and its dsmag 'dit'
+    LES; 10pi3: the channel DNS with full-3D implicit diffusion; on the 2D
+    pencil mesh dims (2, 2), four
     ranks sharing the one card over gloo staged through the host (a
     correctness run: the staging and the four ranks' time-sharing of the
     card make its ms/step no scaling figure), each at 512x256x256 f32 with
-    exact launches a rank and the PERF.md section 2 gates; the small f64
-    twins of the three and of the 'none' channel against one device on the
-    card within 1e-11 (phase 10pn the 'none' channel's); then the LES
-    example through the CLI with dims(1:2) = 2, 2 (10pc).  With transport
+    exact launches a rank and the PERF.md section 2 gates (the box's
+    kinetic energy falling over the timed step); the small f64 twins of
+    the seven, of the 'none' channel (10pn), the box's smag LES (10ptl,
+    its launches counted) and the box DNS by 'fft' (10ptf) against one
+    device on the card within 1e-11; then the LES example through the CLI
+    with dims(1:2) = 2, 2 (10pc).  With transport
     'nccl' (`chip_smoke.py --pencil-nccl`, four cards) the same on a card a
     rank, its ms/step a scaling figure.  Returns {key: rank 0's
     launches}."""
@@ -4808,11 +4877,13 @@ def phase_pencil(dev, card, transport='gloo'):
                   for key, *_ in PENCIL_SMALL}
     small_eps = float(np.sqrt(np.finfo(np.float32).eps) * 10)
     launches, report = {}, {}
-    for key, title, kw, per_step in PENCIL_CLASSES:
+    for key, title, kw, per_step, outside in PENCIL_CLASSES:
         tag = f'phase {key}: {title}, dims {PENCIL_DIMS}'
+        cfg = _class_cfg(kw)
         for rk in ranks:
             for name, n in rk[key]['launches'].items():
-                want = per_step.get(name, 0) * PENCIL_STEPS
+                want = per_step.get(name, 0) * PENCIL_STEPS + outside.get(
+                    name, 0)
                 require(n == want, f'{tag} rank {rk["rank"]}: {name} '
                                    f'launched {n} times, want {want}')
         r0 = ranks[0][key]
@@ -4824,24 +4895,45 @@ def phase_pencil(dev, card, transport='gloo'):
                else '(host clock; a card a rank, NCCL)')
             + f', driver.run {r0["wall_s"]:.1f} s'
             f'; divmax {r0["divmax"]:.3e}, bulk u {r0["bulk_u"]:.7f}, nu_t '
-            f'in [{r0["nu_t_min"]:.4e}, {r0["nu_t_max"]:.4e}], max |w| on '
-            f'the z walls {r0["w_walls"]:.3e}; peak memory a rank '
+            f'in [{r0["nu_t_min"]:.4e}, {r0["nu_t_max"]:.4e}], '
+            + ('' if r0['w_walls'] is None else
+               f'max |w| on the z walls {r0["w_walls"]:.3e}, ')
+            + f'kinetic energy {r0["energy_before"]:.6e} -> '
+            f'{r0["energy"]:.6e} over the timed step; peak memory a rank '
             + ', '.join(f'{rk[key]["peak_gib"]:.2f}' for rk in ranks)
             + f' GiB  [{card}]')
         require(r0['finite'] == 1.0, f'{tag}: non-finite field')
         require(r0['divmax'] <= small_eps, f'{tag}: divmax '
                                            f'{r0["divmax"]:.3e}')
-        require(abs(r0['bulk_u'] - 1.0) <= 1e-4,
-                f'{tag}: bulk u {r0["bulk_u"]:.7f}, want 1')
-        require(r0['nu_t_min'] >= 0.0 and r0['nu_t_max'] > 0.0,
-                f'{tag}: nu_t in [{r0["nu_t_min"]}, {r0["nu_t_max"]}]')
-        require(r0['w_walls'] <= 1e-6, f'{tag}: w on the walls '
-                                       f'{r0["w_walls"]:.3e}')
+        if any(cfg.is_forced):
+            require(abs(r0['bulk_u'] - 1.0) <= 1e-4,
+                    f'{tag}: bulk u {r0["bulk_u"]:.7f}, want 1')
+        require(r0['nu_t_min'] >= 0.0, f'{tag}: nu_t min {r0["nu_t_min"]}')
+        require((r0['nu_t_max'] > 0.0) == (cfg.sgstype != 'none'),
+                f'{tag}: nu_t max {r0["nu_t_max"]}')
+        if r0['w_walls'] is not None:
+            require(r0['w_walls'] <= 1e-6, f'{tag}: w on the walls '
+                                           f'{r0["w_walls"]:.3e}')
+        else:
+            # the box: no forcing, the energy decays
+            require(r0['energy'] < r0['energy_before'],
+                    f'{tag}: kinetic energy {r0["energy_before"]:.6e} -> '
+                    f'{r0["energy"]:.6e}, not falling')
         report[key] = {k: r0[k] for k in ('ms_per_step', 'divmax', 'bulk_u',
                                            'nu_t_min', 'nu_t_max',
-                                           'w_walls', 'wall_s')} | {
+                                           'w_walls', 'energy_before',
+                                           'energy', 'wall_s')} | {
             'peak_gib_per_rank': [rk[key]['peak_gib'] for rk in ranks],
             'card': card}
+    for key, (per_step, outside) in PENCIL_SMALL_COUNTED.items():
+        # its launches on the small twin's steps, each rank's
+        for rk in ranks:
+            for name, n in rk[key]['launches'].items():
+                want = per_step.get(name, 0) * MESH_SMALL_STEPS + \
+                    outside.get(name, 0)
+                require(n == want, f'phase {key} rank {rk["rank"]}: {name} '
+                                   f'launched {n} times, want {want}')
+        launches[key] = ranks[0][key]['launches']
     for key, title, kw in PENCIL_SMALL:
         tag = f'phase {key}: {title}'
         report.setdefault(key, {'card': card}).update(_small_vs_one_device(
@@ -4853,12 +4945,9 @@ def phase_pencil(dev, card, transport='gloo'):
 
 
 def main():
-    if len(sys.argv) == 3 and sys.argv[1] == '--sharded-rank':
+    if len(sys.argv) == 3 and sys.argv[1] == '--mesh-rank':
         sys.path.insert(0, str(ROOT))
-        return sharded_rank(sys.argv[2])
-    if len(sys.argv) in (3, 4) and sys.argv[1] == '--sharded-les-rank':
-        sys.path.insert(0, str(ROOT))
-        return sharded_les_rank(sys.argv[2], sys.argv[3:] == ['second'])
+        return mesh_rank(sys.argv[2])
     if len(sys.argv) in (3, 4) and sys.argv[1] == '--pencil-rank':
         sys.path.insert(0, str(ROOT))
         return pencil_rank(sys.argv[2], *sys.argv[3:])
@@ -4925,9 +5014,10 @@ def main():
     xwm, ximp, xduct = phase_xles(dev, card)
     scal, scal_y, scal_x = phase_scalar(dev, card)
     phase_card_vs_cpu(dev)
-    mesh_launches, halo_rows = phase_sharded(dev, card)
+    p10, mesh_les = run_mesh_ranks(card)
+    mesh_launches, halo_rows = phase_sharded(dev, card, p10)
     rows.update(halo_rows)
-    les_mesh, les_mesh_rows = phase_sharded_les(dev, card)
+    les_mesh, les_mesh_rows = phase_sharded_les(dev, card, mesh_les)
     rows.update(les_mesh_rows)
     pencil = phase_pencil(dev, card)
     # each kernel's launches on the main path that runs it: the dsmag
@@ -4985,7 +5075,8 @@ def main():
     # the pencil mesh's x-halo variants on its phases (rank 0,
     # PENCIL_STEPS steps)
     for row, (name, key) in PENCIL_ROWS.items():
-        paths[row] = (pencil[key], PENCIL_STEPS, name)
+        paths[row] = (pencil[key], MESH_SMALL_STEPS
+                      if key in PENCIL_SMALL_COUNTED else PENCIL_STEPS, name)
     # apply_y on the mixed route's real view: on the one-device duct by
     # 'fft' (phase 8f, 5 steps)
     for row, name in REAL_VIEW_ROWS.items():

@@ -74,6 +74,25 @@ def case_pencil_comm(m, inp, out, key):
         out[f'{key}.{name}'] = np.stack([q.numpy() for q in gathered])
 
 
+def case_pencil_halo2(m, inp, out, key):
+    """On a pencil mesh: a global field's two-deep x halo (mesh.halo_x at
+    depth 2) with its rows -2, -1, nyl and nyl+1 from the depth-2 y
+    exchange (timeloop._pencil_halos at depth 2, the dsmag kernel's
+    path), and that exchange's rows."""
+    from cales_torch.timeloop import _xstack_halo_pairs, _xstacks_on_slab
+    g = torch.as_tensor(inp[f'{key}.field'])
+    e = torch.as_tensor(inp[f'{key}.edge'])
+    loc, eloc = m.local(g), m.local(e)
+    xs = m.halo_x([(loc, eloc)], depth=2)
+    h = m.halo_y([(loc, eloc)] + _xstack_halo_pairs(xs), depth=2)
+    (cols, corners), = _xstacks_on_slab(xs, h[1:])
+    parts = {'xcols2': cols, 'xcorners2': corners, 'rows2': h[0][0],
+             'corners2': h[0][1]}
+    for name, t in parts.items():
+        gathered = m.comm.all_gather(t.contiguous())
+        out[f'{key}.{name}'] = np.stack([q.numpy() for q in gathered])
+
+
 def case_halo2(m, inp, out, key):
     """halo_y at depth 2 of a global field and its edge stack, and of a
     field without one."""
@@ -270,6 +289,8 @@ def main(work, rank, world):
             case_comm(m, inp, out, case['key'])
         elif kind == 'pencil_comm':
             case_pencil_comm(m, inp, out, case['key'])
+        elif kind == 'pencil_halo2':
+            case_pencil_halo2(m, inp, out, case['key'])
         elif kind == 'halo2':
             case_halo2(m, inp, out, case['key'])
         elif kind == 'solve':

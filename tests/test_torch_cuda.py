@@ -2918,11 +2918,11 @@ def test_cuda_pencil_x_halo_variants_match_twins(dev, dtype, shape, yhalo):
     """A pencil of the 2D mesh (random x halos with random rows -1 and nyl,
     and random y halos or, with gy = 1, periodic y) on (nxp, nyl, nz)
     shapes no tile fits and slabs of 2 rows: the x-halo variants (X_HALO)
-    of mom_rk (explicit and '1d', with and without nu_t), fillps,
+    of mom_rk (explicit, '1d' and 'xy+z', with and without nu_t), fillps,
     correc_updatep (explicit, impdiff_1d and the full-3D p update, which
-    reads pp's x halo on both sides) and smag (z walls' van Driest),
-    each against its twin: float64 within 1e-12 of each output's maximum,
-    float32 within 1e-5."""
+    reads pp's x halo on both sides) and smag (z walls' van Driest, and
+    the box's no-wall run), each against its twin: float64 within 1e-12
+    of each output's maximum, float32 within 1e-5."""
     nx, ny, nz = shape
     dt = getattr(torch, dtype)
     tol = 1e-12 if dt == torch.float64 else 1e-5
@@ -2946,7 +2946,7 @@ def test_cuda_pencil_x_halo_variants_match_twins(dev, dtype, shape, yhalo):
     s, p, pp = r(nz, ny, nx).abs(), r(nz, ny, nx), r(nz, ny, nx)
     hy, hx = [H() for _ in range(5)], [X() for _ in range(5)]
     for sgs in (True, False):
-        for split in (None, '1d'):
+        for split in (None, '1d', 'xy+z'):
             mom = (*fields, s if sgs else None, p, *edges,
                    r(3, ny, nx) if sgs else None, r(3, ny, nx),
                    *(r(nz, ny, nx) for _ in range(3)), dzci, dzfi, 5e-4,
@@ -2977,6 +2977,50 @@ def test_cuda_pencil_x_halo_variants_match_twins(dev, dtype, shape, yhalo):
     skw = dict(yh=tuple(H() for _ in range(3)) if yhalo else None,
                xh=tuple(X() for _ in range(3)))
     _rel_close(K.smag(*smg, **skw), K.smag_plain(*smg, **skw), tol)
+    skw['have_zwalls'] = False
+    _rel_close(K.smag(*smg, **skw), K.smag_plain(*smg, **skw), tol)
     torch.cuda.synchronize()
     assert (K.LAUNCHES['mom_rk'], K.LAUNCHES['fillps'],
-            K.LAUNCHES['correc_updatep'], K.LAUNCHES['smag']) == (4, 1, 3, 1)
+            K.LAUNCHES['correc_updatep'], K.LAUNCHES['smag']) == (6, 1, 3, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('zper', [False, True], ids=['z walls', 'periodic z'])
+@pytest.mark.parametrize('yhalo', [True, False], ids=['y halo', 'periodic y'])
+@pytest.mark.parametrize('dtype, shape', [
+    ('float64', (37, 13, 9)), ('float64', (34, 2, 12)),
+    ('float32', (37, 21, 9)), ('float32', (33, 2, 12))])
+def test_cuda_pencil_dsmag_x_halo_matches_twin(dev, dtype, shape, yhalo,
+                                               zper):
+    """dsmag's XH mode (a pencil of the 2D mesh: random two-deep x halos
+    (nz, 4, nyl + 4) with their random rows -2, -1, nyl and nyl + 1, and
+    random depth-2 y halos or, with gy = 1, periodic y; z walls or the
+    box's periodic z, 'channel' and 'dit') on shapes no tile fits and
+    slabs of 2 rows against its twin: |S| and the z rows' sums, float64
+    within 1e-12 of each output's maximum, float32 within 1e-5."""
+    nx, ny, nz = shape
+    dt = getattr(torch, dtype)
+    tol = 1e-12 if dt == torch.float64 else 1e-5
+    rng = np.random.default_rng(55)
+
+    def c(q):
+        return q.to(dt).contiguous()
+
+    def r(*s, scale=0.1):
+        return c(torch.as_tensor(scale * rng.standard_normal(s), device=dev))
+    d = _sgs_inputs(dev, shape, 56)
+    fields, edges = [c(q) for q in d['fields']], [c(e) for e in d['edges']]
+    a2 = c(torch.full((nz,), 4.0, dtype=torch.float64, device=dev))
+    yh = [(r(nz, 4, nx), r(3, 4, nx)) for _ in range(3)] if yhalo else None
+    xh = [(r(nz, 4, ny + 4), r(3, 4, ny + 4)) for _ in range(3)]
+    K.reset_launches()
+    for avg in ('channel', 'dit'):
+        args = (*fields, *edges, a2, c(d['dzci']), c(d['dzfi']), d['dxi'],
+                d['dyi'], not zper, not zper, (0.01, -0.02, 0.0, 0.03))
+        kw = dict(avg=avg, zper=zper, yh=yh, xh=xh)
+        got, ref = K.dsmag(*args, **kw), K.dsmag_plain(*args, **kw)
+        _rel_close(got[0], ref[0], tol)
+        _rel_close(got[1].sum(1), ref[1][:, 0], tol)
+        _rel_close(got[2].sum(1), ref[2][:, 0], tol)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES['dsmag'] == 2

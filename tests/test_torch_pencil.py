@@ -15,7 +15,10 @@ tests/_sharded_worker.py, and the kernels' x-halo twins in process.
     (with y halos, and with gy = 1 periodic y), equal the periodic twins on
     the whole field's block, bitwise (python -m cales_torch.fma_probe's
     construction); the wrappers take the twins on CPU tensors;
-  * the pencil mesh's slice in unsupported() and what stays refused.
+  * the pencil mesh's slice in unsupported() (the channel classes, full-3D
+    implicit diffusion, the triperiodic box, the one-pass dynamic
+    Smagorinsky) and what stays refused (the two passes, the 2D test
+    filter, y walls, pencils thinner than dsmag's x halo, ...).
 """
 import numpy as np
 import pytest
@@ -229,11 +232,28 @@ def test_x_halo_twins_on_a_cut_pencil_equal_the_whole_field(yhalo):
     same((got,), (ref,), 'smag')
 
 
-def test_pencil_slice_and_refusals():
+def test_pencil_slice_and_refusals(monkeypatch):
+    monkeypatch.delenv('CALES_DSMAG_TWOPASS', raising=False)
+    periodic = dict(cbcvel=((('P',) * 3,) * 3,) * 2,
+                    cbcpre=(('P',) * 3,) * 2, cbcsgs=(('P',) * 3,) * 2,
+                    is_forced=(False,) * 3)
+    dsmag = dict(sgstype='dsmag', dsmag_avg='channel')
+    imp1 = dict(impdiff=True, impdiff_1d=True)
     for dims in ((2, 2), (1, 2), (4, 2)):
-        for change in ({}, dict(sgstype='none'),
-                       dict(impdiff=True, impdiff_1d=True),
-                       dict(sgstype='none', impdiff=True, impdiff_1d=True)):
+        for change in ({}, dict(sgstype='none'), imp1,
+                       dict(sgstype='none', **imp1),
+                       # full-3D implicit diffusion ('none' and smag)
+                       dict(impdiff=True),
+                       dict(sgstype='none', impdiff=True),
+                       # the triperiodic box: DNS, smag and dsmag 'dit'
+                       # LES, the DNS with full-3D implicit diffusion
+                       dict(periodic, sgstype='none'), periodic,
+                       dict(periodic, sgstype='dsmag', dsmag_avg='dit'),
+                       dict(periodic, sgstype='none', impdiff=True),
+                       # the one-pass dsmag channel, explicit and
+                       # impdiff_1d, 'channel' and 'dit'
+                       dsmag, dict(dsmag, **imp1),
+                       dict(dsmag, dsmag_avg='dit')):
             for route in ('mat', 'fft'):
                 kw = {**SMAG, 'ng': (512, 256, 256), **change,
                       'ptransform': route}
@@ -243,19 +263,18 @@ def test_pencil_slice_and_refusals():
                            ('D', 'D', 'D')),) * 2,
                   cbcpre=(('P', 'N', 'N'),) * 2,
                   cbcsgs=(('P', 'D', 'D'),) * 2)
-    periodic = dict(cbcvel=((('P',) * 3,) * 3,) * 2,
-                    cbcpre=(('P',) * 3,) * 2, cbcsgs=(('P',) * 3,) * 2,
-                    is_forced=(False,) * 3)
+    blow = (((0.0,) * 3, (0.0,) * 3, (0.0, 0.0, 0.003)),) * 2
     for change, needle in (
-            (dict(sgstype='dsmag', dsmag_avg='channel'),
-             'dynamic Smagorinsky'),
+            (dict(dsmag, bcvel=blow), 'the two-pass dynamic Smagorinsky'),
+            (dict(dsmag, filter_2d=True), 'the 2D test filter'),
+            (dict(wall_y, sgstype='dsmag', dsmag_avg='duct'), 'y walls'),
+            (dict(dsmag, ng=(4, 16, 16), dims=(1, 4)),
+             "thinner than the dsmag kernel's two-column x halo"),
             (dict(wall_y, sgstype='none'), 'y walls'),
-            (dict(periodic, sgstype='none'), 'periodic z'),
             (dict(lwm=((0, 0, 1), (0, 0, 1)), hwm=0.1), 'the wall model'),
             (dict(scalar=True), 'the passive scalar'),
-            (dict(impdiff=True), 'full-3D implicit diffusion'),
             (dict(ng=(18, 16, 16)), 'not divisible by gy gx')):
-        missing = unsupported(Config(**{**SMAG, **change}, dims=(2, 2)))
+        missing = unsupported(Config(**{**SMAG, 'dims': (2, 2), **change}))
         assert any(needle in m and 'gx > 1' in m
                    and 'ROADMAP queue 1, multi-device' in m
                    for m in missing), (needle, missing)

@@ -327,9 +327,11 @@ def test_slab_with_cut_halos_is_the_whole_fields_rows():
 
 
 @pytest.mark.parametrize('change, needle', [
-    # a pencil mesh (gx > 1) runs the 'none' and smag channels; dsmag
-    # there waits for the two-deep x halo
-    (dict(dims=(2, 2), sgstype='dsmag', dsmag_avg='channel'), 'gx > 1'),
+    # a pencil mesh (gx > 1) runs the one-pass dsmag; the two passes
+    # there (transpiring z walls) wait for dsmag_level1/level2's x halo
+    (dict(dims=(2, 2), sgstype='dsmag', dsmag_avg='channel',
+          bcvel=(((0.0,) * 3, (0.0,) * 3, (0.0, 0.0, 0.003)),) * 2),
+     'the two-pass dynamic Smagorinsky'),
     (dict(dims=(3, 1)), 'not divisible by gy'),
     # x and y walls with the z walls' wall model, and x walls with dsmag
     # (refused on one device too)
@@ -366,8 +368,15 @@ def test_mesh_refusals(change, needle):
 def test_mesh_slice_is_supported():
     assert unsupported(Config(**SMAG, dims=(2, 1))) == []
     assert unsupported(Config(**NONE, dims=(4, 1))) == []
-    # the channel on a pencil mesh (gx > 1)
+    # the channel on a pencil mesh (gx > 1), with the one-pass dynamic
+    # Smagorinsky and with full-3D implicit diffusion too
     assert unsupported(Config(**SMAG, dims=(2, 2))) == []
+    for change in (dict(sgstype='dsmag', dsmag_avg='channel'),
+                   dict(sgstype='dsmag', dsmag_avg='dit', impdiff=True,
+                        impdiff_1d=True),
+                   dict(impdiff=True), dict(sgstype='none', impdiff=True)):
+        assert unsupported(Config(**{**SMAG, **change},
+                                  dims=(2, 2))) == [], change
     # the channel DNS and LES with impdiff_1d, the wall-modelled channel,
     # the one-pass dynamic Smagorinsky channel ('channel' and 'dit',
     # explicit and impdiff_1d), with the 2D test filter and by the two
