@@ -114,11 +114,18 @@ the field's rows and columns, joined, against the baseline's whole-field
 kernel): 'dsmag pencil' and 'dsmag pencil zp' (dsmag XH x YH, with ZP
 too, against the periodic 'channel' and ZP modes: |S|) and 'mom_rk
 pencil xy+z' (X_HALO x Y_HALO with nu_t and the 'xy+z' split against the
-periodic 'xy+z'; its partial sums as per-plane totals).
+periodic 'xy+z'; its partial sums as per-plane totals), 'dsmag pencil
+f2d' and 'dsmag pencil zp f2d' (F2D x XH x YH, with ZP too, against the
+periodic F2D modes: |S|), 'dsmag_level1 pencil' (XH x YH against the
+z-walled periodic kernel: its 16 fields), 'dsmag_level2 pencil' (XH x YH,
+the filtered velocity's depth-1 halos, against the periodic 'channel'
+sums: per-plane totals only) and 'mom_rk pencil scal' (SCAL x X_HALO x
+Y_HALO with nu_t, explicit, against the periodic scalar variant).
 Outputs are compared in float64 at (nx, ny, nz) = (72, 40, 48) and in
 float32 at --ng (bitwise, and max|this - baseline| / max|baseline|, the
 worst output); mom_rk's partial sums, whose parts differ (blocks of 256
-cells, tiles of 8 x 32), as per-plane totals apart ('sums_rel');
+cells, tiles of 8 x 32), as per-plane totals apart ('sums_rel'), and so
+are those of 'dsmag_level2 pencil', which has no other output;
 times are float32 at --ng, the mean of --reps calls after a warm-up (CUDA
 events), taken in the order baseline, this, this, baseline; the wall
 model's also as the device time of a CUDA graph of --reps calls ('graph
@@ -141,6 +148,11 @@ import torch
 from .ops import kernels as K
 from .ops import solve_kernels as SK
 
+# the x-halo modes of a pencil mesh: this checkout's on the four pencils of
+# dims (2, 2), joined, against the baseline's whole-field kernel (_pencils)
+PENCIL = ('dsmag pencil', 'dsmag pencil zp', 'mom_rk pencil xy+z',
+          'dsmag_level1 pencil', 'dsmag_level2 pencil', 'dsmag pencil f2d',
+          'dsmag pencil zp f2d', 'mom_rk pencil scal')
 CASES = ('channel', 'duct', 'cavity', 'channel y walls', 'duct periodic y',
          'cavity periodic y', 'z_eig', 'dsmag_level1',
          'dsmag_level1 y walls', 'dsmag_level2', 'dsmag_level2 y walls',
@@ -173,25 +185,24 @@ CASES = ('channel', 'duct', 'cavity', 'channel y walls', 'duct periodic y',
            'fillps slab x+y walls', 'correc_updatep slab x+y walls',
            'smag slab x+y walls', 'mom_rk halo scal x walls',
            'wallmodel halo x walls'),
-         *('dsmag pencil', 'dsmag pencil zp', 'mom_rk pencil xy+z'))
+         *PENCIL)
 # the x-walled fillps, correc_updatep and smag with periodic y (both
 # checkouts on the whole field), and the slab modes of full-3D implicit
 # diffusion and of x walls on the mesh ('halo': this checkout's on two
 # slabs, joined, against the baseline's whole-field kernel)
-SLAB_3D_X = CASES[-21:-10]
+SLAB_3D_X = CASES[-18 - len(PENCIL):-7 - len(PENCIL)]
 # the slab modes of x walls with y walls, the scalar with x walls and the
 # wall model with x walls on the mesh: this checkout's on two slabs,
 # joined, against the baseline's whole-field kernel (_slab_xy)
-SLAB_XY = CASES[-10:-3]
-# the x-halo modes of a pencil mesh: this checkout's on the four pencils of
-# dims (2, 2), joined, against the baseline's whole-field kernel (_pencils)
-PENCIL = CASES[-3:]
+SLAB_XY = CASES[-7 - len(PENCIL):-len(PENCIL)]
 # the cases at their own shape, in float32 only
 BIG = {'apply_y x+y 512^3': (512, 512, 512), 'mom_rk 512^3': (512, 512, 512),
        'thomas_periodic 512^3': (512, 512, 512),
        'thomas_z 512^3': (512, 512, 512)}
 # the cases whose last two outputs are partial sums, compared as totals
+# (by their first word), and those whose only outputs are such sums
 SUMS = ('mom_rk',)
+SUMS_ONLY = ('dsmag_level2 pencil',)
 # the cases timed on the device by a CUDA graph too
 GRAPH = ('wallmodel', 'wallmodel rows', 'wallmodel duct', 'wallmodel halo',
          'wallmodel halo x walls')
@@ -658,34 +669,72 @@ def _slab_xy(Km, d, case):
 
 def _pencils(Km, d, case):
     """The cases of PENCIL: the baseline on the whole field (the periodic
-    'channel' dsmag, its ZP mode, mom_rk with nu_t and the 'xy+z' split),
-    this checkout's XH x YH modes (X_HALO x Y_HALO for mom_rk) on the four
-    pencils of a (2, 2) mesh (cut at ny/2 rounded down to 16 rows and nx/2
-    to 32 columns, so that the tiles fall as on the whole field), their
-    halos the field's rows and columns (dsmag's two deep, the x halos over
-    the rows -2 .. nyl + 1; mom_rk's one deep, the x halos in the x
-    stacks' form), the outputs joined (dsmag's |S|; mom_rk's fields and
-    its partial sums as per-plane totals)."""
+    'channel' dsmag, its ZP mode, with the 2D filter too; mom_rk with nu_t
+    and the 'xy+z' split, and explicit with the scalar; dsmag_level1 with
+    z walls; dsmag_level2's 'channel' sums), this checkout's XH x YH modes
+    (X_HALO x Y_HALO for mom_rk) on the four pencils of a (2, 2) mesh (cut
+    at ny/2 rounded down to 16 rows and nx/2 to 32 columns, so that the
+    tiles fall as on the whole field), their halos the field's rows and
+    columns (dsmag's and dsmag_level1's two deep, the x halos over the rows
+    -2 .. nyl + 1; mom_rk's and dsmag_level2's one deep, the x halos in the
+    x stacks' form, the scalar's the sixth), the outputs joined (dsmag's
+    |S|; dsmag_level1's 16 fields; mom_rk's fields, the scalar and its RHS,
+    and its partial sums as per-plane totals; dsmag_level2's sums as
+    per-plane totals, which the tiles' other grouping keeps from being
+    bitwise)."""
     f, e, dz = d['f'], d['e'], d['dz']
     nz, ny, nx = f[0].shape
-    dsmag = case.startswith('dsmag')
-    zper = case.endswith('zp')
-    args = ((d['alph2'], dz, dz, 40.0, 20.0, not zper, not zper,
-             (0.0, 0.02, 0.0, -0.01)) if dsmag
-            else (dz, dz, 0.01, -0.005, 5e-5, 40.0, 20.0, (0.1, 0.0, 0.0)))
-    nh = 3 if dsmag else 5
+    lv1 = case.startswith('dsmag_level1')
+    lv2 = case.startswith('dsmag_level2')
+    dsmag = case.startswith('dsmag ')
+    scal = case.endswith('scal')
+    zper = ' zp' in case
+    f2d = case.endswith('f2d')
+    mom = (dz, dz, 0.01, -0.005, 5e-5, 40.0, 20.0, (0.1, 0.0, 0.0))
+    ds_args = (d['alph2'], dz, dz, 40.0, 20.0, not zper, not zper,
+               (0.0, 0.02, 0.0, -0.01))
+    zero = torch.zeros_like(e[0])
+    # the fields (those with a halo first, nh of them) and their edge
+    # stacks; the pointwise fields after them
+    if dsmag or lv1:
+        nh, F, E = 3, f[:3], e[:3]
+    elif lv2:
+        nh, F, E = 3, [*f[:3], *d['ds2']], [*e[:3], *[zero] * 13]
+    elif scal:
+        # u, v, w, nu_t, p, the scalar (f[5], e[3]); the previous RHS
+        # f[5:8] and the scalar's f[6]
+        nh, F, E = 6, [*f[:5], f[5], *f[5:8], f[6]], [*e[:5], e[3],
+                                                       *[zero] * 4]
+    else:
+        nh, F, E = 5, f[:8], [*e[:5], zero, zero, zero]
 
     def call(km, q, qe, **kw):
         if dsmag:
-            return km.dsmag(*q, *qe, *args, avg='channel', zper=zper,
-                            **kw)[:1]
-        out = km.mom_rk(*q[:5], *qe, *q[5:8], *args, sums=(True, True),
-                        split='xy+z', **kw)
+            return km.dsmag(*q, *qe, *ds_args, avg='channel', zper=zper,
+                            f2d=f2d, **kw)[:1]
+        if lv1:
+            fm, fvel, lij, s0 = km.dsmag_level1(*q, *qe, dz, dz, 40.0, 20.0,
+                                                True, True, **kw)
+            return (*fm, *fvel, *lij, s0)
+        if lv2:
+            out = km.dsmag_level2(*q[:3], *qe[:3], q[3:9], q[9:15], q[15],
+                                  d['alph2'], dz, dz, 40.0, 20.0,
+                                  avg='channel', **kw)
+            return tuple(t.sum(dim=1) for t in out)
+        if scal:
+            kw = dict(kw, sca=q[5], scae=qe[5], rso=q[9], scal=(2e-4, 0.05))
+            if 'yh' in kw:
+                kw['yh'], kw['xh'] = kw['yh'][:6], kw['xh'][:6]
+            out = km.mom_rk(*q[:5], *qe[:5], *q[6:9], *mom,
+                            sums=(True, True), **kw)
+            return (*out[:6], *out[8:], out[6].sum(dim=1),
+                    out[7].sum(dim=1))
+        out = km.mom_rk(*q[:5], *qe[:5], *q[5:8], *mom, sums=(True, True),
+                        split='xy+z', **{k: v[:5] for k, v in kw.items()})
         return (*out[:6], out[6].sum(dim=1), out[7].sum(dim=1))
-    F, E = f[:nh] if dsmag else f[:8], e[:nh]
     if Km is not K:
         return call(Km, F, E)
-    dep = 2 if dsmag else 1
+    dep = 2 if dsmag or lv1 else 1
     cy, cx = ny // 2 // 16 * 16, nx // 2 // 32 * 32
     grid = []
     for y0, y1 in ((0, cy), (cy, ny)):
@@ -706,7 +755,8 @@ def _pencils(Km, d, case):
                         for t in (a, b)) for a, b in zip(F[:nh], E)]
             row.append(call(K, q, qe, yh=yh, xh=xh))
         grid.append(row)
-    nf = 1 if dsmag else 6
+    # the pointwise outputs joined, the per-plane totals summed
+    nf = 0 if lv2 else 1 if dsmag else 16 if lv1 else 8 if scal else 6
     out = [torch.cat([torch.cat([r[m] for r in row], dim=2)
                       for row in grid], dim=1) for m in range(nf)]
     return (*out, *(sum(r[m] for row in grid for r in row)
@@ -1039,15 +1089,16 @@ def main(argv=None):
             res = {name: [q for q in _call(m, dc, case) if q is not None]
                    for name, m in mods.items()}
             key = f'{case} {str(dtype)[6:]}'
-            if case.split()[0] in SUMS:
+            if case.split()[0] in SUMS or case in SUMS_ONLY:
                 sums = {name: r[-2:] for name, r in res.items()}
                 res = {name: r[:-2] for name, r in res.items()}
                 out.setdefault('sums_rel', {})[key] = _rel(sums)
-            same = len(res['baseline']) == len(res['this']) and all(
-                torch.equal(a, b)
-                for a, b in zip(res['baseline'], res['this']))
-            out['bitwise'][key] = same
-            out['rel'][key] = _rel(res)
+            if res['this']:
+                out['bitwise'][key] = len(res['baseline']) == len(
+                    res['this']) and all(
+                    torch.equal(a, b)
+                    for a, b in zip(res['baseline'], res['this']))
+                out['rel'][key] = _rel(res)
             if dtype == torch.float32:
                 times = {name: [] for name in mods}
                 for name in ('baseline', 'this', 'this', 'baseline'):

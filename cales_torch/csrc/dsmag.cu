@@ -84,6 +84,9 @@
 // (x +-1..2, y +-1..2) corners, two hops), where the whole field wraps.
 // Everything after the load is the periodic kernel's.  The sums are the
 // pencil's; the caller reduces the z rows' sums over all gy gx ranks.
+// F2D and XH together are a pencil with the 2D test filter (the dsmag
+// channel and, with ZP, the box with filter_2d on gx > 1): the tile's
+// columns -2 .. nx+1 load as in XH, and the rest is the F2D kernel's.
 //
 // Design.  A block owns a TY x 32 (y, x) tile (TY = 16 in float32, 8 in
 // float64, whose planes are twice the bytes) and marches z, one plane a
@@ -491,13 +494,16 @@ auto pick_dsmag_mode(bool zper, bool f2d) {
                      : &dsmag_kernel<T, false, DS_CHANNEL, false, false, YH>);
 }
 
-// The modes of a pencil of the 2D mesh (XH): the 'channel' sums with the
-// 3D filter, z walls or with zper periodic z (the box's 'dit'); YH on a
-// mesh of gy > 1 (the y halo), periodic y on gy = 1.
+// The modes of a pencil of the 2D mesh (XH): the 'channel' sums, z walls
+// or with zper periodic z (the box's 'dit'), the 3D or with f2d the 2D
+// test filter; YH on a mesh of gy > 1 (the y halo), periodic y on gy = 1.
 template <typename T, bool YH>
-auto pick_dsmag_xh(bool zper) {
-  return zper ? &dsmag_kernel<T, false, DS_CHANNEL, true, false, YH, true>
-              : &dsmag_kernel<T, false, DS_CHANNEL, false, false, YH, true>;
+auto pick_dsmag_xh(bool zper, bool f2d) {
+  constexpr int CH = DS_CHANNEL;
+  return zper ? (f2d ? &dsmag_kernel<T, false, CH, true, true, YH, true>
+                     : &dsmag_kernel<T, false, CH, true, false, YH, true>)
+              : (f2d ? &dsmag_kernel<T, false, CH, false, true, YH, true>
+                     : &dsmag_kernel<T, false, CH, false, false, YH, true>);
 }
 
 // y: the y-row stacks and corners of u, v, w (6 pointers), all null
@@ -508,9 +514,9 @@ auto pick_dsmag_xh(bool zper) {
 // y holds the slab's y-row stacks and ylo, yhi the walls it owns; x:
 // their two-deep x halo pairs on a pencil of the 2D mesh (6 pointers,
 // all null off a pencil; cols (nz, 4, ny+4), corners (3, 4, ny+4)): mode
-// XH, the 'channel' sums, the 3D filter, no y walls, with h (YH) or
-// periodic y, with zper or z walls; yvals: the filtered fill's 'D' values
-// (u_lo, u_hi, w_lo, w_hi) on the y walls;
+// XH, the 'channel' sums, no y walls, with h (YH) or periodic y, with
+// zper or z walls, with f2d or the 3D filter; yvals: the filtered fill's
+// 'D' values (u_lo, u_hi, w_lo, w_hi) on the y walls;
 // avg: DS_CHANNEL, DS_DUCT or DS_CAVITY; zper, f2d: the periodic-z mode
 // and the 2D filter (see pick_dsmag_mode).
 template <typename T>
@@ -535,15 +541,15 @@ int launch_dsmag(const T* u, const T* v, const T* w, const T* ue,
     return static_cast<int>(cudaErrorInvalidValue);
   if (zper && (nz < 3 || wall_lo || wall_hi))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (xhalo && (nx < 2 || ystacks || f2d || avg != DS_CHANNEL))
+  if (xhalo && (nx < 2 || ystacks || avg != DS_CHANNEL))
     return static_cast<int>(cudaErrorInvalidValue);
   for (int m = 0; m < 6; ++m)
     if (ystacks != (y[m] != nullptr) || halo != (h[m] != nullptr) ||
         xhalo != (x[m] != nullptr))
       return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = dsmag_smem_bytes<T>();
-  auto kern = xhalo ? (halo ? pick_dsmag_xh<T, true>(zper)
-                            : pick_dsmag_xh<T, false>(zper))
+  auto kern = xhalo ? (halo ? pick_dsmag_xh<T, true>(zper, f2d)
+                            : pick_dsmag_xh<T, false>(zper, f2d))
               : halo ? (ystacks ? pick_dsmag<T, true, true>(avg)
                               : pick_dsmag_mode<T, true>(zper, f2d))
               : (zper || f2d) ? pick_dsmag_mode<T>(zper, f2d)

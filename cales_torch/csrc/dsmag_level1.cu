@@ -28,6 +28,14 @@
 //            wall-parallel velocity's) on the owned sides only, two run-time
 //            flags (ywall.lo, ywall.hi) read from shared memory.
 // The 16 outputs are the slab's own rows.
+// A third mode, XH, is a pencil of the 2D (gy, gx) mesh (periodic x and y
+// sides, z walls; with YH on gy > 1, periodic y on gy = 1; the JAX
+// package's fused_dsmag_level1 under its 2D shard_map): the velocity
+// tile's columns -2, -1, nx and nx+1, at every row of the tile and with
+// their z-edge entries, load from the x neighbours' two-deep halo (laid
+// out as dsmag.cu's XH, dsmag_common.cuh ds_load), whose rows -2 .. ny+1
+// came by the y exchange; everything after the load is the periodic
+// kernel's.  The 16 outputs are the pencil's own cells.
 //
 // Design: dsmag.cu's z-march without its stage C, on the same tile, rings
 // and stages (dsmag_common.cuh).  A block owns a TY x 32 (y, x) tile (TY =
@@ -85,7 +93,7 @@ constexpr size_t dsmag_level1_smem_bytes() {
           3 * G::VY * DS_AX + 9 * G::APL);
 }
 
-template <typename T, bool YW, bool YH = false>
+template <typename T, bool YW, bool YH = false, bool XH = false>
 __global__ void __launch_bounds__(DsGeo<DsTy<T>::TY>::NT, 1)
     dsmag_level1_kernel(const T* __restrict__ u, const T* __restrict__ v,
                         const T* __restrict__ w, const T* __restrict__ ue,
@@ -134,7 +142,7 @@ __global__ void __launch_bounds__(DsGeo<DsTy<T>::TY>::NT, 1)
 
   const DsTile g{x0, y0, nz, ny, nx, tid, plane};
   auto load = [&](int kz) {
-    ds_load<T, YW, TY, false, YH>(vel, fld, edg, ywall, g, kz);
+    ds_load<T, YW, TY, false, YH, XH>(vel, fld, edg, ywall, g, kz);
   };
   // the velocity's x and y passes of plane kz (a z ghost by mode)
   auto vel_x = [&](int kz, int mode) {
@@ -258,25 +266,33 @@ __global__ void __launch_bounds__(DsGeo<DsTy<T>::TY>::NT, 1)
 // without y walls; h: their two-deep halo pairs on a slab of the y-slab
 // mesh (6 pointers, all null off a slab): h alone is mode YH, y and h
 // together a slab of a y-walled mesh (YW + YH), whose y holds the slab's
-// y-row stacks and ylo, yhi the walls it owns; out: the 16 fields (fm[6],
-// fvel[3], lij[6], s0), each (nz, ny, nx), one after another.
+// y-row stacks and ylo, yhi the walls it owns; x: their two-deep x halo
+// pairs on a pencil of the 2D mesh (6 pointers, all null off a pencil;
+// cols (nz, 4, ny+4), corners (3, 4, ny+4)): mode XH, no y walls, with h
+// (YH) or periodic y; out: the 16 fields (fm[6], fvel[3], lij[6], s0),
+// each (nz, ny, nx), one after another.
 template <typename T>
 int launch_dsmag_level1(const T* u, const T* v, const T* w, const T* ue,
                         const T* ve, const T* we, const T* dzci,
                         const T* dzfi, T* out, const T* const* y,
-                        const T* const* h, int nz, int ny, int nx,
-                        int wall_lo, int wall_hi, int ylo, int yhi,
-                        double dxi, double dyi, void* stream) {
+                        const T* const* h, const T* const* x, int nz,
+                        int ny, int nx, int wall_lo, int wall_hi, int ylo,
+                        int yhi, double dxi, double dyi, void* stream) {
   const bool ystacks = y[0] != nullptr;
   const bool halo = h[0] != nullptr;
-  if (nz < 2 || (ystacks && !halo && ny < 4) || (halo && ny < 2))
+  const bool xhalo = x[0] != nullptr;
+  if (nz < 2 || (ystacks && !halo && ny < 4) || (halo && ny < 2) ||
+      (xhalo && (nx < 2 || ystacks)))
     return static_cast<int>(cudaErrorInvalidValue);
   for (int m = 0; m < 6; ++m)
-    if (ystacks != (y[m] != nullptr) || halo != (h[m] != nullptr))
+    if (ystacks != (y[m] != nullptr) || halo != (h[m] != nullptr) ||
+        xhalo != (x[m] != nullptr))
       return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = dsmag_level1_smem_bytes<T>();
-  auto kern = halo ? (ystacks ? &dsmag_level1_kernel<T, true, true>
-                              : &dsmag_level1_kernel<T, false, true>)
+  auto kern = xhalo ? (halo ? &dsmag_level1_kernel<T, false, true, true>
+                            : &dsmag_level1_kernel<T, false, false, true>)
+              : halo ? (ystacks ? &dsmag_level1_kernel<T, true, true>
+                                : &dsmag_level1_kernel<T, false, true>)
               : ystacks ? &dsmag_level1_kernel<T, true>
                         : &dsmag_level1_kernel<T, false>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -289,6 +305,7 @@ int launch_dsmag_level1(const T* u, const T* v, const T* w, const T* ue,
   for (int c = 0; c < 3; ++c) {
     yw.vel[c] = YRows<T>{y[2 * c], y[2 * c + 1]};
     yw.hal[c] = YRows<T>{h[2 * c], h[2 * c + 1]};
+    yw.xh[c] = YRows<T>{x[2 * c], x[2 * c + 1]};
   }
   yw.lo = halo ? ylo : 1;
   yw.hi = halo ? yhi : 1;
@@ -307,13 +324,16 @@ int launch_dsmag_level1(const T* u, const T* v, const T* w, const T* ue,
                       const T* yvr, const T* yvc, const T* ywr,              \
                       const T* ywc, const T* hur, const T* huc,              \
                       const T* hvr, const T* hvc, const T* hwr,              \
-                      const T* hwc, int nz, int ny, int nx, int wall_lo,     \
+                      const T* hwc, const T* xur, const T* xuc,              \
+                      const T* xvr, const T* xvc, const T* xwr,              \
+                      const T* xwc, int nz, int ny, int nx, int wall_lo,     \
                       int wall_hi, int ylo, int yhi, double dxi, double dyi, \
                       void* stream) {                                        \
     const T* const y[6] = {yur, yuc, yvr, yvc, ywr, ywc};                    \
     const T* const h[6] = {hur, huc, hvr, hvc, hwr, hwc};                    \
+    const T* const x[6] = {xur, xuc, xvr, xvc, xwr, xwc};                    \
     return cales::launch_dsmag_level1<T>(u, v, w, ue, ve, we, dzci, dzfi,    \
-                                         out, y, h, nz, ny, nx, wall_lo,     \
+                                         out, y, h, x, nz, ny, nx, wall_lo,  \
                                          wall_hi, ylo, yhi, dxi, dyi,        \
                                          stream);                            \
   }

@@ -29,6 +29,13 @@
 //            last rows of the sides it owns only (run-time flags ylo, yhi).
 // The sums are the slab's: the caller reduces 'channel' over the ranks,
 // 'duct' stays on the slab and 'cavity' is pointwise.
+// A third mode, XH, is a pencil of the 2D (gy, gx) mesh (the 'channel'
+// sums; with YH on gy > 1, periodic y on gy = 1): the filtered velocity's
+// columns -1 and nx, with their (x +-1, y +-1) corners and z-edge entries,
+// from its depth-1 x halo in the x stacks' form (parallel/mesh.halo_x,
+// its rows -1 and ny by the y exchange), read through the X_HALO accessor
+// (common.cuh xcol) on the first and last columns, as aty<Y_HALO> reads
+// the rows; the caller reduces the sums over all gy gx ranks.
 //
 // Design: one thread per output cell, as smag.cu; the strain is
 // common.cuh's on the y-walled accessor at<YW> (rows that read a y-wall row
@@ -55,15 +62,29 @@ struct Ds2In {
   const T* s0;
 };
 
-template <typename T, bool YW, int AVG, bool YH = false>
+// at() in y mode YM on a pencil (XH): the columns i+di = -1 and nx from
+// the x halo x (common.cuh xcol, X_HALO: its rows -1 .. ny), every other
+// read by aty<YM>.
+template <int YM, typename T>
+__device__ __forceinline__ T atxh(const T* f, const T* e, const YRows<T>& y,
+                                  const YRows<T>& x, const Cell& c, int dk,
+                                  int dj, int di) {
+  const int ix = c.i + di;
+  if (ix < 0 || ix >= c.nx)
+    return __ldg(xcol<YM, X_HALO>(x, c.k + dk, ix < 0 ? 0 : 2, c.j + dj,
+                                  c.nz, c.ny));
+  return aty<YM>(f, e, y, c, dk, dj, di);
+}
+
+template <typename T, bool YW, int AVG, bool YH = false, bool XH = false>
 __global__ void __launch_bounds__(CALES_THREADS) dsmag_level2_kernel(
     const T* __restrict__ fu, const T* __restrict__ fv,
     const T* __restrict__ fw, const T* __restrict__ fue,
     const T* __restrict__ fve, const T* __restrict__ fwe, Ds2In<T> in,
     const T* __restrict__ alph2, const T* __restrict__ dzci,
     const T* __restrict__ dzfi, T* __restrict__ numo, T* __restrict__ deno,
-    YRows<T> yu, YRows<T> yv, YRows<T> yw, int nz, int ny, int nx, int ylo,
-    int yhi, T dxi, T dyi) {
+    YRows<T> yu, YRows<T> yv, YRows<T> yw, YRows<T> xu, YRows<T> xv,
+    YRows<T> xw, int nz, int ny, int nx, int ylo, int yhi, T dxi, T dyi) {
   const int k = blockIdx.y;
   const int gx = (nx + 31) / 32;
   const int lane = threadIdx.x & 31;
@@ -95,7 +116,26 @@ __global__ void __launch_bounds__(CALES_THREADS) dsmag_level2_kernel(
           dxi, dyi, dzci[k + 1], dzci[k], dzfi[k + 1], sf);
     };
     T s0f;
-    if constexpr (YW) {
+    // a pencil's first and last columns read the x halo (xu, xv, xw), with
+    // the y halo's rows on a slab
+    auto strain_x = [&](auto ytag) {
+      constexpr int Y = decltype(ytag)::value;
+      return strain_rate<T>(
+          [&](int dk, int dj, int di) {
+            return atxh<Y>(fu, fue, yu, xu, c, dk, dj, di);
+          },
+          [&](int dk, int dj, int di) {
+            return atxh<Y>(fv, fve, yv, xv, c, dk, dj, di);
+          },
+          [&](int dk, int dj, int di) {
+            return atxh<Y>(fw, fwe, yw, xw, c, dk, dj, di);
+          },
+          dxi, dyi, dzci[k + 1], dzci[k], dzfi[k + 1], sf);
+    };
+    constexpr int YX = YH ? Y_HALO : Y_PERIODIC;
+    if (XH && (i == 0 || i == nx - 1)) {
+      s0f = strain_x(std::integral_constant<int, YX>{});
+    } else if constexpr (YW) {
       s0f = y_edge(j, ny) ? strain(std::true_type{})
                           : strain(std::false_type{});
     } else if constexpr (YH) {
@@ -170,25 +210,31 @@ auto pick_dsmag_level2(int avg) {
 // u, v, w (6 pointers), all null without y walls; h: their depth-1 halo
 // pairs on a slab with periodic y (mode YH, the 'channel' sums; 6
 // pointers, all null elsewhere); ylo, yhi: on a slab of a y-walled mesh
-// (y its y-row stacks, mode YW + YH) the walls it owns, -1 elsewhere; avg:
-// DS2_CHANNEL, DS2_DUCT or DS2_CAVITY (nu_t into numo, deno unused).
+// (y its y-row stacks, mode YW + YH) the walls it owns, -1 elsewhere; x:
+// their depth-1 x halo pairs on a pencil of the 2D mesh (mode XH, the
+// 'channel' sums, with h (YH) or periodic y; cols (nz, 3, ny+2), corners
+// (3, 3, ny+2); 6 pointers, all null off a pencil); avg: DS2_CHANNEL,
+// DS2_DUCT or DS2_CAVITY (nu_t into numo, deno unused).
 template <typename T>
 int launch_dsmag_level2(const T* fu, const T* fv, const T* fw, const T* fue,
                         const T* fve, const T* fwe, const T* const* q,
                         const T* alph2, const T* dzci, const T* dzfi,
                         T* numo, T* deno, const T* const* y,
-                        const T* const* h, int nz, int ny, int nx, int avg,
-                        int ylo, int yhi, double dxi, double dyi,
-                        void* stream) {
+                        const T* const* h, const T* const* x, int nz,
+                        int ny, int nx, int avg, int ylo, int yhi,
+                        double dxi, double dyi, void* stream) {
   const bool ystacks = y[0] != nullptr;
   const bool halo = h[0] != nullptr;
+  const bool xhalo = x[0] != nullptr;
   const bool slab = ystacks && ylo >= 0;
   if (nz < 2 || (ystacks && !slab && ny < 4) || avg < DS2_CHANNEL ||
       avg > DS2_CAVITY || (ystacks && halo) ||
-      (halo && avg != DS2_CHANNEL) || (slab && (yhi < 0 || ny < 2)))
+      (halo && avg != DS2_CHANNEL) || (slab && (yhi < 0 || ny < 2)) ||
+      (xhalo && (ystacks || avg != DS2_CHANNEL || nx < 2)))
     return static_cast<int>(cudaErrorInvalidValue);
   for (int m = 0; m < 6; ++m)
-    if (ystacks != (y[m] != nullptr) || halo != (h[m] != nullptr))
+    if (ystacks != (y[m] != nullptr) || halo != (h[m] != nullptr) ||
+        xhalo != (x[m] != nullptr))
       return static_cast<int>(cudaErrorInvalidValue);
   Ds2In<T> in{};
   for (int m = 0; m < 6; ++m) {
@@ -200,16 +246,21 @@ int launch_dsmag_level2(const T* fu, const T* fv, const T* fw, const T* fue,
   const dim3 grid(static_cast<unsigned>((slots + CALES_THREADS - 1) /
                                         CALES_THREADS),
                   static_cast<unsigned>(nz), 1);
-  auto kern = slab      ? pick_dsmag_level2<T, true, true>(avg)
-              : ystacks ? pick_dsmag_level2<T, true>(avg)
-              : halo    ? &dsmag_level2_kernel<T, false, DS2_CHANNEL, true>
-                        : pick_dsmag_level2<T, false>(avg);
+  constexpr int CH = DS2_CHANNEL;
+  auto kern =
+      xhalo     ? (halo ? &dsmag_level2_kernel<T, false, CH, true, true>
+                        : &dsmag_level2_kernel<T, false, CH, false, true>)
+      : slab    ? pick_dsmag_level2<T, true, true>(avg)
+      : ystacks ? pick_dsmag_level2<T, true>(avg)
+      : halo    ? &dsmag_level2_kernel<T, false, DS2_CHANNEL, true>
+                : pick_dsmag_level2<T, false>(avg);
   // the rows the kernel reads past the interior: the y-row stacks, or a
   // slab's halo pairs
   const T* const* r = halo ? h : y;
   kern<<<grid, CALES_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       fu, fv, fw, fue, fve, fwe, in, alph2, dzci, dzfi, numo, deno,
-      YRows<T>{r[0], r[1]}, YRows<T>{r[2], r[3]}, YRows<T>{r[4], r[5]}, nz,
+      YRows<T>{r[0], r[1]}, YRows<T>{r[2], r[3]}, YRows<T>{r[4], r[5]},
+      YRows<T>{x[0], x[1]}, YRows<T>{x[2], x[3]}, YRows<T>{x[4], x[5]}, nz,
       ny, nx, slab ? ylo : 1, slab ? yhi : 1, T(dxi), T(dyi));
   return static_cast<int>(cudaGetLastError());
 }
@@ -227,17 +278,20 @@ int launch_dsmag_level2(const T* fu, const T* fv, const T* fw, const T* fue,
                       const T* yuc, const T* yvr, const T* yvc,              \
                       const T* ywr, const T* ywc, const T* hur,              \
                       const T* huc, const T* hvr, const T* hvc,              \
-                      const T* hwr, const T* hwc, int nz, int ny, int nx,    \
+                      const T* hwr, const T* hwc, const T* xur,              \
+                      const T* xuc, const T* xvr, const T* xvc,              \
+                      const T* xwr, const T* xwc, int nz, int ny, int nx,    \
                       int avg, int ylo, int yhi, double dxi, double dyi,     \
                       void* stream) {                                        \
     const T* const q[13] = {fm0, fm1, fm2, fm3, fm4, fm5, l0,                \
                             l1,  l2,  l3,  l4,  l5,  s0};                    \
     const T* const y[6] = {yur, yuc, yvr, yvc, ywr, ywc};                    \
     const T* const h[6] = {hur, huc, hvr, hvc, hwr, hwc};                    \
+    const T* const x[6] = {xur, xuc, xvr, xvc, xwr, xwc};                    \
     return cales::launch_dsmag_level2<T>(fu, fv, fw, fue, fve, fwe, q,       \
                                          alph2, dzci, dzfi, numo, deno, y,   \
-                                         h, nz, ny, nx, avg, ylo, yhi, dxi,  \
-                                         dyi, stream);                       \
+                                         h, x, nz, ny, nx, avg, ylo, yhi,    \
+                                         dxi, dyi, stream);                  \
   }
 
 CALES_DSMAG_LEVEL2_ENTRY(cales_dsmag_level2_f32, float)

@@ -55,7 +55,9 @@
 //          y strips, cales_tpu/timeloop.py:1943-2078; with X_WALLS explicit or
 //          split 1, its x stack carrying the neighbours' rows -1 and ny as
 //          the velocity's, the scalar's xe columns in the y-sharded xe
-//          bundle, cales_tpu timeloop.py:160-199).
+//          bundle, cales_tpu timeloop.py:160-199), or a pencil of a 2D
+//          mesh (X_HALO, with Y_HALO or periodic y, each split: the
+//          scalar's x halo columns read as the velocity's).
 // The formulas are cales_torch/ops/stencil.momentum_rhs_core term by term
 // (reference mom.f90:17-309, rk.f90:77-94).
 //
@@ -612,11 +614,20 @@ MomKernel<T> pick_mom_rk_xh(int ym, int split) {
 
 // the scalar variants, what the slice runs with a scalar: periodic y with
 // each split, y walls explicit, x walls as pick_mom_rk_xw (on a slab of
-// the y-slab mesh explicit or split '1d'), and a slab of the y-slab mesh
-// with each split
+// the y-slab mesh explicit or split '1d'), a slab of the y-slab mesh
+// with each split, and a pencil of a 2D mesh (xhalo: X_HALO, on a slab
+// of its y rows or with periodic y, each split)
 template <typename T, bool SGS>
-MomKernel<T> pick_mom_rk_scal(int ym, int split, bool xw) {
-  constexpr int XP = X_PERIODIC, XW = X_WALLS;
+MomKernel<T> pick_mom_rk_scal(int ym, int split, bool xw, bool xhalo) {
+  constexpr int XP = X_PERIODIC, XW = X_WALLS, XH = X_HALO;
+  if (xhalo && ym == Y_HALO)
+    return split == 2   ? &mom_rk_kernel<T, SGS, 2, Y_HALO, XH, true>
+           : split == 1 ? &mom_rk_kernel<T, SGS, 1, Y_HALO, XH, true>
+                        : &mom_rk_kernel<T, SGS, 0, Y_HALO, XH, true>;
+  if (xhalo)
+    return split == 2   ? &mom_rk_kernel<T, SGS, 2, Y_PERIODIC, XH, true>
+           : split == 1 ? &mom_rk_kernel<T, SGS, 1, Y_PERIODIC, XH, true>
+                        : &mom_rk_kernel<T, SGS, 0, Y_PERIODIC, XH, true>;
   if (xw && ym == Y_HALO)
     return split == 1 ? &mom_rk_kernel<T, SGS, 1, Y_HALO, XW, true>
                       : &mom_rk_kernel<T, SGS, 0, Y_HALO, XW, true>;
@@ -642,12 +653,12 @@ MomKernel<T> pick_mom_rk_scal(int ym, int split, bool xw) {
 // visct; nyc = ny + 2 with y walls and on a slab, whose stacks carry the
 // rows -1 and ny; x walls run with split 0 or, with periodic y or on a
 // slab, 1); with xhalo set they are a pencil's x halo stacks (nyc = ny +
-// 2; any split, periodic y or a slab, no scalar).  sc: the passive
-// scalar (the SCAL variants), or null: its field, edge stack and outputs
-// set, its previous RHS with ruo, its y-row
-// and x stack pairs with the velocity's (on a slab its halo pair, with
-// any split, and with x walls its x stack pair with the neighbours' rows
-// as the velocity's).
+// 2; any split, periodic y or a slab).  sc: the passive scalar (the SCAL
+// variants), or null: its field, edge stack and outputs set, its
+// previous RHS with ruo, its y-row and x stack pairs with the velocity's
+// (on a slab its halo pair, with any split, and with x walls its x stack
+// pair with the neighbours' rows as the velocity's; on a pencil its x
+// halo pair, with any split).
 template <typename T>
 int launch_mom_rk(const T* u, const T* v, const T* w, const T* s, const T* p,
                   const T* ue, const T* ve, const T* we, const T* se,
@@ -679,15 +690,16 @@ int launch_mom_rk(const T* u, const T* v, const T* w, const T* s, const T* p,
       xw_{y[14], y[15]}, xs{y[16], y[17]}, xp{y[18], y[19]};
   if (split < 0 || split > 2 || (halo && !yw) ||
       (xw && !xhalo && (split == 2 || (split == 1 && yw && !halo))) ||
-      (xhalo && (!xw || sc != nullptr || (yw && !halo))))
+      (xhalo && (!xw || (yw && !halo))))
     return static_cast<int>(cudaErrorInvalidValue);
   const int ym = !yw ? Y_PERIODIC : halo ? Y_HALO : Y_WALLS;
   // y walls with the scalar run explicit
   if (sc != nullptr && ym == Y_WALLS && split != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const MomKernel<T> kern =
-      sc != nullptr ? (sgs ? pick_mom_rk_scal<T, true>(ym, split, xw)
-                           : pick_mom_rk_scal<T, false>(ym, split, xw))
+      sc != nullptr
+          ? (sgs ? pick_mom_rk_scal<T, true>(ym, split, xw, xhalo)
+                 : pick_mom_rk_scal<T, false>(ym, split, xw, xhalo))
       : xhalo ? (sgs ? pick_mom_rk_xh<T, true>(ym, split)
                      : pick_mom_rk_xh<T, false>(ym, split))
       : xw ? (sgs ? pick_mom_rk_xw<T, true>(ym, split)

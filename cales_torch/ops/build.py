@@ -57,11 +57,12 @@ _SIGNATURES = {
     # ... the y-row stacks, the halos, the x halos, nz, ny, nx, wall_lo,
     # wall_hi, avg, zper, f2d, ylo, yhi, then dxi, dyi, the values
     'cales_dsmag': [_P] * 30 + [_I] * 10 + [_D] * 10 + [_P],
-    # ... the y-row stacks, the halos, nz, ny, nx, wall_lo, wall_hi, ylo,
-    # yhi, then dxi, dyi
-    'cales_dsmag_level1': [_P] * 21 + [_I] * 7 + [_D] * 2 + [_P],
-    # ... the y-row stacks, the halos, nz, ny, nx, avg, ylo, yhi, dxi, dyi
-    'cales_dsmag_level2': [_P] * 36 + [_I] * 6 + [_D] * 2 + [_P],
+    # ... the y-row stacks, the halos, the x halos, nz, ny, nx, wall_lo,
+    # wall_hi, ylo, yhi, then dxi, dyi
+    'cales_dsmag_level1': [_P] * 27 + [_I] * 7 + [_D] * 2 + [_P],
+    # ... the y-row stacks, the halos, the x halos, nz, ny, nx, avg, ylo,
+    # yhi, dxi, dyi
+    'cales_dsmag_level2': [_P] * 42 + [_I] * 6 + [_D] * 2 + [_P],
     # the pointers (a slab's halo rows among them), nz, ny, nx, corrected,
     # cx, cy, the static WmArgs, a y-walled slab's walls ylo, yhi
     'cales_wallmodel': ([_P] * 9 + [_I] * 4 + [_D] * 2 + [_P] + [_I] * 2

@@ -441,7 +441,7 @@ def _pencil_xext(fields, edges, xh, yext):
 
 def dsmag_level1_plain(u, v, w, ue, ve, we, dzci, dzfi, dxi, dyi, wall_lo,
                        wall_hi, ye=None, zper=False, f2d=False, yw=None,
-                       yh=None, yown=None):
+                       yh=None, yown=None, xh=None):
     """The grid level of the Germano-Lilly model (pallas_dsmag._ds1_kernel)
     on interiors + the post-correction fill's edge stacks (and with y walls
     its y-row stack pairs ye of (u, v, w)): the filtered products and the
@@ -456,21 +456,31 @@ def dsmag_level1_plain(u, v, w, ue, ve, we, dzci, dzfi, dxi, dyi, wall_lo,
     depth-2 halo pairs of (u, v, w), with ye and yown on a slab of a
     y-walled mesh: the model runs on the slab extended by them (_slab_ext)
     and keeps the slab's rows (csrc/dsmag_level1.cu modes YH, YW + YH).
+    xh: a pencil of a 2D mesh (periodic y or a slab's yh, z walls, the 3D
+    filter), the two-deep x halo pairs of (u, v, w) (cols (nz, 4,
+    nyl + 4), corners (3, 4, nyl + 4), as dsmag_plain's): the model runs
+    on the pencil extended by those columns (after the y extension by yh)
+    and keeps the pencil's cells (csrc/dsmag_level1.cu mode XH).
     Returns (fm, fvel, lij, s0): fm = filt(|S| S_ij) (6), fvel the
     filtered velocity (3), lij = filt(uc_i uc_j) - filt(uc_i) filt(uc_j)
     (6) with uc the centred velocity, s0 = |S|."""
-    if yh is not None:
-        if zper or f2d:
-            raise ValueError('dsmag_level1: a slab takes z walls and the 3D '
-                             'filter')
-        (u, v, w, ue, ve, we), ye, yw, keep = _slab_ext(
-            u, v, w, ue, ve, we, ye, yh, yown, 'dsmag_level1')
+    if yh is not None or xh is not None:
+        if zper or f2d or (xh is not None and ye is not None):
+            raise ValueError('dsmag_level1: a slab or a pencil takes z walls '
+                             'and the 3D filter, a pencil no y walls')
+        keep = xkeep = slice(None)
+        if yh is not None:
+            (u, v, w, ue, ve, we), ye, yw, keep = _slab_ext(
+                u, v, w, ue, ve, we, ye, yh, yown, 'dsmag_level1')
+        if xh is not None:
+            (u, v, w, ue, ve, we), xkeep = _pencil_xext(
+                (u, v, w), (ue, ve, we), xh, yh is not None)
         fm, fvel, lij, s0 = dsmag_level1_plain(u, v, w, ue, ve, we, dzci,
                                                dzfi, dxi, dyi, wall_lo,
                                                wall_hi, ye=ye, yw=yw)
 
         def crop(q):
-            return q[:, keep].contiguous()
+            return q[:, keep, xkeep].contiguous()
         return ([crop(q) for q in fm], [crop(q) for q in fvel],
                 [crop(q) for q in lij], crop(s0))
     if yw is None:
@@ -581,19 +591,18 @@ def dsmag_plain(u, v, w, ue, ve, we, alph2, dzci, dzfi, dxi, dyi, wall_lo,
     it does not own and the wall recipes apply on the sides it owns, whose
     stack rows are the wall's.
     xh: a pencil of a 2D mesh (periodic y or a slab's yh, z walls or with
-    zper periodic z, the 3D filter, 'channel' or 'dit'), the two-deep x
-    halo pairs of (u, v, w) (cols (nz, 4, nyl + 4), corners (3, 4,
-    nyl + 4): columns -2, -1, nxp, nxp + 1 over the rows -2 .. nyl + 1,
-    mesh.halo_x at depth 2 with its rows from the depth-2 y exchange):
-    the model runs on the pencil extended by those columns (after the y
-    extension by yh; with periodic y their rows 0 .. nyl - 1) and keeps
-    the pencil's cells (csrc/dsmag.cu mode XH, with YH and ZP)."""
+    zper periodic z, the 3D or with f2d the 2D filter, 'channel' or
+    'dit'), the two-deep x halo pairs of (u, v, w) (cols (nz, 4, nyl + 4),
+    corners (3, 4, nyl + 4): columns -2, -1, nxp, nxp + 1 over the rows
+    -2 .. nyl + 1, mesh.halo_x at depth 2 with its rows from the depth-2
+    y exchange): the model runs on the pencil extended by those columns
+    (after the y extension by yh; with periodic y their rows 0 .. nyl - 1)
+    and keeps the pencil's cells (csrc/dsmag.cu mode XH, with YH, ZP and
+    F2D)."""
     yw = keep = xkeep = None
-    if xh is not None and (ye is not None or f2d
-                           or avg not in ('channel', 'dit')):
+    if xh is not None and (ye is not None or avg not in ('channel', 'dit')):
         raise ValueError("dsmag: a pencil's x halos take periodic y or a "
-                         "slab's y halo, the 3D filter and the 'channel' or "
-                         "'dit' sums")
+                         "slab's y halo and the 'channel' or 'dit' sums")
     if yh is not None:
         if (zper or f2d) and ye is not None:
             raise ValueError('dsmag: a slab of a y-walled mesh takes z walls '
@@ -659,7 +668,7 @@ def _dsmag_cells(u, v, w, ue, ve, we, alph2, dzci, dzfi, dxi, dyi, wall_lo,
 
 def dsmag_level2_plain(fu, fv, fw, fue, fve, fwe, fm, lij, s0, alph2, dzci,
                        dzfi, dxi, dyi, avg='channel', ye=None, yh=None,
-                       yown=None):
+                       yown=None, xh=None):
     """The test level of the Germano-Lilly model (pallas_dsmag._ds2_kernel)
     from dsmag_level1's outputs: the filtered velocity (fu, fv, fw) with the
     edge stacks of its BC fill (the static planes, is_correc=False: w's
@@ -670,16 +679,22 @@ def dsmag_level2_plain(fu, fv, fw, fue, fve, fwe, fm, lij, s0, alph2, dzci,
     of a y-walled mesh, ye the slab's y-row stack pairs of the fill
     (boundary.slab_ystack), alpha^2 2.52 on the first and last rows of the
     y walls yown = (lower, upper) it holds only (csrc/dsmag_level2.cu modes
-    YH, YW + YH).
+    YH, YW + YH).  xh: a pencil of a 2D mesh (periodic y or with yh), the
+    depth-1 x halo pairs of (fu, fv, fw) in the x stacks' form (cols (nz,
+    3, nyl + 2), corners (3, 3, nyl + 2): columns -1 and nxp over the rows
+    -1 .. nyl, mesh.halo_x with its rows from the y exchange), which pad
+    as x stacks do (csrc/dsmag_level2.cu mode XH).
     Returns nu_t = max(|S| num / den, 0) for avg 'cavity', else (num, den)
     summed over each z row, (nz, 1), for 'channel', over each (z, y) row,
     (nz, ny, 1), for 'duct'."""
     yu, yv, yw = (None,) * 3 if ye is None else ye
     hu, hv, hw = (None,) * 3 if yh is None else yh
+    xu, xv, xw = (None,) * 3 if xh is None else xh
     walls = ((ye is not None,) * 2 if yown is None
              else tuple(bool(q) for q in yown))
-    num, den = _contraction(fm, lij, padded(fu, fue, yu, hu),
-                            padded(fv, fve, yv, hv), padded(fw, fwe, yw, hw),
+    num, den = _contraction(fm, lij, padded(fu, fue, yu, hu, xu),
+                            padded(fv, fve, yv, hv, xv),
+                            padded(fw, fwe, yw, hw, xw),
                             alph2, dzci, dzfi, dxi, dyi, walls)
     return _averaged(num, den, s0, avg)
 
@@ -852,7 +867,8 @@ def mom_rk(u, v, w, s, p, ue, ve, we, se, pe, ruo, rvo, rwo, dzci, dzfi,
     velocity's), on a slab its halo pair the sixth entry of yh (any
     split).  xh: a pencil of a 2D mesh, the x halo pairs of (u, v, w,
     visct, p) (mesh.halo_x; nyc = ny + 2), visct's None without visct,
-    with yh or (gy = 1) periodic y, any split, no scalar.
+    with yh or (gy = 1) periodic y, any split; with sca the scalar's x
+    halo pair its sixth entry (its halo pair the sixth of yh).
     Returns (u, v,
     w, ru, rv, rw, usum, vsum), and with sca also (s, ds), the scalar and
     its RHS; usum/vsum are None or per-(z, part) partial sums,
@@ -869,9 +885,9 @@ def mom_rk(u, v, w, s, p, ue, ve, we, se, pe, ruo, rvo, rwo, dzci, dzfi,
     if ye is not None and yh is not None:
         raise ValueError('mom_rk: y walls or a slab halo, not both')
     xhalo = xh is not None
-    if xhalo and (xe is not None or ye is not None or sca is not None):
-        raise ValueError("mom_rk: a pencil's x halos go without x stacks, y "
-                         'walls and the scalar')
+    if xhalo and (xe is not None or ye is not None):
+        raise ValueError("mom_rk: a pencil's x halos go without x stacks "
+                         'and y walls')
     if xhalo:
         xe = xh
     has_scal = sca is not None
@@ -1206,9 +1222,10 @@ def dsmag(u, v, w, ue, ve, we, alph2, dzci, dzfi, dxi, dyi, wall_lo, wall_hi,
     its rows -1, nyl-1 and nyl, the halo its rows -2 and nyl+1, and yown =
     (lower, upper) the y walls the slab holds, where the wall recipes
     apply.  xh: a pencil of a 2D mesh (mode XH; periodic y or with yh, z
-    walls or with zper periodic z, the 3D filter, 'channel' or 'dit'), the
-    two-deep x halo pairs of (u, v, w) (cols (nz, 4, ny + 4), corners
-    (3, 4, ny + 4): columns -2, -1, nx, nx + 1 over the rows -2 .. ny + 1,
+    walls or with zper periodic z, the 3D or with f2d the 2D filter,
+    'channel' or 'dit'), the two-deep x halo pairs of (u, v, w) (cols
+    (nz, 4, ny + 4), corners (3, 4, ny + 4): columns -2, -1, nx, nx + 1
+    over the rows -2 .. ny + 1,
     mesh.halo_x at depth 2, its rows from the depth-2 y exchange;
     timeloop._pencil_halos), which the velocity tile takes for its
     columns -2, -1, nx and nx + 1 (with zper the plane t mod nz, the
@@ -1231,10 +1248,9 @@ def dsmag(u, v, w, ue, ve, we, alph2, dzci, dzfi, dxi, dyi, wall_lo, wall_hi,
     if (yown is not None) != (yh is not None and ye is not None):
         raise ValueError("dsmag: yown names a slab's y walls, with ye and "
                          'yh')
-    if xh is not None and (ye is not None or f2d or _DSMAG_AVG[avg] != 0):
+    if xh is not None and (ye is not None or _DSMAG_AVG[avg] != 0):
         raise ValueError("dsmag: a pencil's x halos take periodic y or a "
-                         "slab's y halo, the 3D filter and the 'channel' or "
-                         "'dit' sums")
+                         "slab's y halo and the 'channel' or 'dit' sums")
     if _on_cpu(u):
         return dsmag_plain(u, v, w, ue, ve, we, alph2, dzci, dzfi, dxi, dyi,
                            wall_lo, wall_hi, zvals, ye=ye, yvals=yvals,
@@ -1297,7 +1313,7 @@ def _check_dsmag(name, u, ue, ve, we, profiles, ye, fields):
 
 
 def dsmag_level1(u, v, w, ue, ve, we, dzci, dzfi, dxi, dyi, wall_lo,
-                 wall_hi, ye=None, yh=None, yown=None):
+                 wall_hi, ye=None, yh=None, yown=None, xh=None):
     """The grid level of the two-pass dynamic Smagorinsky model in one
     z-march (see dsmag_level1_plain): from the post-correction fill
     (interiors + edge stacks, with y walls the y-row stack pairs ye of
@@ -1308,16 +1324,27 @@ def dsmag_level1(u, v, w, ue, ve, we, dzci, dzfi, dxi, dyi, wall_lo,
     nyl and nyl+1; with ye and yown = (lower, upper) a slab of a y-walled
     mesh (modes YW and YH): ye the slab's y-row stack pairs
     (boundary.slab_ystack) for the rows -1, nyl-1 and nyl, the wall
-    recipes on the walls it holds."""
+    recipes on the walls it holds.  xh: a pencil of a 2D mesh (mode XH,
+    no y walls, with yh or periodic y), the two-deep x halo pairs of
+    (u, v, w) (cols (nz, 4, ny + 4), corners (3, 4, ny + 4): columns -2,
+    -1, nx, nx + 1 over the rows -2 .. ny + 1, as kernels.dsmag's), the
+    velocity tile's columns -2, -1, nx and nx + 1."""
     if (yown is not None) != (yh is not None and ye is not None):
         raise ValueError("dsmag_level1: yown names a slab's y walls, with ye "
                          'and yh')
+    if xh is not None and ye is not None:
+        raise ValueError("dsmag_level1: a pencil's x halos take periodic y "
+                         "or a slab's y halo")
     lo, hi = (-1, -1) if yown is None else (int(bool(q)) for q in yown)
     if _on_cpu(u):
         return dsmag_level1_plain(u, v, w, ue, ve, we, dzci, dzfi, dxi, dyi,
-                                  wall_lo, wall_hi, ye=ye, yh=yh, yown=yown)
+                                  wall_lo, wall_hi, ye=ye, yh=yh, yown=yown,
+                                  xh=xh)
     nz, ny, nx = u.shape
-    if yh is None:
+    if xh is not None and nx < 2:
+        raise ValueError(f'dsmag_level1: a pencil of {nx} column(s) (its '
+                         'two-column x halo reaches one rank a side)')
+    if yh is None and xh is None:
         ye = _check_dsmag('dsmag_level1', u, ue, ve, we,
                            ((dzci, nz + 2), (dzfi, nz + 2)), ye, (u, v, w))
     else:
@@ -1327,12 +1354,15 @@ def dsmag_level1(u, v, w, ue, ve, we, dzci, dzfi, dxi, dyi, wall_lo,
         ye = (None,) * 3 if ye is None else tuple(ye)
         _check('dsmag_level1', u, (u, v, w), edges=(ue, ve, we),
                profiles=((dzci, nz + 2), (dzfi, nz + 2)), **_ysplit(ye),
-               **_ysplit(yh, halo=2))
+               **_ysplit(yh or (), halo=2),
+               x2cols=[c for c, _ in xh or ()],
+               x2corners=[k for _, k in xh or ()])
     out = u.new_empty((16, nz, ny, nx))
     d = ctypes.c_double
     _launch('dsmag_level1', f'cales_dsmag_level1_{_suffix(u)}',
             *map(_ptr, (u, v, w, ue, ve, we, dzci, dzfi, out)), *_yptrs(ye),
             *_yptrs((None,) * 3 if yh is None else yh),
+            *_yptrs((None,) * 3 if xh is None else xh),
             ctypes.c_int(nz), ctypes.c_int(ny), ctypes.c_int(nx),
             ctypes.c_int(int(bool(wall_lo))), ctypes.c_int(int(bool(wall_hi))),
             ctypes.c_int(lo), ctypes.c_int(hi), d(dxi), d(dyi))
@@ -1340,7 +1370,8 @@ def dsmag_level1(u, v, w, ue, ve, we, dzci, dzfi, dxi, dyi, wall_lo,
 
 
 def dsmag_level2(fu, fv, fw, fue, fve, fwe, fm, lij, s0, alph2, dzci, dzfi,
-                 dxi, dyi, avg='channel', ye=None, yh=None, yown=None):
+                 dxi, dyi, avg='channel', ye=None, yh=None, yown=None,
+                 xh=None):
     """The test level of the two-pass dynamic Smagorinsky model (see
     dsmag_level2_plain), one thread per cell: the filtered velocity with
     its fill's edge stacks (and y-row stack pairs ye), dsmag_level1's fm,
@@ -1349,7 +1380,12 @@ def dsmag_level2(fu, fv, fw, fue, fve, fwe, fm, lij, s0, alph2, dzci, dzfi,
     halo pairs (rows (nz, 2, nx), corners (3, 2, nx)) of (fu, fv, fw);
     yown = (lower, upper) with ye: a slab of a y-walled mesh (modes YW and
     YH), ye the slab's y-row stack pairs of the fill, alpha^2 2.52 at the
-    walls it holds.  Returns nu_t for avg 'cavity'; otherwise partial sums
+    walls it holds.  xh: a pencil of a 2D mesh (mode XH, 'channel' or
+    'dit', with yh or periodic y), the depth-1 x halo pairs of (fu, fv,
+    fw) in the x stacks' form (cols (nz, 3, ny + 2), corners (3, 3,
+    ny + 2): columns -1 and nx over the rows -1 .. ny, mesh.halo_x with
+    its rows from the y exchange), read on the first and last columns.
+    Returns nu_t for avg 'cavity'; otherwise partial sums
     (num, den) that the caller sums over their last dim: per (z, block),
     (nz, nblk), for 'channel'; per (z, y, x block of 32), (nz, ny,
     ceil(nx/32)), for 'duct'.  The twin returns the sums whole, (nz, 1) or
@@ -1363,15 +1399,20 @@ def dsmag_level2(fu, fv, fw, fue, fve, fwe, fm, lij, s0, alph2, dzci, dzfi,
     if yown is not None and ye is None:
         raise ValueError("dsmag_level2: yown names a slab's y walls, with "
                          'ye')
+    if xh is not None and (ye is not None or _DSMAG_AVG[avg] != 0):
+        raise ValueError("dsmag_level2: a pencil's x halos take periodic y "
+                         "or a slab's y halo and the 'channel' or 'dit' sums")
     if _on_cpu(fu):
         return dsmag_level2_plain(fu, fv, fw, fue, fve, fwe, fm, lij, s0,
                                   alph2, dzci, dzfi, dxi, dyi, avg=avg, ye=ye,
-                                  yh=yh, yown=yown)
+                                  yh=yh, yown=yown, xh=xh)
     nz, ny, nx = fu.shape
+    if xh is not None and nx < 2:
+        raise ValueError(f'dsmag_level2: a pencil of {nx} column(s)')
     if len(fm) != 6 or len(lij) != 6:
         raise ValueError('dsmag_level2: fm and lij take 6 fields each')
     lo, hi = (-1, -1) if yown is None else (int(bool(q)) for q in yown)
-    if yh is None and yown is None:
+    if yh is None and yown is None and xh is None:
         ye = _check_dsmag('dsmag_level2', fu, fue, fve, fwe,
                            ((alph2, nz), (dzci, nz + 2), (dzfi, nz + 2)), ye,
                            (fu, fv, fw, *fm, *lij, s0))
@@ -1384,7 +1425,8 @@ def dsmag_level2(fu, fv, fw, fue, fve, fwe, fm, lij, s0, alph2, dzci, dzfi,
                edges=(fue, fve, fwe),
                profiles=((alph2, nz), (dzci, nz + 2), (dzfi, nz + 2)),
                **_ysplit(ye), **_ysplit((None,) * 3 if yh is None else yh,
-                                        halo=True))
+                                        halo=True),
+               **_xsplit(xh or (), ny, ywalls=True))
     from . import build
     gx = -(-nx // 32)
     code = _DSMAG_AVG[avg]
@@ -1397,6 +1439,7 @@ def dsmag_level2(fu, fv, fw, fue, fve, fwe, fm, lij, s0, alph2, dzci, dzfi,
             *map(_ptr, (fu, fv, fw, fue, fve, fwe, *fm, *lij, s0, alph2,
                         dzci, dzfi, num, den)), *_yptrs(ye),
             *_yptrs((None,) * 3 if yh is None else yh),
+            *_yptrs((None,) * 3 if xh is None else xh),
             ctypes.c_int(nz), ctypes.c_int(ny), ctypes.c_int(nx),
             ctypes.c_int(code), ctypes.c_int(lo), ctypes.c_int(hi), d(dxi),
             d(dyi))

@@ -137,18 +137,21 @@ are cut to the slab's rows, their y ghosts the periodic wrap's
 On a 2D pencil mesh (dims = (gy, gx), gx > 1; the JAX package's
 _gx_sharded route) each rank steps its pencil of y rows and x columns,
 for the classes whose x and y sides are periodic, with z walls or
-periodic z (the triperiodic box), with no wall model, scalar or plane
-values (sgstype 'none', static Smagorinsky or the one-pass dynamic
-Smagorinsky 'channel' or 'dit'; explicit diffusion, impdiff_1d or
-full-3D implicit diffusion; 'mat' or 'fft'; _pencil_refuse names the
+periodic z (the triperiodic box), with no wall model or plane values
+(sgstype 'none', static Smagorinsky or the dynamic Smagorinsky 'channel'
+or 'dit' by one pass, with the 3D or the 2D filter, or by two passes;
+explicit diffusion, impdiff_1d or full-3D implicit diffusion; with or
+without the passive scalar; 'mat' or 'fft'; _pencil_refuse names the
 rest): before each stencil kernel the x neighbours' columns of the
 fields it reads arrive as x stacks (mesh.halo_x), whose rows -1 and nyl
-ride the y exchange of the rows (_pencil_halos), so mom_rk, fillps,
-correc_updatep and smag run their x-halo variants (with the y halo
-variants, or periodic y with gy = 1); dsmag takes two columns and two
-rows a side, the corners by the same two hops (its XH mode), and its z
-rows' sums reduce over all the ranks; the z walls' van Driest planes
-take u's column -1 from its x halo; the Poisson solve and full-3D
+ride the y exchange of the rows (_pencil_halos), so mom_rk (the
+scalar's columns in the same exchange), fillps, correc_updatep and smag
+run their x-halo variants (with the y halo variants, or periodic y with
+gy = 1); dsmag and dsmag_level1 take two columns and two rows a side,
+the corners by the same two hops (their XH modes), dsmag_level2 one of
+the filtered velocity after its own fill, and the z rows' sums reduce
+over all the ranks; the z walls' van Driest planes take u's column -1
+from its x halo; the Poisson solve and full-3D
 implicit diffusion's three Helmholtz solves re-slab
 (poisson.solve_sharded), and the z-only CN solves run on the pencil's
 columns.
@@ -499,12 +502,15 @@ def _pencil_refuse(cfg: Config) -> list[str]:
     """What a pencil mesh (dims = (gy, gx), gx > 1) does not run yet: it
     runs the classes whose x and y sides are periodic, with z walls or
     periodic z (the triperiodic box), sgstype 'none', static Smagorinsky
-    or the one-pass dynamic Smagorinsky ('channel' or 'dit', the 3D
-    filter: dsmag.cu's two-deep x halo mode), explicit diffusion,
-    impdiff_1d or full-3D implicit diffusion (the Helmholtz solves through
-    the re-slab), by 'mat' or 'fft', on ny and nx divisible by gy gx (the
-    Poisson solve's re-slab); every other configuration names its item of
-    ROADMAP queue 1, multi-device."""
+    or the dynamic Smagorinsky ('channel' or 'dit'; one pass with the 3D
+    or the 2D filter, dsmag.cu's two-deep x halo mode with F2D, or two
+    passes where a face value or CALES_DSMAG_TWOPASS=1 asks for them,
+    dsmag_level1's two-deep and dsmag_level2's depth-1 x halo modes),
+    explicit diffusion, impdiff_1d or full-3D implicit diffusion (the
+    Helmholtz solves through the re-slab), with or without the passive
+    scalar (mom_rk's scalar x halo mode), by 'mat' or 'fft', on ny and nx
+    divisible by gy gx (the Poisson solve's re-slab); every other
+    configuration names its item of ROADMAP queue 1, multi-device."""
     gy, gx = int(cfg.dims[0]), int(cfg.dims[1])
     nx, ny, _ = cfg.ng
     item = 'ROADMAP queue 1, multi-device'
@@ -514,24 +520,16 @@ def _pencil_refuse(cfg: Config) -> list[str]:
     if not _periodic(cfg, 0):
         what.append('x walls (run-time x-wall owner flags)')
     if cfg.sgstype == 'dsmag':
-        if dsmag_twopass(cfg):
-            what.append('the two-pass dynamic Smagorinsky (a face value '
-                        'that forces it, or CALES_DSMAG_TWOPASS=1: the x '
-                        'halo modes of dsmag_level1 and dsmag_level2)')
-        if cfg.filter_2d:
-            what.append('the 2D test filter (filter_2d: dsmag.cu F2D with '
-                        'the x halo)')
         if cfg.dsmag_avg not in ('channel', 'dit'):
             what.append(f'the {cfg.dsmag_avg!r} dsmag average')
         if nx % gx == 0 and nx // gx < 2:
-            what.append(f'dynamic Smagorinsky on pencils of {nx // gx} x '
-                        "column(s), thinner than the dsmag kernel's "
-                        'two-column x halo (a rank two away is not '
-                        'reached)')
+            kind = ('the two-pass dynamic Smagorinsky' if dsmag_twopass(cfg)
+                    else 'dynamic Smagorinsky')
+            what.append(f'{kind} on pencils of {nx // gx} x column(s), '
+                        "thinner than the dsmag kernel's two-column x halo "
+                        '(a rank two away is not reached)')
     if any(cfg.lwm[ib][d] != 0 for ib in range(2) for d in range(3)):
         what.append("the wall model (wallmodel.cu's x halo)")
-    if cfg.scalar:
-        what.append('the passive scalar')
     if plane_faces(cfg) or any(
             np.ndim(b[ib][d]) != 0 for b in (cfg.bcpre, cfg.bcsgs)
             for ib in range(2) for d in range(3)):
@@ -1106,17 +1104,24 @@ class Simulation:
                      f'around the slab route on {self.mesh.gy * self.mesh.gx} '
                      'y slabs)')
         if self.mesh is not None and self.sgs_kernel == 'dsmag':
-            mesh += (" (dsmag_level1's two rows deep, the filtered "
-                     "velocity's one row deep for dsmag_level2)"
+            mesh += (" (dsmag_level1's two rows and two columns deep, with "
+                     "their corners; then the filtered velocity's one row "
+                     'and one column deep, after its own fill, for '
+                     'dsmag_level2: two x exchanges a substep)'
+                     if self.dsmag_twopass and self.xhalo
+                     else " (dsmag_level1's two rows deep, the filtered "
+                          "velocity's one row deep for dsmag_level2)"
                      if self.dsmag_twopass
                      else " (dsmag's two rows and two columns deep, with "
                           'their corners)' if self.xhalo
                      else " (dsmag's two rows deep)")
             mesh += ', the dsmag sums reduced over the ranks'
         if self.mesh is not None and self.has_scal:
-            mesh += (", the scalar's halo rows in the momentum exchange"
-                     + (', its forcing summed over the ranks'
-                        if self.cfg.is_sforced else ''))
+            mesh += ((", the scalar's halo rows and x halo columns in the "
+                      'momentum exchange') if self.xhalo
+                     else ", the scalar's halo rows in the momentum exchange")
+            if self.cfg.is_sforced:
+                mesh += ', its forcing summed over the ranks'
         if self.mesh is not None and self.has_wm:
             mesh += ", the wall model's sampled rows' halos"
             if self.yown is not None:
@@ -1801,11 +1806,21 @@ class Simulation:
         side of it (one more exchange), and the z rows' sums of num and den
         are reduced over the ranks before the ratio ('channel', 'dit'); with
         y walls both levels take the slab's y-row stacks and the wall
-        recipes on the walls it owns."""
+        recipes on the walls it owns.  On a pencil (gx > 1) level1 reads
+        two columns a side too (_pencil_halos at depth 2, as the one
+        pass), level2 one column a side of the filtered velocity with its
+        (x +-1, y +-1) corners (_pencil_halos at depth 1, after the
+        filtered velocity's own fill, so that the halos' z-edge entries
+        are that fill's), and the z rows' sums reduce over all gy gx
+        ranks in the one all_reduce."""
         cfg = self.cfg
         dxi, dyi = cfg.dli[0], cfg.dli[1]
-        yh = yown = reduce = None
-        if self.mesh is not None:
+        yh = xh = yown = reduce = None
+        if self.xhalo:
+            pairs = list(zip((u, v, w), zq))
+            yh, xh = self._pencil_halos(pairs, pairs, depth=2)
+            reduce = self.mesh.all_reduce
+        elif self.mesh is not None:
             yh = self.mesh.halo_y(list(zip((u, v, w), zq)), depth=2)
             reduce = self.mesh.all_reduce
             if self.yown is not None:
@@ -1813,12 +1828,15 @@ class Simulation:
                 yown = self.yown
         fm, (fu, fv, fw), lij, s0 = kernels.dsmag_level1(
             u, v, w, *zq, self.dzci_t, self.dzfi_t, dxi, dyi, self.lo_wall,
-            self.hi_wall, ye=ye, yh=yh, yown=yown)
+            self.hi_wall, ye=ye, yh=yh, yown=yown, xh=xh)
         fze = self._zedge_vel(fu, fv, fw, self.bcu_vals, self.bcv_vals,
                               self.bcw_vals, is_correc=False)
         fye = self._yedge_vel(fu, fv, fw) if self.ywalled else None
-        fyh = None
-        if self.mesh is not None:
+        fyh = fxh = None
+        if self.xhalo:
+            fpairs = list(zip((fu, fv, fw), fze))
+            fyh, fxh = self._pencil_halos(fpairs, fpairs)
+        elif self.mesh is not None:
             fyh = self.mesh.halo_y(list(zip((fu, fv, fw), fze)))
             if self.yown is not None:
                 fye = self._yslab((fu, fv, fw), fze, fye, fyh)
@@ -1827,7 +1845,7 @@ class Simulation:
         out = kernels.dsmag_level2(fu, fv, fw, *fze, fm, lij, s0,
                                    self.alph2_t, self.dzci_t, self.dzfi_t,
                                    dxi, dyi, avg=avg, ye=fye, yh=fyh,
-                                   yown=yown)
+                                   yown=yown, xh=fxh)
         return out if avg == 'cavity' else _dsmag_ratio(
             s0, *out, avg, self.dit_w_t, reduce=reduce)
 
@@ -2022,9 +2040,10 @@ class Simulation:
         if xe is not None and self.has_scal:
             xe = (*xe, self._xedge_scal(sca))
         if self.xhalo:
-            # a pencil: the x neighbours' columns of the same fill, their
-            # rows -1 and nyl in the y exchange of the rows
-            fields, edges = (u, v, w, s, p), (ue, ve, we, se, pe)
+            # a pencil: the x neighbours' columns of the same fill and of
+            # the scalar, their rows -1 and nyl in the y exchange of the
+            # rows
+            fields, edges = (u, v, w, s, p, sca), (ue, ve, we, se, pe, scae)
             hy, xh = self._pencil_halos(
                 [(q, e) for q, e in zip(fields, edges) if q is not None],
                 list(zip(fields, edges)))

@@ -56,10 +56,14 @@ LES with 'dit', the full-3D channel DNS and the wall-modelled duct (10tdf,
 share the card, the LES headline by 'mat' and by 'fft' and the LES with
 impdiff_1d, the dsmag channel (two-deep x halos), the triperiodic DNS
 and its dsmag 'dit' LES, and the channel DNS with full-3D implicit
-diffusion at 512x256x256 (10p, 10pf, 10pi, 10pd, 10pt, 10ptd, 10pi3: the
-x-halo variants of mom_rk ('xy+z' too), fillps, correc_updatep, smag and
-dsmag, timed in phase 2b at the pencil (256, 128, 256), the Poisson and
-Helmholtz solves re-slabbed), their small f64 twins and those of the
+diffusion, the transpiring dsmag channel by two passes, the dsmag
+channel and the box's 'dit' LES with the 2D test filter, and the channel
+LES with a passive scalar at 512x256x256 (10p, 10pf, 10pi, 10pd, 10pt,
+10ptd, 10pi3, 10pb, 10p2d, 10pt2d, 10ps: the x-halo variants of mom_rk
+('xy+z' and the scalar too), fillps, correc_updatep, smag, dsmag (with
+the 2D filter too), dsmag_level1 and dsmag_level2, timed in phase 2b at
+the pencil (256, 128, 256), the Poisson and Helmholtz solves
+re-slabbed), their small f64 twins and those of the
 'none' channel, the box's smag LES and the box DNS by 'fft' (10pn,
 10ptl, 10ptf) against one device, and the LES example through the CLI
 with dims(1:2) = 2, 2 (10pc).  Each phase's first line carries the
@@ -69,7 +73,7 @@ seconds since the start.
 
 (``chip_smoke.py --mesh-rank DIR`` is one rank of the y-slab mesh's
 phases 10 and 10i to 10ywf, ``--pencil-rank DIR`` one of phases 10p to
-10ptf, which the script starts itself under torch.distributed.run, one
+10ps, which the script starts itself under torch.distributed.run, one
 launch each; ``chip_smoke.py --pencil-nccl`` runs the pencil phases alone
 on four cards, a card a rank over NCCL.)
 
@@ -250,7 +254,15 @@ PENCIL_ROWS = {'mom_rk (x halo, y halo)': ('mom_rk', '10p'),
                                                             '10pi3'),
                'smag (x halo, y halo, no wall)': ('smag', '10ptl'),
                'dsmag (x halo, y halo)': ('dsmag', '10pd'),
-               'dsmag (x halo, y halo, periodic z)': ('dsmag', '10ptd')}
+               'dsmag (x halo, y halo, periodic z)': ('dsmag', '10ptd'),
+               # the two passes on the transpiring channel (10pb), the 2D
+               # test filter on the dsmag channel (10p2d) and the box
+               # (10pt2d), the passive scalar on the LES channel (10ps)
+               'dsmag_level1 (x halo, y halo)': ('dsmag_level1', '10pb'),
+               'dsmag_level2 (x halo, y halo)': ('dsmag_level2', '10pb'),
+               'dsmag (2D filter, x halo, y halo)': ('dsmag', '10p2d'),
+               'dsmag (2D filter, x halo, periodic z)': ('dsmag', '10pt2d'),
+               'mom_rk (scalar, x halo, y halo)': ('mom_rk', '10ps')}
 # the mixed route's y stage (ptransform 'fft' with y walls, phase 8f and
 # the mesh classes 10yf, 10ywf): apply_y with the y DCT alone on the real
 # view of the rfft's lanes at the headline grid, (nz, ny, 2 (nx/2 + 1)),
@@ -1973,9 +1985,17 @@ def pencil_rows(dev, card):
     nu_t, with the '1d' split (the LES with impdiff_1d) and with the 'xy+z'
     split (full-3D implicit diffusion), fillps's, correc_updatep's
     (impdiff_1d's p update and the full-3D one) and smag's with the z
-    walls' van Driest and without a wall (the box); dsmag's XH x YH mode
-    (two-deep x halos (nz, 4, ny/2 + 4) and depth-2 y halos, its z rows'
-    sums as totals) on the z-walled channel and, with ZP, on the box."""
+    walls' van Driest and without a wall (the box); mom_rk's scalar
+    variant (SCAL x X_HALO x Y_HALO, explicit, with nu_t: the scalar's
+    halos the sixth pairs); dsmag's XH x YH mode (two-deep x halos (nz, 4,
+    ny/2 + 4) and depth-2 y halos, its z rows' sums as totals) on the
+    z-walled channel and, with ZP, on the box, each with the 3D and with
+    the 2D test filter (F2D x XH); dsmag_level1's XH x YH mode on the
+    channel (its 16 fields) and dsmag_level2's on its twin's output (the
+    filtered velocity's depth-1 y and x halos, the z rows' sums as
+    totals).  Each row's time is also taken on the device alone
+    (graph_ms, 'graph_ms'), and so is its kernel's periodic variant on the
+    same pencil ('periodic_variant_graph_ms')."""
     from cales_torch.config import Config
     from cales_torch.grid import make_grid_from_config
     from cales_torch.ops import kernels as K
@@ -1998,9 +2018,20 @@ def pencil_rows(dev, card):
         nbytes = ((work[0] + work[1]) * cells * 4
                   + sum(q.numel() * q.element_size()
                         for q in _flat((kw.get('yh'), kw.get('xh')))))
-        return _check_row(row, fn, twin, a, kw, totals,
-                          lambda: (nbytes, work[2] * cells), card,
-                          PENCIL_NG)
+        r = _check_row(row, fn, twin, a, kw, totals,
+                       lambda: (nbytes, work[2] * cells), card, PENCIL_NG)
+        # the device time alone (a CUDA graph of the calls): at the
+        # pencil's quarter of the cells the wrapper's host time (its
+        # checks of every halo) may exceed a kernel's; and the same
+        # kernel's periodic variant on the same pencil, no halo read
+        r['graph_ms'] = graph_ms(lambda: fn(*a, **kw), n=10)
+        plain_kw = {k: q for k, q in kw.items() if k not in ('yh', 'xh')}
+        r['periodic_variant_graph_ms'] = graph_ms(
+            lambda: fn(*a, **plain_kw), n=10)
+        say(f'  {row:<42s} on the device alone (a CUDA graph of 10 calls) '
+            f'{r["graph_ms"]:.4f} ms, its periodic variant on the pencil '
+            f'{r["periodic_variant_graph_ms"]:.4f} ms  [{card}]')
+        return r
     cfg = Config(**{**LES_IMP_CFG, 'ng': PENCIL_NG, 'dims': (1, 1),
                     'dtype': 'float32'})
     sim = Simulation(cfg, make_grid_from_config(cfg), device=dev)
@@ -2053,7 +2084,27 @@ def pencil_rows(dev, card):
         'smag (x halo, y halo, no wall)', K.smag, K.smag_plain, a,
         dict(yh=tuple(yh[:3]), xh=tuple(xh[:3]), have_zwalls=False), list,
         WORK_VARIANT[('smag', 'nowall')])
-    del sim, p, pp, ru, rv, rw, s, se, pe, ppe, yh, xh
+    # mom_rk's scalar variant on the pencil (SCAL x X_HALO x Y_HALO,
+    # explicit, with nu_t: LES_SC_CFG's channel), the scalar's halo and x
+    # halo the sixth pairs
+    scfg = Config(**{**LES_SC_CFG, 'ng': PENCIL_NG, 'dims': (1, 1),
+                     'dtype': 'float32'})
+    sca = rnd(nz, nyl, nx, scale=0.3).abs()
+    rso = rnd(nz, nyl, nx)
+    row = 'mom_rk (scalar, x halo, y halo)'
+    a = (u, v, w, s, p, *e, se, pe, ru, rv, rw, sim.dzci_t, sim.dzfi_t,
+         0.01, -0.005, scfg.visc, dxi, dyi, scfg.bforce)
+    # its edge stack as the fill leaves it: row 1 (the rewrite slot of the
+    # z-staggered w) is the last plane, which the kernel reads there
+    scae = torch.stack([rnd(nyl, nx, scale=0.3), sca[-1],
+                        rnd(nyl, nx, scale=0.3)])
+    kw = dict(sums=(True, False), yh=(*yh, yhalo()), xh=(*xh, xhalo()),
+              sca=sca, scae=scae, rso=rso,
+              scal=(scfg.visc / scfg.pr, float(scfg.ssource)))
+    rows[row] = row_of(row, K.mom_rk, K.mom_rk_plain, a, kw,
+                       lambda res: [*mom_totals(res), *res[7:]],
+                       WORK_VARIANT[('mom_rk', 'les_sc')])
+    del sim, p, pp, ru, rv, rw, s, se, pe, ppe, yh, xh, sca, scae, rso, a, kw
     torch.cuda.empty_cache()
     # dsmag's XH x YH mode: the channel (z walls, alpha^2 2.52 on the
     # walls' rows) and the box (ZP, uniform z); two-deep x halos over the
@@ -2079,7 +2130,42 @@ def pencil_rows(dev, card):
         rows[row] = row_of(row, K.dsmag, K.dsmag_plain, a,
                            dict(avg='channel', zper=zper, yh=yh2, xh=xh2),
                            dsmag_totals, WORK['dsmag'])
-    del u, v, w, e, yh2, xh2
+        # the 2D test filter on the same pencil (F2D x XH; alpha^2 2.52,
+        # the caller's profile)
+        f2d = ('dsmag (2D filter, x halo, periodic z)' if zper
+               else 'dsmag (2D filter, x halo, y halo)')
+        a2d = (*a[:6], torch.full((nz,), 2.52, dtype=f32, device=dev),
+               *a[7:])
+        rows[f2d] = row_of(f2d, K.dsmag, K.dsmag_plain, a2d,
+                           dict(avg='channel', zper=zper, f2d=True,
+                                yh=yh2, xh=xh2),
+                           dsmag_totals, WORK_VARIANT[('dsmag', 'f2d')])
+    # the two passes' XH x YH modes on the channel (DSMAG_CFG's z walls):
+    # dsmag_level1 with the two-deep halos, dsmag_level2 on its twin's
+    # output with the filtered velocity's depth-1 y and x halos
+    cfg = Config(**{**DSMAG_CFG, 'ng': PENCIL_NG, 'dims': (1, 1),
+                    'dtype': 'float32'})
+    grid = make_grid_from_config(cfg)
+    dz = [torch.as_tensor(q, dtype=f32, device=dev)
+          for q in (grid.dzci, grid.dzfi)]
+    lv1 = (u, v, w, *e, *dz, cfg.dli[0], cfg.dli[1], True, True)
+    row = 'dsmag_level1 (x halo, y halo)'
+    rows[row] = row_of(row, K.dsmag_level1, K.dsmag_level1_plain, lv1,
+                       dict(yh=yh2, xh=xh2), lambda res: res,
+                       WORK['dsmag_level1'])
+    fm, fvel, lij, s0 = K.dsmag_level1_plain(*lv1, yh=yh2, xh=xh2)
+    a2 = torch.full((nz,), 4.0, dtype=f32, device=dev)
+    a2[0] = a2[-1] = 2.52
+    lv2 = (*fvel, *(rnd(3, nyl, nx) for _ in range(3)), fm, lij, s0, a2,
+           *dz, cfg.dli[0], cfg.dli[1])
+    row = 'dsmag_level2 (x halo, y halo)'
+    rows[row] = row_of(
+        row, K.dsmag_level2, K.dsmag_level2_plain, lv2,
+        dict(avg='channel', yh=[yhalo() for _ in range(3)],
+             xh=[xhalo() for _ in range(3)]),
+        lambda res: [q.reshape(q.shape[0], -1).sum(dim=-1) for q in res],
+        WORK['dsmag_level2'])
+    del u, v, w, e, yh2, xh2, lv1, fm, fvel, lij, s0, lv2
     torch.cuda.empty_cache()
     return rows
 
@@ -4700,11 +4786,13 @@ def phase_sharded_les(dev, card, les):
 
 
 # the classes on the 2D pencil mesh dims (2, 2) (phases 10p, 10pf, 10pi,
-# 10pd, 10pt, 10ptd, 10pi3): four ranks on the one card over gloo, each
-# class at the headline grid in float32 through driver.run with exact
-# launches a rank (the x-halo variants of mom_rk, fillps, correc_updatep,
-# smag and dsmag, the re-slab around the slab route's kernels on 4 y
-# slabs, full-3D implicit diffusion's Helmholtz solves through it), the
+# 10pd, 10pt, 10ptd, 10pi3, 10pb, 10p2d, 10pt2d, 10ps): four ranks on the
+# one card over gloo, each class at the headline grid in float32 through
+# driver.run with exact launches a rank (the x-halo variants of mom_rk
+# (with the scalar too), fillps, correc_updatep, smag, dsmag (with the 2D
+# filter too), dsmag_level1 and dsmag_level2, the re-slab around the slab
+# route's kernels on 4 y slabs, full-3D implicit diffusion's Helmholtz
+# solves through it), the
 # PERF.md section 2 gates and one timed step; and the small float64 twins
 # of those classes, of the 'none' channel, the box's smag LES and the box
 # DNS by 'fft' against one device on the card within 1e-11.  (key, title,
@@ -4740,7 +4828,29 @@ PENCIL_CLASSES = (
     ('10pi3', 'channel DNS, full-3D implicit diffusion (phase 5f)',
      dict(DNS_CFG, impdiff_1d=False, dims=PENCIL_DIMS),
      dict(mom_rk=3, fillps=3, correc_updatep=3, apply_x=24, apply_y=24,
-          thomas_z=12), {}))
+          thomas_z=12), {}),
+    # the two passes (dsmag_level1's two-deep x halo, then the filtered
+    # velocity's one-deep after its fill for dsmag_level2: two x
+    # exchanges a substep), the 2D test filter (dsmag F2D x XH) and the
+    # passive scalar (its columns in the momentum exchange)
+    ('10pb', 'transpiring dsmag channel (dsmag_blow), two passes',
+     dict(DSMAG_BLOW_CFG, dims=PENCIL_DIMS),
+     dict(mom_rk=3, fillps=3, correc_updatep=3, dsmag_level1=3,
+          dsmag_level2=3, apply_x=6, apply_y=6, thomas_z=12),
+     {'dsmag_level1': 1, 'dsmag_level2': 1}),
+    ('10p2d', "dsmag channel with the 2D test filter ('channel', "
+     'impdiff_1d)', dict(DSMAG_CFG, filter_2d=True, dims=PENCIL_DIMS),
+     dict(mom_rk=3, fillps=3, correc_updatep=3, dsmag=3, apply_x=6,
+          apply_y=6, thomas_z=12), {'dsmag': 1}),
+    ('10pt2d', "box LES, dsmag 'dit' with the 2D test filter",
+     dict(TRI_CFG, sgstype='dsmag', dsmag_avg='dit', filter_2d=True,
+          dims=PENCIL_DIMS),
+     dict(mom_rk=3, fillps=3, correc_updatep=3, dsmag=3, apply_x=6,
+          apply_y=6, thomas_periodic=3), {'dsmag': 1}),
+    ('10ps', "channel LES with a passive scalar (phase 13's LES_SC_CFG)",
+     dict(LES_SC_CFG, dims=PENCIL_DIMS),
+     dict(mom_rk=3, fillps=3, correc_updatep=3, smag=3, apply_x=6,
+          apply_y=6, thomas_z=3), {}))
 # the small float64 twins: the classes', the 'none' channel's, the box's
 # smag LES (its launches counted: the no-wall smag's main path) and the
 # box DNS by 'fft'
@@ -4771,10 +4881,10 @@ def pencil_rank(out_dir, transport='gloo'):
 
 
 def pencil_rank_body(out_dir, transport='gloo'):
-    """One rank of phases 10p, 10pf, 10pi, 10pd, 10pt, 10ptd and 10pi3
-    (started under torch.distributed.run, four ranks on the one card over
-    gloo, staged through pinned host buffers, or with transport 'nccl' a
-    card a rank): each class at the headline grid through
+    """One rank of the phases of PENCIL_CLASSES (started under
+    torch.distributed.run, four ranks on the one card over gloo, staged
+    through pinned host buffers, or with transport 'nccl' a card a rank):
+    each class at the headline grid through
     driver.run with every launch count set to 0 just before and read just
     after, its gates, its ms/step over MESH_TIMED steps, then the small
     f64 twins (PENCIL_SMALL), whose gathered fields rank 0 writes for the
@@ -4833,14 +4943,17 @@ def phase_pencil(dev, card, transport='gloo'):
     """Phases 10p, 10pf and 10pi: the LES headline by 'mat' and by 'fft'
     and the LES with impdiff_1d; 10pd: the dsmag channel ('channel',
     impdiff_1d); 10pt and 10ptd: the triperiodic DNS and its dsmag 'dit'
-    LES; 10pi3: the channel DNS with full-3D implicit diffusion; on the 2D
-    pencil mesh dims (2, 2), four
+    LES; 10pi3: the channel DNS with full-3D implicit diffusion; 10pb: the
+    transpiring dsmag channel by two passes (dsmag_blow); 10p2d and
+    10pt2d: the 2D test filter on the dsmag channel and on the box's 'dit'
+    LES; 10ps: the channel LES with a passive scalar (its range gated as
+    on the y-slab mesh); on the 2D pencil mesh dims (2, 2), four
     ranks sharing the one card over gloo staged through the host (a
     correctness run: the staging and the four ranks' time-sharing of the
     card make its ms/step no scaling figure), each at 512x256x256 f32 with
     exact launches a rank and the PERF.md section 2 gates (the box's
     kinetic energy falling over the timed step); the small f64 twins of
-    the seven, of the 'none' channel (10pn), the box's smag LES (10ptl,
+    the eleven, of the 'none' channel (10pn), the box's smag LES (10ptl,
     its launches counted) and the box DNS by 'fft' (10ptf) against one
     device on the card within 1e-11; then the LES example through the CLI
     with dims(1:2) = 2, 2 (10pc).  With transport
@@ -4869,7 +4982,7 @@ def phase_pencil(dev, card, transport='gloo'):
             say(f'  | {line}')
         errs = ''.join(f'rank {r}:\n{q.read_text()}' for r in range(nr)
                        for q in [Path(tmp) / f'rank{r}.err'] if q.exists())
-        require(res.returncode == 0, f'a rank of phases 10p-10pi failed:\n'
+        require(res.returncode == 0, f'a rank of phases 10p-10ps failed:\n'
                                      f'{errs or res.stderr[-4000:]}')
         ranks = [json.loads((Path(tmp) / f'rank{r}.json').read_text())
                  for r in range(nr)]
@@ -4919,10 +5032,22 @@ def phase_pencil(dev, card, transport='gloo'):
             require(r0['energy'] < r0['energy_before'],
                     f'{tag}: kinetic energy {r0["energy_before"]:.6e} -> '
                     f'{r0["energy"]:.6e}, not falling')
+        bounds = _scalar_range(cfg, r0.get('time', 0.0))
+        if bounds is not None:
+            # within its start's and walls' values, to 1e-2 of their
+            # range, as on the y-slab mesh (phase_sharded_les)
+            lo, hi = bounds
+            slack = 1e-2 * max(hi - lo, 1.0)
+            say(f'  s in [{r0["s_min"]:.6e}, {r0["s_max"]:.6e}] at t = '
+                f'{r0["time"]:.6e} (bounds [{lo:.4f}, {hi:.6f}])  [{card}]')
+            require(lo - slack <= r0['s_min'] and r0['s_max'] <= hi + slack,
+                    f'{tag}: s in [{r0["s_min"]:.6e}, {r0["s_max"]:.6e}], '
+                    f'outside [{lo}, {hi}]')
         report[key] = {k: r0[k] for k in ('ms_per_step', 'divmax', 'bulk_u',
                                            'nu_t_min', 'nu_t_max',
                                            'w_walls', 'energy_before',
-                                           'energy', 'wall_s')} | {
+                                           'energy', 's_min', 's_max',
+                                           'wall_s') if k in r0} | {
             'peak_gib_per_rank': [rk[key]['peak_gib'] for rk in ranks],
             'card': card}
     for key, (per_step, outside) in PENCIL_SMALL_COUNTED.items():

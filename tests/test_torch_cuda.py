@@ -3024,3 +3024,131 @@ def test_cuda_pencil_dsmag_x_halo_matches_twin(dev, dtype, shape, yhalo,
         _rel_close(got[2].sum(1), ref[2][:, 0], tol)
     torch.cuda.synchronize()
     assert K.LAUNCHES['dsmag'] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('yhalo', [True, False], ids=['y halo', 'periodic y'])
+@pytest.mark.parametrize('dtype, shape', [
+    ('float64', (37, 13, 9)), ('float64', (34, 2, 12)),
+    ('float32', (37, 21, 9)), ('float32', (33, 2, 12))])
+def test_cuda_pencil_twopass_and_2d_filter_x_halo_match_twins(dev, dtype,
+                                                              shape, yhalo):
+    """The x-halo modes of the two passes and of the 2D test filter on a
+    pencil of the 2D mesh (random halos, random y halos or, with gy = 1,
+    periodic y; shapes no tile fits and slabs of 2 rows): dsmag_level1's
+    XH (two-deep x halos (nz, 4, nyl + 4) over the rows -2 .. nyl + 1;
+    its 16 fields), dsmag_level2's XH (the filtered velocity's depth-1 x
+    halos in the x stacks' form (nz, 3, nyl + 2); the 'channel' sums) and
+    dsmag's F2D x XH (z walls and periodic z; |S| and the sums), each
+    against its twin: float64 within 1e-12 of each output's maximum,
+    float32 within 1e-5."""
+    nx, ny, nz = shape
+    dt = getattr(torch, dtype)
+    tol = 1e-12 if dt == torch.float64 else 1e-5
+    rng = np.random.default_rng(57)
+
+    def c(q):
+        return q.to(dt).contiguous()
+
+    def r(*s, scale=0.1):
+        return c(torch.as_tensor(scale * rng.standard_normal(s), device=dev))
+    d = _sgs_inputs(dev, shape, 58)
+    fields, edges = [c(q) for q in d['fields']], [c(e) for e in d['edges']]
+    dzci, dzfi = c(d['dzci']), c(d['dzfi'])
+    yh2 = [(r(nz, 4, nx), r(3, 4, nx)) for _ in range(3)] if yhalo else None
+    xh2 = [(r(nz, 4, ny + 4), r(3, 4, ny + 4)) for _ in range(3)]
+    K.reset_launches()
+    lv1 = (*fields, *edges, dzci, dzfi, d['dxi'], d['dyi'], True, True)
+    kw1 = dict(yh=yh2, xh=xh2)
+    got, ref = K.dsmag_level1(*lv1, **kw1), K.dsmag_level1_plain(*lv1, **kw1)
+    for g, q in zip([*got[0], *got[1], *got[2], got[3]],
+                    [*ref[0], *ref[1], *ref[2], ref[3]]):
+        _rel_close(g, q, tol)
+    fm = [r(nz, ny, nx) for _ in range(6)]
+    lij = [r(nz, ny, nx) for _ in range(6)]
+    s0 = r(nz, ny, nx).abs()
+    a2 = c(torch.full((nz,), 4.0, dtype=torch.float64, device=dev))
+    lv2 = (*(r(nz, ny, nx) for _ in range(3)), *(r(3, ny, nx)
+                                                 for _ in range(3)),
+           fm, lij, s0, a2, dzci, dzfi, d['dxi'], d['dyi'])
+    kw2 = dict(avg='channel',
+               yh=[(r(nz, 2, nx), r(3, 2, nx)) for _ in range(3)]
+               if yhalo else None,
+               xh=[(r(nz, 3, ny + 2), r(3, 3, ny + 2)) for _ in range(3)])
+    got, ref = K.dsmag_level2(*lv2, **kw2), K.dsmag_level2_plain(*lv2, **kw2)
+    for g, q in zip(got, ref):
+        _rel_close(g.sum(1), q[:, 0], tol)
+    a252 = c(torch.full((nz,), 2.52, dtype=torch.float64, device=dev))
+    for zper in (False, True):
+        args = (*fields, *edges, a252, dzci, dzfi, d['dxi'], d['dyi'],
+                not zper, not zper, (0.01, -0.02, 0.0, 0.03))
+        kw = dict(avg='dit' if zper else 'channel', zper=zper, f2d=True,
+                  yh=yh2, xh=xh2)
+        got, ref = K.dsmag(*args, **kw), K.dsmag_plain(*args, **kw)
+        _rel_close(got[0], ref[0], tol)
+        _rel_close(got[1].sum(1), ref[1][:, 0], tol)
+        _rel_close(got[2].sum(1), ref[2][:, 0], tol)
+    torch.cuda.synchronize()
+    assert (K.LAUNCHES['dsmag_level1'], K.LAUNCHES['dsmag_level2'],
+            K.LAUNCHES['dsmag']) == (1, 1, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('yhalo', [True, False], ids=['y halo', 'periodic y'])
+@pytest.mark.parametrize('dtype, shape', [
+    ('float64', (37, 13, 9)), ('float64', (34, 2, 12)),
+    ('float32', (37, 21, 9)), ('float32', (33, 2, 12))])
+def test_cuda_pencil_scalar_x_halo_matches_twin(dev, dtype, shape, yhalo):
+    """mom_rk's SCAL x X_HALO variants on a pencil of the 2D mesh (random x
+    halos with random rows -1 and nyl, the scalar's the sixth pair; random
+    y halos or, with gy = 1, periodic y), each split, with and without
+    nu_t, on the first substep and a later one, against the twin: float64
+    within 1e-12 of each output's maximum, float32 within 1e-5."""
+    nx, ny, nz = shape
+    dt = getattr(torch, dtype)
+    tol = 1e-12 if dt == torch.float64 else 1e-5
+    rng = np.random.default_rng(59)
+
+    def c(q):
+        return q.to(dt).contiguous()
+
+    def r(*s, scale=0.1):
+        return c(torch.as_tensor(scale * rng.standard_normal(s), device=dev))
+    d = _sgs_inputs(dev, shape, 60)
+    fields, edges = [c(q) for q in d['fields']], [c(e) for e in d['edges']]
+    dzci, dzfi = c(d['dzci']), c(d['dzfi'])
+    s, p = r(nz, ny, nx).abs(), r(nz, ny, nx)
+    sca = r(nz, ny, nx, scale=1.0).abs()
+    hy = [(r(nz, 2, nx), r(3, 2, nx)) for _ in range(6)]
+    hx = [(r(nz, 3, ny + 2), r(3, 3, ny + 2)) for _ in range(6)]
+    K.reset_launches()
+    n = 0
+    for sgs in (True, False):
+        for split in (None, '1d', 'xy+z'):
+            for first in (True, False):
+                old = ((None,) * 3 if first
+                       else tuple(r(nz, ny, nx) for _ in range(3)))
+                mom = (*fields, s if sgs else None, p, *edges,
+                       r(3, ny, nx) if sgs else None, r(3, ny, nx), *old,
+                       dzci, dzfi, 5e-4, 0.0 if first else -2e-4,
+                       d['visc'], d['dxi'], d['dyi'], (0.1, 0.0, 0.0))
+                keep = (lambda q: q) if sgs else (
+                    lambda q: (*q[:3], None, *q[4:]))
+                # the scalar's edge stack as a fill leaves it: row 1 (the
+                # rewrite slot of the z-staggered w) is the last plane,
+                # which the update reads in place of the field's
+                scae = torch.stack([r(ny, nx, scale=1.0), sca[-1],
+                                    r(ny, nx, scale=1.0)])
+                kw = dict(sums=(True, True), split=split,
+                          yh=keep(tuple(hy)) if yhalo else None,
+                          xh=keep(tuple(hx)), sca=sca, scae=scae,
+                          rso=None if first else r(nz, ny, nx),
+                          scal=(d['visc'] / 0.71, 0.05))
+                got = K.mom_rk(*mom, **kw)
+                ref = K.mom_rk_plain(*mom, **kw)
+                for g, q in zip((*got[:6], *got[8:]), (*ref[:6], *ref[8:])):
+                    _rel_close(g, q, tol)
+                _rel_close(got[6].sum(1), ref[6][:, 0], tol)
+                n += 1
+    torch.cuda.synchronize()
+    assert K.LAUNCHES['mom_rk'] == n

@@ -16,9 +16,10 @@ tests/_sharded_worker.py, and the kernels' x-halo twins in process.
     the whole field's block, bitwise (python -m cales_torch.fma_probe's
     construction); the wrappers take the twins on CPU tensors;
   * the pencil mesh's slice in unsupported() (the channel classes, full-3D
-    implicit diffusion, the triperiodic box, the one-pass dynamic
-    Smagorinsky) and what stays refused (the two passes, the 2D test
-    filter, y walls, pencils thinner than dsmag's x halo, ...).
+    implicit diffusion, the triperiodic box, the dynamic Smagorinsky by
+    one pass with either filter and by two passes, the passive scalar)
+    and what stays refused (y walls, the wall model, pencils thinner than
+    dsmag's x halo, ...).
 """
 import numpy as np
 import pytest
@@ -30,7 +31,8 @@ from cales_torch.grid import make_grid_from_config
 from cales_torch.ops import kernels as K
 from cales_torch.timeloop import unsupported
 
-from test_torch_sharded import SMAG, _gauge, _jax_solve, _solve_case, _spawn
+from test_torch_sharded import (SMAG, XDEV_BCS, _gauge, _jax_solve,
+                                _solve_case, _spawn)
 
 torch.set_num_threads(1)
 
@@ -234,6 +236,12 @@ def test_x_halo_twins_on_a_cut_pencil_equal_the_whole_field(yhalo):
 
 def test_pencil_slice_and_refusals(monkeypatch):
     monkeypatch.delenv('CALES_DSMAG_TWOPASS', raising=False)
+    blow = (((0.0,) * 3, (0.0,) * 3, (0.0, 0.0, 0.003)),) * 2
+    # a scalar with its z walls' values 0 and 1, forced (phase 13's)
+    scal = dict(pr=0.71, iniscal='zer', ssource=0.05,
+                cbcscal=(('P', 'P', 'D'), ('P', 'P', 'D')),
+                bcscal=((0.0, 0.0, 0.0), (0.0, 0.0, 1.0)), is_sforced=True,
+                scalf=0.3)
     periodic = dict(cbcvel=((('P',) * 3,) * 3,) * 2,
                     cbcpre=(('P',) * 3,) * 2, cbcsgs=(('P',) * 3,) * 2,
                     is_forced=(False,) * 3)
@@ -253,26 +261,49 @@ def test_pencil_slice_and_refusals(monkeypatch):
                        # the one-pass dsmag channel, explicit and
                        # impdiff_1d, 'channel' and 'dit'
                        dsmag, dict(dsmag, **imp1),
-                       dict(dsmag, dsmag_avg='dit')):
+                       dict(dsmag, dsmag_avg='dit'),
+                       # the two passes (dsmag_blow, impdiff_1d; and by
+                       # CALES_DSMAG_TWOPASS=1 below), the 2D test filter
+                       # on the channel and the box ('dit')
+                       dict(dsmag, bcvel=blow, **imp1),
+                       dict(dsmag, filter_2d=True),
+                       dict(periodic, sgstype='dsmag', dsmag_avg='dit',
+                            filter_2d=True),
+                       # the passive scalar: les_scalar's class (phase
+                       # 13's), the box, the dsmag channel, full-3D
+                       dict(scalar=True, **scal), dict(periodic,
+                                                       scalar=True),
+                       dict(dsmag, scalar=True, **scal),
+                       dict(impdiff=True, scalar=True, **scal)):
             for route in ('mat', 'fft'):
                 kw = {**SMAG, 'ng': (512, 256, 256), **change,
                       'ptransform': route}
                 assert unsupported(Config(**kw, dims=dims)) == [], \
                     (dims, change, route)
+        # the 'channel' two passes under CALES_DSMAG_TWOPASS=1
+        with monkeypatch.context() as mp:
+            mp.setenv('CALES_DSMAG_TWOPASS', '1')
+            kw = {**SMAG, 'ng': (512, 256, 256), **dsmag}
+            assert unsupported(Config(**kw, dims=dims)) == [], dims
     wall_y = dict(cbcvel=((('P', 'P', 'P'), ('D', 'D', 'D'),
                            ('D', 'D', 'D')),) * 2,
                   cbcpre=(('P', 'N', 'N'),) * 2,
                   cbcsgs=(('P', 'D', 'D'),) * 2)
-    blow = (((0.0,) * 3, (0.0,) * 3, (0.0, 0.0, 0.003)),) * 2
     for change, needle in (
-            (dict(dsmag, bcvel=blow), 'the two-pass dynamic Smagorinsky'),
-            (dict(dsmag, filter_2d=True), 'the 2D test filter'),
+            # the two passes and the 2D filter on pencils of one column
+            (dict(dsmag, bcvel=blow, ng=(4, 16, 16), dims=(1, 4)),
+             'the two-pass dynamic Smagorinsky on pencils of 1'),
+            (dict(dsmag, filter_2d=True, ng=(4, 16, 16), dims=(1, 4)),
+             "thinner than the dsmag kernel's two-column x halo"),
             (dict(wall_y, sgstype='dsmag', dsmag_avg='duct'), 'y walls'),
             (dict(dsmag, ng=(4, 16, 16), dims=(1, 4)),
              "thinner than the dsmag kernel's two-column x halo"),
             (dict(wall_y, sgstype='none'), 'y walls'),
             (dict(lwm=((0, 0, 1), (0, 0, 1)), hwm=0.1), 'the wall model'),
-            (dict(scalar=True), 'the passive scalar'),
+            # the scalar with y walls (the scalar duct)
+            (dict(wall_y, scalar=True,
+                  cbcscal=(('P', 'D', 'N'), ('P', 'D', 'N'))), 'y walls'),
+            (dict(XDEV_BCS, sgstype='none'), 'x walls'),
             (dict(ng=(18, 16, 16)), 'not divisible by gy gx')):
         missing = unsupported(Config(**{**SMAG, 'dims': (2, 2), **change}))
         assert any(needle in m and 'gx > 1' in m

@@ -327,9 +327,11 @@ def test_slab_with_cut_halos_is_the_whole_fields_rows():
 
 
 @pytest.mark.parametrize('change, needle', [
-    # a pencil mesh (gx > 1) runs the one-pass dsmag; the two passes
-    # there (transpiring z walls) wait for dsmag_level1/level2's x halo
-    (dict(dims=(2, 2), sgstype='dsmag', dsmag_avg='channel',
+    # a pencil mesh (gx > 1) runs the two-pass dsmag (transpiring z
+    # walls) too; on pencils of one x column it stays refused (its
+    # two-column x halo would reach a rank two away)
+    (dict(dims=(1, 4), ng=(4, 16, 16), sgstype='dsmag',
+          dsmag_avg='channel',
           bcvel=(((0.0,) * 3, (0.0,) * 3, (0.0, 0.0, 0.003)),) * 2),
      'the two-pass dynamic Smagorinsky'),
     (dict(dims=(3, 1)), 'not divisible by gy'),

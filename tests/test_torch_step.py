@@ -185,10 +185,14 @@ def test_exec_path_names_device_kernels_and_solve(pair):
     (dict(scalar=True, dims=(2, 1),
           cbcscal=(('P', 'N', 'N'), ('P', 'N', 'N'))), 'scalar'),
     # this 'fft' LES runs on the y-slab mesh (test_torch_sharded_fft.py)
-    # and on the pencil mesh (test_torch_pencil_steps.py), and so does the
-    # one-pass dsmag (test_torch_pencil_dsmag.py); its 2D test filter on
-    # the pencil mesh stays refused
-    (dict(dims=(2, 2), sgstype='dsmag', filter_2d=True), 'mesh'),
+    # and on the pencil mesh (test_torch_pencil_steps.py), and so do the
+    # one-pass dsmag (test_torch_pencil_dsmag.py) and its 2D test filter
+    # (test_torch_pencil_twopass.py); y walls on the pencil mesh stay
+    # refused
+    (dict(dims=(2, 2), sgstype='dsmag', dsmag_avg='duct',
+          cbcvel=((('P', 'P', 'P'), ('D', 'D', 'D'), ('D', 'D', 'D')),) * 2,
+          cbcpre=(('P', 'N', 'N'),) * 2, cbcsgs=(('P', 'D', 'D'),) * 2),
+     'mesh'),
     (dict(sgstype='none', cbcvel=((('P', 'P', 'P'), ('D', 'D', 'D'),
                                    ('P', 'P', 'P')),) * 2,
           cbcpre=(('P', 'N', 'P'),) * 2, cbcsgs=(('P', 'D', 'P'),) * 2),
