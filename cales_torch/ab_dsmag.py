@@ -120,7 +120,17 @@ periodic F2D modes: |S|), 'dsmag_level1 pencil' (XH x YH against the
 z-walled periodic kernel: its 16 fields), 'dsmag_level2 pencil' (XH x YH,
 the filtered velocity's depth-1 halos, against the periodic 'channel'
 sums: per-plane totals only) and 'mom_rk pencil scal' (SCAL x X_HALO x
-Y_HALO with nu_t, explicit, against the periodic scalar variant).
+Y_HALO with nu_t, explicit, against the periodic scalar variant); and the
+y walls' x-halo modes (PENCIL_YW, the same four pencils, each with the
+y-row stacks, y halos and x halos the step composes: the whole field's
+wall rows on the sides a pencil's mesh row holds, at its columns and in
+its x halos' rows -1, nyl - 1 and nyl, the field's rows elsewhere)
+against the baseline's whole-field y-walled kernels: 'mom_rk pencil y
+walls' (Y_WALLS x X_HALO with nu_t, explicit), 'mom_rk pencil scal y
+walls' (its scalar variant), 'fillps pencil y walls', 'correc_updatep
+pencil y walls', 'smag pencil y walls' (the y walls' van Driest) and
+'dsmag pencil duct' and 'dsmag pencil cavity' (YW + YH x XH: |S| and the
+'duct' sums per (z, y) row and x block of 32, or 'cavity''s nu_t).
 Outputs are compared in float64 at (nx, ny, nz) = (72, 40, 48) and in
 float32 at --ng (bitwise, and max|this - baseline| / max|baseline|, the
 worst output); mom_rk's partial sums, whose parts differ (blocks of 256
@@ -153,6 +163,12 @@ from .ops import solve_kernels as SK
 PENCIL = ('dsmag pencil', 'dsmag pencil zp', 'mom_rk pencil xy+z',
           'dsmag_level1 pencil', 'dsmag_level2 pencil', 'dsmag pencil f2d',
           'dsmag pencil zp f2d', 'mom_rk pencil scal')
+# the y walls' x-halo modes on the same four pencils against the
+# baseline's whole-field y-walled kernels (_pencils_yw)
+PENCIL_YW = ('mom_rk pencil y walls', 'mom_rk pencil scal y walls',
+             'fillps pencil y walls', 'correc_updatep pencil y walls',
+             'smag pencil y walls', 'dsmag pencil duct',
+             'dsmag pencil cavity')
 CASES = ('channel', 'duct', 'cavity', 'channel y walls', 'duct periodic y',
          'cavity periodic y', 'z_eig', 'dsmag_level1',
          'dsmag_level1 y walls', 'dsmag_level2', 'dsmag_level2 y walls',
@@ -185,16 +201,18 @@ CASES = ('channel', 'duct', 'cavity', 'channel y walls', 'duct periodic y',
            'fillps slab x+y walls', 'correc_updatep slab x+y walls',
            'smag slab x+y walls', 'mom_rk halo scal x walls',
            'wallmodel halo x walls'),
-         *PENCIL)
+         *PENCIL, *PENCIL_YW)
 # the x-walled fillps, correc_updatep and smag with periodic y (both
 # checkouts on the whole field), and the slab modes of full-3D implicit
 # diffusion and of x walls on the mesh ('halo': this checkout's on two
 # slabs, joined, against the baseline's whole-field kernel)
-SLAB_3D_X = CASES[-18 - len(PENCIL):-7 - len(PENCIL)]
+SLAB_3D_X = CASES[-18 - len(PENCIL) - len(PENCIL_YW):
+                  -7 - len(PENCIL) - len(PENCIL_YW)]
 # the slab modes of x walls with y walls, the scalar with x walls and the
 # wall model with x walls on the mesh: this checkout's on two slabs,
 # joined, against the baseline's whole-field kernel (_slab_xy)
-SLAB_XY = CASES[-7 - len(PENCIL):-len(PENCIL)]
+SLAB_XY = CASES[-7 - len(PENCIL) - len(PENCIL_YW):
+                -len(PENCIL) - len(PENCIL_YW)]
 # the cases at their own shape, in float32 only
 BIG = {'apply_y x+y 512^3': (512, 512, 512), 'mom_rk 512^3': (512, 512, 512),
        'thomas_periodic 512^3': (512, 512, 512),
@@ -763,10 +781,144 @@ def _pencils(Km, d, case):
                     for m in range(nf, len(grid[0][0]))))
 
 
+def walled_rows(a, y, rows):
+    """The whole array a (n, ny, nx) at the global rows `rows` as the
+    y-walled pencils see them: the y-row stack y's rows at -1, ny-1 and
+    ny, the periodic wrap of a elsewhere."""
+    ny = a.shape[1]
+    at = {-1: 0, ny - 1: 1, ny: 2}
+    return torch.stack([y[:, at[g]] if g in at else a[:, g % ny]
+                        for g in rows], dim=1)
+
+
+def cut_walled(q, e, y, ys, xs, depth=1):
+    """The pencil (rows ys, columns xs) of a y-walled field q cut from the
+    whole field as the step composes its inputs: its block, its edge
+    stack's, its y-row stack pair (the wall rows on the walls it holds,
+    the y halo's rows elsewhere, boundary.slab_ystack), its raw y halo
+    pair (depth rows a side, the periodic wrap) and its x halo pair of
+    depth 1 (cols (nz, 3, nyl + 2): columns -1, nxp - 1, nxp) or 2 (cols
+    (nz, 4, nyl + 4): columns -2, -1, nxp, nxp + 1) over the padded rows,
+    whose wall rows are the whole field's (timeloop._pencil_halos)."""
+    ny, nx = q.shape[1], q.shape[2]
+    (y0, y1), (x0, x1) = (ys.start, ys.stop), (xs.start, xs.stop)
+    stack = tuple(walled_rows(a, w, [y0 - 1, y1 - 1, y1])[..., xs]
+                  .contiguous() for a, w in zip((q, e), y))
+    ends = [(y0 + j) % ny for j in range(-depth, 0)] + [
+        (y1 + j) % ny for j in range(depth)]
+    halo = tuple(a[:, ends, xs].contiguous() for a in (q, e))
+    cols = ([(x0 + j) % nx for j in range(-depth, 0)]
+            + ([x1 - 1] if depth == 1 else [])
+            + [(x1 + j) % nx for j in range(depth)])
+    prow = list(range(y0 - depth, y1 + depth))
+    xh = tuple(walled_rows(a, w, prow)[..., cols].transpose(1, 2)
+               .contiguous() for a, w in zip((q, e), y))
+    return (q[:, ys, xs].contiguous(), e[:, ys, xs].contiguous(), stack,
+            halo, xh)
+
+
+def _pencils_yw(Km, d, case):
+    """The cases of PENCIL_YW: the baseline's y-walled kernel on the whole
+    field (the y-row stacks d['ye']; with the scalar its stack the fourth
+    pair's), this checkout's Y_WALLS x X_HALO modes (dsmag's YW + YH x XH)
+    on the four pencils of _pencils' cut, each with its y-row stacks (the
+    whole field's rows -1, ny-1 and ny on the sides it holds, the field's
+    rows elsewhere), its y halos (dsmag's two deep) and its x halos over
+    its padded rows (the whole field's wall rows there), the outputs
+    joined (mom_rk's partial sums as per-plane totals; dsmag's 'duct'
+    sums per (z, y) row and x block of 32, whose blocks the cut keeps)."""
+    f, e, ye, dz = d['f'], d['e'], d['ye'], d['dz']
+    nz, ny, nx = f[0].shape
+    kind = case.split()[0]
+    scal = ' scal' in case
+    avg = case.split()[-1]
+    mom = (dz, dz, 0.01, -0.005, 5e-5, 40.0, 20.0, (0.1, 0.0, 0.0))
+    ds_args = (d['alph2'], dz, dz, 40.0, 20.0, True, True,
+               (0.0, 0.02, 0.0, -0.01))
+    dwy, nearylo, tylo, tyhi = d['ywall']
+    # the fields with a y-row stack (u, v, w, nu_t, p; pp is f[3] with p's
+    # stack in correc_updatep; the scalar f[5] with nu_t's stack)
+    if scal:
+        nh, F, E, Y = 6, [*f[:5], f[5]], [*e[:5], e[3]], [*ye, ye[3]]
+    elif kind == 'correc_updatep':
+        nh, F, E, Y = 5, [f[0], f[1], f[2], f[3], f[4]], e[:5], \
+            [ye[0], ye[1], ye[2], ye[4], ye[4]]
+    else:
+        nh, F, E, Y = 5, f[:5], e[:5], ye
+    # a centred field's stack row 1 is its last row (v's, the second, its
+    # rewrite slot), as a fill leaves it: the x halos' row nyl - 1 is the
+    # field's own but v's
+
+    def last_row(a, b, y):
+        r, c = y[0].clone(), y[1].clone()
+        r[:, 1], c[:, 1] = a[:, -1], b[:, -1]
+        return r, c
+    Y = [y if i == 1 else last_row(a, b, y)
+         for i, (a, b, y) in enumerate(zip(F, E, Y))]
+
+    def call(km, q, qe, ys, yh=None, xh=None, own=None, cut=None):
+        ys_, xs_ = cut or (slice(None), slice(None))
+        if kind == 'mom_rk':
+            kw = dict(ye=tuple(ys), xh=None if xh is None else tuple(xh))
+            if scal:
+                kw.update(sca=q[5], scae=qe[5], rso=f[6][:, ys_, xs_]
+                          .contiguous(), scal=(2e-4, 0.05))
+            out = km.mom_rk(*q[:5], *qe[:5],
+                            *(a[:, ys_, xs_].contiguous() for a in f[5:8]),
+                            *mom, sums=(True, True), **kw)
+            return (*out[:6], *out[8:], out[6].sum(dim=1),
+                    out[7].sum(dim=1))
+        if kind == 'fillps':
+            return (km.fillps(*q[:3], *qe[:3], dz, 100.0, 40.0, 20.0,
+                              yv=ys[1], xh=None if xh is None else xh[0]),)
+        if kind == 'correc_updatep':
+            return km.correc_updatep(*q[:5], qe[2], qe[3], 0.01, 40.0, 20.0,
+                                     dz, dz, ypp=ys[3], yv=ys[1][0],
+                                     xh=None if xh is None else xh[3])
+        if kind == 'smag':
+            return (km.smag(*q[:3], *qe[:3], dz, dz, 40.0, 20.0, 5e-5,
+                            d['prof'], d['prof'], d['nearlo'],
+                            *(t[ys_, xs_].contiguous() for t in d['tauw']),
+                            ye=tuple(ys[:3]),
+                            ywall=(dwy[ys_].contiguous(),
+                                   nearylo[ys_].contiguous(),
+                                   tylo[:, xs_].contiguous(),
+                                   tyhi[:, xs_].contiguous()),
+                            xh=None if xh is None else tuple(xh[:3])),)
+        out = km.dsmag(*q[:3], *qe[:3], *ds_args, ye=tuple(ys[:3]),
+                       yvals=(0.2, 0.0, -0.1, 0.3), avg=avg,
+                       yh=None if yh is None else yh[:3], yown=own,
+                       xh=None if xh is None else xh[:3])
+        return out[:1] if avg == 'cavity' else out
+    if Km is not K:
+        return call(Km, F, E, Y[:nh])
+    dep = 2 if kind == 'dsmag' else 1
+    cy, cx = ny // 2 // 16 * 16, nx // 2 // 32 * 32
+    grid = []
+    for y0, y1 in ((0, cy), (cy, ny)):
+        row = []
+        for x0, x1 in ((0, cx), (cx, nx)):
+            cut = [cut_walled(a, b, y, slice(y0, y1), slice(x0, x1), dep)
+                   for a, b, y in zip(F, E, Y)]
+            q, qe, ys, yh, xh = ([c[i] for c in cut] for i in range(5))
+            row.append(call(K, q, qe, ys, yh, xh, (y0 == 0, y1 == ny),
+                            (slice(y0, y1), slice(x0, x1))))
+        grid.append(row)
+    # the pointwise outputs (and dsmag's 'duct' sums) joined, the
+    # per-plane totals summed
+    nf = {'mom_rk': 8 if scal else 6}.get(kind, len(grid[0][0]))
+    out = [torch.cat([torch.cat([r[m] for r in row], dim=2)
+                      for row in grid], dim=1) for m in range(nf)]
+    return (*out, *(sum(r[m] for row in grid for r in row)
+                    for m in range(nf, len(grid[0][0]))))
+
+
 def _call(mods, d, case):
     Km, SKm = mods
     if case in PENCIL:
         return _pencils(Km, d, case)
+    if case in PENCIL_YW:
+        return _pencils_yw(Km, d, case)
     if case in SLAB_3D_X:
         return _slab_3d_x(Km, d, case)
     if case in SLAB_XY:

@@ -27,9 +27,12 @@
 // read in the cell's own row only, so on a slab the stacks hold the
 // slab's rows and no corner of a halo row is read.
 // The x-halo variant (X_HALO, a pencil of a 2D mesh, with the y halo
-// variant or periodic y) reads pp's columns -1 and nx from its x halo
-// stack (common.cuh XMode), in the cell's own row; u's last column is
-// its own (no wall face, no rewrite read).
+// variant, periodic y or y walls) reads pp's columns -1 and nx from its x
+// halo stack (common.cuh XMode), in the cell's own row; u's last column
+// is its own (no wall face, no rewrite read).  With y walls pp's wall
+// rows and v's rewrite row (the upper wall's pencils') come from their
+// y-row stacks in the cell's own column: no (x ghost, y wall) corner is
+// read.
 //
 // Bound on the H100: memory.  About 8 field streams per call (read u, v,
 // w, pp, p; write u, v, w, p): 1.07 GB at 512x256x256 f32, a 0.32 ms
@@ -126,8 +129,8 @@ __global__ void __launch_bounds__(
 // xppc, xur, xuc: pp's x stack and corners and u's prediction-fill ones
 // (x walls; nyc = ny + 2 with y walls, ny with periodic y and on a slab),
 // all four null with periodic x.  xhalo: xppr, xppc are pp's x halo
-// stack and corners on a pencil (nyc = ny + 2; with periodic y or the y
-// halo), xur and xuc null.
+// stack and corners on a pencil (nyc = ny + 2; with periodic y, the y
+// halo or y walls), xur and xuc null.
 template <typename T>
 int launch_correc(const T* u, const T* v, const T* w, const T* pp,
                   const T* p, const T* we, const T* ppe, const T* dzci,
@@ -144,7 +147,7 @@ int launch_correc(const T* u, const T* v, const T* w, const T* pp,
   if (ys != (yppc != nullptr) || (halo && !ys) ||
       (yvr != nullptr) != (ys && !halo) || xw != (xppc != nullptr) ||
       with_xu != (xur != nullptr) || with_xu != (xuc != nullptr) ||
-      (xhalo && (!xw || (ys && !halo))))
+      (xhalo && !xw))
     return static_cast<int>(cudaErrorInvalidValue);
   const YRows<T> ypp{yppr, yppc}, xpp{xppr, xppc}, xu{xur, xuc};
   using K = void (*)(const T*, const T*, const T*, const T*, const T*,
@@ -152,6 +155,7 @@ int launch_correc(const T* u, const T* v, const T* w, const T* pp,
                      T*, T*, T*, YRows<T>, const T*, YRows<T>, YRows<T>,
                      int, int, int, int, int, T, T, T, T, T, T);
   const K kern = xhalo ? (halo ? &correc_kernel<T, Y_HALO, X_HALO>
+                          : ys ? &correc_kernel<T, Y_WALLS, X_HALO>
                                : &correc_kernel<T, Y_PERIODIC, X_HALO>)
                  : !ys  ? (xw ? &correc_kernel<T, Y_PERIODIC, X_WALLS>
                               : &correc_kernel<T, Y_PERIODIC, X_PERIODIC>)

@@ -87,6 +87,19 @@
 // F2D and XH together are a pencil with the 2D test filter (the dsmag
 // channel and, with ZP, the box with filter_2d on gx > 1): the tile's
 // columns -2 .. nx+1 load as in XH, and the rest is the F2D kernel's.
+// YW, YH and XH together are a pencil of a y-walled 2D mesh (the duct's
+// 'duct', 'channel' or 'dit' and the cavity's 'cavity' averages on gx >
+// 1, z walls, the 3D filter; the JAX package's x-extended y-walled onepass with its per-shard
+// wall gating, cales_tpu/timeloop.py:1540-1581): the rows -1, ny-1 and ny
+// load from the pencil's y-row stacks and -2 and ny+1 from the halo, as on
+// a slab of a y-walled mesh, and the columns -2, -1, nx and nx+1 from the
+// x halo at every row, whose rows -1, ny-1 (v's rewrite) and ny on the
+// walls the pencil's mesh row holds are the x neighbours' wall rows (the
+// caller's composition, timeloop._xstacks_on_slab): the (x ghost, y wall)
+// corners come from there, never from the y-row stack's own columns.
+// 'duct' writes the pencil's sums over its x blocks, which the caller sums
+// over the mesh row, 'channel' the pencil's, which it sums over all the
+// ranks; 'cavity' needs no reduction.
 //
 // Design.  A block owns a TY x 32 (y, x) tile (TY = 16 in float32, 8 in
 // float64, whose planes are twice the bytes) and marches z, one plane a
@@ -506,6 +519,18 @@ auto pick_dsmag_xh(bool zper, bool f2d) {
                      : &dsmag_kernel<T, false, CH, false, false, YH, true>);
 }
 
+// The y-walled modes of a pencil (YW, YH and XH): each average, z walls,
+// the 3D filter.
+template <typename T>
+auto pick_dsmag_ywxh(int avg) {
+  constexpr bool W = true;
+  return avg == DS_DUCT
+             ? &dsmag_kernel<T, W, DS_DUCT, false, false, true, true>
+         : avg == DS_CAVITY
+             ? &dsmag_kernel<T, W, DS_CAVITY, false, false, true, true>
+             : &dsmag_kernel<T, W, DS_CHANNEL, false, false, true, true>;
+}
+
 // y: the y-row stacks and corners of u, v, w (6 pointers), all null
 // without y walls; h: their two-deep halo pairs on a slab of the y-slab
 // mesh (6 pointers, all null off a slab): h alone is mode YH (periodic y,
@@ -515,7 +540,9 @@ auto pick_dsmag_xh(bool zper, bool f2d) {
 // their two-deep x halo pairs on a pencil of the 2D mesh (6 pointers,
 // all null off a pencil; cols (nz, 4, ny+4), corners (3, 4, ny+4)): mode
 // XH, the 'channel' sums, no y walls, with h (YH) or periodic y, with
-// zper or z walls, with f2d or the 3D filter; yvals: the filtered fill's
+// zper or z walls, with f2d or the 3D filter; or with y and h (a pencil
+// of a y-walled mesh, YW + YH + XH) any average, z walls, the 3D filter;
+// yvals: the filtered fill's
 // 'D' values (u_lo, u_hi, w_lo, w_hi) on the y walls;
 // avg: DS_CHANNEL, DS_DUCT or DS_CAVITY; zper, f2d: the periodic-z mode
 // and the 2D filter (see pick_dsmag_mode).
@@ -541,15 +568,16 @@ int launch_dsmag(const T* u, const T* v, const T* w, const T* ue,
     return static_cast<int>(cudaErrorInvalidValue);
   if (zper && (nz < 3 || wall_lo || wall_hi))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (xhalo && (nx < 2 || ystacks || avg != DS_CHANNEL))
+  if (xhalo && (nx < 2 || (ystacks ? !halo : avg != DS_CHANNEL)))
     return static_cast<int>(cudaErrorInvalidValue);
   for (int m = 0; m < 6; ++m)
     if (ystacks != (y[m] != nullptr) || halo != (h[m] != nullptr) ||
         xhalo != (x[m] != nullptr))
       return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = dsmag_smem_bytes<T>();
-  auto kern = xhalo ? (halo ? pick_dsmag_xh<T, true>(zper, f2d)
-                            : pick_dsmag_xh<T, false>(zper, f2d))
+  auto kern = xhalo ? (ystacks ? pick_dsmag_ywxh<T>(avg)
+                       : halo  ? pick_dsmag_xh<T, true>(zper, f2d)
+                               : pick_dsmag_xh<T, false>(zper, f2d))
               : halo ? (ystacks ? pick_dsmag<T, true, true>(avg)
                               : pick_dsmag_mode<T, true>(zper, f2d))
               : (zper || f2d) ? pick_dsmag_mode<T>(zper, f2d)

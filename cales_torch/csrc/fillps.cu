@@ -19,9 +19,11 @@
 // reads of the cells of the first and last column, patched in place; u
 // is read in its own row only, so no x ghost of a halo row is read.
 // The x-halo variant (X_HALO, a pencil of a 2D mesh, with the y halo
-// variant or periodic y) reads u's column -1 from its x halo stack
-// (common.cuh XMode): the one read of the first column's cells; u's last
-// column is its own (no wall face, no rewrite).
+// variant, periodic y or y walls) reads u's column -1 from its x halo
+// stack (common.cuh XMode): the one read of the first column's cells; u's
+// last column is its own (no wall face, no rewrite).  With y walls v's
+// wall rows come from its y-row stack in the cell's own column, and u is
+// read in its own row only, so no (x ghost, y wall) corner is read.
 //
 // Bound on the H100: memory.  About 5 field streams per call (read u, v,
 // w at their backward neighbours; write the RHS): 0.67 GB at 512x256x256
@@ -81,7 +83,8 @@ __global__ void __launch_bounds__(CALES_THREADS) fillps_kernel(
 // halo set, v's halo rows and corners on a slab.  xur, xuc: u's x stack
 // and corners (x walls; nyc = ny + 2 with y walls, ny with periodic y and
 // on a slab), both null with periodic x; with xhalo set u's x halo stack
-// and corners on a pencil (nyc = ny + 2), with periodic y or the y halo
+// and corners on a pencil (nyc = ny + 2), with periodic y, the y halo or
+// y walls
 template <typename T>
 int launch_fillps(const T* u, const T* v, const T* w, const T* ue,
                   const T* ve, const T* we, const T* dzfi, T* rhs,
@@ -91,7 +94,7 @@ int launch_fillps(const T* u, const T* v, const T* w, const T* ue,
   const bool xw = xur != nullptr;
   if ((yvr == nullptr) != (yvc == nullptr) || (halo && yvr == nullptr) ||
       xw != (xuc != nullptr) ||
-      (xhalo && (!xw || (yvr != nullptr && !halo))))
+      (xhalo && !xw))
     return static_cast<int>(cudaErrorInvalidValue);
   const YRows<T> yv{yvr, yvc}, xu{xur, xuc};
   using K = void (*)(const T*, const T*, const T*, const T*, const T*,
@@ -99,7 +102,8 @@ int launch_fillps(const T* u, const T* v, const T* w, const T* ue,
                      int, T, T, T);
   const K kern =
       xhalo          ? (halo ? &fillps_kernel<T, Y_HALO, X_HALO>
-                             : &fillps_kernel<T, Y_PERIODIC, X_HALO>)
+                        : yvr != nullptr ? &fillps_kernel<T, Y_WALLS, X_HALO>
+                                         : &fillps_kernel<T, Y_PERIODIC, X_HALO>)
       : yvr == nullptr ? (xw ? &fillps_kernel<T, Y_PERIODIC, X_WALLS>
                              : &fillps_kernel<T, Y_PERIODIC, X_PERIODIC>)
       : halo           ? (xw ? &fillps_kernel<T, Y_HALO, X_WALLS>

@@ -36,10 +36,17 @@
 //          source is found once, so the loads of every other block are
 //          those of the periodic variant; or X_HALO, a pencil of a 2D
 //          (gy, gx) mesh (the channel classes and the box with gx > 1;
-//          with nu_t or without, each split, YM periodic or a slab): the
-//          same loads from the x halo stacks, which always carry the rows
-//          -1 and ny (the JAX package's _xe_pack bundles completed by the
-//          y halo, cales_tpu/timeloop.py:998-1015);
+//          with nu_t or without, each split, YM periodic or a slab; and
+//          explicit with YM y walls, the duct and cavity classes on the
+//          pencils): the same loads from the x halo stacks, which always
+//          carry the rows -1 and ny (the JAX package's _xe_pack bundles
+//          completed by the y halo, cales_tpu/timeloop.py:998-1015); with
+//          y walls their rows -1 and ny on the walls the pencil's mesh row
+//          holds are the x neighbours' wall rows, and v's row ny-1 there
+//          its rewrite (cales_tpu _xe_wall_rows, _ystag_rw_gx), so the
+//          (x +-1, y wall) corners load from the x halo as the cells of
+//          the x ghost columns do, never from the y-row stack's own
+//          columns, which wrap inside the pencil;
 //   SCAL   the passive scalar (its own C entry, cales_mom_rk_scal_*; the
 //          TPU kernel's has_scal stream, pallas_kernels.py:497-499,
 //          661-667): one more cell-centred field in the ring, loaded as p
@@ -599,10 +606,11 @@ MomKernel<T> pick_mom_rk_xw(int ym, int split) {
 
 // the x-halo variants (a pencil of a 2D mesh): each split (explicit,
 // '1d', 'xy+z'), on a slab of the mesh's y rows or with periodic y (gy =
-// 1)
+// 1); explicit with y walls
 template <typename T, bool SGS>
 MomKernel<T> pick_mom_rk_xh(int ym, int split) {
   constexpr int XH = X_HALO;
+  if (ym == Y_WALLS) return &mom_rk_kernel<T, SGS, 0, Y_WALLS, XH, false>;
   if (ym == Y_HALO)
     return split == 2   ? &mom_rk_kernel<T, SGS, 2, Y_HALO, XH, false>
            : split == 1 ? &mom_rk_kernel<T, SGS, 1, Y_HALO, XH, false>
@@ -616,10 +624,12 @@ MomKernel<T> pick_mom_rk_xh(int ym, int split) {
 // each split, y walls explicit, x walls as pick_mom_rk_xw (on a slab of
 // the y-slab mesh explicit or split '1d'), a slab of the y-slab mesh
 // with each split, and a pencil of a 2D mesh (xhalo: X_HALO, on a slab
-// of its y rows or with periodic y, each split)
+// of its y rows or with periodic y, each split; with y walls explicit)
 template <typename T, bool SGS>
 MomKernel<T> pick_mom_rk_scal(int ym, int split, bool xw, bool xhalo) {
   constexpr int XP = X_PERIODIC, XW = X_WALLS, XH = X_HALO;
+  if (xhalo && ym == Y_WALLS)
+    return &mom_rk_kernel<T, SGS, 0, Y_WALLS, XH, true>;
   if (xhalo && ym == Y_HALO)
     return split == 2   ? &mom_rk_kernel<T, SGS, 2, Y_HALO, XH, true>
            : split == 1 ? &mom_rk_kernel<T, SGS, 1, Y_HALO, XH, true>
@@ -653,7 +663,8 @@ MomKernel<T> pick_mom_rk_scal(int ym, int split, bool xw, bool xhalo) {
 // visct; nyc = ny + 2 with y walls and on a slab, whose stacks carry the
 // rows -1 and ny; x walls run with split 0 or, with periodic y or on a
 // slab, 1); with xhalo set they are a pencil's x halo stacks (nyc = ny +
-// 2; any split, periodic y or a slab).  sc: the passive scalar (the SCAL
+// 2; any split, periodic y or a slab; with y walls, halo unset, split
+// 0).  sc: the passive scalar (the SCAL
 // variants), or null: its field, edge stack and outputs set, its
 // previous RHS with ruo, its y-row and x stack pairs with the velocity's
 // (on a slab its halo pair, with any split, and with x walls its x stack
@@ -690,7 +701,7 @@ int launch_mom_rk(const T* u, const T* v, const T* w, const T* s, const T* p,
       xw_{y[14], y[15]}, xs{y[16], y[17]}, xp{y[18], y[19]};
   if (split < 0 || split > 2 || (halo && !yw) ||
       (xw && !xhalo && (split == 2 || (split == 1 && yw && !halo))) ||
-      (xhalo && (!xw || (yw && !halo))))
+      (xhalo && (!xw || (yw && !halo && split != 0))))
     return static_cast<int>(cudaErrorInvalidValue);
   const int ym = !yw ? Y_PERIODIC : halo ? Y_HALO : Y_WALLS;
   // y walls with the scalar run explicit

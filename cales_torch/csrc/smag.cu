@@ -39,11 +39,14 @@
 // over all six faces).
 //
 // The x-halo variant (X_HALO, a pencil of a 2D mesh, with the y halo
-// variant or periodic y) reads the tile's halo columns -1 and nx from the
-// x halo stacks (common.cuh XMode: they carry the rows -1 and ny, the
-// corners where the y halo rows meet the x halo columns) as the x-wall
-// variant reads its x stacks, and damps with the z walls only: no x
-// wall's distance or shear plane is read.
+// variant, periodic y or y walls) reads the tile's halo columns -1 and nx
+// from the x halo stacks (common.cuh XMode: they carry the rows -1 and
+// ny, the corners where the y halo rows meet the x halo columns, or with
+// y walls on the walls the pencil's mesh row holds the x neighbours' wall
+// rows) as the x-wall variant reads its x stacks, and damps with the z
+// walls, and with y walls the nearer y wall too (its shear planes the
+// pencil's columns, made on the wall's pencils and summed over the mesh
+// column by the caller): no x wall's distance or shear plane is read.
 //
 // Design: a z-march through shared memory, as correc_smag.cu's without
 // the correction.  The strain rate at a cell reads 30 values around it: u
@@ -333,7 +336,7 @@ int launch_smag(const T* u, const T* v, const T* w, const T* ue, const T* ve,
   // with x walls (periodic y, y walls or a slab; nyc = ny + 2 with y
   // walls and on a slab), all null with periodic x, and the x walls' van
   // Driest inputs, all null where no x face is a wall; with xhalo x the x
-  // halo stacks of a pencil (nyc = ny + 2; periodic y or Y_HALO), no x
+  // halo stacks of a pencil (nyc = ny + 2; any ymode), no x
   // wall's inputs
   const bool rows = ymode != Y_PERIODIC;
   const bool xw = x[0] != nullptr;
@@ -346,7 +349,7 @@ int launch_smag(const T* u, const T* v, const T* w, const T* ue, const T* ve,
   const bool xd = dwx != nullptr;
   if ((xd && !xw) || xd != (nearxlo != nullptr) ||
       xd != (tauw_xlo != nullptr) || xd != (tauw_xhi != nullptr) ||
-      (xhalo && (!xw || xd || ymode == Y_WALLS)))
+      (xhalo && (!xw || xd)))
     return static_cast<int>(cudaErrorInvalidValue);
   const YRows<T> hu{h[0], h[1]}, hv{h[2], h[3]}, hw{h[4], h[5]};
   const YRows<T> xu{x[0], x[1]}, xv{x[2], x[3]}, xw_{x[4], x[5]};
@@ -354,8 +357,9 @@ int launch_smag(const T* u, const T* v, const T* w, const T* ue, const T* ve,
   constexpr int TY = G::TY;
   const size_t smem = sizeof(T) * SM_RING * 3 * G::CPL;
   auto kern =
-      xhalo ? (ymode == Y_HALO ? &smag_kernel<T, Y_HALO, X_HALO>
-                               : &smag_kernel<T, Y_PERIODIC, X_HALO>)
+      xhalo ? (ymode == Y_HALO    ? &smag_kernel<T, Y_HALO, X_HALO>
+               : ymode == Y_WALLS ? &smag_kernel<T, Y_WALLS, X_HALO>
+                                  : &smag_kernel<T, Y_PERIODIC, X_HALO>)
       : xw  ? (ymode == Y_WALLS  ? &smag_kernel<T, Y_WALLS, X_WALLS>
                : ymode == Y_HALO ? &smag_kernel<T, Y_HALO, X_WALLS>
                                  : &smag_kernel<T, Y_PERIODIC, X_WALLS>)

@@ -67,7 +67,14 @@ fields they read across the pencil's x edges (mesh.halo_x, in the x
 stacks' form: cols (nz, 3, ny + 2), corners (3, 3, ny + 2), column 0 the
 lower neighbour's last column, column 2 the upper neighbour's first, the
 rows -1 and ny the y exchange's; their x-halo variants, csrc X_HALO),
-with the slab's y halos yh or, with gy = 1, periodic y.
+with the slab's y halos yh or, with gy = 1, periodic y; with y walls
+(the duct and cavity classes) with the pencil's y-row stack pairs ye
+(boundary.slab_ystack on the pencil's columns) instead, the x halos' rows
+-1 and ny on the walls the pencil's mesh row holds the x neighbours' wall
+rows (and v's row ny-1 there its rewrite), timeloop._xstacks_on_slab, so
+the Y_WALLS x X_HALO variants take the (x ghost, y wall) corners from the
+x halos; dsmag takes them with its two-row y halo and the walls the
+pencil holds (YW, YH and XH, each average).
 z metrics are (nz+2,) tensors with ghost entries, in the fields' dtype and
 on their device.
 
@@ -387,7 +394,10 @@ def _slab_ext(u, v, w, ue, ve, we, ye, yh, yown, name):
     y-walled mesh, ye its y-row stack pairs (boundary.slab_ystack) and
     yown = (lower, upper) the y walls it holds, whose stack rows are the
     wall's; the extended field's stack pairs take the wall's rows on an
-    owned side, the wrap and its own last row elsewhere.  Returns the
+    owned side, the wrap and its own last row elsewhere.  As the kernels'
+    YW reads, the rows -1, nyl - 1 and nyl are the stacks' on every side:
+    on a side the slab does not own they replace the halo's rows -1 and
+    nyl and, on the upper one, the slab's last row.  Returns the
     extended (u, v, w, ue, ve, we), their stack pairs (or None), the y
     walls yw (or None) and the slice of the slab's own rows."""
     if (ye is None) != (yown is None):
@@ -395,15 +405,23 @@ def _slab_ext(u, v, w, ue, ve, we, ye, yh, yown, name):
                          'together')
     lo, hi = yown if ye is not None else (False, False)
 
-    def ext(q, e, h):
+    def ext(q, e, h, y):
         rows, corners = h
+        if y is not None:
+            (r, c), last = y, slice(None, q.shape[1] - (not hi))
+            rows, corners = (torch.cat([a[:, :1], s[:, :1], s[:, 2:],
+                                        a[:, 3:]], dim=1)
+                             for a, s in ((rows, r), (corners, c)))
+            q = torch.cat([q[:, last]] + [r[:, 1:2]] * (not hi), dim=1)
+            e = torch.cat([e[:, last]] + [c[:, 1:2]] * (not hi), dim=1)
         q = torch.cat([rows[:, :2]] * (not lo) + [q]
                       + [rows[:, 2:]] * (not hi), dim=1)
         e = torch.cat([corners[:, :2]] * (not lo) + [e]
                       + [corners[:, 2:]] * (not hi), dim=1)
         return q, e
-    (u, ue), (v, ve), (w, we) = (ext(q, e, h) for q, e, h in
-                                 zip((u, v, w), (ue, ve, we), yh))
+    (u, ue), (v, ve), (w, we) = (
+        ext(q, e, h, y) for q, e, h, y in
+        zip((u, v, w), (ue, ve, we), yh, ye or (None,) * 3))
     yw = None
     if ye is not None:
         def stack(q, e, y):
@@ -429,14 +447,17 @@ def _pencil_xext(fields, edges, xh, yext):
     (_slab_ext), else the halos' rows 0 .. nyl - 1 (periodic y on the
     pencil).  Returns the six extended arrays and the slice of the
     pencil's own columns."""
-    out = []
-    for a, h in zip((*fields, *edges),
-                    (*(c for c, _ in xh), *(k for _, k in xh))):
-        if not yext:
-            h = h[..., 2:-2]
-        h = h.transpose(1, 2)
-        out.append(torch.cat([h[..., :2], a, h[..., 2:]], dim=2))
+    rows = slice(None) if yext else slice(2, -2)
+    out = [_xcat(a, h, rows) for a, h in zip(
+        (*fields, *edges), (*(c for c, _ in xh), *(k for _, k in xh)))]
     return out, slice(2, out[0].shape[2] - 2)
+
+
+def _xcat(a, h, rows):
+    """a (n, m, nxp) extended along x by the rows `rows` of its two-deep x
+    halo h ((n, 4, nyl + 4), row y at index y + 2)."""
+    h = h[..., rows].transpose(1, 2)
+    return torch.cat([h[..., :2], a, h[..., 2:]], dim=2)
 
 
 def dsmag_level1_plain(u, v, w, ue, ve, we, dzci, dzfi, dxi, dyi, wall_lo,
@@ -588,8 +609,9 @@ def dsmag_plain(u, v, w, ue, ve, we, alph2, dzci, dzfi, dxi, dyi, wall_lo,
     y-walled mesh (YW and YH, z walls, the 3D filter), ye the slab's y-row
     stack pairs (boundary.slab_ystack) and yown = (lower, upper) the y
     walls it holds: the slab is extended by the halo's two rows on a side
-    it does not own and the wall recipes apply on the sides it owns, whose
-    stack rows are the wall's.
+    it does not own (its rows -1 and nyl, and the slab's last row, the
+    stacks', as the kernel reads them: _slab_ext) and the wall recipes
+    apply on the sides it owns, whose stack rows are the wall's.
     xh: a pencil of a 2D mesh (periodic y or a slab's yh, z walls or with
     zper periodic z, the 3D or with f2d the 2D filter, 'channel' or
     'dit'), the two-deep x halo pairs of (u, v, w) (cols (nz, 4, nyl + 4),
@@ -598,11 +620,18 @@ def dsmag_plain(u, v, w, ue, ve, we, alph2, dzci, dzfi, dxi, dyi, wall_lo,
     y exchange): the model runs on the pencil extended by those columns
     (after the y extension by yh; with periodic y their rows 0 .. nyl - 1)
     and keeps the pencil's cells (csrc/dsmag.cu mode XH, with YH, ZP and
-    F2D)."""
+    F2D).  xh with ye, yh and yown: a pencil of a y-walled 2D mesh (z
+    walls, the 3D filter, any average; mode YW + YH + XH), whose x
+    halos carry the wall rows on the walls the pencil holds: the pencil,
+    its edge stacks, y halos and y-row stacks are first extended along x
+    by the x halos' rows (_pencil_xext_walled), then as a slab of a
+    y-walled mesh."""
     yw = keep = xkeep = None
-    if xh is not None and (ye is not None or avg not in ('channel', 'dit')):
-        raise ValueError("dsmag: a pencil's x halos take periodic y or a "
-                         "slab's y halo and the 'channel' or 'dit' sums")
+    _dsmag_xh_check('dsmag', xh, ye, yh, avg)
+    if xh is not None and ye is not None:
+        (u, v, w, ue, ve, we), ye, yh, xkeep = _pencil_xext_walled(
+            (u, v, w), (ue, ve, we), ye, yh, xh)
+        xh = None
     if yh is not None:
         if (zper or f2d) and ye is not None:
             raise ValueError('dsmag: a slab of a y-walled mesh takes z walls '
@@ -621,6 +650,37 @@ def dsmag_plain(u, v, w, ue, ve, we, alph2, dzci, dzfi, dxi, dyi, wall_lo,
         s0, num, den = (q[..., xkeep] for q in (s0, num, den))
     out = _averaged(num, den, s0, avg)
     return (out, None, None) if avg == 'cavity' else (s0, *out)
+
+
+def _dsmag_xh_check(name, xh, ye, yh, avg):
+    """A pencil's x halos take periodic y or a slab's y halo with the
+    'channel' or 'dit' sums, or y walls with the y halo and any
+    average."""
+    if xh is None:
+        return
+    if (ye is None and avg not in ('channel', 'dit')) or (
+            ye is not None and yh is None):
+        raise ValueError(f"{name}: a pencil's x halos take periodic y or a "
+                         "slab's y halo and the 'channel' or 'dit' sums, or "
+                         "y walls with the y halo")
+
+
+def _pencil_xext_walled(fields, edges, ye, yh, xh):
+    """A pencil of a y-walled mesh extended along x by its two-deep x halo
+    pairs xh (cols (nz, 4, nyl + 4), corners (3, 4, nyl + 4): columns -2,
+    -1, nxp, nxp + 1 over the rows -2 .. nyl + 1, their wall rows the x
+    neighbours' on the walls the pencil holds): the fields and edge stacks
+    by the rows 0 .. nyl - 1, the y-row stack pairs ye by the rows -1,
+    nyl - 1 and nyl, the depth-2 y halo pairs yh by the rows -2, -1, nyl
+    and nyl + 1.  Returns the extended (u, v, w, ue, ve, we), ye and yh,
+    and the slice of the pencil's own columns."""
+    nyl = fields[0].shape[1]
+    out, keep = _pencil_xext(fields, edges, xh, False)
+    ye = [tuple(_xcat(a, x[i], [1, nyl + 1, nyl + 2])
+                for i, a in enumerate(y)) for y, x in zip(ye, xh)]
+    yh = [tuple(_xcat(a, x[i], [0, 1, nyl + 2, nyl + 3])
+                for i, a in enumerate(h)) for h, x in zip(yh, xh)]
+    return out, ye, yh, keep
 
 
 def _dsmag_cells(u, v, w, ue, ve, we, alph2, dzci, dzfi, dxi, dyi, wall_lo,
@@ -867,8 +927,10 @@ def mom_rk(u, v, w, s, p, ue, ve, we, se, pe, ruo, rvo, rwo, dzci, dzfi,
     velocity's), on a slab its halo pair the sixth entry of yh (any
     split).  xh: a pencil of a 2D mesh, the x halo pairs of (u, v, w,
     visct, p) (mesh.halo_x; nyc = ny + 2), visct's None without visct,
-    with yh or (gy = 1) periodic y, any split; with sca the scalar's x
-    halo pair its sixth entry (its halo pair the sixth of yh).
+    with yh or (gy = 1) periodic y, any split, or explicit with the
+    pencil's y-row stack pairs ye (y walls, Y_WALLS x X_HALO); with sca
+    the scalar's x halo pair its sixth entry (its halo pair the sixth of
+    yh, its y-row stack pair the sixth of ye).
     Returns (u, v,
     w, ru, rv, rw, usum, vsum), and with sca also (s, ds), the scalar and
     its RHS; usum/vsum are None or per-(z, part) partial sums,
@@ -885,9 +947,9 @@ def mom_rk(u, v, w, s, p, ue, ve, we, se, pe, ruo, rvo, rwo, dzci, dzfi,
     if ye is not None and yh is not None:
         raise ValueError('mom_rk: y walls or a slab halo, not both')
     xhalo = xh is not None
-    if xhalo and (xe is not None or ye is not None):
-        raise ValueError("mom_rk: a pencil's x halos go without x stacks "
-                         'and y walls')
+    if xhalo and (xe is not None or (ye is not None and split is not None)):
+        raise ValueError("mom_rk: a pencil's x halos go without x stacks, "
+                         'and with y walls explicit')
     if xhalo:
         xe = xh
     has_scal = sca is not None
@@ -972,7 +1034,7 @@ def fillps(u, v, w, ue, ve, we, dzfi, dti, dxi, dyi, yv=None, yh=None,
     prediction-fill x stack pair (its lower x face and rewrite column
     enter the divergence; on a slab the slab's own rows, nyc = ny, as u is
     read in its own row only); xh: a pencil of a 2D mesh, u's x halo pair
-    (nyc = ny + 2; its column -1 enters the divergence), with yh or
+    (nyc = ny + 2; its column -1 enters the divergence), with yh, yv or
     periodic y."""
     if _on_cpu(u):
         return fillps_plain(u, v, w, ue, ve, we, dzfi, dti, dxi, dyi, yv=yv,
@@ -981,9 +1043,8 @@ def fillps(u, v, w, ue, ve, we, dzfi, dti, dxi, dyi, yv=None, yh=None,
     if yv is not None and yh is not None:
         raise ValueError('fillps: y walls or a slab halo, not both')
     xhalo = xh is not None
-    if xhalo and (xu is not None or yv is not None):
-        raise ValueError("fillps: a pencil's x halo goes without x stacks "
-                         'and y walls')
+    if xhalo and xu is not None:
+        raise ValueError("fillps: a pencil's x halo goes without x stacks")
     if xhalo:
         xu = xh
     _check('fillps', u, (u, v, w), edges=(ue, ve, we),
@@ -1063,7 +1124,8 @@ def correc_updatep(u, v, w, pp, p, we, ppe, dtrk, dxi, dyi, dzci, dzfi,
     for u's interior last column (on a slab both hold the slab's own
     rows, nyc = ny: pp's x ghosts are read in the cell's own row only).
     xh: a pencil of a 2D mesh, pp's x halo pair (nyc = ny + 2; u's last
-    column is its own), with yh or periodic y.  Returns (u, v, w, p)."""
+    column is its own), with yh, periodic y or y walls (ypp and yv, the
+    pencil's).  Returns (u, v, w, p)."""
     if _on_cpu(u):
         return correc_updatep_plain(u, v, w, pp, p, we, ppe, dtrk, dxi, dyi,
                                     dzci, dzfi, fuv, alpha, impdiff,
@@ -1077,9 +1139,9 @@ def correc_updatep(u, v, w, pp, p, we, ppe, dtrk, dxi, dyi, dzci, dzfi,
     if (xpp is None) != (xu is None):
         raise ValueError('correc_updatep: x walls take xpp and xu together')
     xhalo = xh is not None
-    if xhalo and (xpp is not None or yv is not None):
+    if xhalo and xpp is not None:
         raise ValueError("correc_updatep: a pencil's x halo goes without x "
-                         'stacks and y walls')
+                         'stacks')
     if xhalo:
         xpp = xh
     _check('correc_updatep', u, (u, v, w, pp, p), edges=(we, ppe),
@@ -1123,8 +1185,9 @@ def smag(u, v, w, ue, ve, we, dzci, dzfi, dxi, dyi, visc, csd2, dw, nearlo,
     tauw_xhi), the (nx,) distance to the nearer x wall, 1 where it is the
     lower one, and the x walls' (nz, ny) shear planes, or None where
     neither x face is a wall.  xh: a pencil of a 2D mesh, the x halo pairs
-    of (u, v, w) (nyc = ny + 2), with yh or periodic y, no x wall.  The
-    nearest wall damps (see _van_driest)."""
+    of (u, v, w) (nyc = ny + 2), with yh, periodic y or y walls (ye and
+    ywall: the pencil's stacks and columns of the y walls' shear planes),
+    no x wall.  The nearest wall damps (see _van_driest)."""
     if (ye is None) != (ywall is None):
         raise ValueError('smag: y walls take ye and ywall together')
     if ye is not None and yh is not None:
@@ -1132,9 +1195,8 @@ def smag(u, v, w, ue, ve, we, dzci, dzfi, dxi, dyi, visc, csd2, dw, nearlo,
     if xe is None and xwall is not None:
         raise ValueError('smag: x walls take their x stacks')
     xhalo = xh is not None
-    if xhalo and (xe is not None or ye is not None):
-        raise ValueError("smag: a pencil's x halos go without x stacks and "
-                         'y walls')
+    if xhalo and xe is not None:
+        raise ValueError("smag: a pencil's x halos go without x stacks")
     if _on_cpu(u):
         return smag_plain(u, v, w, ue, ve, we, dzci, dzfi, dxi, dyi, visc,
                           csd2, dw, nearlo, tauw_lo, tauw_hi,
@@ -1229,7 +1291,11 @@ def dsmag(u, v, w, ue, ve, we, alph2, dzci, dzfi, dxi, dyi, wall_lo, wall_hi,
     mesh.halo_x at depth 2, its rows from the depth-2 y exchange;
     timeloop._pencil_halos), which the velocity tile takes for its
     columns -2, -1, nx and nx + 1 (with zper the plane t mod nz, the
-    corners unread); the sums are the pencil's.
+    corners unread); the sums are the pencil's.  xh with ye, yh and yown:
+    a pencil of a y-walled mesh (modes YW, YH and XH; z walls, the 3D
+    filter, any average), the x halos' rows -1, ny-1 and ny on the walls
+    the pencil holds the x neighbours' wall rows; 'duct' writes the
+    pencil's sums, which the caller sums over the mesh row.
     Returns (s0, num, den): |S| and partial sums of num = M_ij L_ij and
     den = M_ij M_ij, which the caller sums over their last dim: per
     (z, block), (nz, nblk), for avg 'channel' or 'dit'; per (z, y, x block),
@@ -1248,9 +1314,7 @@ def dsmag(u, v, w, ue, ve, we, alph2, dzci, dzfi, dxi, dyi, wall_lo, wall_hi,
     if (yown is not None) != (yh is not None and ye is not None):
         raise ValueError("dsmag: yown names a slab's y walls, with ye and "
                          'yh')
-    if xh is not None and (ye is not None or _DSMAG_AVG[avg] != 0):
-        raise ValueError("dsmag: a pencil's x halos take periodic y or a "
-                         "slab's y halo and the 'channel' or 'dit' sums")
+    _dsmag_xh_check('dsmag', xh, ye, yh, avg)
     if _on_cpu(u):
         return dsmag_plain(u, v, w, ue, ve, we, alph2, dzci, dzfi, dxi, dyi,
                            wall_lo, wall_hi, zvals, ye=ye, yvals=yvals,

@@ -106,20 +106,26 @@ class Comm:
         return h.to(like.device)
 
     # -- collectives -----------------------------------------------------
-    def all_reduce(self, t, op: str = 'sum'):
-        """The reduction of t over the ranks ('sum', 'max' or 'min'), as a
-        new tensor on t's device."""
+    def all_reduce(self, t, op: str = 'sum', group=None):
+        """The reduction of t over the ranks ('sum', 'max' or 'min'), or
+        over the ranks of `group` (a Comm.group), as a new tensor on t's
+        device.  A group of one rank is t itself, no message."""
+        if group is not None and group[1] == 1:
+            return t.detach().clone()
         h = self._to_host(t) if self.staged else t.detach().clone()
-        dist.all_reduce(h, op=_OPS[op])
+        dist.all_reduce(h, op=_OPS[op],
+                        group=None if group is None else group[0])
         return self._back(h, t)
 
     def group(self, ranks):
         """The process group of `ranks` (dist.new_group, made once): every
         rank of the world must ask for the same groups in the same order,
-        its own or not."""
+        its own or not.  A group of one rank makes no process group: its
+        collectives are local."""
         key = tuple(int(r) for r in ranks)
         if key not in self._groups:
-            self._groups[key] = (dist.new_group(list(key)), len(key))
+            self._groups[key] = (None if len(key) == 1
+                                 else dist.new_group(list(key)), len(key))
         return self._groups[key]
 
     def all_to_all(self, send, group=None):

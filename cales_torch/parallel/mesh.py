@@ -39,7 +39,9 @@ With gx = 1 x stays whole too: the y slabs.
                     P = gy gx slabs (`slab`, rank r its rows [r ny/P,
                     (r+1) ny/P)), whose transposes the slab route runs
                     unchanged, and back;
-  all_reduce        sums and maxima over the whole domain.
+  all_reduce        sums and maxima over the whole domain;
+  row_sum, column_sum  sums over a mesh row (`row`: the gx ranks of one
+                    iy) or a mesh column (`col`: the gy ranks of one ix).
 
 The transport (parallel/comm.py) is the caller's explicit choice.
 """
@@ -67,7 +69,12 @@ class SlabMesh:
                 slab of a pencil mesh
       slab      with gx > 1 the world's y slabs, dims (gy gx, 1), on the
                 same transport: the Poisson solve's mesh after the
-                re-slab"""
+                re-slab
+      row, col  with gx > 1 the process groups (comm.Comm.group) of this
+                rank's mesh row (the gx ranks of its iy) and mesh column
+                (the gy ranks of its ix; one rank with gy = 1), for
+                row_sum and column_sum; None on a slab, whose column is
+                the world"""
 
     def __init__(self, comm: commmod.Comm, dims, ng):
         gy, gx = int(dims[0]), int(dims[1])
@@ -97,12 +104,15 @@ class SlabMesh:
         self.yhi = ((self.iy + 1) % gy) * gx + self.ix
         self.xlo = self.iy * gx + (self.ix - 1) % gx
         self.xhi = self.iy * gx + (self.ix + 1) % gx
-        self.slab = self.row = None
+        self.slab = self.row = self.col = None
         if gx > 1:
-            # every rank makes every row's group, in one order
+            # every rank makes every row's group, then every column's, in
+            # one order
             rows = [comm.group([q * gx + i for i in range(gx)])
                     for q in range(gy)]
-            self.row = rows[self.iy]
+            cols = [comm.group([q * gx + i for q in range(gy)])
+                    for i in range(gx)]
+            self.row, self.col = rows[self.iy], cols[self.ix]
             self.slab = SlabMesh(comm, (gy * gx, 1), ng)
 
     def describe(self) -> str:
@@ -263,6 +273,17 @@ class SlabMesh:
     # -- reductions ----------------------------------------------------------
     def all_reduce(self, t, op: str = 'sum'):
         return self.comm.all_reduce(t, op)
+
+    def column_sum(self, t):
+        """The sum of t over this rank's mesh column (the ranks that share
+        its x columns): the world on a slab."""
+        return self.comm.all_reduce(t, group=self.col)
+
+    def row_sum(self, t):
+        """The sum of t over this rank's mesh row (the ranks that share its
+        y rows): t itself on a slab."""
+        return t if self.row is None else self.comm.all_reduce(
+            t, group=self.row)
 
     def reduce_scalar(self, x, op: str):
         """A python float reduced over the ranks."""

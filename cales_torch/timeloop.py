@@ -141,7 +141,10 @@ periodic z (the triperiodic box), with no wall model or plane values
 (sgstype 'none', static Smagorinsky or the dynamic Smagorinsky 'channel'
 or 'dit' by one pass, with the 3D or the 2D filter, or by two passes;
 explicit diffusion, impdiff_1d or full-3D implicit diffusion; with or
-without the passive scalar; 'mat' or 'fft'; _pencil_refuse names the
+without the passive scalar; 'mat' or 'fft'), and for the y-walled duct
+and cavity classes (sgstype 'none', static Smagorinsky or the one-pass
+dynamic Smagorinsky with any average, explicit, with or without the
+passive scalar, 'mat' or the mixed 'fft' route; _pencil_refuse names the
 rest): before each stencil kernel the x neighbours' columns of the
 fields it reads arrive as x stacks (mesh.halo_x), whose rows -1 and nyl
 ride the y exchange of the rows (_pencil_halos), so mom_rk (the
@@ -154,6 +157,19 @@ over all the ranks; the z walls' van Driest planes take u's column -1
 from its x halo; the Poisson solve and full-3D
 implicit diffusion's three Helmholtz solves re-slab
 (poisson.solve_sharded), and the z-only CN solves run on the pencil's
+columns.  With y walls the pencils of the mesh row iy = 0 hold the lower
+wall and those of iy = gy - 1 the upper (yown): each pencil's y-row
+stacks are the slab's (boundary.slab_ystack on its columns), its y-row
+stacks of the fill ride the x exchange beside the fields (a stack has x
+last, and the y recipes are pointwise along x), so the x halos' rows -1
+and nyl on the walls the pencil holds are the x neighbours' wall rows and
+v's row nyl - 1 there its rewrite (_xstacks_on_slab with walls; the JAX
+package's _xe_wall_rows and _ystag_rw_gx): the kernels' Y_WALLS x X_HALO
+variants read the (x ghost, y wall) corners from the x halos; the y
+walls' van Driest shear planes are summed over the mesh column (the
+pencils of one ix), the 'duct' average's sums over the mesh row (the
+pencils of one iy), the y faces' pressure RHS planes are the owners' on
+their columns, and the kept v and w wall planes advance on the owners'
 columns.
 
 With x walls (inflow and outflow faces, or walls: the developing channel,
@@ -487,7 +503,7 @@ def _mesh_refuse(cfg: Config) -> list[str]:
                        "y row(s), thinner than the dsmag kernel's two-row y "
                        'halo (a rank two away is not reached)')
     if not _periodic(cfg, 1):
-        if ny % gy == 0 and ny // gy < 2:
+        if gx == 1 and ny % gy == 0 and ny // gy < 2:
             out.append(f'dims = ({gy}, {gx}) with y walls: slabs of '
                        f'{ny // gy} y row, thinner than a wall-owning slab '
                        "reads (v's upper-wall recipe takes row nyl-2; the "
@@ -508,19 +524,32 @@ def _pencil_refuse(cfg: Config) -> list[str]:
     dsmag_level1's two-deep and dsmag_level2's depth-1 x halo modes),
     explicit diffusion, impdiff_1d or full-3D implicit diffusion (the
     Helmholtz solves through the re-slab), with or without the passive
-    scalar (mom_rk's scalar x halo mode), by 'mat' or 'fft', on ny and nx
-    divisible by gy gx (the Poisson solve's re-slab); every other
+    scalar (mom_rk's scalar x halo mode), by 'mat' or 'fft'; and with y
+    walls the duct and cavity classes _ywalls_refuse admits, explicit,
+    sgstype 'none', static Smagorinsky or the one-pass dynamic
+    Smagorinsky with any average (the Y_WALLS x X_HALO variants,
+    dsmag.cu's YW + YH x XH), with or without the scalar, by
+    'mat' or the mixed 'fft' route, on pencils of at least 2 rows; on ny
+    and nx divisible by gy gx (the Poisson solve's re-slab); every other
     configuration names its item of ROADMAP queue 1, multi-device."""
     gy, gx = int(cfg.dims[0]), int(cfg.dims[1])
     nx, ny, _ = cfg.ng
     item = 'ROADMAP queue 1, multi-device'
     what = []
-    if not _periodic(cfg, 1):
-        what.append('y walls')
+    ywalled = not _periodic(cfg, 1)
+    if ywalled:
+        if dsmag_twopass(cfg):
+            what.append('the two-pass dynamic Smagorinsky with y walls '
+                        "(dsmag_level1's and dsmag_level2's y-walled x-halo "
+                        'modes; the two passes on y-walled pencils)')
+        if ny % gy == 0 and ny // gy < 2:
+            what.append(f'y walls on pencils of {ny // gy} y row (a '
+                        "wall-owning pencil reads its two rows next to the "
+                        'wall): at least 2')
     if not _periodic(cfg, 0):
         what.append('x walls (run-time x-wall owner flags)')
     if cfg.sgstype == 'dsmag':
-        if cfg.dsmag_avg not in ('channel', 'dit'):
+        if not ywalled and cfg.dsmag_avg not in ('channel', 'dit'):
             what.append(f'the {cfg.dsmag_avg!r} dsmag average')
         if nx % gx == 0 and nx // gx < 2:
             kind = ('the two-pass dynamic Smagorinsky' if dsmag_twopass(cfg)
@@ -633,13 +662,16 @@ def dsmag_twopass(cfg: Config) -> bool:
         or os.environ.get('CALES_DSMAG_TWOPASS', '') == '1')
 
 
-def slab_rhs_planes(planes, own):
-    """The pressure's add_rhs_bound planes for a slab of a y-walled mesh,
-    which adds them on its local grid (cfg_local): the y faces' planes on
-    the slab that owns the face (own = (lower, upper)) and zero on the
-    others, whose first and last rows are no wall."""
-    return {k: (q if k[0] != 'y' or own[k[1]] else 0.0 * q)
-            for k, q in planes.items()}
+def slab_rhs_planes(planes, own, xs=None):
+    """The pressure's add_rhs_bound planes for a slab or pencil of a
+    y-walled mesh, which adds them on its local grid (cfg_local): the y
+    faces' planes on the slab that owns the face (own = (lower, upper))
+    and zero on the others, whose first and last rows are no wall; on a
+    pencil (xs its x columns) a y face's (nz, nx) plane cut to them."""
+    def cut(q):
+        return q[:, xs] if xs is not None and np.ndim(q) == 2 else q
+    return {k: (q if k[0] != 'y' else cut(q) if own[k[1]] else
+                0.0 * cut(q)) for k, q in planes.items()}
 
 
 def _slab_planes(vals, y0, nyl, ny):
@@ -664,15 +696,17 @@ def _dsmag_ratio(s0, num, den, avg, wz=None, reduce=None):
     ('channel', ave1d_channel, sgs.f90:433-538), per (z, y) row ('duct',
     ave2d_duct, sgs.f90:540-614), or one for the volume ('dit', ave0d_dit,
     sgs.f90:388-431: the rows' sums weighted by wz = dzf / l_z, as
-    cales_tpu timeloop.py:1512-1514 weighs them).  reduce: on a slab the
-    sum over the ranks, of the z rows' sums of num and den in one call
-    ('channel' and 'dit')."""
+    cales_tpu timeloop.py:1512-1514 weighs them).  reduce: on a mesh the
+    sum of the rows' sums of num and den over the ranks that share the
+    rows, in one call (Simulation._dsmag_reduce)."""
     if avg == 'duct':
-        ratio = num.sum(dim=-1) / den.sum(dim=-1)
-        return torch.clamp_min(s0 * ratio[:, :, None], 0.0)
-    num1, den1 = num.sum(dim=1), den.sum(dim=1)
+        num1, den1 = num.sum(dim=-1), den.sum(dim=-1)
+    else:
+        num1, den1 = num.sum(dim=1), den.sum(dim=1)
     if reduce is not None:
         num1, den1 = reduce(torch.stack([num1, den1]))
+    if avg == 'duct':
+        return torch.clamp_min(s0 * (num1 / den1)[:, :, None], 0.0)
     if avg == 'dit':
         ratio = torch.sum(num1 * wz) / torch.sum(den1 * wz)
         return torch.clamp_min(s0 * ratio, 0.0)
@@ -689,7 +723,7 @@ def _xstack_halo_pairs(xs, ywalls=False):
     return [(rows(c), rows(k)) for c, k in (x for x in xs if x is not None)]
 
 
-def _xstacks_on_slab(xs, halos, own=None):
+def _xstacks_on_slab(xs, halos, own=None, walls=None):
     """The x stack pairs xs of a slab with the neighbours' rows -1 and nyl
     (halos: mesh.halo_y's pairs of _xstack_halo_pairs(xs), in order):
     cols (nz, 3, nyl+2), corners (3, 3, nyl+2), row j at index j + 1, the
@@ -705,7 +739,17 @@ def _xstacks_on_slab(xs, halos, own=None):
     -1 and nyl (and v's rewrite row) on the sides it owns, the neighbours'
     rows elsewhere, the x counterpart of boundary.slab_ystack (the JAX
     package's xe bundles with their corner section on the ye bundle,
-    cales_tpu timeloop.py:160-199)."""
+    cales_tpu timeloop.py:160-199).  own with walls: a pencil of a
+    y-walled mesh, xs its x halos (mesh.halo_x, rows 0 .. nyl-1) and walls
+    for each of them (w, face): w the x halo pair of the field's y-row
+    stack pair of the pencil's own fill (mesh.halo_x of the (nz, 3, nxp)
+    stack: cols (nz, C, 3)), face whether the field is v.  On the walls
+    the pencil holds the rows -1 and nyl are the x neighbours' stack rows
+    0 and 2 (their wall recipe's: the y recipes are pointwise along x),
+    and v's row nyl-1 on the upper wall its rewrite, the stack's row 1
+    (the JAX package's _xe_wall_rows and _ystag_rw_gx,
+    cales_tpu timeloop.py:963-996); elsewhere, and the rows -2 and nyl+1
+    of a two-deep halo, the y exchange's."""
     def ext(a, h):
         h = h.transpose(1, 2)
         if own is None:
@@ -714,9 +758,24 @@ def _xstacks_on_slab(xs, halos, own=None):
         return torch.cat([a[..., :1] if own[0] else h[..., :1], a[..., 1:-1],
                           a[..., -1:] if own[1] else h[..., 1:]],
                          dim=2).contiguous()
+
+    def ext_walls(a, h, w, face):
+        h = h.transpose(1, 2)
+        d = h.shape[-1] // 2
+        lo = (torch.cat([h[..., :d - 1], w[..., :1]], dim=2) if own[0]
+              else h[..., :d])
+        hi = (torch.cat([w[..., 2:], h[..., d + 1:]], dim=2) if own[1]
+              else h[..., d:])
+        if face and own[1]:
+            a = torch.cat([a[..., :-1], w[..., 1:2]], dim=2)
+        return torch.cat([lo, a, hi], dim=2).contiguous()
     it = iter(halos)
-    return tuple(None if x is None else tuple(map(ext, x, next(it)))
-                 for x in xs)
+    if walls is None:
+        return tuple(None if x is None else tuple(map(ext, x, next(it)))
+                     for x in xs)
+    return tuple(None if x is None else tuple(
+        ext_walls(a, h, wq, face) for a, h, wq in zip(x, next(it), w))
+        for x, (w, face) in zip(xs, walls))
 
 
 class Simulation:
@@ -768,10 +827,11 @@ class Simulation:
         # a pencil of a 2D mesh (gx > 1): the kernels' x-halo variants on
         # the x neighbours' columns (mesh.halo_x)
         self.xhalo = mesh is not None and mesh.gx > 1
-        # a slab of a y-walled mesh: the y walls it holds (rank 0 the
-        # lower, rank gy-1 the upper), where its y-row stacks take the wall
-        # recipe's rows (boundary.slab_ystack); None elsewhere
-        self.yown = ((mesh.rank == 0, mesh.rank == mesh.gy - 1)
+        # a slab or pencil of a y-walled mesh: the y walls it holds (the
+        # mesh row iy = 0 the lower, iy = gy-1 the upper), where its y-row
+        # stacks take the wall recipe's rows (boundary.slab_ystack); None
+        # elsewhere
+        self.yown = ((mesh.iy == 0, mesh.iy == mesh.gy - 1)
                      if mesh is not None and self.ywalled else None)
 
         self.solver_p = poisson.make_solver(
@@ -850,7 +910,9 @@ class Simulation:
         self.rhsb_p = poisson.rhs_bound_planes(
             cfg, grid, self.cbcpre, ('c', 'c', 'c'), by_dir(cfg.bcpre))
         if self.yown is not None:
-            self.rhsb_p = slab_rhs_planes(self.rhsb_p, self.yown)
+            self.rhsb_p = slab_rhs_planes(
+                self.rhsb_p, self.yown,
+                slice(mesh.x0, mesh.x0 + mesh.nxp) if self.xhalo else None)
         self.sgs_setup = sgsmod.SGSSetup(cfg, grid, self.cbcvel)
         # the wall-modelled faces smag's 'E' stacks extrapolate: on a slab
         # of a y-walled mesh the y faces it owns only (its other sides'
@@ -1144,8 +1206,16 @@ class Simulation:
             mesh += ("; y walls: the slab's y-row stacks ("
                      + (' and '.join(owns) + ' wall recipe' if owns
                         else 'no wall') + ', halo rows elsewhere)')
+            if self.xhalo:
+                mesh += (", the x halos' wall rows the x neighbours' y-row "
+                         'stacks\' (in the x exchange), the Y_WALLS x X_HALO '
+                         'variants')
             if self.sgs_kernel == 'smag':
-                mesh += ", the y walls' shear planes summed over the ranks"
+                mesh += (", the y walls' shear planes summed over the "
+                         + ('mesh column' if self.xhalo else 'ranks'))
+            if self.xhalo and self.cfg.dsmag_avg == 'duct' and (
+                    self.sgs_kernel == 'dsmag'):
+                mesh += ", the 'duct' sums summed over the mesh row"
         scal = ''
         if self.has_scal:
             scal = ("; passive scalar: mom_rk's scalar stream (alpha = "
@@ -1341,10 +1411,16 @@ class Simulation:
         the wall recipe's on the sides the slab owns (_xstacks_on_slab).
         On a pencil (gx > 1) the x ghosts from the x neighbours' columns
         (_pencil_halos), the y ghosts from the y halo or, with gy = 1,
-        periodic."""
+        periodic; with y walls from the pencil's y-row stacks, the x
+        halos' wall rows the x neighbours' (the second field, v, is the
+        face-staggered one)."""
         pairs = list(zip(fields, edges))
         if self.xhalo:
-            yh, xh = self._pencil_halos(pairs, pairs)
+            yh, xh = self._pencil_halos(pairs, pairs, walls=walls)
+            if walls is not None:
+                ys = self._yslab(fields, edges, walls, yh)
+                return [kernels.padded(q, e, y=y, x=x)
+                        for q, e, y, x in zip(fields, edges, ys, xh)]
             return [kernels.padded(q, e, h=None if yh is None else yh[i],
                                    x=xh[i])
                     for i, (q, e) in enumerate(pairs)]
@@ -1362,7 +1438,7 @@ class Simulation:
                     fields, edges, self._yslab(fields, edges, walls, halos),
                     xs))]
 
-    def _pencil_halos(self, ypairs, xpairs, depth=1):
+    def _pencil_halos(self, ypairs, xpairs, depth=1, walls=None):
         """On a pencil mesh (gx > 1): (yh, xh), the y halo pairs of ypairs
         (mesh.halo_y; None with gy = 1, where y is periodic on the pencil)
         and the x halo pairs of xpairs (mesh.halo_x; None for a pair whose
@@ -1372,14 +1448,28 @@ class Simulation:
         completed by _halo_y, timeloop.py:998-1015).  depth 2 (the dsmag
         kernel): two rows and two columns a side, the x halos (nz, 4,
         nyl + 4) with the (x +-1..2, y +-1..2) corners, by the same two
-        hops (cales_tpu timeloop.py:1003-1005)."""
+        hops (cales_tpu timeloop.py:1003-1005).  walls (y walls): for
+        each of xpairs the y-row stack pair of the pencil's own fill of
+        its field, the second v's (the face-staggered one); the stacks'
+        edge columns ride the x exchange beside the fields, and the x
+        halos take their rows on the walls the pencil holds
+        (_xstacks_on_slab); with y walls the y halo is made with gy = 1
+        too (the local wrap: the stacks compose it with the walls)."""
         m = self.mesh
-        xs = m.halo_x([q for q in xpairs if q[0] is not None], depth=depth)
-        ypairs = list(ypairs) if m.gy > 1 else []
+        present = [i for i, q in enumerate(xpairs) if q[0] is not None]
+        xq = [xpairs[i] for i in present]
+        if walls is not None:
+            xq += [walls[i] for i in present]
+        xs = m.halo_x(xq, depth=depth)
+        xs, wx = xs[:len(present)], xs[len(present):]
+        ypairs = list(ypairs) if m.gy > 1 or walls is not None else []
         h = m.halo_y(ypairs + _xstack_halo_pairs(xs), depth=depth)
-        it = iter(_xstacks_on_slab(xs, h[len(ypairs):]))
+        it = iter(_xstacks_on_slab(
+            xs, h[len(ypairs):], None if walls is None else self.yown,
+            None if walls is None else [(w, i == 1)
+                                        for w, i in zip(wx, present)]))
         xh = [None if q is None else next(it) for q, _ in xpairs]
-        return (h[:len(ypairs)] if m.gy > 1 else None), xh
+        return (h[:len(ypairs)] if ypairs else None), xh
 
     def _yslab(self, fields, edges, walls, halos):
         """The y-row stack pairs of fields on a slab of a y-walled mesh
@@ -1573,7 +1663,10 @@ class Simulation:
         carry the y ghosts).  On a slab of a y-walled mesh (yq the slab's
         own fill's) each plane is made on the slab that owns its wall and
         is zero on the others, and one all_reduce gives every slab both:
-        van Driest weighs the nearer wall, which a slab may not hold."""
+        van Driest weighs the nearer wall, which a slab may not hold.  On a
+        pencil the planes are its columns', the jumps' column -1 from u's
+        x halo xq (whose rows carry the y ghosts), and the sum runs over
+        the mesh column (the pencils of its x columns)."""
         (yu, _), _, (yw, cw) = yq
         dyi = self.cfg.dli[1]
 
@@ -1592,7 +1685,7 @@ class Simulation:
         both = torch.stack([plane(side) if self.yown[side]
                             else torch.zeros_like(u[:, 0])
                             for side in range(2)])
-        both = self.mesh.all_reduce(both)
+        both = self.mesh.column_sum(both)
         return both[0], both[1]
 
     def _xwall_shear_planes(self, v, w, we, xq, vrow=None):
@@ -1650,7 +1743,7 @@ class Simulation:
             # only (ext_flags), so that the halo rows' 'E' z ghosts are the
             # neighbours' own
             setup = self.sgs_setup
-            slab_y = self.mesh is not None and self.yown is not None
+            slab_y = self.yown is not None and not self.xhalo
             if slab_y:
                 # with x walls the x stacks' rows -1 and nyl ride the same
                 # exchange
@@ -1672,10 +1765,16 @@ class Simulation:
             if self.xhalo:
                 # a pencil: the y halos of u, v, w (with gy = 1 y is
                 # periodic) and their x halos, whose u serves the z walls'
-                # shear planes' column x = -1
+                # shear planes' column x = -1 (and with y walls the y
+                # walls'); with y walls the pencil's y-row stacks, the x
+                # halos' wall rows the x neighbours'
                 pairs = list(zip((u, v, w), zq))
-                yh, xh = self._pencil_halos(pairs, pairs)
-                if yh is not None:
+                yh, xh = self._pencil_halos(pairs, pairs, walls=yq)
+                if yq is not None:
+                    yq = ye = self._yslab((u, v, w), zq, yq, yh)
+                    yh = None
+                    rows, corners = yq[1]
+                elif yh is not None:
                     rows, corners = yh[1]
             elif self.mesh is not None and not slab_y:
                 strain_e = zq if ext is None else [e for e, _ in ext]
@@ -1732,7 +1831,7 @@ class Simulation:
                 ywall = (self.dwy_t, self.nearylo_t,
                          *self._ywall_shear_planes(u, w, we, yq,
                                                    xq if self.xwalled
-                                                   else None))
+                                                   else xh))
             if ext is not None:
                 (ue, ve, we), ye_ext = zip(*ext)
                 if self.ywalled:
@@ -1752,6 +1851,16 @@ class Simulation:
             return self._dsmag_twopass(u, v, w, zq, yq)
         return self._dsmag_onepass(u, v, w, zq, yq)
 
+    def _dsmag_reduce(self):
+        """The reduction of the dsmag sums over the ranks that share their
+        rows: none on one device; 'duct''s (z, y) rows over the mesh row
+        (a slab's are its own), the z rows over the world."""
+        if self.mesh is None:
+            return None
+        if self.cfg.dsmag_avg == 'duct':
+            return self.mesh.row_sum
+        return self.mesh.all_reduce
+
     def _dsmag_onepass(self, u, v, w, zq, yq=None):
         """The one-pass dynamic model on the post-correction fill (its
         z-edge stacks zq, with y walls its y-row stack pairs yq): |S| and
@@ -1769,14 +1878,18 @@ class Simulation:
         gy gx ranks in that one all_reduce (mesh.all_reduce is the
         world's)."""
         cfg = self.cfg
-        yh = xh = reduce = None
+        yh = xh = None
+        reduce = self._dsmag_reduce()
         if self.xhalo:
+            # with y walls the pencil's y-row stacks beside the two-row y
+            # halo, the x halos' wall rows the x neighbours'; 'duct' sums
+            # over the mesh row, 'cavity' stays on the pencil
             pairs = list(zip((u, v, w), zq))
-            yh, xh = self._pencil_halos(pairs, pairs, depth=2)
-            reduce = self.mesh.all_reduce
+            yh, xh = self._pencil_halos(pairs, pairs, depth=2, walls=yq)
+            if yq is not None:
+                yq = self._yslab((u, v, w), zq, yq, yh)
         elif self.mesh is not None:
             yh = self.mesh.halo_y(list(zip((u, v, w), zq)), depth=2)
-            reduce = self.mesh.all_reduce
             if self.yown is not None:
                 # y walls: the slab's stacks (rows -1, nyl-1, nyl) beside
                 # the halo's rows -2 and nyl+1; 'duct' and 'cavity' stay on
@@ -1815,14 +1928,13 @@ class Simulation:
         ranks in the one all_reduce."""
         cfg = self.cfg
         dxi, dyi = cfg.dli[0], cfg.dli[1]
-        yh = xh = yown = reduce = None
+        yh = xh = yown = None
+        reduce = self._dsmag_reduce()
         if self.xhalo:
             pairs = list(zip((u, v, w), zq))
             yh, xh = self._pencil_halos(pairs, pairs, depth=2)
-            reduce = self.mesh.all_reduce
         elif self.mesh is not None:
             yh = self.mesh.halo_y(list(zip((u, v, w), zq)), depth=2)
-            reduce = self.mesh.all_reduce
             if self.yown is not None:
                 ye = self._yslab((u, v, w), zq, ye, yh)
                 yown = self.yown
@@ -2042,14 +2154,19 @@ class Simulation:
         if self.xhalo:
             # a pencil: the x neighbours' columns of the same fill and of
             # the scalar, their rows -1 and nyl in the y exchange of the
-            # rows
+            # rows; with y walls the pencil's stacks (the y-walled
+            # variant), the x halos' wall rows the x neighbours' stacks'
             fields, edges = (u, v, w, s, p, sca), (ue, ve, we, se, pe, scae)
             hy, xh = self._pencil_halos(
                 [(q, e) for q, e in zip(fields, edges) if q is not None],
-                list(zip(fields, edges)))
+                list(zip(fields, edges)),
+                walls=None if ye is None else (*ye, None, None)[:6])
             if hy is not None:
                 h = iter(hy)
                 yh = tuple(None if q is None else next(h) for q in fields)
+            if ye is not None:
+                ye = self._yslab(fields, edges, ye, yh)
+                yh = None
         elif self.mesh is not None:
             # the neighbours' rows of the same fill and of the scalar, one
             # exchange; with x walls their x stacks' rows ride it
@@ -2126,8 +2243,12 @@ class Simulation:
         xu2 = None if xpred is None else xpred[0]
         hv2 = hu2 = None
         if self.xhalo:
-            # a pencil: v's y halo and u's x halo
-            hy, (hu2,) = self._pencil_halos([(v, ve2)], [(u, ue2)])
+            # a pencil: v's y halo and u's x halo (with y walls its rows
+            # -1 and nyl on the walls the pencil holds the neighbours'
+            # wall rows)
+            hy, (hu2,) = self._pencil_halos(
+                [(v, ve2)], [(u, ue2)],
+                walls=None if ypred is None else ypred[:1])
             hv2 = None if hy is None else hy[0]
         elif self.mesh is not None:
             hv2 = self.mesh.halo_y([(v, ve2)])[0]
@@ -2148,7 +2269,9 @@ class Simulation:
         hpp = xhpp = None
         if self.xhalo:
             # a pencil: pp's y and x halos
-            hy, (xhpp,) = self._pencil_halos([(pp, ppe)], [(pp, ppe)])
+            hy, (xhpp,) = self._pencil_halos(
+                [(pp, ppe)], [(pp, ppe)],
+                walls=None if ypp is None else (ypp,))
             hpp = None if hy is None else hy[0]
         elif self.mesh is not None:
             hpp = self.mesh.halo_y([(pp, ppe)])[0]

@@ -262,7 +262,18 @@ PENCIL_ROWS = {'mom_rk (x halo, y halo)': ('mom_rk', '10p'),
                'dsmag_level2 (x halo, y halo)': ('dsmag_level2', '10pb'),
                'dsmag (2D filter, x halo, y halo)': ('dsmag', '10p2d'),
                'dsmag (2D filter, x halo, periodic z)': ('dsmag', '10pt2d'),
-               'mom_rk (scalar, x halo, y halo)': ('mom_rk', '10ps')}
+               'mom_rk (scalar, x halo, y halo)': ('mom_rk', '10ps'),
+               # the y walls' x-halo variants (Y_WALLS x X_HALO, dsmag's
+               # YW + YH x XH) on the duct (10py), the cavity (10pyc),
+               # the smag duct (10pys) and the scalar duct (10pysc)
+               'mom_rk (x halo, y walls)': ('mom_rk', '10py'),
+               'fillps (x halo, y walls)': ('fillps', '10py'),
+               'correc_updatep (x halo, y walls)': ('correc_updatep',
+                                                    '10py'),
+               'smag (x halo, y walls)': ('smag', '10pys'),
+               'dsmag (x halo, y walls, duct)': ('dsmag', '10py'),
+               'dsmag (x halo, y walls, cavity)': ('dsmag', '10pyc'),
+               'mom_rk (scalar, x halo, y walls)': ('mom_rk', '10pysc')}
 # the mixed route's y stage (ptransform 'fft' with y walls, phase 8f and
 # the mesh classes 10yf, 10ywf): apply_y with the y DCT alone on the real
 # view of the rfft's lanes at the headline grid, (nz, ny, 2 (nx/2 + 1)),
@@ -1993,9 +2004,17 @@ def pencil_rows(dev, card):
     the 2D test filter (F2D x XH); dsmag_level1's XH x YH mode on the
     channel (its 16 fields) and dsmag_level2's on its twin's output (the
     filtered velocity's depth-1 y and x halos, the z rows' sums as
-    totals).  Each row's time is also taken on the device alone
+    totals); the y walls' x-halo variants (Y_WALLS x X_HALO: mom_rk
+    explicit with nu_t and with the scalar, fillps, correc_updatep with
+    the deferred forcing, smag with the y walls' van Driest; dsmag's YW +
+    YH x XH with 'duct' (its (z, y) rows' sums as totals) and 'cavity')
+    on the y-row stacks of a pencil of the lower wall (yown (True,
+    False)).  Each row's time is also taken on the device alone
     (graph_ms, 'graph_ms'), and so is its kernel's periodic variant on the
-    same pencil ('periodic_variant_graph_ms')."""
+    same pencil ('periodic_variant_graph_ms': with y walls the whole
+    field's y-walled variant) and, for the y walls' rows, the X_HALO
+    variant of the periodic-y classes with the y halo in place of the
+    stacks ('x_halo_periodic_y_graph_ms')."""
     from cales_torch.config import Config
     from cales_torch.grid import make_grid_from_config
     from cales_torch.ops import kernels as K
@@ -2014,23 +2033,34 @@ def pencil_rows(dev, card):
     def xhalo():
         return (rnd(nz, 3, nyl + 2), rnd(3, 3, nyl + 2))
 
-    def row_of(row, fn, twin, a, kw, totals, work):
+    def row_of(row, fn, twin, a, kw, totals, work, plain_kw=None,
+               xhalo_kw=None):
         nbytes = ((work[0] + work[1]) * cells * 4
                   + sum(q.numel() * q.element_size()
-                        for q in _flat((kw.get('yh'), kw.get('xh')))))
+                        for q in _flat([kw.get(k) for k in (
+                            'yh', 'xh', 'ye', 'yv', 'ypp')])))
         r = _check_row(row, fn, twin, a, kw, totals,
                        lambda: (nbytes, work[2] * cells), card, PENCIL_NG)
         # the device time alone (a CUDA graph of the calls): at the
         # pencil's quarter of the cells the wrapper's host time (its
         # checks of every halo) may exceed a kernel's; and the same
         # kernel's periodic variant on the same pencil, no halo read
+        # (plain_kw), and the x-halo variant of the periodic-y classes
+        # (xhalo_kw, the y walls' rows)
         r['graph_ms'] = graph_ms(lambda: fn(*a, **kw), n=10)
-        plain_kw = {k: q for k, q in kw.items() if k not in ('yh', 'xh')}
+        if plain_kw is None:
+            plain_kw = {k: q for k, q in kw.items() if k not in ('yh', 'xh')}
         r['periodic_variant_graph_ms'] = graph_ms(
             lambda: fn(*a, **plain_kw), n=10)
+        more = ''
+        if xhalo_kw is not None:
+            r['x_halo_periodic_y_graph_ms'] = graph_ms(
+                lambda: fn(*a, **xhalo_kw), n=10)
+            more = (', the periodic-y x-halo variant '
+                    f'{r["x_halo_periodic_y_graph_ms"]:.4f} ms')
         say(f'  {row:<42s} on the device alone (a CUDA graph of 10 calls) '
             f'{r["graph_ms"]:.4f} ms, its periodic variant on the pencil '
-            f'{r["periodic_variant_graph_ms"]:.4f} ms  [{card}]')
+            f'{r["periodic_variant_graph_ms"]:.4f} ms{more}  [{card}]')
         return r
     cfg = Config(**{**LES_IMP_CFG, 'ng': PENCIL_NG, 'dims': (1, 1),
                     'dtype': 'float32'})
@@ -2165,7 +2195,124 @@ def pencil_rows(dev, card):
              xh=[xhalo() for _ in range(3)]),
         lambda res: [q.reshape(q.shape[0], -1).sum(dim=-1) for q in res],
         WORK['dsmag_level2'])
-    del u, v, w, e, yh2, xh2, lv1, fm, fvel, lij, s0, lv2
+    del yh2, xh2, lv1, fm, fvel, lij, s0, lv2
+    torch.cuda.empty_cache()
+    rows.update(_pencil_ywall_rows(dev, rnd, row_of, (u, v, w, e),
+                                   yhalo, xhalo))
+    del u, v, w, e
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _pencil_ywall_rows(dev, rnd, row_of, vel, yhalo, xhalo):
+    """pencil_rows' rows of the y walls' x-halo variants (see there): the
+    duct's (DUCT_CFG at the pencil, with smag for the y walls' van
+    Driest inputs) mom_rk, fillps, correc_updatep, smag, dsmag ('duct'
+    and 'cavity') and mom_rk's scalar variant on a lower-wall pencil's
+    seeded y-row stacks, x halos and (dsmag) depth-2 y halos, by
+    row_of."""
+    from cales_torch.config import Config
+    from cales_torch.grid import make_grid_from_config
+    from cales_torch.ops import boundary as bnd
+    from cales_torch.ops import kernels as K
+    from cales_torch.timeloop import Simulation
+    f32 = torch.float32
+    nx, nyl, nz = PENCIL_NG
+    u, v, w, e = vel
+    cfg = Config(**{**DUCT_CFG, 'ng': PENCIL_NG, 'dims': (1, 1),
+                    'dtype': 'float32', 'sgstype': 'smag'})
+    sim = Simulation(cfg, make_grid_from_config(cfg), device=dev)
+    dxi, dyi = cfg.dli[0], cfg.dli[1]
+
+    def ystack(scale=0.02):
+        return (rnd(nz, 3, nx, scale=scale), rnd(3, 3, nx, scale=scale))
+    p, pp, ru, rv, rw = (rnd(nz, nyl, nx) for _ in range(5))
+    s = rnd(nz, nyl, nx, scale=1e-3).abs()
+    se, pe, ppe = (rnd(3, nyl, nx, scale=1e-3).abs(), rnd(3, nyl, nx),
+                   rnd(3, nyl, nx))
+    ys = [ystack() for _ in range(5)]
+    ys[3] = tuple(0.05 * q.abs() for q in ys[3])     # nu_t's, positive
+    yh = [yhalo() for _ in range(5)]
+    xh = [xhalo() for _ in range(5)]
+    rows = {}
+
+    def mom_totals(res):
+        return [*res[:6], res[6].sum(dim=1)]
+    a = (u, v, w, s, p, *e, se, pe, ru, rv, rw, sim.dzci_t, sim.dzfi_t,
+         0.01, -0.005, cfg.visc, dxi, dyi, cfg.bforce)
+    sums = dict(sums=(True, False))
+    row = 'mom_rk (x halo, y walls)'
+    rows[row] = row_of(row, K.mom_rk, K.mom_rk_plain, a,
+                       dict(sums, ye=tuple(ys), xh=tuple(xh)), mom_totals,
+                       WORK['mom_rk'], plain_kw=dict(sums, ye=tuple(ys)),
+                       xhalo_kw=dict(sums, yh=tuple(yh), xh=tuple(xh)))
+    sca = rnd(nz, nyl, nx, scale=0.3).abs()
+    scae = torch.stack([rnd(nyl, nx, scale=0.3), sca[-1],
+                        rnd(nyl, nx, scale=0.3)])
+    sc = dict(sca=sca, scae=scae, rso=rnd(nz, nyl, nx),
+              scal=(cfg.visc / 0.71, 0.02))
+    # the scalar's y-row stack as a fill leaves it: its row 1 the last
+    # row, which the update reads there (the twin from the interior)
+    ysc, yhsc, xhsc = ystack(0.3), yhalo(), xhalo()
+    ysc[0][:, 1], ysc[1][:, 1] = sca[:, -1], scae[:, -1]
+    row = 'mom_rk (scalar, x halo, y walls)'
+    rows[row] = row_of(
+        row, K.mom_rk, K.mom_rk_plain, a,
+        dict(sums, ye=(*ys, ysc), xh=(*xh, xhsc), **sc),
+        lambda res: [*mom_totals(res), *res[7:]],
+        WORK_VARIANT[('mom_rk', 'duct_sc')],
+        plain_kw=dict(sums, ye=(*ys, ysc), **sc),
+        xhalo_kw=dict(sums, yh=(*yh, yhsc), xh=(*xh, xhsc), **sc))
+    a = (u, v, w, *e, sim.dzfi_t, 100.0, dxi, dyi)
+    row = 'fillps (x halo, y walls)'
+    rows[row] = row_of(row, K.fillps, K.fillps_plain, a,
+                       dict(yv=ys[1], xh=xh[0]), list, WORK['fillps'],
+                       plain_kw=dict(yv=ys[1]),
+                       xhalo_kw=dict(yh=yh[1], xh=xh[0]))
+    fuv = torch.tensor([0.01, 0.0], dtype=f32, device=dev)
+    a = (u, v, w, pp, p, e[2], ppe, 0.01, dxi, dyi, sim.dzci_t, sim.dzfi_t,
+         fuv)
+    ypp = ystack()
+    row = 'correc_updatep (x halo, y walls)'
+    rows[row] = row_of(row, K.correc_updatep, K.correc_updatep_plain, a,
+                       dict(ypp=ypp, yv=ys[1][0], xh=xh[4]), list,
+                       WORK['correc_updatep'],
+                       plain_kw=dict(ypp=ypp, yv=ys[1][0]),
+                       xhalo_kw=dict(yh=yh[4], xh=xh[4]))
+    tz = tuple(1e-2 * (1.0 + rnd(nyl, nx).abs()) for _ in range(2))
+    ty = tuple(1e-2 * (1.0 + rnd(nz, nx).abs()) for _ in range(2))
+    a = (u, v, w, *e, sim.dzci_t, sim.dzfi_t, dxi, dyi, cfg.visc,
+         sim.csd2_t, sim.dw_t, sim.nearlo_t, *tz)
+    yw = dict(ye=tuple(ys[:3]), ywall=(sim.dwy_t, sim.nearylo_t, *ty))
+    row = 'smag (x halo, y walls)'
+    rows[row] = row_of(row, K.smag, K.smag_plain, a,
+                       dict(yw, xh=tuple(xh[:3])), list, WORK['smag'],
+                       plain_kw=yw,
+                       xhalo_kw=dict(yh=tuple(yh[:3]), xh=tuple(xh[:3])))
+    del p, pp, ru, rv, rw, s, se, pe, ppe, sca, scae, sc, a
+    torch.cuda.empty_cache()
+    # dsmag's YW + YH x XH: the depth-2 y halos and two-deep x halos, the
+    # lower wall's pencil
+    yh2 = [(rnd(nz, 4, nx), rnd(3, 4, nx)) for _ in range(3)]
+    xh2 = [(rnd(nz, 4, nyl + 4), rnd(3, 4, nyl + 4)) for _ in range(3)]
+    a2 = torch.full((nz,), 4.0, dtype=f32, device=dev)
+    a2[0] = a2[-1] = 2.52
+    a = (u, v, w, *e, a2, sim.dzci_t, sim.dzfi_t, dxi, dyi, True, True)
+    # the pencil's y-row stacks as the step composes them
+    # (boundary.slab_ystack: the lower wall's rows, the y halo's above)
+    yds = tuple(bnd.slab_ystack(q, qe, y, h, (True, False))
+                for q, qe, y, h in zip((u, v, w), e, ys[:3], yh2))
+    for avg in ('duct', 'cavity'):
+        row = f'dsmag (x halo, y walls, {avg})'
+        totals = ((lambda res: [res[0], res[1].sum(dim=-1),
+                                res[2].sum(dim=-1)]) if avg == 'duct'
+                  else list)
+        rows[row] = row_of(row, K.dsmag, K.dsmag_plain, a,
+                           dict(ye=yds, yh=yh2, yown=(True, False),
+                                xh=xh2, avg=avg), totals, WORK['dsmag'],
+                           plain_kw=dict(ye=yds, avg=avg),
+                           xhalo_kw=dict(yh=yh2, xh=xh2, avg='channel'))
+    del sim, yh2, xh2, a, ys, yds, yh, xh
     torch.cuda.empty_cache()
     return rows
 
@@ -3980,14 +4127,18 @@ def phase_sharded(dev, card, p10):
     return r0['launches'], r0['halo_rows']
 
 
-def phase_cli_mesh(card, dims=(2, 1), transport='gloo'):
-    """The LES example through the CLI under torch.distributed.run with
-    dims(1:2) = gy, gx on a temporary copy of its namelist (phase 10c on
-    the y slabs, 10pc on the pencils), over `transport`."""
+def phase_cli_mesh(card, dims=(2, 1), transport='gloo',
+                   example='turbulent_channel_les'):
+    """The LES example (or the duct example, y walls and dsmag
+    'channel': phase 10pcy on the pencils) through the CLI under
+    torch.distributed.run with dims(1:2) = gy, gx on a temporary copy of
+    its namelist (phase 10c on the y slabs, 10pc on the pencils), over
+    `transport`."""
     gy, gx = dims
-    nml = (ROOT / 'examples' / 'turbulent_channel_les' / 'input.nml'
-           ).read_text()
-    require('dims(1:2) = 0, 0' in nml, 'the LES example lost its dims line')
+    duct = example == 'turbulent_duct_les'
+    nml = (ROOT / 'examples' / example / 'input.nml').read_text()
+    require('dims(1:2) = 0, 0' in nml, f'the {example} example lost its '
+                                       'dims line')
     with tempfile.TemporaryDirectory() as tmp:
         path = Path(tmp) / 'input.nml'
         path.write_text(nml.replace('dims(1:2) = 0, 0',
@@ -3996,7 +4147,8 @@ def phase_cli_mesh(card, dims=(2, 1), transport='gloo'):
                '--nproc_per_node', str(gy * gx), '-m', 'cales_torch',
                str(path), '--transport', transport, '--max-steps', '3',
                '--datadir', str(Path(tmp) / 'data')]
-        tag = 'phase 10c' if gx == 1 else 'phase 10pc'
+        tag = ('phase 10c' if gx == 1 else 'phase 10pcy' if duct
+               else 'phase 10pc')
         say(f'{tag}: {" ".join(cmd[1:])}  [{card}]')
         env = dict(os.environ)
         env.setdefault('GLOO_SOCKET_IFNAME', 'lo')
@@ -4010,9 +4162,11 @@ def phase_cli_mesh(card, dims=(2, 1), transport='gloo'):
         require(res.returncode == 0, f'CLI on the mesh failed:\n'
                                      f'{res.stderr[-3000:]}')
         path_line = [ln for ln in lines if 'Execution path' in ln]
-        want = ('apply_x', 'smag', f'dims = ({gy}, {gx})',
+        want = ('apply_x', 'dsmag' if duct else 'smag',
+                f'dims = ({gy}, {gx})',
                 'staged' if transport == 'gloo' else 'nccl') + (
-            () if gx == 1 else ('x halos', 're-slabbed'))
+            () if gx == 1 else ('x halos', 're-slabbed')) + (
+            ('Y_WALLS x X_HALO',) if duct else ())
         require(len(path_line) == 1 and all(k in path_line[0] for k in want),
                 'the Execution path line (rank 0 alone) does not name the '
                 'mesh path')
@@ -4476,6 +4630,20 @@ def _mesh_small(key, kw, mesh, dev, out_dir):
     small = {q: m64.gather(getattr(st, q))
              for q in ('u', 'v', 'w', 'p', 'visct')
              + (('s',) if st.s is not None else ())}
+    if m64.gx > 1:
+        # on pencils the kept planes' interior columns (their x ghost
+        # columns a pencil's own wrap): v's lower y face of the pencils of
+        # iy = 0, w's lower z face with its y ghost rows from the
+        # wall-owning pencils
+        small['vlo1'] = m64.gather(st.vlo[1][:, None, 1:-1].contiguous())[
+            :, 0]
+        mid = m64.gather(st.vlo[2][None, 1:-1, 1:-1].contiguous())[0]
+        ends = m64.gather(st.vlo[2][None, [0, -1], 1:-1].contiguous())[0]
+        small['vlo2'] = np.concatenate([ends[:1], mid, ends[-1:]])
+        if mesh.rank == 0:
+            np.savez(out_dir / f'small_{key}.npz', dt=dt, **small)
+        del sim, st
+        return
     w2 = [q.cpu().numpy()
           for q in m64.comm.all_gather(st.vlo[2].contiguous())]
     small['vlo2'] = np.concatenate([w2[0][:1]] + [q[1:-1] for q in w2]
@@ -4573,8 +4741,8 @@ def _small_vs_one_device(tag, kw, small, dev):
     route takes Thomas at every nz; a 'fft' class on its own route); with
     y walls the kept planes vlo[1] and vlo[2] too, with x walls vlo[0] on
     the interior y rows and vlo[2] (with periodic y on the interior y
-    rows: their periodic y ghost rows no fill reads).  Returns the errors
-    by name."""
+    rows: their periodic y ghost rows no fill reads); on pencils the kept
+    planes' interior columns.  Returns the errors by name."""
     from cales_torch.grid import make_grid_from_config
     from cales_torch.timeloop import Simulation
     route = {} if kw.get('ptransform') == 'fft' else {'zsolver': 'thomas'}
@@ -4599,6 +4767,8 @@ def _small_vs_one_device(tag, kw, small, dev):
             b = b[:, 1:-1]
         if sim.xwalled and not sim.ywalled and name == 'vlo2':
             a, b = a[1:-1], b[1:-1]
+        if kw['dims'][1] > 1 and name in ('vlo1', 'vlo2'):
+            b = b[:, 1:-1]
         if name == 'p':
             a, b = a - a.mean(), b - b.mean()
         err = float(np.abs(a - b).max())
@@ -4850,7 +5020,37 @@ PENCIL_CLASSES = (
     ('10ps', "channel LES with a passive scalar (phase 13's LES_SC_CFG)",
      dict(LES_SC_CFG, dims=PENCIL_DIMS),
      dict(mom_rk=3, fillps=3, correc_updatep=3, smag=3, apply_x=6,
-          apply_y=6, thomas_z=3), {}))
+          apply_y=6, thomas_z=3), {}),
+    # the y-walled classes (the Y_WALLS x X_HALO variants, dsmag's YW + YH
+    # x XH; the initial nu_t a kernel's launch on a walled pencil): the
+    # dsmag duct and cavity (bench.py duct_les_dsmag, cavity_les_dsmag),
+    # the smag and 'none' ducts, the dsmag duct with phase 13y's scalar,
+    # and the dsmag duct by 'fft' (the mixed route: apply_y with the y DCT
+    # on the rfft's lanes, no apply_x)
+    ('10py', "dsmag duct, 'duct' (duct_les_dsmag)",
+     dict(DUCT_CFG, dims=PENCIL_DIMS),
+     dict(mom_rk=3, fillps=3, correc_updatep=3, dsmag=3, apply_x=6,
+          apply_y=6, thomas_z=3), {'dsmag': 1}),
+    ('10pyc', "dsmag cavity, 'cavity' (cavity_les_dsmag)",
+     dict(CAVITY_CFG, dims=PENCIL_DIMS),
+     dict(mom_rk=3, fillps=3, correc_updatep=3, dsmag=3, apply_x=6,
+          apply_y=6, thomas_z=3), {'dsmag': 1}),
+    ('10pys', 'static-Smagorinsky duct (duct_les_dsmag with smag)',
+     dict(DUCT_CFG, sgstype='smag', dims=PENCIL_DIMS),
+     dict(mom_rk=3, fillps=3, correc_updatep=3, smag=3, apply_x=6,
+          apply_y=6, thomas_z=3), {'smag': 1}),
+    ('10pyn', "'none' duct (duct_les_dsmag with sgstype 'none')",
+     dict(DUCT_CFG, sgstype='none', dims=PENCIL_DIMS),
+     dict(mom_rk=3, fillps=3, correc_updatep=3, apply_x=6, apply_y=6,
+          thomas_z=3), {}),
+    ('10pysc', "dsmag duct with a passive scalar (phase 13y's)",
+     dict(DUCT_SC_CFG, dims=PENCIL_DIMS),
+     dict(mom_rk=3, fillps=3, correc_updatep=3, dsmag=3, apply_x=6,
+          apply_y=6, thomas_z=3), {'dsmag': 1}),
+    ('10pyf', "dsmag duct by 'fft', the mixed route (phase 8f)",
+     dict(DUCT_CFG, ptransform='fft', dims=PENCIL_DIMS),
+     dict(mom_rk=3, fillps=3, correc_updatep=3, dsmag=3, apply_y=6),
+     {'dsmag': 1}))
 # the small float64 twins: the classes', the 'none' channel's, the box's
 # smag LES (its launches counted: the no-wall smag's main path) and the
 # box DNS by 'fft'
@@ -4947,16 +5147,24 @@ def phase_pencil(dev, card, transport='gloo'):
     transpiring dsmag channel by two passes (dsmag_blow); 10p2d and
     10pt2d: the 2D test filter on the dsmag channel and on the box's 'dit'
     LES; 10ps: the channel LES with a passive scalar (its range gated as
-    on the y-slab mesh); on the 2D pencil mesh dims (2, 2), four
+    on the y-slab mesh); the y-walled classes (the Y_WALLS x X_HALO
+    variants, dsmag's YW + YH x XH; v on the y walls and the cavity's lid
+    gated as on the y-slab mesh): 10py and 10pyc, the dsmag duct ('duct')
+    and cavity ('cavity'), 10pys and 10pyn, the smag and 'none' ducts,
+    10pysc, the dsmag duct with a scalar, and 10pyf, the dsmag duct by
+    'fft' (the mixed route); on the 2D pencil mesh dims (2, 2), four
     ranks sharing the one card over gloo staged through the host (a
     correctness run: the staging and the four ranks' time-sharing of the
     card make its ms/step no scaling figure), each at 512x256x256 f32 with
     exact launches a rank and the PERF.md section 2 gates (the box's
     kinetic energy falling over the timed step); the small f64 twins of
-    the eleven, of the 'none' channel (10pn), the box's smag LES (10ptl,
+    the seventeen (with y walls the kept planes vlo[1] and vlo[2] on the
+    pencils' interior columns too), of the 'none' channel (10pn), the
+    box's smag LES (10ptl,
     its launches counted) and the box DNS by 'fft' (10ptf) against one
     device on the card within 1e-11; then the LES example through the CLI
-    with dims(1:2) = 2, 2 (10pc).  With transport
+    with dims(1:2) = 2, 2 (10pc), and the duct example (y walls, dsmag
+    'channel') the same way (10pcy).  With transport
     'nccl' (`chip_smoke.py --pencil-nccl`, four cards) the same on a card a
     rank, its ms/step a scaling figure.  Returns {key: rank 0's
     launches}."""
@@ -5024,6 +5232,19 @@ def phase_pencil(dev, card, transport='gloo'):
         require(r0['nu_t_min'] >= 0.0, f'{tag}: nu_t min {r0["nu_t_min"]}')
         require((r0['nu_t_max'] > 0.0) == (cfg.sgstype != 'none'),
                 f'{tag}: nu_t max {r0["nu_t_max"]}')
+        if cfg.cbc_pre(1) != 'PP':
+            # y walls: v on them (the owners' kept lower face and upper
+            # row) and the cavity's lid
+            say(f'  max |v| on the y walls {r0["v_ywalls"]:.3e}'
+                + ('' if r0['v_lid'] is None else
+                   f', v on the lid against its value {r0["v_lid"]:.3e}')
+                + f'  [{card}]')
+            require(r0['v_ywalls'] <= 1e-6, f'{tag}: v on the y walls '
+                                            f'{r0["v_ywalls"]:.3e}')
+            if r0['v_lid'] is not None:
+                require(r0['v_lid'] <= 1e-5, f'{tag}: v on the upper z '
+                                             f'face {r0["v_lid"]:.3e} from '
+                                             'its value')
         if r0['w_walls'] is not None:
             require(r0['w_walls'] <= 1e-6, f'{tag}: w on the walls '
                                            f'{r0["w_walls"]:.3e}')
@@ -5045,7 +5266,8 @@ def phase_pencil(dev, card, transport='gloo'):
                     f'outside [{lo}, {hi}]')
         report[key] = {k: r0[k] for k in ('ms_per_step', 'divmax', 'bulk_u',
                                            'nu_t_min', 'nu_t_max',
-                                           'w_walls', 'energy_before',
+                                           'w_walls', 'v_ywalls', 'v_lid',
+                                           'energy_before',
                                            'energy', 's_min', 's_max',
                                            'wall_s') if k in r0} | {
             'peak_gib_per_rank': [rk[key]['peak_gib'] for rk in ranks],
@@ -5066,6 +5288,7 @@ def phase_pencil(dev, card, transport='gloo'):
     print(json.dumps({'pencil_classes_2x2': report | {
         'transport': transport}}), flush=True)
     phase_cli_mesh(card, PENCIL_DIMS, transport)
+    phase_cli_mesh(card, PENCIL_DIMS, transport, 'turbulent_duct_les')
     return launches
 
 

@@ -178,10 +178,19 @@ def case_steps(m, inp, out, key, kw, nsteps):
     # the kept wall planes: v's lower y face from rank 0 (the lower y
     # wall's owner), w's lower z face over the slabs' rows, its y ghost
     # rows from the ranks that own the y walls; on a pencil mesh w's
-    # lower z face's interior
+    # lower z face's interior, and with y walls (vlo1p, vlo2p) v's lower
+    # y face over the interior columns of the pencils of iy = 0 and w's
+    # lower z face with its y ghost rows from the wall-owning pencils
+    # (the x ghost columns of a pencil's planes are its own wrap)
     if m.gx > 1:
         out[f'{key}.vlo2i'] = m.gather(
             st.vlo[2][None, 1:-1, 1:-1].contiguous())[0]
+        if not cfg.cbc_pre(1) == 'PP':
+            out[f'{key}.vlo1p'] = m.gather(
+                st.vlo[1][:, None, 1:-1].contiguous())[:, 0]
+            ends = m.gather(st.vlo[2][None, [0, -1], 1:-1].contiguous())[0]
+            out[f'{key}.vlo2p'] = np.concatenate(
+                [ends[:1], out[f'{key}.vlo2i'], ends[-1:]])
     out[f'{key}.vlo1'] = st.vlo[1].numpy()
     # u's lower x face over the slabs' rows (its y ghost rows, periodic
     # copies that no fill reads, stay out)
@@ -248,27 +257,28 @@ def case_driver(m, out, key, kw, datadir):
 
 
 def case_scal_restart(m, out, key, kw, datadir):
-    """driver.run on the slabs with a passive scalar to nstep, its last
-    step saved (fld.bin and the scal.bin sidecar, slab by slab), then a
-    restart from those files for one step more: the gathered scalar after
-    the first run, its time, and u and s after the restart go to the
-    parent."""
+    """driver.run on the slabs (with a passive scalar or without) to
+    nstep, its last step saved (fld.bin and with a scalar the scal.bin
+    sidecar, slab by slab), then a restart from those files for one step
+    more: the gathered scalar after the first run (u without a scalar),
+    its time, and u (and s) after the restart go to the parent."""
     import shutil
     from cales_torch import driver
     cfg = _config(kw)
     first, again = datadir / 'first', datadir / 'restart'
     _, st = driver.run(cfg, datadir=first, device='cpu', verbose=False,
                        mesh=m)
-    out[f'{key}.s1'] = m.gather(st.s)
+    names = ('u', 's') if st.s is not None else ('u',)
+    out[f'{key}.{names[-1]}1'] = m.gather(getattr(st, names[-1]))
     out[f'{key}.t1'] = np.array(st.time)
     if m.rank == 0:
         again.mkdir()
-        for name in ('fld.bin', 'scal.bin'):
+        for name in ('fld.bin', 'scal.bin')[:len(names)]:
             shutil.copy(first / name, again / name)
     m.barrier()
     _, st = driver.run(cfg.replace(restart=True, nstep=cfg.nstep + 1),
                        datadir=again, device='cpu', verbose=False, mesh=m)
-    for name in ('u', 's'):
+    for name in names:
         out[f'{key}.{name}2'] = m.gather(getattr(st, name))
 
 
@@ -301,7 +311,7 @@ def main(work, rank, world):
         elif kind == 'driver':
             case_driver(m, out, case['key'], case['cfg'],
                         work / case['key'])
-        elif kind == 'scal_restart':
+        elif kind in ('scal_restart', 'restart'):
             case_scal_restart(m, out, case['key'], case['cfg'],
                               work / case['key'])
         else:

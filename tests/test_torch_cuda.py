@@ -3094,6 +3094,116 @@ def test_cuda_pencil_twopass_and_2d_filter_x_halo_match_twins(dev, dtype,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('own', [(True, False), (False, True), (False, False),
+                                 (True, True)],
+                         ids=['lower', 'upper', 'middle', 'both'])
+@pytest.mark.parametrize('dtype, shape', [
+    ('float64', (37, 13, 9)), ('float64', (34, 2, 12)),
+    ('float32', (37, 21, 9)), ('float32', (33, 2, 12))])
+def test_cuda_pencil_ywalled_x_halo_variants_match_twins(dev, dtype, shape,
+                                                         own):
+    """The y walls' x-halo modes on a pencil of the 2D mesh (random y-row
+    stacks, random x halos with random rows -1 and nyl, and for dsmag
+    random depth-2 y halos, two-deep x halos and the walls the pencil
+    holds; shapes no tile fits and pencils of 2 rows): mom_rk's Y_WALLS x
+    X_HALO (explicit, with and without nu_t, and its scalar variant),
+    fillps's, correc_updatep's (the deferred forcing) and smag's (the y
+    walls' van Driest), and dsmag's YW + YH x XH ('duct', 'cavity',
+    'channel'), each against its twin: float64 within 1e-12 of each
+    output's maximum, float32 within 1e-5."""
+    from cales_torch.ops import boundary as bnd
+    nx, ny, nz = shape
+    dt = getattr(torch, dtype)
+    tol = 1e-12 if dt == torch.float64 else 1e-5
+    rng = np.random.default_rng(61)
+
+    def c(q):
+        return q.to(dt).contiguous()
+
+    def r(*s, scale=0.1):
+        return c(torch.as_tensor(scale * rng.standard_normal(s), device=dev))
+    d = _sgs_inputs(dev, shape, 62)
+    fields, edges = [c(q) for q in d['fields']], [c(e) for e in d['edges']]
+    dzci, dzfi = c(d['dzci']), c(d['dzfi'])
+
+    def Y(scale=0.1):
+        return (r(nz, 3, nx, scale=scale), r(3, 3, nx, scale=scale))
+
+    def X():
+        return (r(nz, 3, ny + 2), r(3, 3, ny + 2))
+    K.reset_launches()
+    s, p, pp = r(nz, ny, nx).abs(), r(nz, ny, nx), r(nz, ny, nx)
+    ys, xs = [Y() for _ in range(5)], [X() for _ in range(5)]
+    ys[3] = tuple(q.abs() for q in ys[3])
+    # the scalar's edge stack and y-row stack as a fill leaves them: their
+    # row 1 its last plane and last row (the update reads them there)
+    sca = r(nz, ny, nx, scale=0.3).abs()
+    scae = torch.stack([r(ny, nx, scale=0.3), sca[-1],
+                        r(ny, nx, scale=0.3)])
+    ysc = Y(0.3)
+    ysc[0][:, 1], ysc[1][:, 1] = sca[:, -1], scae[:, -1]
+    for sgs in (True, False):
+        for scal in (False, True):
+            mom = (*fields, s if sgs else None, p, *edges,
+                   r(3, ny, nx) if sgs else None, r(3, ny, nx),
+                   *(r(nz, ny, nx) for _ in range(3)), dzci, dzfi, 5e-4,
+                   -2e-4, d['visc'], d['dxi'], d['dyi'], (0.1, 0.0, 0.0))
+            ye = tuple(ys) if sgs else (*ys[:3], None, ys[4])
+            xh = tuple(xs) if sgs else (*xs[:3], None, xs[4])
+            kw = dict(sums=(True, True), ye=ye, xh=xh)
+            if scal:
+                kw.update(ye=(*ye, ysc), xh=(*xh, X()), sca=sca,
+                          scae=scae, rso=r(nz, ny, nx),
+                          scal=(d['visc'] / 0.71, 0.02))
+            got, ref = K.mom_rk(*mom, **kw), K.mom_rk_plain(*mom, **kw)
+            for g, q in zip((*got[:6], *got[8:]), (*ref[:6], *ref[8:])):
+                _rel_close(g, q, tol)
+            _rel_close(got[6].sum(1), ref[6][:, 0], tol)
+    fil = (*fields, *edges, dzfi, 40.0, d['dxi'], d['dyi'])
+    fkw = dict(yv=ys[1], xh=xs[0])
+    _rel_close(K.fillps(*fil, **fkw), K.fillps_plain(*fil, **fkw), tol)
+    cor = (*fields, pp, p, edges[2], r(3, ny, nx), 5e-4, d['dxi'], d['dyi'],
+           dzci, dzfi, c(torch.tensor([0.01, -0.02], device=dev)))
+    ckw = dict(ypp=Y(), yv=ys[1][0], xh=X())
+    for g, q in zip(K.correc_updatep(*cor, **ckw),
+                    K.correc_updatep_plain(*cor, **ckw)):
+        _rel_close(g, q, tol)
+    tz = tuple(r(ny, nx, scale=1.0).abs() for _ in range(2))
+    ty = tuple(r(nz, nx, scale=1.0).abs() for _ in range(2))
+    smg = (*fields, *edges, dzci, dzfi, d['dxi'], d['dyi'], d['visc'],
+           c(d['csd2']), c(d['dw']), c(d['nearlo']), *tz)
+    skw = dict(ye=tuple(ys[:3]), xh=tuple(xs[:3]),
+               ywall=(c(0.05 + r(ny).abs()),
+                      c(torch.as_tensor((np.arange(ny) < ny / 2) * 1.0,
+                                        device=dev)), *ty))
+    _rel_close(K.smag(*smg, **skw), K.smag_plain(*smg, **skw), tol)
+    a2 = c(torch.full((nz,), 4.0, dtype=torch.float64, device=dev))
+    yh2 = [(r(nz, 4, nx), r(3, 4, nx)) for _ in range(3)]
+    xh2 = [(r(nz, 4, ny + 4), r(3, 4, ny + 4)) for _ in range(3)]
+    args = (*fields, *edges, a2, dzci, dzfi, d['dxi'], d['dyi'], True, True,
+            (0.01, -0.02, 0.0, 0.03))
+    # the pencil's y-row stacks as the step composes them: the wall rows on
+    # the sides it holds, the y halo's rows and its own last row elsewhere
+    yds = tuple(bnd.slab_ystack(q, e, y, h, own)
+                for q, e, y, h in zip(fields, edges, ys[:3], yh2))
+    for avg in ('duct', 'cavity', 'channel'):
+        kw = dict(ye=yds, yh=yh2, yown=own, xh=xh2, avg=avg,
+                  yvals=(0.02, -0.01, 0.0, 0.01))
+        got, ref = K.dsmag(*args, **kw), K.dsmag_plain(*args, **kw)
+        _rel_close(got[0], ref[0], tol)
+        if avg == 'duct':
+            _rel_close(got[1].sum(-1), ref[1][..., 0], tol)
+            _rel_close(got[2].sum(-1), ref[2][..., 0], tol)
+        elif avg == 'channel':
+            _rel_close(got[1].sum(1), ref[1][:, 0], tol)
+            _rel_close(got[2].sum(1), ref[2][:, 0], tol)
+    torch.cuda.synchronize()
+    assert (K.LAUNCHES['mom_rk'], K.LAUNCHES['fillps'],
+            K.LAUNCHES['correc_updatep'], K.LAUNCHES['smag'],
+            K.LAUNCHES['dsmag']) == (4, 1, 1, 1, 3)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize('yhalo', [True, False], ids=['y halo', 'periodic y'])
 @pytest.mark.parametrize('dtype, shape', [
     ('float64', (37, 13, 9)), ('float64', (34, 2, 12)),

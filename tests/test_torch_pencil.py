@@ -17,9 +17,11 @@ tests/_sharded_worker.py, and the kernels' x-halo twins in process.
     construction); the wrappers take the twins on CPU tensors;
   * the pencil mesh's slice in unsupported() (the channel classes, full-3D
     implicit diffusion, the triperiodic box, the dynamic Smagorinsky by
-    one pass with either filter and by two passes, the passive scalar)
-    and what stays refused (y walls, the wall model, pencils thinner than
-    dsmag's x halo, ...).
+    one pass with either filter and by two passes, the passive scalar;
+    the y-walled duct and cavity classes: 'none', smag, dsmag 'duct' and
+    'cavity', the scalar duct, by 'mat' and 'fft') and what stays refused
+    (the two passes with y walls, the wall model, x walls, pencils of one
+    row with y walls, pencils thinner than dsmag's x halo, ...).
 """
 import numpy as np
 import pytest
@@ -285,6 +287,23 @@ def test_pencil_slice_and_refusals(monkeypatch):
             mp.setenv('CALES_DSMAG_TWOPASS', '1')
             kw = {**SMAG, 'ng': (512, 256, 256), **dsmag}
             assert unsupported(Config(**kw, dims=dims)) == [], dims
+        # the y-walled classes: bench.py's duct_les_dsmag ('duct') and
+        # cavity_les_dsmag ('cavity'), the duct example's 'channel' and
+        # 'dit', the 'none' and smag ducts and the scalar duct, by 'mat'
+        # and by 'fft' (the mixed route)
+        import bench
+        mats = bench._matrix_configs((512, 256, 256))
+        duct = mats['duct_les_dsmag']
+        for kw in (duct, mats['cavity_les_dsmag'],
+                   dict(duct, dsmag_avg='channel'),
+                   dict(duct, dsmag_avg='dit'),
+                   dict(duct, sgstype='none'), dict(duct, sgstype='smag'),
+                   dict(duct, sgstype='smag', scalar=True, pr=0.71,
+                        cbcscal=(('P', 'D', 'N'), ('P', 'D', 'N')),
+                        bcscal=((0.0, 1.0, 0.0), (0.0, 0.5, 0.0)))):
+            for route in ('mat', 'fft'):
+                assert unsupported(Config(**{**kw, 'ptransform': route},
+                                          dims=dims)) == [], (dims, kw)
     wall_y = dict(cbcvel=((('P', 'P', 'P'), ('D', 'D', 'D'),
                            ('D', 'D', 'D')),) * 2,
                   cbcpre=(('P', 'N', 'N'),) * 2,
@@ -295,17 +314,27 @@ def test_pencil_slice_and_refusals(monkeypatch):
              'the two-pass dynamic Smagorinsky on pencils of 1'),
             (dict(dsmag, filter_2d=True, ng=(4, 16, 16), dims=(1, 4)),
              "thinner than the dsmag kernel's two-column x halo"),
-            (dict(wall_y, sgstype='dsmag', dsmag_avg='duct'), 'y walls'),
+            # the two passes with y walls: CALES_DSMAG_TWOPASS=1 below
             (dict(dsmag, ng=(4, 16, 16), dims=(1, 4)),
              "thinner than the dsmag kernel's two-column x halo"),
-            (dict(wall_y, sgstype='none'), 'y walls'),
+            # pencils of one row with y walls
+            (dict(wall_y, sgstype='none', ng=(16, 4, 16), dims=(4, 2)),
+             'y walls on pencils of 1 y row'),
             (dict(lwm=((0, 0, 1), (0, 0, 1)), hwm=0.1), 'the wall model'),
-            # the scalar with y walls (the scalar duct)
-            (dict(wall_y, scalar=True,
-                  cbcscal=(('P', 'D', 'N'), ('P', 'D', 'N'))), 'y walls'),
+            # the wall model with y walls (the duct WMLES)
+            (dict(wall_y, lwm=((0, 1, 1), (0, 1, 1)), hwm=0.2),
+             'the wall model'),
             (dict(XDEV_BCS, sgstype='none'), 'x walls'),
             (dict(ng=(18, 16, 16)), 'not divisible by gy gx')):
         missing = unsupported(Config(**{**SMAG, 'dims': (2, 2), **change}))
         assert any(needle in m and 'gx > 1' in m
                    and 'ROADMAP queue 1, multi-device' in m
                    for m in missing), (needle, missing)
+    # the two passes with y walls, under CALES_DSMAG_TWOPASS=1
+    monkeypatch.setenv('CALES_DSMAG_TWOPASS', '1')
+    missing = unsupported(Config(**{**SMAG, 'dims': (2, 2), **wall_y,
+                                    'sgstype': 'dsmag',
+                                    'dsmag_avg': 'duct'}))
+    assert any('the two-pass dynamic Smagorinsky with y walls' in m
+               and 'gx > 1' in m and 'ROADMAP queue 1, multi-device' in m
+               for m in missing), missing

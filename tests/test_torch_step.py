@@ -187,11 +187,13 @@ def test_exec_path_names_device_kernels_and_solve(pair):
     # this 'fft' LES runs on the y-slab mesh (test_torch_sharded_fft.py)
     # and on the pencil mesh (test_torch_pencil_steps.py), and so do the
     # one-pass dsmag (test_torch_pencil_dsmag.py) and its 2D test filter
-    # (test_torch_pencil_twopass.py); y walls on the pencil mesh stay
-    # refused
+    # (test_torch_pencil_twopass.py), and the one-pass dsmag duct
+    # (test_torch_pencil_ydsmag.py); the two passes with y walls (the
+    # duct with transpiring z walls) on the pencil mesh stay refused
     (dict(dims=(2, 2), sgstype='dsmag', dsmag_avg='duct',
           cbcvel=((('P', 'P', 'P'), ('D', 'D', 'D'), ('D', 'D', 'D')),) * 2,
-          cbcpre=(('P', 'N', 'N'),) * 2, cbcsgs=(('P', 'D', 'D'),) * 2),
+          cbcpre=(('P', 'N', 'N'),) * 2, cbcsgs=(('P', 'D', 'D'),) * 2,
+          bcvel=(((0.0,) * 3, (0.0,) * 3, (0.0, 0.0, 0.003)),) * 2),
      'mesh'),
     (dict(sgstype='none', cbcvel=((('P', 'P', 'P'), ('D', 'D', 'D'),
                                    ('P', 'P', 'P')),) * 2,
